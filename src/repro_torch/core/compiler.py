@@ -14,8 +14,9 @@ execute the same :class:`~repro_torch.core.plan.TilePlan`:
                    wrappers run their plain versions.
 
 ``overlapped=False`` selects the non-overlapped baselines (eager only, as
-in the JAX package).  Every unsupported (kind, backend) pair raises the one
-structured ``NotImplementedError`` of :func:`unsupported_error`.
+in the JAX package).  Any other kind, and the fused backend without
+overlap, raise the one structured ``NotImplementedError`` of
+:func:`unsupported_error`.
 """
 
 from __future__ import annotations
@@ -27,21 +28,17 @@ from repro_torch.backend.mesh import World
 from repro_torch.core import overlap as _eager
 from repro_torch.core.channels import BlockChannel
 
-__all__ = ["compile_overlap", "unsupported_error", "KINDS", "BACKENDS", "FUSED_KINDS", "PORTED_KINDS"]
+__all__ = ["compile_overlap", "unsupported_error", "KINDS", "BACKENDS"]
 
-# the JAX package's kinds; this slice ports the two GEMM kinds
-KINDS = ("ag_matmul", "matmul_rs", "ag_attention", "ag_moe")
-PORTED_KINDS = ("ag_matmul", "matmul_rs")
+KINDS = ("ag_matmul", "matmul_rs")  # on both backends
 BACKENDS = ("eager", "fused")
-FUSED_KINDS = ("ag_matmul", "matmul_rs")
 
 
-def unsupported_error(kind: str, backend: str) -> NotImplementedError:
-    """The one structured error for every unsupported (kind, backend) pair."""
-    supported = FUSED_KINDS if backend == "fused" else PORTED_KINDS
+def unsupported_error(kind: str, backend: str, overlapped: bool = True) -> NotImplementedError:
+    """The one structured error for every unsupported (kind, backend, overlapped) case."""
     return NotImplementedError(
-        f"compile_overlap: kind={kind!r} is not supported on "
-        f"backend={backend!r} (supported there: {supported})"
+        f"compile_overlap: kind={kind!r} with overlapped={overlapped} is not supported on "
+        f"backend={backend!r} (supported: kinds {KINDS} on every backend; overlapped=False on 'eager' only)"
     )
 
 
@@ -55,14 +52,12 @@ def compile_overlap(
     **kw,
 ) -> Callable:
     """Compile a tile program for ``world``; returns ``fn(x, w) -> out``."""
-    if kind not in KINDS:
-        raise ValueError(f"unknown kind {kind!r}; expected one of {KINDS}")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if not isinstance(channel, BlockChannel):
         raise TypeError(f"channel must be a BlockChannel, got {type(channel)}")
-    if kind not in PORTED_KINDS or (backend == "fused" and (kind not in FUSED_KINDS or not overlapped)):
-        raise unsupported_error(kind, backend)
+    if kind not in KINDS or (backend == "fused" and not overlapped):
+        raise unsupported_error(kind, backend, overlapped)
 
     if backend == "eager":
         table = {

@@ -77,14 +77,16 @@ def serve(
     device=None,
     seed: int = 0,
     reduce: bool = False,
-    backend: Optional[str] = None,
 ) -> dict:
-    """Build a seeded model, serve ``batch`` greedy requests, report the run."""
+    """Build a seeded model, serve ``batch`` greedy requests, report the run.
+
+    The backend follows the device: the fused kernels on CUDA, the eager
+    executor on the CPU."""
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
     w = World(world, device)
-    pc = ParallelContext(world=w, backend=backend)
+    pc = ParallelContext(world=w)
     gen = torch.Generator(device=w.device).manual_seed(seed)
     params = lm.init(cfg, w, gen, DTYPES[dtype])
     prompts = torch.from_numpy(make_prompts(cfg.vocab_size, batch, prompt_len, seed)).to(w.device)
@@ -110,12 +112,11 @@ def main(argv=None):
     ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (emulated on one device)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
-    ap.add_argument("--backend", default=None, choices=["fused", "eager"])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     r = serve(
         args.arch, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, world=args.world,
-        dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce, backend=args.backend,
+        dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce,
     )  # fmt: skip
     print(
         f"device {r['device']} backend {r['backend']}: prefill {r['prefill_ms']:.2f} ms "

@@ -133,10 +133,7 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
 def embed_tokens(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, S] -> [B, S, D] (global)."""
     table = params["embed"].reshape(-1, params["embed"].shape[-1])
-    x = table[tokens]
-    if cfg.family == "vlm" or cfg.name.startswith("gemma"):
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype, device=x.device)
-    return x
+    return table[tokens]
 
 
 def logits(params: dict, cfg, pc: ParallelContext, x: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,6 @@ each shard — the JAX package's layout, so its weights load as they are.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from repro_torch.nn.layers import ACTS, he_init, rms_norm
@@ -21,10 +19,9 @@ from repro_torch.nn.layers import ACTS, he_init, rms_norm
 __all__ = ["init", "apply_seq", "apply_decode"]
 
 
-def init(cfg, generator: torch.Generator, dtype: torch.dtype, device, d_ff: Optional[int] = None) -> dict:
+def init(cfg, generator: torch.Generator, dtype: torch.dtype, device) -> dict:
     """Global (unsharded) parameters in the JAX package's layout."""
-    d = cfg.d_model
-    f = d_ff or cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     return {
         "ln": torch.zeros((d,), dtype=dtype, device=device),
         "w_gu": he_init((d, 2 * f), generator, dtype, device, fan_in=d),

@@ -196,14 +196,12 @@ def test_comp_tile_is_honored(world):
 
 def test_unsupported_pairs_raise_structured(world):
     ch = BlockChannel(axis="model")
-    for kind, backend in (("ag_attention", "eager"), ("ag_moe", "fused"), ("ag_attention", "fused")):
+    cases = [(kind, backend, True) for kind in ("ag_attention", "ag_moe", "conv") for backend in ("eager", "fused")]
+    cases += [("ag_matmul", "fused", False), ("matmul_rs", "fused", False)]
+    for kind, backend, overlapped in cases:
         with pytest.raises(NotImplementedError) as err:
-            compile_overlap(kind, ch, world=world, backend=backend)
-        assert str(err.value) == str(unsupported_error(kind, backend))
-    with pytest.raises(NotImplementedError):
-        compile_overlap("ag_matmul", ch, world=world, backend="fused", overlapped=False)
-    with pytest.raises(ValueError):
-        compile_overlap("conv", ch, world=world)
+            compile_overlap(kind, ch, world=world, backend=backend, overlapped=overlapped)
+        assert str(err.value) == str(unsupported_error(kind, backend, overlapped))
     with pytest.raises(ValueError):
         compile_overlap("ag_matmul", ch, world=world, backend="xla")
 
