@@ -8,16 +8,29 @@ non-zero (no phase catches its own failure):
               TF32 off, so the float32 plain versions are true float32.
   2. build    builds the kernels from ``src/repro_torch/kernels/csrc``.
   3. kernels  every kernel against its plain PyTorch version at the shapes
-              the serve path gives it (smollm-360m, W = 4 emulated ranks,
-              4 requests x 256 tokens), in float32 and bfloat16, plus the
-              fused kernels over every tile order x C in {1, 2}; kernel,
-              plain-version and library-call times with CUDA events.
+              the serve paths give it (W = 4 emulated ranks, 4 requests x
+              256 tokens: smollm-360m for the dense kernels, granite-moe-
+              3b-a800m for the grouped expert GEMM, plus one random,
+              non-monotone expert table with a row tile below capacity), in
+              float32 and bfloat16, and the fused kernels over every tile
+              order x C in {1, 2}; kernel, plain-version and library-call
+              times with CUDA events.
   4. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
               executor with plain attention, then the main path in bfloat16
               (prefill + greedy decode), with the kernels' launch counts.
-  5. summary  the launch counts, the per-kernel JSON line, the card's power
-              limit, and the last line ``{"ok": true, "device": {...}}``.
+  5. moe      granite-moe-3b-a800m at its published size with seeded
+              weights: (a) one MoE layer, fused against eager in float32;
+              (b) the float32 prefill, fused against eager (routing flips
+              between the two are counted, and the logits are then held on
+              the batch rows whose routing agreed in every layer); (c) the
+              main path in bfloat16 through ``serve.greedy``, with its
+              launch counts held exactly.
+  6. summary  the launch counts of both main paths, the per-kernel JSON
+              line, the card's power limit, and the last line
+              ``{"ok": true, "device": {...}}``.
+
+Nothing is cut: both models run at full depth and width.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -36,6 +49,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "smollm-360m"
+ARCH_MOE = "granite-moe-3b-a800m"
 WORLD, BATCH, PROMPT, NEW_TOKENS = 4, 4, 256, 16
 ITERS = 20  # timed launches per kernel case (after warm-up)
 # published dense peaks of the H100 SXM and its memory rate (bound_ms)
@@ -52,12 +66,14 @@ REPLACES = {
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
     "gemm_rs": "src/repro/kernels/gemm_rs.py:183",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
+    "grouped_matmul": "src/repro/kernels/grouped_matmul.py:28",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "ag_gemm": "src/repro_torch/kernels/csrc/ag_gemm.cu",
     "gemm_rs": "src/repro_torch/kernels/csrc/gemm_rs.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
 }
 
 
@@ -89,6 +105,20 @@ def bound(flops: float, nbytes: float, dtype_name: str):
     t_ops = flops / PEAK_OPS[dtype_name]
     t_mem = nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def ssd_intra_bound(batch: int = 4, seq: int = 256, d_model: int = 2560, expand: int = 2, headdim: int = 64,
+                    chunk: int = 64):
+    """Computed (not measured) bound of the still-to-port TPU kernel
+    ``ssd_intra_chunk`` (src/repro/kernels/mamba_ssd.py:123) at mamba2-2.7b
+    prefill shapes: T = batch x (seq / chunk) x heads tiles of
+    y = (CB * exp(cum_i - cum_j) * [i >= j]) @ xdt, all float32.
+    Returns (ms, bound_by, flops, bytes)."""
+    t, q, p = batch * (seq // chunk) * (d_model * expand // headdim), chunk, headdim
+    flops = t * (2 * q * q * p + 2 * q * q)  # the [q, q] @ [q, p] product, exp and mask-multiply
+    nbytes = 4 * t * (q + q * q + 2 * q * p)  # cum, cb, xdt read once; y written once
+    ms, by = bound(flops, nbytes, "float32")
+    return ms, by, flops, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -155,18 +185,38 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     return rec
 
 
+def path_shapes(arch: str) -> dict:
+    """The kernels' shapes on an arch's serve path (W ranks, B x S tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_overlap import _capacity
+    from repro_torch.models.lm import padded_vocab
+    from repro_torch.nn.attention import layout
+
+    cfg = get_config(arch)
+    lay = layout(cfg, WORLD)
+    shp = dict(d=cfg.d_model, hd=cfg.hd, h_loc=lay.h_loc, kv_loc=lay.kv_loc, vocab=padded_vocab(cfg, WORLD),
+               n_qkv=(lay.h_loc + 2 * lay.kv_loc) * cfg.hd, n_o=lay.h_loc * cfg.hd)  # fmt: skip
+    if cfg.moe is None:
+        shp.update(n_gu=2 * cfg.d_ff // WORLD, f_loc=cfg.d_ff // WORLD)
+    else:  # one ring step's expert groups: B x cap rows per (rank, expert), C = 1
+        e_total = -(-cfg.moe.num_experts // WORLD) * WORLD
+        cap = _capacity(PROMPT // WORLD, cfg.moe.top_k, e_total, cfg.moe.capacity_factor)
+        shp.update(e_loc=e_total // WORLD, cap=cap, fe=cfg.moe.d_expert)
+    return shp
+
+
 def phase_kernels(iters: int):
     import torch
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
     from repro_torch.core.channels import BlockChannel, CommSpec
+    from repro_torch.kernels.grouped_matmul import group_tile_table
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     W, B, S = WORLD, BATCH, PROMPT
     s_loc = S // W
-    d, hd, n_qkv, n_gu, n_o, f_loc = 960, 64, 512, 1280, 256, 640
     recs = {}
 
     def rnd(*shape, dtype):
@@ -176,47 +226,85 @@ def phase_kernels(iters: int):
         it = iters if dtype == torch.bfloat16 else 2
         check_only = dtype != torch.bfloat16  # times are taken in the serving dtype
         isz = torch.tensor([], dtype=dtype).element_size()
-        # --- ag_gemm: qkv and gate/up projections
-        for tag, n in (("qkv", n_qkv), ("gate_up", n_gu)):
-            x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n, dtype=dtype) * d**-0.5
-            xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
-            recs[("ag_gemm", tag, dtype)] = _case(
-                f"ag_gemm[{tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
-                lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w),
-                lambda: torch.matmul(xg[None], w[:, None]),
-                2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), it, check_only,
+        for arch in (ARCH, ARCH_MOE):
+            shp = path_shapes(arch)
+            d, hd = shp["d"], shp["hd"]
+            # --- ag_gemm: qkv (and the dense gate/up) projections
+            for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp.get("n_gu"))):
+                if n is None:
+                    continue
+                x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n, dtype=dtype) * d**-0.5
+                xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
+                recs[("ag_gemm", arch, tag, dtype)] = _case(
+                    f"ag_gemm[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
+                    lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w),
+                    lambda: torch.matmul(xg[None], w[:, None]),
+                    2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), it, check_only,
+                )  # fmt: skip
+            # --- gemm_rs: attention out-projection (and the dense down projection)
+            for tag, k in (("o_proj", shp["n_o"]), ("down", shp.get("f_loc"))):
+                if k is None:
+                    continue
+                x, w = rnd(W, B, S, k, dtype=dtype), rnd(W, k, d, dtype=dtype) * (W * k) ** -0.5
+                recs[("gemm_rs", arch, tag, dtype)] = _case(
+                    f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
+                    lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w),
+                    lambda: torch.matmul(x, w[:, None]).sum(0),
+                    2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
+                )  # fmt: skip
+            # --- flash attention: [W*B*h_loc, S, hd] vs [W*B*kv_loc, S, hd], causal
+            rep = shp["h_loc"] // shp["kv_loc"]
+            q = rnd(W * B * shp["h_loc"], S, hd, dtype=dtype)
+            kk, vv = rnd(W * B * shp["kv_loc"], S, hd, dtype=dtype), rnd(W * B * shp["kv_loc"], S, hd, dtype=dtype)
+            ke, ve = kk.repeat_interleave(rep, 0)[None], vv.repeat_interleave(rep, 0)[None]
+            pairs = S * (S + 1) // 2
+            recs[("flash_attention", arch, "prefill", dtype)] = _case(
+                f"flash_attention[{arch}] q{list(q.shape)} kv{list(kk.shape)} causal", dtype,
+                lambda: K.flash_attention(q, kk, vv, causal=True),
+                lambda: K.flash_attention_plain(q, kk, vv, causal=True),
+                lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True),
+                4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), it, check_only,
             )  # fmt: skip
-        # --- gemm_rs: attention out-projection and MLP down projection
-        for tag, k in (("o_proj", n_o), ("down", f_loc)):
-            x, w = rnd(W, B, S, k, dtype=dtype), rnd(W, k, d, dtype=dtype) * (W * k) ** -0.5
-            recs[("gemm_rs", tag, dtype)] = _case(
-                f"gemm_rs[{tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
-                lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w),
-                lambda: torch.matmul(x, w[:, None]).sum(0),
-                2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
+            # --- matmul: the LM head of the prefill
+            x, w = rnd(B * S, d, dtype=dtype), rnd(d, shp["vocab"], dtype=dtype) * 0.02
+            recs[("matmul", arch, "lm_head", dtype)] = _case(
+                f"matmul[{arch} lm_head] x{list(x.shape)} w{list(w.shape)}", dtype,
+                lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
+                2 * B * S * d * shp["vocab"], isz * (x.numel() + w.numel() + B * S * shp["vocab"]), it, check_only,
             )  # fmt: skip
-        # --- flash attention: [W*B*h_loc, S, hd] vs [W*B*kv_loc, S, hd], causal
-        q = rnd(W * B * 4, S, hd, dtype=dtype)
-        kk, vv = rnd(W * B * 2, S, hd, dtype=dtype), rnd(W * B * 2, S, hd, dtype=dtype)
-        ke, ve = kk.repeat_interleave(2, 0)[None], vv.repeat_interleave(2, 0)[None]
-        pairs = S * (S + 1) // 2
-        recs[("flash_attention", "prefill", dtype)] = _case(
-            f"flash_attention q{list(q.shape)} kv{list(kk.shape)} causal", dtype,
-            lambda: K.flash_attention(q, kk, vv, causal=True),
-            lambda: K.flash_attention_plain(q, kk, vv, causal=True),
-            lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True),
-            4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), it, check_only,
-        )  # fmt: skip
-        # --- matmul: the LM head of the prefill
-        vocab = 49152
-        x, w = rnd(B * S, d, dtype=dtype), rnd(d, vocab, dtype=dtype) * 0.02
-        recs[("matmul", "lm_head", dtype)] = _case(
-            f"matmul[lm_head] x{list(x.shape)} w{list(w.shape)}", dtype,
-            lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
-            2 * B * S * d * vocab, isz * (x.numel() + w.numel() + B * S * vocab), it, check_only,
-        )  # fmt: skip
+            if "e_loc" not in shp:
+                continue
+            # --- grouped_matmul: the expert GEMMs of one ring step, every rank and
+            # batch row in one launch: groups of B x cap rows per (rank, expert)
+            e_loc, cap, fe = shp["e_loc"], shp["cap"], shp["fe"]
+            table = group_tile_table(W * e_loc, B * cap, dev)
+            for tag, k, n, out_dt in (("gate_up", d, 2 * fe, torch.float32), ("down", fe, d, dtype)):
+                x, w = rnd(W * e_loc * B * cap, k, dtype=dtype), rnd(W * e_loc, k, n, dtype=dtype) * k**-0.5
+                osz = torch.tensor([], dtype=out_dt).element_size()
+                recs[("grouped_matmul", arch, tag, dtype)] = _case(
+                    f"grouped_matmul[{arch} {tag}] x{list(x.shape)} w{list(w.shape)} -> {str(out_dt)[6:]}", dtype,
+                    lambda: K.grouped_matmul(x, w, table, out_dtype=out_dt),
+                    lambda: K.grouped_matmul_plain(x, w, table, out_dt),
+                    lambda: torch.bmm(x.view(W * e_loc, B * cap, k), w),
+                    2 * x.shape[0] * k * n, isz * (x.numel() + w.numel()) + osz * x.shape[0] * n, it, check_only,
+                )  # fmt: skip
+            # a random, non-monotone table over 8-row tiles (below the capacity)
+            x, w = rnd(W * e_loc * B * cap, fe, dtype=dtype), rnd(W * e_loc, fe, d, dtype=dtype) * fe**-0.5
+            rand_table = torch.randint(0, W * e_loc, (x.shape[0] // 8,), generator=g, device=dev, dtype=torch.int32)
+            used = rand_table.unique().numel()  # the weights this table reads
+            recs[("grouped_matmul", arch, "random", dtype)] = _case(
+                f"grouped_matmul[random table, 8-row tiles] x{list(x.shape)} w{list(w.shape)}", dtype,
+                lambda: K.grouped_matmul(x, w, rand_table), lambda: K.grouped_matmul_plain(x, w, rand_table), None,
+                2 * x.shape[0] * fe * d, isz * (x.numel() + used * fe * d + x.shape[0] * d), it, check_only,
+            )  # fmt: skip
+            del x, w
 
-    # --- every order x C in {1, 2} through both fused kernels (float32)
+    ms, by, flops, nbytes = ssd_intra_bound()
+    print(f"[kernels] ssd_intra_chunk (still to port) at mamba2-2.7b prefill shapes: computed bound {ms:.4f} ms "
+          f"({by}; {flops:.4g} flops, {nbytes:.4g} bytes), not measured")  # fmt: skip
+    # --- every order x C in {1, 2} through both fused kernels (float32, smollm shapes)
+    shp = path_shapes(ARCH)
+    d, n_qkv, n_o = shp["d"], shp["n_qkv"], shp["n_o"]
     for order in ("ring", "bidir_ring", "all2all"):
         for nch in (1, 2):
             ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
@@ -229,42 +317,31 @@ def phase_kernels(iters: int):
     return recs
 
 
-def phase_serve(profile: bool = False):
+def _hold_logits(what: str, a, b):
+    """Fail unless fused logits ``a`` agree with eager ``b`` to the float32 bound."""
+    import torch
+
+    diff = (a.float() - b.float()).abs()
+    worst = (diff - LOGIT_RTOL * b.float().abs()).max().item()
+    print(
+        f"{what}, fused vs eager: max|diff| {diff.max().item():.3e} (bound |diff| <= {LOGIT_ATOL:g} + "
+        f"{LOGIT_RTOL:g} x |eager|; max|eager| {b.float().abs().max().item():.3e}; {a.numel()} logits)"
+    )
+    if not (torch.isfinite(a).all() and worst <= LOGIT_ATOL):
+        raise SystemExit(f"chip_smoke: {what}: fused disagrees with the eager path")
+
+
+def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool) -> dict:
+    """The bfloat16 main path: seeded weights, a warm-up greedy run, then the
+    run whose launch counts (set to 0 just before it) must equal ``expect``."""
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.backend.mesh import World
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
-    from repro_torch.parallel.context import ParallelContext
 
-    cfg = get_config(ARCH)
-    world = World(WORLD, "cuda")
-    pc = ParallelContext(world=world)
-    pc_eager = ParallelContext(world=world, backend="eager")
-    assert pc.backend == "fused", pc.backend
-    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, seed=0)).to(world.device)
     max_len = PROMPT + NEW_TOKENS
-
-    # float32: the fused prefill against the eager executor + plain attention
-    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
-    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
-    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
-    a, b = lg_f[:, -1].float(), lg_e[:, -1].float()
-    diff = (a - b).abs()
-    worst = (diff - LOGIT_RTOL * b.abs()).max().item()
-    print(
-        f"[serve] f32 prefill last-position logits, fused vs eager: max|diff| {diff.max().item():.3e} "
-        f"(bound |diff| <= {LOGIT_ATOL:g} + {LOGIT_RTOL:g} x |eager|; max|eager| {b.abs().max().item():.3e})"
-    )
-    if not (torch.isfinite(a).all() and worst <= LOGIT_ATOL):
-        raise SystemExit("chip_smoke: fused prefill logits disagree with the eager path")
-    del params, lg_f, lg_e, a, b, diff
-    torch.cuda.empty_cache()
-
-    # bfloat16: the main path (prefill + greedy decode) through the kernels
-    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    params = lm.init(cfg, pc.world, torch.Generator(device=pc.device).manual_seed(0), torch.bfloat16)
     warm, _ = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -275,24 +352,144 @@ def phase_serve(profile: bool = False):
     prefill_ms = t["prefill_s"] * 1e3
     tps = BATCH * t["decode_steps"] / t["decode_s"]
     print(
-        f"[serve] bf16 {ARCH} W={WORLD}: {BATCH} requests x {PROMPT} prompt tokens + {NEW_TOKENS} greedy tokens; "
-        f"prefill {prefill_ms:.2f} ms, decode {tps:.1f} tokens/s ({t['decode_steps']} steps), "
+        f"[{tag}] bf16 {cfg.name} W={WORLD}: {BATCH} requests x {PROMPT} prompt tokens + {NEW_TOKENS} greedy "
+        f"tokens; prefill {prefill_ms:.2f} ms, decode {tps:.1f} tokens/s ({t['decode_steps']} steps), "
         f"peak memory {peak / 2**20:.0f} MiB"
     )
-    print(f"[serve] launch counts of the main path: {counts}")
-    expect = {"ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers, "flash_attention": cfg.n_layers,
-              "matmul": NEW_TOKENS}  # fmt: skip
+    print(f"[{tag}] launch counts of the main path: {counts}")
     if counts != expect:
-        raise SystemExit(f"chip_smoke: launch counts {counts} != expected {expect}")
+        raise SystemExit(f"chip_smoke: {cfg.name} launch counts {counts} != expected {expect}")
     if tuple(tokens.shape) != (BATCH, NEW_TOKENS) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise SystemExit(f"chip_smoke: bad generated tokens {tokens.shape}")
     if not torch.equal(tokens, warm):
         raise SystemExit("chip_smoke: two greedy runs on the same weights gave different tokens")
-    print(f"[serve] tokens[0]: {tokens[0].tolist()}")
+    print(f"[{tag}] tokens[0]: {tokens[0].tolist()}")
     result = {"prefill_ms": prefill_ms, "decode_tokens_per_s": tps, "peak_bytes": peak, "counts": counts}
     if profile:
         result["profile"] = _profile(params, cfg, pc, prompts, max_len)
     return result
+
+
+def _setup(arch: str):
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.parallel.context import ParallelContext
+
+    cfg = get_config(arch)
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    assert pc.backend == "fused", pc.backend
+    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, seed=0)).to(world.device)
+    return cfg, world, pc, ParallelContext(world=world, backend="eager"), prompts
+
+
+def phase_serve(profile: bool = False):
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH)
+    max_len = PROMPT + NEW_TOKENS
+
+    # float32: the fused prefill against the eager executor + plain attention
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
+    _hold_logits("[serve] f32 prefill last-position logits", lg_f[:, -1], lg_e[:, -1])
+    del params, lg_f, lg_e
+    torch.cuda.empty_cache()
+
+    # bfloat16: the main path (prefill + greedy decode) through the kernels
+    expect = {"ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers, "flash_attention": cfg.n_layers,
+              "matmul": NEW_TOKENS, "grouped_matmul": 0}  # fmt: skip
+    return _main_path("serve", cfg, pc, prompts, expect, profile)
+
+
+def _record_routing():
+    """Record every router call's expert sets (sorted top-k ids) in a list;
+    returns (the list, a function that restores the router)."""
+    from repro_torch.nn import moe
+
+    calls, router = [], moe.moe_router
+
+    def recording(*a, **kw):
+        out = router(*a, **kw)
+        calls.append(out[0].sort(-1).values)
+        return out
+
+    moe.moe_router = recording
+    return calls, lambda: setattr(moe, "moe_router", router)
+
+
+def phase_moe(profile: bool = False):
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.nn import moe
+    from repro_torch.models import lm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_MOE)
+    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+
+    # (a) one MoE layer at full width, fused against eager on the same input:
+    # the router sees the same input on both paths, so the routing is identical
+    layer = params["layers"][0]["ffn"]
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device)
+    before = K.grouped_matmul.launches
+    (y_f, aux_f), (y_e, aux_e) = (moe.apply_seq(layer, x, p, cfg) for p in (pc, pc_eager))
+    if K.grouped_matmul.launches - before != 2 * WORLD:  # gate|up and down at every ring step
+        raise SystemExit("chip_smoke: the fused MoE layer did not run on the grouped kernel")
+    out_f, out_e = y_f - x, y_e - x
+    err, scale = (out_f - out_e).abs().max().item(), out_e.abs().max().item()
+    print(
+        f"[moe] f32 MoE layer [{WORLD}, {BATCH}, {s_loc}, {cfg.d_model}], fused vs eager: max|diff| {err:.3e} "
+        f"(bound {TOL['float32']:g} x max|eager| {scale:.3e}); aux {aux_f.item():.6f} vs {aux_e.item():.6f}"
+    )
+    if not (torch.isfinite(out_f).all() and err <= TOL["float32"] * scale and torch.equal(aux_f, aux_e)):
+        raise SystemExit("chip_smoke: the fused MoE layer disagrees with the eager one")
+    del x, y_f, y_e, out_f, out_e
+
+    # (b) the float32 prefill, fused against eager, with the routing recorded
+    calls, restore = _record_routing()
+    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    routing_f = list(calls)
+    calls.clear()
+    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
+    routing_e = list(calls)
+    restore()
+    # a token whose expert set differs in some layer changes itself and the
+    # positions after it in its batch row (causal attention, capacity slots);
+    # the positions before a row's first flip are held to the bound
+    first = torch.full((BATCH,), PROMPT, device=world.device)
+    flips = []
+    for rf, re_ in zip(routing_f, routing_e):
+        differ = (rf != re_).any(-1).permute(1, 0, 2).reshape(BATCH, PROMPT)  # [B, S] (rank-major positions)
+        flips.append(int(differ.sum()))
+        pos = torch.where(differ, torch.arange(PROMPT, device=world.device), PROMPT)
+        first = torch.minimum(first, pos.min(-1).values)
+    decisions = len(routing_f) * BATCH * PROMPT
+    print(
+        f"[moe] f32 prefill routing, fused vs eager: {sum(flips)} of {decisions} token expert sets differ "
+        f"(per layer: {flips}); positions held per row before the first flip: {first.tolist()}"
+    )
+    if len(routing_f) != cfg.n_layers or int(first.sum()) == 0:
+        raise SystemExit("chip_smoke: no prefill position of the MoE model can be held against the eager path")
+    held = torch.arange(PROMPT, device=world.device)[None, :] < first[:, None]
+    _hold_logits("[moe] f32 prefill logits (positions before the first flip)", lg_f[held], lg_e[held])
+    result = {"layer_err": err, "routing_flips": flips, "held_positions": first.tolist()}
+    del params, lg_f, lg_e, layer, routing_f, routing_e
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16: the main path (prefill + greedy decode) through the kernels
+    steps = WORLD  # ring steps per MoE layer (C = 1 on this path)
+    expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "flash_attention": cfg.n_layers,
+              "matmul": NEW_TOKENS, "grouped_matmul": 2 * steps * cfg.n_layers}  # fmt: skip
+    return {**result, **_main_path("moe", cfg, pc, prompts, expect, profile)}
 
 
 def _profile(params, cfg, pc, prompts, max_len):
@@ -326,7 +523,7 @@ def _profile(params, cfg, pc, prompts, max_len):
         ]
         busy = sum(r[1] for r in rows)
         rows.sort(key=lambda r: -r[1])
-        print(f"[profile] {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
+        print(f"[profile] {cfg.name} {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
               f"(idle share {max(0.0, 1 - busy / wall_us):.3f})")  # fmt: skip
         for key, t, n in rows[:8]:
             print(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
@@ -349,17 +546,19 @@ def main(argv=None) -> int:
     out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build()}
     recs = phase_kernels(ITERS)
     out["serve"] = phase_serve(args.profile)
-    counts = out["serve"]["counts"]
-    print("kernels: " + json.dumps(counts))
+    out["moe"] = phase_moe(args.profile)
+    by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"]}
+    print("kernels: " + json.dumps(by_path))
     line = []
-    for name, tag in (("matmul", "lm_head"), ("ag_gemm", "gate_up"), ("gemm_rs", "down"),
-                      ("flash_attention", "prefill")):  # fmt: skip
-        r = recs[(name, tag, torch.bfloat16)]
+    for name, arch, tag in (("matmul", ARCH, "lm_head"), ("ag_gemm", ARCH, "gate_up"), ("gemm_rs", ARCH, "down"),
+                            ("flash_attention", ARCH, "prefill"), ("grouped_matmul", ARCH_MOE, "gate_up")):  # fmt: skip
+        r = recs[(name, arch, tag, torch.bfloat16)]
         line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": counts.get(name, 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": sum(c[name] for c in by_path.values()), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["case"], "dtype": r["dtype"],
+            "launches_by_path": {arch: c[name] for arch, c in by_path.items()},
         })  # fmt: skip
     if args.json:
         out["cases"] = [r for r in recs.values()]

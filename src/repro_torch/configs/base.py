@@ -1,10 +1,10 @@
-"""Architecture configuration schema (dense fields) and the config registry.
+"""Architecture configuration schema and the config registry.
 
-The port's copy of ``repro/configs/base.py`` for the dense decoder slice:
-one :class:`ArchConfig` per architecture, registered by name.  The field
-names and defaults match the JAX package's, so a config built here and one
-built there describe the same model.  ``reduce_config`` is the same-family
-shrink of ``repro/launch/train.py`` used by the CPU tests.
+The port's copy of ``repro/configs/base.py`` for the decoder slices (dense
+and MoE): one :class:`ArchConfig` per architecture, registered by name.  The
+field names and defaults match the JAX package's, so a config built here and
+one built there describe the same model.  ``reduce_config`` is the
+same-family shrink of ``repro/launch/train.py`` used by the CPU tests.
 """
 
 from __future__ import annotations
@@ -12,7 +12,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "register", "get_config", "reduce_config"]
+__all__ = ["ArchConfig", "MoEConfig", "register", "get_config", "reduce_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int  # routed experts (pre-padding)
+    top_k: int
+    d_expert: int  # expert intermediate size
+    num_shared: int = 0  # shared experts (DeepSeek-style)
+    first_k_dense: int = 0  # leading layers that use a dense MLP
+    dense_d_ff: int = 0  # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +43,7 @@ class ArchConfig:
     rope_theta_local: float = 1e4  # theta for attn_local layers
     local_window: Optional[int] = None  # sliding-window size for local layers
     pattern: Tuple[str, ...] = ("attn",)  # layer-kind pattern, tiled over depth
+    moe: Optional[MoEConfig] = None
     norm_eps: float = 1e-6
     act: str = "silu"
     tie_embeddings: bool = False
@@ -40,6 +53,8 @@ class ArchConfig:
         return self.head_dim or (self.d_model // max(1, self.n_heads))
 
     def layer_kind(self, i: int) -> str:
+        if self.moe and i < self.moe.first_k_dense:
+            return "attn_dense"  # leading dense-MLP layers (DeepSeek)
         return self.pattern[i % len(self.pattern)]
 
 
@@ -62,11 +77,16 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> ArchConfig:
-    """Reduced same-family config for CPU runs (the dense branch of the
-    JAX package's ``launch/train.reduce_config``)."""
-    kw = dict(n_layers=len(cfg.pattern) * 2, d_model=d_model, vocab_size=vocab)
+    """Reduced same-family config for CPU runs (the dense and MoE branches
+    of the JAX package's ``launch/train.reduce_config``)."""
+    k0 = cfg.moe.first_k_dense if cfg.moe else 0
+    kw = dict(n_layers=len(cfg.pattern) * 2 + k0, d_model=d_model, vocab_size=vocab)
     if cfg.n_heads:
         kw.update(n_heads=8, n_kv_heads=min(cfg.n_kv_heads, 4), head_dim=16)
     if cfg.d_ff:
         kw.update(d_ff=d_model * 2)
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=min(2, cfg.moe.top_k), d_expert=64, dense_d_ff=d_model * 2
+        )
     return dataclasses.replace(cfg, **kw)

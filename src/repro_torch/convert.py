@@ -9,7 +9,10 @@ the JAX package's partition specs:
 
   * ``wq`` / ``wkv`` / ``w_gu`` by columns (``P(dp, "model")``);
   * ``wo`` / ``w_down`` by rows (``P("model", dp)``);
-  * ``embed`` by vocab rows (``P("model", dp)``).
+  * ``embed`` by vocab rows (``P("model", dp)``);
+  * MoE blocks by experts: ``w_gu`` / ``w_down`` rows of dim 0
+    (``P("model", ...)``); the ``router`` is replicated and stays float32
+    whatever ``dtype`` the other leaves take.
 
 The GQA zero pads and the per-shard gate|up interleave are kept exactly as
 stored; each rank's ``wq`` and ``wkv`` columns are joined into one ``wqkv``
@@ -67,7 +70,15 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
                 "wo": shard_rows(mixer["wo"], world),
             }
         }
-        if "ffn" in layer:
+        if "ffn" in layer and "router" in layer["ffn"]:
+            f = layer["ffn"]
+            new["ffn"] = {
+                "ln": f["ln"],
+                "router": f["router"],
+                "w_gu": shard_rows(f["w_gu"], world),
+                "w_down": shard_rows(f["w_down"], world),
+            }
+        elif "ffn" in layer:
             f = layer["ffn"]
             new["ffn"] = {
                 "ln": f["ln"],
@@ -80,7 +91,7 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
 
 def _tensors(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _tensors(v, device, dtype) for k, v in tree.items()}
+        return {k: _tensors(v, device, torch.float32 if k == "router" else dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tensors(v, device, dtype) for v in tree]
     t = torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
@@ -90,7 +101,8 @@ def _tensors(tree, device, dtype):
 def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optional[torch.dtype] = None):
     """The JAX package's ``lm.init`` pytree (numpy leaves) -> port parameters.
 
-    ``dtype`` defaults to float32; leaves are moved to ``world.device``.
+    ``dtype`` defaults to float32 (the MoE router is float32 always); leaves
+    are moved to ``world.device``.
     """
     from repro_torch.models.lm import layer_plan
 

@@ -1,17 +1,21 @@
 """TileLink frontend: compile ``(kind, BlockChannel)`` tile programs.
 
 The port's counterpart of ``repro/core/compiler.py`` for the single-kind
-forms of the dense slice.  ``compile_overlap`` validates the (kind, backend)
-pair and returns a callable over rank-stacked operands; both backends
-execute the same :class:`~repro_torch.core.plan.TilePlan`:
+forms ``ag_matmul``, ``matmul_rs`` and ``ag_moe``.  ``compile_overlap``
+validates the (kind, backend) pair and returns a callable over
+rank-stacked operands; both backends execute the same :class:`~repro_torch.core.plan.TilePlan`:
 
   backend="eager"  the eager schedule executor (``core/overlap.run_plan``),
                    a permute per step on the world's rank dimension — the
                    counterpart of the JAX package's ``"xla"`` backend;
   backend="fused"  the fused Hopper kernels (``kernels/ag_gemm.py``,
                    ``kernels/gemm_rs.py``) reading the plan's tables — the
-                   counterpart of ``"pallas"``.  On CPU tensors the kernel
-                   wrappers run their plain versions.
+                   counterpart of ``"pallas"``.  ``ag_moe`` has no fused
+                   communication kernel (nor has the JAX package's "pallas"
+                   table): its permutes stay the eager executor's, and the
+                   expert GEMMs run on the grouped kernel
+                   (``kernels/grouped_matmul.py``).  On CPU tensors the
+                   kernel wrappers run their plain versions.
 
 ``overlapped=False`` selects the non-overlapped baselines (eager only, as
 in the JAX package).  Any other kind, and the fused backend without
@@ -25,12 +29,13 @@ import functools
 from typing import Callable
 
 from repro_torch.backend.mesh import World
+from repro_torch.core import moe_overlap as _moe
 from repro_torch.core import overlap as _eager
 from repro_torch.core.channels import BlockChannel
 
 __all__ = ["compile_overlap", "unsupported_error", "KINDS", "BACKENDS"]
 
-KINDS = ("ag_matmul", "matmul_rs")  # on both backends
+KINDS = ("ag_matmul", "matmul_rs", "ag_moe")  # on both backends
 BACKENDS = ("eager", "fused")
 
 
@@ -51,7 +56,8 @@ def compile_overlap(
     overlapped: bool = True,
     **kw,
 ) -> Callable:
-    """Compile a tile program for ``world``; returns ``fn(x, w) -> out``."""
+    """Compile a tile program for ``world``; returns ``fn(x, w) -> out``
+    (``fn(x, ids, wts, w_gu, w_down) -> out`` for ``ag_moe``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if not isinstance(channel, BlockChannel):
@@ -65,8 +71,12 @@ def compile_overlap(
             ("ag_matmul", False): _eager.ag_matmul_baseline,
             ("matmul_rs", True): _eager.matmul_rs,
             ("matmul_rs", False): _eager.matmul_rs_baseline,
+            ("ag_moe", True): _moe.ag_moe,
+            ("ag_moe", False): _moe.ag_moe_baseline,
         }
         return functools.partial(table[(kind, overlapped)], world=world, channel=channel, **kw)
+    if kind == "ag_moe":
+        return functools.partial(_moe.ag_moe, world=world, channel=channel, grouped=True, **kw)
 
     from repro_torch import kernels as _k
 

@@ -1,0 +1,194 @@
+"""AG + MoE overlap (paper Fig. 5) — the tensor-parallel half of
+``repro/core/moe_overlap.py``.
+
+The paper's hardest case: AllGather + Gather + GroupGEMM + TopkReduce +
+ReduceScatter with a *dynamic* tile mapping (token routing known only at run
+time).  ``ag_moe`` runs it as an "ag_rs" tile plan on the one schedule
+executor (``core/overlap.run_plan``), the double ring of the JAX package:
+
+  * token tiles and their routing tables flow together along the plan's
+    per-step permutes, so the mapping tables travel with the data;
+  * at every step each rank runs its local experts on the tile it holds
+    (:func:`local_expert_ffn`), and the partial joins a reduction that rides
+    the same permutes, then one ``align_perm`` hop sends it home.
+
+Every function takes rank-stacked operands (``[W, ...]``): tokens
+``x [W, *lead, m, d]`` with ``ids`` / ``wts [W, *lead, m, k]``, and rank r's
+experts ``w_gu [W, E_loc, d, 2f]`` (gate|up) and ``w_down [W, E_loc, f, d]``,
+rank r hosting experts ``r * E_loc .. (r + 1) * E_loc - 1``.  Capacity
+dispatch is per (rank, leading index, channel chunk) over the token axis, as
+the JAX package's ``vmap`` over batch rows gives it; the batch rows are
+folded only into the rows of the expert GEMMs.  Those run on the
+hand-written grouped GEMM kernel (``kernels/grouped_matmul.py``) when
+``grouped=True`` (the "fused" backend), else as one ``torch.matmul`` per
+(rank, expert) or the CompSpec-blocked ``blocked_dot`` (the "eager"
+backend).  The expert-parallel a2a half is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.backend.mesh import World
+from repro_torch.core.channels import BlockChannel
+from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot
+from repro_torch.core.overlap import plan_for, run_plan
+from repro_torch.kernels.grouped_matmul import group_tile_table, grouped_matmul
+
+__all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline"]
+
+
+def moe_router(x, w_router, *, num_experts: int, top_k: int, valid_experts: Optional[int] = None):
+    """Top-k softmax router over the token axis of ``x [..., m, d]``.
+
+    Returns (topk_ids int64 [..., m, k], topk_w f32 [..., m, k], aux f32 [...]),
+    one Switch-style load-balance loss per leading index.  ``valid_experts``
+    gives padding experts -inf logits, so they are never selected.
+    """
+    logits = torch.matmul(x.float(), w_router.float())
+    if valid_experts is not None and valid_experts < num_experts:
+        pad = torch.arange(num_experts, device=x.device) >= valid_experts
+        logits = logits.masked_fill(pad, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    topk_w, topk_ids = torch.topk(probs, top_k, dim=-1, sorted=True)  # ties: the lower index first
+    topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    me = probs.mean(-2)
+    ce = F.one_hot(topk_ids, num_experts).float().sum((-3, -2))
+    ce = ce / ce.sum(-1, keepdim=True).clamp_min(1.0)
+    aux = (valid_experts or num_experts) * (me * ce).sum(-1)
+    return topk_ids, topk_w, aux
+
+
+def _dispatch_tables(local_ids, valid, e_loc: int, cap: int, dtype):
+    """Capacity dispatch [..., m, k, E_loc, cap] from per-(token, k) local expert
+    ids: slot = the (token, k)'s position among its expert's earlier entries,
+    dropped at or past ``cap``."""
+    *lead, m, k = local_ids.shape
+    onehot = F.one_hot(local_ids, e_loc).float() * valid[..., None]
+    flat = onehot.reshape(*lead, m * k, e_loc)
+    pos = torch.cumsum(flat, dim=-2) - flat  # position within expert, per (t, k)
+    keep = (pos < cap).float() * flat
+    disp = F.one_hot(pos.long().clamp(max=cap - 1), cap).float() * keep[..., None]
+    return disp.reshape(*lead, m, k, e_loc, cap).to(dtype)
+
+
+def _expert_gemm(a, w, out_dtype, tile, grouped: bool):
+    """``a [W, E, rows, K] @ w [W, E, K, N]`` per (rank, expert), float32 accumulation."""
+    if grouped:
+        world, e, rows, k = a.shape
+        table = group_tile_table(world * e, rows, a.device)
+        out = grouped_matmul(a.reshape(-1, k).contiguous(), w.reshape(world * e, k, -1), table, out_dtype=out_dtype)
+        return out.reshape(world, e, rows, -1)
+    if tile is not None and tuple(tile) != DEFAULT_TILE:
+        return blocked_dot(a, w, tuple(tile), accum=torch.float32, out_dtype=out_dtype)
+    return torch.matmul(a.float(), w.float()).to(out_dtype)
+
+
+def local_expert_ffn(
+    x,
+    topk_ids,
+    topk_w,
+    w_gu,
+    w_down,
+    *,
+    cap: int,
+    act: Callable = F.silu,
+    tile: Optional[Tuple[int, int, int]] = None,
+    grouped: bool = False,
+):
+    """Each rank's FFN through its local experts; zeros for tokens routed elsewhere.
+
+    ``x [W, *lead, m, d]``, ``topk_ids`` / ``topk_w [W, *lead, m, k]``,
+    ``w_gu [W, E_loc, d, 2f]``, ``w_down [W, E_loc, f, d]``.  Returns the
+    combined partial ``[W, *lead, m, d]``.  The rows of all leading indices
+    meet in one group of ``n_lead * cap`` rows per (rank, expert), so the
+    grouped kernel covers every rank and expert in one launch per GEMM.
+    """
+    world, m, d = x.shape[0], x.shape[-2], x.shape[-1]
+    k, e_loc, f = topk_ids.shape[-1], w_gu.shape[1], w_down.shape[2]
+    xb = x.reshape(world, -1, m, d)
+    nb = xb.shape[1]
+    local = topk_ids.reshape(world, nb, m, k) - (torch.arange(world, device=x.device) * e_loc).view(world, 1, 1, 1)
+    valid = (local >= 0) & (local < e_loc)
+    local = torch.where(valid, local, torch.zeros_like(local))
+
+    disp_mkec = _dispatch_tables(local, valid.float(), e_loc, cap, x.dtype)  # [W, nb, m, k, E, c]
+    disp = disp_mkec.sum(-3)  # [W, nb, m, E, c]: 0/1, slots unique per (t, k)
+    comb = torch.einsum("wbmkec,wbmk->wbmec", disp_mkec, topk_w.reshape(world, nb, m, k).to(x.dtype))
+    x_e = torch.einsum("wbmec,wbmd->webcd", disp, xb).reshape(world, e_loc, nb * cap, d)
+    h = _expert_gemm(x_e, w_gu, torch.float32, tile, grouped)  # gate|up, float32
+    h = (act(h[..., :f]) * h[..., f:]).to(x.dtype)
+    y_e = _expert_gemm(h, w_down, x.dtype, tile, grouped)
+    out = torch.einsum("wbmec,webcd->wbmd", comb, y_e.reshape(world, e_loc, nb, cap, d))
+    return out.reshape(x.shape)
+
+
+def ag_moe(
+    x,
+    topk_ids,
+    topk_w,
+    w_gu,
+    w_down,
+    *,
+    world: World,
+    channel: Optional[BlockChannel] = None,
+    capacity_factor: float = 1.25,
+    act: Callable = F.silu,
+    grouped: bool = False,
+):
+    """Overlapped AG + MoE + RS double flow (see the module docstring).
+
+    ``x [W, *lead, m_loc, d]`` is each rank's token chunk; returns the
+    combined outputs for it, ``[W, *lead, m_loc, d]``.  ``num_channels``
+    splits the chunk into independently scheduled flows, each with its own
+    capacity; the reduction accumulates in the CompSpec accum dtype.
+    """
+    channel = channel or BlockChannel(axis="model")
+    m_loc, k, e_loc = x.shape[-2], topk_ids.shape[-1], w_gu.shape[1]
+    plan = plan_for("ag_moe", channel, world.size, m_loc)
+    m_sub = m_loc // plan.num_channels
+    cap = _capacity(m_sub, k, e_loc * world.size, capacity_factor)
+    chunks = [
+        tuple(t[..., c * m_sub : (c + 1) * m_sub, :] for t in (x, topk_ids, topk_w))
+        for c in range(plan.num_channels)
+    ]
+
+    def moe_tile(ctx, tile, _carry):
+        xs, ids, wts = tile
+        part = local_expert_ffn(
+            xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped
+        )
+        return part.to(plan.accum_dtype)
+
+    accs = run_plan(plan, world, moe_tile, state=chunks)
+    return torch.cat(accs, dim=-2).to(x.dtype)
+
+
+def ag_moe_baseline(
+    x,
+    topk_ids,
+    topk_w,
+    w_gu,
+    w_down,
+    *,
+    world: World,
+    channel: Optional[BlockChannel] = None,
+    capacity_factor: float = 1.25,
+    act: Callable = F.silu,
+):
+    """Non-overlapping reference: every rank sees every origin's tokens and
+    tables (AllGather), runs its experts with per-chunk capacity, and the
+    partials are reduce-scattered back to their origin ranks."""
+    m_loc, k, e_loc = x.shape[-2], topk_ids.shape[-1], w_gu.shape[1]
+    cap = _capacity(m_loc, k, e_loc * world.size, capacity_factor)
+    gathered = [t.unsqueeze(0).expand((world.size,) + tuple(t.shape)) for t in (x, topk_ids, topk_w)]
+    part = local_expert_ffn(*gathered, w_gu, w_down, cap=cap, act=act)  # [W, W_origin, *lead, m_loc, d]
+    return world.psum(part).to(x.dtype)  # origin o's sum lands on rank o
+
+
+def _capacity(m: int, k: int, e_total: int, factor: float) -> int:
+    cap = int(m * k / e_total * factor) + 1
+    return max(8, -(-cap // 8) * 8)  # round up to a multiple of 8

@@ -1,14 +1,15 @@
 """Eager overlap backend — one generic schedule executor over tile plans.
 
-The port's counterpart of ``repro/core/overlap.py`` for the "ag" and "rs"
-flows, and of the JAX package's ``"xla"`` backend.  Every function here
-takes rank-stacked operands (``[W, ...]``, see ``backend/mesh.World``); a
+The port's counterpart of ``repro/core/overlap.py`` for the "ag", "rs" and
+"ag_rs" flows, and of the JAX package's ``"xla"`` backend.  Every function
+here takes rank-stacked operands (``[W, ...]``, see ``backend/mesh.World``); a
 permute is an index on the rank dimension, so each step of the plan is
 plain PyTorch.  It is the reference the fused Hopper kernels are held
 against, and the model path when ``ParallelContext(backend="eager")``.
 
 There is exactly one schedule loop here, :func:`run_plan`; ``ag_matmul``
-and ``matmul_rs`` are GEMM callbacks plugged into it.  The non-overlapped
+and ``matmul_rs`` are GEMM callbacks plugged into it, and so is the AG+MoE
+double ring (``core/moe_overlap.ag_moe``).  The non-overlapped
 baselines (gather then GEMM; GEMM then reduce-scatter) sit beside them.
 """
 
@@ -42,7 +43,7 @@ class TileContext:
     """What the executor tells a compute callback about the current tile.
 
     ``src`` holds one int per rank: the origin rank of the held tile for
-    "ag" flows, the reduced segment for "rs" flows.
+    "ag" / "ag_rs" flows, the reduced segment for "rs" flows.
     """
 
     step: int
@@ -60,10 +61,16 @@ def run_plan(
 ) -> Any:
     """Execute a tile plan over the world's rank dimension.
 
-    flow "ag": ``state[c]`` is channel c's flowing tile ``[W, ...]``.  Each
-    step the executor issues every channel's next-step permute, then calls
-    ``tile_fn(ctx, tile, carry) -> carry`` on each held tile.  Returns the
-    final carry.
+    flow "ag": ``state[c]`` is channel c's flowing tile ``[W, ...]`` (or a
+    tuple of such, permuted together).  Each step the executor issues every
+    channel's next-step permute, then calls ``tile_fn(ctx, tile, carry) ->
+    carry`` on each held tile.  Returns the final carry.
+
+    flow "ag_rs" (the MoE double ring): tiles flow as in "ag";
+    ``tile_fn(ctx, tile, None) -> partial`` feeds a reduction that travels
+    the same permutes (``acc = permute(acc, flow_perm(s - 1)) + partial``),
+    then one ``align_perm`` hop per channel sends it to its home rank.
+    Returns the per-channel reductions.
 
     flow "rs": ``tile_fn(ctx, None, None) -> partial`` computes the partial
     for segment ``ctx.src``; one flowing accumulator per channel
@@ -71,18 +78,26 @@ def run_plan(
     segments.
     """
     nch = plan.num_channels
-    if plan.flow == "ag":
+    if plan.flow in ("ag", "ag_rs"):
         state = list(state)
+        accs: List[torch.Tensor] = [None] * nch
         for s in range(plan.steps):
             nxt = None
             if s < plan.steps - 1:
-                nxt = [world.permute(state[c], plan.channels[c].flow_perm(s)) for c in range(nch)]
+                nxt = [_permute(world, state[c], plan.channels[c].flow_perm(s)) for c in range(nch)]
             for c in range(nch):
-                ctx = TileContext(s, c, plan.channels[c].source_table(s))
-                carry = tile_fn(ctx, state[c], carry)
+                sched = plan.channels[c]
+                ctx = TileContext(s, c, sched.source_table(s))
+                if plan.flow == "ag":
+                    carry = tile_fn(ctx, state[c], carry)
+                    continue
+                part = tile_fn(ctx, state[c], None)  # the reduction rides the tile flow
+                accs[c] = part if s == 0 else world.permute(accs[c], sched.flow_perm(s - 1)) + part
             if nxt is not None:
                 state = nxt
-        return carry
+        if plan.flow == "ag":
+            return carry
+        return [world.permute(accs[c], plan.channels[c].align_perm()) for c in range(nch)]
     if plan.flow == "rs":
         accs: List[torch.Tensor] = [None] * nch
         for s in range(plan.steps):
@@ -95,6 +110,14 @@ def run_plan(
                     accs[c] = world.permute(accs[c], sched.rs_perm(s - 1)) + part
         return accs
     raise NotImplementedError(f"run_plan: flow {plan.flow!r} is not ported")
+
+
+def _permute(world: World, tile, pairs):
+    """Permute a flowing tile: one tensor or a tuple of tensors (a token tile
+    and its routing tables travel together)."""
+    if isinstance(tile, tuple):
+        return tuple(world.permute(t, pairs) for t in tile)
+    return world.permute(tile, pairs)
 
 
 def plan_for(kind: str, channel: BlockChannel, world: int, extent: int) -> TilePlan:

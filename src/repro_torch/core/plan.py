@@ -1,8 +1,9 @@
 """Tile-program plans — the IR between ``BlockChannel`` and the executors.
 
-The port's counterpart of ``repro/core/plan.py`` for the two single-op
-kinds of the dense slice, ``ag_matmul`` (flow "ag") and ``matmul_rs`` (flow
-"rs").  ``compile_overlap`` builds a :class:`TilePlan` from
+The port's counterpart of ``repro/core/plan.py`` for the single-op kinds
+``ag_matmul`` (flow "ag"), ``matmul_rs`` (flow "rs") and ``ag_moe`` (flow
+"ag_rs": token tiles flow as in "ag" and a reduction rides the same
+permutes, then one ``align_perm`` hop sends it home).  ``compile_overlap`` builds a :class:`TilePlan` from
 ``(kind, BlockChannel, world)`` and hands it to the eager schedule executor
 (``core/overlap.run_plan``) or to the fused Hopper kernels, which read the
 same per-(channel, step, rank) tables from device memory.
@@ -38,6 +39,7 @@ __all__ = ["ChannelSchedule", "TilePlan", "PlanError", "build_plan", "plan_cache
 FLOW_OF_KIND = {
     "ag_matmul": "ag",
     "matmul_rs": "rs",
+    "ag_moe": "ag_rs",
 }
 
 Table = Tuple[Tuple[Tuple[int, ...], ...], ...]  # [channel][step][rank]
@@ -84,7 +86,8 @@ class ChannelSchedule:
         return tuple((j, inv[self.source(j, step)]) for j in range(self.world))
 
     def align_perm(self) -> Tuple[Tuple[int, int], ...]:
-        """Final hop of a tile-following reduction (kept for the table view)."""
+        """Final hop of a tile-following reduction ("ag_rs"): rank j holds the
+        reduction of the tile it held last, and sends it to that tile's origin."""
         return tuple((j, self.source(j, self.world - 1)) for j in range(self.world))
 
     def rs_segment(self, rank: int, step: int) -> int:
@@ -112,7 +115,7 @@ class TilePlan:
     kind: str
     axis: str
     world: int
-    flow: str  # "ag" | "rs"
+    flow: str  # "ag" | "rs" | "ag_rs"
     num_channels: int  # effective (validated divisor of the extent)
     accum_dtype: torch.dtype  # reduction dtype only
     channels: Tuple[ChannelSchedule, ...]

@@ -9,6 +9,7 @@ builds ``csrc/`` (``build.library``).
 from repro_torch.kernels.ag_gemm import ag_gemm, ag_gemm_plain
 from repro_torch.kernels.flash_attention import chunked_attention, flash_attention, flash_attention_plain
 from repro_torch.kernels.gemm_rs import gemm_rs, gemm_rs_plain
+from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 
 __all__ = [
@@ -19,6 +20,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_plain",
     "chunked_attention",
+    "grouped_matmul",
+    "grouped_matmul_plain",
     "matmul",
     "matmul_plain",
     "WRAPPERS",
@@ -26,7 +29,13 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-WRAPPERS = {"matmul": matmul, "ag_gemm": ag_gemm, "gemm_rs": gemm_rs, "flash_attention": flash_attention}
+WRAPPERS = {
+    "matmul": matmul,
+    "ag_gemm": ag_gemm,
+    "gemm_rs": gemm_rs,
+    "flash_attention": flash_attention,
+    "grouped_matmul": grouped_matmul,
+}
 
 
 def launch_counts() -> dict:

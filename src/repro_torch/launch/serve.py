@@ -2,9 +2,10 @@
 
 The port of ``repro/launch/serve.py`` for a fixed batch of requests (the
 continuous-batching engine, scheduler, slot pool and sampling are later
-work).  Example, on the card:
+work).  Example, on the card (``--arch smollm-360m`` or
+``granite-moe-3b-a800m``):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
       --batch 4 --prompt-len 256 --new-tokens 16 --world 4 --dtype bf16
 
 Add ``--device cpu --reduce`` for a small run on the CPU.

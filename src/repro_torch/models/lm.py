@@ -1,5 +1,5 @@
-"""Decoder-only dense LM — the port of ``repro/models/lm.py`` for the dense
-serve path (``"attn"`` layers with a dense MLP).
+"""Decoder-only LM — the port of ``repro/models/lm.py`` for the serve path
+of ``"attn"`` layers with a dense MLP or an MoE FFN.
 
 A Python loop over a list of layers replaces the JAX package's ``lax.scan``
 over stacked parameters.  Parameters are rank-stacked (``convert.py``):
@@ -8,12 +8,14 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
   head      [D, V_pad]        the LM head (the embedding transposed when tied)
   final_ln  [D]
   layers    [{"mixer": {ln, wqkv [W, D, (h_loc+2 kv_loc)*hd], wo [W, h_loc*hd, D]},
-              "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}}, ...]
+              "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}  (mlp)
+                       {ln, router [D, E_pad] f32, w_gu [W, E_loc, D, 2 f],
+                        w_down [W, E_loc, f, D]}  (moe)}, ...]
 
 ``prefill`` runs every layer's TP forward (the fused kernels on the card)
 and fills the KV caches; ``decode_step`` then advances every slot by up to
-C tokens.  The LM head runs on the tile-GEMM kernel when
-``pc.backend == "fused"``.
+C tokens; ``forward`` returns the logits and the summed MoE aux loss.  The
+LM head runs on the tile-GEMM kernel when ``pc.backend == "fused"``.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.kernels.matmul import matmul, matmul_plain
-from repro_torch.nn import attention, ffn
+from repro_torch.nn import attention, ffn, moe
 from repro_torch.nn.layers import emb_init, rms_norm
 from repro_torch.parallel.context import ParallelContext
 
@@ -45,17 +47,27 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
     kind: str  # attn | attn_local
-    ffn_kind: Optional[str]  # mlp | None
+    ffn_kind: Optional[str]  # mlp | moe | None
     window: Optional[int]
     theta: float
 
+    def _ffn_seq(self, params, x, pc, cfg):
+        """The FFN half of a layer: (x, aux loss)."""
+        if self.ffn_kind == "mlp":
+            return ffn.apply_seq(params["ffn"], x, pc, cfg), _zero(x)
+        if self.ffn_kind == "moe":
+            return moe.apply_seq(params["ffn"], x, pc, cfg)
+        return x, _zero(x)
+
     def apply_seq(self, params, x, pc, cfg):
+        """x: [W, B, s_loc, D] -> (x, aux loss)."""
         x = attention.apply_seq(params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta)
-        return ffn.apply_seq(params["ffn"], x, pc, cfg) if self.ffn_kind == "mlp" else x
+        return self._ffn_seq(params, x, pc, cfg)
 
     def apply_prefill(self, params, x, pc, cfg, max_len: int):
-        """Like apply_seq, but also returns this layer's decode cache with the
-        sequence dimension padded to ``max_len`` (a ring for window layers)."""
+        """Like apply_seq, but returns (x, this layer's decode cache) with the
+        cache's sequence dimension padded to ``max_len`` (a ring for window
+        layers); the aux loss is dropped, as in the JAX package."""
         x, kv = attention.apply_seq(
             params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, return_kv=True
         )
@@ -68,8 +80,7 @@ class LayerDef:
                 kv = {n: _pad_seq(a, w) for n, a in kv.items()}
         else:
             kv = {n: _pad_seq(a, max_len) for n, a in kv.items()}
-        if self.ffn_kind == "mlp":
-            x = ffn.apply_seq(params["ffn"], x, pc, cfg)
+        x, _ = self._ffn_seq(params, x, pc, cfg)
         return x, kv
 
     def init_cache(self, cfg, pc, batch, max_len, dtype):
@@ -81,7 +92,13 @@ class LayerDef:
         )
         if self.ffn_kind == "mlp":
             x = ffn.apply_decode(params["ffn"], x, pc, cfg)
+        elif self.ffn_kind == "moe":
+            x = moe.apply_decode(params["ffn"], x, pc, cfg)
         return x, cache
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _pad_seq(a: torch.Tensor, length: int) -> torch.Tensor:
@@ -92,10 +109,11 @@ def _pad_seq(a: torch.Tensor, length: int) -> torch.Tensor:
 
 def _layer_def(cfg, kind: str) -> LayerDef:
     if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (dense attn layers only)")
+        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn layers only)")
     window = cfg.local_window if kind == "attn_local" else None
     theta = cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
-    return LayerDef(kind, "mlp" if cfg.d_ff else None, window, theta)
+    ffn_kind = "moe" if cfg.moe is not None else ("mlp" if cfg.d_ff else None)
+    return LayerDef(kind, ffn_kind, window, theta)
 
 
 def layer_plan(cfg) -> List[LayerDef]:
@@ -126,6 +144,8 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
         layer = {"mixer": attention.init(cfg, tp, generator, dtype, device)}
         if d.ffn_kind == "mlp":
             layer["ffn"] = ffn.init(cfg, generator, dtype, device)
+        elif d.ffn_kind == "moe":
+            layer["ffn"] = moe.init(cfg, tp, generator, dtype, device)
         glob["layers"].append(layer)
     return shard_params(glob, cfg, world)
 
@@ -149,13 +169,15 @@ def _check_seq(pc: ParallelContext, s: int):
         raise ValueError(f"sequence length {s} must divide over the {pc.tp} ranks (sequence-parallel residual)")
 
 
-def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor) -> torch.Tensor:
-    """Teacher-forced logits [B, S, vocab]."""
+def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor):
+    """Teacher-forced (logits [B, S, vocab], aux loss summed over the layers)."""
     _check_seq(pc, tokens.shape[1])
     x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)  # [W, B, s_loc, D]
+    aux_total = _zero(x)
     for d, p in zip(layer_plan(cfg), params["layers"]):
-        x = d.apply_seq(p, x, pc, cfg)
-    return logits(params, cfg, pc, pc.world.unshard(x, dim=1))
+        x, aux = d.apply_seq(p, x, pc, cfg)
+        aux_total = aux_total + aux
+    return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), aux_total
 
 
 def prefill(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, *, max_len: int):

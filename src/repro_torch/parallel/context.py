@@ -8,14 +8,14 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
   mode="baseline"  gather-then-GEMM / GEMM-then-reduce-scatter (eager only)
 
   backend="fused"  the hand-written Hopper kernels: AG+GEMM, GEMM+RS, flash
-                   attention and the tile-GEMM LM head; the default when the
+                   attention, the grouped expert GEMM and the tile-GEMM LM head; the default when the
                    world lives on a CUDA device (the JAX package pins
                    ``backend="xla"``; the port runs its kernels on the card)
   backend="eager"  the eager executor and the plain attention — the
                    default on the CPU, and the reference on the card
 
-Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.psum`` on
-rank-stacked values.
+Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ag_moe`` /
+``pc.psum`` / ``pc.pmean`` on rank-stacked values.
 """
 
 from __future__ import annotations
@@ -79,5 +79,13 @@ class ParallelContext:
         """[W, *lead, M, k_loc] x [W, k_loc, N] -> [W, *lead, M/W, N]."""
         return self._op("matmul_rs")(x, w, **kw)
 
+    def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
+        """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""
+        return self._op("ag_moe")(x, ids, wts, w_gu, w_down, **kw)
+
     def psum(self, x):
         return self.world.psum(x)
+
+    def pmean(self, x):
+        """Mean over the ranks of a rank-stacked value."""
+        return self.world.psum(x) / self.tp

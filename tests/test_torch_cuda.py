@@ -7,7 +7,7 @@ nor the JAX package, so it runs on the GPU machine, where there is no JAX:
   python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_cuda.py
 
 Shapes are small and deliberately ragged (non-power-of-two tiles, partial
-edge tiles, leading batch dims, GQA, sq < sk).  Tolerances: float32 1e-4 of
+edge tiles, leading batch dims, GQA, sq < sk, random expert tables).  Tolerances: float32 1e-4 of
 max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
@@ -93,6 +93,24 @@ def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window)
     _close(out, K.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
 
 
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                             (torch.bfloat16, torch.float32)])  # fmt: skip
+@pytest.mark.parametrize(
+    "table,bm,k,n",
+    [((4, 0, 4), 40, 37, 300), ((1, -1, 2, 0, 3, 3, 1, 0, 2, 4, 0, 1), 8, 64, 130), ((2, 0), 96, 33, 128),
+     ((3, 3, 1), 48, 1536, 1024)],
+)  # fmt: skip
+def test_grouped_matmul_kernel(dev, dtype, out_dtype, table, bm, k, n):
+    """Random, non-monotone tables; -1 marks an empty tile; bm > 64 walks two
+    sub-tiles; ragged K and N."""
+    te = torch.tensor(table, dtype=torch.int32, device=dev)
+    x, w = _rand(dev, dtype, len(table) * bm, k), _rand(dev, dtype, 5, k, n, seed=1, scale=k**-0.5)
+    before = K.grouped_matmul.launches
+    out = K.grouped_matmul(x, w, te, out_dtype=out_dtype)
+    assert K.grouped_matmul.launches == before + 1 and out.dtype == out_dtype and out.shape == (x.shape[0], n)
+    _close(out, K.grouped_matmul_plain(x, w, te, out_dtype), dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _rand(dev, torch.float32, 8, 16)
     with pytest.raises(TypeError):
@@ -106,6 +124,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = _rand(dev, torch.float32, 2, 8, 48)
     with pytest.raises(ValueError):
         K.flash_attention(q, q, q)  # head dim 48 is not instantiated
+    w3 = _rand(dev, torch.float32, 2, 16, 8)
+    with pytest.raises(ValueError):
+        K.grouped_matmul(x, w3, torch.zeros(2, dtype=torch.int64, device=dev))  # the table must be int32
+    with pytest.raises(ValueError):
+        K.grouped_matmul(x, w3, torch.zeros(2, dtype=torch.int32, device=dev), out_dtype=torch.bfloat16)
 
 
 def test_fused_prefill_matches_eager_on_card(dev):
@@ -117,8 +140,23 @@ def test_fused_prefill_matches_eager_on_card(dev):
     assert pf.backend == "fused"
     K.reset_launch_counts()
     lf, cf = lm.prefill(params, cfg, pf, toks, max_len=20)
-    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 4, "gemm_rs": 4, "flash_attention": 2}
+    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 4, "gemm_rs": 4, "flash_attention": 2, "grouped_matmul": 0}
     le, ce = lm.prefill(params, cfg, pe, toks, max_len=20)
     torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
     for a, b in zip(cf, ce):
         torch.testing.assert_close(a["k"], b["k"], atol=1e-4, rtol=1e-4)
+
+
+def test_fused_moe_prefill_matches_eager_on_card(dev):
+    """Reduced granite-moe-3b-a800m: the expert GEMMs on the grouped kernel,
+    two launches per layer and ring step."""
+    cfg = reduce_config(get_config("granite-moe-3b-a800m"))
+    world = World(4, dev)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    K.reset_launch_counts()
+    lf, af = lm.forward(params, cfg, ParallelContext(world=world), toks)
+    le, ae = lm.forward(params, cfg, ParallelContext(world=world, backend="eager"), toks)
+    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 2, "gemm_rs": 2, "flash_attention": 2, "grouped_matmul": 16}
+    torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(af, ae, atol=1e-6, rtol=1e-5)

@@ -11,6 +11,7 @@ bfloat16 2e-2 against the float32 oracle on the same bf16 inputs.
 """
 
 import importlib
+import re
 import shutil
 
 import jax.numpy as jnp
@@ -93,13 +94,23 @@ def test_matmul_plain_matches_pallas_interpret_bf16():
 def test_kernel_modules_import_without_nvcc():
     """Importing builds nothing: the modules load on a host with no nvcc and
     no card, and only a launch on a CUDA tensor reaches the build."""
-    for mod in ("matmul", "ag_gemm", "gemm_rs", "flash_attention", "build"):
+    for mod in ("matmul", "ag_gemm", "gemm_rs", "flash_attention", "grouped_matmul", "build"):
         importlib.import_module(f"repro_torch.kernels.{mod}")
     assert build._LIB is None
     assert sorted(build.CSRC.glob("*.cu")) and sorted(build.CSRC.glob("*.cuh"))
     if shutil.which("nvcc") is None and not (build.Path("/usr/local/cuda/bin/nvcc")).exists():
         with pytest.raises(RuntimeError, match="nvcc"):
             build._nvcc()
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every bound entry point exists in ``csrc/`` with as many parameters as
+    its ctypes signature has (no compiler here checks the binding)."""
+    text = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    for name, sig in build._SIGNATURES.items():
+        found = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
+        assert found, name
+        assert len(found.group(1).split(",")) == len(sig), name
 
 
 def test_wrappers_validate_inputs():
@@ -117,6 +128,7 @@ def test_wrappers_validate_inputs():
 
 def test_launch_counters_exist_and_reset():
     tk.reset_launch_counts()
-    assert tk.launch_counts() == {"matmul": 0, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": 0}
+    assert tk.launch_counts() == {"matmul": 0, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": 0, "grouped_matmul": 0}
     tk.matmul(torch.ones(2, 3), torch.ones(3, 4))  # CPU: the plain version, no launch
-    assert tk.matmul.launches == 0
+    tk.grouped_matmul(torch.ones(4, 3), torch.ones(2, 3, 5), torch.zeros(2, dtype=torch.int32))
+    assert tk.matmul.launches == 0 and tk.grouped_matmul.launches == 0

@@ -1,6 +1,8 @@
-"""The port's dense LM against the JAX package's, on a reduced smollm-360m.
+"""The port's LM against the JAX package's, on reduced smollm-360m (dense)
+and granite-moe-3b-a800m (every FFN MoE: 8 experts, top-2).
 
-Weights come from the JAX ``lm.init`` through ``convert.from_jax_params``;
+Weights come from the JAX ``lm.init`` through ``convert.from_jax_params``
+(the MoE router stays float32);
 the JAX side runs on the 8-device CPU mesh of ``tests/conftest.py`` (TP 4),
 the port on a 4-rank ``World`` on the CPU.  Tolerance: atol / rtol 2e-3 on
 logits, as ``tests/test_serving.py``; caches and layer primitives 1e-5 / 1e-4.
@@ -31,12 +33,13 @@ TOL = dict(atol=2e-3, rtol=2e-3)
 TP = 4
 B, S0, EXTRA = 2, 16, 4
 MAX_LEN = S0 + EXTRA
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m")
 
 
-@pytest.fixture(scope="module")
-def setup(pc8, mesh8):
-    jcfg = dataclasses.replace(j_reduce_config(j_get_config("smollm-360m")), vocab_size=502)
-    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")), vocab_size=502)
+@pytest.fixture(scope="module", params=ARCHS)
+def setup(request, pc8, mesh8):
+    jcfg = dataclasses.replace(j_reduce_config(j_get_config(request.param)), vocab_size=502)
+    cfg = dataclasses.replace(reduce_config(get_config(request.param)), vocab_size=502)
     jparams = place(jlm.init(jax.random.PRNGKey(0), jcfg, pc8, jnp.float32), mesh8, jlm.specs(jcfg, pc8))
     world = World(TP, "cpu")
     params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, world)
@@ -54,26 +57,49 @@ def _tcache(c):
     return [a.permute(1, 0, 2, 3, 4).reshape(a.shape[1], -1, a.shape[3], a.shape[4]).numpy() for a in (c["k"], c["v"])]
 
 
-def test_config_port_matches_reference():
-    jc, tc = j_get_config("smollm-360m"), get_config("smollm-360m")
+def _plain(v):
+    """A config field as a plain value (a nested config as a dict)."""
+    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_config_port_matches_reference(arch):
+    jc, tc = j_get_config(arch), get_config(arch)
     for f in dataclasses.fields(tc):
-        assert getattr(tc, f.name) == getattr(jc, f.name), f.name
+        assert _plain(getattr(tc, f.name)) == _plain(getattr(jc, f.name)), f.name
     jr, tr = j_reduce_config(jc), reduce_config(tc)
     for f in dataclasses.fields(tr):
-        assert getattr(tr, f.name) == getattr(jr, f.name), f.name
-    assert lm.padded_vocab(tc, 4) == 49152 and tc.hd == 64
+        assert _plain(getattr(tr, f.name)) == _plain(getattr(jr, f.name)), f.name
+    assert [tc.layer_kind(i) for i in range(tc.n_layers)] == [jc.layer_kind(i) for i in range(jc.n_layers)]
+    assert tc.hd == 64 and lm.padded_vocab(tc, 4) == {"smollm-360m": 49152, "granite-moe-3b-a800m": 49156}[arch]
 
 
 def test_param_layout(setup):
-    jcfg, cfg, _, params, world, _ = setup
+    jcfg, cfg, jparams, params, world, _ = setup
     lay = layers.gqa_layout(cfg.n_heads, cfg.n_kv_heads, TP)
     assert len(params["layers"]) == cfg.n_layers
     mixer, f = params["layers"][0]["mixer"], params["layers"][0]["ffn"]
     assert mixer["wqkv"].shape == (TP, cfg.d_model, (lay.h_loc + 2 * lay.kv_loc) * cfg.hd)
     assert mixer["wo"].shape == (TP, lay.h_loc * cfg.hd, cfg.d_model)
-    assert f["w_gu"].shape == (TP, cfg.d_model, 2 * cfg.d_ff // TP)
-    assert f["w_down"].shape == (TP, cfg.d_ff // TP, cfg.d_model)
-    assert torch.equal(params["head"], params["embed"].reshape(-1, cfg.d_model).t())
+    if cfg.moe is None:
+        assert f["w_gu"].shape == (TP, cfg.d_model, 2 * cfg.d_ff // TP)
+        assert f["w_down"].shape == (TP, cfg.d_ff // TP, cfg.d_model)
+    else:  # experts sharded over the ranks, the router replicated in float32
+        e_loc, fe = cfg.moe.num_experts // TP, cfg.moe.d_expert
+        assert f["w_gu"].shape == (TP, e_loc, cfg.d_model, 2 * fe)
+        assert f["w_down"].shape == (TP, e_loc, fe, cfg.d_model)
+        assert f["router"].shape == (cfg.d_model, cfg.moe.num_experts) and f["router"].dtype == torch.float32
+        jw = np.asarray(jparams["scan"][0]["ffn"]["w_gu"][0])
+        np.testing.assert_array_equal(f["w_gu"].reshape(-1, cfg.d_model, 2 * fe).numpy(), jw)
+        low = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, world, torch.bfloat16)
+        assert low["layers"][0]["ffn"]["router"].dtype == torch.float32
+        assert low["layers"][0]["ffn"]["w_gu"].dtype == torch.bfloat16
+        own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.bfloat16)
+        assert own["layers"][0]["ffn"]["router"].dtype == torch.float32
+    if cfg.tie_embeddings:
+        assert torch.equal(params["head"], params["embed"].reshape(-1, cfg.d_model).t())
+    else:
+        np.testing.assert_array_equal(params["head"].numpy(), np.asarray(jparams["lm_head"]))
     # the port's own init follows the same layout
     own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.float32)
     assert jax.tree_util.tree_structure(
@@ -95,11 +121,17 @@ def test_prefill_matches_reference(setup, pc8, backend):
             np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
 
 
-def test_forward_matches_reference(setup, pc8):
+@pytest.mark.parametrize("backend", ["eager", "fused"])
+def test_forward_matches_reference(setup, pc8, backend):
+    """Logits and the aux loss (0 for a dense model, the summed per-layer
+    load-balance loss for MoE)."""
     jcfg, cfg, jparams, params, world, toks = setup
-    jl, _ = jax.jit(lambda p, t: jlm.forward(p, jcfg, pc8, t))(jparams, jnp.asarray(toks))
-    tl = lm.forward(params, cfg, ParallelContext(world=world), torch.from_numpy(toks).long())
+    jl, jaux = jax.jit(lambda p, t: jlm.forward(p, jcfg, pc8, t))(jparams, jnp.asarray(toks))
+    tl, aux = lm.forward(params, cfg, ParallelContext(world=world, backend=backend), torch.from_numpy(toks).long())
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert aux.dtype == torch.float32 and aux.dim() == 0
+    np.testing.assert_allclose(aux.item(), float(jaux), rtol=1e-5, atol=1e-6)
+    assert (aux.item() > 0) == (cfg.moe is not None)
 
 
 def test_decode_matches_reference_per_token(setup, pc8):

@@ -35,10 +35,14 @@ def _jax_greedy(cfg, pc, params, prompts, n_new, max_len):
     return np.stack(out, axis=1)
 
 
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("backend", ["eager", "fused"])
-def test_greedy_matches_jax_per_token_reference(pc8, mesh8, backend):
-    jcfg = dataclasses.replace(j_reduce_config(j_get_config("smollm-360m")), vocab_size=128)
-    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")), vocab_size=128)
+def test_greedy_matches_jax_per_token_reference(pc8, mesh8, backend, arch):
+    jcfg = dataclasses.replace(j_reduce_config(j_get_config(arch)), vocab_size=128)
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), vocab_size=128)
     jparams = place(jlm.init(jax.random.PRNGKey(3), jcfg, pc8, jnp.float32), mesh8, jlm.specs(jcfg, pc8))
     prompts = serve.make_prompts(cfg.vocab_size, B, S0, seed=5)
     ref = _jax_greedy(jcfg, pc8, jparams, prompts.astype(np.int32), NEW, S0 + NEW)
@@ -50,8 +54,9 @@ def test_greedy_matches_jax_per_token_reference(pc8, mesh8, backend):
     assert timings["decode_steps"] == NEW - 1
 
 
-def test_serve_cli_on_cpu(capsys):
-    r = serve.main(["--arch", "smollm-360m", "--reduce", "--device", "cpu", "--dtype", "f32",
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_cli_on_cpu(capsys, arch):
+    r = serve.main(["--arch", arch, "--reduce", "--device", "cpu", "--dtype", "f32",
                     "--batch", "2", "--prompt-len", "8", "--new-tokens", "3"])  # fmt: skip
     assert r["tokens"].shape == (2, 3) and r["backend"] == "eager" and r["device"] == "cpu"
     assert "tokens/s" in capsys.readouterr().out
