@@ -11,10 +11,13 @@ non-zero (no phase catches its own failure):
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m for the grouped expert GEMM, plus one random,
-              non-monotone expert table with a row tile below capacity), in
-              float32 and bfloat16, and the fused kernels over every tile
-              order x C in {1, 2}; kernel, plain-version and library-call
-              times with CUDA events.
+              non-monotone expert table with a row tile below capacity,
+              mamba2-2.7b for the in/out projections, its LM head and the
+              SSD intra-chunk kernel), in float32 and bfloat16, and the
+              fused kernels over every tile order x C in {1, 2}; kernel,
+              plain-version and library-call times with CUDA events (in
+              bfloat16, the serving dtype, and for the SSD kernel also in
+              float32, the dtype its path gives it).
   4. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
               executor with plain attention, then the main path in bfloat16
@@ -26,11 +29,16 @@ non-zero (no phase catches its own failure):
               the batch rows whose routing agreed in every layer); (c) the
               main path in bfloat16 through ``serve.greedy``, with its
               launch counts held exactly.
-  6. summary  the launch counts of both main paths, the per-kernel JSON
-              line, the card's power limit, and the last line
+  6. ssm      mamba2-2.7b at its published size with seeded weights:
+              (a) one Mamba layer, fused against eager in float32; (b) the
+              float32 prefill, fused against eager, every position's
+              logits; (c) the main path in bfloat16 through
+              ``serve.greedy``, with its launch counts held exactly.
+  7. summary  the launch counts of the three main paths, the per-kernel
+              JSON line, the card's power limit, and the last line
               ``{"ok": true, "device": {...}}``.
 
-Nothing is cut: both models run at full depth and width.
+Nothing is cut: the three models run at full depth and width.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -50,6 +58,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "smollm-360m"
 ARCH_MOE = "granite-moe-3b-a800m"
+ARCH_SSM = "mamba2-2.7b"
 WORLD, BATCH, PROMPT, NEW_TOKENS = 4, 4, 256, 16
 ITERS = 20  # timed launches per kernel case (after warm-up)
 # published dense peaks of the H100 SXM and its memory rate (bound_ms)
@@ -67,6 +76,7 @@ REPLACES = {
     "gemm_rs": "src/repro/kernels/gemm_rs.py:183",
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:28",
+    "ssd_intra_chunk": "src/repro/kernels/mamba_ssd.py:123",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -74,6 +84,7 @@ SOURCES = {
     "gemm_rs": "src/repro_torch/kernels/csrc/gemm_rs.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+    "ssd_intra_chunk": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
 }
 
 
@@ -105,20 +116,6 @@ def bound(flops: float, nbytes: float, dtype_name: str):
     t_ops = flops / PEAK_OPS[dtype_name]
     t_mem = nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
-
-
-def ssd_intra_bound(batch: int = 4, seq: int = 256, d_model: int = 2560, expand: int = 2, headdim: int = 64,
-                    chunk: int = 64):
-    """Computed (not measured) bound of the still-to-port TPU kernel
-    ``ssd_intra_chunk`` (src/repro/kernels/mamba_ssd.py:123) at mamba2-2.7b
-    prefill shapes: T = batch x (seq / chunk) x heads tiles of
-    y = (CB * exp(cum_i - cum_j) * [i >= j]) @ xdt, all float32.
-    Returns (ms, bound_by, flops, bytes)."""
-    t, q, p = batch * (seq // chunk) * (d_model * expand // headdim), chunk, headdim
-    flops = t * (2 * q * q * p + 2 * q * q)  # the [q, q] @ [q, p] product, exp and mask-multiply
-    nbytes = 4 * t * (q + q * q + 2 * q * p)  # cum, cb, xdt read once; y written once
-    ms, by = bound(flops, nbytes, "float32")
-    return ms, by, flops, nbytes
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +200,81 @@ def path_shapes(arch: str) -> dict:
         cap = _capacity(PROMPT // WORLD, cfg.moe.top_k, e_total, cfg.moe.capacity_factor)
         shp.update(e_loc=e_total // WORLD, cap=cap, fe=cfg.moe.d_expert)
     return shp
+
+
+def ssm_shapes() -> dict:
+    """The kernels' shapes on mamba2-2.7b's serve path (W ranks, B x S tokens)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import padded_vocab
+
+    cfg = get_config(ARCH_SSM)
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    heads = d_inner // s.headdim
+    return dict(d=cfg.d_model, di_loc=d_inner // WORLD, n_in=(2 * d_inner + heads) // WORLD,
+                vocab=padded_vocab(cfg, WORLD), q=s.chunk, p=s.headdim, tiles=BATCH * (PROMPT // s.chunk) * heads)  # fmt: skip
+
+
+def _ssm_kernels(rnd, iters: int) -> dict:
+    """mamba2-2.7b's kernels at its path's shapes: the in-projection AG+GEMM
+    (ragged width, n tile clamped to a divisor), the out-projection GEMM+RS,
+    the LM head and the SSD intra-chunk kernel (timed in both dtypes: its
+    path gives it float32)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core.comp_tiles import DEFAULT_TILE, largest_divisor
+
+    shp = ssm_shapes()
+    W, B, S = WORLD, BATCH, PROMPT
+    s_loc = S // W
+    d, n_in, di_loc, vocab = shp["d"], shp["n_in"], shp["di_loc"], shp["vocab"]
+    t, q, p = shp["tiles"], shp["q"], shp["p"]
+    bn = largest_divisor(n_in, DEFAULT_TILE[1])
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        check_only = dtype != torch.bfloat16
+        it = iters if not check_only else 2
+        isz = torch.tensor([], dtype=dtype).element_size()
+        x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n_in, dtype=dtype) * d**-0.5
+        xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
+        recs[("ag_gemm", ARCH_SSM, "in_proj", dtype)] = _case(
+            f"ag_gemm[{ARCH_SSM} in_proj, bn {bn}, {W * n_in // bn} blocks] x{list(x.shape)} w{list(w.shape)}", dtype,
+            lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
+            2 * W * B * S * d * n_in, isz * (x.numel() + w.numel() + W * B * S * n_in), it, check_only,
+        )  # fmt: skip
+        x, w = rnd(W, B, S, di_loc, dtype=dtype), rnd(W, di_loc, d, dtype=dtype) * (W * di_loc) ** -0.5
+        recs[("gemm_rs", ARCH_SSM, "out_proj", dtype)] = _case(
+            f"gemm_rs[{ARCH_SSM} out_proj] x{list(x.shape)} w{list(w.shape)}", dtype,
+            lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
+            2 * W * B * S * di_loc * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
+        )  # fmt: skip
+        x, w = rnd(B * S, d, dtype=dtype), rnd(d, vocab, dtype=dtype) * 0.02
+        recs[("matmul", ARCH_SSM, "lm_head", dtype)] = _case(
+            f"matmul[{ARCH_SSM} lm_head] x{list(x.shape)} w{list(w.shape)}", dtype,
+            lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
+            2 * B * S * d * vocab, isz * (x.numel() + w.numel() + B * S * vocab), it, check_only,
+        )  # fmt: skip
+        del x, w, xg
+        # SSD intra-chunk: per-step log-decays of the size the path gives
+        # (dt ~ softplus(N(0, 1)), A = -1), C.B scores and dt-weighted inputs
+        cum = -(rnd(t, q, dtype=torch.float32).abs() * 0.7).cumsum(1)
+        cb, xdt = rnd(t, q, q, dtype=dtype) * 0.3, rnd(t, q, p, dtype=dtype) * 0.5
+        cum = cum.to(dtype)
+        tril = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+        c32 = cum.float()
+        gmat = (torch.where(tril, torch.exp(c32[:, :, None] - c32[:, None, :]), 0.0) * cb.float()).to(dtype)
+        recs[("ssd_intra_chunk", ARCH_SSM, "intra", dtype)] = _case(
+            f"ssd_intra_chunk[{ARCH_SSM}] cum{list(cum.shape)} cb{list(cb.shape)} xdt{list(xdt.shape)} "
+            "(library: torch.bmm(G, xdt) on a precomputed G, the product alone)", dtype,
+            lambda: K.ssd_intra_chunk(cum, cb, xdt), lambda: K.ssd_intra_chunk_plain(cum, cb, xdt),
+            lambda: torch.bmm(gmat, xdt),
+            # flops: the [q, q] @ [q, p] product, exp and mask-multiply; bytes:
+            # cum, cb, xdt read once and y written once
+            t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p), iters, False,
+        )  # fmt: skip
+        del cum, cb, xdt, gmat
+    return recs
 
 
 def phase_kernels(iters: int):
@@ -299,9 +371,7 @@ def phase_kernels(iters: int):
             )  # fmt: skip
             del x, w
 
-    ms, by, flops, nbytes = ssd_intra_bound()
-    print(f"[kernels] ssd_intra_chunk (still to port) at mamba2-2.7b prefill shapes: computed bound {ms:.4f} ms "
-          f"({by}; {flops:.4g} flops, {nbytes:.4g} bytes), not measured")  # fmt: skip
+    recs.update(_ssm_kernels(rnd, iters))
     # --- every order x C in {1, 2} through both fused kernels (float32, smollm shapes)
     shp = path_shapes(ARCH)
     d, n_qkv, n_o = shp["d"], shp["n_qkv"], shp["n_o"]
@@ -404,7 +474,7 @@ def phase_serve(profile: bool = False):
 
     # bfloat16: the main path (prefill + greedy decode) through the kernels
     expect = {"ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers, "flash_attention": cfg.n_layers,
-              "matmul": NEW_TOKENS, "grouped_matmul": 0}  # fmt: skip
+              "matmul": NEW_TOKENS, "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
     return _main_path("serve", cfg, pc, prompts, expect, profile)
 
 
@@ -488,8 +558,53 @@ def phase_moe(profile: bool = False):
     # (c) bfloat16: the main path (prefill + greedy decode) through the kernels
     steps = WORLD  # ring steps per MoE layer (C = 1 on this path)
     expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "flash_attention": cfg.n_layers,
-              "matmul": NEW_TOKENS, "grouped_matmul": 2 * steps * cfg.n_layers}  # fmt: skip
+              "matmul": NEW_TOKENS, "grouped_matmul": 2 * steps * cfg.n_layers, "ssd_intra_chunk": 0}  # fmt: skip
     return {**result, **_main_path("moe", cfg, pc, prompts, expect, profile)}
+
+
+def phase_ssm(profile: bool = False):
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+    from repro_torch.nn import mamba
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_SSM)
+    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+
+    # (a) one Mamba layer at full width, fused against eager on the same input
+    layer = params["layers"][0]["mixer"]
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device)
+    before = K.launch_counts()
+    y_f = mamba.apply_seq(layer, x, pc, cfg)
+    ran = {k: v - before[k] for k, v in K.launch_counts().items()}
+    if ran != {**{k: 0 for k in ran}, "ag_gemm": 1, "gemm_rs": 1, "ssd_intra_chunk": 1}:
+        raise SystemExit(f"chip_smoke: the fused Mamba layer launched {ran}")
+    y_e = mamba.apply_seq(layer, x, pc_eager, cfg)
+    out_f, out_e = y_f - x, y_e - x
+    err, scale = (out_f - out_e).abs().max().item(), out_e.abs().max().item()
+    print(
+        f"[ssm] f32 Mamba layer [{WORLD}, {BATCH}, {s_loc}, {cfg.d_model}], fused vs eager: max|diff| {err:.3e} "
+        f"(bound {TOL['float32']:g} x max|eager| {scale:.3e})"
+    )
+    if not (torch.isfinite(out_f).all() and err <= TOL["float32"] * scale):
+        raise SystemExit("chip_smoke: the fused Mamba layer disagrees with the eager one")
+    del x, y_f, y_e, out_f, out_e
+
+    # (b) the float32 prefill, fused against eager, every position
+    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
+    _hold_logits("[ssm] f32 prefill logits (every position)", lg_f, lg_e)
+    result = {"layer_err": err}
+    del params, layer, lg_f, lg_e
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16: the main path (prefill + greedy decode) through the kernels
+    expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "ssd_intra_chunk": cfg.n_layers,
+              "matmul": NEW_TOKENS, "flash_attention": 0, "grouped_matmul": 0}  # fmt: skip
+    return {**result, **_main_path("ssm", cfg, pc, prompts, expect, profile)}
 
 
 def _profile(params, cfg, pc, prompts, max_len):
@@ -547,12 +662,17 @@ def main(argv=None) -> int:
     recs = phase_kernels(ITERS)
     out["serve"] = phase_serve(args.profile)
     out["moe"] = phase_moe(args.profile)
-    by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"]}
+    out["ssm"] = phase_ssm(args.profile)
+    by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_SSM: out["ssm"]["counts"]}
     print("kernels: " + json.dumps(by_path))
     line = []
-    for name, arch, tag in (("matmul", ARCH, "lm_head"), ("ag_gemm", ARCH, "gate_up"), ("gemm_rs", ARCH, "down"),
-                            ("flash_attention", ARCH, "prefill"), ("grouped_matmul", ARCH_MOE, "gate_up")):  # fmt: skip
-        r = recs[(name, arch, tag, torch.bfloat16)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, arch, tag, dtype in (
+        ("matmul", ARCH, "lm_head", bf16), ("ag_gemm", ARCH, "gate_up", bf16), ("gemm_rs", ARCH, "down", bf16),
+        ("flash_attention", ARCH, "prefill", bf16), ("grouped_matmul", ARCH_MOE, "gate_up", bf16),
+        ("ssd_intra_chunk", ARCH_SSM, "intra", f32),
+    ):  # fmt: skip
+        r = recs[(name, arch, tag, dtype)]
         line.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(c[name] for c in by_path.values()), "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,9 +1,9 @@
 """Architecture configuration schema and the config registry.
 
-The port's copy of ``repro/configs/base.py`` for the decoder slices (dense
-and MoE): one :class:`ArchConfig` per architecture, registered by name.  The
-field names and defaults match the JAX package's, so a config built here and
-one built there describe the same model.  ``reduce_config`` is the
+The port's copy of ``repro/configs/base.py`` for the decoder slices (dense,
+MoE and Mamba-2): one :class:`ArchConfig` per architecture, registered by
+name.  The field names and defaults match the JAX package's, so a config
+built here and one built there describe the same model.  ``reduce_config`` is the
 same-family shrink of ``repro/launch/train.py`` used by the CPU tests.
 """
 
@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "MoEConfig", "register", "get_config", "reduce_config"]
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "register", "get_config", "reduce_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +25,16 @@ class MoEConfig:
     dense_d_ff: int = 0  # d_ff of those dense layers
     capacity_factor: float = 1.25
     aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int  # N
+    headdim: int = 64  # P
+    n_groups: int = 1  # G (B/C groups)
+    d_conv: int = 4
+    expand: int = 2  # d_inner = expand * d_model
+    chunk: int = 64  # SSD chunk length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +54,11 @@ class ArchConfig:
     local_window: Optional[int] = None  # sliding-window size for local layers
     pattern: Tuple[str, ...] = ("attn",)  # layer-kind pattern, tiled over depth
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     norm_eps: float = 1e-6
     act: str = "silu"
     tie_embeddings: bool = False
+    sub_quadratic: bool = False  # eligible for long-context decode
 
     @property
     def hd(self) -> int:
@@ -77,8 +89,8 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> ArchConfig:
-    """Reduced same-family config for CPU runs (the dense and MoE branches
-    of the JAX package's ``launch/train.reduce_config``)."""
+    """Reduced same-family config for CPU runs (the dense, MoE and SSM
+    branches of the JAX package's ``launch/train.reduce_config``)."""
     k0 = cfg.moe.first_k_dense if cfg.moe else 0
     kw = dict(n_layers=len(cfg.pattern) * 2 + k0, d_model=d_model, vocab_size=vocab)
     if cfg.n_heads:
@@ -89,4 +101,6 @@ def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> Arch
         kw["moe"] = dataclasses.replace(
             cfg.moe, num_experts=8, top_k=min(2, cfg.moe.top_k), d_expert=64, dense_d_ff=d_model * 2
         )
+    if cfg.ssm:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, headdim=16, chunk=16)
     return dataclasses.replace(cfg, **kw)

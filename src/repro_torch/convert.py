@@ -12,12 +12,17 @@ the JAX package's partition specs:
   * ``embed`` by vocab rows (``P("model", dp)``);
   * MoE blocks by experts: ``w_gu`` / ``w_down`` rows of dim 0
     (``P("model", ...)``); the ``router`` is replicated and stays float32
-    whatever ``dtype`` the other leaves take.
+    whatever ``dtype`` the other leaves take;
+  * Mamba mixers (``nn/mamba.specs``): ``w_xz`` / ``w_dt`` / ``conv`` by
+    columns, ``w_out`` by rows, ``dt_bias`` / ``a_log`` / ``d_skip`` by heads
+    (float32 always), ``w_bc`` and ``ln`` replicated.
 
 The GQA zero pads and the per-shard gate|up interleave are kept exactly as
 stored; each rank's ``wq`` and ``wkv`` columns are joined into one ``wqkv``
-shard (the JAX package concatenates them at every call).  With tied
-embeddings the LM head is a contiguous copy of the embedding, transposed.
+shard (the JAX package concatenates them at every call), and so are a
+Mamba mixer's ``w_xz`` and ``w_dt`` columns into one ``w_in`` shard; each
+shard's x | z halves stay as stored.  With tied embeddings the LM head is a
+contiguous copy of the embedding, transposed.
 ``params["scan"]`` (a leading layer axis per pattern position) is unstacked
 into the layer list.
 """
@@ -31,7 +36,10 @@ import torch
 
 from repro_torch.backend.mesh import World
 
-__all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows"]
+__all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mamba", "F32_LEAVES"]
+
+# leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
+F32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
 
 
 def shard_cols(w: torch.Tensor, world: World) -> torch.Tensor:
@@ -62,14 +70,17 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     }
     for layer in glob["layers"]:
         mixer = layer["mixer"]
-        wq, wkv = shard_cols(mixer["wq"], world), shard_cols(mixer["wkv"], world)
-        new = {
-            "mixer": {
-                "ln": mixer["ln"],
-                "wqkv": torch.cat([wq, wkv], dim=-1).contiguous(),
-                "wo": shard_rows(mixer["wo"], world),
+        if "w_xz" in mixer:
+            new = {"mixer": shard_mamba(mixer, world)}
+        else:
+            wq, wkv = shard_cols(mixer["wq"], world), shard_cols(mixer["wkv"], world)
+            new = {
+                "mixer": {
+                    "ln": mixer["ln"],
+                    "wqkv": torch.cat([wq, wkv], dim=-1).contiguous(),
+                    "wo": shard_rows(mixer["wo"], world),
+                }
             }
-        }
         if "ffn" in layer and "router" in layer["ffn"]:
             f = layer["ffn"]
             new["ffn"] = {
@@ -89,9 +100,22 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     return out
 
 
+def shard_mamba(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """A Mamba mixer by the JAX partition specs; ``w_xz`` | ``w_dt`` join per rank."""
+    w_xz, w_dt = shard_cols(mixer["w_xz"], world), shard_cols(mixer["w_dt"], world)
+    return {
+        "ln": mixer["ln"],
+        "w_in": torch.cat([w_xz, w_dt.to(w_xz.dtype)], dim=-1).contiguous(),
+        "w_bc": mixer["w_bc"],
+        "conv": shard_cols(mixer["conv"], world),
+        "w_out": shard_rows(mixer["w_out"], world),
+        **{k: shard_rows(mixer[k].float(), world) for k in ("dt_bias", "a_log", "d_skip")},
+    }
+
+
 def _tensors(tree, device, dtype):
     if isinstance(tree, dict):
-        return {k: _tensors(v, device, torch.float32 if k == "router" else dtype) for k, v in tree.items()}
+        return {k: _tensors(v, device, torch.float32 if k in F32_LEAVES else dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tensors(v, device, dtype) for v in tree]
     t = torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
@@ -101,8 +125,8 @@ def _tensors(tree, device, dtype):
 def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optional[torch.dtype] = None):
     """The JAX package's ``lm.init`` pytree (numpy leaves) -> port parameters.
 
-    ``dtype`` defaults to float32 (the MoE router is float32 always); leaves
-    are moved to ``world.device``.
+    ``dtype`` defaults to float32 (the leaves of ``F32_LEAVES`` are float32
+    always); leaves are moved to ``world.device``.
     """
     from repro_torch.models.lm import layer_plan
 

@@ -10,6 +10,7 @@ from repro_torch.kernels.ag_gemm import ag_gemm, ag_gemm_plain
 from repro_torch.kernels.flash_attention import chunked_attention, flash_attention, flash_attention_plain
 from repro_torch.kernels.gemm_rs import gemm_rs, gemm_rs_plain
 from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
+from repro_torch.kernels.mamba_ssd import ssd_chunked, ssd_intra_chunk, ssd_intra_chunk_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
 
 __all__ = [
@@ -24,6 +25,9 @@ __all__ = [
     "grouped_matmul_plain",
     "matmul",
     "matmul_plain",
+    "ssd_chunked",
+    "ssd_intra_chunk",
+    "ssd_intra_chunk_plain",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
@@ -35,6 +39,7 @@ WRAPPERS = {
     "gemm_rs": gemm_rs,
     "flash_attention": flash_attention,
     "grouped_matmul": grouped_matmul,
+    "ssd_intra_chunk": ssd_intra_chunk,
 }
 
 

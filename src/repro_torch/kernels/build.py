@@ -57,6 +57,8 @@ _SIGNATURES = {
     "tl_flash_attention": "i" + "pppp" + "iiiii" + "f" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, n_tiles, N, K, E, bm, stream
     "tl_grouped_matmul": "ii" + "pppp" + "iiiii" + "p",
+    # dtype, cum, cb, xdt, y, T, Q, P, stream
+    "tl_ssd_intra_chunk": "i" + "pppp" + "iii" + "p",
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}

@@ -2,8 +2,8 @@
 
 The port of ``repro/launch/serve.py`` for a fixed batch of requests (the
 continuous-batching engine, scheduler, slot pool and sampling are later
-work).  Example, on the card (``--arch smollm-360m`` or
-``granite-moe-3b-a800m``):
+work).  Example, on the card (``--arch smollm-360m``,
+``granite-moe-3b-a800m`` or ``mamba2-2.7b``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
       --batch 4 --prompt-len 256 --new-tokens 16 --world 4 --dtype bf16
@@ -105,7 +105,7 @@ def serve(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, help="smollm-360m, granite-moe-3b-a800m or mamba2-2.7b")
     ap.add_argument("--reduce", action="store_true", help="reduced same-family config (CPU runs)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)

@@ -1,5 +1,6 @@
 """Decoder-only LM — the port of ``repro/models/lm.py`` for the serve path
-of ``"attn"`` layers with a dense MLP or an MoE FFN.
+of ``"attn"`` layers with a dense MLP or an MoE FFN, and of ``"mamba"``
+layers (a Mamba-2 mixer, no FFN).
 
 A Python loop over a list of layers replaces the JAX package's ``lax.scan``
 over stacked parameters.  Parameters are rank-stacked (``convert.py``):
@@ -10,12 +11,15 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
   layers    [{"mixer": {ln, wqkv [W, D, (h_loc+2 kv_loc)*hd], wo [W, h_loc*hd, D]},
               "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}  (mlp)
                        {ln, router [D, E_pad] f32, w_gu [W, E_loc, D, 2 f],
-                        w_down [W, E_loc, f, D]}  (moe)}, ...]
+                        w_down [W, E_loc, f, D]}  (moe)}
+             {"mixer": {ln, w_in [W, D, 2 di_loc + h_loc], w_bc, conv, w_out,
+                        dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba), ...]
 
 ``prefill`` runs every layer's TP forward (the fused kernels on the card)
-and fills the KV caches; ``decode_step`` then advances every slot by up to
-C tokens; ``forward`` returns the logits and the summed MoE aux loss.  The
-LM head runs on the tile-GEMM kernel when ``pc.backend == "fused"``.
+and fills the decode caches (KV caches; SSM state and conv tail for Mamba
+layers); ``decode_step`` then advances every slot by up to C tokens;
+``forward`` returns the logits and the summed MoE aux loss.  The LM head
+runs on the tile-GEMM kernel when ``pc.backend == "fused"``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import List, Optional
 import torch
 
 from repro_torch.kernels.matmul import matmul, matmul_plain
-from repro_torch.nn import attention, ffn, moe
+from repro_torch.nn import attention, ffn, mamba, moe
 from repro_torch.nn.layers import emb_init, rms_norm
 from repro_torch.parallel.context import ParallelContext
 
@@ -46,7 +50,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    kind: str  # attn | attn_local
+    kind: str  # attn | attn_local | mamba
     ffn_kind: Optional[str]  # mlp | moe | None
     window: Optional[int]
     theta: float
@@ -61,13 +65,18 @@ class LayerDef:
 
     def apply_seq(self, params, x, pc, cfg):
         """x: [W, B, s_loc, D] -> (x, aux loss)."""
+        if self.kind == "mamba":
+            return mamba.apply_seq(params["mixer"], x, pc, cfg), _zero(x)
         x = attention.apply_seq(params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta)
         return self._ffn_seq(params, x, pc, cfg)
 
     def apply_prefill(self, params, x, pc, cfg, max_len: int):
         """Like apply_seq, but returns (x, this layer's decode cache) with the
         cache's sequence dimension padded to ``max_len`` (a ring for window
-        layers); the aux loss is dropped, as in the JAX package."""
+        layers; a Mamba layer's cache is its SSM state and conv tail); the
+        aux loss is dropped, as in the JAX package."""
+        if self.kind == "mamba":
+            return mamba.apply_seq(params["mixer"], x, pc, cfg, return_state=True)
         x, kv = attention.apply_seq(
             params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, return_kv=True
         )
@@ -84,9 +93,13 @@ class LayerDef:
         return x, kv
 
     def init_cache(self, cfg, pc, batch, max_len, dtype):
+        if self.kind == "mamba":
+            return mamba.init_cache(cfg, pc.tp, batch, dtype, pc.device)
         return attention.init_cache(cfg, pc.tp, batch, max_len, dtype, pc.device, window=self.window)
 
     def apply_decode(self, params, x, cache, cache_len, pc, cfg, q_valid=None):
+        if self.kind == "mamba":
+            return mamba.apply_decode_chunk(params["mixer"], x, cache, pc, cfg, q_valid=q_valid)
         x, cache = attention.apply_decode(
             params["mixer"], x, cache, cache_len, pc, cfg, window=self.window, rope_theta=self.theta, q_valid=q_valid
         )
@@ -108,8 +121,10 @@ def _pad_seq(a: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _layer_def(cfg, kind: str) -> LayerDef:
+    if kind == "mamba":
+        return LayerDef("mamba", None, None, 0.0)
     if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn layers only)")
+        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn and mamba layers only)")
     window = cfg.local_window if kind == "attn_local" else None
     theta = cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
     ffn_kind = "moe" if cfg.moe is not None else ("mlp" if cfg.d_ff else None)
@@ -141,6 +156,9 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
     if not cfg.tie_embeddings:
         glob["lm_head"] = emb_init((cfg.d_model, padded_vocab(cfg, tp)), generator, dtype, device)
     for d in layer_plan(cfg):
+        if d.kind == "mamba":
+            glob["layers"].append({"mixer": mamba.init(cfg, tp, generator, dtype, device)})
+            continue
         layer = {"mixer": attention.init(cfg, tp, generator, dtype, device)}
         if d.ffn_kind == "mlp":
             layer["ffn"] = ffn.init(cfg, generator, dtype, device)

@@ -8,14 +8,15 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
   mode="baseline"  gather-then-GEMM / GEMM-then-reduce-scatter (eager only)
 
   backend="fused"  the hand-written Hopper kernels: AG+GEMM, GEMM+RS, flash
-                   attention, the grouped expert GEMM and the tile-GEMM LM head; the default when the
+                   attention, the grouped expert GEMM, the SSD intra-chunk
+                   term and the tile-GEMM LM head; the default when the
                    world lives on a CUDA device (the JAX package pins
                    ``backend="xla"``; the port runs its kernels on the card)
   backend="eager"  the eager executor and the plain attention — the
                    default on the CPU, and the reference on the card
 
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ag_moe`` /
-``pc.psum`` / ``pc.pmean`` on rank-stacked values.
+``pc.psum`` / ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
 """
 
 from __future__ import annotations
@@ -89,3 +90,8 @@ class ParallelContext:
     def pmean(self, x):
         """Mean over the ranks of a rank-stacked value."""
         return self.world.psum(x) / self.tp
+
+    def all_gather_seq(self, x, dim: int):
+        """Every rank's view of the concatenation along per-rank ``dim``
+        (``lax.all_gather(..., tiled=True)`` in the JAX package)."""
+        return self.world.all_gather(x, dim)

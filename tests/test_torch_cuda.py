@@ -7,7 +7,8 @@ nor the JAX package, so it runs on the GPU machine, where there is no JAX:
   python -m pytest --noconftest -m cuda -p no:cacheprovider tests/test_torch_cuda.py
 
 Shapes are small and deliberately ragged (non-power-of-two tiles, partial
-edge tiles, leading batch dims, GQA, sq < sk, random expert tables).  Tolerances: float32 1e-4 of
+edge tiles, leading batch dims, GQA, sq < sk, random expert tables, SSD
+tiles with T prime and decays that underflow).  Tolerances: float32 1e-4 of
 max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
@@ -111,6 +112,29 @@ def test_grouped_matmul_kernel(dev, dtype, out_dtype, table, bm, k, n):
     _close(out, K.grouped_matmul_plain(x, w, te, out_dtype), dtype)
 
 
+def _ssd_intra_inputs(dev, dtype, t, q, p, spread, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cum = -(torch.randn((t, q), generator=g, device=dev).abs() * spread).cumsum(1)
+    cb = torch.randn((t, q, q), generator=g, device=dev) * 0.3
+    xdt = torch.randn((t, q, p), generator=g, device=dev) * 0.5
+    return cum.to(dtype), cb.to(dtype), xdt.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q,p", list(itertools.product((16, 64), (16, 64))) + [(37, 23)])
+@pytest.mark.parametrize("spread", [1.0, 60.0])
+def test_ssd_intra_chunk_kernel(dev, dtype, q, p, spread):
+    """T = 37 tiles (a multiple of nothing); spread 60 drives the decays
+    below the diagonal to 0 and the masked upper triangle far above any
+    float's range."""
+    cum, cb, xdt = _ssd_intra_inputs(dev, dtype, 37, q, p, spread)
+    before = K.ssd_intra_chunk.launches
+    out = K.ssd_intra_chunk(cum, cb, xdt)
+    assert K.ssd_intra_chunk.launches == before + 1 and out.dtype == dtype and out.shape == xdt.shape
+    assert torch.isfinite(out).all()
+    _close(out, K.ssd_intra_chunk_plain(cum, cb, xdt), dtype)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x = _rand(dev, torch.float32, 8, 16)
     with pytest.raises(TypeError):
@@ -129,6 +153,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         K.grouped_matmul(x, w3, torch.zeros(2, dtype=torch.int64, device=dev))  # the table must be int32
     with pytest.raises(ValueError):
         K.grouped_matmul(x, w3, torch.zeros(2, dtype=torch.int32, device=dev), out_dtype=torch.bfloat16)
+    cum, cb, xdt = _ssd_intra_inputs(dev, torch.float32, 2, 80, 16, 1.0)
+    with pytest.raises(ValueError):
+        K.ssd_intra_chunk(cum, cb, xdt)  # Q = 80 > 64
+    cum, cb, xdt = _ssd_intra_inputs(dev, torch.float32, 2, 16, 16, 1.0)
+    with pytest.raises(TypeError):
+        K.ssd_intra_chunk(cum, cb, xdt.bfloat16())
 
 
 def test_fused_prefill_matches_eager_on_card(dev):
@@ -140,7 +170,9 @@ def test_fused_prefill_matches_eager_on_card(dev):
     assert pf.backend == "fused"
     K.reset_launch_counts()
     lf, cf = lm.prefill(params, cfg, pf, toks, max_len=20)
-    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 4, "gemm_rs": 4, "flash_attention": 2, "grouped_matmul": 0}
+    assert K.launch_counts() == {
+        "matmul": 1, "ag_gemm": 4, "gemm_rs": 4, "flash_attention": 2, "grouped_matmul": 0, "ssd_intra_chunk": 0
+    }  # fmt: skip
     le, ce = lm.prefill(params, cfg, pe, toks, max_len=20)
     torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
     for a, b in zip(cf, ce):
@@ -157,6 +189,28 @@ def test_fused_moe_prefill_matches_eager_on_card(dev):
     K.reset_launch_counts()
     lf, af = lm.forward(params, cfg, ParallelContext(world=world), toks)
     le, ae = lm.forward(params, cfg, ParallelContext(world=world, backend="eager"), toks)
-    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 2, "gemm_rs": 2, "flash_attention": 2, "grouped_matmul": 16}
+    assert K.launch_counts() == {
+        "matmul": 1, "ag_gemm": 2, "gemm_rs": 2, "flash_attention": 2, "grouped_matmul": 16, "ssd_intra_chunk": 0
+    }  # fmt: skip
     torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
     torch.testing.assert_close(af, ae, atol=1e-6, rtol=1e-5)
+
+
+def test_fused_mamba_prefill_matches_eager_on_card(dev):
+    """Reduced mamba2-2.7b (chunk 16, headdim 16, S = 20: a ragged last
+    chunk): in/out projections on the fused ring kernels, the SSD
+    intra-chunk term on its kernel; the caches agree too."""
+    cfg = reduce_config(get_config("mamba2-2.7b"))
+    world = World(4, dev)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    K.reset_launch_counts()
+    lf, cf = lm.prefill(params, cfg, ParallelContext(world=world), toks, max_len=24)
+    assert K.launch_counts() == {
+        "matmul": 1, "ag_gemm": 2, "gemm_rs": 2, "flash_attention": 0, "grouped_matmul": 0, "ssd_intra_chunk": 2
+    }  # fmt: skip
+    le, ce = lm.prefill(params, cfg, ParallelContext(world=world, backend="eager"), toks, max_len=24)
+    torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
+    for a, b in zip(cf, ce):
+        torch.testing.assert_close(a["ssm"], b["ssm"], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a["conv"], b["conv"], atol=1e-4, rtol=1e-4)

@@ -128,7 +128,10 @@ def test_wrappers_validate_inputs():
 
 def test_launch_counters_exist_and_reset():
     tk.reset_launch_counts()
-    assert tk.launch_counts() == {"matmul": 0, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": 0, "grouped_matmul": 0}
+    assert tk.launch_counts() == {
+        "matmul": 0, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": 0, "grouped_matmul": 0, "ssd_intra_chunk": 0
+    }  # fmt: skip
     tk.matmul(torch.ones(2, 3), torch.ones(3, 4))  # CPU: the plain version, no launch
     tk.grouped_matmul(torch.ones(4, 3), torch.ones(2, 3, 5), torch.zeros(2, dtype=torch.int32))
-    assert tk.matmul.launches == 0 and tk.grouped_matmul.launches == 0
+    tk.ssd_intra_chunk(torch.zeros(2, 4), torch.ones(2, 4, 4), torch.ones(2, 4, 3))
+    assert tk.matmul.launches == 0 and tk.grouped_matmul.launches == 0 and tk.ssd_intra_chunk.launches == 0

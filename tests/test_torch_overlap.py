@@ -29,6 +29,7 @@ from repro.core import compile_overlap as j_compile
 from repro.kernels import ref as jref
 from repro_torch.backend.mesh import World
 from repro_torch.core import BlockChannel, CommSpec, CompSpec, compile_overlap, unsupported_error
+from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch import kernels
 
 R = 4
@@ -214,3 +215,22 @@ def test_cpu_tensors_never_launch(world):
     xt, wt = _ag_port(x, w)
     compile_overlap("ag_matmul", _chans("ring", 1)[1], world=world, backend="fused")(xt, wt)
     assert kernels.launch_counts() == {name: 0 for name in kernels.WRAPPERS}
+
+
+@pytest.mark.parametrize("order,nch", [("ring", 1), ("bidir_ring", 2), ("all2all", 1)])
+def test_ag_matmul_ragged_width_matches_reference(mesh4, world, order, nch):
+    """A Mamba in-projection width: n_loc = 2 di_loc + h_loc = 132 at the
+    reduced mamba2 size (2580 at full size), not a multiple of 128, so the
+    kernel's n tile clamps to a divisor (66; 86 at full size)."""
+    x, w = _ag_inputs(12, b=2, m_loc=8, k=16, n_loc=132)
+    jch, tch = _chans(order, nch)
+    ref = _jax_ag(mesh4, jch, x, w)
+    xt, wt = _ag_port(x, w)
+    plain = kernels.ag_gemm_plain(xt, wt, channel=tch)
+    np.testing.assert_allclose(_ag_unport(plain), ref, **F32)
+    for backend in ("eager", "fused"):
+        out = compile_overlap("ag_matmul", tch, world=world, backend=backend)(xt, wt)
+        assert out.shape == (R, 2, R * 8, 132)
+        np.testing.assert_allclose(_ag_unport(out), ref, **F32)
+    for n_loc, bn in ((132, 66), (2580, 86)):
+        assert largest_divisor(n_loc, tch.comp.tile[1]) == bn
