@@ -6,34 +6,47 @@ non-zero (no phase catches its own failure):
 
   1. device   the card's name, count, torch / CUDA versions and power limit;
               TF32 off, so the float32 plain versions are true float32.
-  2. build    builds the kernels from ``src/repro_torch/kernels/csrc``.
-  3. kernels  every kernel against its plain PyTorch version at the shapes
-              the serve paths give it (W = 4 emulated ranks, 4 requests x
-              256 tokens: smollm-360m for the dense kernels, granite-moe-
-              3b-a800m for the grouped expert GEMM, plus one random,
-              non-monotone expert table with a row tile below capacity,
-              mamba2-2.7b for the in/out projections, its LM head and the
-              SSD intra-chunk kernel), in float32 and bfloat16, and the
-              fused kernels over every tile order x C in {1, 2}; kernel,
-              plain-version and library-call times with CUDA events (in
-              bfloat16, the serving dtype, and for the SSD kernel also in
-              float32, the dtype its path gives it).
-  4. serve    smollm-360m at its published size with seeded weights: the
+  2. build    builds the kernels from ``src/repro_torch/kernels/csrc``;
+              prints each kernel's registers / spills and the SASS count of
+              HGMMA (wgmma) and UTMALDG (TMA loads) per kernel, and fails if
+              a bf16 fused kernel has no HGMMA.
+  3. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
-              executor with plain attention, then the main path in bfloat16
-              (prefill + greedy decode), with the kernels' launch counts.
-  5. moe      granite-moe-3b-a800m at its published size with seeded
+              executor with plain attention; one dense layer in bfloat16 on
+              the fused path against the same layer in float32 on the eager
+              path from the same bf16 weights; then the main path in
+              bfloat16 (prefill + greedy decode), with the kernels' launch
+              counts, and its prefill logits against the float32 eager
+              prefill (max|diff|, top-1 agreement: printed, not held).
+  4. moe      granite-moe-3b-a800m at its published size with seeded
               weights: (a) one MoE layer, fused against eager in float32;
               (b) the float32 prefill, fused against eager (routing flips
               between the two are counted, and the logits are then held on
               the batch rows whose routing agreed in every layer); (c) the
               main path in bfloat16 through ``serve.greedy``, with its
               launch counts held exactly.
-  6. ssm      mamba2-2.7b at its published size with seeded weights:
-              (a) one Mamba layer, fused against eager in float32; (b) the
-              float32 prefill, fused against eager, every position's
-              logits; (c) the main path in bfloat16 through
+  5. ssm      mamba2-2.7b at its published size with seeded weights:
+              (a) one Mamba layer, fused against eager in float32, and in
+              bfloat16 fused against float32 eager from the same bf16
+              weights; (b) the float32 prefill, fused against eager, every
+              position's logits; (c) the main path in bfloat16 through
               ``serve.greedy``, with its launch counts held exactly.
+  6. kernels  every kernel against its plain PyTorch version at the shapes
+              the serve paths give it (W = 4 emulated ranks, 4 requests x
+              256 tokens: smollm-360m for the dense kernels, granite-moe-
+              3b-a800m for the grouped expert GEMM, plus one random,
+              non-monotone expert table with a row tile below capacity,
+              mamba2-2.7b for the in/out projections, its LM head and the
+              SSD intra-chunk kernel), in float32 and bfloat16, and the
+              fused kernels over every tile order x C in {1, 2} (float32,
+              and bfloat16 with 20 launches each held bitwise equal to the
+              first); kernel, plain-version and library-call times with CUDA
+              events over back-to-back calls, and the kernel's and the
+              library call's device time per call (torch.profiler), in
+              bfloat16, the serving dtype (and for the SSD kernel also in
+              float32, the dtype its path gives it), with the route, grid G
+              and work-item count of each fused launch.  It runs after the
+              serve phases: the profiler leaves host overhead behind.
   7. summary  the launch counts of the three main paths, the per-kernel
               JSON line, the card's power limit, and the last line
               ``{"ok": true, "device": {...}}``.
@@ -61,6 +74,7 @@ ARCH_MOE = "granite-moe-3b-a800m"
 ARCH_SSM = "mamba2-2.7b"
 WORLD, BATCH, PROMPT, NEW_TOKENS = 4, 4, 256, 16
 ITERS = 20  # timed launches per kernel case (after warm-up)
+REPEATS = 20  # launches of each bf16 fused order x C case, held bitwise equal
 # published dense peaks of the H100 SXM and its memory rate (bound_ms)
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 MEM_BYTES_PER_S = 3.35e12
@@ -112,6 +126,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def device_ms(fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the sum of its kernels' device time
+    (torch.profiler) over ``iters`` calls, per call.  Unlike ``cuda_ms`` it
+    leaves out the host gaps between launches, which a wrapper whose host
+    time exceeds its kernel's time opens."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return total / iters / 1e3
+
+
 def bound(flops: float, nbytes: float, dtype_name: str):
     t_ops = flops / PEAK_OPS[dtype_name]
     t_mem = nbytes / MEM_BYTES_PER_S
@@ -148,17 +181,33 @@ def phase_build():
     build.library()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.1f} s")
+    kernel = None
     for line in build.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line.lower():
-            print(f"[build] {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel is not None and ("registers" in line or "spill" in line.lower()):
+            print(f"[build] {kernel[:72]}: {line.strip().removeprefix('ptxas info    : ')}")
+            if "registers" in line:
+                kernel = None  # the entry's own report; later copies repeat it
+    sass = build.sass_report()
+    for fn, ops in sass.items():
+        if any(ops.values()):
+            print(f"[build] SASS {fn[:72]}: {ops}")
+    for name in ("ag_gemm_wgmma_kernel", "gemm_rs_wgmma_kernel"):
+        found = [ops for fn, ops in sass.items() if name in fn]
+        if not found or not all(ops["HGMMA"] > 0 for ops in found):
+            raise SystemExit(f"chip_smoke: the bf16 kernel {name} has no HGMMA (wgmma) instruction: {found}")
     return dt
 
 
-def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False):
-    """Run one kernel case: max error vs the plain version, then times."""
+def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None):
+    """Run one kernel case: max error vs the plain version, then times.
+    ``launch`` returns the wrapper's record of its last launch (route, grid
+    G, work items), printed beside the times."""
     import torch
 
     out = kernel()
+    info = launch() if launch is not None else None
     ref = plain()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -166,17 +215,24 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     dn = str(dtype).removeprefix("torch.")
     ok = bool(torch.isfinite(out).all().item()) and err <= TOL[dn] * max(scale, 1e-30)
     rec = {"case": name, "dtype": dn, "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL[dn], "ok": ok}
+    if info is not None:
+        rec["launch"] = dict(info)
+    times = ""
     if not check_only:
         rec["ms"] = cuda_ms(kernel, iters)
+        rec["device_ms"] = device_ms(kernel)
         rec["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
         rec["library_ms"] = cuda_ms(library, iters) if library is not None else None
+        rec["library_device_ms"] = device_ms(library) if library is not None else None
         rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dn)
-    times = "" if check_only else (
-        f" ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} library "
-        f"{rec['library_ms'] if rec['library_ms'] is None else round(rec['library_ms'], 4)} "
-        f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})"
-    )  # fmt: skip
-    print(f"[kernels] {name} {dn}: max|err| {err:.3e} (max|ref| {scale:.3e}, bound {TOL[dn]:g} x max|ref|){times}")
+        lib = "None" if library is None else f"{rec['library_ms']:.4f} (device {rec['library_device_ms']:.4f})"
+        times = (
+            f" ms {rec['ms']:.4f} (device {rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} library {lib} "
+            f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})"
+        )
+    where = "" if info is None else f" [{info['route']}, G {info['grid']}, items {info['items']}]"
+    bound_txt = f"bound {TOL[dn]:g} x max|ref|"
+    print(f"[kernels] {name} {dn}: max|err| {err:.3e} (max|ref| {scale:.3e}, {bound_txt}){times}{where}")
     if not ok:
         raise SystemExit(f"chip_smoke: kernel {name} ({dn}) disagrees with its plain version: {err} > {TOL[dn]} x {scale}")
     return rec
@@ -207,30 +263,31 @@ def ssm_shapes() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.lm import padded_vocab
 
+    from repro_torch.convert import IN_ALIGN
+
     cfg = get_config(ARCH_SSM)
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     heads = d_inner // s.headdim
-    return dict(d=cfg.d_model, di_loc=d_inner // WORLD, n_in=(2 * d_inner + heads) // WORLD,
+    n_in = -(-(2 * d_inner + heads) // WORLD // IN_ALIGN) * IN_ALIGN  # w_in's width per rank, padded
+    return dict(d=cfg.d_model, di_loc=d_inner // WORLD, n_in=n_in,
                 vocab=padded_vocab(cfg, WORLD), q=s.chunk, p=s.headdim, tiles=BATCH * (PROMPT // s.chunk) * heads)  # fmt: skip
 
 
 def _ssm_kernels(rnd, iters: int) -> dict:
     """mamba2-2.7b's kernels at its path's shapes: the in-projection AG+GEMM
-    (ragged width, n tile clamped to a divisor), the out-projection GEMM+RS,
-    the LM head and the SSD intra-chunk kernel (timed in both dtypes: its
-    path gives it float32)."""
+    (ragged width 2584, the f32 route's n tile clamped to a divisor), the
+    out-projection GEMM+RS, the LM head and the SSD intra-chunk kernel (timed
+    in both dtypes: its path gives it float32)."""
     import torch
 
     from repro_torch import kernels as K
-    from repro_torch.core.comp_tiles import DEFAULT_TILE, largest_divisor
 
     shp = ssm_shapes()
     W, B, S = WORLD, BATCH, PROMPT
     s_loc = S // W
     d, n_in, di_loc, vocab = shp["d"], shp["n_in"], shp["di_loc"], shp["vocab"]
     t, q, p = shp["tiles"], shp["q"], shp["p"]
-    bn = largest_divisor(n_in, DEFAULT_TILE[1])
     recs = {}
     for dtype in (torch.float32, torch.bfloat16):
         check_only = dtype != torch.bfloat16
@@ -239,15 +296,17 @@ def _ssm_kernels(rnd, iters: int) -> dict:
         x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n_in, dtype=dtype) * d**-0.5
         xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
         recs[("ag_gemm", ARCH_SSM, "in_proj", dtype)] = _case(
-            f"ag_gemm[{ARCH_SSM} in_proj, bn {bn}, {W * n_in // bn} blocks] x{list(x.shape)} w{list(w.shape)}", dtype,
+            f"ag_gemm[{ARCH_SSM} in_proj] x{list(x.shape)} w{list(w.shape)}", dtype,
             lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
             2 * W * B * S * d * n_in, isz * (x.numel() + w.numel() + W * B * S * n_in), it, check_only,
+            lambda: K.ag_gemm.last_launch,
         )  # fmt: skip
         x, w = rnd(W, B, S, di_loc, dtype=dtype), rnd(W, di_loc, d, dtype=dtype) * (W * di_loc) ** -0.5
         recs[("gemm_rs", ARCH_SSM, "out_proj", dtype)] = _case(
             f"gemm_rs[{ARCH_SSM} out_proj] x{list(x.shape)} w{list(w.shape)}", dtype,
             lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
             2 * W * B * S * di_loc * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
+            lambda: K.gemm_rs.last_launch,
         )  # fmt: skip
         x, w = rnd(B * S, d, dtype=dtype), rnd(d, vocab, dtype=dtype) * 0.02
         recs[("matmul", ARCH_SSM, "lm_head", dtype)] = _case(
@@ -312,6 +371,7 @@ def phase_kernels(iters: int):
                     lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w),
                     lambda: torch.matmul(xg[None], w[:, None]),
                     2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), it, check_only,
+                    lambda: K.ag_gemm.last_launch,
                 )  # fmt: skip
             # --- gemm_rs: attention out-projection (and the dense down projection)
             for tag, k in (("o_proj", shp["n_o"]), ("down", shp.get("f_loc"))):
@@ -323,6 +383,7 @@ def phase_kernels(iters: int):
                     lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w),
                     lambda: torch.matmul(x, w[:, None]).sum(0),
                     2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
+                    lambda: K.gemm_rs.last_launch,
                 )  # fmt: skip
             # --- flash attention: [W*B*h_loc, S, hd] vs [W*B*kv_loc, S, hd], causal
             rep = shp["h_loc"] // shp["kv_loc"]
@@ -384,7 +445,39 @@ def phase_kernels(iters: int):
             x, w = rnd(W, B, S, n_o, dtype=torch.float32), rnd(W, n_o, d, dtype=torch.float32) * (W * n_o) ** -0.5
             _case(f"gemm_rs {order} C{nch}", torch.float32, lambda: K.gemm_rs(x, w, channel=ch),
                   lambda: K.gemm_rs_plain(x, w, channel=ch), None, 0, 0, 0, True)  # fmt: skip
+    # --- the same sweep in bfloat16 (the wgmma route): each case launched
+    # REPEATS times, every output bitwise equal to the first (the stage order
+    # is fixed and there are no atomics, so a stale tile would show)
+    bf16 = torch.bfloat16
+    for order in ("ring", "bidir_ring", "all2all"):
+        for nch in (1, 2):
+            ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+            x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n_qkv, dtype=bf16) * d**-0.5
+            _repeat(f"ag_gemm {order} C{nch}", lambda: K.ag_gemm(x, w, channel=ch),
+                    lambda: K.ag_gemm_plain(x, w, channel=ch), K.ag_gemm)  # fmt: skip
+            x, w = rnd(W, B, S, n_o, dtype=bf16), rnd(W, n_o, d, dtype=bf16) * (W * n_o) ** -0.5
+            _repeat(f"gemm_rs {order} C{nch}", lambda: K.gemm_rs(x, w, channel=ch),
+                    lambda: K.gemm_rs_plain(x, w, channel=ch), K.gemm_rs)  # fmt: skip
     return recs
+
+
+def _repeat(name, kernel, plain, wrapper):
+    """A bf16 fused-kernel case launched REPEATS times: the first output
+    within the bf16 bound of the plain version, every later one bitwise equal."""
+    import torch
+
+    first = kernel()
+    info = wrapper.last_launch
+    differ = sum(not torch.equal(kernel(), first) for _ in range(REPEATS - 1))
+    ref = plain()
+    err, scale = (first.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+    print(
+        f"[kernels] {name} bfloat16 x{REPEATS}: max|err| {err:.3e} (max|ref| {scale:.3e}, bound "
+        f"{TOL['bfloat16']:g} x max|ref|); {REPEATS - 1 - differ} of {REPEATS - 1} relaunches bitwise equal "
+        f"[{info['route']}, G {info['grid']}, items {info['items']}]"
+    )
+    if differ or not torch.isfinite(first).all() or err > TOL["bfloat16"] * scale:
+        raise SystemExit(f"chip_smoke: {name} (bfloat16) is not deterministic or disagrees with its plain version")
 
 
 def _hold_logits(what: str, a, b):
@@ -401,9 +494,59 @@ def _hold_logits(what: str, a, b):
         raise SystemExit(f"chip_smoke: {what}: fused disagrees with the eager path")
 
 
-def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool) -> dict:
+def _f32(tree):
+    """A parameter tree with every tensor in float32 (bf16 weights carried exactly)."""
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_f32(v) for v in tree]
+    return tree.float()
+
+
+def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool) -> dict:
+    """The bf16 fused path against the f32 eager path on the same bf16
+    weights: one layer held to the bf16 bound (``layer``), the prefill
+    logits' max|diff| and top-1 agreement printed, not held."""
+    import torch
+
+    from repro_torch.models import lm
+
+    p32 = _f32(params)
+    out = {}
+    if layer:
+        gen = torch.Generator(device=pc.device).manual_seed(2)
+        x = torch.randn((WORLD, BATCH, PROMPT // WORLD, cfg.d_model), generator=gen, device=pc.device)
+        d = lm.layer_plan(cfg)[0]
+        y_b = d.apply_seq(params["layers"][0], x.bfloat16(), pc, cfg)[0]
+        y_e = d.apply_seq(p32["layers"][0], x.bfloat16().float(), pc_eager, cfg)[0]
+        err, scale = (y_b.float() - y_e).abs().max().item(), y_e.abs().max().item()
+        print(
+            f"[{tag}] bf16 {d.kind} layer [{WORLD}, {BATCH}, {PROMPT // WORLD}, {cfg.d_model}], fused bf16 vs eager "
+            f"f32 on the same weights: max|diff| {err:.3e} (bound {TOL['bfloat16']:g} x max|ref| {scale:.3e})"
+        )
+        if not (torch.isfinite(y_b).all() and err <= TOL["bfloat16"] * scale):
+            raise SystemExit(f"chip_smoke: the bf16 fused {d.kind} layer disagrees with the f32 eager layer")
+        out["layer_err"], out["layer_ref"] = err, scale
+    lg_e, _ = lm.prefill(p32, cfg, pc_eager, prompts, max_len=PROMPT + NEW_TOKENS)
+    # the bf16 eager path is the control: how far bf16 alone moves the logits
+    for what, p_ in (("fused", pc), ("eager", pc_eager)):
+        lg_b, _ = lm.prefill(params, cfg, p_, prompts, max_len=PROMPT + NEW_TOKENS)
+        diff = (lg_b.float() - lg_e).abs().max().item()
+        top1 = (lg_b.float().argmax(-1) == lg_e.argmax(-1)).float().mean().item()
+        print(
+            f"[{tag}] bf16 {what} prefill vs f32 eager prefill (same bf16 weights, {lg_e.numel()} logits): "
+            f"max|diff| {diff:.3e} (max|ref| {lg_e.abs().max().item():.3e}), top-1 agreement {top1:.4f} "
+            "(printed, not held)"
+        )
+        out[f"prefill_{what}_max_diff"], out[f"prefill_{what}_top1"] = diff, top1
+        del lg_b
+    return out
+
+
+def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager=None, layer=False) -> dict:
     """The bfloat16 main path: seeded weights, a warm-up greedy run, then the
-    run whose launch counts (set to 0 just before it) must equal ``expect``."""
+    run whose launch counts (set to 0 just before it) must equal ``expect``;
+    then (``pc_eager``) the bf16 path against f32 eager on the same weights."""
     import torch
 
     from repro_torch import kernels as K
@@ -437,6 +580,8 @@ def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool) -> dict:
     result = {"prefill_ms": prefill_ms, "decode_tokens_per_s": tps, "peak_bytes": peak, "counts": counts}
     if profile:
         result["profile"] = _profile(params, cfg, pc, prompts, max_len)
+    if pc_eager is not None:
+        result["bf16_vs_f32"] = _bf16_vs_f32(tag, params, cfg, pc, pc_eager, prompts, layer)
     return result
 
 
@@ -475,7 +620,7 @@ def phase_serve(profile: bool = False):
     # bfloat16: the main path (prefill + greedy decode) through the kernels
     expect = {"ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers, "flash_attention": cfg.n_layers,
               "matmul": NEW_TOKENS, "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
-    return _main_path("serve", cfg, pc, prompts, expect, profile)
+    return _main_path("serve", cfg, pc, prompts, expect, profile, pc_eager, layer=True)
 
 
 def _record_routing():
@@ -559,7 +704,7 @@ def phase_moe(profile: bool = False):
     steps = WORLD  # ring steps per MoE layer (C = 1 on this path)
     expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "flash_attention": cfg.n_layers,
               "matmul": NEW_TOKENS, "grouped_matmul": 2 * steps * cfg.n_layers, "ssd_intra_chunk": 0}  # fmt: skip
-    return {**result, **_main_path("moe", cfg, pc, prompts, expect, profile)}
+    return {**result, **_main_path("moe", cfg, pc, prompts, expect, profile, pc_eager)}
 
 
 def phase_ssm(profile: bool = False):
@@ -604,7 +749,7 @@ def phase_ssm(profile: bool = False):
     # (c) bfloat16: the main path (prefill + greedy decode) through the kernels
     expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "ssd_intra_chunk": cfg.n_layers,
               "matmul": NEW_TOKENS, "flash_attention": 0, "grouped_matmul": 0}  # fmt: skip
-    return {**result, **_main_path("ssm", cfg, pc, prompts, expect, profile)}
+    return {**result, **_main_path("ssm", cfg, pc, prompts, expect, profile, pc_eager, layer=True)}
 
 
 def _profile(params, cfg, pc, prompts, max_len):
@@ -659,10 +804,12 @@ def main(argv=None) -> int:
         return 2
     kind, smi = phase_device()
     out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build()}
-    recs = phase_kernels(ITERS)
     out["serve"] = phase_serve(args.profile)
     out["moe"] = phase_moe(args.profile)
     out["ssm"] = phase_ssm(args.profile)
+    # last: its torch.profiler sessions (device_ms) leave host overhead behind
+    # that would slow the host-bound prefill and decode of the phases above
+    recs = phase_kernels(ITERS)
     by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_SSM: out["ssm"]["counts"]}
     print("kernels: " + json.dumps(by_path))
     line = []
@@ -677,7 +824,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(c[name] for c in by_path.values()), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["case"], "dtype": r["dtype"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"], "shape": r["case"], "dtype": r["dtype"], "launch": r.get("launch"),
             "launches_by_path": {arch: c[name] for arch, c in by_path.items()},
         })  # fmt: skip
     if args.json:

@@ -21,7 +21,10 @@ The GQA zero pads and the per-shard gate|up interleave are kept exactly as
 stored; each rank's ``wq`` and ``wkv`` columns are joined into one ``wqkv``
 shard (the JAX package concatenates them at every call), and so are a
 Mamba mixer's ``w_xz`` and ``w_dt`` columns into one ``w_in`` shard; each
-shard's x | z halves stay as stored.  With tied embeddings the LM head is a
+shard's x | z halves stay as stored, and each shard is padded with zero
+columns to a multiple of 8 (``IN_ALIGN``: the bf16 AG+GEMM kernel reads its
+weight through TMA, which needs 16-byte row strides; mamba2-2.7b's 2580
+columns per rank become 2584, and ``nn/mamba`` drops the pad).  With tied embeddings the LM head is a
 contiguous copy of the embedding, transposed.
 ``params["scan"]`` (a leading layer axis per pattern position) is unstacked
 into the layer list.
@@ -36,10 +39,12 @@ import torch
 
 from repro_torch.backend.mesh import World
 
-__all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mamba", "F32_LEAVES"]
+__all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mamba", "F32_LEAVES", "IN_ALIGN"]
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
 F32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
+# a Mamba ``w_in`` shard's width is padded to a multiple of this (16-byte bf16 rows)
+IN_ALIGN = 8
 
 
 def shard_cols(w: torch.Tensor, world: World) -> torch.Tensor:
@@ -101,11 +106,14 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
 
 
 def shard_mamba(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
-    """A Mamba mixer by the JAX partition specs; ``w_xz`` | ``w_dt`` join per rank."""
+    """A Mamba mixer by the JAX partition specs; ``w_xz`` | ``w_dt`` join per
+    rank, zero-padded to a multiple of ``IN_ALIGN`` columns."""
     w_xz, w_dt = shard_cols(mixer["w_xz"], world), shard_cols(mixer["w_dt"], world)
+    width = w_xz.shape[-1] + w_dt.shape[-1]
+    pad = w_xz.new_zeros(w_xz.shape[:-1] + (-width % IN_ALIGN,))
     return {
         "ln": mixer["ln"],
-        "w_in": torch.cat([w_xz, w_dt.to(w_xz.dtype)], dim=-1).contiguous(),
+        "w_in": torch.cat([w_xz, w_dt.to(w_xz.dtype), pad], dim=-1).contiguous(),
         "w_bc": mixer["w_bc"],
         "conv": shard_cols(mixer["conv"], world),
         "w_out": shard_rows(mixer["w_out"], world),

@@ -1,20 +1,36 @@
 """Fused AllGather + GEMM kernel (``csrc/ag_gemm.cu``), plan-driven.
 
 Replaces ``repro/kernels/ag_gemm.py::ag_gemm_shard`` (``_ag_gemm_kernel``).
-All W emulated ranks run in one cooperative launch with grid
-(n-tile, channel, rank); the plan's ``src_tables()`` / ``flow_dst_tables()``
-are device int32 tables.  The protocol, the bound and the design are noted
-in ``csrc/ag_gemm.cu``; the flag primitives in ``csrc/tile_sync.cuh``.
+All W emulated ranks run in one cooperative launch; the plan's
+``src_tables()`` / ``flow_dst_tables()`` are device int32 tables.  Two
+routes, chosen by dtype before the launch (never by a fallback):
 
-:func:`ag_gemm_plain` is the plain PyTorch version: it replays the same
-tables, the same gather slots and the same step order on any device.
+  * bfloat16 (the serve dtype): ``ag_gemm_wgmma_kernel``, a persistent grid
+    of 128 x 128 output tiles (:func:`work_items`, stage-major) over all
+    SMs, each through the TMA -> shared-memory ring -> ``wgmma`` body of
+    ``csrc/wgmma_tile.cuh``; one ready flag per (rank, step, channel,
+    m-tile).  Its tile is fixed (``TILE``): ``bn`` and the CompSpec tile do
+    not apply.  K and n_loc must be multiples of 8 (16-byte TMA strides).
+  * float32: ``ag_gemm_kernel``, the ``csrc/tile_gemm.cuh`` FMA loop on a
+    grid (n-tile, channel, rank) with flags per (rank, step, channel); the
+    n tile is ``bn`` / the CompSpec tn.  Products stay exact float32 (on
+    tensor cores they would be TF32).
+
+Both routes count in ``ag_gemm.launches``; ``ag_gemm.last_launch`` says
+which route the last launch took, its grid and its item count.  The
+protocol, the bound and the design are noted in ``csrc/ag_gemm.cu``.
+
+:func:`ag_gemm_plain` is the plain PyTorch version: it replays the bf16
+route's work items in order, with the same tables, the same gather slots,
+the same seed copy, the same per-m-tile pushes and the same flag keys.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,7 +40,10 @@ from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.kernels import build
 
-__all__ = ["ag_gemm", "ag_gemm_plain", "device_table"]
+__all__ = ["ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "AgItem", "TILE", "ROUTES", "device_table"]
+
+TILE = (128, 128)  # the bf16 route's output tile (BM, BN); its K block is 64
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 
 
 @functools.lru_cache(maxsize=256)
@@ -35,6 +54,59 @@ def device_table(plan: TilePlan, which: str, device: torch.device) -> torch.Tens
     return torch.tensor(table, dtype=torch.int32).reshape(-1).to(device)
 
 
+class AgItem(NamedTuple):
+    """One work item of the bf16 route: output tile (m-tile ``mt``, n-tile
+    ``nt``) of rank ``r`` at step ``s``, channel ``c``.  Flags are
+    ``("ready", rank, step, c, mt)``; slot tiles ``(rank, origin, c, mt)``."""
+
+    index: int
+    s: int
+    r: int
+    c: int
+    mt: int
+    nt: int
+    origin: int  # origin rank of the held slot (src table)
+    dst: int  # rank the held slot is pushed to (flow_dst table)
+    copy: Optional[str]  # "seed" (from x) | "push" (from the held slot) | None
+    wait: Optional[tuple]  # flag waited on before the copy / GEMM (None: the seed item fills it itself)
+    sets: Tuple[tuple, ...]  # flags set after the copy
+    reads: Tuple[tuple, ...]  # slot tiles read (copy source, GEMM operand)
+    writes: Tuple[tuple, ...]  # slot tiles written by the copy
+
+
+def work_items(plan: TilePlan, shape, tile=TILE) -> list:
+    """The bf16 route's work items, stage-major: numbered by (s, r, c, nt, mt)
+    with mt fastest, as ``ag_gemm_wgmma_kernel`` decodes its item index
+    (``wg_item``): the blocks that run together share a weight strip.
+
+    ``shape`` is ``(B, m_loc, K, n_loc)`` (B the flattened batch dims)."""
+    b, m_loc, _, n_loc = shape
+    world, nch = plan.world, plan.num_channels
+    bm, bn = tile
+    m_tiles = -(-b * (m_loc // nch) // bm)
+    n_tiles = -(-n_loc // bn)
+    src_t, dst_t = plan.src_tables(), plan.flow_dst_tables()
+    items = []
+    for s in range(world):
+        for r in range(world):
+            for c in range(nch):
+                o, d = src_t[c][s][r], dst_t[c][s][r]
+                push = s < world - 1
+                for nt in range(n_tiles):
+                    for mt in range(m_tiles):
+                        ready = ("ready", r, s, c, mt)
+                        copy, wait, sets, writes = None, ready, (), ()
+                        if nt == 0 and s == 0:  # seed: own sub-chunk -> own slot (+ the peer's)
+                            copy, wait = "seed", None
+                            sets = (ready,) + ((("ready", d, 1, c, mt),) if push else ())
+                            writes = ((r, r, c, mt),) + (((d, r, c, mt),) if push else ())
+                        elif nt == 0 and push:  # push: held slot -> the peer's slot
+                            copy, sets, writes = "push", (("ready", d, s + 1, c, mt),), ((d, o, c, mt),)
+                        held = ((r, o, c, mt),)
+                        items.append(AgItem(len(items), s, r, c, mt, nt, o, d, copy, wait, sets, held, writes))
+    return items
+
+
 def _check(x: torch.Tensor, w: torch.Tensor):
     if x.dim() < 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
         raise ValueError(
@@ -42,39 +114,49 @@ def _check(x: torch.Tensor, w: torch.Tensor):
         )
 
 
-def _plan(x, w, channel, bn):
-    world, m_loc, n_loc = x.shape[0], x.shape[-2], w.shape[-1]
+def _plan(x, w, channel):
+    world, m_loc = x.shape[0], x.shape[-2]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(m_loc, channel.num_channels, kind="ag_matmul")
-    plan = build_plan("ag_matmul", channel, world, nch)
-    return plan, largest_divisor(n_loc, bn or channel.comp.tile[1])
+    return build_plan("ag_matmul", channel, world, nch), channel
+
+
+def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChannel] = None) -> list:
+    """The work items the bf16 route runs for these operands."""
+    _check(x, w)
+    plan, _ = _plan(x, w, channel)
+    return work_items(plan, (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1]))
 
 
 def ag_gemm_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
-    """Plain version: the kernel's schedule replayed step by step in PyTorch."""
+    """Plain version: the bf16 route's work items replayed in order in PyTorch."""
     _check(x, w)
-    plan, _ = _plan(x, w, channel, None)
+    plan, _ = _plan(x, w, channel)
     world, nch = plan.world, plan.num_channels
     lead, (m_loc, k), n_loc = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_sub = m_loc // nch
+    rows = b * m_sub
+    bm, bn = TILE
     xs = x.reshape(world, b, m_loc, k)
-    gbuf = torch.zeros((world, world * nch, b * m_sub, k), dtype=x.dtype, device=x.device)
+    gbuf = torch.zeros((world, world * nch, rows, k), dtype=x.dtype, device=x.device)
     out = torch.zeros((world, b, world * m_loc, n_loc), dtype=x.dtype, device=x.device)
-    src_t, dst_t = plan.src_tables(), plan.flow_dst_tables()
-    for s in range(world):
-        for c in range(nch):
-            for r in range(world):
-                o, d = src_t[c][s][r], dst_t[c][s][r]
-                if s == 0:
-                    tile = xs[r, :, c * m_sub : (c + 1) * m_sub].reshape(b * m_sub, k)
-                else:
-                    tile = gbuf[r, o * nch + c]
-                if s < world - 1:
-                    gbuf[d, o * nch + c] = tile  # push into the peer's gather slot
-                part = (tile.float() @ w[r].float()).to(plan.accum_dtype).to(x.dtype)
-                row = o * m_loc + c * m_sub
-                out[r, :, row : row + m_sub] = part.reshape(b, m_sub, n_loc)
+    flags = set()
+    for it in work_items(plan, (b, m_loc, k, n_loc)):
+        assert it.wait is None or it.wait in flags, it  # the order sets every flag before its wait
+        r, o, c = it.r, it.origin, it.c
+        sl = slice(it.mt * bm, min(rows, (it.mt + 1) * bm))
+        if it.copy == "seed":
+            tile = xs[r, :, c * m_sub : (c + 1) * m_sub].reshape(rows, k)[sl]
+        elif it.copy == "push":
+            tile = gbuf[r, o * nch + c, sl]
+        for rank, origin, ch, _ in it.writes:  # into the peer's (and, seeding, the own) gather slot
+            gbuf[rank, origin * nch + ch, sl] = tile
+        flags.update(it.sets)
+        cols = slice(it.nt * bn, min(n_loc, (it.nt + 1) * bn))
+        part = (gbuf[r, o * nch + c, sl].float() @ w[r, :, cols].float()).to(plan.accum_dtype).to(x.dtype)
+        i = torch.arange(sl.start, sl.stop, device=x.device)
+        out[r, i // m_sub, o * m_loc + c * m_sub + i % m_sub, cols] = part
     return out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
 
 
@@ -90,38 +172,58 @@ def ag_gemm(
     ``x``: [W, *lead, m_loc, K], ``w``: [W, K, n_loc] -> [W, *lead, W*m_loc, n_loc]:
     every rank's all-gathered rows times its own weight shard, rows gathered
     along dim -2 with the leading (batch) dims kept.  The schedule (order,
-    channels), the accum dtype and the n tile (``bn``, default the CompSpec
-    tn, clamped to a divisor of n_loc) come from ``channel``.  A CPU tensor
-    runs :func:`ag_gemm_plain`; a CUDA tensor launches the kernel (or raises).
+    channels) and the accum dtype come from ``channel``.  A CPU tensor runs
+    :func:`ag_gemm_plain`; a CUDA tensor launches the kernel of its dtype's
+    route (``ROUTES``) or raises: bfloat16 takes the wgmma route (tile
+    ``TILE``; K and n_loc multiples of 8, else ValueError), float32 the FMA
+    route with n tile ``bn`` (default the CompSpec tn, clamped to a divisor
+    of n_loc).
     """
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return ag_gemm_plain(x, w, channel=channel)
-    plan, bn = _plan(x, w, channel, bn)
+    plan, channel = _plan(x, w, channel)
     build.check_cuda_operands("ag_gemm", x, w)
+    if plan.accum_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ag_gemm kernel accumulates in float32 or bfloat16, not {plan.accum_dtype}")
     world, nch = plan.world, plan.num_channels
     lead, (m_loc, k), n_loc = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_sub = m_loc // nch
-    n_tiles = n_loc // bn
-    accum_bf16 = int(plan.accum_dtype == torch.bfloat16)
-    if plan.accum_dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"ag_gemm kernel accumulates in float32 or bfloat16, not {plan.accum_dtype}")
     out = torch.empty((world, b, world * m_loc, n_loc), dtype=x.dtype, device=x.device)
     gbuf = torch.empty((world, world * nch, b * m_sub, k), dtype=x.dtype, device=x.device)
-    flags = torch.zeros((world, world, nch), dtype=torch.int32, device=x.device)  # (rank, step, channel)
     src = device_table(plan, "src", x.device)
     dst = device_table(plan, "flow_dst", x.device)
-    lib = build.library()
-    rc = lib.tl_ag_gemm(
-        build.dtype_code(x.dtype), accum_bf16,
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), gbuf.data_ptr(), flags.data_ptr(),
-        src.data_ptr(), dst.data_ptr(),
-        world, nch, n_tiles, b, m_loc, m_sub, k, n_loc, bn, build.stream(x),
-    )  # fmt: skip
-    build.check(rc, "ag_gemm")
+    route = ROUTES[x.dtype]
+    if route == "wgmma":
+        build.check_tma_operands("ag_gemm", x, w)
+        m_tiles = -(-b * m_sub // TILE[0])
+        ready = torch.zeros((world, world, nch, m_tiles), dtype=torch.int32, device=x.device)
+        info = (ctypes.c_int * 2)()
+        lib = build.library()
+        rc = lib.tl_ag_gemm_wgmma(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), gbuf.data_ptr(), ready.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
+            world, nch, b, m_loc, m_sub, k, n_loc, build.stream(x),
+        )  # fmt: skip
+        build.check(rc, "ag_gemm")
+        ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
+    else:
+        bn = largest_divisor(n_loc, bn or channel.comp.tile[1])
+        n_tiles = n_loc // bn
+        flags = torch.zeros((world, world, nch), dtype=torch.int32, device=x.device)  # (rank, step, channel)
+        lib = build.library()
+        rc = lib.tl_ag_gemm(
+            int(plan.accum_dtype == torch.bfloat16),
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), gbuf.data_ptr(), flags.data_ptr(),
+            src.data_ptr(), dst.data_ptr(),
+            world, nch, n_tiles, b, m_loc, m_sub, k, n_loc, bn, build.stream(x),
+        )  # fmt: skip
+        build.check(rc, "ag_gemm")
+        ag_gemm.last_launch = {"route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn)}
     ag_gemm.launches += 1
     return out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
 
 
 ag_gemm.launches = 0
+ag_gemm.last_launch = None

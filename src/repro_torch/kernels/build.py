@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -24,7 +25,18 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "check", "check_cuda_operands", "dtype_code", "stream", "ptxas_report", "CSRC", "NVCC_FLAGS"]
+__all__ = [
+    "library",
+    "check",
+    "check_cuda_operands",
+    "check_tma_operands",
+    "dtype_code",
+    "stream",
+    "ptxas_report",
+    "sass_report",
+    "CSRC",
+    "NVCC_FLAGS",
+]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
@@ -47,12 +59,16 @@ _LIB = None
 _SIGNATURES = {
     # dtype, x, w, out, M, N, K, bm, bn, stream
     "tl_matmul": "i" + "ppp" + "iiiii" + "p",
-    # dtype, accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl,
+    # float32: accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl,
     # W, nch, n_tiles, B, m_loc, m_sub, K, n_loc, bn, stream
-    "tl_ag_gemm": "ii" + "ppppppp" + "iiiiiiiii" + "p",
-    # dtype, acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl,
+    "tl_ag_gemm": "i" + "ppppppp" + "iiiiiiiii" + "p",
+    # float32: acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl,
     # W, nch, n_tiles, B, M, K, N, n_sub, bn, stream
-    "tl_gemm_rs": "ii" + "ppppppp" + "iiiiiiiii" + "p",
+    "tl_gemm_rs": "i" + "ppppppp" + "iiiiiiiii" + "p",
+    # bfloat16: x, w, out, gbuf, ready, src_tbl, dst_tbl, info, W, nch, B, m_loc, m_sub, K, n_loc, stream
+    "tl_ag_gemm_wgmma": "pppppppp" + "iiiiiii" + "p",
+    # bfloat16: acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub, stream
+    "tl_gemm_rs_wgmma": "i" + "pppppppp" + "iiiiiii" + "p",
     # dtype, q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, stream
     "tl_flash_attention": "i" + "pppp" + "iiiii" + "f" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, n_tiles, N, K, E, bm, stream
@@ -175,7 +191,51 @@ def check_cuda_operands(what: str, *ts: torch.Tensor):
     dtype_code(dt)
 
 
+def check_tma_operands(what: str, *ts: torch.Tensor):
+    """Raise ValueError unless every operand can back a TMA tensor map: a
+    16-byte aligned base and rows of a multiple of 8 bf16 elements (16 bytes)."""
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: the bf16 route needs 16-byte aligned operands (TMA)")
+        if t.shape[-1] % 8:
+            raise ValueError(
+                f"{what}: the bf16 route needs K and every row width a multiple of 8 elements "
+                f"(16-byte TMA strides), got a row of {t.shape[-1]}"
+            )
+
+
 def ptxas_report() -> str:
     """The compiler's per-kernel register / shared-memory report of the build."""
     log = _ROOT / "build" / "repro_torch" / _digest() / "nvcc.log"
     return log.read_text() if log.exists() else ""
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    if Path(found).exists():
+        return found
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cand = Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("repro_torch: cuobjdump not found (PATH, the CUDA toolkit or triton's copy)")
+
+
+def sass_report(ops=("HGMMA", "UTMALDG")) -> dict:
+    """Count SASS instructions of the built library per kernel symbol:
+    ``{mangled name: {op: count}}`` from ``cuobjdump -sass``.  Builds first."""
+    library()
+    lib = _ROOT / "build" / "repro_torch" / _digest() / "libtilelink.so"
+    res = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True, check=True)
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            fn = line.split(":", 1)[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in ops:
+                if op in line:
+                    counts[fn][op] += 1
+    return counts

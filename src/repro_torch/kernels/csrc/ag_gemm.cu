@@ -4,28 +4,61 @@
 // Per rank r: out[r] = all_gather(x) @ w[r], with x [W, B, m_loc, K] and
 // w [W, K, n_loc] -> out [W, B, W*m_loc, n_loc]; gathered rows of origin o,
 // channel c land at out[r, b, o*m_loc + c*m_sub + i] for every batch row b.
+// The comm tile of channel c is the slot [B*m_sub, K] (the batch rows ride
+// inside the tile).  Two routes, chosen by dtype in the wrapper:
 //
-// Grid (n_tile j, channel c, rank r), one launch for all ranks.  The comm
-// tile of channel c is [B, m_sub, K] (the batch rows ride inside the tile,
-// not the grid).  The plan's tables drive it, as on the TPU:
+// bf16 (ag_gemm_wgmma_kernel): a persistent grid of output tiles.
 //
-//   step s:  src = src_tbl[c, s, r] is the origin of the held tile; at s = 0
-//            it is the own sub-chunk, read in place from x; later it is the
-//            gather slot (src, c) of rank r, read once its recv flag
-//            (s-1, c) is set (acquire);
-//            block j == 0 pushes the held tile into gather slot (src, c) of
-//            rank dst_tbl[c, s, r] and sets that rank's flag (s, c) (release);
-//            every block computes its [B*m_sub, bn] output tile on it.
+//   work item (s, r, c, nt, mt), numbered stage-major (mt fastest, s
+//   slowest: wg_item), is the BM x BN tile (m-tile mt of the held slot,
+//   n-tile nt of n_loc) of rank r at step s, channel c; src =
+//   src_tbl[c, s, r] is the origin of the held slot, gbuf[r, (src, c)].
+//   G = min(items, resident blocks) blocks, one cooperative launch; block b
+//   runs items b, b+G, ...
 //
-// Buffer protocol (as analysis/protocol.py models the TPU kernel): one
-// gather slot per (origin, channel) per rank, written once per pass; one
-// recv flag per (step, channel) per rank.
+//   seed:  the n-tile-0 item of (0, r, c, mt) copies its BM rows of rank
+//          r's own sub-chunk of x into gather slot (r, c) of rank r and
+//          sets ready(r, 0, c, mt) with release;
+//   GEMM:  every item's producer warp waits on ready(r, s, c, mt) (acquire,
+//          then fence.proxy.async: the slot was written by generic stores
+//          and TMA reads it through the async proxy), then streams the A box
+//          from the slot and the B boxes from w[r] through the wgmma ring;
+//          the epilogue stores the tile at the gathered rows (bf16, the
+//          rounding of accum_bf16 included);
+//   push:  for s < W-1 the n-tile-0 item of (s, r, c, mt) also stores each
+//          A box, as it lands in shared memory, into slot (src, c) of rank
+//          dst_tbl[c, s, r] (the held rows travel with the GEMM's own loads,
+//          no second read of the slot), then sets ready(dst, s+1, c, mt).
 //
-// Bound on this card: the GEMM (2 * W * B*W*m_loc * K * n_loc flops) on
-// fp32 FMA; the pushes move W*(W-1)*B*m_loc*K elements at L2 bandwidth.
-// The push happens before the step's GEMM, so the next step's tile travels
-// while this step computes.
+//   No deadlock: an item waits only on a flag set by an item with a smaller
+//   number (step s+1 on the n-tile-0 items of step s; a step-0 item with
+//   nt > 0 on the seed item of its m-tile, which comes first; the seed item
+//   sets the flag it waits on itself, before it waits).  All G blocks are
+//   resident and each walks its items in increasing order, so the smallest
+//   unfinished item can always run, for any G >= 1.  work_items() in kernels/ag_gemm.py lists
+//   the same items; tests/test_torch_fused_schedule.py checks this invariant
+//   and the slot protocol on the CPU.
+//
+//   Buffer protocol (as analysis/protocol.py models the TPU kernel): one
+//   gather slot per (origin, channel) per rank, written once per pass; one
+//   ready flag per (rank, step, channel, m-tile).  The pushes are spread over
+//   the m-tiles and ride the GEMM's loads, so the next step's tile travels
+//   while this step computes; the W-1 pushes of an m-tile are a chain, each
+//   as long as one item's main loop.
+//
+//   Bound: the GEMM, 2 * W * B*W*m_loc * K * n_loc flops on bf16 tensor cores
+//   (989 TFLOP/s); the seed and pushes move W*B*m_loc*K elements per rank
+//   through L2 with 16-byte stores.  The ring (wgmma_tile.cuh) overlaps loads
+//   with wgmma; the persistent grid fills the 132 SMs at every serve shape.
+//
+// float32 (ag_gemm_kernel): the tile_gemm.cuh FMA loop, exact f32 products.
+//   Grid (n_tile j, channel c, rank r); block j == 0 pushes the held tile and
+//   sets its peer's flag (s, c); every block computes its [B*m_sub, bn]
+//   output tile on it at every step (the flag primitives in tile_sync.cuh).
+//   Bound: fp32 FMA issue (67 TFLOP/s).  A float32 product on tensor cores
+//   would be TF32, which the f32 fused-vs-eager checks exist to exclude.
 #include "tile_sync.cuh"
+#include "wgmma_tile.cuh"
 
 template <typename T>
 __global__ void __launch_bounds__(TG_THREADS)
@@ -79,35 +112,188 @@ __global__ void __launch_bounds__(TG_THREADS)
   }
 }
 
-template <typename T>
-static int launch(int accum_bf16, const void* x, const void* w, void* out, void* gbuf, void* flags,
-                  const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc, int m_sub,
-                  int K, int n_loc, int bn, cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
-  T* gp = static_cast<T*>(gbuf);
+
+struct AgArgs {
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  __nv_bfloat16* gbuf;
+  int* ready;  // [W, W, nch, MT]
+  const int* src_tbl;
+  const int* dst_tbl;
+  int W, nch, B, m_loc, m_sub, K, n_loc, MT, NT, items;
+};
+
+// The 256 consumer threads: the seed copy of a step-0 n-tile-0 item, rows
+// [row0, row0 + nrows) of rank r's own sub-chunk of x (slot row i = (b, ii)
+// -> x[r, b, c*m_sub + ii, :]) into its own gather slot, 16-byte vectors.
+// Each thread issues COPY_BATCH independent loads before it stores them, so
+// the copy is not one L2 round trip per vector.
+constexpr int COPY_BATCH = 8;
+
+__device__ __forceinline__ void ag_seed_rows(const AgArgs& a, int r, int c, int row0, int nrows, __nv_bfloat16* own) {
+  const int vpr = a.K / 8;
+  const int total = nrows * vpr;
+  for (int e0 = threadIdx.x; e0 < total; e0 += COPY_BATCH * wg::CONSUMERS) {
+    uint4 v[COPY_BATCH];
+#pragma unroll
+    for (int u = 0; u < COPY_BATCH; ++u) {
+      const int e = e0 + u * wg::CONSUMERS;
+      if (e >= total) break;
+      const int i = row0 + e / vpr;
+      const __nv_bfloat16* src =
+          a.x + ((static_cast<long>(r) * a.B + i / a.m_sub) * a.m_loc + static_cast<long>(c) * a.m_sub + i % a.m_sub) * a.K;
+      v[u] = __ldcg(reinterpret_cast<const uint4*>(src) + e % vpr);
+    }
+#pragma unroll
+    for (int u = 0; u < COPY_BATCH; ++u) {
+      const int e = e0 + u * wg::CONSUMERS;
+      if (e >= total) break;
+      reinterpret_cast<uint4*>(own)[static_cast<long>(row0) * vpr + e] = v[u];
+    }
+  }
+}
+
+// Publish the consumers' prior stores to a gather slot and set a ready flag:
+// generic stores, then (for TMA readers) the proxy fence, a GPU-scope fence,
+// the consumer barrier, one release store.
+__device__ __forceinline__ void ag_publish(int* flag) {
+  wg_fence_proxy_async();
+  __threadfence();
+  wg_consumer_sync();
+  if (threadIdx.x == 0) tl_st_release(flag, 1);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                         const AgArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
+  const WgRing ring = wg_ring_setup(smem_raw, bars);
+  const int W = a.W, nch = a.nch;
+  const int rows = a.B * a.m_sub;
+  const long slot_elems = static_cast<long>(rows) * a.K;
+  const int nk = (a.K + wg::BK - 1) / wg::BK;
+  RingPos pos;
+
+  if (threadIdx.x >= wg::CONSUMERS) {  // ---- producer warp: TMA loads
+    if (threadIdx.x != wg::CONSUMERS) return;
+    for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+      const WgItem x = wg_item(it, W, nch, a.NT, a.MT);
+      const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
+      const int src = a.src_tbl[(c * W + s) * W + r];
+      const int* flag = &a.ready[((r * W + s) * nch + c) * a.MT + mt];
+      while (tl_ld_acquire(flag) == 0) __nanosleep(32);
+      wg_fence_proxy_async();
+      const int slot = (r * W + src) * nch + c;
+      auto load = [&](int kb, uint8_t* sa, uint8_t* sb, uint64_t* bar) {
+        wg_tma_3d(sa, &map_a, bar, kb * wg::BK, mt * wg::BM, slot);
+        wg_tma_3d(sb, &map_b, bar, nt * wg::BN, kb * wg::BK, r);
+        wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, nt * wg::BN + 64, kb * wg::BK, r);
+      };
+      wg_produce(ring, pos, nk, load);
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: seed / push, wgmma, epilogue
+  const int wgi = threadIdx.x / 128;
+  const long m_glob = static_cast<long>(W) * a.m_loc;
+  float acc[wg::ACC];
+#pragma unroll
+  for (int j = 0; j < wg::ACC; ++j) acc[j] = 0.f;
+  for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+    const WgItem x = wg_item(it, W, nch, a.NT, a.MT);
+    const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
+    const int f = (c * W + s) * W + r;
+    const int src = a.src_tbl[f];
+    const int dst = a.dst_tbl[f];
+    const int row0 = mt * wg::BM;
+    const int nrows = min(wg::BM, rows - row0);
+    if (nt == 0 && s == 0) {  // seed: own sub-chunk -> own slot (r, c)
+      __nv_bfloat16* own = a.gbuf + (static_cast<long>(r * W + r) * nch + c) * slot_elems;
+      ag_seed_rows(a, r, c, row0, nrows, own);
+      ag_publish(&a.ready[((r * W + 0) * nch + c) * a.MT + mt]);
+    }
+    if (nt == 0 && s < W - 1) {  // push: the held rows -> the peer's slot (src, c), from the A boxes
+      __nv_bfloat16* peer =
+          a.gbuf + (static_cast<long>(dst * W + src) * nch + c) * slot_elems + static_cast<long>(row0) * a.K;
+      auto push = [&](int kb, const uint8_t* box) { wg_store_a_box(box, peer, a.K, nrows, kb * wg::BK, a.K); };
+      wg_mainloop(ring, pos, nk, wgi, acc, push);
+      ag_publish(&a.ready[((dst * W + s + 1) * nch + c) * a.MT + mt]);
+    } else {
+      wg_mainloop(ring, pos, nk, wgi, acc);
+    }
+    const long row_base = static_cast<long>(src) * a.m_loc + static_cast<long>(c) * a.m_sub;
+    const int col0 = nt * wg::BN;
+    auto epi = [&](int row, int col, float v0, float v1) {
+      const int i = row0 + row;
+      const int b = i / a.m_sub;
+      const long o = ((static_cast<long>(r) * a.B + b) * m_glob + row_base + i % a.m_sub) * a.n_loc + col0 + col;
+      *reinterpret_cast<__nv_bfloat162*>(a.out + o) = __floats2bfloat162_rn(v0, v1);  // n_loc % 8 == 0
+    };
+    wg_epilogue(acc, wgi, nrows, a.n_loc - col0, epi);
+  }
+}
+
+static int launch_f32(int accum_bf16, const void* x, const void* w, void* out, void* gbuf, void* flags,
+                      const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc,
+                      int m_sub, int K, int n_loc, int bn, cudaStream_t st) {
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  float* op = static_cast<float*>(out);
+  float* gp = static_cast<float*>(gbuf);
   int* fp = static_cast<int*>(flags);
   const int* sp = static_cast<const int*>(src_tbl);
   const int* dp = static_cast<const int*>(dst_tbl);
   void* args[] = {&xp, &wp, &op, &gp, &fp, &sp, &dp, &W, &nch, &B, &m_loc, &m_sub, &K, &n_loc, &bn, &accum_bf16};
   const dim3 grid(n_tiles, nch, W);
   // co-residency: every block spins on flags other blocks set
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_kernel<T>), grid, dim3(TG_THREADS),
-                                              args, 0, st);
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_kernel<float>), grid,
+                                              dim3(TG_THREADS), args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tl_ag_gemm(int dtype, int accum_bf16, const void* x, const void* w, void* out, void* gbuf,
-                          void* flags, const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B,
-                          int m_loc, int m_sub, int K, int n_loc, int bn, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K,
-                         n_loc, bn, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc,
-                                 m_sub, K, n_loc, bn, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+// float32 route; the bf16 route is tl_ag_gemm_wgmma.
+extern "C" int tl_ag_gemm(int accum_bf16, const void* x, const void* w, void* out, void* gbuf, void* flags,
+                          const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc,
+                          int m_sub, int K, int n_loc, int bn, void* stream) {
+  return launch_f32(accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K, n_loc,
+                    bn, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 route.  info (host int[2]) receives the grid G and the item count.
+// K and n_loc must be multiples of 8 and the operands 16-byte aligned (the
+// wrapper checks); ready flags zeroed on the stream before the launch.
+extern "C" int tl_ag_gemm_wgmma(const void* x, const void* w, void* out, void* gbuf, void* ready,
+                                const void* src_tbl, const void* dst_tbl, void* info, int W, int nch, int B,
+                                int m_loc, int m_sub, int K, int n_loc, void* stream) {
+  const int rows = B * m_sub;
+  AgArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+           static_cast<__nv_bfloat16*>(gbuf), static_cast<int*>(ready), static_cast<const int*>(src_tbl),
+           static_cast<const int*>(dst_tbl), W, nch, B, m_loc, m_sub, K, n_loc,
+           (rows + wg::BM - 1) / wg::BM, (n_loc + wg::BN - 1) / wg::BN, 0};
+  a.items = W * W * nch * a.MT * a.NT;
+  CUtensorMap map_a, map_b;
+  // A: gbuf as [W*W*nch slots, rows, K]; B: w as [W, K, n_loc]
+  const cuuint64_t da[3] = {(cuuint64_t)K, (cuuint64_t)rows, (cuuint64_t)W * W * nch};
+  const cuuint64_t sa[2] = {(cuuint64_t)K, (cuuint64_t)rows * K};
+  const cuuint32_t ba[3] = {wg::BK, wg::BM, 1};
+  const cuuint64_t db[3] = {(cuuint64_t)n_loc, (cuuint64_t)K, (cuuint64_t)W};
+  const cuuint64_t sb[2] = {(cuuint64_t)n_loc, (cuuint64_t)K * n_loc};
+  const cuuint32_t bb[3] = {64, wg::BK, 1};
+  int rc = wg_tensor_map(&map_a, gbuf, 3, da, sa, ba);
+  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb);
+  static int resident = 0;
+  int grid = 0;
+  if (rc == 0) rc = wg_grid(reinterpret_cast<const void*>(ag_gemm_wgmma_kernel), a.items, &resident, &grid);
+  if (rc != 0) return rc;
+  static_cast<int*>(info)[0] = grid;
+  static_cast<int*>(info)[1] = a.items;
+  void* args[] = {&map_a, &map_b, &a};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_wgmma_kernel), dim3(grid),
+                                              dim3(wg::THREADS), args, wg::SMEM_BYTES,
+                                              static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

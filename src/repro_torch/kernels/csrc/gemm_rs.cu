@@ -3,28 +3,56 @@
 //
 // Replaces src/repro/kernels/gemm_rs.py::gemm_rs_shard (_gemm_rs_kernel).
 // Per rank r: out[r] = rank r's [B, M/W, N] segment of sum_q x[q] @ w[q],
-// with x [W, B, M, k_loc] and w [W, k_loc, N].
+// with x [W, B, M, k_loc] and w [W, k_loc, N].  Channel c owns columns
+// c*n_sub .. (c+1)*n_sub.  Two routes, chosen by dtype in the wrapper:
 //
-// Grid (n_tile j, channel c, rank r), one launch for all ranks.  Block
-// (j, c, r) owns columns c*n_sub + j*bn .. +bn of every stage:
+// bf16 (gemm_rs_wgmma_kernel): a persistent grid of output tiles.
 //
-//   stage s: seg = seg_tbl[c, s, r]; compute the [B*m_loc, bn] partial of
-//            rows seg*m_loc.. of every batch; for s > 0 wait for recv flag
-//            (s-1, c, j) and add the partial received in slot (s-1, c);
-//            for s < W-1 store the sum (accum dtype, the wire dtype of the
-//            identity QuantSpec) into recv slot (s, c) of rank
-//            dst_tbl[c, s, r] and set that rank's flag (s, c, j) (release);
-//            the last stage stores the reduced home segment to out.
+//   work item (s, r, c, nt, mt), numbered stage-major (mt fastest: wg_item), is a
+//   BM x BN tile of the [B*m_loc, n_sub] partial of segment seg =
+//   seg_tbl[c, s, r] of rank r at stage s.  m-tile mt = (batch pair bp, row
+//   block ib): consumer warpgroup g holds batch row 2*bp + g, rows
+//   ib*64 .. ib*64+63 of the segment (one 64-row block per batch row at
+//   every serve shape, m_loc = 64).  A is a 4-D TMA box (64 of K, 64 rows, 2
+//   batches, 1 rank) of x [W, B, M, k_loc]; rows past the segment or past B
+//   are loaded (x is read-only) or zero-filled and masked in the epilogue.
+//   The B boxes of channel c start at column c*n_sub rounded down to a
+//   multiple of 8 (TMA needs 16-byte aligned box starts), `lead` columns
+//   early; the epilogue shifts by lead and masks the columns outside the
+//   channel, and the n-tiles cover n_sub plus the widest lead.
+//   G = min(items, resident blocks) blocks, one cooperative launch; block b
+//   runs items b, b+G, ...
 //
-// Each recv slot (stage, channel) is written exactly once per pass, so no
-// send credit is needed: the partial never sits in a staging buffer that a
-// later stage reuses (the per-channel send semaphore of the TPU kernel
-// guards exactly that reuse).  Several n-tile blocks feed one slot, so the
-// flags are per (stage, channel, tile).
+//   epilogue: for s > 0 wait on flag (r, s-1, c, mt, nt) (acquire) and add
+//             the partial received in recv slot (s-1, c); for s < W-1 store
+//             the sum (accum dtype, the wire dtype of the identity
+//             QuantSpec) into recv slot (s, c) of rank dst_tbl[c, s, r] and
+//             set that rank's flag (s, c, mt, nt) (release); the last stage
+//             stores the reduced home segment to out.  The producer warp
+//             needs no flag: it reads only x and w.
 //
-// Bound on this card: the GEMM (2 * W * B*M * k_loc * N flops) on fp32 FMA;
-// partial traffic W*(W-1)*B*m_loc*N accum elements stays in L2.
+//   No deadlock: an item waits only on a flag set by an item of the stage
+//   before, which has a smaller number.  All G blocks are resident and each
+//   walks its items in increasing order, so the smallest unfinished item
+//   can always run, for any G >= 1 (work_items() in kernels/gemm_rs.py;
+//   tests/test_torch_fused_schedule.py checks it on the CPU).
+//
+//   Each recv slot (stage, channel) is written exactly once per pass, so no
+//   send credit is needed: the partial never sits in a staging buffer that a
+//   later stage reuses (the per-channel send semaphore of the TPU kernel
+//   guards exactly that reuse).  Flags are per (rank, stage, channel, m-tile,
+//   n-tile).  Slots are written and read with generic accesses (L2, ld.cg).
+//
+//   Bound: the GEMM, 2 * W * B*M * k_loc * N flops on bf16 tensor cores;
+//   partial traffic W*(W-1)*B*m_loc*N accum elements stays in L2.
+//
+// float32 (gemm_rs_kernel): the tile_gemm.cuh FMA loop, exact f32 products.
+//   Grid (n_tile j, channel c, rank r); block (j, c, r) owns columns
+//   c*n_sub + j*bn .. +bn of every stage, with flags per (stage, channel,
+//   n-tile).  Bound: fp32 FMA issue (67 TFLOP/s).
 #include "tile_sync.cuh"
+#include "wgmma_tile.cuh"
+
 
 template <typename T, typename AccT>
 __global__ void __launch_bounds__(TG_THREADS)
@@ -78,13 +106,155 @@ __global__ void __launch_bounds__(TG_THREADS)
   }
 }
 
-template <typename T, typename AccT>
-static int launch(const void* x, const void* w, void* out, void* rbuf, void* flags, const void* seg_tbl,
-                  const void* dst_tbl, int W, int nch, int n_tiles, int B, int M, int K, int N, int n_sub, int bn,
-                  cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* op = static_cast<T*>(out);
+
+template <typename AccT>
+struct RsArgs {
+  __nv_bfloat16* out;
+  AccT* rbuf;
+  int* flags;  // [W, W, nch, MT, NT]
+  const int* seg_tbl;
+  const int* dst_tbl;
+  int W, nch, B, M, K, N, n_sub, m_loc, IB, MT, NT, items;
+};
+
+__device__ __forceinline__ void rs_store2(float* p, float v0, float v1) { *reinterpret_cast<float2*>(p) = make_float2(v0, v1); }
+__device__ __forceinline__ void rs_store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+template <typename AccT>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+                         const RsArgs<AccT> a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
+  const WgRing ring = wg_ring_setup(smem_raw, bars);
+  const int W = a.W, nch = a.nch;
+  const int nk = (a.K + wg::BK - 1) / wg::BK;
+  RingPos pos;
+
+  if (threadIdx.x >= wg::CONSUMERS) {  // ---- producer warp: TMA loads of x and w
+    if (threadIdx.x != wg::CONSUMERS) return;
+    for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+      const WgItem x = wg_item(it, W, nch, a.NT, a.MT);
+      const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
+      const int seg = a.seg_tbl[(c * W + s) * W + r];
+      const int bp = mt / a.IB, ib = mt % a.IB;
+      const int col = c * a.n_sub - (c * a.n_sub) % 8 + nt * wg::BN;  // 16-byte aligned box start
+      auto load = [&](int kb, uint8_t* sa, uint8_t* sb, uint64_t* bar) {
+        wg_tma_4d(sa, &map_a, bar, kb * wg::BK, seg * a.m_loc + ib * 64, 2 * bp, r);
+        wg_tma_3d(sb, &map_b, bar, col, kb * wg::BK, r);
+        wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, col + 64, kb * wg::BK, r);
+      };
+      wg_produce(ring, pos, nk, load);
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups: wgmma, then the reduce-scatter epilogue
+  const int wgi = threadIdx.x / 128;
+  const long slot_elems = static_cast<long>(a.B) * a.m_loc * a.n_sub;
+  float acc[wg::ACC];
+#pragma unroll
+  for (int j = 0; j < wg::ACC; ++j) acc[j] = 0.f;
+  for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+    const WgItem x = wg_item(it, W, nch, a.NT, a.MT);
+    const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
+    const int dst = a.dst_tbl[(c * W + s) * W + r];
+    const int bp = mt / a.IB, ib = mt % a.IB;
+    wg_mainloop(ring, pos, nk, wgi, acc);
+
+    const int fl = (c * a.MT + mt) * a.NT + nt;  // flag offset inside (rank, stage)
+    const AccT* prev = nullptr;
+    if (s > 0) {
+      if (threadIdx.x == 0) {
+        while (tl_ld_acquire(&a.flags[(r * W + s - 1) * nch * a.MT * a.NT + fl]) == 0) __nanosleep(32);
+        __threadfence();
+      }
+      wg_consumer_sync();
+      prev = a.rbuf + (static_cast<long>(r * W + s - 1) * nch + c) * slot_elems;
+    }
+    AccT* send = (s < W - 1) ? a.rbuf + (static_cast<long>(dst * W + s) * nch + c) * slot_elems : nullptr;
+    const int lead = (c * a.n_sub) % 8;  // the box starts `lead` columns before the channel
+    const int col0 = nt * wg::BN - lead;    // channel column of tile column 0
+    // rows and the channel column of a tile element; false where it is masked
+    auto at = [&](int row, int col, int& b, int& i, int& cc) {
+      b = 2 * bp + row / 64;
+      i = ib * 64 + row % 64;
+      cc = col0 + col;  // even (n_sub and lead are), < n_sub
+      return b < a.B && i < a.m_loc && cc >= 0;
+    };
+    if (prev != nullptr) {  // pass 1: add the partial received last stage (loads only)
+      auto add = [&](int row, int col, float& v0, float& v1) {
+        int b, i, cc;
+        if (!at(row, col, b, i, cc)) return;
+        const long pe = (static_cast<long>(b) * a.m_loc + i) * a.n_sub + cc;
+        v0 += tl_ldcg(prev + pe);
+        v1 += tl_ldcg(prev + pe + 1);
+      };
+      wg_epilogue(acc, wgi, wg::BM, a.n_sub - col0, add);
+    }
+    auto epi = [&](int row, int col, float& v0, float& v1) {  // pass 2: store
+      int b, i, cc;
+      if (!at(row, col, b, i, cc)) return;
+      if (send != nullptr) {
+        rs_store2(send + (static_cast<long>(b) * a.m_loc + i) * a.n_sub + cc, v0, v1);
+      } else {
+        rs_store2(a.out + ((static_cast<long>(r) * a.B + b) * a.m_loc + i) * a.N + static_cast<long>(c) * a.n_sub + cc,
+                  v0, v1);
+      }
+    };
+    wg_epilogue(acc, wgi, wg::BM, a.n_sub - col0, epi);
+    if (send != nullptr) {
+      __threadfence();
+      wg_consumer_sync();
+      if (threadIdx.x == 0) tl_st_release(&a.flags[(dst * W + s) * nch * a.MT * a.NT + fl], 1);
+    }
+  }
+}
+
+template <typename AccT>
+static int launch_wgmma(const void* x, const void* w, void* out, void* rbuf, void* flags, const void* seg_tbl,
+                        const void* dst_tbl, int* info, int W, int nch, int B, int M, int K, int N, int n_sub,
+                        cudaStream_t st) {
+  const int m_loc = M / W;
+  const int IB = (m_loc + 63) / 64;
+  int lead = 0;  // widest shift of a channel's first column down to a 16-byte boundary
+  for (int c = 1; c < nch; ++c) lead = max(lead, (c * n_sub) % 8);
+  RsArgs<AccT> a{static_cast<__nv_bfloat16*>(out), static_cast<AccT*>(rbuf), static_cast<int*>(flags),
+                 static_cast<const int*>(seg_tbl), static_cast<const int*>(dst_tbl), W, nch, B, M, K, N, n_sub,
+                 m_loc, IB, (B + 1) / 2 * IB, (n_sub + lead + wg::BN - 1) / wg::BN, 0};
+  a.items = W * W * nch * a.MT * a.NT;
+  CUtensorMap map_a, map_b;
+  // A: x as [W, B, M, K] in boxes of (64 of K, 64 rows, 2 batches, 1 rank); B: w as [W, K, N]
+  const cuuint64_t da[4] = {(cuuint64_t)K, (cuuint64_t)M, (cuuint64_t)B, (cuuint64_t)W};
+  const cuuint64_t sa[3] = {(cuuint64_t)K, (cuuint64_t)M * K, (cuuint64_t)B * M * K};
+  const cuuint32_t ba[4] = {wg::BK, 64, 2, 1};
+  const cuuint64_t db[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)W};
+  const cuuint64_t sb[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
+  const cuuint32_t bb[3] = {64, wg::BK, 1};
+  int rc = wg_tensor_map(&map_a, x, 4, da, sa, ba);
+  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb);
+  static int resident = 0;
+  int grid = 0;
+  if (rc == 0) rc = wg_grid(reinterpret_cast<const void*>(gemm_rs_wgmma_kernel<AccT>), a.items, &resident, &grid);
+  if (rc != 0) return rc;
+  info[0] = grid;
+  info[1] = a.items;
+  void* args[] = {&map_a, &map_b, &a};
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_wgmma_kernel<AccT>), dim3(grid),
+                                              dim3(wg::THREADS), args, wg::SMEM_BYTES, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename AccT>
+static int launch_f32(const void* x, const void* w, void* out, void* rbuf, void* flags, const void* seg_tbl,
+                      const void* dst_tbl, int W, int nch, int n_tiles, int B, int M, int K, int N, int n_sub, int bn,
+                      cudaStream_t st) {
+  const float* xp = static_cast<const float*>(x);
+  const float* wp = static_cast<const float*>(w);
+  float* op = static_cast<float*>(out);
   AccT* rp = static_cast<AccT*>(rbuf);
   int* fp = static_cast<int*>(flags);
   const int* sp = static_cast<const int*>(seg_tbl);
@@ -92,22 +262,39 @@ static int launch(const void* x, const void* w, void* out, void* rbuf, void* fla
   void* args[] = {&xp, &wp, &op, &rp, &fp, &sp, &dp, &W, &nch, &n_tiles, &B, &M, &K, &N, &n_sub, &bn};
   const dim3 grid(n_tiles, nch, W);
   // co-residency: every block spins on flags other blocks set
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_kernel<T, AccT>), grid,
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_kernel<float, AccT>), grid,
                                               dim3(TG_THREADS), args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tl_gemm_rs(int dtype, int acc_dtype, const void* x, const void* w, void* out, void* rbuf,
-                          void* flags, const void* seg_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B,
-                          int M, int K, int N, int n_sub, int bn, void* stream) {
+// float32 route, accum (= wire) dtype acc_dtype (0 float32, 1 bfloat16); the
+// bf16 route is tl_gemm_rs_wgmma.
+extern "C" int tl_gemm_rs(int acc_dtype, const void* x, const void* w, void* out, void* rbuf, void* flags,
+                          const void* seg_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int M, int K,
+                          int N, int n_sub, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TL_RS(T, A) \
-  return launch<T, A>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub, bn, st)
-  if (dtype == 0 && acc_dtype == 0) TL_RS(float, float);
-  if (dtype == 0 && acc_dtype == 1) TL_RS(float, __nv_bfloat16);
-  if (dtype == 1 && acc_dtype == 0) TL_RS(__nv_bfloat16, float);
-  if (dtype == 1 && acc_dtype == 1) TL_RS(__nv_bfloat16, __nv_bfloat16);
-#undef TL_RS
+  if (acc_dtype == 0)
+    return launch_f32<float>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub, bn, st);
+  if (acc_dtype == 1)
+    return launch_f32<__nv_bfloat16>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub,
+                                     bn, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 route, accum (= wire) dtype acc_dtype (0 float32, 1 bfloat16).  info
+// (host int[2]) receives the grid G and the item count.  K and N must be
+// multiples of 8, N / nch even and the operands 16-byte aligned (the wrapper
+// checks);
+// flags zeroed on the stream before the launch.
+extern "C" int tl_gemm_rs_wgmma(int acc_dtype, const void* x, const void* w, void* out, void* rbuf, void* flags,
+                                const void* seg_tbl, const void* dst_tbl, void* info, int W, int nch, int B, int M,
+                                int K, int N, int n_sub, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* inf = static_cast<int*>(info);
+  if (acc_dtype == 0)
+    return launch_wgmma<float>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N, n_sub, st);
+  if (acc_dtype == 1)
+    return launch_wgmma<__nv_bfloat16>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N, n_sub, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,30 +1,115 @@
 """Fused GEMM + ReduceScatter kernel (``csrc/gemm_rs.cu``), plan-driven.
 
 Replaces ``repro/kernels/gemm_rs.py::gemm_rs_shard`` (``_gemm_rs_kernel``).
-All W emulated ranks run in one cooperative launch with grid
-(n-tile, channel, rank); the plan's ``rs_seg_tables()`` /
-``rs_dst_tables()`` are device int32 tables.  The protocol, the bound and the
-design are noted in ``csrc/gemm_rs.cu``.
+All W emulated ranks run in one cooperative launch; the plan's
+``rs_seg_tables()`` / ``rs_dst_tables()`` are device int32 tables.  Two
+routes, chosen by dtype before the launch (never by a fallback):
 
-:func:`gemm_rs_plain` is the plain PyTorch version: it replays the same
-tables, the same recv slots and the same stage order on any device.
+  * bfloat16 (the serve dtype): ``gemm_rs_wgmma_kernel``, a persistent grid
+    of output tiles (:func:`work_items`, stage-major) over all SMs, each
+    through the TMA -> shared-memory ring -> ``wgmma`` body of
+    ``csrc/wgmma_tile.cuh``.  An m-tile is 2 batch rows x 64 rows of the
+    segment (one per consumer warpgroup), an n-tile 128 columns of the
+    channel (starting ``lead`` columns early where the channel's first
+    column is not 16-byte aligned); flags per (rank, stage, channel, m-tile, n-tile).  Its tile is
+    fixed: ``bn`` and the CompSpec tile do not apply.  k_loc and N must be
+    multiples of 8 (16-byte TMA strides).
+  * float32: ``gemm_rs_kernel``, the ``csrc/tile_gemm.cuh`` FMA loop on a
+    grid (n-tile, channel, rank) with flags per (rank, stage, channel,
+    n-tile); the n tile is ``bn`` / the CompSpec tn.  Products stay exact
+    float32 (on tensor cores they would be TF32).
+
+Both routes count in ``gemm_rs.launches``; ``gemm_rs.last_launch`` says
+which route the last launch took, its grid and its item count.  The
+protocol, the bound and the design are noted in ``csrc/gemm_rs.cu``.
+
+:func:`gemm_rs_plain` is the plain PyTorch version: it replays the bf16
+route's work items in order, with the same tables, the same recv slots and
+the same flag keys.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch.core.mapping import effective_channels
-from repro_torch.core.plan import build_plan
+from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.kernels import build
-from repro_torch.kernels.ag_gemm import device_table
+from repro_torch.kernels.ag_gemm import ROUTES, device_table
 
-__all__ = ["gemm_rs", "gemm_rs_plain"]
+__all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "tiles", "RsItem", "TILE"]
+
+TILE = (128, 128)  # the bf16 route's output tile (BM, BN); its K block is 64
+SEG_ROWS = 64  # rows of one batch row's segment a consumer warpgroup holds
+
+
+class RsItem(NamedTuple):
+    """One work item of the bf16 route: output tile (m-tile ``mt`` = batch
+    pair ``mt // IB``, row block ``mt % IB``; n-tile ``nt``) of the partial
+    of segment ``seg`` of rank ``r`` at stage ``s``, channel ``c``.  Flags are
+    ``("part", rank, stage, c, mt, nt)``; recv slot tiles ``(rank, stage, c,
+    mt, nt)``."""
+
+    index: int
+    s: int
+    r: int
+    c: int
+    mt: int
+    nt: int
+    seg: int  # segment reduced (rs_seg table)
+    dst: int  # rank the partial is pushed to (rs_dst table); the last stage stores out
+    wait: Optional[tuple]  # flag of the partial received at the stage before
+    sets: Tuple[tuple, ...]
+    reads: Tuple[tuple, ...]  # recv slot tiles read (s > 0)
+    writes: Tuple[tuple, ...]  # recv slot tiles written (s < W-1)
+
+
+def channel_lead(c: int, n_sub: int) -> int:
+    """Columns channel c's tiles start before the channel: its first column
+    rounded down to a multiple of 8 (a 16-byte aligned TMA box start)."""
+    return (c * n_sub) % 8
+
+
+def tiles(shape, nch: int, world: int, tile=TILE):
+    """(row blocks per batch row IB, m-tiles, n-tiles) of the bf16 route; the
+    n-tiles cover a channel's n_sub columns plus the widest lead."""
+    b, m_glob, _, n = shape
+    ib = -(-(m_glob // world) // SEG_ROWS)
+    per_tile = tile[0] // SEG_ROWS  # batch rows of an m-tile
+    n_sub = n // nch
+    widest = max(channel_lead(c, n_sub) for c in range(nch))
+    return ib, -(-b // per_tile) * ib, -(-(n_sub + widest) // tile[1])
+
+
+def work_items(plan: TilePlan, shape, tile=TILE) -> list:
+    """The bf16 route's work items, stage-major: numbered by (s, r, c, nt, mt)
+    with mt fastest, as ``gemm_rs_wgmma_kernel`` decodes its item index
+    (``wg_item``): the blocks that run together share a weight strip.
+
+    ``shape`` is ``(B, M, k_loc, N)`` (B the flattened batch dims)."""
+    world, nch = plan.world, plan.num_channels
+    _, m_tiles, n_tiles = tiles(shape, nch, world, tile)
+    seg_t, dst_t = plan.rs_seg_tables(), plan.rs_dst_tables()
+    items = []
+    for s in range(world):
+        for r in range(world):
+            for c in range(nch):
+                seg, d = seg_t[c][s][r], dst_t[c][s][r]
+                for nt in range(n_tiles):
+                    for mt in range(m_tiles):
+                        wait = ("part", r, s - 1, c, mt, nt) if s > 0 else None
+                        reads = ((r, s - 1, c, mt, nt),) if s > 0 else ()
+                        push = s < world - 1
+                        sets = (("part", d, s, c, mt, nt),) if push else ()
+                        writes = ((d, s, c, mt, nt),) if push else ()
+                        items.append(RsItem(len(items), s, r, c, mt, nt, seg, d, wait, sets, reads, writes))
+    return items
 
 
 def _check(x: torch.Tensor, w: torch.Tensor):
@@ -36,39 +121,52 @@ def _check(x: torch.Tensor, w: torch.Tensor):
         raise ValueError(f"gemm_rs: {x.shape[-2]} rows do not divide over {x.shape[0]} ranks")
 
 
-def _plan(x, w, channel, bn):
+def _plan(x, w, channel):
     world, n = x.shape[0], w.shape[-1]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(n, channel.num_channels, kind="matmul_rs")
-    plan = build_plan("matmul_rs", channel, world, nch)
-    return plan, largest_divisor(n // nch, bn or channel.comp.tile[1])
+    return build_plan("matmul_rs", channel, world, nch), channel
+
+
+def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChannel] = None) -> list:
+    """The work items the bf16 route runs for these operands."""
+    _check(x, w)
+    plan, _ = _plan(x, w, channel)
+    return work_items(plan, (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1]))
 
 
 def gemm_rs_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
-    """Plain version: the kernel's schedule replayed stage by stage in PyTorch."""
+    """Plain version: the bf16 route's work items replayed in order in PyTorch."""
     _check(x, w)
-    plan, _ = _plan(x, w, channel, None)
+    plan, _ = _plan(x, w, channel)
     world, nch = plan.world, plan.num_channels
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_loc, n_sub = m_glob // world, n // nch
+    ib_count, _, _ = tiles((b, m_glob, k, n), nch, world)
+    per_tile = TILE[0] // SEG_ROWS
     xs = x.reshape(world, b, m_glob, k)
-    rbuf = torch.zeros((world, world * nch, b * m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
+    rbuf = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
     out = torch.zeros((world, b, m_loc, n), dtype=x.dtype, device=x.device)
-    seg_t, dst_t = plan.rs_seg_tables(), plan.rs_dst_tables()
-    for s in range(world):
-        for c in range(nch):
-            cols = slice(c * n_sub, (c + 1) * n_sub)
-            for r in range(world):
-                seg, d = seg_t[c][s][r], dst_t[c][s][r]
-                rows = xs[r, :, seg * m_loc : (seg + 1) * m_loc].reshape(b * m_loc, k)
-                part = rows.float() @ w[r, :, cols].float()
-                if s > 0:
-                    part = part + rbuf[r, (s - 1) * nch + c].float()  # partial received last stage
-                if s < world - 1:
-                    rbuf[d, s * nch + c] = part.to(plan.accum_dtype)  # push to the peer's recv slot
-                else:
-                    out[r, :, :, cols] = part.reshape(b, m_loc, n_sub).to(x.dtype)
+    flags = set()
+    for it in work_items(plan, (b, m_glob, k, n)):
+        assert it.wait is None or it.wait in flags, it  # the order sets every flag before its wait
+        r, c = it.r, it.c
+        bp, ib = divmod(it.mt, ib_count)
+        bs = slice(bp * per_tile, min(b, (bp + 1) * per_tile))
+        rs = slice(ib * SEG_ROWS, min(m_loc, (ib + 1) * SEG_ROWS))
+        col0 = it.nt * TILE[1] - channel_lead(c, n_sub)
+        cs = slice(max(0, col0), min(n_sub, col0 + TILE[1]))
+        gcs = slice(c * n_sub + cs.start, c * n_sub + cs.stop)
+        rows = xs[r, bs, it.seg * m_loc + rs.start : it.seg * m_loc + rs.stop]
+        part = rows.float() @ w[r, :, gcs].float()
+        if it.reads:
+            part = part + rbuf[r, (it.s - 1) * nch + c, bs, rs, cs].float()  # partial received last stage
+        if it.writes:
+            rbuf[it.dst, it.s * nch + c, bs, rs, cs] = part.to(plan.accum_dtype)  # push to the peer's recv slot
+            flags.update(it.sets)
+        else:
+            out[r, bs, rs, gcs] = part.to(x.dtype)
     return out.reshape((world,) + tuple(lead) + (m_loc, n))
 
 
@@ -82,38 +180,60 @@ def gemm_rs(
     """Fused GEMM+RS over the rank dimension.
 
     ``x``: [W, *lead, M, k_loc], ``w``: [W, k_loc, N] -> [W, *lead, M/W, N]:
-    rank r's row segment of ``sum_q x[q] @ w[q]``.  The schedule, the accum
-    dtype (also the wire dtype of the identity QuantSpec) and the n tile
-    (``bn``, default the CompSpec tn clamped to a divisor of N / C) come from
+    rank r's row segment of ``sum_q x[q] @ w[q]``.  The schedule and the
+    accum dtype (also the wire dtype of the identity QuantSpec) come from
     ``channel``.  A CPU tensor runs :func:`gemm_rs_plain`; a CUDA tensor
-    launches the kernel (or raises).
+    launches the kernel of its dtype's route (``ROUTES``) or raises:
+    bfloat16 takes the wgmma route (k_loc and N multiples of 8 and N / C
+    even, else ValueError), float32 the FMA route with n tile ``bn`` (default the
+    CompSpec tn clamped to a divisor of N / C).
     """
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gemm_rs_plain(x, w, channel=channel)
-    plan, bn = _plan(x, w, channel, bn)
+    plan, channel = _plan(x, w, channel)
     build.check_cuda_operands("gemm_rs", x, w)
     world, nch = plan.world, plan.num_channels
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_loc, n_sub = m_glob // world, n // nch
-    n_tiles = n_sub // bn
     out = torch.empty((world, b, m_loc, n), dtype=x.dtype, device=x.device)
     rbuf = torch.empty((world, world * nch, b * m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
-    # one flag per (rank, stage, channel, n-tile)
-    flags = torch.zeros((world, world, nch, n_tiles), dtype=torch.int32, device=x.device)
     seg = device_table(plan, "rs_seg", x.device)
     dst = device_table(plan, "rs_dst", x.device)
+    route = ROUTES[x.dtype]
     lib = build.library()
-    rc = lib.tl_gemm_rs(
-        build.dtype_code(x.dtype), build.dtype_code(plan.accum_dtype),
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
-        seg.data_ptr(), dst.data_ptr(),
-        world, nch, n_tiles, b, m_glob, k, n, n_sub, bn, build.stream(x),
-    )  # fmt: skip
-    build.check(rc, "gemm_rs")
+    if route == "wgmma":
+        build.check_tma_operands("gemm_rs", x, w)
+        if n_sub % 2:
+            raise ValueError(f"gemm_rs: the bf16 route stores column pairs; N / C = {n_sub} must be even")
+        _, m_tiles, n_tiles = tiles((b, m_glob, k, n), nch, world)
+        flags = torch.zeros((world, world, nch, m_tiles, n_tiles), dtype=torch.int32, device=x.device)
+        info = (ctypes.c_int * 2)()
+        rc = lib.tl_gemm_rs_wgmma(
+            build.dtype_code(plan.accum_dtype),
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
+            seg.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
+            world, nch, b, m_glob, k, n, n_sub, build.stream(x),
+        )  # fmt: skip
+        build.check(rc, "gemm_rs")
+        gemm_rs.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
+    else:
+        bn = largest_divisor(n_sub, bn or channel.comp.tile[1])
+        n_tiles = n_sub // bn
+        # one flag per (rank, stage, channel, n-tile)
+        flags = torch.zeros((world, world, nch, n_tiles), dtype=torch.int32, device=x.device)
+        rc = lib.tl_gemm_rs(
+            build.dtype_code(plan.accum_dtype),
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
+            seg.data_ptr(), dst.data_ptr(),
+            world, nch, n_tiles, b, m_glob, k, n, n_sub, bn, build.stream(x),
+        )  # fmt: skip
+        build.check(rc, "gemm_rs")
+        gemm_rs.last_launch = {"route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn)}
     gemm_rs.launches += 1
     return out.reshape((world,) + tuple(lead) + (m_loc, n))
 
 
 gemm_rs.launches = 0
+gemm_rs.last_launch = None

@@ -12,7 +12,7 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
               "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}  (mlp)
                        {ln, router [D, E_pad] f32, w_gu [W, E_loc, D, 2 f],
                         w_down [W, E_loc, f, D]}  (moe)}
-             {"mixer": {ln, w_in [W, D, 2 di_loc + h_loc], w_bc, conv, w_out,
+             {"mixer": {ln, w_in [W, D, 2 di_loc + h_loc + pad to 8], w_bc, conv, w_out,
                         dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba), ...]
 
 ``prefill`` runs every layer's TP forward (the fused kernels on the card)

@@ -5,9 +5,11 @@ The attention-free mixer: the paper's AG+GEMM / GEMM+RS pattern covers the
 in/out projections, which carry the block's FLOPs, and the SSD scan runs on
 each rank's head shard over the full (gathered) sequence.
 
-Per rank (``convert.shard_params``): ``w_in`` [W, D, 2 di_loc + h_loc]
-joins the rank's x | z columns of ``w_xz`` and its ``w_dt`` columns (the JAX
-package concatenates them at every call); ``conv`` [W, K, di_loc];
+Per rank (``convert.shard_params``): ``w_in`` [W, D, 2 di_loc + h_loc +
+pad] joins the rank's x | z columns of ``w_xz`` and its ``w_dt`` columns (the
+JAX package concatenates them at every call), zero-padded to a multiple of
+8 columns (16-byte rows for the bf16 kernel's TMA; :func:`_split` drops the
+pad); ``conv`` [W, K, di_loc];
 ``w_out`` [W, di_loc, D]; ``dt_bias`` / ``a_log`` / ``d_skip`` [W, h_loc]
 in float32; ``w_bc`` [D, 2 G N] and ``ln`` [D] replicated.  The x | z split
 is per shard: the first half of a rank's x | z columns is its x, the second
@@ -72,10 +74,10 @@ def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return sum(xp[:, :, i : i + s, :] * w[:, i][:, None, None, :] for i in range(k))
 
 
-def _split(xzdt: torch.Tensor, h_loc: int):
-    """[..., 2 di_loc + h_loc] -> x, z, raw dt (the per-shard column layout)."""
-    di_loc = (xzdt.shape[-1] - h_loc) // 2
-    return xzdt[..., :di_loc], xzdt[..., di_loc : 2 * di_loc], xzdt[..., 2 * di_loc :]
+def _split(xzdt: torch.Tensor, di_loc: int, h_loc: int):
+    """[..., 2 di_loc + h_loc + pad] -> x, z, raw dt (the per-shard column
+    layout); the pad columns are dropped."""
+    return xzdt[..., :di_loc], xzdt[..., di_loc : 2 * di_loc], xzdt[..., 2 * di_loc : 2 * di_loc + h_loc]
 
 
 def _bc(h: torch.Tensor, params: dict, cfg):
@@ -94,15 +96,15 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, return_state: bool = False
     the conv tail) for prefill-into-cache."""
     s_cfg = cfg.ssm
     world, b = x.shape[0], x.shape[1]
-    h_loc = params["a_log"].shape[1]
+    d_inner, n_heads = _dims(cfg)
+    di_loc, h_loc = d_inner // world, n_heads // world
     hd = s_cfg.headdim
     h = rms_norm(x, params["ln"], cfg.norm_eps)
 
-    # AG + GEMM: gather the sequence, project to the local channels (x | z | dt)
-    xzdt = pc.ag_matmul(h, params["w_in"])  # [W, B, S, 2 di_loc + h_loc]
+    # AG + GEMM: gather the sequence, project to the local channels (x | z | dt | pad)
+    xzdt = pc.ag_matmul(h, params["w_in"])  # [W, B, S, 2 di_loc + h_loc + pad]
     s_glob = xzdt.shape[2]
-    xin, z, dt_raw = _split(xzdt, h_loc)
-    di_loc = xin.shape[-1]
+    xin, z, dt_raw = _split(xzdt, di_loc, h_loc)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][:, None, None, :])  # [W, B, S, h_loc]
 
     # B/C: the replicated projection, computed once on the gathered sequence
@@ -156,12 +158,12 @@ def apply_decode(params: dict, x: torch.Tensor, cache: dict, pc, cfg):
     Returns (x_out [B, 1, D], new cache); ``cache`` is not modified."""
     s_cfg = cfg.ssm
     world, b = pc.tp, x.shape[0]
-    h_loc = params["a_log"].shape[1]
+    d_inner, n_heads = _dims(cfg)
+    di_loc, h_loc = d_inner // world, n_heads // world
     hd = s_cfg.headdim
     h = rms_norm(x, params["ln"], cfg.norm_eps)[:, 0]  # [B, D]
 
-    xin, z, dt_raw = _split(torch.einsum("bd,wdn->wbn", h, params["w_in"]), h_loc)
-    di_loc = xin.shape[-1]
+    xin, z, dt_raw = _split(torch.einsum("bd,wdn->wbn", h, params["w_in"]), di_loc, h_loc)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][:, None, :])  # [W, B, h_loc]
     b_mat, c_mat = _bc(h, params, cfg)  # [B, G, N]
 

@@ -8,7 +8,9 @@ nor the JAX package, so it runs on the GPU machine, where there is no JAX:
 
 Shapes are small and deliberately ragged (non-power-of-two tiles, partial
 edge tiles, leading batch dims, GQA, sq < sk, random expert tables, SSD
-tiles with T prime and decays that underflow).  Tolerances: float32 1e-4 of
+tiles with T prime and decays that underflow; for the bf16 fused kernels,
+widths that are multiples of 8 but ragged against their 128 x 128 tile,
+more items than SMs, and 20 launches held bitwise equal).  Tolerances: float32 1e-4 of
 max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
@@ -22,6 +24,8 @@ from repro_torch import kernels as K
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import BlockChannel, CommSpec, CompSpec
+from repro_torch.kernels.ag_gemm import launch_items as ag_items
+from repro_torch.kernels.gemm_rs import launch_items as rs_items
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 
@@ -62,22 +66,85 @@ def test_matmul_kernel(dev, dtype, m, n, k, tile):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
 def test_ag_gemm_kernel(dev, dtype, order, nch):
+    """K = 33, n_loc = 70: the float32 (FMA) route takes any width; the
+    bfloat16 (wgmma) route needs multiples of 8 for TMA and raises."""
     ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order), comp=CompSpec(tile=(128, 40, 128)))
     x, w = _rand(dev, dtype, 4, 3, 10, 33), _rand(dev, dtype, 4, 33, 70, seed=1, scale=33**-0.5)
     before = K.ag_gemm.launches
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.ag_gemm(x, w, channel=ch)
+        assert K.ag_gemm.launches == before
+        return
     out = K.ag_gemm(x, w, channel=ch)
     assert K.ag_gemm.launches == before + 1 and out.shape == (4, 3, 40, 70)
+    assert K.ag_gemm.last_launch["route"] == "fma"
     _close(out, K.ag_gemm_plain(x, w, channel=ch), dtype)
 
 
 @pytest.mark.parametrize("dtype,accum", [(torch.float32, "float32"), (torch.bfloat16, "float32"), (torch.bfloat16, "bfloat16")])
 @pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
 def test_gemm_rs_kernel(dev, dtype, accum, order, nch):
+    """k_loc = 20, N = 50: the float32 route takes any width; the bfloat16
+    route needs multiples of 8 for TMA and raises."""
     ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order), comp=CompSpec(accum_dtype=accum))
     x, w = _rand(dev, dtype, 4, 2, 12, 20), _rand(dev, dtype, 4, 20, 50, seed=1, scale=80**-0.5)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.gemm_rs(x, w, channel=ch)
+        return
     out = K.gemm_rs(x, w, channel=ch)
-    assert out.shape == (4, 2, 3, 50)
+    assert out.shape == (4, 2, 3, 50) and K.gemm_rs.last_launch["route"] == "fma"
     _close(out, K.gemm_rs_plain(x, w, channel=ch), dtype)
+
+
+# bf16 (wgmma) route: widths multiples of 8 but ragged against the 128 x 128
+# tile, and one shape with more items (256) than SMs, so blocks loop
+AG_BF16 = [((4, 3, 10, 40), (4, 40, 72)), ((4, 2, 2, 24, 64), (4, 64, 136)), ((4, 4, 64, 256), (4, 256, 1024))]
+RS_BF16 = [((4, 2, 12, 24), (4, 24, 56)), ((4, 3, 20, 136), (4, 136, 200)), ((4, 4, 256, 256), (4, 256, 1024))]
+
+
+@pytest.mark.parametrize("xs,ws", AG_BF16)
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+def test_ag_gemm_bf16_kernel(dev, xs, ws, order, nch):
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x, w = _rand(dev, torch.bfloat16, *xs), _rand(dev, torch.bfloat16, *ws, seed=1, scale=ws[1] ** -0.5)
+    before = K.ag_gemm.launches
+    out = K.ag_gemm(x, w, channel=ch)
+    last = K.ag_gemm.last_launch
+    assert K.ag_gemm.launches == before + 1 and last["route"] == "wgmma"
+    assert last["items"] == len(ag_items(x, w, ch)) and last["grid"] == min(last["items"], 132)
+    _close(out, K.ag_gemm_plain(x, w, channel=ch), torch.bfloat16)
+
+
+@pytest.mark.parametrize("xs,ws", RS_BF16)
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+def test_gemm_rs_bf16_kernel(dev, xs, ws, accum, order, nch):
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order), comp=CompSpec(accum_dtype=accum))
+    x, w = _rand(dev, torch.bfloat16, *xs), _rand(dev, torch.bfloat16, *ws, seed=1, scale=(4 * ws[1]) ** -0.5)
+    before = K.gemm_rs.launches
+    out = K.gemm_rs(x, w, channel=ch)
+    last = K.gemm_rs.last_launch
+    assert K.gemm_rs.launches == before + 1 and last["route"] == "wgmma"
+    assert last["items"] == len(rs_items(x, w, ch)) and last["grid"] == min(last["items"], 132)
+    _close(out, K.gemm_rs_plain(x, w, channel=ch), torch.bfloat16)
+
+
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+def test_bf16_fused_kernels_are_deterministic(dev, order, nch):
+    """20 launches of each bf16 kernel (256 items on 132 blocks) are bitwise
+    equal to the first: a missing fence between the flag protocol and TMA
+    would show as a stale tile now and then."""
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x, w = _rand(dev, torch.bfloat16, *AG_BF16[-1][0]), _rand(dev, torch.bfloat16, *AG_BF16[-1][1], seed=1, scale=0.06)
+    first = K.ag_gemm(x, w, channel=ch)
+    for _ in range(19):
+        assert torch.equal(K.ag_gemm(x, w, channel=ch), first)
+    x, w = _rand(dev, torch.bfloat16, *RS_BF16[-1][0]), _rand(dev, torch.bfloat16, *RS_BF16[-1][1], seed=1, scale=0.03)
+    first = K.gemm_rs(x, w, channel=ch)
+    for _ in range(19):
+        assert torch.equal(K.gemm_rs(x, w, channel=ch), first)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,6 +203,15 @@ def test_ssd_intra_chunk_kernel(dev, dtype, q, p, spread):
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    bf = torch.bfloat16
+    for xs, ws in (((4, 2, 8, 33), (4, 33, 64)), ((4, 2, 8, 32), (4, 32, 70))):  # K = 33, then n = 70
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.ag_gemm(_rand(dev, bf, *xs), _rand(dev, bf, *ws))
+    for xs, ws in (((4, 2, 8, 33), (4, 33, 64)), ((4, 2, 8, 32), (4, 32, 70))):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.gemm_rs(_rand(dev, bf, *xs), _rand(dev, bf, *ws))
+    with pytest.raises(ValueError, match="aligned"):  # a view 2 bytes past an aligned base
+        K.ag_gemm(_rand(dev, bf, 4 * 2 * 8 * 32 + 1)[1:].view(4, 2, 8, 32), _rand(dev, bf, 4, 32, 64))
     x = _rand(dev, torch.float32, 8, 16)
     with pytest.raises(TypeError):
         K.matmul(x.half(), x.t().contiguous().half())

@@ -209,20 +209,49 @@ def _port_cache(jc, world):
 
 
 def test_block_param_layout(block):
-    """w_xz | w_dt join per rank with each shard's x | z halves as stored;
-    the per-head leaves are float32 whatever the model dtype."""
+    """w_xz | w_dt join per rank with each shard's x | z halves as stored,
+    zero-padded to a multiple of 8 columns; the per-head leaves are float32
+    whatever the model dtype."""
     jcfg, cfg, jp, tp = block
     d, di_loc, h_loc = cfg.d_model, 2 * cfg.d_model // R, 2 * cfg.d_model // cfg.ssm.headdim // R
-    assert tp["w_in"].shape == (R, d, 2 * di_loc + h_loc) and di_loc == 64 and h_loc == 4
+    assert tp["w_in"].shape == (R, d, 136) and 2 * di_loc + h_loc == 132 and di_loc == 64 and h_loc == 4
+    assert not tp["w_in"][..., 2 * di_loc + h_loc :].any()
     w_xz, w_dt = np.asarray(jp["w_xz"]), np.asarray(jp["w_dt"])
     for r in range(R):
         np.testing.assert_array_equal(tp["w_in"][r, :, : 2 * di_loc].numpy(), w_xz[:, r * 2 * di_loc : (r + 1) * 2 * di_loc])
-        np.testing.assert_array_equal(tp["w_in"][r, :, 2 * di_loc :].numpy(), w_dt[:, r * h_loc : (r + 1) * h_loc])
+        dt_cols = tp["w_in"][r, :, 2 * di_loc : 2 * di_loc + h_loc].numpy()
+        np.testing.assert_array_equal(dt_cols, w_dt[:, r * h_loc : (r + 1) * h_loc])
     assert tp["conv"].shape == (R, cfg.ssm.d_conv, di_loc) and tp["w_out"].shape == (R, di_loc, d)
     assert tp["w_bc"].shape == (d, 2 * cfg.ssm.n_groups * cfg.ssm.d_state) and tp["ln"].shape == (d,)
     for k in ("dt_bias", "a_log", "d_skip"):
         assert tp[k].shape == (R, h_loc) and tp[k].dtype == torch.float32
     assert set(F32_LEAVES) >= {"dt_bias", "a_log", "d_skip", "router"}
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_in_projection_pad_is_zero_and_dropped(reduced):
+    """``convert.shard_mamba`` pads each rank's ``w_in`` with zero columns to a
+    multiple of 8 (mamba2-2.7b: 2580 -> 2584 per rank; reduced: 132 -> 136),
+    and ``_split`` drops exactly the pad.  Full size runs on the meta device."""
+    cfg = get_config(ARCH)
+    cfg = reduce_config(cfg) if reduced else cfg
+    d, s = cfg.d_model, cfg.ssm
+    d_inner = s.expand * d
+    heads = d_inner // s.headdim
+    dev = "cpu" if reduced else "meta"
+    mixer = {"ln": torch.zeros(d, device=dev), "w_xz": torch.ones(d, 2 * d_inner, device=dev),
+             "w_dt": torch.ones(d, heads, device=dev), "w_bc": torch.zeros(d, 2 * s.d_state, device=dev),
+             "conv": torch.zeros(s.d_conv, d_inner, device=dev), "w_out": torch.zeros(d_inner, d, device=dev),
+             **{k: torch.zeros(heads, device=dev) for k in ("dt_bias", "a_log", "d_skip")}}  # fmt: skip
+    w_in = shard_mamba(mixer, World(R, "cpu"))["w_in"]
+    width, di_loc, h_loc = 2 * d_inner // R + heads // R, d_inner // R, heads // R
+    assert w_in.shape == (R, d, -(-width // 8) * 8) and w_in.shape[-1] % 8 == 0
+    assert w_in.shape[-1] == (2584 if not reduced else 136)
+    x, z, dt = mamba._split(torch.arange(w_in.shape[-1]).expand(2, -1), di_loc, h_loc)
+    assert x.shape[-1] == z.shape[-1] == di_loc and dt.shape[-1] == h_loc
+    assert dt[0, -1].item() == width - 1  # the last real column; the pad is dropped
+    if reduced:
+        assert w_in[..., :width].all() and not w_in[..., width:].any()
 
 
 @pytest.mark.parametrize("backend", ["eager", "fused"])
