@@ -9,7 +9,9 @@ non-zero (no phase catches its own failure):
   2. build    builds the kernels from ``src/repro_torch/kernels/csrc``;
               prints each kernel's registers / spills and the SASS count of
               HGMMA (wgmma) and UTMALDG (TMA loads) per kernel, and fails if
-              a bf16 fused kernel has no HGMMA.
+              the bf16 kernel of a GEMM-shaped wrapper (ag_gemm, gemm_rs,
+              matmul, grouped_matmul) has no HGMMA or no UTMALDG, or
+              spills registers.
   3. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
               executor with plain attention; one dense layer in bfloat16 on
@@ -37,15 +39,18 @@ non-zero (no phase catches its own failure):
               3b-a800m for the grouped expert GEMM, plus one random,
               non-monotone expert table with a row tile below capacity,
               mamba2-2.7b for the in/out projections, its LM head and the
-              SSD intra-chunk kernel), in float32 and bfloat16, and the
-              fused kernels over every tile order x C in {1, 2} (float32,
-              and bfloat16 with 20 launches each held bitwise equal to the
-              first); kernel, plain-version and library-call times with CUDA
+              SSD intra-chunk kernel; the LM head at its prefill shape
+              [B x S, d] and its decode shape [B, d], at the width the path
+              stores), in float32 and bfloat16, and the fused kernels over
+              every tile order x C in {1, 2} (float32, and bfloat16 with 20
+              launches each held bitwise equal to the first, as is every
+              bf16 LM-head and grouped-GEMM case); kernel, plain-version and
+              library-call times with CUDA
               events over back-to-back calls, and the kernel's and the
               library call's device time per call (torch.profiler), in
               bfloat16, the serving dtype (and for the SSD kernel also in
               float32, the dtype its path gives it), with the route, grid G
-              and work-item count of each fused launch.  It runs after the
+              and work-item count of each GEMM launch.  It runs after the
               serve phases: the profiler leaves host overhead behind.
   7. summary  the launch counts of the three main paths, the per-kernel
               JSON line, the card's power limit, and the last line
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -91,6 +97,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:101",
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:28",
     "ssd_intra_chunk": "src/repro/kernels/mamba_ssd.py:123",
+}
+# the bf16 kernel of each GEMM-shaped wrapper (SASS symbol): wgmma + TMA
+BF16_KERNELS = {
+    "ag_gemm": "ag_gemm_wgmma_kernel",
+    "gemm_rs": "gemm_rs_wgmma_kernel",
+    "matmul": "wgmma_gemm_kernel",
+    "grouped_matmul": "wgmma_gemm_kernel",
 }
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -181,29 +194,36 @@ def phase_build():
     build.library()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.1f} s")
-    kernel = None
+    kernel, spills = None, []
     for line in build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill" in line.lower()):
             print(f"[build] {kernel[:72]}: {line.strip().removeprefix('ptxas info    : ')}")
+            spilled = any(int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            if spilled and any(name in kernel for name in BF16_KERNELS.values()):
+                spills.append(kernel)
             if "registers" in line:
                 kernel = None  # the entry's own report; later copies repeat it
     sass = build.sass_report()
     for fn, ops in sass.items():
         if any(ops.values()):
             print(f"[build] SASS {fn[:72]}: {ops}")
-    for name in ("ag_gemm_wgmma_kernel", "gemm_rs_wgmma_kernel"):
+    for wrapper, name in BF16_KERNELS.items():
         found = [ops for fn, ops in sass.items() if name in fn]
-        if not found or not all(ops["HGMMA"] > 0 for ops in found):
-            raise SystemExit(f"chip_smoke: the bf16 kernel {name} has no HGMMA (wgmma) instruction: {found}")
+        if not found or not all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 for ops in found):
+            raise SystemExit(f"chip_smoke: {wrapper}'s bf16 kernel {name} lacks HGMMA (wgmma) or UTMALDG (TMA): {found}")
+    if spills:
+        raise SystemExit(f"chip_smoke: bf16 GEMM kernels spill registers: {spills}")
     return dt
 
 
-def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None):
+def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None, bitwise=False):
     """Run one kernel case: max error vs the plain version, then times.
     ``launch`` returns the wrapper's record of its last launch (route, grid
-    G, work items), printed beside the times."""
+    G, work items), printed beside the times; ``bitwise`` also launches the
+    kernel REPEATS - 1 more times and fails unless every output is bitwise
+    equal to the first."""
     import torch
 
     out = kernel()
@@ -217,6 +237,12 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     rec = {"case": name, "dtype": dn, "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL[dn], "ok": ok}
     if info is not None:
         rec["launch"] = dict(info)
+    if bitwise:
+        differ = sum(not torch.equal(kernel(), out) for _ in range(REPEATS - 1))
+        rec["relaunches_bitwise_equal"] = REPEATS - 1 - differ
+        print(f"[kernels] {name} {dn}: {REPEATS - 1 - differ} of {REPEATS - 1} relaunches bitwise equal")
+        if differ:
+            raise SystemExit(f"chip_smoke: kernel {name} ({dn}) is not deterministic over {REPEATS} launches")
     times = ""
     if not check_only:
         rec["ms"] = cuda_ms(kernel, iters)
@@ -238,16 +264,24 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     return rec
 
 
+def head_width(cfg) -> int:
+    """Columns of the LM head as ``convert.shard_params`` stores it: the
+    vocab padded to the TP degree, then to a multiple of 8 (TMA)."""
+    from repro_torch.convert import IN_ALIGN
+    from repro_torch.models.lm import padded_vocab
+
+    return -(-padded_vocab(cfg, WORLD) // IN_ALIGN) * IN_ALIGN
+
+
 def path_shapes(arch: str) -> dict:
     """The kernels' shapes on an arch's serve path (W ranks, B x S tokens)."""
     from repro_torch.configs import get_config
     from repro_torch.core.moe_overlap import _capacity
-    from repro_torch.models.lm import padded_vocab
     from repro_torch.nn.attention import layout
 
     cfg = get_config(arch)
     lay = layout(cfg, WORLD)
-    shp = dict(d=cfg.d_model, hd=cfg.hd, h_loc=lay.h_loc, kv_loc=lay.kv_loc, vocab=padded_vocab(cfg, WORLD),
+    shp = dict(d=cfg.d_model, hd=cfg.hd, h_loc=lay.h_loc, kv_loc=lay.kv_loc, vocab=head_width(cfg),
                n_qkv=(lay.h_loc + 2 * lay.kv_loc) * cfg.hd, n_o=lay.h_loc * cfg.hd)  # fmt: skip
     if cfg.moe is None:
         shp.update(n_gu=2 * cfg.d_ff // WORLD, f_loc=cfg.d_ff // WORLD)
@@ -261,8 +295,6 @@ def path_shapes(arch: str) -> dict:
 def ssm_shapes() -> dict:
     """The kernels' shapes on mamba2-2.7b's serve path (W ranks, B x S tokens)."""
     from repro_torch.configs import get_config
-    from repro_torch.models.lm import padded_vocab
-
     from repro_torch.convert import IN_ALIGN
 
     cfg = get_config(ARCH_SSM)
@@ -271,7 +303,29 @@ def ssm_shapes() -> dict:
     heads = d_inner // s.headdim
     n_in = -(-(2 * d_inner + heads) // WORLD // IN_ALIGN) * IN_ALIGN  # w_in's width per rank, padded
     return dict(d=cfg.d_model, di_loc=d_inner // WORLD, n_in=n_in,
-                vocab=padded_vocab(cfg, WORLD), q=s.chunk, p=s.headdim, tiles=BATCH * (PROMPT // s.chunk) * heads)  # fmt: skip
+                vocab=head_width(cfg), q=s.chunk, p=s.headdim, tiles=BATCH * (PROMPT // s.chunk) * heads)  # fmt: skip
+
+
+def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_only: bool) -> dict:
+    """The LM head (``matmul``) at the prefill shape [B x S, d] and the decode
+    shape [B, d] against one head [d, vocab]; bf16 cases held bitwise over
+    REPEATS launches."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    isz = torch.tensor([], dtype=dtype).element_size()
+    w = rnd(d, vocab, dtype=dtype) * 0.02
+    recs = {}
+    for tag, rows in (("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)):
+        x = rnd(rows, d, dtype=dtype)
+        recs[("matmul", arch, tag, dtype)] = _case(
+            f"matmul[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
+            lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
+            2 * rows * d * vocab, isz * (x.numel() + w.numel() + rows * vocab), iters, check_only,
+            lambda: K.matmul.last_launch, bitwise=dtype == torch.bfloat16,
+        )  # fmt: skip
+    return recs
 
 
 def _ssm_kernels(rnd, iters: int) -> dict:
@@ -308,12 +362,7 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             2 * W * B * S * di_loc * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
             lambda: K.gemm_rs.last_launch,
         )  # fmt: skip
-        x, w = rnd(B * S, d, dtype=dtype), rnd(d, vocab, dtype=dtype) * 0.02
-        recs[("matmul", ARCH_SSM, "lm_head", dtype)] = _case(
-            f"matmul[{ARCH_SSM} lm_head] x{list(x.shape)} w{list(w.shape)}", dtype,
-            lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
-            2 * B * S * d * vocab, isz * (x.numel() + w.numel() + B * S * vocab), it, check_only,
-        )  # fmt: skip
+        recs.update(_lm_head_cases(rnd, ARCH_SSM, d, vocab, dtype, it, check_only))
         del x, w, xg
         # SSD intra-chunk: per-step log-decays of the size the path gives
         # (dt ~ softplus(N(0, 1)), A = -1), C.B scores and dt-weighted inputs
@@ -398,13 +447,7 @@ def phase_kernels(iters: int):
                 lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True),
                 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), it, check_only,
             )  # fmt: skip
-            # --- matmul: the LM head of the prefill
-            x, w = rnd(B * S, d, dtype=dtype), rnd(d, shp["vocab"], dtype=dtype) * 0.02
-            recs[("matmul", arch, "lm_head", dtype)] = _case(
-                f"matmul[{arch} lm_head] x{list(x.shape)} w{list(w.shape)}", dtype,
-                lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
-                2 * B * S * d * shp["vocab"], isz * (x.numel() + w.numel() + B * S * shp["vocab"]), it, check_only,
-            )  # fmt: skip
+            recs.update(_lm_head_cases(rnd, arch, d, shp["vocab"], dtype, it, check_only))
             if "e_loc" not in shp:
                 continue
             # --- grouped_matmul: the expert GEMMs of one ring step, every rank and
@@ -420,64 +463,43 @@ def phase_kernels(iters: int):
                     lambda: K.grouped_matmul_plain(x, w, table, out_dt),
                     lambda: torch.bmm(x.view(W * e_loc, B * cap, k), w),
                     2 * x.shape[0] * k * n, isz * (x.numel() + w.numel()) + osz * x.shape[0] * n, it, check_only,
+                    lambda: K.grouped_matmul.last_launch, bitwise=dtype == torch.bfloat16,
                 )  # fmt: skip
-            # a random, non-monotone table over 8-row tiles (below the capacity)
+            # a random, non-monotone table over 8-row tiles (below the capacity),
+            # with empty tiles (-1 and E) among them
             x, w = rnd(W * e_loc * B * cap, fe, dtype=dtype), rnd(W * e_loc, fe, d, dtype=dtype) * fe**-0.5
-            rand_table = torch.randint(0, W * e_loc, (x.shape[0] // 8,), generator=g, device=dev, dtype=torch.int32)
-            used = rand_table.unique().numel()  # the weights this table reads
+            rand_table = torch.randint(-1, W * e_loc + 1, (x.shape[0] // 8,), generator=g, device=dev, dtype=torch.int32)
+            valid = rand_table[(rand_table >= 0) & (rand_table < W * e_loc)]
+            rows, used = 8 * valid.numel(), valid.unique().numel()  # the rows and weights this table reads
             recs[("grouped_matmul", arch, "random", dtype)] = _case(
                 f"grouped_matmul[random table, 8-row tiles] x{list(x.shape)} w{list(w.shape)}", dtype,
                 lambda: K.grouped_matmul(x, w, rand_table), lambda: K.grouped_matmul_plain(x, w, rand_table), None,
-                2 * x.shape[0] * fe * d, isz * (x.numel() + used * fe * d + x.shape[0] * d), it, check_only,
+                2 * rows * fe * d, isz * (rows * fe + used * fe * d + x.shape[0] * d), it, check_only,
+                lambda: K.grouped_matmul.last_launch, bitwise=dtype == torch.bfloat16,
             )  # fmt: skip
             del x, w
 
     recs.update(_ssm_kernels(rnd, iters))
-    # --- every order x C in {1, 2} through both fused kernels (float32, smollm shapes)
+    # --- every order x C in {1, 2} through both fused kernels at the smollm
+    # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
+    # launched REPEATS times, every output bitwise equal to the first (the
+    # stage order is fixed and there are no atomics, so a stale tile would show)
     shp = path_shapes(ARCH)
     d, n_qkv, n_o = shp["d"], shp["n_qkv"], shp["n_o"]
-    for order in ("ring", "bidir_ring", "all2all"):
-        for nch in (1, 2):
-            ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
-            x, w = rnd(W, B, s_loc, d, dtype=torch.float32), rnd(W, d, n_qkv, dtype=torch.float32) * d**-0.5
-            _case(f"ag_gemm {order} C{nch}", torch.float32, lambda: K.ag_gemm(x, w, channel=ch),
-                  lambda: K.ag_gemm_plain(x, w, channel=ch), None, 0, 0, 0, True)  # fmt: skip
-            x, w = rnd(W, B, S, n_o, dtype=torch.float32), rnd(W, n_o, d, dtype=torch.float32) * (W * n_o) ** -0.5
-            _case(f"gemm_rs {order} C{nch}", torch.float32, lambda: K.gemm_rs(x, w, channel=ch),
-                  lambda: K.gemm_rs_plain(x, w, channel=ch), None, 0, 0, 0, True)  # fmt: skip
-    # --- the same sweep in bfloat16 (the wgmma route): each case launched
-    # REPEATS times, every output bitwise equal to the first (the stage order
-    # is fixed and there are no atomics, so a stale tile would show)
-    bf16 = torch.bfloat16
-    for order in ("ring", "bidir_ring", "all2all"):
-        for nch in (1, 2):
-            ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
-            x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n_qkv, dtype=bf16) * d**-0.5
-            _repeat(f"ag_gemm {order} C{nch}", lambda: K.ag_gemm(x, w, channel=ch),
-                    lambda: K.ag_gemm_plain(x, w, channel=ch), K.ag_gemm)  # fmt: skip
-            x, w = rnd(W, B, S, n_o, dtype=bf16), rnd(W, n_o, d, dtype=bf16) * (W * n_o) ** -0.5
-            _repeat(f"gemm_rs {order} C{nch}", lambda: K.gemm_rs(x, w, channel=ch),
-                    lambda: K.gemm_rs_plain(x, w, channel=ch), K.gemm_rs)  # fmt: skip
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for order in ("ring", "bidir_ring", "all2all"):
+            for nch in (1, 2):
+                ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+                x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n_qkv, dtype=dtype) * d**-0.5
+                _case(f"ag_gemm {order} C{nch}", dtype, lambda: K.ag_gemm(x, w, channel=ch),
+                      lambda: K.ag_gemm_plain(x, w, channel=ch), None, 0, 0, 0, True,
+                      lambda: K.ag_gemm.last_launch, bitwise=bf16)  # fmt: skip
+                x, w = rnd(W, B, S, n_o, dtype=dtype), rnd(W, n_o, d, dtype=dtype) * (W * n_o) ** -0.5
+                _case(f"gemm_rs {order} C{nch}", dtype, lambda: K.gemm_rs(x, w, channel=ch),
+                      lambda: K.gemm_rs_plain(x, w, channel=ch), None, 0, 0, 0, True,
+                      lambda: K.gemm_rs.last_launch, bitwise=bf16)  # fmt: skip
     return recs
-
-
-def _repeat(name, kernel, plain, wrapper):
-    """A bf16 fused-kernel case launched REPEATS times: the first output
-    within the bf16 bound of the plain version, every later one bitwise equal."""
-    import torch
-
-    first = kernel()
-    info = wrapper.last_launch
-    differ = sum(not torch.equal(kernel(), first) for _ in range(REPEATS - 1))
-    ref = plain()
-    err, scale = (first.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
-    print(
-        f"[kernels] {name} bfloat16 x{REPEATS}: max|err| {err:.3e} (max|ref| {scale:.3e}, bound "
-        f"{TOL['bfloat16']:g} x max|ref|); {REPEATS - 1 - differ} of {REPEATS - 1} relaunches bitwise equal "
-        f"[{info['route']}, G {info['grid']}, items {info['items']}]"
-    )
-    if differ or not torch.isfinite(first).all() or err > TOL["bfloat16"] * scale:
-        raise SystemExit(f"chip_smoke: {name} (bfloat16) is not deterministic or disagrees with its plain version")
 
 
 def _hold_logits(what: str, a, b):

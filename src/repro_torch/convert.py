@@ -24,8 +24,11 @@ Mamba mixer's ``w_xz`` and ``w_dt`` columns into one ``w_in`` shard; each
 shard's x | z halves stay as stored, and each shard is padded with zero
 columns to a multiple of 8 (``IN_ALIGN``: the bf16 AG+GEMM kernel reads its
 weight through TMA, which needs 16-byte row strides; mamba2-2.7b's 2580
-columns per rank become 2584, and ``nn/mamba`` drops the pad).  With tied embeddings the LM head is a
-contiguous copy of the embedding, transposed.
+columns per rank become 2584, and ``nn/mamba`` drops the pad).  The LM head
+(with tied embeddings a contiguous copy of the embedding, transposed) is
+padded once, the same way, for the bf16 tile-GEMM kernel: granite's 49156
+padded-vocab columns become 49160, and ``lm.logits`` keeps the first
+``vocab_size``.
 ``params["scan"]`` (a leading layer axis per pattern position) is unstacked
 into the layer list.
 """
@@ -43,7 +46,8 @@ __all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
 F32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
-# a Mamba ``w_in`` shard's width is padded to a multiple of this (16-byte bf16 rows)
+# a Mamba ``w_in`` shard's width and the LM head's are padded to a multiple
+# of this (16-byte bf16 rows, as TMA needs)
 IN_ALIGN = 8
 
 
@@ -69,7 +73,7 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     head = glob["lm_head"] if "lm_head" in glob else embed.t()
     out = {
         "embed": shard_rows(embed, world),
-        "head": head.contiguous(),
+        "head": torch.cat([head, head.new_zeros((head.shape[0], -head.shape[1] % IN_ALIGN))], dim=1),
         "final_ln": glob["final_ln"],
         "layers": [],
     }

@@ -42,8 +42,8 @@ from repro_torch.kernels import build
 
 __all__ = ["ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "AgItem", "TILE", "ROUTES", "device_table"]
 
-TILE = (128, 128)  # the bf16 route's output tile (BM, BN); its K block is 64
-ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+TILE = build.WGMMA_TILE  # the bf16 route's output tile (BM, BN)
+ROUTES = build.ROUTES
 
 
 @functools.lru_cache(maxsize=256)
@@ -174,7 +174,7 @@ def ag_gemm(
     along dim -2 with the leading (batch) dims kept.  The schedule (order,
     channels) and the accum dtype come from ``channel``.  A CPU tensor runs
     :func:`ag_gemm_plain`; a CUDA tensor launches the kernel of its dtype's
-    route (``ROUTES``) or raises: bfloat16 takes the wgmma route (tile
+    route (``build.ROUTES``) or raises: bfloat16 takes the wgmma route (tile
     ``TILE``; K and n_loc multiples of 8, else ValueError), float32 the FMA
     route with n tile ``bn`` (default the CompSpec tn, clamped to a divisor
     of n_loc).

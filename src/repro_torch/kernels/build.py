@@ -30,6 +30,8 @@ __all__ = [
     "check",
     "check_cuda_operands",
     "check_tma_operands",
+    "ROUTES",
+    "WGMMA_TILE",
     "dtype_code",
     "stream",
     "ptxas_report",
@@ -57,8 +59,8 @@ _LIB = None
 # C entry points and their ctypes signatures (p = pointer, i = int, f = float);
 # every pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits
 _SIGNATURES = {
-    # dtype, x, w, out, M, N, K, bm, bn, stream
-    "tl_matmul": "i" + "ppp" + "iiiii" + "p",
+    # dtype, x, w, out, info, M, N, K, bm, bn, stream
+    "tl_matmul": "i" + "pppp" + "iiiii" + "p",
     # float32: accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl,
     # W, nch, n_tiles, B, m_loc, m_sub, K, n_loc, bn, stream
     "tl_ag_gemm": "i" + "ppppppp" + "iiiiiiiii" + "p",
@@ -71,12 +73,17 @@ _SIGNATURES = {
     "tl_gemm_rs_wgmma": "i" + "pppppppp" + "iiiiiii" + "p",
     # dtype, q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, stream
     "tl_flash_attention": "i" + "pppp" + "iiiii" + "f" + "ii" + "p",
-    # dtype, out_dtype, x, w, tile_expert, out, n_tiles, N, K, E, bm, stream
-    "tl_grouped_matmul": "ii" + "pppp" + "iiiii" + "p",
+    # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream
+    "tl_grouped_matmul": "ii" + "ppppp" + "iiiii" + "p",
     # dtype, cum, cb, xdt, y, T, Q, P, stream
     "tl_ssd_intra_chunk": "i" + "pppp" + "iii" + "p",
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# every GEMM-shaped kernel picks its route by dtype: bfloat16 the Hopper
+# kernels (TMA + wgmma over WGMMA_TILE output tiles; its K block is 64),
+# float32 the FMA kernels (exact float32 products)
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+WGMMA_TILE = (128, 128)
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 

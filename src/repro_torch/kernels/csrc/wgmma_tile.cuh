@@ -1,9 +1,10 @@
 // Hopper tile GEMM body for bf16 operands: TMA -> shared-memory ring -> wgmma.
 //
-// The consumer body of the fused bf16 kernels (ag_gemm.cu, gemm_rs.cu).  It
-// replaces, for bf16, the TPU tile loop those kernels run on every step
-// (src/repro/kernels/matmul.py::_matmul_kernel: fp32 accumulator over the K
-// grid dimension, cast at store).  tile_gemm.cuh stays the float32 body.
+// The body of every bf16 kernel: ag_gemm.cu, gemm_rs.cu and the plain and
+// grouped GEMM of wgmma_gemm.cu.  It replaces, for bf16, the TPU tile loop
+// those kernels run (src/repro/kernels/matmul.py::_matmul_kernel: fp32
+// accumulator over the K grid dimension, cast at store).  tile_gemm.cuh
+// stays the float32 body.
 //
 // One block of 288 threads computes BM x BN = 128 x 128 output tiles:
 //
@@ -21,7 +22,7 @@
 //     the group that read it has retired (wg_mainloop);
 //   * the f32 accumulator stays in registers (64 a thread) and goes to an
 //     epilogue functor epi(row, col, v_col, v_col+1) for every pair with
-//     row < m and col < n (col is even; both kernels' widths are even), so
+//     row < m and col < n (col is even; every width is a multiple of 8), so
 //     each kernel fuses its own store, partial add or peer store
 //     (wg_epilogue).
 //
@@ -93,6 +94,14 @@ __device__ __forceinline__ void wg_mbar_wait(uint64_t* bar, int parity) {
 }
 
 // ---- TMA -------------------------------------------------------------------
+
+__device__ __forceinline__ void wg_tma_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];" ::
+          "r"(wg_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(wg_smem(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ void wg_tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
   asm volatile(
@@ -239,6 +248,18 @@ __device__ __forceinline__ void wg_mainloop(const WgRing& ring, RingPos& pos, in
   }
   wg_wait<0>();
   if (prev >= 0 && signal) wg_mbar_arrive(&ring.empty[prev]);
+}
+
+// A consumer warpgroup with no rows to compute in an item walks its nk
+// stages all the same, so the ring stays in step: it waits for each stage
+// to land (or it could free a stage of the next round early) and frees it.
+__device__ __forceinline__ void wg_skip(const WgRing& ring, RingPos& pos, int nk) {
+  const bool signal = (threadIdx.x & 31) == 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    wg_mbar_wait(&ring.full[pos.stage], pos.phase);
+    if (signal) wg_mbar_arrive(&ring.empty[pos.stage]);
+    pos.advance();
+  }
 }
 
 // The 256 consumer threads store rows [0, rows) of an A box (BM rows x BK

@@ -41,11 +41,11 @@ from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.kernels import build
-from repro_torch.kernels.ag_gemm import ROUTES, device_table
+from repro_torch.kernels.ag_gemm import device_table
 
 __all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "tiles", "RsItem", "TILE"]
 
-TILE = (128, 128)  # the bf16 route's output tile (BM, BN); its K block is 64
+TILE = build.WGMMA_TILE  # the bf16 route's output tile (BM, BN)
 SEG_ROWS = 64  # rows of one batch row's segment a consumer warpgroup holds
 
 
@@ -183,7 +183,7 @@ def gemm_rs(
     rank r's row segment of ``sum_q x[q] @ w[q]``.  The schedule and the
     accum dtype (also the wire dtype of the identity QuantSpec) come from
     ``channel``.  A CPU tensor runs :func:`gemm_rs_plain`; a CUDA tensor
-    launches the kernel of its dtype's route (``ROUTES``) or raises:
+    launches the kernel of its dtype's route (``build.ROUTES``) or raises:
     bfloat16 takes the wgmma route (k_loc and N multiples of 8 and N / C
     even, else ValueError), float32 the FMA route with n tile ``bn`` (default the
     CompSpec tn clamped to a divisor of N / C).
@@ -201,7 +201,7 @@ def gemm_rs(
     rbuf = torch.empty((world, world * nch, b * m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
     seg = device_table(plan, "rs_seg", x.device)
     dst = device_table(plan, "rs_dst", x.device)
-    route = ROUTES[x.dtype]
+    route = build.ROUTES[x.dtype]
     lib = build.library()
     if route == "wgmma":
         build.check_tma_operands("gemm_rs", x, w)

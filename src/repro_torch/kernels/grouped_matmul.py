@@ -4,8 +4,18 @@ Replaces ``repro/kernels/grouped_matmul.py::grouped_matmul``: ``x`` [M, K]
 holds expert-sorted, tile-aligned rows, ``w`` [E, K, N] the experts'
 weights, and ``tile_expert`` [M / bm] (int32, on the device) names the expert
 of each row tile — the paper's dynamic mapping f_R.  The kernel reads the
-table on the device, so one launch covers every expert.  The bound and the
-design are noted in ``csrc/grouped_matmul.cu``.
+table on the device, so one launch covers every expert.  Two routes, chosen
+by dtype before the launch (never by a fallback):
+
+  * bfloat16 (the serve dtype): ``wgmma_gemm_kernel`` (``csrc/wgmma_gemm.cu``),
+    a persistent grid of 128 x 128 output tiles (:func:`work_items`) through
+    the TMA -> shared-memory ring -> ``wgmma`` body of
+    ``csrc/wgmma_tile.cuh``; it stores float32 or bfloat16.  K and N must be
+    multiples of 8 and the bases 16-byte aligned (TMA), else ValueError.
+  * float32: the ``csrc/tile_gemm.cuh`` FMA loop, exact float32 products.
+
+``grouped_matmul.last_launch`` says which route the last launch took, its
+grid and its item count.
 
 :func:`grouped_matmul_plain` is the plain PyTorch version: it gathers the
 weights once per row tile (not per row, as the JAX oracle
@@ -14,17 +24,18 @@ weights once per row tile (not per row, as the JAX oracle
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch.kernels import build
 
-__all__ = ["grouped_matmul", "grouped_matmul_plain", "group_tile_table", "ROW_TILE"]
+__all__ = ["grouped_matmul", "grouped_matmul_plain", "group_tile_table", "work_items", "GemmItem", "ROW_TILE"]
 
-ROW_TILE = 64  # rows of the kernel's micro-tile (TG_BM): the largest useful row tile
+ROW_TILE = build.WGMMA_TILE[0]  # the bf16 route's m-tile: the largest row tile one item covers
 
 
 @functools.lru_cache(maxsize=64)
@@ -36,6 +47,33 @@ def group_tile_table(num_groups: int, group_rows: int, device: torch.device) -> 
     bm = largest_divisor(group_rows, ROW_TILE)
     tiles = torch.arange(num_groups * group_rows // bm, dtype=torch.int64) * bm // group_rows
     return tiles.to(device=device, dtype=torch.int32)
+
+
+class GemmItem(NamedTuple):
+    """One work item of the bf16 route: rows ``row0 .. row0 + rows`` of row
+    tile ``t`` (its sub-tile ``j``) times n-tile ``nt``."""
+
+    index: int
+    t: int
+    j: int
+    nt: int
+    row0: int
+    rows: int
+
+
+def work_items(row_tiles: int, bm: int, n: int, tile=build.WGMMA_TILE) -> list:
+    """The bf16 route's work items in the order ``wgmma_gemm_kernel`` numbers
+    them (``wg_gemm_item``): m-tile fastest, so the blocks that run together
+    share a weight strip.  Row tile t (``bm`` rows) splits into
+    ceil(bm / BM) m-tiles; the plain GEMM is one row tile of M rows."""
+    tm, tn = tile
+    sub = -(-bm // tm)
+    items = []
+    for nt in range(-(-n // tn)):
+        for t in range(row_tiles):
+            for j in range(sub):
+                items.append(GemmItem(len(items), t, j, nt, t * bm + j * tm, min(tm, bm - j * tm)))
+    return items
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor):
@@ -69,7 +107,8 @@ def grouped_matmul(
 
     The row tile is ``M / len(tile_expert)``.  ``out_dtype`` is float32 or the
     input dtype (default).  A CPU tensor runs :func:`grouped_matmul_plain`; a
-    CUDA tensor launches the kernel (or raises).
+    CUDA tensor launches the kernel of its dtype's route (``build.ROUTES``) or
+    raises.
     """
     _check(x, w, tile_expert)
     out_dtype = out_dtype or x.dtype
@@ -80,17 +119,26 @@ def grouped_matmul(
         raise ValueError("grouped_matmul: tile_expert must be a contiguous int32 tensor on the operands' device")
     if out_dtype not in (torch.float32, x.dtype):
         raise ValueError(f"grouped_matmul kernel stores float32 or the input dtype {x.dtype}, not {out_dtype}")
+    route = build.ROUTES[x.dtype]
+    if route == "wgmma":
+        build.check_tma_operands("grouped_matmul", x, w)
     (m, k), (e, _, n), t = x.shape, w.shape, tile_expert.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    info = (ctypes.c_int * 2)()
     lib = build.library()
     rc = lib.tl_grouped_matmul(
         build.dtype_code(x.dtype), build.dtype_code(out_dtype),
-        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), out.data_ptr(),
+        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), out.data_ptr(), ctypes.addressof(info),
         t, n, k, e, m // t, build.stream(x),
     )  # fmt: skip
     build.check(rc, "grouped_matmul")
+    if route == "wgmma":
+        grouped_matmul.last_launch = {"route": route, "grid": info[0], "items": info[1]}
+    else:  # one block per (row tile, 128-column tile)
+        grouped_matmul.last_launch = {"route": route, "grid": t * -(-n // 128), "items": None}
     grouped_matmul.launches += 1
     return out
 
 
 grouped_matmul.launches = 0
+grouped_matmul.last_launch = None

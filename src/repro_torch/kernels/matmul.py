@@ -1,16 +1,25 @@
-"""Tile GEMM kernel (``csrc/matmul.cu`` over ``csrc/tile_gemm.cuh``).
+"""Tile GEMM kernel (``csrc/matmul.cu``).
 
 Replaces ``repro/kernels/matmul.py::matmul`` (``_matmul_kernel``): the
 consumer-side compute tile of TileLink programs, fp32 accumulation, cast at
-store.  The same tile loop (``tile_gemm.cuh``) is the body of the fused
-``ag_gemm`` and ``gemm_rs`` kernels.  What bounds it on the card and what the
-design does about that is noted in ``csrc/tile_gemm.cuh``.
+store.  Two routes, chosen by dtype before the launch (never by a fallback):
 
-On the model path the standalone entry computes the LM head (``lm.logits``).
+  * bfloat16 (the serve dtype): ``wgmma_gemm_kernel`` (``csrc/wgmma_gemm.cu``),
+    the grouped GEMM's persistent wgmma kernel with one row tile of M rows
+    and one expert (its items: ``grouped_matmul.work_items(1, M, N)``).  Its
+    tile is fixed (128 x 128); ``tile`` does not apply.  K and N must be
+    multiples of 8 and the bases 16-byte aligned (TMA), else ValueError.
+  * float32: ``matmul_kernel``, the ``csrc/tile_gemm.cuh`` FMA loop over
+    (bm, bn) block regions (``tile``); exact float32 products.
+
+``matmul.last_launch`` says which route the last launch took, its grid and
+its item count.  On the model path the standalone entry computes the LM head
+(``lm.logits``).
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -19,7 +28,7 @@ from repro_torch.kernels import build
 
 __all__ = ["matmul", "matmul_plain", "DEFAULT_TILE"]
 
-DEFAULT_TILE = (128, 128, 128)  # (bm, bn, bk): bm x bn output region per block
+DEFAULT_TILE = (128, 128, 128)  # (bm, bn, bk): the float32 route's bm x bn output region per block
 
 
 def matmul_plain(x: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -34,10 +43,10 @@ def matmul(
     tile: Tuple[int, int, int] = DEFAULT_TILE,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """``x [M, K] @ w [K, N] -> [M, N]``; the block tile need not divide M, N, K.
+    """``x [M, K] @ w [K, N] -> [M, N]``; the tile need not divide M, N, K.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (or raises).
+    of its dtype's route (``build.ROUTES``) or raises.
     """
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -47,17 +56,27 @@ def matmul(
         raise ValueError(f"matmul: expected [M, K] @ [K, N], got {tuple(x.shape)} @ {tuple(w.shape)}")
     if out_dtype != x.dtype:
         raise ValueError(f"matmul kernel stores in the input dtype {x.dtype}, not {out_dtype}")
+    route = build.ROUTES[x.dtype]
+    if route == "wgmma":
+        build.check_tma_operands("matmul", x, w)
     m, k = x.shape
     n = w.shape[1]
     bm, bn = max(1, min(int(tile[0]), m)), max(1, min(int(tile[1]), n))
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    info = (ctypes.c_int * 2)()
     lib = build.library()
     rc = lib.tl_matmul(
-        build.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, bm, bn, build.stream(x)
-    )
+        build.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(), out.data_ptr(), ctypes.addressof(info),
+        m, n, k, bm, bn, build.stream(x),
+    )  # fmt: skip
     build.check(rc, "matmul")
+    if route == "wgmma":
+        matmul.last_launch = {"route": route, "grid": info[0], "items": info[1]}
+    else:
+        matmul.last_launch = {"route": route, "grid": -(-m // bm) * -(-n // bn), "items": None}
     matmul.launches += 1
     return out
 
 
 matmul.launches = 0
+matmul.last_launch = None

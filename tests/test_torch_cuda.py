@@ -8,9 +8,9 @@ nor the JAX package, so it runs on the GPU machine, where there is no JAX:
 
 Shapes are small and deliberately ragged (non-power-of-two tiles, partial
 edge tiles, leading batch dims, GQA, sq < sk, random expert tables, SSD
-tiles with T prime and decays that underflow; for the bf16 fused kernels,
-widths that are multiples of 8 but ragged against their 128 x 128 tile,
-more items than SMs, and 20 launches held bitwise equal).  Tolerances: float32 1e-4 of
+tiles with T prime and decays that underflow; for the bf16 (wgmma)
+kernels, widths that are multiples of 8 but ragged against their 128 x 128
+tile, more items than SMs, and 20 launches held bitwise equal).  Tolerances: float32 1e-4 of
 max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
@@ -24,8 +24,10 @@ from repro_torch import kernels as K
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import BlockChannel, CommSpec, CompSpec
+from repro_torch.kernels import build
 from repro_torch.kernels.ag_gemm import launch_items as ag_items
 from repro_torch.kernels.gemm_rs import launch_items as rs_items
+from repro_torch.kernels.grouped_matmul import work_items as gemm_items
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 
@@ -53,13 +55,34 @@ def _close(out, ref, dtype):
     assert err <= TOL[dtype] * max(ref.float().abs().max().item(), 1e-6), err
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,k,tile", [(50, 300, 37, (64, 120, 32)), (4, 960, 960, (128, 128, 128)), (130, 129, 5, (7, 9, 1))])
+def _gemm_launch(last, route, row_tiles, bm, n):
+    assert last["route"] == route
+    if route == "wgmma":
+        items = len(gemm_items(row_tiles, bm, n))
+        assert last["items"] == items and last["grid"] == min(items, 132)
+
+
+# float32 (FMA route): any width and block tile.  bfloat16 (wgmma route):
+# the same raggedness against the 128 x 128 tile (a partial m-tile, a last
+# n-tile narrower than one 64-column box, K below one 64-deep block) with
+# widths that are multiples of 8 (16-byte TMA rows); the M = 4 decode head
+# at granite's head width (one warpgroup idle); more items (153) than SMs
+MATMUL_CASES = [
+    (torch.float32, 50, 300, 37, (64, 120, 32)), (torch.float32, 4, 960, 960, (128, 128, 128)),
+    (torch.float32, 130, 129, 5, (7, 9, 1)),
+    (torch.bfloat16, 50, 304, 40, (64, 120, 32)), (torch.bfloat16, 4, 960, 960, (128, 128, 128)),
+    (torch.bfloat16, 130, 136, 8, (7, 9, 1)), (torch.bfloat16, 4, 49160, 960, (128, 128, 128)),
+    (torch.bfloat16, 1030, 2056, 72, (128, 128, 128)),
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("dtype,m,n,k,tile", MATMUL_CASES)
 def test_matmul_kernel(dev, dtype, m, n, k, tile):
     x, w = _rand(dev, dtype, m, k), _rand(dev, dtype, k, n, seed=1, scale=k**-0.5)
     before = K.matmul.launches
     out = K.matmul(x, w, tile=tile)
     assert K.matmul.launches == before + 1
+    _gemm_launch(K.matmul.last_launch, build.ROUTES[dtype], 1, m, n)
     _close(out, K.matmul_plain(x, w), dtype)
 
 
@@ -161,22 +184,48 @@ def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window)
     _close(out, K.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
 
 
-@pytest.mark.parametrize("dtype,out_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
-                                             (torch.bfloat16, torch.float32)])  # fmt: skip
-@pytest.mark.parametrize(
-    "table,bm,k,n",
-    [((4, 0, 4), 40, 37, 300), ((1, -1, 2, 0, 3, 3, 1, 0, 2, 4, 0, 1), 8, 64, 130), ((2, 0), 96, 33, 128),
-     ((3, 3, 1), 48, 1536, 1024)],
-)  # fmt: skip
+# (table, bm, K, N) over 5 experts.  float32: ragged K and N.  bfloat16:
+# the same raggedness with widths that are multiples of 8, plus a row tile
+# of 200 rows (two m-tiles, the second of 72 rows), entries -1 and 7 (empty
+# tiles) in a non-monotone table, and 40 tiles of 96 rows x 12 n-tiles (480
+# items, more than SMs; granite's down-projection shape)
+GROUPED_F32 = [((4, 0, 4), 40, 37, 300), ((1, -1, 2, 0, 3, 3, 1, 0, 2, 4, 0, 1), 8, 64, 130), ((2, 0), 96, 33, 128),
+               ((3, 3, 1), 48, 1536, 1024)]  # fmt: skip
+GROUPED_BF16 = [((4, 0, 4), 40, 40, 304), ((1, -1, 2, 0, 3, 3, 1, 0, 2, 4, 0, 1), 8, 64, 136), ((2, 0), 96, 40, 128),
+                ((3, 3, 1), 48, 1536, 1024), ((4, 1, -1, 0, 7, 2), 200, 72, 264),
+                (tuple((3 * i) % 6 - 1 for i in range(40)), 96, 512, 1536)]  # fmt: skip
+GROUPED_CASES = [(torch.float32, torch.float32) + c for c in GROUPED_F32] + [
+    (torch.bfloat16, od) + c for od in (torch.bfloat16, torch.float32) for c in GROUPED_BF16
+]
+
+
+@pytest.mark.parametrize("dtype,out_dtype,table,bm,k,n", GROUPED_CASES)
 def test_grouped_matmul_kernel(dev, dtype, out_dtype, table, bm, k, n):
-    """Random, non-monotone tables; -1 marks an empty tile; bm > 64 walks two
-    sub-tiles; ragged K and N."""
+    """Random, non-monotone tables; -1 (or E and above) marks an empty tile;
+    bm > 64 walks two sub-tiles (float32) or both warpgroups (bfloat16)."""
     te = torch.tensor(table, dtype=torch.int32, device=dev)
     x, w = _rand(dev, dtype, len(table) * bm, k), _rand(dev, dtype, 5, k, n, seed=1, scale=k**-0.5)
     before = K.grouped_matmul.launches
     out = K.grouped_matmul(x, w, te, out_dtype=out_dtype)
     assert K.grouped_matmul.launches == before + 1 and out.dtype == out_dtype and out.shape == (x.shape[0], n)
+    _gemm_launch(K.grouped_matmul.last_launch, build.ROUTES[dtype], len(table), bm, n)
     _close(out, K.grouped_matmul_plain(x, w, te, out_dtype), dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_bf16_gemm_kernels_are_deterministic(dev, out_dtype):
+    """20 launches of the bf16 plain and grouped GEMMs (153 and 480 items on
+    132 blocks) are bitwise equal to the first."""
+    x, w = _rand(dev, torch.bfloat16, 1030, 72), _rand(dev, torch.bfloat16, 72, 2056, seed=1, scale=72**-0.5)
+    first = K.matmul(x, w)
+    for _ in range(19):
+        assert torch.equal(K.matmul(x, w), first)
+    table, bm, k, n = GROUPED_BF16[-1]
+    te = torch.tensor(table, dtype=torch.int32, device=dev)
+    x, w = _rand(dev, torch.bfloat16, len(table) * bm, k), _rand(dev, torch.bfloat16, 5, k, n, seed=1, scale=k**-0.5)
+    first = K.grouped_matmul(x, w, te, out_dtype=out_dtype)
+    for _ in range(19):
+        assert torch.equal(K.grouped_matmul(x, w, te, out_dtype=out_dtype), first)
 
 
 def _ssd_intra_inputs(dev, dtype, t, q, p, spread, seed=0):
@@ -212,6 +261,19 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
             K.gemm_rs(_rand(dev, bf, *xs), _rand(dev, bf, *ws))
     with pytest.raises(ValueError, match="aligned"):  # a view 2 bytes past an aligned base
         K.ag_gemm(_rand(dev, bf, 4 * 2 * 8 * 32 + 1)[1:].view(4, 2, 8, 32), _rand(dev, bf, 4, 32, 64))
+    # the bf16 plain and grouped GEMMs: K = 33, then N = 70, then a misaligned base; nothing launches
+    te = torch.tensor([1, -1], dtype=torch.int32, device=dev)
+    before = (K.matmul.launches, K.grouped_matmul.launches)
+    for xs, ws in (((16, 33), (33, 64)), ((16, 32), (32, 70))):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.matmul(_rand(dev, bf, *xs), _rand(dev, bf, *ws))
+        with pytest.raises(ValueError, match="multiple of 8"):
+            K.grouped_matmul(_rand(dev, bf, *xs), _rand(dev, bf, 2, *ws), te)
+    with pytest.raises(ValueError, match="aligned"):
+        K.matmul(_rand(dev, bf, 16 * 32 + 1)[1:].view(16, 32), _rand(dev, bf, 32, 64))
+    with pytest.raises(ValueError, match="aligned"):
+        K.grouped_matmul(_rand(dev, bf, 16 * 32 + 1)[1:].view(16, 32), _rand(dev, bf, 2, 32, 64), te)
+    assert (K.matmul.launches, K.grouped_matmul.launches) == before
     x = _rand(dev, torch.float32, 8, 16)
     with pytest.raises(TypeError):
         K.matmul(x.half(), x.t().contiguous().half())

@@ -24,6 +24,7 @@ from repro.kernels import ref
 from repro.nn.attention import chunked_attention as j_chunked
 from repro_torch import kernels as tk
 from repro_torch.kernels import build
+from repro_torch.kernels.grouped_matmul import work_items
 from repro_torch.nn.attention import chunked_attention
 
 F32 = dict(atol=2e-4, rtol=2e-3)
@@ -89,6 +90,36 @@ def test_matmul_plain_matches_pallas_interpret_bf16():
     out = tk.matmul(xb, wb)
     y = jk.matmul(jnp.asarray(xb.float().numpy(), jnp.bfloat16), jnp.asarray(wb.float().numpy(), jnp.bfloat16), interpret=True)
     np.testing.assert_allclose(out.float().numpy(), np.asarray(y.astype(jnp.float32)), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "row_tiles,bm,n", [(40, 96, 1024), (3, 300, 200), (6, 8, 136), (1, 4, 264), (1, 1030, 72), (5, 64, 128)]
+)
+def test_gemm_work_items_store_every_output_once(row_tiles, bm, n):
+    """The bf16 GEMM's items (grouped: row tiles of bm rows; plain: one row
+    tile of M rows) store every output element exactly once, never past
+    their row tile, numbered m-tile fastest (one weight strip at a time)."""
+    items = work_items(row_tiles, bm, n)
+    cover = np.zeros((row_tiles * bm, n), dtype=np.int32)
+    for i, it in enumerate(items):
+        assert it.index == i and 0 < it.rows <= 128 and it.row0 == it.t * bm + it.j * 128
+        assert it.row0 + it.rows <= (it.t + 1) * bm
+        cover[it.row0 : it.row0 + it.rows, it.nt * 128 : (it.nt + 1) * 128] += 1
+    assert (cover == 1).all()
+    assert [it.nt for it in items] == sorted(it.nt for it in items)
+
+
+@pytest.mark.parametrize(
+    "case,row_tiles,bm,n,count",
+    [("smollm head, prefill", 1, 1024, 49152, 3072), ("smollm head, decode", 1, 4, 49152, 384),
+     ("granite head, prefill", 1, 1024, 49160, 3080), ("mamba2 head, prefill", 1, 1024, 50280, 3144),
+     ("granite gate|up", 40, 96, 1024, 320), ("granite down", 40, 96, 1536, 480),
+     ("random 8-row tiles", 480, 8, 1536, 5760)],
+)  # fmt: skip
+def test_gemm_work_item_counts_at_serve_shapes(case, row_tiles, bm, n, count):
+    """Item counts of the serve path's launches (the grid is min(items, 132)
+    on the H100: one block of 129 KB shared memory per SM)."""
+    assert len(work_items(row_tiles, bm, n)) == count, case
 
 
 def test_kernel_modules_import_without_nvcc():

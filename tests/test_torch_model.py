@@ -96,10 +96,12 @@ def test_param_layout(setup):
         assert low["layers"][0]["ffn"]["w_gu"].dtype == torch.bfloat16
         own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.bfloat16)
         assert own["layers"][0]["ffn"]["router"].dtype == torch.float32
+    cols = lm.padded_vocab(cfg, TP)  # the JAX head's columns; the port pads them to a multiple of 8
+    assert params["head"].shape == (cfg.d_model, -(-cols // 8) * 8) and not params["head"][:, cols:].any()
     if cfg.tie_embeddings:
-        assert torch.equal(params["head"], params["embed"].reshape(-1, cfg.d_model).t())
+        assert torch.equal(params["head"][:, :cols], params["embed"].reshape(-1, cfg.d_model).t())
     else:
-        np.testing.assert_array_equal(params["head"].numpy(), np.asarray(jparams["lm_head"]))
+        np.testing.assert_array_equal(params["head"][:, :cols].numpy(), np.asarray(jparams["lm_head"]))
     # the port's own init follows the same layout
     own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.float32)
     assert jax.tree_util.tree_structure(
@@ -107,6 +109,29 @@ def test_param_layout(setup):
     ) == jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: t.shape, params))
     for a, b in zip(own["layers"][0]["mixer"].values(), mixer.values()):
         assert a.shape == b.shape
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_head_padded_to_a_multiple_of_8(arch, pc8, mesh8):
+    """vocab 498 pads to 500 rows over 4 ranks, no multiple of 8: the head is
+    stored with 4 zero columns more (504: 16-byte bf16 rows for the tile-GEMM
+    kernel's TMA loads), and the prefill logits still equal the JAX package's."""
+    jcfg = dataclasses.replace(j_reduce_config(j_get_config(arch)), vocab_size=498)
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), vocab_size=498)
+    jparams = place(jlm.init(jax.random.PRNGKey(2), jcfg, pc8, jnp.float32), mesh8, jlm.specs(jcfg, pc8))
+    world = World(TP, "cpu")
+    params = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, world)
+    own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.float32)
+    for head in (params["head"], own["head"]):
+        assert lm.padded_vocab(cfg, TP) == 500 and head.shape == (cfg.d_model, 504) and head.is_contiguous()
+        assert not head[:, 500:].any() and head[:, :500].abs().sum() > 0
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, size=(B, S0)).astype(np.int32)
+    jl, _ = jax.jit(lambda p, t: jlm.prefill(p, jcfg, pc8, t, max_len=MAX_LEN))(jparams, jnp.asarray(toks))
+    for backend in ("eager", "fused"):
+        pc = ParallelContext(world=world, backend=backend)
+        tl, _ = lm.prefill(params, cfg, pc, torch.from_numpy(toks).long(), max_len=MAX_LEN)
+        assert tl.shape == (B, S0, 498)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 @pytest.mark.parametrize("backend", ["eager", "fused"])

@@ -154,9 +154,11 @@ def test_grouped_matmul_empty_tiles_and_tables():
     np.testing.assert_allclose(out[:8].numpy(), (x[:8] @ w[1]).numpy(), **F32)
     with pytest.raises(ValueError):
         kernels.grouped_matmul(x, w, torch.zeros(5, dtype=torch.int32))  # 24 rows, 5 tiles
-    # groups of 96 rows -> 48-row tiles; groups of 24 -> one 24-row tile each
+    # groups of 96 rows -> one 96-row tile each (ROW_TILE = 128, the bf16
+    # kernel's m-tile); groups of 24 -> one 24-row tile each
     t = group_tile_table(3, 96, torch.device("cpu"))
-    assert t.dtype == torch.int32 and t.tolist() == [0, 0, 1, 1, 2, 2]
+    assert t.dtype == torch.int32 and t.tolist() == [0, 1, 2]
+    assert group_tile_table(2, 384, torch.device("cpu")).tolist() == [0, 0, 0, 1, 1, 1]  # 128-row tiles
     assert group_tile_table(2, 24, torch.device("cpu")).tolist() == [0, 1]
 
 
