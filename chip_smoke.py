@@ -8,10 +8,12 @@ non-zero (no phase catches its own failure):
               TF32 off, so the float32 plain versions are true float32.
   2. build    builds the kernels from ``src/repro_torch/kernels/csrc``;
               prints each kernel's registers / spills and the SASS count of
-              HGMMA (wgmma) and UTMALDG (TMA loads) per kernel, and fails if
-              the bf16 kernel of a GEMM-shaped wrapper (ag_gemm, gemm_rs,
-              matmul, grouped_matmul) has no HGMMA or no UTMALDG, or
-              spills registers.
+              HGMMA (wgmma), UTMALDG (TMA loads), UBLKCP (1-D bulk copies)
+              and LDGSTS (cp.async) per kernel, and fails if the bf16
+              kernel of a wrapper with a wgmma route (ag_gemm, gemm_rs,
+              matmul, grouped_matmul, flash_attention) has no HGMMA or no
+              UTMALDG, or spills registers, or if the SSD intra-chunk
+              kernel spills or has no UBLKCP (its bulk staging path).
   3. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
               executor with plain attention; one dense layer in bfloat16 on
@@ -44,14 +46,18 @@ non-zero (no phase catches its own failure):
               stores), in float32 and bfloat16, and the fused kernels over
               every tile order x C in {1, 2} (float32, and bfloat16 with 20
               launches each held bitwise equal to the first, as is every
-              bf16 LM-head and grouped-GEMM case); kernel, plain-version and
-              library-call times with CUDA
-              events over back-to-back calls, and the kernel's and the
+              bf16 LM-head, grouped-GEMM and flash-attention case; the bf16
+              flash route is held to the f32 plain version and to its tiled
+              twin); kernel, plain-version and library-call times with
+              CUDA events over back-to-back calls, and the kernel's and the
               library call's device time per call (torch.profiler), in
               bfloat16, the serving dtype (and for the SSD kernel also in
               float32, the dtype its path gives it), with the route, grid G
-              and work-item count of each GEMM launch.  It runs after the
-              serve phases: the profiler leaves host overhead behind.
+              and work-item count of each launch (for flash attention the
+              route by (dtype, head dim), CTAs and KV tiles visited; for the
+              SSD kernel its staging path and persistent grid).  It runs
+              after the serve phases: the profiler leaves host overhead
+              behind.
   7. summary  the launch counts of the three main paths, the per-kernel
               JSON line, the card's power limit, and the last line
               ``{"ok": true, "device": {...}}``.
@@ -98,13 +104,16 @@ REPLACES = {
     "grouped_matmul": "src/repro/kernels/grouped_matmul.py:28",
     "ssd_intra_chunk": "src/repro/kernels/mamba_ssd.py:123",
 }
-# the bf16 kernel of each GEMM-shaped wrapper (SASS symbol): wgmma + TMA
+# the bf16 kernel of each wrapper with a wgmma route (SASS symbol): wgmma + TMA
 BF16_KERNELS = {
     "ag_gemm": "ag_gemm_wgmma_kernel",
     "gemm_rs": "gemm_rs_wgmma_kernel",
     "matmul": "wgmma_gemm_kernel",
     "grouped_matmul": "wgmma_gemm_kernel",
+    "flash_attention": "fa_wgmma_kernel",
 }
+SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKCP
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "ag_gemm": "src/repro_torch/kernels/csrc/ag_gemm.cu",
@@ -201,11 +210,11 @@ def phase_build():
         elif kernel is not None and ("registers" in line or "spill" in line.lower()):
             print(f"[build] {kernel[:72]}: {line.strip().removeprefix('ptxas info    : ')}")
             spilled = any(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-            if spilled and any(name in kernel for name in BF16_KERNELS.values()):
+            if spilled and any(name in kernel for name in (*BF16_KERNELS.values(), SSD_KERNEL)):
                 spills.append(kernel)
             if "registers" in line:
                 kernel = None  # the entry's own report; later copies repeat it
-    sass = build.sass_report()
+    sass = build.sass_report(SASS_OPS)
     for fn, ops in sass.items():
         if any(ops.values()):
             print(f"[build] SASS {fn[:72]}: {ops}")
@@ -213,8 +222,11 @@ def phase_build():
         found = [ops for fn, ops in sass.items() if name in fn]
         if not found or not all(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 for ops in found):
             raise SystemExit(f"chip_smoke: {wrapper}'s bf16 kernel {name} lacks HGMMA (wgmma) or UTMALDG (TMA): {found}")
+    ssd = [ops for fn, ops in sass.items() if SSD_KERNEL in fn]
+    if not any(ops["UBLKCP"] > 0 for ops in ssd):
+        raise SystemExit(f"chip_smoke: the SSD intra-chunk kernel has no UBLKCP (bulk staging): {ssd}")
     if spills:
-        raise SystemExit(f"chip_smoke: bf16 GEMM kernels spill registers: {spills}")
+        raise SystemExit(f"chip_smoke: kernels spill registers: {spills}")
     return dt
 
 
@@ -380,6 +392,7 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             # flops: the [q, q] @ [q, p] product, exp and mask-multiply; bytes:
             # cum, cb, xdt read once and y written once
             t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p), iters, False,
+            lambda: K.ssd_intra_chunk.last_launch,
         )  # fmt: skip
         del cum, cb, xdt, gmat
     return recs
@@ -391,6 +404,7 @@ def phase_kernels(iters: int):
 
     from repro_torch import kernels as K
     from repro_torch.core.channels import BlockChannel, CommSpec
+    from repro_torch.kernels.flash_attention import flash_attention_tiled
     from repro_torch.kernels.grouped_matmul import group_tile_table
 
     dev = torch.device("cuda", 0)
@@ -440,13 +454,20 @@ def phase_kernels(iters: int):
             kk, vv = rnd(W * B * shp["kv_loc"], S, hd, dtype=dtype), rnd(W * B * shp["kv_loc"], S, hd, dtype=dtype)
             ke, ve = kk.repeat_interleave(rep, 0)[None], vv.repeat_interleave(rep, 0)[None]
             pairs = S * (S + 1) // 2
+            # the plain version in f32 on the same inputs (bf16: the wgmma route)
             recs[("flash_attention", arch, "prefill", dtype)] = _case(
                 f"flash_attention[{arch}] q{list(q.shape)} kv{list(kk.shape)} causal", dtype,
                 lambda: K.flash_attention(q, kk, vv, causal=True),
-                lambda: K.flash_attention_plain(q, kk, vv, causal=True),
+                lambda: K.flash_attention_plain(q.float(), kk.float(), vv.float(), causal=True),
                 lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True),
                 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), it, check_only,
+                lambda: K.flash_attention.last_launch, bitwise=dtype == torch.bfloat16,
             )  # fmt: skip
+            if dtype == torch.bfloat16:  # and against the twin that replays its schedule
+                _case(f"flash_attention[{arch}] vs its tiled twin", dtype,
+                      lambda: K.flash_attention(q, kk, vv, causal=True),
+                      lambda: flash_attention_tiled(q, kk, vv, causal=True), None, 0, 0, 0, True,
+                      lambda: K.flash_attention.last_launch)  # fmt: skip
             recs.update(_lm_head_cases(rnd, arch, d, shp["vocab"], dtype, it, check_only))
             if "e_loc" not in shp:
                 continue

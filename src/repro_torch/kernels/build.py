@@ -75,8 +75,10 @@ _SIGNATURES = {
     "tl_flash_attention": "i" + "pppp" + "iiiii" + "f" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream
     "tl_grouped_matmul": "ii" + "ppppp" + "iiiii" + "p",
-    # dtype, cum, cb, xdt, y, T, Q, P, stream
-    "tl_ssd_intra_chunk": "i" + "pppp" + "iii" + "p",
+    # bfloat16: q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, info, stream
+    "tl_flash_attention_wgmma": "pppp" + "iiiii" + "f" + "ii" + "p" + "p",
+    # dtype, cum, cb, xdt, y, T, Q, P, info, stream
+    "tl_ssd_intra_chunk": "i" + "pppp" + "iii" + "p" + "p",
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # every GEMM-shaped kernel picks its route by dtype: bfloat16 the Hopper

@@ -1,4 +1,6 @@
-// Flash attention: online softmax, GQA, causal and sliding-window masks.
+// Flash attention: online softmax, GQA, causal and sliding-window masks; the
+// FMA route (float32 at every head dim, bf16 at 16 and 32; bf16 at 64 and
+// 128 runs flash_attention_wgmma.cu).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel).
 // q [BH, Sq, D], k/v [BHkv, Sk, D] -> o [BH, Sq, D]; head b reads KV head
@@ -179,27 +181,25 @@ static int launch(const void* q, const void* k, const void* v, void* o, int BH, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// WIDE: head dims 64 and 128 too (float32; bf16 takes them on the wgmma route)
+template <typename T, bool WIDE>
 static int dispatch_d(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq, int Sk, int D,
                       float scale, int causal, int window, cudaStream_t st) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-    case 32:
-      return launch<T, 32>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 16) return launch<T, 16>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
+  if (D == 32) return launch<T, 32>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
+  if constexpr (WIDE) {
+    if (D == 64) return launch<T, 64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
+    if (D == 128) return launch<T, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
   }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// dtype: 0 = float32 (D 16, 32, 64, 128), 1 = bfloat16 (D 16, 32; 64 and 128
+// run tl_flash_attention_wgmma)
 extern "C" int tl_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
                                   int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
+  if (dtype == 0) return dispatch_d<float, true>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, false>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

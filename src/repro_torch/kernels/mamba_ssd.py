@@ -10,23 +10,73 @@ of the JAX package (``intra="einsum"``) or the Hopper kernel
 (``_ssd_intra_kernel``) of the same file; the bound and the design are
 noted in the CUDA source.
 
-:func:`ssd_intra_chunk_plain` is the kernel's plain PyTorch version.
+:func:`ssd_intra_chunk_plain` is the kernel's plain PyTorch version;
+:func:`block_tiles`, :func:`thread_pairs` and :func:`bulk_staged` model the
+kernel's schedule (which tiles a persistent block takes, which (i, j) pairs
+a thread computes, which staging path a shape takes) for the CPU tests.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
 
-__all__ = ["ssd_chunked", "ssd_intra_chunk", "ssd_intra_chunk_plain", "MAX_Q", "MAX_P", "INTRA_FORMS"]
+__all__ = [
+    "ssd_chunked",
+    "ssd_intra_chunk",
+    "ssd_intra_chunk_plain",
+    "block_tiles",
+    "thread_pairs",
+    "bulk_staged",
+    "MAX_Q",
+    "MAX_P",
+    "THREADS",
+    "INTRA_FORMS",
+]
 
 MAX_Q = 64  # largest chunk length the kernel takes
 MAX_P = 64  # largest head dim the kernel takes
+THREADS = 128  # threads of a kernel block: 16 row groups x 8 column groups
 INTRA_FORMS = ("einsum", "kernel")
+
+
+# ---- the kernel's schedule (csrc/ssd_intra_chunk.cu), modelled for the CPU tests
+
+
+def block_tiles(t: int, grid: int) -> List[List[int]]:
+    """The tiles each block of the persistent grid takes: block b walks b,
+    b + G, b + 2G, ... below T."""
+    return [list(range(b, t, grid)) for b in range(grid)]
+
+
+def thread_pairs(tid: int) -> Tuple[List[Tuple[int, int]], List[int]]:
+    """The (i, j) pairs of the 64 x 64 tile thread ``tid`` computes, in its
+    order, and its columns.  Thread (a, c) = (tid // 8, tid % 8) owns rows a,
+    31 - a, 32 + a, 63 - a and the column quads 4c and 32 + 4c; its j loop
+    runs in four segments with 4, 3, 2, then 1 live rows, so it computes
+    j <= i only."""
+    a, c = divmod(tid, 8)
+    rows = (a, 31 - a, 32 + a, MAX_Q - 1 - a)
+    pairs, j0 = [], 0
+    for first in range(4):
+        for j in range(j0, rows[first] + 1):
+            pairs.extend((rows[r], j) for r in range(first, 4))
+        j0 = rows[first] + 1
+    cols = [4 * c + k for k in range(4)] + [32 + 4 * c + k for k in range(4)]
+    return pairs, cols
+
+
+def bulk_staged(q: int, p: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel stages tiles with 1-D bulk copies (cum and every x
+    row a 16-byte multiple; the bases are 16-byte aligned) or through
+    registers."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    return (q * isz) % 16 == 0 and (p * isz) % 16 == 0
 
 
 def _check(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor):
@@ -68,17 +118,20 @@ def ssd_intra_chunk(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> t
     if q > MAX_Q or p > MAX_P:
         raise ValueError(f"ssd_intra_chunk kernel takes Q <= {MAX_Q} and P <= {MAX_P}, got Q {q}, P {p}")
     y = torch.empty_like(xdt)
+    info = (ctypes.c_int * 2)()
     lib = build.library()
     rc = lib.tl_ssd_intra_chunk(
         build.dtype_code(xdt.dtype), cum.data_ptr(), cb.data_ptr(), xdt.data_ptr(), y.data_ptr(), t, q, p,
-        build.stream(xdt),
+        ctypes.addressof(info), build.stream(xdt),
     )  # fmt: skip
     build.check(rc, "ssd_intra_chunk")
+    ssd_intra_chunk.last_launch = {"route": "bulk" if info[1] else "registers", "grid": info[0], "items": t}
     ssd_intra_chunk.launches += 1
     return y
 
 
 ssd_intra_chunk.launches = 0
+ssd_intra_chunk.last_launch = None
 
 
 def ssd_chunked(

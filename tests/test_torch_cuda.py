@@ -15,6 +15,7 @@ max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
 
+import importlib
 import itertools
 
 import pytest
@@ -25,12 +26,14 @@ from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import BlockChannel, CommSpec, CompSpec
 from repro_torch.kernels import build
+from repro_torch.kernels import mamba_ssd
 from repro_torch.kernels.ag_gemm import launch_items as ag_items
 from repro_torch.kernels.gemm_rs import launch_items as rs_items
 from repro_torch.kernels.grouped_matmul import work_items as gemm_items
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")  # the module; the package exports the function
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ORDERS = ("ring", "bidir_ring", "all2all")
@@ -184,6 +187,54 @@ def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window)
     _close(out, K.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
 
 
+# the wgmma route (bf16, D 64 / 128): GQA rep 1, 2, 3; causal, window and
+# non-causal; Sq < Sk down to Sq = 1; S not a multiple of 64; granite's
+# path shape (384 CTAs, more than SMs)
+FLASH_WGMMA = [
+    (4, 4, 100, 100, 64, True, None), (4, 2, 64, 64, 128, True, None), (6, 2, 130, 130, 64, True, 40),
+    (3, 1, 37, 130, 64, False, None), (6, 2, 1, 200, 128, True, None), (3, 1, 1, 77, 64, False, 30),
+    (4, 4, 65, 65, 128, False, 33), (96, 32, 256, 256, 64, True, None),
+]  # fmt: skip
+
+
+@pytest.mark.parametrize("bh,bhkv,sq,sk,d,causal,window", FLASH_WGMMA)
+def test_flash_attention_wgmma_kernel(dev, bh, bhkv, sq, sk, d, causal, window):
+    """Held to the f32 plain version on the same bf16 inputs (2e-2 of its
+    max) and to the tiled twin that replays the route's schedule."""
+    bf = torch.bfloat16
+    q, k, v = _rand(dev, bf, bh, sq, d), _rand(dev, bf, bhkv, sk, d, seed=1), _rand(dev, bf, bhkv, sk, d, seed=2)
+    before = K.flash_attention.launches
+    out = K.flash_attention(q, k, v, causal=causal, window=window)
+    last = K.flash_attention.last_launch
+    assert K.flash_attention.launches == before + 1 and last["route"] == "wgmma"
+    assert last["grid"] == -(-sq // 64) * bh
+    assert last["items"] == bh * sum(fa_mod.kv_tiles(q0, sq, sk, causal, window)[1] for q0 in range(0, sq, 64))
+    assert torch.isfinite(out).all()
+    _close(out, K.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal, window=window), bf)
+    _close(out, fa_mod.flash_attention_tiled(q, k, v, causal=causal, window=window), bf)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
+def test_flash_attention_route_table(dev, dtype, d):
+    """Each (dtype, head dim) launches the route of the table: bf16 at 64 and
+    128 the wgmma kernel, everything else the FMA kernel."""
+    q, k, v = (_rand(dev, dtype, 2, 70, d, seed=s) for s in range(3))
+    out = K.flash_attention(q, k, v, causal=True)
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "fma"
+    assert fa_mod.route(dtype, d) == want and K.flash_attention.last_launch["route"] == want
+    _close(out, K.flash_attention_plain(q, k, v, causal=True), dtype)
+
+
+def test_flash_attention_wgmma_is_deterministic(dev):
+    """20 launches at smollm's path shape (256 CTAs) are bitwise equal."""
+    bf = torch.bfloat16
+    q, k, v = _rand(dev, bf, 64, 256, 64), _rand(dev, bf, 32, 256, 64, seed=1), _rand(dev, bf, 32, 256, 64, seed=2)
+    first = K.flash_attention(q, k, v, causal=True)
+    for _ in range(19):
+        assert torch.equal(K.flash_attention(q, k, v, causal=True), first)
+
+
 # (table, bm, K, N) over 5 experts.  float32: ragged K and N.  bfloat16:
 # the same raggedness with widths that are multiples of 8, plus a row tile
 # of 200 rows (two m-tiles, the second of 72 rows), entries -1 and 7 (empty
@@ -247,6 +298,33 @@ def test_ssd_intra_chunk_kernel(dev, dtype, q, p, spread):
     before = K.ssd_intra_chunk.launches
     out = K.ssd_intra_chunk(cum, cb, xdt)
     assert K.ssd_intra_chunk.launches == before + 1 and out.dtype == dtype and out.shape == xdt.shape
+    assert torch.isfinite(out).all()
+    _close(out, K.ssd_intra_chunk_plain(cum, cb, xdt), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 37, 1280, 3001])
+def test_ssd_intra_chunk_persistent_grid(dev, dtype, t):
+    """The mamba2 path's tile (Q = P = 64, bulk staging) at T = 1 up to
+    T = 3001 (more tiles than the persistent grid has blocks)."""
+    cum, cb, xdt = _ssd_intra_inputs(dev, dtype, t, 64, 64, 1.0, seed=t)
+    out = K.ssd_intra_chunk(cum, cb, xdt)
+    last = K.ssd_intra_chunk.last_launch
+    assert last["route"] == "bulk" and 1 <= last["grid"] <= t and last["items"] == t
+    if t == 3001:
+        assert last["grid"] < t
+    assert torch.isfinite(out).all()
+    _close(out, K.ssd_intra_chunk_plain(cum, cb, xdt), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spread", [1.0, 60.0])
+def test_ssd_intra_chunk_register_staging(dev, dtype, spread):
+    """Ragged (Q, P) = (37, 23) takes the register staging path; spread 60
+    stays finite."""
+    cum, cb, xdt = _ssd_intra_inputs(dev, dtype, 301, 37, 23, spread)
+    out = K.ssd_intra_chunk(cum, cb, xdt)
+    assert K.ssd_intra_chunk.last_launch["route"] == "registers" and not mamba_ssd.bulk_staged(37, 23, dtype)
     assert torch.isfinite(out).all()
     _close(out, K.ssd_intra_chunk_plain(cum, cb, xdt), dtype)
 
