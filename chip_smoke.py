@@ -35,15 +35,37 @@ non-zero (no phase catches its own failure):
               weights; (b) the float32 prefill, fused against eager, every
               position's logits; (c) the main path in bfloat16 through
               ``serve.greedy``, with its launch counts held exactly.
-  6. kernels  every kernel against its plain PyTorch version at the shapes
+  6. engine   the continuous-batching engine (``serving.ServeEngine``, its
+              step captured in two CUDA graphs) at published sizes, W = 4,
+              bf16: smollm-360m with 16 seeded requests (prompts 32-256,
+              16-64 new tokens, 4 of them at temperature 0.8 / top-k 40) on
+              8 slots, then mamba2-2.7b with 8 requests (prompts 16-64, 16
+              new tokens, 2 sampled) on 4 slots, so slots are reused and
+              reset.  Holds (a) the captured engine's tokens bitwise equal
+              to the same engine with capture off, (b) host syncs == steps
+              and 2 graph captures, (c) in float32, four greedy requests
+              against per-token reference decoding (``lm.decode_step`` one
+              token at a time, teacher-forced with the engine's tokens): a
+              token may differ from the reference's argmax only where the
+              two logits lie within 1e-3, and each such token is printed.
+              Prints tokens/s, steps, ms per step, the LM-head launches per
+              step and one decode iteration's time, captured and eager.
+  7. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+              bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
+              fused kernels against the tensor-core baselines (held to 2e-2
+              of max |baseline|), each row's ms, speedup, comm-only ms and
+              bound.  Its ranks share one card, so the numbers are not the
+              paper's multi-GPU speedups.
+  8. kernels  every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m for the grouped expert GEMM, plus one random,
               non-monotone expert table with a row tile below capacity,
               mamba2-2.7b for the in/out projections, its LM head and the
               SSD intra-chunk kernel; the LM head at its prefill shape
-              [B x S, d] and its decode shape [B, d], at the width the path
-              stores), in float32 and bfloat16, and the fused kernels over
+              [B x S, d] and its decode shape [B, d], and for smollm-360m and
+              mamba2-2.7b the engine's forward [slots x 16, d] and decode
+              [slots, d], at the width the path stores), in float32 and bfloat16, and the fused kernels over
               every tile order x C in {1, 2} (float32, and bfloat16 with 20
               launches each held bitwise equal to the first, as is every
               bf16 LM-head, grouped-GEMM and flash-attention case; the bf16
@@ -58,11 +80,12 @@ non-zero (no phase catches its own failure):
               SSD kernel its staging path and persistent grid).  It runs
               after the serve phases: the profiler leaves host overhead
               behind.
-  7. summary  the launch counts of the three main paths, the per-kernel
+  9. summary  the launch counts of every path, the per-kernel
               JSON line, the card's power limit, and the last line
               ``{"ok": true, "device": {...}}``.
 
-Nothing is cut: the three models run at full depth and width.
+Nothing is cut: the three models run at full depth and width, the paper's
+MLPs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -73,7 +96,6 @@ from __future__ import annotations
 import argparse
 import json
 import re
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -87,15 +109,21 @@ ARCH_SSM = "mamba2-2.7b"
 WORLD, BATCH, PROMPT, NEW_TOKENS = 4, 4, 256, 16
 ITERS = 20  # timed launches per kernel case (after warm-up)
 REPEATS = 20  # launches of each bf16 fused order x C case, held bitwise equal
-# published dense peaks of the H100 SXM and its memory rate (bound_ms)
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
-MEM_BYTES_PER_S = 3.35e12
 # kernel vs plain: float32 agrees to summation order; bfloat16 outputs round
 # to 8 mantissa bits (2^-8 = 3.9e-3 relative) in both versions, plus the
 # plain version's bf16 pre-scale of q in attention
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # prefill logits, fused vs eager (float32): as tests/test_serving.py
 LOGIT_ATOL = LOGIT_RTOL = 2e-3
+# the engine phase's loads: requests, prompt and new-token ranges (uniform),
+# sampled requests (temperature 0.8, top-k 40), slots and max_len
+ENGINE = {
+    ARCH: dict(requests=16, prompt=(32, 256), new=(16, 64), sampled=4, slots=8, max_len=320),
+    ARCH_SSM: dict(requests=8, prompt=(16, 64), new=(16, 16), sampled=2, slots=4, max_len=80),
+}
+ENGINE_CHUNK = 16  # the engine's prefill chunk (ServeEngine's default)
+NEAR_TIE = 1e-3  # (c): a token may differ from the reference argmax only within this logit gap
+PAPER_WORLD = 8
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -122,14 +150,6 @@ SOURCES = {
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
 }
-
-
-def nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )  # fmt: skip
-    return res.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -167,12 +187,6 @@ def device_ms(fn, iters: int = 10) -> float:
     return total / iters / 1e3
 
 
-def bound(flops: float, nbytes: float, dtype_name: str):
-    t_ops = flops / PEAK_OPS[dtype_name]
-    t_mem = nbytes / MEM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
-
-
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -187,7 +201,9 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}; count {torch.cuda.device_count()}; torch {torch.__version__}; CUDA {torch.version.cuda}")
-    smi = nvidia_smi()
+    from repro_torch.benchmarks.common import card_line
+
+    smi = card_line()
     print(f"[device] nvidia-smi: {smi}")
     from repro_torch.backend import hw
 
@@ -238,6 +254,8 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     equal to the first."""
     import torch
 
+    from repro_torch.benchmarks.common import bound_ms
+
     out = kernel()
     info = launch() if launch is not None else None
     ref = plain()
@@ -262,7 +280,7 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
         rec["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
         rec["library_ms"] = cuda_ms(library, iters) if library is not None else None
         rec["library_device_ms"] = device_ms(library) if library is not None else None
-        rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, dn)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dtype)
         lib = "None" if library is None else f"{rec['library_ms']:.4f} (device {rec['library_device_ms']:.4f})"
         times = (
             f" ms {rec['ms']:.4f} (device {rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} library {lib} "
@@ -320,8 +338,9 @@ def ssm_shapes() -> dict:
 
 def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_only: bool) -> dict:
     """The LM head (``matmul``) at the prefill shape [B x S, d] and the decode
-    shape [B, d] against one head [d, vocab]; bf16 cases held bitwise over
-    REPEATS launches."""
+    shape [B, d], and for an arch of the engine phase at its captured
+    forward [slots x chunk, d] and decode iteration [slots, d], against one
+    head [d, vocab]; bf16 cases held bitwise over REPEATS launches."""
     import torch
 
     from repro_torch import kernels as K
@@ -329,7 +348,11 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
     isz = torch.tensor([], dtype=dtype).element_size()
     w = rnd(d, vocab, dtype=dtype) * 0.02
     recs = {}
-    for tag, rows in (("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)):
+    shapes = [("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)]
+    if arch in ENGINE:
+        slots = ENGINE[arch]["slots"]
+        shapes += [("lm_head_engine_forward", slots * ENGINE_CHUNK), ("lm_head_engine_decode", slots)]
+    for tag, rows in shapes:
         x = rnd(rows, d, dtype=dtype)
         recs[("matmul", arch, tag, dtype)] = _case(
             f"matmul[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
@@ -795,22 +818,180 @@ def phase_ssm(profile: bool = False):
     return {**result, **_main_path("ssm", cfg, pc, prompts, expect, profile, pc_eager, layer=True)}
 
 
+def _engine_requests(cfg, spec: dict, seed: int = 0) -> list:
+    """Seeded requests of the engine phase; every (requests / sampled)-th one
+    samples at temperature 0.8 / top-k 40, the rest are greedy."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    every = spec["requests"] // spec["sampled"]
+    reqs = []
+    for i in range(spec["requests"]):
+        n, m = (int(rng.integers(lo, hi + 1)) for lo, hi in (spec["prompt"], spec["new"]))
+        sampled = i % every == 1
+        reqs.append(Request(tokens=rng.integers(0, cfg.vocab_size, size=n), max_new_tokens=m,
+                            temperature=0.8 if sampled else 0.0, top_k=40 if sampled else 0, seed=i))  # fmt: skip
+    return reqs
+
+
+def _drain(cfg, pc, params, reqs, spec: dict, capture: bool):
+    """A new engine, every request submitted, drained; returns (engine,
+    tokens per request, wall seconds of the drain)."""
+    import torch
+
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(cfg, pc, params, max_len=spec["max_len"], n_slots=spec["slots"], prefill_chunk=ENGINE_CHUNK,
+                      capture=capture)
+    handles = [eng.submit(r) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.drain(handles)
+    wall = time.perf_counter() - t0
+    return eng, [outs[h].tolist() for h in handles], wall
+
+
+def _near_tie_check(tag: str, cfg, pc, params, reqs, toks, max_len: int) -> int:
+    """(c): teacher-force per-token reference decoding (``lm.decode_step`` one
+    token at a time, the requests side by side with per-row lengths) with the
+    engine's tokens; fail where an engine token is not the reference's argmax
+    and lies more than NEAR_TIE below it.  Returns the count of near ties."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev = pc.device
+    seqs = [[int(t) for t in r.tokens] + t for r, t in zip(reqs, toks)]
+    n, steps = len(seqs), max(map(len, seqs))
+    mat = torch.zeros((n, steps), dtype=torch.int64)
+    for i, sq in enumerate(seqs):
+        mat[i, : len(sq)] = torch.tensor(sq)
+    mat, lens = mat.to(dev), torch.tensor([len(sq) for sq in seqs], device=dev)
+    caches = lm.init_caches(cfg, pc, n, max_len, torch.float32)
+    gaps, preds = [], []
+    for t in range(steps - 1):
+        lg, _ = lm.decode_step(params, caches, cfg, pc, mat[:, t : t + 1], torch.full((n,), t, device=dev),
+                               q_valid=(lens > t).long())  # fmt: skip
+        row = lg[:, 0].float()
+        gaps.append(row.max(-1).values - row.gather(1, mat[:, t + 1 : t + 2])[:, 0])
+        preds.append(row.argmax(-1))
+    gaps, preds = torch.stack(gaps, 1).cpu(), torch.stack(preds, 1).cpu()  # column t predicts token t + 1
+    ties = 0
+    for i, (r, tk) in enumerate(zip(reqs, toks)):
+        for j, tok in enumerate(tk):
+            t = len(r.tokens) + j - 1
+            if int(preds[i, t]) != tok:
+                ties += 1
+                gap = float(gaps[i, t])
+                print(f"[engine] {tag}: request {i} token {j}: engine {tok}, reference argmax {int(preds[i, t])}, "
+                      f"logit gap {gap:.3e} (allowed below {NEAR_TIE:g})")  # fmt: skip
+                if not gap < NEAR_TIE:
+                    raise SystemExit(f"chip_smoke: {tag}: the f32 engine diverges from per-token decoding")
+    return ties
+
+
+def phase_engine(profile: bool = False) -> dict:
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+
+    out = {}
+    for arch, spec in ENGINE.items():
+        cfg, world, pc, _, _ = _setup(arch)
+        reqs = _engine_requests(cfg, spec)
+        params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+        K.reset_launch_counts()  # the captured engine's path: warm-up, capture and drain
+        eng, toks, wall = _drain(cfg, pc, params, reqs, spec, capture=True)
+        counts = K.launch_counts()
+        eager, toks_e, wall_e = _drain(cfg, pc, params, reqs, spec, capture=False)
+        st, st_e = eng.stats, eager.stats
+        n_tok = sum(map(len, toks))
+        per_step = st["launches"]["matmul"] / st["steps"]
+        dec_ms, dec_ms_e = cuda_ms(lambda: eng.run("decode"), ITERS), cuda_ms(lambda: eager.run("decode"), 5)
+        print(
+            f"[engine] bf16 {cfg.name} W={WORLD}: {len(reqs)} requests ({spec['sampled']} sampled), {n_tok} tokens on "
+            f"{spec['slots']} slots; captured {n_tok / wall:.1f} tokens/s, {st['steps']} steps, "
+            f"{wall * 1e3 / st['steps']:.2f} ms per step; eager {n_tok / wall_e:.1f} tokens/s, "
+            f"{wall_e * 1e3 / st_e['steps']:.2f} ms per step"
+        )
+        print(
+            f"[engine] {cfg.name}: one decode iteration ({spec['slots']} slots) captured {dec_ms:.3f} ms, eager "
+            f"{dec_ms_e:.3f} ms (CUDA events); LM-head launches per step {per_step:.2f} (graph replays "
+            f"{st['launches']['matmul']}); host syncs {st['host_syncs']}, graph captures {st['graph_captures']}, "
+            f"resets {st['resets']}; wrapper launch counts of the captured run {counts}"
+        )
+        if toks != toks_e:
+            raise SystemExit(f"chip_smoke: {cfg.name}: the captured engine's tokens differ from the eager engine's")
+        if [len(t) for t in toks] != [r.max_new_tokens for r in reqs] or not all(
+            0 <= x < cfg.vocab_size for t in toks for x in t
+        ):
+            raise SystemExit(f"chip_smoke: {cfg.name}: the engine's token counts or ids are wrong")
+        if not (st["host_syncs"] == st["steps"] == st_e["steps"] and st["graph_captures"] == 2 and counts["matmul"]):
+            raise SystemExit(f"chip_smoke: {cfg.name}: engine counters {st} / {st_e} break the contract")
+        print(f"[engine] {cfg.name}: captured tokens bitwise equal to eager; request 0: {toks[0][:16]}")
+        rec = {"tokens_per_s": n_tok / wall, "steps": st["steps"], "ms_per_step": wall * 1e3 / st["steps"],
+               "eager_tokens_per_s": n_tok / wall_e, "eager_ms_per_step": wall_e * 1e3 / st_e["steps"],
+               "decode_ms": dec_ms, "eager_decode_ms": dec_ms_e, "head_launches_per_step": per_step,
+               "head_graph_launches": st["launches"]["matmul"], "tokens": n_tok, "counts": counts}  # fmt: skip
+        if profile:  # one decode iteration of the drained engines (every slot dead: nothing a step reads changes)
+            rec["profile"] = _profile_windows(f"engine {cfg.name}", {
+                "captured decode iteration": lambda: eng.run("decode"),
+                "eager decode iteration": lambda: eager.run("decode"),
+            })  # fmt: skip
+        del eng, eager, params
+        torch.cuda.empty_cache()
+        # (c) float32: four greedy requests against per-token reference decoding
+        params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+        greedy = [r for r in reqs if r.temperature == 0][:4]
+        eng, toks, _ = _drain(cfg, pc, params, greedy, spec, capture=True)
+        rec["near_ties"] = _near_tie_check(f"f32 {cfg.name}", cfg, pc, params, greedy, toks, spec["max_len"])
+        print(f"[engine] f32 {cfg.name}: 4 greedy requests ({sum(map(len, toks))} tokens) match per-token decoding; "
+              f"{rec['near_ties']} near ties")  # fmt: skip
+        out[arch] = rec
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_paper() -> dict:
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_mlp
+
+    print(f"[paper] {paper_mlp.CAVEAT}")
+    K.reset_launch_counts()
+    rows = [paper_mlp.fig8_row(name, PAPER_WORLD) for name in ("MLP-1", "MLP-6")] + paper_mlp.tab2_rows(PAPER_WORLD)
+    counts = K.launch_counts()
+    for r in rows:
+        print(f"[paper] {paper_mlp.describe(r)}")
+    print(f"[paper] launch counts: {counts}")
+    if not (counts["ag_gemm"] and counts["gemm_rs"]):
+        raise SystemExit("chip_smoke: the paper phase did not run the fused kernels")
+    return {"rows": rows, "counts": counts}
+
+
 def _profile(params, cfg, pc, prompts, max_len):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
+    from repro_torch.models import lm
+
+    _, caches = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    tok = prompts[:, -1:]
+    return _profile_windows(cfg.name, {
+        "prefill": lambda: lm.prefill(params, cfg, pc, prompts, max_len=max_len),
+        "decode_step": lambda: lm.decode_step(params, caches, cfg, pc, tok, PROMPT),
+    })  # fmt: skip
+
+
+def _profile_windows(label: str, windows: dict) -> dict:
+    """Profile each window once: wall, device kernel time, idle share, top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import lm
-
     out = {}
-    _, caches = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
-    tok = prompts[:, -1:]
-    windows = {
-        "prefill": lambda: lm.prefill(params, cfg, pc, prompts, max_len=max_len),
-        "decode_step": lambda: lm.decode_step(params, caches, cfg, pc, tok, PROMPT),
-    }
     for name, fn in windows.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -826,18 +1007,19 @@ def _profile(params, cfg, pc, prompts, max_len):
         ]
         busy = sum(r[1] for r in rows)
         rows.sort(key=lambda r: -r[1])
-        print(f"[profile] {cfg.name} {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
-              f"(idle share {max(0.0, 1 - busy / wall_us):.3f})")  # fmt: skip
+        print(f"[profile] {label} {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall_us):.3f}; {sum(r[2] for r in rows)} kernels)")  # fmt: skip
         for key, t, n in rows[:8]:
             print(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
-        out[name] = {"wall_us": wall_us, "kernel_us": busy, "top": rows[:8]}
+        out[name] = {"wall_us": wall_us, "kernel_us": busy, "kernels": sum(r[2] for r in rows), "top": rows[:8]}
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--json", default=None, help="also write every measured record to this file")
-    ap.add_argument("--profile", action="store_true", help="device time by kernel for one prefill / decode step")
+    ap.add_argument("--profile", action="store_true",
+                    help="device time by kernel for one prefill / decode step and one engine decode iteration")
     args = ap.parse_args(argv)
 
     import torch
@@ -850,10 +1032,14 @@ def main(argv=None) -> int:
     out["serve"] = phase_serve(args.profile)
     out["moe"] = phase_moe(args.profile)
     out["ssm"] = phase_ssm(args.profile)
+    out["engine"] = phase_engine(args.profile)
+    out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
     # that would slow the host-bound prefill and decode of the phases above
     recs = phase_kernels(ITERS)
     by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_SSM: out["ssm"]["counts"]}
+    by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
+    by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
     bf16, f32 = torch.bfloat16, torch.float32
@@ -869,6 +1055,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"], "shape": r["case"], "dtype": r["dtype"], "launch": r.get("launch"),
             "launches_by_path": {arch: c[name] for arch, c in by_path.items()},
+            # device launches by the engine's graph replays (the wrapper counts host calls only)
+            "graph_launches": sum(r["head_graph_launches"] for r in out["engine"].values()) if name == "matmul" else 0,
         })  # fmt: skip
     if args.json:
         out["cases"] = [r for r in recs.values()]

@@ -1,0 +1,66 @@
+"""Measurement helpers of the port's benchmarks and ``chip_smoke.py``:
+CUDA-event timing, roofline bounds, the card's name and power limit.
+
+Bounds use the H100 SXM's published dense peaks (NVIDIA's data sheet).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import statistics
+import subprocess
+from typing import Callable, List, Tuple
+
+import torch
+
+__all__ = ["event_ms", "bound_ms", "card_line", "fp32_reductions", "PEAK_OPS", "MEM_BYTES_PER_S"]
+
+# published dense peaks of one H100 SXM, by dtype, and its memory rate
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+MEM_BYTES_PER_S = 3.35e12
+
+
+@contextlib.contextmanager
+def fp32_reductions():
+    """Inside, bf16 GEMMs keep float32 sums: PyTorch's reduced-precision
+    (split-K in bf16) reductions are off, as the baselines' semantics need."""
+    matmul = torch.backends.cuda.matmul
+    flag = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def event_ms(fn: Callable[[], object], iters: int, warmup: int = 3) -> Tuple[float, List[float]]:
+    """Median and all per-call times (ms) of ``fn`` over ``iters`` calls, each
+    between two CUDA events, after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times), times
+
+
+def bound_ms(flops: float, nbytes: float, dtype: torch.dtype) -> Tuple[float, str]:
+    """The least time the card could take: the larger of the operations over
+    the peak rate for their type and the bytes over the memory rate."""
+    t_ops, t_mem = flops / PEAK_OPS[dtype], nbytes / MEM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )  # fmt: skip
+    return res.stdout.strip().splitlines()[0]

@@ -202,12 +202,31 @@ def ag_matmul(
     return run_plan(plan, world, gemm_tile, state=chunks, carry=out)
 
 
+def _baseline_dot(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The baselines' GEMM per rank, ``x [W, *lead, m, k] @ w [W, k, n]``:
+    operands in their own dtype, float32 accumulation, the product rounded
+    once to ``out_dtype`` (the JAX package's ``_dot`` with
+    ``preferred_element_type=float32``, ``src/repro/core/overlap.py:349``).
+
+    On the card a bf16 / fp16 operand pair runs one tensor-core GEMM
+    (``torch.bmm``, with ``out_dtype=float32`` where the output stays
+    float32), not an upcast into a float32 GEMM; the caller keeps
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off so the sums stay float32.  Elsewhere (float32, or the CPU) the
+    product is formed in float32 and cast.
+    """
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
+        a = x.reshape(x.shape[0], -1, x.shape[-1])  # leading dims folded into the rows
+        out = torch.bmm(a, w) if out_dtype == x.dtype else torch.bmm(a, w, out_dtype=torch.float32).to(out_dtype)
+        return out.reshape(x.shape[:-1] + (w.shape[-1],))
+    return torch.matmul(x.float(), _rank_weight(w, x.dim() - 3).float()).to(out_dtype)
+
+
 def ag_matmul_baseline(x, w, *, world: World, out_dtype=None, channel=None):
     """Non-overlapping reference: gather the rows, then one GEMM per rank."""
     _check_ranked(x, w, world, "ag_matmul_baseline")
     out_dtype = out_dtype or x.dtype
-    xg = world.all_gather(x, dim=x.dim() - 3)
-    return torch.matmul(xg.float(), _rank_weight(w, x.dim() - 3).float()).to(out_dtype)
+    return _baseline_dot(world.all_gather(x, dim=x.dim() - 3), w, out_dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -253,5 +272,5 @@ def matmul_rs_baseline(x, w, *, world: World, out_dtype=None, channel=None):
     """Non-overlapping reference: one GEMM per rank, then reduce-scatter."""
     _check_ranked(x, w, world, "matmul_rs_baseline")
     out_dtype = out_dtype or x.dtype
-    part = torch.matmul(x.float(), _rank_weight(w, x.dim() - 3).float())
+    part = _baseline_dot(x, w, torch.float32)  # float32 partials into the reduction
     return world.reduce_scatter(part, dim=part.dim() - 3).to(out_dtype)

@@ -15,6 +15,12 @@ store.  Two routes, chosen by dtype before the launch (never by a fallback):
 ``matmul.last_launch`` says which route the last launch took, its grid and
 its item count.  On the model path the standalone entry computes the LM head
 (``lm.logits``).
+
+``matmul.launches`` counts host calls that launch the kernel.  A call made
+while a CUDA graph captures counts once, and the graph's replays do not
+count: the serving engine (``serving/engine.py``) records each graph's
+launches at capture and reports the launches of its replays itself
+(``ServeEngine.stats["launches"]``).
 """
 
 from __future__ import annotations

@@ -1,12 +1,16 @@
-"""Serve entry point: seeded prompts, ``lm.prefill``, then a greedy ``decode_step`` loop.
+"""Serve entry point: seeded requests through the continuous-batching engine.
 
-The port of ``repro/launch/serve.py`` for a fixed batch of requests (the
-continuous-batching engine, scheduler, slot pool and sampling are later
-work).  Example, on the card (``--arch smollm-360m``,
-``granite-moe-3b-a800m`` or ``mamba2-2.7b``):
+The port of ``repro/launch/serve.py``.  ``main`` / :func:`serve` submit
+``--batch`` seeded requests to ``serving.ServeEngine`` (``--slots``,
+``--decode-block``, per-request ``--temperature`` / ``--top-k`` /
+``--eos-id``) and drain it: on the card one captured step per iteration
+with one host sync.  :func:`greedy` is the fixed-batch path, ``lm.prefill``
+(the fused kernels on the card) then a greedy ``decode_step`` loop.
+Example, on the card (``--arch smollm-360m``, ``granite-moe-3b-a800m`` or
+``mamba2-2.7b``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
-      --batch 4 --prompt-len 256 --new-tokens 16 --world 4 --dtype bf16
+      --batch 16 --prompt-len 256 --new-tokens 16 --slots 8 --world 4 --dtype bf16
 
 Add ``--device cpu --reduce`` for a small run on the CPU.
 """
@@ -24,6 +28,7 @@ from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
+from repro_torch.serving import Request, ServeEngine
 
 __all__ = ["greedy", "serve", "make_prompts", "main"]
 
@@ -78,11 +83,17 @@ def serve(
     device=None,
     seed: int = 0,
     reduce: bool = False,
+    slots: int = 8,
+    decode_block: int = 32,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    eos_id: Optional[int] = None,
 ) -> dict:
-    """Build a seeded model, serve ``batch`` greedy requests, report the run.
-
-    The backend follows the device: the fused kernels on CUDA, the eager
-    executor on the CPU."""
+    """Build a seeded model and serve ``batch`` requests through the
+    continuous-batching engine (``serving.ServeEngine``: a captured step on
+    the card, the same step eagerly on the CPU).  Request i samples with
+    seed ``seed + i``.  Returns the tokens [batch, new_tokens] (-1 after an
+    eos), the wall time of the drain and the engine's counters."""
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
@@ -90,16 +101,33 @@ def serve(
     pc = ParallelContext(world=w)
     gen = torch.Generator(device=w.device).manual_seed(seed)
     params = lm.init(cfg, w, gen, DTYPES[dtype])
-    prompts = torch.from_numpy(make_prompts(cfg.vocab_size, batch, prompt_len, seed)).to(w.device)
-    tokens, t = greedy(params, cfg, pc, prompts, new_tokens)
+    prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
+    eng = ServeEngine(cfg, pc, params, max_len=prompt_len + new_tokens, temperature=temperature, n_slots=slots,
+                      decode_block=decode_block)
+    handles = [
+        eng.submit(Request(tokens=p, max_new_tokens=new_tokens, temperature=temperature, top_k=top_k, eos_id=eos_id,
+                           seed=seed + i))
+        for i, p in enumerate(prompts)
+    ]  # fmt: skip
+    _sync(w.device)
+    t0 = time.perf_counter()
+    outs = eng.drain(handles)
+    seconds = time.perf_counter() - t0
+    tokens = np.full((batch, new_tokens), -1, np.int64)
+    for i, h in enumerate(handles):
+        tokens[i, : len(outs[h])] = outs[h]
+    n_tok = sum(len(outs[h]) for h in handles)
     name = torch.cuda.get_device_name(w.device) if w.device.type == "cuda" else "cpu"
     return {
-        "tokens": tokens.cpu().numpy(),
+        "tokens": tokens,
         "device": name,
         "backend": pc.backend,
-        "prefill_ms": t["prefill_s"] * 1e3,
-        "decode_tokens_per_s": batch * t["decode_steps"] / t["decode_s"] if t["decode_steps"] else float("nan"),
-        **t,
+        "seconds": seconds,
+        "generated": n_tok,
+        "tokens_per_s": n_tok / seconds,
+        "steps": eng.stats["steps"],
+        "host_syncs": eng.stats["host_syncs"],
+        "graph_captures": eng.stats["graph_captures"],
     }
 
 
@@ -107,22 +135,28 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True, help="smollm-360m, granite-moe-3b-a800m or mamba2-2.7b")
     ap.add_argument("--reduce", action="store_true", help="reduced same-family config (CPU runs)")
-    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=4, help="requests submitted")
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (emulated on one device)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--slots", type=int, default=8, help="engine batch slots")
+    ap.add_argument("--decode-block", type=int, default=32, help="tokens decoded per engine step")
+    ap.add_argument("--temperature", type=float, default=0.0, help="<= 0: greedy")
+    ap.add_argument("--top-k", type=int, default=0, help="0: no truncation")
+    ap.add_argument("--eos-id", type=int, default=None)
     args = ap.parse_args(argv)
     r = serve(
         args.arch, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, world=args.world,
-        dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce,
+        dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce, slots=args.slots,
+        decode_block=args.decode_block, temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
     )  # fmt: skip
     print(
-        f"device {r['device']} backend {r['backend']}: prefill {r['prefill_ms']:.2f} ms "
-        f"({args.batch} x {args.prompt_len} tokens), decode {r['decode_tokens_per_s']:.1f} tokens/s "
-        f"({r['decode_steps']} steps x {args.batch})"
+        f"device {r['device']} backend {r['backend']}: {r['generated']} tokens for {args.batch} requests of "
+        f"{args.prompt_len} prompt tokens in {r['seconds'] * 1e3:.2f} ms, {r['tokens_per_s']:.1f} tokens/s; "
+        f"{r['steps']} steps, {r['host_syncs']} host syncs, {r['graph_captures']} graph captures"
     )
     print("sample:", r["tokens"][0].tolist())
     return r

@@ -206,12 +206,21 @@ def apply_decode(
     # attention still needed is not overwritten first)
     slots = torch.remainder(pos, cache_size) if ring else pos
     kt, vt = k.permute(1, 2, 0, 3, 4), v.permute(1, 2, 0, 3, 4)  # [B, C, W, kv_loc, hd]
+    bi = torch.arange(b, device=dev)[:, None].expand(b, c)
     if nv is None:
-        bi = torch.arange(b, device=dev)[:, None].expand(b, c)
         cache["k"][:, bi, :, slots] = kt.to(cache["k"].dtype)
         cache["v"][:, bi, :, slots] = vt.to(cache["v"].dtype)
     else:
-        bi, ii = torch.nonzero(qi[None, :] < nv[:, None], as_tuple=True)
-        cache["k"][:, bi, :, slots[bi, ii]] = kt[bi, ii].to(cache["k"].dtype)
-        cache["v"][:, bi, :, slots[bi, ii]] = vt[bi, ii].to(cache["v"].dtype)
+        # a fixed-shape write with no host sync (a CUDA graph can capture
+        # it): rows past q_valid write back what their slot holds.  Slots
+        # taken mod the cache size stay in bounds, and the C rows of one
+        # slot land on C distinct cache rows (C <= cache size), so a masked
+        # row never shares a cache row with a real one.
+        if c > cache_size:
+            raise ValueError(f"decode chunk C={c} exceeds the cache size {cache_size}")
+        slots = torch.remainder(pos, cache_size)
+        keep = (qi[None, :] < nv[:, None])[:, :, None, None, None]  # [B, C, 1, 1, 1]
+        for name, new in (("k", kt), ("v", vt)):
+            old = cache[name][:, bi, :, slots]
+            cache[name][:, bi, :, slots] = torch.where(keep, new.to(old.dtype), old)
     return x + out, cache

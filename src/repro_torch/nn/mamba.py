@@ -196,7 +196,8 @@ def apply_decode_chunk(params: dict, x: torch.Tensor, cache: dict, pc, cfg, q_va
     how many of the C rows are real per slot: a masked step leaves that
     slot's SSM and conv state as they were (a stale recurrent state would
     poison every later token).  Returns (x_out [B, C, D], cache), the cache
-    dict updated in place (its entries replaced by the new states).
+    tensors updated in place (copied into, so a CUDA graph that captured
+    them sees the new state).
     """
     b, c, _ = x.shape
     nv = None if q_valid is None else torch.as_tensor(q_valid, dtype=torch.int64, device=x.device).expand(b)
@@ -209,5 +210,6 @@ def apply_decode_chunk(params: dict, x: torch.Tensor, cache: dict, pc, cfg, q_va
             new = {k: torch.where(ok.view((1, b) + (1,) * (v.dim() - 2)), v, state[k]) for k, v in new.items()}
         state = new
         ys.append(y)
-    cache.update(state)
+    cache["ssm"].copy_(state["ssm"])
+    cache["conv"].copy_(state["conv"])
     return torch.cat(ys, dim=1), cache

@@ -1,4 +1,6 @@
-"""The Hopper kernels against their plain versions, on the card.
+"""The Hopper kernels against their plain versions, on the card; the
+serving engine's captured step against the same step run eagerly; the
+paper's TP-MLP (fused kernels) against its tensor-core baselines.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -18,13 +20,16 @@ versions round outputs to bf16).
 import importlib
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels as K
 from repro_torch.backend.mesh import World
+from repro_torch.benchmarks import paper_mlp
+from repro_torch.benchmarks.common import fp32_reductions
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.core import BlockChannel, CommSpec, CompSpec
+from repro_torch.core import BlockChannel, CommSpec, CompSpec, compile_overlap
 from repro_torch.kernels import build
 from repro_torch.kernels import mamba_ssd
 from repro_torch.kernels.ag_gemm import launch_items as ag_items
@@ -32,6 +37,7 @@ from repro_torch.kernels.gemm_rs import launch_items as rs_items
 from repro_torch.kernels.grouped_matmul import work_items as gemm_items
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
+from repro_torch.serving import Request, ServeEngine
 
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")  # the module; the package exports the function
 pytestmark = pytest.mark.cuda
@@ -430,3 +436,99 @@ def test_fused_mamba_prefill_matches_eager_on_card(dev):
     for a, b in zip(cf, ce):
         torch.testing.assert_close(a["ssm"], b["ssm"], atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(a["conv"], b["conv"], atol=1e-4, rtol=1e-4)
+
+
+# ---- the serving engine: captured step against the same step run eagerly ----
+
+
+def _engine_requests(vocab, n, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        Request(tokens=rng.integers(0, vocab, size=int(rng.integers(3, 21))), max_new_tokens=int(rng.integers(2, 10)),
+                temperature=0.8 if i % 3 == 1 else 0.0, top_k=8 if i % 3 == 1 else 0, seed=100 + i)
+        for i in range(n)
+    ]  # fmt: skip
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "mamba2-2.7b"])
+def test_captured_engine_matches_eager_engine_bitwise(dev, arch, dtype):
+    """Reduced configs: the two captured graphs give the eager step's tokens
+    bit for bit (greedy and sampled requests, slots reused), with 2 captures
+    for the engine's lifetime and one host sync per step."""
+    cfg = reduce_config(get_config(arch))
+    world = World(4, dev)
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), dtype)
+    reqs = _engine_requests(cfg.vocab_size, 7, seed=1)
+    outs, engines = {}, {}
+    for capture in (True, False):
+        eng = ServeEngine(cfg, pc, params, max_len=32, n_slots=3, prefill_chunk=8, decode_block=6, capture=capture)
+        handles = [eng.submit(r) for r in reqs]
+        outs[capture] = [eng.drain()[h].tolist() for h in handles]
+        engines[capture] = eng
+    assert outs[True] == outs[False]
+    assert [len(o) for o in outs[True]] == [r.max_new_tokens for r in reqs]
+    cap, eager = engines[True], engines[False]
+    assert cap.stats["graph_captures"] == 2 and eager.stats["graph_captures"] == 0
+    for eng in (cap, eager):
+        assert eng.stats["host_syncs"] == eng.stats["steps"] > 0
+    # the LM head: one launch per forward and per decode iteration, counted by
+    # the wrapper on the eager engine and by the engine's replays when captured
+    assert cap.stats["launches"]["matmul"] == eager.stats["launches"]["matmul"] > cap.stats["steps"]
+
+
+def test_captured_engine_matches_per_token_decoding(dev):
+    """float32, greedy: the captured engine's tokens against ``lm.decode_step``
+    one token at a time (the reduced smollm-360m)."""
+    cfg = reduce_config(get_config("smollm-360m"))
+    world = World(4, dev)
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    reqs = [r for r in _engine_requests(cfg.vocab_size, 6, seed=2) if r.temperature == 0]
+    eng = ServeEngine(cfg, pc, params, max_len=32, n_slots=2, prefill_chunk=8, decode_block=6)
+    handles = [eng.submit(r) for r in reqs]
+    outs = eng.drain()
+    for r, h in zip(reqs, handles):
+        caches = lm.init_caches(cfg, pc, 1, 32, torch.float32)
+        seq = list(r.tokens) + outs[h].tolist()
+        for t in range(len(seq) - 1):
+            lg, caches = lm.decode_step(params, caches, cfg, pc, torch.tensor([[seq[t]]], device=dev), t)
+            if t >= len(r.tokens) - 1:
+                row = lg[0, 0]
+                assert row.max().item() - row[seq[t + 1]].item() < 1e-3  # the argmax, or a near tie
+
+
+# ---- the paper's TP-MLP: fused against the tensor-core baselines -----------
+
+
+@pytest.mark.parametrize("world_size", [4, 8])
+def test_paper_mlp_fused_matches_baseline(dev, world_size):
+    """A reduced paper shape (S 1024, H 512, I 1408) in bf16: Fig. 8's
+    full_mlp and Tab. 2's cases, each against its non-overlap result."""
+    world = World(world_size, dev)
+    x, w1, w2 = paper_mlp.mlp_operands(world, 1024, 512, 1408, torch.bfloat16)
+    xr = _rand(dev, torch.bfloat16, world_size, 1024, 1408 // world_size, seed=3)
+    fns = paper_mlp.tab2_fns(world)
+    with fp32_reductions():
+        K.reset_launch_counts()
+        out = paper_mlp.full_mlp("overlap", world)(x, w1, w2)
+        assert K.launch_counts()["ag_gemm"] == 1 and K.launch_counts()["gemm_rs"] == 1
+        _close(out, paper_mlp.full_mlp("non-overlap", world)(x, w1, w2), torch.bfloat16)
+        for case, fn in fns.items():
+            a, b = (x, w1[..., : 1408 // world_size].contiguous()) if case.startswith("AG") else (xr, w2)
+            _close(fn(a, b), fns[case.split("/")[0] + "/non-overlap"](a, b), torch.bfloat16)
+
+
+def test_bf16_baselines_run_on_tensor_cores_against_f32(dev):
+    """bf16 operands, float32 accumulation (float32 partials before the
+    reduce), one rounding: within 2e-2 of the float32 baseline's max."""
+    world = World(4, dev)
+    ch = BlockChannel(axis="model")
+    for kind, xs, ws in (("ag_matmul", (4, 2, 48, 256), (4, 256, 136)), ("matmul_rs", (4, 2, 192, 96), (4, 96, 264))):
+        x, w = _rand(dev, torch.bfloat16, *xs, seed=4), _rand(dev, torch.bfloat16, *ws, scale=0.1, seed=5)
+        fn = compile_overlap(kind, ch, world=world, overlapped=False)
+        with fp32_reductions():
+            out = fn(x, w)
+        assert out.dtype == torch.bfloat16
+        _close(out, fn(x.float(), w.float()), torch.bfloat16)
