@@ -29,13 +29,27 @@ non-zero (no phase catches its own failure):
               the batch rows whose routing agreed in every layer); (c) the
               main path in bfloat16 through ``serve.greedy``, with its
               launch counts held exactly.
-  5. ssm      mamba2-2.7b at its published size with seeded weights:
+  5. deepseek deepseek-moe-16b at its published width with seeded weights
+              (a dense first layer, then MoE layers of 64 experts top-6 with
+              2 shared experts): (a) one MoE layer with its shared MLP,
+              fused against eager in float32 (routing identical, launches
+              held); (b) the float32 prefill at DS_F32_LAYERS = 4 layers
+              (the dense one + 3 MoE: float32 weights of all 28 would take
+              ~66 GB), fused against eager, held before each row's first
+              routing flip as in (4b); (c) at those 4 layers, one float32
+              decode step with ``moe_decode_stream`` against the gathered
+              decode; (d) the main path in bfloat16 at full depth through
+              ``serve.greedy`` with the streamed decode, launch counts held
+              exactly; (e) the engine at full depth, streamed decode in its
+              graphs (8 requests, prompts 32-256, 16-32 new tokens, 2
+              sampled, on 4 slots), held as in (6a, b).
+  6. ssm      mamba2-2.7b at its published size with seeded weights:
               (a) one Mamba layer, fused against eager in float32, and in
               bfloat16 fused against float32 eager from the same bf16
               weights; (b) the float32 prefill, fused against eager, every
               position's logits; (c) the main path in bfloat16 through
               ``serve.greedy``, with its launch counts held exactly.
-  6. engine   the continuous-batching engine (``serving.ServeEngine``, its
+  7. engine   the continuous-batching engine (``serving.ServeEngine``, its
               step captured in two CUDA graphs) at published sizes, W = 4,
               bf16: smollm-360m with 16 seeded requests (prompts 32-256,
               16-64 new tokens, 4 of them at temperature 0.8 / top-k 40) on
@@ -50,17 +64,25 @@ non-zero (no phase catches its own failure):
               two logits lie within 1e-3, and each such token is printed.
               Prints tokens/s, steps, ms per step, the LM-head launches per
               step and one decode iteration's time, captured and eager.
-  7. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  8. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
-              bound.  Its ranks share one card, so the numbers are not the
-              paper's multi-GPU speedups.
-  8. kernels  every kernel against its plain PyTorch version at the shapes
+              bound; and the paper's TP-MoE (``benchmarks/paper_moe.py``),
+              Fig. 9 at MoE-1 and MoE-6, ``ag_moe`` on the grouped kernel
+              against ``ag_moe_baseline`` on tensor-core GEMMs, the same
+              way, with peak memory, row tile and grouped launches.  Its
+              ranks share one card, so the numbers are not the paper's
+              multi-GPU speedups.
+  9. kernels  every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
-              3b-a800m for the grouped expert GEMM, plus one random,
-              non-monotone expert table with a row tile below capacity,
+              3b-a800m and deepseek-moe-16b for the grouped expert GEMM
+              (deepseek also its dense-layer and shared-expert projections,
+              flash attention at D 128 and its [1024, 2048] x [2048, 102400]
+              LM head), each with one random, non-monotone expert table
+              with a row tile below capacity, Fig. 9's MoE-6 grouped GEMM
+              (W = 8, row tile 104),
               mamba2-2.7b for the in/out projections, its LM head and the
               SSD intra-chunk kernel; the LM head at its prefill shape
               [B x S, d] and its decode shape [B, d], and for smollm-360m and
@@ -80,12 +102,13 @@ non-zero (no phase catches its own failure):
               SSD kernel its staging path and persistent grid).  It runs
               after the serve phases: the profiler leaves host overhead
               behind.
-  9. summary  the launch counts of every path, the per-kernel
-              JSON line, the card's power limit, and the last line
-              ``{"ok": true, "device": {...}}``.
+  10. summary the launch counts of every path, the script's wall time,
+              the per-kernel JSON line, the card's power limit, and the
+              last line ``{"ok": true, "device": {...}}``.
 
-Nothing is cut: the three models run at full depth and width, the paper's
-MLPs at their published shapes.
+One cut: deepseek-moe-16b's float32 checks run 4 of its 28 layers.  Every
+other path runs at full depth and width, the paper's MLPs and MoEs at their
+published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -105,6 +128,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "smollm-360m"
 ARCH_MOE = "granite-moe-3b-a800m"
+ARCH_DS = "deepseek-moe-16b"
 ARCH_SSM = "mamba2-2.7b"
 WORLD, BATCH, PROMPT, NEW_TOKENS = 4, 4, 256, 16
 ITERS = 20  # timed launches per kernel case (after warm-up)
@@ -121,9 +145,16 @@ ENGINE = {
     ARCH: dict(requests=16, prompt=(32, 256), new=(16, 64), sampled=4, slots=8, max_len=320),
     ARCH_SSM: dict(requests=8, prompt=(16, 64), new=(16, 16), sampled=2, slots=4, max_len=80),
 }
+# deepseek-moe-16b's engine load (its phase, with the streamed MoE decode):
+# 8 requests on 4 slots, 2 sampled
+ENGINE_DS = dict(requests=8, prompt=(32, 256), new=(16, 32), sampled=2, slots=4, max_len=288)
+# the depth of deepseek-moe-16b's float32 checks: the dense first layer and
+# 3 MoE layers at full width (float32 weights of all 28 layers take ~66 GB)
+DS_F32_LAYERS = 4
 ENGINE_CHUNK = 16  # the engine's prefill chunk (ServeEngine's default)
 NEAR_TIE = 1e-3  # (c): a token may differ from the reference argmax only within this logit gap
 PAPER_WORLD = 8
+PAPER_MOE_ROWS = ("MoE-1", "MoE-6")  # Fig. 9's rows in the paper phase (W = 8)
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -316,9 +347,14 @@ def path_shapes(arch: str) -> dict:
     if cfg.moe is None:
         shp.update(n_gu=2 * cfg.d_ff // WORLD, f_loc=cfg.d_ff // WORLD)
     else:  # one ring step's expert groups: B x cap rows per (rank, expert), C = 1
-        e_total = -(-cfg.moe.num_experts // WORLD) * WORLD
-        cap = _capacity(PROMPT // WORLD, cfg.moe.top_k, e_total, cfg.moe.capacity_factor)
-        shp.update(e_loc=e_total // WORLD, cap=cap, fe=cfg.moe.d_expert)
+        m = cfg.moe
+        e_total = -(-m.num_experts // WORLD) * WORLD
+        cap = _capacity(PROMPT // WORLD, m.top_k, e_total, m.capacity_factor)
+        shp.update(e_loc=e_total // WORLD, cap=cap, fe=m.d_expert)
+        if m.first_k_dense:  # the dense first layers' MLP
+            shp.update(n_gu=2 * m.dense_d_ff // WORLD, f_loc=m.dense_d_ff // WORLD)
+        if m.num_shared:  # the shared experts' MLP
+            shp.update(n_sgu=2 * m.num_shared * m.d_expert // WORLD, sf_loc=m.num_shared * m.d_expert // WORLD)
     return shp
 
 
@@ -349,8 +385,9 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
     w = rnd(d, vocab, dtype=dtype) * 0.02
     recs = {}
     shapes = [("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)]
-    if arch in ENGINE:
-        slots = ENGINE[arch]["slots"]
+    engine = {**ENGINE, ARCH_DS: ENGINE_DS}
+    if arch in engine:
+        slots = engine[arch]["slots"]
         shapes += [("lm_head_engine_forward", slots * ENGINE_CHUNK), ("lm_head_engine_decode", slots)]
     for tag, rows in shapes:
         x = rnd(rows, d, dtype=dtype)
@@ -421,6 +458,36 @@ def _ssm_kernels(rnd, iters: int) -> dict:
     return recs
 
 
+def _paper_moe_kernels(rnd, iters: int) -> dict:
+    """The grouped GEMM at Fig. 9's MoE-6 (W = 8, bf16, the paper phase's
+    shape): one ring step's 8 x 4 groups of ``cap`` = 208 rows, row tile 104."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_moe
+    from repro_torch.configs.paper import PAPER_MOE
+    from repro_torch.kernels.grouped_matmul import group_tile_table
+
+    s, h, i, e, k = PAPER_MOE["MoE-6"]
+    cap, bm = paper_moe.row_tile(PAPER_WORLD, s, k, e)
+    groups, dtype = e, torch.bfloat16  # W ranks x E / W experts
+    table = group_tile_table(groups, cap, torch.device("cuda", 0))
+    recs = {}
+    for tag, kk, n, out_dt in (("gate_up", h, 2 * i, torch.float32), ("down", i, h, dtype)):
+        x, w = rnd(groups * cap, kk, dtype=dtype), rnd(groups, kk, n, dtype=dtype) * kk**-0.5
+        osz = torch.tensor([], dtype=out_dt).element_size()
+        recs[("grouped_matmul", "paper MoE-6", tag, dtype)] = _case(
+            f"grouped_matmul[paper MoE-6 W={PAPER_WORLD} {tag}, bm {bm}] x{list(x.shape)} w{list(w.shape)} -> "
+            f"{str(out_dt)[6:]}", dtype,
+            lambda: K.grouped_matmul(x, w, table, out_dtype=out_dt), lambda: K.grouped_matmul_plain(x, w, table, out_dt),
+            lambda: torch.bmm(x.view(groups, cap, kk), w),
+            2 * x.shape[0] * kk * n, 2 * (x.numel() + w.numel()) + osz * x.shape[0] * n, iters, False,
+            lambda: K.grouped_matmul.last_launch, bitwise=True,
+        )  # fmt: skip
+        del x, w
+    return recs
+
+
 def phase_kernels(iters: int):
     import torch
     import torch.nn.functional as F
@@ -443,11 +510,11 @@ def phase_kernels(iters: int):
         it = iters if dtype == torch.bfloat16 else 2
         check_only = dtype != torch.bfloat16  # times are taken in the serving dtype
         isz = torch.tensor([], dtype=dtype).element_size()
-        for arch in (ARCH, ARCH_MOE):
+        for arch in (ARCH, ARCH_MOE, ARCH_DS):
             shp = path_shapes(arch)
             d, hd = shp["d"], shp["hd"]
-            # --- ag_gemm: qkv (and the dense gate/up) projections
-            for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp.get("n_gu"))):
+            # --- ag_gemm: qkv (and the dense / shared-expert gate/up) projections
+            for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp.get("n_gu")), ("shared_gate_up", shp.get("n_sgu"))):
                 if n is None:
                     continue
                 x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n, dtype=dtype) * d**-0.5
@@ -459,8 +526,8 @@ def phase_kernels(iters: int):
                     2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), it, check_only,
                     lambda: K.ag_gemm.last_launch,
                 )  # fmt: skip
-            # --- gemm_rs: attention out-projection (and the dense down projection)
-            for tag, k in (("o_proj", shp["n_o"]), ("down", shp.get("f_loc"))):
+            # --- gemm_rs: attention out-projection (and the dense / shared-expert down projection)
+            for tag, k in (("o_proj", shp["n_o"]), ("down", shp.get("f_loc")), ("shared_down", shp.get("sf_loc"))):
                 if k is None:
                     continue
                 x, w = rnd(W, B, S, k, dtype=dtype), rnd(W, k, d, dtype=dtype) * (W * k) ** -0.5
@@ -523,6 +590,7 @@ def phase_kernels(iters: int):
             )  # fmt: skip
             del x, w
 
+    recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
     # --- every order x C in {1, 2} through both fused kernels at the smollm
     # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
@@ -609,10 +677,11 @@ def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool) -> d
     return out
 
 
-def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager=None, layer=False) -> dict:
-    """The bfloat16 main path: seeded weights, a warm-up greedy run, then the
-    run whose launch counts (set to 0 just before it) must equal ``expect``;
-    then (``pc_eager``) the bf16 path against f32 eager on the same weights."""
+def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager=None, layer=False, params=None) -> dict:
+    """The bfloat16 main path: seeded weights (or ``params``), a warm-up
+    greedy run, then the run whose launch counts (set to 0 just before it)
+    must equal ``expect``; then (``pc_eager``) the bf16 path against f32
+    eager on the same weights."""
     import torch
 
     from repro_torch import kernels as K
@@ -620,7 +689,8 @@ def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager
     from repro_torch.models import lm
 
     max_len = PROMPT + NEW_TOKENS
-    params = lm.init(cfg, pc.world, torch.Generator(device=pc.device).manual_seed(0), torch.bfloat16)
+    if params is None:
+        params = lm.init(cfg, pc.world, torch.Generator(device=pc.device).manual_seed(0), torch.bfloat16)
     warm, _ = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -705,6 +775,45 @@ def _record_routing():
     return calls, lambda: setattr(moe, "moe_router", router)
 
 
+def _hold_prefill_before_flips(tag: str, cfg, params, pc, pc_eager, prompts) -> dict:
+    """The float32 prefill, fused against eager, with every MoE layer's routing
+    recorded: a token whose expert set differs in some layer changes itself
+    and the positions after it in its batch row (causal attention, capacity
+    slots), so the positions before a row's first flip are held to the bound."""
+    import torch
+
+    from repro_torch.models import lm
+
+    dev, max_len = pc.device, PROMPT + NEW_TOKENS
+    calls, restore = _record_routing()
+    try:
+        lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+        routing_f = list(calls)
+        calls.clear()
+        lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
+        routing_e = list(calls)
+    finally:
+        restore()
+    first = torch.full((BATCH,), PROMPT, device=dev)
+    flips = []
+    for rf, re_ in zip(routing_f, routing_e):
+        differ = (rf != re_).any(-1).permute(1, 0, 2).reshape(BATCH, PROMPT)  # [B, S] (rank-major positions)
+        flips.append(int(differ.sum()))
+        pos = torch.where(differ, torch.arange(PROMPT, device=dev), PROMPT)
+        first = torch.minimum(first, pos.min(-1).values)
+    decisions = len(routing_f) * BATCH * PROMPT
+    print(
+        f"[{tag}] f32 prefill routing, fused vs eager: {sum(flips)} of {decisions} token expert sets differ "
+        f"(per layer: {flips}); positions held per row before the first flip: {first.tolist()}"
+    )
+    moe_layers = sum(d.ffn_kind == "moe" for d in lm.layer_plan(cfg))
+    if len(routing_f) != moe_layers or int(first.sum()) == 0:
+        raise SystemExit(f"chip_smoke: no prefill position of {cfg.name} can be held against the eager path")
+    held = torch.arange(PROMPT, device=dev)[None, :] < first[:, None]
+    _hold_logits(f"[{tag}] f32 prefill logits (positions before the first flip)", lg_f[held], lg_e[held])
+    return {"routing_flips": flips, "held_positions": first.tolist()}
+
+
 def phase_moe(profile: bool = False):
     import torch
 
@@ -713,7 +822,7 @@ def phase_moe(profile: bool = False):
     from repro_torch.models import lm
 
     cfg, world, pc, pc_eager, prompts = _setup(ARCH_MOE)
-    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    s_loc = PROMPT // WORLD
     params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
 
     # (a) one MoE layer at full width, fused against eager on the same input:
@@ -736,34 +845,8 @@ def phase_moe(profile: bool = False):
     del x, y_f, y_e, out_f, out_e
 
     # (b) the float32 prefill, fused against eager, with the routing recorded
-    calls, restore = _record_routing()
-    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
-    routing_f = list(calls)
-    calls.clear()
-    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
-    routing_e = list(calls)
-    restore()
-    # a token whose expert set differs in some layer changes itself and the
-    # positions after it in its batch row (causal attention, capacity slots);
-    # the positions before a row's first flip are held to the bound
-    first = torch.full((BATCH,), PROMPT, device=world.device)
-    flips = []
-    for rf, re_ in zip(routing_f, routing_e):
-        differ = (rf != re_).any(-1).permute(1, 0, 2).reshape(BATCH, PROMPT)  # [B, S] (rank-major positions)
-        flips.append(int(differ.sum()))
-        pos = torch.where(differ, torch.arange(PROMPT, device=world.device), PROMPT)
-        first = torch.minimum(first, pos.min(-1).values)
-    decisions = len(routing_f) * BATCH * PROMPT
-    print(
-        f"[moe] f32 prefill routing, fused vs eager: {sum(flips)} of {decisions} token expert sets differ "
-        f"(per layer: {flips}); positions held per row before the first flip: {first.tolist()}"
-    )
-    if len(routing_f) != cfg.n_layers or int(first.sum()) == 0:
-        raise SystemExit("chip_smoke: no prefill position of the MoE model can be held against the eager path")
-    held = torch.arange(PROMPT, device=world.device)[None, :] < first[:, None]
-    _hold_logits("[moe] f32 prefill logits (positions before the first flip)", lg_f[held], lg_e[held])
-    result = {"layer_err": err, "routing_flips": flips, "held_positions": first.tolist()}
-    del params, lg_f, lg_e, layer, routing_f, routing_e
+    result = {"layer_err": err, **_hold_prefill_before_flips("moe", cfg, params, pc, pc_eager, prompts)}
+    del params, layer
     torch.cuda.empty_cache()
 
     # (c) bfloat16: the main path (prefill + greedy decode) through the kernels
@@ -771,6 +854,85 @@ def phase_moe(profile: bool = False):
     expect = {"ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers, "flash_attention": cfg.n_layers,
               "matmul": NEW_TOKENS, "grouped_matmul": 2 * steps * cfg.n_layers, "ssd_intra_chunk": 0}  # fmt: skip
     return {**result, **_main_path("moe", cfg, pc, prompts, expect, profile, pc_eager)}
+
+
+def phase_deepseek(profile: bool = False) -> dict:
+    """deepseek-moe-16b: a dense first layer, then MoE layers with 2 shared
+    experts; decode and the engine with the streamed MoE decode."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS)
+    pc_stream = dataclasses.replace(pc, moe_decode_stream=True)
+    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    cut = dataclasses.replace(cfg, n_layers=DS_F32_LAYERS)  # the dense layer + 3 MoE layers, full width
+    params = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+
+    # (a) one MoE layer with shared experts, fused against eager on the same
+    # input (the same router input on both paths: identical routing)
+    layer = params["layers"][1]["ffn"]
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device)
+    before = K.launch_counts()
+    y_f, aux_f = moe.apply_seq(layer, x, pc, cfg)
+    ran = {k: v - before[k] for k, v in K.launch_counts().items()}
+    # gate|up and down at every ring step; the shared MLP on the fused pair
+    if ran != {**{k: 0 for k in ran}, "grouped_matmul": 2 * WORLD, "ag_gemm": 1, "gemm_rs": 1}:
+        raise SystemExit(f"chip_smoke: the fused MoE layer with shared experts launched {ran}")
+    y_e, aux_e = moe.apply_seq(layer, x, pc_eager, cfg)
+    out_f, out_e = y_f - x, y_e - x
+    err, scale = (out_f - out_e).abs().max().item(), out_e.abs().max().item()
+    print(
+        f"[deepseek] f32 MoE layer with shared experts [{WORLD}, {BATCH}, {s_loc}, {cfg.d_model}], fused vs eager: "
+        f"max|diff| {err:.3e} (bound {TOL['float32']:g} x max|eager| {scale:.3e}); aux {aux_f.item():.6f} vs "
+        f"{aux_e.item():.6f}"
+    )
+    if not (torch.isfinite(out_f).all() and err <= TOL["float32"] * scale and torch.equal(aux_f, aux_e)):
+        raise SystemExit("chip_smoke: the fused deepseek MoE layer disagrees with the eager one")
+    del x, y_f, y_e, out_f, out_e, layer
+
+    # (b) the float32 prefill at DS_F32_LAYERS layers, fused against eager
+    result = {"layer_err": err, **_hold_prefill_before_flips("deepseek", cut, params, pc, pc_eager, prompts)}
+
+    # (c) one float32 decode step from the same caches, streamed against gathered
+    lg, caches = lm.prefill(params, cut, pc, prompts, max_len=max_len)
+    tok = lg[:, -1:].argmax(-1)
+    del lg
+    outs = {}
+    for name, p_ in (("gather", pc), ("stream", pc_stream)):
+        c = [{k: t.clone() for k, t in layer_c.items()} for layer_c in caches]
+        outs[name], _ = lm.decode_step(params, c, cut, p_, tok, PROMPT)
+        del c
+    err = (outs["stream"] - outs["gather"]).abs().max().item()
+    scale = outs["gather"].abs().max().item()
+    print(
+        f"[deepseek] f32 decode step ({DS_F32_LAYERS} layers, B {BATCH}), streamed vs gathered MoE decode: max|diff| "
+        f"{err:.3e} (bound {TOL['float32']:g} x max|gather| {scale:.3e})"
+    )
+    if not (torch.isfinite(outs["stream"]).all() and err <= TOL["float32"] * scale):
+        raise SystemExit("chip_smoke: the streamed MoE decode disagrees with the gathered one")
+    result["decode_stream_err"] = err
+    del params, caches, outs
+    torch.cuda.empty_cache()
+
+    # (d) bfloat16 at full depth: the main path through serve.greedy, streamed decode
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    expect = {"ag_gemm": cfg.n_layers + cfg.n_layers, "gemm_rs": cfg.n_layers + cfg.n_layers,
+              "flash_attention": cfg.n_layers, "matmul": NEW_TOKENS, "grouped_matmul": 2 * WORLD * n_moe,
+              "ssd_intra_chunk": 0}  # fmt: skip (qkv / o-proj per layer, plus one dense or shared MLP per layer)
+    result.update(_main_path("deepseek", cfg, pc_stream, prompts, expect, profile, params=params))
+
+    # (e) the engine at full depth, streamed decode in its captured graphs
+    result["engine"], _ = _engine_bf16(cfg, pc_stream, params, ENGINE_DS, profile)
+    del params
+    torch.cuda.empty_cache()
+    return result
 
 
 def phase_ssm(profile: bool = False):
@@ -892,56 +1054,70 @@ def _near_tie_check(tag: str, cfg, pc, params, reqs, toks, max_len: int) -> int:
     return ties
 
 
-def phase_engine(profile: bool = False) -> dict:
+def _engine_bf16(cfg, pc, params, spec: dict, profile: bool):
+    """The engine on seeded requests, captured and eager (bf16 weights):
+    tokens bitwise equal, host syncs == steps, 2 captures; returns (the
+    record, the seeded requests)."""
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.benchmarks.common import profile_windows
+
+    reqs = _engine_requests(cfg, spec)
+    K.reset_launch_counts()  # the captured engine's path: warm-up, capture and drain
+    eng, toks, wall = _drain(cfg, pc, params, reqs, spec, capture=True)
+    counts = K.launch_counts()
+    eager, toks_e, wall_e = _drain(cfg, pc, params, reqs, spec, capture=False)
+    st, st_e = eng.stats, eager.stats
+    n_tok = sum(map(len, toks))
+    per_step = st["launches"]["matmul"] / st["steps"]
+    dec_ms, dec_ms_e = cuda_ms(lambda: eng.run("decode"), ITERS), cuda_ms(lambda: eager.run("decode"), 5)
+    print(
+        f"[engine] bf16 {cfg.name} W={WORLD}: {len(reqs)} requests ({spec['sampled']} sampled), {n_tok} tokens on "
+        f"{spec['slots']} slots; captured {n_tok / wall:.1f} tokens/s, {st['steps']} steps, "
+        f"{wall * 1e3 / st['steps']:.2f} ms per step; eager {n_tok / wall_e:.1f} tokens/s, "
+        f"{wall_e * 1e3 / st_e['steps']:.2f} ms per step"
+    )
+    print(
+        f"[engine] {cfg.name}: one decode iteration ({spec['slots']} slots) captured {dec_ms:.3f} ms, eager "
+        f"{dec_ms_e:.3f} ms (CUDA events); LM-head launches per step {per_step:.2f} (graph replays "
+        f"{st['launches']['matmul']}); host syncs {st['host_syncs']}, graph captures {st['graph_captures']}, "
+        f"resets {st['resets']}; wrapper launch counts of the captured run {counts}"
+    )
+    if toks != toks_e:
+        raise SystemExit(f"chip_smoke: {cfg.name}: the captured engine's tokens differ from the eager engine's")
+    if [len(t) for t in toks] != [r.max_new_tokens for r in reqs] or not all(
+        0 <= x < cfg.vocab_size for t in toks for x in t
+    ):
+        raise SystemExit(f"chip_smoke: {cfg.name}: the engine's token counts or ids are wrong")
+    if not (st["host_syncs"] == st["steps"] == st_e["steps"] and st["graph_captures"] == 2 and counts["matmul"]):
+        raise SystemExit(f"chip_smoke: {cfg.name}: engine counters {st} / {st_e} break the contract")
+    print(f"[engine] {cfg.name}: captured tokens bitwise equal to eager; request 0: {toks[0][:16]}")
+    rec = {"tokens_per_s": n_tok / wall, "steps": st["steps"], "ms_per_step": wall * 1e3 / st["steps"],
+           "eager_tokens_per_s": n_tok / wall_e, "eager_ms_per_step": wall_e * 1e3 / st_e["steps"],
+           "decode_ms": dec_ms, "eager_decode_ms": dec_ms_e, "head_launches_per_step": per_step,
+           "head_graph_launches": st["launches"]["matmul"], "tokens": n_tok, "counts": counts}  # fmt: skip
+    if profile:  # one decode iteration of the drained engines (every slot dead: nothing a step reads changes)
+        rec["profile"] = profile_windows(f"engine {cfg.name}", {
+            "captured decode iteration": lambda: eng.run("decode"),
+            "eager decode iteration": lambda: eager.run("decode"),
+        })  # fmt: skip
+    del eng, eager
+    torch.cuda.empty_cache()
+    return rec, reqs
+
+
+def phase_engine(profile: bool = False) -> dict:
+    import torch
+
     from repro_torch.models import lm
 
     out = {}
     for arch, spec in ENGINE.items():
         cfg, world, pc, _, _ = _setup(arch)
-        reqs = _engine_requests(cfg, spec)
         params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
-        K.reset_launch_counts()  # the captured engine's path: warm-up, capture and drain
-        eng, toks, wall = _drain(cfg, pc, params, reqs, spec, capture=True)
-        counts = K.launch_counts()
-        eager, toks_e, wall_e = _drain(cfg, pc, params, reqs, spec, capture=False)
-        st, st_e = eng.stats, eager.stats
-        n_tok = sum(map(len, toks))
-        per_step = st["launches"]["matmul"] / st["steps"]
-        dec_ms, dec_ms_e = cuda_ms(lambda: eng.run("decode"), ITERS), cuda_ms(lambda: eager.run("decode"), 5)
-        print(
-            f"[engine] bf16 {cfg.name} W={WORLD}: {len(reqs)} requests ({spec['sampled']} sampled), {n_tok} tokens on "
-            f"{spec['slots']} slots; captured {n_tok / wall:.1f} tokens/s, {st['steps']} steps, "
-            f"{wall * 1e3 / st['steps']:.2f} ms per step; eager {n_tok / wall_e:.1f} tokens/s, "
-            f"{wall_e * 1e3 / st_e['steps']:.2f} ms per step"
-        )
-        print(
-            f"[engine] {cfg.name}: one decode iteration ({spec['slots']} slots) captured {dec_ms:.3f} ms, eager "
-            f"{dec_ms_e:.3f} ms (CUDA events); LM-head launches per step {per_step:.2f} (graph replays "
-            f"{st['launches']['matmul']}); host syncs {st['host_syncs']}, graph captures {st['graph_captures']}, "
-            f"resets {st['resets']}; wrapper launch counts of the captured run {counts}"
-        )
-        if toks != toks_e:
-            raise SystemExit(f"chip_smoke: {cfg.name}: the captured engine's tokens differ from the eager engine's")
-        if [len(t) for t in toks] != [r.max_new_tokens for r in reqs] or not all(
-            0 <= x < cfg.vocab_size for t in toks for x in t
-        ):
-            raise SystemExit(f"chip_smoke: {cfg.name}: the engine's token counts or ids are wrong")
-        if not (st["host_syncs"] == st["steps"] == st_e["steps"] and st["graph_captures"] == 2 and counts["matmul"]):
-            raise SystemExit(f"chip_smoke: {cfg.name}: engine counters {st} / {st_e} break the contract")
-        print(f"[engine] {cfg.name}: captured tokens bitwise equal to eager; request 0: {toks[0][:16]}")
-        rec = {"tokens_per_s": n_tok / wall, "steps": st["steps"], "ms_per_step": wall * 1e3 / st["steps"],
-               "eager_tokens_per_s": n_tok / wall_e, "eager_ms_per_step": wall_e * 1e3 / st_e["steps"],
-               "decode_ms": dec_ms, "eager_decode_ms": dec_ms_e, "head_launches_per_step": per_step,
-               "head_graph_launches": st["launches"]["matmul"], "tokens": n_tok, "counts": counts}  # fmt: skip
-        if profile:  # one decode iteration of the drained engines (every slot dead: nothing a step reads changes)
-            rec["profile"] = _profile_windows(f"engine {cfg.name}", {
-                "captured decode iteration": lambda: eng.run("decode"),
-                "eager decode iteration": lambda: eager.run("decode"),
-            })  # fmt: skip
-        del eng, eager, params
+        rec, reqs = _engine_bf16(cfg, pc, params, spec, profile)
+        del params
         torch.cuda.empty_cache()
         # (c) float32: four greedy requests against per-token reference decoding
         params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
@@ -958,61 +1134,35 @@ def phase_engine(profile: bool = False) -> dict:
 
 def phase_paper() -> dict:
     from repro_torch import kernels as K
-    from repro_torch.benchmarks import paper_mlp
+    from repro_torch.benchmarks import paper_mlp, paper_moe
 
     print(f"[paper] {paper_mlp.CAVEAT}")
     K.reset_launch_counts()
     rows = [paper_mlp.fig8_row(name, PAPER_WORLD) for name in ("MLP-1", "MLP-6")] + paper_mlp.tab2_rows(PAPER_WORLD)
+    rows_moe = [paper_moe.fig9_row(name, PAPER_WORLD) for name in PAPER_MOE_ROWS]
     counts = K.launch_counts()
     for r in rows:
         print(f"[paper] {paper_mlp.describe(r)}")
+    for r in rows_moe:
+        print(f"[paper] {paper_moe.describe(r)}")
     print(f"[paper] launch counts: {counts}")
-    if not (counts["ag_gemm"] and counts["gemm_rs"]):
+    if not (counts["ag_gemm"] and counts["gemm_rs"] and counts["grouped_matmul"]):
         raise SystemExit("chip_smoke: the paper phase did not run the fused kernels")
-    return {"rows": rows, "counts": counts}
+    return {"rows": rows + rows_moe, "counts": counts}
 
 
 def _profile(params, cfg, pc, prompts, max_len):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
+    from repro_torch.benchmarks.common import profile_windows
     from repro_torch.models import lm
 
     _, caches = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
     tok = prompts[:, -1:]
-    return _profile_windows(cfg.name, {
+    return profile_windows(cfg.name, {
         "prefill": lambda: lm.prefill(params, cfg, pc, prompts, max_len=max_len),
         "decode_step": lambda: lm.decode_step(params, caches, cfg, pc, tok, PROMPT),
     })  # fmt: skip
-
-
-def _profile_windows(label: str, windows: dict) -> dict:
-    """Profile each window once: wall, device kernel time, idle share, top kernels."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
-    for name, fn in windows.items():
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (CPU ops also carry their children's device time)
-        rows = [
-            (e.key, e.device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-        ]
-        busy = sum(r[1] for r in rows)
-        rows.sort(key=lambda r: -r[1])
-        print(f"[profile] {label} {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
-              f"(idle share {max(0.0, 1 - busy / wall_us):.3f}; {sum(r[2] for r in rows)} kernels)")  # fmt: skip
-        for key, t, n in rows[:8]:
-            print(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
-        out[name] = {"wall_us": wall_us, "kernel_us": busy, "kernels": sum(r[2] for r in rows), "top": rows[:8]}
-    return out
 
 
 def main(argv=None) -> int:
@@ -1021,6 +1171,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="device time by kernel for one prefill / decode step and one engine decode iteration")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1031,17 +1182,21 @@ def main(argv=None) -> int:
     out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build()}
     out["serve"] = phase_serve(args.profile)
     out["moe"] = phase_moe(args.profile)
+    out["deepseek"] = phase_deepseek(args.profile)
     out["ssm"] = phase_ssm(args.profile)
     out["engine"] = phase_engine(args.profile)
     out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
     # that would slow the host-bound prefill and decode of the phases above
     recs = phase_kernels(ITERS)
-    by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_SSM: out["ssm"]["counts"]}
+    by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_DS: out["deepseek"]["counts"],
+               ARCH_SSM: out["ssm"]["counts"]}  # fmt: skip
     by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
+    by_path[f"engine {ARCH_DS}"] = out["deepseek"]["engine"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
+    engines = [*out["engine"].values(), out["deepseek"]["engine"]]
     bf16, f32 = torch.bfloat16, torch.float32
     for name, arch, tag, dtype in (
         ("matmul", ARCH, "lm_head", bf16), ("ag_gemm", ARCH, "gate_up", bf16), ("gemm_rs", ARCH, "down", bf16),
@@ -1056,8 +1211,10 @@ def main(argv=None) -> int:
             "library_ms": r["library_ms"], "device_ms": r["device_ms"], "library_device_ms": r["library_device_ms"], "shape": r["case"], "dtype": r["dtype"], "launch": r.get("launch"),
             "launches_by_path": {arch: c[name] for arch, c in by_path.items()},
             # device launches by the engine's graph replays (the wrapper counts host calls only)
-            "graph_launches": sum(r["head_graph_launches"] for r in out["engine"].values()) if name == "matmul" else 0,
+            "graph_launches": sum(r["head_graph_launches"] for r in engines) if name == "matmul" else 0,
         })  # fmt: skip
+    out["wall_s"] = time.perf_counter() - t_start
+    print(f"[summary] wall time of the script: {out['wall_s']:.1f} s (the kernels' build included)")
     if args.json:
         out["cases"] = [r for r in recs.values()]
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,6 @@
 """Measurement helpers of the port's benchmarks and ``chip_smoke.py``:
-CUDA-event timing, roofline bounds, the card's name and power limit.
+CUDA-event timing, roofline bounds, device time by kernel (torch.profiler),
+the card's name and power limit.
 
 Bounds use the H100 SXM's published dense peaks (NVIDIA's data sheet).
 """
@@ -9,11 +10,12 @@ from __future__ import annotations
 import contextlib
 import statistics
 import subprocess
+import time
 from typing import Callable, List, Tuple
 
 import torch
 
-__all__ = ["event_ms", "bound_ms", "card_line", "fp32_reductions", "PEAK_OPS", "MEM_BYTES_PER_S"]
+__all__ = ["event_ms", "bound_ms", "profile_windows", "card_line", "fp32_reductions", "PEAK_OPS", "MEM_BYTES_PER_S"]
 
 # published dense peaks of one H100 SXM, by dtype, and its memory rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -55,6 +57,37 @@ def bound_ms(flops: float, nbytes: float, dtype: torch.dtype) -> Tuple[float, st
     the peak rate for their type and the bytes over the memory rate."""
     t_ops, t_mem = flops / PEAK_OPS[dtype], nbytes / MEM_BYTES_PER_S
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
+
+
+def profile_windows(label: str, windows: dict) -> dict:
+    """Profile each window (a callable) once under torch.profiler: wall time,
+    device kernel time, the device's idle share, and the top kernels by
+    device time, printed and returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for name, fn in windows.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # device-side events only (CPU ops also carry their children's device time)
+        rows = [
+            (e.key, e.device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+        ]
+        busy = sum(r[1] for r in rows)
+        rows.sort(key=lambda r: -r[1])
+        print(f"[profile] {label} {name}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
+              f"(idle share {max(0.0, 1 - busy / wall_us):.3f}; {sum(r[2] for r in rows)} kernels)")  # fmt: skip
+        for key, t, n in rows[:8]:
+            print(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
+        out[name] = {"wall_us": wall_us, "kernel_us": busy, "kernels": sum(r[2] for r in rows), "top": rows[:8]}
+    return out
 
 
 def card_line() -> str:

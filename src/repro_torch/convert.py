@@ -12,7 +12,8 @@ the JAX package's partition specs:
   * ``embed`` by vocab rows (``P("model", dp)``);
   * MoE blocks by experts: ``w_gu`` / ``w_down`` rows of dim 0
     (``P("model", ...)``); the ``router`` is replicated and stays float32
-    whatever ``dtype`` the other leaves take;
+    whatever ``dtype`` the other leaves take; a ``shared`` expert MLP is
+    sharded like a dense FFN;
   * Mamba mixers (``nn/mamba.specs``): ``w_xz`` / ``w_dt`` / ``conv`` by
     columns, ``w_out`` by rows, ``dt_bias`` / ``a_log`` / ``d_skip`` by heads
     (float32 always), ``w_bc`` and ``ln`` replicated.
@@ -42,7 +43,9 @@ import torch
 
 from repro_torch.backend.mesh import World
 
-__all__ = ["from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mamba", "F32_LEAVES", "IN_ALIGN"]
+__all__ = [
+    "from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mlp", "shard_mamba", "F32_LEAVES", "IN_ALIGN",
+]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
 F32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
@@ -98,15 +101,17 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
                 "w_gu": shard_rows(f["w_gu"], world),
                 "w_down": shard_rows(f["w_down"], world),
             }
+            if "shared" in f:
+                new["ffn"]["shared"] = shard_mlp(f["shared"], world)
         elif "ffn" in layer:
-            f = layer["ffn"]
-            new["ffn"] = {
-                "ln": f["ln"],
-                "w_gu": shard_cols(f["w_gu"], world),
-                "w_down": shard_rows(f["w_down"], world),
-            }
+            new["ffn"] = shard_mlp(layer["ffn"], world)
         out["layers"].append(new)
     return out
+
+
+def shard_mlp(f: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """A dense (gated) MLP: ``w_gu`` by columns, ``w_down`` by rows."""
+    return {"ln": f["ln"], "w_gu": shard_cols(f["w_gu"], world), "w_down": shard_rows(f["w_down"], world)}
 
 
 def shard_mamba(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
@@ -134,6 +139,13 @@ def _tensors(tree, device, dtype):
     return t.to(device=device, dtype=dtype)
 
 
+def _unit(tree, u: int):
+    """Unit ``u`` of a scanned layer (every leaf's leading axis indexed)."""
+    if isinstance(tree, dict):
+        return {k: _unit(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
 def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optional[torch.dtype] = None):
     """The JAX package's ``lm.init`` pytree (numpy leaves) -> port parameters.
 
@@ -150,7 +162,7 @@ def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optiona
         n_units = next(iter(scan[0]["mixer"].values())).shape[0]
         for u in range(n_units):
             for unit_layer in scan:
-                layers.append({blk: {k: a[u] for k, a in sub.items()} for blk, sub in unit_layer.items()})
+                layers.append(_unit(unit_layer, u))
     layers += list(tree.get("suffix", []))
     if len(layers) != len(layer_plan(cfg)):
         raise ValueError(f"got {len(layers)} layers for a {cfg.n_layers}-layer config")

@@ -20,9 +20,11 @@ dispatch is per (rank, leading index, channel chunk) over the token axis, as
 the JAX package's ``vmap`` over batch rows gives it; the batch rows are
 folded only into the rows of the expert GEMMs.  Those run on the
 hand-written grouped GEMM kernel (``kernels/grouped_matmul.py``) when
-``grouped=True`` (the "fused" backend), else as one ``torch.matmul`` per
-(rank, expert) or the CompSpec-blocked ``blocked_dot`` (the "eager"
-backend).  The expert-parallel a2a half is not ported yet.
+``grouped=True`` (the "fused" backend), else as one batched GEMM over every
+(rank, expert) — float32 products, or on the card a tensor-core
+``torch.bmm`` for bf16 / fp16 operands — or the CompSpec-blocked
+``blocked_dot`` (the "eager" backend, and ``ag_moe_baseline``).  The
+expert-parallel a2a half is not ported yet.
 """
 
 from __future__ import annotations
@@ -76,14 +78,26 @@ def _dispatch_tables(local_ids, valid, e_loc: int, cap: int, dtype):
 
 
 def _expert_gemm(a, w, out_dtype, tile, grouped: bool):
-    """``a [W, E, rows, K] @ w [W, E, K, N]`` per (rank, expert), float32 accumulation."""
+    """``a [W, E, rows, K] @ w [W, E, K, N]`` per (rank, expert), float32 accumulation.
+
+    Eagerly on the card a bf16 / fp16 operand pair runs one tensor-core
+    ``torch.bmm`` over every (rank, expert) (``out_dtype=float32`` where the
+    output stays float32), not an upcast into a float32 GEMM; as for
+    ``core/overlap._baseline_dot`` the caller keeps
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    off so the sums stay float32.  Elsewhere (float32, or the CPU) the
+    product is formed in float32 and cast."""
+    world, e, rows, k = a.shape
     if grouped:
-        world, e, rows, k = a.shape
         table = group_tile_table(world * e, rows, a.device)
         out = grouped_matmul(a.reshape(-1, k).contiguous(), w.reshape(world * e, k, -1), table, out_dtype=out_dtype)
         return out.reshape(world, e, rows, -1)
     if tile is not None and tuple(tile) != DEFAULT_TILE:
         return blocked_dot(a, w, tuple(tile), accum=torch.float32, out_dtype=out_dtype)
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and w.dtype == a.dtype:
+        a3, w3 = a.reshape(world * e, rows, k), w.reshape(world * e, k, -1)
+        out = torch.bmm(a3, w3) if out_dtype == a.dtype else torch.bmm(a3, w3, out_dtype=torch.float32).to(out_dtype)
+        return out.reshape(world, e, rows, -1)
     return torch.matmul(a.float(), w.float()).to(out_dtype)
 
 

@@ -6,11 +6,20 @@ The port of ``repro/launch/serve.py``.  ``main`` / :func:`serve` submit
 ``--eos-id``) and drain it: on the card one captured step per iteration
 with one host sync.  :func:`greedy` is the fixed-batch path, ``lm.prefill``
 (the fused kernels on the card) then a greedy ``decode_step`` loop.
-Example, on the card (``--arch smollm-360m``, ``granite-moe-3b-a800m`` or
-``mamba2-2.7b``):
+Example, on the card (``--arch smollm-360m``, ``granite-moe-3b-a800m``,
+``deepseek-moe-16b`` or ``mamba2-2.7b``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
       --batch 16 --prompt-len 256 --new-tokens 16 --slots 8 --world 4 --dtype bf16
+
+``--moe-stream`` sets ``ParallelContext.moe_decode_stream``: the MoE decode
+streams each local expert once over all tokens instead of gathering expert
+weights per (token, k).  deepseek-moe-16b needs it in the engine, whose
+forward decodes [slots, 16] tokens at once (the gathers would copy a 17 MB
+expert for each of them):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --moe-stream \\
+      --batch 8 --prompt-len 256 --new-tokens 32 --slots 4
 
 Add ``--device cpu --reduce`` for a small run on the CPU.
 """
@@ -88,17 +97,19 @@ def serve(
     temperature: float = 0.0,
     top_k: int = 0,
     eos_id: Optional[int] = None,
+    moe_stream: bool = False,
 ) -> dict:
     """Build a seeded model and serve ``batch`` requests through the
     continuous-batching engine (``serving.ServeEngine``: a captured step on
     the card, the same step eagerly on the CPU).  Request i samples with
-    seed ``seed + i``.  Returns the tokens [batch, new_tokens] (-1 after an
-    eos), the wall time of the drain and the engine's counters."""
+    seed ``seed + i``; ``moe_stream`` streams the MoE decode.  Returns the
+    tokens [batch, new_tokens] (-1 after an eos), the wall time of the drain
+    and the engine's counters."""
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
     w = World(world, device)
-    pc = ParallelContext(world=w)
+    pc = ParallelContext(world=w, moe_decode_stream=moe_stream)
     gen = torch.Generator(device=w.device).manual_seed(seed)
     params = lm.init(cfg, w, gen, DTYPES[dtype])
     prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
@@ -133,7 +144,7 @@ def serve(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, help="smollm-360m, granite-moe-3b-a800m or mamba2-2.7b")
+    ap.add_argument("--arch", required=True, help="smollm-360m, granite-moe-3b-a800m, deepseek-moe-16b or mamba2-2.7b")
     ap.add_argument("--reduce", action="store_true", help="reduced same-family config (CPU runs)")
     ap.add_argument("--batch", type=int, default=4, help="requests submitted")
     ap.add_argument("--prompt-len", type=int, default=256)
@@ -147,11 +158,13 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0, help="<= 0: greedy")
     ap.add_argument("--top-k", type=int, default=0, help="0: no truncation")
     ap.add_argument("--eos-id", type=int, default=None)
+    ap.add_argument("--moe-stream", action="store_true", help="MoE decode: stream each local expert once")
     args = ap.parse_args(argv)
     r = serve(
         args.arch, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, world=args.world,
         dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce, slots=args.slots,
         decode_block=args.decode_block, temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
+        moe_stream=args.moe_stream,
     )  # fmt: skip
     print(
         f"device {r['device']} backend {r['backend']}: {r['generated']} tokens for {args.batch} requests of "

@@ -1,5 +1,7 @@
 """Decoder-only LM — the port of ``repro/models/lm.py`` for the serve path
-of ``"attn"`` layers with a dense MLP or an MoE FFN, and of ``"mamba"``
+of ``"attn"`` layers with a dense MLP or an MoE FFN (with or without shared
+experts), ``"attn_dense"`` layers (the leading dense-MLP layers of an MoE
+model, ``moe.first_k_dense``, at ``moe.dense_d_ff``), and ``"mamba"``
 layers (a Mamba-2 mixer, no FFN).
 
 A Python loop over a list of layers replaces the JAX package's ``lax.scan``
@@ -11,7 +13,7 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
   layers    [{"mixer": {ln, wqkv [W, D, (h_loc+2 kv_loc)*hd], wo [W, h_loc*hd, D]},
               "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}  (mlp)
                        {ln, router [D, E_pad] f32, w_gu [W, E_loc, D, 2 f],
-                        w_down [W, E_loc, f, D]}  (moe)}
+                        w_down [W, E_loc, f, D], [shared: an mlp FFN]}  (moe)}
              {"mixer": {ln, w_in [W, D, 2 di_loc + h_loc + pad to 8], w_bc, conv, w_out,
                         dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba), ...]
 
@@ -50,7 +52,7 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    kind: str  # attn | attn_local | mamba
+    kind: str  # attn | attn_local | attn_dense (attention + a dense MLP at moe.dense_d_ff) | mamba
     ffn_kind: Optional[str]  # mlp | moe | None
     window: Optional[int]
     theta: float
@@ -123,8 +125,10 @@ def _pad_seq(a: torch.Tensor, length: int) -> torch.Tensor:
 def _layer_def(cfg, kind: str) -> LayerDef:
     if kind == "mamba":
         return LayerDef("mamba", None, None, 0.0)
+    if kind == "attn_dense":
+        return LayerDef("attn_dense", "mlp", None, cfg.rope_theta)
     if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn and mamba layers only)")
+        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn, attn_dense and mamba only)")
     window = cfg.local_window if kind == "attn_local" else None
     theta = cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
     ffn_kind = "moe" if cfg.moe is not None else ("mlp" if cfg.d_ff else None)
@@ -161,7 +165,8 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
             continue
         layer = {"mixer": attention.init(cfg, tp, generator, dtype, device)}
         if d.ffn_kind == "mlp":
-            layer["ffn"] = ffn.init(cfg, generator, dtype, device)
+            d_ff = cfg.moe.dense_d_ff if d.kind == "attn_dense" else cfg.d_ff
+            layer["ffn"] = ffn.init(cfg, generator, dtype, device, d_ff=d_ff)
         elif d.ffn_kind == "moe":
             layer["ffn"] = moe.init(cfg, tp, generator, dtype, device)
         glob["layers"].append(layer)

@@ -19,9 +19,10 @@ from repro_torch.nn.layers import ACTS, he_init, rms_norm
 __all__ = ["init", "apply_seq", "apply_decode"]
 
 
-def init(cfg, generator: torch.Generator, dtype: torch.dtype, device) -> dict:
-    """Global (unsharded) parameters in the JAX package's layout."""
-    d, f = cfg.d_model, cfg.d_ff
+def init(cfg, generator: torch.Generator, dtype: torch.dtype, device, d_ff=None) -> dict:
+    """Global (unsharded) parameters in the JAX package's layout; ``d_ff``
+    overrides ``cfg.d_ff`` (a dense first layer, a shared-expert MLP)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     return {
         "ln": torch.zeros((d,), dtype=dtype, device=device),
         "w_gu": he_init((d, 2 * f), generator, dtype, device, fan_in=d),

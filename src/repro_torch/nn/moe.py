@@ -6,20 +6,34 @@ around the ranks while each rank's local experts compute, and the combined
 outputs ride the same permutes back (``core/moe_overlap.py``).  On the
 "fused" backend the expert GEMMs run on the grouped kernel.
 
-Decode (``apply_decode``): tokens are replicated over the ranks; each rank
-gathers its local experts' weights per (token, k), and a ``psum`` combines
-the ranks — the JAX package's default decode path.
+Decode (``apply_decode``): tokens are replicated over the ranks and a
+``psum`` combines the ranks.  Two forms, as in the JAX package:
+
+  * per-(token, k) gathers of each rank's local expert weights (the
+    default), which read an expert's matrices once per (token, k) that
+    picks it;
+  * ``pc.moe_decode_stream``: every local expert's weights streamed once
+    over all tokens, then a masked combine (one-hot of the valid local ids
+    times the router weights).  Fixed shapes, no host sync, so the
+    engine's captured step can replay it.
+
+Shared experts (DeepSeek-style, ``moe.num_shared``) are one dense MLP of
+width ``num_shared * d_expert`` (``p["shared"]``, ``nn/ffn``), applied
+after the routed residual through its own ``ln`` with the residual inside,
+as the JAX package computes it.
 
 The expert count is padded up to a multiple of the TP degree; padding
-experts get -inf router logits and are never selected.  Shared experts and
-the expert-parallel (a2a) path are not ported yet.
+experts get -inf router logits and are never selected.  The
+expert-parallel (a2a) path is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.moe_overlap import moe_router
+from repro_torch.nn import ffn
 from repro_torch.nn.layers import ACTS, cdiv, he_init, rms_norm
 
 __all__ = ["padded_experts", "init", "apply_seq", "apply_decode"]
@@ -29,22 +43,21 @@ def padded_experts(cfg, tp: int) -> int:
     return cdiv(cfg.moe.num_experts, tp) * tp
 
 
-def _check(cfg):
-    if cfg.moe.num_shared:
-        raise NotImplementedError("repro_torch: shared experts (moe.num_shared > 0) are not ported yet")
-
-
 def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -> dict:
     """Global (unsharded) parameters in the JAX package's layout; the router
-    stays float32 whatever ``dtype`` is."""
-    _check(cfg)
-    d, e_pad, f = cfg.d_model, padded_experts(cfg, tp), cfg.moe.d_expert
-    return {
+    stays float32 whatever ``dtype`` is; ``shared`` is a dense MLP's
+    parameters when the config has shared experts."""
+    m = cfg.moe
+    d, e_pad, f = cfg.d_model, padded_experts(cfg, tp), m.d_expert
+    p = {
         "ln": torch.zeros((d,), dtype=dtype, device=device),
         "router": he_init((d, e_pad), generator, torch.float32, device, fan_in=d),
         "w_gu": he_init((e_pad, d, 2 * f), generator, dtype, device, fan_in=d),
         "w_down": he_init((e_pad, f, d), generator, dtype, device, fan_in=f),
     }
+    if m.num_shared:
+        p["shared"] = ffn.init(cfg, generator, dtype, device, d_ff=m.num_shared * f)
+    return p
 
 
 def apply_seq(params: dict, x: torch.Tensor, pc, cfg):
@@ -52,7 +65,6 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg):
 
     Capacity and routing are per (rank, batch row); the aux loss is the mean
     over batch rows and ranks."""
-    _check(cfg)
     m = cfg.moe
     e_pad = params["w_gu"].shape[1] * pc.tp
     h = rms_norm(x, params["ln"], cfg.norm_eps)
@@ -60,17 +72,21 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg):
     out = pc.ag_moe(
         h, ids, wts, params["w_gu"], params["w_down"], capacity_factor=m.capacity_factor, act=ACTS[cfg.act]
     )
-    return x + out.to(x.dtype), pc.pmean(aux.mean(-1))
+    y = x + out.to(x.dtype)
+    if "shared" in params:
+        y = ffn.apply_seq(params["shared"], y, pc, cfg)  # residual inside
+    return y, pc.pmean(aux.mean(-1))
 
 
 def apply_decode(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:
-    """x: [B, C, D] replicated over the ranks. Per-(token, k) gathers of each
-    rank's local expert weights, then a ``psum`` combine."""
-    _check(cfg)
+    """x: [B, C, D] replicated over the ranks -> [B, C, D] (+ residual): each
+    rank's local experts (gathered per (token, k), or streamed once with
+    ``pc.moe_decode_stream``), a ``psum`` combine, then the shared MLP."""
     m = cfg.moe
     w_gu, w_down = params["w_gu"], params["w_down"]  # [W, E_loc, D, 2f], [W, E_loc, f, D]
     world, e_loc, f = pc.tp, w_gu.shape[1], w_down.shape[2]
     b, s, d = x.shape
+    act = ACTS[cfg.act]
     h = rms_norm(x, params["ln"], cfg.norm_eps)
     tokens = h.reshape(b * s, d)
     ids, wts, _ = moe_router(tokens, params["router"], num_experts=e_loc * world, top_k=m.top_k,
@@ -79,9 +95,20 @@ def apply_decode(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:
     local = ids[None] - rank * e_loc  # [W, m, k]
     valid = (local >= 0) & (local < e_loc)
     local_g = torch.where(valid, local, torch.zeros_like(local))
-    hdn = torch.einsum("md,wmkdf->wmkf", tokens, w_gu[rank, local_g])  # [W, m, k, 2f]
-    a = (ACTS[cfg.act](hdn[..., :f]) * hdn[..., f:]).to(x.dtype)
-    ye = torch.einsum("wmkf,wmkfd->wmkd", a, w_down[rank, local_g])
-    comb = (wts[None] * valid.float()).to(x.dtype)
-    out = pc.psum(torch.einsum("wmkd,wmk->wmd", ye, comb))
-    return x + out.reshape(b, s, d)
+    if pc.moe_decode_stream:
+        onehot = F.one_hot(local_g, e_loc).float() * valid[..., None]  # [W, m, k, E_loc]
+        comb = torch.einsum("wmke,mk->wme", onehot, wts).to(x.dtype)
+        hdn = torch.matmul(tokens, w_gu)  # [W, E_loc, m, 2f]: each local expert read once
+        a = (act(hdn[..., :f]) * hdn[..., f:]).to(x.dtype)
+        ye = torch.matmul(a, w_down)  # [W, E_loc, m, D]
+        out = pc.psum(torch.einsum("wemd,wme->wmd", ye, comb))
+    else:
+        hdn = torch.einsum("md,wmkdf->wmkf", tokens, w_gu[rank, local_g])  # [W, m, k, 2f]
+        a = (act(hdn[..., :f]) * hdn[..., f:]).to(x.dtype)
+        ye = torch.einsum("wmkf,wmkfd->wmkd", a, w_down[rank, local_g])
+        comb = (wts[None] * valid.float()).to(x.dtype)
+        out = pc.psum(torch.einsum("wmkd,wmk->wmd", ye, comb))
+    y = x + out.reshape(b, s, d)
+    if "shared" in params:
+        y = ffn.apply_decode(params["shared"], y, pc, cfg)
+    return y

@@ -15,6 +15,11 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
   backend="eager"  the eager executor and the plain attention — the
                    default on the CPU, and the reference on the card
 
+``moe_decode_stream`` picks the MoE decode form (``nn/moe.apply_decode``):
+each local expert's weights streamed once over every token with a masked
+combine, instead of per-(token, k) weight gathers (the default, as in the
+JAX package).
+
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ag_moe`` /
 ``pc.psum`` / ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
 """
@@ -39,6 +44,7 @@ class ParallelContext:
     mode: str = "overlap"  # "overlap" | "baseline"
     channel: Optional[BlockChannel] = None
     backend: Optional[str] = None  # "fused" | "eager"; None -> by device
+    moe_decode_stream: bool = False  # MoE decode: stream each local expert once over all tokens
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):

@@ -1,6 +1,8 @@
 """The Hopper kernels against their plain versions, on the card; the
-serving engine's captured step against the same step run eagerly; the
-paper's TP-MLP (fused kernels) against its tensor-core baselines.
+serving engine's captured step against the same step run eagerly (for
+deepseek-moe-16b with the streamed MoE decode in the graph); the paper's
+TP-MLP (fused kernels) against its tensor-core baselines; the eager expert
+GEMM of the MoE baseline on tensor cores.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -30,10 +32,12 @@ from repro_torch.benchmarks import paper_mlp
 from repro_torch.benchmarks.common import fp32_reductions
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import BlockChannel, CommSpec, CompSpec, compile_overlap
+from repro_torch.core import moe_overlap
 from repro_torch.kernels import build
 from repro_torch.kernels import mamba_ssd
 from repro_torch.kernels.ag_gemm import launch_items as ag_items
 from repro_torch.kernels.gemm_rs import launch_items as rs_items
+from repro_torch.kernels.grouped_matmul import group_tile_table
 from repro_torch.kernels.grouped_matmul import work_items as gemm_items
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
@@ -269,6 +273,19 @@ def test_grouped_matmul_kernel(dev, dtype, out_dtype, table, bm, k, n):
     _close(out, K.grouped_matmul_plain(x, w, te, out_dtype), dtype)
 
 
+@pytest.mark.parametrize("k,n,out_dtype", [(2048, 2816, torch.float32), (1408, 2048, torch.bfloat16)])
+def test_grouped_matmul_at_deepseek_expert_shapes(dev, k, n, out_dtype):
+    """deepseek-moe-16b's expert GEMMs in one prefill ring step at W = 4: 64
+    groups (4 ranks x 16 experts) of 4 x 8 = 32 rows, gate|up [2048, 2816]
+    into float32 and down [1408, 2048] into bf16."""
+    te = group_tile_table(64, 32, dev)
+    x, w = _rand(dev, torch.bfloat16, 64 * 32, k), _rand(dev, torch.bfloat16, 64, k, n, seed=1, scale=k**-0.5)
+    out = K.grouped_matmul(x, w, te, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (64 * 32, n)
+    _gemm_launch(K.grouped_matmul.last_launch, "wgmma", 64, 32, n)
+    _close(out, K.grouped_matmul_plain(x, w, te, out_dtype), torch.bfloat16)
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_bf16_gemm_kernels_are_deterministic(dev, out_dtype):
     """20 launches of the bf16 plain and grouped GEMMs (153 and 480 items on
@@ -438,6 +455,24 @@ def test_fused_mamba_prefill_matches_eager_on_card(dev):
         torch.testing.assert_close(a["conv"], b["conv"], atol=1e-4, rtol=1e-4)
 
 
+def test_fused_deepseek_prefill_matches_eager_on_card(dev):
+    """Reduced deepseek-moe-16b: the dense first layer and the shared-expert
+    MLPs on the fused AG+GEMM / GEMM+RS pair, the routed experts on the
+    grouped kernel."""
+    cfg = reduce_config(get_config("deepseek-moe-16b"))
+    world = World(4, dev)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    K.reset_launch_counts()
+    lf, af = lm.forward(params, cfg, ParallelContext(world=world), toks)
+    assert K.launch_counts() == {
+        "matmul": 1, "ag_gemm": 6, "gemm_rs": 6, "flash_attention": 3, "grouped_matmul": 16, "ssd_intra_chunk": 0
+    }  # fmt: skip
+    le, ae = lm.forward(params, cfg, ParallelContext(world=world, backend="eager"), toks)
+    torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(af, ae, atol=1e-6, rtol=1e-5)
+
+
 # ---- the serving engine: captured step against the same step run eagerly ----
 
 
@@ -451,14 +486,15 @@ def _engine_requests(vocab, n, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b"])
 def test_captured_engine_matches_eager_engine_bitwise(dev, arch, dtype):
     """Reduced configs: the two captured graphs give the eager step's tokens
     bit for bit (greedy and sampled requests, slots reused), with 2 captures
-    for the engine's lifetime and one host sync per step."""
+    for the engine's lifetime and one host sync per step; deepseek-moe-16b
+    replays the streamed MoE decode (``moe_decode_stream``) in its graphs."""
     cfg = reduce_config(get_config(arch))
     world = World(4, dev)
-    pc = ParallelContext(world=world)
+    pc = ParallelContext(world=world, moe_decode_stream=arch == "deepseek-moe-16b")
     params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), dtype)
     reqs = _engine_requests(cfg.vocab_size, 7, seed=1)
     outs, engines = {}, {}
@@ -532,3 +568,34 @@ def test_bf16_baselines_run_on_tensor_cores_against_f32(dev):
             out = fn(x, w)
         assert out.dtype == torch.bfloat16
         _close(out, fn(x.float(), w.float()), torch.bfloat16)
+
+
+def test_eager_bf16_expert_gemm_runs_on_tensor_cores(dev):
+    """The MoE baseline's expert GEMM (``core/moe_overlap._expert_gemm``, eager)
+    on a bf16 operand pair: within 2e-2 of a float32-accumulated oracle, and
+    faster than any float32 GEMM could be at the card's float32 peak (67
+    TFLOP/s without TF32, which the fixture keeps off), so it ran on the
+    tensor cores; the float32 route stays the float32 product."""
+    a = _rand(dev, torch.bfloat16, 4, 16, 512, 2048, seed=6)  # [W, E_loc, rows, K]
+    w = _rand(dev, torch.bfloat16, 4, 16, 2048, 2816, seed=7, scale=2048**-0.5)
+    oracle = torch.matmul(a.float(), w.float())
+    with fp32_reductions():
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out = moe_overlap._expert_gemm(a, w, out_dtype, None, False)
+            assert out.dtype == out_dtype and out.shape == (4, 16, 512, 2816)
+            _close(out, oracle, torch.bfloat16)
+        flops = 2 * a.numel() * w.shape[-1]
+        f32_floor_ms = flops / 67e12 * 1e3
+        fn = lambda: moe_overlap._expert_gemm(a, w, torch.float32, None, False)  # noqa: E731
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            fn()
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1) / 10
+    assert ms < f32_floor_ms / 2, (ms, f32_floor_ms)
+    assert torch.equal(moe_overlap._expert_gemm(a.float(), w.float(), torch.float32, None, False), oracle)

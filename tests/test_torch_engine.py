@@ -4,8 +4,10 @@ Greedy streams are held token for token against per-token JAX reference
 decoding (the ``_ref_greedy`` pattern of ``tests/test_serving.py``: the
 prompt fed one token at a time through ``lm.decode_step``, then argmax),
 not against the JAX engine (its contract test is an unusable oracle, see
-ROADMAP queue 3).  Reduced smollm-360m, granite-moe-3b-a800m and
-mamba2-2.7b in float32, weights carried across by ``convert.from_jax_params``.
+ROADMAP queue 3).  Reduced smollm-360m, granite-moe-3b-a800m,
+deepseek-moe-16b (with ``moe_decode_stream`` on both sides, as the serve
+CLI's ``--moe-stream`` runs it) and mamba2-2.7b in float32, weights carried
+across by ``convert.from_jax_params``.
 
 Also: the port's ``Scheduler`` against ``repro.serving.scheduler``; the
 sampler (reproducible per (seed, count), batch-independent, top-k and
@@ -37,7 +39,8 @@ from repro_torch.serving import Request, Scheduler, ServeEngine, SlotPool
 from repro_torch.serving.engine import gumbel_noise, sample
 from utils import reduce_config as j_reduce_config
 
-ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "mamba2-2.7b")
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b")
+STREAMED = ("deepseek-moe-16b",)  # served with the streamed MoE decode
 VOCAB, MAX_LEN = 128, 40
 # prompt lengths that do not divide the prefill chunk (4); three requests on two slots
 PROMPTS = (5, 11, 7)
@@ -47,6 +50,8 @@ BUDGETS = (6, 3, 5)
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request, pc8, mesh8):
     arch = request.param
+    stream = arch in STREAMED
+    pc8 = dataclasses.replace(pc8, moe_decode_stream=stream)
     jcfg = dataclasses.replace(j_reduce_config(j_get_config(arch)), vocab_size=VOCAB)
     cfg = dataclasses.replace(reduce_config(get_config(arch)), vocab_size=VOCAB)
     jparams = place(jlm.init(jax.random.PRNGKey(4), jcfg, pc8, jnp.float32), mesh8, jlm.specs(jcfg, pc8))
@@ -70,7 +75,7 @@ def model(request, pc8, mesh8):
         return out
 
     refs = [ref_greedy(p, m) for p, m in zip(prompts, BUDGETS)]
-    return cfg, params, ParallelContext(world=world), prompts, refs, ref_greedy
+    return cfg, params, ParallelContext(world=world, moe_decode_stream=stream), prompts, refs, ref_greedy
 
 
 def _engine(cfg, params, pc, **kw):
@@ -245,7 +250,9 @@ def _cfg(name):
     return cfg
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "smollm-360m-ring", "granite-moe-3b-a800m", "mamba2-2.7b"])
+@pytest.mark.parametrize(
+    "name", ["smollm-360m", "smollm-360m-ring", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b"]
+)
 @pytest.mark.parametrize("lens", [(3, 9, 14), (3, 9, 17)], ids=["inside", "edge"])
 def test_masked_rows_leave_caches_bitwise_unchanged(name, lens):
     """decode_step with C = 4 and q_valid (4, 0, 2): the slot with no real

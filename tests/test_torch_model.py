@@ -1,5 +1,6 @@
-"""The port's LM against the JAX package's, on reduced smollm-360m (dense)
-and granite-moe-3b-a800m (every FFN MoE: 8 experts, top-2).
+"""The port's LM against the JAX package's, on reduced smollm-360m (dense),
+granite-moe-3b-a800m (every FFN MoE: 8 experts, top-2) and deepseek-moe-16b
+(a dense first layer, then MoE FFNs with 2 shared experts).
 
 Weights come from the JAX ``lm.init`` through ``convert.from_jax_params``
 (the MoE router stays float32);
@@ -33,7 +34,9 @@ TOL = dict(atol=2e-3, rtol=2e-3)
 TP = 4
 B, S0, EXTRA = 2, 16, 4
 MAX_LEN = S0 + EXTRA
-ARCHS = ("smollm-360m", "granite-moe-3b-a800m")
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b")
+# (head dim, padded vocab at TP 4) of each published config
+PUBLISHED = {"smollm-360m": (64, 49152), "granite-moe-3b-a800m": (64, 49156), "deepseek-moe-16b": (128, 102400)}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -48,8 +51,11 @@ def setup(request, pc8, mesh8):
 
 
 def _jcache(jc, layer):
-    """JAX global cache of ``layer`` [B, TP*kv_loc, L, hd]."""
-    return np.asarray(jc["scan"][0]["k"][layer]), np.asarray(jc["scan"][0]["v"][layer])
+    """JAX global cache of ``layer`` [B, TP*kv_loc, L, hd]: the prefix layers, then the scanned ones."""
+    n_pre = len(jc["prefix"])
+    if layer < n_pre:
+        return np.asarray(jc["prefix"][layer]["k"]), np.asarray(jc["prefix"][layer]["v"])
+    return np.asarray(jc["scan"][0]["k"][layer - n_pre]), np.asarray(jc["scan"][0]["v"][layer - n_pre])
 
 
 def _tcache(c):
@@ -71,14 +77,15 @@ def test_config_port_matches_reference(arch):
     for f in dataclasses.fields(tr):
         assert _plain(getattr(tr, f.name)) == _plain(getattr(jr, f.name)), f.name
     assert [tc.layer_kind(i) for i in range(tc.n_layers)] == [jc.layer_kind(i) for i in range(jc.n_layers)]
-    assert tc.hd == 64 and lm.padded_vocab(tc, 4) == {"smollm-360m": 49152, "granite-moe-3b-a800m": 49156}[arch]
+    assert (tc.hd, lm.padded_vocab(tc, 4)) == PUBLISHED[arch]
 
 
 def test_param_layout(setup):
     jcfg, cfg, jparams, params, world, _ = setup
     lay = layers.gqa_layout(cfg.n_heads, cfg.n_kv_heads, TP)
     assert len(params["layers"]) == cfg.n_layers
-    mixer, f = params["layers"][0]["mixer"], params["layers"][0]["ffn"]
+    i = len(jparams["prefix"])  # the first scanned layer (after deepseek's dense first layer)
+    mixer, f = params["layers"][i]["mixer"], params["layers"][i]["ffn"]
     assert mixer["wqkv"].shape == (TP, cfg.d_model, (lay.h_loc + 2 * lay.kv_loc) * cfg.hd)
     assert mixer["wo"].shape == (TP, lay.h_loc * cfg.hd, cfg.d_model)
     if cfg.moe is None:
@@ -92,10 +99,10 @@ def test_param_layout(setup):
         jw = np.asarray(jparams["scan"][0]["ffn"]["w_gu"][0])
         np.testing.assert_array_equal(f["w_gu"].reshape(-1, cfg.d_model, 2 * fe).numpy(), jw)
         low = from_jax_params(jax.tree_util.tree_map(np.asarray, jparams), cfg, world, torch.bfloat16)
-        assert low["layers"][0]["ffn"]["router"].dtype == torch.float32
-        assert low["layers"][0]["ffn"]["w_gu"].dtype == torch.bfloat16
+        assert low["layers"][i]["ffn"]["router"].dtype == torch.float32
+        assert low["layers"][i]["ffn"]["w_gu"].dtype == torch.bfloat16
         own = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.bfloat16)
-        assert own["layers"][0]["ffn"]["router"].dtype == torch.float32
+        assert own["layers"][i]["ffn"]["router"].dtype == torch.float32
     cols = lm.padded_vocab(cfg, TP)  # the JAX head's columns; the port pads them to a multiple of 8
     assert params["head"].shape == (cfg.d_model, -(-cols // 8) * 8) and not params["head"][:, cols:].any()
     if cfg.tie_embeddings:
@@ -107,7 +114,7 @@ def test_param_layout(setup):
     assert jax.tree_util.tree_structure(
         jax.tree_util.tree_map(lambda t: t.shape, own)
     ) == jax.tree_util.tree_structure(jax.tree_util.tree_map(lambda t: t.shape, params))
-    for a, b in zip(own["layers"][0]["mixer"].values(), mixer.values()):
+    for a, b in zip(own["layers"][i]["mixer"].values(), mixer.values()):
         assert a.shape == b.shape
 
 

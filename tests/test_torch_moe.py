@@ -316,10 +316,3 @@ def test_nn_moe_apply_decode_matches_reference(mesh4, num_experts):
     want = np.asarray(jax.jit(sm)(jp, jnp.asarray(x)))
     got = t_nn_moe.apply_decode(tp, torch.from_numpy(x), ParallelContext(world=world), cfg).numpy()
     np.testing.assert_allclose(got, want, **F32)
-
-
-def test_shared_experts_are_refused():
-    cfg = reduce_config(get_config("granite-moe-3b-a800m"))
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, num_shared=2))
-    with pytest.raises(NotImplementedError, match="shared experts"):
-        t_nn_moe.init(cfg, R, torch.Generator().manual_seed(0), torch.float32, "cpu")

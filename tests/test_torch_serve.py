@@ -35,7 +35,7 @@ def _jax_greedy(cfg, pc, params, prompts, n_new, max_len):
     return np.stack(out, axis=1)
 
 
-ARCHS = ("smollm-360m", "granite-moe-3b-a800m")
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
