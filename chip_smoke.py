@@ -64,17 +64,34 @@ non-zero (no phase catches its own failure):
               two logits lie within 1e-3, and each such token is printed.
               Prints tokens/s, steps, ms per step, the LM-head launches per
               step and one decode iteration's time, captured and eager.
-  8. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  8. ring     the sequence-parallel attention layer (``nn/attention.
+              apply_seq_ring``, paper Fig. 6: AG-Q through the AG+GEMM
+              kernel, K / V projected locally and rotated over the ring with
+              flash attention consuming each tile, GEMM+RS out) at the full
+              width of smollm-360m (head dim 64, GQA padded to 8 KV heads,
+              the per-KV-group ring) and deepseek-moe-16b (16 / 16 heads of
+              128), W = 4, seeded weights: (a) float32, fused against eager
+              and against ``apply_seq``, 1e-4 of max; (b) bfloat16 fused
+              against float32 eager on the same weights, 2e-2 of max;
+              (c) the bf16 layer's counted run (4 x 256 tokens) with its
+              launches held exactly (steps x channels flash launches per
+              call), and the bf16 times of ``apply_seq_ring`` and
+              ``apply_seq`` at 4 x 256 and 1 x 8192 tokens (recorded).
+  9. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
               bound; and the paper's TP-MoE (``benchmarks/paper_moe.py``),
               Fig. 9 at MoE-1 and MoE-6, ``ag_moe`` on the grouped kernel
               against ``ag_moe_baseline`` on tensor-core GEMMs, the same
-              way, with peak memory, row tile and grouped launches.  Its
-              ranks share one card, so the numbers are not the paper's
-              multi-GPU speedups.
-  9. kernels  every kernel against its plain PyTorch version at the shapes
+              way, with peak memory, row tile and grouped launches; and the
+              paper's sequence-parallel attention
+              (``benchmarks/paper_attn.py``), Fig. 10 at Attn-1 (32 heads of
+              128) with S 16k and 32k, the fused ring against all-gather
+              then the same flash kernel, with comm-only, comp-only, the
+              overlap ratio and SDPA.  Its ranks share one card, so the
+              numbers are not the paper's multi-GPU speedups.
+  10. kernels  every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -99,10 +116,13 @@ non-zero (no phase catches its own failure):
               float32, the dtype its path gives it), with the route, grid G
               and work-item count of each launch (for flash attention the
               route by (dtype, head dim), CTAs and KV tiles visited; for the
-              SSD kernel its staging path and persistent grid).  It runs
-              after the serve phases: the profiler leaves host overhead
-              behind.
-  10. summary the launch counts of every path, the script's wall time,
+              SSD kernel its staging path and persistent grid); and flash
+              attention on one ring step at Fig. 10's Attn-1, 16k, W = 8
+              shape (all 8 ranks in one launch at their offsets, the state of
+              the step before carried in), against its plain version and
+              bitwise over 20 launches.  It runs after the serve phases: the
+              profiler leaves host overhead behind.
+  11. summary the launch counts of every path, the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +175,9 @@ ENGINE_CHUNK = 16  # the engine's prefill chunk (ServeEngine's default)
 NEAR_TIE = 1e-3  # (c): a token may differ from the reference argmax only within this logit gap
 PAPER_WORLD = 8
 PAPER_MOE_ROWS = ("MoE-1", "MoE-6")  # Fig. 9's rows in the paper phase (W = 8)
+PAPER_ATTN_ROWS = (("Attn-1", 16384), ("Attn-1", 32768))  # Fig. 10's rows in the paper phase (W = 8)
+RING_ARCHS = (ARCH, ARCH_DS)  # the ring phase's attention layers (head dim 64, GQA; head dim 128)
+RING_TOKENS = ((BATCH, PROMPT), (1, 8192))  # (batch, tokens) of the ring phase's timed bf16 layers
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -488,6 +511,54 @@ def _paper_moe_kernels(rnd, iters: int) -> dict:
     return recs
 
 
+def _ring_tile_kernels(rnd, iters: int) -> dict:
+    """Flash attention on one ring step at Fig. 10's Attn-1, S 16k, W = 8
+    (bf16, the wgmma route): q [8, 1, 32, 2048, 128] at rank offsets r x
+    2048, the KV tiles the ring plan holds at step 1, the state of step 0
+    (each rank's own tile) carried in, the output normalised.  The plain
+    version runs both steps in float32 from the same inputs; the bound counts
+    the pairs this step's masks leave visible; the library call is SDPA over
+    the same q and tile with no offsets and no state (no PyTorch call does
+    the step itself)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.configs.paper import PAPER_ATTN
+    from repro_torch.core.channels import BlockChannel
+    from repro_torch.core.plan import build_plan
+    from repro_torch.kernels.flash_attention import flash_attention_ranked, flash_attention_ranked_plain
+
+    heads, hd, seqs = PAPER_ATTN["Attn-1"]
+    w, s = PAPER_WORLD, seqs[0]
+    s_loc = s // w
+    q, k, v = (rnd(w, 1, heads, s_loc, hd, dtype=torch.bfloat16) for _ in range(3))
+    src = [build_plan("ag_attention", BlockChannel(axis="model"), w, 1).channels[0].source_table(t) for t in (0, 1)]
+    idx = [torch.tensor(t, device=q.device) for t in src]
+    kt, vt = [k[i] for i in idx], [v[i] for i in idx]
+    q_off = tuple(r * s_loc for r in range(w))
+    k_off = [tuple(x * s_loc for x in t) for t in src]
+    kw = dict(q_off=q_off, causal=True)
+    st = flash_attention_ranked(q, kt[0], vt[0], k_off=k_off[0], final=False, **kw)
+    f32 = [t.float() for t in (q, kt[0], vt[0], kt[1], vt[1])]
+    pst = flash_attention_ranked_plain(f32[0], f32[1], f32[2], k_off=k_off[0], final=False, **kw)
+    # visible (query, key) pairs of step 1 under the causal mask, per rank
+    pairs = sum(
+        s_loc * s_loc if ko < qo else (s_loc * (s_loc + 1) // 2 if ko == qo else 0) for qo, ko in zip(q_off, k_off[1])
+    )
+    isz, nq = 2, q.numel()
+    nbytes = isz * (2 * nq + kt[1].numel() + vt[1].numel()) + 4 * (st.o.numel() + st.m.numel() + st.l.numel())
+    qs, ks, vs = (t.reshape(w, heads, s_loc, hd) for t in (q, kt[1], vt[1]))
+    rec = _case(
+        f"flash_attention[ring step, Attn-1 S {s} W {w}] q{list(q.shape)} kv{list(kt[1].shape)} state in", torch.bfloat16,
+        lambda: flash_attention_ranked(q, kt[1], vt[1], k_off=k_off[1], state=st, **kw),
+        lambda: flash_attention_ranked_plain(f32[0], f32[3], f32[4], k_off=k_off[1], state=pst, **kw),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs),
+        4 * heads * hd * pairs, nbytes, iters, False, lambda: K.flash_attention.last_launch, bitwise=True,
+    )  # fmt: skip
+    return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
+
+
 def phase_kernels(iters: int):
     import torch
     import torch.nn.functional as F
@@ -591,6 +662,7 @@ def phase_kernels(iters: int):
             del x, w
 
     recs.update(_paper_moe_kernels(rnd, iters))
+    recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
     # --- every order x C in {1, 2} through both fused kernels at the smollm
     # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
@@ -1132,23 +1204,100 @@ def phase_engine(profile: bool = False) -> dict:
     return out
 
 
+def phase_ring() -> dict:
+    """The sequence-parallel attention layer (``apply_seq_ring``) at full
+    width: float32 fused vs eager vs ``apply_seq``, bf16 fused vs f32 eager,
+    the bf16 layer's counted run and its times."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_attention
+    from repro_torch.core.plan import build_plan
+    from repro_torch.nn import attention
+    from repro_torch.parallel.context import ParallelContext
+
+    world = World(WORLD, "cuda")
+    pc, pc_eager = ParallelContext(world=world), ParallelContext(world=world, backend="eager")
+    plan = build_plan("ag_attention", pc.channel, WORLD, pc.channel.num_channels)
+    per_call = plan.steps * plan.num_channels  # flash launches of one ring
+    out, counts = {}, {}
+    for arch in RING_ARCHS:
+        cfg = get_config(arch)
+        lay = attention.layout(cfg, WORLD)
+        gen = torch.Generator(device=world.device).manual_seed(0)
+        p16 = shard_attention(attention.init(cfg, WORLD, gen, torch.bfloat16, world.device), world)
+        p32 = _f32(p16)
+        gen = torch.Generator(device=world.device).manual_seed(1)
+        x = torch.randn((WORLD, BATCH, PROMPT // WORLD, cfg.d_model), generator=gen, device=world.device)
+        tag = f"[ring] {arch} (h_loc {lay.h_loc}, kv_pad {lay.kv_pad}, head dim {cfg.hd}, kv_select {lay.kv_pad > 1})"
+        # (a) float32: fused against eager, and the eager ring against apply_seq
+        y_f = attention.apply_seq_ring(p32, x, pc, cfg) - x
+        y_e = attention.apply_seq_ring(p32, x, pc_eager, cfg) - x
+        y_s = attention.apply_seq(p32, x, pc_eager, cfg) - x
+        e_fe, e_es, scale = (y_f - y_e).abs().max().item(), (y_e - y_s).abs().max().item(), y_e.abs().max().item()
+        print(
+            f"{tag} f32 [{WORLD}, {BATCH}, {PROMPT // WORLD}, {cfg.d_model}]: fused vs eager max|diff| {e_fe:.3e}, "
+            f"eager ring vs apply_seq {e_es:.3e} (bound {TOL['float32']:g} x max|eager| {scale:.3e})"
+        )
+        if not (torch.isfinite(y_f).all() and max(e_fe, e_es) <= TOL["float32"] * scale):
+            raise SystemExit(f"chip_smoke: {arch}'s f32 ring attention layer disagrees")
+        # (b) bfloat16 fused against float32 eager on the same weights
+        y_b = attention.apply_seq_ring(p16, x.bfloat16(), pc, cfg).float() - x.bfloat16().float()
+        y_r = attention.apply_seq_ring(p32, x.bfloat16().float(), pc_eager, cfg) - x.bfloat16().float()
+        e_b, scale_b = (y_b - y_r).abs().max().item(), y_r.abs().max().item()
+        print(f"{tag} bf16 fused vs f32 eager: max|diff| {e_b:.3e} (bound {TOL['bfloat16']:g} x max|ref| {scale_b:.3e})")
+        if not (torch.isfinite(y_b).all() and e_b <= TOL["bfloat16"] * scale_b):
+            raise SystemExit(f"chip_smoke: {arch}'s bf16 ring attention layer disagrees with f32 eager")
+        # (c) the counted bf16 run, then the times
+        xb = x.bfloat16()
+        attention.apply_seq_ring(p16, xb, pc, cfg)  # warm-up, not counted
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        attention.apply_seq_ring(p16, xb, pc, cfg)
+        torch.cuda.synchronize()
+        counts[arch] = K.launch_counts()
+        expect = {**{k: 0 for k in counts[arch]}, "ag_gemm": 1, "gemm_rs": 1, "flash_attention": per_call}
+        print(f"{tag} launch counts of one bf16 layer: {counts[arch]}")
+        if counts[arch] != expect:
+            raise SystemExit(f"chip_smoke: {arch}'s ring layer launched {counts[arch]}, expected {expect}")
+        times = {}
+        for b, s in RING_TOKENS:
+            xt = torch.randn((WORLD, b, s // WORLD, cfg.d_model), generator=gen, device=world.device).bfloat16()
+            times[f"{b}x{s}"] = {
+                "ring_ms": cuda_ms(lambda: attention.apply_seq_ring(p16, xt, pc, cfg), 10),
+                "seq_ms": cuda_ms(lambda: attention.apply_seq(p16, xt, pc, cfg), 10),
+            }
+            print(f"{tag} bf16 {b} x {s} tokens: apply_seq_ring {times[f'{b}x{s}']['ring_ms']:.3f} ms, "
+                  f"apply_seq {times[f'{b}x{s}']['seq_ms']:.3f} ms (recorded, not bounded)")  # fmt: skip
+            del xt
+        out[arch] = {"f32_fused_err": e_fe, "f32_seq_err": e_es, "bf16_err": e_b, "times": times}
+        del p16, p32, x, y_f, y_e, y_s, y_b, y_r
+        torch.cuda.empty_cache()
+    return {"layers": out, "counts": counts, "flash_per_call": per_call}
+
+
 def phase_paper() -> dict:
     from repro_torch import kernels as K
-    from repro_torch.benchmarks import paper_mlp, paper_moe
+    from repro_torch.benchmarks import paper_attn, paper_mlp, paper_moe
 
     print(f"[paper] {paper_mlp.CAVEAT}")
     K.reset_launch_counts()
     rows = [paper_mlp.fig8_row(name, PAPER_WORLD) for name in ("MLP-1", "MLP-6")] + paper_mlp.tab2_rows(PAPER_WORLD)
     rows_moe = [paper_moe.fig9_row(name, PAPER_WORLD) for name in PAPER_MOE_ROWS]
+    rows_attn = [paper_attn.fig10_row(name, s, PAPER_WORLD) for name, s in PAPER_ATTN_ROWS]
     counts = K.launch_counts()
     for r in rows:
         print(f"[paper] {paper_mlp.describe(r)}")
     for r in rows_moe:
         print(f"[paper] {paper_moe.describe(r)}")
+    for r in rows_attn:
+        print(f"[paper] {paper_attn.describe(r)}")
     print(f"[paper] launch counts: {counts}")
-    if not (counts["ag_gemm"] and counts["gemm_rs"] and counts["grouped_matmul"]):
+    if not (counts["ag_gemm"] and counts["gemm_rs"] and counts["grouped_matmul"] and counts["flash_attention"]):
         raise SystemExit("chip_smoke: the paper phase did not run the fused kernels")
-    return {"rows": rows + rows_moe, "counts": counts}
+    return {"rows": rows + rows_moe + rows_attn, "counts": counts}
 
 
 def _profile(params, cfg, pc, prompts, max_len):
@@ -1185,6 +1334,7 @@ def main(argv=None) -> int:
     out["deepseek"] = phase_deepseek(args.profile)
     out["ssm"] = phase_ssm(args.profile)
     out["engine"] = phase_engine(args.profile)
+    out["ring"] = phase_ring()
     out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
     # that would slow the host-bound prefill and decode of the phases above
@@ -1193,6 +1343,7 @@ def main(argv=None) -> int:
                ARCH_SSM: out["ssm"]["counts"]}  # fmt: skip
     by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
     by_path[f"engine {ARCH_DS}"] = out["deepseek"]["engine"]["counts"]
+    by_path.update({f"ring {arch}": c for arch, c in out["ring"]["counts"].items()})
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []

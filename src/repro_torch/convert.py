@@ -44,7 +44,8 @@ import torch
 from repro_torch.backend.mesh import World
 
 __all__ = [
-    "from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_mlp", "shard_mamba", "F32_LEAVES", "IN_ALIGN",
+    "from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp", "shard_mamba",
+    "F32_LEAVES", "IN_ALIGN",
 ]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
@@ -85,14 +86,7 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
         if "w_xz" in mixer:
             new = {"mixer": shard_mamba(mixer, world)}
         else:
-            wq, wkv = shard_cols(mixer["wq"], world), shard_cols(mixer["wkv"], world)
-            new = {
-                "mixer": {
-                    "ln": mixer["ln"],
-                    "wqkv": torch.cat([wq, wkv], dim=-1).contiguous(),
-                    "wo": shard_rows(mixer["wo"], world),
-                }
-            }
+            new = {"mixer": shard_attention(mixer, world)}
         if "ffn" in layer and "router" in layer["ffn"]:
             f = layer["ffn"]
             new["ffn"] = {
@@ -107,6 +101,13 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
             new["ffn"] = shard_mlp(layer["ffn"], world)
         out["layers"].append(new)
     return out
+
+
+def shard_attention(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """Global attention weights {ln, wq, wkv, wo} -> {ln, wqkv, wo}: each
+    rank's wq and wkv columns joined into one ``wqkv`` shard."""
+    wq, wkv = shard_cols(mixer["wq"], world), shard_cols(mixer["wkv"], world)
+    return {"ln": mixer["ln"], "wqkv": torch.cat([wq, wkv], dim=-1).contiguous(), "wo": shard_rows(mixer["wo"], world)}
 
 
 def shard_mlp(f: Dict[str, Any], world: World) -> Dict[str, Any]:

@@ -5,6 +5,7 @@ from repro_torch.core.channels import ORDERS, BlockChannel, CommSpec, CompSpec, 
 from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divisor, resolve_tile
 from repro_torch.core.compiler import BACKENDS, KINDS, compile_overlap, unsupported_error
 from repro_torch.core.mapping import cdiv, effective_channels
+from repro_torch.core.overlap import ag_attention_baseline, ring_attention
 from repro_torch.core.plan import ChannelSchedule, TilePlan, build_plan, plan_cache_info
 
 __all__ = [
@@ -22,6 +23,8 @@ __all__ = [
     "KINDS",
     "compile_overlap",
     "unsupported_error",
+    "ring_attention",
+    "ag_attention_baseline",
     "cdiv",
     "effective_channels",
     "ChannelSchedule",

@@ -1,7 +1,7 @@
 """TileLink frontend: compile ``(kind, BlockChannel)`` tile programs.
 
 The port's counterpart of ``repro/core/compiler.py`` for the single-kind
-forms ``ag_matmul``, ``matmul_rs`` and ``ag_moe``.  ``compile_overlap``
+forms ``ag_matmul``, ``matmul_rs``, ``ag_attention`` and ``ag_moe``.  ``compile_overlap``
 validates the (kind, backend) pair and returns a callable over
 rank-stacked operands; both backends execute the same :class:`~repro_torch.core.plan.TilePlan`:
 
@@ -14,8 +14,16 @@ rank-stacked operands; both backends execute the same :class:`~repro_torch.core.
                    communication kernel (nor has the JAX package's "pallas"
                    table): its permutes stay the eager executor's, and the
                    expert GEMMs run on the grouped kernel
-                   (``kernels/grouped_matmul.py``).  On CPU tensors the
-                   kernel wrappers run their plain versions.
+                   (``kernels/grouped_matmul.py``).  ``ag_attention``
+                   likewise: the JAX package's "pallas" table has no such
+                   kind (its AG-KV maps to the TPU's copy engine), so the
+                   port's fused form is the xla form with a hand-written
+                   consumer — the eager permutes of ``ring_attention``, and
+                   flash attention (``kernels/flash_attention.py``)
+                   consuming each arrived KV tile for every rank in one
+                   launch per step and channel, its state carried between
+                   launches.  On CPU tensors the kernel wrappers run their
+                   plain versions.
 
 ``overlapped=False`` selects the non-overlapped baselines (eager only, as
 in the JAX package).  Any other kind, and the fused backend without
@@ -35,7 +43,7 @@ from repro_torch.core.channels import BlockChannel
 
 __all__ = ["compile_overlap", "unsupported_error", "KINDS", "BACKENDS"]
 
-KINDS = ("ag_matmul", "matmul_rs", "ag_moe")  # on both backends
+KINDS = ("ag_matmul", "matmul_rs", "ag_attention", "ag_moe")  # on both backends
 BACKENDS = ("eager", "fused")
 
 
@@ -57,7 +65,8 @@ def compile_overlap(
     **kw,
 ) -> Callable:
     """Compile a tile program for ``world``; returns ``fn(x, w) -> out``
-    (``fn(x, ids, wts, w_gu, w_down) -> out`` for ``ag_moe``)."""
+    (``fn(q, k, v) -> out`` for ``ag_attention``, ``fn(x, ids, wts, w_gu,
+    w_down) -> out`` for ``ag_moe``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if not isinstance(channel, BlockChannel):
@@ -71,12 +80,16 @@ def compile_overlap(
             ("ag_matmul", False): _eager.ag_matmul_baseline,
             ("matmul_rs", True): _eager.matmul_rs,
             ("matmul_rs", False): _eager.matmul_rs_baseline,
+            ("ag_attention", True): _eager.ring_attention,
+            ("ag_attention", False): _eager.ag_attention_baseline,
             ("ag_moe", True): _moe.ag_moe,
             ("ag_moe", False): _moe.ag_moe_baseline,
         }
         return functools.partial(table[(kind, overlapped)], world=world, channel=channel, **kw)
     if kind == "ag_moe":
         return functools.partial(_moe.ag_moe, world=world, channel=channel, grouped=True, **kw)
+    if kind == "ag_attention":
+        return functools.partial(_eager.ring_attention, world=world, channel=channel, fused=True, **kw)
 
     from repro_torch import kernels as _k
 

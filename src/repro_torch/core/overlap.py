@@ -8,9 +8,11 @@ plain PyTorch.  It is the reference the fused Hopper kernels are held
 against, and the model path when ``ParallelContext(backend="eager")``.
 
 There is exactly one schedule loop here, :func:`run_plan`; ``ag_matmul``
-and ``matmul_rs`` are GEMM callbacks plugged into it, and so is the AG+MoE
-double ring (``core/moe_overlap.ag_moe``).  The non-overlapped
-baselines (gather then GEMM; GEMM then reduce-scatter) sit beside them.
+and ``matmul_rs`` are GEMM callbacks plugged into it, ``ring_attention``
+(AG-KV + online softmax, paper Fig. 6) an attention callback, and so is the
+AG+MoE double ring (``core/moe_overlap.ag_moe``).  The non-overlapped
+baselines (gather then GEMM; GEMM then reduce-scatter; gather the KV then
+one attention) sit beside them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.backend.mesh import World
 from repro_torch.core.channels import BlockChannel
-from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot
+from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divisor
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 
@@ -33,6 +35,8 @@ __all__ = [
     "ag_matmul_baseline",
     "matmul_rs",
     "matmul_rs_baseline",
+    "ring_attention",
+    "ag_attention_baseline",
     "plan_for",
     "rank_rows",
 ]
@@ -274,3 +278,251 @@ def matmul_rs_baseline(x, w, *, world: World, out_dtype=None, channel=None):
     out_dtype = out_dtype or x.dtype
     part = _baseline_dot(x, w, torch.float32)  # float32 partials into the reduction
     return world.reduce_scatter(part, dim=part.dim() - 3).to(out_dtype)
+
+
+# -----------------------------------------------------------------------------
+# AG-KV + self-attention  (paper Fig. 6) — sequence parallel
+# -----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingGeometry:
+    """Per-rank placement of a sequence-parallel attention: query offsets,
+    and the KV head group each rank reads (``kv_select``)."""
+
+    q_off: Tuple[int, ...]
+    kv_start: Tuple[int, ...]
+    kv_need: int
+    rep: int
+
+
+def _check_attention(q, k, v, world: World, what: str):
+    if q.dim() != 5 or k.dim() != 5 or k.shape != v.shape or q.shape[0] != world.size:
+        raise ValueError(
+            f"{what}: expected q [W, B, H, Sq, D] and k/v [W, B, Hkv, s_loc, D] with W={world.size}, "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if k.shape[:2] != q.shape[:2] or k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"{what}: q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+
+
+def _kv_groups(size: int, h: int, hkv: int, kv_select: bool, what: str):
+    """(first KV head per rank, heads read, query heads per KV head): with
+    ``kv_select`` rank r reads ``max(1, Hkv / W)`` heads from
+    ``(r // share) * kv_need`` (``share = max(1, W / Hkv)`` ranks per group),
+    else all Hkv."""
+    if kv_select:
+        kv_need = max(1, hkv // size)
+        share = max(1, size // hkv)
+        starts = tuple((r // share) * kv_need for r in range(size))
+    else:
+        kv_need, starts = hkv, (0,) * size
+    if h % kv_need:
+        raise ValueError(f"{what}: {h} query heads do not group over {kv_need} KV heads")
+    return starts, kv_need, h // kv_need
+
+
+def _ring_geometry(size: int, h: int, hkv: int, sq: int, s_loc: int, kv_select: bool) -> _RingGeometry:
+    if sq == s_loc:
+        q_off = tuple(r * s_loc for r in range(size))  # queries sharded like the KV: rank offset
+    elif sq == size * s_loc:
+        q_off = (0,) * size  # gathered queries: the full global range
+    else:
+        raise ValueError(
+            f"ring_attention: query rows {sq} must equal the KV shard rows "
+            f"{s_loc} or the gathered extent {size * s_loc}"
+        )
+    starts, kv_need, rep = _kv_groups(size, h, hkv, kv_select, "ring_attention")
+    return _RingGeometry(q_off, starts, kv_need, rep)
+
+
+def _select_heads(x: torch.Tensor, starts: Sequence[int], need: int) -> torch.Tensor:
+    """Per-rank head slice: ``out[r] = x[r, :, starts[r]:starts[r]+need]``."""
+    if need == x.shape[2]:
+        return x
+    return torch.stack([x[r, :, s : s + need] for r, s in enumerate(starts)])
+
+
+def _online_update(q_blk, qp, kr, vr, kp, carry, causal, window, accum):
+    """One online-softmax update of (m, l, o) with the reference's guards:
+    -inf masks, fully masked rows kept at m = -inf without a NaN."""
+    m_i, l_i, o_i = carry
+    scores = torch.matmul(q_blk, kr.float().transpose(-1, -2)).to(accum).float()
+    mask = None
+    if causal:
+        mask = qp[:, :, None] >= kp[:, None, :]
+    if window is not None:
+        wmask = (qp[:, :, None] - kp[:, None, :]) < window
+        mask = wmask if mask is None else mask & wmask
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores, float("-inf"))
+    m_new = torch.maximum(m_i, scores.amax(-1, keepdim=True))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    p = torch.exp(torch.where(torch.isfinite(scores), scores - m_safe, float("-inf")))
+    alpha = torch.exp(torch.where(torch.isfinite(m_i), m_i - m_safe, float("-inf")))
+    l_new = l_i * alpha + p.sum(-1, keepdim=True)
+    o_new = o_i * alpha + torch.matmul(p, vr.float())
+    return m_new, l_new, o_new
+
+
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    world: World,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    channel: Optional[BlockChannel] = None,
+    kv_select: bool = False,
+    fused: bool = False,
+) -> torch.Tensor:
+    """Overlapped sequence-parallel attention with online softmax.
+
+    ``k``/``v``: [W, B, Hkv, s_loc, D] (sequence sharded over the ranks);
+    ``q``: [W, B, H, s_loc, D] (sharded alongside the KV) or [W, B, H,
+    W * s_loc, D] (already gathered: the AG-Q + ring-KV layer form).  KV
+    tiles rotate per the plan's order (``num_channels`` splits each shard's
+    KV along the sequence into independent flows) while an online softmax
+    consumes each arrived tile; its (m, l, o) state is ``run_plan``'s carry.
+    ``causal`` and ``window`` mask with global positions.  ``kv_select`` is
+    the per-KV-group GQA ring: the tiles carry every KV head, and rank r
+    consumes only its group (``max(1, Hkv / W)`` heads from ``(r // share) *
+    kv_need``).  Returns [W, B, H, Sq, D] in q's dtype.
+
+    ``fused=False`` (the eager backend, and the oracle): the reference's
+    math, f32 scores in the accum dtype, -inf masks with ``isfinite`` guards,
+    and a non-default CompSpec tile blocking the update as (block_q,
+    block_kv).  ``fused=True``: the same permutes, and flash attention
+    (``kernels/flash_attention.flash_attention_ranked``) consumes each held
+    tile for all W ranks in one launch per (step, channel), carrying its
+    float32 state from launch to launch; the last launch normalises.  The
+    kernel keeps its own 64 x 64 blocking.  On CPU tensors the kernel
+    wrapper runs its plain version.
+    """
+    _check_attention(q, k, v, world, "ring_attention")
+    channel = channel or BlockChannel(axis="model")
+    size, b, h, sq, d = q.shape
+    hkv, s_loc = k.shape[2], k.shape[3]
+    scale = scale if scale is not None else d**-0.5
+    plan = plan_for("ag_attention", channel, size, s_loc)
+    geo = _ring_geometry(size, h, hkv, sq, s_loc, kv_select)
+    nch = plan.num_channels
+    s_sub = s_loc // nch
+    chunks = [(k[..., c * s_sub : (c + 1) * s_sub, :], v[..., c * s_sub : (c + 1) * s_sub, :]) for c in range(nch)]
+
+    if fused:
+        from repro_torch.kernels.flash_attention import flash_attention_ranked
+
+        chunks = [(kc.contiguous(), vc.contiguous()) for kc, vc in chunks]  # the kernel reads whole tiles
+
+        def kernel_tile(ctx, kv, state):
+            kc, vc = kv
+            k_off = tuple(src * s_loc + ctx.channel * s_sub for src in ctx.src)
+            last = ctx.step == plan.steps - 1 and ctx.channel == nch - 1
+            return flash_attention_ranked(
+                q, kc, vc, q_off=geo.q_off, k_off=k_off, kv_start=geo.kv_start, kv_need=geo.kv_need,
+                causal=causal, window=window, scale=scale, state=state, final=last,
+            )  # fmt: skip
+
+        return run_plan(plan, world, kernel_tile, state=chunks, carry=None)
+
+    accum = plan.accum_dtype
+    comp_tile = tuple(channel.comp.tile)
+    if comp_tile != DEFAULT_TILE:
+        # CompSpec tile: (tm, ., tk) -> (block_q, block_kv), clamped to divisors
+        bq, bk = largest_divisor(sq, comp_tile[0]), largest_divisor(s_sub, comp_tile[2])
+    else:
+        bq, bk = sq, s_sub
+    q32 = (q * scale).float()
+    dev = q.device
+    q_pos = torch.tensor(geo.q_off, device=dev)[:, None] + torch.arange(sq, device=dev)  # [W, Sq]
+    carry0 = (
+        torch.full((size, b, h, sq, 1), float("-inf"), device=dev),
+        torch.zeros((size, b, h, sq, 1), device=dev),
+        torch.zeros((size, b, h, sq, d), device=dev),
+    )
+
+    def softmax_tile(ctx, kv, carry):
+        kc, vc = kv
+        k0 = torch.tensor([src * s_loc + ctx.channel * s_sub for src in ctx.src], device=dev)
+        k_pos = k0[:, None] + torch.arange(s_sub, device=dev)  # [W, s_sub] global key positions
+        kc, vc = _select_heads(kc, geo.kv_start, geo.kv_need), _select_heads(vc, geo.kv_start, geo.kv_need)
+        kr = kc.repeat_interleave(geo.rep, dim=2) if geo.rep > 1 else kc
+        vr = vc.repeat_interleave(geo.rep, dim=2) if geo.rep > 1 else vc
+        if bq == sq and bk == s_sub:
+            return _online_update(q32, q_pos, kr, vr, k_pos, carry, causal, window, accum)
+        # blocked consumer: query blocks update independently; KV blocks fold
+        # in order through the same rescaling, so any (bq, bk) gives the same result
+        outs = []
+        for qi in range(0, sq, bq):
+            blk = tuple(t[..., qi : qi + bq, :] for t in carry)
+            for ki in range(0, s_sub, bk):
+                blk = _online_update(
+                    q32[..., qi : qi + bq, :], q_pos[:, qi : qi + bq], kr[..., ki : ki + bk, :],
+                    vr[..., ki : ki + bk, :], k_pos[:, ki : ki + bk], blk, causal, window, accum,
+                )  # fmt: skip
+            outs.append(blk)
+        return tuple(torch.cat([o[i] for o in outs], dim=-2) for i in range(3))
+
+    _m, l_f, o_f = run_plan(plan, world, softmax_tile, state=chunks, carry=carry0)
+    return (o_f / torch.clamp(l_f, min=1e-30)).to(q.dtype)
+
+
+def ag_attention_baseline(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    world: World,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    kv_select: bool = False,
+    channel: Optional[BlockChannel] = None,
+) -> torch.Tensor:
+    """Non-overlapping reference: all-gather the KV, then one attention per
+    rank over it (queries sharded alongside the KV, or gathered when they
+    span the whole sequence; ``kv_select`` as in :func:`ring_attention`).
+
+    On the CPU the attention is the reference's dense form (f32 scores, -inf
+    masks, the ``isfinite`` guard).  On the card it is one flash-attention
+    launch over the gathered KV (the dense f32 scores of the paper's long
+    sequences do not fit: [W, H, S / W, S] floats), as the GEMM baselines
+    run tensor-core GEMMs there.
+    """
+    _check_attention(q, k, v, world, "ag_attention_baseline")
+    size, b, h, sq, d = q.shape
+    hkv, s_loc = k.shape[2], k.shape[3]
+    s_glob = size * s_loc
+    kg, vg = world.all_gather(k, dim=2), world.all_gather(v, dim=2)  # [W, B, Hkv, S, D]
+    starts, kv_need, rep = _kv_groups(size, h, hkv, kv_select and size > 1, "ag_attention_baseline")
+    scale = scale if scale is not None else d**-0.5
+    q_off = tuple(0 if sq == s_glob else r * s_loc for r in range(size))
+    if q.is_cuda:
+        from repro_torch.kernels.flash_attention import flash_attention_ranked
+
+        return flash_attention_ranked(
+            q, kg.contiguous(), vg.contiguous(), q_off=q_off, k_off=(0,) * size, kv_start=starts, kv_need=kv_need,
+            causal=causal, window=window, scale=scale,
+        )  # fmt: skip
+    kg, vg = _select_heads(kg, starts, kv_need), _select_heads(vg, starts, kv_need)
+    if rep > 1:
+        kg, vg = kg.repeat_interleave(rep, dim=2), vg.repeat_interleave(rep, dim=2)
+    scores = torch.matmul((q * scale).float(), kg.float().transpose(-1, -2))  # [W, B, H, Sq, S]
+    q_pos = torch.tensor(q_off, device=q.device)[:, None] + torch.arange(sq, device=q.device)
+    k_pos = torch.arange(s_glob, device=q.device)
+    mask = None
+    if causal:
+        mask = q_pos[:, :, None] >= k_pos[None, None, :]
+    if window is not None:
+        wmask = (q_pos[:, :, None] - k_pos[None, None, :]) < window
+        mask = wmask if mask is None else mask & wmask
+    if mask is not None:
+        scores = torch.where(mask[:, None, None], scores, float("-inf"))
+    m = scores.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(scores - m)
+    out = torch.matmul(p, vg.float()) / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return out.to(q.dtype)

@@ -1,9 +1,10 @@
 """Tile-program plans — the IR between ``BlockChannel`` and the executors.
 
 The port's counterpart of ``repro/core/plan.py`` for the single-op kinds
-``ag_matmul`` (flow "ag"), ``matmul_rs`` (flow "rs") and ``ag_moe`` (flow
-"ag_rs": token tiles flow as in "ag" and a reduction rides the same
-permutes, then one ``align_perm`` hop sends it home).  ``compile_overlap`` builds a :class:`TilePlan` from
+``ag_matmul`` and ``ag_attention`` (flow "ag": the KV tiles of the ring),
+``matmul_rs`` (flow "rs") and ``ag_moe`` (flow "ag_rs": token tiles flow as
+in "ag" and a reduction rides the same permutes, then one ``align_perm`` hop
+sends it home).  ``compile_overlap`` builds a :class:`TilePlan` from
 ``(kind, BlockChannel, world)`` and hands it to the eager schedule executor
 (``core/overlap.run_plan``) or to the fused Hopper kernels, which read the
 same per-(channel, step, rank) tables from device memory.
@@ -38,6 +39,7 @@ __all__ = ["ChannelSchedule", "TilePlan", "PlanError", "build_plan", "plan_cache
 
 FLOW_OF_KIND = {
     "ag_matmul": "ag",
+    "ag_attention": "ag",
     "matmul_rs": "rs",
     "ag_moe": "ag_rs",
 }

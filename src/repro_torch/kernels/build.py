@@ -71,12 +71,12 @@ _SIGNATURES = {
     "tl_ag_gemm_wgmma": "pppppppp" + "iiiiiii" + "p",
     # bfloat16: acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub, stream
     "tl_gemm_rs_wgmma": "i" + "pppppppp" + "iiiiiii" + "p",
-    # dtype, q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, stream
-    "tl_flash_attention": "i" + "pppp" + "iiiii" + "f" + "ii" + "p",
+    # dtype, q, k, v, o, m, l, so, BH, BHkv, Sq, Sk, D, scale, causal, window, W, map, load, store, stream
+    "tl_flash_attention": "i" + "ppppppp" + "iiiii" + "f" + "ii" + "i" + "p" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream
     "tl_grouped_matmul": "ii" + "ppppp" + "iiiii" + "p",
-    # bfloat16: q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, info, stream
-    "tl_flash_attention_wgmma": "pppp" + "iiiii" + "f" + "ii" + "p" + "p",
+    # bfloat16: q, k, v, o, m, l, so, BH, BHkv, Sq, Sk, D, scale, causal, window, W, map, load, store, info, stream
+    "tl_flash_attention_wgmma": "ppppppp" + "iiiii" + "f" + "ii" + "i" + "p" + "ii" + "p" + "p",
     # dtype, cum, cb, xdt, y, T, Q, P, info, stream
     "tl_ssd_intra_chunk": "i" + "pppp" + "iii" + "p" + "p",
 }

@@ -16,12 +16,20 @@
 // the 16 threads of a row group with warp shuffles, P staged in shared
 // memory, then O += P V (each thread 4 rows x D/16 columns).
 //
+// Ring steps (flash_map.cuh): one launch may cover W emulated ranks with
+// their own position and KV head offsets, and carry the f32 state (m, l, O;
+// m in natural-log units, the scale folded into Q) in from the previous
+// launch and out to the next instead of O / l.  A row that met no visible key
+// keeps m = -1e30 and is wiped by its first one (alpha = exp(-1e30 - m) = 0).
+//
 // Bound on this card: the QK^T and PV products (4 * Sq * Sk_visible * D
 // flops per head) on fp32 FMA, plus the exponentials; K and V tiles are read
 // once per q tile, so bytes are ~Sk*D*(Sq/64) per head — FMA-bound at D = 64.
 #include <cfloat>
 
 #include "tile_gemm.cuh"
+// after tile_gemm.cuh (the CUDA runtime)
+#include "flash_map.cuh"
 
 constexpr int FA_BQ = 64;
 constexpr int FA_BK = 64;
@@ -35,8 +43,8 @@ constexpr int fa_smem_floats() {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FA_THREADS)
-    fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o, int BH,
-              int BHkv, int Sq, int Sk, float scale, int causal, int window) {
+    fa_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o, int Sq,
+              int Sk, float scale, int causal, int window, const __grid_constant__ FaMap fmap, const FaState st) {
   extern __shared__ __align__(16) float fa_smem[];
   constexpr int QS = D + 4, KS = FA_BK + 4, VS = D + 4, PS = FA_BK + 4;
   constexpr int DC = D / 16;  // output columns per thread
@@ -45,10 +53,9 @@ __global__ void __launch_bounds__(FA_THREADS)
   float* Vs = Kt + D * KS;         // [BK][VS]
   float* Ps = Vs + FA_BK * VS;     // [BQ][PS]   probabilities
 
-  const int bh = blockIdx.y;
+  int bh, bkv, off;  // off: query row 0's position less key 0's
+  fa_place(fmap, blockIdx.y, bh, bkv, off);
   const int q0 = blockIdx.x * FA_BQ;
-  const int bkv = bh / (BH / BHkv);
-  const int off = Sk - Sq;
   const int tid = threadIdx.x;
   const int tr = tid / 16;
   const int tc = tid % 16;
@@ -68,6 +75,14 @@ __global__ void __launch_bounds__(FA_THREADS)
     l_i[a] = 0.f;
 #pragma unroll
     for (int dd = 0; dd < DC; ++dd) acc[a][dd] = 0.f;
+    const int i = q0 + tr * 4 + a;
+    if (st.load && i < Sq) {  // the carried state
+      const long row = static_cast<long>(bh) * Sq + i;
+      m_i[a] = st.m[row];
+      l_i[a] = st.l[row];
+#pragma unroll
+      for (int dd = 0; dd < DC; ++dd) acc[a][dd] = st.o[row * D + tc + 16 * dd];
+    }
   }
 
   // KV tiles that hold at least one visible key for some query of this tile
@@ -156,6 +171,21 @@ __global__ void __launch_bounds__(FA_THREADS)
     }
   }
 
+  if (st.store) {  // the state for the next launch, unnormalised
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = q0 + tr * 4 + a;
+      if (i >= Sq) continue;
+      const long row = static_cast<long>(bh) * Sq + i;
+      if (tc == 0) {
+        st.m[row] = m_i[a];
+        st.l[row] = l_i[a];
+      }
+#pragma unroll
+      for (int dd = 0; dd < DC; ++dd) st.o[row * D + tc + 16 * dd] = acc[a][dd];
+    }
+    return;
+  }
   T* ob = o + static_cast<long>(bh) * Sq * D;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -168,38 +198,49 @@ __global__ void __launch_bounds__(FA_THREADS)
 }
 
 template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq, int Sk,
-                  float scale, int causal, int window, cudaStream_t st) {
+static int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk, float scale,
+                  int causal, int window, const FaMap& fmap, const FaState& fst, cudaStream_t st) {
   const size_t smem = sizeof(float) * fa_smem_floats<D>();
   cudaError_t e = cudaFuncSetAttribute(fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((Sq + FA_BQ - 1) / FA_BQ, BH);
   fa_kernel<T, D><<<grid, FA_THREADS, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                                  static_cast<const T*>(v), static_cast<T*>(o), BH, BHkv, Sq, Sk,
-                                                  scale, causal, window);
+                                                  static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, scale, causal,
+                                                  window, fmap, fst);
   return static_cast<int>(cudaGetLastError());
 }
 
 // WIDE: head dims 64 and 128 too (float32; bf16 takes them on the wgmma route)
 template <typename T, bool WIDE>
-static int dispatch_d(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq, int Sk, int D,
-                      float scale, int causal, int window, cudaStream_t st) {
-  if (D == 16) return launch<T, 16>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-  if (D == 32) return launch<T, 32>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
+static int dispatch_d(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk, int D,
+                      float scale, int causal, int window, const FaMap& fmap, const FaState& fst, cudaStream_t st) {
+  if (D == 16) return launch<T, 16>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
+  if (D == 32) return launch<T, 32>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
   if constexpr (WIDE) {
-    if (D == 64) return launch<T, 64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
-    if (D == 128) return launch<T, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, st);
+    if (D == 64) return launch<T, 64>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
+    if (D == 128) return launch<T, 128>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // dtype: 0 = float32 (D 16, 32, 64, 128), 1 = bfloat16 (D 16, 32; 64 and 128
-// run tl_flash_attention_wgmma)
-extern "C" int tl_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                                  int Sq, int Sk, int D, float scale, int causal, int window, void* stream) {
+// run tl_flash_attention_wgmma).  map places W ranks' heads and positions
+// (flash_map.cuh); m / l / so are the f32 state (load: read it; store: write
+// it instead of o; null when neither).
+extern "C" int tl_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                                  void* so, int BH, int BHkv, int Sq, int Sk, int D, float scale, int causal,
+                                  int window, int W, const void* map, int load, int store, void* stream) {
+  if (BH < 1 || BHkv < 1 || Sq < 1 || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  FaMap fmap;
+  int rc = fa_make_map(&fmap, static_cast<const int*>(map), W, BH, BHkv);
+  if (rc != 0) return rc;
+  const FaState fst{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(so), load, store};
+  if ((load || store) && (m == nullptr || l == nullptr || so == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!store && o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float, true>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, false>(q, k, v, o, BH, BHkv, Sq, Sk, D, scale, causal, window, st);
+  if (dtype == 0) return dispatch_d<float, true>(q, k, v, o, BH, Sq, Sk, D, scale, causal, window, fmap, fst, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, false>(q, k, v, o, BH, Sq, Sk, D, scale, causal, window, fmap, fst, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

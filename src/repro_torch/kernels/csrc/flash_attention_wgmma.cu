@@ -38,6 +38,15 @@
 //     query's window.  Masked entries take -1e30 (as the plain version),
 //     keys past Sk take p = 0.
 //
+// Ring steps (flash_map.cuh): one launch may cover W emulated ranks, each
+// with its own query / key position offset and KV head offset; the block skip
+// and the masks take the rank's offset, blockIdx.y walks the ranks busiest
+// first.  The f32 state (m in the log2 domain, l, O) can come in from the
+// previous launch and go out to the next instead of O / l: a row that met no
+// visible key yet keeps m = -1e30 (its l and O hold the masked keys' p = 1),
+// and the first visible key wipes it (alpha = exp2(-1e30 - m) = 0); the
+// kernel never divides a carried state except at the last launch.
+//
 // Numerics: P in bf16 before P V is what the reference's attn_p_bf16 option
 // does on its unfused path; l sums the f32 P.  No atomics, a fixed order:
 // relaunches are bitwise equal.
@@ -48,6 +57,8 @@
 // and at 256 keys a CTA visits at most 4 KV tiles: the kernel is latency-
 // bound (TMA round trips, the softmax between the two products).
 #include "wgmma_tile.cuh"
+// after wgmma_tile.cuh (the CUDA runtime)
+#include "flash_map.cuh"
 
 constexpr int FW_BQ = 64;
 constexpr int FW_BK = 64;
@@ -150,8 +161,9 @@ __device__ __forceinline__ FwRange fw_range(int q0, int Sk, int off, int causal,
 template <int D>
 __global__ void __launch_bounds__(FW_THREADS)
     fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-                    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int BH, int BHkv,
-                    int Sq, int Sk, float scale_log2, int causal, int window) {
+                    const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
+                    float scale_log2, int causal, int window, const __grid_constant__ FaMap fmap,
+                    const FaState st) {
   using SM = FwSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * FW_STAGES + 1];
@@ -162,10 +174,9 @@ __global__ void __launch_bounds__(FW_THREADS)
   uint8_t* q_s = smem_raw + ((1024 - (base & 1023)) & 1023);
   uint8_t* ring = q_s + SM::Q_BYTES;
 
-  const int bh = blockIdx.y;
+  int bh, bkv, off;  // off: query row 0's position less key 0's
+  fa_place(fmap, blockIdx.y, bh, bkv, off);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FW_BQ;  // the longest KV ranges first
-  const int bkv = bh / (BH / BHkv);
-  const int off = Sk - Sq;
   const FwRange r = fw_range(q0, Sk, off, causal, window);
 
   if (threadIdx.x == 0) {
@@ -177,10 +188,22 @@ __global__ void __launch_bounds__(FW_THREADS)
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  if (r.n == 0) {  // no visible key (Sq > Sk, causal): the plain version's zero rows
+  if (r.n == 0) {  // no visible key: the state passes through, or the rows are final
+    if (st.store && st.load) return;
     for (int e = threadIdx.x; e < FW_BQ * D; e += FW_THREADS) {
       const int i = e / D;
-      if (q0 + i < Sq) o[(static_cast<long>(bh) * Sq + q0 + i) * D + e % D] = __float2bfloat16(0.f);
+      if (q0 + i >= Sq) continue;
+      const long row = static_cast<long>(bh) * Sq + q0 + i;
+      if (st.store) {  // a fresh state: nothing seen yet
+        st.o[row * D + e % D] = 0.f;
+        if (e % D == 0) {
+          st.m[row] = FW_NEG;
+          st.l[row] = 0.f;
+        }
+      } else {  // the plain version's zero rows, or the carried state normalised
+        const float val = st.load ? st.o[row * D + e % D] / fmaxf(st.l[row], 1e-30f) : 0.f;
+        o[row * D + e % D] = __float2bfloat16(val);
+      }
     }
     return;
   }
@@ -214,6 +237,25 @@ __global__ void __launch_bounds__(FW_THREADS)
 #pragma unroll
   for (int j = 0; j < OACC; ++j) oacc[j] = 0.f;
   float m_r[2] = {FW_NEG, FW_NEG}, l_r[2] = {0.f, 0.f};
+  if (st.load) {  // the carried state; l whole in lane 0 of each quad (summed over the quad at the end)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rl + 8 * h;
+      if (row < Sq) {
+        m_r[h] = st.m[static_cast<long>(bh) * Sq + row];
+        if ((t & 3) == 0) l_r[h] = st.l[static_cast<long>(bh) * Sq + row];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < OACC; j += 2) {
+      const int row = q0 + rl + 8 * ((j >> 1) & 1);
+      if (row < Sq) {
+        const float2 p = *reinterpret_cast<const float2*>(st.o + (static_cast<long>(bh) * Sq + row) * D + cl + 8 * (j >> 2));
+        oacc[j] = p.x;
+        oacc[j + 1] = p.y;
+      }
+    }
+  }
   const int qpos0 = q0 + rl + off;  // key position of row rl (row rl + 8: + 8)
   const bool signal = (t & 31) == 0;
   const uint32_t q_addr = wg_smem(q_s);
@@ -314,6 +356,25 @@ __global__ void __launch_bounds__(FW_THREADS)
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[h] = 1.f / fmaxf(l, 1e-30f);
+    l_r[h] = l;
+  }
+  if (st.store) {  // the state for the next launch, unnormalised
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + rl + 8 * h;
+      if (row < Sq && (t & 3) == 0) {
+        st.m[static_cast<long>(bh) * Sq + row] = m_r[h];
+        st.l[static_cast<long>(bh) * Sq + row] = l_r[h];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < OACC; j += 2) {
+      const int row = q0 + rl + 8 * ((j >> 1) & 1);
+      if (row < Sq)
+        *reinterpret_cast<float2*>(st.o + (static_cast<long>(bh) * Sq + row) * D + cl + 8 * (j >> 2)) =
+            make_float2(oacc[j], oacc[j + 1]);
+    }
+    return;
   }
   __nv_bfloat16* ob = o + static_cast<long>(bh) * Sq * D;
 #pragma unroll
@@ -329,7 +390,8 @@ __global__ void __launch_bounds__(FW_THREADS)
 
 template <int D>
 static int fw_launch(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq, int Sk,
-                     float scale, int causal, int window, int* info, cudaStream_t st) {
+                     float scale, int causal, int window, const FaMap& fmap, const FaState& fst, int* info,
+                     cudaStream_t st) {
   CUtensorMap mq, mk, mv;
   const cuuint64_t dq[3] = {(cuuint64_t)D, (cuuint64_t)Sq, (cuuint64_t)BH};
   const cuuint64_t dk[3] = {(cuuint64_t)D, (cuuint64_t)Sk, (cuuint64_t)BHkv};
@@ -350,20 +412,30 @@ static int fw_launch(const void* q, const void* k, const void* v, void* o, int B
   const dim3 grid((Sq + FW_BQ - 1) / FW_BQ, BH);
   info[0] = static_cast<int>(grid.x * grid.y);
   const float scale_log2 = scale * 1.4426950408889634f;
-  fa_wgmma_kernel<D><<<grid, FW_THREADS, FwSmem<D>::BYTES, st>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), BH,
-                                                                  BHkv, Sq, Sk, scale_log2, causal, window);
+  fa_wgmma_kernel<D><<<grid, FW_THREADS, FwSmem<D>::BYTES, st>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk,
+                                                                  scale_log2, causal, window, fmap, fst);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 q [BH, Sq, D], k/v [BHkv, Sk, D] -> o; D 64 or 128; bases 16-byte
-// aligned (TMA).  info (host int[1]) receives the number of CTAs.
-extern "C" int tl_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int BH, int BHkv,
-                                        int Sq, int Sk, int D, float scale, int causal, int window, void* info,
+// aligned (TMA).  map (host int table, flash_map.cuh) places W ranks' heads
+// and positions; m / l / so are the f32 state (load: read it; store: write
+// it instead of o; null when neither).  info (host int[1]) receives the
+// number of CTAs.
+extern "C" int tl_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, void* m, void* l,
+                                        void* so, int BH, int BHkv, int Sq, int Sk, int D, float scale, int causal,
+                                        int window, int W, const void* map, int load, int store, void* info,
                                         void* stream) {
-  if (BH < 1 || BHkv < 1 || BH % BHkv || Sq < 1 || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (BH < 1 || BHkv < 1 || Sq < 1 || Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  FaMap fmap;
+  int rc = fa_make_map(&fmap, static_cast<const int*>(map), W, BH, BHkv);
+  if (rc != 0) return rc;
+  const FaState fst{static_cast<float*>(m), static_cast<float*>(l), static_cast<float*>(so), load, store};
+  if ((load || store) && (m == nullptr || l == nullptr || so == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!store && o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* inf = static_cast<int*>(info);
-  if (D == 64) return fw_launch<64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, inf, st);
-  if (D == 128) return fw_launch<128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, inf, st);
+  if (D == 64) return fw_launch<64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
+  if (D == 128) return fw_launch<128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,6 +9,12 @@ With ``pc.backend == "fused"`` attention is the flash kernel (the JAX
 package runs its XLA twin ``chunked_attention`` here); with ``"eager"`` it
 is ``chunked_attention``, the kernel's plain version.
 
+Sequence-parallel prefill (``apply_seq_ring``, paper Fig. 6 layer form):
+only the query projection goes through the AG+GEMM producer; K/V project
+locally on each rank's sequence shard and rotate through
+``pc.ring_attention`` (flash attention consuming each arrived tile on the
+fused backend); the output projection is the same GEMM+RS consumer.
+
 Decode (``apply_decode``): activations are replicated over the ranks, the
 projections are local per-rank matmuls with a ``psum`` epilogue, and the KV
 cache ``[W, B, kv_loc, S_max, hd]`` is sharded over heads.  The chunk's k/v
@@ -24,7 +30,7 @@ import torch
 from repro_torch.kernels.flash_attention import chunked_attention, flash_attention
 from repro_torch.nn.layers import GQALayout, gqa_layout, he_init, rms_norm, rope
 
-__all__ = ["init", "apply_seq", "apply_decode", "init_cache", "chunked_attention", "layout"]
+__all__ = ["init", "apply_seq", "apply_seq_ring", "apply_decode", "init_cache", "chunked_attention", "layout"]
 
 NEG_INF = -1e30
 
@@ -114,6 +120,60 @@ def apply_seq(
     if return_kv:
         return y, {"k": k, "v": v}
     return y
+
+
+def apply_seq_ring(
+    params: dict,
+    x: torch.Tensor,
+    pc,
+    cfg,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    rope_theta: Optional[float] = None,
+):
+    """AG-Q + ring-KV attention block: x [W, B, s_loc, D] -> [W, B, s_loc, D]
+    (residual added), equal to :func:`apply_seq` up to summation order.
+
+    The query columns of each rank's ``wqkv`` go through ``pc.ag_matmul``
+    (copied contiguous: the bf16 AG+GEMM kernel reads its weight by TMA);
+    K/V project locally on the sequence shard (a plain product, outside any
+    kernel, as in the JAX package).  MQA (``kv_pad == 1``) rings the one
+    shared head; GQA gathers every rank's KV columns (each packs [K heads ||
+    V heads]), drops the layout's replicated copies and projects every
+    distinct KV head, so the tiles carry all groups and
+    ``pc.ring_attention(kv_select=True)`` has each rank consume its own.
+    RoPE takes global positions: ``0..S-1`` for the gathered queries,
+    ``rank * s_loc + j`` for the local keys.
+    """
+    lay = layout(cfg, pc.tp)
+    hd = cfg.hd
+    world, b, s_loc, d = x.shape
+    h = rms_norm(x, params["ln"], cfg.norm_eps)
+    nq = lay.h_loc * hd
+    q = pc.ag_matmul(h, params["wqkv"][..., :nq].contiguous())  # [W, B, S, h_loc * hd] gathered
+    wkv = params["wqkv"][..., nq:]  # [W, D, 2 kv_loc hd]: per rank [K heads || V heads]
+    if lay.kv_pad == 1:
+        kv = torch.matmul(h, wkv[:, None]).reshape(world, b, s_loc, 2 * lay.kv_loc, hd)
+        k, v = kv[..., : lay.kv_loc, :], kv[..., lay.kv_loc :, :]
+    else:
+        # rank-major gather of the kv columns: reshape, split K / V, then the
+        # (rank, local head) axes flatten into the layout's expanded head order
+        wkv = pc.all_gather_seq(wkv, 1).reshape(world, d, pc.tp, 2, lay.kv_loc, hd)
+        wk = wkv[:, :, :, 0].reshape(world, d, lay.kv_store, hd)[:, :, :: lay.rep]
+        wv = wkv[:, :, :, 1].reshape(world, d, lay.kv_store, hd)[:, :, :: lay.rep]
+        k = torch.einsum("wbsd,wdhe->wbshe", h, wk)  # [W, B, s_loc, kv_pad, hd]
+        v = torch.einsum("wbsd,wdhe->wbshe", h, wv)
+    s_glob = q.shape[2]
+    q = q.reshape(world, b, s_glob, lay.h_loc, hd)
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    q, _ = rope(q, q, torch.arange(s_glob, device=x.device), theta)
+    k_pos = torch.arange(world, device=x.device)[:, None, None] * s_loc + torch.arange(s_loc, device=x.device)
+    _, k = rope(k, k, k_pos, theta)  # positions [W, 1, s_loc]: global per rank
+    q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous() for t in (q, k, v))  # [W, B, heads, S, hd]
+    o = pc.ring_attention(q, k, v, causal=causal, window=window, kv_select=lay.kv_pad > 1)
+    o = o.permute(0, 1, 3, 2, 4).reshape(world, b, s_glob, nq)
+    return x + pc.matmul_rs(o, params["wo"])  # GEMM + RS -> [W, B, s_loc, D]
 
 
 def init_cache(cfg, tp: int, batch: int, max_len: int, dtype, device, window: Optional[int] = None) -> dict:

@@ -8,7 +8,8 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
   mode="baseline"  gather-then-GEMM / GEMM-then-reduce-scatter (eager only)
 
   backend="fused"  the hand-written Hopper kernels: AG+GEMM, GEMM+RS, flash
-                   attention, the grouped expert GEMM, the SSD intra-chunk
+                   attention (also on each KV tile of the ring), the
+                   grouped expert GEMM, the SSD intra-chunk
                    term and the tile-GEMM LM head; the default when the
                    world lives on a CUDA device (the JAX package pins
                    ``backend="xla"``; the port runs its kernels on the card)
@@ -20,8 +21,9 @@ each local expert's weights streamed once over every token with a masked
 combine, instead of per-(token, k) weight gathers (the default, as in the
 JAX package).
 
-Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ag_moe`` /
-``pc.psum`` / ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
+Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ring_attention`` /
+``pc.ag_moe`` / ``pc.psum`` / ``pc.pmean`` / ``pc.all_gather_seq`` on
+rank-stacked values.
 """
 
 from __future__ import annotations
@@ -85,6 +87,11 @@ class ParallelContext:
     def matmul_rs(self, x, w, **kw):
         """[W, *lead, M, k_loc] x [W, k_loc, N] -> [W, *lead, M/W, N]."""
         return self._op("matmul_rs")(x, w, **kw)
+
+    def ring_attention(self, q, k, v, **kw):
+        """Sequence-parallel AG-KV + attention: q [W, B, H, s_loc or W*s_loc,
+        D], k/v [W, B, Hkv, s_loc, D] -> [W, B, H, Sq, D]."""
+        return self._op("ag_attention")(q, k, v, **kw)
 
     def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""

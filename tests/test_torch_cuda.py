@@ -245,6 +245,144 @@ def test_flash_attention_wgmma_is_deterministic(dev):
         assert torch.equal(K.flash_attention(q, k, v, causal=True), first)
 
 
+# ring tiles (flash_attention_ranked): W = 4 ranks in one launch with
+# per-rank query / key offsets and KV head offsets, the state carried in and
+# out; (dtype, D, sq form, causal, window, s_loc, Hk, kv_select).  s_loc 80 is
+# ragged against the 64-row tile; sharded q with causal + window 48 leaves
+# whole rows of visited tiles masked across launches
+RING_CASES = [
+    (torch.float32, 64, "shard", True, 48, 80, 2, False), (torch.float32, 32, "gather", True, None, 80, 8, True),
+    (torch.bfloat16, 64, "shard", True, 48, 80, 8, True), (torch.bfloat16, 128, "gather", True, None, 80, 2, False),
+    (torch.bfloat16, 64, "shard", False, None, 128, 4, True), (torch.bfloat16, 32, "shard", True, None, 80, 2, False),
+    (torch.bfloat16, 128, "gather", False, 48, 64, 1, True),
+]  # fmt: skip
+
+
+def _ring_operands(dev, dtype, d, form, s_loc, hk, world=4, b=2, h=8):
+    sq = s_loc if form == "shard" else world * s_loc
+    return (
+        _rand(dev, dtype, world, b, h, sq, d), _rand(dev, dtype, world, b, hk, s_loc, d, seed=1),
+        _rand(dev, dtype, world, b, hk, s_loc, d, seed=2),
+    )  # fmt: skip
+
+
+@pytest.mark.parametrize("dtype,d,form,causal,window,s_loc,hk,ksel", RING_CASES)
+def test_flash_attention_ring_tile_kernel(dev, dtype, d, form, causal, window, s_loc, hk, ksel):
+    """One ring step's launch (state in, state out, then a final launch)
+    against its plain version on the same inputs: the tiled twin on the
+    wgmma route, chunked_attention on the FMA route."""
+    world = 4
+    q, k, v = _ring_operands(dev, dtype, d, form, s_loc, hk)
+    h, sq = q.shape[2], q.shape[3]
+    q_off = tuple(r * s_loc for r in range(world)) if form == "shard" else (0,) * world
+    need = max(1, hk // world) if ksel else hk
+    starts = tuple((r // max(1, world // hk)) * need for r in range(world)) if ksel else None
+    wgmma = fa_mod.route(dtype, d) == "wgmma"
+    kw = dict(q_off=q_off, kv_start=starts, kv_need=need, causal=causal, window=window)
+    # two KV tiles of every rank: the rank's own, then its left neighbour's
+    tiles = [(r, (r - 1) % world) for r in range(world)]
+    srcs = [[t[i] for t in tiles] for i in range(2)]
+    kt = [k[torch.tensor(s_, device=dev)] for s_ in srcs]
+    vt = [v[torch.tensor(s_, device=dev)] for s_ in srcs]
+    before = K.flash_attention.launches
+    st = fa_mod.flash_attention_ranked(q, kt[0], vt[0], k_off=tuple(x * s_loc for x in srcs[0]), final=False, **kw)
+    out = fa_mod.flash_attention_ranked(q, kt[1], vt[1], k_off=tuple(x * s_loc for x in srcs[1]), state=st, **kw)
+    assert K.flash_attention.launches == before + 2
+    assert K.flash_attention.last_launch["route"] == ("wgmma" if wgmma else "fma")
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    ref_in = [t.float() for t in (q, kt[0], vt[0])]
+    pst = fa_mod.flash_attention_ranked_plain(
+        *ref_in, k_off=tuple(x * s_loc for x in srcs[0]), final=False, tiled=wgmma, **kw
+    )  # fmt: skip
+    ref = fa_mod.flash_attention_ranked_plain(
+        ref_in[0], kt[1].float(), vt[1].float(), k_off=tuple(x * s_loc for x in srcs[1]), state=pst, tiled=wgmma, **kw
+    )  # fmt: skip
+    # rows that met a visible key (the others hold masked keys only, as in both plain versions)
+    qp = torch.tensor(q_off, device=dev)[:, None] + torch.arange(sq, device=dev)
+    vis = torch.zeros((world, sq), dtype=torch.bool, device=dev)
+    for i in range(2):
+        kp = torch.tensor([x * s_loc for x in srcs[i]], device=dev)[:, None] + torch.arange(s_loc, device=dev)
+        ok = torch.ones((world, sq, s_loc), dtype=torch.bool, device=dev)
+        if causal:
+            ok = qp[:, :, None] >= kp[:, None, :]
+        if window:
+            ok = ok & (qp[:, :, None] - kp[:, None, :] < window)
+        vis |= ok.any(-1)
+    sel = vis[:, None, None, :, None].expand_as(out)
+    _close(out[sel], ref[sel], dtype)
+
+
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)])
+def test_fused_ring_attention_matches_eager(dev, order, nch, dtype, d):
+    """compile_overlap("ag_attention", backend="fused") on the card against
+    the eager f32 oracle on the same inputs: steps x channels launches."""
+    world = World(4, dev)
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    for form, causal, window, ksel, hk in (("shard", True, 48, True, 8), ("gather", True, None, False, 2)):
+        q, k, v = _ring_operands(dev, dtype, d, form, 80, hk)
+        kw = dict(causal=causal, window=window, kv_select=ksel)
+        before = K.flash_attention.launches
+        out = compile_overlap("ag_attention", ch, world=world, backend="fused")(q, k, v, **kw)
+        assert K.flash_attention.launches == before + 4 * nch
+        ref = compile_overlap("ag_attention", ch, world=world)(q.float(), k.float(), v.float(), **kw)
+        assert torch.isfinite(out).all()
+        _close(out, ref, dtype)
+
+
+def test_ring_tile_wgmma_is_deterministic(dev):
+    """20 launches of a carried ring step on the wgmma route are bitwise equal."""
+    q, k, v = _ring_operands(dev, torch.bfloat16, 128, "shard", 256, 4)
+    kw = dict(q_off=(0, 256, 512, 768), k_off=(0, 0, 256, 512), causal=True)
+    st0 = fa_mod.flash_attention_ranked(q, k, v, final=False, **kw)
+    first = fa_mod.flash_attention_ranked(q, k, v, state=fa_mod.FlashState(*(t.clone() for t in st0)), **kw)
+    for _ in range(19):
+        again = fa_mod.flash_attention_ranked(q, k, v, state=fa_mod.FlashState(*(t.clone() for t in st0)), **kw)
+        assert torch.equal(again, first)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.bfloat16, 128)])
+def test_ag_attention_baseline_on_card_against_f32_oracle(dev, dtype, d):
+    """The baseline's CUDA route (one flash launch over the gathered KV)
+    against its dense f32 form on the CPU, 2e-2 of max |oracle|."""
+    world = World(4, dev)
+    for form, ksel, hk in (("shard", True, 8), ("gather", False, 2)):
+        q, k, v = _ring_operands(dev, dtype, d, form, 80, hk)
+        before = K.flash_attention.launches
+        out = compile_overlap("ag_attention", BlockChannel(axis="model"), world=world, overlapped=False)(
+            q, k, v, causal=True, kv_select=ksel
+        )  # fmt: skip
+        assert K.flash_attention.launches == before + 1
+        ref = compile_overlap("ag_attention", BlockChannel(axis="model"), world=World(4, "cpu"), overlapped=False)(
+            *(t.float().cpu() for t in (q, k, v)), causal=True, kv_select=ksel
+        )  # fmt: skip
+        err = (out.float().cpu() - ref).abs().max().item()
+        assert err <= 2e-2 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("n_kv", [1, 2, 4, 8])
+def test_apply_seq_ring_fused_matches_eager_on_card(dev, n_kv):
+    """The layer form on the card: fused (bf16 AG+GEMM, ring of flash
+    launches, GEMM+RS) in float32 against eager, and against apply_seq."""
+    import dataclasses
+
+    from repro_torch.convert import shard_attention
+    from repro_torch.nn import attention
+
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")), n_heads=8, n_kv_heads=n_kv)
+    world = World(4, dev)
+    params = shard_attention(attention.init(cfg, 4, torch.Generator(device=dev).manual_seed(0), torch.float32, dev), world)
+    x = _rand(dev, torch.float32, 4, 2, 48, cfg.d_model, scale=0.5)
+    fused, eager = ParallelContext(world=world), ParallelContext(world=world, backend="eager")
+    before = K.flash_attention.launches
+    y_f = attention.apply_seq_ring(params, x, fused, cfg)
+    assert K.flash_attention.launches == before + 4
+    y_e = attention.apply_seq_ring(params, x, eager, cfg)
+    y_s = attention.apply_seq(params, x, eager, cfg)
+    _close(y_f, y_e, torch.float32)
+    torch.testing.assert_close(y_e, y_s, atol=2e-4, rtol=2e-3)
+
+
 # (table, bm, K, N) over 5 experts.  float32: ragged K and N.  bfloat16:
 # the same raggedness with widths that are multiples of 8, plus a row tile
 # of 200 rows (two m-tiles, the second of 72 rows), entries -1 and 7 (empty

@@ -197,9 +197,10 @@ def test_comp_tile_is_honored(world):
 
 def test_unsupported_pairs_raise_structured(world):
     ch = BlockChannel(axis="model")
-    kinds = ("ag_attention", "a2a_dispatch", "conv")
+    kinds = ("a2a_dispatch", "combine_rs", "conv")
     cases = [(kind, backend, True) for kind in kinds for backend in ("eager", "fused")]
     cases += [("ag_matmul", "fused", False), ("matmul_rs", "fused", False), ("ag_moe", "fused", False)]
+    cases += [("ag_attention", "fused", False)]
     for kind, backend, overlapped in cases:
         with pytest.raises(NotImplementedError) as err:
             compile_overlap(kind, ch, world=world, backend=backend, overlapped=overlapped)

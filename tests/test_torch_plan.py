@@ -24,7 +24,7 @@ from repro_torch.core import plan as tplan
 from repro_torch.core.comp_tiles import largest_divisor, resolve_tile
 from repro_torch.core.mapping import effective_channels
 
-KINDS = ("ag_matmul", "matmul_rs")
+KINDS = ("ag_matmul", "matmul_rs", "ag_attention")
 ORDERS = ("ring", "bidir_ring", "all2all")
 WORLDS = (2, 3, 4, 8)
 CHANNELS = (1, 2, 4)
@@ -76,7 +76,7 @@ def test_plan_cache_and_accum_dtype():
     assert a is b and tplan.plan_cache_info().hits >= 1
     assert a.accum_dtype is torch.bfloat16 and a.flow_dtype == "bfloat16"
     with pytest.raises(ValueError):
-        tplan.build_plan("ag_attention", ch, 4, 1)
+        tplan.build_plan("a2a_dispatch", ch, 4, 1)
 
 
 @pytest.mark.parametrize(
