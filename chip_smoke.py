@@ -22,34 +22,63 @@ non-zero (no phase catches its own failure):
               bfloat16 (prefill + greedy decode), with the kernels' launch
               counts, and its prefill logits against the float32 eager
               prefill (max|diff|, top-1 agreement: printed, not held).
-  4. moe      granite-moe-3b-a800m at its published size with seeded
+  4. seam     smollm-360m's forward with fused RS -> AG seams
+              (``ParallelContext(fuse_seams=True)``: each attention output
+              projection's reduce-scatter hands its home segments to the
+              MLP gate/up all-gather over one ring pass, on the eager
+              executor; the chain's ends stay on the kernels) at its
+              published size, 4 x 256 tokens: (a) float32 eager, the
+              logits bitwise equal to the unfused forward's, 32 seams
+              fused; (b) float32 on the fused backend (the seams eager, the
+              rest on the kernels) against the unfused forward, the logits'
+              bound; (c) bf16 on the fused backend: one layer with its seam
+              against the unfused layer, 2e-2 of max |f32 layer| (output
+              less input), and the whole forward's max|diff| and top-1
+              agreement printed beside the unfused bf16 forward's against
+              f32 (not held: 32 random layers carry a rounding flip to the
+              size of bf16 noise); (d) the counted bf16 forward, launches
+              held exactly, and both forwards' ms.
+  5. moe      granite-moe-3b-a800m at its published size with seeded
               weights: (a) one MoE layer, fused against eager in float32;
               (b) the float32 prefill, fused against eager (routing flips
               between the two are counted, and the logits are then held on
               the batch rows whose routing agreed in every layer); (c) the
               main path in bfloat16 through ``serve.greedy``, with its
               launch counts held exactly.
-  5. deepseek deepseek-moe-16b at its published width with seeded weights
+  6. deepseek deepseek-moe-16b at its published width with seeded weights
               (a dense first layer, then MoE layers of 64 experts top-6 with
               2 shared experts): (a) one MoE layer with its shared MLP,
               fused against eager in float32 (routing identical, launches
               held); (b) the float32 prefill at DS_F32_LAYERS = 4 layers
               (the dense one + 3 MoE: float32 weights of all 28 would take
               ~66 GB), fused against eager, held before each row's first
-              routing flip as in (4b); (c) at those 4 layers, one float32
+              routing flip as in (5b); (c) at those 4 layers, one float32
               decode step with ``moe_decode_stream`` against the gathered
               decode; (d) the main path in bfloat16 at full depth through
               ``serve.greedy`` with the streamed decode, launch counts held
               exactly; (e) the engine at full depth, streamed decode in its
               graphs (8 requests, prompts 32-256, 16-32 new tokens, 2
-              sampled, on 4 slots), held as in (6a, b).
-  6. ssm      mamba2-2.7b at its published size with seeded weights:
+              sampled, on 4 slots), held as in (9a, b).
+  7. ep       deepseek-moe-16b's prefill with ``ep_axis="model"`` (the
+              expert-parallel dispatch / combine all-to-all, each landed
+              tile's expert GEMMs on the grouped kernel): (a) one MoE
+              layer's a2a pair in float32 against ``a2a_moe_baseline`` on
+              the same routing, the kept (token, k) sets equal and the
+              outputs within 1e-4 of max; (b) the float32 EP prefill at
+              DS_F32_LAYERS layers against the TP-MoE prefill, held before
+              each row's first routing flip as in (5b); (c) the main path in
+              bfloat16 at full depth through ``serve.greedy`` (EP prefill,
+              streamed decode), launch counts held exactly (2 x W grouped
+              launches per MoE layer), the EP and TP-MoE prefill ms, and one
+              layer's a2a pair against its baseline in bf16 (2e-2 of max)
+              with both times.
+  8. ssm      mamba2-2.7b at its published size with seeded weights:
               (a) one Mamba layer, fused against eager in float32, and in
               bfloat16 fused against float32 eager from the same bf16
               weights; (b) the float32 prefill, fused against eager, every
               position's logits; (c) the main path in bfloat16 through
               ``serve.greedy``, with its launch counts held exactly.
-  7. engine   the continuous-batching engine (``serving.ServeEngine``, its
+  9. engine   the continuous-batching engine (``serving.ServeEngine``, its
               step captured in two CUDA graphs) at published sizes, W = 4,
               bf16: smollm-360m with 16 seeded requests (prompts 32-256,
               16-64 new tokens, 4 of them at temperature 0.8 / top-k 40) on
@@ -64,7 +93,7 @@ non-zero (no phase catches its own failure):
               two logits lie within 1e-3, and each such token is printed.
               Prints tokens/s, steps, ms per step, the LM-head launches per
               step and one decode iteration's time, captured and eager.
-  8. ring     the sequence-parallel attention layer (``nn/attention.
+  10. ring    the sequence-parallel attention layer (``nn/attention.
               apply_seq_ring``, paper Fig. 6: AG-Q through the AG+GEMM
               kernel, K / V projected locally and rotated over the ring with
               flash attention consuming each tile, GEMM+RS out) at the full
@@ -77,7 +106,7 @@ non-zero (no phase catches its own failure):
               launches held exactly (steps x channels flash launches per
               call), and the bf16 times of ``apply_seq_ring`` and
               ``apply_seq`` at 4 x 256 and 1 x 8192 tokens (recorded).
-  9. paper    the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  11. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -91,7 +120,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  10. kernels  every kernel against its plain PyTorch version at the shapes
+  12. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -122,11 +151,12 @@ non-zero (no phase catches its own failure):
               the step before carried in), against its plain version and
               bitwise over 20 launches.  It runs after the serve phases: the
               profiler leaves host overhead behind.
-  11. summary the launch counts of every path, the script's wall time,
+  13. summary the launch counts of every path, the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
-One cut: deepseek-moe-16b's float32 checks run 4 of its 28 layers.  Every
+One cut: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4
+of its 28 layers.  Every
 other path runs at full depth and width, the paper's MLPs and MoEs at their
 published shapes.
 
@@ -686,18 +716,19 @@ def phase_kernels(iters: int):
     return recs
 
 
-def _hold_logits(what: str, a, b):
-    """Fail unless fused logits ``a`` agree with eager ``b`` to the float32 bound."""
+def _hold_logits(what: str, a, b, pair=("fused", "eager")):
+    """Fail unless logits ``a`` agree with ``b`` (by default fused against
+    eager) to the float32 bound."""
     import torch
 
     diff = (a.float() - b.float()).abs()
     worst = (diff - LOGIT_RTOL * b.float().abs()).max().item()
     print(
-        f"{what}, fused vs eager: max|diff| {diff.max().item():.3e} (bound |diff| <= {LOGIT_ATOL:g} + "
-        f"{LOGIT_RTOL:g} x |eager|; max|eager| {b.float().abs().max().item():.3e}; {a.numel()} logits)"
+        f"{what}, {pair[0]} vs {pair[1]}: max|diff| {diff.max().item():.3e} (bound |diff| <= {LOGIT_ATOL:g} + "
+        f"{LOGIT_RTOL:g} x |{pair[1]}|; max|{pair[1]}| {b.float().abs().max().item():.3e}; {a.numel()} logits)"
     )
     if not (torch.isfinite(a).all() and worst <= LOGIT_ATOL):
-        raise SystemExit(f"chip_smoke: {what}: fused disagrees with the eager path")
+        raise SystemExit(f"chip_smoke: {what}: {pair[0]} disagrees with {pair[1]}")
 
 
 def _f32(tree):
@@ -847,8 +878,9 @@ def _record_routing():
     return calls, lambda: setattr(moe, "moe_router", router)
 
 
-def _hold_prefill_before_flips(tag: str, cfg, params, pc, pc_eager, prompts) -> dict:
-    """The float32 prefill, fused against eager, with every MoE layer's routing
+def _hold_prefill_before_flips(tag: str, cfg, params, pc, pc_eager, prompts, pair=("fused", "eager")) -> dict:
+    """The float32 prefill, fused against eager (or ``pc`` against
+    ``pc_eager`` as ``pair`` names them), with every MoE layer's routing
     recorded: a token whose expert set differs in some layer changes itself
     and the positions after it in its batch row (causal attention, capacity
     slots), so the positions before a row's first flip are held to the bound."""
@@ -875,14 +907,14 @@ def _hold_prefill_before_flips(tag: str, cfg, params, pc, pc_eager, prompts) -> 
         first = torch.minimum(first, pos.min(-1).values)
     decisions = len(routing_f) * BATCH * PROMPT
     print(
-        f"[{tag}] f32 prefill routing, fused vs eager: {sum(flips)} of {decisions} token expert sets differ "
+        f"[{tag}] f32 prefill routing, {pair[0]} vs {pair[1]}: {sum(flips)} of {decisions} token expert sets differ "
         f"(per layer: {flips}); positions held per row before the first flip: {first.tolist()}"
     )
     moe_layers = sum(d.ffn_kind == "moe" for d in lm.layer_plan(cfg))
     if len(routing_f) != moe_layers or int(first.sum()) == 0:
         raise SystemExit(f"chip_smoke: no prefill position of {cfg.name} can be held against the eager path")
     held = torch.arange(PROMPT, device=dev)[None, :] < first[:, None]
-    _hold_logits(f"[{tag}] f32 prefill logits (positions before the first flip)", lg_f[held], lg_e[held])
+    _hold_logits(f"[{tag}] f32 prefill logits (positions before the first flip)", lg_f[held], lg_e[held], pair)
     return {"routing_flips": flips, "held_positions": first.tolist()}
 
 
@@ -1003,6 +1035,261 @@ def phase_deepseek(profile: bool = False) -> dict:
     # (e) the engine at full depth, streamed decode in its captured graphs
     result["engine"], _ = _engine_bf16(cfg, pc_stream, params, ENGINE_DS, profile)
     del params
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_seam(profile: bool = False) -> dict:
+    """smollm-360m's forward with fused RS -> AG seams (``fuse_seams``) at
+    full width: float32 eager bitwise against the unfused forward, the
+    seams counted; float32 on the fused backend against the unfused
+    forward; one bf16 layer against the unfused layer, the bf16 forwards
+    compared and printed; the counted bf16 run and both forwards' times."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core import overlap
+    from repro_torch.models import lm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH)
+    p16 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    p32 = _f32(p16)
+    seam, seam_eager = (dataclasses.replace(p_, fuse_seams=True) for p_ in (pc, pc_eager))
+    # (a) float32 eager: the seam's float ops are the unfused pair's
+    overlap.matmul_rs_ag.calls = 0
+    l_s, _ = lm.forward(p32, cfg, seam_eager, prompts)
+    seams = overlap.matmul_rs_ag.calls
+    l_u, _ = lm.forward(p32, cfg, pc_eager, prompts)
+    diff, scale = (l_s - l_u).abs().max().item(), l_u.abs().max().item()
+    print(
+        f"[seam] f32 eager forward [{BATCH} x {PROMPT}] with fused seams vs unfused: max|diff| {diff:.3e} "
+        f"(bound 0; max|unfused| {scale:.3e}); seams fused {seams} (expected {cfg.n_layers})"
+    )
+    if not (torch.isfinite(l_s).all() and diff == 0 and seams == cfg.n_layers):
+        raise SystemExit("chip_smoke: the f32 seam forward differs from the unfused forward")
+    # (b) float32 on the fused backend: the eager seams against the unfused
+    # forward's GEMM+RS / AG+GEMM kernels, every layer, the logits' bound
+    f_s, _ = lm.forward(p32, cfg, seam, prompts)
+    f_u, _ = lm.forward(p32, cfg, pc, prompts)
+    _hold_logits("[seam] f32 fused-backend forward logits", f_s, f_u, ("fused seams", "unfused"))
+    diff_f = (f_s - f_u).abs().max().item()
+    del f_s, f_u
+    # (c) bfloat16 on the fused backend: one layer held to 2e-2 of max |f32|
+    # (its output less its input); the whole forward printed beside its
+    # control, the unfused bf16 forward against f32: 32 random layers carry
+    # a bf16 rounding flip anywhere to the size of bf16 noise itself
+    d = lm.layer_plan(cfg)[0]
+    gen = torch.Generator(device=world.device).manual_seed(2)
+    x = torch.randn((WORLD, BATCH, PROMPT // WORLD, cfg.d_model), generator=gen, device=world.device).bfloat16()
+    y_s = d.apply_seq_fused(p16["layers"][0], x, seam, cfg)[0].float() - x.float()
+    y_u = d.apply_seq(p16["layers"][0], x, pc, cfg)[0].float() - x.float()
+    y_r = d.apply_seq(p32["layers"][0], x.float(), pc_eager, cfg)[0] - x.float()
+    err_l, scale_l = (y_s - y_u).abs().max().item(), y_r.abs().max().item()
+    print(
+        f"[seam] bf16 layer [{WORLD}, {BATCH}, {PROMPT // WORLD}, {cfg.d_model}] with its fused seam vs unfused (fused "
+        f"backend): max|diff| {err_l:.3e} (bound {TOL['bfloat16']:g} x max|f32 eager| {scale_l:.3e}); vs f32 eager "
+        f"{(y_s - y_r).abs().max().item():.3e} (unfused: {(y_u - y_r).abs().max().item():.3e})"
+    )
+    if not (torch.isfinite(y_s).all() and err_l <= TOL["bfloat16"] * scale_l):
+        raise SystemExit("chip_smoke: the bf16 seam layer disagrees with the unfused layer")
+    del p32, x, y_s, y_u, y_r
+    b_s, _ = lm.forward(p16, cfg, seam, prompts)
+    b_u, _ = lm.forward(p16, cfg, pc, prompts)
+    diff_b = (b_s.float() - b_u.float()).abs().max().item()
+    top1 = (b_s.argmax(-1) == b_u.argmax(-1)).float().mean().item()
+    ctl, ctl1 = (b_u.float() - l_u).abs().max().item(), (b_u.argmax(-1) == l_u.argmax(-1)).float().mean().item()
+    print(
+        f"[seam] bf16 fused-backend forward with fused seams vs unfused: max|diff| {diff_b:.3e} (max|f32| "
+        f"{scale:.3e}), top-1 agreement {top1:.4f}; control, unfused bf16 vs f32 eager: {ctl:.3e}, top-1 "
+        f"{ctl1:.4f} (printed, not held)"
+    )
+    if not torch.isfinite(b_s).all():
+        raise SystemExit("chip_smoke: the bf16 seam forward is not finite")
+    del b_s, b_u, l_s, l_u
+    # (c) the counted bf16 run: the chain's ends on the kernels, the seams eager
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    overlap.matmul_rs_ag.calls = 0
+    lm.forward(p16, cfg, seam, prompts)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    expect = {**{k: 0 for k in counts}, "ag_gemm": cfg.n_layers, "gemm_rs": cfg.n_layers,
+              "flash_attention": cfg.n_layers, "matmul": 1}  # fmt: skip
+    print(f"[seam] launch counts of one bf16 forward with fused seams: {counts}; seams {overlap.matmul_rs_ag.calls}")
+    if counts != expect or overlap.matmul_rs_ag.calls != cfg.n_layers:
+        raise SystemExit(f"chip_smoke: the seam forward launched {counts}, expected {expect}")
+    times = {name: cuda_ms(lambda: lm.forward(p16, cfg, p_, prompts), 5)
+             for name, p_ in (("seam", seam), ("unfused", pc))}  # fmt: skip
+    print(f"[seam] bf16 forward ms: fused seams {times['seam']:.3f}, unfused {times['unfused']:.3f} (recorded, not bounded)")
+    prof = None
+    if profile:
+        from repro_torch.benchmarks.common import profile_windows
+
+        prof = profile_windows(f"{cfg.name} bf16 forward", {
+            "fused seams": lambda: lm.forward(p16, cfg, seam, prompts),
+            "unfused": lambda: lm.forward(p16, cfg, pc, prompts),
+        })  # fmt: skip
+    del p16
+    torch.cuda.empty_cache()
+    return {"f32_diff": diff, "f32_fused_diff": diff_f, "bf16_layer_diff": err_l, "bf16_layer_scale": scale_l,
+            "bf16_diff": diff_b, "bf16_top1": top1, "bf16_control_diff": ctl, "f32_scale": scale, "seams": seams,
+            "counts": counts, "ms": times, "profile": prof}  # fmt: skip
+
+
+def _record_kept():
+    """Record the kept (token, k) pairs of every dispatch table built
+    (``core/moe_overlap._dispatch_tables``); returns (the list, a function
+    that restores it)."""
+    from repro_torch.core import moe_overlap
+
+    calls, tables = [], moe_overlap._dispatch_tables
+
+    def recording(*a, **kw):
+        out = tables(*a, **kw)
+        calls.append(out.sum((-2, -1)) > 0)  # [W, lead, m_sub, k]
+        return out
+
+    moe_overlap._dispatch_tables = recording
+    return calls, lambda: setattr(moe_overlap, "_dispatch_tables", tables)
+
+
+def _kept_sets(pc, cfg, layer, x) -> tuple:
+    """One MoE layer's a2a pair in float32, overlapped (the fused backend)
+    against ``a2a_moe_baseline``: the outputs, the kept pairs of each and
+    the pairs routed to each rank, laid out [rank, origin, sub-chunk, lead,
+    token, k]."""
+    import torch
+
+    from repro_torch.core.compiler import A2A_SEQ, compile_overlap
+    from repro_torch.core.moe_overlap import moe_router
+    from repro_torch.core.plan import build_seq_plan
+    from repro_torch.nn.layers import ACTS, rms_norm
+
+    m, w = cfg.moe, pc.tp
+    h = rms_norm(x, layer["ln"], cfg.norm_eps)
+    ids, wts, _ = moe_router(h, layer["router"], num_experts=layer["w_gu"].shape[1] * w, top_k=m.top_k,
+                             valid_experts=m.num_experts)  # fmt: skip
+    args = (h, ids, wts, layer["w_gu"], layer["w_down"])
+    kw = dict(capacity_factor=m.capacity_factor, act=ACTS[cfg.act])
+    nch = pc.channel.num_channels
+    calls, restore = _record_kept()
+    try:
+        out = compile_overlap(list(A2A_SEQ), pc.channel, world=pc.world, backend="fused")(*args, **kw)
+        n_over = len(calls)
+        base = compile_overlap(list(A2A_SEQ), pc.channel, world=pc.world, overlapped=False)(*args, **kw)
+    finally:
+        restore()
+    plan = build_seq_plan(A2A_SEQ, (pc.channel, pc.channel), w, nch).ops[0]
+    lead, m_sub, k = calls[0].shape[1], calls[0].shape[2], calls[0].shape[3]
+    over = torch.zeros((w, w, nch, lead, m_sub, k), dtype=torch.bool, device=x.device)
+    for i, kept in enumerate(calls[:n_over]):  # step-major, then channel
+        s, c = divmod(i, nch)
+        for r, origin in enumerate(plan.channels[c].source_table(s)):
+            over[r, origin, c] = kept[r]
+    # the baseline's lead rows are (origin, batch row, sub-chunk)
+    kept_b = calls[n_over].reshape(w, w, lead, nch, m_sub, k).permute(0, 1, 3, 2, 4, 5)
+    e_loc = layer["w_gu"].shape[1]
+    owner = (ids // e_loc).reshape(w, lead, nch, m_sub, k).permute(0, 2, 1, 3, 4)  # [origin, sub-chunk, lead, token, k]
+    routed = owner[None] == torch.arange(w, device=x.device).view(w, 1, 1, 1, 1, 1)
+    return out, base, over, kept_b, routed
+
+
+def phase_ep(profile: bool = False) -> dict:
+    """deepseek-moe-16b's prefill with ``ep_axis`` (the expert-parallel a2a
+    pair, its expert GEMMs on the grouped kernel): one layer's pair against
+    its baseline in float32 (kept sets equal), the float32 EP prefill at
+    DS_F32_LAYERS layers against the TP-MoE prefill, then in bf16 at full
+    depth the main path (prefill + greedy decode) through ``serve.greedy``,
+    launches held exactly, and the EP / TP prefill and the layer's times."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks.common import fp32_reductions
+    from repro_torch.core.compiler import A2A_SEQ, compile_overlap
+    from repro_torch.core.moe_overlap import moe_router
+    from repro_torch.models import lm
+    from repro_torch.nn.layers import ACTS, rms_norm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS)
+    pc_ep = dataclasses.replace(pc, ep_axis="model", moe_decode_stream=True)
+    pc_tp = dataclasses.replace(pc, moe_decode_stream=True)
+    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    cut = dataclasses.replace(cfg, n_layers=DS_F32_LAYERS)
+    params = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+
+    # (a) one MoE layer's a2a pair, float32: overlapped on the grouped kernel
+    # against the baseline, the same routing; kept pairs compared exactly
+    layer = params["layers"][1]["ffn"]
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device)
+    before = K.grouped_matmul.launches
+    out, base, kept_o, kept_b, routed = _kept_sets(pc, cfg, layer, x)
+    launched = K.grouped_matmul.launches - before
+    err, scale = (out - base).abs().max().item(), base.abs().max().item()
+    dropped = int(routed.sum() - kept_o.sum())
+    print(
+        f"[ep] f32 a2a layer [{WORLD}, {BATCH}, {s_loc}, {cfg.d_model}], overlapped (grouped kernel, {launched} "
+        f"launches) vs baseline: max|diff| {err:.3e} (bound {TOL['float32']:g} x max|baseline| {scale:.3e}); kept "
+        f"sets equal: {bool(torch.equal(kept_o, kept_b))} ({int(kept_o.sum())} of {int(routed.sum())} routed "
+        f"(token, k) pairs kept, {dropped} dropped at capacity)"
+    )
+    if not (torch.isfinite(out).all() and err <= TOL["float32"] * scale and torch.equal(kept_o, kept_b)):
+        raise SystemExit("chip_smoke: the a2a layer disagrees with its baseline")
+    if bool((kept_o & ~routed).any()):
+        raise SystemExit("chip_smoke: the a2a layer kept a pair routed to another rank")
+    if launched != 2 * WORLD * pc.channel.num_channels:
+        raise SystemExit(f"chip_smoke: the a2a layer launched the grouped kernel {launched} times")
+    del x, out, base, layer
+
+    # (b) the float32 EP prefill at DS_F32_LAYERS layers against the TP-MoE prefill
+    result = {"layer_err": err, "layer_dropped_slots": dropped}
+    result.update(_hold_prefill_before_flips("ep", cut, params, pc_ep, pc_tp, prompts, pair=("EP", "TP-MoE")))
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16 at full depth: the main path with the EP prefill
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    expect = {"ag_gemm": cfg.n_layers + cfg.n_layers, "gemm_rs": cfg.n_layers + cfg.n_layers,
+              "flash_attention": cfg.n_layers, "matmul": NEW_TOKENS, "grouped_matmul": 2 * WORLD * n_moe,
+              "ssd_intra_chunk": 0}  # fmt: skip (as the deepseek phase: the a2a's 2 launches per step)
+    result.update(_main_path("ep", cfg, pc_ep, prompts, expect, profile, params=params))
+    print(f"[ep] grouped launches per EP prefill: {result['counts']['grouped_matmul']} (2 x {WORLD} steps x {n_moe} MoE layers)")
+    # the two prefills in turns (EP, TP, TP, EP), each reading kept
+    runs = {"ep": [], "tp": []}
+    for name in ("ep", "tp", "tp", "ep"):
+        p_ = pc_ep if name == "ep" else pc_tp
+        runs[name].append(cuda_ms(lambda: lm.prefill(params, cfg, p_, prompts, max_len=max_len), 3))
+    times = {name: sum(r) / len(r) for name, r in runs.items()}
+    times["runs"] = runs
+    # one MoE layer's routed path in bf16: the overlapped pair against its baseline
+    layer = params["layers"][1]["ffn"]
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device).bfloat16()
+    h = rms_norm(x, layer["ln"], cfg.norm_eps)
+    ids, wts, _ = moe_router(h, layer["router"], num_experts=layer["w_gu"].shape[1] * WORLD, top_k=cfg.moe.top_k,
+                             valid_experts=cfg.moe.num_experts)  # fmt: skip
+    args = (h, ids, wts, layer["w_gu"], layer["w_down"])
+    kw = dict(capacity_factor=cfg.moe.capacity_factor, act=ACTS[cfg.act])
+    over = compile_overlap(list(A2A_SEQ), pc.channel, world=world, backend="fused")
+    base = compile_overlap(list(A2A_SEQ), pc.channel, world=world, overlapped=False)
+    with fp32_reductions():
+        y_o, y_b = over(*args, **kw), base(*args, **kw)
+        e_b, s_b = (y_o.float() - y_b.float()).abs().max().item(), y_b.float().abs().max().item()
+        times["a2a_layer"] = cuda_ms(lambda: over(*args, **kw), 10)
+        times["a2a_layer_baseline"] = cuda_ms(lambda: base(*args, **kw), 10)
+    print(
+        f"[ep] bf16 prefill ms (in turns EP, TP, TP, EP): EP {runs['ep']}, TP-MoE {runs['tp']}; one a2a layer [{WORLD}, {BATCH}, "
+        f"{s_loc}, {cfg.d_model}]: overlapped {times['a2a_layer']:.3f} ms, baseline {times['a2a_layer_baseline']:.3f} "
+        f"ms, max|diff| {e_b:.3e} (bound {TOL['bfloat16']:g} x max|baseline| {s_b:.3e}) (times recorded, not bounded)"
+    )
+    if not (torch.isfinite(y_o).all() and e_b <= TOL["bfloat16"] * s_b):
+        raise SystemExit("chip_smoke: the bf16 a2a layer disagrees with its baseline")
+    result.update(ms=times, layer_bf16_err=e_b)
+    del params, layer, x, h, y_o, y_b
     torch.cuda.empty_cache()
     return result
 
@@ -1330,8 +1617,10 @@ def main(argv=None) -> int:
     kind, smi = phase_device()
     out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build()}
     out["serve"] = phase_serve(args.profile)
+    out["seam"] = phase_seam(args.profile)
     out["moe"] = phase_moe(args.profile)
     out["deepseek"] = phase_deepseek(args.profile)
+    out["ep"] = phase_ep(args.profile)
     out["ssm"] = phase_ssm(args.profile)
     out["engine"] = phase_engine(args.profile)
     out["ring"] = phase_ring()
@@ -1344,6 +1633,8 @@ def main(argv=None) -> int:
     by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
     by_path[f"engine {ARCH_DS}"] = out["deepseek"]["engine"]["counts"]
     by_path.update({f"ring {arch}": c for arch, c in out["ring"]["counts"].items()})
+    by_path[f"seam {ARCH}"] = out["seam"]["counts"]
+    by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []

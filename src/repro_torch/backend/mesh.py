@@ -19,6 +19,7 @@ methods over per-process tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -55,12 +56,16 @@ class World:
 
     # ---- collectives -----------------------------------------------------
     def permute(self, xs: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """``out[dst] = xs[src]`` for every (src, dst) pair (a ppermute)."""
+        """``out[dst] = xs[src]`` for every (src, dst) pair (a ppermute).
+
+        The index tensor is built once per (pairs, device) and cached, so a
+        repeated permute issues no host-to-device copy (and a CUDA-graph
+        capture may replay one whose index was built before it)."""
         self._check(xs)
         order = [0] * self.size
         for src, dst in pairs:
             order[dst] = src
-        return xs[torch.tensor(order, device=xs.device)]
+        return xs[_perm_index(tuple(order), xs.device)]
 
     def psum(self, xs: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks; the replicated result is stored once."""
@@ -80,3 +85,9 @@ class World:
     def _check(self, xs: torch.Tensor):
         if xs.shape[0] != self.size:
             raise ValueError(f"expected a rank-stacked [W={self.size}, ...] value, got {tuple(xs.shape)}")
+
+
+@functools.lru_cache(maxsize=1024)
+def _perm_index(order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The gather index of a permute, on ``device`` (read-only, shared)."""
+    return torch.tensor(order, device=device)

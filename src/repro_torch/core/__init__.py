@@ -3,10 +3,10 @@
 from repro_torch.core import schedules
 from repro_torch.core.channels import ORDERS, BlockChannel, CommSpec, CompSpec, QuantSpec
 from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divisor, resolve_tile
-from repro_torch.core.compiler import BACKENDS, KINDS, compile_overlap, unsupported_error
+from repro_torch.core.compiler import BACKENDS, KINDS, SEQ_KINDS, SeamFallbackWarning, compile_overlap, unsupported_error
 from repro_torch.core.mapping import cdiv, effective_channels
-from repro_torch.core.overlap import ag_attention_baseline, ring_attention
-from repro_torch.core.plan import ChannelSchedule, TilePlan, build_plan, plan_cache_info
+from repro_torch.core.overlap import ag_attention_baseline, matmul_rs_ag, ring_attention
+from repro_torch.core.plan import ChannelSchedule, SeqPlan, TilePlan, build_plan, build_seq_plan, plan_cache_info
 
 __all__ = [
     "schedules",
@@ -21,14 +21,19 @@ __all__ = [
     "resolve_tile",
     "BACKENDS",
     "KINDS",
+    "SEQ_KINDS",
+    "SeamFallbackWarning",
     "compile_overlap",
     "unsupported_error",
     "ring_attention",
     "ag_attention_baseline",
+    "matmul_rs_ag",
     "cdiv",
     "effective_channels",
     "ChannelSchedule",
     "TilePlan",
+    "SeqPlan",
     "build_plan",
+    "build_seq_plan",
     "plan_cache_info",
 ]

@@ -29,44 +29,184 @@ rank-stacked operands; both backends execute the same :class:`~repro_torch.core.
 in the JAX package).  Any other kind, and the fused backend without
 overlap, raise the one structured ``NotImplementedError`` of
 :func:`unsupported_error`.
+
+The list form compiles a two-op sequence (``SEQ_KINDS``; entries are kind
+names or ``(kind, channel)`` pairs, ``channel`` the shared default):
+
+  ["matmul_rs", "ag_matmul"]     the RS -> AG layer seam,
+                                 ``fn(x, w1, w2, *, residual=None, glue=None)
+                                 -> (y, ag_out)`` (``core/overlap.matmul_rs_ag``).
+                                 Eager only: the JAX package's seq form
+                                 raises on "pallas", so "fused" raises here
+                                 (``ParallelContext.matmul_rs_ag`` compiles
+                                 it on "eager" whatever its backend).  If the
+                                 two halves cannot share one channel split
+                                 (diverging clamps, other axes), the call
+                                 warns once per signature
+                                 (:class:`SeamFallbackWarning`) and runs the
+                                 unfused pair.
+  ["a2a_dispatch", "combine_rs"] the expert-parallel MoE pair,
+                                 ``fn(x, ids, wts, w_gu, w_down, *,
+                                 capacity_factor, act) -> out``
+                                 (``core/moe_overlap.a2a_moe``).  "eager" as
+                                 the JAX package's "xla"; "fused" keeps the
+                                 eager exchanges and runs each landed tile's
+                                 expert GEMMs on the grouped kernel, as
+                                 ``ag_moe`` does.
+
+``overlapped=False`` gives the unfused pair (``a2a_moe_baseline`` with the
+overlapped path's per-sub-chunk capacity), eager only.  ``channel="auto"``
+(the tuner) and ``quant=`` are not ported: both raise the structured error.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable
+import warnings
+from typing import Callable, Optional
 
 from repro_torch.backend.mesh import World
 from repro_torch.core import moe_overlap as _moe
 from repro_torch.core import overlap as _eager
 from repro_torch.core.channels import BlockChannel
+from repro_torch.core.mapping import effective_channels
 
-__all__ = ["compile_overlap", "unsupported_error", "KINDS", "BACKENDS"]
+__all__ = [
+    "compile_overlap",
+    "unsupported_error",
+    "SeamFallbackWarning",
+    "KINDS",
+    "SEQ_KINDS",
+    "BACKENDS",
+]
 
 KINDS = ("ag_matmul", "matmul_rs", "ag_attention", "ag_moe")  # on both backends
 BACKENDS = ("eager", "fused")
+SEAM_SEQ = ("matmul_rs", "ag_matmul")  # eager only
+A2A_SEQ = ("a2a_dispatch", "combine_rs")  # on both backends
+SEQ_KINDS = (SEAM_SEQ, A2A_SEQ)
 
 
-def unsupported_error(kind: str, backend: str, overlapped: bool = True) -> NotImplementedError:
-    """The one structured error for every unsupported (kind, backend, overlapped) case."""
+def unsupported_error(kind, backend: str, overlapped: bool = True) -> NotImplementedError:
+    """The one structured error for every unsupported (kind or sequence, backend, overlapped) case."""
     return NotImplementedError(
         f"compile_overlap: kind={kind!r} with overlapped={overlapped} is not supported on "
-        f"backend={backend!r} (supported: kinds {KINDS} on every backend; overlapped=False on 'eager' only)"
+        f"backend={backend!r} (supported: kinds {KINDS} on every backend; sequences {A2A_SEQ} on every "
+        f"backend and {SEAM_SEQ} on 'eager'; overlapped=False on 'eager' only; channel='auto' and quant= "
+        "are not ported)"
     )
 
 
+class SeamFallbackWarning(UserWarning):
+    """A requested fused seam ran as the unfused op pair instead.
+
+    Warned once per (axes, world, extents, channel requests): the unfused
+    pair gives the same numbers, but the seam's collective time is exposed.
+    """
+
+
+_WARNED_SEAMS = set()
+
+
+def _seam_incompatibility(ch_rs: BlockChannel, ch_ag: BlockChannel, world: int, m_glob: int, n_mid: int):
+    """Why this seam cannot fuse (None when it can): both halves must share
+    one effective channel count, but RS chunks the N columns and AG the M / W
+    rows, and the two extents can clamp one request differently."""
+    if ch_rs.axis != ch_ag.axis:
+        return f"producer runs over axis {ch_rs.axis!r} but consumer over {ch_ag.axis!r} (mismatched worlds)"
+    if m_glob % world:
+        return f"RS rows {m_glob} are not divisible by world {world}"
+    nch_rs = effective_channels(n_mid, ch_rs.num_channels, kind="matmul_rs", warn=False)
+    nch_ag = effective_channels(m_glob // world, ch_ag.num_channels, kind="ag_matmul", warn=False)
+    if nch_rs != nch_ag:
+        return (
+            f"effective channel counts diverge: RS extent {n_mid} gives C={nch_rs} (requested "
+            f"{ch_rs.num_channels}) but AG extent {m_glob // world} gives C={nch_ag} (requested {ch_ag.num_channels})"
+        )
+    return None
+
+
+def _warn_seam_fallback(reason: str, key) -> None:
+    if key not in _WARNED_SEAMS:
+        _WARNED_SEAMS.add(key)
+        warnings.warn(
+            SeamFallbackWarning(
+                f"compile_overlap: seam is schedule-incompatible - {reason}; degrading to the unfused "
+                "matmul_rs + ag_matmul pair (numerically identical, but the seam collective time is exposed)"
+            ),
+            stacklevel=3,
+        )
+
+
+def _seq_unfused(ch_rs: BlockChannel, ch_ag: BlockChannel, world: World, overlapped: bool, kw: dict) -> Callable:
+    """The unfused pair with the seam's ``(y, ag_out)`` contract."""
+    rs = compile_overlap("matmul_rs", ch_rs, world=world, overlapped=overlapped, **kw)
+    ag = compile_overlap("ag_matmul", ch_ag, world=world, overlapped=overlapped, **kw)
+
+    def pair_fn(x, w1, w2, *, residual=None, glue=None, **call_kw):
+        out = rs(x, w1, **call_kw)
+        y = out if residual is None else residual + out
+        h = y if glue is None else glue(y)
+        return y, ag(h, w2, **call_kw)
+
+    return pair_fn
+
+
+def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: str, overlapped: bool, kw: dict):
+    """The list form (see the module docstring)."""
+    kinds, chans = [], []
+    for op in ops:
+        k, ch = op if isinstance(op, (tuple, list)) else (op, channel)
+        kinds.append(k)
+        chans.append(BlockChannel(axis="model") if ch is None else ch)
+    kinds = tuple(kinds)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    if kinds not in SEQ_KINDS or (backend == "fused" and (kinds == SEAM_SEQ or not overlapped)):
+        raise unsupported_error(kinds, backend, overlapped)
+    if not all(isinstance(ch, BlockChannel) for ch in chans):
+        raise unsupported_error(kinds, backend, overlapped)  # channel="auto": the tuner is not ported
+    ch0, ch1 = chans
+    if kinds == A2A_SEQ:
+        if not overlapped:
+            return functools.partial(_moe.a2a_moe_baseline, world=world, num_channels=ch0.num_channels, **kw)
+        return functools.partial(_moe.a2a_moe, world=world, channel=ch0, channel2=ch1, grouped=backend == "fused", **kw)
+    if not overlapped:
+        return _seq_unfused(ch0, ch1, world, False, kw)
+
+    def seq_fn(x, w1, w2, *, residual=None, glue=None, **call_kw):
+        m_glob, n_mid = x.shape[-2], w1.shape[-1]
+        reason = _seam_incompatibility(ch0, ch1, world.size, m_glob, n_mid)
+        if reason is not None:
+            key = (ch0.axis, ch1.axis, world.size, m_glob, n_mid, ch0.num_channels, ch1.num_channels)
+            _warn_seam_fallback(reason, key)
+            return _seq_unfused(ch0, ch1, world, True, kw)(x, w1, w2, residual=residual, glue=glue, **call_kw)
+        return _eager.matmul_rs_ag(
+            x, w1, w2, world=world, channel=ch0, channel2=ch1, residual=residual, glue=glue, **kw, **call_kw
+        )
+
+    return seq_fn
+
+
 def compile_overlap(
-    kind: str,
-    channel: BlockChannel,
+    kind,
+    channel: Optional[BlockChannel] = None,
     *,
     world: World,
     backend: str = "eager",
     overlapped: bool = True,
+    quant=None,
     **kw,
 ) -> Callable:
     """Compile a tile program for ``world``; returns ``fn(x, w) -> out``
     (``fn(q, k, v) -> out`` for ``ag_attention``, ``fn(x, ids, wts, w_gu,
-    w_down) -> out`` for ``ag_moe``)."""
+    w_down) -> out`` for ``ag_moe``).  A list or tuple ``kind`` is the list
+    form (module docstring).  ``quant`` is the JAX package's wire-dtype
+    keyword; only ``None`` is ported."""
+    if quant is not None:
+        raise unsupported_error(kind, backend, overlapped)
+    if isinstance(kind, (list, tuple)):
+        return _compile_seq(kind, channel, world, backend, overlapped, kw)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if not isinstance(channel, BlockChannel):

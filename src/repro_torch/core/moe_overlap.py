@@ -1,5 +1,6 @@
-"""AG + MoE overlap (paper Fig. 5) — the tensor-parallel half of
-``repro/core/moe_overlap.py``.
+"""MoE overlap — the port of ``repro/core/moe_overlap.py``: the
+tensor-parallel AG + MoE double ring (paper Fig. 5) and the
+expert-parallel dispatch / combine all-to-all.
 
 The paper's hardest case: AllGather + Gather + GroupGEMM + TopkReduce +
 ReduceScatter with a *dynamic* tile mapping (token routing known only at run
@@ -23,8 +24,15 @@ hand-written grouped GEMM kernel (``kernels/grouped_matmul.py``) when
 ``grouped=True`` (the "fused" backend), else as one batched GEMM over every
 (rank, expert) — float32 products, or on the card a tensor-core
 ``torch.bmm`` for bf16 / fp16 operands — or the CompSpec-blocked
-``blocked_dot`` (the "eager" backend, and ``ag_moe_baseline``).  The
-expert-parallel a2a half is not ported yet.
+``blocked_dot`` (the "eager" backend, and ``ag_moe_baseline``).
+
+Expert parallelism (``a2a_moe``) runs the ``a2a_dispatch -> combine_rs``
+pair (``core/overlap.run_a2a_seq``): at each step a peer's own token tile
+and its routing tables land by a direct exchange, the local experts run on
+it, and the weighted partial returns home along the reversed edge.
+Capacity is per (landing rank, origin sub-chunk of ``m_loc / C`` tokens,
+leading index) on both it and ``a2a_moe_baseline``, so the two keep and
+drop the same (token, k) pairs.
 """
 
 from __future__ import annotations
@@ -37,10 +45,12 @@ import torch.nn.functional as F
 from repro_torch.backend.mesh import World
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot
-from repro_torch.core.overlap import plan_for, run_plan
+from repro_torch.core.mapping import effective_channels
+from repro_torch.core.overlap import plan_for, run_a2a_seq, run_plan
+from repro_torch.core.plan import build_seq_plan
 from repro_torch.kernels.grouped_matmul import group_tile_table, grouped_matmul
 
-__all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline"]
+__all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline", "a2a_moe", "a2a_moe_baseline"]
 
 
 def moe_router(x, w_router, *, num_experts: int, top_k: int, valid_experts: Optional[int] = None):
@@ -165,20 +175,27 @@ def ag_moe(
     plan = plan_for("ag_moe", channel, world.size, m_loc)
     m_sub = m_loc // plan.num_channels
     cap = _capacity(m_sub, k, e_loc * world.size, capacity_factor)
-    chunks = [
-        tuple(t[..., c * m_sub : (c + 1) * m_sub, :] for t in (x, topk_ids, topk_w))
-        for c in range(plan.num_channels)
-    ]
+    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, plan.accum_dtype)
+    accs = run_plan(plan, world, tile_fn, state=_token_chunks(x, topk_ids, topk_w, plan.num_channels))
+    return torch.cat(accs, dim=-2).to(x.dtype)
+
+
+def _token_chunks(x, topk_ids, topk_w, nch: int) -> list:
+    """Channel c's token tile and its routing tables: sub-chunk c of the rows."""
+    m_sub = x.shape[-2] // nch
+    return [tuple(t[..., c * m_sub : (c + 1) * m_sub, :] for t in (x, topk_ids, topk_w)) for c in range(nch)]
+
+
+def _expert_tile(w_gu, w_down, cap: int, act, channel: BlockChannel, grouped: bool, accum):
+    """The MoE tile callback: each rank's local experts on the tile it holds,
+    the combined partial in the accum dtype."""
 
     def moe_tile(ctx, tile, _carry):
         xs, ids, wts = tile
-        part = local_expert_ffn(
-            xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped
-        )
-        return part.to(plan.accum_dtype)
+        part = local_expert_ffn(xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped)
+        return part.to(accum)
 
-    accs = run_plan(plan, world, moe_tile, state=chunks)
-    return torch.cat(accs, dim=-2).to(x.dtype)
+    return moe_tile
 
 
 def ag_moe_baseline(
@@ -200,6 +217,76 @@ def ag_moe_baseline(
     cap = _capacity(m_loc, k, e_loc * world.size, capacity_factor)
     gathered = [t.unsqueeze(0).expand((world.size,) + tuple(t.shape)) for t in (x, topk_ids, topk_w)]
     part = local_expert_ffn(*gathered, w_gu, w_down, cap=cap, act=act)  # [W, W_origin, *lead, m_loc, d]
+    return world.psum(part).to(x.dtype)  # origin o's sum lands on rank o
+
+
+def a2a_moe(
+    x,
+    topk_ids,
+    topk_w,
+    w_gu,
+    w_down,
+    *,
+    world: World,
+    channel: Optional[BlockChannel] = None,
+    channel2: Optional[BlockChannel] = None,
+    capacity_factor: float = 1.25,
+    act: Callable = F.silu,
+    grouped: bool = False,
+):
+    """Overlapped expert-parallel MoE: the fused a2a dispatch -> expert GEMMs
+    -> combine pipeline (see the module docstring).
+
+    ``x [W, *lead, m_loc, d]`` is each rank's token chunk, the experts those
+    of ``ag_moe``.  The chunk splits into ``C`` sub-chunks (the effective
+    channel count); each (landing rank, origin sub-chunk) pair has its own
+    capacity, and a dropped token adds a zero partial.  The combine
+    accumulates in the CompSpec accum dtype.  Returns ``[W, *lead, m_loc, d]``.
+    """
+    channel = channel or BlockChannel(axis="model")
+    channel2 = channel2 or channel
+    m_loc, k, e_loc = x.shape[-2], topk_ids.shape[-1], w_gu.shape[1]
+    nch = effective_channels(m_loc, channel.num_channels, kind="a2a_dispatch")
+    seq = build_seq_plan(("a2a_dispatch", "combine_rs"), (channel, channel2), world.size, nch)
+    cap = _capacity(m_loc // nch, k, e_loc * world.size, capacity_factor)
+    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, seq.ops[0].accum_dtype)
+    accs = run_a2a_seq(seq, world, tile_fn, state=_token_chunks(x, topk_ids, topk_w, nch))
+    return torch.cat(accs, dim=-2).to(x.dtype)
+
+
+def a2a_moe_baseline(
+    x,
+    topk_ids,
+    topk_w,
+    w_gu,
+    w_down,
+    *,
+    world: World,
+    capacity_factor: float = 1.25,
+    act: Callable = F.silu,
+    num_channels: int = 1,
+):
+    """Non-overlapping expert-parallel reference: every rank sees every
+    origin's tokens and tables (AllGather), runs its experts, and the
+    partials are reduce-scattered home in float32.
+
+    ``num_channels`` must be the overlapped path's *effective* channel
+    count: capacity is per ``m_loc / num_channels`` sub-chunk, the
+    granularity ``a2a_moe`` drops at, so both keep the same (token, k)
+    pairs and differ only in summation order.
+    """
+    size = world.size
+    m_loc, d, k, e_loc = x.shape[-2], x.shape[-1], topk_ids.shape[-1], w_gu.shape[1]
+    nch = effective_channels(m_loc, num_channels, kind="a2a_dispatch", warn=False)
+    m_sub = m_loc // nch
+    cap = _capacity(m_sub, k, e_loc * size, capacity_factor)  # per-sub-chunk capacity
+
+    def gathered(t):  # [W, W_origin, *lead, nch, m_sub, .]: every rank sees every origin's sub-chunks
+        t = t.reshape(t.shape[:-2] + (nch, m_sub, t.shape[-1]))
+        return t.unsqueeze(0).expand((size,) + tuple(t.shape))
+
+    part = local_expert_ffn(*(gathered(t) for t in (x, topk_ids, topk_w)), w_gu, w_down, cap=cap, act=act)
+    part = part.reshape((size,) + tuple(x.shape)).float()
     return world.psum(part).to(x.dtype)  # origin o's sum lands on rank o
 
 

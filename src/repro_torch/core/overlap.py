@@ -1,7 +1,7 @@
 """Eager overlap backend — one generic schedule executor over tile plans.
 
-The port's counterpart of ``repro/core/overlap.py`` for the "ag", "rs" and
-"ag_rs" flows, and of the JAX package's ``"xla"`` backend.  Every function
+The port's counterpart of ``repro/core/overlap.py`` and of the JAX
+package's ``"xla"`` backend.  Every function
 here takes rank-stacked operands (``[W, ...]``, see ``backend/mesh.World``); a
 permute is an index on the rank dimension, so each step of the plan is
 plain PyTorch.  It is the reference the fused Hopper kernels are held
@@ -10,7 +10,12 @@ against, and the model path when ``ParallelContext(backend="eager")``.
 There is exactly one schedule loop here, :func:`run_plan`; ``ag_matmul``
 and ``matmul_rs`` are GEMM callbacks plugged into it, ``ring_attention``
 (AG-KV + online softmax, paper Fig. 6) an attention callback, and so is the
-AG+MoE double ring (``core/moe_overlap.ag_moe``).  The non-overlapped
+AG+MoE double ring (``core/moe_overlap.ag_moe``).  Two-op plans
+(:class:`~repro_torch.core.plan.SeqPlan`) compose it: :func:`run_seq_plan`
+runs the RS -> AG layer seam (:func:`matmul_rs_ag`: a down / out
+projection's reduce-scatter handing its home segments to the next
+projection's all-gather) and :func:`run_a2a_seq` the expert-parallel
+dispatch / combine pair (``core/moe_overlap.a2a_moe``).  The non-overlapped
 baselines (gather then GEMM; GEMM then reduce-scatter; gather the KV then
 one attention) sit beside them.
 """
@@ -26,15 +31,18 @@ from repro_torch.backend.mesh import World
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divisor
 from repro_torch.core.mapping import effective_channels
-from repro_torch.core.plan import TilePlan, build_plan
+from repro_torch.core.plan import SeqPlan, TilePlan, build_plan, build_seq_plan
 
 __all__ = [
     "run_plan",
+    "run_seq_plan",
+    "run_a2a_seq",
     "TileContext",
     "ag_matmul",
     "ag_matmul_baseline",
     "matmul_rs",
     "matmul_rs_baseline",
+    "matmul_rs_ag",
     "ring_attention",
     "ag_attention_baseline",
     "plan_for",
@@ -80,6 +88,8 @@ def run_plan(
     for segment ``ctx.src``; one flowing accumulator per channel
     (``acc = permute(acc) + partial``).  Returns the per-channel home
     segments.
+
+    The a2a flows run as one pipeline of both ops (:func:`run_a2a_seq`).
     """
     nch = plan.num_channels
     if plan.flow in ("ag", "ag_rs"):
@@ -113,7 +123,50 @@ def run_plan(
                 else:
                     accs[c] = world.permute(accs[c], sched.rs_perm(s - 1)) + part
         return accs
-    raise NotImplementedError(f"run_plan: flow {plan.flow!r} is not ported")
+    raise ValueError(f"run_plan: flow {plan.flow!r} runs as a SeqPlan (run_seq_plan / run_a2a_seq)")
+
+
+def run_seq_plan(
+    seq: SeqPlan, world: World, rs_tile_fn: Callable, seam_fn: Callable, ag_tile_fn: Callable, *, carry=None
+):
+    """Run an RS -> AG seam plan: the producer as an "rs" plan, then
+    ``seam_fn(accs, carry) -> (seam_out, state, carry)`` on its per-channel
+    home segments (rank-local glue, re-chunked into the consumer's step-0
+    tiles: the seam-composition invariant puts every segment where the
+    consumer seeds it), then the consumer as an "ag" plan.  Returns
+    ``(seam_out, carry)``."""
+    producer, consumer = seq.ops
+    accs = run_plan(producer, world, rs_tile_fn)
+    seam_out, state, carry = seam_fn(accs, carry)
+    return seam_out, run_plan(consumer, world, ag_tile_fn, state=state, carry=carry)
+
+
+def run_a2a_seq(seq: SeqPlan, world: World, tile_fn: Callable, *, state: Sequence) -> List[torch.Tensor]:
+    """Run an ``a2a_dispatch -> combine_rs`` pair as one pipeline.
+
+    ``state[c]`` is channel c's own tile (a token tile and its routing
+    tables, permuted together).  Per step the executor lands step s+1's
+    direct exchange of the own tiles, calls ``tile_fn(ctx, landed, None) ->
+    partial`` on the tile that landed at step s (step 0: the own tile), and
+    returns the partial home along the reversed edge (``combine_perm``),
+    where it accumulates.  Returns the per-channel home accumulators
+    (channel c: the outputs of own chunk c's tokens).
+    """
+    dispatch, combine = seq.ops
+    nch = dispatch.num_channels
+    own, landed = list(state), list(state)
+    accs: List[torch.Tensor] = [None] * nch
+    for s in range(dispatch.steps):
+        nxt = None
+        if s < dispatch.steps - 1:
+            nxt = [_permute(world, own[c], dispatch.channels[c].a2a_perm(s + 1)) for c in range(nch)]
+        for c in range(nch):
+            sched = combine.channels[c]
+            part = tile_fn(TileContext(s, c, sched.source_table(s)), landed[c], None)
+            accs[c] = part if s == 0 else accs[c] + world.permute(part, sched.combine_perm(s))
+        if nxt is not None:
+            landed = nxt
+    return accs
 
 
 def _permute(world: World, tile, pairs):
@@ -196,14 +249,21 @@ def ag_matmul(
         x.shape[:-2] + (world.size * m_loc, n_loc), dtype=out_dtype, device=x.device
     )
 
+    return run_plan(plan, world, _ag_tile(w, m_loc, m_sub, channel, plan.accum_dtype), state=chunks, carry=out)
+
+
+def _ag_tile(w, m_loc: int, m_sub: int, channel: BlockChannel, accum):
+    """The AG consumer's GEMM tile: the held tile times ``w``, stored at the
+    rows it covers globally (f_S), in the output buffer's dtype."""
+
     def gemm_tile(ctx, tile, out):
-        part = _consume_dot(tile, w, channel.comp.tile, plan.accum_dtype, out_dtype)
+        part = _consume_dot(tile, w, channel.comp.tile, accum, out.dtype)
         for r, src in enumerate(ctx.src):
-            row = src * m_loc + ctx.channel * m_sub  # f_S of the held tile
+            row = src * m_loc + ctx.channel * m_sub
             out[r, ..., row : row + m_sub, :] = part[r]
         return out
 
-    return run_plan(plan, world, gemm_tile, state=chunks, carry=out)
+    return gemm_tile
 
 
 def _baseline_dot(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -263,13 +323,91 @@ def matmul_rs(
     m_loc = m_glob // world.size
     n_sub = n // plan.num_channels
 
+    accs = run_plan(plan, world, _rs_tile(x, w, m_loc, n_sub, channel, plan.accum_dtype))
+    return torch.cat(accs, dim=-1).to(out_dtype)
+
+
+def _rs_tile(x, w, m_loc: int, n_sub: int, channel: BlockChannel, accum):
+    """The RS producer's GEMM tile: each rank's rows of its scheduled segment
+    times channel c's columns of ``w``, in the accum dtype."""
+
     def gemm_tile(ctx, _tile, _carry):
         xs = rank_rows(x, [seg * m_loc for seg in ctx.src], m_loc)
         wc = w[..., ctx.channel * n_sub : (ctx.channel + 1) * n_sub]
-        return _consume_dot(xs, wc, channel.comp.tile, plan.accum_dtype)
+        return _consume_dot(xs, wc, channel.comp.tile, accum)
 
-    accs = run_plan(plan, world, gemm_tile)
-    return torch.cat(accs, dim=-1).to(out_dtype)
+    return gemm_tile
+
+
+def matmul_rs_ag(
+    x: torch.Tensor,
+    w1: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    world: World,
+    channel: Optional[BlockChannel] = None,
+    channel2: Optional[BlockChannel] = None,
+    residual: Optional[torch.Tensor] = None,
+    glue: Optional[Callable] = None,
+    out_dtype: Optional[torch.dtype] = None,
+):
+    """Fused layer seam: ``matmul_rs(x, w1)`` flowing into ``ag_matmul(., w2)``.
+
+    ``x``: [W, *lead, M, k_loc] and ``w1`` [W, k_loc, N] are the RS producer
+    (a down / out projection), ``w2`` [W, N, n2_loc] the AG consumer (the
+    next projection).  On each rank's full home segment [W, *lead, M / W, N]:
+
+        y = residual + matmul_rs(x, w1)    (residual optional)
+        h = glue(y)                        (optional, row-preserving: the next block's rms_norm)
+
+    Returns ``(y, ag_matmul(h, w2))``.  The float ops and their order are the
+    unfused pair's: the RS output is cast to ``out_dtype`` before the
+    residual add, ``glue`` runs on the whole home segment before the AG
+    re-chunk, and the AG output is in ``h``'s dtype, so in float32 the
+    results equal the unfused pair bitwise.  Both halves must resolve the
+    same effective channel count (RS chunks the N columns, AG the M / W
+    rows); a mismatch raises ``ValueError`` (the ``compile_overlap`` list
+    form checks first and falls back to the unfused pair).
+    ``matmul_rs_ag.calls`` counts the seams fused.
+    """
+    _check_ranked(x, w1, world, "matmul_rs_ag")
+    if w2.dim() != 3 or w2.shape[0] != world.size or w2.shape[1] != w1.shape[-1]:
+        raise ValueError(f"matmul_rs_ag: expected w2 [W={world.size}, {w1.shape[-1]}, n2], got {tuple(w2.shape)}")
+    channel = channel or BlockChannel(axis="model")
+    channel2 = channel2 or channel
+    out_dtype = out_dtype or x.dtype
+    m_glob, n_mid, n2_loc = x.shape[-2], w1.shape[-1], w2.shape[-1]
+    if m_glob % world.size:
+        raise ValueError(f"matmul_rs_ag: {m_glob} rows do not divide over {world.size} ranks")
+    m_loc = m_glob // world.size
+    nch = effective_channels(n_mid, channel.num_channels, kind="matmul_rs")
+    nch_ag = effective_channels(m_loc, channel2.num_channels, kind="ag_matmul")
+    if nch != nch_ag:
+        raise ValueError(
+            f"matmul_rs_ag: seam channel counts diverge - RS extent {n_mid} yields C={nch} but AG extent "
+            f"{m_loc} yields C={nch_ag}; use compile_overlap(['matmul_rs', 'ag_matmul']) for the loud "
+            "unfused fallback"
+        )
+    seq = build_seq_plan(("matmul_rs", "ag_matmul"), (channel, channel2), world.size, nch)
+    rs_plan, ag_plan = seq.ops
+    n_sub, m_sub = n_mid // nch, m_loc // nch
+
+    def seam(accs, _carry):
+        rs_out = torch.cat(accs, dim=-1).to(out_dtype)
+        y = rs_out if residual is None else residual + rs_out
+        # glue needs whole rows (rms_norm over N), so it runs on the home
+        # segment before the re-chunk: the unfused pair's ops in its order
+        h = y if glue is None else glue(y)
+        state = [h[..., c * m_sub : (c + 1) * m_sub, :] for c in range(nch)]
+        out = torch.zeros(h.shape[:-2] + (world.size * m_loc, n2_loc), dtype=h.dtype, device=h.device)
+        return y, state, out
+
+    matmul_rs_ag.calls += 1
+    rs_tile = _rs_tile(x, w1, m_loc, n_sub, channel, rs_plan.accum_dtype)
+    return run_seq_plan(seq, world, rs_tile, seam, _ag_tile(w2, m_loc, m_sub, channel2, ag_plan.accum_dtype))
+
+
+matmul_rs_ag.calls = 0
 
 
 def matmul_rs_baseline(x, w, *, world: World, out_dtype=None, channel=None):

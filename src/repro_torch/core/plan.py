@@ -1,13 +1,19 @@
 """Tile-program plans — the IR between ``BlockChannel`` and the executors.
 
-The port's counterpart of ``repro/core/plan.py`` for the single-op kinds
-``ag_matmul`` and ``ag_attention`` (flow "ag": the KV tiles of the ring),
-``matmul_rs`` (flow "rs") and ``ag_moe`` (flow "ag_rs": token tiles flow as
-in "ag" and a reduction rides the same permutes, then one ``align_perm`` hop
-sends it home).  ``compile_overlap`` builds a :class:`TilePlan` from
-``(kind, BlockChannel, world)`` and hands it to the eager schedule executor
-(``core/overlap.run_plan``) or to the fused Hopper kernels, which read the
-same per-(channel, step, rank) tables from device memory.
+The port's counterpart of ``repro/core/plan.py``.  Flows by kind:
+``ag_matmul`` and ``ag_attention`` "ag" (the KV tiles of the ring);
+``matmul_rs`` "rs"; ``ag_moe`` "ag_rs" (token tiles flow as in "ag" and a
+reduction rides the same permutes, then one ``align_perm`` hop sends it
+home); ``a2a_dispatch`` "a2a" (expert-parallel dispatch: every step is a
+*direct* exchange of the ranks' own token tiles, nothing is forwarded) and
+``combine_rs`` "a2a_rs" (each step's partial returns home along the
+reversed exchange edge and accumulates there).  ``compile_overlap`` builds a
+:class:`TilePlan` from ``(kind, BlockChannel, world)`` and hands it to the
+eager schedule executor (``core/overlap.run_plan``) or to the fused Hopper
+kernels, which read the same per-(channel, step, rank) tables from device
+memory.  A :class:`SeqPlan` chains two plans: the RS -> AG layer seam
+(``matmul_rs`` -> ``ag_matmul``) and the expert-parallel pair
+(``a2a_dispatch`` -> ``combine_rs``).
 
   * per channel ``c`` a **source schedule** sigma_c(rank, step) — which
     peer's tile a rank holds/consumes at each step (``schedules.SCHEDULES``;
@@ -35,13 +41,24 @@ import torch
 from repro_torch.core import schedules
 from repro_torch.core.channels import ORDERS, BlockChannel, QuantSpec
 
-__all__ = ["ChannelSchedule", "TilePlan", "PlanError", "build_plan", "plan_cache_info", "FLOW_OF_KIND"]
+__all__ = [
+    "ChannelSchedule",
+    "TilePlan",
+    "SeqPlan",
+    "PlanError",
+    "build_plan",
+    "build_seq_plan",
+    "plan_cache_info",
+    "FLOW_OF_KIND",
+]
 
 FLOW_OF_KIND = {
     "ag_matmul": "ag",
     "ag_attention": "ag",
     "matmul_rs": "rs",
     "ag_moe": "ag_rs",
+    "a2a_dispatch": "a2a",
+    "combine_rs": "a2a_rs",
 }
 
 Table = Tuple[Tuple[Tuple[int, ...], ...], ...]  # [channel][step][rank]
@@ -86,6 +103,23 @@ class ChannelSchedule:
                 f"per-step permutation at step {step + 1}"
             )
         return tuple((j, inv[self.source(j, step)]) for j in range(self.world))
+
+    def a2a_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
+        """(src, dst) pairs of the direct exchange landing ``step``: rank j
+        sends its *own* tile to the rank d that consumes it at ``step``
+        (sigma(d, step) == j); no held tile is forwarded."""
+        inv = {self.source(d, step): d for d in range(self.world)}
+        if len(inv) != self.world:
+            raise PlanError(
+                f"{self.order} over {self.world} ranks: source schedule is not a per-step permutation at step {step}"
+            )
+        return tuple((j, inv[j]) for j in range(self.world))
+
+    def combine_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
+        """(src, dst) pairs returning step ``step``'s partial home: rank j
+        holds the expert output for origin sigma(j, step)'s tokens (the
+        dispatch edge reversed; ``align_perm`` is ``combine_perm(W - 1)``)."""
+        return tuple((j, self.source(j, step)) for j in range(self.world))
 
     def align_perm(self) -> Tuple[Tuple[int, int], ...]:
         """Final hop of a tile-following reduction ("ag_rs"): rank j holds the
@@ -167,6 +201,12 @@ class TilePlan:
             for ch in self.channels
         )
 
+    def a2a_dst_tables(self) -> Table:
+        """A2A: rank each rank sends its *own* tile to, per (c, step); step 0
+        is the identity (the own tile).  The combine's return destinations
+        are ``src_tables``."""
+        return tuple(tuple(tuple(dst for _, dst in ch.a2a_perm(s)) for s in range(self.steps)) for ch in self.channels)
+
 
 def _directions(order: str, num_channels: int) -> Tuple[int, ...]:
     """Channel -> ring direction: ring runs every channel at -1 (the paper's
@@ -204,7 +244,62 @@ def build_plan(kind: str, channel: BlockChannel, world: int, num_channels: int) 
     # the tables must derive (every step a permutation) before a plan ships
     plan.flow_dst_tables()
     plan.rs_dst_tables()
+    plan.a2a_dst_tables()
     return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqPlan:
+    """Two chained plans: op 0's outbound flow feeds op 1's inbound flow.
+
+    The legal chains are the layer seam ``rs -> ag`` (the RS pass's home
+    segments become the AG pass's step-0 tiles in place, over the same
+    world and channel split) and the expert-parallel pair ``a2a -> a2a_rs``
+    (each landed tile's expert output returns along the reversed exchange
+    edge).  Both ops share axis, world and effective channel count.
+    """
+
+    ops: Tuple[TilePlan, ...]
+
+    def __post_init__(self):
+        if len(self.ops) != 2:
+            raise ValueError(f"SeqPlan supports exactly 2 chained ops, got {len(self.ops)}")
+        a, b = self.ops
+        if (a.flow, b.flow) not in (("rs", "ag"), ("a2a", "a2a_rs")):
+            raise ValueError(
+                "SeqPlan must chain an rs producer into an ag consumer or an a2a dispatch into an "
+                f"a2a_rs combine, got flows {(a.flow, b.flow)}"
+            )
+        if a.axis != b.axis or a.world != b.world or a.num_channels != b.num_channels:
+            raise ValueError(
+                f"seam ops must share axis/world/channel count, got axis={(a.axis, b.axis)} "
+                f"world={(a.world, b.world)} C={(a.num_channels, b.num_channels)}"
+            )
+
+    @property
+    def axis(self) -> str:
+        return self.ops[0].axis
+
+    @property
+    def world(self) -> int:
+        return self.ops[0].world
+
+    @property
+    def num_channels(self) -> int:
+        return self.ops[0].num_channels
+
+
+@functools.lru_cache(maxsize=256)
+def build_seq_plan(
+    kinds: Tuple[str, ...], channels: Tuple[BlockChannel, ...], world: int, num_channels: int
+) -> SeqPlan:
+    """Build (and cache) the chained plan for ``kinds``; ``channels`` may
+    differ per op (e.g. tile orders) but agree on the axis, and
+    ``num_channels`` is the shared *effective* count, clamped by the caller
+    against both extents."""
+    if len(kinds) != len(channels):
+        raise ValueError(f"got {len(kinds)} kinds but {len(channels)} channels")
+    return SeqPlan(ops=tuple(build_plan(k, ch, world, num_channels) for k, ch in zip(kinds, channels)))
 
 
 def plan_cache_info():

@@ -22,6 +22,16 @@ and fills the decode caches (KV caches; SSM state and conv tail for Mamba
 layers); ``decode_step`` then advances every slot by up to C tokens;
 ``forward`` returns the logits and the summed MoE aux loss.  The LM head
 runs on the tile-GEMM kernel when ``pc.backend == "fused"``.
+
+With ``pc.fuse_seams`` ``forward`` chains consecutive attention + dense-MLP
+layers (:meth:`LayerDef.seam_eligible`) through fused RS -> AG seams
+(:func:`_seam_chain`): each attention output projection's RS feeds the
+MLP's gate/up AG, and an MLP's down-projection RS feeds the next eligible
+layer's qkv AG.  Chains stay within the JAX package's layer segments (the
+``first_k_dense`` prefix, each ``cfg.pattern`` period, the suffix), so each
+model fuses the same seams as the reference.  ``prefill`` takes no seams,
+as in the JAX package; with ``pc.ep_axis`` its MoE layers run the
+expert-parallel path (``nn/moe.apply_seq``).
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from repro_torch.parallel.context import ParallelContext
 __all__ = [
     "LayerDef",
     "layer_plan",
+    "segments",
     "init",
     "padded_vocab",
     "embed_tokens",
@@ -71,6 +82,27 @@ class LayerDef:
             return mamba.apply_seq(params["mixer"], x, pc, cfg), _zero(x)
         x = attention.apply_seq(params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta)
         return self._ffn_seq(params, x, pc, cfg)
+
+    def seam_eligible(self) -> bool:
+        """Whether the layer joins a fused seam chain: attention with a dense
+        MLP (Mamba has no RS feeding an AG; MoE's gather is its own flow)."""
+        return self.kind != "mamba" and self.ffn_kind == "mlp"
+
+    def apply_seq_fused(self, params, x, pc, cfg, qkv=None, next_mixer=None):
+        """The seam-fused layer: the attention output projection's RS feeds
+        the MLP's gate/up AG (the intra-layer seam); with ``next_mixer`` (the
+        next layer's attention params) the down projection's RS produces
+        that layer's qkv too (the inter-layer seam).  ``qkv`` is this
+        layer's projection from the previous layer's seam.  Returns (x, aux
+        loss, next layer's qkv or None)."""
+        y, gu = attention.apply_seq(
+            params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, qkv=qkv,
+            next_proj=ffn.seam_proj(params["ffn"], cfg),
+        )  # fmt: skip
+        if next_mixer is None:
+            return ffn.apply_seq(params["ffn"], y, pc, cfg, gu=gu), _zero(x), None
+        x, nqkv = ffn.apply_seq(params["ffn"], y, pc, cfg, gu=gu, next_proj=attention.seam_proj(next_mixer, cfg))
+        return x, _zero(x), nqkv
 
     def apply_prefill(self, params, x, pc, cfg, max_len: int):
         """Like apply_seq, but returns (x, this layer's decode cache) with the
@@ -140,6 +172,32 @@ def layer_plan(cfg) -> List[LayerDef]:
     return [_layer_def(cfg, cfg.layer_kind(i)) for i in range(cfg.n_layers)]
 
 
+def segments(cfg) -> List[range]:
+    """The JAX package's layer segments over the flat layer list: the
+    ``first_k_dense`` prefix, one per ``cfg.pattern`` period, the suffix
+    (``repro/models/lm.layer_plan``).  Seam chains do not cross them."""
+    k0 = cfg.moe.first_k_dense if cfg.moe else 0
+    period = len(cfg.pattern)
+    n_units = (cfg.n_layers - k0) // period
+    bounds = [0, k0] + [k0 + (u + 1) * period for u in range(n_units)] + [cfg.n_layers]
+    return [range(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+
+
+def _seam_chain(defs, plist, x, pc, cfg, aux_total):
+    """Run one segment's layers, fusing the RS -> AG seams between
+    consecutive eligible layers; an ineligible layer (Mamba, MoE) breaks the
+    chain and runs unfused.  Returns (x, aux_total plus the layers' aux)."""
+    qkv = None
+    for i, (d, p) in enumerate(zip(defs, plist)):
+        if not d.seam_eligible():
+            x, aux = d.apply_seq(p, x, pc, cfg)
+        else:
+            nxt = plist[i + 1]["mixer"] if i + 1 < len(defs) and defs[i + 1].seam_eligible() else None
+            x, aux, qkv = d.apply_seq_fused(p, x, pc, cfg, qkv=qkv, next_mixer=nxt)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
 def padded_vocab(cfg, tp: int) -> int:
     """Vocab rows padded to the TP degree."""
     return -(-cfg.vocab_size // tp) * tp
@@ -193,13 +251,20 @@ def _check_seq(pc: ParallelContext, s: int):
 
 
 def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor):
-    """Teacher-forced (logits [B, S, vocab], aux loss summed over the layers)."""
+    """Teacher-forced (logits [B, S, vocab], aux loss summed over the layers);
+    with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`."""
     _check_seq(pc, tokens.shape[1])
     x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)  # [W, B, s_loc, D]
     aux_total = _zero(x)
-    for d, p in zip(layer_plan(cfg), params["layers"]):
-        x, aux = d.apply_seq(p, x, pc, cfg)
-        aux_total = aux_total + aux
+    defs = layer_plan(cfg)
+    if pc.fuse_seams:
+        for seg in segments(cfg):
+            layers = params["layers"][seg.start : seg.stop]
+            x, aux_total = _seam_chain(defs[seg.start : seg.stop], layers, x, pc, cfg, aux_total)
+    else:
+        for d, p in zip(defs, params["layers"]):
+            x, aux = d.apply_seq(p, x, pc, cfg)
+            aux_total = aux_total + aux
     return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), aux_total
 
 

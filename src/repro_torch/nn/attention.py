@@ -15,6 +15,12 @@ locally on each rank's sequence shard and rotate through
 ``pc.ring_attention`` (flash attention consuming each arrived tile on the
 fused backend); the output projection is the same GEMM+RS consumer.
 
+Seam fusion (``pc.fuse_seams``, driven by ``models/lm``): ``seam_proj``
+gives the (glue, fused ``wqkv``) pair an upstream RS fuses into this
+layer's qkv AG, ``apply_seq(qkv=)`` takes that projection, and
+``next_proj=`` on either form fuses the output-projection RS into the next
+consumer's AG (``pc.matmul_rs_ag``).
+
 Decode (``apply_decode``): activations are replicated over the ranks, the
 projections are local per-rank matmuls with a ``psum`` epilogue, and the KV
 cache ``[W, B, kv_loc, S_max, hd]`` is sharded over heads.  The chunk's k/v
@@ -30,7 +36,16 @@ import torch
 from repro_torch.kernels.flash_attention import chunked_attention, flash_attention
 from repro_torch.nn.layers import GQALayout, gqa_layout, he_init, rms_norm, rope
 
-__all__ = ["init", "apply_seq", "apply_seq_ring", "apply_decode", "init_cache", "chunked_attention", "layout"]
+__all__ = [
+    "init",
+    "apply_seq",
+    "apply_seq_ring",
+    "apply_decode",
+    "init_cache",
+    "chunked_attention",
+    "layout",
+    "seam_proj",
+]
 
 NEG_INF = -1e30
 
@@ -70,6 +85,29 @@ def _split_qkv(qkv: torch.Tensor, lay: GQALayout, hd: int):
     return q, k, v
 
 
+def seam_proj(params: dict, cfg):
+    """(glue, w) for fusing an upstream RS into this layer's qkv AG:
+    ``glue`` is the pre-attention rms_norm, ``w`` the fused ``wqkv`` (a bias
+    would stay with the consumer; the ported configs have none)."""
+    return (lambda y: rms_norm(y, params["ln"], cfg.norm_eps)), params["wqkv"]
+
+
+def _no_ep(ep, what: str):
+    if ep:
+        raise ValueError(
+            f"attention.{what} has no expert-parallel form; ep= selects the dispatch/combine a2a in moe.apply_seq only"
+        )
+
+
+def _out_proj(o, params, x, pc, next_proj):
+    """The output projection's GEMM+RS plus the residual, or with
+    ``next_proj=(glue, w)`` the seam ``(y, next_out)``."""
+    if next_proj is None:
+        return x + pc.matmul_rs(o, params["wo"])  # GEMM + RS -> [W, B, s_loc, D]
+    glue, w_next = next_proj
+    return pc.matmul_rs_ag(o, params["wo"], w_next, residual=x, glue=glue)
+
+
 def apply_seq(
     params: dict,
     x: torch.Tensor,
@@ -81,14 +119,26 @@ def apply_seq(
     rope_theta: Optional[float] = None,
     attn_chunk: int = 1024,
     return_kv: bool = False,
+    qkv: Optional[torch.Tensor] = None,
+    next_proj=None,
+    ep=None,
 ):
     """x: [W, B, s_loc, D] sequence-sharded -> [W, B, s_loc, D] (+ residual);
-    with ``return_kv`` also the per-rank KV ``[W, B, kv_loc, S, hd]``."""
+    with ``return_kv`` also the per-rank KV ``[W, B, kv_loc, S, hd]``.
+
+    ``qkv``: this layer's gathered projection from an upstream fused seam
+    (skips the norm and the AG here).  ``next_proj=(glue, w)``: fuse the
+    output-projection RS with the next consumer's AG; the return value is
+    then ``(y, next_out)`` (``(y, next_out, kv)`` with ``return_kv``).
+    ``ep`` must be falsy.
+    """
+    _no_ep(ep, "apply_seq")
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b = x.shape[0], x.shape[1]
-    h = rms_norm(x, params["ln"], cfg.norm_eps)
-    qkv = pc.ag_matmul(h, params["wqkv"])  # [W, B, S, (h_loc + 2 kv_loc) * hd]
+    if qkv is None:
+        h = rms_norm(x, params["ln"], cfg.norm_eps)
+        qkv = pc.ag_matmul(h, params["wqkv"])  # [W, B, S, (h_loc + 2 kv_loc) * hd]
     s_glob = qkv.shape[2]
     q, k, v = _split_qkv(qkv, lay, hd)
     positions = torch.arange(s_glob, device=x.device)
@@ -116,9 +166,9 @@ def apply_seq(
             chunk=min(attn_chunk, s_glob),
         )
     o = o.reshape(world, b, lay.h_loc, s_glob, hd).permute(0, 1, 3, 2, 4).reshape(world, b, s_glob, lay.h_loc * hd)
-    y = x + pc.matmul_rs(o, params["wo"])  # GEMM + RS -> [W, B, s_loc, D]
+    y = _out_proj(o, params, x, pc, next_proj)
     if return_kv:
-        return y, {"k": k, "v": v}
+        return (*y, {"k": k, "v": v}) if next_proj is not None else (y, {"k": k, "v": v})
     return y
 
 
@@ -131,9 +181,12 @@ def apply_seq_ring(
     causal: bool = True,
     window: Optional[int] = None,
     rope_theta: Optional[float] = None,
+    next_proj=None,
+    ep=None,
 ):
     """AG-Q + ring-KV attention block: x [W, B, s_loc, D] -> [W, B, s_loc, D]
-    (residual added), equal to :func:`apply_seq` up to summation order.
+    (residual added), equal to :func:`apply_seq` up to summation order;
+    ``next_proj`` and ``ep`` as in :func:`apply_seq`.
 
     The query columns of each rank's ``wqkv`` go through ``pc.ag_matmul``
     (copied contiguous: the bf16 AG+GEMM kernel reads its weight by TMA);
@@ -146,6 +199,7 @@ def apply_seq_ring(
     RoPE takes global positions: ``0..S-1`` for the gathered queries,
     ``rank * s_loc + j`` for the local keys.
     """
+    _no_ep(ep, "apply_seq_ring")
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b, s_loc, d = x.shape
@@ -173,7 +227,7 @@ def apply_seq_ring(
     q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous() for t in (q, k, v))  # [W, B, heads, S, hd]
     o = pc.ring_attention(q, k, v, causal=causal, window=window, kv_select=lay.kv_pad > 1)
     o = o.permute(0, 1, 3, 2, 4).reshape(world, b, s_glob, nq)
-    return x + pc.matmul_rs(o, params["wo"])  # GEMM + RS -> [W, B, s_loc, D]
+    return _out_proj(o, params, x, pc, next_proj)
 
 
 def init_cache(cfg, tp: int, batch: int, max_len: int, dtype, device, window: Optional[int] = None) -> dict:

@@ -8,6 +8,12 @@ per-rank matmuls and a ``psum`` epilogue.
 
 Per rank, ``w_gu`` is [D, 2*f_loc] with the gate|up halves side by side in
 each shard — the JAX package's layout, so its weights load as they are.
+
+Seam fusion (``pc.fuse_seams``, driven by ``models/lm``): ``seam_proj``
+gives the (glue, weight) pair an upstream RS fuses into this block's gate/up
+AG; ``apply_seq(gu=)`` takes that fused projection, and
+``apply_seq(next_proj=)`` fuses this block's down-projection RS into the
+next consumer's AG.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 
 from repro_torch.nn.layers import ACTS, he_init, rms_norm
 
-__all__ = ["init", "apply_seq", "apply_decode"]
+__all__ = ["init", "apply_seq", "apply_decode", "seam_proj"]
 
 
 def init(cfg, generator: torch.Generator, dtype: torch.dtype, device, d_ff=None) -> dict:
@@ -35,12 +41,33 @@ def _gate(cfg, gu: torch.Tensor) -> torch.Tensor:
     return ACTS[cfg.act](gu[..., :f_loc]) * gu[..., f_loc:]
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:
-    """x: [W, B, s_loc, D] (sequence-sharded) -> [W, B, s_loc, D] (+ residual)."""
-    h = rms_norm(x, params["ln"], cfg.norm_eps)
-    gu = pc.ag_matmul(h, params["w_gu"])  # AG + GEMM  [W, B, S, 2*f_loc]
+def seam_proj(params: dict, cfg):
+    """(glue, w) for fusing an upstream RS into this block's gate/up AG:
+    ``glue`` is the pre-MLP rms_norm, ``w`` the gate/up weight."""
+    return (lambda y: rms_norm(y, params["ln"], cfg.norm_eps)), params["w_gu"]
+
+
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, gu=None, next_proj=None, ep=None):
+    """x: [W, B, s_loc, D] (sequence-sharded) -> [W, B, s_loc, D] (+ residual).
+
+    ``gu``: this block's gate/up projection, already produced by the
+    upstream op's fused RS -> AG pass (skips the norm and the AG here).
+    ``next_proj=(glue, w)``: fuse the down-projection RS with the next
+    consumer's AG; the return value is then ``(y, next_out)``.  ``ep`` must
+    be falsy: a dense MLP has no expert-parallel form.
+    """
+    if ep:
+        raise ValueError(
+            "ffn.apply_seq has no expert-parallel form; ep= selects the dispatch/combine a2a in moe.apply_seq only"
+        )
+    if gu is None:
+        h = rms_norm(x, params["ln"], cfg.norm_eps)
+        gu = pc.ag_matmul(h, params["w_gu"])  # AG + GEMM  [W, B, S, 2*f_loc]
     a = _gate(cfg, gu).to(x.dtype)
-    return x + pc.matmul_rs(a, params["w_down"])  # GEMM + RS
+    if next_proj is None:
+        return x + pc.matmul_rs(a, params["w_down"])  # GEMM + RS
+    glue, w_next = next_proj
+    return pc.matmul_rs_ag(a, params["w_down"], w_next, residual=x, glue=glue)
 
 
 def apply_decode(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:

@@ -3,8 +3,12 @@
 Prefill (``apply_seq``): rms_norm, the float32 top-k router (the dynamic
 mapping), then ``pc.ag_moe``: token tiles and their routing tables flow
 around the ranks while each rank's local experts compute, and the combined
-outputs ride the same permutes back (``core/moe_overlap.py``).  On the
-"fused" backend the expert GEMMs run on the grouped kernel.
+outputs ride the same permutes back (``core/moe_overlap.py``).  With
+``ParallelContext(ep_axis=...)`` (or ``apply_seq(ep=True)``) the routed
+path is expert-parallel instead (``pc.a2a_moe``): each step a peer's own
+token tile and tables land by a direct exchange, the local experts run on
+it, and the partial returns home along the reversed edge.  On the "fused"
+backend the expert GEMMs of either path run on the grouped kernel.
 
 Decode (``apply_decode``): tokens are replicated over the ranks and a
 ``psum`` combines the ranks.  Two forms, as in the JAX package:
@@ -23,8 +27,7 @@ after the routed residual through its own ``ln`` with the residual inside,
 as the JAX package computes it.
 
 The expert count is padded up to a multiple of the TP degree; padding
-experts get -inf router logits and are never selected.  The
-expert-parallel (a2a) path is not ported yet.
+experts get -inf router logits and are never selected.
 """
 
 from __future__ import annotations
@@ -60,18 +63,30 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
     return p
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg):
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, ep=None, next_proj=None):
     """x: [W, B, s_loc, D] (sequence-sharded) -> ([W, B, s_loc, D] (+ residual), aux).
 
     Capacity and routing are per (rank, batch row); the aux loss is the mean
-    over batch rows and ranks."""
+    over batch rows and ranks.  ``ep`` picks the expert-parallel a2a path
+    (default: whether ``pc.ep_axis`` is set; ``ep=True`` without it
+    raises).  ``next_proj`` must be None: the MoE combine ends at the
+    residual stream, so there is no RS -> AG seam to fuse.  Shared experts
+    stay the dense TP MLP on either path."""
+    if next_proj is not None:
+        raise ValueError(
+            "moe.apply_seq does not support next_proj: the MoE combine ends at the residual stream, "
+            "so there is no RS->AG seam to fuse into a consumer"
+        )
+    if ep is None:
+        ep = pc.ep_axis is not None
+    if ep and pc.ep_axis is None:
+        raise ValueError("moe.apply_seq(ep=True) requires ParallelContext(ep_axis=...); expert parallelism is opt-in")
     m = cfg.moe
     e_pad = params["w_gu"].shape[1] * pc.tp
     h = rms_norm(x, params["ln"], cfg.norm_eps)
     ids, wts, aux = moe_router(h, params["router"], num_experts=e_pad, top_k=m.top_k, valid_experts=m.num_experts)
-    out = pc.ag_moe(
-        h, ids, wts, params["w_gu"], params["w_down"], capacity_factor=m.capacity_factor, act=ACTS[cfg.act]
-    )
+    moe_op = pc.a2a_moe if ep else pc.ag_moe
+    out = moe_op(h, ids, wts, params["w_gu"], params["w_down"], capacity_factor=m.capacity_factor, act=ACTS[cfg.act])
     y = x + out.to(x.dtype)
     if "shared" in params:
         y = ffn.apply_seq(params["shared"], y, pc, cfg)  # residual inside

@@ -21,9 +21,16 @@ each local expert's weights streamed once over every token with a masked
 combine, instead of per-(token, k) weight gathers (the default, as in the
 JAX package).
 
-Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.ring_attention`` /
-``pc.ag_moe`` / ``pc.psum`` / ``pc.pmean`` / ``pc.all_gather_seq`` on
-rank-stacked values.
+``fuse_seams`` has ``models/lm.forward`` fuse each layer's RS into the
+next projection's AG over one shared ring pass (``pc.matmul_rs_ag``, the
+``compile_overlap`` list form, on the eager executor whatever the
+backend: the JAX package has no fused-kernel seam).  ``ep_axis`` opts the
+MoE blocks into expert parallelism (``pc.a2a_moe``: the dispatch / combine
+all-to-all over the world's one axis, which it must name).
+
+Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
+``pc.ring_attention`` / ``pc.ag_moe`` / ``pc.a2a_moe`` / ``pc.psum`` /
+``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ class ParallelContext:
     channel: Optional[BlockChannel] = None
     backend: Optional[str] = None  # "fused" | "eager"; None -> by device
     moe_decode_stream: bool = False  # MoE decode: stream each local expert once over all tokens
+    fuse_seams: bool = False  # fuse layer RS -> AG seams into one ring pass (lm.forward)
+    ep_axis: Optional[str] = None  # expert-parallel opt-in: the axis of the MoE dispatch / combine
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):
@@ -60,6 +69,8 @@ class ParallelContext:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
         if self.backend == "fused" and self.mode != "overlap":
             raise ValueError("backend='fused' runs the overlapped kernels; mode='baseline' needs backend='eager'")
+        if self.ep_axis is not None and self.ep_axis != self.channel.axis:
+            raise ValueError(f"ep_axis {self.ep_axis!r} is not the world's axis {self.channel.axis!r}")
 
     # ---- static topology ------------------------------------------------
     @property
@@ -88,6 +99,17 @@ class ParallelContext:
         """[W, *lead, M, k_loc] x [W, k_loc, N] -> [W, *lead, M/W, N]."""
         return self._op("matmul_rs")(x, w, **kw)
 
+    def matmul_rs_ag(self, x, w1, w2, *, residual=None, glue=None, **kw):
+        """Fused layer seam: ``matmul_rs(x, w1)`` -> ``ag_matmul(glue(residual + .), w2)``
+        over one shared ring pass; returns ``(y, out)`` with ``y`` the
+        residual stream (before ``glue``).  Compiled on "eager" whatever
+        ``backend`` is; an incompatible seam warns once and runs unfused."""
+        fn = compile_overlap(
+            ["matmul_rs", "ag_matmul"], self.channel, world=self.world, backend="eager",
+            overlapped=(self.mode == "overlap"),
+        )  # fmt: skip
+        return fn(x, w1, w2, residual=residual, glue=glue, **kw)
+
     def ring_attention(self, q, k, v, **kw):
         """Sequence-parallel AG-KV + attention: q [W, B, H, s_loc or W*s_loc,
         D], k/v [W, B, Hkv, s_loc, D] -> [W, B, H, Sq, D]."""
@@ -96,6 +118,21 @@ class ParallelContext:
     def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""
         return self._op("ag_moe")(x, ids, wts, w_gu, w_down, **kw)
+
+    def a2a_moe(self, x, ids, wts, w_gu, w_down, **kw):
+        """Expert-parallel MoE, the overlapped dispatch / combine all-to-all:
+        [W, *lead, m_loc, d] -> [W, *lead, m_loc, d].  Needs ``ep_axis``;
+        ``mode="baseline"`` runs ``a2a_moe_baseline`` (the same capacity)."""
+        if self.ep_axis is None:
+            raise ValueError(
+                "a2a_moe requires ParallelContext(ep_axis=...); expert parallelism is opt-in "
+                "(use ag_moe for the TP MoE path)"
+            )
+        fn = compile_overlap(
+            ["a2a_dispatch", "combine_rs"], self.channel, world=self.world, backend=self.backend,
+            overlapped=(self.mode == "overlap"),
+        )  # fmt: skip
+        return fn(x, ids, wts, w_gu, w_down, **kw)
 
     def psum(self, x):
         return self.world.psum(x)

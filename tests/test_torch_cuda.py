@@ -19,6 +19,7 @@ max |plain| (summation order only); bfloat16 2e-2 of max |plain| (both
 versions round outputs to bf16).
 """
 
+import dataclasses
 import importlib
 import itertools
 
@@ -40,6 +41,7 @@ from repro_torch.kernels.gemm_rs import launch_items as rs_items
 from repro_torch.kernels.grouped_matmul import group_tile_table
 from repro_torch.kernels.grouped_matmul import work_items as gemm_items
 from repro_torch.models import lm
+from repro_torch.nn import layers
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving import Request, ServeEngine
 
@@ -737,3 +739,84 @@ def test_eager_bf16_expert_gemm_runs_on_tensor_cores(dev):
         ms = e0.elapsed_time(e1) / 10
     assert ms < f32_floor_ms / 2, (ms, f32_floor_ms)
     assert torch.equal(moe_overlap._expert_gemm(a.float(), w.float(), torch.float32, None, False), oracle)
+
+
+# ---- the RS -> AG seam and the expert-parallel MoE pair -----------------------
+
+
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2, 4))))
+def test_eager_seam_equals_unfused_pair_bitwise_on_card(dev, order, nch):
+    """float32: the seam runs the unfused pair's products (the same GEMM
+    shapes) and glue in its order, so the two agree bitwise on the card too;
+    ``pc.matmul_rs_ag`` on the fused backend is that eager seam."""
+    world = World(4, dev)
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x, w1 = _rand(dev, torch.float32, 4, 2, 256, 64, seed=1), _rand(dev, torch.float32, 4, 64, 96, scale=0.1, seed=2)
+    w2, res = _rand(dev, torch.float32, 4, 96, 40, scale=0.1, seed=3), _rand(dev, torch.float32, 4, 2, 64, 96, seed=4)
+    ln = _rand(dev, torch.float32, 96, scale=0.1, seed=5)
+    glue = lambda y: layers.rms_norm(y, ln)  # noqa: E731
+    y, g = compile_overlap(["matmul_rs", "ag_matmul"], ch, world=world)(x, w1, w2, residual=res, glue=glue)
+    y_u = res + compile_overlap("matmul_rs", ch, world=world)(x, w1)
+    g_u = compile_overlap("ag_matmul", ch, world=world)(glue(y_u), w2)
+    assert torch.equal(y, y_u) and torch.equal(g, g_u)
+    y2, g2 = ParallelContext(world=world, channel=ch).matmul_rs_ag(x, w1, w2, residual=res, glue=glue)
+    assert torch.equal(y2, y) and torch.equal(g2, g)
+
+
+def _a2a_operands(dev, dtype, world, d=64, f=48, e=16, m_loc=32, batch=2):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((world, batch, m_loc, d), generator=g, device=dev)
+    wr = torch.randn((d, e), generator=g, device=dev)
+    ids, wts, _ = moe_overlap.moe_router(x, wr, num_experts=e, top_k=2)
+    wgu = torch.randn((world, e // world, d, 2 * f), generator=g, device=dev) * d**-0.5
+    wdn = torch.randn((world, e // world, f, d), generator=g, device=dev) * f**-0.5
+    return x.to(dtype), ids, wts, wgu.to(dtype), wdn.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+def test_fused_a2a_moe_matches_eager_on_card(dev, dtype, order, nch):
+    """The a2a pair on "fused" (each landed tile's expert GEMMs on the
+    grouped kernel, 2 launches per step and channel) against "eager" and
+    the baseline, on the same routing."""
+    world = World(4, dev)
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    args = _a2a_operands(dev, dtype, 4)
+    K.reset_launch_counts()
+    out = compile_overlap(["a2a_dispatch", "combine_rs"], ch, world=world, backend="fused")(*args, capacity_factor=0.5)
+    assert K.launch_counts()["grouped_matmul"] == 2 * 4 * nch
+    with fp32_reductions():
+        eager = compile_overlap(["a2a_dispatch", "combine_rs"], ch, world=world)(*args, capacity_factor=0.5)
+        base = compile_overlap(["a2a_dispatch", "combine_rs"], ch, world=world, overlapped=False)(
+            *args, capacity_factor=0.5
+        )
+    assert out.dtype == dtype and out.shape == args[0].shape
+    _close(out, eager, dtype)
+    _close(base, eager, dtype)
+
+
+def test_fused_ep_prefill_matches_eager_on_card(dev):
+    """Reduced deepseek-moe-16b with ``ep_axis``: the routed experts through
+    the a2a pair on the grouped kernel (2 x W launches per MoE layer), the
+    dense first layer and the shared MLPs on the fused pair; and forward
+    with ``fuse_seams`` on both backends."""
+    cfg = reduce_config(get_config("deepseek-moe-16b"))
+    world = World(4, dev)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    pf = ParallelContext(world=world, ep_axis="model")
+    K.reset_launch_counts()
+    lf, _ = lm.prefill(params, cfg, pf, toks, max_len=20)
+    assert K.launch_counts()["grouped_matmul"] == 2 * 4 * (cfg.n_layers - cfg.moe.first_k_dense)
+    le, _ = lm.prefill(params, cfg, ParallelContext(world=world, backend="eager", ep_axis="model"), toks, max_len=20)
+    torch.testing.assert_close(lf, le, atol=2e-3, rtol=2e-3)
+    lt, _ = lm.prefill(params, cfg, ParallelContext(world=world), toks, max_len=20)
+    torch.testing.assert_close(lf, lt, atol=2e-3, rtol=2e-3)
+    for backend in ("eager", "fused"):
+        pc = ParallelContext(world=world, backend=backend)
+        ls, _ = lm.forward(params, cfg, dataclasses.replace(pc, fuse_seams=True), toks)
+        lu, _ = lm.forward(params, cfg, pc, toks)
+        if backend == "eager":
+            assert torch.equal(ls, lu)
+        else:
+            torch.testing.assert_close(ls, lu, atol=2e-3, rtol=2e-3)

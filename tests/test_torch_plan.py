@@ -76,7 +76,7 @@ def test_plan_cache_and_accum_dtype():
     assert a is b and tplan.plan_cache_info().hits >= 1
     assert a.accum_dtype is torch.bfloat16 and a.flow_dtype == "bfloat16"
     with pytest.raises(ValueError):
-        tplan.build_plan("a2a_dispatch", ch, 4, 1)
+        tplan.build_plan("conv_halo", ch, 4, 1)
 
 
 @pytest.mark.parametrize(
