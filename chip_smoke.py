@@ -106,7 +106,25 @@ non-zero (no phase catches its own failure):
               launches held exactly (steps x channels flash launches per
               call), and the bf16 times of ``apply_seq_ring`` and
               ``apply_seq`` at 4 x 256 and 1 x 8192 tokens (recorded).
-  11. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  11. train   smollm-360m trained at its published size, W = 4, 8 x 256
+              tokens a step (``launch/train.py``: the fused kernels in both
+              passes, each AG+GEMM's transpose a GEMM+RS and back):
+              (a) float32, one step on the fused backend against the eager
+              one from the same weights: the loss held as the prefill
+              logits, every leaf's gradient to GRAD_RTOL of its max|eager|,
+              every leaf's update (new - p) to UPDATE_RTOL of its
+              max|eager update| where the gradient check fixes the
+              gradient's sign, each leaf moved by at least lr / 2; (b) bf16,
+              TRAIN_STEPS steps of ``train`` on ``SyntheticLM``: the mean ce
+              of the last 5 steps more than 0.2 below the first 5's (the
+              JAX package's loss test), every step's launches held exactly
+              (128 AG+GEMM, 128 GEMM+RS, 32 flash, 1 LM head), the median
+              step time (CUDA events), tokens/s and peak memory; with
+              ``--profile`` one step's device time by kernel; (c) a
+              checkpoint at step TRAIN_CKPT_AT at TRAIN_CKPT_LAYERS layers,
+              resumed: the next step's loss and the parameters after it
+              bitwise the uninterrupted run's.
+  12. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -120,7 +138,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  12. kernels every kernel against its plain PyTorch version at the shapes
+  13. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -149,16 +167,25 @@ non-zero (no phase catches its own failure):
               attention on one ring step at Fig. 10's Attn-1, 16k, W = 8
               shape (all 8 ranks in one launch at their offsets, the state of
               the step before carried in), against its plain version and
-              bitwise over 20 launches.  It runs after the serve phases: the
+              bitwise over 20 launches; and the fused kernels at the train
+              phase's backward shapes (the input gradients of smollm's qkv
+              and gate/up through GEMM+RS, of its o and down projections
+              through AG+GEMM), and the bf16 train path's own uses of them
+              there: flash attention's forward with its statistics (o and
+              the log-sum-exp) against the plain version's state, AG+GEMM's
+              gathered operand bitwise against x in rank-major order, and
+              the autograd Functions' gradients against float32 eager
+              autograd, 2e-2 of max.  It runs after the serve phases: the
               profiler leaves host overhead behind.
-  13. summary the launch counts of every path, the script's wall time,
+  14. summary the launch counts of every path, the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
-One cut: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4
-of its 28 layers.  Every
-other path runs at full depth and width, the paper's MLPs and MoEs at their
-published shapes.
+Two cuts: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4
+of its 28 layers, and the train phase's resume check (c) runs 2 of
+smollm-360m's 32 layers at full width (two runs' checkpoints at full depth
+would write ~4 GB).  Every other path runs at full depth and width, the
+paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -168,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import sys
 import time
@@ -208,6 +236,15 @@ PAPER_MOE_ROWS = ("MoE-1", "MoE-6")  # Fig. 9's rows in the paper phase (W = 8)
 PAPER_ATTN_ROWS = (("Attn-1", 16384), ("Attn-1", 32768))  # Fig. 10's rows in the paper phase (W = 8)
 RING_ARCHS = (ARCH, ARCH_DS)  # the ring phase's attention layers (head dim 64, GQA; head dim 128)
 RING_TOKENS = ((BATCH, PROMPT), (1, 8192))  # (batch, tokens) of the ring phase's timed bf16 layers
+# the train phase: smollm-360m, W = 4, the JAX package's default train batch x sequence
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
+TRAIN_WARMUP = 3  # steps left out of the median step time
+TRAIN_CKPT_LAYERS, TRAIN_CKPT_AT = 2, 3  # (c): depth of the resume check, the step it saves at
+# (a): a gradient leaf's max|diff| against eager, relative to the leaf's max|eager| (the logits' rtol)
+GRAD_RTOL = 2e-3
+# (a): an update's (new - p) max|diff| against eager, relative to the leaf's max|eager update|: both
+# sides round new to float32, 1 ulp apart at most (2.4e-7 at |p| < 4, 4e-3 of an update of lr = 6e-5)
+UPDATE_RTOL = 1e-2
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -226,6 +263,8 @@ BF16_KERNELS = {
 }
 SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKCP
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+# the numbers of a kernel case the JSON line carries for each backward shape
+TIMES = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "ag_gemm": "src/repro_torch/kernels/csrc/ag_gemm.cu",
@@ -589,6 +628,134 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
 
 
+def _train_backward_kernels(rnd, iters: int) -> dict:
+    """The fused kernels at smollm-360m's backward shapes in the train phase
+    (W = 4, TRAIN_BATCH x TRAIN_SEQ tokens): the input gradients of the qkv
+    and gate/up projections through GEMM+RS (dy times each rank's w^T), of
+    the o and down projections through AG+GEMM; float32 checked, bfloat16
+    timed and launched REPEATS times bitwise."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    shp = path_shapes(ARCH)
+    W, B, S, d = WORLD, TRAIN_BATCH, TRAIN_SEQ, shp["d"]
+    s_loc = S // W
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        isz = torch.tensor([], dtype=dtype).element_size()
+        for tag, n in (("bwd_qkv", shp["n_qkv"]), ("bwd_gate_up", shp["n_gu"])):
+            x, w = rnd(W, B, S, n, dtype=dtype), rnd(W, n, d, dtype=dtype) * (W * n) ** -0.5
+            recs[("gemm_rs", ARCH, tag, dtype)] = _case(
+                f"gemm_rs[{ARCH} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
+                lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
+                2 * W * B * S * n * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, not bf16,
+                lambda: K.gemm_rs.last_launch, bitwise=bf16,
+            )  # fmt: skip
+        for tag, k in (("bwd_o_proj", shp["n_o"]), ("bwd_down", shp["f_loc"])):
+            x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, k, dtype=dtype) * d**-0.5
+            xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
+            recs[("ag_gemm", ARCH, tag, dtype)] = _case(
+                f"ag_gemm[{ARCH} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
+                lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
+                2 * W * B * S * d * k, isz * (x.numel() + w.numel() + W * B * S * k), iters, not bf16,
+                lambda: K.ag_gemm.last_launch, bitwise=bf16,
+            )  # fmt: skip
+    return recs
+
+
+def _train_autograd_checks(rnd) -> dict:
+    """The bf16 train path's own uses of the kernels at smollm-360m's train
+    shapes (W = 4, TRAIN_BATCH x TRAIN_SEQ tokens), each held against its
+    plain version: flash attention's forward with its statistics (o, and
+    the log-sum-exp the wgmma route derives from its log2-unit state)
+    against the plain version's state; the gathered operand of AG+GEMM
+    (read from the wgmma route's gather slots, the weight gradient's
+    operand) bitwise against x in rank-major row order, its output bitwise
+    the call's without it; and the autograd Functions (AG+GEMM, GEMM+RS,
+    flash attention: the output and every input's gradient) against float32
+    autograd through the eager executor / the plain attention."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.core.channels import BlockChannel
+    from repro_torch.core.compiler import compile_overlap
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+
+    shp = path_shapes(ARCH)
+    W, B, S, d, hd = WORLD, TRAIN_BATCH, TRAIN_SEQ, shp["d"], shp["hd"]
+    s_loc, bf16, tol = S // W, torch.bfloat16, TOL["bfloat16"]
+    world = World(W, "cuda")
+    errs = {}
+
+    def hold(what, got, ref, bound):
+        """bound: "bitwise", "abs" (|err| <= tol) or "rel" (|err| <= tol x max|ref|)."""
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        lim = {"bitwise": 0.0, "abs": tol, "rel": tol * max(scale, 1e-30)}[bound]
+        ok = got.shape == ref.shape and bool(torch.isfinite(got).all().item()) and err <= lim
+        txt = {"bitwise": "bitwise", "abs": f"bound {tol:g}", "rel": f"bound {tol:g} x max|ref|"}[bound]
+        print(f"[kernels] train {what} bf16: max|err| {err:.3e} (max|ref| {scale:.3e}, {txt})")
+        if not ok:
+            raise SystemExit(f"chip_smoke: train path {what} (bf16) disagrees with its plain version: {err} > {lim}")
+        errs[what] = err
+
+    # flash attention's forward with its statistics: an lse error e scales P by e^e, so lse is held absolutely
+    q = rnd(W * B * shp["h_loc"], S, hd, dtype=bf16)
+    k, v = rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16), rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16)
+    o, lse = flash_attention_lse(q, k, v, causal=True)
+    o_p, lse_p = flash_attention_lse(*(t.float().cpu() for t in (q, k, v)), causal=True)  # the plain state
+    fa = f"flash_attention_lse q{list(q.shape)} kv{list(k.shape)} causal"
+    hold(f"{fa} o", o, o_p.to(o.device), "rel")
+    hold(f"{fa} lse", lse, lse_p.to(o.device), "abs")
+    # the gathered operand: the forward's x (qkv, gate/up) and the backward's dy (o, down projections)
+    for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp["n_gu"]), ("bwd_o_proj", shp["n_o"]),
+                   ("bwd_down", shp["f_loc"])):  # fmt: skip
+        x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n, dtype=bf16) * d**-0.5
+        y, gathered = K.ag_gemm(x, w, return_gathered=True)
+        what = f"ag_gemm[{tag}] x{list(x.shape)} w{list(w.shape)} return_gathered"
+        hold(f"{what}: gathered vs x rank-major", gathered, x.permute(1, 0, 2, 3).reshape(B, S, d).expand(W, B, S, d),
+             "bitwise")  # fmt: skip
+        hold(f"{what}: output vs the call without it", y, K.ag_gemm(x, w), "bitwise")
+
+    def grads(fn, args, dy):
+        args = [a.detach().clone().requires_grad_(True) for a in args]
+        out = fn(*args)
+        out.backward(dy)
+        return [out.detach()] + [a.grad for a in args]
+
+    for tag, kind, xs, ws in (
+        ("qkv", "ag_matmul", (W, B, s_loc, d), (W, d, shp["n_qkv"])),
+        ("gate_up", "ag_matmul", (W, B, s_loc, d), (W, d, shp["n_gu"])),
+        ("o_proj", "matmul_rs", (W, B, S, shp["n_o"]), (W, shp["n_o"], d)),
+        ("down", "matmul_rs", (W, B, S, shp["f_loc"]), (W, shp["f_loc"], d)),
+    ):  # fmt: skip
+        x, w = rnd(*xs, dtype=bf16), rnd(*ws, dtype=bf16) * ws[1] ** -0.5
+        fused = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="fused")
+        eager = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="eager")
+        dy = rnd(*(xs[:2] + (S, ws[2]) if kind == "ag_matmul" else xs[:2] + (s_loc, d)), dtype=bf16)
+        K.reset_launch_counts()
+        got = grads(fused, (x, w), dy)
+        counts = K.launch_counts()
+        if counts["ag_gemm"] != 1 or counts["gemm_rs"] != 1:  # the forward's kernel and its transpose's
+            raise SystemExit(f"chip_smoke: the {kind} Function launched {counts}")
+        ref = grads(eager, (x.float(), w.float()), dy.float())
+        for name, a, b in zip(("y", "dx", "dw"), got, ref):
+            hold(f"{kind} Function [{tag}] x{list(xs)} w{list(ws)} {name}", a, b, "rel")
+    do = rnd(*q.shape, dtype=bf16)
+    K.reset_launch_counts()
+    got = grads(lambda *a: K.flash_attention(*a, causal=True), (q, k, v), do)
+    if K.launch_counts()["flash_attention"] != 1:
+        raise SystemExit(f"chip_smoke: the flash attention Function launched {K.launch_counts()}")
+    ref = grads(lambda *a: K.flash_attention_plain(*a, causal=True), (q.float(), k.float(), v.float()), do.float())
+    for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+        hold(f"flash_attention Function q{list(q.shape)} kv{list(k.shape)} {name}", a, b, "rel")
+    return {"case": "train path autograd and statistics", "dtype": "bfloat16", "max_abs_err": errs}
+
+
 def phase_kernels(iters: int):
     import torch
     import torch.nn.functional as F
@@ -694,6 +861,8 @@ def phase_kernels(iters: int):
     recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
+    recs.update(_train_backward_kernels(rnd, iters))
+    recs[("train", ARCH, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd)
     # --- every order x C in {1, 2} through both fused kernels at the smollm
     # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
     # launched REPEATS times, every output bitwise equal to the first (the
@@ -1565,6 +1734,142 @@ def phase_ring() -> dict:
     return {"layers": out, "counts": counts, "flash_per_call": per_call}
 
 
+def _train_expect(cfg) -> dict:
+    """Launches of one bf16 train step (remat "none"): every layer's two
+    AG+GEMMs and two GEMM+RSs forward, each one's transpose through the
+    other kernel backward; one flash launch a layer (its backward is torch
+    ops from the saved statistics); the LM head's tile GEMM forward."""
+    return {"matmul": 1, "ag_gemm": 4 * cfg.n_layers, "gemm_rs": 4 * cfg.n_layers, "flash_attention": cfg.n_layers,
+            "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
+
+
+def phase_train(profile: bool = False) -> dict:
+    """smollm-360m trained at its published size, W = 4 (module docstring, phase 11)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = get_config(ARCH)
+    world = World(WORLD, "cuda")
+    pc, pc_eager = ParallelContext(world=world), ParallelContext(world=world, backend="eager")
+    assert pc.backend == "fused", pc.backend
+    out = {}
+    # (a) float32: one step at full depth and width, fused against eager
+    p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5)
+    res = {}
+    for name, p_ in (("fused", pc), ("eager", pc_eager)):
+        loss, _, _, grads = loss_and_grads(lm, cfg, p_, p32, batch)
+        step = make_train_step(lm, cfg, p_, opt_cfg, grad_masks=lm.grad_masks(cfg, p_))
+        new, _, m = step(p32, init_opt_state(lm.trainable(p32, cfg)), batch)
+        res[name] = (loss, grads, lm.trainable(new, cfg), m["loss"], m["lr"].item())
+    (loss_f, g_f, new_f, sl_f, _), (loss_e, g_e, new_e, sl_e, _) = res["fused"], res["eager"]
+    _hold_logits("[train] f32 loss, one step", torch.stack([loss_f, sl_f]), torch.stack([loss_e, sl_e]))
+    worst, names = 0.0, []
+    for i, (a, b) in enumerate(zip(tree_leaves(g_f), tree_leaves(g_e))):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+            names.append((i, tuple(a.shape), rel))
+    n_leaves = len(tree_leaves(g_f))
+    print(f"[train] f32 gradients, fused vs eager: {n_leaves} leaves, worst max|diff| / max|eager leaf| "
+          f"{worst:.3e} (bound {GRAD_RTOL:g} per leaf)")  # fmt: skip
+    if names:
+        raise SystemExit(f"chip_smoke: f32 fused gradients disagree with eager: {names[:8]}")
+    # the update each side made, new - p: Adam's first step moves an element
+    # by lr x g / (|g| + eps) (+ decay), so its sign is fixed only where the
+    # gradient check above fixes the gradient's sign: held there, and every
+    # leaf must have moved by about lr
+    lr = res["fused"][4]
+    worst_u, held, total, small = 0.0, 0, 0, []
+    for i, (a, b, p, g) in enumerate(zip(tree_leaves(new_f), tree_leaves(new_e), tree_leaves(lm.trainable(p32, cfg)),
+                                         tree_leaves(g_e))):  # fmt: skip
+        u_f, u_e = a - p, b - p
+        top = u_e.abs().max().item()
+        sure = g.abs() > GRAD_RTOL * g.abs().max()
+        rel = ((u_f - u_e).abs() * sure).max().item() / max(top, 1e-30)
+        worst_u, held, total = max(worst_u, rel), held + int(sure.sum().item()), total + sure.numel()
+        if not (torch.isfinite(u_f).all() and rel <= UPDATE_RTOL and top >= lr / 2):
+            small.append((i, tuple(a.shape), rel, top))
+    print(f"[train] f32 updates (new - p), fused vs eager: worst max|diff| / max|eager update| {worst_u:.3e} "
+          f"(bound {UPDATE_RTOL:g} per leaf) on the {held} of {total} elements whose |eager grad| > {GRAD_RTOL:g} x "
+          f"the leaf's max; every leaf's max|update| >= lr/2 = {lr / 2:.3e}")  # fmt: skip
+    if small:
+        raise SystemExit(f"chip_smoke: the f32 fused train step's updates disagree with eager: {small[:8]}")
+    out["f32"] = {"loss": [loss_f.item(), loss_e.item()], "grad_rel_err": worst, "update_rel_err": worst_u,
+                  "update_held_elements": [held, total], "leaves": n_leaves}  # fmt: skip
+    del p32, res, g_f, g_e, new_f, new_e
+    torch.cuda.empty_cache()
+
+    # (b) bf16: TRAIN_STEPS steps of the train entry point, the launches held each step
+    expect = _train_expect(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = train_cli.train(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD,
+                          device="cuda", log_every=10)  # fmt: skip
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = run["history"]
+    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    print(f"[train] launches per bf16 step (held exactly, every step): {hist[0]['launches']}; all {len(hist)} "
+          f"steps: {counts}")  # fmt: skip
+    if bad or counts != {k: v * TRAIN_STEPS for k, v in expect.items()}:
+        raise SystemExit(f"chip_smoke: train steps launched {bad[:3]} (expected {expect} each)")
+    ce = [r["ce"] for r in hist]
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    ms = sorted(r["ms"] for r in hist[TRAIN_WARMUP:])
+    med = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    tps = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    print(f"[train] bf16 {cfg.name} W={WORLD}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: mean ce "
+          f"of the first 5 steps {first:.4f}, of the last 5 {last:.4f} (held: more than 0.2 lower); step "
+          f"{med:.2f} ms (median of steps {TRAIN_WARMUP}-{TRAIN_STEPS - 1}, CUDA events), {tps:.0f} tokens/s, "
+          f"peak memory {peak / 2**20:.0f} MiB")  # fmt: skip
+    if not (all(map(math.isfinite, ce)) and last < first - 0.2):
+        raise SystemExit(f"chip_smoke: the bf16 loss did not fall: {first} -> {last}")
+    out["bf16"] = {"ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med, "tokens_per_s": tps,
+                   "peak_bytes": peak, "counts": counts, "per_step": expect}  # fmt: skip
+    if profile:
+        from repro_torch.benchmarks.common import profile_windows
+
+        step = make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc))
+        p_, o_ = run["params"], run["opt_state"]
+        out["profile"] = profile_windows(f"{cfg.name} train", {"step": lambda: step(p_, o_, batch)})
+    del run
+    torch.cuda.empty_cache()
+
+    # (c) checkpoint at TRAIN_CKPT_AT, resume: the next step's loss bitwise the uninterrupted run's
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(layers=TRAIN_CKPT_LAYERS, steps=TRAIN_CKPT_AT + 1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16",
+                  world=WORLD, device="cuda", ckpt_dir=d, log_every=100)  # fmt: skip
+        ref = train_cli.train(ARCH, ckpt_every=TRAIN_CKPT_AT, **kw)
+        last_ckpt = Path(d) / f"step_{TRAIN_CKPT_AT + 1:08d}"
+        for f in last_ckpt.iterdir():
+            f.unlink()
+        last_ckpt.rmdir()  # the uninterrupted run's final checkpoint; the resume takes step TRAIN_CKPT_AT
+        resumed = train_cli.train(ARCH, ckpt_every=0, **kw)
+    a, b = ref["history"][-1], resumed["history"]
+    same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(ref["params"]), tree_leaves(resumed["params"])))
+    print(f"[train] checkpoint at step {TRAIN_CKPT_AT} ({TRAIN_CKPT_LAYERS} layers, full width, bf16), resumed: "
+          f"step {a['step']} loss {a['loss']!r} uninterrupted, {b[0]['loss']!r} resumed (held bitwise); "
+          f"parameters after it bitwise equal: {same_params} (held: the moments and the step count)")  # fmt: skip
+    if len(b) != 1 or b[0]["step"] != a["step"] or b[0]["loss"] != a["loss"] or not same_params:
+        raise SystemExit("chip_smoke: the resumed run's loss or parameters differ from the uninterrupted run's")
+    out["resume"] = {"loss": a["loss"], "resumed_loss": b[0]["loss"], "params_bitwise": same_params}
+    return out
+
+
 def phase_paper() -> dict:
     from repro_torch import kernels as K
     from repro_torch.benchmarks import paper_attn, paper_mlp, paper_moe
@@ -1605,7 +1910,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
     ap.add_argument("--json", default=None, help="also write every measured record to this file")
     ap.add_argument("--profile", action="store_true",
-                    help="device time by kernel for one prefill / decode step and one engine decode iteration")
+                    help="device time by kernel for one prefill / decode step, one engine decode iteration "
+                    "and one train step")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1624,6 +1930,7 @@ def main(argv=None) -> int:
     out["ssm"] = phase_ssm(args.profile)
     out["engine"] = phase_engine(args.profile)
     out["ring"] = phase_ring()
+    out["train"] = phase_train(args.profile)
     out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
     # that would slow the host-bound prefill and decode of the phases above
@@ -1635,6 +1942,7 @@ def main(argv=None) -> int:
     by_path.update({f"ring {arch}": c for arch, c in out["ring"]["counts"].items()})
     by_path[f"seam {ARCH}"] = out["seam"]["counts"]
     by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
+    by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
@@ -1654,6 +1962,9 @@ def main(argv=None) -> int:
             "launches_by_path": {arch: c[name] for arch, c in by_path.items()},
             # device launches by the engine's graph replays (the wrapper counts host calls only)
             "graph_launches": sum(r["head_graph_launches"] for r in engines) if name == "matmul" else 0,
+            # the input gradients of the train phase's backward (bf16)
+            "train_backward": {t: {k: recs[(n, a, t, d)][k] for k in TIMES}
+                               for n, a, t, d in recs if n == name and t.startswith("bwd_") and d == bf16},
         })  # fmt: skip
     out["wall_s"] = time.perf_counter() - t_start
     print(f"[summary] wall time of the script: {out['wall_s']:.1f} s (the kernels' build included)")

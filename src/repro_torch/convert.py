@@ -32,6 +32,13 @@ padded-vocab columns become 49160, and ``lm.logits`` keeps the first
 ``vocab_size``.
 ``params["scan"]`` (a leading layer axis per pattern position) is unstacked
 into the layer list.
+
+``unshard_params`` is the inverse of ``shard_params``: rank-stacked ->
+global (the layout ``shard_params`` takes, the JAX package's with the
+layers as a list).  It takes any tree of the parameters' structure
+(optimizer moments too; a tree without ``head`` gives no ``lm_head``, and
+a tied head is never stored: it is the embedding), so a checkpoint holds
+logical arrays and restores onto another world size.
 """
 
 from __future__ import annotations
@@ -44,8 +51,8 @@ import torch
 from repro_torch.backend.mesh import World
 
 __all__ = [
-    "from_jax_params", "shard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp", "shard_mamba",
-    "F32_LEAVES", "IN_ALIGN",
+    "from_jax_params", "shard_params", "unshard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp",
+    "shard_mamba", "tied_head", "F32_LEAVES", "IN_ALIGN",
 ]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
@@ -71,13 +78,25 @@ def shard_rows(w: torch.Tensor, world: World) -> torch.Tensor:
     return w.reshape((world.size, n // world.size) + tuple(w.shape[1:])).contiguous()
 
 
+def _pad_head(head: torch.Tensor) -> torch.Tensor:
+    """[D, V] -> [D, V padded to a multiple of IN_ALIGN] (zero columns), contiguous."""
+    return torch.cat([head, head.new_zeros((head.shape[0], -head.shape[1] % IN_ALIGN))], dim=1)
+
+
+def tied_head(embed: torch.Tensor) -> torch.Tensor:
+    """The LM head of a tied embedding: the rank-stacked ``embed`` [W, V/W,
+    D] transposed to [D, V] and padded as ``shard_params`` stores it (a
+    differentiable copy: the training forward takes the head from it)."""
+    return _pad_head(embed.reshape(-1, embed.shape[-1]).t())
+
+
 def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     """Global parameters {embed, final_ln, [lm_head], layers: [...]} -> rank-stacked."""
     embed = glob["embed"]
     head = glob["lm_head"] if "lm_head" in glob else embed.t()
     out = {
         "embed": shard_rows(embed, world),
-        "head": torch.cat([head, head.new_zeros((head.shape[0], -head.shape[1] % IN_ALIGN))], dim=1),
+        "head": _pad_head(head),
         "final_ln": glob["final_ln"],
         "layers": [],
     }
@@ -129,6 +148,61 @@ def shard_mamba(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
         "w_out": shard_rows(mixer["w_out"], world),
         **{k: shard_rows(mixer[k].float(), world) for k in ("dt_bias", "a_log", "d_skip")},
     }
+
+
+def unshard_cols(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`shard_cols`: [W, D, n/W] -> [D, n]."""
+    return w.permute(1, 0, 2).reshape(w.shape[1], -1)
+
+
+def unshard_rows(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`shard_rows`: [W, n/W, ...] -> [n, ...]."""
+    return w.reshape((-1,) + tuple(w.shape[2:]))
+
+
+def _unshard_mlp(f: Dict[str, Any]) -> Dict[str, Any]:
+    return {"ln": f["ln"], "w_gu": unshard_cols(f["w_gu"]), "w_down": unshard_rows(f["w_down"])}
+
+
+def unshard_params(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """Rank-stacked -> global: the inverse of :func:`shard_params` (module
+    docstring).  Every leaf is a new tensor or a view of ``params``."""
+    from repro_torch.nn.attention import layout
+
+    out = {"embed": unshard_rows(params["embed"]), "final_ln": params["final_ln"], "layers": []}
+    if "head" in params and not cfg.tie_embeddings:
+        out["lm_head"] = params["head"][:, : params["embed"].shape[0] * params["embed"].shape[1]]
+    for layer in params["layers"]:
+        mixer = layer["mixer"]
+        if "w_in" in mixer:
+            di_loc, h_loc = mixer["conv"].shape[-1], mixer["dt_bias"].shape[-1]
+            new = {"mixer": {
+                "ln": mixer["ln"],
+                "w_xz": unshard_cols(mixer["w_in"][..., : 2 * di_loc]),
+                "w_dt": unshard_cols(mixer["w_in"][..., 2 * di_loc : 2 * di_loc + h_loc]),
+                "w_bc": mixer["w_bc"],
+                "conv": unshard_cols(mixer["conv"]),
+                "w_out": unshard_rows(mixer["w_out"]),
+                **{k: unshard_rows(mixer[k]) for k in ("dt_bias", "a_log", "d_skip")},
+            }}  # fmt: skip
+        else:
+            nq = layout(cfg, world.size).h_loc * cfg.hd
+            new = {"mixer": {
+                "ln": mixer["ln"],
+                "wq": unshard_cols(mixer["wqkv"][..., :nq]),
+                "wkv": unshard_cols(mixer["wqkv"][..., nq:]),
+                "wo": unshard_rows(mixer["wo"]),
+            }}  # fmt: skip
+        f = layer.get("ffn")
+        if f is not None and "router" in f:
+            new["ffn"] = {"ln": f["ln"], "router": f["router"], "w_gu": unshard_rows(f["w_gu"]),
+                          "w_down": unshard_rows(f["w_down"])}  # fmt: skip
+            if "shared" in f:
+                new["ffn"]["shared"] = _unshard_mlp(f["shared"])
+        elif f is not None:
+            new["ffn"] = _unshard_mlp(f)
+        out["layers"].append(new)
+    return out
 
 
 def _tensors(tree, device, dtype):

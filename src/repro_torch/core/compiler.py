@@ -14,7 +14,14 @@ rank-stacked operands; both backends execute the same :class:`~repro_torch.core.
                    communication kernel (nor has the JAX package's "pallas"
                    table): its permutes stay the eager executor's, and the
                    expert GEMMs run on the grouped kernel
-                   (``kernels/grouped_matmul.py``).  ``ag_attention``
+                   (``kernels/grouped_matmul.py``).  Under autograd
+                   ``ag_matmul`` / ``matmul_rs`` run through one
+                   ``torch.autograd.Function`` each whose backward is the
+                   other fused kernel (the transpose of an all-gather is a
+                   reduce-scatter): dx of AG+GEMM is a GEMM+RS, dx of
+                   GEMM+RS an AG+GEMM, and each weight gradient one
+                   ``torch.matmul`` on the rows an AG+GEMM launch gathered.
+                   ``ag_attention``
                    likewise: the JAX package's "pallas" table has no such
                    kind (its AG-KV maps to the TPU's copy engine), so the
                    port's fused form is the xla form with a hand-written
@@ -64,6 +71,8 @@ from __future__ import annotations
 import functools
 import warnings
 from typing import Callable, Optional
+
+import torch
 
 from repro_torch.backend.mesh import World
 from repro_torch.core import moe_overlap as _moe
@@ -233,13 +242,78 @@ def compile_overlap(
 
     from repro_torch import kernels as _k
 
-    fused = {"ag_matmul": _k.ag_gemm, "matmul_rs": _k.gemm_rs}[kind]
-    return functools.partial(_fused_call, fused, world, channel, kw)
+    fused, grad = {"ag_matmul": (_k.ag_gemm, _AgMatmul), "matmul_rs": (_k.gemm_rs, _MatmulRs)}[kind]
+    return functools.partial(_fused_call, fused, grad, world, channel, kw)
 
 
-def _fused_call(fn, world: World, channel: BlockChannel, kw: dict, x, w, out_dtype=None):
-    """Run a fused kernel wrapper with the executor's call signature."""
+def _fused_call(fn, grad, world: World, channel: BlockChannel, kw: dict, x, w, out_dtype=None):
+    """Run a fused kernel wrapper with the executor's call signature; under
+    autograd (grad mode on and an operand that requires grad) through the
+    kind's :class:`torch.autograd.Function` ``grad``."""
     if x.shape[0] != world.size:
         raise ValueError(f"expected a rank-stacked [W={world.size}, ...] operand, got {tuple(x.shape)}")
-    out = fn(x, w, channel=channel, **kw)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = grad.apply(x, w, channel, kw)
+    else:
+        out = fn(x, w, channel=channel, **kw)
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def _transposed(w):
+    """[W, a, b] -> a contiguous [W, b, a] (the bf16 routes read weights by TMA)."""
+    return w.transpose(1, 2).contiguous()
+
+
+def _weight_grad(a, b):
+    """Per rank a^T b over every leading row: a [W, *, R, K], b [W, *, R, N] -> [W, K, N]."""
+    world = a.shape[0]
+    return torch.matmul(a.reshape(world, -1, a.shape[-1]).transpose(1, 2), b.reshape(world, -1, b.shape[-1]))
+
+
+class _AgMatmul(torch.autograd.Function):
+    """AG+GEMM under autograd.  dx is the transpose's collective, a GEMM+RS
+    (the fused kernel: rank r's rows of sum_q dy[q] w[q]^T); dw = AG(x)^T dy
+    from the rows the forward launch gathered (no second all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, w, channel, kw):
+        from repro_torch.kernels import ag_gemm
+
+        out, gathered = ag_gemm(x, w, channel=channel, return_gathered=True, **kw)
+        ctx.save_for_backward(gathered, w)
+        ctx.channel = channel
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import gemm_rs
+
+        gathered, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = gemm_rs(dy, _transposed(w), channel=ctx.channel) if ctx.needs_input_grad[0] else None
+        dw = _weight_grad(gathered, dy) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
+
+
+class _MatmulRs(torch.autograd.Function):
+    """GEMM+RS under autograd.  dx is the transpose's collective, an AG+GEMM
+    (the fused kernel: every rank's dy gathered, times w[r]^T); dw = x^T
+    AG(dy) from the rows that launch gathered."""
+
+    @staticmethod
+    def forward(ctx, x, w, channel, kw):
+        from repro_torch.kernels import gemm_rs
+
+        ctx.save_for_backward(x, w)
+        ctx.channel = channel
+        return gemm_rs(x, w, channel=channel, **kw)
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import ag_gemm
+
+        x, w = ctx.saved_tensors
+        dx, gathered = ag_gemm(dy.contiguous(), _transposed(w), channel=ctx.channel, return_gathered=True)
+        dw = _weight_grad(x, gathered) if ctx.needs_input_grad[1] else None
+        return (dx if ctx.needs_input_grad[0] else None), dw, None, None
+

@@ -23,6 +23,12 @@ protocol, the bound and the design are noted in ``csrc/ag_gemm.cu``.
 :func:`ag_gemm_plain` is the plain PyTorch version: it replays the bf16
 route's work items in order, with the same tables, the same gather slots,
 the same seed copy, the same per-m-tile pushes and the same flag keys.
+
+``return_gathered=True`` (both versions) also returns each rank's gathered
+operand, ``[W, *lead, W*m_loc, K]`` in rank-major row order, read from the
+gather slots the launch filled (the float32 route reads a rank's own rows
+in place, so those come from x): the backward of AG+GEMM takes its weight
+gradient from it without a second all-gather.
 """
 
 from __future__ import annotations
@@ -128,7 +134,19 @@ def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChanne
     return work_items(plan, (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1]))
 
 
-def ag_gemm_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
+def _gathered(gbuf: torch.Tensor, world: int, nch: int, lead, m_sub: int) -> torch.Tensor:
+    """The gather slots [W, W*C, B*m_sub, K] (slot ``origin*C + c``, row
+    ``b*m_sub + j``) as each rank's gathered rows [W, *lead, W*m_loc, K]
+    (row ``origin*m_loc + c*m_sub + j``)."""
+    k = gbuf.shape[-1]
+    b = math.prod(lead)
+    g = gbuf.view(world, world, nch, b, m_sub, k).permute(0, 3, 1, 2, 4, 5)
+    return g.reshape((world,) + tuple(lead) + (world * nch * m_sub, k))
+
+
+def ag_gemm_plain(
+    x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None, return_gathered: bool = False
+):
     """Plain version: the bf16 route's work items replayed in order in PyTorch."""
     _check(x, w)
     plan, _ = _plan(x, w, channel)
@@ -157,7 +175,8 @@ def ag_gemm_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockCh
         part = (gbuf[r, o * nch + c, sl].float() @ w[r, :, cols].float()).to(plan.accum_dtype).to(x.dtype)
         i = torch.arange(sl.start, sl.stop, device=x.device)
         out[r, i // m_sub, o * m_loc + c * m_sub + i % m_sub, cols] = part
-    return out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
+    out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
+    return (out, _gathered(gbuf, world, nch, lead, m_sub)) if return_gathered else out
 
 
 def ag_gemm(
@@ -166,7 +185,8 @@ def ag_gemm(
     *,
     channel: Optional[BlockChannel] = None,
     bn: Optional[int] = None,
-) -> torch.Tensor:
+    return_gathered: bool = False,
+):
     """Fused AG+GEMM over the rank dimension.
 
     ``x``: [W, *lead, m_loc, K], ``w``: [W, K, n_loc] -> [W, *lead, W*m_loc, n_loc]:
@@ -177,11 +197,12 @@ def ag_gemm(
     route (``build.ROUTES``) or raises: bfloat16 takes the wgmma route (tile
     ``TILE``; K and n_loc multiples of 8, else ValueError), float32 the FMA
     route with n tile ``bn`` (default the CompSpec tn, clamped to a divisor
-    of n_loc).
+    of n_loc).  ``return_gathered``: also return the gathered operand (module
+    docstring).
     """
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return ag_gemm_plain(x, w, channel=channel)
+        return ag_gemm_plain(x, w, channel=channel, return_gathered=return_gathered)
     plan, channel = _plan(x, w, channel)
     build.check_cuda_operands("ag_gemm", x, w)
     if plan.accum_dtype not in (torch.float32, torch.bfloat16):
@@ -222,7 +243,14 @@ def ag_gemm(
         build.check(rc, "ag_gemm")
         ag_gemm.last_launch = {"route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn)}
     ag_gemm.launches += 1
-    return out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
+    out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
+    if not return_gathered:
+        return out
+    gathered = _gathered(gbuf, world, nch, lead, m_sub)
+    if route != "wgmma":  # the float32 route reads a rank's own rows in place from x, not from its slot
+        for r in range(world):
+            gathered[r, ..., r * m_loc : (r + 1) * m_loc, :] = x[r]
+    return out, gathered
 
 
 ag_gemm.launches = 0

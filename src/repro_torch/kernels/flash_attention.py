@@ -33,6 +33,14 @@ bound and the design are noted in the CUDA source.
 
 :func:`chunked_attention` — a copy of ``repro/nn/attention.py``'s
 memory-efficient online-softmax attention — is the plain version.
+
+Under autograd (grad mode on and an input that requires grad)
+:func:`flash_attention` runs its forward as one launch that stores the
+softmax state the kernel carries (:func:`flash_attention_lse`: o and the
+row log-sum-exp), and its backward is :func:`flash_attention_backward`,
+the standard attention gradient in PyTorch ops recomputing P from that
+log-sum-exp.  The JAX package has no backward kernel (its training path
+differentiates ``chunked_attention`` through XLA).
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ from repro_torch.kernels import build
 __all__ = [
     "flash_attention",
     "flash_attention_plain",
+    "flash_attention_lse",
+    "flash_attention_backward",
     "flash_attention_ranked",
     "flash_attention_ranked_plain",
     "flash_attention_tiled",
@@ -66,6 +76,8 @@ HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 128): "wgmma"}
 TILE = 64  # query rows and keys per tile of both kernels
 NEG_INF = -1e30
+LN2 = 0.6931471805599453
+BWD_ROWS = 1024  # query rows per block of the backward (its float32 P is [BH, BWD_ROWS, Sk])
 MAX_RANKS = 32  # ranks of one launch (the kernels' per-rank table)
 
 
@@ -268,13 +280,103 @@ def flash_attention(
         raise ValueError(f"flash_attention: {bh} heads do not group over {bhkv} KV heads")
     _check_window(window)
     scale = float(scale if scale is not None else d**-0.5)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window, scale=scale)
     # one rank of one group: every head reads KV head h // rep, queries right-aligned
-    fmap = _FlashMap(hq=bh, hk=bhkv, rep=bh // bhkv, gpr=1, delta=(sk - sq,), hoff=(0,))
     o = torch.empty_like(q)
-    _launch(q, k, v, o, None, fmap, causal, window, scale, load=False, store=False)
+    _launch(q, k, v, o, None, _single_map(bh, bhkv, sq, sk), causal, window, scale, load=False, store=False)
     return o
+
+
+def _single_map(bh: int, bhkv: int, sq: int, sk: int) -> "_FlashMap":
+    return _FlashMap(hq=bh, hk=bhkv, rep=bh // bhkv, gpr=1, delta=(sk - sq,), hoff=(0,))
+
+
+def flash_attention_lse(q, k, v, *, causal=False, window=None, scale=None):
+    """The forward of :func:`flash_attention` that keeps the softmax
+    statistics: (o [BH, Sq, D] in q's dtype, lse [BH, Sq] float32, the
+    natural-log log-sum-exp of each row's scaled scores).  A CUDA tensor
+    runs one launch of the kernel of its route with the state stored
+    (``_launch(store=True)``: the row max m and sum l the kernel carries);
+    a CPU tensor the plain version's state (:func:`chunked_attention`,
+    ``final=False``)."""
+    bh, sq, d = q.shape
+    bhkv, sk, _ = k.shape
+    scale = float(scale if scale is not None else d**-0.5)
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        st = chunked_attention(
+            q[None], k[None], v[None], causal=causal, window=window, chunk=largest_divisor(sk, 1024),
+            q_offset=sk - sq, scale=scale, final=False,
+        )  # fmt: skip
+        st = FlashState(st.m[0], st.l[0], st.o[0])
+        log2_units = False
+    else:
+        st = FlashState(
+            torch.empty((bh, sq), dtype=torch.float32, device=q.device),
+            torch.empty((bh, sq), dtype=torch.float32, device=q.device),
+            torch.empty((bh, sq, d), dtype=torch.float32, device=q.device),
+        )  # the kernel writes every row
+        _launch(q, k, v, None, st, _single_map(bh, bhkv, sq, sk), causal, window, scale, load=False, store=True)
+        log2_units = route(q.dtype, d) == "wgmma"
+    l_safe = torch.clamp(st.l, min=1e-30)
+    o = (st.o / l_safe[..., None]).to(q.dtype)
+    if log2_units:  # the wgmma route's m is in log2 units: lse = (m + log2 l) ln 2
+        return o, (st.m + torch.log2(l_safe)) * LN2
+    return o, st.m + torch.log(l_safe)
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal=False, window=None, scale=None):
+    """The attention gradient (dq, dk, dv) in PyTorch ops from the forward's
+    saved statistics: P recomputed as exp(scale q k^T - lse) over query
+    blocks of ``BWD_ROWS`` rows, dV = P^T dO, dS = P (dO V^T - rowsum(dO o)),
+    dQ = scale dS K, dK = scale dS^T Q, summed over each KV head's query
+    heads.  Float32 math; each gradient in its input's dtype."""
+    bh, sq, d = q.shape
+    bhkv, sk, _ = k.shape
+    rep = bh // bhkv
+    scale = float(scale if scale is not None else d**-0.5)
+    qf, dof = q.float(), do.float()
+    kf, vf = k.float().repeat_interleave(rep, 0), v.float().repeat_interleave(rep, 0)
+    delta = (dof * o.float()).sum(-1)  # [BH, Sq]
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    k_pos = torch.arange(sk, device=q.device)
+    for q0 in range(0, sq, BWD_ROWS):
+        q1 = min(sq, q0 + BWD_ROWS)
+        q_pos = (q0 + (sk - sq) + torch.arange(q1 - q0, device=q.device))[:, None]
+        ok = torch.ones((q1 - q0, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            ok = q_pos >= k_pos
+        if window is not None:
+            ok = ok & (q_pos - k_pos < window)
+        s = torch.matmul(qf[:, q0:q1], kf.transpose(1, 2)) * scale
+        p = torch.where(ok, torch.exp(s - lse[:, q0:q1, None]), 0.0)
+        dv += torch.matmul(p.transpose(1, 2), dof[:, q0:q1])
+        ds = p * (torch.matmul(dof[:, q0:q1], vf.transpose(1, 2)) - delta[:, q0:q1, None])
+        dq[:, q0:q1] = torch.matmul(ds, kf) * scale
+        dk += torch.matmul(ds.transpose(1, 2), qf[:, q0:q1]) * scale
+    dk, dv = (t.view(bhkv, rep, sk, d).sum(1) for t in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward is one kernel launch that
+    keeps (o, lse) (:func:`flash_attention_lse`), the backward
+    :func:`flash_attention_backward` (no forward rerun)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, o, lse, do, **ctx.opts), None, None, None)
 
 
 def flash_attention_ranked(

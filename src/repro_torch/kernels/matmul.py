@@ -16,6 +16,11 @@ store.  Two routes, chosen by dtype before the launch (never by a fallback):
 its item count.  On the model path the standalone entry computes the LM head
 (``lm.logits``).
 
+Under autograd (grad mode on and an operand that requires grad) the
+forward is the same launch and the backward two ``torch.matmul`` products
+(dx = dy w^T, dw = x^T dy): the JAX package's LM head is an einsum outside
+Pallas, so it has no backward kernel to port.
+
 ``matmul.launches`` counts host calls that launch the kernel.  A call made
 while a CUDA graph captures counts once, and the graph's replays do not
 count: the serving engine (``serving/engine.py``) records each graph's
@@ -55,6 +60,8 @@ def matmul(
     of its dtype's route (``build.ROUTES``) or raises.
     """
     out_dtype = out_dtype or x.dtype
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Matmul.apply(x, w, tuple(tile), out_dtype)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return matmul_plain(x, w, out_dtype)
     build.check_cuda_operands("matmul", x, w)
@@ -82,6 +89,22 @@ def matmul(
         matmul.last_launch = {"route": route, "grid": -(-m // bm) * -(-n // bn), "items": None}
     matmul.launches += 1
     return out
+
+
+class _Matmul(torch.autograd.Function):
+    """The tile GEMM under autograd: the kernel forward, ``torch.matmul`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile, out_dtype):
+        ctx.save_for_backward(x, w)
+        return matmul(x, w, tile=tile, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = torch.matmul(dy.to(x.dtype), w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x.t(), dy.to(w.dtype)) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
 
 
 matmul.launches = 0

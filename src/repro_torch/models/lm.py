@@ -32,6 +32,18 @@ layer's qkv AG.  Chains stay within the JAX package's layer segments (the
 model fuses the same seams as the reference.  ``prefill`` takes no seams,
 as in the JAX package; with ``pc.ep_axis`` its MoE layers run the
 expert-parallel path (``nn/moe.apply_seq``).
+
+Training (``training/steps.py``) differentiates ``forward`` with
+``torch.autograd``: every fused kernel on the dense path has an autograd
+Function (``core/compiler``, ``kernels/flash_attention``,
+``kernels/matmul``), ``remat_policy`` other than ``"none"`` recomputes
+each layer in the backward (``torch.utils.checkpoint``).  The trainable
+tree (:func:`trainable`) leaves out the tied head's copy: :func:`logits`
+then takes the head from ``embed`` (``convert.tied_head``), so the one
+parameter gets the lookup's and the head's gradient, and
+:func:`with_tied` refreshes the copy after an update.  :func:`grad_masks`,
+:func:`decay_mask` and :func:`sync_grads` are the reference's padded-head
+masks, its weight-decay rule and its kv-copy averaging, on this layout.
 """
 
 from __future__ import annotations
@@ -40,7 +52,9 @@ import dataclasses
 from typing import List, Optional
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.convert import tied_head
 from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.nn import attention, ffn, mamba, moe
 from repro_torch.nn.layers import emb_init, rms_norm
@@ -58,7 +72,18 @@ __all__ = [
     "prefill",
     "init_caches",
     "decode_step",
+    "trainable",
+    "with_tied",
+    "check_trainable",
+    "grad_masks",
+    "decay_mask",
+    "sync_grads",
+    "REMAT_POLICIES",
 ]
+
+REMAT_POLICIES = ("none", "dots")  # "dots" recomputes each layer in the backward
+# leaves that are one-dimensional in the JAX layout outside the layer scan
+_VECTORS = ("ln", "final_ln", "dt_bias", "a_log", "d_skip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,16 +257,21 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
 
 
 def embed_tokens(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> [B, S, D] (global)."""
+    """tokens [B, S] -> [B, S, D] (global).  ``F.embedding``, whose backward
+    sums each row's gradients in a fixed order (an indexing backward
+    accumulates in any order on the CPU)."""
     table = params["embed"].reshape(-1, params["embed"].shape[-1])
-    return table[tokens]
+    return torch.nn.functional.embedding(tokens, table)
 
 
 def logits(params: dict, cfg, pc: ParallelContext, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + LM head: x [B, S, D] (global) -> [B, S, vocab]."""
+    """Final norm + LM head: x [B, S, D] (global) -> [B, S, vocab].  A tree
+    without ``head`` (the trainable tree of a tied model) takes it from
+    ``embed``."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     gemm = matmul if pc.fused else matmul_plain
-    out = gemm(x.reshape(-1, x.shape[-1]).contiguous(), params["head"])
+    head = params["head"] if "head" in params else tied_head(params["embed"])
+    out = gemm(x.reshape(-1, x.shape[-1]).contiguous(), head)
     return out.reshape(x.shape[:-1] + (out.shape[-1],))[..., : cfg.vocab_size]
 
 
@@ -250,9 +280,16 @@ def _check_seq(pc: ParallelContext, s: int):
         raise ValueError(f"sequence length {s} must divide over the {pc.tp} ranks (sequence-parallel residual)")
 
 
-def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor):
+def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, remat_policy: str = "none"):
     """Teacher-forced (logits [B, S, vocab], aux loss summed over the layers);
-    with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`."""
+    with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`.
+    ``remat_policy`` other than ``"none"`` recomputes each layer in the
+    backward (the JAX package's ``"dots"`` keeps the GEMM outputs; here
+    every layer is recomputed whole, with the same results)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
+    if remat_policy != "none" and pc.fuse_seams:
+        raise NotImplementedError("remat with fused seams is not ported")
     _check_seq(pc, tokens.shape[1])
     x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)  # [W, B, s_loc, D]
     aux_total = _zero(x)
@@ -263,7 +300,12 @@ def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor):
             x, aux_total = _seam_chain(defs[seg.start : seg.stop], layers, x, pc, cfg, aux_total)
     else:
         for d, p in zip(defs, params["layers"]):
-            x, aux = d.apply_seq(p, x, pc, cfg)
+            if remat_policy == "none":
+                x, aux = d.apply_seq(p, x, pc, cfg)
+            else:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    lambda x_, d_=d, p_=p: d_.apply_seq(p_, x_, pc, cfg), x, use_reentrant=False
+                )
             aux_total = aux_total + aux
     return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), aux_total
 
@@ -297,3 +339,84 @@ def decode_step(params: dict, caches: list, cfg, pc: ParallelContext, tokens: to
     for d, p, c in zip(layer_plan(cfg), params["layers"], caches):
         x, _ = d.apply_decode(p, x, c, cache_len, pc, cfg, q_valid=q_valid)
     return logits(params, cfg, pc, x), caches
+
+
+# ---------------------------------------------------------------------------
+# training: the trainable tree, padded-head masks, weight decay, kv-copy sync
+# ---------------------------------------------------------------------------
+
+
+def trainable(params: dict, cfg) -> dict:
+    """The parameters an optimizer updates: all of them but the tied head's
+    copy (with ``cfg.tie_embeddings`` :func:`logits` takes it from ``embed``)."""
+    return {k: v for k, v in params.items() if not (cfg.tie_embeddings and k == "head")}
+
+
+def with_tied(tree: dict, cfg) -> dict:
+    """The full parameters from a trainable tree: the tied head's copy
+    refreshed from ``embed`` (no grad)."""
+    if not cfg.tie_embeddings:
+        return tree
+    with torch.no_grad():
+        return {**tree, "head": tied_head(tree["embed"])}
+
+
+def check_trainable(cfg, pc: ParallelContext):
+    """Raise unless the model's training path is ported: attention layers
+    with a dense MLP, without fused seams (MoE and Mamba layers have no
+    backward for their kernels' paths yet)."""
+    bad = sorted({f"{d.kind}/{d.ffn_kind}" for d in layer_plan(cfg) if d.kind == "mamba" or d.ffn_kind != "mlp"})
+    if bad or pc.fuse_seams:
+        what = f"layers {bad} (mixer/ffn)" if bad else "fuse_seams"
+        raise NotImplementedError(f"repro_torch: training {cfg.name} with {what} is not ported (dense attention + MLP)")
+
+
+def grad_masks(cfg, pc: ParallelContext) -> dict:
+    """0/1 masks (or None) over the trainable tree that keep padded heads at
+    zero (``repro/models/lm.grad_masks``); a None subtree masks nothing."""
+    layers = []
+    for d in layer_plan(cfg):
+        am = attention.grad_masks(cfg, pc.tp, pc.device) if d.kind != "mamba" else None
+        layers.append(None if am is None else {"mixer": am})
+    return {"layers": layers}
+
+
+def _scanned(cfg) -> range:
+    """The layers the JAX package stacks under its ``lax.scan`` (whole
+    ``cfg.pattern`` periods after the ``first_k_dense`` prefix)."""
+    k0 = cfg.moe.first_k_dense if cfg.moe else 0
+    period = len(cfg.pattern)
+    return range(k0, k0 + (cfg.n_layers - k0) // period * period)
+
+
+def decay_mask(tree: dict, cfg) -> dict:
+    """Which leaves of ``tree`` (a trainable tree) take weight decay: the
+    reference decays a leaf iff it has two or more dims in its own layout
+    (``repro/training/optimizer.py``), where every scanned layer's leaves
+    carry a layer axis.  So a scanned layer's norms are decayed, and the
+    one-dimensional leaves (``_VECTORS``) of an unscanned layer and
+    ``final_ln`` are not; every matrix is."""
+    scanned = _scanned(cfg)
+
+    def leaves(node, stacked, name=None):
+        if isinstance(node, dict):
+            return {k: leaves(v, stacked, k) for k, v in node.items()}
+        return stacked or name not in _VECTORS
+
+    out = {k: leaves(v, False, k) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [leaves(p, i in scanned) for i, p in enumerate(tree["layers"])]
+    return out
+
+
+def sync_grads(grads: dict, cfg, pc: ParallelContext) -> dict:
+    """Average the gradients of the kv copies (GQA with fewer kv heads than
+    ranks) in every attention block (``repro/models/lm.sync_grads``); the
+    tree unchanged when ``rep == 1``."""
+    if not cfg.n_heads or attention.layout(cfg, pc.tp).rep == 1:
+        return grads
+    layers = []
+    for d, g in zip(layer_plan(cfg), grads["layers"]):
+        if d.kind != "mamba":
+            g = {**g, "mixer": attention.sync_grads(g["mixer"], cfg, pc.tp)}
+        layers.append(g)
+    return {**grads, "layers": layers}

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import chunked_attention, flash_attention
-from repro_torch.nn.layers import GQALayout, gqa_layout, he_init, rms_norm, rope
+from repro_torch.nn.layers import GQALayout, gqa_layout, he_init, rms_norm, rope, sync_kv_grad
 
 __all__ = [
     "init",
@@ -45,6 +45,8 @@ __all__ = [
     "chunked_attention",
     "layout",
     "seam_proj",
+    "grad_masks",
+    "sync_grads",
 ]
 
 NEG_INF = -1e30
@@ -74,6 +76,33 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
         "wkv": wkv.reshape(d, lay.kv_store * 2 * hd).to(dtype),
         "wo": wo.reshape(lay.h_pad * hd, d).to(dtype),
     }
+
+
+def grad_masks(cfg, tp: int, device=None):
+    """0/1 float32 masks keeping padded heads at zero on the port's layout
+    (``repro/nn/attention.grad_masks``): ``wqkv`` [W, 1, cols] (each rank's
+    q columns, then its kv columns) and ``wo`` [W, h_loc * hd, 1]; None when
+    no head is padded."""
+    lay = layout(cfg, tp)
+    hd = cfg.hd
+    if lay.h_pad == cfg.n_heads and lay.kv_pad == cfg.n_kv_heads:
+        return None
+    qm = (torch.arange(lay.h_pad, device=device) < cfg.n_heads).float().repeat_interleave(hd)
+    kvm = (torch.arange(lay.kv_store, device=device) // lay.rep < cfg.n_kv_heads).float().repeat_interleave(2 * hd)
+    qm, kvm = qm.view(tp, 1, -1), kvm.view(tp, 1, -1)
+    return {"ln": None, "wqkv": torch.cat([qm, kvm], dim=-1), "wo": qm.transpose(1, 2)}
+
+
+def sync_grads(grads: dict, cfg, tp: int) -> dict:
+    """Average the kv copies' gradients in one attention block's ``wqkv``
+    gradient (:func:`~repro_torch.nn.layers.sync_kv_grad` on its kv
+    columns); the block unchanged when ``rep == 1``."""
+    lay = layout(cfg, tp)
+    if lay.rep == 1:
+        return grads
+    nq = lay.h_loc * cfg.hd
+    g = grads["wqkv"]
+    return {**grads, "wqkv": torch.cat([g[..., :nq], sync_kv_grad(g[..., nq:], lay)], dim=-1)}
 
 
 def _split_qkv(qkv: torch.Tensor, lay: GQALayout, hd: int):

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "rope", "he_init", "emb_init", "GQALayout", "gqa_layout", "cdiv", "ACTS"]
+__all__ = ["rms_norm", "rope", "he_init", "emb_init", "GQALayout", "gqa_layout", "sync_kv_grad", "cdiv", "ACTS"]
 
 ACTS = {
     "silu": F.silu,
@@ -107,3 +107,15 @@ def gqa_layout(n_heads: int, n_kv: int, tp: int) -> GQALayout:
     h_pad = cdiv(n_heads, tp * kv_loc) * tp * kv_loc
     h_loc = h_pad // tp
     return GQALayout(n_heads, n_kv, tp, h_pad, h_loc, kv_pad, kv_loc, rep, kv_store)
+
+
+def sync_kv_grad(g: torch.Tensor, layout: GQALayout) -> torch.Tensor:
+    """Average the ``rep`` copies of each kv head's gradient: the port of
+    ``repro/nn/layers.sync_kv_grad`` for a rank-stacked kv gradient
+    ``[W, ..., kv_loc * 2 hd]``.  With ``rep > 1`` each rank holds one
+    stored kv head (``kv_loc == 1``), and the copies of kv head j sit on
+    ranks ``j * rep .. j * rep + rep - 1``."""
+    if layout.rep == 1:
+        return g
+    grouped = g.reshape((layout.kv_pad, layout.rep) + tuple(g.shape[1:]))
+    return grouped.mean(1, keepdim=True).expand_as(grouped).reshape(g.shape)

@@ -820,3 +820,131 @@ def test_fused_ep_prefill_matches_eager_on_card(dev):
             assert torch.equal(ls, lu)
         else:
             torch.testing.assert_close(ls, lu, atol=2e-3, rtol=2e-3)
+
+
+# --- training: the backward of the fused kernels (smollm-360m's shapes, W = 4, 8 x 256 tokens) ---
+
+# (kind, forward x, forward w): the backward's input gradient runs the other fused kernel at
+# gemm_rs [4, 8, 256, 512] x [4, 512, 960] (qkv), [4, 8, 256, 1280] x [4, 1280, 960] (gate/up),
+# ag_gemm [4, 8, 64, 960] x [4, 960, 256] (o-proj), [4, 8, 64, 960] x [4, 960, 640] (down)
+TRAIN_SHAPES = {
+    "qkv": ("ag_matmul", (4, 8, 64, 960), (4, 960, 512)),
+    "gate_up": ("ag_matmul", (4, 8, 64, 960), (4, 960, 1280)),
+    "o_proj": ("matmul_rs", (4, 8, 256, 256), (4, 256, 960)),
+    "down": ("matmul_rs", (4, 8, 256, 640), (4, 640, 960)),
+}
+
+
+def _fn_grads(fn, x, w, dy):
+    x, w = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    out = fn(x, w)
+    out.backward(dy)
+    return [out.detach(), x.grad, w.grad]
+
+
+@pytest.mark.parametrize("tag", sorted(TRAIN_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_function_grads_at_train_shapes(dev, tag, dtype):
+    """The kind's autograd Function on the card (dx through the other fused
+    kernel, dw from the gathered rows) against torch.autograd through the
+    eager executor in float32 on the same values."""
+    kind, xs, ws = TRAIN_SHAPES[tag]
+    world = World(4, dev)
+    x, w = _rand(dev, dtype, *xs), _rand(dev, dtype, *ws, scale=ws[1] ** -0.5, seed=1)
+    fused = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="fused")
+    eager = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="eager")
+    y = fused(x, w)
+    dy = _rand(dev, dtype, *y.shape, seed=2)
+    K.reset_launch_counts()
+    got = _fn_grads(fused, x, w, dy)
+    other = "gemm_rs" if kind == "ag_matmul" else "ag_gemm"
+    own = "ag_gemm" if kind == "ag_matmul" else "gemm_rs"
+    assert K.launch_counts()[own] == 1 and K.launch_counts()[other] == 1
+    ref = _fn_grads(eager, x.float(), w.float(), dy.float())
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("tag", sorted(TRAIN_SHAPES))
+def test_fused_backward_bitwise_bf16(dev, tag):
+    """bf16: 20 forward + backward launches give bitwise equal gradients."""
+    kind, xs, ws = TRAIN_SHAPES[tag]
+    x, w = _rand(dev, torch.bfloat16, *xs), _rand(dev, torch.bfloat16, *ws, scale=ws[1] ** -0.5, seed=1)
+    fused = compile_overlap(kind, BlockChannel(axis="model"), world=World(4, dev), backend="fused")
+    dy = _rand(dev, torch.bfloat16, *fused(x, w).shape, seed=2)
+    first = _fn_grads(fused, x, w, dy)
+    for _ in range(19):
+        assert all(torch.equal(a, b) for a, b in zip(_fn_grads(fused, x, w, dy), first))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grads_on_card(dev, dtype):
+    """Flash attention's Function at smollm's train shape (q [128, 256, 64],
+    kv [64, 256, 64], causal): the kernel forward with its statistics, the
+    backward from the saved log-sum-exp, against autograd through the plain
+    version in float32."""
+    q = _rand(dev, dtype, 128, 256, 64)
+    k, v = _rand(dev, dtype, 64, 256, 64, seed=1), _rand(dev, dtype, 64, 256, 64, seed=2)
+    do = _rand(dev, dtype, 128, 256, 64, seed=3)
+
+    def grads(fn, *args):
+        args = [a.detach().clone().requires_grad_(True) for a in args]
+        out = fn(*args)
+        out.backward(do.to(out.dtype))
+        return [out.detach()] + [a.grad for a in args]
+
+    K.reset_launch_counts()
+    got = grads(lambda *a: K.flash_attention(*a, causal=True), q, k, v)
+    assert K.launch_counts()["flash_attention"] == 1
+    ref = grads(lambda *a: K.flash_attention_plain(*a, causal=True), q.float(), k.float(), v.float())
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+
+
+def test_every_smollm_leaf_gets_a_gradient_on_the_fused_backend(dev):
+    """smollm-360m at its published size (bf16, W = 4, 2 x 256 tokens): one
+    forward and backward on the fused backend; every trainable leaf gets a
+    finite, nonzero gradient (none silently stops at a kernel) and the
+    kernels launch as the train step's contract says."""
+    from repro_torch.training.steps import loss_and_grads
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg = get_config("smollm-360m")
+    world = World(4, dev)
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    K.reset_launch_counts()
+    loss, _, _, grads = loss_and_grads(lm, cfg, pc, params, {"inputs": toks[:, :-1], "labels": toks[:, 1:]})
+    assert K.launch_counts() == {"matmul": 1, "ag_gemm": 4 * cfg.n_layers, "gemm_rs": 4 * cfg.n_layers,
+                                 "flash_attention": cfg.n_layers, "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
+    leaves = tree_leaves(grads)
+    assert len(leaves) == 2 + 6 * cfg.n_layers and torch.isfinite(loss)
+    for g in leaves:
+        assert g is not None and g.dtype == torch.bfloat16 and torch.isfinite(g).all() and g.abs().max() > 0
+
+
+def test_remat_dots_equals_none_on_card(dev):
+    """Reduced smollm-360m (bf16, W = 4): remat_policy="dots" (each layer
+    recomputed in the backward, its kernels launched again) gives the
+    gradients of "none" bitwise; "none" launches the train step's count."""
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = reduce_config(get_config("smollm-360m"))
+    world = World(4, dev)
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for policy in ("none", "dots"):
+        K.reset_launch_counts()
+        out[policy] = loss_and_grads(lm, cfg, pc, params, batch, remat_policy=policy)
+        out[policy + "_counts"] = K.launch_counts()
+    assert out["none_counts"]["ag_gemm"] == out["none_counts"]["gemm_rs"] == 4 * cfg.n_layers
+    assert out["dots_counts"]["ag_gemm"] == 6 * cfg.n_layers  # the recomputed forward's two AG+GEMMs a layer
+    assert torch.equal(out["none"][0], out["dots"][0])
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(out["none"][3]), tree_leaves(out["dots"][3])))
