@@ -124,7 +124,31 @@ non-zero (no phase catches its own failure):
               checkpoint at step TRAIN_CKPT_AT at TRAIN_CKPT_LAYERS layers,
               resumed: the next step's loss and the parameters after it
               bitwise the uninterrupted run's.
-  12. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  12. e2e     the paper's end-to-end figure (Fig. 11,
+              ``benchmarks/paper_e2e.py``) and the three dense configs
+              qwen2-72b (QKV bias), starcoder2-7b (GELU, 36 / 4 heads) and
+              gemma3-27b (5:1 local / global attention, tied embeddings
+              scaled by sqrt(d_model)) at their published widths, W = 4:
+              (a) per dense family (smollm-360m at 32 layers, qwen2-72b 2,
+              starcoder2-7b 8, gemma3-27b 6), one bf16 AdamW train step of
+              1 x 4096 tokens in ``mode="baseline"`` (gather then GEMM, GEMM
+              then reduce-scatter, on tensor cores) and in ``mode="overlap"``
+              (the fused kernels in both passes), 3 warm-up steps each then
+              5 pairs in turns: each mode's median step ms, the speedup,
+              tokens/s, peak memory (held below the card's); (b) every step's
+              launches held exactly (overlap: 1 LM head, 4L AG+GEMM, 4L
+              GEMM+RS, L flash; baseline: 1, 0, 0, L); (c) both modes'
+              first-step loss on the same weights, the logits' bound; (d) in
+              float32 at E2E_F32_LAYERS = 2 layers and 1 x 2048 tokens, one
+              step fused against eager for qwen2-72b (its bias seeded
+              non-zero) and gemma3-27b (window and scale): the loss held as
+              the prefill logits, every leaf's gradient to GRAD_RTOL of its
+              max|eager|; (e) gemma3-27b at its 6 layers in bf16 through
+              ``serve.greedy``, 4 x 2048 prompt tokens past its 1024 window
+              + 16 greedy: the local layers' ring caches wrap, launches held
+              exactly, two runs' tokens equal; with ``--profile`` one train
+              step of gemma3-27b in each mode, device time by kernel.
+  13. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -138,7 +162,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  13. kernels every kernel against its plain PyTorch version at the shapes
+  14. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -175,17 +199,31 @@ non-zero (no phase catches its own failure):
               the log-sum-exp) against the plain version's state, AG+GEMM's
               gathered operand bitwise against x in rank-major order, and
               the autograd Functions' gradients against float32 eager
-              autograd, 2e-2 of max.  It runs after the serve phases: the
-              profiler leaves host overhead behind.
-  14. summary the launch counts of every path, the script's wall time,
+              autograd, 2e-2 of max; and kernels #1-#4 at the e2e phase's
+              shapes of qwen2-72b, starcoder2-7b and gemma3-27b (1 x 4096
+              tokens, bf16: the qkv and gate/up AG+GEMM, the o and down
+              GEMM+RS, and the backward's four transposes, their plain
+              versions timed by the one checking call; flash attention at D
+              128, causal and, for gemma3's local layers, windowed at 1024,
+              against SDPA with is_causal / with a boolean mask; the LM
+              head), with the same train-path checks as smollm's at those
+              shapes (flash attention's o and lse and its Function at every
+              window, the gathered operand, the AG+GEMM / GEMM+RS
+              Functions).  It runs after the serve phases: the profiler
+              leaves host overhead behind.
+  15. summary the launch counts of every path, the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
-Two cuts: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4
-of its 28 layers, and the train phase's resume check (c) runs 2 of
-smollm-360m's 32 layers at full width (two runs' checkpoints at full depth
-would write ~4 GB).  Every other path runs at full depth and width, the
-paper's MLPs and MoEs at their published shapes.
+Cuts: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4 of
+its 28 layers; the train phase's resume check (c) runs 2 of smollm-360m's
+32 layers at full width (two runs' checkpoints at full depth would write
+~4 GB); the e2e phase runs qwen2-72b at 2 of 80 layers, starcoder2-7b at 8
+of 32 and gemma3-27b at 6 of 62 (a bf16 weight, its gradient and two
+float32 moments take 12 bytes a parameter: one 80 GB card holds no more),
+its float32 step at 2 layers, at the published widths, and cuts the
+train_4k shape's batch of 256 to 1.  Every other path runs at full depth
+and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 (``src/``) beside this script and ``nvcc`` (PATH or /usr/local/cuda/bin).
@@ -245,6 +283,13 @@ GRAD_RTOL = 2e-3
 # (a): an update's (new - p) max|diff| against eager, relative to the leaf's max|eager update|: both
 # sides round new to float32, 1 ulp apart at most (2.4e-7 at |p| < 4, 4e-3 of an update of lr = 6e-5)
 UPDATE_RTOL = 1e-2
+# the e2e phase (paper Fig. 11, ``benchmarks/paper_e2e.py``): (d) the depth and tokens of the float32
+# fused-vs-eager step (2 layers: float32 weights and two gradient trees of qwen2-72b take ~51 GB; 2048
+# tokens keep gemma3's 1024 window below the sequence), (e) gemma3's greedy at its e2e depth
+E2E_F32_ARCHS, E2E_F32_LAYERS, E2E_F32_SEQ = ("qwen2-72b", "gemma3-27b"), 2, 2048
+ARCH_G = "gemma3-27b"
+E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
+E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -369,19 +414,25 @@ def phase_build():
     return dt
 
 
-def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None, bitwise=False):
+def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None, bitwise=False,
+          plain_once=False):  # fmt: skip
     """Run one kernel case: max error vs the plain version, then times.
     ``launch`` returns the wrapper's record of its last launch (route, grid
     G, work items), printed beside the times; ``bitwise`` also launches the
     kernel REPEATS - 1 more times and fails unless every output is bitwise
-    equal to the first."""
+    equal to the first; ``plain_once`` times the plain version by the one
+    call that checks the kernel (a replay of the kernel's work items that
+    takes seconds at the widest shapes)."""
     import torch
 
     from repro_torch.benchmarks.common import bound_ms
 
     out = kernel()
     info = launch() if launch is not None else None
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
     ref = plain()
+    e1.record()
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
@@ -400,7 +451,7 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     if not check_only:
         rec["ms"] = cuda_ms(kernel, iters)
         rec["device_ms"] = device_ms(kernel)
-        rec["plain_ms"] = cuda_ms(plain, max(2, iters // 4))
+        rec["plain_ms"] = e0.elapsed_time(e1) if plain_once else cuda_ms(plain, max(2, iters // 4))
         rec["library_ms"] = cuda_ms(library, iters) if library is not None else None
         rec["library_device_ms"] = device_ms(library) if library is not None else None
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dtype)
@@ -628,54 +679,140 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
 
 
-def _train_backward_kernels(rnd, iters: int) -> dict:
-    """The fused kernels at smollm-360m's backward shapes in the train phase
-    (W = 4, TRAIN_BATCH x TRAIN_SEQ tokens): the input gradients of the qkv
-    and gate/up projections through GEMM+RS (dy times each rank's w^T), of
-    the o and down projections through AG+GEMM; float32 checked, bfloat16
-    timed and launched REPEATS times bitwise."""
+def _e2e_kernels(rnd, iters: int) -> dict:
+    """Kernels #1-#4 at the e2e phase's shapes of the three new dense
+    configs (W = 4, 1 x 4096 tokens, bf16): the forward's qkv and gate/up
+    AG+GEMM and o / down GEMM+RS, flash attention at D 128 (causal; gemma3's
+    local layers also windowed at 1024), the LM head [4096, d] x [d, vocab],
+    and the backward's transposes (:func:`_train_backward_kernels`); each
+    timed against its plain version and library call, flash attention, the
+    head and the transposes also launched REPEATS times bitwise.  The
+    library call of causal attention is SDPA with ``is_causal``; of the
+    windowed one SDPA with a boolean [S, S] mask (no flag says a window)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+
+    W, B, S, dt = WORLD, paper_e2e.BATCH, paper_e2e.SEQ, torch.bfloat16
+    s_loc, isz = S // W, 2
+    recs = {}
+    for arch in E2E_ARCHS:
+        shp = path_shapes(arch)
+        d, hd = shp["d"], shp["hd"]
+        for tag, n in (("e2e_qkv", shp["n_qkv"]), ("e2e_gate_up", shp["n_gu"])):
+            x, w = rnd(W, B, s_loc, d, dtype=dt), rnd(W, d, n, dtype=dt) * d**-0.5
+            xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
+            recs[("ag_gemm", arch, tag, dt)] = _case(
+                f"ag_gemm[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dt,
+                lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
+                2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), iters, False,
+                lambda: K.ag_gemm.last_launch, plain_once=True,
+            )  # fmt: skip
+        for tag, k in (("e2e_o_proj", shp["n_o"]), ("e2e_down", shp["f_loc"])):
+            x, w = rnd(W, B, S, k, dtype=dt), rnd(W, k, d, dtype=dt) * (W * k) ** -0.5
+            recs[("gemm_rs", arch, tag, dt)] = _case(
+                f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dt,
+                lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
+                2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, False,
+                lambda: K.gemm_rs.last_launch, plain_once=True,
+            )  # fmt: skip
+        rep = shp["h_loc"] // shp["kv_loc"]
+        q = rnd(W * B * shp["h_loc"], S, hd, dtype=dt)
+        kk, vv = rnd(W * B * shp["kv_loc"], S, hd, dtype=dt), rnd(W * B * shp["kv_loc"], S, hd, dtype=dt)
+        ke, ve = kk.repeat_interleave(rep, 0)[None], vv.repeat_interleave(rep, 0)[None]
+        pos = torch.arange(S, device=q.device)
+        for window in _windows(arch):
+            if window is None:
+                pairs, tag, lib = S * (S + 1) // 2, "e2e_prefill", "SDPA is_causal"
+                library = lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True)  # noqa: E731
+            else:
+                pairs, tag, lib = window * (window + 1) // 2 + (S - window) * window, f"e2e_window{window}", "SDPA mask"
+                vis = (pos[:, None] >= pos[None, :]) & ((pos[:, None] - pos[None, :]) < window)
+                library = lambda m_=vis: F.scaled_dot_product_attention(q[None], ke, ve, attn_mask=m_)  # noqa: E731
+            recs[("flash_attention", arch, tag, dt)] = _case(
+                f"flash_attention[{arch} e2e] q{list(q.shape)} kv{list(kk.shape)} causal window {window} ({lib})", dt,
+                lambda w_=window: K.flash_attention(q, kk, vv, causal=True, window=w_),
+                lambda w_=window: K.flash_attention_plain(q.float(), kk.float(), vv.float(), causal=True, window=w_),
+                library, 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), iters, False,
+                lambda: K.flash_attention.last_launch, bitwise=True,
+            )  # fmt: skip
+        x, w = rnd(B * S, d, dtype=dt), rnd(d, shp["vocab"], dtype=dt) * 0.02
+        recs[("matmul", arch, "e2e_lm_head", dt)] = _case(
+            f"matmul[{arch} e2e lm_head] x{list(x.shape)} w{list(w.shape)}", dt,
+            lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
+            2 * B * S * d * shp["vocab"], isz * (x.numel() + w.numel() + B * S * shp["vocab"]), iters, False,
+            lambda: K.matmul.last_launch, bitwise=True,
+        )  # fmt: skip
+        del q, kk, vv, ke, ve, x, w
+        recs.update(_train_backward_kernels(rnd, iters, arch, B, S, (dt,), "e2e_bwd_"))
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _windows(arch: str) -> list:
+    """The attention windows of an arch's layers (None: global), None first."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    return sorted({d.window for d in lm.layer_plan(get_config(arch))}, key=lambda w: -1 if w is None else w)
+
+
+def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtypes=None,
+                            prefix="bwd_") -> dict:  # fmt: skip
+    """The fused kernels at an arch's backward shapes in training (W = 4,
+    ``batch`` x ``seq`` tokens; by default smollm-360m's in the train
+    phase): the input gradients of the qkv and gate/up projections through
+    GEMM+RS (dy times each rank's w^T), of the o and down projections
+    through AG+GEMM; float32 checked, bfloat16 timed and launched REPEATS
+    times bitwise.  Beyond the train phase's shapes the plain version is
+    timed by its one checking call."""
     import torch
 
     from repro_torch import kernels as K
 
-    shp = path_shapes(ARCH)
-    W, B, S, d = WORLD, TRAIN_BATCH, TRAIN_SEQ, shp["d"]
-    s_loc = S // W
+    shp = path_shapes(arch)
+    W, B, S, d = WORLD, batch, seq, shp["d"]
+    s_loc, once = S // W, arch != ARCH
     recs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes or (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         isz = torch.tensor([], dtype=dtype).element_size()
-        for tag, n in (("bwd_qkv", shp["n_qkv"]), ("bwd_gate_up", shp["n_gu"])):
+        for tag, n in ((prefix + "qkv", shp["n_qkv"]), (prefix + "gate_up", shp["n_gu"])):
             x, w = rnd(W, B, S, n, dtype=dtype), rnd(W, n, d, dtype=dtype) * (W * n) ** -0.5
-            recs[("gemm_rs", ARCH, tag, dtype)] = _case(
-                f"gemm_rs[{ARCH} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
+            recs[("gemm_rs", arch, tag, dtype)] = _case(
+                f"gemm_rs[{arch} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
                 lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * B * S * n * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, not bf16,
-                lambda: K.gemm_rs.last_launch, bitwise=bf16,
+                lambda: K.gemm_rs.last_launch, bitwise=bf16, plain_once=once,
             )  # fmt: skip
-        for tag, k in (("bwd_o_proj", shp["n_o"]), ("bwd_down", shp["f_loc"])):
+        for tag, k in ((prefix + "o_proj", shp["n_o"]), (prefix + "down", shp["f_loc"])):
             x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, k, dtype=dtype) * d**-0.5
             xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
-            recs[("ag_gemm", ARCH, tag, dtype)] = _case(
-                f"ag_gemm[{ARCH} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
+            recs[("ag_gemm", arch, tag, dtype)] = _case(
+                f"ag_gemm[{arch} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
                 lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
                 2 * W * B * S * d * k, isz * (x.numel() + w.numel() + W * B * S * k), iters, not bf16,
-                lambda: K.ag_gemm.last_launch, bitwise=bf16,
+                lambda: K.ag_gemm.last_launch, bitwise=bf16, plain_once=once,
             )  # fmt: skip
+        del x, w, xg
     return recs
 
 
-def _train_autograd_checks(rnd) -> dict:
-    """The bf16 train path's own uses of the kernels at smollm-360m's train
-    shapes (W = 4, TRAIN_BATCH x TRAIN_SEQ tokens), each held against its
-    plain version: flash attention's forward with its statistics (o, and
-    the log-sum-exp the wgmma route derives from its log2-unit state)
-    against the plain version's state; the gathered operand of AG+GEMM
-    (read from the wgmma route's gather slots, the weight gradient's
-    operand) bitwise against x in rank-major row order, its output bitwise
-    the call's without it; and the autograd Functions (AG+GEMM, GEMM+RS,
-    flash attention: the output and every input's gradient) against float32
-    autograd through the eager executor / the plain attention."""
+def _train_autograd_checks(rnd, arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> dict:
+    """The bf16 train path's own uses of the kernels at an arch's train
+    shapes (W = 4, ``batch`` x ``seq`` tokens; by default smollm-360m's in
+    the train phase), each held against its plain version: flash
+    attention's forward with its statistics (o, and the log-sum-exp the
+    wgmma route derives from its log2-unit state) against the plain
+    version's state, at every window of the arch's layers; the gathered
+    operand of AG+GEMM (read from the wgmma route's gather slots, the
+    weight gradient's operand) bitwise against x in rank-major row order,
+    its output bitwise the call's without it; and the autograd Functions
+    (AG+GEMM, GEMM+RS, flash attention at every window: the output and
+    every input's gradient) against float32 autograd through the eager
+    executor / the plain attention.  Returns the errors by kernel."""
     import torch
 
     from repro_torch import kernels as K
@@ -684,13 +821,13 @@ def _train_autograd_checks(rnd) -> dict:
     from repro_torch.core.compiler import compile_overlap
     from repro_torch.kernels.flash_attention import flash_attention_lse
 
-    shp = path_shapes(ARCH)
-    W, B, S, d, hd = WORLD, TRAIN_BATCH, TRAIN_SEQ, shp["d"], shp["hd"]
+    shp = path_shapes(arch)
+    W, B, S, d, hd = WORLD, batch, seq, shp["d"], shp["hd"]
     s_loc, bf16, tol = S // W, torch.bfloat16, TOL["bfloat16"]
     world = World(W, "cuda")
-    errs = {}
+    errs = {"flash_attention": {}, "ag_gemm": {}, "gemm_rs": {}}
 
-    def hold(what, got, ref, bound):
+    def hold(kernel, what, got, ref, bound):
         """bound: "bitwise", "abs" (|err| <= tol) or "rel" (|err| <= tol x max|ref|)."""
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
@@ -698,34 +835,49 @@ def _train_autograd_checks(rnd) -> dict:
         lim = {"bitwise": 0.0, "abs": tol, "rel": tol * max(scale, 1e-30)}[bound]
         ok = got.shape == ref.shape and bool(torch.isfinite(got).all().item()) and err <= lim
         txt = {"bitwise": "bitwise", "abs": f"bound {tol:g}", "rel": f"bound {tol:g} x max|ref|"}[bound]
-        print(f"[kernels] train {what} bf16: max|err| {err:.3e} (max|ref| {scale:.3e}, {txt})")
+        print(f"[kernels] train {arch} {what} bf16: max|err| {err:.3e} (max|ref| {scale:.3e}, {txt})")
         if not ok:
-            raise SystemExit(f"chip_smoke: train path {what} (bf16) disagrees with its plain version: {err} > {lim}")
-        errs[what] = err
-
-    # flash attention's forward with its statistics: an lse error e scales P by e^e, so lse is held absolutely
-    q = rnd(W * B * shp["h_loc"], S, hd, dtype=bf16)
-    k, v = rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16), rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16)
-    o, lse = flash_attention_lse(q, k, v, causal=True)
-    o_p, lse_p = flash_attention_lse(*(t.float().cpu() for t in (q, k, v)), causal=True)  # the plain state
-    fa = f"flash_attention_lse q{list(q.shape)} kv{list(k.shape)} causal"
-    hold(f"{fa} o", o, o_p.to(o.device), "rel")
-    hold(f"{fa} lse", lse, lse_p.to(o.device), "abs")
-    # the gathered operand: the forward's x (qkv, gate/up) and the backward's dy (o, down projections)
-    for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp["n_gu"]), ("bwd_o_proj", shp["n_o"]),
-                   ("bwd_down", shp["f_loc"])):  # fmt: skip
-        x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n, dtype=bf16) * d**-0.5
-        y, gathered = K.ag_gemm(x, w, return_gathered=True)
-        what = f"ag_gemm[{tag}] x{list(x.shape)} w{list(w.shape)} return_gathered"
-        hold(f"{what}: gathered vs x rank-major", gathered, x.permute(1, 0, 2, 3).reshape(B, S, d).expand(W, B, S, d),
-             "bitwise")  # fmt: skip
-        hold(f"{what}: output vs the call without it", y, K.ag_gemm(x, w), "bitwise")
+            raise SystemExit(f"chip_smoke: {arch}'s train path {what} (bf16) disagrees with its plain version: "
+                             f"{err} > {lim}")  # fmt: skip
+        errs[kernel][what] = err
 
     def grads(fn, args, dy):
         args = [a.detach().clone().requires_grad_(True) for a in args]
         out = fn(*args)
         out.backward(dy)
         return [out.detach()] + [a.grad for a in args]
+
+    q = rnd(W * B * shp["h_loc"], S, hd, dtype=bf16)
+    k, v = rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16), rnd(W * B * shp["kv_loc"], S, hd, dtype=bf16)
+    do = rnd(*q.shape, dtype=bf16)
+    for window in _windows(arch):
+        # the forward with its statistics: an lse error e scales P by e^e, so lse is held absolutely
+        o, lse = flash_attention_lse(q, k, v, causal=True, window=window)
+        o_p, lse_p = flash_attention_lse(*(t.float().cpu() for t in (q, k, v)), causal=True, window=window)
+        fa = f"flash_attention_lse q{list(q.shape)} kv{list(k.shape)} causal window {window}"
+        hold("flash_attention", f"{fa} o", o, o_p.to(o.device), "rel")
+        hold("flash_attention", f"{fa} lse", lse, lse_p.to(o.device), "abs")
+        del o, lse, o_p, lse_p
+        K.reset_launch_counts()
+        got = grads(lambda *a, w_=window: K.flash_attention(*a, causal=True, window=w_), (q, k, v), do)
+        if K.launch_counts()["flash_attention"] != 1:
+            raise SystemExit(f"chip_smoke: the flash attention Function launched {K.launch_counts()}")
+        ref = grads(lambda *a, w_=window: K.flash_attention_plain(*a, causal=True, window=w_),
+                    (q.float(), k.float(), v.float()), do.float())  # fmt: skip
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
+            hold("flash_attention", f"flash_attention Function q{list(q.shape)} kv{list(k.shape)} window {window} "
+                 f"{name}", a, b, "rel")  # fmt: skip
+        del got, ref
+    # the gathered operand: the forward's x (qkv, gate/up) and the backward's dy (o, down projections)
+    for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp["n_gu"]), ("bwd_o_proj", shp["n_o"]),
+                   ("bwd_down", shp["f_loc"])):  # fmt: skip
+        x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n, dtype=bf16) * d**-0.5
+        y, gathered = K.ag_gemm(x, w, return_gathered=True)
+        what = f"ag_gemm[{tag}] x{list(x.shape)} w{list(w.shape)} return_gathered"
+        hold("ag_gemm", f"{what}: gathered vs x rank-major", gathered,
+             x.permute(1, 0, 2, 3).reshape(B, S, d).expand(W, B, S, d), "bitwise")  # fmt: skip
+        hold("ag_gemm", f"{what}: output vs the call without it", y, K.ag_gemm(x, w), "bitwise")
+    del x, w, y, gathered
 
     for tag, kind, xs, ws in (
         ("qkv", "ag_matmul", (W, B, s_loc, d), (W, d, shp["n_qkv"])),
@@ -744,16 +896,11 @@ def _train_autograd_checks(rnd) -> dict:
             raise SystemExit(f"chip_smoke: the {kind} Function launched {counts}")
         ref = grads(eager, (x.float(), w.float()), dy.float())
         for name, a, b in zip(("y", "dx", "dw"), got, ref):
-            hold(f"{kind} Function [{tag}] x{list(xs)} w{list(ws)} {name}", a, b, "rel")
-    do = rnd(*q.shape, dtype=bf16)
-    K.reset_launch_counts()
-    got = grads(lambda *a: K.flash_attention(*a, causal=True), (q, k, v), do)
-    if K.launch_counts()["flash_attention"] != 1:
-        raise SystemExit(f"chip_smoke: the flash attention Function launched {K.launch_counts()}")
-    ref = grads(lambda *a: K.flash_attention_plain(*a, causal=True), (q.float(), k.float(), v.float()), do.float())
-    for name, a, b in zip(("o", "dq", "dk", "dv"), got, ref):
-        hold(f"flash_attention Function q{list(q.shape)} kv{list(k.shape)} {name}", a, b, "rel")
-    return {"case": "train path autograd and statistics", "dtype": "bfloat16", "max_abs_err": errs}
+            kernel = {("ag_matmul", "dx"): "gemm_rs", ("matmul_rs", "y"): "gemm_rs"}.get((kind, name), "ag_gemm")
+            hold(kernel, f"{kind} Function [{tag}] x{list(xs)} w{list(ws)} {name}", a, b, "rel")
+        del x, w, dy, got, ref
+    torch.cuda.empty_cache()
+    return {"case": f"{arch} train path autograd and statistics", "dtype": "bfloat16", "max_abs_err": errs}
 
 
 def phase_kernels(iters: int):
@@ -761,6 +908,7 @@ def phase_kernels(iters: int):
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
     from repro_torch.core.channels import BlockChannel, CommSpec
     from repro_torch.kernels.flash_attention import flash_attention_tiled
     from repro_torch.kernels.grouped_matmul import group_tile_table
@@ -862,7 +1010,10 @@ def phase_kernels(iters: int):
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
     recs.update(_train_backward_kernels(rnd, iters))
+    recs.update(_e2e_kernels(rnd, iters))
     recs[("train", ARCH, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd)
+    for arch in E2E_ARCHS:  # the e2e phase's train shapes
+        recs[("train", arch, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd, arch, paper_e2e.BATCH, paper_e2e.SEQ)
     # --- every order x C in {1, 2} through both fused kernels at the smollm
     # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
     # launched REPEATS times, every output bitwise equal to the first (the
@@ -1870,6 +2021,169 @@ def phase_train(profile: bool = False) -> dict:
     return out
 
 
+def _e2e_f32_step(arch: str) -> dict:
+    """(d): one float32 step's loss and every leaf's gradient, fused against
+    eager, at E2E_F32_LAYERS layers of ``arch`` at its published width
+    (qwen2's QKV bias set to seeded non-zero values first)."""
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = paper_e2e.e2e_config(arch, E2E_F32_LAYERS)
+    world = World(WORLD, "cuda")
+    gen = torch.Generator(device=world.device).manual_seed(0)
+    p32 = lm.init(cfg, world, gen, torch.float32)
+    for layer in p32["layers"] if cfg.qkv_bias else []:
+        b = layer["mixer"]["bqkv"]
+        layer["mixer"]["bqkv"] = torch.randn(b.shape, generator=gen, device=b.device) * 0.5
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=E2E_F32_SEQ, global_batch=1).host_batch()
+    res = {}
+    for name, backend in (("fused", "fused"), ("eager", "eager")):
+        loss, _, _, grads = loss_and_grads(lm, cfg, ParallelContext(world=world, backend=backend), p32, batch)
+        res[name] = (loss, grads)
+    (loss_f, g_f), (loss_e, g_e) = res["fused"], res["eager"]
+    _hold_logits(f"[e2e] {arch} f32 loss, one step ({cfg.n_layers} layers, 1 x {E2E_F32_SEQ} tokens)",
+                 loss_f[None], loss_e[None])  # fmt: skip
+    worst, bad, names = 0.0, [], []
+    for i, (a, b) in enumerate(zip(tree_leaves(g_f), tree_leaves(g_e))):
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL and b.abs().max().item() > 0):
+            bad.append((i, tuple(a.shape), rel))
+    n_leaves = len(tree_leaves(g_f))
+    windows = sorted({str(d.window) for d in lm.layer_plan(cfg)})
+    extra = "the QKV bias seeded non-zero" if cfg.qkv_bias else f"windows {windows}, embedding x sqrt({cfg.d_model})"
+    print(f"[e2e] {arch} f32 gradients, fused vs eager ({extra}): {n_leaves} leaves, worst max|diff| / max|eager "
+          f"leaf| {worst:.3e} (bound {GRAD_RTOL:g} per leaf, every leaf non-zero)")  # fmt: skip
+    if bad:
+        raise SystemExit(f"chip_smoke: {arch}'s f32 fused gradients disagree with eager: {bad[:8]}")
+    out = {"loss": [loss_f.item(), loss_e.item()], "grad_rel_err": worst, "leaves": n_leaves}
+    del p32, res, g_f, g_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _e2e_serve() -> dict:
+    """(e): gemma3-27b at its e2e depth in bf16 through ``serve.greedy``:
+    prompts past the local window, so the local layers' ring caches wrap;
+    launches held exactly, two runs' tokens equal."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    cfg = paper_e2e.e2e_config(ARCH_G)
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, E2E_SERVE_BATCH, E2E_SERVE_PROMPT, seed=0))
+    prompts = prompts.to(world.device)
+    max_len = E2E_SERVE_PROMPT + NEW_TOKENS
+    rings = sorted({c["k"].shape[3] for c in lm.init_caches(cfg, pc, 1, max_len)})
+    warm, _ = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    tokens, t = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)
+    counts = K.launch_counts()
+    expect = {"matmul": NEW_TOKENS, "ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers,
+              "flash_attention": cfg.n_layers, "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
+    tps = E2E_SERVE_BATCH * t["decode_steps"] / t["decode_s"]
+    print(f"[e2e] bf16 {ARCH_G} ({cfg.n_layers} layers) through serve.greedy: {E2E_SERVE_BATCH} x "
+          f"{E2E_SERVE_PROMPT} prompt tokens + {NEW_TOKENS} greedy; cache lengths {rings} (window "
+          f"{cfg.local_window}); prefill {t['prefill_s'] * 1e3:.2f} ms, decode {tps:.1f} tokens/s; launches {counts}")  # fmt: skip
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: {ARCH_G}'s greedy launched {counts} != {expect}")
+    if rings != [cfg.local_window, max_len] or not torch.equal(tokens, warm):
+        raise SystemExit(f"chip_smoke: {ARCH_G}'s windowed decode: caches {rings}, tokens reproducible "
+                         f"{torch.equal(tokens, warm)}")  # fmt: skip
+    if tuple(tokens.shape) != (E2E_SERVE_BATCH, NEW_TOKENS) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise SystemExit(f"chip_smoke: bad generated tokens {tokens.shape}")
+    print(f"[e2e] {ARCH_G} tokens[0]: {tokens[0].tolist()}")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill_ms": t["prefill_s"] * 1e3, "decode_tokens_per_s": tps, "counts": counts}
+
+
+def phase_e2e(profile: bool = False) -> dict:
+    """Paper Fig. 11 and the three dense configs (module docstring, phase 12)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+
+    out = {"f32": {arch: _e2e_f32_step(arch) for arch in E2E_F32_ARCHS}, "rows": [], "counts": {}}
+    print(f"[e2e] {paper_e2e.CAVEAT}")
+    for arch in paper_e2e.DENSE:
+        K.reset_launch_counts()
+        row = paper_e2e.fig11_row(arch)
+        out["counts"][arch] = K.launch_counts()
+        cfg = paper_e2e.e2e_config(arch)
+        print(f"[e2e] {paper_e2e.describe(row)}")
+        for mode in paper_e2e.MODES:
+            expect = paper_e2e.expected_launches(cfg, mode)
+            steps = row["launches"][mode]
+            print(f"[e2e] {arch} {mode}: launches per step (held exactly, all {len(steps)} steps) {steps[0]}")
+            if any(c != expect for c in steps):
+                raise SystemExit(f"chip_smoke: {arch}'s {mode} steps launched {steps[:3]} (expected {expect} each)")
+        first = row["first_loss"]
+        _hold_logits(f"[e2e] {arch} bf16 first-step loss", torch.tensor([first["overlap"]]),
+                     torch.tensor([first["baseline"]]), pair=("overlap", "baseline"))  # fmt: skip
+        if not all(map(math.isfinite, row["step_loss"]["overlap"] + row["step_loss"]["baseline"])):
+            raise SystemExit(f"chip_smoke: {arch}'s step losses are not finite: {row['step_loss']}")
+        if row["peak_bytes"] >= torch.cuda.get_device_properties(0).total_memory:
+            raise SystemExit(f"chip_smoke: {arch}'s row peaked at {row['peak_bytes']} bytes, more than the card holds")
+        out["rows"].append(row)
+    out["serve"] = _e2e_serve()
+    if profile:
+        out["profile"] = _e2e_profile(ARCH_G)
+    return out
+
+
+def _e2e_profile(arch: str) -> dict:
+    """Device time by kernel of one bf16 train step of ``arch`` at its e2e
+    depth, in each mode (torch.profiler)."""
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.benchmarks.common import fp32_reductions, profile_windows
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    cfg = paper_e2e.e2e_config(arch)
+    world = World(WORLD, "cuda")
+    state = {"p": lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)}
+    state["o"] = init_opt_state(lm.trainable(state["p"], cfg))
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=paper_e2e.SEQ, global_batch=paper_e2e.BATCH).host_batch()
+    windows = {}
+    for mode in paper_e2e.MODES:
+        pc = ParallelContext(world=world, mode=mode)
+        step = make_train_step(lm, cfg, pc, AdamWConfig(), grad_masks=lm.grad_masks(cfg, pc), donate=True)
+
+        def run(step=step):
+            state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+        run()  # warm-up
+        windows[f"{mode} step"] = run
+    with fp32_reductions():
+        prof = profile_windows(f"{arch} ({cfg.n_layers} layers) train, 1 x {paper_e2e.SEQ} tokens", windows)
+    del state
+    torch.cuda.empty_cache()
+    return prof
+
+
 def phase_paper() -> dict:
     from repro_torch import kernels as K
     from repro_torch.benchmarks import paper_attn, paper_mlp, paper_moe
@@ -1931,6 +2245,7 @@ def main(argv=None) -> int:
     out["engine"] = phase_engine(args.profile)
     out["ring"] = phase_ring()
     out["train"] = phase_train(args.profile)
+    out["e2e"] = phase_e2e(args.profile)
     out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
     # that would slow the host-bound prefill and decode of the phases above
@@ -1943,6 +2258,8 @@ def main(argv=None) -> int:
     by_path[f"seam {ARCH}"] = out["seam"]["counts"]
     by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
+    by_path.update({f"e2e {arch}": c for arch, c in out["e2e"]["counts"].items()})
+    by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
@@ -1965,6 +2282,12 @@ def main(argv=None) -> int:
             # the input gradients of the train phase's backward (bf16)
             "train_backward": {t: {k: recs[(n, a, t, d)][k] for k in TIMES}
                                for n, a, t, d in recs if n == name and t.startswith("bwd_") and d == bf16},
+            # the e2e phase's forward and backward shapes of the new dense configs (bf16)
+            "e2e": {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES}
+                    for n, a, t, d in recs if n == name and t.startswith("e2e_")},
+            # the train paths' autograd Functions and statistics by arch: max|err| of each check
+            "train_checks": {a: recs[(n, a, t, d)]["max_abs_err"].get(name, {})
+                             for n, a, t, d in recs if n == "train"},
         })  # fmt: skip
     out["wall_s"] = time.perf_counter() - t_start
     print(f"[summary] wall time of the script: {out['wall_s']:.1f} s (the kernels' build included)")

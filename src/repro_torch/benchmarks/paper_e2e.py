@@ -1,0 +1,204 @@
+"""Paper Fig. 11 on one card: one LM train step, overlapped against not.
+
+The port's analog of ``benchmarks/fig11_e2e.py``: per model, one bf16
+AdamW train step (``training.make_train_step`` over ``models/lm.forward``)
+with W = 4 tensor-parallel ranks emulated on one card, in
+``ParallelContext(mode="baseline")`` and in ``mode="overlap"`` on the same
+weights and batch.  The two modes differ only in the collective GEMMs, as
+in the JAX package: "overlap" runs the fused AG+GEMM / GEMM+RS kernels in
+both passes, "baseline" the emulated all-gather then one tensor-core GEMM
+per rank and one GEMM then the reduce-scatter (their autograd Functions'
+backward the same non-overlapped forms); flash attention and the
+tile-GEMM LM head run in both.
+
+Per row: both modes' first-step loss on the initial weights (a forward
+each, held by ``chip_smoke.py`` to the logits' bound), then ``WARMUP``
+steps of each mode and ``PAIRS`` timed pairs, the two modes in turns (the
+order alternating pair by pair) on one shared, donated state, each step
+between two CUDA events; the median step ms of each mode, the speedup
+(baseline / overlap), tokens/s, the launches of every step by kernel and
+the peak device memory of the row.
+
+The cells (``MODELS`` is the reference's list; its MoE rows raise
+``lm.check_trainable``'s error until MoE training is ported):
+
+  * 1 x 4096 tokens a step: the sequence of the JAX package's
+    ``train_4k`` shape (``src/repro/configs/base.py``, ``SHAPES``), its
+    batch of 256 cut to 1, so gemma3-27b's 1024-token window skips real
+    tiles;
+  * published widths, depth cut to fit one 80 GB card (``DEPTH``; a layer
+    and its optimizer state take 12 bytes a parameter: a bf16 weight and
+    gradient, float32 moments): smollm-360m at its full 32 layers,
+    qwen2-72b 2 of 80 (0.878 B parameters a layer plus 2.49 B of untied
+    embedding and head), starcoder2-7b 8 of 32, gemma3-27b 6 of 62 (one
+    5:1 period, the 262144-wide tied embedding).
+
+What these numbers are: the W ranks share one card.  An emulated
+collective is a copy (or a sum over the ranks) inside that card's memory,
+not NVLink traffic, so the overlap can hide at most that copy's time and
+the paper's multi-GPU end-to-end speedups do not carry over.
+
+On the card:
+
+  PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --json paper_e2e.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.backend.mesh import World
+from repro_torch.benchmarks.common import card_line, fp32_reductions
+from repro_torch.configs import get_config
+from repro_torch.data import SyntheticLM
+from repro_torch.models import lm
+from repro_torch.parallel.context import ParallelContext
+from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
+from repro_torch.training.optimizer import tree_leaves
+
+__all__ = ["MODELS", "DENSE", "DEPTH", "MODES", "CAVEAT", "e2e_config", "expected_launches", "run_row", "fig11_row", "describe",
+           "main"]  # fmt: skip
+
+MODELS = ["smollm-360m", "qwen2-72b", "starcoder2-7b", "gemma3-27b", "granite-moe-3b-a800m", "deepseek-moe-16b"]
+DENSE = MODELS[:4]
+# layers run of each dense model at its published width (None: all); see the module docstring
+DEPTH = {"smollm-360m": None, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6}
+SEQ, BATCH = 4096, 1  # train_4k's sequence; its batch of 256 cut to 1
+WORLD = 4
+WARMUP, PAIRS = 3, 5  # untimed steps of each mode, then timed (baseline, overlap) pairs
+MODES = ("baseline", "overlap")
+CAVEAT = (
+    "W ranks emulated on one card: a collective is a copy or a sum inside one card's memory, not NVLink, "
+    "so the overlap can hide at most that copy's time; the paper's multi-GPU end-to-end speedups do not carry over"
+)
+
+
+def e2e_config(arch: str, layers: Optional[int] = None):
+    """``arch``'s published config with its depth cut to ``layers``
+    (default ``DEPTH[arch]``; None keeps every layer)."""
+    cfg = get_config(arch)
+    layers = layers if layers is not None else DEPTH.get(arch)
+    return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+
+def expected_launches(cfg, mode: str) -> dict:
+    """Kernel launches of one train step on the card: the LM head's tile
+    GEMM forward, one flash launch a layer (its backward is torch ops from
+    the saved statistics) in both modes; with overlap, each layer's two
+    AG+GEMMs and two GEMM+RSs forward and each one's transpose through the
+    other kernel backward."""
+    n = cfg.n_layers if mode == "overlap" else 0
+    return {"matmul": 1, "ag_gemm": 4 * n, "gemm_rs": 4 * n, "flash_attention": cfg.n_layers, "grouped_matmul": 0,
+            "ssd_intra_chunk": 0}  # fmt: skip
+
+
+def _timed_step(step, params, opt, batch, cuda: bool):
+    """One train step: (params, opt, metrics, ms between two CUDA events;
+    None off the card, where no device time exists)."""
+    if not cuda:
+        return (*step(params, opt, batch), None)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    params, opt, metrics = step(params, opt, batch)
+    e1.record()
+    e1.synchronize()
+    return params, opt, metrics, e0.elapsed_time(e1)
+
+
+def run_row(cfg, world: World, *, dtype=torch.bfloat16, batch: int = BATCH, seq: int = SEQ, warmup: int = WARMUP,
+            pairs: int = PAIRS) -> dict:  # fmt: skip
+    """One Fig. 11 row of ``cfg`` on ``world`` (module docstring).  Raises
+    ``lm.check_trainable``'s error for a model whose training is not
+    ported, before anything is allocated."""
+    pcs = {m: ParallelContext(world=world, mode=m) for m in MODES}
+    for pc in pcs.values():
+        lm.check_trainable(cfg, pc)
+    cuda = world.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), dtype)
+    opt = init_opt_state(lm.trainable(params, cfg))
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch).host_batch()
+    opt_cfg = AdamWConfig(total_steps=warmup + 2 * pairs, warmup_steps=warmup)
+    steps = {m: make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc), donate=True)
+             for m, pc in pcs.items()}  # fmt: skip
+    ms = {m: [] for m in MODES}
+    launches = {m: [] for m in MODES}
+    step_loss = {m: [] for m in MODES}
+    with fp32_reductions():  # the baselines' bf16 GEMMs keep float32 sums
+        first = {m: float(make_eval_step(lm, cfg, pc)(params, data)) for m, pc in pcs.items()}
+        for i in range(warmup + pairs):
+            for m in MODES if i % 2 == 0 else MODES[::-1]:
+                before = K.launch_counts()
+                params, opt, metrics, t = _timed_step(steps[m], params, opt, data, cuda)
+                after = K.launch_counts()
+                launches[m].append({k: after[k] - before[k] for k in after})
+                step_loss[m].append(float(metrics["loss"]))
+                if i >= warmup and t is not None:
+                    ms[m].append(t)
+    n_params = sum(t.numel() for t in tree_leaves(lm.trainable(params, cfg)))
+    row = {
+        "arch": cfg.name, "layers": cfg.n_layers, "published_layers": get_config(cfg.name).n_layers,
+        "params": n_params, "tokens": batch * seq, "world": world.size, "dtype": str(dtype).removeprefix("torch."),
+        "first_loss": first, "step_loss": step_loss, "launches": launches, "step_ms": ms,
+        "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+    }  # fmt: skip
+    if cuda:
+        med = {m: statistics.median(ms[m]) for m in MODES}
+        row.update(median_ms=med, speedup=med["baseline"] / med["overlap"],
+                   tokens_per_s={m: batch * seq / (med[m] / 1e3) for m in MODES})  # fmt: skip
+    del params, opt
+    if cuda:
+        torch.cuda.empty_cache()
+    return row
+
+
+def fig11_row(arch: str, **kw) -> dict:
+    """Fig. 11's row of ``arch`` on the card at W = ``WORLD``, depth ``DEPTH[arch]``."""
+    return run_row(e2e_config(arch), World(WORLD, "cuda"), **kw)
+
+
+def describe(row: dict) -> str:
+    head = (f"Fig. 11 {row['arch']} ({row['layers']} of {row['published_layers']} layers, "
+            f"{row['params'] / 1e9:.3f} B parameters, W = {row['world']}, {row['dtype']}, {row['tokens']} tokens "
+            f"a step): first-step loss baseline {row['first_loss']['baseline']:.6f} overlap "
+            f"{row['first_loss']['overlap']:.6f}")  # fmt: skip
+    if row.get("median_ms") is None:
+        return head
+    med, tps = row["median_ms"], row["tokens_per_s"]
+    return (f"{head}; step ms baseline {med['baseline']:.2f} overlap {med['overlap']:.2f} (medians of "
+            f"{len(row['step_ms']['overlap'])} pairs), speedup {row['speedup']:.3f}x, tokens/s baseline "
+            f"{tps['baseline']:.0f} overlap {tps['overlap']:.0f}, peak memory {row['peak_bytes'] / 2**30:.2f} GiB")  # fmt: skip
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description="paper Fig. 11: one train step, overlap vs baseline, on one card")
+    ap.add_argument("--models", nargs="+", default=DENSE, help=f"of {MODELS} (the MoE rows raise)")
+    ap.add_argument("--pairs", type=int, default=PAIRS)
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("paper_e2e: no CUDA device; the figure is a measurement on the card")
+    card = card_line()
+    print(f"[fig11] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; {CAVEAT}")
+    rows = []
+    for arch in args.models:
+        rows.append(fig11_row(arch, pairs=args.pairs))
+        print(f"[fig11] {describe(rows[-1])}")
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps({"card": card, "rows": rows}, indent=1))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -9,8 +9,9 @@ consistent snapshot).  Retention keeps the newest ``keep`` checkpoints.
 Given the model's config and :class:`~repro_torch.backend.mesh.World`,
 arrays are saved logically (``convert.unshard_params`` of the parameters and
 of both moments), so a checkpoint restores onto another world size.  The
-global layout packs some column matrices per rank as two halves (``wkv``:
-[K heads || V heads], ``w_gu``: [gate || up], ``w_xz``: [x || z]), which
+global layout packs some columns per rank as two halves (``wkv`` and its
+bias ``bkv``: [K heads || V heads], ``w_gu``: [gate || up], ``w_xz``:
+[x || z]), which
 mean other columns at another world size, so a checkpoint stores each as
 its two halves (``PACKED``); a world whose padded shapes differ from the
 saved ones is refused (ValueError).  numpy
@@ -34,9 +35,10 @@ from repro_torch.training.optimizer import tree_leaves, tree_unflatten
 
 __all__ = ["CheckpointManager"]
 
-_VIEWS = {torch.bfloat16: torch.int16}
-# column matrices the global layout packs per rank as [first half || second half]
-PACKED = {"wkv": ("wk", "wv"), "w_gu": ("w_gate", "w_up"), "w_xz": ("w_x", "w_z")}  # dtypes numpy lacks, stored as a same-width integer view
+_VIEWS = {torch.bfloat16: torch.int16}  # dtypes numpy lacks, stored as a same-width integer view
+# columns the global layout packs per rank as [first half || second half]: matrices [D, n] and the
+# kv bias [n] (a MoE block's w_gu [E, D, 2 f] is sharded by experts, not packed)
+PACKED = {"wkv": ("wk", "wv"), "bkv": ("bk", "bv"), "w_gu": ("w_gate", "w_up"), "w_xz": ("w_x", "w_z")}
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
@@ -68,15 +70,16 @@ def _walk(node, fn):
 
 
 def _unpack(glob: dict, world) -> dict:
-    """Every per-rank-packed column matrix of the global layout (``PACKED``)
-    -> its halves [D, W * n] (rank-major, as one rank's half is stored)."""
+    """Every per-rank-packed column matrix or bias of the global layout
+    (``PACKED``) -> its halves [D, W * n] or [W * n] (rank-major, as one
+    rank's half is stored)."""
 
     def split(node):
         for name, halves in PACKED.items():
-            if name in node and node[name].dim() == 2:
+            if name in node and node[name].dim() <= 2:
                 w = node.pop(name)
-                parts = w.reshape(w.shape[0], world.size, 2, -1).unbind(2)
-                node.update({h: p.reshape(w.shape[0], -1) for h, p in zip(halves, parts)})
+                parts = w.reshape(w.shape[:-1] + (world.size, 2, -1)).unbind(-2)
+                node.update({h: p.reshape(w.shape[:-1] + (-1,)) for h, p in zip(halves, parts)})
 
     return _walk(glob, split)
 
@@ -88,8 +91,8 @@ def _repack(glob: dict, world) -> dict:
         for name, halves in PACKED.items():
             if halves[0] in node:
                 a, b = (node.pop(h) for h in halves)
-                node[name] = torch.stack([t.reshape(t.shape[0], world.size, -1) for t in (a, b)], 2).reshape(
-                    a.shape[0], -1
+                node[name] = torch.stack([t.reshape(t.shape[:-1] + (world.size, -1)) for t in (a, b)], -2).reshape(
+                    a.shape[:-1] + (-1,)
                 )
 
     return _walk(glob, join)

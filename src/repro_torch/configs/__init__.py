@@ -1,12 +1,15 @@
-"""Architecture configs the port serves (smollm-360m dense; granite-moe-3b-a800m and deepseek-moe-16b MoE;
-mamba2-2.7b SSM)."""
+"""Architecture configs the port serves and trains (smollm-360m, qwen2-72b, starcoder2-7b and gemma3-27b
+dense; granite-moe-3b-a800m and deepseek-moe-16b MoE; mamba2-2.7b SSM)."""
 
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, get_config, reduce_config, register
 from repro_torch.configs import (  # noqa: F401 — registration side effect
     deepseek_moe_16b,
+    gemma3_27b,
     granite_moe_3b_a800m,
     mamba2_2p7b,
+    qwen2_72b,
     smollm_360m,
+    starcoder2_7b,
 )
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "get_config", "reduce_config", "register"]

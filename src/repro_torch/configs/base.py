@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "register", "get_config", "reduce_config"]
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "PORT_FIELDS", "register", "get_config", "reduce_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +59,9 @@ class ArchConfig:
     act: str = "silu"
     tie_embeddings: bool = False
     sub_quadratic: bool = False  # eligible for long-context decode
+    # the port's own field (``PORT_FIELDS``): scale the embedding by sqrt(d_model),
+    # which the JAX package decides by ``family == "vlm"`` or a "gemma" name
+    embed_scale: bool = False
 
     @property
     def hd(self) -> int:
@@ -69,6 +72,9 @@ class ArchConfig:
             return "attn_dense"  # leading dense-MLP layers (DeepSeek)
         return self.pattern[i % len(self.pattern)]
 
+
+# fields of ArchConfig that the JAX package's config does not have
+PORT_FIELDS = ("embed_scale",)
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
@@ -90,7 +96,10 @@ def get_config(name: str) -> ArchConfig:
 
 def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> ArchConfig:
     """Reduced same-family config for CPU runs (the dense, MoE and SSM
-    branches of the JAX package's ``launch/train.reduce_config``)."""
+    branches of the JAX package's ``launch/train.reduce_config``); every
+    field it does not set (``pattern``, ``local_window``,
+    ``rope_theta_local``, ``qkv_bias``, ``act``, ``tie_embeddings``) is
+    kept, as there."""
     k0 = cfg.moe.first_k_dense if cfg.moe else 0
     kw = dict(n_layers=len(cfg.pattern) * 2 + k0, d_model=d_model, vocab_size=vocab)
     if cfg.n_heads:

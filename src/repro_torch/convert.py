@@ -7,7 +7,8 @@ port's own ``lm.init`` builds global tensors on the card and goes through
 the same :func:`shard_params`, so both follow one layout.  Sharding follows
 the JAX package's partition specs:
 
-  * ``wq`` / ``wkv`` / ``w_gu`` by columns (``P(dp, "model")``);
+  * ``wq`` / ``wkv`` / ``w_gu`` by columns (``P(dp, "model")``), the
+    biases ``bq`` / ``bkv`` alike (``P("model")``);
   * ``wo`` / ``w_down`` by rows (``P("model", dp)``);
   * ``embed`` by vocab rows (``P("model", dp)``);
   * MoE blocks by experts: ``w_gu`` / ``w_down`` rows of dim 0
@@ -20,7 +21,8 @@ the JAX package's partition specs:
 
 The GQA zero pads and the per-shard gate|up interleave are kept exactly as
 stored; each rank's ``wq`` and ``wkv`` columns are joined into one ``wqkv``
-shard (the JAX package concatenates them at every call), and so are a
+shard (the JAX package concatenates them at every call), as are ``bq``
+and ``bkv`` into one ``bqkv`` shard, and so are a
 Mamba mixer's ``w_xz`` and ``w_dt`` columns into one ``w_in`` shard; each
 shard's x | z halves stay as stored, and each shard is padded with zero
 columns to a multiple of 8 (``IN_ALIGN``: the bf16 AG+GEMM kernel reads its
@@ -123,10 +125,16 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
 
 
 def shard_attention(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
-    """Global attention weights {ln, wq, wkv, wo} -> {ln, wqkv, wo}: each
-    rank's wq and wkv columns joined into one ``wqkv`` shard."""
+    """Global attention weights {ln, wq, wkv, wo[, bq, bkv]} -> {ln, wqkv,
+    [bqkv,] wo}: each rank's wq and wkv columns joined into one ``wqkv``
+    shard, and its bq and bkv entries into one ``bqkv`` [W, cols] shard."""
     wq, wkv = shard_cols(mixer["wq"], world), shard_cols(mixer["wkv"], world)
-    return {"ln": mixer["ln"], "wqkv": torch.cat([wq, wkv], dim=-1).contiguous(), "wo": shard_rows(mixer["wo"], world)}
+    out = {"ln": mixer["ln"], "wqkv": torch.cat([wq, wkv], dim=-1).contiguous()}
+    if "bq" in mixer:
+        bq, bkv = (shard_rows(mixer[n], world) for n in ("bq", "bkv"))
+        out["bqkv"] = torch.cat([bq, bkv], dim=-1).contiguous()
+    out["wo"] = shard_rows(mixer["wo"], world)
+    return out
 
 
 def shard_mlp(f: Dict[str, Any], world: World) -> Dict[str, Any]:
@@ -193,6 +201,8 @@ def unshard_params(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
                 "wkv": unshard_cols(mixer["wqkv"][..., nq:]),
                 "wo": unshard_rows(mixer["wo"]),
             }}  # fmt: skip
+            if "bqkv" in mixer:
+                new["mixer"].update(bq=unshard_rows(mixer["bqkv"][:, :nq]), bkv=unshard_rows(mixer["bqkv"][:, nq:]))
         f = layer.get("ffn")
         if f is not None and "router" in f:
             new["ffn"] = {"ln": f["ln"], "router": f["router"], "w_gu": unshard_rows(f["w_gu"]),

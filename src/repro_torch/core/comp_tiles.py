@@ -5,6 +5,8 @@ The port's copy of ``repro/core/comp_tiles.py``:
   * :func:`largest_divisor` / :func:`resolve_tile` clamp a requested tile
     against the operand extents it must divide — the same rule
     ``mapping.effective_channels`` applies to the comm half;
+  * :func:`fma_n_tile` widens the n tile of the fused kernels' float32
+    route until their cooperative grid is resident;
   * :func:`blocked_dot` computes a (possibly batched) GEMM in (tm, tn, tk)
     blocks accumulated in the accum dtype — the eager executor honors a
     non-default tile through it.
@@ -20,7 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["DEFAULT_TILE", "largest_divisor", "resolve_tile", "blocked_dot"]
+__all__ = ["DEFAULT_TILE", "largest_divisor", "resolve_tile", "fma_n_tile", "blocked_dot"]
 
 DEFAULT_TILE = (128, 128, 128)
 
@@ -46,6 +48,22 @@ def resolve_tile(tile: Tuple[int, int, int], m: int, n: int, k: int) -> Tuple[in
     """Clamp a requested (tm, tn, tk) to divisors of the GEMM dims (m, n, k)."""
     tm, tn, tk = tile
     return (largest_divisor(m, tm), largest_divisor(n, tn), largest_divisor(k, tk))
+
+
+def fma_n_tile(n: int, bn: int, blocks: int, sms: int) -> int:
+    """The float32 (FMA) route's n tile of the fused kernels: ``bn``
+    clamped to a divisor of ``n``, then widened to the smallest divisor whose
+    grid of ``n / tile x blocks`` blocks holds at most one block per SM.
+    Every block spins on flags that others set, so the cooperative launch
+    needs all of them resident, and one block per SM is what any launch of
+    these kernels is sure of; a block walks its tile's columns in 128-wide
+    steps, so the tile's width changes no output bit."""
+    tile = largest_divisor(n, bn)
+    if blocks > sms:
+        raise ValueError(f"fused FMA kernels: {blocks} (channel, rank) blocks exceed the {sms} SMs of the card")
+    while (n // tile) * blocks > sms:
+        tile = next(d for d in range(tile + 1, n + 1) if n % d == 0)
+    return tile
 
 
 def blocked_dot(

@@ -33,9 +33,13 @@ rank-stacked operands; both backends execute the same :class:`~repro_torch.core.
                    plain versions.
 
 ``overlapped=False`` selects the non-overlapped baselines (eager only, as
-in the JAX package).  Any other kind, and the fused backend without
-overlap, raise the one structured ``NotImplementedError`` of
-:func:`unsupported_error`.
+in the JAX package; ``ParallelContext(mode="baseline")`` compiles every op
+there whatever its backend).  The ``ag_matmul`` / ``matmul_rs``
+baselines run through one ``torch.autograd.Function`` each whose backward is the other baseline (on the card a bf16 baseline GEMM is
+``torch.bmm`` with ``out_dtype=float32``, which has no derivative): dx of
+gather-then-GEMM is GEMM-then-reduce-scatter and the other way round.  Any
+other kind, and the fused backend without overlap, raise the one
+structured ``NotImplementedError`` of :func:`unsupported_error`.
 
 The list form compiles a two-op sequence (``SEQ_KINDS``; entries are kind
 names or ``(kind, channel)`` pairs, ``channel`` the shared default):
@@ -224,11 +228,11 @@ def compile_overlap(
         raise unsupported_error(kind, backend, overlapped)
 
     if backend == "eager":
+        if not overlapped and kind in _BASELINE_GRADS:
+            return functools.partial(_baseline_call, kind, world, **kw)
         table = {
             ("ag_matmul", True): _eager.ag_matmul,
-            ("ag_matmul", False): _eager.ag_matmul_baseline,
             ("matmul_rs", True): _eager.matmul_rs,
-            ("matmul_rs", False): _eager.matmul_rs_baseline,
             ("ag_attention", True): _eager.ring_attention,
             ("ag_attention", False): _eager.ag_attention_baseline,
             ("ag_moe", True): _moe.ag_moe,
@@ -257,6 +261,61 @@ def _fused_call(fn, grad, world: World, channel: BlockChannel, kw: dict, x, w, o
     else:
         out = fn(x, w, channel=channel, **kw)
     return out if out_dtype is None else out.to(out_dtype)
+
+
+def _baseline_call(kind: str, world: World, x, w, out_dtype=None):
+    """A baseline GEMM collective with the executor's call signature,
+    through its :class:`torch.autograd.Function` (with no operand that
+    requires grad, ``apply`` runs only the forward)."""
+    _eager._check_ranked(x, w, world, kind + "_baseline")
+    return _BASELINE_GRADS[kind].apply(x, w, world, out_dtype or x.dtype)
+
+
+class _AgMatmulBaseline(torch.autograd.Function):
+    """Gather-then-GEMM under autograd.  dx is the transpose's baseline, one
+    GEMM per rank into float32 partials then the reduce-scatter
+    (``matmul_rs_baseline`` of dy and w^T); dw = AG(x)^T dy from the rows
+    the forward gathered."""
+
+    @staticmethod
+    def forward(ctx, x, w, world, out_dtype):
+        gathered = world.all_gather(x, dim=x.dim() - 3)
+        ctx.save_for_backward(gathered, w)
+        ctx.world, ctx.x_dtype = world, x.dtype
+        return _eager._baseline_dot(gathered, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        gathered, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _eager.matmul_rs_baseline(dy, w.transpose(1, 2), world=ctx.world, out_dtype=ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _weight_grad(gathered.to(dy.dtype), dy).to(w.dtype)
+        return dx, dw, None, None
+
+
+class _MatmulRsBaseline(torch.autograd.Function):
+    """GEMM-then-reduce-scatter under autograd.  dx is the transpose's
+    baseline, every rank's dy gathered then one GEMM per rank with w^T;
+    dw = x^T AG(dy) from the same gathered rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, world, out_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.world = world
+        return _eager.matmul_rs_baseline(x, w, world=world, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        gathered = ctx.world.all_gather(dy, dim=dy.dim() - 3)
+        dx = _eager._baseline_dot(gathered, w.transpose(1, 2), x.dtype) if ctx.needs_input_grad[0] else None
+        dw = _weight_grad(x.to(dy.dtype), gathered).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw, None, None
+
+
+_BASELINE_GRADS = {"ag_matmul": _AgMatmulBaseline, "matmul_rs": _MatmulRsBaseline}
 
 
 def _transposed(w):

@@ -13,7 +13,8 @@ routes, chosen by dtype before the launch (never by a fallback):
     not apply.  K and n_loc must be multiples of 8 (16-byte TMA strides).
   * float32: ``ag_gemm_kernel``, the ``csrc/tile_gemm.cuh`` FMA loop on a
     grid (n-tile, channel, rank) with flags per (rank, step, channel); the
-    n tile is ``bn`` / the CompSpec tn.  Products stay exact float32 (on
+    n tile is ``bn`` / the CompSpec tn, widened where the grid would not be
+    resident (:func:`~repro_torch.core.comp_tiles.fma_n_tile`).  Products stay exact float32 (on
     tensor cores they would be TF32).
 
 Both routes count in ``ag_gemm.launches``; ``ag_gemm.last_launch`` says
@@ -41,7 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.channels import BlockChannel
-from repro_torch.core.comp_tiles import largest_divisor
+from repro_torch.backend.hw import probe
+from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.kernels import build
@@ -197,7 +199,8 @@ def ag_gemm(
     route (``build.ROUTES``) or raises: bfloat16 takes the wgmma route (tile
     ``TILE``; K and n_loc multiples of 8, else ValueError), float32 the FMA
     route with n tile ``bn`` (default the CompSpec tn, clamped to a divisor
-    of n_loc).  ``return_gathered``: also return the gathered operand (module
+    of n_loc and widened by
+    :func:`~repro_torch.core.comp_tiles.fma_n_tile`).  ``return_gathered``: also return the gathered operand (module
     docstring).
     """
     _check(x, w)
@@ -230,7 +233,7 @@ def ag_gemm(
         build.check(rc, "ag_gemm")
         ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
     else:
-        bn = largest_divisor(n_loc, bn or channel.comp.tile[1])
+        bn = fma_n_tile(n_loc, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
         n_tiles = n_loc // bn
         flags = torch.zeros((world, world, nch), dtype=torch.int32, device=x.device)  # (rank, step, channel)
         lib = build.library()
@@ -255,3 +258,4 @@ def ag_gemm(
 
 ag_gemm.launches = 0
 ag_gemm.last_launch = None
+

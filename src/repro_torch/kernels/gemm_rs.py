@@ -36,8 +36,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.backend.hw import probe
 from repro_torch.core.channels import BlockChannel
-from repro_torch.core.comp_tiles import largest_divisor
+from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.kernels import build
@@ -186,7 +187,8 @@ def gemm_rs(
     launches the kernel of its dtype's route (``build.ROUTES``) or raises:
     bfloat16 takes the wgmma route (k_loc and N multiples of 8 and N / C
     even, else ValueError), float32 the FMA route with n tile ``bn`` (default the
-    CompSpec tn clamped to a divisor of N / C).
+    CompSpec tn clamped to a divisor of N / C and widened by
+    :func:`~repro_torch.core.comp_tiles.fma_n_tile`).
     """
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -219,7 +221,7 @@ def gemm_rs(
         build.check(rc, "gemm_rs")
         gemm_rs.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
     else:
-        bn = largest_divisor(n_sub, bn or channel.comp.tile[1])
+        bn = fma_n_tile(n_sub, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
         n_tiles = n_sub // bn
         # one flag per (rank, stage, channel, n-tile)
         flags = torch.zeros((world, world, nch, n_tiles), dtype=torch.int32, device=x.device)

@@ -11,7 +11,14 @@ Example (smollm-360m at its published size, W = 4):
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --steps 50 --batch 8 --seq 256 --ckpt-dir /path/to/ckpt
 
-Add ``--device cpu --reduce`` for a small run on the CPU.
+Add ``--device cpu --reduce`` for a small run on the CPU.  ``--mode baseline``
+runs the non-overlapped collectives (gather then GEMM, GEMM then
+reduce-scatter, on tensor cores on the card) with the same flash attention
+and LM head as ``--mode overlap``; ``--layers`` cuts the depth (the
+published widths stay), e.g. gemma3-27b at one 5:1 period on the card:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-27b --layers 6 \\
+      --batch 1 --seq 4096 --steps 10 --mode baseline
 """
 
 from __future__ import annotations
@@ -72,7 +79,8 @@ def train(
     params = lm.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
     opt_state = init_opt_state(lm.trainable(params, cfg))
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
-    step_fn = make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc))
+    # donated: each step updates the state it is given in place (one copy of the weights and moments)
+    step_fn = make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc), donate=True)
 
     pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -125,6 +133,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mode", default="overlap", choices=["overlap", "baseline"])
     ap.add_argument("--reduce", action="store_true", help="the reduced same-family config (CPU runs)")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers (published widths)")
     ap.add_argument("--ckpt-dir")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--no-resume", dest="resume", action="store_false")
@@ -135,7 +144,8 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
     out = train(
-        args.arch, steps=args.steps, batch=args.batch, seq=args.seq, reduce=args.reduce, mode=args.mode,
+        args.arch, steps=args.steps, batch=args.batch, seq=args.seq, reduce=args.reduce, layers=args.layers,
+        mode=args.mode,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr, dtype=args.dtype, world=args.world,
         device=args.device, log_every=args.log_every, resume=args.resume,
     )  # fmt: skip

@@ -83,7 +83,7 @@ __all__ = [
 
 REMAT_POLICIES = ("none", "dots")  # "dots" recomputes each layer in the backward
 # leaves that are one-dimensional in the JAX layout outside the layer scan
-_VECTORS = ("ln", "final_ln", "dt_bias", "a_log", "d_skip")
+_VECTORS = ("ln", "final_ln", "bqkv", "dt_bias", "a_log", "d_skip")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,11 +257,17 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
 
 
 def embed_tokens(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> [B, S, D] (global).  ``F.embedding``, whose backward
-    sums each row's gradients in a fixed order (an indexing backward
-    accumulates in any order on the CPU)."""
+    """tokens [B, S] -> [B, S, D] (global), times sqrt(d_model) in the
+    activation dtype where the config sets ``embed_scale``.  ``F.embedding``, whose backward sums each row's gradients
+    in a fixed order (an indexing backward accumulates in any order on the
+    CPU)."""
     table = params["embed"].reshape(-1, params["embed"].shape[-1])
-    return torch.nn.functional.embedding(tokens, table)
+    x = torch.nn.functional.embedding(tokens, table)
+    if cfg.embed_scale:
+        # the factor rounded to x's dtype on the host (a Python scalar: no
+        # device copy, so a captured decode step may take it)
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype).item()
+    return x
 
 
 def logits(params: dict, cfg, pc: ParallelContext, x: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,14 @@ Decode (``apply_decode``): activations are replicated over the ranks, the
 projections are local per-rank matmuls with a ``psum`` epilogue, and the KV
 cache ``[W, B, kv_loc, S_max, hd]`` is sharded over heads.  The chunk's k/v
 are written into the cache in place, after the attention reads it.
+
+A config with ``qkv_bias`` (Qwen2) adds a per-rank ``bqkv`` [W, (h_loc + 2
+kv_loc) * hd] — the reference's ``bq`` and ``bkv`` shards joined like
+``wqkv``'s columns (each rank's KV part packed [K heads || V heads]) — to
+every qkv projection after its GEMM: after the AG+GEMM in ``apply_seq``, on
+the gathered queries and the local K/V in ``apply_seq_ring``, in decode.
+A projection handed over by an upstream fused seam is pre-bias, so the
+consumer adds it there too.
 """
 
 from __future__ import annotations
@@ -75,14 +83,16 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
         "wq": wq.reshape(d, lay.h_pad * hd).to(dtype),
         "wkv": wkv.reshape(d, lay.kv_store * 2 * hd).to(dtype),
         "wo": wo.reshape(lay.h_pad * hd, d).to(dtype),
-    }
+        **({"bq": torch.zeros((lay.h_pad * hd,), dtype=dtype, device=device),
+            "bkv": torch.zeros((lay.kv_store * 2 * hd,), dtype=dtype, device=device)} if cfg.qkv_bias else {}),
+    }  # fmt: skip
 
 
 def grad_masks(cfg, tp: int, device=None):
     """0/1 float32 masks keeping padded heads at zero on the port's layout
     (``repro/nn/attention.grad_masks``): ``wqkv`` [W, 1, cols] (each rank's
-    q columns, then its kv columns) and ``wo`` [W, h_loc * hd, 1]; None when
-    no head is padded."""
+    q columns, then its kv columns), ``wo`` [W, h_loc * hd, 1] and, with
+    ``qkv_bias``, ``bqkv`` [W, cols]; None when no head is padded."""
     lay = layout(cfg, tp)
     hd = cfg.hd
     if lay.h_pad == cfg.n_heads and lay.kv_pad == cfg.n_kv_heads:
@@ -90,19 +100,35 @@ def grad_masks(cfg, tp: int, device=None):
     qm = (torch.arange(lay.h_pad, device=device) < cfg.n_heads).float().repeat_interleave(hd)
     kvm = (torch.arange(lay.kv_store, device=device) // lay.rep < cfg.n_kv_heads).float().repeat_interleave(2 * hd)
     qm, kvm = qm.view(tp, 1, -1), kvm.view(tp, 1, -1)
-    return {"ln": None, "wqkv": torch.cat([qm, kvm], dim=-1), "wo": qm.transpose(1, 2)}
+    masks = {"ln": None, "wqkv": torch.cat([qm, kvm], dim=-1), "wo": qm.transpose(1, 2)}
+    if cfg.qkv_bias:
+        masks["bqkv"] = masks["wqkv"][:, 0]
+    return masks
 
 
 def sync_grads(grads: dict, cfg, tp: int) -> dict:
     """Average the kv copies' gradients in one attention block's ``wqkv``
-    gradient (:func:`~repro_torch.nn.layers.sync_kv_grad` on its kv
-    columns); the block unchanged when ``rep == 1``."""
+    (and ``bqkv``) gradient (:func:`~repro_torch.nn.layers.sync_kv_grad` on
+    its kv columns); the block unchanged when ``rep == 1``."""
     lay = layout(cfg, tp)
     if lay.rep == 1:
         return grads
     nq = lay.h_loc * cfg.hd
-    g = grads["wqkv"]
-    return {**grads, "wqkv": torch.cat([g[..., :nq], sync_kv_grad(g[..., nq:], lay)], dim=-1)}
+    out = dict(grads)
+    for name in ("wqkv", "bqkv"):
+        if name in grads:
+            g = grads[name]
+            out[name] = torch.cat([g[..., :nq], sync_kv_grad(g[..., nq:], lay)], dim=-1)
+    return out
+
+
+def _add_bias(params: dict, qkv: torch.Tensor, cols: slice = slice(None)) -> torch.Tensor:
+    """``qkv`` [W, ..., n] plus the columns ``cols`` of the per-rank
+    ``bqkv`` [W, n] (unchanged without a bias)."""
+    if "bqkv" not in params:
+        return qkv
+    b = params["bqkv"][:, cols]
+    return qkv + b.reshape((b.shape[0],) + (1,) * (qkv.dim() - 2) + (b.shape[-1],))
 
 
 def _split_qkv(qkv: torch.Tensor, lay: GQALayout, hd: int):
@@ -116,8 +142,9 @@ def _split_qkv(qkv: torch.Tensor, lay: GQALayout, hd: int):
 
 def seam_proj(params: dict, cfg):
     """(glue, w) for fusing an upstream RS into this layer's qkv AG:
-    ``glue`` is the pre-attention rms_norm, ``w`` the fused ``wqkv`` (a bias
-    would stay with the consumer; the ported configs have none)."""
+    ``glue`` is the pre-attention rms_norm, ``w`` the fused ``wqkv``; the
+    bias stays with the consumer (``apply_seq`` adds it to the handed-over
+    projection)."""
     return (lambda y: rms_norm(y, params["ln"], cfg.norm_eps)), params["wqkv"]
 
 
@@ -156,7 +183,7 @@ def apply_seq(
     with ``return_kv`` also the per-rank KV ``[W, B, kv_loc, S, hd]``.
 
     ``qkv``: this layer's gathered projection from an upstream fused seam
-    (skips the norm and the AG here).  ``next_proj=(glue, w)``: fuse the
+    (skips the norm and the AG here; pre-bias, so the bias is added here).  ``next_proj=(glue, w)``: fuse the
     output-projection RS with the next consumer's AG; the return value is
     then ``(y, next_out)`` (``(y, next_out, kv)`` with ``return_kv``).
     ``ep`` must be falsy.
@@ -168,6 +195,7 @@ def apply_seq(
     if qkv is None:
         h = rms_norm(x, params["ln"], cfg.norm_eps)
         qkv = pc.ag_matmul(h, params["wqkv"])  # [W, B, S, (h_loc + 2 kv_loc) * hd]
+    qkv = _add_bias(params, qkv)
     s_glob = qkv.shape[2]
     q, k, v = _split_qkv(qkv, lay, hd)
     positions = torch.arange(s_glob, device=x.device)
@@ -235,9 +263,11 @@ def apply_seq_ring(
     h = rms_norm(x, params["ln"], cfg.norm_eps)
     nq = lay.h_loc * hd
     q = pc.ag_matmul(h, params["wqkv"][..., :nq].contiguous())  # [W, B, S, h_loc * hd] gathered
+    q = _add_bias(params, q, slice(None, nq))
     wkv = params["wqkv"][..., nq:]  # [W, D, 2 kv_loc hd]: per rank [K heads || V heads]
     if lay.kv_pad == 1:
-        kv = torch.matmul(h, wkv[:, None]).reshape(world, b, s_loc, 2 * lay.kv_loc, hd)
+        kv = _add_bias(params, torch.matmul(h, wkv[:, None]), slice(nq, None))
+        kv = kv.reshape(world, b, s_loc, 2 * lay.kv_loc, hd)
         k, v = kv[..., : lay.kv_loc, :], kv[..., lay.kv_loc :, :]
     else:
         # rank-major gather of the kv columns: reshape, split K / V, then the
@@ -247,6 +277,11 @@ def apply_seq_ring(
         wv = wkv[:, :, :, 1].reshape(world, d, lay.kv_store, hd)[:, :, :: lay.rep]
         k = torch.einsum("wbsd,wdhe->wbshe", h, wk)  # [W, B, s_loc, kv_pad, hd]
         v = torch.einsum("wbsd,wdhe->wbshe", h, wv)
+        if "bqkv" in params:  # the kv bias gathered and de-duplicated the same way
+            bkv = pc.all_gather_seq(params["bqkv"][:, nq:], 0).reshape(world, pc.tp, 2, lay.kv_loc, hd)
+            bk = bkv[:, :, 0].reshape(world, lay.kv_store, hd)[:, :: lay.rep]
+            bv = bkv[:, :, 1].reshape(world, lay.kv_store, hd)[:, :: lay.rep]
+            k, v = k + bk[:, None, None], v + bv[:, None, None]
     s_glob = q.shape[2]
     q = q.reshape(world, b, s_glob, lay.h_loc, hd)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
@@ -296,7 +331,7 @@ def apply_decode(
     lens = torch.as_tensor(cache_len, dtype=torch.int64, device=dev).expand(b)
     nv = None if q_valid is None else torch.as_tensor(q_valid, dtype=torch.int64, device=dev).expand(b)
     h = rms_norm(x, params["ln"], cfg.norm_eps)
-    qkv = torch.einsum("bsd,wdn->wbsn", h, params["wqkv"])
+    qkv = _add_bias(params, torch.einsum("bsd,wdn->wbsn", h, params["wqkv"]))
     q, k, v = _split_qkv(qkv, lay, hd)  # [W, B, C, n, hd]
 
     qi = torch.arange(c, device=dev)

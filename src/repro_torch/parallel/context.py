@@ -5,7 +5,14 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
 ``BlockChannel`` design point and the backend:
 
   mode="overlap"   TileLink tile plans (compile_overlap -> plan -> executor)
-  mode="baseline"  gather-then-GEMM / GEMM-then-reduce-scatter (eager only)
+  mode="baseline"  the non-overlapped baselines on either backend: every
+                   collective op compiles on "eager" with
+                   ``overlapped=False`` (gather then one GEMM per rank, one
+                   GEMM then the reduce-scatter, on tensor cores on the
+                   card; the all-gathered KV then flash attention; the MoE
+                   baselines), while attention and the LM head keep the
+                   backend's kernels — so on the card only the overlap
+                   differs between the two modes, as in the JAX package
 
   backend="fused"  the hand-written Hopper kernels: AG+GEMM, GEMM+RS, flash
                    attention (also on each KV tile of the ring), the
@@ -15,6 +22,7 @@ The port's counterpart of ``repro/parallel/context.py``.  It carries the
                    ``backend="xla"``; the port runs its kernels on the card)
   backend="eager"  the eager executor and the plain attention — the
                    default on the CPU, and the reference on the card
+                   (the default on a CUDA device is "fused" in both modes)
 
 ``moe_decode_stream`` picks the MoE decode form (``nn/moe.apply_decode``):
 each local expert's weights streamed once over every token with a masked
@@ -63,12 +71,9 @@ class ParallelContext:
         if self.channel is None:
             object.__setattr__(self, "channel", BlockChannel(axis="model"))
         if self.backend is None:
-            fused = self.world.device.type == "cuda" and self.mode == "overlap"
-            object.__setattr__(self, "backend", "fused" if fused else "eager")
+            object.__setattr__(self, "backend", "fused" if self.world.device.type == "cuda" else "eager")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
-        if self.backend == "fused" and self.mode != "overlap":
-            raise ValueError("backend='fused' runs the overlapped kernels; mode='baseline' needs backend='eager'")
         if self.ep_axis is not None and self.ep_axis != self.channel.axis:
             raise ValueError(f"ep_axis {self.ep_axis!r} is not the world's axis {self.channel.axis!r}")
 
@@ -86,10 +91,13 @@ class ParallelContext:
         return self.backend == "fused"
 
     # ---- per-rank collective ops ----------------------------------------
-    def _op(self, kind: str) -> Callable:
-        return compile_overlap(
-            kind, self.channel, world=self.world, backend=self.backend, overlapped=(self.mode == "overlap")
-        )
+    def _op(self, kind, backend: Optional[str] = None) -> Callable:
+        """``kind`` (a kind or the list form) compiled for this context: on
+        ``backend`` (default the context's) when overlapped, the eager
+        baselines otherwise."""
+        overlapped = self.mode == "overlap"
+        backend = (backend or self.backend) if overlapped else "eager"
+        return compile_overlap(kind, self.channel, world=self.world, backend=backend, overlapped=overlapped)
 
     def ag_matmul(self, x, w, **kw):
         """[W, *lead, m_loc, K] x [W, K, n_loc] -> [W, *lead, W*m_loc, n_loc]."""
@@ -104,11 +112,7 @@ class ParallelContext:
         over one shared ring pass; returns ``(y, out)`` with ``y`` the
         residual stream (before ``glue``).  Compiled on "eager" whatever
         ``backend`` is; an incompatible seam warns once and runs unfused."""
-        fn = compile_overlap(
-            ["matmul_rs", "ag_matmul"], self.channel, world=self.world, backend="eager",
-            overlapped=(self.mode == "overlap"),
-        )  # fmt: skip
-        return fn(x, w1, w2, residual=residual, glue=glue, **kw)
+        return self._op(["matmul_rs", "ag_matmul"], backend="eager")(x, w1, w2, residual=residual, glue=glue, **kw)
 
     def ring_attention(self, q, k, v, **kw):
         """Sequence-parallel AG-KV + attention: q [W, B, H, s_loc or W*s_loc,
@@ -128,11 +132,7 @@ class ParallelContext:
                 "a2a_moe requires ParallelContext(ep_axis=...); expert parallelism is opt-in "
                 "(use ag_moe for the TP MoE path)"
             )
-        fn = compile_overlap(
-            ["a2a_dispatch", "combine_rs"], self.channel, world=self.world, backend=self.backend,
-            overlapped=(self.mode == "overlap"),
-        )  # fmt: skip
-        return fn(x, ids, wts, w_gu, w_down, **kw)
+        return self._op(["a2a_dispatch", "combine_rs"])(x, ids, wts, w_gu, w_down, **kw)
 
     def psum(self, x):
         return self.world.psum(x)

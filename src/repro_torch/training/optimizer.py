@@ -3,9 +3,13 @@ the port of ``repro/training/optimizer.py`` over the port's parameter trees
 (nested dicts and lists of tensors).
 
 Moments are float32; each parameter is updated in float32 and stored back
-in its own dtype, as the reference does.  The reference decays a leaf iff it
-has two or more dims in its own layout (every scanned layer's leaves carry a
-layer axis there); the port's rank-stacked leaves have other ranks, so
+in its own dtype, as the reference does.  ``donate=True`` (the reference's
+``make_train_step(donate=)``: JAX reuses the buffers of the state it was
+given) updates the moments and the parameters in place, so a step holds
+one copy of each, not two; the values are the same either way.  The
+reference decays a leaf iff it has two or more dims in its own layout
+(every scanned layer's leaves carry a layer axis there); the port's
+rank-stacked leaves have other ranks, so
 :func:`apply_update` takes an explicit per-leaf ``decay`` tree
 (``models/lm.decay_mask``).  Scalars (the step, the schedule's factors) are
 float32 CPU tensors, which CUDA ops take without a host sync.
@@ -94,12 +98,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)))
 
 
-def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optional[Any], decay):
+def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optional[Any], decay, donate: bool = False):
     """One AdamW step.  Returns (params, state, metrics {grad_norm, lr}).
 
     ``grad_masks``: a prefix tree of 0/1 masks (None: no mask) multiplied
     into the gradients before the norm.  ``decay``: a prefix tree of bools,
-    which leaves take weight decay."""
+    which leaves take weight decay.  ``donate``: update ``params`` and the
+    moments of ``state`` in place (the returned trees hold them)."""
     if grad_masks is not None:
         grads = _prefix_map(lambda g, m: g if m is None else g * m.to(g.dtype), grads, grad_masks)
     gnorm = global_norm(grads)
@@ -110,13 +115,24 @@ def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optio
     b2c = 1 - cfg.b2 ** step.to(torch.float32)
 
     def upd(p, g, mu, nu, dec):
-        g32 = g.float() * clip
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g32
-        nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g32)
-        delta = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
+        # in place on fresh float32 buffers, at most two a leaf besides the
+        # moments: the same elementwise operations, in the same order, as
+        # mu' = b1 mu + (1 - b1) g, nu' = b2 nu + (1 - b2) g^2,
+        # p' = p - lr ((mu' / b1c) / (sqrt(nu' / b2c) + eps) [+ wd p])
+        if not donate:
+            mu, nu = mu.clone(), nu.clone()
+        g32 = g.to(torch.float32, copy=True).mul_(clip)
+        mu.mul_(cfg.b1).add_(g32 * (1 - cfg.b1))
+        nu.mul_(cfg.b2).add_(g32.square_().mul_(1 - cfg.b2))
+        den = torch.div(nu, b2c, out=g32).sqrt_().add_(cfg.eps)
+        delta = torch.div(mu, b1c).div_(den)
+        del den, g32
         if dec:  # decoupled weight decay
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), mu, nu
+            delta.add_(p.to(torch.float32, copy=True).mul_(cfg.weight_decay))
+        new = p.to(torch.float32, copy=True).sub_(delta.mul_(lr)).to(p.dtype)
+        if donate:
+            return p.copy_(new), mu, nu
+        return new, mu, nu
 
     flat = zip(*(tree_leaves(t) for t in (params, grads, state["mu"], state["nu"])))
     dec = tree_leaves(_prefix_map(lambda _, d: d, params, decay))

@@ -21,12 +21,39 @@ from repro_torch.training.optimizer import AdamWConfig, apply_update, tree_leave
 __all__ = ["softmax_xent", "loss_and_grads", "make_train_step", "make_eval_step"]
 
 
+XENT_ROWS = 1024  # rows of one float32 block of the cross-entropy (its only float32 copy of the logits)
+
+
+class _Nll(torch.autograd.Function):
+    """Per-row negative log-likelihood of logits [N, V] (any dtype) at labels
+    [N]: lse - logit[label] in float32, as ``logsumexp`` over
+    ``logits.float()`` less the gathered logit, but formed over blocks of
+    ``XENT_ROWS`` rows: it saves the logits in their own dtype and each
+    row's log-sum-exp, not a float32 copy of all of them (4.3 GB at 4096 x
+    262144).  The backward is autograd's, block by block: g exp(x - lse),
+    then -g added at the label, cast to the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = torch.cat([torch.logsumexp(blk.float(), dim=-1) for blk in logits.split(XENT_ROWS)])
+        ctx.save_for_backward(logits, labels, lse)
+        return lse - torch.gather(logits, -1, labels[:, None])[:, 0].float()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, lse = ctx.saved_tensors
+        grad = torch.empty_like(logits)
+        for r0 in range(0, logits.shape[0], XENT_ROWS):
+            rows = slice(r0, r0 + XENT_ROWS)
+            p = g[rows, None] * torch.exp(logits[rows].float() - lse[rows, None])
+            grad[rows] = p.scatter_add_(-1, labels[rows, None], -g[rows, None]).to(grad.dtype)
+        return grad, None
+
+
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
-    """Mean cross-entropy. logits [B, S, V] (any dtype), labels [B, S] integer."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    """Mean cross-entropy. logits [B, S, V] (any dtype), labels [B, S] integer;
+    float32 math over row blocks (:class:`_Nll`)."""
+    nll = _Nll.apply(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()).reshape(labels.shape)
     if mask is not None:
         m = mask.float()
         return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
@@ -62,13 +89,18 @@ def make_train_step(
     grad_masks=None,
     aux_weight: float = 0.01,
     sync_kv: bool = True,
+    donate: bool = False,
 ) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``opt_state`` is over ``model.trainable(params, cfg)``
     (``init_opt_state`` of it).  batch: {"inputs": [B, S], "labels": [B, S],
     optional "mask"} (numpy or tensors).  Metrics: loss, ce, aux, grad_norm,
-    lr (tensors).  Raises for a model whose training path is not ported
-    (``model.check_trainable``), and if a parameter gets no gradient."""
+    lr (tensors).  ``donate`` (the reference's keyword; there ``True``):
+    the step updates ``params`` and ``opt_state`` in place, so the caller
+    must not use them after it (one copy of the parameters and moments in
+    memory instead of two).  Raises for a model whose training path is not
+    ported (``model.check_trainable``), and if a parameter gets no
+    gradient."""
     model.check_trainable(cfg, pc)
 
     def train_step(params, opt_state, batch):
@@ -79,7 +111,7 @@ def make_train_step(
         if sync_kv:
             grads = model.sync_grads(grads, cfg, pc)
         new, new_opt, om = apply_update(
-            tree, grads, opt_state, opt_cfg, grad_masks=grad_masks, decay=model.decay_mask(tree, cfg)
+            tree, grads, opt_state, opt_cfg, grad_masks=grad_masks, decay=model.decay_mask(tree, cfg), donate=donate
         )
         metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
         return model.with_tied(new, cfg), new_opt, metrics

@@ -37,7 +37,7 @@ from repro_torch.training.optimizer import tree_leaves, tree_map
 from utils import reduce_config as j_reduce_config
 
 TP = 4
-ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b")
+ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b", "qwen2-72b", "gemma3-27b")
 
 
 def _cfg(n_layers=2, vocab=128):
@@ -145,15 +145,30 @@ def test_restore_onto_another_world_size(tmp_path):
     [K || V] and [gate || up] columns re-packed for W = 2), equal logits.
     The global layout itself would not do: those columns mean other heads
     and units at W = 2."""
-    cfg = _cfg()
+    _restore_w4_at_w2(tmp_path, _cfg())
+
+
+def test_restore_onto_another_world_size_qwen2_bias(tmp_path):
+    """As above for reduced qwen2-72b, whose QKV bias (seeded non-zero) is
+    packed per rank like ``wqkv``: its [K || V] halves round-trip too."""
+    cfg = dataclasses.replace(reduce_config(get_config("qwen2-72b")), n_layers=2, vocab_size=128)
+    _restore_w4_at_w2(tmp_path, cfg)
+
+
+def _restore_w4_at_w2(tmp_path, cfg):
     w4, w2 = World(4, "cpu"), World(2, "cpu")
     params, opt = _state(cfg, w4)
+    gen = torch.Generator().manual_seed(9)
+    for layer in params["layers"]:  # a zero bias would round-trip whatever the packing
+        if "bqkv" in layer["mixer"]:
+            layer["mixer"]["bqkv"] = torch.randn(layer["mixer"]["bqkv"].shape, generator=gen)
     mgr = CheckpointManager(str(tmp_path), async_save=False)
     mgr.save(1, params, opt, cfg=cfg, world=w4)
     like, like_opt = _state(cfg, w2, seed=1)
     restored, _ = mgr.restore(1, {"params": like, "opt": like_opt}, cfg=cfg, world=w2)
-    glob = unshard_params(restored["params"], cfg, w2)
-    assert not torch.equal(glob["layers"][0]["mixer"]["wkv"], unshard_params(params, cfg, w4)["layers"][0]["mixer"]["wkv"])
+    glob, glob4 = unshard_params(restored["params"], cfg, w2), unshard_params(params, cfg, w4)
+    for name in ("wkv", "bkv") if cfg.qkv_bias else ("wkv",):
+        assert not torch.equal(glob["layers"][0]["mixer"][name], glob4["layers"][0]["mixer"][name])
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 16)))
     lg4, _ = lm.forward(params, cfg, ParallelContext(world=w4, backend="eager"), toks)
     lg2, _ = lm.forward(restored["params"], cfg, ParallelContext(world=w2, backend="eager"), toks)

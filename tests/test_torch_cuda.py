@@ -948,3 +948,99 @@ def test_remat_dots_equals_none_on_card(dev):
     assert out["dots_counts"]["ag_gemm"] == 6 * cfg.n_layers  # the recomputed forward's two AG+GEMMs a layer
     assert torch.equal(out["none"][0], out["dots"][0])
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(out["none"][3]), tree_leaves(out["dots"][3])))
+
+
+# --- the dense configs of the e2e figure: new shapes of kernels #2-#4, and the baseline mode's gradients ---
+
+# W = 4 per-rank widths at the published sizes, 1 x 512 tokens: qwen2-72b's gate|up AG+GEMM
+# [4, 1, 128, 8192] x [4, 8192, 14784], gemma3-27b's down GEMM+RS [4, 1, 512, 5376] x [4, 5376, 5376]
+E2E_SHAPES = {
+    "qwen2_gate_up": ("ag_gemm", (4, 1, 128, 8192), (4, 8192, 14784)),
+    "gemma3_down": ("gemm_rs", (4, 1, 512, 5376), (4, 5376, 5376)),
+}
+
+
+@pytest.mark.parametrize("tag", sorted(E2E_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_at_the_e2e_shapes(dev, tag, dtype):
+    name, xs, ws = E2E_SHAPES[tag]
+    fan_in = ws[1] * (4 if name == "gemm_rs" else 1)  # GEMM+RS sums over the 4 ranks too
+    x, w = _rand(dev, dtype, *xs), _rand(dev, dtype, *ws, scale=fan_in**-0.5, seed=1)
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    _close(kernel(x, w), plain(x.float(), w.float()), dtype)
+    assert getattr(K, name).last_launch["route"] == ("wgmma" if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_windowed_d128_at_4096(dev, dtype):
+    """gemma3-27b's local layer at W = 4, 1 x 4096 tokens: q [32, 4096, 128],
+    kv [16, 4096, 128], causal, window 1024; the KV tiles outside the window
+    are skipped (items), the output against the plain version."""
+    q = _rand(dev, dtype, 32, 4096, 128)
+    k, v = _rand(dev, dtype, 16, 4096, 128, seed=1), _rand(dev, dtype, 16, 4096, 128, seed=2)
+    K.flash_attention(q, k, v, causal=True)
+    items_full = K.flash_attention.last_launch["items"]
+    out = K.flash_attention(q, k, v, causal=True, window=1024)
+    _close(out, K.flash_attention_plain(q.float(), k.float(), v.float(), causal=True, window=1024), dtype)
+    full = sum(fa_mod.kv_tiles(q0, 4096, 4096, True, None)[1] for q0 in range(0, 4096, fa_mod.TILE))
+    win = sum(fa_mod.kv_tiles(q0, 4096, 4096, True, 1024)[1] for q0 in range(0, 4096, fa_mod.TILE))
+    assert win < full / 2 and K.flash_attention.last_launch["items"] * full == items_full * win
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_baseline_mode_grads_on_card(dev, dtype):
+    """ParallelContext(mode="baseline") on the fused backend: the baselines'
+    autograd Functions (a bf16 GEMM is torch.bmm with out_dtype=float32,
+    which has no derivative) against float32 autograd through the eager
+    executor, at qwen2-72b's qkv (AG) and o-proj (RS) per-rank widths;
+    no fused collective launches."""
+    world = World(4, dev)
+    pc = ParallelContext(world=world, mode="baseline")
+    assert pc.fused
+    for kind, xs, ws in (
+        ("ag_matmul", (4, 1, 64, 8192), (4, 8192, 2560)),
+        ("matmul_rs", (4, 1, 256, 2048), (4, 2048, 8192)),
+    ):
+        x, w = _rand(dev, dtype, *xs), _rand(dev, dtype, *ws, scale=ws[1] ** -0.5, seed=1)
+        y = getattr(pc, kind)(x, w)
+        dy = _rand(dev, dtype, *y.shape, seed=2)
+        K.reset_launch_counts()
+        with fp32_reductions():
+            got = _fn_grads(getattr(pc, kind), x, w, dy)
+        assert not any(K.launch_counts().values())
+        eager = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="eager")
+        ref = _fn_grads(eager, x.float(), w.float(), dy.float())
+        for a, b in zip(got, ref):
+            assert a.dtype == dtype and a.shape == b.shape
+            _close(a, b, dtype)
+
+
+def test_baseline_train_step_on_card_matches_overlap(dev):
+    """Reduced qwen2-72b (its QKV bias non-zero) and gemma3-27b (window 16),
+    2 layers each, bf16, W = 4: one forward and backward in the baseline mode launches
+    flash attention and the head but no fused collective, and its loss and
+    gradients agree with the overlap mode's (2e-2 of each leaf's max)."""
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    for arch in ("qwen2-72b", "gemma3-27b"):
+        cfg = dataclasses.replace(reduce_config(get_config(arch)), local_window=16, n_layers=2)
+        world = World(4, dev)
+        params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+        for layer in params["layers"] if cfg.qkv_bias else []:
+            layer["mixer"]["bqkv"] = _rand(dev, torch.bfloat16, *layer["mixer"]["bqkv"].shape, scale=0.5)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device=dev)
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {}
+        for mode in ("baseline", "overlap"):
+            K.reset_launch_counts()
+            with fp32_reductions():
+                out[mode] = loss_and_grads(lm, cfg, ParallelContext(world=world, mode=mode), params, batch)
+            counts = K.launch_counts()
+            n = cfg.n_layers if mode == "overlap" else 0
+            assert (counts["ag_gemm"], counts["gemm_rs"], counts["flash_attention"], counts["matmul"]) == (
+                4 * n, 4 * n, cfg.n_layers, 1)
+        torch.testing.assert_close(out["baseline"][0], out["overlap"][0], atol=2e-2, rtol=2e-2)
+        for a, b in zip(tree_leaves(out["baseline"][3]), tree_leaves(out["overlap"][3])):
+            _close(a, b, torch.bfloat16)

@@ -36,6 +36,7 @@ from repro.parallel.sharding import place
 from repro_torch import kernels
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs.base import PORT_FIELDS
 from repro_torch.convert import F32_LEAVES, from_jax_params, shard_mamba
 from repro_torch.kernels import mamba_ssd
 from repro_torch.launch import serve
@@ -369,12 +370,18 @@ def _plain(v):
     return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
 
 
+def _reference_fields(cfg):
+    """The config's fields that the JAX package's config also has."""
+    return [f for f in dataclasses.fields(cfg) if f.name not in PORT_FIELDS]
+
+
 def test_config_matches_reference():
     jc, tc = j_get_config(ARCH), get_config(ARCH)
-    for f in dataclasses.fields(tc):
+    for f in _reference_fields(tc):
         assert _plain(getattr(tc, f.name)) == _plain(getattr(jc, f.name)), f.name
+    assert tc.embed_scale == (jc.family == "vlm" or jc.name.startswith("gemma"))
     jr, tr = j_reduce_config(jc), reduce_config(tc)
-    for f in dataclasses.fields(tr):
+    for f in _reference_fields(tr):
         assert _plain(getattr(tr, f.name)) == _plain(getattr(jr, f.name)), f.name
     assert (tr.d_model, tr.n_layers, tr.ssm.d_state, tr.ssm.headdim, tr.ssm.chunk) == (128, 2, 16, 16, 16)
     assert [ld.kind for ld in lm.layer_plan(tc)] == ["mamba"] * 64

@@ -15,6 +15,7 @@ from repro.parallel.sharding import place
 from repro_torch.backend import World, resolve_device
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import from_jax_params
+from repro_torch.core.compiler import compile_overlap
 from repro_torch.launch import serve
 from repro_torch.parallel.context import ParallelContext
 from utils import reduce_config as j_reduce_config
@@ -89,8 +90,17 @@ def test_context_backend_policy():
     world = World(4, "cpu")
     assert ParallelContext(world=world).backend == "eager"
     assert ParallelContext(world=world, backend="fused").fused
-    with pytest.raises(ValueError):
-        ParallelContext(world=world, backend="fused", mode="baseline")
+    # mode="baseline" on the fused backend: attention and the head keep the kernels (pc.fused), every
+    # collective op compiles on "eager" without overlap (compile_overlap itself still refuses fused)
+    pc = ParallelContext(world=world, backend="fused", mode="baseline")
+    assert pc.fused and ParallelContext(world=world, mode="baseline").backend == "eager"
+    with pytest.raises(NotImplementedError):
+        compile_overlap("ag_matmul", pc.channel, world=world, backend="fused", overlapped=False)
+    gen = torch.Generator().manual_seed(0)
+    x, w = torch.randn(4, 2, 8, 16, generator=gen), torch.randn(4, 16, 24, generator=gen)
+    for kind, args in (("ag_matmul", (x, w)), ("matmul_rs", (x, w[..., :12]))):
+        base = compile_overlap(kind, pc.channel, world=world, backend="eager", overlapped=False)
+        assert torch.equal(getattr(pc, kind)(*args), base(*args))
     with pytest.raises(ValueError):
         ParallelContext(world=world, backend="pallas")
     with pytest.raises(ValueError):
