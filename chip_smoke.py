@@ -124,20 +124,43 @@ non-zero (no phase catches its own failure):
               checkpoint at step TRAIN_CKPT_AT at TRAIN_CKPT_LAYERS layers,
               resumed: the next step's loss and the parameters after it
               bitwise the uninterrupted run's.
-  12. e2e     the paper's end-to-end figure (Fig. 11,
+  12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
+              published widths, W = 4, 8 x 256 tokens a step (the grouped
+              expert GEMM in the forward and, on the transposed weights, for
+              dx): (a) one MoE layer of each (deepseek's with its shared
+              experts) in float32 on the TP double ring and on the EP a2a
+              pair, the fused backend's dx and every leaf's gradient (router,
+              w_gu, w_down, norm, shared MLP) against the eager backend's to
+              GRAD_RTOL of the leaf's max|eager|, the routing bitwise equal,
+              4 x W grouped launches; (b) one float32 step of granite at
+              TRAIN_MOE_F32_LAYERS = 4 layers, fused against eager: the loss
+              the logits' bound, every router call's expert sets recorded,
+              at most TRAIN_MOE_MAX_FLIPS tokens a layer routed apart, the
+              gradients held to GRAD_RTOL when no call differs (else the
+              flips and the worst error printed); (c) TRAIN_STEPS bf16 steps
+              of granite at its 32 layers through ``train``: the ce fall,
+              every step's launches held exactly (512 grouped, 64 AG+GEMM, 64
+              GEMM+RS, 32 flash, 1 head), the median step ms, tokens/s, peak
+              memory, and the resume bitwise at 2 layers as in (11c); deepseek
+              TRAIN_MOE_DS_STEPS bf16 steps at its Fig. 11 depth, launches
+              held.
+  13. e2e     the paper's end-to-end figure (Fig. 11,
               ``benchmarks/paper_e2e.py``) and the three dense configs
               qwen2-72b (QKV bias), starcoder2-7b (GELU, 36 / 4 heads) and
               gemma3-27b (5:1 local / global attention, tied embeddings
               scaled by sqrt(d_model)) at their published widths, W = 4:
-              (a) per dense family (smollm-360m at 32 layers, qwen2-72b 2,
-              starcoder2-7b 8, gemma3-27b 6), one bf16 AdamW train step of
+              (a) per row (smollm-360m at 32 layers, qwen2-72b 2,
+              starcoder2-7b 8, gemma3-27b 6, granite-moe-3b-a800m 32,
+              deepseek-moe-16b 9), one bf16 AdamW train step of
               1 x 4096 tokens in ``mode="baseline"`` (gather then GEMM, GEMM
               then reduce-scatter, on tensor cores) and in ``mode="overlap"``
               (the fused kernels in both passes), 3 warm-up steps each then
               5 pairs in turns: each mode's median step ms, the speedup,
               tokens/s, peak memory (held below the card's); (b) every step's
-              launches held exactly (overlap: 1 LM head, 4L AG+GEMM, 4L
-              GEMM+RS, L flash; baseline: 1, 0, 0, L); (c) both modes'
+              launches held exactly (``paper_e2e.expected_launches``: a dense
+              row's overlap 1 LM head, 4L AG+GEMM, 4L GEMM+RS, L flash; a
+              MoE layer's 4 x W grouped GEMMs and its attention's 2 + 2;
+              baseline: 1, 0, 0, L, no grouped); (c) both modes'
               first-step loss on the same weights, the logits' bound; (d) in
               float32 at E2E_F32_LAYERS = 2 layers and 1 x 2048 tokens, one
               step fused against eager for qwen2-72b (its bias seeded
@@ -147,8 +170,9 @@ non-zero (no phase catches its own failure):
               ``serve.greedy``, 4 x 2048 prompt tokens past its 1024 window
               + 16 greedy: the local layers' ring caches wrap, launches held
               exactly, two runs' tokens equal; with ``--profile`` one train
-              step of gemma3-27b in each mode, device time by kernel.
-  13. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+              step of gemma3-27b and of granite-moe-3b-a800m in each mode,
+              device time by kernel.
+  14. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -162,7 +186,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  14. kernels every kernel against its plain PyTorch version at the shapes
+  15. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -209,9 +233,21 @@ non-zero (no phase catches its own failure):
               head), with the same train-path checks as smollm's at those
               shapes (flash attention's o and lse and its Function at every
               window, the gathered operand, the AG+GEMM / GEMM+RS
-              Functions).  It runs after the serve phases: the profiler
+              Functions); the same for granite-moe-3b-a800m and
+              deepseek-moe-16b at the train_moe phase's 8 x 256 and at
+              Fig. 11's 1 x 4096 tokens (their attention, qkv and o-proj,
+              deepseek's dense first layer and shared experts; the backward
+              transposes; at 1 x 4096 the forward kernels and the LM head
+              too); and kernel #5 at the MoE backward shapes (dx:
+              dy times w^T on the forward's table, granite's 40 groups of
+              192 / 264 rows and deepseek's 64 of 64 / 128, gate|up and
+              down), float32 checked, bf16 bitwise over 20 launches and
+              timed against ``torch.bmm`` (with the w^T copy the backward
+              makes once a layer), and the grouped GEMM's and the
+              tensor-core expert GEMM's autograd Functions against float32
+              autograd there.  It runs after the serve phases: the profiler
               leaves host overhead behind.
-  15. summary the launch counts of every path, the script's wall time,
+  16. summary the launch counts of every path, the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -219,10 +255,12 @@ Cuts: deepseek-moe-16b's float32 checks (deepseek and ep phases) run 4 of
 its 28 layers; the train phase's resume check (c) runs 2 of smollm-360m's
 32 layers at full width (two runs' checkpoints at full depth would write
 ~4 GB); the e2e phase runs qwen2-72b at 2 of 80 layers, starcoder2-7b at 8
-of 32 and gemma3-27b at 6 of 62 (a bf16 weight, its gradient and two
-float32 moments take 12 bytes a parameter: one 80 GB card holds no more),
-its float32 step at 2 layers, at the published widths, and cuts the
-train_4k shape's batch of 256 to 1.  Every other path runs at full depth
+of 32, gemma3-27b at 6 of 62 and deepseek-moe-16b at 9 of 28 (a bf16
+weight, its gradient and two float32 moments take 12 bytes a parameter:
+one 80 GB card holds no more), its float32 step at 2 layers, at the
+published widths, and cuts the train_4k shape's batch of 256 to 1; the
+train_moe phase's float32 step runs 4 of granite's 32 layers, its resume
+check 2.  Every other path runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -287,6 +325,12 @@ UPDATE_RTOL = 1e-2
 # fused-vs-eager step (2 layers: float32 weights and two gradient trees of qwen2-72b take ~51 GB; 2048
 # tokens keep gemma3's 1024 window below the sequence), (e) gemma3's greedy at its e2e depth
 E2E_F32_ARCHS, E2E_F32_LAYERS, E2E_F32_SEQ = ("qwen2-72b", "gemma3-27b"), 2, 2048
+# the train_moe phase: (b) granite's depth in the float32 whole-step check; deepseek's bf16 steps at its
+# Fig. 11 depth (``paper_e2e.DEPTH``)
+TRAIN_MOE_F32_LAYERS, TRAIN_MOE_DS_STEPS = 4, 3
+# (b): the routing flips (tokens whose expert set differs, fused vs eager) a float32 MoE layer may show:
+# only near-ties of the router's top-k flip at float32 rounding; more means the paths diverged
+TRAIN_MOE_MAX_FLIPS = 8
 ARCH_G = "gemma3-27b"
 E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
@@ -309,7 +353,9 @@ BF16_KERNELS = {
 SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKCP
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # the numbers of a kernel case the JSON line carries for each backward shape
-TIMES = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms")
+# (kernel #5's dx shapes also carry the w^T copy they launch on, ``wt_copy_ms``)
+TIMES = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+         "library_device_ms", "wt_copy_ms")  # fmt: skip
 SOURCES = {
     "matmul": "src/repro_torch/kernels/csrc/matmul.cu",
     "ag_gemm": "src/repro_torch/kernels/csrc/ag_gemm.cu",
@@ -501,6 +547,15 @@ def path_shapes(arch: str) -> dict:
     return shp
 
 
+def _mlps(shp: dict) -> list:
+    """(tag infix, gate|up width, down width) per rank of each dense MLP an
+    arch runs through the fused kernels: a dense model's MLP, deepseek's
+    dense first layer ("") and shared experts ("shared_"); none for
+    granite (every FFN routed)."""
+    out = [("", shp["n_gu"], shp["f_loc"])] if "n_gu" in shp else []
+    return out + ([("shared_", shp["n_sgu"], shp["sf_loc"])] if "n_sgu" in shp else [])
+
+
 def ssm_shapes() -> dict:
     """The kernels' shapes on mamba2-2.7b's serve path (W ranks, B x S tokens)."""
     from repro_torch.configs import get_config
@@ -679,10 +734,11 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
 
 
-def _e2e_kernels(rnd, iters: int) -> dict:
-    """Kernels #1-#4 at the e2e phase's shapes of the three new dense
-    configs (W = 4, 1 x 4096 tokens, bf16): the forward's qkv and gate/up
-    AG+GEMM and o / down GEMM+RS, flash attention at D 128 (causal; gemma3's
+def _e2e_kernels(rnd, iters: int, archs) -> dict:
+    """Kernels #1-#4 at the e2e phase's shapes of ``archs`` (W = 4, 1 x 4096
+    tokens, bf16): the forward's qkv and gate/up AG+GEMM and o / down
+    GEMM+RS (every dense MLP of :func:`_mlps`: none for granite, deepseek's
+    dense first layer and shared experts), flash attention (causal; gemma3's
     local layers also windowed at 1024), the LM head [4096, d] x [d, vocab],
     and the backward's transposes (:func:`_train_backward_kernels`); each
     timed against its plain version and library call, flash attention, the
@@ -698,10 +754,10 @@ def _e2e_kernels(rnd, iters: int) -> dict:
     W, B, S, dt = WORLD, paper_e2e.BATCH, paper_e2e.SEQ, torch.bfloat16
     s_loc, isz = S // W, 2
     recs = {}
-    for arch in E2E_ARCHS:
+    for arch in archs:
         shp = path_shapes(arch)
         d, hd = shp["d"], shp["hd"]
-        for tag, n in (("e2e_qkv", shp["n_qkv"]), ("e2e_gate_up", shp["n_gu"])):
+        for tag, n in (("e2e_qkv", shp["n_qkv"]), *((f"e2e_{m}gate_up", gu) for m, gu, _ in _mlps(shp))):
             x, w = rnd(W, B, s_loc, d, dtype=dt), rnd(W, d, n, dtype=dt) * d**-0.5
             xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
             recs[("ag_gemm", arch, tag, dt)] = _case(
@@ -710,7 +766,7 @@ def _e2e_kernels(rnd, iters: int) -> dict:
                 2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), iters, False,
                 lambda: K.ag_gemm.last_launch, plain_once=True,
             )  # fmt: skip
-        for tag, k in (("e2e_o_proj", shp["n_o"]), ("e2e_down", shp["f_loc"])):
+        for tag, k in (("e2e_o_proj", shp["n_o"]), *((f"e2e_{m}down", f) for m, _, f in _mlps(shp))):
             x, w = rnd(W, B, S, k, dtype=dt), rnd(W, k, d, dtype=dt) * (W * k) ** -0.5
             recs[("gemm_rs", arch, tag, dt)] = _case(
                 f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dt,
@@ -751,6 +807,117 @@ def _e2e_kernels(rnd, iters: int) -> dict:
     return recs
 
 
+def _moe_backward_kernels(rnd, iters: int) -> dict:
+    """Kernel #5 at the MoE train path's backward shapes: dx of each expert
+    GEMM is row tile t of dy times w[e[t]]^T on the same table, at granite-
+    moe-3b-a800m's 40 groups (4 ranks x 10 experts) and deepseek-moe-16b's
+    64 (4 x 16) of ``batch x cap`` rows: the train phases' 8 x 256 tokens
+    (192 / 64 rows; records ``bwd_*``) and Fig. 11's 1 x 4096 (264 / 128;
+    ``e2e_bwd_*``); dx of gate|up dy [G x R, 2f] x w^T [G, 2f, d], of down
+    dy [G x R, d] x w^T [G, d, f].  float32 checked; bfloat16 timed against
+    ``torch.bmm`` on the same grouped operands and launched REPEATS times
+    bitwise, with the time of the contiguous w^T copy the backward makes
+    from the forward's w once per layer (``wt_copy_ms``)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe_overlap import _capacity
+    from repro_torch.kernels.grouped_matmul import group_tile_table
+
+    recs = {}
+    for arch in (ARCH_MOE, ARCH_DS):
+        shp, m = path_shapes(arch), get_config(arch).moe
+        groups, d, fe = WORLD * shp["e_loc"], shp["d"], shp["fe"]
+        for batch, seq, prefix in ((TRAIN_BATCH, TRAIN_SEQ, "bwd_"), (paper_e2e.BATCH, paper_e2e.SEQ, "e2e_bwd_")):
+            rows = batch * _capacity(seq // WORLD, m.top_k, groups, m.capacity_factor)
+            table = group_tile_table(groups, rows, torch.device("cuda", 0))
+            for tag, n, k in ((prefix + "gate_up", 2 * fe, d), (prefix + "down", d, fe)):
+                for dtype in (torch.float32, torch.bfloat16):
+                    bf16 = dtype == torch.bfloat16
+                    isz = torch.tensor([], dtype=dtype).element_size()
+                    dy, wt = rnd(groups * rows, n, dtype=dtype), rnd(groups, n, k, dtype=dtype) * n**-0.5
+                    recs[("grouped_matmul", arch, tag, dtype)] = _case(
+                        f"grouped_matmul[{arch} {tag} dx, {groups} groups x {rows} rows] dy{list(dy.shape)} "
+                        f"w^T{list(wt.shape)}", dtype,
+                        lambda: K.grouped_matmul(dy, wt, table), lambda: K.grouped_matmul_plain(dy, wt, table),
+                        lambda: torch.bmm(dy.view(groups, rows, n), wt),
+                        2 * groups * rows * n * k, isz * (dy.numel() + wt.numel() + groups * rows * k), iters,
+                        not bf16, lambda: K.grouped_matmul.last_launch, bitwise=bf16,
+                    )  # fmt: skip
+                    if bf16:
+                        w = wt.transpose(1, 2).contiguous()  # the forward's layout [G, k, n]
+                        rec = recs[("grouped_matmul", arch, tag, dtype)]
+                        rec["wt_copy_ms"] = cuda_ms(lambda: w.transpose(1, 2).contiguous(), iters)
+                        print(f"[kernels] grouped_matmul[{arch} {tag} dx] its w^T copy {list(w.shape)} -> "
+                              f"{list(wt.shape)}: {rec['wt_copy_ms']:.4f} ms")  # fmt: skip
+                        del w
+                    del dy, wt
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _moe_train_autograd_checks(rnd, arch: str) -> dict:
+    """The bf16 MoE train path's autograd Functions at ``arch``'s expert
+    GEMMs (both Fig. 11's and the train phases' group rows): the grouped
+    kernel's ``_GroupedMatmul`` (the overlap mode: the kernel forward and
+    dx, dw one tensor-core product per group) and the tensor-core
+    ``_ExpertBmm`` (the baselines), each output and gradient against float32
+    autograd through the plain version, 2e-2 of max; the Function's launches
+    held (forward and dx).  Returns the errors by kernel."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.benchmarks.common import fp32_reductions
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe_overlap
+    from repro_torch.kernels.grouped_matmul import group_tile_table
+
+    shp, m = path_shapes(arch), get_config(arch).moe
+    e_loc, d, fe, bf16, tol = shp["e_loc"], shp["d"], shp["fe"], torch.bfloat16, TOL["bfloat16"]
+    groups = WORLD * e_loc
+    errs = {"grouped_matmul": {}, "expert_bmm": {}}
+
+    def grads(fn, a, w, dy):
+        a, w = a.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+        out = fn(a, w)
+        out.backward(dy)
+        return [out.detach(), a.grad, w.grad]
+
+    for batch, seq in ((TRAIN_BATCH, TRAIN_SEQ), (paper_e2e.BATCH, paper_e2e.SEQ)):
+        rows = batch * moe_overlap._capacity(seq // WORLD, m.top_k, groups, m.capacity_factor)
+        table = group_tile_table(groups, rows, torch.device("cuda", 0))
+        for tag, k, n, out_dt in (("gate_up", d, 2 * fe, torch.float32), ("down", fe, d, bf16)):
+            a, w = rnd(groups * rows, k, dtype=bf16), rnd(groups, k, n, dtype=bf16) * k**-0.5
+            dy = rnd(groups * rows, n, dtype=out_dt)
+            K.reset_launch_counts()
+            with fp32_reductions():
+                got = {"grouped_matmul": grads(lambda a_, w_: K.grouped_matmul(a_, w_, table, out_dtype=out_dt,
+                                                                              group_rows=rows), a, w, dy)}  # fmt: skip
+                launched = K.launch_counts()["grouped_matmul"]
+                got["expert_bmm"] = grads(
+                    lambda a_, w_: moe_overlap._expert_gemm(a_.view(WORLD, e_loc, rows, k), w_.view(WORLD, e_loc, k, n),
+                                                            out_dt, None, False).reshape(-1, n), a, w, dy)  # fmt: skip
+            ref = grads(lambda a_, w_: K.grouped_matmul_plain(a_, w_, table), a.float(), w.float(), dy.float())
+            if launched != 2:
+                raise SystemExit(f"chip_smoke: the grouped GEMM's Function launched {launched} kernels (forward, dx)")
+            for kernel, outs in got.items():
+                for name, x_, r_ in zip(("y", "dx", "dw"), outs, ref):
+                    err = (x_.float() - r_).abs().max().item()
+                    scale = r_.abs().max().item()
+                    what = f"{kernel} Function [{tag}, {groups} groups x {rows} rows] {name}"
+                    print(f"[kernels] train {arch} {what} bf16: max|err| {err:.3e} (max|ref| {scale:.3e}, bound "
+                          f"{tol:g} x max|ref|)")  # fmt: skip
+                    if not (bool(torch.isfinite(x_).all()) and err <= tol * scale):
+                        raise SystemExit(f"chip_smoke: {arch}'s {what} (bf16) disagrees with float32 autograd")
+                    errs[kernel][f"{tag} {rows} {name}"] = err
+            del a, w, dy, got, ref
+    torch.cuda.empty_cache()
+    return {"case": f"{arch} MoE train path autograd", "dtype": "bfloat16", "max_abs_err": errs}
+
+
 def _windows(arch: str) -> list:
     """The attention windows of an arch's layers (None: global), None first."""
     from repro_torch.configs import get_config
@@ -765,9 +932,9 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
     ``batch`` x ``seq`` tokens; by default smollm-360m's in the train
     phase): the input gradients of the qkv and gate/up projections through
     GEMM+RS (dy times each rank's w^T), of the o and down projections
-    through AG+GEMM; float32 checked, bfloat16 timed and launched REPEATS
-    times bitwise.  Beyond the train phase's shapes the plain version is
-    timed by its one checking call."""
+    through AG+GEMM (every dense MLP of :func:`_mlps`); float32 checked,
+    bfloat16 timed and launched REPEATS times bitwise.  Beyond smollm's
+    train shapes the plain version is timed by its one checking call."""
     import torch
 
     from repro_torch import kernels as K
@@ -779,7 +946,7 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
     for dtype in dtypes or (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         isz = torch.tensor([], dtype=dtype).element_size()
-        for tag, n in ((prefix + "qkv", shp["n_qkv"]), (prefix + "gate_up", shp["n_gu"])):
+        for tag, n in ((prefix + "qkv", shp["n_qkv"]), *((f"{prefix}{m}gate_up", gu) for m, gu, _ in _mlps(shp))):
             x, w = rnd(W, B, S, n, dtype=dtype), rnd(W, n, d, dtype=dtype) * (W * n) ** -0.5
             recs[("gemm_rs", arch, tag, dtype)] = _case(
                 f"gemm_rs[{arch} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
@@ -787,7 +954,7 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
                 2 * W * B * S * n * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, not bf16,
                 lambda: K.gemm_rs.last_launch, bitwise=bf16, plain_once=once,
             )  # fmt: skip
-        for tag, k in ((prefix + "o_proj", shp["n_o"]), (prefix + "down", shp["f_loc"])):
+        for tag, k in ((prefix + "o_proj", shp["n_o"]), *((f"{prefix}{m}down", f) for m, _, f in _mlps(shp))):
             x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, k, dtype=dtype) * d**-0.5
             xg = x.permute(1, 0, 2, 3).reshape(B, S, d)
             recs[("ag_gemm", arch, tag, dtype)] = _case(
@@ -812,7 +979,8 @@ def _train_autograd_checks(rnd, arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> 
     its output bitwise the call's without it; and the autograd Functions
     (AG+GEMM, GEMM+RS, flash attention at every window: the output and
     every input's gradient) against float32 autograd through the eager
-    executor / the plain attention.  Returns the errors by kernel."""
+    executor / the plain attention.  The projections are qkv, o-proj and
+    every dense MLP of :func:`_mlps`.  Returns the errors by kernel."""
     import torch
 
     from repro_torch import kernels as K
@@ -869,8 +1037,9 @@ def _train_autograd_checks(rnd, arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> 
                  f"{name}", a, b, "rel")  # fmt: skip
         del got, ref
     # the gathered operand: the forward's x (qkv, gate/up) and the backward's dy (o, down projections)
-    for tag, n in (("qkv", shp["n_qkv"]), ("gate_up", shp["n_gu"]), ("bwd_o_proj", shp["n_o"]),
-                   ("bwd_down", shp["f_loc"])):  # fmt: skip
+    mlps = _mlps(shp)
+    for tag, n in (("qkv", shp["n_qkv"]), *((f"{m}gate_up", gu) for m, gu, _ in mlps), ("bwd_o_proj", shp["n_o"]),
+                   *((f"bwd_{m}down", f) for m, _, f in mlps)):  # fmt: skip
         x, w = rnd(W, B, s_loc, d, dtype=bf16), rnd(W, d, n, dtype=bf16) * d**-0.5
         y, gathered = K.ag_gemm(x, w, return_gathered=True)
         what = f"ag_gemm[{tag}] x{list(x.shape)} w{list(w.shape)} return_gathered"
@@ -881,9 +1050,9 @@ def _train_autograd_checks(rnd, arch=ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ) -> 
 
     for tag, kind, xs, ws in (
         ("qkv", "ag_matmul", (W, B, s_loc, d), (W, d, shp["n_qkv"])),
-        ("gate_up", "ag_matmul", (W, B, s_loc, d), (W, d, shp["n_gu"])),
+        *((f"{m}gate_up", "ag_matmul", (W, B, s_loc, d), (W, d, gu)) for m, gu, _ in mlps),
         ("o_proj", "matmul_rs", (W, B, S, shp["n_o"]), (W, shp["n_o"], d)),
-        ("down", "matmul_rs", (W, B, S, shp["f_loc"]), (W, shp["f_loc"], d)),
+        *((f"{m}down", "matmul_rs", (W, B, S, f), (W, f, d)) for m, _, f in mlps),
     ):  # fmt: skip
         x, w = rnd(*xs, dtype=bf16), rnd(*ws, dtype=bf16) * ws[1] ** -0.5
         fused = compile_overlap(kind, BlockChannel(axis="model"), world=world, backend="fused")
@@ -1009,11 +1178,23 @@ def phase_kernels(iters: int):
     recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
-    recs.update(_train_backward_kernels(rnd, iters))
-    recs.update(_e2e_kernels(rnd, iters))
+    # the train phases' shapes (8 x 256 tokens): smollm's, and the MoE models' attention and dense MLPs
     recs[("train", ARCH, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd)
-    for arch in E2E_ARCHS:  # the e2e phase's train shapes
+    for arch in (ARCH, ARCH_MOE, ARCH_DS):
+        recs.update(_train_backward_kernels(rnd, iters, arch))
+    for arch in (ARCH_MOE, ARCH_DS):
+        recs[("train", arch, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd, arch)
+    # Fig. 11's shapes (1 x 4096 tokens): every row but smollm's (its widths are the serve phase's)
+    recs.update(_e2e_kernels(rnd, iters, (*E2E_ARCHS, ARCH_MOE, ARCH_DS)))
+    for arch in E2E_ARCHS:
         recs[("train", arch, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd, arch, paper_e2e.BATCH, paper_e2e.SEQ)
+    for arch in (ARCH_MOE, ARCH_DS):
+        recs[("train", arch, "e2e_autograd", torch.bfloat16)] = _train_autograd_checks(
+            rnd, arch, paper_e2e.BATCH, paper_e2e.SEQ)  # fmt: skip
+    # the expert GEMMs of the train_moe and e2e phases, both passes
+    recs.update(_moe_backward_kernels(rnd, iters))
+    for arch in (ARCH_MOE, ARCH_DS):
+        recs[("train", arch, "moe_autograd", torch.bfloat16)] = _moe_train_autograd_checks(rnd, arch)
     # --- every order x C in {1, 2} through both fused kernels at the smollm
     # shapes, in float32 and in bfloat16 (the wgmma route); each bf16 case
     # launched REPEATS times, every output bitwise equal to the first (the
@@ -1885,26 +2066,13 @@ def phase_ring() -> dict:
     return {"layers": out, "counts": counts, "flash_per_call": per_call}
 
 
-def _train_expect(cfg) -> dict:
-    """Launches of one bf16 train step (remat "none"): every layer's two
-    AG+GEMMs and two GEMM+RSs forward, each one's transpose through the
-    other kernel backward; one flash launch a layer (its backward is torch
-    ops from the saved statistics); the LM head's tile GEMM forward."""
-    return {"matmul": 1, "ag_gemm": 4 * cfg.n_layers, "gemm_rs": 4 * cfg.n_layers, "flash_attention": cfg.n_layers,
-            "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
-
-
 def phase_train(profile: bool = False) -> dict:
     """smollm-360m trained at its published size, W = 4 (module docstring, phase 11)."""
-    import tempfile
-
     import torch
 
-    from repro_torch import kernels as K
     from repro_torch.backend.mesh import World
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch import train as train_cli
     from repro_torch.models import lm
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
@@ -1965,32 +2133,8 @@ def phase_train(profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     # (b) bf16: TRAIN_STEPS steps of the train entry point, the launches held each step
-    expect = _train_expect(cfg)
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launch_counts()
-    run = train_cli.train(ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD,
-                          device="cuda", log_every=10)  # fmt: skip
-    counts = K.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    hist = run["history"]
-    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
-    print(f"[train] launches per bf16 step (held exactly, every step): {hist[0]['launches']}; all {len(hist)} "
-          f"steps: {counts}")  # fmt: skip
-    if bad or counts != {k: v * TRAIN_STEPS for k, v in expect.items()}:
-        raise SystemExit(f"chip_smoke: train steps launched {bad[:3]} (expected {expect} each)")
-    ce = [r["ce"] for r in hist]
-    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
-    ms = sorted(r["ms"] for r in hist[TRAIN_WARMUP:])
-    med = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
-    tps = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
-    print(f"[train] bf16 {cfg.name} W={WORLD}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: mean ce "
-          f"of the first 5 steps {first:.4f}, of the last 5 {last:.4f} (held: more than 0.2 lower); step "
-          f"{med:.2f} ms (median of steps {TRAIN_WARMUP}-{TRAIN_STEPS - 1}, CUDA events), {tps:.0f} tokens/s, "
-          f"peak memory {peak / 2**20:.0f} MiB")  # fmt: skip
-    if not (all(map(math.isfinite, ce)) and last < first - 0.2):
-        raise SystemExit(f"chip_smoke: the bf16 loss did not fall: {first} -> {last}")
-    out["bf16"] = {"ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med, "tokens_per_s": tps,
-                   "peak_bytes": peak, "counts": counts, "per_step": expect}  # fmt: skip
+    run = _bf16_train("train", ARCH, TRAIN_STEPS)
+    out["bf16"] = run["record"]
     if profile:
         from repro_torch.benchmarks.common import profile_windows
 
@@ -2001,23 +2145,268 @@ def phase_train(profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     # (c) checkpoint at TRAIN_CKPT_AT, resume: the next step's loss bitwise the uninterrupted run's
+    out["resume"] = _resume_check("train", ARCH)
+    return out
+
+
+def _bf16_train(tag: str, arch: str, steps: int, layers=None, loss_fall: bool = True) -> dict:
+    """``steps`` bf16 steps of the train entry point (``launch/train.train``,
+    TRAIN_BATCH x TRAIN_SEQ tokens, W = 4) at ``layers`` (None: the full
+    depth): every step's launches held to ``paper_e2e.expected_launches``,
+    the mean ce of the last 5 steps held more than 0.2 below the first 5's
+    (``loss_fall``; the JAX package's loss test), the median step ms (CUDA
+    events), tokens/s and peak memory recorded.  Returns the train run with
+    its ``record``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+    expect = paper_e2e.expected_launches(cfg, "overlap")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    run = train_cli.train(arch, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=layers, dtype="bf16",
+                          world=WORLD, device="cuda", log_every=10)  # fmt: skip
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = run["history"]
+    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    print(f"[{tag}] {arch} launches per bf16 step (held exactly, every step): {hist[0]['launches']}; all "
+          f"{len(hist)} steps: {counts}")  # fmt: skip
+    if bad or counts != {k: v * steps for k, v in expect.items()}:
+        raise SystemExit(f"chip_smoke: {arch}'s train steps launched {bad[:3]} (expected {expect} each)")
+    ce = [r["ce"] for r in hist]
+    warm = min(TRAIN_WARMUP, steps - 1)
+    ms = sorted(r["ms"] for r in hist[warm:])
+    med = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    tps = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    first, last = sum(ce[:5]) / len(ce[:5]), sum(ce[-5:]) / len(ce[-5:])
+    fall = "held: more than 0.2 lower" if loss_fall else "not held"
+    print(f"[{tag}] bf16 {arch} ({cfg.n_layers} layers) W={WORLD}, {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens: mean ce of the first 5 steps {first:.4f}, of the last 5 {last:.4f} ({fall}); step {med:.2f} ms "
+          f"(median of steps {warm}-{steps - 1}, CUDA events), {tps:.0f} tokens/s, peak memory {peak / 2**20:.0f} "
+          f"MiB")  # fmt: skip
+    if not all(map(math.isfinite, ce)) or (loss_fall and not last < first - 0.2):
+        raise SystemExit(f"chip_smoke: {arch}'s bf16 loss did not fall: {first} -> {last}")
+    run["record"] = {"layers": cfg.n_layers, "ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med,
+                     "tokens_per_s": tps, "peak_bytes": peak, "counts": counts, "per_step": expect}  # fmt: skip
+    return run
+
+
+def _resume_check(tag: str, arch: str) -> dict:
+    """A checkpoint at step TRAIN_CKPT_AT of a TRAIN_CKPT_LAYERS-layer bf16
+    run of ``arch`` at full width, resumed: the next step's loss and the
+    parameters after it bitwise the uninterrupted run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.training.optimizer import tree_leaves
+
     with tempfile.TemporaryDirectory() as d:
         kw = dict(layers=TRAIN_CKPT_LAYERS, steps=TRAIN_CKPT_AT + 1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16",
                   world=WORLD, device="cuda", ckpt_dir=d, log_every=100)  # fmt: skip
-        ref = train_cli.train(ARCH, ckpt_every=TRAIN_CKPT_AT, **kw)
+        ref = train_cli.train(arch, ckpt_every=TRAIN_CKPT_AT, **kw)
         last_ckpt = Path(d) / f"step_{TRAIN_CKPT_AT + 1:08d}"
         for f in last_ckpt.iterdir():
             f.unlink()
         last_ckpt.rmdir()  # the uninterrupted run's final checkpoint; the resume takes step TRAIN_CKPT_AT
-        resumed = train_cli.train(ARCH, ckpt_every=0, **kw)
+        resumed = train_cli.train(arch, ckpt_every=0, **kw)
     a, b = ref["history"][-1], resumed["history"]
     same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(ref["params"]), tree_leaves(resumed["params"])))
-    print(f"[train] checkpoint at step {TRAIN_CKPT_AT} ({TRAIN_CKPT_LAYERS} layers, full width, bf16), resumed: "
-          f"step {a['step']} loss {a['loss']!r} uninterrupted, {b[0]['loss']!r} resumed (held bitwise); "
+    print(f"[{tag}] {arch} checkpoint at step {TRAIN_CKPT_AT} ({TRAIN_CKPT_LAYERS} layers, full width, bf16), "
+          f"resumed: step {a['step']} loss {a['loss']!r} uninterrupted, {b[0]['loss']!r} resumed (held bitwise); "
           f"parameters after it bitwise equal: {same_params} (held: the moments and the step count)")  # fmt: skip
     if len(b) != 1 or b[0]["step"] != a["step"] or b[0]["loss"] != a["loss"] or not same_params:
-        raise SystemExit("chip_smoke: the resumed run's loss or parameters differ from the uninterrupted run's")
-    out["resume"] = {"loss": a["loss"], "resumed_loss": b[0]["loss"], "params_bitwise": same_params}
+        raise SystemExit(f"chip_smoke: {arch}'s resumed run's loss or parameters differ from the uninterrupted run's")
+    del ref, resumed
+    torch.cuda.empty_cache()
+    return {"loss": a["loss"], "resumed_loss": b[0]["loss"], "params_bitwise": same_params}
+
+
+def _leaf_names(tree, prefix="") -> list:
+    """The dotted path of every leaf of a parameter tree, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in _leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _grad_errs(names, got, ref) -> list:
+    """(name, max|got - ref| / max|ref|, finite and ref non-zero) per gradient leaf."""
+    import torch
+
+    out = []
+    for name, a, b in zip(names, got, ref):
+        top = b.abs().max().item()
+        out.append((name, (a - b).abs().max().item() / max(top, 1e-30), bool(torch.isfinite(a).all()) and top > 0))
+    return out
+
+
+def _moe_layer_grads(arch: str) -> dict:
+    """(a): one MoE layer of ``arch`` at its published width in float32 (its
+    first MoE layer: deepseek's has the shared experts), TRAIN_BATCH x
+    TRAIN_SEQ tokens, on the TP double ring and on the EP a2a pair: the
+    fused backend's dx and every leaf's gradient (router, w_gu, w_down,
+    norm, shared MLP) against the eager backend's, GRAD_RTOL of each leaf's
+    max|eager|; the routing of the two bitwise equal (the same router op on
+    the same input); the fused launches held (4 x W grouped: gate|up and
+    down at each of the W steps, forward and dx; the shared MLP's pair both
+    passes)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    cfg = get_config(arch)
+    k0 = cfg.moe.first_k_dense
+    world = World(WORLD, "cuda")
+    params = lm.init(dataclasses.replace(cfg, n_layers=k0 + 1), world,
+                     torch.Generator(device=world.device).manual_seed(0), torch.float32)  # fmt: skip
+    layer = params["layers"][k0]["ffn"]
+    del params
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, TRAIN_BATCH, TRAIN_SEQ // WORLD, cfg.d_model), generator=gen, device=world.device)
+    dy = torch.randn(x.shape, generator=gen, device=world.device)
+    names = ["dx"] + _leaf_names(layer)
+    shared = 2 if "shared" in layer else 0
+    expect = {"matmul": 0, "ag_gemm": shared, "gemm_rs": shared, "flash_attention": 0, "grouped_matmul": 4 * WORLD,
+              "ssd_intra_chunk": 0}  # fmt: skip
+    out = {}
+    for path, ep in (("tp", None), ("ep", "model")):
+        res = {}
+        for backend in ("fused", "eager"):
+            pc = ParallelContext(world=world, backend=backend, ep_axis=ep)
+            leaves = [t.detach().requires_grad_(True) for t in tree_leaves(layer)]
+            xin = x.detach().requires_grad_(True)
+            calls, restore = _record_routing()
+            K.reset_launch_counts()
+            try:
+                y, aux = moe.apply_seq(tree_unflatten(layer, leaves), xin, pc, cfg)
+                grads = torch.autograd.grad((y * dy).sum() + aux, [xin] + leaves)
+            finally:
+                restore()
+            res[backend] = (grads, calls, K.launch_counts())
+        (g_f, r_f, c_f), (g_e, r_e, _) = res["fused"], res["eager"]
+        same_routing = len(r_f) == len(r_e) == 1 and torch.equal(r_f[0], r_e[0])
+        errs = _grad_errs(names, g_f, g_e)
+        worst = max(e for _, e, _ in errs)
+        print(f"[train_moe] f32 {arch} MoE layer ({path}) [{WORLD}, {TRAIN_BATCH}, {TRAIN_SEQ // WORLD}, "
+              f"{cfg.d_model}], fused vs eager: routing bitwise equal {same_routing}; {len(errs)} gradients (dx, "
+              f"{', '.join(names[1:])}), worst max|diff| / max|eager| {worst:.3e} (bound {GRAD_RTOL:g} each); "
+              f"launches {c_f}")  # fmt: skip
+        bad = [(n, e) for n, e, ok in errs if not (ok and e <= GRAD_RTOL)]
+        if bad or not same_routing or c_f != expect:
+            raise SystemExit(f"chip_smoke: {arch}'s f32 MoE layer ({path}) gradients, fused vs eager: {bad}, routing "
+                             f"equal {same_routing}, launches {c_f} (expected {expect})")  # fmt: skip
+        out[path] = {"grad_rel_err": dict((n, e) for n, e, _ in errs), "launches": c_f}
+    del layer, x, dy, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_step_f32() -> dict:
+    """(b): one float32 step's loss and gradients of granite-moe-3b-a800m at
+    TRAIN_MOE_F32_LAYERS layers (published width, TRAIN_BATCH x TRAIN_SEQ
+    tokens), fused against eager, every router call's expert sets recorded:
+    the loss held to the logits' bound; at most TRAIN_MOE_MAX_FLIPS flips
+    a layer; with no flip every leaf's gradient held to GRAD_RTOL of its
+    max|eager|, else the flips and the worst error printed (a flipped token
+    moves its experts' gradients by O(1); the layer check (a) holds the
+    gradients then)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(ARCH_MOE), n_layers=TRAIN_MOE_F32_LAYERS)
+    world = World(WORLD, "cuda")
+    p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    res = {}
+    for backend in ("fused", "eager"):
+        calls, restore = _record_routing()
+        try:
+            loss, _, _, grads = loss_and_grads(lm, cfg, ParallelContext(world=world, backend=backend), p32, batch)
+        finally:
+            restore()
+        res[backend] = (loss, tree_leaves(grads), calls)
+    (loss_f, g_f, r_f), (loss_e, g_e, r_e) = res["fused"], res["eager"]
+    _hold_logits(f"[train_moe] {ARCH_MOE} f32 loss, one step ({cfg.n_layers} layers)", loss_f[None], loss_e[None])
+    flips = [int((a != b).any(-1).sum()) for a, b in zip(r_f, r_e)]
+    errs = _grad_errs(_leaf_names(lm.trainable(p32, cfg)), g_f, g_e)
+    worst = max(errs, key=lambda t: t[1])
+    held = sum(flips) == 0
+    print(f"[train_moe] {ARCH_MOE} f32 step gradients, fused vs eager ({cfg.n_layers} layers, {len(errs)} leaves): "
+          f"routing flips per MoE layer {flips} of {TRAIN_BATCH * TRAIN_SEQ} tokens (at most {TRAIN_MOE_MAX_FLIPS}); "
+          f"worst max|diff| / max|eager| {worst[1]:.3e} ({worst[0]}; "
+          f"{'held' if held else 'printed, not held: routing flipped'}, bound {GRAD_RTOL:g})")  # fmt: skip
+    if len(r_f) != cfg.n_layers or max(flips) > TRAIN_MOE_MAX_FLIPS:
+        raise SystemExit(f"chip_smoke: {ARCH_MOE}'s f32 fused step routes apart from eager: flips {flips} per layer "
+                         f"(at most {TRAIN_MOE_MAX_FLIPS})")  # fmt: skip
+    if held and any(not (ok and e <= GRAD_RTOL) for _, e, ok in errs):
+        raise SystemExit(f"chip_smoke: {ARCH_MOE}'s f32 fused step gradients disagree with eager: {worst}")
+    out = {"loss": [loss_f.item(), loss_e.item()], "flips": flips, "grad_rel_err": worst[1], "held": held}
+    del p32, res, g_f, g_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_moe(profile: bool = False) -> dict:
+    """The MoE models trained at their published widths, W = 4 (module docstring, phase 12)."""
+    import torch
+
+    from repro_torch.benchmarks import paper_e2e
+
+    out = {"layer": {arch: _moe_layer_grads(arch) for arch in (ARCH_MOE, ARCH_DS)}, "f32_step": _moe_step_f32()}
+    run = _bf16_train("train_moe", ARCH_MOE, TRAIN_STEPS)
+    out["bf16"] = run["record"]
+    if profile:
+        from repro_torch.backend.mesh import World
+        from repro_torch.benchmarks.common import profile_windows
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import lm
+        from repro_torch.parallel.context import ParallelContext
+        from repro_torch.training import AdamWConfig, make_train_step
+
+        cfg, pc = run["cfg"], ParallelContext(world=World(WORLD, "cuda"))
+        step = make_train_step(lm, cfg, pc, AdamWConfig(), grad_masks=lm.grad_masks(cfg, pc), donate=True)
+        batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+        state = {"p": run["params"], "o": run["opt_state"]}
+
+        def one_step():
+            state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+        out["profile"] = profile_windows(f"{cfg.name} train", {"step": one_step})
+        del state
+    del run
+    torch.cuda.empty_cache()
+    out["resume"] = _resume_check("train_moe", ARCH_MOE)
+    run = _bf16_train("train_moe", ARCH_DS, TRAIN_MOE_DS_STEPS, layers=paper_e2e.DEPTH[ARCH_DS], loss_fall=False)
+    out["bf16_ds"] = run["record"]
+    del run
     return out
 
 
@@ -2123,7 +2512,7 @@ def phase_e2e(profile: bool = False) -> dict:
 
     out = {"f32": {arch: _e2e_f32_step(arch) for arch in E2E_F32_ARCHS}, "rows": [], "counts": {}}
     print(f"[e2e] {paper_e2e.CAVEAT}")
-    for arch in paper_e2e.DENSE:
+    for arch in paper_e2e.MODELS:
         K.reset_launch_counts()
         row = paper_e2e.fig11_row(arch)
         out["counts"][arch] = K.launch_counts()
@@ -2145,7 +2534,7 @@ def phase_e2e(profile: bool = False) -> dict:
         out["rows"].append(row)
     out["serve"] = _e2e_serve()
     if profile:
-        out["profile"] = _e2e_profile(ARCH_G)
+        out["profile"] = {arch: _e2e_profile(arch) for arch in (ARCH_G, ARCH_MOE)}
     return out
 
 
@@ -2245,6 +2634,7 @@ def main(argv=None) -> int:
     out["engine"] = phase_engine(args.profile)
     out["ring"] = phase_ring()
     out["train"] = phase_train(args.profile)
+    out["train_moe"] = phase_train_moe(args.profile)
     out["e2e"] = phase_e2e(args.profile)
     out["paper"] = phase_paper()
     # last: its torch.profiler sessions (device_ms) leave host overhead behind
@@ -2258,6 +2648,8 @@ def main(argv=None) -> int:
     by_path[f"seam {ARCH}"] = out["seam"]["counts"]
     by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
+    by_path[f"train_moe {ARCH_MOE}"] = out["train_moe"]["bf16"]["counts"]
+    by_path[f"train_moe {ARCH_DS}"] = out["train_moe"]["bf16_ds"]["counts"]
     by_path.update({f"e2e {arch}": c for arch, c in out["e2e"]["counts"].items()})
     by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
@@ -2280,13 +2672,13 @@ def main(argv=None) -> int:
             # device launches by the engine's graph replays (the wrapper counts host calls only)
             "graph_launches": sum(r["head_graph_launches"] for r in engines) if name == "matmul" else 0,
             # the input gradients of the train phase's backward (bf16)
-            "train_backward": {t: {k: recs[(n, a, t, d)][k] for k in TIMES}
+            "train_backward": {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES if k in recs[(n, a, t, d)]}
                                for n, a, t, d in recs if n == name and t.startswith("bwd_") and d == bf16},
-            # the e2e phase's forward and backward shapes of the new dense configs (bf16)
-            "e2e": {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES}
-                    for n, a, t, d in recs if n == name and t.startswith("e2e_")},
+            # the e2e phase's forward and backward shapes of every Fig. 11 row but smollm's (bf16)
+            "e2e": {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES if k in recs[(n, a, t, d)]}
+                    for n, a, t, d in recs if n == name and t.startswith("e2e_") and d == bf16},
             # the train paths' autograd Functions and statistics by arch: max|err| of each check
-            "train_checks": {a: recs[(n, a, t, d)]["max_abs_err"].get(name, {})
+            "train_checks": {(a if t == "autograd" else f"{a} {t}"): recs[(n, a, t, d)]["max_abs_err"].get(name, {})
                              for n, a, t, d in recs if n == "train"},
         })  # fmt: skip
     out["wall_s"] = time.perf_counter() - t_start

@@ -4,12 +4,14 @@ The port's analog of ``benchmarks/fig11_e2e.py``: per model, one bf16
 AdamW train step (``training.make_train_step`` over ``models/lm.forward``)
 with W = 4 tensor-parallel ranks emulated on one card, in
 ``ParallelContext(mode="baseline")`` and in ``mode="overlap"`` on the same
-weights and batch.  The two modes differ only in the collective GEMMs, as
-in the JAX package: "overlap" runs the fused AG+GEMM / GEMM+RS kernels in
-both passes, "baseline" the emulated all-gather then one tensor-core GEMM
-per rank and one GEMM then the reduce-scatter (their autograd Functions'
-backward the same non-overlapped forms); flash attention and the
-tile-GEMM LM head run in both.
+weights and batch.  The two modes differ only in the collective GEMMs and
+the MoE blocks, as in the JAX package: "overlap" runs the fused AG+GEMM /
+GEMM+RS kernels in both passes and the AG+MoE double ring with its expert
+GEMMs on the grouped kernel (forward and input gradients), "baseline" the
+emulated all-gather then one tensor-core GEMM per rank, one GEMM then the
+reduce-scatter, and the gathered MoE with tensor-core expert GEMMs (their
+autograd Functions' backward the same non-overlapped forms); flash
+attention and the tile-GEMM LM head run in both.
 
 Per row: both modes' first-step loss on the initial weights (a forward
 each, held by ``chip_smoke.py`` to the logits' bound), then ``WARMUP``
@@ -19,8 +21,7 @@ between two CUDA events; the median step ms of each mode, the speedup
 (baseline / overlap), tokens/s, the launches of every step by kernel and
 the peak device memory of the row.
 
-The cells (``MODELS`` is the reference's list; its MoE rows raise
-``lm.check_trainable``'s error until MoE training is ported):
+The cells (``MODELS`` is the reference's list):
 
   * 1 x 4096 tokens a step: the sequence of the JAX package's
     ``train_4k`` shape (``src/repro/configs/base.py``, ``SHAPES``), its
@@ -31,7 +32,12 @@ The cells (``MODELS`` is the reference's list; its MoE rows raise
     gradient, float32 moments): smollm-360m at its full 32 layers,
     qwen2-72b 2 of 80 (0.878 B parameters a layer plus 2.49 B of untied
     embedding and head), starcoder2-7b 8 of 32, gemma3-27b 6 of 62 (one
-    5:1 period, the 262144-wide tied embedding).
+    5:1 period, the 262144-wide tied embedding), granite-moe-3b-a800m at
+    its full 32 layers (0.101 B parameters a layer plus 0.15 B of untied
+    embedding and head) and deepseek-moe-16b 9 of 28 (the 0.084 B dense
+    first layer, 0.588 B per MoE layer, 0.42 B of untied embedding and
+    head: 5.21 B, 62.5 GB, plus ~1 GB of saved activations a MoE layer at
+    4096 tokens).
 
 What these numbers are: the W ranks share one card.  An emulated
 collective is a copy (or a sum over the ranks) inside that card's memory,
@@ -64,13 +70,13 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training.optimizer import tree_leaves
 
-__all__ = ["MODELS", "DENSE", "DEPTH", "MODES", "CAVEAT", "e2e_config", "expected_launches", "run_row", "fig11_row", "describe",
+__all__ = ["MODELS", "DEPTH", "MODES", "CAVEAT", "e2e_config", "expected_launches", "run_row", "fig11_row", "describe",
            "main"]  # fmt: skip
 
 MODELS = ["smollm-360m", "qwen2-72b", "starcoder2-7b", "gemma3-27b", "granite-moe-3b-a800m", "deepseek-moe-16b"]
-DENSE = MODELS[:4]
-# layers run of each dense model at its published width (None: all); see the module docstring
-DEPTH = {"smollm-360m": None, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6}
+# layers run of each model at its published width (None: all); see the module docstring
+DEPTH = {"smollm-360m": None, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6, "granite-moe-3b-a800m": None,
+         "deepseek-moe-16b": 9}  # fmt: skip
 SEQ, BATCH = 4096, 1  # train_4k's sequence; its batch of 256 cut to 1
 WORLD = 4
 WARMUP, PAIRS = 3, 5  # untimed steps of each mode, then timed (baseline, overlap) pairs
@@ -92,12 +98,19 @@ def e2e_config(arch: str, layers: Optional[int] = None):
 def expected_launches(cfg, mode: str) -> dict:
     """Kernel launches of one train step on the card: the LM head's tile
     GEMM forward, one flash launch a layer (its backward is torch ops from
-    the saved statistics) in both modes; with overlap, each layer's two
-    AG+GEMMs and two GEMM+RSs forward and each one's transpose through the
-    other kernel backward."""
-    n = cfg.n_layers if mode == "overlap" else 0
-    return {"matmul": 1, "ag_gemm": 4 * n, "gemm_rs": 4 * n, "flash_attention": cfg.n_layers, "grouped_matmul": 0,
-            "ssd_intra_chunk": 0}  # fmt: skip
+    the saved statistics) in both modes; with overlap, each attention
+    block's and each dense MLP's (a dense layer's, or a MoE layer's shared
+    experts) AG+GEMM and GEMM+RS forward and each one's transpose through
+    the other kernel backward, and each MoE block's two grouped GEMMs at
+    every one of the double ring's W steps (one channel), forward and
+    input gradients."""
+    plan = lm.layer_plan(cfg)
+    moe = sum(d.ffn_kind == "moe" for d in plan)
+    mlps = sum(d.ffn_kind == "mlp" for d in plan) + (moe if cfg.moe and cfg.moe.num_shared else 0)
+    on = mode == "overlap"
+    fused = 2 * (len(plan) + mlps) if on else 0
+    return {"matmul": 1, "ag_gemm": fused, "gemm_rs": fused, "flash_attention": len(plan),
+            "grouped_matmul": 4 * WORLD * moe if on else 0, "ssd_intra_chunk": 0}  # fmt: skip
 
 
 def _timed_step(step, params, opt, batch, cuda: bool):
@@ -117,7 +130,7 @@ def run_row(cfg, world: World, *, dtype=torch.bfloat16, batch: int = BATCH, seq:
             pairs: int = PAIRS) -> dict:  # fmt: skip
     """One Fig. 11 row of ``cfg`` on ``world`` (module docstring).  Raises
     ``lm.check_trainable``'s error for a model whose training is not
-    ported, before anything is allocated."""
+    ported (Mamba layers), before anything is allocated."""
     pcs = {m: ParallelContext(world=world, mode=m) for m in MODES}
     for pc in pcs.values():
         lm.check_trainable(cfg, pc)
@@ -182,7 +195,7 @@ def describe(row: dict) -> str:
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description="paper Fig. 11: one train step, overlap vs baseline, on one card")
-    ap.add_argument("--models", nargs="+", default=DENSE, help=f"of {MODELS} (the MoE rows raise)")
+    ap.add_argument("--models", nargs="+", default=MODELS, help=f"of {MODELS}")
     ap.add_argument("--pairs", type=int, default=PAIRS)
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)

@@ -48,7 +48,7 @@ from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.overlap import plan_for, run_a2a_seq, run_plan
 from repro_torch.core.plan import build_seq_plan
-from repro_torch.kernels.grouped_matmul import group_tile_table, grouped_matmul
+from repro_torch.kernels.grouped_matmul import SharedTranspose, dot_f32, group_tile_table, grouped_matmul
 
 __all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline", "a2a_moe", "a2a_moe_baseline"]
 
@@ -87,7 +87,7 @@ def _dispatch_tables(local_ids, valid, e_loc: int, cap: int, dtype):
     return disp.reshape(*lead, m, k, e_loc, cap).to(dtype)
 
 
-def _expert_gemm(a, w, out_dtype, tile, grouped: bool):
+def _expert_gemm(a, w, out_dtype, tile, grouped: bool, shared_wt=None):
     """``a [W, E, rows, K] @ w [W, E, K, N]`` per (rank, expert), float32 accumulation.
 
     Eagerly on the card a bf16 / fp16 operand pair runs one tensor-core
@@ -96,19 +96,40 @@ def _expert_gemm(a, w, out_dtype, tile, grouped: bool):
     ``core/overlap._baseline_dot`` the caller keeps
     ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
     off so the sums stay float32.  Elsewhere (float32, or the CPU) the
-    product is formed in float32 and cast."""
+    product is formed in float32 and cast.  ``shared_wt`` (grouped only)
+    shares the backward's w^T copy with the other steps on these weights."""
     world, e, rows, k = a.shape
     if grouped:
         table = group_tile_table(world * e, rows, a.device)
-        out = grouped_matmul(a.reshape(-1, k).contiguous(), w.reshape(world * e, k, -1), table, out_dtype=out_dtype)
+        a2, w3 = a.reshape(-1, k).contiguous(), w.reshape(world * e, k, -1)
+        out = grouped_matmul(a2, w3, table, out_dtype=out_dtype, group_rows=rows, shared_wt=shared_wt)
         return out.reshape(world, e, rows, -1)
     if tile is not None and tuple(tile) != DEFAULT_TILE:
         return blocked_dot(a, w, tuple(tile), accum=torch.float32, out_dtype=out_dtype)
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and w.dtype == a.dtype:
         a3, w3 = a.reshape(world * e, rows, k), w.reshape(world * e, k, -1)
-        out = torch.bmm(a3, w3) if out_dtype == a.dtype else torch.bmm(a3, w3, out_dtype=torch.float32).to(out_dtype)
-        return out.reshape(world, e, rows, -1)
+        return _ExpertBmm.apply(a3, w3, out_dtype).reshape(world, e, rows, -1)
     return torch.matmul(a.float(), w.float()).to(out_dtype)
+
+
+class _ExpertBmm(torch.autograd.Function):
+    """The card's tensor-core expert GEMM, ``a [G, R, K] @ w [G, K, N]``,
+    under autograd (``torch.bmm`` with ``out_dtype`` has no derivative):
+    dx one bmm of dy with w^T, dw one bmm of a^T with dy, float32 sums
+    rounded once; dy in the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, a, w, out_dtype):
+        ctx.save_for_backward(a, w)
+        return torch.bmm(a, w) if out_dtype == a.dtype else torch.bmm(a, w, out_dtype=torch.float32).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, w = ctx.saved_tensors
+        dy = dy.to(a.dtype)
+        da = torch.bmm(dy, w.transpose(1, 2)) if ctx.needs_input_grad[0] else None
+        dw = dot_f32(a.transpose(1, 2), dy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return da, dw, None
 
 
 def local_expert_ffn(
@@ -122,6 +143,7 @@ def local_expert_ffn(
     act: Callable = F.silu,
     tile: Optional[Tuple[int, int, int]] = None,
     grouped: bool = False,
+    shared_wt: Tuple[Optional[SharedTranspose], Optional[SharedTranspose]] = (None, None),
 ):
     """Each rank's FFN through its local experts; zeros for tokens routed elsewhere.
 
@@ -130,6 +152,8 @@ def local_expert_ffn(
     combined partial ``[W, *lead, m, d]``.  The rows of all leading indices
     meet in one group of ``n_lead * cap`` rows per (rank, expert), so the
     grouped kernel covers every rank and expert in one launch per GEMM.
+    ``shared_wt`` holds the w^T copies of ``w_gu`` and ``w_down`` that the
+    grouped kernel's dx launches share across a ring's steps.
     """
     world, m, d = x.shape[0], x.shape[-2], x.shape[-1]
     k, e_loc, f = topk_ids.shape[-1], w_gu.shape[1], w_down.shape[2]
@@ -141,11 +165,16 @@ def local_expert_ffn(
 
     disp_mkec = _dispatch_tables(local, valid.float(), e_loc, cap, x.dtype)  # [W, nb, m, k, E, c]
     disp = disp_mkec.sum(-3)  # [W, nb, m, E, c]: 0/1, slots unique per (t, k)
-    comb = torch.einsum("wbmkec,wbmk->wbmec", disp_mkec, topk_w.reshape(world, nb, m, k).to(x.dtype))
+    # comb[.., m, e, c] is the one kept weight in that slot (a token's k experts are distinct): scattered
+    # by slot, so autograd saves the slot indices for the router's gradient, not the 6-D table
+    slots = disp_mkec.flatten(-2)  # [W, nb, m, k, E * c]
+    kept_w = topk_w.reshape(world, nb, m, k).to(x.dtype) * slots.sum(-1)  # 0 where dropped
+    comb = torch.zeros(slots.shape[:3] + slots.shape[-1:], dtype=x.dtype, device=x.device)
+    comb = comb.scatter_add(-1, slots.argmax(-1), kept_w).reshape(disp.shape)
     x_e = torch.einsum("wbmec,wbmd->webcd", disp, xb).reshape(world, e_loc, nb * cap, d)
-    h = _expert_gemm(x_e, w_gu, torch.float32, tile, grouped)  # gate|up, float32
+    h = _expert_gemm(x_e, w_gu, torch.float32, tile, grouped, shared_wt[0])  # gate|up, float32
     h = (act(h[..., :f]) * h[..., f:]).to(x.dtype)
-    y_e = _expert_gemm(h, w_down, x.dtype, tile, grouped)
+    y_e = _expert_gemm(h, w_down, x.dtype, tile, grouped, shared_wt[1])
     out = torch.einsum("wbmec,webcd->wbmd", comb, y_e.reshape(world, e_loc, nb, cap, d))
     return out.reshape(x.shape)
 
@@ -188,11 +217,14 @@ def _token_chunks(x, topk_ids, topk_w, nch: int) -> list:
 
 def _expert_tile(w_gu, w_down, cap: int, act, channel: BlockChannel, grouped: bool, accum):
     """The MoE tile callback: each rank's local experts on the tile it holds,
-    the combined partial in the accum dtype."""
+    the combined partial in the accum dtype.  Every step's grouped dx shares
+    one w^T copy of each weight."""
+    shared = (SharedTranspose(), SharedTranspose()) if grouped else (None, None)
 
     def moe_tile(ctx, tile, _carry):
         xs, ids, wts = tile
-        part = local_expert_ffn(xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped)
+        part = local_expert_ffn(xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped,
+                                shared_wt=shared)  # fmt: skip
         return part.to(accum)
 
     return moe_tile

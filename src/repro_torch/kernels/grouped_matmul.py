@@ -17,6 +17,15 @@ by dtype before the launch (never by a fallback):
 ``grouped_matmul.last_launch`` says which route the last launch took, its
 grid and its item count.
 
+Under autograd (grad mode on and an operand that requires grad) the call
+goes through :class:`_GroupedMatmul`: dx is this kernel again, on the
+transposed weights with the same table (row tile t of dy times
+w[tile_expert[t]]^T; callers that run several GEMMs on the same weights,
+as a ring's steps do, share one transposed copy through
+:class:`SharedTranspose`), and dw[e] sums x_t^T dy_t over the row tiles t of
+expert e in float32, formed by ``torch.bmm`` outside any kernel (the JAX
+package leaves that product to XLA's autodiff of its einsum).
+
 :func:`grouped_matmul_plain` is the plain PyTorch version: it gathers the
 weights once per row tile (not per row, as the JAX oracle
 ``ref.grouped_matmul_ref`` does) and multiplies in float32.
@@ -33,7 +42,10 @@ import torch
 from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch.kernels import build
 
-__all__ = ["grouped_matmul", "grouped_matmul_plain", "group_tile_table", "work_items", "GemmItem", "ROW_TILE"]
+__all__ = [
+    "grouped_matmul", "grouped_matmul_plain", "group_tile_table", "dot_f32", "SharedTranspose", "work_items",
+    "GemmItem", "ROW_TILE",
+]  # fmt: skip
 
 ROW_TILE = build.WGMMA_TILE[0]  # the bf16 route's m-tile: the largest row tile one item covers
 
@@ -101,17 +113,31 @@ def grouped_matmul_plain(
 
 
 def grouped_matmul(
-    x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor, *, out_dtype: Optional[torch.dtype] = None
+    x: torch.Tensor,
+    w: torch.Tensor,
+    tile_expert: torch.Tensor,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    group_rows: Optional[int] = None,
+    shared_wt: Optional["SharedTranspose"] = None,
 ) -> torch.Tensor:
     """``out[rows of tile t] = x[rows of tile t] @ w[tile_expert[t]]`` -> [M, N].
 
     The row tile is ``M / len(tile_expert)``.  ``out_dtype`` is float32 or the
     input dtype (default).  A CPU tensor runs :func:`grouped_matmul_plain`; a
     CUDA tensor launches the kernel of its dtype's route (``build.ROUTES``) or
-    raises.
+    raises.  ``group_rows`` tells the backward that the table is
+    ``group_tile_table(E, group_rows)`` (E consecutive groups, group g on
+    expert g), so dw is one batched GEMM over the groups; without it dw sums
+    the row tiles' products by the table.  ``shared_wt`` lends the backward
+    one w^T copy shared with the other calls on the same weights.
     """
     _check(x, w, tile_expert)
     out_dtype = out_dtype or x.dtype
+    if group_rows is not None and x.shape[0] != w.shape[0] * group_rows:
+        raise ValueError(f"grouped_matmul: {x.shape[0]} rows are not {w.shape[0]} groups of {group_rows}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _GroupedMatmul.apply(x, w, tile_expert, out_dtype, group_rows, shared_wt)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return grouped_matmul_plain(x, w, tile_expert, out_dtype)
     build.check_cuda_operands("grouped_matmul", x, w)
@@ -138,6 +164,81 @@ def grouped_matmul(
         grouped_matmul.last_launch = {"route": route, "grid": t * -(-n // 128), "items": None}
     grouped_matmul.launches += 1
     return out
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [G, R, K] @ b [G, K, N]`` -> float32 [G, R, N], float32 sums: on
+    the card a bf16 / fp16 pair runs one tensor-core ``torch.bmm`` storing
+    float32 (the caller keeps reduced-precision reductions off), elsewhere
+    the product of float32 copies."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and b.dtype == a.dtype:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+class SharedTranspose:
+    """The contiguous w^T [E, N, K] that the dx launches of several grouped
+    GEMMs on the same weights share (the W steps of a ring on a layer's
+    expert weights): each forward that will need dx registers, the first
+    backward makes the copy and the last one drops it, so a layer's
+    backward copies each weight once, not once per step."""
+
+    def __init__(self):
+        self.users, self.key, self.wt = 0, None, None
+
+    def register(self, w: torch.Tensor):
+        key = (w.data_ptr(), tuple(w.shape), w.dtype)
+        if self.key not in (None, key):
+            raise ValueError(f"SharedTranspose: registered for weights {self.key}, given {key}")
+        self.key, self.users = key, self.users + 1
+
+    def take(self, w: torch.Tensor) -> torch.Tensor:
+        if self.wt is None:
+            self.wt = w.transpose(1, 2).contiguous()
+        wt, self.users = self.wt, self.users - 1
+        if self.users == 0:
+            self.wt = None
+        return wt
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """The grouped GEMM under autograd (module docstring).  An entry of the
+    table outside [0, E) gives zero rows forward, zero dx rows and nothing
+    in dw.  dy reaches dx in the weights' dtype (the bf16 route takes one
+    dtype; the gate|up GEMM stores float32).  dw has two forms: with
+    ``group_rows`` (the MoE layers' equal groups) one product per group;
+    for any other table, as the kernel accepts (a sorted-token dispatch's
+    uneven groups, ROADMAP queue 1 item 3 (d)), one product per row tile
+    summed into its expert."""
+
+    @staticmethod
+    def forward(ctx, x, w, tile_expert, out_dtype, group_rows, shared_wt):
+        ctx.save_for_backward(x, w, tile_expert)
+        ctx.group_rows, ctx.shared_wt = group_rows, shared_wt
+        if shared_wt is not None and ctx.needs_input_grad[0]:
+            shared_wt.register(w)
+        return grouped_matmul(x, w, tile_expert, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, te = ctx.saved_tensors
+        dy = dy.to(w.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = w.transpose(1, 2).contiguous() if ctx.shared_wt is None else ctx.shared_wt.take(w)
+            dx = grouped_matmul(dy, wt, te, out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            k, (e, _, n) = x.shape[1], w.shape
+            if ctx.group_rows is not None:  # one product per group: group g is expert g
+                dw = dot_f32(x.view(e, -1, k).transpose(1, 2), dy.view(e, -1, n))
+            else:  # one product per row tile, summed into its expert by a one-hot contraction
+                t = te.shape[0]
+                per_tile = dot_f32(x.view(t, -1, k).transpose(1, 2), dy.view(t, -1, n))
+                valid = ((te >= 0) & (te < e)).float()
+                onehot = torch.nn.functional.one_hot(te.long().clamp(0, e - 1), e).float() * valid[:, None]
+                dw = torch.matmul(onehot.t(), per_tile.reshape(t, k * n)).reshape(e, k, n)
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None
 
 
 grouped_matmul.launches = 0

@@ -369,12 +369,14 @@ def with_tied(tree: dict, cfg) -> dict:
 
 def check_trainable(cfg, pc: ParallelContext):
     """Raise unless the model's training path is ported: attention layers
-    with a dense MLP, without fused seams (MoE and Mamba layers have no
-    backward for their kernels' paths yet)."""
-    bad = sorted({f"{d.kind}/{d.ffn_kind}" for d in layer_plan(cfg) if d.kind == "mamba" or d.ffn_kind != "mlp"})
+    with a dense MLP or an MoE block (TP or EP), without fused seams (Mamba
+    layers have no backward for their kernel's path yet)."""
+    bad = sorted({f"{d.kind}/{d.ffn_kind}" for d in layer_plan(cfg) if d.kind == "mamba"})
     if bad or pc.fuse_seams:
         what = f"layers {bad} (mixer/ffn)" if bad else "fuse_seams"
-        raise NotImplementedError(f"repro_torch: training {cfg.name} with {what} is not ported (dense attention + MLP)")
+        raise NotImplementedError(
+            f"repro_torch: training {cfg.name} with {what} is not ported (attention + MLP or MoE)"
+        )
 
 
 def grad_masks(cfg, pc: ParallelContext) -> dict:

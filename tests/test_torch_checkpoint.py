@@ -4,11 +4,14 @@
 layers, W = 4, float32 and bfloat16): the roundtrip and retention, a resumed
 run equal to the uninterrupted one bitwise, bf16 leaves bitwise (stored as
 their int16 view), a checkpoint saved at W = 4 restored at W = 2 (logits
-within 1e-5 of max: the two worlds split the GEMMs differently), and
+within 1e-5 of max: the two worlds split the GEMMs differently); the
+resume and the W = 4 -> W = 2 restore also for reduced granite-moe-3b-a800m
+and deepseek-moe-16b; and
 ``convert.unshard_params`` against the JAX package's global layout (every
 ported layer kind, exactly).  ``StepWatchdog``, ``run_resilient`` and
 ``ElasticMesh.plan`` as the reference's tests drive them; the train CLI for
-a few steps on the CPU, then resumed from its checkpoint.
+a few steps on the CPU, then resumed from its checkpoint (smollm-360m, and
+granite-moe-3b-a800m against its uninterrupted run).
 """
 
 import dataclasses
@@ -38,10 +41,15 @@ from utils import reduce_config as j_reduce_config
 
 TP = 4
 ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b", "qwen2-72b", "gemma3-27b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-moe-16b")
 
 
 def _cfg(n_layers=2, vocab=128):
     return dataclasses.replace(reduce_config(get_config("smollm-360m")), n_layers=n_layers, vocab_size=vocab)
+
+
+def _moe_cfg(arch):
+    return dataclasses.replace(reduce_config(get_config(arch)), vocab_size=128)
 
 
 def _state(cfg, world, dtype=torch.float32, seed=0):
@@ -108,7 +116,19 @@ def test_restore_checks_the_tree(tmp_path):
 @pytest.mark.parametrize("backend", ["eager", "fused"])
 def test_resume_continues_training_bitwise(tmp_path, backend):
     """Save at step 2, restore, continue: bitwise the uninterrupted run (4 steps)."""
-    cfg, world = _cfg(), World(TP, "cpu")
+    _resume_bitwise(tmp_path, _cfg(), backend)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_resume_continues_training_bitwise(tmp_path, arch):
+    """As above for a reduced MoE model on the fused backend: the float32
+    router, the experts' w_gu / w_down (sharded by experts, not packed) and
+    deepseek's shared and dense MLPs, parameters and moments."""
+    _resume_bitwise(tmp_path, _moe_cfg(arch), "fused")
+
+
+def _resume_bitwise(tmp_path, cfg, backend):
+    world = World(TP, "cpu")
     pc = ParallelContext(world=world, backend=backend)
     step = make_train_step(lm, cfg, pc, AdamWConfig(lr=1e-3, total_steps=10, warmup_steps=2),
                            grad_masks=lm.grad_masks(cfg, pc))  # fmt: skip
@@ -153,6 +173,14 @@ def test_restore_onto_another_world_size_qwen2_bias(tmp_path):
     packed per rank like ``wqkv``: its [K || V] halves round-trip too."""
     cfg = dataclasses.replace(reduce_config(get_config("qwen2-72b")), n_layers=2, vocab_size=128)
     _restore_w4_at_w2(tmp_path, cfg)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_restore_onto_another_world_size(tmp_path, arch):
+    """A reduced MoE model saved at W = 4, restored at W = 2: its 8 experts
+    pad to 8 at both (E_loc 2 and 4), so the expert rows re-shard as they
+    are; equal logits."""
+    _restore_w4_at_w2(tmp_path, _moe_cfg(arch))
 
 
 def _restore_w4_at_w2(tmp_path, cfg):
@@ -246,6 +274,22 @@ def test_train_cli_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     assert [r["step"] for r in again["history"]] == [3]
     assert "resumed from step 3" in capsys.readouterr().out
     assert set(again["history"][0]["launches"]) >= {"ag_gemm", "gemm_rs", "flash_attention", "matmul"}
+
+
+def test_train_cli_runs_and_resumes_a_moe_model_on_the_cpu(tmp_path, capsys):
+    """``--arch granite-moe-3b-a800m --reduce --device cpu``: 2 steps with a
+    checkpoint, then one more resumed; the resumed step equals the
+    uninterrupted run's third step bitwise."""
+    args = ["--arch", "granite-moe-3b-a800m", "--reduce", "--device", "cpu", "--batch", "2", "--seq", "16",
+            "--ckpt-every", "2", "--log-every", "1"]  # fmt: skip
+    whole = train_cli.main(args + ["--steps", "3", "--ckpt-dir", str(tmp_path / "whole")])
+    assert len(whole["history"]) == 3 and all(np.isfinite(r["loss"]) for r in whole["history"])
+    train_cli.main(args + ["--steps", "2", "--ckpt-dir", str(tmp_path / "cut")])
+    again = train_cli.main(args + ["--steps", "3", "--ckpt-dir", str(tmp_path / "cut")])
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert [r["step"] for r in again["history"]] == [2] and again["history"][0]["loss"] == whole["history"][2]["loss"]
+    _equal_trees(again["params"], whole["params"])
+    assert set(again["history"][0]["launches"]) >= {"grouped_matmul", "ag_gemm", "gemm_rs"}
 
 
 def test_train_entry_point_needs_the_card_or_cpu():

@@ -2,7 +2,10 @@
 serving engine's captured step against the same step run eagerly (for
 deepseek-moe-16b with the streamed MoE decode in the graph); the paper's
 TP-MLP (fused kernels) against its tensor-core baselines; the eager expert
-GEMM of the MoE baseline on tensor cores.
+GEMM of the MoE baseline on tensor cores; the train path's autograd
+Functions (the fused collectives', flash attention's, the grouped GEMM's at
+the MoE backward shapes, the tensor-core expert GEMM's) and reduced MoE
+models' gradients, fused against eager.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -1044,3 +1047,119 @@ def test_baseline_train_step_on_card_matches_overlap(dev):
         torch.testing.assert_close(out["baseline"][0], out["overlap"][0], atol=2e-2, rtol=2e-2)
         for a, b in zip(tree_leaves(out["baseline"][3]), tree_leaves(out["overlap"][3])):
             _close(a, b, torch.bfloat16)
+
+
+# --- MoE training: the grouped GEMM's autograd Function at the backward shapes, the tensor-core expert GEMM's ---
+
+# (groups, rows a group, K, N): granite-moe-3b-a800m's gate|up [1536 -> 1024] and down [512 -> 1536] at 40
+# groups (4 ranks x 10 experts) of 192 rows (8 x 256 tokens) and 264 rows (1 x 4096); deepseek-moe-16b's
+# [2048 -> 2816] and [1408 -> 2048] at 64 groups of 64 and 128 rows.  dx runs the kernel on w^T [G, N, K].
+MOE_BACKWARD = {
+    f"{arch}_{tag}_{rows}": (groups, rows, k, n)
+    for arch, groups, rows_, shapes in (
+        ("granite", 40, (192, 264), (("gate_up", 1536, 1024), ("down", 512, 1536))),
+        ("deepseek", 64, (64, 128), (("gate_up", 2048, 2816), ("down", 1408, 2048))),
+    )
+    for rows in rows_
+    for tag, k, n in shapes
+}
+
+
+def _grouped_grads(x, w, table, rows, dy, out_dtype):
+    x, w = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+    out = K.grouped_matmul(x, w, table, out_dtype=out_dtype, group_rows=rows)
+    out.backward(dy)
+    return [out.detach(), x.grad, w.grad]
+
+
+@pytest.mark.parametrize("tag", sorted(MOE_BACKWARD))
+def test_grouped_function_grads_at_moe_backward_shapes(dev, tag):
+    """``_GroupedMatmul`` in bf16 (gate|up stores float32, so its dy is
+    float32 and reaches the kernel in bf16): the output, dx (the kernel on
+    w^T, one launch) and dw (one tensor-core product per group) against
+    autograd through the plain version in float32, 2e-2 of max; three
+    forward + backward runs bitwise equal."""
+    groups, rows, k, n = MOE_BACKWARD[tag]
+    out_dtype = torch.float32 if "gate_up" in tag else torch.bfloat16
+    table = group_tile_table(groups, rows, dev)
+    x = _rand(dev, torch.bfloat16, groups * rows, k)
+    w = _rand(dev, torch.bfloat16, groups, k, n, seed=1, scale=k**-0.5)
+    dy = _rand(dev, out_dtype, groups * rows, n, seed=2)
+    K.reset_launch_counts()
+    with fp32_reductions():
+        got = _grouped_grads(x, w, table, rows, dy, out_dtype)
+        assert K.launch_counts()["grouped_matmul"] == 2 and K.grouped_matmul.last_launch["route"] == "wgmma"
+        x32, w32 = x.float().requires_grad_(True), w.float().requires_grad_(True)
+        ref = K.grouped_matmul_plain(x32, w32, table)
+        ref.backward(dy.float())
+        for a, b, dt in zip(got, (ref.detach(), x32.grad, w32.grad), (out_dtype, torch.bfloat16, torch.bfloat16)):
+            assert a.dtype == dt
+            _close(a, b, torch.bfloat16)
+        for _ in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(_grouped_grads(x, w, table, rows, dy, out_dtype), got))
+
+
+def test_grouped_function_general_table_on_card(dev):
+    """A random, non-monotone table with empty tiles (-1 and E), no
+    ``group_rows``: dw summed by the table (deterministic), zero dx rows on
+    the empty tiles; float32 and bf16 against float32 autograd of the plain
+    version."""
+    te = torch.tensor([2, -1, 0, 4, 5, 1, 2, 3, 0, 4], dtype=torch.int32, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = _rand(dev, dtype, 10 * 48, 136), _rand(dev, dtype, 5, 136, 200, seed=1, scale=136**-0.5)
+        dy = _rand(dev, dtype, 10 * 48, 200, seed=2)
+        got = _grouped_grads(x, w, te, None, dy, dtype)
+        x32, w32 = x.float().requires_grad_(True), w.float().requires_grad_(True)
+        ref = K.grouped_matmul_plain(x32, w32, te)
+        ref.backward(dy.float())
+        for a, b in zip(got, (ref.detach(), x32.grad, w32.grad)):
+            _close(a, b, dtype)
+        assert not got[1][48:96].any()  # the -1 tile: zero dx rows
+        assert all(torch.equal(a, b) for a, b in zip(_grouped_grads(x, w, te, None, dy, dtype), got))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_expert_bmm_function_grads(dev, out_dtype):
+    """The MoE baselines' tensor-core expert GEMM under autograd
+    (``moe_overlap._ExpertBmm``: ``torch.bmm(out_dtype=float32)`` has no
+    derivative), bf16 at granite's gate|up: the output and both gradients
+    against float32 autograd, 2e-2 of max; the forward bitwise the call
+    without grad."""
+    a = _rand(dev, torch.bfloat16, 4, 10, 264, 1536, seed=6)
+    w = _rand(dev, torch.bfloat16, 4, 10, 1536, 1024, seed=7, scale=1536**-0.5)
+    dy = _rand(dev, out_dtype, 4, 10, 264, 1024, seed=8)
+    with fp32_reductions():
+        got = _fn_grads(lambda a_, w_: moe_overlap._expert_gemm(a_, w_, out_dtype, None, False), a, w, dy)
+        with torch.no_grad():
+            assert torch.equal(got[0], moe_overlap._expert_gemm(a, w, out_dtype, None, False))
+    ref = _fn_grads(lambda a_, w_: torch.matmul(a_, w_), a.float(), w.float(), dy.float())
+    for g, r, dt in zip(got, ref, (out_dtype, torch.bfloat16, torch.bfloat16)):
+        assert g.dtype == dt
+        _close(g, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("ep", [None, "model"])
+def test_moe_train_grads_fused_match_eager_on_card(dev, ep):
+    """Reduced granite-moe-3b-a800m and deepseek-moe-16b in float32, W = 4,
+    2 x 64 tokens, TP double ring or EP a2a: every leaf's gradient on the
+    fused backend (grouped kernel forward and dx) within 1e-4 of its max
+    |eager|, 4 x W grouped launches per MoE layer."""
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
+        cfg = reduce_config(get_config(arch))
+        world = World(4, dev)
+        params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+        toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+        batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+        out = {}
+        for backend in ("fused", "eager"):
+            K.reset_launch_counts()
+            out[backend] = loss_and_grads(lm, cfg, ParallelContext(world=world, backend=backend, ep_axis=ep), params, batch)
+            out[backend + "_counts"] = K.launch_counts()
+        moe = sum(d.ffn_kind == "moe" for d in lm.layer_plan(cfg))
+        assert out["fused_counts"]["grouped_matmul"] == 4 * 4 * moe and not any(out["eager_counts"].values())
+        torch.testing.assert_close(out["fused"][0], out["eager"][0], atol=1e-5, rtol=1e-5)
+        for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
+            _close(a, b, torch.float32)

@@ -1,13 +1,13 @@
 """The port's Fig. 11 benchmark (``benchmarks/paper_e2e.py``) on the CPU, and
 the donated train step it runs.
 
-``run_row`` on the four dense families at a tiny size (reduced configs, 2
-layers — gemma3-27b 6, one 5:1 period, its window 16 below the 32-token
-sequence —, W = 4, float32): the baseline and overlap modes' first-step
-losses on the same weights within the logits' bound (2e-3 + 2e-3 |loss|),
-every step's loss finite, no kernel launched (the CPU runs the plain
-versions), no time reported off the card; the MoE rows raise
-``lm.check_trainable``'s error before allocating; the depth cuts and the
+``run_row`` on all six families at a tiny size (reduced configs, 2 layers
+— gemma3-27b 6, one 5:1 period, its window 16 below the 32-token sequence;
+granite-moe-3b-a800m 2 MoE layers, deepseek-moe-16b its dense first layer
+and a MoE layer —, W = 4, float32): the baseline and overlap modes'
+first-step losses on the same weights within the logits' bound (2e-3 +
+2e-3 |loss|), every step's loss finite, no kernel launched (the CPU runs
+the plain versions), no time reported off the card; the depth cuts and the
 launches a step expected on the card.  The donated step (``donate=True``,
 the reference's keyword) against the copying one: bitwise the same
 parameters and moments over three steps, the given state updated in place.
@@ -39,7 +39,7 @@ def _tiny(arch):
     return dataclasses.replace(cfg, n_layers=2)
 
 
-@pytest.mark.parametrize("arch", paper_e2e.DENSE)
+@pytest.mark.parametrize("arch", paper_e2e.MODELS)
 def test_row_on_the_cpu_baseline_equals_overlap(arch):
     row = paper_e2e.run_row(_tiny(arch), World(4, "cpu"), **TINY)
     first = row["first_loss"]
@@ -50,19 +50,14 @@ def test_row_on_the_cpu_baseline_equals_overlap(arch):
     assert row["peak_bytes"] is None and "median_ms" not in row and row["step_ms"] == {"baseline": [], "overlap": []}
 
 
-@pytest.mark.parametrize("arch", [a for a in paper_e2e.MODELS if a not in paper_e2e.DENSE])
-def test_moe_rows_raise_until_moe_training_is_ported(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        paper_e2e.run_row(paper_e2e.e2e_config(arch), World(4, "cpu"), **TINY)
-
-
 def test_cells_and_expected_launches():
-    assert paper_e2e.MODELS[:4] == paper_e2e.DENSE and set(paper_e2e.DEPTH) == set(paper_e2e.DENSE)
-    layers = {a: paper_e2e.e2e_config(a).n_layers for a in paper_e2e.DENSE}
-    assert layers == {"smollm-360m": 32, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6}
+    assert set(paper_e2e.DEPTH) == set(paper_e2e.MODELS)
+    layers = {a: paper_e2e.e2e_config(a).n_layers for a in paper_e2e.MODELS}
+    assert layers == {"smollm-360m": 32, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6,
+                      "granite-moe-3b-a800m": 32, "deepseek-moe-16b": 9}  # fmt: skip
     gemma = paper_e2e.e2e_config("gemma3-27b")
     assert [d.window for d in lm.layer_plan(gemma)] == [1024] * 5 + [None]  # one 5:1 period
-    for arch in paper_e2e.DENSE:  # published widths
+    for arch in paper_e2e.MODELS:  # published widths
         cut, full = paper_e2e.e2e_config(arch), get_config(arch)
         assert dataclasses.replace(cut, n_layers=full.n_layers) == full
     cfg = paper_e2e.e2e_config("qwen2-72b")
@@ -70,6 +65,19 @@ def test_cells_and_expected_launches():
         "matmul": 1, "ag_gemm": 8, "gemm_rs": 8, "flash_attention": 2, "grouped_matmul": 0, "ssd_intra_chunk": 0}
     assert paper_e2e.expected_launches(cfg, "baseline") == {
         "matmul": 1, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": 2, "grouped_matmul": 0, "ssd_intra_chunk": 0}
+    # MoE layers: 2 grouped GEMMs at each of the W = 4 ring steps, forward and dx; attention's pair both passes
+    granite = paper_e2e.e2e_config("granite-moe-3b-a800m")
+    assert paper_e2e.expected_launches(granite, "overlap") == {
+        "matmul": 1, "ag_gemm": 64, "gemm_rs": 64, "flash_attention": 32, "grouped_matmul": 512, "ssd_intra_chunk": 0}
+    # deepseek: the dense first layer's MLP and 8 MoE layers' shared MLPs as dense layers
+    deepseek = paper_e2e.e2e_config("deepseek-moe-16b")
+    assert [d.kind for d in lm.layer_plan(deepseek)] == ["attn_dense"] + ["attn"] * 8
+    assert paper_e2e.expected_launches(deepseek, "overlap") == {
+        "matmul": 1, "ag_gemm": 36, "gemm_rs": 36, "flash_attention": 9, "grouped_matmul": 128, "ssd_intra_chunk": 0}
+    for moe_cfg in (granite, deepseek):
+        assert paper_e2e.expected_launches(moe_cfg, "baseline") == {
+            "matmul": 1, "ag_gemm": 0, "gemm_rs": 0, "flash_attention": moe_cfg.n_layers, "grouped_matmul": 0,
+            "ssd_intra_chunk": 0}  # fmt: skip
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             paper_e2e.main([])
