@@ -144,7 +144,34 @@ non-zero (no phase catches its own failure):
               memory, and the resume bitwise at 2 layers as in (11c); deepseek
               TRAIN_MOE_DS_STEPS bf16 steps at its Fig. 11 depth, launches
               held.
-  13. e2e     the paper's end-to-end figure (Fig. 11,
+  13. train_ssm  mamba2-2.7b trained at its published size, W = 4, 8 x 256
+              tokens a step, remat policy SSM_REMAT ("dots": each layer's
+              forward recomputed in the backward, as the JAX package's
+              trainer): (a) one float32 step at SSM_F32_LAYERS layers, fused
+              against eager: the loss the logits' bound, every leaf's
+              gradient (the Mamba leaves: w_in, w_bc, conv, dt_bias, a_log,
+              d_skip, w_out, ln) GRAD_RTOL of its max|eager|, the launches
+              held; (b) TRAIN_STEPS bf16 steps at 64 layers through
+              ``train`` at lr SSM_LR (3e-3, the JAX package's loss test's):
+              the ce fall, every step's launches held exactly
+              (192 AG+GEMM, 192 GEMM+RS, 128 SSD intra-chunk, 1 head: each
+              layer's forward twice), the median step ms, tokens/s, peak
+              memory (held below the card's); with ``--profile`` one step's
+              device time by kernel; (c) the resume bitwise at
+              SSM_CKPT_LAYERS layers as in (11c).
+  14. zamba2  zamba2-2.7b (54 layers: Mamba-2 mixers and one shared
+              attention block of head dim 80 every 6 layers, each with its
+              own GELU MLP) at its published size: (a) one shared block in
+              float32, fused against eager, 1e-4 of max; (b) the float32
+              prefill at full depth, fused against eager, the logits'
+              bound; (c) the bf16 main path through ``serve.greedy`` (4 x
+              256 + 16 greedy), launches held exactly (63 AG+GEMM, 63
+              GEMM+RS, 45 SSD, 9 flash, 16 head), one bf16 Mamba layer
+              against f32 eager; (d) the engine (8 requests on 4 slots, 2
+              sampled) held as in (9a, b); (e) the train_ssm phase's checks
+              (the f32 step at 12 layers, two uses of the shared mixer; 30
+              bf16 steps at 54 layers; the resume at 6).
+  15. e2e     the paper's end-to-end figure (Fig. 11,
               ``benchmarks/paper_e2e.py``) and the three dense configs
               qwen2-72b (QKV bias), starcoder2-7b (GELU, 36 / 4 heads) and
               gemma3-27b (5:1 local / global attention, tied embeddings
@@ -172,7 +199,7 @@ non-zero (no phase catches its own failure):
               exactly, two runs' tokens equal; with ``--profile`` one train
               step of gemma3-27b and of granite-moe-3b-a800m in each mode,
               device time by kernel.
-  14. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  16. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -186,7 +213,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  15. kernels every kernel against its plain PyTorch version at the shapes
+  17. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -245,9 +272,18 @@ non-zero (no phase catches its own failure):
               timed against ``torch.bmm`` (with the w^T copy the backward
               makes once a layer), and the grouped GEMM's and the
               tensor-core expert GEMM's autograd Functions against float32
-              autograd there.  It runs after the serve phases: the profiler
-              leaves host overhead behind.
-  16. summary the launch counts of every path, the script's wall time,
+              autograd there; zamba2-2.7b's serve shapes (flash attention
+              at head dim 80 on both routes, bf16 bitwise over 20 launches,
+              timed against SDPA; its qkv, gate|up, o and down projections;
+              its LM head) and train shapes (the backward transposes, flash
+              attention's statistics and Function at D 80, the AG+GEMM /
+              GEMM+RS Functions); and the SSD intra-chunk kernel at the
+              train tile (T = 2560, Q = P = 64), timed in float32, with its
+              autograd Function's output and gradients against float32
+              autograd over the einsum form and the torch-ops backward
+              timed.  It runs after the serve phases: the profiler leaves
+              host overhead behind.
+  18. summary the launch counts of every path, each phase's and the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -260,7 +296,9 @@ weight, its gradient and two float32 moments take 12 bytes a parameter:
 one 80 GB card holds no more), its float32 step at 2 layers, at the
 published widths, and cuts the train_4k shape's batch of 256 to 1; the
 train_moe phase's float32 step runs 4 of granite's 32 layers, its resume
-check 2.  Every other path runs at full depth
+check 2; the train_ssm phase's float32 step runs 4 of mamba2-2.7b's 64
+layers, its resume check 2; the zamba2 phase's float32 step 12 of 54, its
+resume check 6.  Every other path runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -332,6 +370,20 @@ TRAIN_MOE_F32_LAYERS, TRAIN_MOE_DS_STEPS = 4, 3
 # only near-ties of the router's top-k flip at float32 rounding; more means the paths diverged
 TRAIN_MOE_MAX_FLIPS = 8
 ARCH_G = "gemma3-27b"
+ARCH_Z = "zamba2-2.7b"
+# zamba2's engine load (its phase): 8 requests on 4 slots, 2 sampled
+ENGINE_Z = dict(requests=8, prompt=(32, 256), new=(16, 32), sampled=2, slots=4, max_len=288)
+# the train_ssm and zamba2 phases: the train step's remat policy (the JAX package's trainer runs "dots";
+# mamba2-2.7b's saved activations at 64 layers and 8 x 256 tokens would take ~51 GB without it), the depth of
+# the float32 fused-vs-eager step (zamba2: two periods, so the shared mixer's gradient sums two uses) and of
+# the resume check (zamba2: one period, its shared block included)
+SSM_REMAT = "dots"
+# their bf16 steps' learning rate: the JAX package's loss test (``tests/test_training.py``: lr 3e-3 and the
+# same 0.2 fall); at the train CLI's default 3e-4 neither model's ce falls 0.2 in 30 steps (their init, A = -1
+# and dt_bias 0, is the reference's), in bf16 or (zamba2) in float32 alike
+SSM_LR = 3e-3
+SSM_F32_LAYERS = {ARCH_SSM: 4, ARCH_Z: 12}
+SSM_CKPT_LAYERS = {ARCH_SSM: 2, ARCH_Z: 6}
 E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
 REPLACES = {
@@ -583,7 +635,7 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
     w = rnd(d, vocab, dtype=dtype) * 0.02
     recs = {}
     shapes = [("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)]
-    engine = {**ENGINE, ARCH_DS: ENGINE_DS}
+    engine = {**ENGINE, ARCH_DS: ENGINE_DS, ARCH_Z: ENGINE_Z}
     if arch in engine:
         slots = engine[arch]["slots"]
         shapes += [("lm_head_engine_forward", slots * ENGINE_CHUNK), ("lm_head_engine_decode", slots)]
@@ -653,6 +705,80 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             lambda: K.ssd_intra_chunk.last_launch,
         )  # fmt: skip
         del cum, cb, xdt, gmat
+    return recs
+
+
+def _ssd_train_kernels(rnd, iters: int) -> dict:
+    """Kernel #6 at the train path's tile (mamba2-2.7b and zamba2-2.7b at
+    TRAIN_BATCH x TRAIN_SEQ tokens: T = B x chunks x 80 heads = 2560 tiles
+    of Q = P = 64) in float32, the path's dtype, and bf16: the forward
+    against its plain version (timed in float32), and the autograd
+    Function (``_SsdIntraChunk``: the kernel's forward, the float32
+    torch-ops backward) against float32 autograd over the einsum form, the
+    output and each gradient 1e-4 (f32) or 2e-2 (bf16) of max; the backward
+    timed (no PyTorch call computes it: library None)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks.common import bound_ms
+    from repro_torch.kernels import mamba_ssd
+
+    shp = ssm_shapes()
+    q, p = shp["q"], shp["p"]
+    t = TRAIN_BATCH * (TRAIN_SEQ // q) * (shp["di_loc"] * WORLD // p)
+    recs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        isz = torch.tensor([], dtype=dtype).element_size()
+        cum = (-(rnd(t, q, dtype=torch.float32).abs() * 0.7).cumsum(1)).to(dtype)
+        cb, xdt, dy = rnd(t, q, q, dtype=dtype) * 0.3, rnd(t, q, p, dtype=dtype) * 0.5, rnd(t, q, p, dtype=dtype)
+        tril = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+        c32 = cum.float()
+        gmat = (torch.where(tril, torch.exp(c32[:, :, None] - c32[:, None, :]), 0.0) * cb.float()).to(dtype)
+        rec = _case(
+            f"ssd_intra_chunk[train tile] cum{list(cum.shape)} cb{list(cb.shape)} xdt{list(xdt.shape)} "
+            "(library: torch.bmm(G, xdt) on a precomputed G)", dtype,
+            lambda: K.ssd_intra_chunk(cum, cb, xdt), lambda: K.ssd_intra_chunk_plain(cum, cb, xdt),
+            lambda: torch.bmm(gmat, xdt), t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p),
+            iters, not f32, lambda: K.ssd_intra_chunk.last_launch,
+        )  # fmt: skip
+        del gmat
+
+        def grads(fn, args, g):
+            args = [a.detach().clone().requires_grad_(True) for a in args]
+            out = fn(*args)
+            out.backward(g)
+            return [out.detach()] + [a.grad for a in args]
+
+        def einsum_form(c, b, x):
+            decay = torch.exp(torch.where(tril, c[:, :, None] - c[:, None, :], float("-inf")))
+            return torch.einsum("tij,tij,tjp->tip", b, decay, x)
+
+        before = K.ssd_intra_chunk.launches
+        got = grads(K.ssd_intra_chunk, (cum, cb, xdt), dy)
+        if K.ssd_intra_chunk.launches != before + 1:
+            raise SystemExit("chip_smoke: the SSD intra-chunk Function did not launch its kernel once")
+        ref = grads(einsum_form, (cum.float(), cb.float(), xdt.float()), dy.float())
+        errs = {}
+        for name, a, b in zip(("y", "dcum", "dcb", "dxdt"), got, ref):
+            err, scale = (a.float() - b).abs().max().item(), b.abs().max().item()
+            errs[name] = err
+            print(f"[kernels] _SsdIntraChunk {name} {str(dtype)[6:]} at the train tile: max|err| {err:.3e} (max|ref| "
+                  f"{scale:.3e}, bound {TOL[str(dtype)[6:]]:g} x max|ref|)")  # fmt: skip
+            if not (bool(torch.isfinite(a).all()) and err <= TOL[str(dtype)[6:]] * scale):
+                raise SystemExit(f"chip_smoke: _SsdIntraChunk's {name} ({dtype}) disagrees with float32 autograd")
+        rec["function_errs"] = errs
+        if f32:  # the backward's time: four float32 products and the masked decay, torch ops
+            rec["backward_ms"] = cuda_ms(lambda: mamba_ssd.ssd_intra_chunk_backward(cum, cb, xdt, dy), iters)
+            rec["backward_bound_ms"], rec["backward_bound_by"] = bound_ms(
+                t * (4 * q * q * p + 8 * q * q), isz * t * (2 * q + 2 * q * q + 4 * q * p), dtype
+            )  # fmt: skip
+            print(f"[kernels] _SsdIntraChunk backward (float32 torch ops) at the train tile: "
+                  f"{rec['backward_ms']:.4f} ms, bound {rec['backward_bound_ms']:.4f} ({rec['backward_bound_by']}); "
+                  "no PyTorch call computes it")  # fmt: skip
+        recs[("ssd_intra_chunk", ARCH_SSM, "train", dtype)] = rec
+        del cum, cb, xdt, dy, got, ref
+    torch.cuda.empty_cache()
     return recs
 
 
@@ -1095,7 +1221,7 @@ def phase_kernels(iters: int):
         it = iters if dtype == torch.bfloat16 else 2
         check_only = dtype != torch.bfloat16  # times are taken in the serving dtype
         isz = torch.tensor([], dtype=dtype).element_size()
-        for arch in (ARCH, ARCH_MOE, ARCH_DS):
+        for arch in (ARCH, ARCH_MOE, ARCH_DS, ARCH_Z):
             shp = path_shapes(arch)
             d, hd = shp["d"], shp["hd"]
             # --- ag_gemm: qkv (and the dense / shared-expert gate/up) projections
@@ -1178,11 +1304,13 @@ def phase_kernels(iters: int):
     recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
-    # the train phases' shapes (8 x 256 tokens): smollm's, and the MoE models' attention and dense MLPs
+    recs.update(_ssd_train_kernels(rnd, iters))
+    # the train phases' shapes (8 x 256 tokens): smollm's, the MoE models' attention and dense MLPs, and
+    # zamba2's shared attention block (head dim 80) and MLP
     recs[("train", ARCH, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd)
-    for arch in (ARCH, ARCH_MOE, ARCH_DS):
+    for arch in (ARCH, ARCH_MOE, ARCH_DS, ARCH_Z):
         recs.update(_train_backward_kernels(rnd, iters, arch))
-    for arch in (ARCH_MOE, ARCH_DS):
+    for arch in (ARCH_MOE, ARCH_DS, ARCH_Z):
         recs[("train", arch, "autograd", torch.bfloat16)] = _train_autograd_checks(rnd, arch)
     # Fig. 11's shapes (1 x 4096 tokens): every row but smollm's (its widths are the serve phase's)
     recs.update(_e2e_kernels(rnd, iters, (*E2E_ARCHS, ARCH_MOE, ARCH_DS)))
@@ -2149,14 +2277,17 @@ def phase_train(profile: bool = False) -> dict:
     return out
 
 
-def _bf16_train(tag: str, arch: str, steps: int, layers=None, loss_fall: bool = True) -> dict:
+def _bf16_train(tag: str, arch: str, steps: int, layers=None, loss_fall: bool = True, remat: str = "none",
+                lr: float = 3e-4) -> dict:  # fmt: skip
     """``steps`` bf16 steps of the train entry point (``launch/train.train``,
-    TRAIN_BATCH x TRAIN_SEQ tokens, W = 4) at ``layers`` (None: the full
-    depth): every step's launches held to ``paper_e2e.expected_launches``,
-    the mean ce of the last 5 steps held more than 0.2 below the first 5's
-    (``loss_fall``; the JAX package's loss test), the median step ms (CUDA
-    events), tokens/s and peak memory recorded.  Returns the train run with
-    its ``record``."""
+    TRAIN_BATCH x TRAIN_SEQ tokens, W = 4, ``remat`` its remat policy, ``lr``
+    its learning rate) at
+    ``layers`` (None: the full depth): every step's launches held to
+    ``paper_e2e.expected_launches``, the mean ce of the last 5 steps held
+    more than 0.2 below the first 5's (``loss_fall``; the JAX package's loss
+    test), the peak memory below the card's, the median step ms (CUDA
+    events) and tokens/s recorded.  Returns the train run with its
+    ``record``."""
     import dataclasses
 
     import torch
@@ -2168,17 +2299,17 @@ def _bf16_train(tag: str, arch: str, steps: int, layers=None, loss_fall: bool = 
 
     cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
-    expect = paper_e2e.expected_launches(cfg, "overlap")
+    expect = paper_e2e.expected_launches(cfg, "overlap", remat)
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     run = train_cli.train(arch, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=layers, dtype="bf16",
-                          world=WORLD, device="cuda", log_every=10)  # fmt: skip
+                          world=WORLD, device="cuda", log_every=10, remat=remat, lr=lr)  # fmt: skip
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     hist = run["history"]
     bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
-    print(f"[{tag}] {arch} launches per bf16 step (held exactly, every step): {hist[0]['launches']}; all "
-          f"{len(hist)} steps: {counts}")  # fmt: skip
+    print(f"[{tag}] {arch} launches per bf16 step, remat policy {remat!r} (held exactly, every step): "
+          f"{hist[0]['launches']}; all {len(hist)} steps: {counts}")  # fmt: skip
     if bad or counts != {k: v * steps for k, v in expect.items()}:
         raise SystemExit(f"chip_smoke: {arch}'s train steps launched {bad[:3]} (expected {expect} each)")
     ce = [r["ce"] for r in hist]
@@ -2189,20 +2320,23 @@ def _bf16_train(tag: str, arch: str, steps: int, layers=None, loss_fall: bool = 
     first, last = sum(ce[:5]) / len(ce[:5]), sum(ce[-5:]) / len(ce[-5:])
     fall = "held: more than 0.2 lower" if loss_fall else "not held"
     print(f"[{tag}] bf16 {arch} ({cfg.n_layers} layers) W={WORLD}, {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens: mean ce of the first 5 steps {first:.4f}, of the last 5 {last:.4f} ({fall}); step {med:.2f} ms "
+          f"tokens at lr {lr:g}: mean ce of the first 5 steps {first:.4f}, of the last 5 {last:.4f} ({fall}); step {med:.2f} ms "
           f"(median of steps {warm}-{steps - 1}, CUDA events), {tps:.0f} tokens/s, peak memory {peak / 2**20:.0f} "
           f"MiB")  # fmt: skip
     if not all(map(math.isfinite, ce)) or (loss_fall and not last < first - 0.2):
         raise SystemExit(f"chip_smoke: {arch}'s bf16 loss did not fall: {first} -> {last}")
-    run["record"] = {"layers": cfg.n_layers, "ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med,
+    if peak >= torch.cuda.get_device_properties(0).total_memory:
+        raise SystemExit(f"chip_smoke: {arch}'s train step peaked at {peak} bytes, above the card's memory")
+    run["record"] = {"layers": cfg.n_layers, "remat": remat, "lr": lr, "ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med,
                      "tokens_per_s": tps, "peak_bytes": peak, "counts": counts, "per_step": expect}  # fmt: skip
     return run
 
 
-def _resume_check(tag: str, arch: str) -> dict:
-    """A checkpoint at step TRAIN_CKPT_AT of a TRAIN_CKPT_LAYERS-layer bf16
-    run of ``arch`` at full width, resumed: the next step's loss and the
-    parameters after it bitwise the uninterrupted run's."""
+def _resume_check(tag: str, arch: str, layers: int = TRAIN_CKPT_LAYERS, remat: str = "none") -> dict:
+    """A checkpoint at step TRAIN_CKPT_AT of a ``layers``-layer bf16 run of
+    ``arch`` at full width (``remat`` its remat policy), resumed: the next
+    step's loss and the parameters after it bitwise the uninterrupted
+    run's."""
     import tempfile
 
     import torch
@@ -2211,8 +2345,8 @@ def _resume_check(tag: str, arch: str) -> dict:
     from repro_torch.training.optimizer import tree_leaves
 
     with tempfile.TemporaryDirectory() as d:
-        kw = dict(layers=TRAIN_CKPT_LAYERS, steps=TRAIN_CKPT_AT + 1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16",
-                  world=WORLD, device="cuda", ckpt_dir=d, log_every=100)  # fmt: skip
+        kw = dict(layers=layers, steps=TRAIN_CKPT_AT + 1, batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16",
+                  world=WORLD, device="cuda", ckpt_dir=d, log_every=100, remat=remat)  # fmt: skip
         ref = train_cli.train(arch, ckpt_every=TRAIN_CKPT_AT, **kw)
         last_ckpt = Path(d) / f"step_{TRAIN_CKPT_AT + 1:08d}"
         for f in last_ckpt.iterdir():
@@ -2221,7 +2355,7 @@ def _resume_check(tag: str, arch: str) -> dict:
         resumed = train_cli.train(arch, ckpt_every=0, **kw)
     a, b = ref["history"][-1], resumed["history"]
     same_params = all(torch.equal(x, y) for x, y in zip(tree_leaves(ref["params"]), tree_leaves(resumed["params"])))
-    print(f"[{tag}] {arch} checkpoint at step {TRAIN_CKPT_AT} ({TRAIN_CKPT_LAYERS} layers, full width, bf16), "
+    print(f"[{tag}] {arch} checkpoint at step {TRAIN_CKPT_AT} ({layers} layers, full width, bf16), "
           f"resumed: step {a['step']} loss {a['loss']!r} uninterrupted, {b[0]['loss']!r} resumed (held bitwise); "
           f"parameters after it bitwise equal: {same_params} (held: the moments and the step count)")  # fmt: skip
     if len(b) != 1 or b[0]["step"] != a["step"] or b[0]["loss"] != a["loss"] or not same_params:
@@ -2408,6 +2542,154 @@ def phase_train_moe(profile: bool = False) -> dict:
     out["bf16_ds"] = run["record"]
     del run
     return out
+
+
+def _ssm_f32_step(tag: str, arch: str) -> dict:
+    """One float32 step's loss and every leaf's gradient of ``arch`` at
+    SSM_F32_LAYERS[arch] layers (published width, TRAIN_BATCH x TRAIN_SEQ
+    tokens, remat SSM_REMAT), fused against eager: the loss the logits'
+    bound, each leaf GRAD_RTOL of its max|eager| (every leaf non-zero), the
+    fused step's launches ``paper_e2e.expected_launches``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SSM_F32_LAYERS[arch])
+    world = World(WORLD, "cuda")
+    p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    res = {}
+    for backend in ("fused", "eager"):
+        K.reset_launch_counts()
+        pc = ParallelContext(world=world, backend=backend)
+        loss, _, _, grads = loss_and_grads(lm, cfg, pc, p32, batch, remat_policy=SSM_REMAT)
+        res[backend] = (loss, tree_leaves(grads), K.launch_counts())
+    (loss_f, g_f, counts), (loss_e, g_e, _) = res["fused"], res["eager"]
+    expect = paper_e2e.expected_launches(cfg, "overlap", SSM_REMAT)
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: {arch}'s f32 fused step launched {counts}, expected {expect}")
+    _hold_logits(f"[{tag}] {arch} f32 loss, one step ({cfg.n_layers} layers, remat {SSM_REMAT!r})",
+                 loss_f[None], loss_e[None])  # fmt: skip
+    errs = _grad_errs(_leaf_names(lm.trainable(p32, cfg)), g_f, g_e)
+    worst = max(errs, key=lambda t: t[1])
+    print(f"[{tag}] {arch} f32 gradients, fused vs eager ({cfg.n_layers} layers, {len(errs)} leaves): worst max|diff| "
+          f"/ max|eager leaf| {worst[1]:.3e} ({worst[0]}; bound {GRAD_RTOL:g} per leaf, every leaf non-zero); "
+          f"fused launches {counts}")  # fmt: skip
+    bad = [e for e in errs if not (e[2] and e[1] <= GRAD_RTOL)]
+    if bad:
+        raise SystemExit(f"chip_smoke: {arch}'s f32 fused gradients disagree with eager: {bad[:8]}")
+    out = {"layers": cfg.n_layers, "loss": [loss_f.item(), loss_e.item()], "grad_rel_err": worst[1],
+           "worst_leaf": worst[0], "leaves": len(errs), "counts": counts}  # fmt: skip
+    del p32, res, g_f, g_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ssm_training(tag: str, arch: str, profile: bool) -> dict:
+    """``arch`` trained at its published size, W = 4, remat SSM_REMAT: the
+    float32 step fused against eager (:func:`_ssm_f32_step`), TRAIN_STEPS
+    bf16 steps of the train entry point at full depth and lr SSM_LR
+    (:func:`_bf16_train`),
+    with ``profile`` one step's device time by kernel, and the resume check
+    at SSM_CKPT_LAYERS[arch] layers."""
+    import torch
+
+    out = {"f32_step": _ssm_f32_step(tag, arch)}
+    run = _bf16_train(tag, arch, TRAIN_STEPS, remat=SSM_REMAT, lr=SSM_LR)
+    out["bf16"] = run["record"]
+    if profile:
+        from repro_torch.backend.mesh import World
+        from repro_torch.benchmarks.common import profile_windows
+        from repro_torch.data import SyntheticLM
+        from repro_torch.models import lm
+        from repro_torch.parallel.context import ParallelContext
+        from repro_torch.training import AdamWConfig, make_train_step
+
+        cfg, pc = run["cfg"], ParallelContext(world=World(WORLD, "cuda"))
+        step = make_train_step(lm, cfg, pc, AdamWConfig(), remat_policy=SSM_REMAT, grad_masks=lm.grad_masks(cfg, pc),
+                               donate=True)  # fmt: skip
+        batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+        state = {"p": run["params"], "o": run["opt_state"]}
+
+        def one_step():
+            state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+        out["profile"] = profile_windows(f"{cfg.name} train", {"step": one_step})
+        del state
+    del run
+    torch.cuda.empty_cache()
+    out["resume"] = _resume_check(tag, arch, SSM_CKPT_LAYERS[arch], SSM_REMAT)
+    return out
+
+
+def phase_train_ssm(profile: bool = False) -> dict:
+    """mamba2-2.7b trained at its published size (module docstring, phase 13)."""
+    return _ssm_training("train_ssm", ARCH_SSM, profile)
+
+
+def phase_zamba2(profile: bool = False) -> dict:
+    """zamba2-2.7b at its published size: serve, the engine, training
+    (module docstring, phase 14)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_Z)
+    max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+
+    # (a) one shared attention block (the shared mixer, head dim 80, its GELU MLP), fused against eager
+    d = next(d_ for d_ in lm.layer_plan(cfg) if d_.shared)
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    x = torch.randn((WORLD, BATCH, s_loc, cfg.d_model), generator=gen, device=world.device)
+    layer = params["layers"][lm.layer_plan(cfg).index(d)]
+    before = K.launch_counts()
+    y_f, _ = d.apply_seq(layer, x, pc, cfg, params["shared_attn"])
+    ran = {k: v - before[k] for k, v in K.launch_counts().items()}
+    if ran != {**{k: 0 for k in ran}, "ag_gemm": 2, "gemm_rs": 2, "flash_attention": 1}:
+        raise SystemExit(f"chip_smoke: the fused shared attention block launched {ran}")
+    y_e, _ = d.apply_seq(layer, x, pc_eager, cfg, params["shared_attn"])
+    out_f, out_e = y_f - x, y_e - x
+    err, scale = (out_f - out_e).abs().max().item(), out_e.abs().max().item()
+    print(f"[zamba2] f32 shared attention block (head dim {cfg.hd}) [{WORLD}, {BATCH}, {s_loc}, {cfg.d_model}], fused "
+          f"vs eager: max|diff| {err:.3e} (bound {TOL['float32']:g} x max|eager| {scale:.3e})")  # fmt: skip
+    if not (torch.isfinite(out_f).all() and err <= TOL["float32"] * scale):
+        raise SystemExit("chip_smoke: the fused shared attention block disagrees with the eager one")
+    del x, y_f, y_e, out_f, out_e
+
+    # (b) the float32 prefill at full depth, fused against eager, every position
+    lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
+    _hold_logits("[zamba2] f32 prefill logits (every position)", lg_f, lg_e)
+    result = {"layer_err": err}
+    del params, lg_f, lg_e
+    torch.cuda.empty_cache()
+
+    # (c) bfloat16: the main path (prefill + greedy decode), then the engine
+    plan = lm.layer_plan(cfg)
+    ssm, attn = sum(d_.kind == "mamba" for d_ in plan), sum(d_.shared for d_ in plan)
+    expect = {"ag_gemm": cfg.n_layers + attn, "gemm_rs": cfg.n_layers + attn, "ssd_intra_chunk": ssm,
+              "flash_attention": attn, "matmul": NEW_TOKENS, "grouped_matmul": 0}  # fmt: skip
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    result.update(_main_path("zamba2", cfg, pc, prompts, expect, profile, pc_eager, layer=True, params=params))
+    result["engine"], _ = _engine_bf16(cfg, pc, params, ENGINE_Z, profile)
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) training, as the train_ssm phase
+    result["train"] = _ssm_training("zamba2", ARCH_Z, profile)
+    return result
 
 
 def _e2e_f32_step(arch: str) -> dict:
@@ -2624,22 +2906,22 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     kind, smi = phase_device()
-    out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build()}
-    out["serve"] = phase_serve(args.profile)
-    out["seam"] = phase_seam(args.profile)
-    out["moe"] = phase_moe(args.profile)
-    out["deepseek"] = phase_deepseek(args.profile)
-    out["ep"] = phase_ep(args.profile)
-    out["ssm"] = phase_ssm(args.profile)
-    out["engine"] = phase_engine(args.profile)
-    out["ring"] = phase_ring()
-    out["train"] = phase_train(args.profile)
-    out["train_moe"] = phase_train_moe(args.profile)
-    out["e2e"] = phase_e2e(args.profile)
-    out["paper"] = phase_paper()
-    # last: its torch.profiler sessions (device_ms) leave host overhead behind
-    # that would slow the host-bound prefill and decode of the phases above
-    recs = phase_kernels(ITERS)
+    out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build(), "phase_s": {}}
+    prof = args.profile
+    phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
+              "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
+              "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
+              "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
+              "zamba2": lambda: phase_zamba2(prof), "e2e": lambda: phase_e2e(prof), "paper": phase_paper,
+              # last: its torch.profiler sessions (device_ms) leave host overhead behind
+              # that would slow the host-bound prefill and decode of the phases above
+              "kernels": lambda: phase_kernels(ITERS)}  # fmt: skip
+    for name, run in phases.items():
+        t0 = time.perf_counter()
+        out[name] = run()
+        out["phase_s"][name] = time.perf_counter() - t0
+        print(f"[summary] phase {name}: {out['phase_s'][name]:.1f} s")
+    recs = out.pop("kernels")
     by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_DS: out["deepseek"]["counts"],
                ARCH_SSM: out["ssm"]["counts"]}  # fmt: skip
     by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
@@ -2650,12 +2932,16 @@ def main(argv=None) -> int:
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
     by_path[f"train_moe {ARCH_MOE}"] = out["train_moe"]["bf16"]["counts"]
     by_path[f"train_moe {ARCH_DS}"] = out["train_moe"]["bf16_ds"]["counts"]
+    by_path[f"train_ssm {ARCH_SSM}"] = out["train_ssm"]["bf16"]["counts"]
+    by_path[ARCH_Z] = out["zamba2"]["counts"]
+    by_path[f"engine {ARCH_Z}"] = out["zamba2"]["engine"]["counts"]
+    by_path[f"train {ARCH_Z}"] = out["zamba2"]["train"]["bf16"]["counts"]
     by_path.update({f"e2e {arch}": c for arch, c in out["e2e"]["counts"].items()})
     by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
-    engines = [*out["engine"].values(), out["deepseek"]["engine"]]
+    engines = [*out["engine"].values(), out["deepseek"]["engine"], out["zamba2"]["engine"]]
     bf16, f32 = torch.bfloat16, torch.float32
     for name, arch, tag, dtype in (
         ("matmul", ARCH, "lm_head", bf16), ("ag_gemm", ARCH, "gate_up", bf16), ("gemm_rs", ARCH, "down", bf16),
@@ -2681,6 +2967,13 @@ def main(argv=None) -> int:
             "train_checks": {(a if t == "autograd" else f"{a} {t}"): recs[(n, a, t, d)]["max_abs_err"].get(name, {})
                              for n, a, t, d in recs if n == "train"},
         })  # fmt: skip
+        if name == "flash_attention":  # head dim 80 (zamba2's shared attention), bf16 on the wgmma route
+            r80 = recs[(name, ARCH_Z, "prefill", bf16)]
+            line[-1]["d80"] = {k: r80[k] for k in TIMES if k in r80}
+        if name == "ssd_intra_chunk":  # the train tile (f32), forward and the torch-ops backward
+            rt = recs[(name, ARCH_SSM, "train", f32)]
+            line[-1]["train"] = {k: rt[k] for k in (*TIMES, "backward_ms", "backward_bound_ms", "function_errs")
+                                 if k in rt}  # fmt: skip
     out["wall_s"] = time.perf_counter() - t_start
     print(f"[summary] wall time of the script: {out['wall_s']:.1f} s (the kernels' build included)")
     if args.json:

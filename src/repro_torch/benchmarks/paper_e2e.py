@@ -95,22 +95,26 @@ def e2e_config(arch: str, layers: Optional[int] = None):
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
 
-def expected_launches(cfg, mode: str) -> dict:
+def expected_launches(cfg, mode: str, remat: str = "none") -> dict:
     """Kernel launches of one train step on the card: the LM head's tile
-    GEMM forward, one flash launch a layer (its backward is torch ops from
-    the saved statistics) in both modes; with overlap, each attention
-    block's and each dense MLP's (a dense layer's, or a MoE layer's shared
-    experts) AG+GEMM and GEMM+RS forward and each one's transpose through
-    the other kernel backward, and each MoE block's two grouped GEMMs at
-    every one of the double ring's W steps (one channel), forward and
-    input gradients."""
+    GEMM forward, one flash launch an attention layer (its backward is
+    torch ops from the saved statistics) and one SSD intra-chunk launch a
+    Mamba layer (its backward torch ops too) in both modes; with overlap,
+    each mixer's (attention or Mamba) and each dense MLP's (a dense
+    layer's, or a MoE layer's shared experts) AG+GEMM and GEMM+RS forward
+    and each one's transpose through the other kernel backward, and each
+    MoE block's two grouped GEMMs at every one of the double ring's W steps
+    (one channel), forward and input gradients.  ``remat="dots"`` runs each
+    layer's forward launches twice (the head's once)."""
     plan = lm.layer_plan(cfg)
     moe = sum(d.ffn_kind == "moe" for d in plan)
     mlps = sum(d.ffn_kind == "mlp" for d in plan) + (moe if cfg.moe and cfg.moe.num_shared else 0)
+    ssm = sum(d.kind == "mamba" for d in plan)
     on = mode == "overlap"
-    fused = 2 * (len(plan) + mlps) if on else 0
-    return {"matmul": 1, "ag_gemm": fused, "gemm_rs": fused, "flash_attention": len(plan),
-            "grouped_matmul": 4 * WORLD * moe if on else 0, "ssd_intra_chunk": 0}  # fmt: skip
+    fwd = 2 if remat != "none" else 1  # forward launches: the forward, and its recompute
+    fused = (fwd + 1) * (len(plan) + mlps) if on else 0
+    return {"matmul": 1, "ag_gemm": fused, "gemm_rs": fused, "flash_attention": fwd * (len(plan) - ssm),
+            "grouped_matmul": (2 * fwd + 2) * WORLD * moe if on else 0, "ssd_intra_chunk": fwd * ssm}  # fmt: skip
 
 
 def _timed_step(step, params, opt, batch, cuda: bool):
@@ -130,7 +134,7 @@ def run_row(cfg, world: World, *, dtype=torch.bfloat16, batch: int = BATCH, seq:
             pairs: int = PAIRS) -> dict:  # fmt: skip
     """One Fig. 11 row of ``cfg`` on ``world`` (module docstring).  Raises
     ``lm.check_trainable``'s error for a model whose training is not
-    ported (Mamba layers), before anything is allocated."""
+    ported, before anything is allocated."""
     pcs = {m: ParallelContext(world=world, mode=m) for m in MODES}
     for pc in pcs.values():
         lm.check_trainable(cfg, pc)

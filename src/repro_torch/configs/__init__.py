@@ -1,5 +1,5 @@
 """Architecture configs the port serves and trains (smollm-360m, qwen2-72b, starcoder2-7b and gemma3-27b
-dense; granite-moe-3b-a800m and deepseek-moe-16b MoE; mamba2-2.7b SSM)."""
+dense; granite-moe-3b-a800m and deepseek-moe-16b MoE; mamba2-2.7b SSM; zamba2-2.7b hybrid)."""
 
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, get_config, reduce_config, register
 from repro_torch.configs import (  # noqa: F401 — registration side effect
@@ -10,6 +10,7 @@ from repro_torch.configs import (  # noqa: F401 — registration side effect
     qwen2_72b,
     smollm_360m,
     starcoder2_7b,
+    zamba2_2p7b,
 )
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "get_config", "reduce_config", "register"]

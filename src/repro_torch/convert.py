@@ -33,7 +33,8 @@ padded once, the same way, for the bf16 tile-GEMM kernel: granite's 49156
 padded-vocab columns become 49160, and ``lm.logits`` keeps the first
 ``vocab_size``.
 ``params["scan"]`` (a leading layer axis per pattern position) is unstacked
-into the layer list.
+into the layer list.  A shared attention mixer (``shared_attn``, zamba2) is
+sharded like any attention mixer; its layers hold only their MLP.
 
 ``unshard_params`` is the inverse of ``shard_params``: rank-stacked ->
 global (the layout ``shard_params`` takes, the JAX package's with the
@@ -100,11 +101,15 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
         "embed": shard_rows(embed, world),
         "head": _pad_head(head),
         "final_ln": glob["final_ln"],
-        "layers": [],
     }
+    if "shared_attn" in glob:
+        out["shared_attn"] = shard_attention(glob["shared_attn"], world)
+    out["layers"] = []
     for layer in glob["layers"]:
-        mixer = layer["mixer"]
-        if "w_xz" in mixer:
+        mixer = layer.get("mixer")
+        if mixer is None:  # a shared_attn layer: its mixer is the shared one
+            new = {}
+        elif "w_xz" in mixer:
             new = {"mixer": shard_mamba(mixer, world)}
         else:
             new = {"mixer": shard_attention(mixer, world)}
@@ -172,17 +177,35 @@ def _unshard_mlp(f: Dict[str, Any]) -> Dict[str, Any]:
     return {"ln": f["ln"], "w_gu": unshard_cols(f["w_gu"]), "w_down": unshard_rows(f["w_down"])}
 
 
+def _unshard_attention(mixer: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """Inverse of :func:`shard_attention`."""
+    from repro_torch.nn.attention import layout
+
+    nq = layout(cfg, world.size).h_loc * cfg.hd
+    out = {
+        "ln": mixer["ln"],
+        "wq": unshard_cols(mixer["wqkv"][..., :nq]),
+        "wkv": unshard_cols(mixer["wqkv"][..., nq:]),
+        "wo": unshard_rows(mixer["wo"]),
+    }
+    if "bqkv" in mixer:
+        out.update(bq=unshard_rows(mixer["bqkv"][:, :nq]), bkv=unshard_rows(mixer["bqkv"][:, nq:]))
+    return out
+
+
 def unshard_params(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     """Rank-stacked -> global: the inverse of :func:`shard_params` (module
     docstring).  Every leaf is a new tensor or a view of ``params``."""
-    from repro_torch.nn.attention import layout
-
     out = {"embed": unshard_rows(params["embed"]), "final_ln": params["final_ln"], "layers": []}
     if "head" in params and not cfg.tie_embeddings:
         out["lm_head"] = params["head"][:, : params["embed"].shape[0] * params["embed"].shape[1]]
+    if "shared_attn" in params:
+        out["shared_attn"] = _unshard_attention(params["shared_attn"], cfg, world)
     for layer in params["layers"]:
-        mixer = layer["mixer"]
-        if "w_in" in mixer:
+        mixer = layer.get("mixer")
+        if mixer is None:
+            new = {}
+        elif "w_in" in mixer:
             di_loc, h_loc = mixer["conv"].shape[-1], mixer["dt_bias"].shape[-1]
             new = {"mixer": {
                 "ln": mixer["ln"],
@@ -194,15 +217,7 @@ def unshard_params(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
                 **{k: unshard_rows(mixer[k]) for k in ("dt_bias", "a_log", "d_skip")},
             }}  # fmt: skip
         else:
-            nq = layout(cfg, world.size).h_loc * cfg.hd
-            new = {"mixer": {
-                "ln": mixer["ln"],
-                "wq": unshard_cols(mixer["wqkv"][..., :nq]),
-                "wkv": unshard_cols(mixer["wqkv"][..., nq:]),
-                "wo": unshard_rows(mixer["wo"]),
-            }}  # fmt: skip
-            if "bqkv" in mixer:
-                new["mixer"].update(bq=unshard_rows(mixer["bqkv"][:, :nq]), bkv=unshard_rows(mixer["bqkv"][:, nq:]))
+            new = {"mixer": _unshard_attention(mixer, cfg, world)}
         f = layer.get("ffn")
         if f is not None and "router" in f:
             new["ffn"] = {"ln": f["ln"], "router": f["router"], "w_gu": unshard_rows(f["w_gu"]),
@@ -244,7 +259,7 @@ def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optiona
     layers = list(tree.get("prefix", []))
     scan = tree.get("scan")
     if scan:
-        n_units = next(iter(scan[0]["mixer"].values())).shape[0]
+        n_units = next(iter(next(iter(scan[0].values())).values())).shape[0]  # a leaf's layer axis
         for u in range(n_units):
             for unit_layer in scan:
                 layers.append(_unit(unit_layer, u))
@@ -252,6 +267,7 @@ def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optiona
     if len(layers) != len(layer_plan(cfg)):
         raise ValueError(f"got {len(layers)} layers for a {cfg.n_layers}-layer config")
     glob = {"embed": tree["embed"], "final_ln": tree["final_ln"], "layers": layers}
-    if "lm_head" in tree:
-        glob["lm_head"] = tree["lm_head"]
+    for name in ("lm_head", "shared_attn"):
+        if name in tree:
+            glob[name] = tree[name]
     return shard_params(glob, cfg, world)

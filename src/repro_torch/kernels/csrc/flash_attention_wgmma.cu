@@ -1,7 +1,7 @@
 // Flash attention, bf16 route for Hopper: TMA -> shared-memory ring -> wgmma,
 // online softmax in registers.
 //
-// Replaces, for bf16 operands at head dims 64 and 128, the TPU kernel
+// Replaces, for bf16 operands at head dims 64, 80 and 128, the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel): q [BH,
 // Sq, D], k/v [BHkv, Sk, D] -> o [BH, Sq, D]; head b reads KV head b / (BH /
 // BHkv); queries right-aligned to keys (query i sits at key position i + Sk -
@@ -38,6 +38,14 @@
 //     query's window.  Masked entries take -1e30 (as the plain version),
 //     keys past Sk take p = 0.
 //
+// Head dim 80 (zamba2) runs the D-128 pipeline: the maps carry the true
+// width of 80 (160-byte rows, a 16-byte multiple), the two 64-column boxes
+// stay, and TMA fills columns 80-127 of the second box with zeros, so S = Q
+// K^T takes 5 k-steps of 16 (the zero columns would add nothing) and O += P
+// V runs at N = 128 with zero columns 80-127, which are never stored: O, the
+// state and the no-key rows take 80 columns only.  No padded copy of q / k /
+// v exists in memory.
+//
 // Ring steps (flash_map.cuh): one launch may cover W emulated ranks, each
 // with its own query / key position offset and KV head offset; the block skip
 // and the masks take the rank's offset, blockIdx.y walks the ranks busiest
@@ -68,9 +76,10 @@ constexpr int FW_THREADS = FW_CONSUMERS + 32;
 constexpr int FW_BOX = 64 * 64 * 2;  // one 64 x 64 bf16 box
 constexpr float FW_NEG = -1e30f;
 
-template <int D>
+// DP: the pipeline's width, D rounded up to 64-column boxes
+template <int DP>
 struct FwSmem {
-  static constexpr int BOXES = D / 64;
+  static constexpr int BOXES = DP / 64;
   static constexpr int Q_BYTES = BOXES * FW_BOX;
   static constexpr int KV_BYTES = BOXES * FW_BOX;  // one of K or V
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
@@ -158,13 +167,14 @@ __device__ __forceinline__ FwRange fw_range(int q0, int Sk, int off, int causal,
   return FwRange{lo, hi > lo ? (hi - lo + FW_BK - 1) / FW_BK : 0};
 }
 
-template <int D>
+// D: the head dim in memory; DP: the pipeline's width (64 or 128, >= D)
+template <int D, int DP>
 __global__ void __launch_bounds__(FW_THREADS)
     fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o, int Sq, int Sk,
                     float scale_log2, int causal, int window, const __grid_constant__ FaMap fmap,
                     const FaState st) {
-  using SM = FwSmem<D>;
+  using SM = FwSmem<DP>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * FW_STAGES + 1];
   uint64_t* full = bars;
@@ -232,7 +242,7 @@ __global__ void __launch_bounds__(FW_THREADS)
   const int t = threadIdx.x;
   const int rl = (t >> 5) * 16 + ((t & 31) >> 2);  // this thread's rows rl and rl + 8 of the tile
   const int cl = 2 * (t & 3);                      // and its column pairs cl + 8 n
-  constexpr int OACC = D / 2;
+  constexpr int OACC = DP / 2;
   float oacc[OACC];
 #pragma unroll
   for (int j = 0; j < OACC; ++j) oacc[j] = 0.f;
@@ -249,7 +259,7 @@ __global__ void __launch_bounds__(FW_THREADS)
 #pragma unroll
     for (int j = 0; j < OACC; j += 2) {
       const int row = q0 + rl + 8 * ((j >> 1) & 1);
-      if (row < Sq) {
+      if (row < Sq && cl + 8 * (j >> 2) < D) {
         const float2 p = *reinterpret_cast<const float2*>(st.o + (static_cast<long>(bh) * Sq + row) * D + cl + 8 * (j >> 2));
         oacc[j] = p.x;
         oacc[j + 1] = p.y;
@@ -274,7 +284,7 @@ __global__ void __launch_bounds__(FW_THREADS)
     for (int j = 0; j < 32; ++j) sacc[j] = 0.f;
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {  // columns D..DP are zero: no k-step reads them
       const uint32_t boff = (kk / 4) * FW_BOX + (kk % 4) * 32;
       fa_mma_ss_n64(sacc, wg_desc_a(q_addr + boff), wg_desc_a(k_addr + boff), kk != 0);
     }
@@ -337,7 +347,7 @@ __global__ void __launch_bounds__(FW_THREADS)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t db = wg_desc(v_addr + kk * 2048, FW_BOX, 1024);
-      if constexpr (D == 64) {
+      if constexpr (DP == 64) {
         fa_mma_rs_n64(oacc, pa[kk], db, 1);
       } else {
         fa_mma_rs_n128(oacc, pa[kk], db, 1);
@@ -370,7 +380,7 @@ __global__ void __launch_bounds__(FW_THREADS)
 #pragma unroll
     for (int j = 0; j < OACC; j += 2) {
       const int row = q0 + rl + 8 * ((j >> 1) & 1);
-      if (row < Sq)
+      if (row < Sq && cl + 8 * (j >> 2) < D)
         *reinterpret_cast<float2*>(st.o + (static_cast<long>(bh) * Sq + row) * D + cl + 8 * (j >> 2)) =
             make_float2(oacc[j], oacc[j + 1]);
     }
@@ -382,13 +392,13 @@ __global__ void __launch_bounds__(FW_THREADS)
     const int h = (j >> 1) & 1;
     const int row = q0 + rl + 8 * h;
     const int col = cl + 8 * (j >> 2);
-    if (row < Sq)
+    if (row < Sq && col < D)
       *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<long>(row) * D + col) =
           __floats2bfloat162_rn(oacc[j] * inv[h], oacc[j + 1] * inv[h]);
   }
 }
 
-template <int D>
+template <int D, int DP>
 static int fw_launch(const void* q, const void* k, const void* v, void* o, int BH, int BHkv, int Sq, int Sk,
                      float scale, int causal, int window, const FaMap& fmap, const FaState& fst, int* info,
                      cudaStream_t st) {
@@ -404,20 +414,20 @@ static int fw_launch(const void* q, const void* k, const void* v, void* o, int B
   if (rc != 0) return rc;
   static bool opted = false;  // one card per process
   if (!opted) {
-    cudaError_t e = cudaFuncSetAttribute(fa_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         FwSmem<D>::BYTES);
+    cudaError_t e = cudaFuncSetAttribute(fa_wgmma_kernel<D, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         FwSmem<DP>::BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     opted = true;
   }
   const dim3 grid((Sq + FW_BQ - 1) / FW_BQ, BH);
   info[0] = static_cast<int>(grid.x * grid.y);
   const float scale_log2 = scale * 1.4426950408889634f;
-  fa_wgmma_kernel<D><<<grid, FW_THREADS, FwSmem<D>::BYTES, st>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk,
+  fa_wgmma_kernel<D, DP><<<grid, FW_THREADS, FwSmem<DP>::BYTES, st>>>(mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Sk,
                                                                   scale_log2, causal, window, fmap, fst);
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 q [BH, Sq, D], k/v [BHkv, Sk, D] -> o; D 64 or 128; bases 16-byte
+// bf16 q [BH, Sq, D], k/v [BHkv, Sk, D] -> o; D 64, 80 or 128; bases 16-byte
 // aligned (TMA).  map (host int table, flash_map.cuh) places W ranks' heads
 // and positions; m / l / so are the f32 state (load: read it; store: write
 // it instead of o; null when neither).  info (host int[1]) receives the
@@ -435,7 +445,8 @@ extern "C" int tl_flash_attention_wgmma(const void* q, const void* k, const void
   if (!store && o == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* inf = static_cast<int*>(info);
-  if (D == 64) return fw_launch<64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
-  if (D == 128) return fw_launch<128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
+  if (D == 64) return fw_launch<64, 64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
+  if (D == 80) return fw_launch<80, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
+  if (D == 128) return fw_launch<128, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

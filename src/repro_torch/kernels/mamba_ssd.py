@@ -10,6 +10,12 @@ of the JAX package (``intra="einsum"``) or the Hopper kernel
 (``_ssd_intra_kernel``) of the same file; the bound and the design are
 noted in the CUDA source.
 
+Under autograd the intra-chunk term is :class:`_SsdIntraChunk`: the
+kernel's forward and a float32 backward in PyTorch ops
+(:func:`ssd_intra_chunk_backward`); the rest of ``ssd_chunked`` (the C.B
+einsum, the cumsum, the loop over chunk states) differentiates as torch
+ops.
+
 :func:`ssd_intra_chunk_plain` is the kernel's plain PyTorch version;
 :func:`block_tiles`, :func:`thread_pairs` and :func:`bulk_staged` model the
 kernel's schedule (which tiles a persistent block takes, which (i, j) pairs
@@ -30,6 +36,7 @@ __all__ = [
     "ssd_chunked",
     "ssd_intra_chunk",
     "ssd_intra_chunk_plain",
+    "ssd_intra_chunk_backward",
     "block_tiles",
     "thread_pairs",
     "bulk_staged",
@@ -92,15 +99,19 @@ def _check(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor):
         )
 
 
+def _decay(cum: torch.Tensor) -> torch.Tensor:
+    """exp(cum_i - cum_j) where i >= j, else 0: [T, Q] -> [T, Q, Q] float32."""
+    q = cum.shape[1]
+    c32 = cum.float()
+    tril = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
+    return torch.where(tril, torch.exp(c32[:, :, None] - c32[:, None, :]), 0.0)
+
+
 def ssd_intra_chunk_plain(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> torch.Tensor:
     """Plain version: ``where(tril, exp(cum_i - cum_j), 0) * cb`` then ``@ xdt``
     in float32, cast to xdt's dtype."""
     _check(cum, cb, xdt)
-    q = cum.shape[1]
-    c32 = cum.float()
-    tril = torch.ones((q, q), dtype=torch.bool, device=cum.device).tril()
-    decay = torch.where(tril, torch.exp(c32[:, :, None] - c32[:, None, :]), 0.0)
-    return torch.matmul(decay * cb.float(), xdt.float()).to(xdt.dtype)
+    return torch.matmul(_decay(cum) * cb.float(), xdt.float()).to(xdt.dtype)
 
 
 def ssd_intra_chunk(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> torch.Tensor:
@@ -108,8 +119,16 @@ def ssd_intra_chunk(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> t
     cb: [T, Q, Q], xdt: [T, Q, P] -> y: [T, Q, P] in xdt's dtype.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    (or raises)."""
+    (or raises).  Under autograd (grad mode on and an input that requires
+    grad) the same forward runs inside :class:`_SsdIntraChunk`."""
     _check(cum, cb, xdt)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (cum, cb, xdt)):
+        return _SsdIntraChunk.apply(cum, cb, xdt)
+    return _intra_forward(cum, cb, xdt)
+
+
+def _intra_forward(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> torch.Tensor:
+    """The plain version on CPU tensors, else one launch of the kernel."""
     if all(a.device.type == "cpu" for a in (cum, cb, xdt)):
         return ssd_intra_chunk_plain(cum, cb, xdt)
     build.check_cuda_operands("ssd_intra_chunk", cum, cb, xdt)
@@ -132,6 +151,39 @@ def ssd_intra_chunk(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> t
 
 ssd_intra_chunk.launches = 0
 ssd_intra_chunk.last_launch = None
+
+
+def ssd_intra_chunk_backward(cum, cb, xdt, dy):
+    """The intra-chunk term's gradient (dcum, dcb, dxdt) in float32 PyTorch
+    ops, with G = cb * exp(cum_i - cum_j) * [i >= j] recomputed: dxdt = G^T
+    dy, dG = dy xdt^T, dcb = dG * decay, dcum = rowsum(dG * G) - colsum(dG *
+    G) (G_ij moves with cum_i and against cum_j).  Each gradient in its
+    input's dtype.  The JAX package has no backward kernel (its training
+    path differentiates the einsum form through XLA)."""
+    decay = _decay(cum)
+    g = decay * cb.float()
+    dy32 = dy.float()
+    dxdt = torch.matmul(g.transpose(1, 2), dy32)
+    dg = torch.matmul(dy32, xdt.float().transpose(1, 2))
+    dcb = dg * decay
+    dgg = dg.mul_(g)
+    dcum = dgg.sum(2) - dgg.sum(1)
+    return dcum.to(cum.dtype), dcb.to(cb.dtype), dxdt.to(xdt.dtype)
+
+
+class _SsdIntraChunk(torch.autograd.Function):
+    """The intra-chunk term under autograd: the forward is the kernel (the
+    plain version on the CPU), the backward :func:`ssd_intra_chunk_backward`
+    from the saved cum, cb and xdt (no kernel launch)."""
+
+    @staticmethod
+    def forward(ctx, cum, cb, xdt):
+        ctx.save_for_backward(cum, cb, xdt)
+        return _intra_forward(cum, cb, xdt)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ssd_intra_chunk_backward(*ctx.saved_tensors, dy)
 
 
 def ssd_chunked(

@@ -6,8 +6,9 @@ The port of ``repro/launch/serve.py``.  ``main`` / :func:`serve` submit
 ``--eos-id``) and drain it: on the card one captured step per iteration
 with one host sync.  :func:`greedy` is the fixed-batch path, ``lm.prefill``
 (the fused kernels on the card) then a greedy ``decode_step`` loop.
-Example, on the card (``--arch smollm-360m``, ``granite-moe-3b-a800m``,
-``deepseek-moe-16b`` or ``mamba2-2.7b``):
+Example, on the card (``--arch`` any registered config: smollm-360m,
+qwen2-72b, starcoder2-7b, gemma3-27b, granite-moe-3b-a800m,
+deepseek-moe-16b, mamba2-2.7b or zamba2-2.7b):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
       --batch 16 --prompt-len 256 --new-tokens 16 --slots 8 --world 4 --dtype bf16
@@ -144,7 +145,7 @@ def serve(
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, help="smollm-360m, granite-moe-3b-a800m, deepseek-moe-16b or mamba2-2.7b")
+    ap.add_argument("--arch", required=True, help="a registered config, e.g. smollm-360m, mamba2-2.7b, zamba2-2.7b")
     ap.add_argument("--reduce", action="store_true", help="reduced same-family config (CPU runs)")
     ap.add_argument("--batch", type=int, default=4, help="requests submitted")
     ap.add_argument("--prompt-len", type=int, default=256)

@@ -19,6 +19,13 @@ published widths stay), e.g. gemma3-27b at one 5:1 period on the card:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-27b --layers 6 \\
       --batch 1 --seq 4096 --steps 10 --mode baseline
+
+``--remat dots`` recomputes each layer in the backward (the JAX package's
+trainer always runs ``remat_policy="dots"``); mamba2-2.7b's 64 layers at 8
+x 256 tokens need it on one 80 GB card (their saved activations alone
+would take ~51 GB):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --remat dots --steps 30
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ def train(
     reduce: bool = False,
     layers: Optional[int] = None,
     mode: str = "overlap",
+    remat: str = "none",
     ckpt_dir: Optional[str] = None,
     ckpt_every: int = 50,
     lr: float = 3e-4,
@@ -64,7 +72,7 @@ def train(
 ) -> dict:
     """Train ``arch`` for ``steps`` steps (resuming from the latest checkpoint
     in ``ckpt_dir`` when ``resume``) with seeded weights (seed 0);
-    ``layers`` cuts the depth.  Returns {"history": one record per
+    ``layers`` cuts the depth; ``remat`` is the step's ``remat_policy``.  Returns {"history": one record per
     step run (loss, ce, grad_norm, lr, ms, launches), "params", "opt_state",
     "cfg"}.  A step's ``ms`` is CUDA-event time on the card, host time on
     the CPU; ``launches`` counts each kernel's launches in that step."""
@@ -80,7 +88,9 @@ def train(
     opt_state = init_opt_state(lm.trainable(params, cfg))
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
     # donated: each step updates the state it is given in place (one copy of the weights and moments)
-    step_fn = make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc), donate=True)
+    step_fn = make_train_step(
+        lm, cfg, pc, opt_cfg, remat_policy=remat, grad_masks=lm.grad_masks(cfg, pc), donate=True
+    )
 
     pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
@@ -132,6 +142,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--mode", default="overlap", choices=["overlap", "baseline"])
+    ap.add_argument("--remat", default="none", choices=list(lm.REMAT_POLICIES),
+                    help="'dots': recompute each layer in the backward")  # fmt: skip
     ap.add_argument("--reduce", action="store_true", help="the reduced same-family config (CPU runs)")
     ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers (published widths)")
     ap.add_argument("--ckpt-dir")
@@ -145,7 +157,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     out = train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, reduce=args.reduce, layers=args.layers,
-        mode=args.mode,
+        mode=args.mode, remat=args.remat,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr, dtype=args.dtype, world=args.world,
         device=args.device, log_every=args.log_every, resume=args.resume,
     )  # fmt: skip

@@ -1,8 +1,10 @@
-"""Decoder-only LM — the port of ``repro/models/lm.py`` for the serve path
-of ``"attn"`` layers with a dense MLP or an MoE FFN (with or without shared
-experts), ``"attn_dense"`` layers (the leading dense-MLP layers of an MoE
-model, ``moe.first_k_dense``, at ``moe.dense_d_ff``), and ``"mamba"``
-layers (a Mamba-2 mixer, no FFN).
+"""Decoder-only LM — the port of ``repro/models/lm.py`` for ``"attn"``
+layers with a dense MLP or an MoE FFN (with or without shared experts),
+``"attn_dense"`` layers (the leading dense-MLP layers of an MoE model,
+``moe.first_k_dense``, at ``moe.dense_d_ff``), ``"mamba"`` layers (a
+Mamba-2 mixer, no FFN) and ``"shared_attn"`` layers (zamba2: one attention
+parameter set, ``params["shared_attn"]``, used by every occurrence, each
+with its own dense MLP and its own KV cache).
 
 A Python loop over a list of layers replaces the JAX package's ``lax.scan``
 over stacked parameters.  Parameters are rank-stacked (``convert.py``):
@@ -10,12 +12,14 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
   embed     [W, V_pad/W, D]   vocab rows sharded over the ranks
   head      [D, V_pad]        the LM head (the embedding transposed when tied)
   final_ln  [D]
+  shared_attn  {ln, wqkv, wo}   the shared mixer (a model with "shared_attn" layers)
   layers    [{"mixer": {ln, wqkv [W, D, (h_loc+2 kv_loc)*hd], wo [W, h_loc*hd, D]},
               "ffn":   {ln, w_gu [W, D, 2 f_loc], w_down [W, f_loc, D]}  (mlp)
                        {ln, router [D, E_pad] f32, w_gu [W, E_loc, D, 2 f],
                         w_down [W, E_loc, f, D], [shared: an mlp FFN]}  (moe)}
              {"mixer": {ln, w_in [W, D, 2 di_loc + h_loc + pad to 8], w_bc, conv, w_out,
-                        dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba), ...]
+                        dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba),
+             {"ffn": {ln, w_gu, w_down}}  (shared_attn: the mixer is ``shared_attn``), ...]
 
 ``prefill`` runs every layer's TP forward (the fused kernels on the card)
 and fills the decode caches (KV caches; SSM state and conv tail for Mamba
@@ -36,8 +40,10 @@ expert-parallel path (``nn/moe.apply_seq``).
 Training (``training/steps.py``) differentiates ``forward`` with
 ``torch.autograd``: every fused kernel on the dense path has an autograd
 Function (``core/compiler``, ``kernels/flash_attention``,
-``kernels/matmul``), ``remat_policy`` other than ``"none"`` recomputes
-each layer in the backward (``torch.utils.checkpoint``).  The trainable
+``kernels/matmul``; the SSD intra-chunk term's ``kernels/mamba_ssd``),
+``remat_policy`` other than ``"none"`` recomputes each layer in the
+backward (``torch.utils.checkpoint``).  The shared mixer's gradient is the
+sum over its occurrences (autograd's).  The trainable
 tree (:func:`trainable`) leaves out the tied head's copy: :func:`logits`
 then takes the head from ``embed`` (``convert.tied_head``), so the one
 parameter gets the lookup's and the head's gradient, and
@@ -88,10 +94,15 @@ _VECTORS = ("ln", "final_ln", "bqkv", "dt_bias", "a_log", "d_skip")
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    kind: str  # attn | attn_local | attn_dense (attention + a dense MLP at moe.dense_d_ff) | mamba
+    kind: str  # attn | attn_local | attn_dense (attention + a dense MLP at moe.dense_d_ff) | mamba | shared_attn
     ffn_kind: Optional[str]  # mlp | moe | None
     window: Optional[int]
     theta: float
+    shared: bool = False  # the mixer is the model's one ``shared_attn`` parameter set (zamba2)
+
+    def mixer(self, params, shared):
+        """This layer's mixer parameters: its own, or the shared set."""
+        return shared if self.shared else params["mixer"]
 
     def _ffn_seq(self, params, x, pc, cfg):
         """The FFN half of a layer: (x, aux loss)."""
@@ -101,11 +112,12 @@ class LayerDef:
             return moe.apply_seq(params["ffn"], x, pc, cfg)
         return x, _zero(x)
 
-    def apply_seq(self, params, x, pc, cfg):
+    def apply_seq(self, params, x, pc, cfg, shared=None):
         """x: [W, B, s_loc, D] -> (x, aux loss)."""
         if self.kind == "mamba":
             return mamba.apply_seq(params["mixer"], x, pc, cfg), _zero(x)
-        x = attention.apply_seq(params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta)
+        mixer = self.mixer(params, shared)
+        x = attention.apply_seq(mixer, x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta)
         return self._ffn_seq(params, x, pc, cfg)
 
     def seam_eligible(self) -> bool:
@@ -113,7 +125,7 @@ class LayerDef:
         MLP (Mamba has no RS feeding an AG; MoE's gather is its own flow)."""
         return self.kind != "mamba" and self.ffn_kind == "mlp"
 
-    def apply_seq_fused(self, params, x, pc, cfg, qkv=None, next_mixer=None):
+    def apply_seq_fused(self, params, x, pc, cfg, qkv=None, next_mixer=None, shared=None):
         """The seam-fused layer: the attention output projection's RS feeds
         the MLP's gate/up AG (the intra-layer seam); with ``next_mixer`` (the
         next layer's attention params) the down projection's RS produces
@@ -121,7 +133,7 @@ class LayerDef:
         layer's projection from the previous layer's seam.  Returns (x, aux
         loss, next layer's qkv or None)."""
         y, gu = attention.apply_seq(
-            params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, qkv=qkv,
+            self.mixer(params, shared), x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, qkv=qkv,
             next_proj=ffn.seam_proj(params["ffn"], cfg),
         )  # fmt: skip
         if next_mixer is None:
@@ -129,7 +141,7 @@ class LayerDef:
         x, nqkv = ffn.apply_seq(params["ffn"], y, pc, cfg, gu=gu, next_proj=attention.seam_proj(next_mixer, cfg))
         return x, _zero(x), nqkv
 
-    def apply_prefill(self, params, x, pc, cfg, max_len: int):
+    def apply_prefill(self, params, x, pc, cfg, max_len: int, shared=None):
         """Like apply_seq, but returns (x, this layer's decode cache) with the
         cache's sequence dimension padded to ``max_len`` (a ring for window
         layers; a Mamba layer's cache is its SSM state and conv tail); the
@@ -137,8 +149,9 @@ class LayerDef:
         if self.kind == "mamba":
             return mamba.apply_seq(params["mixer"], x, pc, cfg, return_state=True)
         x, kv = attention.apply_seq(
-            params["mixer"], x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, return_kv=True
-        )
+            self.mixer(params, shared), x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta,
+            return_kv=True,
+        )  # fmt: skip
         s_len = kv["k"].shape[3]
         if self.window is not None and self.window < max_len:
             w = self.window
@@ -156,12 +169,13 @@ class LayerDef:
             return mamba.init_cache(cfg, pc.tp, batch, dtype, pc.device)
         return attention.init_cache(cfg, pc.tp, batch, max_len, dtype, pc.device, window=self.window)
 
-    def apply_decode(self, params, x, cache, cache_len, pc, cfg, q_valid=None):
+    def apply_decode(self, params, x, cache, cache_len, pc, cfg, q_valid=None, shared=None):
         if self.kind == "mamba":
             return mamba.apply_decode_chunk(params["mixer"], x, cache, pc, cfg, q_valid=q_valid)
         x, cache = attention.apply_decode(
-            params["mixer"], x, cache, cache_len, pc, cfg, window=self.window, rope_theta=self.theta, q_valid=q_valid
-        )
+            self.mixer(params, shared), x, cache, cache_len, pc, cfg, window=self.window, rope_theta=self.theta,
+            q_valid=q_valid,
+        )  # fmt: skip
         if self.ffn_kind == "mlp":
             x = ffn.apply_decode(params["ffn"], x, pc, cfg)
         elif self.ffn_kind == "moe":
@@ -184,8 +198,12 @@ def _layer_def(cfg, kind: str) -> LayerDef:
         return LayerDef("mamba", None, None, 0.0)
     if kind == "attn_dense":
         return LayerDef("attn_dense", "mlp", None, cfg.rope_theta)
+    if kind == "shared_attn":
+        return LayerDef("shared_attn", "mlp", None, cfg.rope_theta, shared=True)
     if kind not in ("attn", "attn_local"):
-        raise NotImplementedError(f"repro_torch: layer kind {kind!r} is not ported (attn, attn_dense and mamba only)")
+        raise NotImplementedError(
+            f"repro_torch: layer kind {kind!r} is not ported (attn, attn_local, attn_dense, mamba and shared_attn only)"
+        )
     window = cfg.local_window if kind == "attn_local" else None
     theta = cfg.rope_theta_local if kind == "attn_local" else cfg.rope_theta
     ffn_kind = "moe" if cfg.moe is not None else ("mlp" if cfg.d_ff else None)
@@ -208,19 +226,26 @@ def segments(cfg) -> List[range]:
     return [range(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
 
 
-def _seam_chain(defs, plist, x, pc, cfg, aux_total):
+def _seam_chain(defs, plist, x, pc, cfg, aux_total, shared=None):
     """Run one segment's layers, fusing the RS -> AG seams between
     consecutive eligible layers; an ineligible layer (Mamba, MoE) breaks the
     chain and runs unfused.  Returns (x, aux_total plus the layers' aux)."""
     qkv = None
     for i, (d, p) in enumerate(zip(defs, plist)):
         if not d.seam_eligible():
-            x, aux = d.apply_seq(p, x, pc, cfg)
+            x, aux = d.apply_seq(p, x, pc, cfg, shared)
         else:
-            nxt = plist[i + 1]["mixer"] if i + 1 < len(defs) and defs[i + 1].seam_eligible() else None
-            x, aux, qkv = d.apply_seq_fused(p, x, pc, cfg, qkv=qkv, next_mixer=nxt)
+            nxt = None
+            if i + 1 < len(defs) and defs[i + 1].seam_eligible():
+                nxt = defs[i + 1].mixer(plist[i + 1], shared)
+            x, aux, qkv = d.apply_seq_fused(p, x, pc, cfg, qkv=qkv, next_mixer=nxt, shared=shared)
         aux_total = aux_total + aux
     return x, aux_total
+
+
+def _uses_shared(cfg) -> bool:
+    """Whether the model has ``shared_attn`` layers (one shared mixer)."""
+    return "shared_attn" in cfg.pattern
 
 
 def padded_vocab(cfg, tp: int) -> int:
@@ -242,11 +267,13 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
     }
     if not cfg.tie_embeddings:
         glob["lm_head"] = emb_init((cfg.d_model, padded_vocab(cfg, tp)), generator, dtype, device)
+    if _uses_shared(cfg):
+        glob["shared_attn"] = attention.init(cfg, tp, generator, dtype, device)
     for d in layer_plan(cfg):
         if d.kind == "mamba":
             glob["layers"].append({"mixer": mamba.init(cfg, tp, generator, dtype, device)})
             continue
-        layer = {"mixer": attention.init(cfg, tp, generator, dtype, device)}
+        layer = {} if d.shared else {"mixer": attention.init(cfg, tp, generator, dtype, device)}
         if d.ffn_kind == "mlp":
             d_ff = cfg.moe.dense_d_ff if d.kind == "attn_dense" else cfg.d_ff
             layer["ffn"] = ffn.init(cfg, generator, dtype, device, d_ff=d_ff)
@@ -300,17 +327,18 @@ def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, remat_
     x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)  # [W, B, s_loc, D]
     aux_total = _zero(x)
     defs = layer_plan(cfg)
+    shared = params.get("shared_attn")
     if pc.fuse_seams:
         for seg in segments(cfg):
             layers = params["layers"][seg.start : seg.stop]
-            x, aux_total = _seam_chain(defs[seg.start : seg.stop], layers, x, pc, cfg, aux_total)
+            x, aux_total = _seam_chain(defs[seg.start : seg.stop], layers, x, pc, cfg, aux_total, shared)
     else:
         for d, p in zip(defs, params["layers"]):
             if remat_policy == "none":
-                x, aux = d.apply_seq(p, x, pc, cfg)
+                x, aux = d.apply_seq(p, x, pc, cfg, shared)
             else:
                 x, aux = torch.utils.checkpoint.checkpoint(
-                    lambda x_, d_=d, p_=p: d_.apply_seq(p_, x_, pc, cfg), x, use_reentrant=False
+                    lambda x_, d_=d, p_=p: d_.apply_seq(p_, x_, pc, cfg, shared), x, use_reentrant=False
                 )
             aux_total = aux_total + aux
     return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), aux_total
@@ -324,8 +352,9 @@ def prefill(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, *, max
     _check_seq(pc, tokens.shape[1])
     x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)
     caches = []
+    shared = params.get("shared_attn")
     for d, p in zip(layer_plan(cfg), params["layers"]):
-        x, c = d.apply_prefill(p, x, pc, cfg, max_len)
+        x, c = d.apply_prefill(p, x, pc, cfg, max_len, shared)
         caches.append(c)
     return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), caches
 
@@ -342,8 +371,9 @@ def decode_step(params: dict, caches: list, cfg, pc: ParallelContext, tokens: to
     updated in place.
     """
     x = embed_tokens(params, cfg, tokens)
+    shared = params.get("shared_attn")
     for d, p, c in zip(layer_plan(cfg), params["layers"], caches):
-        x, _ = d.apply_decode(p, x, c, cache_len, pc, cfg, q_valid=q_valid)
+        x, _ = d.apply_decode(p, x, c, cache_len, pc, cfg, q_valid=q_valid, shared=shared)
     return logits(params, cfg, pc, x), caches
 
 
@@ -368,25 +398,27 @@ def with_tied(tree: dict, cfg) -> dict:
 
 
 def check_trainable(cfg, pc: ParallelContext):
-    """Raise unless the model's training path is ported: attention layers
-    with a dense MLP or an MoE block (TP or EP), without fused seams (Mamba
-    layers have no backward for their kernel's path yet)."""
-    bad = sorted({f"{d.kind}/{d.ffn_kind}" for d in layer_plan(cfg) if d.kind == "mamba"})
-    if bad or pc.fuse_seams:
-        what = f"layers {bad} (mixer/ffn)" if bad else "fuse_seams"
-        raise NotImplementedError(
-            f"repro_torch: training {cfg.name} with {what} is not ported (attention + MLP or MoE)"
-        )
+    """Raise unless the model's training path is ported: every layer kind
+    (attention with a dense MLP or an MoE block, TP or EP; Mamba; the shared
+    attention block) trains, but not with fused seams."""
+    layer_plan(cfg)  # an unported layer kind raises here
+    if pc.fuse_seams:
+        raise NotImplementedError(f"repro_torch: training {cfg.name} with fuse_seams is not ported")
 
 
 def grad_masks(cfg, pc: ParallelContext) -> dict:
     """0/1 masks (or None) over the trainable tree that keep padded heads at
-    zero (``repro/models/lm.grad_masks``); a None subtree masks nothing."""
+    zero (``repro/models/lm.grad_masks``): each attention mixer's, the
+    shared mixer's (a model with ``shared_attn`` layers); a None subtree
+    (a Mamba mixer, an MLP) masks nothing."""
     layers = []
     for d in layer_plan(cfg):
-        am = attention.grad_masks(cfg, pc.tp, pc.device) if d.kind != "mamba" else None
+        am = attention.grad_masks(cfg, pc.tp, pc.device) if d.kind != "mamba" and not d.shared else None
         layers.append(None if am is None else {"mixer": am})
-    return {"layers": layers}
+    out = {"layers": layers}
+    if _uses_shared(cfg):
+        out["shared_attn"] = attention.grad_masks(cfg, pc.tp, pc.device)
+    return out
 
 
 def _scanned(cfg) -> range:
@@ -402,8 +434,8 @@ def decay_mask(tree: dict, cfg) -> dict:
     reference decays a leaf iff it has two or more dims in its own layout
     (``repro/training/optimizer.py``), where every scanned layer's leaves
     carry a layer axis.  So a scanned layer's norms are decayed, and the
-    one-dimensional leaves (``_VECTORS``) of an unscanned layer and
-    ``final_ln`` are not; every matrix is."""
+    one-dimensional leaves (``_VECTORS``) of an unscanned layer, the shared
+    mixer (outside the scan) and ``final_ln`` are not; every matrix is."""
     scanned = _scanned(cfg)
 
     def leaves(node, stacked, name=None):
@@ -418,13 +450,16 @@ def decay_mask(tree: dict, cfg) -> dict:
 
 def sync_grads(grads: dict, cfg, pc: ParallelContext) -> dict:
     """Average the gradients of the kv copies (GQA with fewer kv heads than
-    ranks) in every attention block (``repro/models/lm.sync_grads``); the
-    tree unchanged when ``rep == 1``."""
+    ranks) in every attention block, the shared mixer's included
+    (``repro/models/lm.sync_grads``); the tree unchanged when ``rep == 1``."""
     if not cfg.n_heads or attention.layout(cfg, pc.tp).rep == 1:
         return grads
     layers = []
     for d, g in zip(layer_plan(cfg), grads["layers"]):
-        if d.kind != "mamba":
+        if d.kind != "mamba" and not d.shared:
             g = {**g, "mixer": attention.sync_grads(g["mixer"], cfg, pc.tp)}
         layers.append(g)
-    return {**grads, "layers": layers}
+    out = {**grads, "layers": layers}
+    if "shared_attn" in grads:
+        out["shared_attn"] = attention.sync_grads(grads["shared_attn"], cfg, pc.tp)
+    return out

@@ -3,9 +3,11 @@ serving engine's captured step against the same step run eagerly (for
 deepseek-moe-16b with the streamed MoE decode in the graph); the paper's
 TP-MLP (fused kernels) against its tensor-core baselines; the eager expert
 GEMM of the MoE baseline on tensor cores; the train path's autograd
-Functions (the fused collectives', flash attention's, the grouped GEMM's at
-the MoE backward shapes, the tensor-core expert GEMM's) and reduced MoE
-models' gradients, fused against eager.
+Functions (the fused collectives', flash attention's at head dims up to
+128 and 80, the grouped GEMM's at the MoE backward shapes, the tensor-core
+expert GEMM's, the SSD intra-chunk term's at the train tile) and reduced
+MoE, mamba2 and zamba2 models' gradients and one zamba2 shared block,
+fused against eager.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -192,7 +194,8 @@ def test_bf16_fused_kernels_are_deterministic(dev, order, nch):
 @pytest.mark.parametrize(
     "bh,bhkv,sq,sk,d,causal,window",
     [(4, 2, 100, 100, 64, True, None), (3, 1, 37, 130, 32, True, None), (2, 2, 70, 70, 16, True, 20),
-     (2, 1, 64, 64, 128, False, None), (2, 2, 65, 65, 64, False, 33)],
+     (2, 1, 64, 64, 128, False, None), (2, 2, 65, 65, 64, False, 33), (4, 2, 100, 100, 80, True, None),
+     (3, 3, 1, 77, 80, False, 30)],
 )  # fmt: skip
 def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window):
     q, k, v = _rand(dev, dtype, bh, sq, d), _rand(dev, dtype, bhkv, sk, d, seed=1), _rand(dev, dtype, bhkv, sk, d, seed=2)
@@ -202,13 +205,16 @@ def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window)
     _close(out, K.flash_attention_plain(q, k, v, causal=causal, window=window), dtype)
 
 
-# the wgmma route (bf16, D 64 / 128): GQA rep 1, 2, 3; causal, window and
+# the wgmma route (bf16, D 64 / 80 / 128): GQA rep 1, 2, 3; causal, window and
 # non-causal; Sq < Sk down to Sq = 1; S not a multiple of 64; granite's
-# path shape (384 CTAs, more than SMs)
+# path shape (384 CTAs, more than SMs); D 80 (zamba2: the 128-wide
+# pipeline on 80 columns, TMA zero-filling the rest) at ragged shapes and
+# at zamba2's serve shape (W B h_loc = 128 heads of 256)
 FLASH_WGMMA = [
     (4, 4, 100, 100, 64, True, None), (4, 2, 64, 64, 128, True, None), (6, 2, 130, 130, 64, True, 40),
     (3, 1, 37, 130, 64, False, None), (6, 2, 1, 200, 128, True, None), (3, 1, 1, 77, 64, False, 30),
-    (4, 4, 65, 65, 128, False, 33), (96, 32, 256, 256, 64, True, None),
+    (4, 4, 65, 65, 128, False, 33), (96, 32, 256, 256, 64, True, None), (4, 2, 100, 100, 80, True, None),
+    (6, 2, 1, 200, 80, True, None), (3, 1, 37, 130, 80, False, 33), (128, 128, 256, 256, 80, True, None),
 ]  # fmt: skip
 
 
@@ -232,22 +238,43 @@ def test_flash_attention_wgmma_kernel(dev, bh, bhkv, sq, sk, d, causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
 def test_flash_attention_route_table(dev, dtype, d):
-    """Each (dtype, head dim) launches the route of the table: bf16 at 64 and
-    128 the wgmma kernel, everything else the FMA kernel."""
+    """Each (dtype, head dim) launches the route of the table: bf16 at 64, 80
+    and 128 the wgmma kernel, everything else the FMA kernel."""
     q, k, v = (_rand(dev, dtype, 2, 70, d, seed=s) for s in range(3))
     out = K.flash_attention(q, k, v, causal=True)
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "fma"
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 80, 128) else "fma"
     assert fa_mod.route(dtype, d) == want and K.flash_attention.last_launch["route"] == want
     _close(out, K.flash_attention_plain(q, k, v, causal=True), dtype)
 
 
-def test_flash_attention_wgmma_is_deterministic(dev):
-    """20 launches at smollm's path shape (256 CTAs) are bitwise equal."""
+@pytest.mark.parametrize("bh,bhkv,d", [(64, 32, 64), (128, 128, 80)])
+def test_flash_attention_wgmma_is_deterministic(dev, bh, bhkv, d):
+    """20 launches at smollm's path shape (256 CTAs) and zamba2's (D 80, 512
+    CTAs) are bitwise equal."""
     bf = torch.bfloat16
-    q, k, v = _rand(dev, bf, 64, 256, 64), _rand(dev, bf, 32, 256, 64, seed=1), _rand(dev, bf, 32, 256, 64, seed=2)
+    q, k, v = _rand(dev, bf, bh, 256, d), _rand(dev, bf, bhkv, 256, d, seed=1), _rand(dev, bf, bhkv, 256, d, seed=2)
     first = K.flash_attention(q, k, v, causal=True)
     for _ in range(19):
         assert torch.equal(K.flash_attention(q, k, v, causal=True), first)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_d80_statistics_and_grads(dev, dtype):
+    """Head dim 80 under autograd (zamba2's shared attention in training):
+    ``flash_attention_lse``'s o and lse against the plain version's state,
+    and the Function's output and gradients against float32 autograd
+    through the plain attention; o / gradients 1e-4 (f32) or 2e-2 (bf16) of
+    max, lse absolutely."""
+    q, k, v = _rand(dev, dtype, 8, 130, 80), _rand(dev, dtype, 4, 130, 80, seed=1), _rand(dev, dtype, 4, 130, 80, seed=2)
+    o, lse = fa_mod.flash_attention_lse(q, k, v, causal=True)
+    o_p, lse_p = fa_mod.flash_attention_lse(*(t.float().cpu() for t in (q, k, v)), causal=True)
+    _close(o, o_p.to(dev), dtype)
+    assert (lse - lse_p.to(dev)).abs().max().item() <= TOL[dtype]
+    do = _rand(dev, dtype, *q.shape, seed=3)
+    got = _grads(lambda *a: K.flash_attention(*a, causal=True), (q, k, v), do)
+    ref = _grads(lambda *a: K.flash_attention_plain(*a, causal=True), (q.float(), k.float(), v.float()), do.float())
+    for a, b in zip(got, ref):
+        _close(a, b, dtype)
 
 
 # ring tiles (flash_attention_ranked): W = 4 ranks in one launch with
@@ -259,7 +286,8 @@ RING_CASES = [
     (torch.float32, 64, "shard", True, 48, 80, 2, False), (torch.float32, 32, "gather", True, None, 80, 8, True),
     (torch.bfloat16, 64, "shard", True, 48, 80, 8, True), (torch.bfloat16, 128, "gather", True, None, 80, 2, False),
     (torch.bfloat16, 64, "shard", False, None, 128, 4, True), (torch.bfloat16, 32, "shard", True, None, 80, 2, False),
-    (torch.bfloat16, 128, "gather", False, 48, 64, 1, True),
+    (torch.bfloat16, 128, "gather", False, 48, 64, 1, True), (torch.bfloat16, 80, "shard", True, 48, 80, 8, True),
+    (torch.float32, 80, "gather", True, None, 80, 2, False),
 ]  # fmt: skip
 
 
@@ -1163,3 +1191,107 @@ def test_moe_train_grads_fused_match_eager_on_card(dev, ep):
         torch.testing.assert_close(out["fused"][0], out["eager"][0], atol=1e-5, rtol=1e-5)
         for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
             _close(a, b, torch.float32)
+
+
+def _grads(fn, args, dy):
+    """[fn's output, each argument's gradient] of ``fn(*args)`` against ``dy``."""
+    args = [a.detach().clone().requires_grad_(True) for a in args]
+    out = fn(*args)
+    out.backward(dy)
+    return [out.detach()] + [a.grad for a in args]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_intra_chunk_function_grads(dev, dtype):
+    """``_SsdIntraChunk`` on the card at the train path's tile (Q = P = 64,
+    T = 2560 as mamba2-2.7b's 8 x 256 tokens give it): the kernel's forward
+    (one launch) and the float32 torch-ops backward against float32
+    autograd over the einsum form (decay masked before exp), 1e-4 (f32) or
+    2e-2 (bf16) of max."""
+    cum, cb, xdt = _ssd_intra_inputs(dev, dtype, 2560, 64, 64, 1.0, seed=4)
+    dy = _rand(dev, dtype, *xdt.shape, seed=5)
+    before = K.ssd_intra_chunk.launches
+    got = _grads(K.ssd_intra_chunk, (cum, cb, xdt), dy)
+    assert K.ssd_intra_chunk.launches == before + 1
+
+    def einsum_form(c, b, x):
+        tril = torch.ones((64, 64), dtype=torch.bool, device=dev).tril()
+        decay = torch.exp(torch.where(tril, c[:, :, None] - c[:, None, :], float("-inf")))
+        return torch.einsum("tij,tij,tjp->tip", b, decay, x)
+
+    ref = _grads(einsum_form, (cum.float(), cb.float(), xdt.float()), dy.float())
+    for a, b in zip(got, ref):
+        assert a.dtype == dtype
+        _close(a, b, dtype)
+
+
+def _zamba2(dev):
+    """Reduced zamba2-2.7b at its published head dim of 80 on the card."""
+    cfg = dataclasses.replace(reduce_config(get_config("zamba2-2.7b")), head_dim=80)
+    world = World(4, dev)
+    return cfg, world, lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+
+
+def test_zamba2_shared_layer_fused_matches_eager_on_card(dev):
+    """One shared attention block of reduced zamba2-2.7b (head dim 80, the
+    shared mixer, its own GELU MLP) in float32, 2 x 64 tokens: the output
+    and every gradient (the shared mixer's, the MLP's, the input's) on the
+    fused backend (AG+GEMM / GEMM+RS both passes, flash at D 80) against the
+    eager backend, 1e-4 of max; 4 / 4 / 1 launches."""
+    cfg, world, params = _zamba2(dev)
+    d = lm.layer_plan(cfg)[5]
+    assert d.shared
+    x = _rand(dev, torch.float32, 4, 2, 16, cfg.d_model, seed=3)
+    dy = _rand(dev, torch.float32, *x.shape, seed=4)
+    leaves = [params["shared_attn"][k] for k in ("ln", "wqkv", "wo")] + [params["layers"][5]["ffn"][k]
+                                                                          for k in ("ln", "w_gu", "w_down")]  # fmt: skip
+
+    def layer(backend):
+        pc = ParallelContext(world=world, backend=backend)
+
+        def fn(x_, *ws):
+            shared = dict(zip(("ln", "wqkv", "wo"), ws[:3]))
+            return d.apply_seq({"ffn": dict(zip(("ln", "w_gu", "w_down"), ws[3:]))}, x_, pc, cfg, shared)[0]
+
+        return fn
+
+    K.reset_launch_counts()
+    got = _grads(layer("fused"), (x, *leaves), dy)
+    counts = K.launch_counts()
+    assert (counts["ag_gemm"], counts["gemm_rs"], counts["flash_attention"]) == (4, 4, 1), counts
+    ref = _grads(layer("eager"), (x, *leaves), dy)
+    for a, b in zip(got, ref):
+        _close(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_train_grads_fused_match_eager_on_card(dev, arch):
+    """Reduced mamba2-2.7b and zamba2-2.7b (head dim 80) in float32, W = 4,
+    2 x 64 tokens, layers recomputed (remat "dots"): the loss within 1e-5
+    and every leaf's gradient on the fused backend within 2e-3 of its max
+    |eager| (the whole-model gradient bound of ``chip_smoke.py``: twelve
+    float32 layers sum in another order); the launches of
+    paper_e2e.expected_launches (the SSD kernel twice a Mamba layer, flash
+    twice a shared block)."""
+    from repro_torch.benchmarks.paper_e2e import expected_launches
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    if arch == "zamba2-2.7b":
+        cfg, world, params = _zamba2(dev)
+    else:
+        cfg, world = reduce_config(get_config(arch)), World(4, dev)
+        params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for backend in ("fused", "eager"):
+        K.reset_launch_counts()
+        pc = ParallelContext(world=world, backend=backend)
+        out[backend] = loss_and_grads(lm, cfg, pc, params, batch, remat_policy="dots")
+        out[backend + "_counts"] = K.launch_counts()
+    assert out["fused_counts"] == expected_launches(cfg, "overlap", "dots") and not any(out["eager_counts"].values())
+    torch.testing.assert_close(out["fused"][0], out["eager"][0], atol=1e-5, rtol=1e-5)
+    for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
+        torch.cuda.synchronize()
+        assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
