@@ -171,7 +171,39 @@ non-zero (no phase catches its own failure):
               sampled) held as in (9a, b); (e) the train_ssm phase's checks
               (the f32 step at 12 layers, two uses of the shared mixer; 30
               bf16 steps at 54 layers; the resume at 6).
-  15. e2e     the paper's end-to-end figure (Fig. 11,
+  15. encdec  seamless-m4t-medium (12 + 12 layers, d 1024, 16 / 16 heads of
+              64, ReLU MLP of 4096, vocab 256206; stub frames) at its
+              published size, W = 4, seeded weights: (a) bf16 serve: encode
+              4 requests of 4096 frames, build the cross caches, 16 greedy
+              ``decode_step``s: the encoder, cross-cache and per-step ms,
+              tokens/s, launches held exactly (36 AG+GEMM: the encoder's qkv
+              and gate|up and each decoder layer's kv gather of the encoder
+              stream; 24 GEMM+RS, 12 flash, 16 head); (b) float32 on the
+              same weights: the forward fused against eager (the logits'
+              bound) and the cross-cache decode's logits against the
+              teacher-forced forward's (3e-3, the JAX package's test);
+              (c) the bf16 fused forward within 2e-2 of max |f32 eager|;
+              (d) one f32 step at 2 + 2 layers fused against eager (the
+              loss, each leaf's gradient GRAD_RTOL, launches held), 30 bf16
+              AdamW steps at full depth through ``make_train_step`` (8 x
+              256 decoder tokens with 8 x 512 frames, the JAX package's
+              input rule): the ce fall, 132 / 132 / 36 / 1 launches every
+              step, the median step ms, tokens/s, peak memory; the resume
+              bitwise at 2 + 2 layers.
+  16. vlm     paligemma-3b (18 layers, d 2048, 8 heads of 256 with one KV
+              head, GELU MLP of 16384, tied embeddings scaled by
+              sqrt(d_model) over the image prefix too) at its published
+              size: (a) the float32 prefill of 256 stub patches + 256
+              tokens, fused against eager; (b) the bf16 main path through
+              ``serve.greedy(embeds=)``, launches held (36 / 36 / 18 flash
+              at head dim 256 / 16 head), one bf16 layer against f32 eager;
+              (c) one f32 step at 4 layers (4 x 512 tokens) fused against
+              eager, the kv-copy sync at rep 4 leaving the copies bitwise
+              equal; 30 bf16 steps at full depth of 8 x (256 patches + 256
+              tokens), labels over the whole sequence: the ce fall, 72 / 72
+              / 18 / 1 launches every step, step ms, peak memory; the resume
+              bitwise at 2 layers.
+  17. e2e     the paper's end-to-end figure (Fig. 11,
               ``benchmarks/paper_e2e.py``) and the three dense configs
               qwen2-72b (QKV bias), starcoder2-7b (GELU, 36 / 4 heads) and
               gemma3-27b (5:1 local / global attention, tied embeddings
@@ -199,7 +231,7 @@ non-zero (no phase catches its own failure):
               exactly, two runs' tokens equal; with ``--profile`` one train
               step of gemma3-27b and of granite-moe-3b-a800m in each mode,
               device time by kernel.
-  16. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
+  18. paper   the paper's TP-MLP (``benchmarks/paper_mlp.py``) at W = 8 in
               bf16: Fig. 8 at MLP-1 and MLP-6 and Tab. 2 (LLaMA-7B), the
               fused kernels against the tensor-core baselines (held to 2e-2
               of max |baseline|), each row's ms, speedup, comm-only ms and
@@ -213,7 +245,7 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  17. kernels every kernel against its plain PyTorch version at the shapes
+  19. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -281,9 +313,16 @@ non-zero (no phase catches its own failure):
               train tile (T = 2560, Q = P = 64), timed in float32, with its
               autograd Function's output and gradients against float32
               autograd over the einsum form and the torch-ops backward
-              timed.  It runs after the serve phases: the profiler leaves
+              timed; and the multimodal phases' shapes: flash attention at
+              head dim 256 (paligemma's causal MQA prefill, f32 and bf16),
+              at seamless-m4t's non-causal encoder (4096 frames) and its
+              cross-attention (256 queries against 512 keys), each against
+              SDPA, both models' LM heads and projections (the encoder
+              stream's kv gather among them), and paligemma's train-path
+              checks and backward transposes at 8 x 512 tokens.  It runs
+              after the serve phases: the profiler leaves
               host overhead behind.
-  18. summary the launch counts of every path, each phase's and the script's wall time,
+  20. summary the launch counts of every path, each phase's and the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -298,7 +337,9 @@ published widths, and cuts the train_4k shape's batch of 256 to 1; the
 train_moe phase's float32 step runs 4 of granite's 32 layers, its resume
 check 2; the train_ssm phase's float32 step runs 4 of mamba2-2.7b's 64
 layers, its resume check 2; the zamba2 phase's float32 step 12 of 54, its
-resume check 6.  Every other path runs at full depth
+resume check 6; the encdec phase's f32 step and resume check 2 + 2 of
+12 + 12, the vlm phase's f32 step 4 of 18 layers at 4 rows (8 ran the
+card out of memory) and its resume check 2.  Every other path runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -384,6 +425,14 @@ SSM_REMAT = "dots"
 SSM_LR = 3e-3
 SSM_F32_LAYERS = {ARCH_SSM: 4, ARCH_Z: 12}
 SSM_CKPT_LAYERS = {ARCH_SSM: 2, ARCH_Z: 6}
+ARCH_ED = "seamless-m4t-medium"
+ARCH_V = "paligemma-3b"
+MM_LR = 3e-4  # the multimodal phases' bf16 steps (the train CLI's default)
+MM_CUT_LAYERS = 2  # their f32 step (the enc-dec's, 2 + 2) and their resume check cut to this depth
+# the VLM's f32 step: 4 layers of 4 x 512 tokens (at 8 rows the eager reference's float32 activations and the
+# [4096, 257216] float32 logits and their gradient took the card's 80 GB)
+V_F32_LAYERS, V_F32_ROWS = 4, 4
+DECODE_RTOL = 3e-3  # enc-dec decode vs the teacher-forced forward (the JAX package's tests/test_extended.py)
 E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
 REPLACES = {
@@ -622,8 +671,9 @@ def ssm_shapes() -> dict:
                 vocab=head_width(cfg), q=s.chunk, p=s.headdim, tiles=BATCH * (PROMPT // s.chunk) * heads)  # fmt: skip
 
 
-def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_only: bool) -> dict:
-    """The LM head (``matmul``) at the prefill shape [B x S, d] and the decode
+def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_only: bool, rows=None) -> dict:
+    """The LM head (``matmul``) at the prefill shape [B x S, d] (``rows``
+    rows, default B x S) and the decode
     shape [B, d], and for an arch of the engine phase at its captured
     forward [slots x chunk, d] and decode iteration [slots, d], against one
     head [d, vocab]; bf16 cases held bitwise over REPEATS launches."""
@@ -634,7 +684,7 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
     isz = torch.tensor([], dtype=dtype).element_size()
     w = rnd(d, vocab, dtype=dtype) * 0.02
     recs = {}
-    shapes = [("lm_head", BATCH * PROMPT), ("lm_head_decode", BATCH)]
+    shapes = [("lm_head", rows or BATCH * PROMPT), ("lm_head_decode", BATCH)]
     engine = {**ENGINE, ARCH_DS: ENGINE_DS, ARCH_Z: ENGINE_Z}
     if arch in engine:
         slots = engine[arch]["slots"]
@@ -858,6 +908,104 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
         4 * heads * hd * pairs, nbytes, iters, False, lambda: K.flash_attention.last_launch, bitwise=True,
     )  # fmt: skip
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
+
+
+def _mm_kernels(rnd, iters: int) -> dict:
+    """The multimodal phases' kernel shapes (W = 4): kernel #4 at
+    paligemma's head dim 256 (q [W B h_loc, 512, 256] against the one KV
+    head's [W B, 512, 256], causal: 256 patches + 256 tokens, B = 4), at
+    seamless-m4t's encoder (non-causal, [W B h_loc, 4096, 64], B = 4) and at
+    its cross-attention in training (non-causal, Sq != Sk: 256 decoder
+    queries against 512 encoder keys, B = 8); each checked in float32 (the
+    FMA route) and bfloat16 (the wgmma route, also held against its tiled
+    twin and bitwise over REPEATS launches), timed in bf16 (head dim 256 in
+    float32 too) against SDPA (``is_causal`` where causal).  Kernel #1 at both LM heads (prefill and
+    decode rows); kernels #2 / #3 at both models' projections in bf16:
+    paligemma's qkv, gate|up, o and down at 4 x 512 tokens, seamless-m4t's
+    encoder qkv, gate|up, o and down and the cross-attention's kv gather of
+    the encoder stream at 4 x 4096 frames (the serve path's encoder), each
+    against its plain version (timed by the one checking call) and
+    ``torch.matmul``.  Then the VLM's train-path checks at 8 x 512 tokens
+    (flash attention's statistics and Function at D 256, the AG+GEMM /
+    GEMM+RS Functions) and its backward transposes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import flash_attention_tiled
+    from repro_torch.models import frontends
+
+    W, recs = WORLD, {}
+    bf16 = torch.bfloat16
+    flash = []
+    for arch, tag, b, sq, sk, causal in (
+        (ARCH_V, "prefill", BATCH, 2 * PROMPT, 2 * PROMPT, True),
+        (ARCH_ED, "encoder", BATCH, 4096, 4096, False),
+        (ARCH_ED, "cross", TRAIN_BATCH, TRAIN_SEQ, 2 * TRAIN_SEQ, False),
+    ):  # fmt: skip
+        flash.append((arch, tag, b, sq, sk, causal))
+    for dtype in (torch.float32, bf16):
+        isz = torch.tensor([], dtype=dtype).element_size()
+        is_bf16 = dtype == bf16
+        for arch, tag, b, sq, sk, causal in flash:
+            shp = path_shapes(arch)
+            hd, rep = shp["hd"], shp["h_loc"] // shp["kv_loc"]
+            q = rnd(W * b * shp["h_loc"], sq, hd, dtype=dtype)
+            kk, vv = rnd(W * b * shp["kv_loc"], sk, hd, dtype=dtype), rnd(W * b * shp["kv_loc"], sk, hd, dtype=dtype)
+            ke, ve = kk.repeat_interleave(rep, 0)[None], vv.repeat_interleave(rep, 0)[None]
+            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            recs[("flash_attention", arch, tag, dtype)] = _case(
+                f"flash_attention[{arch} {tag}] q{list(q.shape)} kv{list(kk.shape)} {'causal' if causal else 'non-causal'}",
+                dtype, lambda: K.flash_attention(q, kk, vv, causal=causal),
+                lambda: K.flash_attention_plain(q.float(), kk.float(), vv.float(), causal=causal),
+                lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=causal),
+                4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), iters,
+                not is_bf16 and arch != ARCH_V, lambda: K.flash_attention.last_launch, bitwise=is_bf16, plain_once=True,
+            )  # fmt: skip
+            if is_bf16:
+                _case(f"flash_attention[{arch} {tag}] vs its tiled twin", dtype,
+                      lambda: K.flash_attention(q, kk, vv, causal=causal),
+                      lambda: flash_attention_tiled(q, kk, vv, causal=causal), None, 0, 0, 0, True,
+                      lambda: K.flash_attention.last_launch)  # fmt: skip
+            del q, kk, vv, ke, ve
+            torch.cuda.empty_cache()
+    for arch in (ARCH_V, ARCH_ED):
+        shp = path_shapes(arch)
+        # the head's rows: the VLM's prefill (4 x 512), the enc-dec's train step (8 x 256: it serves by decode_step)
+        rows = BATCH * 2 * PROMPT if arch == ARCH_V else TRAIN_BATCH * TRAIN_SEQ
+        recs.update(_lm_head_cases(rnd, arch, shp["d"], shp["vocab"], bf16, iters, False, rows))
+        d = shp["d"]
+        # the projections: paligemma's at its prefill (4 x 512), seamless-m4t's encoder at 4 x 4096 frames
+        b, s = (BATCH, 2 * PROMPT) if arch == ARCH_V else (BATCH, 4096)
+        s_loc = s // W
+        ag = [("qkv", shp["n_qkv"]), ("gate_up", shp["n_gu"])]
+        if arch == ARCH_ED:
+            ag.append(("cross_kv", 2 * shp["kv_loc"] * shp["hd"]))
+        for tag, n in ag:
+            x, w = rnd(W, b, s_loc, d, dtype=bf16), rnd(W, d, n, dtype=bf16) * d**-0.5
+            xg = x.permute(1, 0, 2, 3).reshape(b, s, d)
+            recs[("ag_gemm", arch, tag, bf16)] = _case(
+                f"ag_gemm[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", bf16,
+                lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
+                2 * W * b * s * d * n, 2 * (x.numel() + w.numel() + W * b * s * n), iters, False,
+                lambda: K.ag_gemm.last_launch, plain_once=True,
+            )  # fmt: skip
+        for tag, k in (("o_proj", shp["n_o"]), ("down", shp["f_loc"])):
+            x, w = rnd(W, b, s, k, dtype=bf16), rnd(W, k, d, dtype=bf16) * (W * k) ** -0.5
+            recs[("gemm_rs", arch, tag, bf16)] = _case(
+                f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", bf16,
+                lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
+                2 * W * b * s * k * d, 2 * (x.numel() + w.numel() + W * b * s_loc * d), iters, False,
+                lambda: K.gemm_rs.last_launch, plain_once=True,
+            )  # fmt: skip
+        del x, w
+        torch.cuda.empty_cache()
+    # the VLM's train path at 8 x 512 tokens (256 patches + 256 tokens): flash attention's statistics and
+    # Function at D 256, the AG+GEMM / GEMM+RS Functions; the backward's transposes
+    seq = frontends.vision_prefix_len(2 * TRAIN_SEQ) + TRAIN_SEQ
+    recs[("train", ARCH_V, "autograd", bf16)] = _train_autograd_checks(rnd, ARCH_V, TRAIN_BATCH, seq)
+    recs.update(_train_backward_kernels(rnd, iters, ARCH_V, TRAIN_BATCH, seq, (bf16,)))
+    return recs
 
 
 def _e2e_kernels(rnd, iters: int, archs) -> dict:
@@ -1301,6 +1449,7 @@ def phase_kernels(iters: int):
             )  # fmt: skip
             del x, w
 
+    recs.update(_mm_kernels(rnd, iters))
     recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
@@ -1369,10 +1518,11 @@ def _f32(tree):
     return tree.float()
 
 
-def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool) -> dict:
+def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool, embeds=None) -> dict:
     """The bf16 fused path against the f32 eager path on the same bf16
     weights: one layer held to the bf16 bound (``layer``), the prefill
-    logits' max|diff| and top-1 agreement printed, not held."""
+    logits' max|diff| and top-1 agreement printed, not held (``embeds``: a
+    stub frontend's prefix before the prompts)."""
     import torch
 
     from repro_torch.models import lm
@@ -1393,10 +1543,11 @@ def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool) -> d
         if not (torch.isfinite(y_b).all() and err <= TOL["bfloat16"] * scale):
             raise SystemExit(f"chip_smoke: the bf16 fused {d.kind} layer disagrees with the f32 eager layer")
         out["layer_err"], out["layer_ref"] = err, scale
-    lg_e, _ = lm.prefill(p32, cfg, pc_eager, prompts, max_len=PROMPT + NEW_TOKENS)
+    max_len = prompts.shape[1] + NEW_TOKENS + (0 if embeds is None else embeds.shape[1])
+    lg_e, _ = lm.prefill(p32, cfg, pc_eager, prompts, embeds, max_len=max_len)
     # the bf16 eager path is the control: how far bf16 alone moves the logits
     for what, p_ in (("fused", pc), ("eager", pc_eager)):
-        lg_b, _ = lm.prefill(params, cfg, p_, prompts, max_len=PROMPT + NEW_TOKENS)
+        lg_b, _ = lm.prefill(params, cfg, p_, prompts, embeds, max_len=max_len)
         diff = (lg_b.float() - lg_e).abs().max().item()
         top1 = (lg_b.float().argmax(-1) == lg_e.argmax(-1)).float().mean().item()
         print(
@@ -1409,31 +1560,35 @@ def _bf16_vs_f32(tag: str, params, cfg, pc, pc_eager, prompts, layer: bool) -> d
     return out
 
 
-def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager=None, layer=False, params=None) -> dict:
+def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager=None, layer=False, params=None,
+               embeds=None) -> dict:  # fmt: skip
     """The bfloat16 main path: seeded weights (or ``params``), a warm-up
     greedy run, then the run whose launch counts (set to 0 just before it)
     must equal ``expect``; then (``pc_eager``) the bf16 path against f32
-    eager on the same weights."""
+    eager on the same weights.  ``embeds``: a stub frontend's prefix before
+    the prompts (``serve.greedy(embeds=)``)."""
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.launch import serve
     from repro_torch.models import lm
 
-    max_len = PROMPT + NEW_TOKENS
+    n_pre = 0 if embeds is None else embeds.shape[1]
+    max_len = n_pre + prompts.shape[1] + NEW_TOKENS
     if params is None:
         params = lm.init(cfg, pc.world, torch.Generator(device=pc.device).manual_seed(0), torch.bfloat16)
-    warm, _ = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)  # warm-up, not counted
+    warm, _ = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len, embeds)  # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    tokens, t = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len)
+    tokens, t = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS, max_len, embeds)
     counts = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     prefill_ms = t["prefill_s"] * 1e3
     tps = BATCH * t["decode_steps"] / t["decode_s"]
     print(
-        f"[{tag}] bf16 {cfg.name} W={WORLD}: {BATCH} requests x {PROMPT} prompt tokens + {NEW_TOKENS} greedy "
+        f"[{tag}] bf16 {cfg.name} W={WORLD}: {BATCH} requests x {n_pre} prefix embeddings + {PROMPT} prompt tokens "
+        f"+ {NEW_TOKENS} greedy "
         f"tokens; prefill {prefill_ms:.2f} ms, decode {tps:.1f} tokens/s ({t['decode_steps']} steps), "
         f"peak memory {peak / 2**20:.0f} MiB"
     )
@@ -1447,9 +1602,9 @@ def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager
     print(f"[{tag}] tokens[0]: {tokens[0].tolist()}")
     result = {"prefill_ms": prefill_ms, "decode_tokens_per_s": tps, "peak_bytes": peak, "counts": counts}
     if profile:
-        result["profile"] = _profile(params, cfg, pc, prompts, max_len)
+        result["profile"] = _profile(params, cfg, pc, prompts, max_len, embeds)
     if pc_eager is not None:
-        result["bf16_vs_f32"] = _bf16_vs_f32(tag, params, cfg, pc, pc_eager, prompts, layer)
+        result["bf16_vs_f32"] = _bf16_vs_f32(tag, params, cfg, pc, pc_eager, prompts, layer, embeds)
     return result
 
 
@@ -2692,6 +2847,386 @@ def phase_zamba2(profile: bool = False) -> dict:
     return result
 
 
+def _mm_batch(cfg, pipe, step: int, dtype) -> dict:
+    """Train batch ``step`` of a multimodal model from ``pipe`` (a
+    ``SyntheticLM``) and a seeded stub frontend on the card: an
+    encoder-decoder's decoder tokens with ``frontends.encoder_frames`` frames
+    (512 at 256 tokens); a vision model's ``vision_prefix_len`` patches (256
+    of 512) before the rest of the sequence's text, labels over the whole
+    sequence (the prefix's are the stream's, so they lie in the corpus's
+    vocabulary)."""
+    import torch
+
+    from repro_torch.models import frontends
+
+    b = pipe.host_batch()
+    gen = torch.Generator(device="cuda").manual_seed(1000 + step)
+    if cfg.encoder_layers:
+        n = frontends.encoder_frames(cfg, pipe.seq_len)
+        return {**b, "embeds": frontends.stub_frame_embeddings(gen, pipe.global_batch, n, cfg.d_model, dtype, "cuda")}
+    emb = frontends.stub_patch_embeddings(gen, pipe.global_batch, pipe.seq_len, cfg.d_model, dtype, "cuda")
+    return {"inputs": b["inputs"][:, emb.shape[1] :], "labels": b["labels"], "embeds": emb}
+
+
+def _mm_launches(cfg) -> dict:
+    """Kernel launches of one multimodal train step (no remat): an
+    enc-dec's encoder layer runs 2 AG+GEMM (qkv, gate|up), 2 GEMM+RS (o,
+    down) and 1 flash, a decoder layer 4 AG+GEMM (qkv, the cross-attention's
+    q and its kv gather of the encoder stream, gate|up), 3 GEMM+RS (o, cross
+    o, down) and 2 flash; each AG+GEMM's transpose is a GEMM+RS in the
+    backward and back, the head's forward one tile GEMM; a decoder-only
+    model (the VLM) as ``paper_e2e.expected_launches``."""
+    from repro_torch.benchmarks import paper_e2e
+
+    if not cfg.encoder_layers:
+        return paper_e2e.expected_launches(cfg, "overlap")
+    e, d = cfg.encoder_layers, cfg.n_layers
+    ag, rs = 2 * e + 4 * d, 2 * e + 3 * d
+    return {"matmul": 1, "ag_gemm": ag + rs, "gemm_rs": rs + ag, "flash_attention": e + 2 * d, "grouped_matmul": 0,
+            "ssd_intra_chunk": 0}  # fmt: skip
+
+
+def _mm_seq(cfg) -> int:
+    """Tokens a train row of the multimodal phases holds: an enc-dec's 256
+    decoder tokens, the VLM's 256 patches + 256 text tokens."""
+    return TRAIN_SEQ if cfg.encoder_layers else 2 * TRAIN_SEQ
+
+
+def _mm_f32_step(tag: str, cfg, rows: int = TRAIN_BATCH) -> dict:
+    """One float32 step's loss and every leaf's gradient of ``cfg`` (a cut
+    depth, published widths; ``rows`` rows of :func:`_mm_batch`), fused
+    against eager: the loss the logits' bound, each leaf GRAD_RTOL of its
+    max|eager| (every leaf non-zero), the fused launches :func:`_mm_launches`;
+    with kv copies (rep > 1: the VLM's MQA) the synced gradient's copies
+    bitwise equal."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import model_module
+    from repro_torch.nn import attention
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    mod = model_module(cfg)
+    world = World(WORLD, "cuda")
+    p32 = mod.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    batch = _mm_batch(cfg, SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=rows), 0,
+                      torch.float32)  # fmt: skip
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    for backend in ("fused", "eager"):
+        K.reset_launch_counts()
+        pc = ParallelContext(world=world, backend=backend)
+        loss, _, _, grads = loss_and_grads(mod, cfg, pc, p32, batch)
+        res[backend] = (loss, grads, K.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    (loss_f, g_f, counts), (loss_e, g_e, _) = res["fused"], res["eager"]
+    expect = _mm_launches(cfg)
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s f32 fused step launched {counts}, expected {expect}")
+    depth = f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.encoder_layers else f"{cfg.n_layers}"
+    _hold_logits(f"[{tag}] {cfg.name} f32 loss, one step ({depth} layers, {rows} x {_mm_seq(cfg)} tokens)",
+                 loss_f[None], loss_e[None])  # fmt: skip
+    errs = _grad_errs(_leaf_names(mod.trainable(p32, cfg)), tree_leaves(g_f), tree_leaves(g_e))
+    worst = max(errs, key=lambda t: t[1])
+    print(f"[{tag}] {cfg.name} f32 gradients, fused vs eager ({depth} layers, {len(errs)} leaves): worst max|diff| / "
+          f"max|eager leaf| {worst[1]:.3e} ({worst[0]}; bound {GRAD_RTOL:g} per leaf, every leaf non-zero); fused "
+          f"launches {counts}; peak memory of both passes {peak / 2**20:.0f} MiB")  # fmt: skip
+    bad = [e for e in errs if not (e[2] and e[1] <= GRAD_RTOL)]
+    if bad:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s f32 fused gradients disagree with eager: {bad[:8]}")
+    out = {"layers": depth, "loss": [loss_f.item(), loss_e.item()], "grad_rel_err": worst[1], "worst_leaf": worst[0],
+           "leaves": len(errs), "counts": counts, "peak_bytes": peak}  # fmt: skip
+    lay = attention.layout(cfg, WORLD)
+    if lay.rep > 1:  # the kv-copy sync: every stored copy of a kv column gets the same gradient
+        synced = mod.sync_grads(g_f, cfg, ParallelContext(world=world))
+        nq = lay.h_loc * cfg.hd
+        same = all(torch.equal(layer["mixer"]["wqkv"][r, :, nq:], layer["mixer"]["wqkv"][0, :, nq:])
+                   for layer in synced["layers"] for r in range(1, WORLD))  # fmt: skip
+        raw = g_f["layers"][0]["mixer"]["wqkv"][..., nq:]
+        spread = (raw - raw[:1]).abs().max().item()
+        print(f"[{tag}] {cfg.name} kv-copy sync at rep {lay.rep}: the {WORLD} copies of each kv column bitwise equal "
+              f"after sync_grads: {same} (held; before it they differ by up to {spread:.3e})")  # fmt: skip
+        if not same or spread == 0.0:
+            raise SystemExit(f"chip_smoke: {cfg.name}'s kv-copy gradients are not synced (or were never apart)")
+        out["kv_sync_bitwise"] = same
+    del p32, res, g_f, g_e
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mm_state(cfg, world, pc, steps: int):
+    """Seeded bf16 parameters (seed 0), their AdamW state and the donated
+    train step of ``cfg`` (lr MM_LR, ``steps`` for its schedule)."""
+    import torch
+
+    from repro_torch.launch.train import model_module
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    mod = model_module(cfg)
+    params = mod.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    opt_cfg = AdamWConfig(lr=MM_LR, total_steps=steps, warmup_steps=max(5, steps // 20))
+    step = make_train_step(mod, cfg, pc, opt_cfg, grad_masks=mod.grad_masks(cfg, pc), donate=True)
+    return params, init_opt_state(mod.trainable(params, cfg)), step
+
+
+def _mm_train(tag: str, cfg, steps: int) -> dict:
+    """``steps`` bf16 AdamW steps of ``cfg`` through ``make_train_step``
+    (TRAIN_BATCH rows of :func:`_mm_batch`, W = 4, donated state): every
+    step's launches held to :func:`_mm_launches`, the mean ce of the last 5
+    steps more than 0.2 below the first 5's, the peak memory below the
+    card's; the median step ms (CUDA events) and tokens/s recorded."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.data import SyntheticLM
+    from repro_torch.parallel.context import ParallelContext
+
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    params, opt, step = _mm_state(cfg, world, pc, steps)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=TRAIN_BATCH)
+    expect = _mm_launches(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    hist = []
+    for i in range(steps):
+        batch = _mm_batch(cfg, pipe, i, torch.bfloat16)
+        before = K.launch_counts()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, m = step(params, opt, batch)
+        e1.record()
+        ce = float(m["ce"])  # a host sync
+        after = K.launch_counts()
+        hist.append({"ce": ce, "ms": e0.elapsed_time(e1), "launches": {k: after[k] - before[k] for k in after}})
+    peak = torch.cuda.max_memory_allocated()
+    bad = [(i, r["launches"]) for i, r in enumerate(hist) if r["launches"] != expect]
+    print(f"[{tag}] {cfg.name} launches per bf16 step (held exactly, every step): {hist[0]['launches']}")
+    if bad:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s train steps launched {bad[:3]} (expected {expect} each)")
+    ce = [r["ce"] for r in hist]
+    warm = min(TRAIN_WARMUP, steps - 1)
+    ms = sorted(r["ms"] for r in hist[warm:])
+    med = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    tokens = TRAIN_BATCH * _mm_seq(cfg)
+    tps = tokens / (med / 1e3)
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    extra = (f" + {batch['embeds'].shape[1]} encoder frames" if cfg.encoder_layers else
+             f" ({batch['embeds'].shape[1]} patches + {batch['inputs'].shape[1]} text tokens)")  # fmt: skip
+    depth = f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.encoder_layers else f"{cfg.n_layers}"
+    print(f"[{tag}] bf16 {cfg.name} ({depth} layers) W={WORLD}, {steps} steps of "
+          f"{TRAIN_BATCH} x {_mm_seq(cfg)} tokens{extra} at lr {MM_LR:g}: mean ce of the first 5 steps {first:.4f}, "
+          f"of the last 5 {last:.4f} (held: more than 0.2 lower); step {med:.2f} ms (median of steps {warm}-"
+          f"{steps - 1}, CUDA events), {tps:.0f} tokens/s, peak memory {peak / 2**20:.0f} MiB")  # fmt: skip
+    if not all(map(math.isfinite, ce)) or not last < first - 0.2:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s bf16 loss did not fall: {first} -> {last}")
+    if peak >= torch.cuda.get_device_properties(0).total_memory:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s train step peaked at {peak} bytes, above the card's memory")
+    counts = {k: v * steps for k, v in expect.items()}
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return {"layers": [cfg.encoder_layers, cfg.n_layers], "lr": MM_LR, "ce": ce, "step_ms": [r["ms"] for r in hist],
+            "median_step_ms": med, "tokens_per_s": tps, "peak_bytes": peak, "counts": counts, "per_step": expect}  # fmt: skip
+
+
+def _mm_resume(tag: str, cfg) -> dict:
+    """A bf16 run of ``cfg`` (a cut depth, published widths) checkpointed
+    after step TRAIN_CKPT_AT (``CheckpointManager``: the logical arrays,
+    moments and the data cursor), then one more step; the checkpoint
+    restored into fresh state and the same step run: its loss and the
+    parameters after it bitwise the uninterrupted run's."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLM
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    steps = TRAIN_CKPT_AT + 1
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        params, opt, step = _mm_state(cfg, world, pc, steps)
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=TRAIN_BATCH)
+        for i in range(TRAIN_CKPT_AT):
+            params, opt, _ = step(params, opt, _mm_batch(cfg, pipe, i, torch.bfloat16))
+        mgr.save(TRAIN_CKPT_AT, params, opt, extra={"data": pipe.state()}, cfg=cfg, world=world)
+        mgr.wait()
+        params, opt, m = step(params, opt, _mm_batch(cfg, pipe, TRAIN_CKPT_AT, torch.bfloat16))
+        ref_loss, ref_params = m["loss"].item(), [t.clone() for t in tree_leaves(params)]
+        del params, opt
+        like, like_opt, step2 = _mm_state(cfg, world, pc, steps)
+        restored, meta = mgr.restore(TRAIN_CKPT_AT, {"params": like, "opt": like_opt}, cfg=cfg, world=world)
+        pipe2 = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=TRAIN_BATCH)
+        pipe2.restore(meta["extra"]["data"])
+        params, _, m2 = step2(restored["params"], restored["opt"], _mm_batch(cfg, pipe2, TRAIN_CKPT_AT, torch.bfloat16))
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(params), ref_params))
+    depth = f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.encoder_layers else f"{cfg.n_layers}"
+    print(f"[{tag}] {cfg.name} checkpoint after step {TRAIN_CKPT_AT} ({depth} layers, full width, bf16), resumed: "
+          f"step {TRAIN_CKPT_AT} loss {ref_loss!r} uninterrupted, {m2['loss'].item()!r} resumed (held bitwise); "
+          f"parameters after it bitwise equal: {same} (held)")  # fmt: skip
+    if m2["loss"].item() != ref_loss or not same:
+        raise SystemExit(f"chip_smoke: {cfg.name}'s resumed step differs from the uninterrupted one")
+    del params, like, like_opt, restored, ref_params
+    torch.cuda.empty_cache()
+    return {"layers": depth, "loss": ref_loss, "resumed_loss": m2["loss"].item(), "params_bitwise": same}
+
+
+def _encdec_serve(cfg, pc, params, frames, start) -> tuple:
+    """One enc-dec serve run: encode the frames, build the cross caches, then
+    NEW_TOKENS greedy ``decode_step``s from the ``start`` tokens [B].
+    Returns (tokens [B, NEW_TOKENS], encoder ms, cross-cache ms, decode step
+    ms per step: CUDA events)."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(NEW_TOKENS + 3)]
+    ev[0].record()
+    enc = encdec.encode(params, cfg, pc, frames)
+    ev[1].record()
+    cross = encdec.build_cross_caches(params, cfg, pc, enc)
+    ev[2].record()
+    caches = {"self": encdec.init_caches(cfg, pc, frames.shape[0], NEW_TOKENS, params["embed"].dtype)["self"],
+              "cross": cross}  # fmt: skip
+    tok, out = start, []
+    for i in range(NEW_TOKENS):
+        if i:
+            ev[2 + i].record()
+        lg, caches = encdec.decode_step(params, caches, cfg, pc, tok[:, None], i)
+        tok = lg[:, 0].argmax(-1)
+        out.append(tok)
+    ev[-1].record()
+    torch.cuda.synchronize()
+    steps = [ev[2 + i].elapsed_time(ev[3 + i]) for i in range(1, NEW_TOKENS)]
+    return torch.stack(out, 1), ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]), steps
+
+
+def phase_encdec(profile: bool = False) -> dict:
+    """seamless-m4t-medium at its published size: serve, the f32 checks,
+    training (module docstring, phase 15)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec, frontends
+
+    cfg, world, pc, pc_eager, _ = _setup(ARCH_ED)
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    params = encdec.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    frames = frontends.stub_frame_embeddings(gen, BATCH, cfg.enc_len, cfg.d_model, torch.bfloat16, world.device)
+    start = torch.from_numpy(serve.make_prompts(cfg.vocab_size, BATCH, 1, seed=0)[:, 0]).to(world.device)
+    # (a) serve: a warm-up run, then the counted run
+    warm = _encdec_serve(cfg, pc, params, frames, start)[0]
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    tokens, enc_ms, cross_ms, step_ms = _encdec_serve(cfg, pc, params, frames, start)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    e, d = cfg.encoder_layers, cfg.n_layers
+    expect = {"ag_gemm": 2 * e + d, "gemm_rs": 2 * e, "flash_attention": e, "matmul": NEW_TOKENS, "grouped_matmul": 0,
+              "ssd_intra_chunk": 0}  # fmt: skip
+    tps = BATCH * len(step_ms) / (sum(step_ms) / 1e3)
+    med = sorted(step_ms)[len(step_ms) // 2]
+    print(f"[encdec] bf16 {cfg.name} ({e} + {d} layers) W={WORLD}: {BATCH} requests x {cfg.enc_len} stub frames, "
+          f"{NEW_TOKENS} greedy tokens; encoder {enc_ms:.2f} ms, cross caches {cross_ms:.2f} ms, decode step "
+          f"{med:.2f} ms (median; steps {[round(t, 2) for t in step_ms]}), {tps:.1f} tokens/s, peak memory "
+          f"{peak / 2**20:.0f} MiB")  # fmt: skip
+    print(f"[encdec] launch counts of the main path: {counts}")
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: {cfg.name} launch counts {counts} != expected {expect}")
+    if not torch.equal(tokens, warm) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise SystemExit("chip_smoke: two enc-dec greedy runs on the same weights gave different or bad tokens")
+    print(f"[encdec] tokens[0]: {tokens[0].tolist()}")
+    result = {"encode_ms": enc_ms, "cross_ms": cross_ms, "decode_step_ms": step_ms, "decode_tokens_per_s": tps,
+              "peak_bytes": peak, "counts": counts}  # fmt: skip
+
+    # (b) float32 on the same (bf16-valued) weights: the forward fused vs eager, the decode vs the forward
+    p32 = _f32(params)
+    toks = torch.from_numpy(serve.make_prompts(cfg.vocab_size, BATCH, NEW_TOKENS, seed=1)).to(world.device)
+    lg_f, _ = encdec.forward(p32, cfg, pc, toks, frames.float())
+    lg_e, _ = encdec.forward(p32, cfg, pc_eager, toks, frames.float())
+    _hold_logits(f"[encdec] f32 forward logits ({BATCH} x {cfg.enc_len} frames, {NEW_TOKENS} decoder tokens)",
+                 lg_f, lg_e)  # fmt: skip
+    enc = encdec.encode(p32, cfg, pc, frames.float())
+    caches = {"self": encdec.init_caches(cfg, pc, BATCH, NEW_TOKENS, torch.float32)["self"],
+              "cross": encdec.build_cross_caches(p32, cfg, pc, enc)}  # fmt: skip
+    worst = 0.0
+    for i in range(NEW_TOKENS):
+        lg, caches = encdec.decode_step(p32, caches, cfg, pc, toks[:, i : i + 1], i)
+        diff = (lg[:, 0] - lg_f[:, i]).abs()
+        worst = max(worst, (diff - DECODE_RTOL * lg_f[:, i].abs()).max().item())
+    print(f"[encdec] f32 decode_step logits (cross caches, {NEW_TOKENS} steps) vs the teacher-forced forward's: "
+          f"worst max(|diff| - {DECODE_RTOL:g} |forward|) {worst:.3e} (held <= {DECODE_RTOL:g})")  # fmt: skip
+    if not worst <= DECODE_RTOL:
+        raise SystemExit("chip_smoke: the enc-dec decode logits disagree with the teacher-forced forward's")
+    # (c) the bf16 fused forward against the f32 eager one on the same weights
+    lg_b, _ = encdec.forward(params, cfg, pc, toks, frames)
+    err, scale = (lg_b.float() - lg_e).abs().max().item(), lg_e.abs().max().item()
+    print(f"[encdec] bf16 fused forward vs f32 eager (same bf16 weights): max|diff| {err:.3e} (bound "
+          f"{TOL['bfloat16']:g} x max|f32| {scale:.3e})")  # fmt: skip
+    if not (torch.isfinite(lg_b).all() and err <= TOL["bfloat16"] * scale):
+        raise SystemExit("chip_smoke: the bf16 enc-dec forward disagrees with the f32 eager one")
+    result.update(decode_vs_forward=worst, bf16_forward_err=err, bf16_forward_ref=scale)
+    del params, p32, lg_f, lg_e, lg_b, enc, caches
+    torch.cuda.empty_cache()
+
+    # (d) training: the f32 step at 2 + 2 layers, TRAIN_STEPS bf16 steps at full depth, the resume at 2 + 2
+    cut = dataclasses.replace(cfg, encoder_layers=MM_CUT_LAYERS, n_layers=MM_CUT_LAYERS)
+    result["f32_step"] = _mm_f32_step("encdec", cut)
+    result["train"] = _mm_train("encdec", cfg, TRAIN_STEPS)
+    result["resume"] = _mm_resume("encdec", cut)
+    return result
+
+
+def phase_vlm(profile: bool = False) -> dict:
+    """paligemma-3b at its published size: serve with an image prefix, the
+    f32 checks, training (module docstring, phase 16)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import frontends, lm
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_V)
+    gen = torch.Generator(device=world.device).manual_seed(1)
+    patches = frontends.stub_patch_embeddings(gen, BATCH, 2 * PROMPT, cfg.d_model, torch.float32, world.device)
+    max_len = patches.shape[1] + PROMPT + NEW_TOKENS
+    # (a) the float32 prefill (image prefix + prompts) at full depth, fused against eager
+    p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    lg_f, _ = lm.prefill(p32, cfg, pc, prompts, patches, max_len=max_len)
+    lg_e, _ = lm.prefill(p32, cfg, pc_eager, prompts, patches, max_len=max_len)
+    _hold_logits(f"[vlm] f32 prefill logits ({patches.shape[1]} patches + {PROMPT} tokens, every position)", lg_f,
+                 lg_e)  # fmt: skip
+    del p32, lg_f, lg_e
+    torch.cuda.empty_cache()
+    # (b) the bf16 main path through serve.greedy(embeds=), launches held; a bf16 layer against f32 eager
+    n = cfg.n_layers
+    expect = {"ag_gemm": 2 * n, "gemm_rs": 2 * n, "flash_attention": n, "matmul": NEW_TOKENS, "grouped_matmul": 0,
+              "ssd_intra_chunk": 0}  # fmt: skip
+    result = _main_path("vlm", cfg, pc, prompts, expect, profile, pc_eager, layer=True,
+                        embeds=patches.bfloat16())  # fmt: skip
+    print(f"[vlm] max_len {max_len}: prefill of {patches.shape[1]} + {PROMPT} tokens, then {NEW_TOKENS - 1} decode steps")
+    torch.cuda.empty_cache()
+    # (c) training: the f32 step at V_F32_LAYERS layers and V_F32_ROWS rows (with the kv-copy sync), TRAIN_STEPS
+    # bf16 steps at full
+    # depth, the resume at MM_CUT_LAYERS
+    result["f32_step"] = _mm_f32_step("vlm", dataclasses.replace(cfg, n_layers=V_F32_LAYERS), V_F32_ROWS)
+    result["train"] = _mm_train("vlm", cfg, TRAIN_STEPS)
+    result["resume"] = _mm_resume("vlm", dataclasses.replace(cfg, n_layers=MM_CUT_LAYERS))
+    return result
+
+
 def _e2e_f32_step(arch: str) -> dict:
     """(d): one float32 step's loss and every leaf's gradient, fused against
     eager, at E2E_F32_LAYERS layers of ``arch`` at its published width
@@ -2786,7 +3321,7 @@ def _e2e_serve() -> dict:
 
 
 def phase_e2e(profile: bool = False) -> dict:
-    """Paper Fig. 11 and the three dense configs (module docstring, phase 12)."""
+    """Paper Fig. 11 and the three dense configs (module docstring, phase 17)."""
     import torch
 
     from repro_torch import kernels as K
@@ -2877,17 +3412,18 @@ def phase_paper() -> dict:
     return {"rows": rows + rows_moe + rows_attn, "counts": counts}
 
 
-def _profile(params, cfg, pc, prompts, max_len):
+def _profile(params, cfg, pc, prompts, max_len, embeds=None):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
     from repro_torch.benchmarks.common import profile_windows
     from repro_torch.models import lm
 
-    _, caches = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    _, caches = lm.prefill(params, cfg, pc, prompts, embeds, max_len=max_len)
     tok = prompts[:, -1:]
+    pos = prompts.shape[1] + (0 if embeds is None else embeds.shape[1])
     return profile_windows(cfg.name, {
-        "prefill": lambda: lm.prefill(params, cfg, pc, prompts, max_len=max_len),
-        "decode_step": lambda: lm.decode_step(params, caches, cfg, pc, tok, PROMPT),
+        "prefill": lambda: lm.prefill(params, cfg, pc, prompts, embeds, max_len=max_len),
+        "decode_step": lambda: lm.decode_step(params, caches, cfg, pc, tok, pos),
     })  # fmt: skip
 
 
@@ -2912,7 +3448,8 @@ def main(argv=None) -> int:
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
-              "zamba2": lambda: phase_zamba2(prof), "e2e": lambda: phase_e2e(prof), "paper": phase_paper,
+              "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
+              "e2e": lambda: phase_e2e(prof), "paper": phase_paper,
               # last: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
               "kernels": lambda: phase_kernels(ITERS)}  # fmt: skip
@@ -2936,6 +3473,10 @@ def main(argv=None) -> int:
     by_path[ARCH_Z] = out["zamba2"]["counts"]
     by_path[f"engine {ARCH_Z}"] = out["zamba2"]["engine"]["counts"]
     by_path[f"train {ARCH_Z}"] = out["zamba2"]["train"]["bf16"]["counts"]
+    by_path[f"encdec {ARCH_ED}"] = out["encdec"]["counts"]
+    by_path[f"train encdec {ARCH_ED}"] = out["encdec"]["train"]["counts"]
+    by_path[f"vlm {ARCH_V}"] = out["vlm"]["counts"]
+    by_path[f"train vlm {ARCH_V}"] = out["vlm"]["train"]["counts"]
     by_path.update({f"e2e {arch}": c for arch, c in out["e2e"]["counts"].items()})
     by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
@@ -2970,6 +3511,16 @@ def main(argv=None) -> int:
         if name == "flash_attention":  # head dim 80 (zamba2's shared attention), bf16 on the wgmma route
             r80 = recs[(name, ARCH_Z, "prefill", bf16)]
             line[-1]["d80"] = {k: r80[k] for k in TIMES if k in r80}
+            # head dim 256 (paligemma, causal MQA), bf16 on the wgmma route; seamless-m4t's non-causal encoder
+            # and its cross-attention (Sq != Sk)
+            r256, r256f = recs[(name, ARCH_V, "prefill", bf16)], recs[(name, ARCH_V, "prefill", f32)]
+            line[-1]["d256"] = {k: r256[k] for k in TIMES if k in r256}
+            line[-1]["d256_f32"] = {k: r256f[k] for k in TIMES if k in r256f}  # the FMA route
+            line[-1]["encdec"] = {t: {k: recs[(name, ARCH_ED, t, bf16)][k] for k in TIMES
+                                      if k in recs[(name, ARCH_ED, t, bf16)]} for t in ("encoder", "cross")}
+        if name in ("matmul", "ag_gemm", "gemm_rs"):  # the multimodal models' heads and projections (bf16)
+            line[-1]["multimodal"] = {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES if k in recs[(n, a, t, d)]}
+                                      for n, a, t, d in recs if n == name and a in (ARCH_ED, ARCH_V) and d == bf16}
         if name == "ssd_intra_chunk":  # the train tile (f32), forward and the torch-ops backward
             rt = recs[(name, ARCH_SSM, "train", f32)]
             line[-1]["train"] = {k: rt[k] for k in (*TIMES, "backward_ms", "backward_bound_ms", "function_errs")

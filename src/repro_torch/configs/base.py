@@ -1,7 +1,7 @@
 """Architecture configuration schema and the config registry.
 
-The port's copy of ``repro/configs/base.py`` for the decoder slices (dense,
-MoE and Mamba-2): one :class:`ArchConfig` per architecture, registered by
+The port's copy of ``repro/configs/base.py`` (dense, MoE, Mamba-2, the
+encoder-decoder and the stub-frontend models): one :class:`ArchConfig` per architecture, registered by
 name.  The field names and defaults match the JAX package's, so a config
 built here and one built there describe the same model.  ``reduce_config`` is the
 same-family shrink of ``repro/launch/train.py`` used by the CPU tests.
@@ -55,10 +55,13 @@ class ArchConfig:
     pattern: Tuple[str, ...] = ("attn",)  # layer-kind pattern, tiled over depth
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encoder_layers: int = 0  # >0 -> encoder-decoder (models/encdec)
+    frontend: Optional[str] = None  # "vision" | "audio" stub frontends (models/frontends)
     norm_eps: float = 1e-6
     act: str = "silu"
     tie_embeddings: bool = False
     sub_quadratic: bool = False  # eligible for long-context decode
+    enc_len: int = 4096  # stub encoder length for enc-dec decode
     # the port's own field (``PORT_FIELDS``): scale the embedding by sqrt(d_model),
     # which the JAX package decides by ``family == "vlm"`` or a "gemma" name
     embed_scale: bool = False
@@ -95,8 +98,8 @@ def get_config(name: str) -> ArchConfig:
 
 
 def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> ArchConfig:
-    """Reduced same-family config for CPU runs (the dense, MoE and SSM
-    branches of the JAX package's ``launch/train.reduce_config``); every
+    """Reduced same-family config for CPU runs (the JAX package's
+    ``launch/train.reduce_config``, its encoder branch included); every
     field it does not set (``pattern``, ``local_window``,
     ``rope_theta_local``, ``qkv_bias``, ``act``, ``tie_embeddings``) is
     kept, as there."""
@@ -112,4 +115,6 @@ def reduce_config(cfg: ArchConfig, d_model: int = 128, vocab: int = 512) -> Arch
         )
     if cfg.ssm:
         kw["ssm"] = dataclasses.replace(cfg.ssm, d_state=16, headdim=16, chunk=16)
+    if cfg.encoder_layers:
+        kw.update(encoder_layers=2, enc_len=32)
     return dataclasses.replace(cfg, **kw)

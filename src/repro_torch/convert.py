@@ -36,6 +36,18 @@ padded-vocab columns become 49160, and ``lm.logits`` keeps the first
 into the layer list.  A shared attention mixer (``shared_attn``, zamba2) is
 sharded like any attention mixer; its layers hold only their MLP.
 
+An encoder-decoder tree (``cfg.encoder_layers``; the JAX package's
+``models/encdec.init``: ``embed``, ``enc_scan``, ``enc_ln``, ``dec_scan``,
+``final_ln``, an untied ``lm_head``) becomes ``embed``, ``head``,
+``enc_ln``, ``final_ln``, ``enc_layers`` [{attn, ffn}] and ``dec_layers``
+[{attn, cross, ffn}], the stacked ``*_scan`` leaves unstacked into the
+layer lists.  A decoder layer's self-attention is sharded as above; its
+cross mixer (:func:`shard_cross`) keeps ``wq`` and ``wkv`` as two per-rank
+shards, each padded with zero columns to a multiple of ``IN_ALIGN``: its
+queries and its keys / values project different streams, and a column
+slice of one joined shard would not be contiguous (the bf16 AG+GEMM
+kernel reads its weight by TMA).
+
 ``unshard_params`` is the inverse of ``shard_params``: rank-stacked ->
 global (the layout ``shard_params`` takes, the JAX package's with the
 layers as a list).  It takes any tree of the parameters' structure
@@ -55,7 +67,7 @@ from repro_torch.backend.mesh import World
 
 __all__ = [
     "from_jax_params", "shard_params", "unshard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp",
-    "shard_mamba", "tied_head", "F32_LEAVES", "IN_ALIGN",
+    "shard_mamba", "shard_cross", "tied_head", "F32_LEAVES", "IN_ALIGN",
 ]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
@@ -94,7 +106,10 @@ def tied_head(embed: torch.Tensor) -> torch.Tensor:
 
 
 def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
-    """Global parameters {embed, final_ln, [lm_head], layers: [...]} -> rank-stacked."""
+    """Global parameters {embed, final_ln, [lm_head], layers: [...]} (an
+    encoder-decoder's: module docstring) -> rank-stacked."""
+    if cfg.encoder_layers:
+        return _shard_encdec(glob, world)
     embed = glob["embed"]
     head = glob["lm_head"] if "lm_head" in glob else embed.t()
     out = {
@@ -140,6 +155,43 @@ def shard_attention(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
         out["bqkv"] = torch.cat([bq, bkv], dim=-1).contiguous()
     out["wo"] = shard_rows(mixer["wo"], world)
     return out
+
+
+def _pad_cols(w: torch.Tensor) -> torch.Tensor:
+    """[..., n] -> [..., n padded to a multiple of IN_ALIGN] (zero columns), contiguous."""
+    pad = -w.shape[-1] % IN_ALIGN
+    return torch.cat([w, w.new_zeros(w.shape[:-1] + (pad,))], dim=-1) if pad else w.contiguous()
+
+
+def shard_cross(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """A cross-attention mixer {ln, wq, wkv, wo}: ``wq`` and ``wkv`` by
+    columns into separate per-rank shards, each padded to a multiple of
+    ``IN_ALIGN`` columns; ``wo`` by rows.  (No encoder-decoder config has a
+    QKV bias: one is refused.)"""
+    if "bq" in mixer:
+        raise NotImplementedError("repro_torch: a cross-attention mixer with a QKV bias is not ported")
+    return {"ln": mixer["ln"], "wq": _pad_cols(shard_cols(mixer["wq"], world)),
+            "wkv": _pad_cols(shard_cols(mixer["wkv"], world)), "wo": shard_rows(mixer["wo"], world)}  # fmt: skip
+
+
+def _shard_encdec(glob: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """The encoder-decoder's global tree -> rank-stacked (module docstring)."""
+
+    def layer(lp):
+        out = {"attn": shard_attention(lp["attn"], world)}
+        if "cross" in lp:
+            out["cross"] = shard_cross(lp["cross"], world)
+        out["ffn"] = shard_mlp(lp["ffn"], world)
+        return out
+
+    return {
+        "embed": shard_rows(glob["embed"], world),
+        "head": _pad_head(glob["lm_head"]),
+        "enc_ln": glob["enc_ln"],
+        "final_ln": glob["final_ln"],
+        "enc_layers": [layer(lp) for lp in glob["enc_layers"]],
+        "dec_layers": [layer(lp) for lp in glob["dec_layers"]],
+    }
 
 
 def shard_mlp(f: Dict[str, Any], world: World) -> Dict[str, Any]:
@@ -193,9 +245,38 @@ def _unshard_attention(mixer: Dict[str, Any], cfg, world: World) -> Dict[str, An
     return out
 
 
+def _unshard_cross(mixer: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """Inverse of :func:`shard_cross` (the pad columns dropped)."""
+    from repro_torch.nn.attention import layout
+
+    lay = layout(cfg, world.size)
+    nq, nkv = lay.h_loc * cfg.hd, 2 * lay.kv_loc * cfg.hd
+    return {"ln": mixer["ln"], "wq": unshard_cols(mixer["wq"][..., :nq]), "wkv": unshard_cols(mixer["wkv"][..., :nkv]),
+            "wo": unshard_rows(mixer["wo"])}  # fmt: skip
+
+
+def _unshard_encdec(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    def layer(lp):
+        out = {"attn": _unshard_attention(lp["attn"], cfg, world)}
+        if "cross" in lp:
+            out["cross"] = _unshard_cross(lp["cross"], cfg, world)
+        out["ffn"] = _unshard_mlp(lp["ffn"])
+        return out
+
+    out = {"embed": unshard_rows(params["embed"])}
+    if "head" in params:
+        out["lm_head"] = params["head"][:, : params["embed"].shape[0] * params["embed"].shape[1]]
+    out.update(enc_ln=params["enc_ln"], final_ln=params["final_ln"])
+    out["enc_layers"] = [layer(lp) for lp in params["enc_layers"]]
+    out["dec_layers"] = [layer(lp) for lp in params["dec_layers"]]
+    return out
+
+
 def unshard_params(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     """Rank-stacked -> global: the inverse of :func:`shard_params` (module
     docstring).  Every leaf is a new tensor or a view of ``params``."""
+    if cfg.encoder_layers:
+        return _unshard_encdec(params, cfg, world)
     out = {"embed": unshard_rows(params["embed"]), "final_ln": params["final_ln"], "layers": []}
     if "head" in params and not cfg.tie_embeddings:
         out["lm_head"] = params["head"][:, : params["embed"].shape[0] * params["embed"].shape[1]]
@@ -247,7 +328,8 @@ def _unit(tree, u: int):
 
 
 def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optional[torch.dtype] = None):
-    """The JAX package's ``lm.init`` pytree (numpy leaves) -> port parameters.
+    """The JAX package's ``lm.init`` pytree (``encdec.init``'s for an
+    encoder-decoder config; numpy leaves) -> port parameters.
 
     ``dtype`` defaults to float32 (the leaves of ``F32_LEAVES`` are float32
     always); leaves are moved to ``world.device``.
@@ -256,6 +338,11 @@ def from_jax_params(np_params: Dict[str, Any], cfg, world: World, dtype: Optiona
 
     dtype = dtype or torch.float32
     tree = _tensors(np_params, world.device, dtype)
+    if cfg.encoder_layers:
+        glob = {k: tree[k] for k in ("embed", "lm_head", "enc_ln", "final_ln")}
+        for part, n in (("enc", cfg.encoder_layers), ("dec", cfg.n_layers)):
+            glob[f"{part}_layers"] = [_unit(tree[f"{part}_scan"], u) for u in range(n)]
+        return shard_params(glob, cfg, world)
     layers = list(tree.get("prefix", []))
     scan = tree.get("scan")
     if scan:

@@ -1,6 +1,6 @@
 // Flash attention: online softmax, GQA, causal and sliding-window masks; the
-// FMA route (float32 at every head dim, bf16 at 16 and 32; bf16 at 64, 80
-// and 128 runs flash_attention_wgmma.cu).
+// FMA route (float32 at every head dim, bf16 at 16 and 32; bf16 at 64, 80,
+// 128 and 256 runs flash_attention_wgmma.cu).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel).
 // q [BH, Sq, D], k/v [BHkv, Sk, D] -> o [BH, Sq, D]; head b reads KV head
@@ -25,6 +25,8 @@
 // Bound on this card: the QK^T and PV products (4 * Sq * Sk_visible * D
 // flops per head) on fp32 FMA, plus the exponentials; K and V tiles are read
 // once per q tile, so bytes are ~Sk*D*(Sq/64) per head — FMA-bound at D = 64.
+// At D = 256 (paligemma's float32 checks) the block's shared memory is
+// 215 KB (Q, K^T, V and P in f32, padded rows): one block per SM.
 #include <cfloat>
 
 #include "tile_gemm.cuh"
@@ -211,7 +213,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int BH, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// WIDE: head dims 64, 80 and 128 too (float32; bf16 takes them on the wgmma route)
+// WIDE: head dims 64, 80, 128 and 256 too (float32; bf16 takes them on the wgmma route)
 template <typename T, bool WIDE>
 static int dispatch_d(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Sk, int D,
                       float scale, int causal, int window, const FaMap& fmap, const FaState& fst, cudaStream_t st) {
@@ -221,12 +223,13 @@ static int dispatch_d(const void* q, const void* k, const void* v, void* o, int 
     if (D == 64) return launch<T, 64>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
     if (D == 80) return launch<T, 80>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
     if (D == 128) return launch<T, 128>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
+    if (D == 256) return launch<T, 256>(q, k, v, o, BH, Sq, Sk, scale, causal, window, fmap, fst, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dtype: 0 = float32 (D 16, 32, 64, 80, 128), 1 = bfloat16 (D 16, 32; 64, 80
-// and 128 run tl_flash_attention_wgmma).  map places W ranks' heads and positions
+// dtype: 0 = float32 (D 16, 32, 64, 80, 128, 256), 1 = bfloat16 (D 16, 32;
+// 64, 80, 128 and 256 run tl_flash_attention_wgmma).  map places W ranks' heads and positions
 // (flash_map.cuh); m / l / so are the f32 state (load: read it; store: write
 // it instead of o; null when neither).
 extern "C" int tl_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o, void* m, void* l,

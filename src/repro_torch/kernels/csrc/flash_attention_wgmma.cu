@@ -1,7 +1,7 @@
 // Flash attention, bf16 route for Hopper: TMA -> shared-memory ring -> wgmma,
 // online softmax in registers.
 //
-// Replaces, for bf16 operands at head dims 64, 80 and 128, the TPU kernel
+// Replaces, for bf16 operands at head dims 64, 80, 128 and 256, the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention (_fa_kernel): q [BH,
 // Sq, D], k/v [BHkv, Sk, D] -> o [BH, Sq, D]; head b reads KV head b / (BH /
 // BHkv); queries right-aligned to keys (query i sits at key position i + Sk -
@@ -54,6 +54,14 @@
 // visible key yet keeps m = -1e30 (its l and O hold the masked keys' p = 1),
 // and the first visible key wipes it (alpha = exp2(-1e30 - m) = 0); the
 // kernel never divides a carried state except at the last launch.
+//
+// Head dim 256 (paligemma) runs a 256-wide pipeline: four 64-column boxes
+// per tile, so a stage (K and V) is 64 KB and the Q tile 32 KB, ~161 KB of
+// shared memory with two stages (one CTA per SM); S = Q K^T takes 16 k-steps
+// and O += P V one m64n256k16 wgmma per k-step, whose accumulator fragment
+// (the n128 layout extended: column 8 (j / 4) + 2 (t % 4) + j % 2) holds 128
+// f32 registers a consumer thread beside S's 32; the build phase reports the
+// kernel's registers and spills.
 //
 // Numerics: P in bf16 before P V is what the reference's attn_p_bf16 option
 // does on its unfused path; l sums the f32 P.  No atomics, a fixed order:
@@ -152,6 +160,43 @@ __device__ __forceinline__ void fa_mma_rs_n128(float (&d)[64], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void fa_mma_rs_n256(float (&d)[128], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // The KV range [lo, hi) of keys visible to some query of the tile at q0
 // (the plain version's tiles: flash_attention.kv_tiles).
 struct FwRange {
@@ -167,7 +212,7 @@ __device__ __forceinline__ FwRange fw_range(int q0, int Sk, int off, int causal,
   return FwRange{lo, hi > lo ? (hi - lo + FW_BK - 1) / FW_BK : 0};
 }
 
-// D: the head dim in memory; DP: the pipeline's width (64 or 128, >= D)
+// D: the head dim in memory; DP: the pipeline's width (64, 128 or 256, >= D)
 template <int D, int DP>
 __global__ void __launch_bounds__(FW_THREADS)
     fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
@@ -349,8 +394,10 @@ __global__ void __launch_bounds__(FW_THREADS)
       const uint64_t db = wg_desc(v_addr + kk * 2048, FW_BOX, 1024);
       if constexpr (DP == 64) {
         fa_mma_rs_n64(oacc, pa[kk], db, 1);
-      } else {
+      } else if constexpr (DP == 128) {
         fa_mma_rs_n128(oacc, pa[kk], db, 1);
+      } else {
+        fa_mma_rs_n256(oacc, pa[kk], db, 1);
       }
     }
     wg_commit();
@@ -427,7 +474,7 @@ static int fw_launch(const void* q, const void* k, const void* v, void* o, int B
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 q [BH, Sq, D], k/v [BHkv, Sk, D] -> o; D 64, 80 or 128; bases 16-byte
+// bf16 q [BH, Sq, D], k/v [BHkv, Sk, D] -> o; D 64, 80, 128 or 256; bases 16-byte
 // aligned (TMA).  map (host int table, flash_map.cuh) places W ranks' heads
 // and positions; m / l / so are the f32 state (load: read it; store: write
 // it instead of o; null when neither).  info (host int[1]) receives the
@@ -448,5 +495,6 @@ extern "C" int tl_flash_attention_wgmma(const void* q, const void* k, const void
   if (D == 64) return fw_launch<64, 64>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
   if (D == 80) return fw_launch<80, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
   if (D == 128) return fw_launch<128, 128>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
+  if (D == 256) return fw_launch<256, 256>(q, k, v, o, BH, BHkv, Sq, Sk, scale, causal, window, fmap, fst, inf, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

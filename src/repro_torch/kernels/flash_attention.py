@@ -2,11 +2,11 @@
 masks.  Two routes, chosen before the launch by dtype and head dim
 (:data:`ROUTES`, :func:`route`), never by a fallback:
 
-  * ``"wgmma"`` (bfloat16 at head dims 64, 80 and 128, the serve dtype):
-    ``csrc/flash_attention_wgmma.cu``, TMA-staged Q / K / V, both products on
-    wgmma, P rounded to bf16 before P V; head dim 80 (zamba2) runs the
-    128-wide pipeline on the 80 columns in memory, TMA filling the rest
-    with zeros.  :func:`flash_attention_tiled` replays its schedule.
+  * ``"wgmma"`` (bfloat16 at head dims 64, 80, 128 and 256, the serve
+    dtype): ``csrc/flash_attention_wgmma.cu``, TMA-staged Q / K / V, both
+    products on wgmma, P rounded to bf16 before P V; head dim 80 (zamba2)
+    runs the 128-wide pipeline on the 80 columns in memory, TMA filling the
+    rest with zeros; head dim 256 (paligemma) a 256-wide pipeline.  :func:`flash_attention_tiled` replays its schedule.
   * ``"fma"`` (float32 at every head dim, bfloat16 at 16 and 32):
     ``csrc/flash_attention.cu``, f32 FMA; float32 products stay exact.
 
@@ -72,9 +72,9 @@ __all__ = [
     "TILE",
 ]
 
-HEAD_DIMS = (16, 32, 64, 80, 128)  # head dims the kernels are instantiated for (bf16 at 80: wgmma only)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)  # head dims the kernels are instantiated for (bf16 at 80: wgmma only)
 # (dtype, head dim) -> route; any other pair takes "fma"
-ROUTES = {(torch.bfloat16, 64): "wgmma", (torch.bfloat16, 80): "wgmma", (torch.bfloat16, 128): "wgmma"}
+ROUTES = {(torch.bfloat16, d): "wgmma" for d in (64, 80, 128, 256)}
 TILE = 64  # query rows and keys per tile of both kernels
 NEG_INF = -1e30
 LN2 = 0.6931471805599453

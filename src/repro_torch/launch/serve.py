@@ -8,7 +8,9 @@ with one host sync.  :func:`greedy` is the fixed-batch path, ``lm.prefill``
 (the fused kernels on the card) then a greedy ``decode_step`` loop.
 Example, on the card (``--arch`` any registered config: smollm-360m,
 qwen2-72b, starcoder2-7b, gemma3-27b, granite-moe-3b-a800m,
-deepseek-moe-16b, mamba2-2.7b or zamba2-2.7b):
+deepseek-moe-16b, mamba2-2.7b, zamba2-2.7b or paligemma-3b; the engine
+serves text prompts, ``greedy(embeds=)`` takes an image prefix; an
+encoder-decoder is refused, as in the JAX package):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
       --batch 16 --prompt-len 256 --new-tokens 16 --slots 8 --world 4 --dtype bf16
@@ -43,6 +45,11 @@ from repro_torch.serving import Request, ServeEngine
 __all__ = ["greedy", "serve", "make_prompts", "main"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# the JAX package's serve CLI refuses an encoder-decoder the same way
+ENCDEC_REFUSED = (
+    "serve.py drives decoder-only archs; enc-dec decode is exercised through models/encdec "
+    "(encode, build_cross_caches, decode_step)"
+)
 
 
 def make_prompts(vocab: int, batch: int, prompt_len: int, seed: int) -> np.ndarray:
@@ -55,19 +62,24 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def greedy(params, cfg, pc: ParallelContext, prompts: torch.Tensor, new_tokens: int, max_len: Optional[int] = None):
-    """Greedy continuation of ``prompts`` [B, S]: the first token from the
-    prefill logits, each later one from a ``decode_step``.
+def greedy(
+    params, cfg, pc: ParallelContext, prompts: torch.Tensor, new_tokens: int, max_len: Optional[int] = None,
+    embeds: Optional[torch.Tensor] = None,
+):  # fmt: skip
+    """Greedy continuation of ``prompts`` [B, S] after the stub frontend's
+    prefix ``embeds`` [B, S0, D] (paligemma's image patches; None: text
+    only): the first token from the prefill logits, each later one from a
+    ``decode_step`` at position S0 + S + i.
 
     Returns (tokens [B, new_tokens], timings) with the prefill and decode
     seconds (host clock around work that ends in a device synchronise).
     """
-    b, s0 = prompts.shape
+    s0 = prompts.shape[1] + (0 if embeds is None else embeds.shape[1])
     max_len = max_len or s0 + new_tokens
     dev = pc.device
     _sync(dev)
     t0 = time.perf_counter()
-    lg, caches = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
+    lg, caches = lm.prefill(params, cfg, pc, prompts, embeds, max_len=max_len)
     tok = lg[:, -1].argmax(-1)
     _sync(dev)
     t1 = time.perf_counter()
@@ -109,6 +121,8 @@ def serve(
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
+    if cfg.encoder_layers:
+        raise SystemExit(ENCDEC_REFUSED)
     w = World(world, device)
     pc = ParallelContext(world=w, moe_decode_stream=moe_stream)
     gen = torch.Generator(device=w.device).manual_seed(seed)

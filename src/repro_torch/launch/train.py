@@ -26,6 +26,11 @@ x 256 tokens need it on one 80 GB card (their saved activations alone
 would take ~51 GB):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b --remat dots --steps 30
+
+A stub-frontend model (paligemma-3b) trains text-only here, as in the JAX
+package; an encoder-decoder (seamless-m4t-medium) is refused: its batches
+need encoder frames, which ``SyntheticLM`` does not give
+(``training.make_train_step`` takes them as ``batch["embeds"]``).
 """
 
 from __future__ import annotations
@@ -43,12 +48,17 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.serve import DTYPES
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.runtime import StepWatchdog
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
-__all__ = ["train", "main"]
+__all__ = ["train", "model_module", "main"]
+
+
+def model_module(cfg):
+    """The model module of a config (``repro/launch/specs.model_module``)."""
+    return encdec if cfg.encoder_layers else lm
 
 
 def train(
@@ -81,15 +91,21 @@ def train(
         cfg = reduce_config(cfg)
     if layers:
         cfg = dataclasses.replace(cfg, n_layers=layers)
+    mod = model_module(cfg)
+    if mod is encdec:
+        raise ValueError(
+            f"the train CLI feeds SyntheticLM tokens, which carry no encoder frames: {arch} is an encoder-decoder; "
+            "train it through training.make_train_step with batch['embeds']"
+        )
     w = World(world, device)
     dtype = dtype or ("bf16" if w.device.type == "cuda" else "f32")
     pc = ParallelContext(world=w, mode=mode)
-    params = lm.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
-    opt_state = init_opt_state(lm.trainable(params, cfg))
+    params = mod.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
+    opt_state = init_opt_state(mod.trainable(params, cfg))
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
     # donated: each step updates the state it is given in place (one copy of the weights and moments)
     step_fn = make_train_step(
-        lm, cfg, pc, opt_cfg, remat_policy=remat, grad_masks=lm.grad_masks(cfg, pc), donate=True
+        mod, cfg, pc, opt_cfg, remat_policy=remat, grad_masks=mod.grad_masks(cfg, pc), donate=True
     )
 
     pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)

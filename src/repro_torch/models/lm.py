@@ -21,6 +21,10 @@ over stacked parameters.  Parameters are rank-stacked (``convert.py``):
                         dt_bias / a_log / d_skip [W, h_loc] f32}}  (mamba),
              {"ffn": {ln, w_gu, w_down}}  (shared_attn: the mixer is ``shared_attn``), ...]
 
+``forward`` and ``prefill`` take a stub frontend's prefix (``embeds``
+[B, S0, D], paligemma's image patches; ``models/frontends``) before the
+token embeddings, scaled with them where the config sets ``embed_scale``.
+
 ``prefill`` runs every layer's TP forward (the fused kernels on the card)
 and fills the decode caches (KV caches; SSM state and conv tail for Mamba
 layers); ``decode_step`` then advances every slot by up to C tokens;
@@ -283,13 +287,20 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
     return shard_params(glob, cfg, world)
 
 
-def embed_tokens(params: dict, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> [B, S, D] (global), times sqrt(d_model) in the
-    activation dtype where the config sets ``embed_scale``.  ``F.embedding``, whose backward sums each row's gradients
-    in a fixed order (an indexing backward accumulates in any order on the
-    CPU)."""
-    table = params["embed"].reshape(-1, params["embed"].shape[-1])
-    x = torch.nn.functional.embedding(tokens, table)
+def embed_tokens(params: dict, cfg, tokens: Optional[torch.Tensor], embeds: Optional[torch.Tensor] = None):
+    """tokens [B, S] (or None) and ``embeds`` [B, S0, D] (a stub frontend's
+    prefix, or None) -> [B, S0 + S, D] (global): the prefix cast to the
+    embedding's dtype, then the token embeddings, the whole of it times
+    sqrt(d_model) in that dtype where the config sets ``embed_scale`` (the
+    reference scales the image prefix too).  ``F.embedding``, whose
+    backward sums each row's gradients in a fixed order (an indexing
+    backward accumulates in any order on the CPU)."""
+    parts = []
+    if embeds is not None:
+        parts.append(embeds.to(params["embed"].dtype))
+    if tokens is not None:
+        parts.append(torch.nn.functional.embedding(tokens, params["embed"].reshape(-1, params["embed"].shape[-1])))
+    x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
     if cfg.embed_scale:
         # the factor rounded to x's dtype on the host (a Python scalar: no
         # device copy, so a captured decode step may take it)
@@ -313,8 +324,14 @@ def _check_seq(pc: ParallelContext, s: int):
         raise ValueError(f"sequence length {s} must divide over the {pc.tp} ranks (sequence-parallel residual)")
 
 
-def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, remat_policy: str = "none"):
-    """Teacher-forced (logits [B, S, vocab], aux loss summed over the layers);
+def forward(
+    params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, embeds: Optional[torch.Tensor] = None,
+    remat_policy: str = "none",
+):  # fmt: skip
+    """Teacher-forced (logits [B, S0 + S, vocab], aux loss summed over the
+    layers); ``embeds`` [B, S0, D] is a stub frontend's prefix
+    (:func:`embed_tokens`; attention over it stays causal, as in the JAX
+    package);
     with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`.
     ``remat_policy`` other than ``"none"`` recomputes each layer in the
     backward (the JAX package's ``"dots"`` keeps the GEMM outputs; here
@@ -323,8 +340,9 @@ def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, remat_
         raise ValueError(f"remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
     if remat_policy != "none" and pc.fuse_seams:
         raise NotImplementedError("remat with fused seams is not ported")
-    _check_seq(pc, tokens.shape[1])
-    x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)  # [W, B, s_loc, D]
+    x = embed_tokens(params, cfg, tokens, embeds)
+    _check_seq(pc, x.shape[1])
+    x = pc.world.shard(x, dim=1)  # [W, B, s_loc, D]
     aux_total = _zero(x)
     defs = layer_plan(cfg)
     shared = params.get("shared_attn")
@@ -344,13 +362,19 @@ def forward(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, remat_
     return logits(params, cfg, pc, pc.world.unshard(x, dim=1)), aux_total
 
 
-def prefill(params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, *, max_len: int):
-    """Forward pass that also fills the decode caches.
+def prefill(
+    params: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, embeds: Optional[torch.Tensor] = None, *,
+    max_len: int,
+):  # fmt: skip
+    """Forward pass that also fills the decode caches; ``embeds`` as in
+    :func:`forward`.
 
-    Returns (logits [B, S, vocab], caches) — decode continues at position S.
+    Returns (logits [B, S0 + S, vocab], caches) — decode continues at
+    position S0 + S.
     """
-    _check_seq(pc, tokens.shape[1])
-    x = pc.world.shard(embed_tokens(params, cfg, tokens), dim=1)
+    x = embed_tokens(params, cfg, tokens, embeds)
+    _check_seq(pc, x.shape[1])
+    x = pc.world.shard(x, dim=1)
     caches = []
     shared = params.get("shared_attn")
     for d, p in zip(layer_plan(cfg), params["layers"]):

@@ -26,6 +26,18 @@ projections are local per-rank matmuls with a ``psum`` epilogue, and the KV
 cache ``[W, B, kv_loc, S_max, hd]`` is sharded over heads.  The chunk's k/v
 are written into the cache in place, after the attention reads it.
 
+Cross-attention (the encoder-decoder, ``models/encdec``): a cross mixer
+keeps ``wq`` [W, D, h_loc * hd] and ``wkv`` [W, D, 2 kv_loc * hd] as two
+per-rank shards (each zero-padded to a multiple of 8 columns where needed,
+``convert.IN_ALIGN``), because its queries and its keys / values project
+different streams.  ``apply_cross_seq`` gathers the decoder stream into
+the queries and the encoder stream into K / V, each through the AG+GEMM
+producer (the latter the paper's cross-attention KV gather), runs
+non-causal attention with no RoPE (flash on the fused backend, Sq != Sk)
+and the GEMM+RS output projection; ``build_cross_cache`` keeps the
+encoder's K / V for decoding, and ``apply_cross_decode`` attends to them
+with per-rank products and a ``psum`` epilogue.
+
 A config with ``qkv_bias`` (Qwen2) adds a per-rank ``bqkv`` [W, (h_loc + 2
 kv_loc) * hd] — the reference's ``bq`` and ``bkv`` shards joined like
 ``wqkv``'s columns (each rank's KV part packed [K heads || V heads]) — to
@@ -49,6 +61,9 @@ __all__ = [
     "apply_seq",
     "apply_seq_ring",
     "apply_decode",
+    "apply_cross_seq",
+    "build_cross_cache",
+    "apply_cross_decode",
     "init_cache",
     "chunked_attention",
     "layout",
@@ -109,7 +124,8 @@ def grad_masks(cfg, tp: int, device=None):
 def sync_grads(grads: dict, cfg, tp: int) -> dict:
     """Average the kv copies' gradients in one attention block's ``wqkv``
     (and ``bqkv``) gradient (:func:`~repro_torch.nn.layers.sync_kv_grad` on
-    its kv columns); the block unchanged when ``rep == 1``."""
+    its kv columns), or in a cross mixer's ``wkv``; the block unchanged
+    when ``rep == 1``."""
     lay = layout(cfg, tp)
     if lay.rep == 1:
         return grads
@@ -119,6 +135,8 @@ def sync_grads(grads: dict, cfg, tp: int) -> dict:
         if name in grads:
             g = grads[name]
             out[name] = torch.cat([g[..., :nq], sync_kv_grad(g[..., nq:], lay)], dim=-1)
+    if "wkv" in grads:
+        out["wkv"] = sync_kv_grad(grads["wkv"], lay)
     return out
 
 
@@ -292,6 +310,84 @@ def apply_seq_ring(
     o = pc.ring_attention(q, k, v, causal=causal, window=window, kv_select=lay.kv_pad > 1)
     o = o.permute(0, 1, 3, 2, 4).reshape(world, b, s_glob, nq)
     return _out_proj(o, params, x, pc, next_proj)
+
+
+def _cross_kv(params: dict, enc: torch.Tensor, pc, lay: GQALayout, hd: int):
+    """K / V of the encoder stream enc [W, B, se_loc, D]: each [W, B,
+    kv_loc, Se, hd] (contiguous), from one AG+GEMM of ``wkv`` (per rank [K
+    heads || V heads])."""
+    world, b = enc.shape[:2]
+    kv = pc.ag_matmul(enc, params["wkv"])[..., : 2 * lay.kv_loc * hd]  # the shard's zero pad columns dropped
+    kv = kv.reshape(world, b, kv.shape[2], 2 * lay.kv_loc, hd)
+    k = kv[..., : lay.kv_loc, :].permute(0, 1, 3, 2, 4).contiguous()
+    v = kv[..., lay.kv_loc :, :].permute(0, 1, 3, 2, 4).contiguous()
+    return k, v
+
+
+def apply_cross_seq(params: dict, x: torch.Tensor, enc: torch.Tensor, pc, cfg) -> torch.Tensor:
+    """Cross-attention (``repro/nn/attention.apply_cross_seq``): queries from
+    the decoder stream x [W, B, sd_loc, D], keys / values from the encoder
+    stream enc [W, B, se_loc, D] (both sequence-sharded; enc already
+    normed) -> [W, B, sd_loc, D] (+ residual).  No RoPE, no mask: flash
+    attention with ``causal=False`` and Sq != Sk on the fused backend,
+    ``chunked_attention`` on the eager one; the output projection is the
+    GEMM+RS consumer."""
+    lay = layout(cfg, pc.tp)
+    hd = cfg.hd
+    world, b = x.shape[:2]
+    nq = lay.h_loc * hd
+    h = rms_norm(x, params["ln"], cfg.norm_eps)
+    q = pc.ag_matmul(h, params["wq"])[..., :nq]  # [W, B, Sd, h_loc * hd]
+    k, v = _cross_kv(params, enc, pc, lay, hd)  # [W, B, kv_loc, Se, hd]
+    sd, se = q.shape[2], k.shape[3]
+    q = q.reshape(world, b, sd, lay.h_loc, hd).permute(0, 1, 3, 2, 4)
+    if pc.fused:
+        o = flash_attention(
+            q.reshape(world * b * lay.h_loc, sd, hd),
+            k.reshape(world * b * lay.kv_loc, se, hd),
+            v.reshape(world * b * lay.kv_loc, se, hd),
+            causal=False,
+        )
+    else:
+        o = chunked_attention(
+            q.reshape(world * b, lay.h_loc, sd, hd),
+            k.reshape(world * b, lay.kv_loc, se, hd),
+            v.reshape(world * b, lay.kv_loc, se, hd),
+            causal=False,
+            chunk=min(1024, se),
+        )
+    o = o.reshape(world, b, lay.h_loc, sd, hd).permute(0, 1, 3, 2, 4).reshape(world, b, sd, nq)
+    return x + pc.matmul_rs(o, params["wo"])
+
+
+def build_cross_cache(params: dict, enc: torch.Tensor, pc, cfg) -> dict:
+    """The decode path's cross-attention K / V from the encoder output enc
+    [W, B, se_loc, D] (sequence-sharded): {"k", "v"} [W, B, kv_loc, Se,
+    hd], through the same AG+GEMM as :func:`apply_cross_seq`."""
+    k, v = _cross_kv(params, enc, pc, layout(cfg, pc.tp), cfg.hd)
+    return {"k": k, "v": v}
+
+
+def apply_cross_decode(params: dict, x: torch.Tensor, cross: dict, pc, cfg) -> torch.Tensor:
+    """Decode-time cross-attention (``repro/nn/attention.apply_cross_decode``):
+    x [B, C, D] replicated, ``cross`` from :func:`build_cross_cache`.
+    Per-rank products in float32, softmax over all encoder keys, then the
+    output projection's ``psum``."""
+    lay = layout(cfg, pc.tp)
+    hd = cfg.hd
+    b, c, _ = x.shape
+    nq = lay.h_loc * hd
+    h = rms_norm(x, params["ln"], cfg.norm_eps)
+    q = torch.einsum("bsd,wdn->wbsn", h, params["wq"])[..., :nq]
+    qh = q.reshape(pc.tp, b, c, lay.h_loc, hd).permute(0, 1, 3, 2, 4)  # [W, B, h_loc, C, hd]
+    rep = lay.h_loc // lay.kv_loc
+    kk = cross["k"].repeat_interleave(rep, dim=2) if rep > 1 else cross["k"]
+    vv = cross["v"].repeat_interleave(rep, dim=2) if rep > 1 else cross["v"]
+    s = torch.einsum("wbhqd,wbhkd->wbhqk", (qh * hd**-0.5).float(), kk.float())
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("wbhqk,wbhkd->wbhqd", p, vv.float()).to(x.dtype)
+    o = o.permute(0, 1, 3, 2, 4).reshape(pc.tp, b, c, nq)
+    return x + pc.psum(torch.einsum("wbsn,wnd->wbsd", o, params["wo"]))
 
 
 def init_cache(cfg, tp: int, batch: int, max_len: int, dtype, device, window: Optional[int] = None) -> dict:

@@ -1,8 +1,9 @@
 """Train / eval steps — the port of ``repro/training/steps.py``.
 
-The step is eager PyTorch: ``model.forward`` under ``torch.autograd`` (on
-the card every fused kernel of the dense path runs in both passes: the
-backward of an AG+GEMM is a GEMM+RS and the other way round,
+The step is eager PyTorch: ``model.forward`` (``models/lm`` or
+``models/encdec``, with the batch's ``embeds`` when it has them) under
+``torch.autograd`` (on the card every fused kernel of the dense path runs
+in both passes: the backward of an AG+GEMM is a GEMM+RS and the other way round,
 ``core/compiler``), the kv-copy sync, then :func:`apply_update` with the
 model's weight-decay mask.  The optimizer sees the model's trainable tree
 (``model.trainable``: no copy of a tied head), and the returned parameters
@@ -72,7 +73,9 @@ def loss_and_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none",
     batch = _on(pc.device, batch)
     tree = model.trainable(params, cfg)
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
-    logits, aux = model.forward(tree_unflatten(tree, leaves), cfg, pc, batch["inputs"], remat_policy=remat_policy)
+    logits, aux = model.forward(
+        tree_unflatten(tree, leaves), cfg, pc, batch["inputs"], embeds=batch.get("embeds"), remat_policy=remat_policy
+    )
     ce = softmax_xent(logits, batch["labels"], batch.get("mask"))
     loss = ce + aux_weight * aux
     grads = tree_unflatten(tree, list(torch.autograd.grad(loss, leaves)))
@@ -93,8 +96,10 @@ def make_train_step(
 ) -> Callable:
     """Returns ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``opt_state`` is over ``model.trainable(params, cfg)``
-    (``init_opt_state`` of it).  batch: {"inputs": [B, S], "labels": [B, S],
-    optional "mask"} (numpy or tensors).  Metrics: loss, ce, aux, grad_norm,
+    (``init_opt_state`` of it).  batch: {"inputs": [B, S], "labels": [B, S0
+    + S], optional "embeds" [B, S0, D] (a stub frontend's prefix, or an
+    encoder-decoder's frames: then labels [B, S]), optional "mask"} (numpy
+    or tensors).  Metrics: loss, ce, aux, grad_norm,
     lr (tensors).  ``donate`` (the reference's keyword; there ``True``):
     the step updates ``params`` and ``opt_state`` in place, so the caller
     must not use them after it (one copy of the parameters and moments in
@@ -125,7 +130,7 @@ def make_eval_step(model, cfg, pc) -> Callable:
     def eval_step(params, batch):
         batch = _on(pc.device, batch)
         with torch.no_grad():
-            logits, _ = model.forward(params, cfg, pc, batch["inputs"])
+            logits, _ = model.forward(params, cfg, pc, batch["inputs"], embeds=batch.get("embeds"))
             return softmax_xent(logits, batch["labels"], batch.get("mask"))
 
     return eval_step

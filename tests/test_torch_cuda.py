@@ -4,10 +4,11 @@ deepseek-moe-16b with the streamed MoE decode in the graph); the paper's
 TP-MLP (fused kernels) against its tensor-core baselines; the eager expert
 GEMM of the MoE baseline on tensor cores; the train path's autograd
 Functions (the fused collectives', flash attention's at head dims up to
-128 and 80, the grouped GEMM's at the MoE backward shapes, the tensor-core
+128, 80 and 256 and at non-causal Sq != Sk, the grouped GEMM's at the MoE backward shapes, the tensor-core
 expert GEMM's, the SSD intra-chunk term's at the train tile) and reduced
-MoE, mamba2 and zamba2 models' gradients and one zamba2 shared block,
-fused against eager.
+MoE, mamba2, zamba2, seamless-m4t (encoder-decoder) and paligemma (image
+prefix, head dim 256) models' gradients and one zamba2 shared block, fused
+against eager.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -195,7 +196,7 @@ def test_bf16_fused_kernels_are_deterministic(dev, order, nch):
     "bh,bhkv,sq,sk,d,causal,window",
     [(4, 2, 100, 100, 64, True, None), (3, 1, 37, 130, 32, True, None), (2, 2, 70, 70, 16, True, 20),
      (2, 1, 64, 64, 128, False, None), (2, 2, 65, 65, 64, False, 33), (4, 2, 100, 100, 80, True, None),
-     (3, 3, 1, 77, 80, False, 30)],
+     (3, 3, 1, 77, 80, False, 30), (2, 1, 70, 70, 256, True, None), (2, 2, 64, 130, 256, False, 40)],
 )  # fmt: skip
 def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window):
     q, k, v = _rand(dev, dtype, bh, sq, d), _rand(dev, dtype, bhkv, sk, d, seed=1), _rand(dev, dtype, bhkv, sk, d, seed=2)
@@ -209,12 +210,17 @@ def test_flash_attention_kernel(dev, dtype, bh, bhkv, sq, sk, d, causal, window)
 # non-causal; Sq < Sk down to Sq = 1; S not a multiple of 64; granite's
 # path shape (384 CTAs, more than SMs); D 80 (zamba2: the 128-wide
 # pipeline on 80 columns, TMA zero-filling the rest) at ragged shapes and
-# at zamba2's serve shape (W B h_loc = 128 heads of 256)
+# at zamba2's serve shape (W B h_loc = 128 heads of 256); D 256 (paligemma:
+# the 256-wide pipeline) at ragged shapes, MQA, and at paligemma's serve
+# shape (32 query heads of 512 against 16 KV heads); seamless-m4t's
+# cross-attention (non-causal, 256 queries against 512 keys)
 FLASH_WGMMA = [
     (4, 4, 100, 100, 64, True, None), (4, 2, 64, 64, 128, True, None), (6, 2, 130, 130, 64, True, 40),
     (3, 1, 37, 130, 64, False, None), (6, 2, 1, 200, 128, True, None), (3, 1, 1, 77, 64, False, 30),
     (4, 4, 65, 65, 128, False, 33), (96, 32, 256, 256, 64, True, None), (4, 2, 100, 100, 80, True, None),
     (6, 2, 1, 200, 80, True, None), (3, 1, 37, 130, 80, False, 33), (128, 128, 256, 256, 80, True, None),
+    (4, 1, 100, 100, 256, True, None), (6, 2, 1, 200, 256, True, None), (3, 1, 37, 130, 256, False, None),
+    (4, 4, 65, 65, 256, False, 33), (32, 16, 512, 512, 256, True, None), (64, 64, 256, 512, 64, False, None),
 ]  # fmt: skip
 
 
@@ -238,19 +244,19 @@ def test_flash_attention_wgmma_kernel(dev, bh, bhkv, sq, sk, d, causal, window):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", fa_mod.HEAD_DIMS)
 def test_flash_attention_route_table(dev, dtype, d):
-    """Each (dtype, head dim) launches the route of the table: bf16 at 64, 80
-    and 128 the wgmma kernel, everything else the FMA kernel."""
+    """Each (dtype, head dim) launches the route of the table: bf16 at 64, 80,
+    128 and 256 the wgmma kernel, everything else the FMA kernel."""
     q, k, v = (_rand(dev, dtype, 2, 70, d, seed=s) for s in range(3))
     out = K.flash_attention(q, k, v, causal=True)
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 80, 128) else "fma"
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 80, 128, 256) else "fma"
     assert fa_mod.route(dtype, d) == want and K.flash_attention.last_launch["route"] == want
     _close(out, K.flash_attention_plain(q, k, v, causal=True), dtype)
 
 
-@pytest.mark.parametrize("bh,bhkv,d", [(64, 32, 64), (128, 128, 80)])
+@pytest.mark.parametrize("bh,bhkv,d", [(64, 32, 64), (128, 128, 80), (32, 16, 256)])
 def test_flash_attention_wgmma_is_deterministic(dev, bh, bhkv, d):
-    """20 launches at smollm's path shape (256 CTAs) and zamba2's (D 80, 512
-    CTAs) are bitwise equal."""
+    """20 launches at smollm's path shape (256 CTAs), zamba2's (D 80, 512
+    CTAs) and at paligemma's head dim (D 256, MQA) are bitwise equal."""
     bf = torch.bfloat16
     q, k, v = _rand(dev, bf, bh, 256, d), _rand(dev, bf, bhkv, 256, d, seed=1), _rand(dev, bf, bhkv, 256, d, seed=2)
     first = K.flash_attention(q, k, v, causal=True)
@@ -273,6 +279,42 @@ def test_flash_attention_d80_statistics_and_grads(dev, dtype):
     do = _rand(dev, dtype, *q.shape, seed=3)
     got = _grads(lambda *a: K.flash_attention(*a, causal=True), (q, k, v), do)
     ref = _grads(lambda *a: K.flash_attention_plain(*a, causal=True), (q.float(), k.float(), v.float()), do.float())
+    for a, b in zip(got, ref):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_d256_statistics_and_grads(dev, dtype):
+    """Head dim 256 under autograd (paligemma in training, MQA: 4 query heads
+    per KV head), as the D 80 test: ``flash_attention_lse``'s o and lse
+    against the plain version's state, the Function's output and gradients
+    against float32 autograd through the plain attention."""
+    q, k, v = _rand(dev, dtype, 8, 130, 256), _rand(dev, dtype, 2, 130, 256, seed=1), _rand(dev, dtype, 2, 130, 256, seed=2)
+    o, lse = fa_mod.flash_attention_lse(q, k, v, causal=True)
+    o_p, lse_p = fa_mod.flash_attention_lse(*(t.float().cpu() for t in (q, k, v)), causal=True)
+    _close(o, o_p.to(dev), dtype)
+    assert (lse - lse_p.to(dev)).abs().max().item() <= TOL[dtype]
+    do = _rand(dev, dtype, *q.shape, seed=3)
+    got = _grads(lambda *a: K.flash_attention(*a, causal=True), (q, k, v), do)
+    ref = _grads(lambda *a: K.flash_attention_plain(*a, causal=True), (q.float(), k.float(), v.float()), do.float())
+    for a, b in zip(got, ref):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(256, 512), (100, 37), (1024, 1024)])
+def test_flash_attention_cross_and_encoder_shapes(dev, dtype, sq, sk):
+    """seamless-m4t's non-causal attention at head dim 64: the
+    cross-attention's Sq != Sk (ragged both ways) and an encoder's long
+    square block; the output and, under autograd, every gradient against
+    the plain version."""
+    q, k, v = _rand(dev, dtype, 8, sq, 64), _rand(dev, dtype, 8, sk, 64, seed=1), _rand(dev, dtype, 8, sk, 64, seed=2)
+    out = K.flash_attention(q, k, v, causal=False)
+    assert K.flash_attention.last_launch["route"] == fa_mod.route(dtype, 64)
+    _close(out, K.flash_attention_plain(q.float(), k.float(), v.float(), causal=False), dtype)
+    do = _rand(dev, dtype, *q.shape, seed=3)
+    got = _grads(lambda *a: K.flash_attention(*a, causal=False), (q, k, v), do)
+    ref = _grads(lambda *a: K.flash_attention_plain(*a, causal=False), (q.float(), k.float(), v.float()), do.float())
     for a, b in zip(got, ref):
         _close(a, b, dtype)
 
@@ -1291,6 +1333,65 @@ def test_ssm_train_grads_fused_match_eager_on_card(dev, arch):
         out[backend] = loss_and_grads(lm, cfg, pc, params, batch, remat_policy="dots")
         out[backend + "_counts"] = K.launch_counts()
     assert out["fused_counts"] == expected_launches(cfg, "overlap", "dots") and not any(out["eager_counts"].values())
+    torch.testing.assert_close(out["fused"][0], out["eager"][0], atol=1e-5, rtol=1e-5)
+    for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
+        torch.cuda.synchronize()
+        assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
+
+
+def _mm_grads(dev, arch):
+    """Reduced seamless-m4t-medium (2 + 2 layers) or paligemma-3b (head dim
+    256 as published, MQA at rep 4) in float32, W = 4, its train batch of 2
+    rows from a seed (enc-dec: 64 decoder tokens, 128 frames; VLM: 32
+    patches + 32 tokens): the loss and every leaf's gradient on both
+    backends, with the fused launches."""
+    from repro_torch.models import encdec, frontends
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = reduce_config(get_config(arch))
+    if not cfg.encoder_layers:
+        cfg = dataclasses.replace(cfg, head_dim=256)
+    mod = encdec if cfg.encoder_layers else lm
+    world = World(4, dev)
+    params = mod.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen, device=dev)
+    if cfg.encoder_layers:
+        emb = frontends.stub_frame_embeddings(gen, 2, 128, cfg.d_model, torch.float32, dev)
+        batch = {"inputs": toks[:, :64], "labels": toks[:, 1:], "embeds": emb}
+    else:
+        emb = frontends.stub_patch_embeddings(gen, 2, 64, cfg.d_model, torch.float32, dev)
+        batch = {"inputs": toks[:, :32], "labels": toks[:, 1:], "embeds": emb}
+    out = {}
+    for backend in ("fused", "eager"):
+        K.reset_launch_counts()
+        pc = ParallelContext(world=world, backend=backend)
+        out[backend] = loss_and_grads(mod, cfg, pc, params, batch)
+        out[backend + "_counts"] = K.launch_counts()
+    return cfg, out
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "paligemma-3b"])
+def test_multimodal_train_grads_fused_match_eager_on_card(dev, arch):
+    """The encoder-decoder (non-causal encoder, cross-attention with Sq !=
+    Sk, the encoder stream's kv gather on AG+GEMM) and the VLM (an image
+    prefix, flash at head dim 256) in float32: the loss within 1e-5 and
+    every leaf's gradient within 2e-3 of its max |eager| (the whole-model
+    bound of ``chip_smoke.py``); every fused kernel launched once a
+    forward use and once a transpose (enc-dec: 2 AG+GEMM, 2 GEMM+RS and 1
+    flash an encoder layer, 4, 3 and 2 a decoder layer)."""
+    from repro_torch.benchmarks.paper_e2e import expected_launches
+    from repro_torch.training.optimizer import tree_leaves
+
+    cfg, out = _mm_grads(dev, arch)
+    if cfg.encoder_layers:
+        e, d = cfg.encoder_layers, cfg.n_layers
+        ag, rs = 2 * e + 4 * d, 2 * e + 3 * d
+        want = {"matmul": 1, "ag_gemm": ag + rs, "gemm_rs": ag + rs, "flash_attention": e + 2 * d,
+                "grouped_matmul": 0, "ssd_intra_chunk": 0}  # fmt: skip
+    else:
+        want = expected_launches(cfg, "overlap")
+    assert out["fused_counts"] == want and not any(out["eager_counts"].values())
     torch.testing.assert_close(out["fused"][0], out["eager"][0], atol=1e-5, rtol=1e-5)
     for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
         torch.cuda.synchronize()

@@ -9,7 +9,8 @@ the loss (cross-entropy + 0.01 x the load-balance loss) on the TP AG+MoE
 double ring and on the EP a2a pair (``ep_axis``), on the eager and the
 fused backend (the fused one runs the grouped GEMM's autograd Function over
 the plain replay), against ``jax.value_and_grad``; three AdamW steps
-against the reference's ``make_train_step``; ``_GroupedMatmul``'s
+against the reference's ``make_train_step`` body over the same compiled
+gradients (each JAX reference is compiled once per module and shared); ``_GroupedMatmul``'s
 gradients against ``jax.vjp`` of ``repro.kernels.ref.grouped_matmul_ref``;
 the kept / dropped (token, k) sets of a step at a tight capacity; the
 W ring steps of a layer sharing one w^T copy of each expert weight in the
@@ -41,7 +42,6 @@ from repro.models import lm as jlm
 from repro.parallel.context import ParallelContext as JContext
 from repro.parallel.sharding import place
 from repro.training import optimizer as jopt
-from repro.training import steps as jsteps
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import from_jax_params
@@ -54,7 +54,7 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
-from test_torch_training import GRAD_TOL, _assert_trees_close, _np, _port_tree, _with_gains
+from test_torch_training import GRAD_TOL, _assert_trees_close, _np, _port_tree, _with_gains, j_train_step, j_value_and_grad
 from utils import reduce_config as j_reduce_config
 
 TP = 4
@@ -71,7 +71,17 @@ def _cfgs(arch: str, capacity_factor=None):
     return out
 
 
+_SETUPS = {}  # (arch, batch, seq, capacity_factor) -> the model: built once per module
+
+
 def _setup(arch, mesh8, pc8, batch=B, seq=S, capacity_factor=None):
+    key = (arch, batch, seq, capacity_factor)
+    if key not in _SETUPS:
+        _SETUPS[key] = _build(arch, mesh8, pc8, batch, seq, capacity_factor)
+    return _SETUPS[key]
+
+
+def _build(arch, mesh8, pc8, batch, seq, capacity_factor):
     jcfg, cfg = _cfgs(arch, capacity_factor)
     np_params = _with_gains(_np(jlm.init(jax.random.PRNGKey(0), jcfg, pc8, jnp.float32)))
     jparams = place(jax.tree_util.tree_map(jnp.asarray, np_params), mesh8, jlm.specs(jcfg, pc8))
@@ -86,14 +96,18 @@ def model(request, mesh8, pc8):
     return _setup(request.param, mesh8, pc8)
 
 
+def _vg(m, mesh8, ep_axis):
+    """The reference's jitted loss and gradients of model ``m`` on the TP
+    (``ep_axis`` None) or the EP path, compiled once per module
+    (:func:`test_torch_training.j_value_and_grad`)."""
+    key = ("vg", ep_axis)
+    if key not in m:
+        m[key] = j_value_and_grad(jlm, m["jcfg"], JContext(mesh=mesh8, ep_axis=ep_axis))
+    return m[key]
+
+
 def _jax_grads(m, mesh8, ep_axis, batch):
-    jpc = JContext(mesh=mesh8, ep_axis=ep_axis)
-
-    def loss_fn(p, inputs, labels):
-        logits, aux = jlm.forward(p, m["jcfg"], jpc, inputs)
-        return jsteps.softmax_xent(logits, labels) + 0.01 * aux
-
-    loss, g = jax.jit(jax.value_and_grad(loss_fn))(m["jparams"], batch["inputs"], batch["labels"])
+    (loss, _), g = _vg(m, mesh8, ep_axis)(m["jparams"], batch)
     return float(loss), _port_tree(_np(g), m["cfg"], m["world"])
 
 
@@ -117,15 +131,16 @@ def test_grads_match_reference(model, jax_grads, backend):
             assert all(layer["ffn"][k].abs().max().item() > 0 for k in ("router", "w_gu", "w_down"))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_steps_match_reference(arch, mesh8, pc8):
-    """Three make_train_step steps (fused backend) against the reference's:
-    parameters (the float32 router among them), both moments, the metrics."""
-    m = _setup(arch, mesh8, pc8)
+def test_train_steps_match_reference(model, mesh8, pc8):
+    """Three make_train_step steps (fused backend) against the reference's
+    (``make_train_step``'s body over the module's compiled TP gradients,
+    ``test_torch_training.j_train_step``): parameters (the float32 router
+    among them), both moments, the metrics."""
+    m = model
     cfg, jcfg, world = m["cfg"], m["jcfg"], m["world"]
     opt_cfg = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
-    jstep = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg),
-                                   grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    jstep = j_train_step(_vg(m, mesh8, None), jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg),
+                         grad_masks=jlm.grad_masks(jcfg, pc8))  # fmt: skip
     pc = ParallelContext(world=world, backend="fused")
     step = make_train_step(lm, cfg, pc, AdamWConfig(**opt_cfg), grad_masks=lm.grad_masks(cfg, pc))
     jp, jo = m["jparams"], jopt.init_opt_state(m["jparams"])

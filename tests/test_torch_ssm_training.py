@@ -41,7 +41,6 @@ from repro.nn import mamba as j_mamba
 from repro.parallel.context import ParallelContext as JContext
 from repro.parallel.sharding import place
 from repro.training import optimizer as jopt
-from repro.training import steps as jsteps
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.convert import from_jax_params, shard_mamba
@@ -54,7 +53,7 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
 from test_torch_checkpoint import _restore_w4_at_w2
 from test_torch_mamba import _ssd_inputs
-from test_torch_training import GRAD_TOL, _assert_trees_close, _np, _port_tree
+from test_torch_training import GRAD_TOL, _assert_trees_close, _np, _port_tree, j_train_step, j_value_and_grad
 from utils import reduce_config as j_reduce_config
 
 TP = 4
@@ -197,13 +196,10 @@ def model(pc8, mesh8):
     toks = np.random.default_rng(1).integers(0, VOCAB, size=(B, S)).astype(np.int32)
     batch = {"inputs": toks, "labels": np.roll(toks, -1, axis=1)}
 
-    def loss_fn(p, inputs, labels):
-        logits, aux = jlm.forward(p, jcfg, pc8, inputs, remat_policy="dots")
-        return jsteps.softmax_xent(logits, labels) + 0.01 * aux
-
-    loss, g = jax.jit(jax.value_and_grad(loss_fn))(jparams, batch["inputs"], batch["labels"])
+    vg = j_value_and_grad(jlm, jcfg, pc8, remat_policy="dots")  # compiled once, shared with the step's test
+    (loss, _), g = vg(jparams, batch)
     return dict(jcfg=jcfg, cfg=cfg, jparams=jparams, params=from_jax_params(np_params, cfg, world), world=world,
-                batch=batch, j_loss=float(loss), j_grads=_port_tree(_np(g), cfg, world))  # fmt: skip
+                batch=batch, j_loss=float(loss), j_grads=_port_tree(_np(g), cfg, world), vg=vg)  # fmt: skip
 
 
 def assert_loss_and_grads(loss, grads, j_loss, j_grads):
@@ -232,14 +228,15 @@ def test_mamba2_grads_match_reference(model, backend, remat):
 
 def test_mamba2_train_step_matches_reference(model, pc8):
     """One make_train_step step under remat "dots" (the reference trainer's
-    policy) on the fused backend against the reference's: the metrics and
+    policy) on the fused backend against the reference's (``make_train_step``'s
+    body over the module's compiled gradients,
+    ``test_torch_training.j_train_step``): the metrics and
     every updated leaf; weight decay 1.0 shows a leaf decayed on one side
     only (the scanned layers' one-dimensional leaves are decayed in the
     reference's layout)."""
     cfg, jcfg, world = model["cfg"], model["jcfg"], model["world"]
     opt_cfg = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
-    jstep = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), remat_policy="dots",
-                                   grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    jstep = j_train_step(model["vg"], jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), grad_masks=jlm.grad_masks(jcfg, pc8))
     pc = ParallelContext(world=world, backend="fused")
     step = make_train_step(lm, cfg, pc, AdamWConfig(**opt_cfg), remat_policy="dots", grad_masks=lm.grad_masks(cfg, pc))
     jp, jo, jm = jstep(model["jparams"], jopt.init_opt_state(model["jparams"]), model["batch"])

@@ -77,6 +77,40 @@ def _with_gains(np_params, seed=3):
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
+def j_value_and_grad(jmod, jcfg, jpc, remat_policy: str = "none", aux_weight: float = 0.01):
+    """The reference's loss (cross-entropy + ``aux_weight`` x the aux loss,
+    ``repro/training/steps.make_train_step``'s ``loss_fn``) under one
+    ``jax.jit(jax.value_and_grad(..., has_aux=True))`` of (params, batch):
+    ((loss, (ce, aux)), grads).  A module compiles it once and shares it
+    between its gradient and train-step tests."""
+
+    def loss_fn(p, batch):
+        logits, aux = jmod.forward(p, jcfg, jpc, batch["inputs"], embeds=batch.get("embeds"),
+                                   remat_policy=remat_policy)  # fmt: skip
+        ce = jsteps.softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return ce + aux_weight * aux, (ce, aux)
+
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+
+def j_train_step(vg, jmod, jcfg, jpc, opt_cfg, grad_masks=None):
+    """The reference's train step, ``repro/training/steps.make_train_step``'s
+    body over a shared :func:`j_value_and_grad` ``vg``: the gradients, the
+    kv-copy sync (``jmod.sync_grads``), then ``repro/training/optimizer.
+    apply_update`` (jitted) with ``grad_masks``.  Returns ``step(params,
+    opt_state, batch) -> (params, opt_state, metrics)``."""
+    update = jax.jit(lambda p, g, o: jopt.apply_update(p, g, o, opt_cfg, grad_masks=grad_masks))
+
+    def step(p, o, batch):
+        (loss, (ce, aux)), g = vg(p, batch)
+        if hasattr(jmod, "sync_grads"):
+            g = jmod.sync_grads(g, jcfg, jpc)
+        p, o, om = update(p, g, o)
+        return p, o, {"loss": loss, "ce": ce, "aux": aux, **om}
+
+    return step
+
+
 def _port_tree(np_tree, cfg, world):
     """A JAX-layout tree (params, grads or moments) in the port's trainable layout."""
     return lm.trainable(from_jax_params(np_tree, cfg, world), cfg)
@@ -109,16 +143,18 @@ def _port_grads(params, cfg, pc, batch):
     return loss, grads
 
 
+def _vg(model, pc8):
+    """The reference's loss and gradients of ``model`` (:func:`j_value_and_grad`),
+    compiled once per model and shared by the gradient and step tests."""
+    if "vg" not in model:
+        model["vg"] = j_value_and_grad(jlm, model["jcfg"], pc8)
+    return model["vg"]
+
+
 @pytest.fixture(scope="module")
 def jax_grads(model, pc8):
     """(loss, the reference's gradients in its own layout) of the first batch."""
-
-    def loss_fn(p, inputs, labels):
-        logits, aux = jlm.forward(p, model["jcfg"], pc8, inputs)
-        return jsteps.softmax_xent(logits, labels) + 0.01 * aux
-
-    batch = model["batches"][0]
-    loss, g = jax.jit(jax.value_and_grad(loss_fn))(model["jparams"], batch["inputs"], batch["labels"])
+    (loss, _), g = _vg(model, pc8)(model["jparams"], model["batches"][0])
     return float(loss), g
 
 
@@ -165,6 +201,19 @@ def test_sync_kv_grad_matches_reference(kv):
     np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-7)
 
 
+STEP_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
+
+
+def _ref_step(model, pc8):
+    """The reference's ``make_train_step`` for ``model`` at STEP_OPT, compiled
+    once per model and shared by the step tests."""
+    if "jstep" not in model:
+        jcfg = model["jcfg"]
+        model["jstep"] = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**STEP_OPT),
+                                                grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    return model["jstep"]
+
+
 def test_train_steps_match_reference(model, pc8):
     """Three make_train_step steps: parameters, both moments and the metrics.
     Weight decay 1.0 moves every decayed leaf by lr x p a step, so a leaf
@@ -173,11 +222,9 @@ def test_train_steps_match_reference(model, pc8):
     AdamW's m / sqrt(v) off near-zero gradients, where a rounding
     difference would move an element by a whole step."""
     cfg, jcfg, world = model["cfg"], model["jcfg"], model["world"]
-    opt_cfg = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
-    jstep = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg),
-                                   grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    jstep = _ref_step(model, pc8)
     pc = ParallelContext(world=world, backend="eager")
-    step = make_train_step(lm, cfg, pc, AdamWConfig(**opt_cfg), grad_masks=lm.grad_masks(cfg, pc))
+    step = make_train_step(lm, cfg, pc, AdamWConfig(**STEP_OPT), grad_masks=lm.grad_masks(cfg, pc))
     jp, jo = model["jparams"], jopt.init_opt_state(model["jparams"])
     p, o = model["params"], init_opt_state(lm.trainable(model["params"], cfg))
     for batch in model["batches"]:
@@ -192,6 +239,27 @@ def test_train_steps_match_reference(model, pc8):
     assert int(o["step"]) == int(jo["step"]) == 3
     # the tied head's copy is the updated embedding
     assert torch.equal(p["head"][:, :VOCAB], p["embed"].reshape(VOCAB, -1).t())
+
+
+def test_shared_reference_step_matches_make_train_step(model, pc8):
+    """:func:`j_train_step` over :func:`j_value_and_grad` (the reference step
+    the other training modules build on their shared compiled gradients)
+    against the reference's ``make_train_step`` itself (remat "dots", the
+    reference trainer's policy): three steps' metrics, parameters and
+    moments within the bounds the port is held to."""
+    jcfg = model["jcfg"]
+    ref = _ref_step(model, pc8)
+    got = j_train_step(_vg(model, pc8), jlm, jcfg, pc8, jopt.AdamWConfig(**STEP_OPT), grad_masks=jlm.grad_masks(jcfg, pc8))
+    a = b = (model["jparams"], jopt.init_opt_state(model["jparams"]))
+    for batch in model["batches"]:
+        *a, ma = ref(*a, batch)
+        *b, mb = got(*b, batch)
+        for k in ("loss", "ce", "aux", "grad_norm", "lr"):
+            assert abs(float(ma[k]) - float(mb[k])) <= 1e-5 * abs(float(ma[k])), k
+    cfg, world = model["cfg"], model["world"]
+    _assert_trees_close(_port_tree(_np(b[0]), cfg, world), _port_tree(_np(a[0]), cfg, world), 1e-5, 1e-4, "params")
+    for k in ("mu", "nu"):
+        _assert_trees_close(_port_tree(_np(b[1][k]), cfg, world), _port_tree(_np(a[1][k]), cfg, world), 1e-5, 1e-4, k)
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b"])

@@ -33,7 +33,6 @@ from repro.configs import get_config as j_get_config
 from repro.models import lm as jlm
 from repro.parallel.sharding import place
 from repro.training import optimizer as jopt
-from repro.training import steps as jsteps
 from repro_torch.backend.mesh import World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.base import PORT_FIELDS
@@ -47,7 +46,7 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
 from test_torch_checkpoint import _restore_w4_at_w2
 from test_torch_ssm_training import _seeded, assert_loss_and_grads
-from test_torch_training import _assert_trees_close, _np, _port_tree
+from test_torch_training import _assert_trees_close, _np, _port_tree, j_train_step, j_value_and_grad
 from utils import reduce_config as j_reduce_config
 
 ARCH = "zamba2-2.7b"
@@ -177,13 +176,14 @@ def test_engine_tokens_match_greedy(model, jax_greedy):
 
 
 @pytest.fixture(scope="module")
-def jax_grads(model, pc8):
-    def loss_fn(p, inputs, labels):
-        logits, aux = jlm.forward(p, model["jcfg"], pc8, inputs)
-        return jsteps.softmax_xent(logits, labels) + 0.01 * aux
+def jax_vg(model, pc8):
+    """The reference's loss and gradients, compiled once for the module."""
+    return j_value_and_grad(jlm, model["jcfg"], pc8)
 
-    batch = model["batch"]
-    loss, g = jax.jit(jax.value_and_grad(loss_fn))(model["jparams"], batch["inputs"], batch["labels"])
+
+@pytest.fixture(scope="module")
+def jax_grads(model, jax_vg):
+    (loss, _), g = jax_vg(model["jparams"], model["batch"])
     return float(loss), _port_tree(_np(g), model["cfg"], model["world"])
 
 
@@ -197,9 +197,11 @@ def test_grads_match_reference(model, jax_grads, backend, remat):
     assert set(grads["shared_attn"]) == {"ln", "wqkv", "wo"}
 
 
-def test_train_step_matches_reference(model, jax_grads, pc8):
+def test_train_step_matches_reference(model, jax_grads, jax_vg, pc8):
     """One make_train_step step under remat "dots" on the fused backend
-    against the reference's: the loss, the gradient norm and every leaf's
+    against the reference's (``make_train_step``'s body over the module's
+    compiled gradients, ``test_torch_training.j_train_step``): the loss, the
+    gradient norm and every leaf's
     update (new - p; weight decay 1.0: the shared mixer sits outside the
     reference's scan, so its norm gain is not decayed, the scanned layers'
     are).  The gradients agree to 2e-3 of each leaf's max, so an update is
@@ -208,8 +210,7 @@ def test_train_step_matches_reference(model, jax_grads, pc8):
     gradient's rounding into a whole step."""
     cfg, jcfg, world = model["cfg"], model["jcfg"], model["world"]
     opt_cfg = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
-    jstep = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), remat_policy="dots",
-                                   grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    jstep = j_train_step(jax_vg, jlm, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), grad_masks=jlm.grad_masks(jcfg, pc8))
     pc = ParallelContext(world=world, backend="fused")
     step = make_train_step(lm, cfg, pc, AdamWConfig(**opt_cfg), remat_policy="dots", grad_masks=lm.grad_masks(cfg, pc))
     jp, _, jm = jstep(model["jparams"], jopt.init_opt_state(model["jparams"]), model["batch"])
