@@ -245,7 +245,40 @@ non-zero (no phase catches its own failure):
               then the same flash kernel, with comm-only, comp-only, the
               overlap ratio and SDPA.  Its ranks share one card, so the
               numbers are not the paper's multi-GPU speedups.
-  19. kernels every kernel against its plain PyTorch version at the shapes
+  19. quant   quantized wires and weight-only int8 / int4 (``core/quant``),
+              W = 4 unless said: (a) the smollm-360m MLP's 32 TP blocks
+              (``nn/ffn.apply_seq``, d 960, f 2560) on the fused backend,
+              chained over a 4 x 256 bf16 stream, with int8 PackedWeight
+              ``w_gu`` / ``w_down`` (``pack_weight``: the kernels dequantize
+              them inside), against the same blocks on the same codes
+              dequantized into bf16 weights: block 0 at 2e-2 of max |ref|,
+              the 32 blocks' max|diff| recorded (the dequantized weights
+              round q x scale to bf16, which 32 random blocks carry to a
+              few % of the stream); and with each scale rounded to a power
+              of two (q x scale exact in bf16), the packed chain bitwise
+              equal to the dequantized chain, exactly 32 AG+GEMM and 32
+              GEMM+RS launches, all packed, both chains' ms; (b) smollm-360m's whole bf16 ``lm.prefill``
+              (32 layers, 4 x 256) on the eager executor with an int8 and an
+              fp8 (e4m3) per-tile wire (``ParallelContext(quant=)``) against
+              the identity wire: the logits' relative error and top-1
+              agreement recorded; one layer's qkv ``ag_matmul`` and o-proj
+              ``matmul_rs`` held at the JAX package's rel < 0.05; the
+              float32 wire's logits bitwise the identity's; an int8 wire on
+              the fused backend raises NotImplementedError; (c)
+              ``training/compression.psum_compressed`` on one smollm
+              gradient leaf (layer 0's ``w_down``), each rank held to the
+              error-feedback contract (g + err = deq(q) + new_err, |new_err|
+              <= scale / 2); (d) the packed and wire kernel cases: AG+GEMM
+              and GEMM+RS with int8 (symmetric) and int4 (zero point) packed
+              weights, and GEMM+RS with a bf16 wire under float32
+              accumulation, at smollm's gate|up / down (both routes: f32
+              1e-4, bf16 2e-2 of max |plain| and bitwise over 20 launches)
+              and at Tab. 2's MLP-1 (LLaMA-7B, 8192 tokens, W = 8; bf16,
+              the plain version timed by its one checking call), each with
+              its bound (the weight at one byte an element) and the library
+              call (``torch.matmul`` on the dequantized bf16 weight, plus
+              the sum over ranks for GEMM+RS).
+  20. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
               3b-a800m and deepseek-moe-16b for the grouped expert GEMM
@@ -322,7 +355,7 @@ non-zero (no phase catches its own failure):
               checks and backward transposes at 8 x 512 tokens.  It runs
               after the serve phases: the profiler leaves
               host overhead behind.
-  20. summary the launch counts of every path, each phase's and the script's wall time,
+  21. summary the launch counts of every path, each phase's and the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -349,6 +382,7 @@ Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -494,12 +528,15 @@ def device_ms(fn, iters: int = 10) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return total / iters / 1e3
+    for _ in range(3):  # a session now and then records no device event for a library call: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            return total / iters / 1e3
+    raise SystemExit("chip_smoke: torch.profiler recorded no device time in 3 sessions")
 
 
 # ---------------------------------------------------------------------------
@@ -3412,6 +3449,226 @@ def phase_paper() -> dict:
     return {"rows": rows + rows_moe + rows_attn, "counts": counts}
 
 
+QUANT_LAYERS = 32  # the quant phase's MLP chain: all of smollm-360m's layers
+QUANT_REL = 0.05  # one layer's op on a quantized wire against the identity (the JAX package's tests/test_quant.py)
+
+
+def _quant_kernel_cases(rnd, iters: int) -> dict:
+    """The packed-weight and wire cases of the fused kernels (module docstring, 19d)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core.channels import BlockChannel
+    from repro_torch.core.quant import QuantSpec, dequantize_weight, pack_weight
+
+    recs = {}
+    shp = path_shapes(ARCH)
+    d, n_gu, f_loc = shp["d"], shp["n_gu"], shp["f_loc"]
+    s_mlp, h_mlp, i_mlp, _ = (8192, 4096, 11008, "LLaMA-7B")  # configs/paper.PAPER_MLP["MLP-1"]
+    packs = {"int8": QuantSpec(weight_dtype="int8"), "int4_zp": QuantSpec(weight_dtype="int4", zero_point=True)}
+    wire = BlockChannel(axis="model", quant=QuantSpec(wire_dtype="bfloat16"))
+    shapes = (  # (tag, world, batch rows, m_loc / M, k, n, dtypes, plain once)
+        (ARCH, WORLD, BATCH, PROMPT // WORLD, PROMPT, d, n_gu, f_loc, (torch.float32, torch.bfloat16), False),
+        ("MLP-1", PAPER_WORLD, 1, s_mlp // PAPER_WORLD, s_mlp, h_mlp, i_mlp // PAPER_WORLD, i_mlp // PAPER_WORLD,
+         (torch.bfloat16,), True),
+    )  # fmt: skip
+    for tag, W, B, m_loc, M, dm, n_ag, k_rs, dtypes, once in shapes:
+        for dtype in dtypes:
+            timed = dtype == torch.bfloat16
+            isz = torch.tensor([], dtype=dtype).element_size()
+            # AG+GEMM: x [W, B, m_loc, d] gathered times a packed [W, d, n_ag]
+            x = rnd(W, B, m_loc, dm, dtype=dtype)
+            xg = x.permute(1, 0, 2, 3).reshape(B, W * m_loc, dm)
+            wf = rnd(W, dm, n_ag, dtype=torch.float32) * dm**-0.5
+            for ptag, spec in packs.items():
+                pw = pack_weight(wf, spec)
+                wd = dequantize_weight(pw.q, pw.scale, pw.zero, dtype)  # the library call's operand
+                recs[("ag_gemm", tag, f"packed_{ptag}", dtype)] = _case(
+                    f"ag_gemm[{tag} packed {ptag}] x{list(x.shape)} q{list(pw.q.shape)}", dtype,
+                    lambda: K.ag_gemm(x, pw), lambda: K.ag_gemm_plain(x, pw),
+                    lambda: torch.matmul(xg[None], wd[:, None]),
+                    2 * W * B * W * m_loc * dm * n_ag,
+                    isz * (x.numel() + W * B * W * m_loc * n_ag) + pw.q.numel() + 8 * pw.scale.numel(),
+                    iters if timed else 2, not timed, lambda: K.ag_gemm.last_launch, bitwise=timed, plain_once=once,
+                )  # fmt: skip
+                del pw, wd
+            del x, xg, wf
+            # GEMM+RS: x [W, B, M, k_rs] times a packed [W, k_rs, d]; and the bf16 wire on a plain weight
+            x = rnd(W, B, M, k_rs, dtype=dtype)
+            wf = rnd(W, k_rs, dm, dtype=torch.float32) * (W * k_rs) ** -0.5
+            out_bytes = isz * W * B * (M // W) * dm
+            for ptag, spec in packs.items():
+                pw = pack_weight(wf, spec)
+                wd = dequantize_weight(pw.q, pw.scale, pw.zero, dtype)
+                recs[("gemm_rs", tag, f"packed_{ptag}", dtype)] = _case(
+                    f"gemm_rs[{tag} packed {ptag}] x{list(x.shape)} q{list(pw.q.shape)}", dtype,
+                    lambda: K.gemm_rs(x, pw), lambda: K.gemm_rs_plain(x, pw),
+                    lambda: torch.matmul(x, wd[:, None]).sum(0),
+                    2 * W * B * M * k_rs * dm, isz * x.numel() + out_bytes + pw.q.numel() + 8 * pw.scale.numel(),
+                    iters if timed else 2, not timed, lambda: K.gemm_rs.last_launch, bitwise=timed, plain_once=once,
+                )  # fmt: skip
+                del pw, wd
+            w = wf.to(dtype)
+            recs[("gemm_rs", tag, "wire_bf16", dtype)] = _case(
+                f"gemm_rs[{tag} bf16 wire, f32 accum] x{list(x.shape)} w{list(w.shape)}", dtype,
+                lambda: K.gemm_rs(x, w, channel=wire), lambda: K.gemm_rs_plain(x, w, channel=wire),
+                lambda: torch.matmul(x, w[:, None]).sum(0),
+                2 * W * B * M * k_rs * dm, isz * (x.numel() + w.numel()) + out_bytes,
+                iters if timed else 2, not timed, lambda: K.gemm_rs.last_launch, bitwise=timed, plain_once=once,
+            )  # fmt: skip
+            if K.gemm_rs.last_launch["wire"] != "bfloat16":
+                raise SystemExit(f"chip_smoke: gemm_rs kept its partials in {K.gemm_rs.last_launch['wire']}, not bf16")
+            del x, w, wf
+            torch.cuda.empty_cache()
+    return recs
+
+
+def phase_quant(iters: int) -> dict:
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.convert import shard_mlp
+    from repro_torch.core import compile_overlap
+    from repro_torch.core.quant import QuantSpec, dequantize_weight, pack_weight
+    from repro_torch.models import lm
+    from repro_torch.nn import ffn
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.compression import compress_with_feedback, psum_compressed
+
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH)
+    dev = world.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    def rnd(*shape, dtype):
+        return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
+
+    # (a) the 32 MLP blocks on the fused kernels: packed int8 weights against the same codes dequantized.
+    # With pack_weight's scales the bf16 dequantized weights round q * scale (2^-9), which 32 random bf16
+    # blocks carry to a few % of the stream: one block is held at the bf16 bound, the chain recorded.  With
+    # each scale rounded to a power of two, q * scale is exact in bf16 and the kernels' sums run in the same
+    # order, so the packed chain must equal the dequantized chain bitwise.
+    spec = QuantSpec(weight_dtype="int8")
+    layers = {"packed": [], "dequant": [], "packed_pow2": [], "dequant_pow2": []}
+
+    def deq(pq):
+        return {"ln": pq["ln"], **{k: dequantize_weight(pq[k].q, pq[k].scale, None, torch.bfloat16).contiguous()
+                                   for k in ("w_gu", "w_down")}}  # fmt: skip
+
+    for _ in range(QUANT_LAYERS):
+        p = shard_mlp(ffn.init(cfg, g, torch.float32, dev), world)
+        pq = {"ln": p["ln"].to(torch.bfloat16), "w_gu": pack_weight(p["w_gu"], spec),
+              "w_down": pack_weight(p["w_down"], spec)}  # fmt: skip
+        p2 = {"ln": pq["ln"], **{k: dataclasses.replace(pq[k], scale=torch.exp2(torch.round(torch.log2(pq[k].scale))))
+                                 for k in ("w_gu", "w_down")}}  # fmt: skip
+        for tag, v in (("packed", pq), ("dequant", deq(pq)), ("packed_pow2", p2), ("dequant_pow2", deq(p2))):
+            layers[tag].append(v)
+        del p
+    x0 = rnd(WORLD, BATCH, PROMPT // WORLD, cfg.d_model, dtype=torch.bfloat16)
+
+    def chain(tag, n=QUANT_LAYERS):
+        x = x0
+        for p in layers[tag][:n]:
+            x = ffn.apply_seq(p, x, pc, cfg)
+        return x
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item(), b.float().abs().max().item()
+
+    with torch.no_grad():
+        one, one_ref = diff(chain("packed", 1), chain("dequant", 1))
+        err, top = diff(chain("packed"), chain("dequant"))
+        chain("packed_pow2"), chain("dequant_pow2")  # warm-up
+        K.reset_launch_counts()
+        y_p = chain("packed_pow2")
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        n_packed = (K.ag_gemm.packed_launches, K.gemm_rs.packed_launches)
+        y_d = chain("dequant_pow2")
+        ms_p, ms_d = cuda_ms(lambda: chain("packed_pow2"), 5, 1), cuda_ms(lambda: chain("dequant_pow2"), 5, 1)
+    bitwise = torch.equal(y_p, y_d)
+    print(f"[quant] MLP block 0, int8 packed vs dequantized bf16 weights: max|diff| {one:.3e} (max|ref| {one_ref:.3e}, "
+          f"bound {TOL['bfloat16']} x max|ref|); all {QUANT_LAYERS} blocks: max|diff| {err:.3e} (max|ref| {top:.3e}, "
+          "recorded)")  # fmt: skip
+    print(f"[quant] {QUANT_LAYERS} MLP blocks, power-of-two scales: packed chain bitwise equal to the dequantized "
+          f"chain: {bitwise}; {ms_p:.3f} ms packed, {ms_d:.3f} ms dequantized; launches {counts}, packed {n_packed}")
+    if not (torch.isfinite(y_p).all() and one <= TOL["bfloat16"] * one_ref and bitwise):
+        raise SystemExit(f"chip_smoke: the packed MLP blocks disagree with the dequantized ones ({one} vs {one_ref}; "
+                         f"chain bitwise {bitwise})")  # fmt: skip
+    want = {"ag_gemm": QUANT_LAYERS, "gemm_rs": QUANT_LAYERS}
+    if any(counts[k] != v for k, v in want.items()) or n_packed != (QUANT_LAYERS, QUANT_LAYERS):
+        raise SystemExit(f"chip_smoke: the packed chain launched {counts}, packed {n_packed}; want {want}, all packed")
+    out.update(counts=counts, chain={"block_max_abs_err": one, "block_max_abs_ref": one_ref, "chain_max_abs_err": err,
+                                     "chain_max_abs_ref": top, "pow2_bitwise": bitwise, "packed_ms": ms_p,
+                                     "dequant_ms": ms_d})  # fmt: skip
+    del layers, y_p, y_d
+    torch.cuda.empty_cache()
+
+    # (b) the whole prefill on the eager executor with quantized wires
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    with torch.no_grad():
+        ref, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=PROMPT)
+        wires = {}
+        for wire in ("int8", "float8_e4m3fn"):
+            pcq = ParallelContext(world=world, backend="eager", quant=QuantSpec(wire_dtype=wire))
+            lg, _ = lm.prefill(params, cfg, pcq, prompts, max_len=PROMPT)
+            rel = ((lg.float() - ref.float()).norm() / ref.float().norm()).item()
+            agree = (lg.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            wires[wire] = {"logits_rel": rel, "top1_agreement": agree}
+            print(f"[quant] prefill, {wire} wire vs identity (eager, bf16): logits rel {rel:.3e}, "
+                  f"top-1 agreement {agree:.4f}")
+        pc32 = ParallelContext(world=world, backend="eager", quant=QuantSpec(wire_dtype="float32"))
+        f32, _ = lm.prefill(params, cfg, pc32, prompts, max_len=PROMPT)
+        if not torch.equal(f32, ref):
+            raise SystemExit("chip_smoke: the float32 wire's prefill is not bitwise the identity wire's")
+        print("[quant] prefill, float32 wire: logits bitwise equal to the identity wire's")
+        attn = params["layers"][0]["mixer"]
+        xa = rnd(WORLD, BATCH, PROMPT // WORLD, cfg.d_model, dtype=torch.bfloat16)
+        xr = rnd(WORLD, BATCH, PROMPT, attn["wo"].shape[1], dtype=torch.bfloat16)
+        for wire in ("int8", "float8_e4m3fn"):
+            for kind, xx, ww in (("ag_matmul", xa, attn["wqkv"]), ("matmul_rs", xr, attn["wo"])):
+                y_f = compile_overlap(kind, pc_eager.channel, world=world)(xx, ww).float()
+                y_q = compile_overlap(kind, pc_eager.channel, world=world, quant=QuantSpec(wire_dtype=wire))(xx, ww)
+                rel = ((y_q.float() - y_f).norm() / y_f.norm()).item()
+                wires[wire][f"{kind}_rel"] = rel
+                print(f"[quant] layer 0 {kind}, {wire} wire: rel {rel:.3e} (bound {QUANT_REL})")
+                if not rel < QUANT_REL:
+                    raise SystemExit(f"chip_smoke: {kind} with an {wire} wire is off by rel {rel} >= {QUANT_REL}")
+    try:
+        ParallelContext(world=world, backend="fused", quant=QuantSpec(wire_dtype="int8")).ag_matmul(xa, attn["wqkv"])
+    except NotImplementedError as e:
+        print(f"[quant] fused backend, int8 wire: NotImplementedError ({str(e)[:60]}...)")
+    else:
+        raise SystemExit("chip_smoke: an int8 wire on the fused backend did not raise")
+    out["wires"] = wires
+
+    # (c) gradient compression on one smollm gradient leaf: layer 0's w_down, float32, eager
+    mlp = {k: v.float().detach().requires_grad_(k == "w_down") for k, v in params["layers"][0]["ffn"].items()}
+    del params
+    ffn.apply_seq(mlp, xa.float(), pc_eager, cfg).pow(2).mean().backward()
+    grad = mlp["w_down"].grad
+    err0 = torch.zeros_like(grad)
+    mean, new_err = psum_compressed(grad, err0, world)
+    worst = 0.0
+    for r in range(WORLD):
+        q, sc, e_r = compress_with_feedback(grad[r], err0[r])
+        recon = (q.float() * sc + e_r - grad[r]).abs().max().item()
+        worst = max(worst, e_r.abs().max().item() / sc.item())
+        if not (torch.equal(e_r, new_err[r]) and recon <= 1e-5 * grad[r].abs().max().item()
+                and e_r.abs().max().item() <= sc.item() * 0.5 + 1e-6):  # fmt: skip
+            raise SystemExit(f"chip_smoke: psum_compressed breaks the error-feedback contract on rank {r}")
+    exact = grad.sum(0) / WORLD
+    mean_rel = ((mean[0] - exact).norm() / exact.norm()).item()
+    print(f"[quant] psum_compressed on layer 0's w_down gradient {list(grad.shape)}: error feedback held on every "
+          f"rank (max |new_err| / scale {worst:.4f} <= 0.5); the mean's rel error {mean_rel:.3e} (max scale, recorded)")
+    out["compression"] = {"max_err_over_scale": worst, "mean_rel": mean_rel}
+    torch.cuda.empty_cache()
+
+    # (d) the packed and wire kernel cases (torch.profiler: after the paths above)
+    out["recs"] = _quant_kernel_cases(rnd, iters)
+    return out
+
+
 def _profile(params, cfg, pc, prompts, max_len, embeds=None):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
@@ -3449,7 +3706,7 @@ def main(argv=None) -> int:
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
-              "e2e": lambda: phase_e2e(prof), "paper": phase_paper,
+              "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
               # last: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
               "kernels": lambda: phase_kernels(ITERS)}  # fmt: skip
@@ -3459,6 +3716,7 @@ def main(argv=None) -> int:
         out["phase_s"][name] = time.perf_counter() - t0
         print(f"[summary] phase {name}: {out['phase_s'][name]:.1f} s")
     recs = out.pop("kernels")
+    recs.update(out["quant"].pop("recs"))  # the quant phase's packed / wire kernel cases
     by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_DS: out["deepseek"]["counts"],
                ARCH_SSM: out["ssm"]["counts"]}  # fmt: skip
     by_path.update({f"engine {arch}": r["counts"] for arch, r in out["engine"].items()})
@@ -3480,6 +3738,7 @@ def main(argv=None) -> int:
     by_path.update({f"e2e {arch}": c for arch, c in out["e2e"]["counts"].items()})
     by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
+    by_path[f"quant {ARCH}"] = out["quant"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
     engines = [*out["engine"].values(), out["deepseek"]["engine"], out["zamba2"]["engine"]]
@@ -3521,6 +3780,11 @@ def main(argv=None) -> int:
         if name in ("matmul", "ag_gemm", "gemm_rs"):  # the multimodal models' heads and projections (bf16)
             line[-1]["multimodal"] = {f"{a} {t}": {k: recs[(n, a, t, d)][k] for k in TIMES if k in recs[(n, a, t, d)]}
                                       for n, a, t, d in recs if n == name and a in (ARCH_ED, ARCH_V) and d == bf16}
+        if name in ("ag_gemm", "gemm_rs"):  # the quant phase: packed weights (both routes) and gemm_rs's bf16 wire
+            for key in ("packed", "wire"):
+                line[-1][key] = {f"{a} {t} {str(d)[6:]}": {k: recs[(n, a, t, d)][k] for k in TIMES
+                                                            if k in recs[(n, a, t, d)]}
+                                 for n, a, t, d in recs if n == name and t.startswith(key)}  # fmt: skip
         if name == "ssd_intra_chunk":  # the train tile (f32), forward and the torch-ops backward
             rt = recs[(name, ARCH_SSM, "train", f32)]
             line[-1]["train"] = {k: rt[k] for k in (*TIMES, "backward_ms", "backward_bound_ms", "function_errs")

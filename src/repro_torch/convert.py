@@ -48,6 +48,14 @@ queries and its keys / values project different streams, and a column
 slice of one joined shard would not be contiguous (the bf16 AG+GEMM
 kernel reads its weight by TMA).
 
+A weight the JAX package packed for weight-only dequant-GEMM (its
+``core/quant.PackedWeight``: codes ``[k, n]``, per-column ``scale`` /
+``zero`` ``[n]``) becomes the port's rank-stacked packing through
+:func:`shard_packed`: by columns the codes and the scales split alike
+(``[W, k, n/W]``, ``[W, n/W]``); by rows (a row-parallel ``w_down`` / ``wo``
+packed globally) the codes split by rows and the one scale per column is
+replicated over the ranks (``[W, k/W, n]``, ``[W, n]``).
+
 ``unshard_params`` is the inverse of ``shard_params``: rank-stacked ->
 global (the layout ``shard_params`` takes, the JAX package's with the
 layers as a list).  It takes any tree of the parameters' structure
@@ -64,10 +72,11 @@ import numpy as np
 import torch
 
 from repro_torch.backend.mesh import World
+from repro_torch.core.quant import PackedWeight
 
 __all__ = [
     "from_jax_params", "shard_params", "unshard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp",
-    "shard_mamba", "shard_cross", "tied_head", "F32_LEAVES", "IN_ALIGN",
+    "shard_mamba", "shard_cross", "shard_packed", "tied_head", "F32_LEAVES", "IN_ALIGN",
 ]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
@@ -91,6 +100,32 @@ def shard_rows(w: torch.Tensor, world: World) -> torch.Tensor:
     if n % world.size:
         raise ValueError(f"{n} rows do not divide over {world.size} ranks")
     return w.reshape((world.size, n // world.size) + tuple(w.shape[1:])).contiguous()
+
+
+def shard_packed(packed, world: World, by: str) -> PackedWeight:
+    """A global packed weight (the JAX package's ``PackedWeight`` or the
+    port's, ``q [k, n]``, ``scale`` / ``zero`` ``[n]``; numpy or torch) ->
+    the port's rank-stacked :class:`~repro_torch.core.quant.PackedWeight` on
+    ``world``'s device, split ``by`` "cols" or "rows" (module docstring)."""
+    if by not in ("cols", "rows"):
+        raise ValueError(f"shard_packed: by must be 'cols' or 'rows', got {by!r}")
+
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a)).to(dtype=dtype, device=world.device)
+
+    q = t(packed.q, torch.int8)
+    if by == "cols":
+        n = q.shape[-1] // world.size
+
+        def vec(a):
+            return None if a is None else t(a, torch.float32).reshape(world.size, n).contiguous()
+
+        return PackedWeight(shard_cols(q, world), vec(packed.scale), vec(packed.zero), packed.dtype)
+
+    def rep(a):
+        return None if a is None else t(a, torch.float32).unsqueeze(0).expand(world.size, -1).contiguous()
+
+    return PackedWeight(shard_rows(q, world), rep(packed.scale), rep(packed.zero), packed.dtype)
 
 
 def _pad_head(head: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,7 @@ from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divis
 from repro_torch.core.compiler import BACKENDS, KINDS, SEQ_KINDS, SeamFallbackWarning, compile_overlap, unsupported_error
 from repro_torch.core.mapping import cdiv, effective_channels
 from repro_torch.core.overlap import ag_attention_baseline, matmul_rs_ag, ring_attention
+from repro_torch.core.quant import PackedWeight, WirePayload, pack_weight
 from repro_torch.core.plan import ChannelSchedule, SeqPlan, TilePlan, build_plan, build_seq_plan, plan_cache_info
 
 __all__ = [
@@ -15,6 +16,9 @@ __all__ = [
     "CommSpec",
     "CompSpec",
     "QuantSpec",
+    "PackedWeight",
+    "WirePayload",
+    "pack_weight",
     "DEFAULT_TILE",
     "blocked_dot",
     "largest_divisor",

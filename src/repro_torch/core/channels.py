@@ -1,7 +1,6 @@
 """BlockChannel — the tile-centric mapping context (paper §6), for the port.
 
-The port's counterpart of ``repro/core/channels.py`` (and of the identity
-``QuantSpec`` of ``repro/core/quant.py``).  ``compile_overlap`` lowers
+The port's counterpart of ``repro/core/channels.py``.  ``compile_overlap`` lowers
 ``(kind, BlockChannel)`` through ``core/plan.build_plan`` into a
 :class:`~repro_torch.core.plan.TilePlan` that both backends execute — the
 eager executor (``core/overlap.run_plan``) and the fused Hopper kernels
@@ -11,8 +10,10 @@ eager executor (``core/overlap.run_plan``) and the fused Hopper kernels
   ``num_channels``     C independently scheduled flows per rank (f_C);
   ``comp.accum_dtype`` the reduction dtype, a ``torch.dtype``;
   ``comp.tile``        the (tm, tn, tk) consumer compute tile;
-  ``quant``            the wire half of the dtype axis — only the identity
-                       spec (the wire inherits ``accum_dtype``) is ported.
+  ``quant``            the wire half of the dtype axis, a
+                       :class:`~repro_torch.core.quant.QuantSpec` (defined in
+                       ``core/quant.py`` and re-exported here, as the JAX
+                       package's ``channels.py`` imports it).
 
 Specs validate at construction, with the same messages as the JAX package.
 """
@@ -23,6 +24,8 @@ import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
+
+from repro_torch.core.quant import QuantSpec, as_dtype, dtype_name
 
 __all__ = [
     "BlockChannel",
@@ -39,71 +42,10 @@ ORDERS = ("ring", "bidir_ring", "all2all")
 RESOURCES = ("dma", "core")
 MODES = ("push", "pull")
 
-_DTYPES = {
-    "float32": torch.float32,
-    "bfloat16": torch.bfloat16,
-    "float16": torch.float16,
-    "float64": torch.float64,
-}
-
 
 def _check(value, allowed, what: str):
     if value not in allowed:
         raise ValueError(f"unsupported {what} {value!r}; supported: {allowed}")
-
-
-def dtype_name(dtype: torch.dtype) -> str:
-    """``torch.float32`` -> ``"float32"`` (the JAX package's dtype strings)."""
-    return str(dtype).removeprefix("torch.")
-
-
-def _as_dtype(value: Union[str, torch.dtype]) -> torch.dtype:
-    if isinstance(value, torch.dtype):
-        return value
-    if isinstance(value, str) and value in _DTYPES:
-        return _DTYPES[value]
-    raise ValueError(f"unsupported accum_dtype {value!r}")
-
-
-@dataclasses.dataclass(frozen=True)
-class QuantSpec:
-    """Wire/flow dtype descriptor.  Only the identity spec is ported.
-
-    The identity spec sends tiles and flowing partials in the accumulation
-    dtype.  Quantized wires (int8/fp8 payloads with scales) and packed
-    weights are later work; asking for one raises ``NotImplementedError``.
-    """
-
-    wire_dtype: Optional[str] = None
-    granularity: str = "per_tile"
-    weight_dtype: Optional[str] = None
-    zero_point: bool = False
-
-    def __post_init__(self):
-        if (
-            self.wire_dtype is not None
-            or self.weight_dtype is not None
-            or self.zero_point
-            or self.granularity != "per_tile"
-        ):
-            raise NotImplementedError(
-                "repro_torch: only the identity QuantSpec is ported; quantized "
-                "wires and packed weights are not supported yet"
-            )
-
-    @property
-    def is_quantized(self) -> bool:
-        return False
-
-    def resolve_wire(self, accum_dtype) -> str:
-        """The dtype that travels: the accumulation dtype (identity spec)."""
-        return dtype_name(_as_dtype(accum_dtype))
-
-    def is_identity(self, accum_dtype) -> bool:
-        return True
-
-    def scale_slots(self, flow: str, world: int, num_channels: int, steps: int) -> int:
-        return 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,7 +80,7 @@ class CompSpec:
     def __post_init__(self):
         if len(self.tile) != 3 or any(t < 1 for t in self.tile):
             raise ValueError(f"comp tile must be 3 positive ints (tm, tn, tk), got {self.tile}")
-        dt = _as_dtype(self.accum_dtype)
+        dt = as_dtype(self.accum_dtype)
         if not dt.is_floating_point:
             raise ValueError(
                 f"accum_dtype must be floating (flow/reduction dtype), got {self.accum_dtype!r}"

@@ -9,7 +9,9 @@ The port's copy of ``repro/core/comp_tiles.py``:
     route until their cooperative grid is resident;
   * :func:`blocked_dot` computes a (possibly batched) GEMM in (tm, tn, tk)
     blocks accumulated in the accum dtype — the eager executor honors a
-    non-default tile through it.
+    non-default tile through it, and a
+    :class:`~repro_torch.core.quant.PackedWeight` ``b`` is dequantized per
+    block at the point of use.
 
 ``DEFAULT_TILE`` (128, 128, 128) means "let the backend choose": the eager
 executor does one ``torch.matmul``, the fused kernels use their native
@@ -21,6 +23,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.core.quant import PackedWeight, dequantize_weight
 
 __all__ = ["DEFAULT_TILE", "largest_divisor", "resolve_tile", "fma_n_tile", "blocked_dot"]
 
@@ -68,23 +72,33 @@ def fma_n_tile(n: int, bn: int, blocks: int, sms: int) -> int:
 
 def blocked_dot(
     a: torch.Tensor,
-    b: torch.Tensor,
+    b,
     tile: Tuple[int, int, int],
     accum: torch.dtype = torch.float32,
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """``a @ b`` computed in (tm, tn, tk) blocks, accumulated in ``accum``.
 
-    ``a``: [..., m, k]; ``b``: [..., k, n] (broadcast over the leading dims).
-    A tile covering the whole problem is one matmul.
+    ``a``: [..., m, k]; ``b``: [..., k, n] (broadcast over the leading dims),
+    or a :class:`~repro_torch.core.quant.PackedWeight` of that shape whose
+    (tk, tn) blocks are dequantized (``(q - zero) * scale`` in float32, cast
+    to ``accum``) at the point of use.  A tile covering the whole problem is
+    one matmul.
     """
+    packed = isinstance(b, PackedWeight)
     m, k = a.shape[-2], a.shape[-1]
     n = b.shape[-1]
     tm, tn, tk = resolve_tile(tile, m, n, k)
     a = a.to(accum)
-    b = b.to(accum)
+
+    def b_block(ks: slice, ns: slice) -> torch.Tensor:
+        if not packed:
+            return b[..., ks, ns].to(accum)
+        zero = None if b.zero is None else b.zero[..., ns]
+        return dequantize_weight(b.q[..., ks, ns], b.scale[..., ns], zero, accum)
+
     if (tm, tn, tk) == (m, n, k):
-        out = torch.matmul(a, b)
+        out = torch.matmul(a, b_block(slice(None), slice(None)))
     else:
         lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
         out = torch.zeros(lead + (m, n), dtype=accum, device=a.device)
@@ -92,5 +106,6 @@ def blocked_dot(
             for ni in range(0, n, tn):
                 blk = out[..., mi : mi + tm, ni : ni + tn]
                 for ki in range(0, k, tk):
-                    blk += torch.matmul(a[..., mi : mi + tm, ki : ki + tk], b[..., ki : ki + tk, ni : ni + tn])
+                    b_blk = b_block(slice(ki, ki + tk), slice(ni, ni + tn))
+                    blk += torch.matmul(a[..., mi : mi + tm, ki : ki + tk], b_blk)
     return out.to(out_dtype) if out_dtype is not None else out

@@ -67,7 +67,21 @@ names or ``(kind, channel)`` pairs, ``channel`` the shared default):
 
 ``overlapped=False`` gives the unfused pair (``a2a_moe_baseline`` with the
 overlapped path's per-sub-chunk capacity), eager only.  ``channel="auto"``
-(the tuner) and ``quant=`` are not ported: both raise the structured error.
+(the tuner) is not ported: it raises the structured error.
+
+``quant=`` pins a :class:`~repro_torch.core.quant.QuantSpec` on the channel
+(on both channels of the list form), as in the JAX package: the eager
+executor encodes each send edge and decodes at the consumer (int8 / fp8
+payloads with their scales, or a float cast).  ``quant="auto"`` / ``True``
+opens the wire axis to the tuner, which is not ported: it raises the
+structured error.  On ``backend="fused"`` a quantized activation wire
+(int8 / fp8) raises ``NotImplementedError`` when the kernel is called, as
+the JAX package's Pallas kernels do; ``gemm_rs`` carries a float wire (e.g. bf16 partials under
+float32 accumulation) and ``ag_gemm`` gathers ``x`` in its own dtype.  The
+fused ``ag_attention`` / ``ag_moe`` / a2a forms take the identity wire only.
+Both fused GEMM kernels take a :class:`~repro_torch.core.quant.PackedWeight`
+``w`` (int8 / int4 codes dequantized inside the kernel); under autograd a
+packed weight raises (packed weights are frozen).
 """
 
 from __future__ import annotations
@@ -83,6 +97,7 @@ from repro_torch.core import moe_overlap as _moe
 from repro_torch.core import overlap as _eager
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.mapping import effective_channels
+from repro_torch.core.quant import PackedWeight, QuantSpec
 
 __all__ = [
     "compile_overlap",
@@ -105,8 +120,8 @@ def unsupported_error(kind, backend: str, overlapped: bool = True) -> NotImpleme
     return NotImplementedError(
         f"compile_overlap: kind={kind!r} with overlapped={overlapped} is not supported on "
         f"backend={backend!r} (supported: kinds {KINDS} on every backend; sequences {A2A_SEQ} on every "
-        f"backend and {SEAM_SEQ} on 'eager'; overlapped=False on 'eager' only; channel='auto' and quant= "
-        "are not ported)"
+        f"backend and {SEAM_SEQ} on 'eager'; overlapped=False on 'eager' only; channel='auto' and "
+        "quant='auto' (the tuner) are not ported)"
     )
 
 
@@ -165,7 +180,26 @@ def _seq_unfused(ch_rs: BlockChannel, ch_ag: BlockChannel, world: World, overlap
     return pair_fn
 
 
-def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: str, overlapped: bool, kw: dict):
+def _normalize_quant(quant):
+    """None | QuantSpec | "auto" (``True`` is shorthand for ``"auto"``)."""
+    if quant is None or isinstance(quant, QuantSpec):
+        return quant
+    if quant is True or quant == "auto":
+        return "auto"
+    raise ValueError(f"quant must be None, 'auto'/True, or a QuantSpec, got {quant!r}")
+
+
+def _check_fused_wire(kind, channel: BlockChannel, backend: str, overlapped: bool):
+    """The fused forms that keep eager permutes (``ag_attention``, ``ag_moe``,
+    the a2a pair) take the identity wire only; the fused GEMM kernels refuse
+    a quantized wire themselves (``kernels/ag_gemm.refuse_quantized_wire``)."""
+    if backend == "fused" and kind not in ("ag_matmul", "matmul_rs") and not channel.quant.is_identity(
+        channel.comp.accum_dtype
+    ):
+        raise unsupported_error(kind, backend, overlapped)
+
+
+def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: str, overlapped: bool, quant, kw: dict):
     """The list form (see the module docstring)."""
     kinds, chans = [], []
     for op in ops:
@@ -177,8 +211,12 @@ def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: st
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if kinds not in SEQ_KINDS or (backend == "fused" and (kinds == SEAM_SEQ or not overlapped)):
         raise unsupported_error(kinds, backend, overlapped)
-    if not all(isinstance(ch, BlockChannel) for ch in chans):
-        raise unsupported_error(kinds, backend, overlapped)  # channel="auto": the tuner is not ported
+    if not all(isinstance(ch, BlockChannel) for ch in chans) or quant == "auto":
+        raise unsupported_error(kinds, backend, overlapped)  # channel / quant "auto": the tuner is not ported
+    if isinstance(quant, QuantSpec):
+        chans = [ch.with_(quant=quant) for ch in chans]
+    for ch in chans:
+        _check_fused_wire(kinds, ch, backend, overlapped)
     ch0, ch1 = chans
     if kinds == A2A_SEQ:
         if not overlapped:
@@ -214,18 +252,21 @@ def compile_overlap(
     """Compile a tile program for ``world``; returns ``fn(x, w) -> out``
     (``fn(q, k, v) -> out`` for ``ag_attention``, ``fn(x, ids, wts, w_gu,
     w_down) -> out`` for ``ag_moe``).  A list or tuple ``kind`` is the list
-    form (module docstring).  ``quant`` is the JAX package's wire-dtype
-    keyword; only ``None`` is ported."""
-    if quant is not None:
-        raise unsupported_error(kind, backend, overlapped)
+    form (module docstring).  ``quant``: None (the channel's QuantSpec), a
+    QuantSpec pinned on the channel, or ``"auto"`` / ``True`` (the tuner's
+    wire axis: raises, not ported)."""
+    quant = _normalize_quant(quant)
     if isinstance(kind, (list, tuple)):
-        return _compile_seq(kind, channel, world, backend, overlapped, kw)
+        return _compile_seq(kind, channel, world, backend, overlapped, quant, kw)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if not isinstance(channel, BlockChannel):
         raise TypeError(f"channel must be a BlockChannel, got {type(channel)}")
-    if kind not in KINDS or (backend == "fused" and not overlapped):
+    if kind not in KINDS or (backend == "fused" and not overlapped) or quant == "auto":
         raise unsupported_error(kind, backend, overlapped)
+    if isinstance(quant, QuantSpec):
+        channel = channel.with_(quant=quant)
+    _check_fused_wire(kind, channel, backend, overlapped)
 
     if backend == "eager":
         if not overlapped and kind in _BASELINE_GRADS:
@@ -253,10 +294,18 @@ def compile_overlap(
 def _fused_call(fn, grad, world: World, channel: BlockChannel, kw: dict, x, w, out_dtype=None):
     """Run a fused kernel wrapper with the executor's call signature; under
     autograd (grad mode on and an operand that requires grad) through the
-    kind's :class:`torch.autograd.Function` ``grad``."""
+    kind's :class:`torch.autograd.Function` ``grad``; a
+    :class:`~repro_torch.core.quant.PackedWeight` (frozen codes) raises
+    there rather than differentiate through codes."""
     if x.shape[0] != world.size:
         raise ValueError(f"expected a rank-stacked [W={world.size}, ...] operand, got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    packed = isinstance(w, PackedWeight)
+    if torch.is_grad_enabled() and (x.requires_grad or (not packed and w.requires_grad)):
+        if packed:
+            raise NotImplementedError(
+                "compile_overlap: the fused ops do not differentiate through packed weights (they are frozen); "
+                "run the forward under torch.no_grad()"
+            )
         out = grad.apply(x, w, channel, kw)
     else:
         out = fn(x, w, channel=channel, **kw)

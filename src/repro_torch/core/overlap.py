@@ -18,6 +18,17 @@ projection's all-gather) and :func:`run_a2a_seq` the expert-parallel
 dispatch / combine pair (``core/moe_overlap.a2a_moe``).  The non-overlapped
 baselines (gather then GEMM; GEMM then reduce-scatter; gather the KV then
 one attention) sit beside them.
+
+The wire half of the dtype axis (``plan.quant``, a
+:class:`~repro_torch.core.quant.QuantSpec`) behaves as in the JAX package:
+flowing tiles ("ag" / "ag_rs" / "a2a" state) are encoded once at entry and
+stay encoded across every permute, each consumer decoding its held copy;
+flowing reductions ("rs", the "ag_rs" ride-along and its ``align_perm``
+hop, the "a2a_rs" returns) are re-encoded at every send edge; a quantized
+payload's scales ride the same permute (``_permute``).  With the default
+spec every edge is the identity, bitwise the pre-split executor.  A
+:class:`~repro_torch.core.quant.PackedWeight` ``w`` (weight-only int8 /
+int4) goes through ``blocked_dot``, which dequantizes per block.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import DEFAULT_TILE, blocked_dot, largest_divisor
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import SeqPlan, TilePlan, build_plan, build_seq_plan
+from repro_torch.core.quant import PackedWeight, WirePayload, decode_tree, encode_tree
 
 __all__ = [
     "run_plan",
@@ -90,10 +102,21 @@ def run_plan(
     segments.
 
     The a2a flows run as one pipeline of both ops (:func:`run_a2a_seq`).
+
+    Wire edges (``plan.quant``, module docstring): tiles are encoded once
+    here and decoded by each consumer step; a flowing reduction is encoded
+    before every permute and decoded after it, the add running in
+    ``plan.accum_dtype``.
     """
     nch = plan.num_channels
+    spec, adt = plan.quant, plan.accum_dtype
+
+    def hop(acc, pairs):
+        return _hop(world, acc, pairs, spec, adt)
+
     if plan.flow in ("ag", "ag_rs"):
-        state = list(state)
+        # tiles are quantized exactly once here; each consumer decodes its held copy
+        state = [encode_tree(st, spec, adt) for st in state]
         accs: List[torch.Tensor] = [None] * nch
         for s in range(plan.steps):
             nxt = None
@@ -102,26 +125,24 @@ def run_plan(
             for c in range(nch):
                 sched = plan.channels[c]
                 ctx = TileContext(s, c, sched.source_table(s))
+                held = decode_tree(state[c], spec, adt)
                 if plan.flow == "ag":
-                    carry = tile_fn(ctx, state[c], carry)
+                    carry = tile_fn(ctx, held, carry)
                     continue
-                part = tile_fn(ctx, state[c], None)  # the reduction rides the tile flow
-                accs[c] = part if s == 0 else world.permute(accs[c], sched.flow_perm(s - 1)) + part
+                part = tile_fn(ctx, held, None)  # the reduction rides the tile flow
+                accs[c] = part if s == 0 else hop(accs[c], sched.flow_perm(s - 1)) + part
             if nxt is not None:
                 state = nxt
         if plan.flow == "ag":
             return carry
-        return [world.permute(accs[c], plan.channels[c].align_perm()) for c in range(nch)]
+        return [hop(accs[c], plan.channels[c].align_perm()) for c in range(nch)]
     if plan.flow == "rs":
         accs: List[torch.Tensor] = [None] * nch
         for s in range(plan.steps):
             for c in range(nch):
                 sched = plan.channels[c]
                 part = tile_fn(TileContext(s, c, sched.rs_segment_table(s)), None, None)
-                if s == 0:
-                    accs[c] = part
-                else:
-                    accs[c] = world.permute(accs[c], sched.rs_perm(s - 1)) + part
+                accs[c] = part if s == 0 else hop(accs[c], sched.rs_perm(s - 1)) + part
         return accs
     raise ValueError(f"run_plan: flow {plan.flow!r} runs as a SeqPlan (run_seq_plan / run_a2a_seq)")
 
@@ -150,10 +171,14 @@ def run_a2a_seq(seq: SeqPlan, world: World, tile_fn: Callable, *, state: Sequenc
     partial`` on the tile that landed at step s (step 0: the own tile), and
     returns the partial home along the reversed edge (``combine_perm``),
     where it accumulates.  Returns the per-channel home accumulators
-    (channel c: the outputs of own chunk c's tokens).
+    (channel c: the outputs of own chunk c's tokens).  Wire edges: the own
+    tiles are encoded once at entry, each landed tile decoded before its
+    callback, each returning partial encoded for its one hop home.
     """
     dispatch, combine = seq.ops
     nch = dispatch.num_channels
+    spec, adt = dispatch.quant, dispatch.accum_dtype
+    state = [encode_tree(st, spec, adt) for st in state]
     own, landed = list(state), list(state)
     accs: List[torch.Tensor] = [None] * nch
     for s in range(dispatch.steps):
@@ -162,18 +187,28 @@ def run_a2a_seq(seq: SeqPlan, world: World, tile_fn: Callable, *, state: Sequenc
             nxt = [_permute(world, own[c], dispatch.channels[c].a2a_perm(s + 1)) for c in range(nch)]
         for c in range(nch):
             sched = combine.channels[c]
-            part = tile_fn(TileContext(s, c, sched.source_table(s)), landed[c], None)
-            accs[c] = part if s == 0 else accs[c] + world.permute(part, sched.combine_perm(s))
+            part = tile_fn(TileContext(s, c, sched.source_table(s)), decode_tree(landed[c], spec, adt), None)
+            accs[c] = part if s == 0 else accs[c] + _hop(world, part, sched.combine_perm(s), spec, adt)
         if nxt is not None:
             landed = nxt
     return accs
 
 
+def _hop(world: World, value, pairs, spec, accum):
+    """One send edge of a flowing value: encoded for the wire, permuted,
+    decoded back to ``accum`` (the identity spec leaves it as it is)."""
+    return decode_tree(_permute(world, encode_tree(value, spec, accum), pairs), spec, accum)
+
+
 def _permute(world: World, tile, pairs):
-    """Permute a flowing tile: one tensor or a tuple of tensors (a token tile
-    and its routing tables travel together)."""
+    """Permute a flowing tile: one tensor, a tuple of tensors (a token tile
+    and its routing tables travel together) or a quantized
+    :class:`~repro_torch.core.quant.WirePayload` (its scales ride the same
+    permute)."""
     if isinstance(tile, tuple):
-        return tuple(world.permute(t, pairs) for t in tile)
+        return tuple(_permute(world, t, pairs) for t in tile)
+    if isinstance(tile, WirePayload):
+        return WirePayload(world.permute(tile.q, pairs), world.permute(tile.scale, pairs))
     return world.permute(tile, pairs)
 
 
@@ -188,19 +223,35 @@ def rank_rows(x: torch.Tensor, starts: Sequence[int], m: int) -> torch.Tensor:
     return torch.stack([x[r, ..., s : s + m, :] for r, s in enumerate(starts)])
 
 
-def _rank_weight(w: torch.Tensor, lead: int) -> torch.Tensor:
-    """[W, k, n] -> [W, 1, ..., 1, k, n] broadcasting over ``lead`` batch dims."""
+def _rank_weight(w, lead: int):
+    """[W, k, n] -> [W, 1, ..., 1, k, n] broadcasting over ``lead`` batch dims
+    (a :class:`~repro_torch.core.quant.PackedWeight` with its scales)."""
+    if isinstance(w, PackedWeight):
+        return w.lead(lead)
     return w.reshape((w.shape[0],) + (1,) * lead + tuple(w.shape[1:]))
+
+
+def _w_cols(w, lo: int, hi: int):
+    """Column-slice a weight operand (a PackedWeight slices its scales and zeros too)."""
+    if isinstance(w, PackedWeight):
+        return w.col_slice(lo, hi)
+    return w[..., lo:hi]
 
 
 def _consume_dot(a, w, comp_tile, accum, out_dtype=None):
     """One consumer GEMM tile ``a @ w`` per rank, honoring the CompSpec tile.
 
     The product is formed in float32 and rounded to ``accum`` (the JAX
-    package's ``preferred_element_type``), then to ``out_dtype``.
+    package's ``preferred_element_type``), then to ``out_dtype``.  A
+    :class:`~repro_torch.core.quant.PackedWeight` ``w`` always goes through
+    ``blocked_dot`` (the whole problem as one block under the default tile),
+    which dequantizes its codes per block, as the JAX package's executor does.
     """
     wb = _rank_weight(w, a.dim() - 3)
-    if tuple(comp_tile) != DEFAULT_TILE:
+    if isinstance(w, PackedWeight):
+        tile = tuple(comp_tile) if tuple(comp_tile) != DEFAULT_TILE else (a.shape[-2], w.shape[-1], a.shape[-1])
+        out = blocked_dot(a.float(), wb, tile, accum=torch.float32)
+    elif tuple(comp_tile) != DEFAULT_TILE:
         out = blocked_dot(a, wb, tuple(comp_tile), accum=torch.float32)
     else:
         out = torch.matmul(a.float(), wb.float())
@@ -208,8 +259,8 @@ def _consume_dot(a, w, comp_tile, accum, out_dtype=None):
     return out.to(out_dtype) if out_dtype is not None else out
 
 
-def _check_ranked(x: torch.Tensor, w: torch.Tensor, world: World, what: str):
-    if x.dim() < 3 or w.dim() != 3 or x.shape[0] != world.size or w.shape[0] != world.size:
+def _check_ranked(x: torch.Tensor, w, world: World, what: str):
+    if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != world.size or w.shape[0] != world.size:
         raise ValueError(
             f"{what}: expected x [W, ..., m, k] and w [W, k, n] with W={world.size}, "
             f"got {tuple(x.shape)} and {tuple(w.shape)}"
@@ -333,7 +384,7 @@ def _rs_tile(x, w, m_loc: int, n_sub: int, channel: BlockChannel, accum):
 
     def gemm_tile(ctx, _tile, _carry):
         xs = rank_rows(x, [seg * m_loc for seg in ctx.src], m_loc)
-        wc = w[..., ctx.channel * n_sub : (ctx.channel + 1) * n_sub]
+        wc = _w_cols(w, ctx.channel * n_sub, (ctx.channel + 1) * n_sub)
         return _consume_dot(xs, wc, channel.comp.tile, accum)
 
     return gemm_tile
@@ -371,7 +422,7 @@ def matmul_rs_ag(
     ``matmul_rs_ag.calls`` counts the seams fused.
     """
     _check_ranked(x, w1, world, "matmul_rs_ag")
-    if w2.dim() != 3 or w2.shape[0] != world.size or w2.shape[1] != w1.shape[-1]:
+    if len(w2.shape) != 3 or w2.shape[0] != world.size or w2.shape[1] != w1.shape[-1]:
         raise ValueError(f"matmul_rs_ag: expected w2 [W={world.size}, {w1.shape[-1]}, n2], got {tuple(w2.shape)}")
     channel = channel or BlockChannel(axis="model")
     channel2 = channel2 or channel

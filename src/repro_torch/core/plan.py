@@ -163,10 +163,13 @@ class TilePlan:
 
     @property
     def flow_dtype(self) -> str:
-        """The wire dtype name (identity spec: the accumulation dtype)."""
+        """The wire dtype name, what travels: the QuantSpec's wire dtype, the
+        accumulation dtype when it is unset (kernels size their wire buffers
+        by it; accumulation reads ``accum_dtype``)."""
         return self.quant.resolve_wire(self.accum_dtype)
 
     def quant_table_spec(self) -> int:
+        """Scale-table slots a quantized wire needs for this plan (0 for a float wire)."""
         return self.quant.scale_slots(self.flow, self.world, self.num_channels, self.steps)
 
     # ---- flat tables for the fused kernels: [channel][step][rank] ---------

@@ -51,3 +51,4 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    ag_gemm.packed_launches = gemm_rs.packed_launches = 0

@@ -17,13 +17,27 @@ routes, chosen by dtype before the launch (never by a fallback):
     resident (:func:`~repro_torch.core.comp_tiles.fma_n_tile`).  Products stay exact float32 (on
     tensor cores they would be TF32).
 
-Both routes count in ``ag_gemm.launches``; ``ag_gemm.last_launch`` says
+Both routes count in ``ag_gemm.launches`` (``ag_gemm.packed_launches`` the
+launches that took a PackedWeight); ``ag_gemm.last_launch`` says
 which route the last launch took, its grid and its item count.  The
 protocol, the bound and the design are noted in ``csrc/ag_gemm.cu``.
 
 :func:`ag_gemm_plain` is the plain PyTorch version: it replays the bf16
 route's work items in order, with the same tables, the same gather slots,
 the same seed copy, the same per-m-tile pushes and the same flag keys.
+
+``w`` may be a :class:`~repro_torch.core.quant.PackedWeight` (weight-only
+int8 / int4 codes ``[W, K, n_loc]``, per-column scale and zero point
+``[W, n_loc]``), dequantized inside the kernel on both routes, as the
+reference's kernel dequantizes in VMEM: the float32 route forms ``(q - zero)
+* scale`` as it stages each weight block; the bf16 route loads the codes by
+TMA, converts ``q - zero`` to bf16 in shared memory and multiplies the
+float32 sum by the scale in its epilogue (n_loc a multiple of 16, else
+ValueError).  The plain version replays each route's formula
+(:func:`plain_weight`).  A quantized activation wire
+(``channel.quant.wire_dtype`` int8 / fp8) raises ``NotImplementedError``, as
+the reference's kernel does; any wire leaves ``x`` gathered in its own
+dtype, as the reference's gather scratch holds it.
 
 ``return_gathered=True`` (both versions) also returns each rank's gathered
 operand, ``[W, *lead, W*m_loc, K]`` in rank-major row order, read from the
@@ -46,9 +60,13 @@ from repro_torch.backend.hw import probe
 from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
+from repro_torch.core.quant import PackedWeight
 from repro_torch.kernels import build
 
-__all__ = ["ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "AgItem", "TILE", "ROUTES", "device_table"]
+__all__ = [
+    "ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "AgItem", "TILE", "ROUTES", "device_table",
+    "plain_weight", "refuse_quantized_wire",
+]  # fmt: skip
 
 TILE = build.WGMMA_TILE  # the bf16 route's output tile (BM, BN)
 ROUTES = build.ROUTES
@@ -115,8 +133,34 @@ def work_items(plan: TilePlan, shape, tile=TILE) -> list:
     return items
 
 
-def _check(x: torch.Tensor, w: torch.Tensor):
-    if x.dim() < 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
+def plain_weight(w, dtype: torch.dtype):
+    """The weight operand as the route of ``dtype`` (``build.ROUTES``) forms
+    it, in float32, and the per-column scale its epilogue applies (or None):
+    a plain weight as it is; a :class:`~repro_torch.core.quant.PackedWeight`
+    as ``(q - zero) * scale`` on the float32 route (the reference's
+    formula), or as ``q - zero`` rounded to bf16, with ``scale`` [W, n] left
+    for the epilogue, on the bf16 route."""
+    if not isinstance(w, PackedWeight):
+        return w.float(), None
+    qz = w.q.float() if w.zero is None else w.q.float() - w.zero.unsqueeze(-2)
+    if ROUTES.get(dtype) == "wgmma":
+        return qz.to(torch.bfloat16).float(), w.scale
+    return qz * w.scale.unsqueeze(-2), None
+
+
+def refuse_quantized_wire(what: str, channel):
+    """Raise for an int8 / fp8 activation wire: the fused kernels carry no
+    scale side channel (the reference's Pallas kernels raise too)."""
+    if channel is not None and channel.quant.is_quantized:
+        raise NotImplementedError(
+            f"{what}: quantized activation wires (QuantSpec.wire_dtype={channel.quant.wire_dtype!r}) are not "
+            "supported by the fused kernel; use the eager executor (weight-only quantization via PackedWeight IS "
+            "supported here)"
+        )
+
+
+def _check(x: torch.Tensor, w):
+    if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
         raise ValueError(
             f"ag_gemm: expected x [W, ..., m_loc, K] and w [W, K, n_loc], got {tuple(x.shape)}, {tuple(w.shape)}"
         )
@@ -146,12 +190,13 @@ def _gathered(gbuf: torch.Tensor, world: int, nch: int, lead, m_sub: int) -> tor
     return g.reshape((world,) + tuple(lead) + (world * nch * m_sub, k))
 
 
-def ag_gemm_plain(
-    x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None, return_gathered: bool = False
-):
-    """Plain version: the bf16 route's work items replayed in order in PyTorch."""
+def ag_gemm_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None, return_gathered: bool = False):
+    """Plain version: the bf16 route's work items replayed in order in
+    PyTorch, with the weight formed as ``x``'s route forms it (:func:`plain_weight`)."""
     _check(x, w)
+    refuse_quantized_wire("ag_gemm", channel)
     plan, _ = _plan(x, w, channel)
+    wf, col_scale = plain_weight(w, x.dtype)
     world, nch = plan.world, plan.num_channels
     lead, (m_loc, k), n_loc = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
@@ -174,7 +219,10 @@ def ag_gemm_plain(
             gbuf[rank, origin * nch + ch, sl] = tile
         flags.update(it.sets)
         cols = slice(it.nt * bn, min(n_loc, (it.nt + 1) * bn))
-        part = (gbuf[r, o * nch + c, sl].float() @ w[r, :, cols].float()).to(plan.accum_dtype).to(x.dtype)
+        part = gbuf[r, o * nch + c, sl].float() @ wf[r, :, cols]
+        if col_scale is not None:
+            part = part * col_scale[r, cols]
+        part = part.to(plan.accum_dtype).to(x.dtype)
         i = torch.arange(sl.start, sl.stop, device=x.device)
         out[r, i // m_sub, o * m_loc + c * m_sub + i % m_sub, cols] = part
     out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
@@ -183,7 +231,7 @@ def ag_gemm_plain(
 
 def ag_gemm(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w,
     *,
     channel: Optional[BlockChannel] = None,
     bn: Optional[int] = None,
@@ -201,13 +249,15 @@ def ag_gemm(
     route with n tile ``bn`` (default the CompSpec tn, clamped to a divisor
     of n_loc and widened by
     :func:`~repro_torch.core.comp_tiles.fma_n_tile`).  ``return_gathered``: also return the gathered operand (module
-    docstring).
+    docstring).  ``w`` may be a :class:`~repro_torch.core.quant.PackedWeight`
+    (module docstring); a quantized activation wire raises.
     """
     _check(x, w)
+    refuse_quantized_wire("ag_gemm", channel)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return ag_gemm_plain(x, w, channel=channel, return_gathered=return_gathered)
     plan, channel = _plan(x, w, channel)
-    build.check_cuda_operands("ag_gemm", x, w)
+    w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("ag_gemm", x, w)
     if plan.accum_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ag_gemm kernel accumulates in float32 or bfloat16, not {plan.accum_dtype}")
     world, nch = plan.world, plan.num_channels
@@ -220,18 +270,17 @@ def ag_gemm(
     dst = device_table(plan, "flow_dst", x.device)
     route = ROUTES[x.dtype]
     if route == "wgmma":
-        build.check_tma_operands("ag_gemm", x, w)
         m_tiles = -(-b * m_sub // TILE[0])
         ready = torch.zeros((world, world, nch, m_tiles), dtype=torch.int32, device=x.device)
         info = (ctypes.c_int * 2)()
         lib = build.library()
         rc = lib.tl_ag_gemm_wgmma(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), gbuf.data_ptr(), ready.data_ptr(),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), gbuf.data_ptr(), ready.data_ptr(),
             src.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
             world, nch, b, m_loc, m_sub, k, n_loc, build.stream(x),
         )  # fmt: skip
         build.check(rc, "ag_gemm")
-        ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
+        ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE, "packed": bool(s_ptr)}
     else:
         bn = fma_n_tile(n_loc, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
         n_tiles = n_loc // bn
@@ -239,13 +288,16 @@ def ag_gemm(
         lib = build.library()
         rc = lib.tl_ag_gemm(
             int(plan.accum_dtype == torch.bfloat16),
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), gbuf.data_ptr(), flags.data_ptr(),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), gbuf.data_ptr(), flags.data_ptr(),
             src.data_ptr(), dst.data_ptr(),
             world, nch, n_tiles, b, m_loc, m_sub, k, n_loc, bn, build.stream(x),
         )  # fmt: skip
         build.check(rc, "ag_gemm")
-        ag_gemm.last_launch = {"route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn)}
+        ag_gemm.last_launch = {
+            "route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
+        }  # fmt: skip
     ag_gemm.launches += 1
+    ag_gemm.packed_launches += bool(s_ptr)
     out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
     if not return_gathered:
         return out
@@ -257,5 +309,6 @@ def ag_gemm(
 
 
 ag_gemm.launches = 0
+ag_gemm.packed_launches = 0  # the launches that took a PackedWeight
 ag_gemm.last_launch = None
 

@@ -30,6 +30,7 @@ __all__ = [
     "check",
     "check_cuda_operands",
     "check_tma_operands",
+    "weight_operands",
     "ROUTES",
     "WGMMA_TILE",
     "dtype_code",
@@ -61,16 +62,17 @@ _LIB = None
 _SIGNATURES = {
     # dtype, x, w, out, info, M, N, K, bm, bn, stream
     "tl_matmul": "i" + "pppp" + "iiiii" + "p",
-    # float32: accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl,
+    # float32: accum_bf16, x, w, scale, zero (null unless packed), out, gbuf, flags, src_tbl, dst_tbl,
     # W, nch, n_tiles, B, m_loc, m_sub, K, n_loc, bn, stream
-    "tl_ag_gemm": "i" + "ppppppp" + "iiiiiiiii" + "p",
-    # float32: acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl,
+    "tl_ag_gemm": "i" + "ppppppppp" + "iiiiiiiii" + "p",
+    # float32: wire_dtype, x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl,
     # W, nch, n_tiles, B, M, K, N, n_sub, bn, stream
-    "tl_gemm_rs": "i" + "ppppppp" + "iiiiiiiii" + "p",
-    # bfloat16: x, w, out, gbuf, ready, src_tbl, dst_tbl, info, W, nch, B, m_loc, m_sub, K, n_loc, stream
-    "tl_ag_gemm_wgmma": "pppppppp" + "iiiiiii" + "p",
-    # bfloat16: acc_dtype, x, w, out, rbuf, flags, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub, stream
-    "tl_gemm_rs_wgmma": "i" + "pppppppp" + "iiiiiii" + "p",
+    "tl_gemm_rs": "i" + "ppppppppp" + "iiiiiiiii" + "p",
+    # bfloat16: x, w, scale, zero, out, gbuf, ready, src_tbl, dst_tbl, info, W, nch, B, m_loc, m_sub, K, n_loc, stream
+    "tl_ag_gemm_wgmma": "pppppppppp" + "iiiiiii" + "p",
+    # bfloat16: wire_dtype, x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub,
+    # stream
+    "tl_gemm_rs_wgmma": "i" + "pppppppppp" + "iiiiiii" + "p",
     # dtype, q, k, v, o, m, l, so, BH, BHkv, Sq, Sk, D, scale, causal, window, W, map, load, store, stream
     "tl_flash_attention": "i" + "ppppppp" + "iiiii" + "f" + "ii" + "i" + "p" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream
@@ -211,6 +213,44 @@ def check_tma_operands(what: str, *ts: torch.Tensor):
                 f"{what}: the bf16 route needs K and every row width a multiple of 8 elements "
                 f"(16-byte TMA strides), got a row of {t.shape[-1]}"
             )
+
+
+def weight_operands(what: str, x: torch.Tensor, w) -> tuple:
+    """The weight pointers of a fused GEMM launch: ``(w, scale, zero)`` with
+    scale and zero 0 (null) for a plain weight, or, for a
+    :class:`~repro_torch.core.quant.PackedWeight`, its int8 codes and float32
+    per-column scale and zero point (zeros when symmetric; the zeros tensor
+    is returned last, to be kept alive over the launch).  Checks the plain
+    weight like :func:`check_cuda_operands`; a packing must be contiguous,
+    on ``x``'s device, with scale / zero of shape ``[W, n]``, and on the
+    bf16 route 16-byte aligned with rows of a multiple of 16 codes (TMA)."""
+    from repro_torch.core.quant import PackedWeight
+
+    if not isinstance(w, PackedWeight):
+        check_cuda_operands(what, x, w)
+        if ROUTES[x.dtype] == "wgmma":
+            check_tma_operands(what, x, w)
+        return w.data_ptr(), 0, 0, None
+    check_cuda_operands(what, x)
+    q, scale = w.q, w.scale
+    zero = w.zero if w.zero is not None else torch.zeros_like(scale)
+    want = (q.shape[0], q.shape[-1])
+    for t, dt in ((q, torch.int8), (scale, torch.float32), (zero, torch.float32)):
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(
+                f"{what}: a packed weight needs contiguous int8 codes and float32 scale / zero on {x.device}"
+            )
+    if q.dim() != 3 or tuple(scale.shape) != want or tuple(zero.shape) != want:
+        raise ValueError(f"{what}: packed codes [W, k, n] with scale / zero [W, n], got {tuple(q.shape)}, "
+                         f"{tuple(scale.shape)}, {tuple(zero.shape)}")  # fmt: skip
+    if ROUTES[x.dtype] == "wgmma":
+        check_tma_operands(what, x)
+        if q.data_ptr() % 16 or q.shape[-1] % 16:
+            raise ValueError(
+                f"{what}: the bf16 route reads packed codes by TMA: 16-byte aligned rows of a multiple of 16 codes, "
+                f"got a row of {q.shape[-1]}"
+            )
+    return q.data_ptr(), scale.data_ptr(), zero.data_ptr(), zero
 
 
 def ptxas_report() -> str:

@@ -29,6 +29,8 @@
 //          A box, as it lands in shared memory, into slot (src, c) of rank
 //          dst_tbl[c, s, r] (the held rows travel with the GEMM's own loads,
 //          no second read of the slot), then sets ready(dst, s+1, c, mt).
+//          With a packed weight the consumers instead wait on ready(r, s, c,
+//          mt) themselves and copy the held rows from the slot first.
 //
 //   No deadlock: an item waits only on a flag set by an item with a smaller
 //   number (step s+1 on the n-tile-0 items of step s; a step-0 item with
@@ -51,6 +53,15 @@
 //   through L2 with 16-byte stores.  The ring (wgmma_tile.cuh) overlaps loads
 //   with wgmma; the persistent grid fills the 132 SMs at every serve shape.
 //
+// Packed weights (the reference's PackedWeight: int8 / int4 codes q [W, K,
+// n_loc] in an int8 container, scale and zero [W, n_loc] float32, zeros when
+// symmetric) are dequantized inside both routes, one launch, no pre-pass:
+// the bf16 route loads each K block's codes by TMA (1 byte an element) and
+// converts q - zero to bf16 in shared memory before the wgmma
+// (wg_dequant_b), the scale multiplying the accumulator in the epilogue;
+// the float32 route dequantizes (q - zero) * scale as it stages B (PackedB).
+// n_loc must be a multiple of 16 on the bf16 route (16-byte int8 rows).
+//
 // float32 (ag_gemm_kernel): the tile_gemm.cuh FMA loop, exact f32 products.
 //   Grid (n_tile j, channel c, rank r); block j == 0 pushes the held tile and
 //   sets its peer's flag (s, c); every block computes its [B*m_sub, bn]
@@ -60,9 +71,9 @@
 #include "tile_sync.cuh"
 #include "wgmma_tile.cuh"
 
-template <typename T>
+template <typename T, typename WB>
 __global__ void __launch_bounds__(TG_THREADS)
-    ag_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, T* gbuf, int* flags,
+    ag_gemm_kernel(const T* __restrict__ x, const WB w, T* __restrict__ out, T* gbuf, int* flags,
                    const int* __restrict__ src_tbl, const int* __restrict__ dst_tbl, int W, int nch, int B,
                    int m_loc, int m_sub, int K, int n_loc, int bn, int accum_bf16) {
   __shared__ __align__(16) TileGemmSmem sm;
@@ -73,7 +84,7 @@ __global__ void __launch_bounds__(TG_THREADS)
   const long slot_elems = static_cast<long>(rows) * K;
   const long m_glob = static_cast<long>(W) * m_loc;
   const int col_blk = j * bn;
-  const T* wr = w + static_cast<long>(r) * K * n_loc + col_blk;
+  const WB wr = w.rank(r, K).cols(col_blk);
   const int bn_here = min(bn, n_loc - col_blk);
 
   for (int s = 0; s < W; ++s) {
@@ -106,7 +117,7 @@ __global__ void __launch_bounds__(TG_THREADS)
           out[((static_cast<long>(r) * B + b) * m_glob + row_base + ii) * n_loc + col_blk + c0 + jj] =
               tl_from_float<T>(v);
         };
-        tile_gemm(A, r0, m, wr + c0, n_loc, n, K, sm, epi);
+        tile_gemm(A, r0, m, wr.cols(c0), n, K, sm, epi);
       }
     }
   }
@@ -114,6 +125,8 @@ __global__ void __launch_bounds__(TG_THREADS)
 
 
 struct AgArgs {
+  const float* scale;  // packed weights: [W, n_loc] (else null)
+  const float* zero;
   const __nv_bfloat16* x;
   __nv_bfloat16* out;
   __nv_bfloat16* gbuf;
@@ -153,6 +166,25 @@ __device__ __forceinline__ void ag_seed_rows(const AgArgs& a, int r, int c, int 
   }
 }
 
+// The 256 consumers copy `elems` bf16 of a held slot (written by other
+// blocks: L2 loads) to a peer's slot, COPY_BATCH vectors in flight a thread.
+// A packed item pushes this way instead of from its A boxes, so its mainloop
+// hook only converts the Q boxes (one hook doing both spilled registers).
+__device__ __forceinline__ void ag_copy_rows(const __nv_bfloat16* src, __nv_bfloat16* dst, long elems) {
+  const long nv = elems / 8;  // K % 8 == 0: whole 16-byte vectors
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (long e0 = threadIdx.x; e0 < nv; e0 += COPY_BATCH * wg::CONSUMERS) {
+    uint4 v[COPY_BATCH];
+#pragma unroll
+    for (int u = 0; u < COPY_BATCH; ++u)
+      if (e0 + u * wg::CONSUMERS < nv) v[u] = __ldcg(s + e0 + u * wg::CONSUMERS);
+#pragma unroll
+    for (int u = 0; u < COPY_BATCH; ++u)
+      if (e0 + u * wg::CONSUMERS < nv) d[e0 + u * wg::CONSUMERS] = v[u];
+  }
+}
+
 // Publish the consumers' prior stores to a gather slot and set a ready flag:
 // generic stores, then (for TMA readers) the proxy fence, a GPU-scope fence,
 // the consumer barrier, one release store.
@@ -163,12 +195,14 @@ __device__ __forceinline__ void ag_publish(int* flag) {
   if (threadIdx.x == 0) tl_st_release(flag, 1);
 }
 
+// PACKED: map_b holds the int8 codes (a Q box per stage, wg_dequant_b).
+template <bool PACKED>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     ag_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                          const AgArgs a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
-  const WgRing ring = wg_ring_setup(smem_raw, bars);
+  const WgRing ring = wg_ring_setup(smem_raw, bars, PACKED ? wg::STAGE_BYTES_Q : wg::STAGE_BYTES);
   const int W = a.W, nch = a.nch;
   const int rows = a.B * a.m_sub;
   const long slot_elems = static_cast<long>(rows) * a.K;
@@ -187,10 +221,10 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       const int slot = (r * W + src) * nch + c;
       auto load = [&](int kb, uint8_t* sa, uint8_t* sb, uint64_t* bar) {
         wg_tma_3d(sa, &map_a, bar, kb * wg::BK, mt * wg::BM, slot);
-        wg_tma_3d(sb, &map_b, bar, nt * wg::BN, kb * wg::BK, r);
-        wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, nt * wg::BN + 64, kb * wg::BK, r);
+        wg_tma_3d(sb, &map_b, bar, nt * wg::BN, kb * wg::BK, r);  // PACKED: the whole Q box
+        if (!PACKED) wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, nt * wg::BN + 64, kb * wg::BK, r);
       };
-      wg_produce(ring, pos, nk, load);
+      wg_produce(ring, pos, nk, load, PACKED ? wg::LOAD_BYTES_Q : wg::STAGE_BYTES);
     }
     return;
   }
@@ -209,67 +243,105 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     const int dst = a.dst_tbl[f];
     const int row0 = mt * wg::BM;
     const int nrows = min(wg::BM, rows - row0);
+    const int col0 = nt * wg::BN;
     if (nt == 0 && s == 0) {  // seed: own sub-chunk -> own slot (r, c)
       __nv_bfloat16* own = a.gbuf + (static_cast<long>(r * W + r) * nch + c) * slot_elems;
       ag_seed_rows(a, r, c, row0, nrows, own);
       ag_publish(&a.ready[((r * W + 0) * nch + c) * a.MT + mt]);
     }
-    if (nt == 0 && s < W - 1) {  // push: the held rows -> the peer's slot (src, c), from the A boxes
-      __nv_bfloat16* peer =
-          a.gbuf + (static_cast<long>(dst * W + src) * nch + c) * slot_elems + static_cast<long>(row0) * a.K;
-      auto push = [&](int kb, const uint8_t* box) { wg_store_a_box(box, peer, a.K, nrows, kb * wg::BK, a.K); };
-      wg_mainloop(ring, pos, nk, wgi, acc, push);
-      ag_publish(&a.ready[((dst * W + s + 1) * nch + c) * a.MT + mt]);
+    const bool push = nt == 0 && s < W - 1;  // the held rows -> the peer's slot (src, c)
+    __nv_bfloat16* peer =
+        a.gbuf + (static_cast<long>(dst * W + src) * nch + c) * slot_elems + static_cast<long>(row0) * a.K;
+    int* next = &a.ready[((dst * W + s + 1) * nch + c) * a.MT + mt];
+    if constexpr (PACKED) {
+      if (push) {  // copied from the held slot once it is ready, before the GEMM
+        if (threadIdx.x == 0) {
+          while (tl_ld_acquire(&a.ready[((r * W + s) * nch + c) * a.MT + mt]) == 0) __nanosleep(32);
+          __threadfence();
+        }
+        wg_consumer_sync();
+        const __nv_bfloat16* held =
+            a.gbuf + (static_cast<long>(r * W + src) * nch + c) * slot_elems + static_cast<long>(row0) * a.K;
+        ag_copy_rows(held, peer, static_cast<long>(nrows) * a.K);
+        ag_publish(next);
+      }
+      const float* zrow = a.zero + static_cast<long>(r) * a.n_loc + col0;
+      auto dequant = [&](int kb, const uint8_t* box) {
+        wg_dequant_b(box + wg::STAGE_BYTES, const_cast<uint8_t*>(box) + wg::A_BYTES, zrow, a.n_loc - col0,
+                     kb * wg::BK, a.K);
+      };
+      wg_mainloop(ring, pos, nk, wgi, acc, dequant);
+    } else if (push) {  // from the A boxes as they land
+      auto store = [&](int kb, const uint8_t* box) { wg_store_a_box(box, peer, a.K, nrows, kb * wg::BK, a.K); };
+      wg_mainloop(ring, pos, nk, wgi, acc, store);
+      ag_publish(next);
     } else {
       wg_mainloop(ring, pos, nk, wgi, acc);
     }
     const long row_base = static_cast<long>(src) * a.m_loc + static_cast<long>(c) * a.m_sub;
-    const int col0 = nt * wg::BN;
+    const float* srow = PACKED ? a.scale + static_cast<long>(r) * a.n_loc + col0 : nullptr;
     auto epi = [&](int row, int col, float v0, float v1) {
       const int i = row0 + row;
       const int b = i / a.m_sub;
       const long o = ((static_cast<long>(r) * a.B + b) * m_glob + row_base + i % a.m_sub) * a.n_loc + col0 + col;
+      if constexpr (PACKED) {  // the per-column scale of the packed weight, on the float32 sum
+        v0 *= __ldg(srow + col);
+        v1 *= __ldg(srow + col + 1);
+      }
       *reinterpret_cast<__nv_bfloat162*>(a.out + o) = __floats2bfloat162_rn(v0, v1);  // n_loc % 8 == 0
     };
     wg_epilogue(acc, wgi, nrows, a.n_loc - col0, epi);
   }
 }
 
-static int launch_f32(int accum_bf16, const void* x, const void* w, void* out, void* gbuf, void* flags,
-                      const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc,
-                      int m_sub, int K, int n_loc, int bn, cudaStream_t st) {
+template <typename WB>
+static int launch_f32(int accum_bf16, const void* x, WB wb, void* out, void* gbuf, void* flags, const void* src_tbl,
+                      const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc, int m_sub, int K, int n_loc,
+                      int bn, cudaStream_t st) {
   const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
   float* op = static_cast<float*>(out);
   float* gp = static_cast<float*>(gbuf);
   int* fp = static_cast<int*>(flags);
   const int* sp = static_cast<const int*>(src_tbl);
   const int* dp = static_cast<const int*>(dst_tbl);
-  void* args[] = {&xp, &wp, &op, &gp, &fp, &sp, &dp, &W, &nch, &B, &m_loc, &m_sub, &K, &n_loc, &bn, &accum_bf16};
+  void* args[] = {&xp, &wb, &op, &gp, &fp, &sp, &dp, &W, &nch, &B, &m_loc, &m_sub, &K, &n_loc, &bn, &accum_bf16};
   const dim3 grid(n_tiles, nch, W);
   // co-residency: every block spins on flags other blocks set
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_kernel<float>), grid,
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_kernel<float, WB>), grid,
                                               dim3(TG_THREADS), args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 route; the bf16 route is tl_ag_gemm_wgmma.
-extern "C" int tl_ag_gemm(int accum_bf16, const void* x, const void* w, void* out, void* gbuf, void* flags,
-                          const void* src_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int m_loc,
-                          int m_sub, int K, int n_loc, int bn, void* stream) {
-  return launch_f32(accum_bf16, x, w, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K, n_loc,
-                    bn, static_cast<cudaStream_t>(stream));
+// float32 route; the bf16 route is tl_ag_gemm_wgmma.  scale / zero non-null:
+// w is a packed weight's int8 codes [W, K, n_loc] with scale / zero [W, n_loc].
+extern "C" int tl_ag_gemm(int accum_bf16, const void* x, const void* w, const void* scale, const void* zero, void* out,
+                          void* gbuf, void* flags, const void* src_tbl, const void* dst_tbl, int W, int nch,
+                          int n_tiles, int B, int m_loc, int m_sub, int K, int n_loc, int bn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (scale != nullptr) {
+    const PackedB wb{static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(zero),
+                     n_loc};
+    return launch_f32(accum_bf16, x, wb, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K,
+                      n_loc, bn, st);
+  }
+  const PlainB<float> wb{static_cast<const float*>(w), n_loc};
+  return launch_f32(accum_bf16, x, wb, out, gbuf, flags, src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K, n_loc,
+                    bn, st);
 }
 
 // bf16 route.  info (host int[2]) receives the grid G and the item count.
-// K and n_loc must be multiples of 8 and the operands 16-byte aligned (the
-// wrapper checks); ready flags zeroed on the stream before the launch.
-extern "C" int tl_ag_gemm_wgmma(const void* x, const void* w, void* out, void* gbuf, void* ready,
-                                const void* src_tbl, const void* dst_tbl, void* info, int W, int nch, int B,
-                                int m_loc, int m_sub, int K, int n_loc, void* stream) {
+// K and n_loc must be multiples of 8 (16 with a packed weight) and the
+// operands 16-byte aligned (the wrapper checks); ready flags zeroed on the
+// stream before the launch.  scale / zero non-null: w is a packed weight's
+// int8 codes [W, K, n_loc] with scale / zero [W, n_loc].
+extern "C" int tl_ag_gemm_wgmma(const void* x, const void* w, const void* scale, const void* zero, void* out,
+                                void* gbuf, void* ready, const void* src_tbl, const void* dst_tbl, void* info, int W,
+                                int nch, int B, int m_loc, int m_sub, int K, int n_loc, void* stream) {
   const int rows = B * m_sub;
-  AgArgs a{static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
+  const bool packed = scale != nullptr;
+  AgArgs a{static_cast<const float*>(scale), static_cast<const float*>(zero),
+           static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out),
            static_cast<__nv_bfloat16*>(gbuf), static_cast<int*>(ready), static_cast<const int*>(src_tbl),
            static_cast<const int*>(dst_tbl), W, nch, B, m_loc, m_sub, K, n_loc,
            (rows + wg::BM - 1) / wg::BM, (n_loc + wg::BN - 1) / wg::BN, 0};
@@ -281,18 +353,20 @@ extern "C" int tl_ag_gemm_wgmma(const void* x, const void* w, void* out, void* g
   const cuuint32_t ba[3] = {wg::BK, wg::BM, 1};
   const cuuint64_t db[3] = {(cuuint64_t)n_loc, (cuuint64_t)K, (cuuint64_t)W};
   const cuuint64_t sb[2] = {(cuuint64_t)n_loc, (cuuint64_t)K * n_loc};
-  const cuuint32_t bb[3] = {64, wg::BK, 1};
+  const cuuint32_t bb[3] = {packed ? static_cast<cuuint32_t>(wg::BN) : 64u, wg::BK, 1};  // packed: one int8 Q box
   int rc = wg_tensor_map(&map_a, gbuf, 3, da, sa, ba);
-  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb);
-  static int resident = 0;
+  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb, packed);
+  static int resident[2] = {0, 0};
+  const void* kernel = packed ? reinterpret_cast<const void*>(ag_gemm_wgmma_kernel<true>)
+                              : reinterpret_cast<const void*>(ag_gemm_wgmma_kernel<false>);
+  const int smem = packed ? wg::SMEM_BYTES_Q : wg::SMEM_BYTES;
   int grid = 0;
-  if (rc == 0) rc = wg_grid(reinterpret_cast<const void*>(ag_gemm_wgmma_kernel), a.items, &resident, &grid);
+  if (rc == 0) rc = wg_grid(kernel, a.items, &resident[packed], &grid, smem);
   if (rc != 0) return rc;
   static_cast<int*>(info)[0] = grid;
   static_cast<int*>(info)[1] = a.items;
   void* args[] = {&map_a, &map_b, &a};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(ag_gemm_wgmma_kernel), dim3(grid),
-                                              dim3(wg::THREADS), args, wg::SMEM_BYTES,
+  cudaError_t e = cudaLaunchCooperativeKernel(const_cast<void*>(kernel), dim3(grid), dim3(wg::THREADS), args, smem,
                                               static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

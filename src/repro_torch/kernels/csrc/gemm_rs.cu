@@ -46,6 +46,20 @@
 //   Bound: the GEMM, 2 * W * B*M * k_loc * N flops on bf16 tensor cores;
 //   partial traffic W*(W-1)*B*m_loc*N accum elements stays in L2.
 //
+// The wire dtype: the recv slots (rbuf) hold partials in the plan's wire
+// dtype (QuantSpec.wire_dtype, the accumulation dtype by default): AccT
+// below.  A partial is summed in float32 (the registers), stored in the
+// wire dtype at the send edge and added back in float32 at the next stage,
+// the reference's `split` path (bf16 partials under float32 accumulation).
+//
+// Packed weights (int8 / int4 codes q [W, k_loc, N], scale and zero [W, N]
+// float32): dequantized inside both routes as in ag_gemm.cu (the bf16
+// route's Q boxes by TMA and wg_dequant_b, the scale applied to the sum
+// before the received partial is added; the float32 route's PackedB).  On
+// the bf16 route a channel's B boxes then start at its first column rounded
+// down to a multiple of 16 (16-byte int8 box starts), and N must be a
+// multiple of 16.
+//
 // float32 (gemm_rs_kernel): the tile_gemm.cuh FMA loop, exact f32 products.
 //   Grid (n_tile j, channel c, rank r); block (j, c, r) owns columns
 //   c*n_sub + j*bn .. +bn of every stage, with flags per (stage, channel,
@@ -54,9 +68,9 @@
 #include "wgmma_tile.cuh"
 
 
-template <typename T, typename AccT>
+template <typename T, typename AccT, typename WB>
 __global__ void __launch_bounds__(TG_THREADS)
-    gemm_rs_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, AccT* rbuf, int* flags,
+    gemm_rs_kernel(const T* __restrict__ x, const WB w, T* __restrict__ out, AccT* rbuf, int* flags,
                    const int* __restrict__ seg_tbl, const int* __restrict__ dst_tbl, int W, int nch, int n_tiles,
                    int B, int M, int K, int N, int n_sub, int bn) {
   __shared__ __align__(16) TileGemmSmem sm;
@@ -68,7 +82,7 @@ __global__ void __launch_bounds__(TG_THREADS)
   const long slot_elems = static_cast<long>(rows) * n_sub;
   const int ccol = j * bn;  // first column inside the channel
   const int bn_here = min(bn, n_sub - ccol);
-  const T* wr = w + static_cast<long>(r) * K * N + static_cast<long>(c) * n_sub + ccol;
+  const WB wr = w.rank(r, K).cols(c * n_sub + ccol);
 
   for (int s = 0; s < W; ++s) {
     const int f = (c * W + s) * W + r;
@@ -99,7 +113,7 @@ __global__ void __launch_bounds__(TG_THREADS)
                 tl_from_float<T>(v);
           }
         };
-        tile_gemm(A, r0, m, wr + c0, N, n, K, sm, epi);
+        tile_gemm(A, r0, m, wr.cols(c0), n, K, sm, epi);
       }
     }
     if (send != nullptr) tl_notify(&flags[((dst * W + s) * nch + c) * n_tiles + j], 1);
@@ -109,12 +123,14 @@ __global__ void __launch_bounds__(TG_THREADS)
 
 template <typename AccT>
 struct RsArgs {
+  const float* scale;  // packed weights: [W, N] (else null)
+  const float* zero;
   __nv_bfloat16* out;
   AccT* rbuf;
   int* flags;  // [W, W, nch, MT, NT]
   const int* seg_tbl;
   const int* dst_tbl;
-  int W, nch, B, M, K, N, n_sub, m_loc, IB, MT, NT, items;
+  int W, nch, B, M, K, N, n_sub, m_loc, IB, MT, NT, items, align;  // align: box starts, 8 (bf16) or 16 (int8)
 };
 
 __device__ __forceinline__ void rs_store2(float* p, float v0, float v1) { *reinterpret_cast<float2*>(p) = make_float2(v0, v1); }
@@ -122,13 +138,14 @@ __device__ __forceinline__ void rs_store2(__nv_bfloat16* p, float v0, float v1) 
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-template <typename AccT>
+// PACKED: map_b holds the int8 codes (a Q box per stage, wg_dequant_b).
+template <typename AccT, bool PACKED>
 __global__ void __launch_bounds__(wg::THREADS, 1)
     gemm_rs_wgmma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                          const RsArgs<AccT> a) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * wg::STAGES];
-  const WgRing ring = wg_ring_setup(smem_raw, bars);
+  const WgRing ring = wg_ring_setup(smem_raw, bars, PACKED ? wg::STAGE_BYTES_Q : wg::STAGE_BYTES);
   const int W = a.W, nch = a.nch;
   const int nk = (a.K + wg::BK - 1) / wg::BK;
   RingPos pos;
@@ -140,13 +157,13 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
       const int seg = a.seg_tbl[(c * W + s) * W + r];
       const int bp = mt / a.IB, ib = mt % a.IB;
-      const int col = c * a.n_sub - (c * a.n_sub) % 8 + nt * wg::BN;  // 16-byte aligned box start
+      const int col = c * a.n_sub - (c * a.n_sub) % a.align + nt * wg::BN;  // 16-byte aligned box start
       auto load = [&](int kb, uint8_t* sa, uint8_t* sb, uint64_t* bar) {
         wg_tma_4d(sa, &map_a, bar, kb * wg::BK, seg * a.m_loc + ib * 64, 2 * bp, r);
-        wg_tma_3d(sb, &map_b, bar, col, kb * wg::BK, r);
-        wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, col + 64, kb * wg::BK, r);
+        wg_tma_3d(sb, &map_b, bar, col, kb * wg::BK, r);  // PACKED: the whole Q box
+        if (!PACKED) wg_tma_3d(sb + wg::B_BYTES / 2, &map_b, bar, col + 64, kb * wg::BK, r);
       };
-      wg_produce(ring, pos, nk, load);
+      wg_produce(ring, pos, nk, load, PACKED ? wg::LOAD_BYTES_Q : wg::STAGE_BYTES);
     }
     return;
   }
@@ -162,7 +179,18 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
     const int dst = a.dst_tbl[(c * W + s) * W + r];
     const int bp = mt / a.IB, ib = mt % a.IB;
-    wg_mainloop(ring, pos, nk, wgi, acc);
+    const int lead = (c * a.n_sub) % a.align;  // the box starts `lead` columns before the channel
+    const int col0 = nt * wg::BN - lead;        // channel column of tile column 0
+    if constexpr (PACKED) {
+      const long wcol = static_cast<long>(r) * a.N + c * a.n_sub + col0;  // [W, N] index of tile column 0
+      auto dequant = [&](int kb, const uint8_t* box) {
+        wg_dequant_b(box + wg::STAGE_BYTES, const_cast<uint8_t*>(box) + wg::A_BYTES, a.zero + wcol,
+                     a.N - (c * a.n_sub + col0), kb * wg::BK, a.K);
+      };
+      wg_mainloop(ring, pos, nk, wgi, acc, dequant);
+    } else {
+      wg_mainloop(ring, pos, nk, wgi, acc);
+    }
 
     const int fl = (c * a.MT + mt) * a.NT + nt;  // flag offset inside (rank, stage)
     const AccT* prev = nullptr;
@@ -175,8 +203,6 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       prev = a.rbuf + (static_cast<long>(r * W + s - 1) * nch + c) * slot_elems;
     }
     AccT* send = (s < W - 1) ? a.rbuf + (static_cast<long>(dst * W + s) * nch + c) * slot_elems : nullptr;
-    const int lead = (c * a.n_sub) % 8;  // the box starts `lead` columns before the channel
-    const int col0 = nt * wg::BN - lead;    // channel column of tile column 0
     // rows and the channel column of a tile element; false where it is masked
     auto at = [&](int row, int col, int& b, int& i, int& cc) {
       b = 2 * bp + row / 64;
@@ -184,6 +210,16 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       cc = col0 + col;  // even (n_sub and lead are), < n_sub
       return b < a.B && i < a.m_loc && cc >= 0;
     };
+    if constexpr (PACKED) {  // pass 0: the packed weight's per-column scale on the float32 sum
+      const float* srow = a.scale + static_cast<long>(r) * a.N + c * a.n_sub;
+      auto scale = [&](int row, int col, float& v0, float& v1) {
+        int b, i, cc;
+        if (!at(row, col, b, i, cc)) return;
+        v0 *= __ldg(srow + cc);
+        v1 *= __ldg(srow + cc + 1);
+      };
+      wg_epilogue(acc, wgi, wg::BM, a.n_sub - col0, scale);
+    }
     if (prev != nullptr) {  // pass 1: add the partial received last stage (loads only)
       auto add = [&](int row, int col, float& v0, float& v1) {
         int b, i, cc;
@@ -214,16 +250,19 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 }
 
 template <typename AccT>
-static int launch_wgmma(const void* x, const void* w, void* out, void* rbuf, void* flags, const void* seg_tbl,
-                        const void* dst_tbl, int* info, int W, int nch, int B, int M, int K, int N, int n_sub,
-                        cudaStream_t st) {
+static int launch_wgmma(const void* x, const void* w, const void* scale, const void* zero, void* out, void* rbuf,
+                        void* flags, const void* seg_tbl, const void* dst_tbl, int* info, int W, int nch, int B, int M,
+                        int K, int N, int n_sub, cudaStream_t st) {
+  const bool packed = scale != nullptr;
+  const int align = packed ? 16 : 8;  // a 16-byte box start, in elements of the B operand
   const int m_loc = M / W;
   const int IB = (m_loc + 63) / 64;
   int lead = 0;  // widest shift of a channel's first column down to a 16-byte boundary
-  for (int c = 1; c < nch; ++c) lead = max(lead, (c * n_sub) % 8);
-  RsArgs<AccT> a{static_cast<__nv_bfloat16*>(out), static_cast<AccT*>(rbuf), static_cast<int*>(flags),
-                 static_cast<const int*>(seg_tbl), static_cast<const int*>(dst_tbl), W, nch, B, M, K, N, n_sub,
-                 m_loc, IB, (B + 1) / 2 * IB, (n_sub + lead + wg::BN - 1) / wg::BN, 0};
+  for (int c = 1; c < nch; ++c) lead = max(lead, (c * n_sub) % align);
+  RsArgs<AccT> a{static_cast<const float*>(scale), static_cast<const float*>(zero), static_cast<__nv_bfloat16*>(out),
+                 static_cast<AccT*>(rbuf), static_cast<int*>(flags), static_cast<const int*>(seg_tbl),
+                 static_cast<const int*>(dst_tbl), W, nch, B, M, K, N, n_sub,
+                 m_loc, IB, (B + 1) / 2 * IB, (n_sub + lead + wg::BN - 1) / wg::BN, 0, align};
   a.items = W * W * nch * a.MT * a.NT;
   CUtensorMap map_a, map_b;
   // A: x as [W, B, M, K] in boxes of (64 of K, 64 rows, 2 batches, 1 rank); B: w as [W, K, N]
@@ -232,69 +271,88 @@ static int launch_wgmma(const void* x, const void* w, void* out, void* rbuf, voi
   const cuuint32_t ba[4] = {wg::BK, 64, 2, 1};
   const cuuint64_t db[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)W};
   const cuuint64_t sb[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
-  const cuuint32_t bb[3] = {64, wg::BK, 1};
+  const cuuint32_t bb[3] = {packed ? static_cast<cuuint32_t>(wg::BN) : 64u, wg::BK, 1};  // packed: one int8 Q box
   int rc = wg_tensor_map(&map_a, x, 4, da, sa, ba);
-  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb);
-  static int resident = 0;
+  if (rc == 0) rc = wg_tensor_map(&map_b, w, 3, db, sb, bb, packed);
+  static int resident[2] = {0, 0};
+  const void* kernel = packed ? reinterpret_cast<const void*>(gemm_rs_wgmma_kernel<AccT, true>)
+                              : reinterpret_cast<const void*>(gemm_rs_wgmma_kernel<AccT, false>);
+  const int smem = packed ? wg::SMEM_BYTES_Q : wg::SMEM_BYTES;
   int grid = 0;
-  if (rc == 0) rc = wg_grid(reinterpret_cast<const void*>(gemm_rs_wgmma_kernel<AccT>), a.items, &resident, &grid);
+  if (rc == 0) rc = wg_grid(kernel, a.items, &resident[packed], &grid, smem);
   if (rc != 0) return rc;
   info[0] = grid;
   info[1] = a.items;
   void* args[] = {&map_a, &map_b, &a};
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_wgmma_kernel<AccT>), dim3(grid),
-                                              dim3(wg::THREADS), args, wg::SMEM_BYTES, st);
+  cudaError_t e = cudaLaunchCooperativeKernel(const_cast<void*>(kernel), dim3(grid), dim3(wg::THREADS), args, smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename AccT>
-static int launch_f32(const void* x, const void* w, void* out, void* rbuf, void* flags, const void* seg_tbl,
+template <typename AccT, typename WB>
+static int launch_f32(const void* x, WB wb, void* out, void* rbuf, void* flags, const void* seg_tbl,
                       const void* dst_tbl, int W, int nch, int n_tiles, int B, int M, int K, int N, int n_sub, int bn,
                       cudaStream_t st) {
   const float* xp = static_cast<const float*>(x);
-  const float* wp = static_cast<const float*>(w);
   float* op = static_cast<float*>(out);
   AccT* rp = static_cast<AccT*>(rbuf);
   int* fp = static_cast<int*>(flags);
   const int* sp = static_cast<const int*>(seg_tbl);
   const int* dp = static_cast<const int*>(dst_tbl);
-  void* args[] = {&xp, &wp, &op, &rp, &fp, &sp, &dp, &W, &nch, &n_tiles, &B, &M, &K, &N, &n_sub, &bn};
+  void* args[] = {&xp, &wb, &op, &rp, &fp, &sp, &dp, &W, &nch, &n_tiles, &B, &M, &K, &N, &n_sub, &bn};
   const dim3 grid(n_tiles, nch, W);
   // co-residency: every block spins on flags other blocks set
-  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_kernel<float, AccT>), grid,
+  cudaError_t e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(gemm_rs_kernel<float, AccT, WB>), grid,
                                               dim3(TG_THREADS), args, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// float32 route, accum (= wire) dtype acc_dtype (0 float32, 1 bfloat16); the
-// bf16 route is tl_gemm_rs_wgmma.
-extern "C" int tl_gemm_rs(int acc_dtype, const void* x, const void* w, void* out, void* rbuf, void* flags,
-                          const void* seg_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B, int M, int K,
-                          int N, int n_sub, int bn, void* stream) {
+template <typename AccT>
+static int launch_f32_w(const void* x, const void* w, const void* scale, const void* zero, void* out, void* rbuf,
+                        void* flags, const void* seg_tbl, const void* dst_tbl, int W, int nch, int n_tiles, int B,
+                        int M, int K, int N, int n_sub, int bn, cudaStream_t st) {
+  if (scale != nullptr) {
+    const PackedB wb{static_cast<const int8_t*>(w), static_cast<const float*>(scale), static_cast<const float*>(zero),
+                     N};
+    return launch_f32<AccT>(x, wb, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub, bn, st);
+  }
+  const PlainB<float> wb{static_cast<const float*>(w), N};
+  return launch_f32<AccT>(x, wb, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub, bn, st);
+}
+
+// float32 route, wire dtype wire_dtype (0 float32, 1 bfloat16: the recv slots'
+// dtype); the bf16 route is tl_gemm_rs_wgmma.  scale / zero non-null: w is a
+// packed weight's int8 codes [W, K, N] with scale / zero [W, N].
+extern "C" int tl_gemm_rs(int wire_dtype, const void* x, const void* w, const void* scale, const void* zero, void* out,
+                          void* rbuf, void* flags, const void* seg_tbl, const void* dst_tbl, int W, int nch,
+                          int n_tiles, int B, int M, int K, int N, int n_sub, int bn, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (acc_dtype == 0)
-    return launch_f32<float>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub, bn, st);
-  if (acc_dtype == 1)
-    return launch_f32<__nv_bfloat16>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub,
-                                     bn, st);
+  if (wire_dtype == 0)
+    return launch_f32_w<float>(x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N,
+                               n_sub, bn, st);
+  if (wire_dtype == 1)
+    return launch_f32_w<__nv_bfloat16>(x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, W, nch, n_tiles, B, M,
+                                       K, N, n_sub, bn, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// bf16 route, accum (= wire) dtype acc_dtype (0 float32, 1 bfloat16).  info
-// (host int[2]) receives the grid G and the item count.  K and N must be
-// multiples of 8, N / nch even and the operands 16-byte aligned (the wrapper
-// checks);
-// flags zeroed on the stream before the launch.
-extern "C" int tl_gemm_rs_wgmma(int acc_dtype, const void* x, const void* w, void* out, void* rbuf, void* flags,
-                                const void* seg_tbl, const void* dst_tbl, void* info, int W, int nch, int B, int M,
-                                int K, int N, int n_sub, void* stream) {
+// bf16 route, wire dtype wire_dtype (0 float32, 1 bfloat16).  info (host
+// int[2]) receives the grid G and the item count.  K and N must be multiples
+// of 8 (N of 16 with a packed weight), N / nch even and the operands 16-byte
+// aligned (the wrapper checks); flags zeroed on the stream before the launch.
+// scale / zero non-null: w is a packed weight's int8 codes [W, K, N] with
+// scale / zero [W, N].
+extern "C" int tl_gemm_rs_wgmma(int wire_dtype, const void* x, const void* w, const void* scale, const void* zero,
+                                void* out, void* rbuf, void* flags, const void* seg_tbl, const void* dst_tbl,
+                                void* info, int W, int nch, int B, int M, int K, int N, int n_sub, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* inf = static_cast<int*>(info);
-  if (acc_dtype == 0)
-    return launch_wgmma<float>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N, n_sub, st);
-  if (acc_dtype == 1)
-    return launch_wgmma<__nv_bfloat16>(x, w, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N, n_sub, st);
+  if (wire_dtype == 0)
+    return launch_wgmma<float>(x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N, n_sub,
+                               st);
+  if (wire_dtype == 1)
+    return launch_wgmma<__nv_bfloat16>(x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, inf, W, nch, B, M, K, N,
+                                       n_sub, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

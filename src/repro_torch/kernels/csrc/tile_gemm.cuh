@@ -15,7 +15,12 @@
 //   * A rows may come in groups (batch rows of a comm tile sit m_sub rows
 //     apart in the activation), described by RowsA;
 //   * the result goes to an epilogue functor epi(i, j, value), so each
-//     kernel fuses its own store, cast, partial add or peer store.
+//     kernel fuses its own store, cast, partial add or peer store;
+//   * B comes through a loader, b(k, j) -> float: a row-major array
+//     (PlainB), or packed int8 / int4 weight codes dequantized as they are
+//     staged, (q - zero) * scale in fp32 per column (PackedB, the
+//     reference's PackedWeight formula), so the product is the plain
+//     version's to the order of the sums.
 //
 // Bound on this card: fp32 FMA issue (67 TFLOP/s for the whole card,
 // about 0.5 per SM), not the tensor cores (989 TFLOP/s bf16) — this is the
@@ -72,12 +77,40 @@ struct RowsA {
   }
 };
 
+// B operands: b(k, j) is element (k, j) of the [k, n] block, as float.
+template <typename T>
+struct PlainB {
+  const T* p;
+  long ld;
+  __device__ __forceinline__ float operator()(int kr, int j) const { return tl_ld(p + static_cast<long>(kr) * ld + j); }
+  __device__ __forceinline__ PlainB cols(int c0) const { return PlainB{p + c0, ld}; }
+  // rank r's [k, ld] matrix of a rank-stacked [W, k, ld] operand
+  __device__ __forceinline__ PlainB rank(int r, int k) const { return PlainB{p + static_cast<long>(r) * k * ld, ld}; }
+};
+
+// packed weight codes q (int8 container) with per-column scale s and zero z
+struct PackedB {
+  const int8_t* q;
+  const float* s;
+  const float* z;
+  long ld;
+  __device__ __forceinline__ float operator()(int kr, int j) const {
+    return (static_cast<float>(q[static_cast<long>(kr) * ld + j]) - __ldg(z + j)) * __ldg(s + j);
+  }
+  __device__ __forceinline__ PackedB cols(int c0) const { return PackedB{q + c0, s + c0, z + c0, ld}; }
+  // rank r's codes [k, ld] and scales / zeros [ld] of a rank-stacked packing
+  __device__ __forceinline__ PackedB rank(int r, int k) const {
+    return PackedB{q + static_cast<long>(r) * k * ld, s + static_cast<long>(r) * ld, z + static_cast<long>(r) * ld, ld};
+  }
+};
+
 // C[m x n] = A[row0 : row0 + m, 0 : k] @ B[0 : k, 0 : n] in fp32; m <= TG_BM, n <= TG_BN.
-// Calls epi(row0 + i, j, c_ij) for every i < m, j < n.  B is row-major with
-// leading dimension ldb.  All TG_THREADS threads of the block must call it.
-template <typename T, typename Epi>
-__device__ void tile_gemm(const RowsA<T>& A, int row0, int m, const T* B, long ldb, int n, int k,
-                          TileGemmSmem& sm, Epi& epi) {
+// Calls epi(row0 + i, j, c_ij) for every i < m, j < n.  B is a loader
+// (PlainB / PackedB) positioned at the block's first column.  All
+// TG_THREADS threads of the block must call it.
+template <typename T, typename BL, typename Epi>
+__device__ void tile_gemm(const RowsA<T>& A, int row0, int m, const BL& B, int n, int k, TileGemmSmem& sm,
+                          Epi& epi) {
   const int tid = threadIdx.x;
   const int tr = tid / 16;  // micro-tile rows tr*4 .. tr*4+3
   const int tc = tid % 16;  // micro-tile cols tc + 16*u, u < 8
@@ -112,7 +145,7 @@ __device__ void tile_gemm(const RowsA<T>& A, int row0, int m, const T* B, long l
     for (int q = 0; q < 16; ++q) {
       const int kr = lb_k + 2 * q;
       float v = 0.f;
-      if (k0 + kr < k && lb_c < n) v = tl_ld(B + static_cast<long>(k0 + kr) * ldb + lb_c);
+      if (k0 + kr < k && lb_c < n) v = B(k0 + kr, lb_c);
       sm.b[kr][lb_c] = v;
     }
     __syncthreads();
@@ -141,4 +174,11 @@ __device__ void tile_gemm(const RowsA<T>& A, int row0, int m, const T* B, long l
       if (j < n) epi(row0 + i, j, acc[v][u]);
     }
   }
+}
+
+// B row-major with leading dimension ldb.
+template <typename T, typename Epi>
+__device__ void tile_gemm(const RowsA<T>& A, int row0, int m, const T* B, long ldb, int n, int k, TileGemmSmem& sm,
+                          Epi& epi) {
+  tile_gemm(A, row0, m, PlainB<T>{B, ldb}, n, k, sm, epi);
 }

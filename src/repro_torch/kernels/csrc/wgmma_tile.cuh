@@ -33,6 +33,19 @@
 // multiples of 16 bytes (K and row widths multiples of 8 bf16 elements) and
 // the base 16-byte aligned (checked by the wrappers).
 //
+// Packed weights (weight-only int8 / int4, the reference's PackedWeight):
+// a packed kernel's stage also holds a Q box, the BK x BN int8 codes of the
+// weight (N-major, no swizzle: row k at k*BN bytes), which the producer
+// loads by TMA in place of the bf16 B boxes.  Once the stage lands, the 256
+// consumer threads convert it (wg_dequant_b): each code minus its column's
+// zero point, rounded to bf16 (exact for |q - z| <= 256), stored into the
+// stage's B region in the 128-byte swizzle the wgmma descriptor expects;
+// then a proxy fence and the consumer barrier, and the wgmma reads it as it
+// reads a TMA-loaded B box.  The per-column scale multiplies the float32
+// accumulator in the kernel's epilogue.  So HBM -> shared memory moves one
+// byte per weight element, and the product is exact up to the order of the
+// sums (and the bf16 rounding of q - z beyond 256).
+//
 // Bound on this card: bf16 tensor cores (989 TFLOP/s dense for the card,
 // about 7.5 per SM) once the ring hides the loads; a 128 x 128 tile reads
 // 32 KB of shared memory per 2 MFLOP, under the SM's shared-memory rate.
@@ -54,6 +67,10 @@ constexpr int A_BYTES = BM * BK * 2;
 constexpr int B_BYTES = BK * BN * 2;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + slack to align the ring to 1024 B
+constexpr int QB_BYTES = BK * BN;                          // a packed stage's int8 Q box
+constexpr int STAGE_BYTES_Q = STAGE_BYTES + QB_BYTES;      // A | B (converted) | Q
+constexpr int LOAD_BYTES_Q = A_BYTES + QB_BYTES;           // what TMA brings to a packed stage
+constexpr int SMEM_BYTES_Q = STAGES * STAGE_BYTES_Q + 1024;
 constexpr int ACC = BN / 2;                              // f32 accumulators a thread (m64n128)
 constexpr int CONSUMER_BAR = 1;                          // named barrier of the 256 consumer threads
 }  // namespace wg
@@ -172,11 +189,13 @@ __device__ __forceinline__ void wg_mma_m64n128k16(float (&d)[wg::ACC], uint64_t 
 // ---- the ring --------------------------------------------------------------
 
 struct WgRing {
-  uint8_t* tiles;  // STAGES x (A box | B box), 1024-byte aligned
+  uint8_t* tiles;  // STAGES x (A box | B box [| Q box]), 1024-byte aligned
   uint64_t* full;
   uint64_t* empty;
-  __device__ __forceinline__ uint8_t* a(int s) const { return tiles + s * wg::STAGE_BYTES; }
-  __device__ __forceinline__ uint8_t* b(int s) const { return tiles + s * wg::STAGE_BYTES + wg::A_BYTES; }
+  int stride;  // bytes of a stage: STAGE_BYTES, or STAGE_BYTES_Q with a Q box
+  __device__ __forceinline__ uint8_t* a(int s) const { return tiles + s * stride; }
+  __device__ __forceinline__ uint8_t* b(int s) const { return tiles + s * stride + wg::A_BYTES; }
+  __device__ __forceinline__ uint8_t* q(int s) const { return tiles + s * stride + wg::STAGE_BYTES; }
 };
 
 struct RingPos {
@@ -191,10 +210,11 @@ struct RingPos {
 };
 
 // All THREADS threads call it (it ends in __syncthreads).  smem_raw is the
-// dynamic shared memory (SMEM_BYTES), bars 2 * STAGES static mbarriers.
-__device__ __forceinline__ WgRing wg_ring_setup(uint8_t* smem_raw, uint64_t* bars) {
+// dynamic shared memory (SMEM_BYTES, or SMEM_BYTES_Q for stride
+// STAGE_BYTES_Q), bars 2 * STAGES static mbarriers.
+__device__ __forceinline__ WgRing wg_ring_setup(uint8_t* smem_raw, uint64_t* bars, int stride = wg::STAGE_BYTES) {
   const uint32_t base = wg_smem(smem_raw);
-  WgRing ring{smem_raw + ((1024 - (base & 1023)) & 1023), bars, bars + wg::STAGES};
+  WgRing ring{smem_raw + ((1024 - (base & 1023)) & 1023), bars, bars + wg::STAGES, stride};
   if (threadIdx.x == 0) {
     for (int s = 0; s < wg::STAGES; ++s) {
       wg_mbar_init(&ring.full[s], 1);                        // the producer's expect_tx
@@ -207,13 +227,16 @@ __device__ __forceinline__ WgRing wg_ring_setup(uint8_t* smem_raw, uint64_t* bar
 }
 
 // Producer (one thread): nk stages; load(kb, a_box, b_box, full_bar) issues
-// the TMA loads of K block kb, STAGE_BYTES in all.
+// the TMA loads of K block kb, `bytes` in all (STAGE_BYTES; a packed kernel
+// passes its Q box as b_box and LOAD_BYTES_Q).
 template <typename Load>
-__device__ __forceinline__ void wg_produce(const WgRing& ring, RingPos& pos, int nk, Load& load) {
+__device__ __forceinline__ void wg_produce(const WgRing& ring, RingPos& pos, int nk, Load& load,
+                                           int bytes = wg::STAGE_BYTES) {
   for (int kb = 0; kb < nk; ++kb) {
     wg_mbar_wait(&ring.empty[pos.stage], pos.phase ^ 1);
-    wg_mbar_expect_tx(&ring.full[pos.stage], wg::STAGE_BYTES);
-    load(kb, ring.a(pos.stage), ring.b(pos.stage), &ring.full[pos.stage]);
+    wg_mbar_expect_tx(&ring.full[pos.stage], bytes);
+    load(kb, ring.a(pos.stage), bytes == wg::STAGE_BYTES ? ring.b(pos.stage) : ring.q(pos.stage),
+         &ring.full[pos.stage]);
     pos.advance();
   }
 }
@@ -248,6 +271,49 @@ __device__ __forceinline__ void wg_mainloop(const WgRing& ring, RingPos& pos, in
   }
   wg_wait<0>();
   if (prev >= 0 && signal) wg_mbar_arrive(&ring.empty[prev]);
+}
+
+// The 256 consumer threads of a packed kernel, once K block k0 / BK's stage
+// has landed: B[k][j] = bf16(q[k][j] - zero[col0 + j]) for the BK x BN Q box
+// (row k at k*BN bytes), stored in the B box layout of wg_desc_b (two
+// 64-column boxes, 128-byte swizzle: 16-byte chunk c of row k at k*128 +
+// (c ^ k%8)*16).  Columns at or past ncols and rows at or past K are 0.
+// Thread t converts the 16 columns (t%8)*16.. of rows t/8 and t/8 + 32,
+// 8 columns (one 16-byte chunk) at a time, to keep its registers few
+// beside the 64 of the accumulator.
+// Ends with the proxy fence and the consumer barrier: the wgmma (async
+// proxy) then reads what the generic stores wrote.
+__device__ __forceinline__ void wg_dequant_b(const uint8_t* qbox, uint8_t* bbox, const float* zero, int ncols,
+                                             int k0, int K) {
+  const int cc = threadIdx.x & 7;
+#pragma unroll 1
+  for (int u = 0; u < 2; ++u) {
+    const int k = (threadIdx.x >> 3) + 32 * u;
+    uint8_t* row = bbox + (cc >> 2) * (wg::B_BYTES / 2) + k * 128;  // box (cc / 4), K row k
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // two 16-byte chunks of 8 columns: chunk (cc % 4) * 2 + h of the row
+      const int j0 = cc * 16 + h * 8;
+      const uint2 raw = *reinterpret_cast<const uint2*>(qbox + k * wg::BN + j0);
+      uint32_t out[4];
+#pragma unroll
+      for (int i = 0; i < 8; i += 2) {
+        const uint32_t word = i < 4 ? raw.x : raw.y;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = j0 + i + e;
+          const int code = static_cast<int8_t>((word >> (8 * ((i + e) & 3))) & 0xff);
+          v[e] = (j < ncols && k0 + k < K) ? static_cast<float>(code) - __ldg(zero + j) : 0.f;
+        }
+        const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[0], v[1]);
+        out[i >> 1] = *reinterpret_cast<const uint32_t*>(&b2);
+      }
+      const int c = (cc & 3) * 2 + h;
+      *reinterpret_cast<uint4*>(row + ((c ^ (k & 7)) << 4)) = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("bar.sync %0, %1;" ::"n"(wg::CONSUMER_BAR), "n"(wg::CONSUMERS) : "memory");
 }
 
 // A consumer warpgroup with no rows to compute in an item walks its nk
@@ -342,28 +408,31 @@ static WgEncodeTiled wg_encoder() {
 
 // A bf16 tensor map of `rank` dims (innermost first), element strides
 // strides[0..rank-2] of dims 1.., box `box`, 128-byte swizzle, zero fill.
+// int8 = true: a map of int8 codes (bytes), no swizzle (packed weights).
 static int wg_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                         const cuuint64_t* strides_elems, const cuuint32_t* box) {
+                         const cuuint64_t* strides_elems, const cuuint32_t* box, bool int8 = false) {
   WgEncodeTiled enc = wg_encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t strides[4];
   cuuint32_t estr[5] = {1, 1, 1, 1, 1};
-  for (int i = 0; i < rank - 1; ++i) strides[i] = strides_elems[i] * 2;
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides, box, estr,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  for (int i = 0; i < rank - 1; ++i) strides[i] = strides_elems[i] * (int8 ? 1 : 2);
+  CUresult r = enc(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                   const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                   int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The persistent grid: G = min(items, co-resident blocks), after opting the
-// kernel into SMEM_BYTES of dynamic shared memory.  `resident` caches the
-// co-resident block count of the calling kernel (one card per process).
-static int wg_grid(const void* kernel, int items, int* resident, int* grid) {
+// kernel into `smem` bytes of dynamic shared memory (SMEM_BYTES, or
+// SMEM_BYTES_Q for a packed kernel).  `resident` caches the co-resident
+// block count of the calling kernel (one card per process).
+static int wg_grid(const void* kernel, int items, int* resident, int* grid, int smem = wg::SMEM_BYTES) {
   if (*resident == 0) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     int per_sm = 0, dev = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wg::THREADS, wg::SMEM_BYTES);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wg::THREADS, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     if ((e = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(e);
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return static_cast<int>(e);

@@ -19,9 +19,21 @@ routes, chosen by dtype before the launch (never by a fallback):
     n-tile); the n tile is ``bn`` / the CompSpec tn.  Products stay exact
     float32 (on tensor cores they would be TF32).
 
-Both routes count in ``gemm_rs.launches``; ``gemm_rs.last_launch`` says
+Both routes count in ``gemm_rs.launches`` (``gemm_rs.packed_launches`` the
+launches that took a PackedWeight); ``gemm_rs.last_launch`` says
 which route the last launch took, its grid and its item count.  The
 protocol, the bound and the design are noted in ``csrc/gemm_rs.cu``.
+
+The recv slots hold partials in the plan's wire dtype (``plan.flow_dtype``:
+``QuantSpec.wire_dtype``, the accumulation dtype by default): each partial
+is summed in float32, cast to the wire at the send edge and added back in
+float32, the reference's ``split`` path (e.g. a bf16 wire under float32
+accumulation, half the partial traffic).  A quantized wire (int8 / fp8)
+raises ``NotImplementedError``, as the reference's kernel does.  ``w`` may be
+a :class:`~repro_torch.core.quant.PackedWeight` (int8 / int4 codes ``[W,
+k_loc, N]``, scale and zero point ``[W, N]``), dequantized inside the
+kernel as in ``kernels/ag_gemm.py``; on the bf16 route a channel's boxes
+then start at multiples of 16 columns and N must be a multiple of 16.
 
 :func:`gemm_rs_plain` is the plain PyTorch version: it replays the bf16
 route's work items in order, with the same tables, the same recv slots and
@@ -41,8 +53,9 @@ from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
+from repro_torch.core.quant import PackedWeight, as_dtype, dtype_name
 from repro_torch.kernels import build
-from repro_torch.kernels.ag_gemm import device_table
+from repro_torch.kernels.ag_gemm import device_table, plain_weight, refuse_quantized_wire
 
 __all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "tiles", "RsItem", "TILE"]
 
@@ -71,31 +84,38 @@ class RsItem(NamedTuple):
     writes: Tuple[tuple, ...]  # recv slot tiles written (s < W-1)
 
 
-def channel_lead(c: int, n_sub: int) -> int:
+def channel_lead(c: int, n_sub: int, align: int = 8) -> int:
     """Columns channel c's tiles start before the channel: its first column
-    rounded down to a multiple of 8 (a 16-byte aligned TMA box start)."""
-    return (c * n_sub) % 8
+    rounded down to a multiple of ``align`` (a 16-byte aligned TMA box
+    start: 8 bf16 columns, 16 int8 columns of a packed weight)."""
+    return (c * n_sub) % align
 
 
-def tiles(shape, nch: int, world: int, tile=TILE):
+def box_align(w) -> int:
+    """The bf16 route's box-start alignment in columns for weight ``w``."""
+    return 16 if isinstance(w, PackedWeight) else 8
+
+
+def tiles(shape, nch: int, world: int, tile=TILE, align: int = 8):
     """(row blocks per batch row IB, m-tiles, n-tiles) of the bf16 route; the
     n-tiles cover a channel's n_sub columns plus the widest lead."""
     b, m_glob, _, n = shape
     ib = -(-(m_glob // world) // SEG_ROWS)
     per_tile = tile[0] // SEG_ROWS  # batch rows of an m-tile
     n_sub = n // nch
-    widest = max(channel_lead(c, n_sub) for c in range(nch))
+    widest = max(channel_lead(c, n_sub, align) for c in range(nch))
     return ib, -(-b // per_tile) * ib, -(-(n_sub + widest) // tile[1])
 
 
-def work_items(plan: TilePlan, shape, tile=TILE) -> list:
+def work_items(plan: TilePlan, shape, tile=TILE, align: int = 8) -> list:
     """The bf16 route's work items, stage-major: numbered by (s, r, c, nt, mt)
     with mt fastest, as ``gemm_rs_wgmma_kernel`` decodes its item index
     (``wg_item``): the blocks that run together share a weight strip.
 
-    ``shape`` is ``(B, M, k_loc, N)`` (B the flattened batch dims)."""
+    ``shape`` is ``(B, M, k_loc, N)`` (B the flattened batch dims); ``align``
+    the box-start alignment (:func:`box_align`)."""
     world, nch = plan.world, plan.num_channels
-    _, m_tiles, n_tiles = tiles(shape, nch, world, tile)
+    _, m_tiles, n_tiles = tiles(shape, nch, world, tile, align)
     seg_t, dst_t = plan.rs_seg_tables(), plan.rs_dst_tables()
     items = []
     for s in range(world):
@@ -113,8 +133,8 @@ def work_items(plan: TilePlan, shape, tile=TILE) -> list:
     return items
 
 
-def _check(x: torch.Tensor, w: torch.Tensor):
-    if x.dim() < 3 or w.dim() != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
+def _check(x: torch.Tensor, w):
+    if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
         raise ValueError(
             f"gemm_rs: expected x [W, ..., M, k_loc] and w [W, k_loc, N], got {tuple(x.shape)}, {tuple(w.shape)}"
         )
@@ -129,42 +149,51 @@ def _plan(x, w, channel):
     return build_plan("matmul_rs", channel, world, nch), channel
 
 
-def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChannel] = None) -> list:
+def launch_items(x: torch.Tensor, w, channel: Optional[BlockChannel] = None) -> list:
     """The work items the bf16 route runs for these operands."""
     _check(x, w)
     plan, _ = _plan(x, w, channel)
-    return work_items(plan, (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1]))
+    shape = (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1])
+    return work_items(plan, shape, align=box_align(w))
 
 
-def gemm_rs_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
-    """Plain version: the bf16 route's work items replayed in order in PyTorch."""
+def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
+    """Plain version: the bf16 route's work items replayed in order in
+    PyTorch, the recv slots in the wire dtype, the weight formed as ``x``'s
+    route forms it (``ag_gemm.plain_weight``)."""
     _check(x, w)
+    refuse_quantized_wire("gemm_rs", channel)
     plan, _ = _plan(x, w, channel)
     world, nch = plan.world, plan.num_channels
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_loc, n_sub = m_glob // world, n // nch
-    ib_count, _, _ = tiles((b, m_glob, k, n), nch, world)
+    align = box_align(w)
+    ib_count, _, _ = tiles((b, m_glob, k, n), nch, world, align=align)
     per_tile = TILE[0] // SEG_ROWS
     xs = x.reshape(world, b, m_glob, k)
-    rbuf = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
+    wf, col_scale = plain_weight(w, x.dtype)
+    wire = as_dtype(plan.flow_dtype)
+    rbuf = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=wire, device=x.device)
     out = torch.zeros((world, b, m_loc, n), dtype=x.dtype, device=x.device)
     flags = set()
-    for it in work_items(plan, (b, m_glob, k, n)):
+    for it in work_items(plan, (b, m_glob, k, n), align=align):
         assert it.wait is None or it.wait in flags, it  # the order sets every flag before its wait
         r, c = it.r, it.c
         bp, ib = divmod(it.mt, ib_count)
         bs = slice(bp * per_tile, min(b, (bp + 1) * per_tile))
         rs = slice(ib * SEG_ROWS, min(m_loc, (ib + 1) * SEG_ROWS))
-        col0 = it.nt * TILE[1] - channel_lead(c, n_sub)
+        col0 = it.nt * TILE[1] - channel_lead(c, n_sub, align)
         cs = slice(max(0, col0), min(n_sub, col0 + TILE[1]))
         gcs = slice(c * n_sub + cs.start, c * n_sub + cs.stop)
         rows = xs[r, bs, it.seg * m_loc + rs.start : it.seg * m_loc + rs.stop]
-        part = rows.float() @ w[r, :, gcs].float()
+        part = rows.float() @ wf[r, :, gcs]
+        if col_scale is not None:
+            part = part * col_scale[r, gcs]
         if it.reads:
             part = part + rbuf[r, (it.s - 1) * nch + c, bs, rs, cs].float()  # partial received last stage
         if it.writes:
-            rbuf[it.dst, it.s * nch + c, bs, rs, cs] = part.to(plan.accum_dtype)  # push to the peer's recv slot
+            rbuf[it.dst, it.s * nch + c, bs, rs, cs] = part.to(wire)  # push to the peer's recv slot
             flags.update(it.sets)
         else:
             out[r, bs, rs, gcs] = part.to(x.dtype)
@@ -173,7 +202,7 @@ def gemm_rs_plain(x: torch.Tensor, w: torch.Tensor, *, channel: Optional[BlockCh
 
 def gemm_rs(
     x: torch.Tensor,
-    w: torch.Tensor,
+    w,
     *,
     channel: Optional[BlockChannel] = None,
     bn: Optional[int] = None,
@@ -188,54 +217,66 @@ def gemm_rs(
     bfloat16 takes the wgmma route (k_loc and N multiples of 8 and N / C
     even, else ValueError), float32 the FMA route with n tile ``bn`` (default the
     CompSpec tn clamped to a divisor of N / C and widened by
-    :func:`~repro_torch.core.comp_tiles.fma_n_tile`).
+    :func:`~repro_torch.core.comp_tiles.fma_n_tile`).  The recv slots take
+    the plan's wire dtype (float32 or bfloat16, else TypeError); ``w`` may
+    be a :class:`~repro_torch.core.quant.PackedWeight` (module docstring);
+    a quantized wire raises.
     """
     _check(x, w)
+    refuse_quantized_wire("gemm_rs", channel)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gemm_rs_plain(x, w, channel=channel)
     plan, channel = _plan(x, w, channel)
-    build.check_cuda_operands("gemm_rs", x, w)
+    w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("gemm_rs", x, w)
+    wire = as_dtype(plan.flow_dtype)
     world, nch = plan.world, plan.num_channels
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_loc, n_sub = m_glob // world, n // nch
     out = torch.empty((world, b, m_loc, n), dtype=x.dtype, device=x.device)
-    rbuf = torch.empty((world, world * nch, b * m_loc, n_sub), dtype=plan.accum_dtype, device=x.device)
+    rbuf = torch.empty((world, world * nch, b * m_loc, n_sub), dtype=wire, device=x.device)
     seg = device_table(plan, "rs_seg", x.device)
     dst = device_table(plan, "rs_dst", x.device)
     route = build.ROUTES[x.dtype]
     lib = build.library()
     if route == "wgmma":
-        build.check_tma_operands("gemm_rs", x, w)
         if n_sub % 2:
             raise ValueError(f"gemm_rs: the bf16 route stores column pairs; N / C = {n_sub} must be even")
-        _, m_tiles, n_tiles = tiles((b, m_glob, k, n), nch, world)
+        _, m_tiles, n_tiles = tiles((b, m_glob, k, n), nch, world, align=box_align(w))
         flags = torch.zeros((world, world, nch, m_tiles, n_tiles), dtype=torch.int32, device=x.device)
         info = (ctypes.c_int * 2)()
         rc = lib.tl_gemm_rs_wgmma(
-            build.dtype_code(plan.accum_dtype),
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
+            build.dtype_code(wire),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
             seg.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
             world, nch, b, m_glob, k, n, n_sub, build.stream(x),
         )  # fmt: skip
         build.check(rc, "gemm_rs")
-        gemm_rs.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE}
+        gemm_rs.last_launch = {
+            "route": route, "grid": info[0], "items": info[1], "tile": TILE, "packed": bool(s_ptr),
+            "wire": dtype_name(wire),
+        }  # fmt: skip
     else:
         bn = fma_n_tile(n_sub, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
         n_tiles = n_sub // bn
         # one flag per (rank, stage, channel, n-tile)
         flags = torch.zeros((world, world, nch, n_tiles), dtype=torch.int32, device=x.device)
         rc = lib.tl_gemm_rs(
-            build.dtype_code(plan.accum_dtype),
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
+            build.dtype_code(wire),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
             seg.data_ptr(), dst.data_ptr(),
             world, nch, n_tiles, b, m_glob, k, n, n_sub, bn, build.stream(x),
         )  # fmt: skip
         build.check(rc, "gemm_rs")
-        gemm_rs.last_launch = {"route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn)}
+        gemm_rs.last_launch = {
+            "route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
+            "wire": dtype_name(wire),
+        }  # fmt: skip
     gemm_rs.launches += 1
+    gemm_rs.packed_launches += bool(s_ptr)
     return out.reshape((world,) + tuple(lead) + (m_loc, n))
 
 
 gemm_rs.launches = 0
+gemm_rs.packed_launches = 0  # the launches that took a PackedWeight
 gemm_rs.last_launch = None

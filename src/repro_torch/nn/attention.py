@@ -49,6 +49,7 @@ consumer adds it there too.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -173,6 +174,11 @@ def _no_ep(ep, what: str):
         )
 
 
+def _with_quant(pc, quant):
+    """``pc`` with ``quant`` pinned (``ParallelContext.quant``), or as it is for None."""
+    return pc if quant is None or pc.quant == quant else dataclasses.replace(pc, quant=quant)
+
+
 def _out_proj(o, params, x, pc, next_proj):
     """The output projection's GEMM+RS plus the residual, or with
     ``next_proj=(glue, w)`` the seam ``(y, next_out)``."""
@@ -196,6 +202,7 @@ def apply_seq(
     qkv: Optional[torch.Tensor] = None,
     next_proj=None,
     ep=None,
+    quant=None,
 ):
     """x: [W, B, s_loc, D] sequence-sharded -> [W, B, s_loc, D] (+ residual);
     with ``return_kv`` also the per-rank KV ``[W, B, kv_loc, S, hd]``.
@@ -205,8 +212,12 @@ def apply_seq(
     output-projection RS with the next consumer's AG; the return value is
     then ``(y, next_out)`` (``(y, next_out, kv)`` with ``return_kv``).
     ``ep`` must be falsy.
+    ``quant`` pins a :class:`~repro_torch.core.quant.QuantSpec` wire encoding
+    on this block's collectives (``ParallelContext.quant``); the weights may
+    be :class:`~repro_torch.core.quant.PackedWeight` (``pack_weight``).
     """
     _no_ep(ep, "apply_seq")
+    pc = _with_quant(pc, quant)
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b = x.shape[0], x.shape[1]
@@ -258,6 +269,7 @@ def apply_seq_ring(
     rope_theta: Optional[float] = None,
     next_proj=None,
     ep=None,
+    quant=None,
 ):
     """AG-Q + ring-KV attention block: x [W, B, s_loc, D] -> [W, B, s_loc, D]
     (residual added), equal to :func:`apply_seq` up to summation order;
@@ -272,9 +284,11 @@ def apply_seq_ring(
     distinct KV head, so the tiles carry all groups and
     ``pc.ring_attention(kv_select=True)`` has each rank consume its own.
     RoPE takes global positions: ``0..S-1`` for the gathered queries,
-    ``rank * s_loc + j`` for the local keys.
+    ``rank * s_loc + j`` for the local keys.  ``quant`` pins a QuantSpec wire
+    encoding on the block's collectives (the ring's KV tiles included).
     """
     _no_ep(ep, "apply_seq_ring")
+    pc = _with_quant(pc, quant)
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b, s_loc, d = x.shape

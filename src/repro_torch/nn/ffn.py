@@ -18,6 +18,8 @@ next consumer's AG.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.nn.layers import ACTS, he_init, rms_norm
@@ -47,7 +49,7 @@ def seam_proj(params: dict, cfg):
     return (lambda y: rms_norm(y, params["ln"], cfg.norm_eps)), params["w_gu"]
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, gu=None, next_proj=None, ep=None):
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, gu=None, next_proj=None, ep=None):
     """x: [W, B, s_loc, D] (sequence-sharded) -> [W, B, s_loc, D] (+ residual).
 
     ``gu``: this block's gate/up projection, already produced by the
@@ -55,11 +57,16 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, gu=None, next_proj=None
     ``next_proj=(glue, w)``: fuse the down-projection RS with the next
     consumer's AG; the return value is then ``(y, next_out)``.  ``ep`` must
     be falsy: a dense MLP has no expert-parallel form.
+    ``quant`` pins a :class:`~repro_torch.core.quant.QuantSpec` wire encoding
+    on this block's collectives (``ParallelContext.quant``); the weights may
+    be :class:`~repro_torch.core.quant.PackedWeight` (``pack_weight``).
     """
     if ep:
         raise ValueError(
             "ffn.apply_seq has no expert-parallel form; ep= selects the dispatch/combine a2a in moe.apply_seq only"
         )
+    if quant is not None and pc.quant != quant:
+        pc = dataclasses.replace(pc, quant=quant)
     if gu is None:
         h = rms_norm(x, params["ln"], cfg.norm_eps)
         gu = pc.ag_matmul(h, params["w_gu"])  # AG + GEMM  [W, B, S, 2*f_loc]

@@ -32,6 +32,8 @@ experts get -inf router logits and are never selected.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -63,7 +65,7 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
     return p
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, ep=None, next_proj=None):
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, next_proj=None):
     """x: [W, B, s_loc, D] (sequence-sharded) -> ([W, B, s_loc, D] (+ residual), aux).
 
     Capacity and routing are per (rank, batch row); the aux loss is the mean
@@ -71,7 +73,10 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, ep=None, next_proj=None
     (default: whether ``pc.ep_axis`` is set; ``ep=True`` without it
     raises).  ``next_proj`` must be None: the MoE combine ends at the
     residual stream, so there is no RS -> AG seam to fuse.  Shared experts
-    stay the dense TP MLP on either path."""
+    stay the dense TP MLP on either path.  ``quant`` pins a QuantSpec wire
+    encoding on the block's collectives (``ParallelContext.quant``)."""
+    if quant is not None and pc.quant != quant:
+        pc = dataclasses.replace(pc, quant=quant)
     if next_proj is not None:
         raise ValueError(
             "moe.apply_seq does not support next_proj: the MoE combine ends at the residual stream, "

@@ -36,6 +36,12 @@ backend: the JAX package has no fused-kernel seam).  ``ep_axis`` opts the
 MoE blocks into expert parallelism (``pc.a2a_moe``: the dispatch / combine
 all-to-all over the world's one axis, which it must name).
 
+``quant`` is the wire-dtype policy: ``None`` (the channel's own spec), a
+:class:`~repro_torch.core.quant.QuantSpec` (pinned on the context's channel
+once, so every op inherits its wire encoding), or ``"auto"`` / ``True``
+(the tuner's int8 wire axis, which is not ported: any collective op then
+raises the structured error).
+
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 ``pc.ring_attention`` / ``pc.ag_moe`` / ``pc.a2a_moe`` / ``pc.psum`` /
 ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
@@ -44,13 +50,14 @@ Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.backend.mesh import World
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.compiler import BACKENDS, compile_overlap
+from repro_torch.core.quant import QuantSpec
 
 __all__ = ["ParallelContext"]
 
@@ -64,12 +71,20 @@ class ParallelContext:
     moe_decode_stream: bool = False  # MoE decode: stream each local expert once over all tokens
     fuse_seams: bool = False  # fuse layer RS -> AG seams into one ring pass (lm.forward)
     ep_axis: Optional[str] = None  # expert-parallel opt-in: the axis of the MoE dispatch / combine
+    quant: Any = None  # wire-dtype policy: None, a QuantSpec (pinned on the channel), or "auto"/True
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):
             raise ValueError(f"mode must be 'overlap' or 'baseline', got {self.mode!r}")
+        if self.quant is True:
+            object.__setattr__(self, "quant", "auto")
+        if not (self.quant is None or self.quant == "auto" or isinstance(self.quant, QuantSpec)):
+            raise ValueError(f"quant must be None, a QuantSpec, or 'auto'/True; got {self.quant!r}")
         if self.channel is None:
             object.__setattr__(self, "channel", BlockChannel(axis="model"))
+        if isinstance(self.quant, QuantSpec) and self.channel.quant != self.quant:
+            # bake the pinned spec into the channel once: every op inherits the wire encoding
+            object.__setattr__(self, "channel", self.channel.with_(quant=self.quant))
         if self.backend is None:
             object.__setattr__(self, "backend", "fused" if self.world.device.type == "cuda" else "eager")
         if self.backend not in BACKENDS:
@@ -97,7 +112,10 @@ class ParallelContext:
         baselines otherwise."""
         overlapped = self.mode == "overlap"
         backend = (backend or self.backend) if overlapped else "eager"
-        return compile_overlap(kind, self.channel, world=self.world, backend=backend, overlapped=overlapped)
+        quant = "auto" if self.quant == "auto" else None  # a pinned spec is already on the channel
+        return compile_overlap(
+            kind, self.channel, world=self.world, backend=backend, overlapped=overlapped, quant=quant
+        )
 
     def ag_matmul(self, x, w, **kw):
         """[W, *lead, m_loc, K] x [W, K, n_loc] -> [W, *lead, W*m_loc, n_loc]."""

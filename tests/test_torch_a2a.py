@@ -230,8 +230,10 @@ def test_a2a_backends_and_errors(world):
         compile_overlap(["combine_rs", "a2a_dispatch"], ch, world=world)
     with pytest.raises(NotImplementedError):
         compile_overlap(list(A2A), "auto", world=world)
+    with pytest.raises(ValueError, match="quant must be"):
+        compile_overlap(list(A2A), ch, world=world, quant="int8")  # a QuantSpec, not a dtype name
     with pytest.raises(NotImplementedError):
-        compile_overlap(list(A2A), ch, world=world, quant="int8")
+        compile_overlap(list(A2A), ch, world=world, quant=True)  # the tuner's wire axis is not ported
     with pytest.raises(ValueError, match="ep_axis"):
         ParallelContext(world=world).a2a_moe(*_port_args(world, *_operands(0)))
     with pytest.raises(ValueError, match="not the world's axis"):

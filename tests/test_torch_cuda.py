@@ -8,7 +8,9 @@ Functions (the fused collectives', flash attention's at head dims up to
 expert GEMM's, the SSD intra-chunk term's at the train tile) and reduced
 MoE, mamba2, zamba2, seamless-m4t (encoder-decoder) and paligemma (image
 prefix, head dim 256) models' gradients and one zamba2 shared block, fused
-against eager.
+against eager; the fused GEMM kernels with packed weights (int8, and int4
+with zero points, dequantized inside both routes) and ``gemm_rs`` with a
+bf16 wire under float32 accumulation, against their plain versions.
 
 Every test here needs a CUDA device: it carries the ``cuda`` marker and
 skips (from a fixture) on a host without one.  The file imports neither JAX
@@ -1396,3 +1398,113 @@ def test_multimodal_train_grads_fused_match_eager_on_card(dev, arch):
     for a, b in zip(tree_leaves(out["fused"][3]), tree_leaves(out["eager"][3])):
         torch.cuda.synchronize()
         assert (a - b).abs().max().item() <= 2e-3 * b.abs().max().item()
+
+
+# ---- packed weights and the wire dtype (core/quant) -------------------------------------------
+
+QUANT_PACKS = [("int8", False), ("int4", True)]
+
+
+def _packed(dev, k, n, wdtype, zp, seed=1):
+    from repro_torch.core.quant import QuantSpec, pack_weight
+
+    w = _rand(dev, torch.float32, 4, k, n, scale=k**-0.5, seed=seed) + 0.01 * seed  # an offset: zero points matter
+    return pack_weight(w, QuantSpec(weight_dtype=wdtype, zero_point=zp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype,zp", QUANT_PACKS)
+@pytest.mark.parametrize("order,nch", [("ring", 1), ("bidir_ring", 2), ("all2all", 2)])
+def test_packed_ag_gemm_kernel(dev, dtype, wdtype, zp, order, nch):
+    """AG+GEMM with a PackedWeight on both routes, one launch, against its
+    plain version (which replays the route's dequant formula); bf16 bitwise
+    over 20 launches.  Ragged: 3 batch rows, 40 rows a rank, n = 208."""
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x = _rand(dev, dtype, 4, 3, 40, 136)
+    pw = _packed(dev, 136, 208, wdtype, zp)
+    before = (K.ag_gemm.launches, K.ag_gemm.packed_launches)
+    out = K.ag_gemm(x, pw, channel=ch)
+    assert (K.ag_gemm.launches, K.ag_gemm.packed_launches) == (before[0] + 1, before[1] + 1)
+    assert K.ag_gemm.last_launch["packed"]
+    _close(out, K.ag_gemm_plain(x, pw, channel=ch), dtype)
+    if dtype == torch.bfloat16:
+        assert all(torch.equal(K.ag_gemm(x, pw, channel=ch), out) for _ in range(19))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdtype,zp", QUANT_PACKS)
+@pytest.mark.parametrize("order,nch", [("ring", 1), ("bidir_ring", 2), ("all2all", 2)])
+def test_packed_gemm_rs_kernel(dev, dtype, wdtype, zp, order, nch):
+    """GEMM+RS with a PackedWeight on both routes against its plain version;
+    C = 2 over N = 208 starts channel 1 off the 16-column boxes (a lead of 8)."""
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x = _rand(dev, dtype, 4, 3, 160, 72)
+    pw = _packed(dev, 72, 208, wdtype, zp)
+    out = K.gemm_rs(x, pw, channel=ch)
+    assert K.gemm_rs.last_launch["packed"]
+    _close(out, K.gemm_rs_plain(x, pw, channel=ch), dtype)
+    if dtype == torch.bfloat16:
+        assert all(torch.equal(K.gemm_rs(x, pw, channel=ch), out) for _ in range(19))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("order,nch", [("ring", 1), ("bidir_ring", 2)])
+def test_gemm_rs_bf16_wire_kernel(dev, dtype, order, nch):
+    """A bf16 wire under float32 accumulation: the recv slots in bf16, the
+    plain version's split path; bf16 bitwise over 20 launches; and the
+    float32 wire is bitwise the identity."""
+    from repro_torch.core.quant import QuantSpec
+
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x, w = _rand(dev, dtype, 4, 2, 128, 96), _rand(dev, dtype, 4, 96, 160, scale=0.1, seed=2)
+    wire = ch.with_(quant=QuantSpec(wire_dtype="bfloat16"))
+    out = K.gemm_rs(x, w, channel=wire)
+    assert K.gemm_rs.last_launch["wire"] == "bfloat16"
+    _close(out, K.gemm_rs_plain(x, w, channel=wire), dtype)
+    if dtype == torch.bfloat16:
+        assert all(torch.equal(K.gemm_rs(x, w, channel=wire), out) for _ in range(19))
+    f32 = ch.with_(quant=QuantSpec(wire_dtype="float32"))
+    assert torch.equal(K.gemm_rs(x, w, channel=f32), K.gemm_rs(x, w, channel=ch))
+
+
+def test_packed_kernels_raise_on_what_they_do_not_take(dev):
+    """Shapes and operands the packed routes cannot take raise ValueError (no
+    fallback): int8 rows of the bf16 route a multiple of 16 codes, the codes
+    int8 and contiguous, scale / zero [W, n]; a quantized wire raises."""
+    from repro_torch.core.quant import PackedWeight, QuantSpec
+
+    x = _rand(dev, torch.bfloat16, 4, 1, 32, 64)
+    odd = _packed(dev, 64, 72, "int8", False)  # 72 codes a row: not 16-byte TMA rows
+    with pytest.raises(ValueError, match="16"):
+        K.ag_gemm(x, odd)
+    K.ag_gemm(x.float(), odd)  # the float32 route takes it
+    with pytest.raises(ValueError, match="16"):
+        K.gemm_rs(_rand(dev, torch.bfloat16, 4, 1, 32, 64), _packed(dev, 64, 72, "int8", False))
+    good = _packed(dev, 64, 96, "int8", False)
+    bad = PackedWeight(good.q.float(), good.scale, None, "int8")
+    with pytest.raises(ValueError, match="int8"):
+        K.ag_gemm(x, bad)
+    with pytest.raises(ValueError, match="scale"):
+        K.ag_gemm(x, PackedWeight(good.q, good.scale[:, :8].contiguous(), None, "int8"))
+    with pytest.raises(NotImplementedError):
+        K.gemm_rs(_rand(dev, torch.bfloat16, 4, 1, 32, 64), good,
+                  channel=BlockChannel(axis="model", quant=QuantSpec(wire_dtype="int8")))
+
+
+def test_packed_mlp_block_on_card(dev):
+    """``nn/ffn.apply_seq`` on the fused backend with packed int8 weights
+    against the eager backend with the same packing, float32: 1e-4."""
+    from repro_torch.convert import shard_mlp
+    from repro_torch.core.quant import QuantSpec, pack_weight
+    from repro_torch.nn import ffn
+
+    cfg = reduce_config(get_config("smollm-360m"))
+    world = World(4, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = shard_mlp(ffn.init(cfg, g, torch.float32, dev), world)
+    p = {"ln": p["ln"], **{k: pack_weight(p[k], QuantSpec(weight_dtype="int8")) for k in ("w_gu", "w_down")}}
+    x = _rand(dev, torch.float32, 4, 2, 16, cfg.d_model)
+    with torch.no_grad():
+        fused = ffn.apply_seq(p, x, ParallelContext(world=world, backend="fused"), cfg)
+        eager = ffn.apply_seq(p, x, ParallelContext(world=world, backend="eager"), cfg)
+    _close(fused, eager, torch.float32)

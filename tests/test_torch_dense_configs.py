@@ -38,6 +38,7 @@ from repro_torch.nn import attention
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
+from test_torch_training import j_jit
 from utils import reduce_config as j_reduce_config
 
 ARCHS = ("qwen2-72b", "starcoder2-7b", "gemma3-27b")
@@ -188,7 +189,7 @@ def jax_grads(model, pc8):
         logits, aux = jlm.forward(p, model["jcfg"], pc8, inputs)
         return jsteps.softmax_xent(logits, lab) + 0.01 * aux
 
-    loss, g = jax.jit(jax.value_and_grad(loss_fn))(model["jparams"], jnp.asarray(model["toks"]), jnp.asarray(labels))
+    loss, g = j_jit(jax.value_and_grad(loss_fn))(model["jparams"], jnp.asarray(model["toks"]), jnp.asarray(labels))
     tree = from_jax_params(jax.tree_util.tree_map(np.asarray, g), model["cfg"], model["world"])
     return float(loss), lm.trainable(tree, model["cfg"]), labels
 

@@ -45,7 +45,7 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
-from test_torch_training import _assert_trees_close, _np, _with_gains, j_value_and_grad
+from test_torch_training import _assert_trees_close, _np, _with_gains, j_compiled, j_value_and_grad
 from utils import reduce_config as j_reduce_config
 
 ARCH = "seamless-m4t-medium"
@@ -251,8 +251,8 @@ def test_train_step_matches_reference(model, jax_grads, pc8):
     gradient is held (as ``test_torch_zamba2.py``'s step)."""
     cfg, jcfg, world = model["cfg"], model["jcfg"], model["world"]
     opt_cfg = dict(lr=1e-2, warmup_steps=2, total_steps=5, eps=1e-4, weight_decay=1.0)
-    jstep = jsteps.make_train_step(jed, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), remat_policy="none",
-                                   grad_masks=jed.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+    jstep = j_compiled(jsteps.make_train_step(jed, jcfg, pc8, jopt.AdamWConfig(**opt_cfg), remat_policy="none",
+                                              grad_masks=jed.grad_masks(jcfg, pc8), donate=False))  # fmt: skip
     pc = ParallelContext(world=world, backend="fused")
     step = make_train_step(encdec, cfg, pc, AdamWConfig(**opt_cfg), remat_policy="dots",
                            grad_masks=encdec.grad_masks(cfg, pc))  # fmt: skip

@@ -109,10 +109,10 @@ def test_accum_dtype_and_quant():
         tch.CompSpec(accum_dtype=torch.int32)
     with pytest.raises(ValueError):
         tch.CompSpec(accum_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        tch.QuantSpec(wire_dtype="int8")
-    with pytest.raises(NotImplementedError):
-        tch.QuantSpec(weight_dtype="int4")
+    assert tch.QuantSpec(wire_dtype="int8").is_quantized  # ported: core/quant (tests/test_torch_quant.py)
+    assert not tch.QuantSpec(weight_dtype="int4").is_quantized
+    with pytest.raises(ValueError, match="wire_dtype"):
+        tch.QuantSpec(wire_dtype="int4")
     with pytest.raises(TypeError):
         tch.BlockChannel(axis="model", comm="ring")
 

@@ -236,8 +236,10 @@ def test_seq_form_backends_and_errors(world):
         compile_overlap(["ag_matmul", "matmul_rs"], ch, world=world)  # AG -> RS is no seam
     with pytest.raises(NotImplementedError):
         compile_overlap(list(SEAM), "auto", world=world)  # the tuner is not ported
+    with pytest.raises(ValueError, match="quant must be"):
+        compile_overlap(list(SEAM), ch, world=world, quant="int8")  # a QuantSpec, not a dtype name
     with pytest.raises(NotImplementedError):
-        compile_overlap(list(SEAM), ch, world=world, quant="int8")
+        compile_overlap(list(SEAM), ch, world=world, quant="auto")  # the tuner's wire axis is not ported
     with pytest.raises(ValueError, match="unknown backend"):
         compile_overlap(list(SEAM), ch, world=world, backend="xla")
     # per-op (kind, channel) entries; overlapped=False is the baselines' pair

@@ -77,12 +77,46 @@ def _with_gains(np_params, seed=3):
     return jax.tree_util.tree_unflatten(treedef, out)
 
 
+# XLA's CPU runtime runs each emulated device's collectives on one shared thread
+# pool, and its concurrency-optimized schedule lets independent collectives of
+# one program (the FSDP all-gathers over "data" beside the ring's permutes over
+# "model") start in different orders on different devices.  With every pool
+# thread parked in a rendezvous, a device whose turn never comes stalls the
+# rest, and after 40 s the rendezvous aborts the process ("Termination timeout
+# ... Exiting to ensure a consistent program state").  The reduced seamless
+# gradient did so in 4 of 10 runs on an 8-core host.  The memory-ordered
+# schedule orders them alike on every device; the numbers are bitwise the same.
+# Every reference gradient and train step on the 8-device mesh compiles with it.
+J_COMPILE = {"xla_cpu_enable_concurrency_optimized_scheduler": False}
+
+
+def j_jit(fn, **kw):
+    """``jax.jit`` with the reference-oracle compiler options (:data:`J_COMPILE`)."""
+    return jax.jit(fn, compiler_options=J_COMPILE, **kw)
+
+
+def j_compiled(jitted):
+    """A ``jax.jit`` function of the JAX package (e.g. ``make_train_step``'s
+    step) compiled with :data:`J_COMPILE` at its first call, the executable
+    kept for the calls after it (same shapes; donation as the function
+    declares)."""
+    exe = []
+
+    def call(*args):
+        if not exe:
+            exe.append(jitted.lower(*args).compile(compiler_options=J_COMPILE))
+        return exe[0](*args)
+
+    return call
+
+
 def j_value_and_grad(jmod, jcfg, jpc, remat_policy: str = "none", aux_weight: float = 0.01):
     """The reference's loss (cross-entropy + ``aux_weight`` x the aux loss,
     ``repro/training/steps.make_train_step``'s ``loss_fn``) under one
     ``jax.jit(jax.value_and_grad(..., has_aux=True))`` of (params, batch):
-    ((loss, (ce, aux)), grads).  A module compiles it once and shares it
-    between its gradient and train-step tests."""
+    ((loss, (ce, aux)), grads), compiled with :data:`J_COMPILE`.  A module
+    compiles it once and shares it between its gradient and train-step
+    tests."""
 
     def loss_fn(p, batch):
         logits, aux = jmod.forward(p, jcfg, jpc, batch["inputs"], embeds=batch.get("embeds"),
@@ -90,7 +124,7 @@ def j_value_and_grad(jmod, jcfg, jpc, remat_policy: str = "none", aux_weight: fl
         ce = jsteps.softmax_xent(logits, batch["labels"], batch.get("mask"))
         return ce + aux_weight * aux, (ce, aux)
 
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+    return j_jit(jax.value_and_grad(loss_fn, has_aux=True))
 
 
 def j_train_step(vg, jmod, jcfg, jpc, opt_cfg, grad_masks=None):
@@ -99,7 +133,7 @@ def j_train_step(vg, jmod, jcfg, jpc, opt_cfg, grad_masks=None):
     kv-copy sync (``jmod.sync_grads``), then ``repro/training/optimizer.
     apply_update`` (jitted) with ``grad_masks``.  Returns ``step(params,
     opt_state, batch) -> (params, opt_state, metrics)``."""
-    update = jax.jit(lambda p, g, o: jopt.apply_update(p, g, o, opt_cfg, grad_masks=grad_masks))
+    update = j_jit(lambda p, g, o: jopt.apply_update(p, g, o, opt_cfg, grad_masks=grad_masks))
 
     def step(p, o, batch):
         (loss, (ce, aux)), g = vg(p, batch)
@@ -209,8 +243,9 @@ def _ref_step(model, pc8):
     once per model and shared by the step tests."""
     if "jstep" not in model:
         jcfg = model["jcfg"]
-        model["jstep"] = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**STEP_OPT),
-                                                grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+        jstep = jsteps.make_train_step(jlm, jcfg, pc8, jopt.AdamWConfig(**STEP_OPT),
+                                       grad_masks=jlm.grad_masks(jcfg, pc8), donate=False)  # fmt: skip
+        model["jstep"] = j_compiled(jstep)
     return model["jstep"]
 
 
