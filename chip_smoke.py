@@ -278,6 +278,28 @@ non-zero (no phase catches its own failure):
               its bound (the weight at one byte an element) and the library
               call (``torch.matmul`` on the dequantized bf16 weight, plus
               the sum over ranks for GEMM+RS).
+  19b. tune   the autotuner (``repro_torch.tune``) on the fused kernels,
+              bf16: for smollm-360m's four TP GEMMs at prefill (4 x 256
+              tokens: qkv, attention out, gate|up, down) and at decode (B =
+              4 slots, ``signature(..., decode=True)``) and for Tab. 2's
+              MLP-1 pair (LLaMA-7B, W = 8), every candidate of the JOINT
+              space (what the bf16 route honours: order x C, and C x accum
+              dtype for GEMM+RS) launched, its output held against the f32
+              product (2e-2 of max), and timed with CUDA events (median and
+              iqr of 10 launches after 2 warm-up launches); the measured
+              winner, the cost model's pick and its measured rank, the
+              default channel's time and the tuner's own pruned sweep, each
+              table with the card's name and power limit; a cache hit and a
+              resolution inside a CUDA graph capture launch nothing; the
+              main path, smollm-360m's bf16 prefill under
+              ``ParallelContext(tune=True)`` with the cache warm, launches
+              exactly the untuned counts (logits against the untuned
+              prefill recorded); and a tuned engine at smollm's width (2
+              layers) resolves its decode winners before the capture, its
+              captured tokens held bitwise to its eager tokens.  The build
+              phase also prints the register spills of the fused kernels'
+              float32 route (``ag_gemm_kernel`` / ``gemm_rs_kernel``), which
+              the tuner's FMA candidates run: recorded, not failed on.
   20. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
@@ -486,6 +508,7 @@ BF16_KERNELS = {
     "flash_attention": "fa_wgmma_kernel",
 }
 SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKCP
+FMA_KERNELS = ("ag_gemm_kernel", "gemm_rs_kernel")  # the fused kernels' float32 route (SASS symbols)
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # the numbers of a kernel case the JSON line carries for each backward shape
 # (kernel #5's dx shapes also carry the w^T copy they launch on, ``wt_copy_ms``)
@@ -571,17 +594,23 @@ def phase_build():
     build.library()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.1f} s")
-    kernel, spills = None, []
+    kernel, spills, fma = None, [], {}
     for line in build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill" in line.lower()):
             print(f"[build] {kernel[:72]}: {line.strip().removeprefix('ptxas info    : ')}")
-            spilled = any(int(v) for v in re.findall(r"(\d+) bytes spill", line))
-            if spilled and any(name in kernel for name in (*BF16_KERNELS.values(), SSD_KERNEL)):
+            spilled = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+            if any(spilled) and any(name in kernel for name in (*BF16_KERNELS.values(), SSD_KERNEL)):
                 spills.append(kernel)
+            if spilled and any(name in kernel for name in FMA_KERNELS):
+                fma[kernel] = {"spill_stores_bytes": spilled[0], "spill_loads_bytes": spilled[-1]}
             if "registers" in line:
                 kernel = None  # the entry's own report; later copies repeat it
+    # the float32 route's fused kernels, which the tuner's FMA candidates run: spills recorded, not failed on
+    for name, rec in fma.items():
+        print(f"[build] FMA route {name[:72]}: spill stores {rec['spill_stores_bytes']} B, "
+              f"loads {rec['spill_loads_bytes']} B")  # fmt: skip
     sass = build.sass_report(SASS_OPS)
     for fn, ops in sass.items():
         if any(ops.values()):
@@ -595,7 +624,7 @@ def phase_build():
         raise SystemExit(f"chip_smoke: the SSD intra-chunk kernel has no UBLKCP (bulk staging): {ssd}")
     if spills:
         raise SystemExit(f"chip_smoke: kernels spill registers: {spills}")
-    return dt
+    return dt, fma
 
 
 def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None, bitwise=False,
@@ -3669,6 +3698,222 @@ def phase_quant(iters: int) -> dict:
     return out
 
 
+TUNE_REPEATS, TUNE_WARMUP = 10, 2  # CUDA-event launches timed per candidate, after these warm-up launches
+TUNE_ENGINE_LAYERS = 2  # the tuned engine's captured-vs-eager check: smollm-360m's width at this depth
+TUNE_ENGINE = dict(requests=8, prompt=(16, 64), new=(8, 16), sampled=2, slots=BATCH, max_len=96)  # its load
+
+
+def _tune_cases() -> list:
+    """The tune phase's tables: (label, kind, per-rank signature, W) for
+    smollm-360m's four TP GEMMs at prefill (4 x 256 tokens) and at decode
+    (B = 4 slots), and Tab. 2's MLP-1 pair (LLaMA-7B, W = 8)."""
+    from repro_torch import tune
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper import PAPER_MLP
+    from repro_torch.nn.attention import layout
+    from repro_torch.serving.engine import decode_gemm_shapes
+
+    cfg = get_config(ARCH)
+    lay = layout(cfg, WORLD)
+    d, hd, f_loc, s_loc = cfg.d_model, cfg.hd, cfg.d_ff // WORLD, PROMPT // WORLD
+    prefill = {
+        "qkv": ("ag_matmul", ((BATCH, s_loc, d), (d, (lay.h_loc + 2 * lay.kv_loc) * hd))),
+        "attn_out": ("matmul_rs", ((BATCH, PROMPT, lay.h_loc * hd), (lay.h_loc * hd, d))),
+        "ffn_gu": ("ag_matmul", ((BATCH, s_loc, d), (d, 2 * f_loc))),
+        "ffn_down": ("matmul_rs", ((BATCH, PROMPT, f_loc), (f_loc, d))),
+    }
+    cases = [(f"{ARCH} prefill {n}", k, tune.signature(k, sh), WORLD) for n, (k, sh) in prefill.items()]
+    decode = decode_gemm_shapes(cfg, WORLD, BATCH)
+    cases += [(f"{ARCH} decode {n}", k, tune.signature(k, sh, decode=True), WORLD) for n, (k, sh) in decode.items()]
+    s, h, i, _ = PAPER_MLP["MLP-1"]
+    w = 8
+    cases.append(("Tab. 2 MLP-1 AG+GEMM", "ag_matmul", (1, s // w, h, i // w), w))
+    cases.append(("Tab. 2 MLP-1 GEMM+RS", "matmul_rs", (1, s, i // w, h), w))
+    return cases
+
+
+def _tune_reference(kind: str, x, w):
+    """The f32 product a fused op computes on rank-stacked operands: every
+    rank's gathered rows times its own weight (AG+GEMM), or each rank's row
+    segment of the sum over ranks (GEMM+RS)."""
+    size = x.shape[0]
+    if kind == "ag_matmul":
+        xg = x.movedim(0, -3).reshape(*x.shape[1:-2], size * x.shape[-2], x.shape[-1]).float()
+        return _per_rank_matmul(xg, w)
+    full = sum(x[q].float() @ w[q].float() for q in range(size))
+    m_loc = full.shape[-2] // size
+    return full.reshape(*full.shape[:-2], size, m_loc, full.shape[-1]).movedim(-3, 0)
+
+
+def _per_rank_matmul(xg, w):
+    """``xg`` (shared by the ranks) times each rank's ``w[r]``, in float32: [W, *lead, rows, n]."""
+    import torch
+
+    return torch.stack([xg @ w[r].float() for r in range(w.shape[0])])
+
+
+def _tune_table(label: str, kind: str, sig, size: int, smi: str) -> dict:
+    """Every candidate of one shape timed on the fused kernels (bf16, CUDA
+    events, exhaustive), each output held against the f32 product; the
+    measured winner, the model's pick and its measured rank, the default
+    channel's time, and the tuner's own pruned sweep."""
+    import torch
+
+    from repro_torch import tune
+    from repro_torch.backend.mesh import World
+    from repro_torch.core import BlockChannel
+    from repro_torch.tune import cost, measure
+
+    world = World(size, "cuda")
+    target = tune.Target("fused", world.device, torch.bfloat16)
+    cands = tune.enumerate_candidates(kind, extent=tune.chunk_extent(kind, sig), space=tune.JOINT_SPACE, sig=sig,
+                                      world=size, target=target)  # fmt: skip
+    case = measure.CaseTimer(kind, world, sig, backend="fused", dtype=torch.bfloat16)
+    with torch.no_grad():
+        ref = _tune_reference(kind, *case.args)
+    scale = ref.abs().max().item()
+    rows, worst = [], 0.0
+    for cand in cands:
+        ch = cand.channel("model")
+        out = case.run(ch)
+        err = (out.float() - ref).abs().max().item()
+        worst = max(worst, err)
+        if not (bool(torch.isfinite(out).all()) and err <= TOL["bfloat16"] * scale):
+            raise SystemExit(f"chip_smoke: tune {label} {cand.label()} disagrees with the f32 product: {err} > "
+                             f"{TOL['bfloat16']} x {scale}")  # fmt: skip
+        med, iqr = case.time(ch, repeats=TUNE_REPEATS, warmup=TUNE_WARMUP)
+        rows.append({"candidate": cand.label(), "median_ms": med / 1e3, "iqr_ms": iqr / 1e3,
+                     "model_s": cost.predict_cost(kind, sig, size, cand, target)})  # fmt: skip
+    del case, ref
+    by_time = sorted(range(len(rows)), key=lambda j: rows[j]["median_ms"])
+    win = rows[by_time[0]]
+    pick = min(range(len(rows)), key=lambda j: (rows[j]["model_s"], j))  # strict: ties keep enumeration order
+    default = next(r for r, c in zip(rows, cands) if c.channel("model") == BlockChannel(axis="model"))
+    swept = tune.autotune(kind, signature=sig, world=world, backend="fused", dtype=torch.bfloat16,
+                          space=tune.JOINT_SPACE, repeats=TUNE_REPEATS, warmup=TUNE_WARMUP)  # fmt: skip
+    print(f"[tune] {label}: {kind} per-rank signature {tuple(sig)}, W = {size}, bf16, fused; {len(rows)} candidates "
+          f"({smi})")  # fmt: skip
+    for r in rows:
+        print(f"[tune]   {r['candidate']:<28} median {r['median_ms']:.4f} ms  iqr {r['iqr_ms']:.4f} ms  "
+              f"model {r['model_s'] * 1e3:.4f} ms")  # fmt: skip
+    rank = by_time.index(pick) + 1
+    print(f"[tune]   measured winner {win['candidate']} {win['median_ms']:.4f} ms; model's pick "
+          f"{rows[pick]['candidate']} {rows[pick]['median_ms']:.4f} ms (measured rank {rank} of {len(rows)}); default "
+          f"{default['candidate']} {default['median_ms']:.4f} ms (winner / default "
+          f"{win['median_ms'] / default['median_ms']:.3f}); the tuner's sweep {swept.candidate.label()} "
+          f"{swept.score / 1e3:.4f} ms {swept.sweep}; every output within {worst:.3e} of the f32 product "
+          f"(max {scale:.3e}, bound {TOL['bfloat16']} x max)")  # fmt: skip
+    return {"label": label, "kind": kind, "signature": list(sig), "world": size, "rows": rows,
+            "winner": win["candidate"], "model_pick": rows[pick]["candidate"], "model_pick_rank": rank,
+            "default_ms": default["median_ms"], "winner_ms": win["median_ms"], "sweep_winner": swept.candidate.label(),
+            "sweep": swept.sweep, "max_abs_err": worst, "max_abs_ref": scale}  # fmt: skip
+
+
+def phase_tune(smi: str) -> dict:
+    """The autotuner on the card (module docstring, phase tune): the tables,
+    a cache hit and a capture that launch nothing, the tuned prefill's
+    launches, and the tuned engine captured against eager."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch import tune
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serving import ServeEngine
+
+    out = {}
+    env = os.environ.get("REPRO_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as cache_dir:
+        os.environ["REPRO_TUNE_CACHE"] = cache_dir
+        tune.cache.clear_memo()
+        try:
+            cases = _tune_cases()
+            t0 = time.perf_counter()
+            out["tables"] = [_tune_table(*c, smi) for c in cases]
+            torch.cuda.empty_cache()
+            out["tables_s"] = time.perf_counter() - t0
+            print(f"[tune] {len(cases)} tables in {out['tables_s']:.1f} s")
+
+            # a cache hit, and resolution inside a CUDA graph capture, launch nothing
+            K.reset_launch_counts()
+            hits = [tune.autotune(k, signature=sig, world=World(w, "cuda"), backend="fused", dtype=torch.bfloat16,
+                                  space=tune.JOINT_SPACE).cache_hit for _, k, sig, w in cases]  # fmt: skip
+            graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+            with torch.cuda.stream(side), torch.cuda.graph(graph):
+                new = tune.autotune("matmul_rs", signature=(2, 512, 640, 960), world=World(WORLD, "cuda"),
+                                    backend="fused", dtype=torch.bfloat16, space=tune.JOINT_SPACE)  # fmt: skip
+                again = tune.autotune(cases[0][1], signature=cases[0][2], world=World(WORLD, "cuda"), backend="fused",
+                                      dtype=torch.bfloat16, space=tune.JOINT_SPACE)  # fmt: skip
+            counts = K.launch_counts()
+            print(f"[tune] {sum(hits)} of {len(hits)} re-resolutions hit the cache; inside a capture: a new shape "
+                  f"ranked by the {new.ranker}, a cached one hit ({again.cache_hit}); launches {counts}")
+            if not (all(hits) and again.cache_hit and new.ranker == "model" and not any(counts.values())):
+                raise SystemExit("chip_smoke: a cache hit or a resolution inside a capture launched a kernel")
+            del graph
+
+            # the main path: smollm-360m's bf16 prefill under ParallelContext(tune=True), the cache warm
+            cfg = get_config(ARCH)
+            world = World(WORLD, "cuda")
+            params = lm.init(cfg, world, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+            prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=torch.Generator().manual_seed(1))
+            prompts = prompts.cuda()
+            pc = ParallelContext(world=world, tune=True)
+            with torch.no_grad():
+                ref, _ = lm.prefill(params, cfg, ParallelContext(world=world), prompts, max_len=PROMPT)
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                logits, _ = lm.prefill(params, cfg, pc, prompts, max_len=PROMPT)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                out["counts"] = K.launch_counts()
+            diff = (logits.float() - ref.float()).abs().max().item()
+            agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            want = {"matmul": 1, "ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers,
+                    "flash_attention": cfg.n_layers}  # fmt: skip
+            print(f"[tune] {ARCH} prefill under ParallelContext(tune=True), bf16 {BATCH} x {PROMPT}: {ms:.2f} ms (host "
+                  f"clock, the cache warm); launches {out['counts']}; logits vs the untuned prefill max|diff| "
+                  f"{diff:.3e}, top-1 agreement {agree:.4f} (recorded)")  # fmt: skip
+            if not bool(torch.isfinite(logits).all()) or any(out["counts"][k] != v for k, v in want.items()):
+                raise SystemExit(f"chip_smoke: the tuned prefill launched {out['counts']} (want {want}) or is not "
+                                 "finite")
+            out["prefill"] = {"ms": ms, "max_abs_diff_vs_untuned": diff, "top1_agreement": agree}
+            del params, logits, ref
+            torch.cuda.empty_cache()
+
+            # the tuned engine at smollm's width, 2 layers: decode winners before capture, captured == eager
+            t0 = time.perf_counter()
+            cfg2 = dataclasses.replace(cfg, n_layers=TUNE_ENGINE_LAYERS)
+            params = lm.init(cfg2, world, torch.Generator(device="cuda").manual_seed(0), torch.bfloat16)
+            reqs = _engine_requests(cfg2, TUNE_ENGINE, seed=3)
+            toks = {}
+            for capture in (True, False):
+                eng = ServeEngine(cfg2, pc, params, max_len=TUNE_ENGINE["max_len"], n_slots=BATCH, capture=capture)
+                if set(eng.decode_channels) != {"qkv", "attn_out", "ffn_gu", "ffn_down"}:
+                    raise SystemExit(f"chip_smoke: the tuned engine resolved {sorted(eng.decode_channels)}")
+                handles = [eng.submit(r) for r in reqs]
+                done = eng.drain()
+                toks[capture] = [done[h].tolist() for h in handles]
+            same = toks[True] == toks[False]
+            print(f"[tune] tuned engine ({ARCH} width, {TUNE_ENGINE_LAYERS} layers, {BATCH} slots, {len(reqs)} "
+                  f"requests): decode winners resolved before capture; captured tokens equal eager tokens: {same} "
+                  f"({time.perf_counter() - t0:.1f} s)")
+            if not same:
+                raise SystemExit("chip_smoke: the tuned engine's captured tokens differ from its eager tokens")
+            out["engine_bitwise"] = same
+        finally:
+            if env is None:
+                os.environ.pop("REPRO_TUNE_CACHE", None)
+            else:
+                os.environ["REPRO_TUNE_CACHE"] = env
+            tune.cache.clear_memo()
+    return out
+
+
 def _profile(params, cfg, pc, prompts, max_len, embeds=None):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
@@ -3699,7 +3944,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     kind, smi = phase_device()
-    out = {"device": kind, "nvidia_smi": smi, "build_s": phase_build(), "phase_s": {}}
+    build_s, fma_spills = phase_build()
+    out = {"device": kind, "nvidia_smi": smi, "build_s": build_s, "fma_spills": fma_spills, "phase_s": {}}
     prof = args.profile
     phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
@@ -3707,6 +3953,7 @@ def main(argv=None) -> int:
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
+              "tune": lambda: phase_tune(smi),
               # last: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
               "kernels": lambda: phase_kernels(ITERS)}  # fmt: skip
@@ -3739,6 +3986,7 @@ def main(argv=None) -> int:
     by_path[f"e2e serve {ARCH_G}"] = out["e2e"]["serve"]["counts"]
     by_path["paper"] = out["paper"]["counts"]
     by_path[f"quant {ARCH}"] = out["quant"]["counts"]
+    by_path[f"tune {ARCH}"] = out["tune"]["counts"]
     print("kernels: " + json.dumps(by_path))
     line = []
     engines = [*out["engine"].values(), out["deepseek"]["engine"], out["zamba2"]["engine"]]

@@ -75,6 +75,40 @@ class ArchConfig:
             return "attn_dense"  # leading dense-MLP layers (DeepSeek)
         return self.pattern[i % len(self.pattern)]
 
+    def param_count(self) -> int:
+        """Approximate parameter count (for 6ND model-FLOPs accounting), the JAX package's formula."""
+        d, hd = self.d_model, self.hd
+        attn = d * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * d
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind in ("attn", "attn_local", "attn_dense", "shared_attn"):
+                total += attn
+            if kind == "mamba" and self.ssm is not None:
+                di = self.ssm.expand * d
+                h = di // self.ssm.headdim
+                total += d * (2 * di + h + 2 * self.ssm.n_groups * self.ssm.d_state)
+                total += di * d + self.ssm.d_conv * di
+            if self.moe is not None and kind != "mamba":
+                if kind == "attn_dense":
+                    total += 3 * d * self.moe.dense_d_ff
+                else:
+                    e = self.moe.num_experts + self.moe.num_shared
+                    total += e * 3 * d * self.moe.d_expert + d * self.moe.num_experts
+            elif kind in ("attn", "attn_local", "shared_attn") and self.d_ff:
+                total += 3 * d * self.d_ff
+        if self.encoder_layers:
+            total += self.encoder_layers * (attn + 3 * d * self.d_ff + attn)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: the top-k and shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        e_idle = self.moe.num_experts - self.moe.top_k
+        n_moe = sum(1 for i in range(self.n_layers) if self.layer_kind(i) not in ("attn_dense", "mamba"))
+        return self.param_count() - n_moe * e_idle * 3 * self.d_model * self.moe.d_expert
+
 
 # fields of ArchConfig that the JAX package's config does not have
 PORT_FIELDS = ("embed_scale",)

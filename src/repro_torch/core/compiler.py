@@ -66,17 +66,31 @@ names or ``(kind, channel)`` pairs, ``channel`` the shared default):
                                  ``ag_moe`` does.
 
 ``overlapped=False`` gives the unfused pair (``a2a_moe_baseline`` with the
-overlapped path's per-sub-chunk capacity), eager only.  ``channel="auto"``
-(the tuner) is not ported: it raises the structured error.
+overlapped path's per-sub-chunk capacity), eager only.
+
+``channel="auto"`` tunes instead of naming a design point: the returned
+callable resolves the best ``BlockChannel`` for its operands' per-rank shapes
+and dtype through ``repro_torch.tune`` (a cache hit, the cost model, or, on
+the card by default, CUDA-event timings of the candidates on this backend's
+kernels), then compiles through the normal path.  The list form resolves
+the pair jointly: the seam prices fused against the two halves' own
+winners (``tune.resolve_seq``; an unfused verdict is the tuner's choice,
+not a fallback, and warns nothing), the a2a pair fused against its baseline
+(``tune.resolve_a2a``).  ``comp=`` is the compute half: ``"auto"`` adds the
+tile lattice to the search (the comm half held at an explicit channel's
+point, or searched with it under ``channel="auto"``), a ``CompSpec`` pins
+tile and accum dtype, a bare ``(tm, tn, tk)`` the tile only.
 
 ``quant=`` pins a :class:`~repro_torch.core.quant.QuantSpec` on the channel
 (on both channels of the list form), as in the JAX package: the eager
 executor encodes each send edge and decodes at the consumer (int8 / fp8
 payloads with their scales, or a float cast).  ``quant="auto"`` / ``True``
-opens the wire axis to the tuner, which is not ported: it raises the
-structured error.  On ``backend="fused"`` a quantized activation wire
+opens the wire axis to the tuner (with an explicit channel, the wire alone
+is searched); the a2a pair's MoE kinds have no wire axis, so there it
+changes nothing.  On ``backend="fused"`` a quantized activation wire
 (int8 / fp8) raises ``NotImplementedError`` when the kernel is called, as
-the JAX package's Pallas kernels do; ``gemm_rs`` carries a float wire (e.g. bf16 partials under
+the JAX package's Pallas kernels do, so the tuner never offers one there;
+``gemm_rs`` carries a float wire (e.g. bf16 partials under
 float32 accumulation) and ``ag_gemm`` gathers ``x`` in its own dtype.  The
 fused ``ag_attention`` / ``ag_moe`` / a2a forms take the identity wire only.
 Both fused GEMM kernels take a :class:`~repro_torch.core.quant.PackedWeight`
@@ -86,6 +100,7 @@ packed weight raises (packed weights are frozen).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import warnings
 from typing import Callable, Optional
@@ -95,9 +110,9 @@ import torch
 from repro_torch.backend.mesh import World
 from repro_torch.core import moe_overlap as _moe
 from repro_torch.core import overlap as _eager
-from repro_torch.core.channels import BlockChannel
+from repro_torch.core.channels import BlockChannel, CompSpec
 from repro_torch.core.mapping import effective_channels
-from repro_torch.core.quant import PackedWeight, QuantSpec
+from repro_torch.core.quant import PackedWeight, QuantSpec, dtype_name
 
 __all__ = [
     "compile_overlap",
@@ -120,8 +135,7 @@ def unsupported_error(kind, backend: str, overlapped: bool = True) -> NotImpleme
     return NotImplementedError(
         f"compile_overlap: kind={kind!r} with overlapped={overlapped} is not supported on "
         f"backend={backend!r} (supported: kinds {KINDS} on every backend; sequences {A2A_SEQ} on every "
-        f"backend and {SEAM_SEQ} on 'eager'; overlapped=False on 'eager' only; channel='auto' and "
-        "quant='auto' (the tuner) are not ported)"
+        f"backend and {SEAM_SEQ} on 'eager'; overlapped=False on 'eager' only)"
     )
 
 
@@ -199,20 +213,67 @@ def _check_fused_wire(kind, channel: BlockChannel, backend: str, overlapped: boo
         raise unsupported_error(kind, backend, overlapped)
 
 
-def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: str, overlapped: bool, quant, kw: dict):
+def _normalize_comp(comp):
+    """None | "auto" | CompSpec | (tm, tn, tk): a bare tuple pins the tile
+    only, a CompSpec the whole compute half (tile and accum dtype)."""
+    if comp is None or comp == "auto" or isinstance(comp, CompSpec):
+        return comp
+    if isinstance(comp, (tuple, list)) and len(comp) == 3:
+        tile = tuple(int(t) for t in comp)
+        if any(t < 1 for t in tile):
+            raise ValueError(f"comp tile must be 3 positive ints, got {comp!r}")
+        return tile
+    raise ValueError(f"comp must be None, 'auto', a CompSpec, or a (tm, tn, tk) tuple, got {comp!r}")
+
+
+def _widen_flows(space):
+    """``space`` (default ``DEFAULT_SPACE``) with the int8 wire axis opened."""
+    from repro_torch.tune import DEFAULT_SPACE
+
+    return dataclasses.replace(space or DEFAULT_SPACE, flows=(None, "int8"))
+
+
+def _pinned_space(ch: BlockChannel, **kw):
+    """A space holding ``ch``'s comm and compute point, widened by ``kw``."""
+    from repro_torch.tune import Space
+
+    fields = dict(
+        orders=(ch.comm.order,),
+        channel_counts=(ch.num_channels,),
+        accum_dtypes=(dtype_name(ch.comp.accum_dtype),),
+        comp_tiles=(tuple(ch.comp.tile),),
+    )
+    return Space(**{**fields, **kw})
+
+
+def _compile_seq(
+    ops, channel, world: World, backend: str, overlapped: bool, quant, kw: dict, *, axis, tune_ranker, tune_base,
+    tune_space,
+):  # fmt: skip
     """The list form (see the module docstring)."""
     kinds, chans = [], []
     for op in ops:
         k, ch = op if isinstance(op, (tuple, list)) else (op, channel)
         kinds.append(k)
-        chans.append(BlockChannel(axis="model") if ch is None else ch)
+        chans.append(BlockChannel(axis=axis) if ch is None else ch)
     kinds = tuple(kinds)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     if kinds not in SEQ_KINDS or (backend == "fused" and (kinds == SEAM_SEQ or not overlapped)):
         raise unsupported_error(kinds, backend, overlapped)
-    if not all(isinstance(ch, BlockChannel) for ch in chans) or quant == "auto":
-        raise unsupported_error(kinds, backend, overlapped)  # channel / quant "auto": the tuner is not ported
+    for ch in chans:
+        if not (ch == "auto" or isinstance(ch, BlockChannel)):
+            raise TypeError(f"channel must be a BlockChannel or 'auto', got {ch!r}")
+    tune = dict(world=world, ranker=tune_ranker, overlapped=overlapped, kw=kw)
+    if "auto" in chans:
+        base = next((ch for ch in chans if isinstance(ch, BlockChannel)), tune_base)
+        if isinstance(quant, QuantSpec):
+            base = (base or BlockChannel(axis=axis)).with_(quant=quant)
+        axis = base.axis if base is not None else axis
+        if kinds == A2A_SEQ:  # the MoE kinds have no wire axis: quant="auto" changes nothing
+            return _auto_overlap_a2a(axis=axis, backend=backend, base=base, space=tune_space, **tune)
+        space = _widen_flows(tune_space) if quant == "auto" else tune_space
+        return _auto_overlap_seq(axis=axis, base=base, space=space, **tune)
     if isinstance(quant, QuantSpec):
         chans = [ch.with_(quant=quant) for ch in chans]
     for ch in chans:
@@ -222,6 +283,9 @@ def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: st
         if not overlapped:
             return functools.partial(_moe.a2a_moe_baseline, world=world, num_channels=ch0.num_channels, **kw)
         return functools.partial(_moe.a2a_moe, world=world, channel=ch0, channel2=ch1, grouped=backend == "fused", **kw)
+    if quant == "auto":  # the wire alone is searched, the producer's comm and compute point held
+        space = _pinned_space(ch0, flows=(None, "int8"))
+        return _auto_overlap_seq(axis=ch0.axis, base=ch0, space=space, **tune)
     if not overlapped:
         return _seq_unfused(ch0, ch1, world, False, kw)
 
@@ -239,33 +303,154 @@ def _compile_seq(ops, channel: Optional[BlockChannel], world: World, backend: st
     return seq_fn
 
 
+def _rank_shapes(args):
+    """Per-rank operand shapes (a rank-stacked operand without its leading W)."""
+    return [tuple(a.shape[1:]) for a in args]
+
+
+def _auto_overlap_a2a(*, world: World, axis: str, backend: str, base, space, ranker, overlapped: bool, kw: dict):
+    """The a2a pair resolved per shape (``tune.resolve_a2a``): the
+    overlapped pipeline with the shared winner, or the baseline when no
+    shared candidate builds."""
+
+    def auto_fn(x, topk_ids, topk_w, w_gu, w_down, **call_kw):
+        from repro_torch.tune import resolve_a2a
+
+        fused, ch_d, ch_c = resolve_a2a(
+            shapes=_rank_shapes((x, topk_ids, topk_w, w_gu, w_down)), world=world, axis=axis, backend=backend,
+            dtype=x.dtype, base=base, ranker=ranker, capacity_factor=call_kw.get("capacity_factor"),
+            **({} if space is None else {"space": space}),
+        )  # fmt: skip
+        if fused and overlapped:
+            fn = functools.partial(
+                _moe.a2a_moe, world=world, channel=ch_d, channel2=ch_c, grouped=backend == "fused", **kw
+            )
+        else:
+            fn = functools.partial(_moe.a2a_moe_baseline, world=world, num_channels=ch_d.num_channels, **kw)
+        return fn(x, topk_ids, topk_w, w_gu, w_down, **call_kw)
+
+    return auto_fn
+
+
+def _auto_overlap_seq(*, world: World, axis: str, base, space, ranker, overlapped: bool, kw: dict):
+    """The RS -> AG seam resolved per shape (``tune.resolve_seq``): fused
+    with the shared winner, or the two halves' own winners unfused — the
+    tuner's verdict, so no :class:`SeamFallbackWarning`."""
+
+    def auto_fn(x, w1, w2, *, residual=None, glue=None, **call_kw):
+        from repro_torch.tune import resolve_seq
+
+        fused, ch_rs, ch_ag = resolve_seq(
+            shapes=_rank_shapes((x, w1, w2)), world=world, axis=axis, dtype=x.dtype, base=base, ranker=ranker,
+            **({} if space is None else {"space": space}),
+        )  # fmt: skip
+        if fused:
+            fn = _compile_seq(
+                [("matmul_rs", ch_rs), ("ag_matmul", ch_ag)], None, world, "eager", overlapped, None, kw, axis=axis,
+                tune_ranker=None, tune_base=None, tune_space=None,
+            )  # fmt: skip
+        else:
+            fn = _seq_unfused(ch_rs, ch_ag, world, overlapped, kw)
+        return fn(x, w1, w2, residual=residual, glue=glue, **call_kw)
+
+    return auto_fn
+
+
+def _auto_overlap(kind: str, *, world: World, backend: str, overlapped: bool, axis: str, ranker, comp, quant, base, kw):
+    """One kind resolved per call from its operands' per-rank shapes and
+    dtype (``tune.resolve_channel``), then compiled as an explicit channel.
+
+    The space: a pinned ``CompSpec`` or tile with the comm half searched;
+    ``comp="auto"`` the tile lattice, jointly with the comm half (no base)
+    or with the base channel's comm point held; ``quant="auto"`` with a
+    base channel and nothing else tuned the wire alone; the wire axis opened
+    on top of any of these under ``quant="auto"``."""
+    from repro_torch.tune import COMP_TILE_LATTICE, DEFAULT_SPACE, JOINT_SPACE, Space
+
+    if isinstance(comp, CompSpec):
+        space = Space(accum_dtypes=(dtype_name(comp.accum_dtype),), comp_tiles=(tuple(comp.tile),))
+    elif isinstance(comp, tuple):
+        space = Space(comp_tiles=(comp,))
+    elif comp == "auto" and base is not None:
+        space = _pinned_space(base, comp_tiles=COMP_TILE_LATTICE)
+    elif comp == "auto":
+        space = JOINT_SPACE
+    elif quant == "auto" and base is not None:
+        space = _pinned_space(base)
+    else:
+        space = DEFAULT_SPACE
+    if quant == "auto":
+        space = dataclasses.replace(space, flows=(None, "int8"))
+
+    def auto_fn(*args, **call_kw):
+        from repro_torch.tune import resolve_channel
+
+        channel = resolve_channel(
+            kind, shapes=_rank_shapes(args), world=world, axis=axis, backend=backend, dtype=args[0].dtype, base=base,
+            ranker=ranker, space=space,
+        )  # fmt: skip
+        fn = compile_overlap(kind, channel, world=world, backend=backend, overlapped=overlapped, **kw)
+        return fn(*args, **call_kw)
+
+    return auto_fn
+
+
 def compile_overlap(
     kind,
-    channel: Optional[BlockChannel] = None,
+    channel=None,
     *,
     world: World,
     backend: str = "eager",
     overlapped: bool = True,
     quant=None,
+    comp=None,
+    axis: str = "model",
+    tune_ranker: Optional[str] = None,
+    tune_base: Optional[BlockChannel] = None,
+    tune_space=None,
     **kw,
 ) -> Callable:
     """Compile a tile program for ``world``; returns ``fn(x, w) -> out``
     (``fn(q, k, v) -> out`` for ``ag_attention``, ``fn(x, ids, wts, w_gu,
     w_down) -> out`` for ``ag_moe``).  A list or tuple ``kind`` is the list
-    form (module docstring).  ``quant``: None (the channel's QuantSpec), a
-    QuantSpec pinned on the channel, or ``"auto"`` / ``True`` (the tuner's
-    wire axis: raises, not ported)."""
+    form (module docstring).  ``channel``: a :class:`BlockChannel` or
+    ``"auto"``; ``quant``: None (the channel's QuantSpec), a QuantSpec pinned
+    on the channel, or ``"auto"`` / ``True`` (the tuner's wire axis);
+    ``comp``: None, ``"auto"``, a CompSpec or a ``(tm, tn, tk)`` tile.
+    ``axis`` names the tuned channel's axis under ``"auto"``;
+    ``tune_ranker`` is the tuner's ranker ("auto", "measure", "model");
+    ``tune_base`` / ``tune_space`` (list form) the base channel and space."""
     quant = _normalize_quant(quant)
     if isinstance(kind, (list, tuple)):
-        return _compile_seq(kind, channel, world, backend, overlapped, quant, kw)
+        if comp is not None:
+            raise ValueError("compile_overlap: comp applies to single-kind programs only")
+        return _compile_seq(
+            kind, channel, world, backend, overlapped, quant, kw, axis=axis, tune_ranker=tune_ranker,
+            tune_base=tune_base, tune_space=tune_space,
+        )  # fmt: skip
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
-    if not isinstance(channel, BlockChannel):
-        raise TypeError(f"channel must be a BlockChannel, got {type(channel)}")
-    if kind not in KINDS or (backend == "fused" and not overlapped) or quant == "auto":
+    if kind not in KINDS or (backend == "fused" and not overlapped):
         raise unsupported_error(kind, backend, overlapped)
+    comp = _normalize_comp(comp)
+    auto = dict(world=world, backend=backend, overlapped=overlapped, ranker=tune_ranker, kw=kw)
+    if channel == "auto":
+        base = BlockChannel(axis=axis, comp=comp) if isinstance(comp, CompSpec) else None
+        if isinstance(quant, QuantSpec):
+            base = (base or BlockChannel(axis=axis)).with_(quant=quant)
+        return _auto_overlap(kind, axis=axis, comp=comp, quant=quant if quant == "auto" else None, base=base, **auto)
+    if not isinstance(channel, BlockChannel):
+        raise TypeError(f"channel must be a BlockChannel or 'auto', got {type(channel)}")
     if isinstance(quant, QuantSpec):
         channel = channel.with_(quant=quant)
+    if isinstance(comp, CompSpec):
+        channel = channel.with_(comp=comp)
+    elif isinstance(comp, tuple):
+        channel = channel.with_(comp=dataclasses.replace(channel.comp, tile=comp))
+    if comp == "auto" or quant == "auto":
+        return _auto_overlap(
+            kind, axis=channel.axis, comp="auto" if comp == "auto" else None, quant=quant, base=channel, **auto
+        )
     _check_fused_wire(kind, channel, backend, overlapped)
 
     if backend == "eager":

@@ -179,6 +179,11 @@ def _with_quant(pc, quant):
     return pc if quant is None or pc.quant == quant else dataclasses.replace(pc, quant=quant)
 
 
+def _with_tune(pc, tune: bool):
+    """``pc`` with ``tune=True`` when asked (``ParallelContext.tune``), else as it is."""
+    return dataclasses.replace(pc, tune=True) if tune and not pc.tune else pc
+
+
 def _out_proj(o, params, x, pc, next_proj):
     """The output projection's GEMM+RS plus the residual, or with
     ``next_proj=(glue, w)`` the seam ``(y, next_out)``."""
@@ -203,6 +208,7 @@ def apply_seq(
     next_proj=None,
     ep=None,
     quant=None,
+    tune: bool = False,
 ):
     """x: [W, B, s_loc, D] sequence-sharded -> [W, B, s_loc, D] (+ residual);
     with ``return_kv`` also the per-rank KV ``[W, B, kv_loc, S, hd]``.
@@ -215,9 +221,11 @@ def apply_seq(
     ``quant`` pins a :class:`~repro_torch.core.quant.QuantSpec` wire encoding
     on this block's collectives (``ParallelContext.quant``); the weights may
     be :class:`~repro_torch.core.quant.PackedWeight` (``pack_weight``).
+    ``tune=True`` has this block's collectives resolve tuned channels per
+    shape (``ParallelContext.tune``).
     """
     _no_ep(ep, "apply_seq")
-    pc = _with_quant(pc, quant)
+    pc = _with_tune(_with_quant(pc, quant), tune)
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b = x.shape[0], x.shape[1]
@@ -270,6 +278,7 @@ def apply_seq_ring(
     next_proj=None,
     ep=None,
     quant=None,
+    tune: bool = False,
 ):
     """AG-Q + ring-KV attention block: x [W, B, s_loc, D] -> [W, B, s_loc, D]
     (residual added), equal to :func:`apply_seq` up to summation order;
@@ -285,10 +294,11 @@ def apply_seq_ring(
     ``pc.ring_attention(kv_select=True)`` has each rank consume its own.
     RoPE takes global positions: ``0..S-1`` for the gathered queries,
     ``rank * s_loc + j`` for the local keys.  ``quant`` pins a QuantSpec wire
-    encoding on the block's collectives (the ring's KV tiles included).
+    encoding on the block's collectives (the ring's KV tiles included);
+    ``tune=True`` as in :func:`apply_seq` (the ring's channel too).
     """
     _no_ep(ep, "apply_seq_ring")
-    pc = _with_quant(pc, quant)
+    pc = _with_tune(_with_quant(pc, quant), tune)
     lay = layout(cfg, pc.tp)
     hd = cfg.hd
     world, b, s_loc, d = x.shape

@@ -49,7 +49,7 @@ def seam_proj(params: dict, cfg):
     return (lambda y: rms_norm(y, params["ln"], cfg.norm_eps)), params["w_gu"]
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, gu=None, next_proj=None, ep=None):
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, gu=None, next_proj=None, ep=None, tune=False):
     """x: [W, B, s_loc, D] (sequence-sharded) -> [W, B, s_loc, D] (+ residual).
 
     ``gu``: this block's gate/up projection, already produced by the
@@ -60,6 +60,8 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, gu=None, ne
     ``quant`` pins a :class:`~repro_torch.core.quant.QuantSpec` wire encoding
     on this block's collectives (``ParallelContext.quant``); the weights may
     be :class:`~repro_torch.core.quant.PackedWeight` (``pack_weight``).
+    ``tune=True`` has this block's collectives resolve tuned channels per
+    shape (``ParallelContext.tune``).
     """
     if ep:
         raise ValueError(
@@ -67,6 +69,8 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, gu=None, ne
         )
     if quant is not None and pc.quant != quant:
         pc = dataclasses.replace(pc, quant=quant)
+    if tune and not pc.tune:
+        pc = dataclasses.replace(pc, tune=True)
     if gu is None:
         h = rms_norm(x, params["ln"], cfg.norm_eps)
         gu = pc.ag_matmul(h, params["w_gu"])  # AG + GEMM  [W, B, S, 2*f_loc]

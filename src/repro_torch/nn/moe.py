@@ -65,7 +65,7 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
     return p
 
 
-def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, next_proj=None):
+def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, next_proj=None, tune=False):
     """x: [W, B, s_loc, D] (sequence-sharded) -> ([W, B, s_loc, D] (+ residual), aux).
 
     Capacity and routing are per (rank, batch row); the aux loss is the mean
@@ -74,9 +74,13 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, ne
     raises).  ``next_proj`` must be None: the MoE combine ends at the
     residual stream, so there is no RS -> AG seam to fuse.  Shared experts
     stay the dense TP MLP on either path.  ``quant`` pins a QuantSpec wire
-    encoding on the block's collectives (``ParallelContext.quant``)."""
+    encoding on the block's collectives (``ParallelContext.quant``).
+    ``tune=True`` has the routed exchange and the shared-expert MLP (which
+    sees the same ``pc``) resolve tuned channels per shape."""
     if quant is not None and pc.quant != quant:
         pc = dataclasses.replace(pc, quant=quant)
+    if tune and not pc.tune:
+        pc = dataclasses.replace(pc, tune=True)
     if next_proj is not None:
         raise ValueError(
             "moe.apply_seq does not support next_proj: the MoE combine ends at the residual stream, "

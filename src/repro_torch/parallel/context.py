@@ -39,8 +39,20 @@ all-to-all over the world's one axis, which it must name).
 ``quant`` is the wire-dtype policy: ``None`` (the channel's own spec), a
 :class:`~repro_torch.core.quant.QuantSpec` (pinned on the context's channel
 once, so every op inherits its wire encoding), or ``"auto"`` / ``True``
-(the tuner's int8 wire axis, which is not ported: any collective op then
-raises the structured error).
+(under ``tune=True`` the tuner's int8 wire axis is opened; without it the
+channel's own wire runs, as in the JAX package).
+
+With ``tune=True`` the design point is not fixed: each collective op
+resolves the best ``BlockChannel`` for its own per-rank operand shapes and
+dtype through ``repro_torch.tune`` over the JOINT space (comm half and
+compute tile, and the wire under ``quant="auto"``), for the context's
+backend: what the fused kernels of that route honour on the card, the eager
+executor's blocking otherwise.  ``tune_ranker`` picks the ranker ("auto":
+CUDA-event timings of the candidates on the card, the cost model on the
+CPU; a cache hit never re-ranks).  The seam and the a2a pair resolve
+jointly (``tune.resolve_seq`` / ``resolve_a2a``).  ``pc.channel``'s
+non-tuned fields (comm resource and mode) carry into every winner.
+``mode="baseline"`` tunes nothing.
 
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 ``pc.ring_attention`` / ``pc.ag_moe`` / ``pc.a2a_moe`` / ``pc.psum`` /
@@ -72,6 +84,8 @@ class ParallelContext:
     fuse_seams: bool = False  # fuse layer RS -> AG seams into one ring pass (lm.forward)
     ep_axis: Optional[str] = None  # expert-parallel opt-in: the axis of the MoE dispatch / combine
     quant: Any = None  # wire-dtype policy: None, a QuantSpec (pinned on the channel), or "auto"/True
+    tune: bool = False  # resolve each op's BlockChannel per (kind, shape, dtype) through repro_torch.tune
+    tune_ranker: Optional[str] = None  # "auto" | "measure" | "model" (None: REPRO_TUNE_RANKER, else "auto")
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):
@@ -106,51 +120,84 @@ class ParallelContext:
         return self.backend == "fused"
 
     # ---- per-rank collective ops ----------------------------------------
-    def _op(self, kind, backend: Optional[str] = None) -> Callable:
-        """``kind`` (a kind or the list form) compiled for this context: on
-        ``backend`` (default the context's) when overlapped, the eager
-        baselines otherwise."""
+    def _tune_space(self):
+        """The JOINT space, with the int8 wire axis opened under quant="auto"."""
+        from repro_torch.tune import JOINT_SPACE
+
+        if self.quant == "auto":
+            return dataclasses.replace(JOINT_SPACE, flows=(None, "int8"))
+        return JOINT_SPACE
+
+    @property
+    def _tuning(self) -> bool:
+        return self.tune and self.mode == "overlap"
+
+    def _op(self, kind, args) -> Callable:
+        """``kind`` compiled for this context: on its backend when overlapped,
+        the eager baselines otherwise; under ``tune=True`` with the channel
+        resolved for ``args``' per-rank shapes and dtype."""
+        overlapped = self.mode == "overlap"
+        backend = self.backend if overlapped else "eager"
+        channel = self.channel
+        if self._tuning:
+            from repro_torch.tune import resolve_channel
+
+            channel = resolve_channel(
+                kind, shapes=[tuple(a.shape[1:]) for a in args], world=self.world, axis=self.channel.axis,
+                backend=backend, dtype=args[0].dtype, base=self.channel, ranker=self.tune_ranker,
+                space=self._tune_space(),
+            )  # fmt: skip
+        return compile_overlap(kind, channel, world=self.world, backend=backend, overlapped=overlapped)
+
+    def _seq(self, ops, backend: Optional[str] = None) -> Callable:
+        """The list form ``ops`` for this context (on ``backend``, default the
+        context's, when overlapped), tuned jointly under ``tune=True``."""
         overlapped = self.mode == "overlap"
         backend = (backend or self.backend) if overlapped else "eager"
-        quant = "auto" if self.quant == "auto" else None  # a pinned spec is already on the channel
-        return compile_overlap(
-            kind, self.channel, world=self.world, backend=backend, overlapped=overlapped, quant=quant
-        )
+        if self._tuning:
+            return compile_overlap(
+                ops, "auto", world=self.world, backend=backend, axis=self.channel.axis, tune_ranker=self.tune_ranker,
+                tune_base=self.channel, tune_space=self._tune_space(),
+            )  # fmt: skip
+        return compile_overlap(ops, self.channel, world=self.world, backend=backend, overlapped=overlapped)
 
     def ag_matmul(self, x, w, **kw):
         """[W, *lead, m_loc, K] x [W, K, n_loc] -> [W, *lead, W*m_loc, n_loc]."""
-        return self._op("ag_matmul")(x, w, **kw)
+        return self._op("ag_matmul", (x, w))(x, w, **kw)
 
     def matmul_rs(self, x, w, **kw):
         """[W, *lead, M, k_loc] x [W, k_loc, N] -> [W, *lead, M/W, N]."""
-        return self._op("matmul_rs")(x, w, **kw)
+        return self._op("matmul_rs", (x, w))(x, w, **kw)
 
     def matmul_rs_ag(self, x, w1, w2, *, residual=None, glue=None, **kw):
         """Fused layer seam: ``matmul_rs(x, w1)`` -> ``ag_matmul(glue(residual + .), w2)``
         over one shared ring pass; returns ``(y, out)`` with ``y`` the
         residual stream (before ``glue``).  Compiled on "eager" whatever
-        ``backend`` is; an incompatible seam warns once and runs unfused."""
-        return self._op(["matmul_rs", "ag_matmul"], backend="eager")(x, w1, w2, residual=residual, glue=glue, **kw)
+        ``backend`` is; an incompatible seam warns once and runs unfused;
+        under ``tune=True`` the tuner prices fused against unfused per shape."""
+        fn = self._seq(["matmul_rs", "ag_matmul"], backend="eager")
+        return fn(x, w1, w2, residual=residual, glue=glue, **kw)
 
     def ring_attention(self, q, k, v, **kw):
         """Sequence-parallel AG-KV + attention: q [W, B, H, s_loc or W*s_loc,
         D], k/v [W, B, Hkv, s_loc, D] -> [W, B, H, Sq, D]."""
-        return self._op("ag_attention")(q, k, v, **kw)
+        return self._op("ag_attention", (q, k, v))(q, k, v, **kw)
 
     def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""
-        return self._op("ag_moe")(x, ids, wts, w_gu, w_down, **kw)
+        return self._op("ag_moe", (x, ids, wts, w_gu, w_down))(x, ids, wts, w_gu, w_down, **kw)
 
     def a2a_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Expert-parallel MoE, the overlapped dispatch / combine all-to-all:
         [W, *lead, m_loc, d] -> [W, *lead, m_loc, d].  Needs ``ep_axis``;
-        ``mode="baseline"`` runs ``a2a_moe_baseline`` (the same capacity)."""
+        ``mode="baseline"`` runs ``a2a_moe_baseline`` (the same capacity), as
+        does an unfused verdict of the tuner under ``tune=True``."""
         if self.ep_axis is None:
             raise ValueError(
                 "a2a_moe requires ParallelContext(ep_axis=...); expert parallelism is opt-in "
                 "(use ag_moe for the TP MoE path)"
             )
-        return self._op(["a2a_dispatch", "combine_rs"])(x, ids, wts, w_gu, w_down, **kw)
+        return self._seq(["a2a_dispatch", "combine_rs"])(x, ids, wts, w_gu, w_down, **kw)
 
     def psum(self, x):
         return self.world.psum(x)

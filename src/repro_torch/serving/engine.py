@@ -64,7 +64,7 @@ from repro_torch.models import lm
 from repro_torch.serving.cache import SlotPool
 from repro_torch.serving.scheduler import Request, Scheduler
 
-__all__ = ["ServeEngine", "Request", "sample", "gumbel_noise"]
+__all__ = ["ServeEngine", "Request", "sample", "gumbel_noise", "decode_gemm_shapes"]
 
 _TOPK_MAX = 64  # static width of the top-k threshold lattice (clamped to V)
 _M32 = 0xFFFFFFFF
@@ -104,6 +104,26 @@ def sample(logits, temp, topk, seeds, counters) -> torch.Tensor:
     scaled = masked / temp.clamp_min(1e-6)[:, None]
     sampled = (scaled + gumbel_noise(seeds, counters, logits.shape[-1])).argmax(-1)
     return torch.where(temp > 0, sampled, greedy)
+
+
+def decode_gemm_shapes(cfg, tp: int, n_slots: int) -> Dict[str, tuple]:
+    """The per-rank operand shapes of a decode step's TP GEMMs, by name:
+    ``(kind, (x_shape, w_shape))`` for the qkv and attention-output
+    projections and, with a dense MLP, its gate|up and down projections
+    (``n_slots`` rows of one token), as the JAX package's engine lists them."""
+    from repro_torch.nn.attention import layout
+
+    lay = layout(cfg, tp)
+    hd, d, s = cfg.hd, cfg.d_model, n_slots
+    gemms = {
+        "qkv": ("ag_matmul", ((s, 1, d), (d, (lay.h_loc + 2 * lay.kv_loc) * hd))),
+        "attn_out": ("matmul_rs", ((s, 1, lay.h_loc * hd), (lay.h_loc * hd, d))),
+    }
+    if cfg.d_ff:
+        f_loc = max(1, cfg.d_ff // tp)
+        gemms["ffn_gu"] = ("ag_matmul", ((s, 1, d), (d, 2 * f_loc)))
+        gemms["ffn_down"] = ("matmul_rs", ((s, 1, f_loc), (f_loc, d)))
+    return gemms
 
 
 # rows of the int64 slot table the host uploads every step
@@ -164,6 +184,8 @@ class ServeEngine:
         self._out_h = torch.zeros(self._out.shape, dtype=torch.int64, pin_memory=pin)
         self.graphs: Dict[str, torch.cuda.CUDAGraph] = {}
         self._graph_launches: Dict[str, Dict[str, int]] = {}
+        # decode-shape winners resolve here, before the capture (nothing can be timed inside one)
+        self.decode_channels = self._warm_decode_channels() if pc.tune else {}
         if self.capture:
             self._capture()
 
@@ -227,6 +249,32 @@ class ServeEngine:
             pool = graph.pool()
             self.graphs[name] = graph
             self.stats["graph_captures"] += 1
+
+    def _warm_decode_channels(self) -> Dict[str, object]:
+        """Resolve the decode-shape winners of this engine's four TP GEMMs
+        (:func:`decode_gemm_shapes`).
+
+        Decode GEMMs (``n_slots`` rows of one token) sit in another corner
+        of the space than prefill shapes; ``signature(..., decode=True)``
+        keys them apart, so the cache holds both.  They resolve in
+        ``__init__``, before the two graphs are captured: on the card the
+        default ranker times the candidates on the context's kernels, which
+        a capture could not do.  The captured decode step runs the per-rank
+        GEMMs of ``lm.decode_step``, as the untuned step does, so it
+        launches nothing new; the winners wait in the cache (and in
+        ``decode_channels``) for the collective ops at these shapes.
+        """
+        from repro_torch import tune
+
+        pc = self.pc
+        dtype = self.params["embed"].dtype
+        return {
+            name: tune.resolve_channel(
+                kind, sig=tune.signature(kind, shapes, decode=True), world=pc.world, axis=pc.channel.axis,
+                backend=pc.backend, dtype=dtype, base=pc.channel, ranker=pc.tune_ranker, space=tune.JOINT_SPACE,
+            )  # fmt: skip
+            for name, (kind, shapes) in decode_gemm_shapes(self.cfg, pc.tp, self.n_slots).items()
+        }
 
     def run(self, name: str) -> None:
         """One ``"forward"`` or ``"decode"`` part of a step: a graph replay on

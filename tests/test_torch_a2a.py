@@ -45,7 +45,10 @@ from repro_torch.core.plan import build_plan
 from repro_torch.models import lm
 from repro_torch.nn import moe
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDERS = ("ring", "bidir_ring", "all2all")
@@ -228,14 +231,17 @@ def test_a2a_backends_and_errors(world):
     assert str(err.value) == str(unsupported_error(A2A, "fused", False))
     with pytest.raises(NotImplementedError):
         compile_overlap(["combine_rs", "a2a_dispatch"], ch, world=world)
-    with pytest.raises(NotImplementedError):
-        compile_overlap(list(A2A), "auto", world=world)
+    args = _port_args(world, *_operands(0))
+    plain = compile_overlap(list(A2A), ch, world=world)(*args, capacity_factor=0.25)
+    # the tuner resolves "auto" per shape (tests/test_torch_tune.py holds it); the MoE kinds have no wire axis,
+    # so quant=True on explicit channels changes nothing
+    auto = compile_overlap(list(A2A), "auto", world=world)(*args, capacity_factor=0.25)
+    assert auto.shape == plain.shape and torch.isfinite(auto).all()
+    assert torch.equal(compile_overlap(list(A2A), ch, world=world, quant=True)(*args, capacity_factor=0.25), plain)
     with pytest.raises(ValueError, match="quant must be"):
         compile_overlap(list(A2A), ch, world=world, quant="int8")  # a QuantSpec, not a dtype name
-    with pytest.raises(NotImplementedError):
-        compile_overlap(list(A2A), ch, world=world, quant=True)  # the tuner's wire axis is not ported
     with pytest.raises(ValueError, match="ep_axis"):
-        ParallelContext(world=world).a2a_moe(*_port_args(world, *_operands(0)))
+        ParallelContext(world=world).a2a_moe(*args)
     with pytest.raises(ValueError, match="not the world's axis"):
         ParallelContext(world=world, ep_axis="experts")
     pc = ParallelContext(world=world, ep_axis="model")

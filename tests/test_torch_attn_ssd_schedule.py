@@ -26,6 +26,9 @@ from repro import kernels as jk
 from repro.kernels import ref
 from repro_torch.kernels import mamba_ssd
 from repro_torch.kernels.flash_attention import TILE, flash_attention_tiled, kv_tiles
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 F32 = dict(atol=1e-5, rtol=1e-5)
 

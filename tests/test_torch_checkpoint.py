@@ -37,7 +37,10 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.runtime import ElasticMesh, StepWatchdog, run_resilient
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_leaves, tree_map
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TP = 4
 ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b", "qwen2-72b", "gemma3-27b")

@@ -52,9 +52,10 @@ from repro_torch.models import lm
 from repro_torch.nn import layers
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving import Request, ServeEngine
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 
 fa_mod = importlib.import_module("repro_torch.kernels.flash_attention")  # the module; the package exports the function
-pytestmark = pytest.mark.cuda
+pytestmark = [pytest.mark.cuda, pytest.mark.usefixtures("torch_threads")]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ORDERS = ("ring", "bidir_ring", "all2all")
 
@@ -1508,3 +1509,92 @@ def test_packed_mlp_block_on_card(dev):
         fused = ffn.apply_seq(p, x, ParallelContext(world=world, backend="fused"), cfg)
         eager = ffn.apply_seq(p, x, ParallelContext(world=world, backend="eager"), cfg)
     _close(fused, eager, torch.float32)
+
+
+# ---- the tuner on the card: candidates on the fused kernels, capture, cache ----------
+
+# per-rank signatures: (lead, m_loc, K, n_loc) for AG+GEMM, (lead, M, k_loc, N) for GEMM+RS
+TUNE_CASES = [("ag_matmul", (2, 96, 128, 320)), ("matmul_rs", (2, 256, 64, 320)), ("matmul_rs", (-8, 1, 64, 96))]
+
+
+@pytest.fixture
+def tune_cache(tmp_path, monkeypatch):
+    from repro_torch.tune import cache
+
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tune"))
+    cache.clear_memo()
+    yield tmp_path / "tune"
+    cache.clear_memo()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,sig", TUNE_CASES)
+def test_tuner_candidates_match_plain(dev, tune_cache, kind, sig, dtype):
+    """Every candidate the measured ranker times on the fused backend (the
+    JOINT space: the float32 route's n tiles, every order and C) launches
+    its kernel, and its output holds against the plain version (f32 1e-4,
+    bf16 2e-2 of max); the ranker measures with CUDA events."""
+    from repro_torch import tune
+    from repro_torch.tune import measure
+
+    world = World(4, dev)
+    target = tune.Target("fused", dev, dtype)
+    cands = tune.enumerate_candidates(kind, extent=tune.chunk_extent(kind, sig), space=tune.JOINT_SPACE, sig=sig,
+                                      world=4, target=target)  # fmt: skip
+    assert len(cands) > 1
+    case = measure.CaseTimer(kind, world, sig, backend="fused", dtype=dtype)
+    plain = K.ag_gemm_plain if kind == "ag_matmul" else K.gemm_rs_plain
+    wrapper = K.ag_gemm if kind == "ag_matmul" else K.gemm_rs
+    for cand in cands:
+        ch = cand.channel("model")
+        before = wrapper.launches
+        out = case.run(ch)
+        assert wrapper.launches == before + 1
+        _close(out, plain(*case.args, channel=ch), dtype)
+        med, iqr = case.time(ch, repeats=3, warmup=1)
+        assert 0 < med and 0 <= iqr
+    res = tune.autotune(kind, signature=sig, world=world, backend="fused", dtype=dtype, space=tune.JOINT_SPACE)
+    assert res.ranker == "measure" and res.candidate in cands and res.sweep["total"] == len(cands)
+
+
+def test_tuner_cache_hit_and_capture_launch_nothing(dev, tune_cache):
+    """A cache hit launches no kernel; resolving inside a CUDA graph capture
+    (a new shape: the cost model; a cached one: the hit) launches nothing."""
+    from repro_torch import tune
+
+    world = World(4, dev)
+    kw = dict(world=world, backend="fused", dtype=torch.bfloat16, space=tune.JOINT_SPACE)
+    first = tune.autotune("ag_matmul", signature=(2, 96, 128, 320), **kw)
+    assert first.ranker == "measure" and not first.cache_hit
+    K.reset_launch_counts()
+    hit = tune.autotune("ag_matmul", signature=(2, 96, 128, 320), **kw)
+    assert hit.cache_hit and hit.candidate == first.candidate
+    assert not any(K.launch_counts().values())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            new = tune.autotune("matmul_rs", signature=(2, 256, 64, 320), **kw)
+            again = tune.autotune("ag_matmul", signature=(2, 96, 128, 320), **kw)
+    assert new.ranker == "model" and again.cache_hit
+    assert not any(K.launch_counts().values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tuned_engine_captured_matches_eager(dev, tune_cache, dtype):
+    """A reduced smollm-360m engine with ``ParallelContext(tune=True)``
+    resolves its four decode entries (measured) before the capture; its
+    captured tokens equal its eager tokens bit for bit."""
+    cfg = reduce_config(get_config("smollm-360m"))
+    world = World(4, dev)
+    pc = ParallelContext(world=world, tune=True)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), dtype)
+    reqs = _engine_requests(cfg.vocab_size, 6, seed=3)
+    outs = {}
+    for capture in (True, False):
+        eng = ServeEngine(cfg, pc, params, max_len=32, n_slots=4, prefill_chunk=8, decode_block=6, capture=capture)
+        assert set(eng.decode_channels) == {"qkv", "attn_out", "ffn_gu", "ffn_down"}
+        assert eng.stats["graph_captures"] == (2 if capture else 0)
+        handles = [eng.submit(r) for r in reqs]
+        outs[capture] = [eng.drain()[h].tolist() for h in handles]
+    assert outs[True] == outs[False]

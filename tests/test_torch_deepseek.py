@@ -35,7 +35,10 @@ from repro_torch.launch import serve
 from repro_torch.models import lm
 from repro_torch.nn import moe
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ARCH = "deepseek-moe-16b"
 R = 4

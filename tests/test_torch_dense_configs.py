@@ -38,8 +38,11 @@ from repro_torch.nn import attention
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from test_torch_training import j_jit
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ARCHS = ("qwen2-72b", "starcoder2-7b", "gemma3-27b")
 TP = 4

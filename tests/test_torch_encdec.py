@@ -45,8 +45,11 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from test_torch_training import _assert_trees_close, _np, _with_gains, j_compiled, j_value_and_grad
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ARCH = "seamless-m4t-medium"
 TP = 4

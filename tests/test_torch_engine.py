@@ -37,7 +37,10 @@ from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving import Request, Scheduler, ServeEngine, SlotPool
 from repro_torch.serving.engine import gumbel_noise, sample
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ARCHS = ("smollm-360m", "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-2.7b")
 STREAMED = ("deepseek-moe-16b",)  # served with the streamed MoE decode

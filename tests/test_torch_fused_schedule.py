@@ -34,6 +34,9 @@ from repro_torch.kernels import ag_gemm, ag_gemm_plain, gemm_rs, gemm_rs_plain
 from repro_torch.kernels.ag_gemm import work_items as ag_work_items
 from repro_torch.kernels.gemm_rs import tiles as rs_tiles
 from repro_torch.kernels.gemm_rs import work_items as rs_work_items
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDERS = ("ring", "bidir_ring", "all2all")

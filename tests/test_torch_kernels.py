@@ -26,6 +26,9 @@ from repro_torch import kernels as tk
 from repro_torch.kernels import build
 from repro_torch.kernels.grouped_matmul import work_items
 from repro_torch.nn.attention import chunked_attention
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 F32 = dict(atol=2e-4, rtol=2e-3)
 

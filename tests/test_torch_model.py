@@ -29,7 +29,10 @@ from repro_torch.convert import from_jax_params
 from repro_torch.models import lm
 from repro_torch.nn import layers
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TOL = dict(atol=2e-3, rtol=2e-3)
 TP = 4

@@ -46,7 +46,10 @@ from repro_torch.core import plan as tplan
 from repro_torch.kernels.grouped_matmul import group_tile_table
 from repro_torch.nn import moe as t_nn_moe
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDERS = ("ring", "bidir_ring", "all2all")

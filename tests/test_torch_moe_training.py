@@ -54,8 +54,11 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from test_torch_training import GRAD_TOL, _assert_trees_close, _np, _port_tree, _with_gains, j_train_step, j_value_and_grad
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TP = 4
 B, S, VOCAB = 4, 32, 256

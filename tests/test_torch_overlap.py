@@ -31,6 +31,9 @@ from repro_torch.backend.mesh import World
 from repro_torch.core import BlockChannel, CommSpec, CompSpec, compile_overlap, unsupported_error
 from repro_torch.core.comp_tiles import largest_divisor
 from repro_torch import kernels
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDERS = ("ring", "bidir_ring", "all2all")

@@ -27,6 +27,9 @@ from repro_torch.benchmarks import paper_mlp
 from repro_torch.benchmarks.common import bound_ms
 from repro_torch.configs import paper
 from repro_torch.core import BlockChannel, compile_overlap
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 S, H, I = 64, 32, 80
 F32 = dict(atol=1e-5, rtol=1e-5)

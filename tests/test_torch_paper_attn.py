@@ -24,6 +24,9 @@ from repro.core import overlap as jov
 from repro_torch.backend.mesh import World
 from repro_torch.benchmarks import paper_attn
 from repro_torch.configs.paper import PAPER_ATTN
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 HEADS, HD = 4, 32
 F32 = dict(atol=1e-4, rtol=1e-4)

@@ -28,6 +28,9 @@ from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_leaves, tree_map
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TINY = dict(dtype=torch.float32, batch=1, seq=32, warmup=1, pairs=1)
 

@@ -26,6 +26,9 @@ from repro_torch.backend.mesh import World
 from repro_torch.benchmarks import paper_moe
 from repro_torch.benchmarks.common import bound_ms
 from repro_torch.configs.paper import PAPER_MOE
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 S, H, I = 64, 32, 16
 F32 = dict(atol=1e-5, rtol=1e-5)

@@ -23,6 +23,9 @@ from repro_torch.core import channels as tch
 from repro_torch.core import plan as tplan
 from repro_torch.core.comp_tiles import largest_divisor, resolve_tile
 from repro_torch.core.mapping import effective_channels
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 KINDS = ("ag_matmul", "matmul_rs", "ag_attention")
 ORDERS = ("ring", "bidir_ring", "all2all")

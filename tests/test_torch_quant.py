@@ -57,7 +57,10 @@ from repro_torch.nn import ffn
 from repro_torch.nn.layers import rms_norm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import compression as t_comp
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDER, NCH = "bidir_ring", 2  # two channels in opposite directions: every edge kind
@@ -560,15 +563,16 @@ def _interleave(w_gu):
 
 def test_context_quant_threading(world):
     """``ParallelContext(quant=)`` pins the spec on its channel; True is
-    "auto", which the port's ops refuse until the tuner lands; anything
-    else raises."""
+    "auto", which opens the tuner's wire axis under ``tune=True`` and
+    otherwise leaves the channel's own wire (as the reference's context
+    does); anything else raises."""
     pc = ParallelContext(world=world, quant=tq.QuantSpec(wire_dtype="int8"))
     assert pc.channel.quant.wire_dtype == "int8"
     assert dataclasses.replace(pc, quant=tq.QuantSpec(wire_dtype="bfloat16")).channel.quant.wire_dtype == "bfloat16"
     auto = ParallelContext(world=world, quant=True)
-    assert auto.quant == "auto"
-    with pytest.raises(NotImplementedError):
-        auto.matmul_rs(torch.zeros(R, 1, 8, 4), torch.zeros(R, 4, 8))
+    assert auto.quant == "auto" and auto.channel == ParallelContext(world=world).channel
+    x, w = _port_rs(world, *_rs_operands(3))
+    assert torch.equal(auto.matmul_rs(x, w), ParallelContext(world=world).matmul_rs(x, w))
     with pytest.raises(ValueError, match="quant"):
         ParallelContext(world=world, quant="int8")
 
@@ -620,10 +624,11 @@ def test_ffn_apply_seq_quant_matches_reference(mesh4, world, form):
 def test_fused_refusals_and_auto(world):
     """A quantized activation wire on the fused backend raises
     NotImplementedError where the kernel is called (as the reference's
-    Pallas kernels do); ``quant="auto"`` / True raises the structured error
-    (the tuner is not ported); the fused forms with eager permutes take the
-    identity wire only; under autograd a packed weight raises rather than
-    differentiate through codes; a PackedWeight and a float wire compile."""
+    Pallas kernels do); ``quant="auto"`` / True there resolves to a wire
+    the kernel runs (the tuner offers no quantized wire on "fused"); the
+    fused forms with eager permutes take the identity wire only; under
+    autograd a packed weight raises rather than differentiate through
+    codes; a PackedWeight and a float wire compile."""
     int8 = tq.QuantSpec(wire_dtype="int8")
     _, tch = _chans()
     xa, wa = _port_ag(world, *_ag_operands(17))
@@ -632,10 +637,7 @@ def test_fused_refusals_and_auto(world):
             compile_overlap(kind, tch, world=world, backend="fused", quant=int8)(*args)
         compile_overlap(kind, tch, world=world, backend="fused", quant=tq.QuantSpec(wire_dtype="bfloat16"))(*args)
         for auto in ("auto", True):
-            with pytest.raises(NotImplementedError):
-                compile_overlap(kind, tch, world=world, quant=auto)
-    with pytest.raises(NotImplementedError):
-        compile_overlap(list(A2A), tch, world=world, quant="auto")
+            compile_overlap(kind, tch, world=world, backend="fused", quant=auto)(*args)
     with pytest.raises(NotImplementedError):
         compile_overlap("ag_attention", tch, world=world, backend="fused", quant=tq.QuantSpec(wire_dtype="bfloat16"))
     with pytest.raises(ValueError, match="quant"):

@@ -39,6 +39,9 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core import BlockChannel, CommSpec, CompSpec, compile_overlap, unsupported_error
 from repro_torch.nn import attention
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 fa = importlib.import_module("repro_torch.kernels.flash_attention")  # the module; the package exports the function
 

@@ -53,7 +53,10 @@ from repro_torch.models import lm
 from repro_torch.nn import attention, ffn
 from repro_torch.nn.layers import rms_norm
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 R = 4
 ORDERS = ("ring", "bidir_ring", "all2all")
@@ -235,11 +238,9 @@ def test_seq_form_backends_and_errors(world):
     with pytest.raises(NotImplementedError, match="'ag_matmul', 'matmul_rs'"):
         compile_overlap(["ag_matmul", "matmul_rs"], ch, world=world)  # AG -> RS is no seam
     with pytest.raises(NotImplementedError):
-        compile_overlap(list(SEAM), "auto", world=world)  # the tuner is not ported
+        compile_overlap(list(SEAM), "auto", world=world, backend="fused")  # the seam is eager only, tuned or not
     with pytest.raises(ValueError, match="quant must be"):
         compile_overlap(list(SEAM), ch, world=world, quant="int8")  # a QuantSpec, not a dtype name
-    with pytest.raises(NotImplementedError):
-        compile_overlap(list(SEAM), ch, world=world, quant="auto")  # the tuner's wire axis is not ported
     with pytest.raises(ValueError, match="unknown backend"):
         compile_overlap(list(SEAM), ch, world=world, backend="xla")
     # per-op (kind, channel) entries; overlapped=False is the baselines' pair

@@ -18,7 +18,10 @@ from repro_torch.convert import from_jax_params
 from repro_torch.core.compiler import compile_overlap
 from repro_torch.launch import serve
 from repro_torch.parallel.context import ParallelContext
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 B, S0, NEW = 2, 16, 6
 

@@ -47,7 +47,10 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step, softmax_xent
 from repro_torch.training.steps import loss_and_grads
 from repro_torch.training import optimizer as topt
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 TP = 4
 B, S, VOCAB = 4, 32, 256

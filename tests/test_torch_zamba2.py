@@ -46,8 +46,11 @@ from repro_torch.training import optimizer as topt
 from repro_torch.training.steps import loss_and_grads
 from test_torch_checkpoint import _restore_w4_at_w2
 from test_torch_ssm_training import _seeded, assert_loss_and_grads
+from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from test_torch_training import _assert_trees_close, _np, _port_tree, j_train_step, j_value_and_grad
 from utils import reduce_config as j_reduce_config
+
+pytestmark = pytest.mark.usefixtures("torch_threads")
 
 ARCH = "zamba2-2.7b"
 TP = 4
