@@ -377,7 +377,26 @@ non-zero (no phase catches its own failure):
               checks and backward transposes at 8 x 512 tokens.  It runs
               after the serve phases: the profiler leaves
               host overhead behind.
-  21. summary the launch counts of every path, each phase's and the script's wall time,
+  21. verify  the port's static verifier (``repro_torch.analysis``) at what
+              the card launches, after every other phase: (b) each AG+GEMM /
+              GEMM+RS shape the serve, train, paper and tune phases launch
+              (every arch's serve path, smollm-360m's train step and its
+              backward transposes, Fig. 11's forward and backward at 1 x 4096
+              tokens, Tab. 2's MLP-1 pair at W = 8; smollm's serve and train
+              shapes on the float32 route too) at every (order, C) the tuner
+              enumerates there, C requested from {1, 2, 4}: one launch, its
+              output held against the f32 product (bf16 2e-2 of max, f32
+              1e-4), and ``verify_launch`` at the grid G the card reported
+              (``last_launch``) and at G = 1 (the float32 route: one n-tile
+              per (channel, rank)), proven in VERIFY_WORKERS processes beside
+              the launches; (a) meanwhile ``verify_space`` and
+              ``verify_seq_space`` over the shipped plan space, the plan
+              count and host seconds; (c) a TilePlan whose ``flow_dst``
+              table has one pair swapped is refused by ``build_plan`` with
+              its coordinates, and ``ag_gemm`` launches nothing; (d) every
+              ``build_plan`` / ``build_seq_plan`` miss of the whole run was
+              verified (the poked one refused).
+  22. summary the launch counts of every path, each phase's and the script's wall time,
               the per-kernel JSON line, the card's power limit, and the
               last line ``{"ok": true, "device": {...}}``.
 
@@ -491,6 +510,8 @@ V_F32_LAYERS, V_F32_ROWS = 4, 4
 DECODE_RTOL = 3e-3  # enc-dec decode vs the teacher-forced forward (the JAX package's tests/test_extended.py)
 E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
+# the verify phase: processes proving the launches of (b) beside the card's launches
+VERIFY_WORKERS = 6
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -3914,6 +3935,231 @@ def phase_tune(smi: str) -> dict:
     return out
 
 
+# ---- the verify phase: the port's static verifier (repro_torch.analysis) on the card's launches ----
+
+
+def _verify_shapes() -> list:
+    """(label, kind, x shape, w shape, float32 too) of every AG+GEMM / GEMM+RS
+    shape the serve, train, paper and tune phases launch: each arch's serve
+    path (:func:`path_shapes`, 4 x 256 tokens; paligemma's 4 x 512,
+    seamless-m4t's encoder at 4 x 4096 frames, gemma3's greedy at 4 x 2048,
+    mamba2's in / out projections), smollm-360m's train step (8 x 256, the
+    backward's transposes too), Fig. 11's forward and backward at 1 x 4096
+    tokens of every row, and Tab. 2's MLP-1 pair (W = 8).  smollm's serve
+    and train shapes also run the float32 route, as the phases' float32
+    checks do."""
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs.paper import PAPER_MLP
+
+    W, out = WORLD, []
+
+    def dense(arch, b, s, tag, f32=False, bwd=False):
+        shp = path_shapes(arch)
+        d, s_loc = shp["d"], s // W
+        ags = [("qkv", shp["n_qkv"])] + [(f"{m}gate_up", gu) for m, gu, _ in _mlps(shp)]
+        rss = [("o_proj", shp["n_o"])] + [(f"{m}down", f) for m, _, f in _mlps(shp)]
+        if arch == ARCH_ED:
+            ags.append(("cross_kv", 2 * shp["kv_loc"] * shp["hd"]))
+        out.extend((f"{arch} {tag} {t}", "ag_gemm", (W, b, s_loc, d), (W, d, n), f32) for t, n in ags)
+        out.extend((f"{arch} {tag} {t}", "gemm_rs", (W, b, s, k), (W, k, d), f32) for t, k in rss)
+        if bwd:  # dx of the column-parallel projections through GEMM+RS, of the row-parallel ones through AG+GEMM
+            out.extend((f"{arch} {tag} bwd_{t}", "gemm_rs", (W, b, s, n), (W, n, d), f32) for t, n in ags)
+            out.extend((f"{arch} {tag} bwd_{t}", "ag_gemm", (W, b, s_loc, d), (W, d, k), f32) for t, k in rss)
+
+    for arch in (ARCH, ARCH_MOE, ARCH_DS, ARCH_Z):
+        dense(arch, BATCH, PROMPT, "serve", f32=arch == ARCH)
+    dense(ARCH_V, BATCH, 2 * PROMPT, "serve")
+    dense(ARCH_ED, BATCH, 4096, "encode")
+    dense(ARCH_G, E2E_SERVE_BATCH, E2E_SERVE_PROMPT, "serve")
+    ssm = ssm_shapes()
+    out.append((f"{ARCH_SSM} serve in_proj", "ag_gemm", (W, BATCH, PROMPT // W, ssm["d"]), (W, ssm["d"], ssm["n_in"]),
+                False))  # fmt: skip
+    out.append((f"{ARCH_SSM} serve out_proj", "gemm_rs", (W, BATCH, PROMPT, ssm["di_loc"]),
+                (W, ssm["di_loc"], ssm["d"]), False))  # fmt: skip
+    dense(ARCH, TRAIN_BATCH, TRAIN_SEQ, "train", f32=True, bwd=True)
+    for arch in paper_e2e.MODELS:
+        dense(arch, paper_e2e.BATCH, paper_e2e.SEQ, "e2e", bwd=True)
+    s, h, i, _ = PAPER_MLP["MLP-1"]
+    w8 = PAPER_WORLD
+    out.append(("Tab. 2 MLP-1 AG+GEMM", "ag_gemm", (w8, 1, s // w8, h), (w8, h, i // w8), False))
+    out.append(("Tab. 2 MLP-1 GEMM+RS", "gemm_rs", (w8, 1, s, i // w8), (w8, i // w8, h), False))
+    return out
+
+
+def _verify_points(kind: str, xs, ws, dtype, device) -> list:
+    """The (order, C) points the tuner enumerates for this shape on the
+    fused backend in ``dtype`` (C requested from {1, 2, 4}, clamped)."""
+    from repro_torch import tune
+
+    akind = "ag_matmul" if kind == "ag_gemm" else "matmul_rs"
+    sig = tune.signature(akind, (xs[1:], ws[1:]))
+    cands = tune.enumerate_candidates(akind, extent=tune.chunk_extent(akind, sig), sig=sig, world=xs[0],
+                                      target=tune.Target("fused", device, dtype))  # fmt: skip
+    return list(dict.fromkeys((c.order, c.num_channels) for c in cands))
+
+
+def _prove(job) -> tuple:
+    """One launch proof of (b), in a worker process: ``verify_launch`` on meta
+    tensors of the launch's shapes (it reads shapes only) at its grids."""
+    import torch
+
+    from repro_torch import analysis
+    from repro_torch.core import BlockChannel, CommSpec
+
+    kind, xs, ws, dtype, order, nch, grids = job
+    dt = getattr(torch, dtype)
+    x, w = torch.empty(xs, dtype=dt, device="meta"), torch.empty(ws, dtype=dt, device="meta")
+    ch = BlockChannel(axis="model", comm=CommSpec(order=order), num_channels=nch)
+    t0 = time.perf_counter()
+    rep = analysis.verify_launch(kind, x, w, ch, grids)
+    return len(rep.passes), rep.checks, rep.events, time.perf_counter() - t0
+
+
+def _verify_launches(pool) -> tuple:
+    """(b): each shape of :func:`_verify_shapes` at each of its points:
+    one launch, its output held against the f32 product (bf16 2e-2 of max,
+    float32 1e-4), and ``verify_launch`` at the grid the card reported and
+    at the route's smallest grid (G = 1; the float32 route's grid is one
+    block per (n-tile, channel, rank), so its smallest is one n-tile),
+    submitted to ``pool`` (host Python over up to ~33k items a launch).
+    Returns (the summary, the proofs' futures)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.core import BlockChannel, CommSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    launches, worst, grids, futures = 0, {}, {}, []
+    for label, kind, xs, ws, f32 in _verify_shapes():
+        fn = K.ag_gemm if kind == "ag_gemm" else K.gemm_rs
+        akind = "ag_matmul" if kind == "ag_gemm" else "matmul_rs"
+        for dtype in (torch.bfloat16,) + ((torch.float32,) if f32 else ()):
+            name = str(dtype)[6:]
+            fan = xs[-1] if kind == "ag_gemm" else xs[0] * xs[-1]
+            x = torch.randn(xs, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(ws, generator=gen, device="cuda") * fan**-0.5).to(dtype)
+            with torch.no_grad():
+                ref = _tune_reference(akind, x, w)
+            scale = ref.abs().max().item()
+            for order, nch in _verify_points(kind, xs, ws, dtype, x.device):
+                ch = BlockChannel(axis="model", comm=CommSpec(order=order), num_channels=nch)
+                before = fn.launches
+                out = fn(x, w, channel=ch)
+                if fn.launches != before + 1:
+                    raise SystemExit(f"chip_smoke: verify {label} {name} {order} C={nch}: no launch counted")
+                launches += 1
+                ll = fn.last_launch
+                err = (out.float() - ref).abs().max().item()
+                if not (bool(torch.isfinite(out).all()) and err <= TOL[name] * scale):
+                    raise SystemExit(f"chip_smoke: verify {label} {name} {order} C={nch}: |out - f32 product| "
+                                     f"{err} > {TOL[name]} x {scale}")  # fmt: skip
+                worst[(label, name)] = max(worst.get((label, name), 0.0), err / scale)
+                smallest = 1 if ll["route"] == "wgmma" else xs[0] * _eff(akind, xs, ws, nch)
+                job = (kind, xs, ws, name, order, nch, tuple(dict.fromkeys((ll["grid"], smallest))))
+                futures.append(pool.submit(_prove, job))
+                grids.setdefault((kind, ll["route"]), set()).add(ll["grid"])
+            del x, w, ref, out
+        torch.cuda.empty_cache()
+    for (kind, route), gs in sorted(grids.items()):
+        print(f"[verify] {kind} {route}: grids the card launched {sorted(gs)}")
+    print(f"[verify] (b) {len(worst)} shape x dtype cases, {launches} launches, each output within its bound (worst "
+          f"|out - f32 product| / max {max(worst.values()):.3e}; bf16 {TOL['bfloat16']}, f32 {TOL['float32']})")
+    summary = {"cases": len(worst), "launches": launches,
+               "grids": {f"{k} {r}": sorted(g) for (k, r), g in grids.items()},
+               "worst_rel": {" ".join(k): v for k, v in worst.items()}}  # fmt: skip
+    return summary, futures
+
+
+def _eff(akind: str, xs, ws, nch: int) -> int:
+    """The effective channel count of a launch (C clamped to its extent)."""
+    from repro_torch.core.mapping import effective_channels
+
+    return effective_channels(xs[-2] if akind == "ag_matmul" else ws[-1], nch, kind=akind, warn=False)
+
+
+def _verify_poked() -> dict:
+    """(c): a TilePlan whose flow_dst table has one pair swapped (channel 1,
+    step 1, ranks 0 and 1) is refused by ``build_plan``'s verification with
+    its coordinates, and ``ag_gemm`` launches nothing."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.analysis import PlanVerificationError
+    from repro_torch.core import BlockChannel, CommSpec
+    from repro_torch.core import plan as P
+
+    orig = P.TilePlan.flow_dst_tables
+
+    def poked(self):
+        rows = [[list(r) for r in ch] for ch in orig(self)]
+        rows[1][1][0], rows[1][1][1] = rows[1][1][1], rows[1][1][0]
+        return tuple(tuple(tuple(r) for r in ch) for ch in rows)
+
+    x = torch.randn(WORLD, BATCH, PROMPT // WORLD, 960, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(WORLD, 960, 512, device="cuda", dtype=torch.bfloat16)
+    ch = BlockChannel(axis="poked", comm=CommSpec(order="ring"), num_channels=2)  # a plan no phase built
+    before, err = K.ag_gemm.launches, None
+    P.TilePlan.flow_dst_tables = poked
+    try:
+        K.ag_gemm(x, w, channel=ch)
+    except PlanVerificationError as e:
+        err = e
+    finally:
+        P.TilePlan.flow_dst_tables = orig
+    if err is None or err.check != "flow_composition" or (err.channel, err.step) != (1, 1) or err.rank not in (0, 1):
+        raise SystemExit(f"chip_smoke: verify (c): the poked flow_dst table was not refused at its coordinates: {err}")
+    if K.ag_gemm.launches != before:
+        raise SystemExit("chip_smoke: verify (c): the poked plan reached a launch")
+    print(f"[verify] (c) poked flow_dst pair refused before any launch: {err}")
+    return {"refused": str(err), "launches": K.ag_gemm.launches - before}
+
+
+def phase_verify() -> dict:
+    """The static verifier on the card (module docstring, phase verify):
+    (b)'s launches first, their proofs in VERIFY_WORKERS processes, (a) in
+    this process meanwhile, then (c) and (d)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.analysis import verify_seq_space, verify_space
+    from repro_torch.analysis.verify import SEQ_OPS
+    from repro_torch.core.plan import verify_stats
+
+    workers = max(1, min(VERIFY_WORKERS, (os.cpu_count() or 2) - 2))
+    t_wall = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = {}
+        out["launch"], futures = _verify_launches(pool)
+        launched_s = time.perf_counter() - t_wall
+        t0 = time.perf_counter()
+        plans = sum(1 for _ in verify_space()) + sum(1 for k in SEQ_OPS.values() for _ in verify_seq_space(kinds=k))
+        space_s = time.perf_counter() - t0
+        print(f"[verify] (a) the shipped plan space: {plans} plan(s) verified in {space_s:.1f} host s")
+        proofs = checks = events = 0
+        host_s = 0.0
+        for fut in futures:
+            n, c, e, dt = fut.result()  # a refused launch raises its PlanVerificationError here
+            proofs, checks, events, host_s = proofs + n, checks + c, events + e, host_s + dt
+    proved_s = time.perf_counter() - t_wall
+    print(f"[verify] (b) {proofs} launch proofs passed (the card's G and the smallest grid of {len(futures)} "
+          f"launches): {checks} checks, {events} ops simulated, {host_s:.1f} host s in {workers} processes; "
+          f"launches done at {launched_s:.1f} s, proofs at {proved_s:.1f} s")  # fmt: skip
+    out.update(space_plans=plans, space_host_s=space_s, proofs=proofs, checks=checks, events=events,
+               proof_host_s=host_s, workers=workers, launched_s=launched_s, proved_s=proved_s)  # fmt: skip
+    out["poked"] = _verify_poked()
+    stats = verify_stats()
+    print(f"[verify] (d) this run: build_plan {stats['plan_misses']} misses, {stats['plans_verified']} verified, "
+          f"{stats['plans_refused']} refused; build_seq_plan {stats['seq_misses']} misses, {stats['seqs_verified']} "
+          f"verified, {stats['seqs_refused']} refused")  # fmt: skip
+    if (stats["plan_misses"] != stats["plans_verified"] + stats["plans_refused"] or stats["plans_refused"] != 1
+            or stats["seq_misses"] != stats["seqs_verified"] or stats["seqs_refused"]):  # fmt: skip
+        raise SystemExit(f"chip_smoke: verify (d): a plan of this run was built unverified (or refused besides the "
+                         f"poked one): {stats}")  # fmt: skip
+    out["stats"] = stats
+    return out
+
+
 def _profile(params, cfg, pc, prompts, max_len, embeds=None):
     """Device time by kernel name for one prefill and one decode step
     (torch.profiler), with the device-busy share of each window."""
@@ -3954,9 +4200,11 @@ def main(argv=None) -> int:
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
               "tune": lambda: phase_tune(smi),
-              # last: its torch.profiler sessions (device_ms) leave host overhead behind
+              # last but one: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
-              "kernels": lambda: phase_kernels(ITERS)}  # fmt: skip
+              "kernels": lambda: phase_kernels(ITERS),
+              # last: (d) counts the plans every phase built
+              "verify": phase_verify}  # fmt: skip
     for name, run in phases.items():
         t0 = time.perf_counter()
         out[name] = run()

@@ -55,6 +55,7 @@ __all__ = [
     "matmul_rs",
     "matmul_rs_baseline",
     "matmul_rs_ag",
+    "psum_scatter_ring",
     "ring_attention",
     "ag_attention_baseline",
     "plan_for",
@@ -467,6 +468,29 @@ def matmul_rs_baseline(x, w, *, world: World, out_dtype=None, channel=None):
     out_dtype = out_dtype or x.dtype
     part = _baseline_dot(x, w, torch.float32)  # float32 partials into the reduction
     return world.reduce_scatter(part, dim=part.dim() - 3).to(out_dtype)
+
+
+def psum_scatter_ring(x: torch.Tensor, *, world: World, channel: Optional[BlockChannel] = None) -> torch.Tensor:
+    """Ring reduce-scatter of precomputed partials (no fused GEMM): an "rs"
+    plan whose tile compute is a row slice, the adds overlapped with the
+    permutes, in ``x``'s dtype.
+
+    ``x``: [W, *lead, M, N], rank r's partial -> [W, *lead, M / W, N], rank
+    r's row segment of ``sum_q x[q]``; ``num_channels`` chunks the N columns.
+    """
+    channel = channel or BlockChannel(axis="model")
+    m_glob, n = x.shape[-2], x.shape[-1]
+    if m_glob % world.size:
+        raise ValueError(f"psum_scatter_ring: {m_glob} rows do not divide over {world.size} ranks")
+    plan = plan_for("psum_scatter", channel, world.size, n)
+    m_loc = m_glob // world.size
+    n_sub = n // plan.num_channels
+
+    def slice_tile(ctx, _tile, _carry):
+        seg = rank_rows(x, [s * m_loc for s in ctx.src], m_loc)
+        return seg[..., ctx.channel * n_sub : (ctx.channel + 1) * n_sub]
+
+    return torch.cat(run_plan(plan, world, slice_tile), dim=-1)
 
 
 # -----------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 The port's counterpart of ``repro/core/plan.py``.  Flows by kind:
 ``ag_matmul`` and ``ag_attention`` "ag" (the KV tiles of the ring);
-``matmul_rs`` "rs"; ``ag_moe`` "ag_rs" (token tiles flow as in "ag" and a
+``matmul_rs`` and ``psum_scatter`` "rs"; ``ag_moe`` "ag_rs" (token tiles flow as in "ag" and a
 reduction rides the same permutes, then one ``align_perm`` hop sends it
 home); ``a2a_dispatch`` "a2a" (expert-parallel dispatch: every step is a
 *direct* exchange of the ranks' own token tiles, nothing is forwarded) and
@@ -24,10 +24,14 @@ memory.  A :class:`SeqPlan` chains two plans: the RS -> AG layer seam
   * the **rs view**: the segment schedule is the time reversal of sigma,
     ending at the home rank (paper Fig. 4).
 
-The JAX package verifies every plan it builds with ``repro.analysis``; the
-port imports nothing from that package, so its tests run the same verifier
-over every port plan (``PlanTables.from_plan`` is duck-typed on the methods
-below).  ``build_plan`` is a bounded LRU cache, as in the JAX package.
+``build_plan`` / ``build_seq_plan`` are bounded LRU caches, as in the JAX
+package, and every miss is verified by the port's own static verifier
+(``repro_torch.analysis``: schedule legality, and for ``ag_matmul`` /
+``matmul_rs`` the flag protocol of the fused kernels) unless
+``REPRO_VERIFY=0``; ``verify_stats`` counts the misses and the plans
+verified.  A schedule that is not a per-step permutation raises
+:class:`PlanError` (the analysis package's ``PlanVerificationError``) with
+its (kind, order, world, channel, step, rank), verified or not.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis.errors import PlanVerificationError
 from repro_torch.core import schedules
 from repro_torch.core.channels import ORDERS, BlockChannel, QuantSpec
 
@@ -49,6 +54,7 @@ __all__ = [
     "build_plan",
     "build_seq_plan",
     "plan_cache_info",
+    "verify_stats",
     "FLOW_OF_KIND",
 ]
 
@@ -56,6 +62,7 @@ FLOW_OF_KIND = {
     "ag_matmul": "ag",
     "ag_attention": "ag",
     "matmul_rs": "rs",
+    "psum_scatter": "rs",
     "ag_moe": "ag_rs",
     "a2a_dispatch": "a2a",
     "combine_rs": "a2a_rs",
@@ -64,8 +71,11 @@ FLOW_OF_KIND = {
 Table = Tuple[Tuple[Tuple[int, ...], ...], ...]  # [channel][step][rank]
 
 
-class PlanError(ValueError):
-    """A schedule that is not a per-step permutation of the ranks."""
+PlanError = PlanVerificationError  # a plan that fails a static check (a ValueError)
+
+# build_plan / build_seq_plan cache misses and the plans verified on them
+_VERIFY_STATS = dict.fromkeys(("plan_misses", "plans_verified", "plans_refused", "seq_misses", "seqs_verified",
+                               "seqs_refused"), 0)  # fmt: skip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,23 +106,14 @@ class ChannelSchedule:
     def flow_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
         """(src, dst) pairs moving held tiles from ``step`` to ``step + 1``:
         rank j forwards to the rank d with sigma(d, step + 1) == sigma(j, step)."""
-        inv = {self.source(d, step + 1): d for d in range(self.world)}
-        if len(inv) != self.world:
-            raise PlanError(
-                f"{self.order} over {self.world} ranks: source schedule is not a "
-                f"per-step permutation at step {step + 1}"
-            )
+        inv = self._inverse(self.source_table(step + 1), step + 1)
         return tuple((j, inv[self.source(j, step)]) for j in range(self.world))
 
     def a2a_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
         """(src, dst) pairs of the direct exchange landing ``step``: rank j
         sends its *own* tile to the rank d that consumes it at ``step``
         (sigma(d, step) == j); no held tile is forwarded."""
-        inv = {self.source(d, step): d for d in range(self.world)}
-        if len(inv) != self.world:
-            raise PlanError(
-                f"{self.order} over {self.world} ranks: source schedule is not a per-step permutation at step {step}"
-            )
+        inv = self._inverse(self.source_table(step), step)
         return tuple((j, inv[j]) for j in range(self.world))
 
     def combine_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
@@ -135,13 +136,25 @@ class ChannelSchedule:
 
     def rs_perm(self, step: int) -> Tuple[Tuple[int, int], ...]:
         """(src, dst) pairs moving partials from ``step`` to ``step + 1``."""
-        inv = {self.rs_segment(d, step + 1): d for d in range(self.world)}
-        if len(inv) != self.world:
-            raise PlanError(
-                f"{self.order} over {self.world} ranks: segment schedule is not a "
-                f"per-step permutation at step {step + 1}"
-            )
+        inv = self._inverse(self.rs_segment_table(step + 1), step + 1)
         return tuple((j, inv[self.rs_segment(j, step)]) for j in range(self.world))
+
+    def _inverse(self, row: Tuple[int, ...], step: int) -> dict:
+        """value -> rank of a per-step row; raises ``per_step_permutation``
+        at the first rank whose value an earlier rank already holds."""
+        inv = {}
+        for d, v in enumerate(row):
+            if v in inv:
+                raise PlanError(
+                    f"schedule is not a per-step permutation: ranks {inv[v]} and {d} both hold {v}",
+                    check="per_step_permutation",
+                    order=self.order,
+                    world=self.world,
+                    step=step,
+                    rank=d,
+                )
+            inv[v] = d
+        return inv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,14 +193,7 @@ class TilePlan:
     def flow_dst_tables(self) -> Table:
         """AG: rank each rank pushes its held tile to, per (c, step); the last
         step pushes nowhere and its row is the identity (unused)."""
-        ident = tuple(range(self.world))
-        return tuple(
-            tuple(
-                tuple(dst for _, dst in ch.flow_perm(s)) if s < self.steps - 1 else ident
-                for s in range(self.steps)
-            )
-            for ch in self.channels
-        )
+        return self._dst_tables("flow_perm", self.steps - 1)
 
     def rs_seg_tables(self) -> Table:
         """RS: segment reduced per (c, step, rank)."""
@@ -195,20 +201,34 @@ class TilePlan:
 
     def rs_dst_tables(self) -> Table:
         """RS: rank each rank pushes its partial to, per (c, step)."""
-        ident = tuple(range(self.world))
-        return tuple(
-            tuple(
-                tuple(dst for _, dst in ch.rs_perm(s)) if s < self.steps - 1 else ident
-                for s in range(self.steps)
-            )
-            for ch in self.channels
-        )
+        return self._dst_tables("rs_perm", self.steps - 1)
 
     def a2a_dst_tables(self) -> Table:
         """A2A: rank each rank sends its *own* tile to, per (c, step); step 0
         is the identity (the own tile).  The combine's return destinations
         are ``src_tables``."""
-        return tuple(tuple(tuple(dst for _, dst in ch.a2a_perm(s)) for s in range(self.steps)) for ch in self.channels)
+        return self._dst_tables("a2a_perm", self.steps)
+
+    def _dst_tables(self, perm: str, moves: int) -> Table:
+        """Per (c, step) the destinations of ``ChannelSchedule.<perm>(step)``
+        for the first ``moves`` steps, identity rows after; a row that is not
+        a permutation raises with this plan's kind and the channel."""
+        ident = tuple(range(self.world))
+        out = []
+        for c, ch in enumerate(self.channels):
+            try:
+                out.append(
+                    tuple(
+                        tuple(dst for _, dst in getattr(ch, perm)(s)) if s < moves else ident
+                        for s in range(self.steps)
+                    )
+                )
+            except PlanError as e:
+                raise PlanError(
+                    e.raw_message, check=e.check, kind=self.kind, order=e.order, world=e.world, channel=c,
+                    step=e.step, rank=e.rank,
+                ) from None  # fmt: skip
+        return tuple(out)
 
 
 def _directions(order: str, num_channels: int) -> Tuple[int, ...]:
@@ -226,7 +246,8 @@ def build_plan(kind: str, channel: BlockChannel, world: int, num_channels: int) 
     """Build (and cache) the tile plan for ``kind`` over ``world`` ranks.
 
     ``num_channels`` is the *effective* channel count (callers clamp the
-    requested count through ``mapping.effective_channels`` first).
+    requested count through ``mapping.effective_channels`` first).  Every
+    miss is verified (``analysis.verify_plan``) unless ``REPRO_VERIFY=0``.
     """
     if kind not in FLOW_OF_KIND:
         raise ValueError(f"unknown workload kind {kind!r}; one of {tuple(FLOW_OF_KIND)}")
@@ -244,10 +265,15 @@ def build_plan(kind: str, channel: BlockChannel, world: int, num_channels: int) 
         channels=chans,
         quant=channel.quant,
     )
-    # the tables must derive (every step a permutation) before a plan ships
-    plan.flow_dst_tables()
-    plan.rs_dst_tables()
-    plan.a2a_dst_tables()
+    _VERIFY_STATS["plan_misses"] += 1
+    from repro_torch import analysis  # lazy: the analysis passes import back into core
+
+    if analysis.verify.verify_enabled():
+        _verified(analysis.verify_plan, plan, "plans")
+    else:  # unverified, the tables must still derive (every step a permutation) before a plan ships
+        plan.flow_dst_tables()
+        plan.rs_dst_tables()
+        plan.a2a_dst_tables()
     return plan
 
 
@@ -299,12 +325,37 @@ def build_seq_plan(
     """Build (and cache) the chained plan for ``kinds``; ``channels`` may
     differ per op (e.g. tile orders) but agree on the axis, and
     ``num_channels`` is the shared *effective* count, clamped by the caller
-    against both extents."""
+    against both extents.  Every miss is verified
+    (``analysis.verify_seq_plan``: each half, the seam, and for the RS -> AG
+    pair the combined protocol pass) unless ``REPRO_VERIFY=0``."""
     if len(kinds) != len(channels):
         raise ValueError(f"got {len(kinds)} kinds but {len(channels)} channels")
-    return SeqPlan(ops=tuple(build_plan(k, ch, world, num_channels) for k, ch in zip(kinds, channels)))
+    seq = SeqPlan(ops=tuple(build_plan(k, ch, world, num_channels) for k, ch in zip(kinds, channels)))
+    _VERIFY_STATS["seq_misses"] += 1
+    from repro_torch import analysis
+
+    if analysis.verify.verify_enabled():
+        _verified(analysis.verify_seq_plan, seq, "seqs")
+    return seq
+
+
+def _verified(verify, plan, what: str):
+    """Run the verifier on a fresh plan, counting it verified or refused."""
+    try:
+        verify(plan)
+    except PlanVerificationError:
+        _VERIFY_STATS[f"{what}_refused"] += 1
+        raise
+    _VERIFY_STATS[f"{what}_verified"] += 1
 
 
 def plan_cache_info():
     """Cache statistics for the plan layer (hits == reused compilations)."""
     return build_plan.cache_info()
+
+
+def verify_stats() -> dict:
+    """The misses of ``build_plan`` / ``build_seq_plan`` since the process
+    started, and of them the plans the static verifier proved and refused:
+    misses == verified + refused unless ``REPRO_VERIFY=0`` skipped some."""
+    return dict(_VERIFY_STATS)

@@ -64,7 +64,7 @@ from repro_torch.core.quant import PackedWeight
 from repro_torch.kernels import build
 
 __all__ = [
-    "ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "AgItem", "TILE", "ROUTES", "device_table",
+    "ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "launch_plan", "AgItem", "TILE", "ROUTES", "device_table",
     "plain_weight", "refuse_quantized_wire",
 ]  # fmt: skip
 
@@ -166,7 +166,8 @@ def _check(x: torch.Tensor, w):
         )
 
 
-def _plan(x, w, channel):
+def launch_plan(x, w, channel=None):
+    """The plan the launch on these operands runs, and its channel."""
     world, m_loc = x.shape[0], x.shape[-2]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(m_loc, channel.num_channels, kind="ag_matmul")
@@ -176,7 +177,7 @@ def _plan(x, w, channel):
 def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChannel] = None) -> list:
     """The work items the bf16 route runs for these operands."""
     _check(x, w)
-    plan, _ = _plan(x, w, channel)
+    plan, _ = launch_plan(x, w, channel)
     return work_items(plan, (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1]))
 
 
@@ -195,7 +196,7 @@ def ag_gemm_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None,
     PyTorch, with the weight formed as ``x``'s route forms it (:func:`plain_weight`)."""
     _check(x, w)
     refuse_quantized_wire("ag_gemm", channel)
-    plan, _ = _plan(x, w, channel)
+    plan, _ = launch_plan(x, w, channel)
     wf, col_scale = plain_weight(w, x.dtype)
     world, nch = plan.world, plan.num_channels
     lead, (m_loc, k), n_loc = x.shape[1:-2], x.shape[-2:], w.shape[-1]
@@ -256,7 +257,7 @@ def ag_gemm(
     refuse_quantized_wire("ag_gemm", channel)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return ag_gemm_plain(x, w, channel=channel, return_gathered=return_gathered)
-    plan, channel = _plan(x, w, channel)
+    plan, channel = launch_plan(x, w, channel)
     w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("ag_gemm", x, w)
     if plan.accum_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ag_gemm kernel accumulates in float32 or bfloat16, not {plan.accum_dtype}")

@@ -57,7 +57,7 @@ from repro_torch.core.quant import PackedWeight, as_dtype, dtype_name
 from repro_torch.kernels import build
 from repro_torch.kernels.ag_gemm import device_table, plain_weight, refuse_quantized_wire
 
-__all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "tiles", "RsItem", "TILE"]
+__all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "launch_plan", "tiles", "RsItem", "TILE"]
 
 TILE = build.WGMMA_TILE  # the bf16 route's output tile (BM, BN)
 SEG_ROWS = 64  # rows of one batch row's segment a consumer warpgroup holds
@@ -142,7 +142,8 @@ def _check(x: torch.Tensor, w):
         raise ValueError(f"gemm_rs: {x.shape[-2]} rows do not divide over {x.shape[0]} ranks")
 
 
-def _plan(x, w, channel):
+def launch_plan(x, w, channel=None):
+    """The plan the launch on these operands runs, and its channel."""
     world, n = x.shape[0], w.shape[-1]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(n, channel.num_channels, kind="matmul_rs")
@@ -152,7 +153,7 @@ def _plan(x, w, channel):
 def launch_items(x: torch.Tensor, w, channel: Optional[BlockChannel] = None) -> list:
     """The work items the bf16 route runs for these operands."""
     _check(x, w)
-    plan, _ = _plan(x, w, channel)
+    plan, _ = launch_plan(x, w, channel)
     shape = (math.prod(x.shape[1:-2]), x.shape[-2], x.shape[-1], w.shape[-1])
     return work_items(plan, shape, align=box_align(w))
 
@@ -163,7 +164,7 @@ def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None)
     route forms it (``ag_gemm.plain_weight``)."""
     _check(x, w)
     refuse_quantized_wire("gemm_rs", channel)
-    plan, _ = _plan(x, w, channel)
+    plan, _ = launch_plan(x, w, channel)
     world, nch = plan.world, plan.num_channels
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
@@ -226,7 +227,7 @@ def gemm_rs(
     refuse_quantized_wire("gemm_rs", channel)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return gemm_rs_plain(x, w, channel=channel)
-    plan, channel = _plan(x, w, channel)
+    plan, channel = launch_plan(x, w, channel)
     w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("gemm_rs", x, w)
     wire = as_dtype(plan.flow_dtype)
     world, nch = plan.world, plan.num_channels

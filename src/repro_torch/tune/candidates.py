@@ -11,8 +11,10 @@ the measured ranker and the cost model iterate the tuple returned by
 The comm half enumerates as the JAX package's does: nested loops over the
 Space's ordered fields, each channel count clamped through
 ``mapping.effective_channels`` against the kind's chunked extent, each
-(order, C) built into a plan (``core/plan.build_plan`` raises ``PlanError``
-for a schedule that is not a per-step permutation), duplicates dropped.
+(order, C) statically verified (``analysis.check_candidate`` and its seam /
+a2a twins: the plan is built and proven, the fused kernels' flag protocol
+included, so no budget is spent on a point the executor would refuse),
+duplicates dropped.
 
 The compute and wire halves enumerate only what the port's code on the
 chosen :class:`Target` (backend, device, operand dtype) honours, so the
@@ -68,10 +70,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.channels import ORDERS, BlockChannel, CommSpec
+from repro_torch.analysis import check_a2a_candidate, check_candidate, check_seq_candidate
+from repro_torch.core.channels import ORDERS, BlockChannel
 from repro_torch.core.comp_tiles import DEFAULT_TILE, fma_n_tile, largest_divisor, resolve_tile
 from repro_torch.core.mapping import effective_channels
-from repro_torch.core.plan import PlanError, build_plan, build_seq_plan
 from repro_torch.core.quant import WIRE_DTYPES
 
 __all__ = [
@@ -350,19 +352,14 @@ def _accum_candidates(kind: str, space: Space, target: Optional[Target]) -> Tupl
     return accums
 
 
-@functools.lru_cache(maxsize=4096)
 def _legal(kinds: Tuple[str, ...], order: str, world: int, nch: int) -> bool:
-    """Whether ``order`` over ``world`` ranks at ``nch`` channels builds a plan
-    (one kind) or a chained plan (two kinds); ``PlanError`` means no."""
-    ch = BlockChannel(axis="model", comm=CommSpec(order=order), num_channels=nch)
-    try:
-        if len(kinds) == 1:
-            build_plan(kinds[0], ch, world, nch)
-        else:
-            build_seq_plan(kinds, (ch, ch), world, nch)
-    except PlanError:
-        return False
-    return True
+    """Whether ``order`` over ``world`` ranks at ``nch`` channels builds a
+    verified plan (one kind) or a verified chained plan (two kinds): the
+    analysis package's cached probes, None when legal."""
+    if len(kinds) == 1:
+        return check_candidate(kinds[0], order, world, nch) is None
+    probe = check_a2a_candidate if kinds == ("a2a_dispatch", "combine_rs") else check_seq_candidate
+    return probe(order, world, nch) is None
 
 
 def _route_refuses(kind: str, sig, nch: int, target: Optional[Target]) -> bool:

@@ -194,6 +194,46 @@ def test_bf16_fused_kernels_are_deterministic(dev, order, nch):
         assert torch.equal(K.gemm_rs(x, w, channel=ch), first)
 
 
+def _smollm_tp() -> dict:
+    """smollm-360m's four TP GEMMs at W = 4, 4 x 256 tokens: (kernel, x shape, w shape)."""
+    from repro_torch.nn.attention import layout
+
+    cfg = get_config("smollm-360m")
+    lay, d, f_loc = layout(cfg, 4), cfg.d_model, cfg.d_ff // 4
+    n_qkv, n_o = (lay.h_loc + 2 * lay.kv_loc) * cfg.hd, lay.h_loc * cfg.hd
+    return {
+        "qkv": ("ag_gemm", (4, 4, 64, d), (4, d, n_qkv)),
+        "o_proj": ("gemm_rs", (4, 4, 256, n_o), (4, n_o, d)),
+        "gate_up": ("ag_gemm", (4, 4, 64, d), (4, d, 2 * f_loc)),
+        "down": ("gemm_rs", (4, 4, 256, f_loc), (4, f_loc, d)),
+    }
+
+
+SMOLLM_TP = _smollm_tp()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("proj", list(SMOLLM_TP))
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2))))
+def test_fused_launch_verified_at_its_grid(dev, proj, order, nch, dtype):
+    """The static verifier proves each launch at the grid G the card gave it
+    (``analysis.verify_launch``: the bf16 items on G persistent blocks, the
+    float32 route's (n-tile, channel, rank) grid), and its output holds
+    against the plain version."""
+    from repro_torch import analysis
+
+    kind, xs, ws = SMOLLM_TP[proj]
+    fn, plain = (K.ag_gemm, K.ag_gemm_plain) if kind == "ag_gemm" else (K.gemm_rs, K.gemm_rs_plain)
+    fan = ws[1] if kind == "ag_gemm" else 4 * ws[1]
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    x, w = _rand(dev, dtype, *xs), _rand(dev, dtype, *ws, seed=1, scale=fan**-0.5)
+    out = fn(x, w, channel=ch)
+    grid = fn.last_launch["grid"]
+    report = analysis.verify_launch(kind, x, w, ch, grid)
+    assert report.passes == (f"launch[{build.ROUTES[dtype]}, G={grid}]",) and report.events > 0
+    _close(out, plain(x, w, channel=ch), dtype)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
     "bh,bhkv,sq,sk,d,causal,window",

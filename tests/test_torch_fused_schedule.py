@@ -7,26 +7,27 @@ on flags other items set.  Here, for every tile order, C in {1, 2}, the
 shapes of the three serve paths (W = 4 ranks, 4 requests x 256 tokens) and
 the card tests' ragged ones:
 
-  * a model of G persistent blocks (G in {1, 3, 7, 132}), each walking its
-    items in order and blocking on unset flags, never deadlocks, in round
+  * the flag-protocol model of ``repro_torch.analysis.protocol``
+    (``simulate``): G persistent blocks (G in {1, 3, 7, 132}), each walking
+    its items in order and blocking on unset flags, never deadlock, in round
     robin and in a seeded random interleaving;
-  * every flag an item waits on is set by an item with a smaller number
-    (the seed item of an AG m-tile fills the slot it reads itself);
-  * every gather / recv slot tile is written exactly once per pass, before
-    any read; every flag is set exactly once;
+  * (``check_order``) every flag an item waits on is set by an item with a
+    smaller number (the seed item of an AG m-tile fills the slot it reads
+    itself); every gather / recv slot tile is written exactly once per
+    pass, before any read; every flag is set exactly once;
   * the item index decodes to (s, r, c, mt, nt) as the kernels decode it;
   * the plain versions, which replay these items, equal the JAX package's
     oracles (``repro.kernels.ref.ag_gemm_ref`` / ``gemm_rs_ref``) in float32.
 """
 
 import itertools
-import random
 
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro_torch.analysis.protocol import check_order, simulate
 from repro_torch.core import BlockChannel, CommSpec
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import build_plan
@@ -88,61 +89,6 @@ def _rs_items(order, nch, shape):
     return plan, rs_work_items(plan, shape)
 
 
-def _simulate(items, grid, seed=None):
-    """G persistent blocks: block b runs items b, b+G, ... in order; an item
-    runs (its copies, then its flags) once the flag it waits on is set.
-    Returns the order the items ran in; fails on a deadlock or on a slot
-    tile read before it is written or written twice."""
-    queues = [list(range(b, len(items), grid)) for b in range(grid)]
-    pos = [0] * grid
-    flags, written, ran = set(), {}, []
-    rng = random.Random(seed)
-    active = [b for b in range(grid) if queues[b]]
-    while active:
-        progressed = False
-        order = list(active)
-        if seed is not None:
-            rng.shuffle(order)
-        for b in order:
-            it = items[queues[b][pos[b]]]
-            if it.wait is not None and it.wait not in flags:
-                continue  # spinning on a flag
-            for t in it.writes:
-                written[t] = written.get(t, 0) + 1
-                assert written[t] == 1, f"slot tile {t} written twice"
-            for t in it.reads:
-                assert written.get(t) == 1, f"item {it.index} reads slot tile {t} before it is written"
-            flags.update(it.sets)
-            ran.append(it.index)
-            pos[b] += 1
-            progressed = True
-        active = [b for b in range(grid) if pos[b] < len(queues[b])]
-        stuck = [queues[b][pos[b]] for b in active]
-        assert progressed or not active, f"deadlock with G = {grid}: blocks stuck at items {stuck}"
-    return ran
-
-
-def _check_order(items):
-    """Every wait is on a flag set by an item with a smaller number; every
-    flag set once; every slot tile written once, before any read."""
-    setter, writer = {}, {}
-    for it in items:
-        for f in it.sets:
-            assert f not in setter, f"flag {f} set twice"
-            setter[f] = it.index
-        for t in it.writes:
-            assert t not in writer, f"slot tile {t} written twice"
-            writer[t] = it.index
-    for it in items:
-        if it.wait is not None:
-            assert setter[it.wait] < it.index, (it, setter[it.wait])
-        for t in it.reads:
-            assert writer[t] <= it.index, (it, t)
-            assert writer[t] < it.index or t in it.writes  # only the AG seed item reads what it wrote itself
-    assert set(it.wait for it in items if it.wait is not None) <= set(setter)
-    return setter, writer
-
-
 def _decode(i, world, nch, mt, nt):
     """The kernels' decode of an item index (``wg_item``: mt fastest, s
     slowest) as (s, r, c, mt, nt)."""
@@ -155,7 +101,7 @@ def _decode(i, world, nch, mt, nt):
 def test_ag_gemm_schedule_never_deadlocks(order, nch, shape, grid):
     _, items = _ag_items(order, nch, AG_SHAPES[shape])
     for seed in (None, 7):
-        ran = _simulate(items, grid, seed)
+        ran = simulate(items, grid, seed)
         assert sorted(ran) == list(range(len(items)))
 
 
@@ -167,7 +113,7 @@ def test_ag_gemm_schedule_flags_and_slots(order, nch, shape):
     c_eff = plan.num_channels
     m_tiles, n_tiles = -(-b * (m_loc // c_eff) // 128), -(-n_loc // 128)
     assert len(items) == R * R * c_eff * m_tiles * n_tiles
-    setter, writer = _check_order(items)
+    setter, writer = check_order(items)
     for pos, it in enumerate(items):
         assert it.index == pos
         assert _decode(it.index, R, c_eff, m_tiles, n_tiles) == (it.s, it.r, it.c, it.mt, it.nt)
@@ -186,7 +132,7 @@ def test_ag_gemm_schedule_flags_and_slots(order, nch, shape):
 def test_gemm_rs_schedule_never_deadlocks(order, nch, shape, grid):
     _, items = _rs_items(order, nch, RS_SHAPES[shape])
     for seed in (None, 7):
-        ran = _simulate(items, grid, seed)
+        ran = simulate(items, grid, seed)
         assert sorted(ran) == list(range(len(items)))
 
 
@@ -197,7 +143,7 @@ def test_gemm_rs_schedule_flags_and_slots(order, nch, shape):
     c_eff = plan.num_channels
     _, m_tiles, n_tiles = rs_tiles(RS_SHAPES[shape], c_eff, R)
     assert len(items) == R * R * c_eff * m_tiles * n_tiles
-    setter, writer = _check_order(items)
+    setter, writer = check_order(items)
     for pos, it in enumerate(items):
         assert it.index == pos
         assert _decode(it.index, R, c_eff, m_tiles, n_tiles) == (it.s, it.r, it.c, it.mt, it.nt)

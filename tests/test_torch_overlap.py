@@ -238,3 +238,27 @@ def test_ag_matmul_ragged_width_matches_reference(mesh4, world, order, nch):
         np.testing.assert_allclose(_ag_unport(out), ref, **F32)
     for n_loc, bn in ((132, 66), (2580, 86)):
         assert largest_divisor(n_loc, tch.comp.tile[1]) == bn
+
+
+@pytest.mark.parametrize("order,nch", list(itertools.product(ORDERS, (1, 2, 4))))
+def test_psum_scatter_ring_matches_reference(mesh4, world, order, nch):
+    """The ``psum_scatter`` plan kind: a ring reduce-scatter of precomputed
+    partials, each rank's [B, M, N] partial to its [B, M / W, N] segment of
+    the sum, against the JAX package's ``psum_scatter_ring``."""
+    from repro.core.overlap import psum_scatter_ring as j_psum_scatter_ring
+    from repro_torch.core.overlap import psum_scatter_ring
+
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((R, 2, R * 6, 16)).astype(np.float32)  # rank r's partial at x[r]
+    jch, tch = _chans(order, nch)
+
+    def fn(xs):
+        return j_psum_scatter_ring(xs[0], axis="model", channel=jch)[None]
+
+    sm = shard_map(fn, mesh4, in_specs=(P("model", None, None, None),), out_specs=P("model", None, None, None))
+    ref = np.asarray(jax.jit(sm)(jnp.asarray(x)))
+    out = psum_scatter_ring(torch.from_numpy(x), world=world, channel=tch)
+    assert out.shape == (R, 2, 6, 16)
+    np.testing.assert_allclose(out.numpy(), ref, **F32)
+    segs = x.sum(0).reshape(2, R, 6, 16).transpose(1, 0, 2, 3)  # rank r's row segment of the sum
+    np.testing.assert_allclose(out.numpy(), segs, **F32)
