@@ -300,6 +300,25 @@ non-zero (no phase catches its own failure):
               phase also prints the register spills of the fused kernels'
               float32 route (``ag_gemm_kernel`` / ``gemm_rs_kernel``), which
               the tuner's FMA candidates run: recorded, not failed on.
+  19c. dryrun the dry-run planner (``repro_torch.launch.dryrun``) held to the
+              card: (a) every (arch x shape) cell of ``SHAPES`` planned on
+              the production mesh (data 32, model 8: 256 H100s) with the
+              costs extrapolated from 1 and 2 scan units, and on the
+              multi-pod mesh (pod 2: 512) for memory only, on ``meta`` in
+              DRYRUN_JOBS processes; the report table printed; every cell
+              ``cell_is_applicable`` accepts must be ``ok``, every other
+              ``skipped`` with its reason; the phase's host seconds.  (b)
+              calibration on the card's own mesh (``make_dev_mesh``: dp 1,
+              model 4) for smollm-360m's bf16 train step (8 x 256, the
+              train phase's) and bf16 prefill (4 x 256, the serve phase's):
+              the predicted argument bytes of the W ranks (parameters, and
+              for the step the AdamW state) within CAL_ARG_RTOL of
+              ``torch.cuda.memory_allocated()`` after placing them; the
+              predicted peak (arguments, inputs and the eager path's
+              temporaries on meta) over the step's measured
+              ``max_memory_allocated()``, within CAL_PEAK; the compute,
+              memory and collective terms of the W ranks at the card's
+              ``HW`` beside the step's measured ms (CUDA events), recorded.
   20. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
@@ -512,6 +531,12 @@ E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
 # the verify phase: processes proving the launches of (b) beside the card's launches
 VERIFY_WORKERS = 6
+# the dryrun phase: (a) processes planning the grid on meta; (b) the calibration's bounds: predicted
+# argument bytes against memory_allocated (both exact sizes: the allocator's rounding only), and the
+# predicted peak over the measured one (the plan runs the eager path, the card the fused kernels)
+DRYRUN_JOBS = 8
+CAL_ARG_RTOL = 0.02
+CAL_PEAK = (0.5, 2.0)
 REPLACES = {
     "matmul": "src/repro/kernels/matmul.py:35",
     "ag_gemm": "src/repro/kernels/ag_gemm.py:145",
@@ -4114,6 +4139,121 @@ def _verify_poked() -> dict:
     return {"refused": str(err), "launches": K.ag_gemm.launches - before}
 
 
+def _calibrate(tag: str, shape, smi: str) -> dict:
+    """(b) one calibration cell: smollm-360m's bf16 ``shape`` planned on the
+    card's mesh and run on the card (module docstring, phase 19c)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.roofline import HW
+    from repro_torch.models import lm
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    mesh = make_dev_mesh(WORLD)
+    plan = dryrun.run_cell(ARCH, shape, mesh=mesh, remat="none", verbose=False)
+    if plan["status"] != "ok":
+        raise SystemExit(f"chip_smoke: the plan of {tag} is {plan['status']}: {plan}")
+    args_world = plan["memory"]["world"]["arguments"]
+    placed_pred = args_world["params"] + args_world.get("opt_state", 0)
+    peak_pred = sum(args_world.values()) + plan["memory"]["world"]["temp_size_in_bytes"]
+
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    pc = mesh.context()
+    params = lm.init(cfg, pc.world, torch.Generator(device=pc.device).manual_seed(0), torch.bfloat16)
+    opt = init_opt_state(lm.trainable(params, cfg)) if shape.kind == "train" else None
+    torch.cuda.synchronize()
+    placed = torch.cuda.memory_allocated() - base
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=shape.seq_len, global_batch=shape.global_batch).host_batch()
+    state = None
+    if shape.kind == "train":
+        step = make_train_step(lm, cfg, pc, AdamWConfig(), remat_policy="none", grad_masks=lm.grad_masks(cfg, pc),
+                               donate=True)  # fmt: skip
+        state = [params, opt]
+
+        def run():
+            state[0], state[1], m = step(state[0], state[1], batch)
+            return m["loss"]
+
+    else:
+        tokens = torch.as_tensor(batch["inputs"], device=pc.device)
+
+        def run():
+            with torch.no_grad():
+                return lm.prefill(params, cfg, pc, tokens, max_len=shape.seq_len)[0]
+
+    run()  # warm-up: the kernels' first launches and the allocator's pools
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = run()
+    e1.record()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.float()).all()):
+        raise SystemExit(f"chip_smoke: the {tag} calibration step gave non-finite values")
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() - base
+    arg_err = abs(placed_pred - placed) / placed
+    ratio = peak_pred / peak
+    # the W ranks' work on the one card: the plan's per-device terms times W, at the card's own rates
+    w = mesh.shape["model"]
+    flops, nbytes = plan["cost"]["flops"] * w, plan["cost"]["bytes_accessed"] * w
+    coll = plan["collective_axes"]["model"] * w
+    terms = {"compute_ms": flops / HW["peak_flops"] * 1e3, "memory_ms": nbytes / HW["hbm_bw"] * 1e3,
+             "collective_ms": coll / HW["link_bw"] * 1e3}  # fmt: skip
+    print(f"[dryrun] (b) {tag}: smollm-360m bf16 {shape.global_batch} x {shape.seq_len}, W = {w} on one card ({smi}): "
+          f"arguments predicted {placed_pred} B, memory_allocated after placing them {placed} B (rel err "
+          f"{arg_err:.3e}, bound {CAL_ARG_RTOL:g}); peak predicted {peak_pred:.0f} B, measured max_memory_allocated "
+          f"{peak} B, ratio {ratio:.4f} (bound {CAL_PEAK[0]:g}-{CAL_PEAK[1]:g}); the plan's terms at the card's "
+          f"HW (data sheet): compute {terms['compute_ms']:.4f} ms, memory {terms['memory_ms']:.4f} ms (unfused "
+          f"bytes), collective {terms['collective_ms']:.4f} ms, beside the measured step {ms:.3f} ms")  # fmt: skip
+    if arg_err > CAL_ARG_RTOL or not CAL_PEAK[0] <= ratio <= CAL_PEAK[1]:
+        raise SystemExit(f"chip_smoke: the plan of {tag} misses the card: argument rel err {arg_err:.3e}, "
+                         f"peak ratio {ratio:.4f}")  # fmt: skip
+    params = opt = state = None
+    torch.cuda.empty_cache()
+    return {"arguments_predicted": placed_pred, "arguments_measured": placed, "argument_rel_err": arg_err,
+            "peak_predicted": peak_pred, "peak_measured": peak, "peak_ratio": ratio, "terms_ms": terms,
+            "step_ms": ms, "plan": plan}  # fmt: skip
+
+
+def phase_dryrun(smi: str) -> dict:
+    """The dry-run planner held to the card (module docstring, phase 19c)."""
+    from repro_torch.configs import ARCH_NAMES, SHAPES, Shape, get_config
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.specs import cell_is_applicable
+
+    t0 = time.perf_counter()
+    results = dryrun.run_grid(jobs=DRYRUN_JOBS)
+    grid_s = time.perf_counter() - t0
+    print(report.table(results))
+    bad = []
+    for r in results:
+        ok, why = cell_is_applicable(get_config(r["arch"]), SHAPES[r["shape"]])
+        want = {"status": "ok"} if ok else {"status": "skipped", "reason": why}
+        if any(r.get(k) != v for k, v in want.items()):
+            bad.append((r["arch"], r["shape"], r["multi_pod"], r["status"], r.get("error")))
+    n_ok = sum(r["status"] == "ok" for r in results)
+    print(f"[dryrun] (a) {len(results)} cells ({len(ARCH_NAMES)} archs x {len(SHAPES)} shapes x single / multi-pod), "
+          f"{n_ok} ok, {len(results) - n_ok} skipped; {grid_s:.1f} host s in {DRYRUN_JOBS} processes; the terms are "
+          "predictions at H100 SXM data-sheet rates (700 W), not measurements")  # fmt: skip
+    if bad:
+        raise SystemExit(f"chip_smoke: dry-run cells off the reference's rule: {bad[:8]}")
+    out = {"grid_s": grid_s, "cells": {f"{r['arch']} {r['shape']} {'mp' if r['multi_pod'] else 'sp'}": r
+                                       for r in results}}  # fmt: skip
+    out["train"] = _calibrate("train", Shape("train_8x256", TRAIN_SEQ, TRAIN_BATCH, "train"), smi)
+    out["prefill"] = _calibrate("prefill", Shape("prefill_4x256", PROMPT, BATCH, "prefill"), smi)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase host seconds: {out['phase_s']:.1f} (the grid {grid_s:.1f})")
+    return out
+
+
 def phase_verify() -> dict:
     """The static verifier on the card (module docstring, phase verify):
     (b)'s launches first, their proofs in VERIFY_WORKERS processes, (a) in
@@ -4199,7 +4339,7 @@ def main(argv=None) -> int:
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
-              "tune": lambda: phase_tune(smi),
+              "tune": lambda: phase_tune(smi), "dryrun": lambda: phase_dryrun(smi),
               # last but one: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
               "kernels": lambda: phase_kernels(ITERS),

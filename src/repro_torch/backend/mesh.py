@@ -15,18 +15,68 @@ emulated on one device:
 The methods below are the transport interface the executors use; a
 ``torch.distributed`` or real-peer transport would implement the same
 methods over per-process tensors.
+
+``World.counting()`` turns on a :class:`CommCounter` for the transport:
+every ``permute`` / ``psum`` / ``all_gather`` / ``reduce_scatter`` then
+records its payload bytes per rank, by kind, with the group size, and a
+permute also by link direction (the sign of dst - src voted over its first
+pairs, as ``repro/launch/roofline.parse_collective_bytes`` classifies a
+collective-permute).  ``launch/roofline.collective_bytes`` weights them
+into per-device link bytes.  The counter reads shapes only (no host sync,
+so it may stay on inside a CUDA-graph capture), and with none enabled a
+call pays one attribute test.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from collections import defaultdict
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.backend.target import resolve_device
 
-__all__ = ["World"]
+__all__ = ["World", "CommCounter", "KINDS", "permute_direction"]
+
+KINDS = ("permute", "psum", "all_gather", "reduce_scatter")  # the transport's collectives
+VOTES = 8  # pairs a permute's direction is voted over (the JAX package's parser reads the first 8)
+
+
+def permute_direction(pairs: Sequence[Tuple[int, int]]) -> int:
+    """+1 or -1: the link direction of a permute, the sign of dst - src
+    voted over its first :data:`VOTES` pairs (ties count as +1)."""
+    votes = sum(1 if dst > src else -1 for src, dst in list(pairs)[:VOTES])
+    return 1 if votes >= 0 else -1
+
+
+class CommCounter:
+    """Payload bytes per rank that a world's transport moved since the last
+    :meth:`reset`.
+
+    ``payload[kind][g]``: the bytes of one rank's payload summed over the
+    calls of ``kind`` over a group of ``g`` ranks (a permute's and a psum's
+    input, an all-gather's gathered output, a reduce-scatter's scattered
+    output: the payloads the JAX package's HLO parser reads);
+    ``permute_dirs[+1 | -1]``: the permutes' payload by link direction."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.payload: Dict[str, Dict[int, float]] = {k: defaultdict(float) for k in KINDS}
+        self.permute_dirs: Dict[int, float] = defaultdict(float)
+
+    def add(self, kind: str, nbytes: float, group: int, direction: Optional[int] = None):
+        self.payload[kind][group] += nbytes
+        if direction is not None:
+            self.permute_dirs[direction] += nbytes
+
+
+def _rank_bytes(xs: torch.Tensor, ranks: int) -> int:
+    """One rank's share of a rank-stacked value's bytes (shape only)."""
+    return xs.numel() // ranks * xs.element_size()
 
 
 class World:
@@ -37,9 +87,21 @@ class World:
             raise ValueError(f"world size must be >= 1, got {size}")
         self.size = int(size)
         self.device = resolve_device(device)
+        self.counter: Optional[CommCounter] = None
 
     def __repr__(self) -> str:
         return f"World(size={self.size}, device={self.device})"
+
+    @contextlib.contextmanager
+    def counting(self, counter: Optional[CommCounter] = None):
+        """Record the transport's payloads into ``counter`` (a new
+        :class:`CommCounter` by default) inside; yields the counter."""
+        counter = CommCounter() if counter is None else counter
+        before, self.counter = self.counter, counter
+        try:
+            yield counter
+        finally:
+            self.counter = before
 
     # ---- layout: global <-> rank-stacked --------------------------------
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -62,6 +124,8 @@ class World:
         repeated permute issues no host-to-device copy (and a CUDA-graph
         capture may replay one whose index was built before it)."""
         self._check(xs)
+        if self.counter is not None:
+            self.counter.add("permute", _rank_bytes(xs, self.size), self.size, permute_direction(pairs))
         order = [0] * self.size
         for src, dst in pairs:
             order[dst] = src
@@ -70,17 +134,24 @@ class World:
     def psum(self, xs: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks; the replicated result is stored once."""
         self._check(xs)
+        if self.counter is not None:
+            self.counter.add("psum", _rank_bytes(xs, self.size), self.size)
         return xs.sum(0)
 
     def all_gather(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's view of the concatenation along per-rank ``dim``
         (a broadcast view of one gathered tensor)."""
         g = self.unshard(xs, dim)
+        if self.counter is not None:
+            self.counter.add("all_gather", g.numel() * g.element_size(), self.size)
         return g.unsqueeze(0).expand((self.size,) + tuple(g.shape))
 
     def reduce_scatter(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Sum over the ranks, then each rank keeps its chunk of per-rank ``dim``."""
-        return self.shard(self.psum(xs), dim)
+        self._check(xs)
+        if self.counter is not None:
+            self.counter.add("reduce_scatter", _rank_bytes(xs, self.size) // self.size, self.size)
+        return self.shard(xs.sum(0), dim)
 
     def _check(self, xs: torch.Tensor):
         if xs.shape[0] != self.size:

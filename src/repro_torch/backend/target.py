@@ -4,7 +4,10 @@ The JAX package picks a lowering target ("tpu" or "emulated").  The port's
 entry points run on the card: ``resolve_device(None)`` is ``cuda``, and it
 raises when no CUDA device is present.  The CPU is used only when the caller
 asks for it (``device="cpu"``), as the tests do — the kernel wrappers then
-run their plain PyTorch versions.  Nothing falls back quietly.
+run their plain PyTorch versions.  ``device="meta"`` (tensors with a shape
+and a dtype and no storage) is accepted when asked for by name, for abstract
+evaluation only (``launch/dryrun``: the eager path run for its shapes, bytes
+and FLOPs).  Nothing falls back quietly, to the CPU or to ``meta``.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu' (or 'meta', abstractly), got {dev}")
     return dev
 

@@ -2,7 +2,7 @@
 dense; granite-moe-3b-a800m and deepseek-moe-16b MoE; mamba2-2.7b SSM; zamba2-2.7b hybrid;
 seamless-m4t-medium encoder-decoder; paligemma-3b VLM)."""
 
-from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig, get_config, reduce_config, register
+from repro_torch.configs.base import SHAPES, ArchConfig, MoEConfig, Shape, SSMConfig, get_config, reduce_config, register
 from repro_torch.configs import (  # noqa: F401 — registration side effect
     deepseek_moe_16b,
     gemma3_27b,
@@ -16,4 +16,9 @@ from repro_torch.configs import (  # noqa: F401 — registration side effect
     zamba2_2p7b,
 )
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "get_config", "reduce_config", "register"]
+from repro_torch.configs.base import _REGISTRY as REGISTRY
+
+ARCH_NAMES = sorted(REGISTRY)
+
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "Shape", "SHAPES", "get_config", "reduce_config", "register",
+           "REGISTRY", "ARCH_NAMES"]  # fmt: skip

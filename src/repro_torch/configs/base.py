@@ -5,6 +5,8 @@ encoder-decoder and the stub-frontend models): one :class:`ArchConfig` per archi
 name.  The field names and defaults match the JAX package's, so a config
 built here and one built there describe the same model.  ``reduce_config`` is the
 same-family shrink of ``repro/launch/train.py`` used by the CPU tests.
+``SHAPES`` is the JAX package's input-shape set (the dry-run's cells:
+``launch/dryrun``), names, lengths, batches and kinds unchanged.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "PORT_FIELDS", "register", "get_config", "reduce_config"]
+__all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "Shape", "SHAPES", "PORT_FIELDS", "register", "get_config",
+           "reduce_config"]  # fmt: skip
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +112,21 @@ class ArchConfig:
         n_moe = sum(1 for i in range(self.n_layers) if self.layer_kind(i) not in ("attn_dense", "mamba"))
         return self.param_count() - n_moe * e_idle * 3 * self.d_model * self.moe.d_expert
 
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", 4096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524288, 1, "decode"),
+}
 
 # fields of ArchConfig that the JAX package's config does not have
 PORT_FIELDS = ("embed_scale",)

@@ -239,11 +239,40 @@ def _w_cols(w, lo: int, hi: int):
     return w[..., lo:hi]
 
 
+class _RankDot(torch.autograd.Function):
+    """``torch.matmul(a.float(), w.float())`` per rank, the weight [W, K, n]
+    broadcast over a's lead dims, keeping ``a`` and ``w`` as given for the
+    backward.  Autograd's own broadcast matmul would save the float32
+    weight expanded to every lead index, a contiguous copy per batch row
+    (B copies of the weight for every tile of a step), and the float32
+    copy of ``a``.  The forward is the same product; the backward forms
+    da per lead index as autograd does and dw as one GEMM over every row
+    (the fused ops' ``_weight_grad`` form; float32 sums in another order)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.matmul(a.float(), _rank_weight(w, a.dim() - 3).float())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = torch.matmul(g, _rank_weight(w, a.dim() - 3).float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            rows = a.reshape(a.shape[0], -1, a.shape[-1]).float().transpose(1, 2)
+            dw = torch.matmul(rows, g.reshape(g.shape[0], -1, g.shape[-1])).to(w.dtype)
+        return da, dw
+
+
 def _consume_dot(a, w, comp_tile, accum, out_dtype=None):
     """One consumer GEMM tile ``a @ w`` per rank, honoring the CompSpec tile.
 
     The product is formed in float32 and rounded to ``accum`` (the JAX
-    package's ``preferred_element_type``), then to ``out_dtype``.  A
+    package's ``preferred_element_type``), then to ``out_dtype``; under
+    autograd through :class:`_RankDot` (no per-batch copies of the weight
+    kept for the backward).  A
     :class:`~repro_torch.core.quant.PackedWeight` ``w`` always goes through
     ``blocked_dot`` (the whole problem as one block under the default tile),
     which dequantizes its codes per block, as the JAX package's executor does.
@@ -254,6 +283,8 @@ def _consume_dot(a, w, comp_tile, accum, out_dtype=None):
         out = blocked_dot(a.float(), wb, tile, accum=torch.float32)
     elif tuple(comp_tile) != DEFAULT_TILE:
         out = blocked_dot(a, wb, tuple(comp_tile), accum=torch.float32)
+    elif torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        out = _RankDot.apply(a, w)
     else:
         out = torch.matmul(a.float(), wb.float())
     out = out.to(accum)

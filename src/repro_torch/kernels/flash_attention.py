@@ -196,6 +196,7 @@ def chunked_attention(
     scale: Optional[float] = None,
     state: Optional[FlashState] = None,
     final: bool = True,
+    p_bf16: bool = False,
 ):
     """Online-softmax attention over KV chunks.
 
@@ -204,6 +205,8 @@ def chunked_attention(
     chunks are skipped.  ``state`` (m, l [B, H, Sq], o [B, H, Sq, hd],
     float32) carries the online softmax in from earlier key ranges; with
     ``final=False`` the new state is returned instead of the output.
+    ``p_bf16`` rounds P and the values to bf16 before P V, the product
+    accumulated in float32 (the JAX package's ``p_bf16``).
     """
     b, h, sq, hd = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -245,6 +248,8 @@ def chunked_attention(
         p = torch.exp(s - m_new)
         alpha = torch.exp(m_i - m_new)
         l_i = l_i * alpha + p.sum(-1, keepdim=True)
+        if p_bf16:  # bf16 operands, exact products, float32 sums
+            p, vj = p.bfloat16().float(), vj.bfloat16().float()
         o_i = o_i * alpha + torch.matmul(p, vj)
         m_i = m_new
     if not final:

@@ -27,8 +27,8 @@ Training differentiates :func:`forward` with ``torch.autograd`` as
 layer of both stacks in the backward.  :func:`grad_masks` is the
 reference's (none), :func:`decay_mask` its rule (every leaf of the scanned
 stacks and the matrices; not ``enc_ln`` / ``final_ln``), :func:`sync_grads`
-its kv-copy averaging.  The JAX package's ``specs`` / ``cache_specs`` have
-no counterpart: the port has no partition specs.
+its kv-copy averaging.  :func:`specs` / :func:`cache_specs` are the JAX
+package's partition specs on the port's leaves (``parallel/sharding``).
 """
 
 from __future__ import annotations
@@ -42,9 +42,10 @@ from repro_torch.models.lm import REMAT_POLICIES, logits, padded_vocab
 from repro_torch.nn import attention, ffn
 from repro_torch.nn.layers import emb_init, rms_norm
 from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.sharding import Spec
 
 __all__ = [
-    "init", "encode", "forward", "init_caches", "build_cross_caches", "decode_step", "trainable", "with_tied",
+    "init", "specs", "cache_specs", "encode", "forward", "init_caches", "build_cross_caches", "decode_step", "trainable", "with_tied",
     "check_trainable", "grad_masks", "decay_mask", "sync_grads",
 ]  # fmt: skip
 
@@ -73,6 +74,26 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
         "lm_head": emb_init((cfg.d_model, padded_vocab(cfg, tp)), generator, dtype, device),
     }
     return shard_params(glob, cfg, world)
+
+
+def specs(cfg, pc: ParallelContext) -> dict:
+    """The specs of :func:`init`'s tree (``repro/models/encdec.specs``):
+    ``embed`` ``P("model", dp)``, ``head`` ``P(dp, "model")``, every layer's
+    blocks (a decoder layer's cross mixer as two column shards)."""
+    dp = pc.dp_spec()
+    enc = {"attn": attention.specs(cfg, pc.tp, dp), "ffn": ffn.specs(cfg, pc.tp, dp)}
+    dec = {"attn": attention.specs(cfg, pc.tp, dp), "cross": attention.cross_specs(cfg, pc.tp, dp),
+           "ffn": ffn.specs(cfg, pc.tp, dp)}  # fmt: skip
+    return {
+        "embed": Spec("model", None, dp), "head": Spec(dp, "model"), "enc_ln": Spec(None), "final_ln": Spec(None),
+        "enc_layers": [dict(enc) for _ in range(cfg.encoder_layers)], "dec_layers": [dict(dec) for _ in range(cfg.n_layers)],
+    }  # fmt: skip
+
+
+def cache_specs(cfg, pc: ParallelContext) -> dict:
+    """The specs of :func:`init_caches`' tree (``repro/models/encdec.cache_specs``)."""
+    sp = attention.cache_specs(pc.dp_spec())
+    return {"self": [sp] * cfg.n_layers, "cross": [sp] * cfg.n_layers}
 
 
 def _check_seq(pc: ParallelContext, s: int, what: str):

@@ -69,10 +69,14 @@ from repro_torch.kernels.matmul import matmul, matmul_plain
 from repro_torch.nn import attention, ffn, mamba, moe
 from repro_torch.nn.layers import emb_init, rms_norm
 from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.sharding import Spec
 
 __all__ = [
     "LayerDef",
     "layer_plan",
+    "scan_units",
+    "specs",
+    "cache_specs",
     "segments",
     "init",
     "padded_vocab",
@@ -168,6 +172,22 @@ class LayerDef:
         x, _ = self._ffn_seq(params, x, pc, cfg)
         return x, kv
 
+    def specs(self, cfg, pc, dp):
+        """This layer's parameter specs (its mixer's, unless shared, and its FFN's)."""
+        s = {}
+        if self.kind == "mamba":
+            s["mixer"] = mamba.specs(cfg, pc.tp, dp)
+        elif not self.shared:
+            s["mixer"] = attention.specs(cfg, pc.tp, dp)
+        if self.ffn_kind == "mlp":
+            s["ffn"] = ffn.specs(cfg, pc.tp, dp)
+        elif self.ffn_kind == "moe":
+            s["ffn"] = moe.specs(cfg, pc.tp, dp)
+        return s
+
+    def cache_specs(self, dp):
+        return mamba.cache_specs(dp) if self.kind == "mamba" else attention.cache_specs(dp)
+
     def init_cache(self, cfg, pc, batch, max_len, dtype):
         if self.kind == "mamba":
             return mamba.init_cache(cfg, pc.tp, batch, dtype, pc.device)
@@ -219,13 +239,22 @@ def layer_plan(cfg) -> List[LayerDef]:
     return [_layer_def(cfg, cfg.layer_kind(i)) for i in range(cfg.n_layers)]
 
 
+def scan_units(cfg) -> tuple:
+    """(prefix layers, layers per unit, units, suffix layers): the JAX
+    package's ``layer_plan`` split of the depth (the ``first_k_dense``
+    prefix, then whole ``cfg.pattern`` periods under its ``lax.scan``, then
+    the remainder)."""
+    k0 = cfg.moe.first_k_dense if cfg.moe else 0
+    period = len(cfg.pattern)
+    n_units = (cfg.n_layers - k0) // period
+    return k0, period, n_units, cfg.n_layers - k0 - n_units * period
+
+
 def segments(cfg) -> List[range]:
     """The JAX package's layer segments over the flat layer list: the
     ``first_k_dense`` prefix, one per ``cfg.pattern`` period, the suffix
     (``repro/models/lm.layer_plan``).  Seam chains do not cross them."""
-    k0 = cfg.moe.first_k_dense if cfg.moe else 0
-    period = len(cfg.pattern)
-    n_units = (cfg.n_layers - k0) // period
+    k0, period, n_units, _ = scan_units(cfg)
     bounds = [0, k0] + [k0 + (u + 1) * period for u in range(n_units)] + [cfg.n_layers]
     return [range(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
 
@@ -285,6 +314,25 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
             layer["ffn"] = moe.init(cfg, tp, generator, dtype, device)
         glob["layers"].append(layer)
     return shard_params(glob, cfg, world)
+
+
+def specs(cfg, pc: ParallelContext) -> dict:
+    """The parameter specs of :func:`init`'s tree (``repro/models/lm.specs``
+    on the port's layout): ``embed`` [W, V/W, D] (``P("model", dp)``),
+    ``head`` [D, V] (``P(dp, "model")``: the LM head, a stored copy of the
+    embedding when tied), each layer's and the shared mixer's blocks; the
+    data axes are ``pc.dp_spec()``."""
+    dp = pc.dp_spec()
+    s = {"embed": Spec("model", None, dp), "head": Spec(dp, "model"), "final_ln": Spec(None)}
+    if _uses_shared(cfg):
+        s["shared_attn"] = attention.specs(cfg, pc.tp, dp)
+    s["layers"] = [d.specs(cfg, pc, dp) for d in layer_plan(cfg)]
+    return s
+
+
+def cache_specs(cfg, pc: ParallelContext) -> list:
+    """The specs of :func:`init_caches`' list, one per layer."""
+    return [d.cache_specs(pc.dp_spec()) for d in layer_plan(cfg)]
 
 
 def embed_tokens(params: dict, cfg, tokens: Optional[torch.Tensor], embeds: Optional[torch.Tensor] = None):
@@ -448,9 +496,8 @@ def grad_masks(cfg, pc: ParallelContext) -> dict:
 def _scanned(cfg) -> range:
     """The layers the JAX package stacks under its ``lax.scan`` (whole
     ``cfg.pattern`` periods after the ``first_k_dense`` prefix)."""
-    k0 = cfg.moe.first_k_dense if cfg.moe else 0
-    period = len(cfg.pattern)
-    return range(k0, k0 + (cfg.n_layers - k0) // period * period)
+    k0, period, n_units, _ = scan_units(cfg)
+    return range(k0, k0 + n_units * period)
 
 
 def decay_mask(tree: dict, cfg) -> dict:

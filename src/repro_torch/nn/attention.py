@@ -54,11 +54,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import chunked_attention, flash_attention
+from repro_torch.kernels.flash_attention import chunked_attention, flash_attention, route
 from repro_torch.nn.layers import GQALayout, gqa_layout, he_init, rms_norm, rope, sync_kv_grad
+from repro_torch.parallel.sharding import Spec
 
 __all__ = [
     "init",
+    "specs",
+    "cross_specs",
+    "cache_specs",
     "apply_seq",
     "apply_seq_ring",
     "apply_decode",
@@ -102,6 +106,31 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
         **({"bq": torch.zeros((lay.h_pad * hd,), dtype=dtype, device=device),
             "bkv": torch.zeros((lay.kv_store * 2 * hd,), dtype=dtype, device=device)} if cfg.qkv_bias else {}),
     }  # fmt: skip
+
+
+def specs(cfg, tp: int, dp) -> dict:
+    """The specs of the port's attention leaves (``repro/nn/attention.specs``
+    on the rank-stacked layout): ``wqkv`` [W, D, cols] joins ``wq`` / ``wkv``
+    (``P(dp, "model")``: D over the data axes ``dp``), ``wo`` [W, rows, D]
+    (``P("model", dp)``), ``bqkv`` [W, cols] (``P("model")``), ``ln``
+    replicated."""
+    s = {"ln": Spec(None), "wqkv": Spec("model", dp, None), "wo": Spec("model", None, dp)}
+    if cfg.qkv_bias:
+        s["bqkv"] = Spec("model", None)
+    return s
+
+
+def cross_specs(cfg, tp: int, dp) -> dict:
+    """A cross mixer's specs: ``wq`` / ``wkv`` as two column shards (each
+    ``P(dp, "model")`` in the JAX package), ``wo`` by rows."""
+    return {"ln": Spec(None), "wq": Spec("model", dp, None), "wkv": Spec("model", dp, None),
+            "wo": Spec("model", None, dp)}  # fmt: skip
+
+
+def cache_specs(dp) -> dict:
+    """The KV cache [W, B, kv_loc, L, hd]: heads over the ranks, the batch over
+    the data axes (``repro/nn/attention.cache_specs``)."""
+    return {"k": Spec("model", dp, None, None, None), "v": Spec("model", dp, None, None, None)}
 
 
 def grad_masks(cfg, tp: int, device=None):
@@ -242,6 +271,12 @@ def apply_seq(
     k = k.permute(0, 1, 3, 2, 4).contiguous()
     v = v.permute(0, 1, 3, 2, 4).contiguous()
     if pc.fused:
+        if pc.attn_p_bf16 and route(q.dtype, hd) != "wgmma":
+            raise NotImplementedError(
+                f"attn_p_bf16 on the fused backend needs the wgmma route (bf16 at head dims 64 / 80 / 128 / 256, "
+                f"which takes P in bf16); {q.dtype} at head dim {hd} runs the float32 FMA kernel, which keeps P "
+                "in float32"
+            )
         # rank and batch fold into the head dimension of the kernel
         o = flash_attention(
             q.reshape(world * b * lay.h_loc, s_glob, hd),
@@ -258,6 +293,7 @@ def apply_seq(
             causal=causal,
             window=window,
             chunk=min(attn_chunk, s_glob),
+            p_bf16=pc.attn_p_bf16,
         )
     o = o.reshape(world, b, lay.h_loc, s_glob, hd).permute(0, 1, 3, 2, 4).reshape(world, b, s_glob, lay.h_loc * hd)
     y = _out_proj(o, params, x, pc, next_proj)

@@ -23,8 +23,9 @@ import dataclasses
 import torch
 
 from repro_torch.nn.layers import ACTS, he_init, rms_norm
+from repro_torch.parallel.sharding import Spec
 
-__all__ = ["init", "apply_seq", "apply_decode", "seam_proj"]
+__all__ = ["init", "specs", "apply_seq", "apply_decode", "seam_proj"]
 
 
 def init(cfg, generator: torch.Generator, dtype: torch.dtype, device, d_ff=None) -> dict:
@@ -36,6 +37,13 @@ def init(cfg, generator: torch.Generator, dtype: torch.dtype, device, d_ff=None)
         "w_gu": he_init((d, 2 * f), generator, dtype, device, fan_in=d),
         "w_down": he_init((f, d), generator, dtype, device, fan_in=f),
     }
+
+
+def specs(cfg, tp: int, dp) -> dict:
+    """``repro/nn/ffn.specs`` on the rank-stacked layout: ``w_gu`` [W, D,
+    2 f_loc] by columns (``P(dp, "model")``), ``w_down`` [W, f_loc, D] by rows
+    (``P("model", dp)``); D over the data axes ``dp``."""
+    return {"ln": Spec(None), "w_gu": Spec("model", dp, None), "w_down": Spec("model", None, dp)}
 
 
 def _gate(cfg, gu: torch.Tensor) -> torch.Tensor:

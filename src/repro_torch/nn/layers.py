@@ -59,12 +59,16 @@ def he_init(
     device: torch.device,
     fan_in: Optional[int] = None,
 ) -> torch.Tensor:
+    if torch.device(device).type == "meta":  # abstract evaluation: the shape alone, nothing drawn
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     fan = (fan_in or shape[-2]) if len(shape) >= 2 else shape[-1]
     w = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
     return (w * (1.0 / math.sqrt(fan))).to(dtype)
 
 
 def emb_init(shape: Sequence[int], generator: torch.Generator, dtype: torch.dtype, device: torch.device):
+    if torch.device(device).type == "meta":  # abstract evaluation: the shape alone, nothing drawn
+        return torch.empty(tuple(shape), dtype=dtype, device=device)
     w = torch.randn(tuple(shape), generator=generator, device=device, dtype=torch.float32)
     return (w * 0.02).to(dtype)
 

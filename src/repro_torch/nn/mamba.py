@@ -36,8 +36,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_ssd import ssd_chunked
 from repro_torch.nn.layers import he_init, rms_norm
+from repro_torch.parallel.sharding import Spec
 
-__all__ = ["init", "apply_seq", "apply_decode", "apply_decode_chunk", "init_cache"]
+__all__ = ["init", "specs", "apply_seq", "apply_decode", "apply_decode_chunk", "init_cache", "cache_specs"]
 
 
 def _dims(cfg):
@@ -65,6 +66,25 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
         "conv": he_init((s.d_conv, d_inner), generator, dtype, device, fan_in=s.d_conv),
         "w_out": he_init((d_inner, d), generator, dtype, device, fan_in=d_inner),
     }
+
+
+def specs(cfg, tp: int, dp) -> dict:
+    """``repro/nn/mamba.specs`` on the port's leaves: ``w_in`` [W, D, cols]
+    joins ``w_xz`` (``P(dp, "model")``) and ``w_dt`` (``P(None, "model")``)
+    and takes ``w_xz``'s spec, D over the data axes ``dp`` for the dt
+    columns too; ``conv`` [W, K, di_loc], ``w_out`` [W, di_loc, D] (``P("model",
+    dp)``), the per-head vectors [W, h_loc]; ``w_bc`` ``P(dp, None)``."""
+    return {
+        "ln": Spec(None), "w_in": Spec("model", dp, None), "w_bc": Spec(dp, None), "conv": Spec("model", None, None),
+        "w_out": Spec("model", None, dp), "dt_bias": Spec("model", None), "a_log": Spec("model", None),
+        "d_skip": Spec("model", None),
+    }  # fmt: skip
+
+
+def cache_specs(dp) -> dict:
+    """The decode state: SSM state [W, B, h_loc, N, P] and conv tail [W, B,
+    K-1, di_loc], the batch over the data axes (``repro/nn/mamba.cache_specs``)."""
+    return {"ssm": Spec("model", dp, None, None, None), "conv": Spec("model", dp, None, None)}
 
 
 def _conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

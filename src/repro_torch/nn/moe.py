@@ -40,8 +40,9 @@ import torch.nn.functional as F
 from repro_torch.core.moe_overlap import moe_router
 from repro_torch.nn import ffn
 from repro_torch.nn.layers import ACTS, cdiv, he_init, rms_norm
+from repro_torch.parallel.sharding import Spec
 
-__all__ = ["padded_experts", "init", "apply_seq", "apply_decode"]
+__all__ = ["padded_experts", "init", "specs", "apply_seq", "apply_decode"]
 
 
 def padded_experts(cfg, tp: int) -> int:
@@ -63,6 +64,18 @@ def init(cfg, tp: int, generator: torch.Generator, dtype: torch.dtype, device) -
     if m.num_shared:
         p["shared"] = ffn.init(cfg, generator, dtype, device, d_ff=m.num_shared * f)
     return p
+
+
+def specs(cfg, tp: int, dp) -> dict:
+    """``repro/nn/moe.specs`` on the rank-stacked layout: experts over the
+    ranks (``w_gu`` [W, E_loc, D, 2f] with D over the data axes ``dp``,
+    ``w_down`` [W, E_loc, f, D] likewise), the router and ``ln`` replicated,
+    the shared MLP as a dense FFN."""
+    s = {"ln": Spec(None), "router": Spec(None, None), "w_gu": Spec("model", None, dp, None),
+         "w_down": Spec("model", None, None, dp)}  # fmt: skip
+    if cfg.moe.num_shared:
+        s["shared"] = ffn.specs(cfg, tp, dp)
+    return s
 
 
 def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, next_proj=None, tune=False):

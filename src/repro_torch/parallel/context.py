@@ -54,6 +54,22 @@ jointly (``tune.resolve_seq`` / ``resolve_a2a``).  ``pc.channel``'s
 non-tuned fields (comm resource and mode) carry into every winner.
 ``mode="baseline"`` tunes nothing.
 
+The mesh: ``mesh_axes`` names the deployment's axes and their sizes,
+``(("data", 32), ("model", 8))`` (``launch/mesh``), with the model axis the
+world's own; by default it is the world alone, ``{"model": world.size}``.
+The world emulates the ranks of one model group: the data axes
+(``dp_axes``, by default ``("pod", "data")``, those the mesh has) are
+replicas the planner counts (``dp``, ``dp_spec()``, the parameter specs of
+``models/*.specs``; ``launch/dryrun``), not ranks the world runs, so on the
+one card ``dp == 1``.  ZeRO-3's use-time gather (the JAX package's
+``use_gather``) has no work to do on the emulated world; ``launch/roofline``
+counts its traffic from the specs.
+
+``attn_p_bf16`` casts softmax P to bf16 before P V in the eager route's
+attention (``chunked_attention``), as the JAX package does; the fused
+route's wgmma kernel already takes P in bf16, and its float32 FMA route
+has no bf16 P and raises (``nn/attention.apply_seq``).
+
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 ``pc.ring_attention`` / ``pc.ag_moe`` / ``pc.a2a_moe`` / ``pc.psum`` /
 ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
@@ -62,7 +78,7 @@ Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -86,6 +102,9 @@ class ParallelContext:
     quant: Any = None  # wire-dtype policy: None, a QuantSpec (pinned on the channel), or "auto"/True
     tune: bool = False  # resolve each op's BlockChannel per (kind, shape, dtype) through repro_torch.tune
     tune_ranker: Optional[str] = None  # "auto" | "measure" | "model" (None: REPRO_TUNE_RANKER, else "auto")
+    dp_axes: Tuple[str, ...] = ("pod", "data")  # the data-parallel (ZeRO) axes, those the mesh has
+    mesh_axes: Any = None  # (name, size) pairs of the mesh (a mapping is taken); None: the world's axis alone
+    attn_p_bf16: bool = False  # cast softmax P to bf16 before P V (eager route; the wgmma route always does)
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):
@@ -103,6 +122,13 @@ class ParallelContext:
             object.__setattr__(self, "backend", "fused" if self.world.device.type == "cuda" else "eager")
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
+        axis = self.channel.axis
+        mesh = ((axis, self.world.size),) if self.mesh_axes is None else self.mesh_axes
+        mesh = tuple((str(a), int(n)) for a, n in (mesh.items() if isinstance(mesh, dict) else mesh))
+        if dict(mesh).get(axis) != self.world.size:
+            raise ValueError(f"mesh {dict(mesh)} must give the {axis!r} axis the world's {self.world.size} ranks")
+        object.__setattr__(self, "mesh_axes", mesh)
+        object.__setattr__(self, "dp_axes", tuple(self.dp_axes))
         if self.ep_axis is not None and self.ep_axis != self.channel.axis:
             raise ValueError(f"ep_axis {self.ep_axis!r} is not the world's axis {self.channel.axis!r}")
 
@@ -110,6 +136,24 @@ class ParallelContext:
     @property
     def tp(self) -> int:
         return self.world.size
+
+    @property
+    def mesh_shape(self) -> Dict[str, int]:
+        """The mesh's axis sizes, ``{"data": 32, "model": 8}``."""
+        return dict(self.mesh_axes)
+
+    @property
+    def dp(self) -> int:
+        """Data replicas: the product of the data axes the mesh has."""
+        n = 1
+        for a in self.dp_axes:
+            n *= self.mesh_shape.get(a, 1)
+        return n
+
+    def dp_spec(self):
+        """The spec entry of the data axes: None, one axis name, or a tuple."""
+        present = tuple(a for a in self.dp_axes if a in self.mesh_shape)
+        return present if len(present) > 1 else (present[0] if present else None)
 
     @property
     def device(self) -> torch.device:

@@ -1,0 +1,163 @@
+"""Sharding specs — the port's counterpart of ``repro/parallel/sharding.py``.
+
+The JAX package describes how a global array lies on the mesh with a
+``PartitionSpec``: one entry per dimension, each ``None`` (replicated), a
+mesh axis name, or a tuple of axis names (split over their product).  The
+port's :class:`Spec` is the same thing for the port's own leaves:
+
+  * a rank-stacked leaf ``[W, ...]`` (``convert.shard_params``) has
+    ``"model"`` on its rank dimension 0, and the data axes (``pod`` /
+    ``data``: ZeRO-style storage of the parameters and the optimizer
+    moments) on the dimension the JAX package's spec names for them;
+  * a leaf stored once (a norm, the router, the LM head) names the axes
+    its global dimensions are split by on a real mesh, ``"model"``
+    included; on the emulated world it is one tensor.
+
+:func:`stacked` turns a global spec into the rank-stacked leaf's, and
+:func:`place` moves a global tensor into that layout (the ``"model"`` dim
+split over the world's ranks; the data axes are not materialised: the
+emulated world is one data replica).  :func:`per_device_bytes` is what one
+device of a mesh stores of a leaf (each dim divided by the product of its
+axes' sizes, rounded up: the JAX package requires each to divide evenly, so
+the two agree wherever the reference accepts the spec).  A mesh is
+described by its axis sizes, ``{"data": 32, "model": 8}`` (a mapping or
+the ``(name, size)`` pairs of ``launch/mesh.Mesh.axes``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Mapping, Sequence, Tuple
+
+import torch
+
+__all__ = ["Spec", "is_spec", "axes_of", "stacked", "only_axes", "shard_shape", "per_device_bytes",
+           "Sharding", "shardings_of", "place", "map_specs", "tree_bytes"]  # fmt: skip
+
+
+class Spec(tuple):
+    """One entry per dimension of a leaf: ``None``, an axis name or a tuple
+    of axis names (``jax.sharding.PartitionSpec``'s form).  ``Spec()`` is a
+    scalar's."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(tuple(e) if isinstance(e, list) else e for e in entries))
+
+    def __repr__(self) -> str:
+        return "Spec(" + ", ".join(repr(e) for e in self) + ")"
+
+
+def is_spec(v) -> bool:
+    return isinstance(v, Spec)
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def axes_of(spec: Spec) -> Tuple[str, ...]:
+    """Every mesh axis that splits some dimension of the leaf, in order."""
+    return tuple(a for e in spec for a in _entry_axes(e))
+
+
+def _mesh(mesh_axes) -> Dict[str, int]:
+    return dict(mesh_axes.items() if isinstance(mesh_axes, Mapping) else mesh_axes)
+
+
+def stacked(spec: Spec, axis: str = "model") -> Spec:
+    """The spec of a global leaf's rank-stacked layout: ``axis`` moves to a
+    new leading dim, every other entry stays on its dim.  A spec without
+    ``axis`` gets a replicated leading dim."""
+    rest = []
+    for e in spec:
+        kept = tuple(a for a in _entry_axes(e) if a != axis)
+        rest.append(None if not kept else (kept[0] if len(kept) == 1 else kept))
+    return Spec(axis if axis in axes_of(spec) else None, *rest)
+
+
+def only_axes(spec: Spec, keep: Sequence[str]) -> Spec:
+    """``spec`` with every axis not in ``keep`` dropped (the JAX package's
+    ``manual_only``)."""
+    out = []
+    for e in spec:
+        kept = tuple(a for a in _entry_axes(e) if a in keep)
+        out.append(None if not kept else (kept[0] if len(kept) == 1 else kept))
+    return Spec(*out)
+
+
+def shard_shape(shape: Sequence[int], spec: Spec, mesh_axes) -> Tuple[int, ...]:
+    """One device's block of a leaf of ``shape``: each dim divided by the
+    product of its axes' sizes (rounded up); axes the mesh lacks count 1."""
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec!r} has more entries than the leaf's {len(shape)} dims")
+    sizes = _mesh(mesh_axes)
+    out = []
+    for i, n in enumerate(shape):
+        parts = math.prod(sizes.get(a, 1) for a in _entry_axes(spec[i])) if i < len(spec) else 1
+        out.append(-(-int(n) // parts))
+    return tuple(out)
+
+
+def per_device_bytes(leaf_shape: Sequence[int], dtype: torch.dtype, spec: Spec, mesh_axes) -> int:
+    """Bytes one device of the mesh stores of the leaf."""
+    itemsize = torch.empty((), dtype=dtype, device="meta").element_size()
+    return math.prod(shard_shape(leaf_shape, spec, mesh_axes)) * itemsize
+
+
+class Sharding:
+    """A spec on a mesh (``jax.sharding.NamedSharding``'s role)."""
+
+    def __init__(self, mesh_axes, spec: Spec):
+        self.mesh = _mesh(mesh_axes)
+        self.spec = spec
+
+    def __repr__(self) -> str:
+        return f"Sharding({self.mesh}, {self.spec!r})"
+
+    def shard_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        return shard_shape(shape, self.spec, self.mesh)
+
+    def nbytes(self, shape: Sequence[int], dtype: torch.dtype) -> int:
+        return per_device_bytes(shape, dtype, self.spec, self.mesh)
+
+
+def map_specs(fn: Callable, spec_tree, *rest):
+    """``fn(spec, *leaves)`` over a spec tree (dicts and lists, :class:`Spec`
+    leaves) and trees of its structure; a None spec leaf maps to None."""
+    if is_spec(spec_tree):
+        return fn(spec_tree, *rest)
+    if spec_tree is None:
+        return None
+    if isinstance(spec_tree, dict):
+        return {k: map_specs(fn, v, *(r[k] for r in rest)) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, (list, tuple)):
+        return [map_specs(fn, v, *(r[i] for r in rest)) for i, v in enumerate(spec_tree)]
+    raise TypeError(f"map_specs: not a spec tree node: {spec_tree!r}")
+
+
+def shardings_of(mesh_axes, spec_tree):
+    """Map a tree of :class:`Spec` to :class:`Sharding` on the mesh."""
+    return map_specs(lambda s: Sharding(mesh_axes, s), spec_tree)
+
+
+def tree_bytes(tree, spec_tree, mesh_axes) -> int:
+    """Per-device bytes of a tree of tensors (meta or real) by its specs."""
+    total = []
+    map_specs(lambda s, t: total.append(per_device_bytes(t.shape, t.dtype, s, mesh_axes)), spec_tree, tree)
+    return sum(total)
+
+
+def place(x: torch.Tensor, spec: Spec, world, axis: str = "model") -> torch.Tensor:
+    """A global tensor in its rank-stacked layout by ``spec``: the dim that
+    ``axis`` splits becomes ``[W, ...]`` (``world.shard``), the layout of
+    ``stacked(spec)``; a leaf ``axis`` does not split is stored once, as it
+    is.  Data axes are not materialised on the emulated world."""
+    dims = [i for i, e in enumerate(spec) if axis in _entry_axes(e)]
+    if not dims:
+        return x.to(world.device)
+    if len(dims) > 1:
+        raise ValueError(f"place: {axis!r} splits more than one dim of {spec!r}")
+    return world.shard(x.to(world.device), dims[0])
+

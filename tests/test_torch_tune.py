@@ -273,7 +273,8 @@ def test_roofline_and_model_flops_match_reference():
     """The Hopper numbers; ``roofline_terms`` / ``dominant`` on them; the
     config's parameter counts and ``model_flops`` equal the reference's for
     every registered config and shape."""
-    assert roofline.HW == {"peak_flops": 989e12, "peak_flops_f32": 67e12, "hbm_bw": 3.35e12, "link_bw": 3.35e12}
+    assert roofline.HW == {"peak_flops": 989e12, "peak_flops_f32": 67e12, "hbm_bw": 3.35e12, "link_bw": 3.35e12,
+                           "axis_bw": {"model": 450e9, "data": 50e9, "pod": 50e9}}  # fmt: skip
     terms = roofline.roofline_terms({"flops": 989e9, "bytes accessed": 6.7e9}, 3.35e8)
     assert terms["compute_s"] == pytest.approx(1e-3) and terms["memory_s"] == pytest.approx(2e-3)
     assert terms["collective_s"] == pytest.approx(1e-4) and roofline.dominant(terms) == "memory_s"
