@@ -5,7 +5,9 @@ Drives the port in phases; each prints its own lines and any failure exits
 non-zero (no phase catches its own failure):
 
   1. device   the card's name, count, torch / CUDA versions and power limit;
-              TF32 off, so the float32 plain versions are true float32.
+              TF32 off, so the float32 plain versions are true float32;
+              ``repro_torch.backend.describe()`` (the feature probes, the
+              card's capability, SMs and shared memory, nvcc's version).
   2. build    builds the kernels from ``src/repro_torch/kernels/csrc``;
               prints each kernel's registers / spills and the SASS count of
               HGMMA (wgmma), UTMALDG (TMA loads), UBLKCP (1-D bulk copies)
@@ -13,7 +15,11 @@ non-zero (no phase catches its own failure):
               kernel of a wrapper with a wgmma route (ag_gemm, gemm_rs,
               matmul, grouped_matmul, flash_attention) has no HGMMA or no
               UTMALDG, or spills registers, or if the SSD intra-chunk
-              kernel spills or has no UBLKCP (its bulk staging path).
+              kernel spills or has no UBLKCP (its bulk staging path); and
+              holds the fused kernels (``ag_gemm*`` / ``gemm_rs*``, both
+              routes), whose flag sites call the tile primitives of
+              ``tile_sync.cuh``, to the registers, spills and HGMMA /
+              UTMALDG counts they were built with before (FUSED_BUILD).
   3. serve    smollm-360m at its published size with seeded weights: the
               float32 prefill through the fused kernels against the eager
               executor with plain attention; one dense layer in bfloat16 on
@@ -124,6 +130,33 @@ non-zero (no phase catches its own failure):
               checkpoint at step TRAIN_CKPT_AT at TRAIN_CKPT_LAYERS layers,
               resumed: the next step's loss and the parameters after it
               bitwise the uninterrupted run's.
+  11b. train_seam  smollm-360m trained with fused RS -> AG seams
+              (``ParallelContext(fuse_seams=True)`` through
+              ``make_train_step``: each layer's seam eager, the chain's
+              ends, qkv AG+GEMM and down GEMM+RS, on the kernels, each
+              one's backward the other kernel), W = 4, 8 x 256 tokens:
+              (a) bf16 at full depth and width, SEAM_TRAIN_STEPS AdamW
+              steps seamed and unfused in turns, each on its own seeded
+              state: every step's launches held exactly
+              (``paper_e2e.expected_launches(..., fuse_seams=True)``: 64
+              AG+GEMM, 64 GEMM+RS, 32 flash, 1 head seamed; 128 / 128 / 32
+              / 1 unfused), both step times (CUDA events), losses and peak
+              memory; (b) one float32 step at SEAM_F32_LAYERS layers on the
+              fused backend against the eager backend, both seamed: the loss
+              the logits' bound, every leaf's gradient GRAD_RTOL of its
+              max|eager|, the launches held; (c) the same seamed step
+              against the unfused one, the same bounds; (d) one bf16 step
+              with seams under remat "dots" (each scan unit's chain
+              recomputed), launches held (96 / 96 / 64 / 1); the phase's
+              wall time.
+  11c. examples  ``repro_torch.examples.quickstart`` (overlapped, non-
+              overlapped and fused-kernel AG+GEMM at S 1024, H 512, FF
+              1408, W 8, C 2, float32: outputs within 1e-3, one kernel
+              launch, the ring's permutes against the baseline's gather in
+              the World's counter) and ``moe_overlap_demo`` (the AG + MoE
+              double ring on the grouped kernel against the dense oracle,
+              E 16, top-2, 512 tokens: 1e-4, 16 grouped launches) on the
+              card.
   12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
               published widths, W = 4, 8 x 256 tokens a step (the grouped
               expert GEMM in the forward and, on the transposed weights, for
@@ -393,9 +426,23 @@ non-zero (no phase catches its own failure):
               cross-attention (256 queries against 512 keys), each against
               SDPA, both models' LM heads and projections (the encoder
               stream's kv gather among them), and paligemma's train-path
-              checks and backward transposes at 8 x 512 tokens.  It runs
+              checks and backward transposes at 8 x 512 tokens.  Every
+              case whose function ``kernels/ref`` computes (every GEMM,
+              flash and grouped case, packed weights dequantized by the
+              reference's formula, and the quant phase's) is also held
+              against that float32 oracle, under the same TOL, and its
+              error printed beside the plain version's (flash attention's
+              oracle split over heads where its scores would pass
+              REF_FLASH_ELEMS); the ring step and the SSD intra-chunk term
+              have none (said on their lines), and ``ssd_chunked`` at
+              mamba2-2.7b's serve shape is held against ``ssd_ref`` (1e-4);
+              the seconds the holds add are printed.  It runs
               after the serve phases: the profiler leaves
-              host overhead behind.
+              host overhead behind.  Its device times (torch.profiler) are
+              readouts that may be missing: a session now and then records
+              no device event, and after PROFILER_SESSIONS such sessions the
+              case prints "device n/a" and records null; nothing that
+              decides a check reads them.
   21. verify  the port's static verifier (``repro_torch.analysis``) at what
               the card launches, after every other phase: (b) each AG+GEMM /
               GEMM+RS shape the serve, train, paper and tune phases launch
@@ -489,6 +536,9 @@ RING_TOKENS = ((BATCH, PROMPT), (1, 8192))  # (batch, tokens) of the ring phase'
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
 TRAIN_WARMUP = 3  # steps left out of the median step time
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_AT = 2, 3  # (c): depth of the resume check, the step it saves at
+# the train_seam phase: (a) bf16 AdamW steps of each form, in turns (the first of each left out of the median);
+# (b), (c) the depth of the float32 steps at smollm-360m's width
+SEAM_TRAIN_STEPS, SEAM_F32_LAYERS = 4, 2
 # (a): a gradient leaf's max|diff| against eager, relative to the leaf's max|eager| (the logits' rtol)
 GRAD_RTOL = 2e-3
 # (a): an update's (new - p) max|diff| against eager, relative to the leaf's max|eager update|: both
@@ -556,6 +606,26 @@ BF16_KERNELS = {
 SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKCP
 FMA_KERNELS = ("ag_gemm_kernel", "gemm_rs_kernel")  # the fused kernels' float32 route (SASS symbols)
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
+# the SSD intra-chunk cases' note: kernels/ref has the whole SSD only (the ssd_chunked case holds it)
+SSD_NO_REF = "no counterpart: the intra-chunk term alone (ssd_ref holds ssd_chunked, its own case)"
+# the fused kernels as built before their flag sites went through the tile primitives (tile_sync.cuh):
+# registers, spill stores / loads (bytes), and for the bf16 kernels HGMMA / UTMALDG (the build phase of
+# this script on an H100, CUDA 12.8), keyed by symbol or, as the phase prints them, its first 72
+# characters; the build phase fails if a rebuilt kernel differs
+FUSED_BUILD = {
+    "_Z14ag_gemm_kernelIf6PlainBIfEEvPKT_T0_PS2_S6_PiPKiS9_iiiiiiiii": (128, 4, 4, None, None),
+    "_Z14ag_gemm_kernelIf7PackedBEvPKT_T0_PS1_S5_PiPKiS8_iiiiiiiii": (128, 0, 0, None, None),
+    "_Z20ag_gemm_wgmma_kernelILb0EEv14CUtensorMap_stS0_6AgArgs": (166, 0, 0, 8, 3),
+    "_Z20ag_gemm_wgmma_kernelILb1EEv14CUtensorMap_stS0_6AgArgs": (168, 0, 0, 4, 2),
+    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb0EEv14CUtensorMap_stS1_6RsArgs": (126, 0, 0, 4, 3),
+    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb1EEv14CUtensorMap_stS1_6RsArgs": (160, 0, 0, 4, 2),
+    "_Z20gemm_rs_wgmma_kernelIfLb0EEv14CUtensorMap_stS0_6RsArgsIT_E": (126, 0, 0, 4, 3),
+    "_Z20gemm_rs_wgmma_kernelIfLb1EEv14CUtensorMap_stS0_6RsArgsIT_E": (160, 0, 0, 4, 2),
+    "_Z14gemm_rs_kernelIf13__nv_bfloat166PlainBIfEEvPKT_T1_PS3_PT0_PiPKiSC_ii": (126, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIf13__nv_bfloat167PackedBEvPKT_T1_PS2_PT0_PiPKiSB_iiii": (128, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIff6PlainBIfEEvPKT_T1_PS2_PT0_PiPKiSB_iiiiiiiii": (128, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIff7PackedBEvPKT_T1_PS1_PT0_PiPKiSA_iiiiiiiii": (128, 4, 8, None, None),
+}
 # the numbers of a kernel case the JSON line carries for each backward shape
 # (kernel #5's dx shapes also carry the w^T copy they launch on, ``wt_copy_ms``)
 TIMES = ("case", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -568,6 +638,44 @@ SOURCES = {
     "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
     "ssd_intra_chunk": "src/repro_torch/kernels/csrc/ssd_intra_chunk.cu",
 }
+
+
+# seconds the kernels phase spends computing ``kernels/ref``'s oracles (one list: _case adds to it)
+REF_S = [0.0]
+# flash_attention_ref's float32 scores (and exponentials) per call are kept below this many elements by
+# splitting the heads: seamless-m4t's encoder case would take 64 x 4096^2 x 4 B = 4.3 GB in one call
+REF_FLASH_ELEMS = 1 << 28
+
+
+def _flash_ref(q, k, v, **kw):
+    """``kernels/ref.flash_attention_ref`` over blocks of whole GQA groups of
+    heads (query heads h0 .. h1 read KV heads h0 / rep .. h1 / rep), in q's dtype."""
+    import torch
+
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    rep = q.shape[0] // k.shape[0]
+    per = max(rep, REF_FLASH_ELEMS // (q.shape[1] * k.shape[1]) // rep * rep)
+    return torch.cat([flash_attention_ref(q[h:h + per], k[h // rep:(h + per) // rep], v[h // rep:(h + per) // rep], **kw)
+                      for h in range(0, q.shape[0], per)])  # fmt: skip
+
+
+def _grouped_ref(x, w, table, out_dtype=None):
+    """``kernels/ref.grouped_matmul_ref`` at the table's row tile."""
+    from repro_torch.kernels.ref import grouped_matmul_ref
+
+    return grouped_matmul_ref(x, w, table, x.shape[0] // table.shape[0], out_dtype)
+
+
+def _dq(w):
+    """A weight as ``kernels/ref`` takes it: a PackedWeight dequantized by the
+    reference's formula, (q - zero) x scale in float32; a plain weight as it is."""
+    from repro_torch.core.quant import PackedWeight
+
+    if not isinstance(w, PackedWeight):
+        return w
+    q = w.q.float() if w.zero is None else w.q.float() - w.zero.unsqueeze(-2)
+    return q * w.scale.unsqueeze(-2)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -586,18 +694,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def device_ms(fn, iters: int = 10) -> float:
+PROFILER_SESSIONS = 3  # torch.profiler sessions device_ms tries before it reports the readout missing
+
+
+def device_ms(fn, what: str, iters: int = 10):
     """Device time of one call of ``fn``: the sum of its kernels' device time
     (torch.profiler) over ``iters`` calls, per call.  Unlike ``cuda_ms`` it
     leaves out the host gaps between launches, which a wrapper whose host
-    time exceeds its kernel's time opens."""
+    time exceeds its kernel's time opens.  A readout only: when none of
+    PROFILER_SESSIONS sessions records a device event (the profiler drops
+    them now and then), it prints one line naming ``what`` and returns None,
+    and the case records ``null`` ("device n/a")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device event for a library call: take another
+    for _ in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -605,7 +719,13 @@ def device_ms(fn, iters: int = 10) -> float:
         total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
         if total > 0:
             return total / iters / 1e3
-    raise SystemExit("chip_smoke: torch.profiler recorded no device time in 3 sessions")
+    print(f"[kernels] {what}: torch.profiler recorded no device event in {PROFILER_SESSIONS} sessions: device n/a")
+    return None
+
+
+def _dev(v) -> str:
+    """A device time for a printed line: ``device_ms``'s None reads "n/a"."""
+    return "n/a" if v is None else f"{v:.4f}"
 
 
 # ---------------------------------------------------------------------------
@@ -630,6 +750,9 @@ def phase_device():
 
     info = hw.require_hopper(torch.device("cuda", 0))
     print(f"[device] {info.sm_count} SMs, {info.smem_per_block_optin} B shared memory per block (opt-in)")
+    from repro_torch.backend import describe
+
+    print(f"[device] backend.describe(): {json.dumps(describe())}")
     return name, smi
 
 
@@ -640,13 +763,19 @@ def phase_build():
     build.library()
     dt = time.perf_counter() - t0
     print(f"[build] kernels built and loaded in {dt:.1f} s")
-    kernel, spills, fma = None, [], {}
+    kernel, spills, fma, built = None, [], {}, {}
     for line in build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
             kernel = line.split("'")[1]
         elif kernel is not None and ("registers" in line or "spill" in line.lower()):
             print(f"[build] {kernel[:72]}: {line.strip().removeprefix('ptxas info    : ')}")
             spilled = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+            regs = re.findall(r"Used (\d+) registers", line)
+            rec = built.setdefault(kernel, {})
+            if spilled:
+                rec["spills"] = (spilled[0], spilled[-1])
+            if regs:
+                rec["registers"] = int(regs[0])
             if any(spilled) and any(name in kernel for name in (*BF16_KERNELS.values(), SSD_KERNEL)):
                 spills.append(kernel)
             if spilled and any(name in kernel for name in FMA_KERNELS):
@@ -670,12 +799,29 @@ def phase_build():
         raise SystemExit(f"chip_smoke: the SSD intra-chunk kernel has no UBLKCP (bulk staging): {ssd}")
     if spills:
         raise SystemExit(f"chip_smoke: kernels spill registers: {spills}")
+    # the fused kernels' flag sites call the tile primitives: the same instructions as before
+    moved = {}
+    for name, want in FUSED_BUILD.items():  # a key is the symbol, or its first 72 characters as printed
+        rec = next((r for k, r in built.items() if k.startswith(name)), {})
+        ops = next((o for k, o in sass.items() if k.startswith(name)), {})
+        got = (rec.get("registers"), *rec.get("spills", (None, None)), *(
+            (ops.get("HGMMA"), ops.get("UTMALDG")) if want[3] is not None else (None, None)))  # fmt: skip
+        if got != want:
+            moved[name] = {"built": got, "expected": want}
+    print(f"[build] the fused kernels' registers, spills and HGMMA / UTMALDG against FUSED_BUILD: "
+          f"{len(FUSED_BUILD) - len(moved)} of {len(FUSED_BUILD)} equal")  # fmt: skip
+    if moved:
+        raise SystemExit(f"chip_smoke: the fused kernels' instructions changed: {moved}")
     return dt, fma
 
 
 def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=False, launch=None, bitwise=False,
-          plain_once=False):  # fmt: skip
-    """Run one kernel case: max error vs the plain version, then times.
+          plain_once=False, ref=None):  # fmt: skip
+    """Run one kernel case: max error vs the plain version and vs
+    ``kernels/ref``, then times.  ``ref`` returns the case's function from
+    ``kernels/ref`` (float32, no schedule of any kernel), held under the same
+    TOL as the plain version (its seconds add to ``REF_S``); a string says
+    why the case has none.
     ``launch`` returns the wrapper's record of its last launch (route, grid
     G, work items), printed beside the times; ``bitwise`` also launches the
     kernel REPEATS - 1 more times and fails unless every output is bitwise
@@ -690,14 +836,29 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     info = launch() if launch is not None else None
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
-    ref = plain()
+    base = plain()
     e1.record()
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
+    err = (out.float() - base.float()).abs().max().item()
+    scale = base.float().abs().max().item()
+    del base
     dn = str(dtype).removeprefix("torch.")
     ok = bool(torch.isfinite(out).all().item()) and err <= TOL[dn] * max(scale, 1e-30)
     rec = {"case": name, "dtype": dn, "max_abs_err": err, "max_abs_ref": scale, "tol_rel": TOL[dn], "ok": ok}
+    ref_txt, ok_ref = "", True
+    if callable(ref):
+        t_ref = time.perf_counter()
+        oracle = ref()
+        torch.cuda.synchronize()
+        REF_S[0] += time.perf_counter() - t_ref
+        rec["ref_max_abs_err"] = (out.float() - oracle.float()).abs().max().item()
+        rec["max_abs_oracle"] = oracle.float().abs().max().item()
+        ok_ref = rec["ref_max_abs_err"] <= TOL[dn] * max(rec["max_abs_oracle"], 1e-30)
+        ref_txt = f"; vs kernels/ref max|err| {rec['ref_max_abs_err']:.3e} (max|oracle| {rec['max_abs_oracle']:.3e})"
+        del oracle
+    elif ref is not None:
+        rec["ref"] = ref
+        ref_txt = f"; kernels/ref: {ref}"
     if info is not None:
         rec["launch"] = dict(info)
     if bitwise:
@@ -709,21 +870,25 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     times = ""
     if not check_only:
         rec["ms"] = cuda_ms(kernel, iters)
-        rec["device_ms"] = device_ms(kernel)
+        rec["device_ms"] = device_ms(kernel, name)
         rec["plain_ms"] = e0.elapsed_time(e1) if plain_once else cuda_ms(plain, max(2, iters // 4))
         rec["library_ms"] = cuda_ms(library, iters) if library is not None else None
-        rec["library_device_ms"] = device_ms(library) if library is not None else None
+        rec["library_device_ms"] = device_ms(library, f"{name} library") if library is not None else None
         rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dtype)
-        lib = "None" if library is None else f"{rec['library_ms']:.4f} (device {rec['library_device_ms']:.4f})"
+        lib = "None" if library is None else f"{rec['library_ms']:.4f} (device {_dev(rec['library_device_ms'])})"
         times = (
-            f" ms {rec['ms']:.4f} (device {rec['device_ms']:.4f}) plain {rec['plain_ms']:.4f} library {lib} "
+            f" ms {rec['ms']:.4f} (device {_dev(rec['device_ms'])}) plain {rec['plain_ms']:.4f} library {lib} "
             f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})"
         )
     where = "" if info is None else f" [{info['route']}, G {info['grid']}, items {info['items']}]"
-    bound_txt = f"bound {TOL[dn]:g} x max|ref|"
-    print(f"[kernels] {name} {dn}: max|err| {err:.3e} (max|ref| {scale:.3e}, {bound_txt}){times}{where}")
+    bound_txt = f"bound {TOL[dn]:g} x max|plain|"
+    print(f"[kernels] {name} {dn}: vs plain max|err| {err:.3e} (max|plain| {scale:.3e}, {bound_txt}){ref_txt}{times}"
+          f"{where}")  # fmt: skip
     if not ok:
         raise SystemExit(f"chip_smoke: kernel {name} ({dn}) disagrees with its plain version: {err} > {TOL[dn]} x {scale}")
+    if not ok_ref:
+        raise SystemExit(f"chip_smoke: kernel {name} ({dn}) disagrees with kernels/ref: {rec['ref_max_abs_err']} > "
+                         f"{TOL[dn]} x {rec['max_abs_oracle']}")  # fmt: skip
     return rec
 
 
@@ -792,6 +957,7 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
 
     isz = torch.tensor([], dtype=dtype).element_size()
     w = rnd(d, vocab, dtype=dtype) * 0.02
@@ -807,7 +973,7 @@ def _lm_head_cases(rnd, arch: str, d: int, vocab: int, dtype, iters: int, check_
             f"matmul[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dtype,
             lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
             2 * rows * d * vocab, isz * (x.numel() + w.numel() + rows * vocab), iters, check_only,
-            lambda: K.matmul.last_launch, bitwise=dtype == torch.bfloat16,
+            lambda: K.matmul.last_launch, bitwise=dtype == torch.bfloat16, ref=lambda: R.matmul_ref(x, w),
         )  # fmt: skip
     return recs
 
@@ -820,6 +986,7 @@ def _ssm_kernels(rnd, iters: int) -> dict:
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
 
     shp = ssm_shapes()
     W, B, S = WORLD, BATCH, PROMPT
@@ -837,14 +1004,14 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             f"ag_gemm[{ARCH_SSM} in_proj] x{list(x.shape)} w{list(w.shape)}", dtype,
             lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
             2 * W * B * S * d * n_in, isz * (x.numel() + w.numel() + W * B * S * n_in), it, check_only,
-            lambda: K.ag_gemm.last_launch,
+            lambda: K.ag_gemm.last_launch, ref=lambda: R.ag_gemm_ref(x, w),
         )  # fmt: skip
         x, w = rnd(W, B, S, di_loc, dtype=dtype), rnd(W, di_loc, d, dtype=dtype) * (W * di_loc) ** -0.5
         recs[("gemm_rs", ARCH_SSM, "out_proj", dtype)] = _case(
             f"gemm_rs[{ARCH_SSM} out_proj] x{list(x.shape)} w{list(w.shape)}", dtype,
             lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
             2 * W * B * S * di_loc * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
-            lambda: K.gemm_rs.last_launch,
+            lambda: K.gemm_rs.last_launch, ref=lambda: R.gemm_rs_ref(x, w),
         )  # fmt: skip
         recs.update(_lm_head_cases(rnd, ARCH_SSM, d, vocab, dtype, it, check_only))
         del x, w, xg
@@ -864,10 +1031,50 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             # flops: the [q, q] @ [q, p] product, exp and mask-multiply; bytes:
             # cum, cb, xdt read once and y written once
             t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p), iters, False,
-            lambda: K.ssd_intra_chunk.last_launch,
+            lambda: K.ssd_intra_chunk.last_launch, ref=SSD_NO_REF,
         )  # fmt: skip
         del cum, cb, xdt, gmat
     return recs
+
+
+def _ssd_ref_case(rnd) -> dict:
+    """``kernels/ref.ssd_ref`` (the sequential scan over every position)
+    against ``ssd_chunked`` with the intra-chunk kernel at mamba2-2.7b's
+    serve shape (B x S tokens, 80 heads of 64, one group of 128 states),
+    float32 (the path's dtype), from a random initial state (the
+    reference's ``d_init``): 1e-4 of max|ref|, both times recorded."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.mamba_ssd import ssd_chunked
+
+    cfg = get_config(ARCH_SSM)
+    s, f32 = cfg.ssm, torch.float32
+    h = s.expand * cfg.d_model // s.headdim
+    x = rnd(BATCH, PROMPT, h, s.headdim, dtype=f32)
+    dt = F.softplus(rnd(BATCH, PROMPT, h, dtype=f32))
+    a_log = rnd(h, dtype=f32) * 0.5
+    b, c = (rnd(BATCH, PROMPT, s.n_groups, s.d_state, dtype=f32) for _ in range(2))
+    h0 = rnd(BATCH, h, s.d_state, s.headdim, dtype=f32) * 0.1
+    t0 = time.perf_counter()
+    y = ssd_chunked(x, dt, a_log, b, c, chunk=s.chunk, h_init=h0, intra="kernel")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    oracle = R.ssd_ref(x, dt, a_log, b, c, chunk=s.chunk, d_init=h0)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    REF_S[0] += t2 - t1
+    err, scale = (y - oracle).abs().max().item(), oracle.abs().max().item()
+    ok = bool(torch.isfinite(y).all()) and err <= TOL["float32"] * scale
+    print(f"[kernels] ssd_chunked[{ARCH_SSM}, intra kernel] x{list(x.shape)} b/c{list(b.shape)} with d_init, vs "
+          f"kernels/ref.ssd_ref (sequential scan): max|err| {err:.3e} (max|oracle| {scale:.3e}, bound "
+          f"{TOL['float32']:g} x max|oracle|); host s {t1 - t0:.3f} chunked, {t2 - t1:.3f} ref")  # fmt: skip
+    if not ok:
+        raise SystemExit(f"chip_smoke: ssd_chunked disagrees with kernels/ref.ssd_ref: {err} > 1e-4 x {scale}")
+    return {"case": f"ssd_chunked[{ARCH_SSM}] vs ssd_ref", "dtype": "float32", "ref_max_abs_err": err,
+            "max_abs_oracle": scale, "chunked_s": t1 - t0, "ref_s": t2 - t1}  # fmt: skip
 
 
 def _ssd_train_kernels(rnd, iters: int) -> dict:
@@ -902,7 +1109,7 @@ def _ssd_train_kernels(rnd, iters: int) -> dict:
             "(library: torch.bmm(G, xdt) on a precomputed G)", dtype,
             lambda: K.ssd_intra_chunk(cum, cb, xdt), lambda: K.ssd_intra_chunk_plain(cum, cb, xdt),
             lambda: torch.bmm(gmat, xdt), t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p),
-            iters, not f32, lambda: K.ssd_intra_chunk.last_launch,
+            iters, not f32, lambda: K.ssd_intra_chunk.last_launch, ref=SSD_NO_REF,
         )  # fmt: skip
         del gmat
 
@@ -968,7 +1175,7 @@ def _paper_moe_kernels(rnd, iters: int) -> dict:
             lambda: K.grouped_matmul(x, w, table, out_dtype=out_dt), lambda: K.grouped_matmul_plain(x, w, table, out_dt),
             lambda: torch.bmm(x.view(groups, cap, kk), w),
             2 * x.shape[0] * kk * n, 2 * (x.numel() + w.numel()) + osz * x.shape[0] * n, iters, False,
-            lambda: K.grouped_matmul.last_launch, bitwise=True,
+            lambda: K.grouped_matmul.last_launch, bitwise=True, ref=lambda: _grouped_ref(x, w, table, out_dt),
         )  # fmt: skip
         del x, w
     return recs
@@ -1018,6 +1225,7 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
         lambda: flash_attention_ranked_plain(f32[0], f32[3], f32[4], k_off=k_off[1], state=pst, **kw),
         lambda: F.scaled_dot_product_attention(qs, ks, vs),
         4 * heads * hd * pairs, nbytes, iters, False, lambda: K.flash_attention.last_launch, bitwise=True,
+        ref="no counterpart: one ring step with an online-softmax state carried in (ref computes whole attention)",
     )  # fmt: skip
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
 
@@ -1044,6 +1252,7 @@ def _mm_kernels(rnd, iters: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
     from repro_torch.kernels.flash_attention import flash_attention_tiled
     from repro_torch.models import frontends
 
@@ -1066,6 +1275,13 @@ def _mm_kernels(rnd, iters: int) -> dict:
             kk, vv = rnd(W * b * shp["kv_loc"], sk, hd, dtype=dtype), rnd(W * b * shp["kv_loc"], sk, hd, dtype=dtype)
             ke, ve = kk.repeat_interleave(rep, 0)[None], vv.repeat_interleave(rep, 0)[None]
             pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            oracle = []  # the case's kernels/ref output, shared with the tiled-twin case
+
+            def flash_ref(q=q, kk=kk, vv=vv, causal=causal, oracle=oracle):
+                if not oracle:
+                    oracle.append(_flash_ref(q, kk, vv, causal=causal))
+                return oracle[0]
+
             recs[("flash_attention", arch, tag, dtype)] = _case(
                 f"flash_attention[{arch} {tag}] q{list(q.shape)} kv{list(kk.shape)} {'causal' if causal else 'non-causal'}",
                 dtype, lambda: K.flash_attention(q, kk, vv, causal=causal),
@@ -1073,13 +1289,14 @@ def _mm_kernels(rnd, iters: int) -> dict:
                 lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=causal),
                 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), iters,
                 not is_bf16 and arch != ARCH_V, lambda: K.flash_attention.last_launch, bitwise=is_bf16, plain_once=True,
+                ref=flash_ref,
             )  # fmt: skip
             if is_bf16:
                 _case(f"flash_attention[{arch} {tag}] vs its tiled twin", dtype,
                       lambda: K.flash_attention(q, kk, vv, causal=causal),
                       lambda: flash_attention_tiled(q, kk, vv, causal=causal), None, 0, 0, 0, True,
-                      lambda: K.flash_attention.last_launch)  # fmt: skip
-            del q, kk, vv, ke, ve
+                      lambda: K.flash_attention.last_launch, ref=flash_ref)  # fmt: skip
+            del q, kk, vv, ke, ve, oracle
             torch.cuda.empty_cache()
     for arch in (ARCH_V, ARCH_ED):
         shp = path_shapes(arch)
@@ -1100,7 +1317,7 @@ def _mm_kernels(rnd, iters: int) -> dict:
                 f"ag_gemm[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", bf16,
                 lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
                 2 * W * b * s * d * n, 2 * (x.numel() + w.numel() + W * b * s * n), iters, False,
-                lambda: K.ag_gemm.last_launch, plain_once=True,
+                lambda: K.ag_gemm.last_launch, plain_once=True, ref=lambda: R.ag_gemm_ref(x, w),
             )  # fmt: skip
         for tag, k in (("o_proj", shp["n_o"]), ("down", shp["f_loc"])):
             x, w = rnd(W, b, s, k, dtype=bf16), rnd(W, k, d, dtype=bf16) * (W * k) ** -0.5
@@ -1108,7 +1325,7 @@ def _mm_kernels(rnd, iters: int) -> dict:
                 f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", bf16,
                 lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * b * s * k * d, 2 * (x.numel() + w.numel() + W * b * s_loc * d), iters, False,
-                lambda: K.gemm_rs.last_launch, plain_once=True,
+                lambda: K.gemm_rs.last_launch, plain_once=True, ref=lambda: R.gemm_rs_ref(x, w),
             )  # fmt: skip
         del x, w
         torch.cuda.empty_cache()
@@ -1135,6 +1352,7 @@ def _e2e_kernels(rnd, iters: int, archs) -> dict:
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
     from repro_torch.benchmarks import paper_e2e
 
     W, B, S, dt = WORLD, paper_e2e.BATCH, paper_e2e.SEQ, torch.bfloat16
@@ -1150,7 +1368,7 @@ def _e2e_kernels(rnd, iters: int, archs) -> dict:
                 f"ag_gemm[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dt,
                 lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
                 2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), iters, False,
-                lambda: K.ag_gemm.last_launch, plain_once=True,
+                lambda: K.ag_gemm.last_launch, plain_once=True, ref=lambda: R.ag_gemm_ref(x, w),
             )  # fmt: skip
         for tag, k in (("e2e_o_proj", shp["n_o"]), *((f"e2e_{m}down", f) for m, _, f in _mlps(shp))):
             x, w = rnd(W, B, S, k, dtype=dt), rnd(W, k, d, dtype=dt) * (W * k) ** -0.5
@@ -1158,7 +1376,7 @@ def _e2e_kernels(rnd, iters: int, archs) -> dict:
                 f"gemm_rs[{arch} {tag}] x{list(x.shape)} w{list(w.shape)}", dt,
                 lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, False,
-                lambda: K.gemm_rs.last_launch, plain_once=True,
+                lambda: K.gemm_rs.last_launch, plain_once=True, ref=lambda: R.gemm_rs_ref(x, w),
             )  # fmt: skip
         rep = shp["h_loc"] // shp["kv_loc"]
         q = rnd(W * B * shp["h_loc"], S, hd, dtype=dt)
@@ -1179,13 +1397,14 @@ def _e2e_kernels(rnd, iters: int, archs) -> dict:
                 lambda w_=window: K.flash_attention_plain(q.float(), kk.float(), vv.float(), causal=True, window=w_),
                 library, 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), iters, False,
                 lambda: K.flash_attention.last_launch, bitwise=True,
+                ref=lambda w_=window: _flash_ref(q, kk, vv, causal=True, window=w_),
             )  # fmt: skip
         x, w = rnd(B * S, d, dtype=dt), rnd(d, shp["vocab"], dtype=dt) * 0.02
         recs[("matmul", arch, "e2e_lm_head", dt)] = _case(
             f"matmul[{arch} e2e lm_head] x{list(x.shape)} w{list(w.shape)}", dt,
             lambda: K.matmul(x, w), lambda: K.matmul_plain(x, w), lambda: torch.matmul(x, w),
             2 * B * S * d * shp["vocab"], isz * (x.numel() + w.numel() + B * S * shp["vocab"]), iters, False,
-            lambda: K.matmul.last_launch, bitwise=True,
+            lambda: K.matmul.last_launch, bitwise=True, ref=lambda: R.matmul_ref(x, w),
         )  # fmt: skip
         del q, kk, vv, ke, ve, x, w
         recs.update(_train_backward_kernels(rnd, iters, arch, B, S, (dt,), "e2e_bwd_"))
@@ -1231,6 +1450,7 @@ def _moe_backward_kernels(rnd, iters: int) -> dict:
                         lambda: torch.bmm(dy.view(groups, rows, n), wt),
                         2 * groups * rows * n * k, isz * (dy.numel() + wt.numel() + groups * rows * k), iters,
                         not bf16, lambda: K.grouped_matmul.last_launch, bitwise=bf16,
+                        ref=lambda: _grouped_ref(dy, wt, table),
                     )  # fmt: skip
                     if bf16:
                         w = wt.transpose(1, 2).contiguous()  # the forward's layout [G, k, n]
@@ -1324,6 +1544,7 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
 
     shp = path_shapes(arch)
     W, B, S, d = WORLD, batch, seq, shp["d"]
@@ -1338,7 +1559,7 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
                 f"gemm_rs[{arch} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
                 lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w), lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * B * S * n * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), iters, not bf16,
-                lambda: K.gemm_rs.last_launch, bitwise=bf16, plain_once=once,
+                lambda: K.gemm_rs.last_launch, bitwise=bf16, plain_once=once, ref=lambda: R.gemm_rs_ref(x, w),
             )  # fmt: skip
         for tag, k in ((prefix + "o_proj", shp["n_o"]), *((f"{prefix}{m}down", f) for m, _, f in _mlps(shp))):
             x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, k, dtype=dtype) * d**-0.5
@@ -1347,7 +1568,7 @@ def _train_backward_kernels(rnd, iters: int, arch=ARCH, batch=TRAIN_BATCH, seq=T
                 f"ag_gemm[{arch} {tag}] dy{list(x.shape)} w^T{list(w.shape)}", dtype,
                 lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w), lambda: torch.matmul(xg[None], w[:, None]),
                 2 * W * B * S * d * k, isz * (x.numel() + w.numel() + W * B * S * k), iters, not bf16,
-                lambda: K.ag_gemm.last_launch, bitwise=bf16, plain_once=once,
+                lambda: K.ag_gemm.last_launch, bitwise=bf16, plain_once=once, ref=lambda: R.ag_gemm_ref(x, w),
             )  # fmt: skip
         del x, w, xg
     return recs
@@ -1463,6 +1684,7 @@ def phase_kernels(iters: int):
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
     from repro_torch.benchmarks import paper_e2e
     from repro_torch.core.channels import BlockChannel, CommSpec
     from repro_torch.kernels.flash_attention import flash_attention_tiled
@@ -1473,6 +1695,7 @@ def phase_kernels(iters: int):
     W, B, S = WORLD, BATCH, PROMPT
     s_loc = S // W
     recs = {}
+    ref_s0 = REF_S[0]
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
@@ -1495,7 +1718,7 @@ def phase_kernels(iters: int):
                     lambda: K.ag_gemm(x, w), lambda: K.ag_gemm_plain(x, w),
                     lambda: torch.matmul(xg[None], w[:, None]),
                     2 * W * B * S * d * n, isz * (x.numel() + w.numel() + W * B * S * n), it, check_only,
-                    lambda: K.ag_gemm.last_launch,
+                    lambda: K.ag_gemm.last_launch, ref=lambda: R.ag_gemm_ref(x, w),
                 )  # fmt: skip
             # --- gemm_rs: attention out-projection (and the dense / shared-expert down projection)
             for tag, k in (("o_proj", shp["n_o"]), ("down", shp.get("f_loc")), ("shared_down", shp.get("sf_loc"))):
@@ -1507,7 +1730,7 @@ def phase_kernels(iters: int):
                     lambda: K.gemm_rs(x, w), lambda: K.gemm_rs_plain(x, w),
                     lambda: torch.matmul(x, w[:, None]).sum(0),
                     2 * W * B * S * k * d, isz * (x.numel() + w.numel() + W * B * s_loc * d), it, check_only,
-                    lambda: K.gemm_rs.last_launch,
+                    lambda: K.gemm_rs.last_launch, ref=lambda: R.gemm_rs_ref(x, w),
                 )  # fmt: skip
             # --- flash attention: [W*B*h_loc, S, hd] vs [W*B*kv_loc, S, hd], causal
             rep = shp["h_loc"] // shp["kv_loc"]
@@ -1523,12 +1746,13 @@ def phase_kernels(iters: int):
                 lambda: F.scaled_dot_product_attention(q[None], ke, ve, is_causal=True),
                 4 * q.shape[0] * pairs * hd, isz * (2 * q.numel() + kk.numel() + vv.numel()), it, check_only,
                 lambda: K.flash_attention.last_launch, bitwise=dtype == torch.bfloat16,
+                ref=lambda: _flash_ref(q, kk, vv, causal=True),
             )  # fmt: skip
             if dtype == torch.bfloat16:  # and against the twin that replays its schedule
                 _case(f"flash_attention[{arch}] vs its tiled twin", dtype,
                       lambda: K.flash_attention(q, kk, vv, causal=True),
                       lambda: flash_attention_tiled(q, kk, vv, causal=True), None, 0, 0, 0, True,
-                      lambda: K.flash_attention.last_launch)  # fmt: skip
+                      lambda: K.flash_attention.last_launch, ref=lambda: _flash_ref(q, kk, vv, causal=True))  # fmt: skip
             recs.update(_lm_head_cases(rnd, arch, d, shp["vocab"], dtype, it, check_only))
             if "e_loc" not in shp:
                 continue
@@ -1546,6 +1770,7 @@ def phase_kernels(iters: int):
                     lambda: torch.bmm(x.view(W * e_loc, B * cap, k), w),
                     2 * x.shape[0] * k * n, isz * (x.numel() + w.numel()) + osz * x.shape[0] * n, it, check_only,
                     lambda: K.grouped_matmul.last_launch, bitwise=dtype == torch.bfloat16,
+                    ref=lambda: _grouped_ref(x, w, table, out_dt),
                 )  # fmt: skip
             # a random, non-monotone table over 8-row tiles (below the capacity),
             # with empty tiles (-1 and E) among them
@@ -1558,6 +1783,7 @@ def phase_kernels(iters: int):
                 lambda: K.grouped_matmul(x, w, rand_table), lambda: K.grouped_matmul_plain(x, w, rand_table), None,
                 2 * rows * fe * d, isz * (rows * fe + used * fe * d + x.shape[0] * d), it, check_only,
                 lambda: K.grouped_matmul.last_launch, bitwise=dtype == torch.bfloat16,
+                ref=lambda: _grouped_ref(x, w, rand_table),
             )  # fmt: skip
             del x, w
 
@@ -1565,6 +1791,7 @@ def phase_kernels(iters: int):
     recs.update(_paper_moe_kernels(rnd, iters))
     recs.update(_ring_tile_kernels(rnd, iters))
     recs.update(_ssm_kernels(rnd, iters))
+    recs[("ssd_chunked", ARCH_SSM, "ref", torch.float32)] = _ssd_ref_case(rnd)
     recs.update(_ssd_train_kernels(rnd, iters))
     # the train phases' shapes (8 x 256 tokens): smollm's, the MoE models' attention and dense MLPs, and
     # zamba2's shared attention block (head dim 80) and MLP
@@ -1598,11 +1825,13 @@ def phase_kernels(iters: int):
                 x, w = rnd(W, B, s_loc, d, dtype=dtype), rnd(W, d, n_qkv, dtype=dtype) * d**-0.5
                 _case(f"ag_gemm {order} C{nch}", dtype, lambda: K.ag_gemm(x, w, channel=ch),
                       lambda: K.ag_gemm_plain(x, w, channel=ch), None, 0, 0, 0, True,
-                      lambda: K.ag_gemm.last_launch, bitwise=bf16)  # fmt: skip
+                      lambda: K.ag_gemm.last_launch, bitwise=bf16, ref=lambda: R.ag_gemm_ref(x, w))  # fmt: skip
                 x, w = rnd(W, B, S, n_o, dtype=dtype), rnd(W, n_o, d, dtype=dtype) * (W * n_o) ** -0.5
                 _case(f"gemm_rs {order} C{nch}", dtype, lambda: K.gemm_rs(x, w, channel=ch),
                       lambda: K.gemm_rs_plain(x, w, channel=ch), None, 0, 0, 0, True,
-                      lambda: K.gemm_rs.last_launch, bitwise=bf16)  # fmt: skip
+                      lambda: K.gemm_rs.last_launch, bitwise=bf16, ref=lambda: R.gemm_rs_ref(x, w))  # fmt: skip
+    print(f"[kernels] the holds against kernels/ref added {REF_S[0] - ref_s0:.1f} s to this phase "
+          f"({REF_S[0]:.1f} s in the whole run, the quant phase's cases included)")  # fmt: skip
     return recs
 
 
@@ -2541,6 +2770,175 @@ def phase_train(profile: bool = False) -> dict:
 
     # (c) checkpoint at TRAIN_CKPT_AT, resume: the next step's loss bitwise the uninterrupted run's
     out["resume"] = _resume_check("train", ARCH)
+    return out
+
+
+def _seam_step_f32(cfg, world, batch) -> dict:
+    """(b), (c): one float32 step of ``cfg`` (SEAM_F32_LAYERS layers) with
+    fused seams on the fused backend, against the same step with seams on
+    the eager backend and against the unfused step on the fused backend:
+    the loss the logits' bound, every leaf's gradient GRAD_RTOL of its
+    max|other|, the seamed step's launches held."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    pc, pc_eager = ParallelContext(world=world), ParallelContext(world=world, backend="eager")
+    seam, seam_eager = (dataclasses.replace(p_, fuse_seams=True) for p_ in (pc, pc_eager))
+    p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    names = _leaf_names(lm.trainable(p32, cfg))
+    K.reset_launch_counts()
+    loss_s, _, _, g_s = loss_and_grads(lm, cfg, seam, p32, batch)
+    torch.cuda.synchronize()
+    counts, expect = K.launch_counts(), paper_e2e.expected_launches(cfg, "overlap", "none", fuse_seams=True)
+    print(f"[train_seam] f32 step at {cfg.n_layers} layers with fused seams, launches {counts} (held: {expect})")
+    if counts != expect:
+        raise SystemExit(f"chip_smoke: the f32 seamed step launched {counts}, expected {expect}")
+    out = {"layers": cfg.n_layers, "counts": counts}
+    for key, other in (("vs_eager_seams", seam_eager), ("vs_unfused", pc)):
+        loss_o, _, _, g_o = loss_and_grads(lm, cfg, other, p32, batch)
+        what = "(b) eager backend with seams" if other is seam_eager else "(c) unfused, fused backend"
+        _hold_logits(f"[train_seam] f32 loss, fused seams vs {what}", loss_s[None], loss_o[None], ("seams", "other"))
+        errs = _grad_errs(names, tree_leaves(g_s), tree_leaves(g_o))
+        worst = max(e for _, e, _ in errs)
+        bad = [(n, e) for n, e, fine in errs if not (fine and e <= GRAD_RTOL)]
+        print(f"[train_seam] f32 gradients, fused seams vs {what}: {len(errs)} leaves, worst max|diff| / max|other "
+              f"leaf| {worst:.3e} (bound {GRAD_RTOL:g} per leaf)")  # fmt: skip
+        if bad:
+            raise SystemExit(f"chip_smoke: the seamed f32 gradients disagree with {what}: {bad[:8]}")
+        out[key] = {"loss": [loss_s.item(), loss_o.item()], "grad_rel_err": worst}
+        del g_o
+    del p32, g_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_seam() -> dict:
+    """smollm-360m trained with fused RS -> AG seams (module docstring, phase 11b)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+    from repro_torch.core import overlap
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    seam = dataclasses.replace(pc, fuse_seams=True)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    batches = [pipe.host_batch() for _ in range(SEAM_TRAIN_STEPS)]
+    opt_cfg = AdamWConfig(total_steps=SEAM_TRAIN_STEPS + 1, warmup_steps=1)
+    # (a) bf16 at full depth and width: the seamed and the unfused step in turns, each on its own state
+    expect = {"seams": paper_e2e.expected_launches(cfg, "overlap", "none", fuse_seams=True),
+              "unfused": paper_e2e.expected_launches(cfg, "overlap", "none")}  # fmt: skip
+    runs = {}
+    for name, p_ in (("seams", seam), ("unfused", pc)):
+        params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+        runs[name] = {"params": params, "opt": init_opt_state(lm.trainable(params, cfg)), "ms": [], "loss": [],
+                      "peak": 0, "step": make_train_step(lm, cfg, p_, opt_cfg, grad_masks=lm.grad_masks(cfg, p_),
+                                                         donate=True)}  # fmt: skip
+    total = dict.fromkeys(K.launch_counts(), 0)
+    seams = 0
+    for i, batch in enumerate(batches):
+        for name in ("seams", "unfused") if i % 2 == 0 else ("unfused", "seams"):
+            r = runs[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            overlap.matmul_rs_ag.calls = 0
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            r["params"], r["opt"], m = r["step"](r["params"], r["opt"], batch)
+            e1.record()
+            e1.synchronize()
+            counts = K.launch_counts()
+            if counts != expect[name]:
+                raise SystemExit(f"chip_smoke: the bf16 {name} train step {i} launched {counts}, expected {expect[name]}")
+            if name == "seams":
+                total = {k: total[k] + v for k, v in counts.items()}
+                seams += overlap.matmul_rs_ag.calls
+            r["ms"].append(e0.elapsed_time(e1))
+            r["loss"].append(m["loss"].item())
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+    out = {"per_step": expect, "seams_per_step": seams // SEAM_TRAIN_STEPS}
+    for name, r in runs.items():
+        med = sorted(r["ms"][1:])[(len(r["ms"]) - 1) // 2]
+        print(f"[train_seam] (a) bf16 {ARCH} ({cfg.n_layers} layers) W={WORLD}, {SEAM_TRAIN_STEPS} AdamW steps of "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, {name}: launches per step {expect[name]} (held, every step); "
+              f"losses {[round(v, 4) for v in r['loss']]}; step ms {[round(v, 2) for v in r['ms']]} (CUDA events; "
+              f"median after the first {med:.2f}); peak memory {r['peak'] / 2**20:.0f} MiB")  # fmt: skip
+        if not all(map(math.isfinite, r["loss"])):
+            raise SystemExit(f"chip_smoke: the bf16 {name} train steps' loss is not finite: {r['loss']}")
+        out[name] = {"ms": r["ms"], "median_ms": med, "loss": r["loss"], "peak_bytes": r["peak"]}
+    print(f"[train_seam] (a) seams fused per step {out['seams_per_step']} (one a layer); seamed over unfused step "
+          f"ms {out['seams']['median_ms'] / out['unfused']['median_ms']:.3f} (recorded, not bounded)")  # fmt: skip
+    # (d) one bf16 step under remat "dots" with seams: each scan unit's chain recomputed in the backward
+    r = runs["seams"]
+    step = make_train_step(lm, cfg, seam, opt_cfg, remat_policy="dots", grad_masks=lm.grad_masks(cfg, seam),
+                           donate=True)  # fmt: skip
+    remat_expect = paper_e2e.expected_launches(cfg, "overlap", "dots", fuse_seams=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    r["params"], r["opt"], m = step(r["params"], r["opt"], batches[0])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    total = {k: total[k] + v for k, v in counts.items()}
+    print(f"[train_seam] (d) bf16 step with seams under remat \"dots\": launches {counts} (held: {remat_expect}); "
+          f"loss {m['loss'].item():.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")  # fmt: skip
+    if counts != remat_expect or not math.isfinite(m["loss"].item()):
+        raise SystemExit(f"chip_smoke: the remat seamed step launched {counts} (expected {remat_expect}) or its loss "
+                         f"is not finite")  # fmt: skip
+    out["remat"] = {"counts": counts, "per_step": remat_expect, "loss": m["loss"].item(),
+                    "peak_bytes": torch.cuda.max_memory_allocated()}  # fmt: skip
+    del runs, r, step
+    torch.cuda.empty_cache()
+    # (b), (c) float32 at SEAM_F32_LAYERS layers
+    out["f32"] = _seam_step_f32(dataclasses.replace(cfg, n_layers=SEAM_F32_LAYERS), world, batches[0])
+    out["counts"] = total  # the main path's launches: (a)'s seamed steps and (d)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[train_seam] phase wall time {out['wall_s']:.1f} s")
+    return out
+
+
+def phase_examples() -> dict:
+    """The examples on the card (module docstring, phase 11c)."""
+    from repro_torch import kernels as K
+    from repro_torch.examples import moe_overlap_demo, quickstart
+
+    out = {}
+    K.reset_launch_counts()
+    q = quickstart.main([])
+    counts = K.launch_counts()
+    ring, gather = q["counts"]["tilelink"], q["counts"]["non-overlap"]
+    print(f"[examples] quickstart: launches {counts}; transport {q['counts']}")
+    if counts["ag_gemm"] != 1 or not ring.get("permute") or ring.get("all_gather") or not gather.get("all_gather"):
+        raise SystemExit(f"chip_smoke: the quickstart ran {counts} with transport {q['counts']}")
+    out["quickstart"] = {**q, "launches": counts}
+    K.reset_launch_counts()
+    moe = moe_overlap_demo.main([])
+    counts = K.launch_counts()
+    print(f"[examples] moe_overlap_demo: launches {counts}")
+    if counts["grouped_matmul"] != 2 * 8 or moe["grouped_launches"] != counts["grouped_matmul"]:
+        raise SystemExit(f"chip_smoke: the MoE demo launched {counts}, expected 2 grouped GEMMs at each of 8 steps")
+    out["moe_overlap_demo"] = {**moe, "launches": counts}
+    out["counts"] = {k: out["quickstart"]["launches"][k] + counts[k] for k in counts}
     return out
 
 
@@ -3533,6 +3931,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
     from repro_torch.core.channels import BlockChannel
     from repro_torch.core.quant import QuantSpec, dequantize_weight, pack_weight
 
@@ -3565,6 +3964,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
                     2 * W * B * W * m_loc * dm * n_ag,
                     isz * (x.numel() + W * B * W * m_loc * n_ag) + pw.q.numel() + 8 * pw.scale.numel(),
                     iters if timed else 2, not timed, lambda: K.ag_gemm.last_launch, bitwise=timed, plain_once=once,
+                    ref=lambda: R.ag_gemm_ref(x, _dq(pw)),
                 )  # fmt: skip
                 del pw, wd
             del x, xg, wf
@@ -3581,6 +3981,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
                     lambda: torch.matmul(x, wd[:, None]).sum(0),
                     2 * W * B * M * k_rs * dm, isz * x.numel() + out_bytes + pw.q.numel() + 8 * pw.scale.numel(),
                     iters if timed else 2, not timed, lambda: K.gemm_rs.last_launch, bitwise=timed, plain_once=once,
+                    ref=lambda: R.gemm_rs_ref(x, _dq(pw)),
                 )  # fmt: skip
                 del pw, wd
             w = wf.to(dtype)
@@ -3590,6 +3991,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
                 lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * B * M * k_rs * dm, isz * (x.numel() + w.numel()) + out_bytes,
                 iters if timed else 2, not timed, lambda: K.gemm_rs.last_launch, bitwise=timed, plain_once=once,
+                ref="no counterpart: each hop's partial rounded to the bf16 wire (ref sums exactly)",
             )  # fmt: skip
             if K.gemm_rs.last_launch["wire"] != "bfloat16":
                 raise SystemExit(f"chip_smoke: gemm_rs kept its partials in {K.gemm_rs.last_launch['wire']}, not bf16")
@@ -4336,6 +4738,7 @@ def main(argv=None) -> int:
     phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
+              "train_seam": phase_train_seam, "examples": phase_examples,
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
@@ -4360,6 +4763,8 @@ def main(argv=None) -> int:
     by_path[f"seam {ARCH}"] = out["seam"]["counts"]
     by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
+    by_path[f"train_seam {ARCH}"] = out["train_seam"]["counts"]
+    by_path["examples"] = out["examples"]["counts"]
     by_path[f"train_moe {ARCH_MOE}"] = out["train_moe"]["bf16"]["counts"]
     by_path[f"train_moe {ARCH_DS}"] = out["train_moe"]["bf16_ds"]["counts"]
     by_path[f"train_ssm {ARCH_SSM}"] = out["train_ssm"]["bf16"]["counts"]

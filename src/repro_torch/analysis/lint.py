@@ -14,13 +14,18 @@ three counterparts of the JAX package's rules:
                         lint covers ``src/repro`` only, and its benchmarks
                         live outside it).  A tensor's ``.permute`` is not a
                         collective and is not matched;
-  * ``flag-site``     — the flag primitives (``tl_notify``,
-                        ``tl_wait_flag``, ``tl_ld_acquire``,
-                        ``tl_st_release``, ``ld.acquire``, ``st.release``) only in
-                        ``kernels/csrc/tile_sync.cuh`` and the two fused
-                        kernels that include it (``ag_gemm.cu``,
-                        ``gemm_rs.cu``), whose protocol ``analysis.protocol``
-                        models; a text rule over the CUDA sources;
+  * ``flag-site``     — the raw acquire / release (``ld.acquire``,
+                        ``st.release`` and their wrappers ``tl_ld_acquire``,
+                        ``tl_st_release``) only in
+                        ``kernels/csrc/tile_sync.cuh``, the header of the
+                        paper's tile primitives; the primitives themselves
+                        (``producer_tile_notify``, ``consumer_tile_wait``,
+                        ``peer_tile_notify``, ``peer_tile_wait``, each with
+                        its ``_thread`` / ``_synced`` forms) only there and
+                        in the two fused kernels that include it
+                        (``ag_gemm.cu``, ``gemm_rs.cu``), whose protocol
+                        ``analysis.protocol`` models; a text rule over the
+                        CUDA sources;
   * ``raw-library``   — ``ctypes.CDLL`` only in ``kernels/build.py`` and
                         ``build.library()`` only under ``kernels/``: kernels
                         launch through their wrappers, so the route choice
@@ -39,14 +44,19 @@ from typing import List, Optional, Sequence
 
 __all__ = ["Violation", "lint_source", "lint_file", "lint_tree", "main"]
 
-FLAG_PRIMITIVES = ("tl_notify", "tl_wait_flag", "tl_ld_acquire", "tl_st_release", "ld.acquire", "st.release")
-_FLAG_RE = re.compile(r"(?<![\w.])(" + "|".join(re.escape(p) for p in FLAG_PRIMITIVES) + r")(?!\w)")
+FLAG_RAW = ("tl_ld_acquire", "tl_st_release", "ld.acquire", "st.release")
+FLAG_PRIMITIVES = ("producer_tile_notify", "consumer_tile_wait", "peer_tile_notify", "peer_tile_wait")
+_FLAG_RAW_RE = re.compile(r"(?<![\w.])(" + "|".join(re.escape(p) for p in FLAG_RAW) + r")(?!\w)")
+_FLAG_PRIMITIVE_RE = re.compile(
+    r"(?<![\w.])((?:" + "|".join(re.escape(p) for p in FLAG_PRIMITIVES) + r")(?:_thread|_synced)?)(?!\w)"
+)
 CUDA_SUFFIXES = (".cu", ".cuh")
 
 # rule -> relative paths (or directory prefixes ending in "/") allowed to match
 _ALLOWED = {
     "permute-site": ("core/overlap.py", "benchmarks/"),
-    "flag-site": ("kernels/csrc/tile_sync.cuh", "kernels/csrc/ag_gemm.cu", "kernels/csrc/gemm_rs.cu"),
+    "flag-site": ("kernels/csrc/tile_sync.cuh",),
+    "flag-primitive": ("kernels/csrc/tile_sync.cuh", "kernels/csrc/ag_gemm.cu", "kernels/csrc/gemm_rs.cu"),
     "raw-cdll": ("kernels/build.py",),
     "raw-library": ("kernels/",),
 }
@@ -76,12 +86,14 @@ def _is_world(node) -> bool:
 
 
 def _lint_cuda(source: str, relpath: str) -> List[Violation]:
-    if _allowed("flag-site", relpath):
-        return []
+    rules = [(_FLAG_RAW_RE, "flag-site", "outside tile_sync.cuh: use the tile primitives")]
+    rules.append((_FLAG_PRIMITIVE_RE, "flag-primitive", "outside tile_sync.cuh and the fused kernels that include it"))
     return [
-        Violation(relpath, n, "flag-site", f"{m.group(1)} outside tile_sync.cuh and the fused kernels that include it")
+        Violation(relpath, n, "flag-site", f"{m.group(1)} {why}")
+        for regex, allow, why in rules
+        if not _allowed(allow, relpath)
         for n, line in enumerate(source.splitlines(), 1)
-        for m in _FLAG_RE.finditer(line)
+        for m in regex.finditer(line)
     ]
 
 

@@ -32,6 +32,18 @@ and checks:
                            one per grid tile, all resident.  A stuck state
                            names the blocked block, its item and the flag.
 
+The flags are the paper's tile primitives (Table 3), the only flag code
+of both kernels, in ``kernels/csrc/tile_sync.cuh``: ``producer_tile_notify``
+and ``peer_tile_notify`` (every thread fences its stores, the group's
+barrier, one release store: the ``set`` ops of an item),
+``consumer_tile_wait`` and ``peer_tile_wait`` (one thread's acquire spin, a
+fence, the group's barrier: the ``wait`` ops), each in a block-wide form
+(the float32 routes), a one-thread form (the bf16 routes' TMA producer
+warp) and a form over the consumer warpgroups' own barrier (``_synced``);
+and ``tile_push_data`` (the stores into a peer's slot: the ``write`` ops).
+``core/primitives`` holds the same names over a host flag board, which the
+plain versions replay.
+
 Within a block the producer warp runs ahead of the consumers, but it waits
 only after it has issued the loads of the items before, so running a
 block's items one after another is the same as far as deadlock goes.

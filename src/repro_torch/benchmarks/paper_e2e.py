@@ -95,7 +95,7 @@ def e2e_config(arch: str, layers: Optional[int] = None):
     return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
 
 
-def expected_launches(cfg, mode: str, remat: str = "none") -> dict:
+def expected_launches(cfg, mode: str, remat: str = "none", fuse_seams: bool = False) -> dict:
     """Kernel launches of one train step on the card: the LM head's tile
     GEMM forward, one flash launch an attention layer (its backward is
     torch ops from the saved statistics) and one SSD intra-chunk launch a
@@ -104,17 +104,41 @@ def expected_launches(cfg, mode: str, remat: str = "none") -> dict:
     layer's, or a MoE layer's shared experts) AG+GEMM and GEMM+RS forward
     and each one's transpose through the other kernel backward, and each
     MoE block's two grouped GEMMs at every one of the double ring's W steps
-    (one channel), forward and input gradients.  ``remat="dots"`` runs each
-    layer's forward launches twice (the head's once)."""
-    plan = lm.layer_plan(cfg)
-    moe = sum(d.ffn_kind == "moe" for d in plan)
-    mlps = sum(d.ffn_kind == "mlp" for d in plan) + (moe if cfg.moe and cfg.moe.num_shared else 0)
-    ssm = sum(d.kind == "mamba" for d in plan)
+    (one channel), forward and input gradients.  ``remat`` other than
+    "none" runs each layer's forward launches twice (the head's once).
+
+    ``fuse_seams`` (overlap only): each segment's runs of consecutive
+    seam-eligible layers (``lm.segments``, ``LayerDef.seam_eligible``) form
+    one chain whose inner RS -> AG seams run on the eager executor, so a
+    chain launches one AG+GEMM (its first qkv) and one GEMM+RS (its last
+    down projection) forward, and each one's transpose backward; under remat
+    only the scan units' chains run their forward twice, as ``lm.forward``
+    checkpoints them."""
     on = mode == "overlap"
-    fwd = 2 if remat != "none" else 1  # forward launches: the forward, and its recompute
-    fused = (fwd + 1) * (len(plan) + mlps) if on else 0
-    return {"matmul": 1, "ag_gemm": fused, "gemm_rs": fused, "flash_attention": fwd * (len(plan) - ssm),
-            "grouped_matmul": (2 * fwd + 2) * WORLD * moe if on else 0, "ssd_intra_chunk": fwd * ssm}  # fmt: skip
+    if fuse_seams and not on:
+        raise ValueError("fused seams are an overlap-mode path")
+    plan = lm.layer_plan(cfg)
+    k0, period, n_units, _ = lm.scan_units(cfg)
+    units = range(k0, k0 + n_units * period)
+    out = dict.fromkeys(("ag_gemm", "gemm_rs", "flash_attention", "grouped_matmul", "ssd_intra_chunk"), 0)
+    out["matmul"] = 1
+    seg_starts = {seg.start for seg in lm.segments(cfg)}
+    for i, d in enumerate(plan):
+        fwd = 2 if remat != "none" and (not fuse_seams or i in units) else 1  # the forward, and its recompute
+        out["flash_attention"] += fwd * (d.kind != "mamba")
+        out["ssd_intra_chunk"] += fwd * (d.kind == "mamba")
+        if not on:
+            continue
+        if fuse_seams and d.seam_eligible():
+            starts = i in seg_starts or not plan[i - 1].seam_eligible()  # a chain's first layer
+            out["ag_gemm"] += (fwd + 1) * starts
+            out["gemm_rs"] += (fwd + 1) * starts
+            continue
+        mlps = 1 + (d.ffn_kind == "mlp" or (d.ffn_kind == "moe" and bool(cfg.moe.num_shared)))  # mixer, dense MLP
+        out["ag_gemm"] += (fwd + 1) * mlps
+        out["gemm_rs"] += (fwd + 1) * mlps
+        out["grouped_matmul"] += (2 * fwd + 2) * WORLD * (d.ffn_kind == "moe")
+    return out
 
 
 def _timed_step(step, params, opt, batch, cuda: bool):

@@ -3,7 +3,9 @@
 Each wrapper module holds the kernel's launch, its plain PyTorch version and
 a launch counter (``<wrapper>.launches``, bumped only where the kernel
 launches).  Nothing is compiled at import: the first launch on a CUDA tensor
-builds ``csrc/`` (``build.library``).
+builds ``csrc/`` (``build.library``).  ``ref`` holds every kernel's float32
+oracle, independent of the kernels' schedules; ``ops`` the reference's
+public names.
 """
 
 from repro_torch.kernels.ag_gemm import ag_gemm, ag_gemm_plain
@@ -12,6 +14,7 @@ from repro_torch.kernels.gemm_rs import gemm_rs, gemm_rs_plain
 from repro_torch.kernels.grouped_matmul import grouped_matmul, grouped_matmul_plain
 from repro_torch.kernels.mamba_ssd import ssd_chunked, ssd_intra_chunk, ssd_intra_chunk_plain
 from repro_torch.kernels.matmul import matmul, matmul_plain
+from repro_torch.kernels import ops, ref
 
 __all__ = [
     "ag_gemm",
@@ -28,6 +31,8 @@ __all__ = [
     "ssd_chunked",
     "ssd_intra_chunk",
     "ssd_intra_chunk_plain",
+    "ops",
+    "ref",
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",

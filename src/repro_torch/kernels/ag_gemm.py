@@ -24,7 +24,9 @@ protocol, the bound and the design are noted in ``csrc/ag_gemm.cu``.
 
 :func:`ag_gemm_plain` is the plain PyTorch version: it replays the bf16
 route's work items in order, with the same tables, the same gather slots,
-the same seed copy, the same per-m-tile pushes and the same flag keys.
+the same seed copy, the same per-m-tile pushes and the same flag keys,
+through the host form of the tile primitives (``core/primitives``: a wait
+on a flag no earlier item set raises).
 
 ``w`` may be a :class:`~repro_torch.core.quant.PackedWeight` (weight-only
 int8 / int4 codes ``[W, K, n_loc]``, per-column scale and zero point
@@ -60,6 +62,14 @@ from repro_torch.backend.hw import probe
 from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
+from repro_torch.core.primitives import (
+    FlagBoard,
+    consumer_tile_wait,
+    peer_tile_notify,
+    peer_tile_wait,
+    producer_tile_notify,
+    tile_push_data,
+)
 from repro_torch.core.quant import PackedWeight
 from repro_torch.kernels import build
 
@@ -207,18 +217,20 @@ def ag_gemm_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None,
     xs = x.reshape(world, b, m_loc, k)
     gbuf = torch.zeros((world, world * nch, rows, k), dtype=x.dtype, device=x.device)
     out = torch.zeros((world, b, world * m_loc, n_loc), dtype=x.dtype, device=x.device)
-    flags = set()
+    board = FlagBoard()
     for it in work_items(plan, (b, m_loc, k, n_loc)):
-        assert it.wait is None or it.wait in flags, it  # the order sets every flag before its wait
         r, o, c = it.r, it.origin, it.c
+        if it.wait is not None:  # the order sets every flag before its wait, else this raises
+            (consumer_tile_wait if it.s == 0 else peer_tile_wait)(board, it.wait)
         sl = slice(it.mt * bm, min(rows, (it.mt + 1) * bm))
         if it.copy == "seed":
             tile = xs[r, :, c * m_sub : (c + 1) * m_sub].reshape(rows, k)[sl]
         elif it.copy == "push":
             tile = gbuf[r, o * nch + c, sl]
         for rank, origin, ch, _ in it.writes:  # into the peer's (and, seeding, the own) gather slot
-            gbuf[rank, origin * nch + ch, sl] = tile
-        flags.update(it.sets)
+            tile_push_data(gbuf, (rank, origin * nch + ch, sl), tile)
+        for key in it.sets:  # the own slot's flag (seeding), the peer's
+            (producer_tile_notify if key[1] == r else peer_tile_notify)(board, key)
         cols = slice(it.nt * bn, min(n_loc, (it.nt + 1) * bn))
         part = gbuf[r, o * nch + c, sl].float() @ wf[r, :, cols]
         if col_scale is not None:

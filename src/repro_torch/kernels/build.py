@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import importlib.util
 import os
 import shutil
 import subprocess
@@ -24,6 +23,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from repro_torch.backend import features
 
 __all__ = [
     "library",
@@ -91,16 +92,6 @@ WGMMA_TILE = (128, 128)
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("repro_torch: nvcc not found (PATH or /usr/local/cuda/bin); cannot build the kernels")
-
-
 def _sources():
     return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
 
@@ -116,7 +107,7 @@ def _digest() -> str:
 
 
 def _build(out_dir: Path) -> Path:
-    nvcc = _nvcc()
+    nvcc = features.nvcc()
     cu, _ = _sources()
     out_dir.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="build-", dir=out_dir))
@@ -260,12 +251,11 @@ def ptxas_report() -> str:
 
 
 def _cuobjdump() -> str:
-    found = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    found = shutil.which("cuobjdump") or str(Path(features.nvcc()).with_name("cuobjdump"))
     if Path(found).exists():
         return found
-    spec = importlib.util.find_spec("triton")
-    if spec is not None and spec.origin:
-        cand = Path(spec.origin).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    if features.TRITON_DIR is not None:
+        cand = features.TRITON_DIR / "backends" / "nvidia" / "bin" / "cuobjdump"
         if cand.exists():
             return str(cand)
     raise RuntimeError("repro_torch: cuobjdump not found (PATH, the CUDA toolkit or triton's copy)")

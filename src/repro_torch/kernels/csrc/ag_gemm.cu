@@ -97,13 +97,13 @@ __global__ void __launch_bounds__(TG_THREADS)
       A = RowsA<T>{x + (static_cast<long>(r) * B * m_loc + static_cast<long>(c) * m_sub) * K, K, m_sub,
                    static_cast<long>(m_loc) * K};
     } else {
-      tl_wait_flag(&flags[(r * W + (s - 1)) * nch + c], 1);
+      peer_tile_wait(&flags[(r * W + (s - 1)) * nch + c], 1);
       A = RowsA<T>{gbuf + (static_cast<long>(r * W + src) * nch + c) * slot_elems, K, rows, 0};
     }
     if (j == 0 && s < W - 1) {
       T* slot = gbuf + (static_cast<long>(dst * W + src) * nch + c) * slot_elems;
-      tl_push_rows(slot, A, rows, K);
-      tl_notify(&flags[(dst * W + s) * nch + c], 1);
+      tile_push_data(slot, A, rows, K);
+      peer_tile_notify(&flags[(dst * W + s) * nch + c], 1);
     }
     const long row_base = static_cast<long>(src) * m_loc + static_cast<long>(c) * m_sub;
     for (int r0 = 0; r0 < rows; r0 += TG_BM) {
@@ -166,34 +166,12 @@ __device__ __forceinline__ void ag_seed_rows(const AgArgs& a, int r, int c, int 
   }
 }
 
-// The 256 consumers copy `elems` bf16 of a held slot (written by other
-// blocks: L2 loads) to a peer's slot, COPY_BATCH vectors in flight a thread.
-// A packed item pushes this way instead of from its A boxes, so its mainloop
+// The 256 consumers push a held slot (written by other blocks: L2 loads) to a
+// peer's slot with tile_push_data, COPY_BATCH vectors in flight a thread.  A
+// packed item pushes this way instead of from its A boxes, so its mainloop
 // hook only converts the Q boxes (one hook doing both spilled registers).
-__device__ __forceinline__ void ag_copy_rows(const __nv_bfloat16* src, __nv_bfloat16* dst, long elems) {
-  const long nv = elems / 8;  // K % 8 == 0: whole 16-byte vectors
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (long e0 = threadIdx.x; e0 < nv; e0 += COPY_BATCH * wg::CONSUMERS) {
-    uint4 v[COPY_BATCH];
-#pragma unroll
-    for (int u = 0; u < COPY_BATCH; ++u)
-      if (e0 + u * wg::CONSUMERS < nv) v[u] = __ldcg(s + e0 + u * wg::CONSUMERS);
-#pragma unroll
-    for (int u = 0; u < COPY_BATCH; ++u)
-      if (e0 + u * wg::CONSUMERS < nv) d[e0 + u * wg::CONSUMERS] = v[u];
-  }
-}
-
-// Publish the consumers' prior stores to a gather slot and set a ready flag:
-// generic stores, then (for TMA readers) the proxy fence, a GPU-scope fence,
-// the consumer barrier, one release store.
-__device__ __forceinline__ void ag_publish(int* flag) {
-  wg_fence_proxy_async();
-  __threadfence();
-  wg_consumer_sync();
-  if (threadIdx.x == 0) tl_st_release(flag, 1);
-}
+// Stores to a gather slot are published for TMA readers: the proxy fence,
+// then the consumers' notify (producer_tile_notify_synced over their barrier).
 
 // PACKED: map_b holds the int8 codes (a Q box per stage, wg_dequant_b).
 template <bool PACKED>
@@ -216,8 +194,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
       const int s = x.s, r = x.r, c = x.c, nt = x.nt, mt = x.mt;
       const int src = a.src_tbl[(c * W + s) * W + r];
       const int* flag = &a.ready[((r * W + s) * nch + c) * a.MT + mt];
-      while (tl_ld_acquire(flag) == 0) __nanosleep(32);
-      wg_fence_proxy_async();
+      consumer_tile_wait_thread(flag);
+      wg_fence_proxy_async();  // the slot is read through the async proxy (TMA)
       const int slot = (r * W + src) * nch + c;
       auto load = [&](int kb, uint8_t* sa, uint8_t* sb, uint64_t* bar) {
         wg_tma_3d(sa, &map_a, bar, kb * wg::BK, mt * wg::BM, slot);
@@ -231,6 +209,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
   // ---- two consumer warpgroups: seed / push, wgmma, epilogue
   const int wgi = threadIdx.x / 128;
+  const auto consumers = [] { wg_consumer_sync(); };
   const long m_glob = static_cast<long>(W) * a.m_loc;
   float acc[wg::ACC];
 #pragma unroll
@@ -247,7 +226,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     if (nt == 0 && s == 0) {  // seed: own sub-chunk -> own slot (r, c)
       __nv_bfloat16* own = a.gbuf + (static_cast<long>(r * W + r) * nch + c) * slot_elems;
       ag_seed_rows(a, r, c, row0, nrows, own);
-      ag_publish(&a.ready[((r * W + 0) * nch + c) * a.MT + mt]);
+      wg_fence_proxy_async();
+      producer_tile_notify_synced(&a.ready[((r * W + 0) * nch + c) * a.MT + mt], 1, consumers);
     }
     const bool push = nt == 0 && s < W - 1;  // the held rows -> the peer's slot (src, c)
     __nv_bfloat16* peer =
@@ -255,15 +235,12 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     int* next = &a.ready[((dst * W + s + 1) * nch + c) * a.MT + mt];
     if constexpr (PACKED) {
       if (push) {  // copied from the held slot once it is ready, before the GEMM
-        if (threadIdx.x == 0) {
-          while (tl_ld_acquire(&a.ready[((r * W + s) * nch + c) * a.MT + mt]) == 0) __nanosleep(32);
-          __threadfence();
-        }
-        wg_consumer_sync();
+        peer_tile_wait_synced(&a.ready[((r * W + s) * nch + c) * a.MT + mt], consumers);
         const __nv_bfloat16* held =
             a.gbuf + (static_cast<long>(r * W + src) * nch + c) * slot_elems + static_cast<long>(row0) * a.K;
-        ag_copy_rows(held, peer, static_cast<long>(nrows) * a.K);
-        ag_publish(next);
+        tile_push_data<COPY_BATCH, wg::CONSUMERS>(peer, held, static_cast<long>(nrows) * a.K);
+        wg_fence_proxy_async();
+        peer_tile_notify_synced(next, 1, consumers);
       }
       const float* zrow = a.zero + static_cast<long>(r) * a.n_loc + col0;
       auto dequant = [&](int kb, const uint8_t* box) {
@@ -274,7 +251,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     } else if (push) {  // from the A boxes as they land
       auto store = [&](int kb, const uint8_t* box) { wg_store_a_box(box, peer, a.K, nrows, kb * wg::BK, a.K); };
       wg_mainloop(ring, pos, nk, wgi, acc, store);
-      ag_publish(next);
+      wg_fence_proxy_async();
+      peer_tile_notify_synced(next, 1, consumers);
     } else {
       wg_mainloop(ring, pos, nk, wgi, acc);
     }

@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(TG_THREADS)
                      static_cast<long>(M) * K};
     const AccT* prev = nullptr;
     if (s > 0) {
-      tl_wait_flag(&flags[((r * W + (s - 1)) * nch + c) * n_tiles + j], 1);
+      peer_tile_wait(&flags[((r * W + (s - 1)) * nch + c) * n_tiles + j], 1);
       prev = rbuf + (static_cast<long>(r * W + (s - 1)) * nch + c) * slot_elems;
     }
     AccT* send = (s < W - 1) ? rbuf + (static_cast<long>(dst * W + s) * nch + c) * slot_elems : nullptr;
@@ -116,7 +116,7 @@ __global__ void __launch_bounds__(TG_THREADS)
         tile_gemm(A, r0, m, wr.cols(c0), n, K, sm, epi);
       }
     }
-    if (send != nullptr) tl_notify(&flags[((dst * W + s) * nch + c) * n_tiles + j], 1);
+    if (send != nullptr) peer_tile_notify(&flags[((dst * W + s) * nch + c) * n_tiles + j], 1);
   }
 }
 
@@ -170,6 +170,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
   // ---- two consumer warpgroups: wgmma, then the reduce-scatter epilogue
   const int wgi = threadIdx.x / 128;
+  const auto consumers = [] { wg_consumer_sync(); };  // their named barrier (the producer warp has returned)
   const long slot_elems = static_cast<long>(a.B) * a.m_loc * a.n_sub;
   float acc[wg::ACC];
 #pragma unroll
@@ -195,11 +196,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     const int fl = (c * a.MT + mt) * a.NT + nt;  // flag offset inside (rank, stage)
     const AccT* prev = nullptr;
     if (s > 0) {
-      if (threadIdx.x == 0) {
-        while (tl_ld_acquire(&a.flags[(r * W + s - 1) * nch * a.MT * a.NT + fl]) == 0) __nanosleep(32);
-        __threadfence();
-      }
-      wg_consumer_sync();
+      peer_tile_wait_synced(&a.flags[(r * W + s - 1) * nch * a.MT * a.NT + fl], consumers);
       prev = a.rbuf + (static_cast<long>(r * W + s - 1) * nch + c) * slot_elems;
     }
     AccT* send = (s < W - 1) ? a.rbuf + (static_cast<long>(dst * W + s) * nch + c) * slot_elems : nullptr;
@@ -242,9 +239,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     };
     wg_epilogue(acc, wgi, wg::BM, a.n_sub - col0, epi);
     if (send != nullptr) {
-      __threadfence();
-      wg_consumer_sync();
-      if (threadIdx.x == 0) tl_st_release(&a.flags[(dst * W + s) * nch * a.MT * a.NT + fl], 1);
+      peer_tile_notify_synced(&a.flags[(dst * W + s) * nch * a.MT * a.NT + fl], 1, consumers);
     }
   }
 }

@@ -37,7 +37,8 @@ then start at multiples of 16 columns and N must be a multiple of 16.
 
 :func:`gemm_rs_plain` is the plain PyTorch version: it replays the bf16
 route's work items in order, with the same tables, the same recv slots and
-the same flag keys.
+the same flag keys, through the host form of the tile primitives
+(``core/primitives``: a wait on a flag no earlier item set raises).
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from repro_torch.core.channels import BlockChannel
 from repro_torch.core.comp_tiles import fma_n_tile
 from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
+from repro_torch.core.primitives import FlagBoard, peer_tile_notify, peer_tile_wait, tile_push_data
 from repro_torch.core.quant import PackedWeight, as_dtype, dtype_name
 from repro_torch.kernels import build
 from repro_torch.kernels.ag_gemm import device_table, plain_weight, refuse_quantized_wire
@@ -177,9 +179,10 @@ def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None)
     wire = as_dtype(plan.flow_dtype)
     rbuf = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=wire, device=x.device)
     out = torch.zeros((world, b, m_loc, n), dtype=x.dtype, device=x.device)
-    flags = set()
+    board = FlagBoard()
     for it in work_items(plan, (b, m_glob, k, n), align=align):
-        assert it.wait is None or it.wait in flags, it  # the order sets every flag before its wait
+        if it.wait is not None:  # the partial of the stage before; the order sets it first, else this raises
+            peer_tile_wait(board, it.wait)
         r, c = it.r, it.c
         bp, ib = divmod(it.mt, ib_count)
         bs = slice(bp * per_tile, min(b, (bp + 1) * per_tile))
@@ -193,9 +196,10 @@ def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None)
             part = part * col_scale[r, gcs]
         if it.reads:
             part = part + rbuf[r, (it.s - 1) * nch + c, bs, rs, cs].float()  # partial received last stage
-        if it.writes:
-            rbuf[it.dst, it.s * nch + c, bs, rs, cs] = part.to(wire)  # push to the peer's recv slot
-            flags.update(it.sets)
+        if it.writes:  # push to the peer's recv slot, then its flag
+            tile_push_data(rbuf, (it.dst, it.s * nch + c, bs, rs, cs), part.to(wire))
+            for key in it.sets:
+                peer_tile_notify(board, key)
         else:
             out[r, bs, rs, gcs] = part.to(x.dtype)
     return out.reshape((world,) + tuple(lead) + (m_loc, n))

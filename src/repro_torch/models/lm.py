@@ -46,8 +46,13 @@ Training (``training/steps.py``) differentiates ``forward`` with
 Function (``core/compiler``, ``kernels/flash_attention``,
 ``kernels/matmul``; the SSD intra-chunk term's ``kernels/mamba_ssd``),
 ``remat_policy`` other than ``"none"`` recomputes each layer in the
-backward (``torch.utils.checkpoint``).  The shared mixer's gradient is the
-sum over its occurrences (autograd's).  The trainable
+backward (``torch.utils.checkpoint``).  With ``pc.fuse_seams`` the seamed
+forward differentiates too: a seam is ``core/overlap.matmul_rs_ag`` over
+torch ops (``_RankDot``), and a chain's ends are the ``_AgMatmul`` /
+``_MatmulRs`` Functions, whose backwards run the other fused kernel; under
+remat each scan unit's seam chain is recomputed whole, as the JAX package
+checkpoints its ``unit_body`` (the prefix and the suffix are not).  The
+shared mixer's gradient is the sum over its occurrences (autograd's).  The trainable
 tree (:func:`trainable`) leaves out the tied head's copy: :func:`logits`
 then takes the head from ``embed`` (``convert.tied_head``), so the one
 parameter gets the lookup's and the head's gradient, and
@@ -95,7 +100,9 @@ __all__ = [
     "REMAT_POLICIES",
 ]
 
-REMAT_POLICIES = ("none", "dots")  # "dots" recomputes each layer in the backward
+# "dots" and "full" (the JAX package's two checkpoint policies) both recompute each layer (with fused seams:
+# each scan unit) whole in the backward
+REMAT_POLICIES = ("none", "dots", "full")
 # leaves that are one-dimensional in the JAX layout outside the layer scan
 _VECTORS = ("ln", "final_ln", "bqkv", "dt_bias", "a_log", "d_skip")
 
@@ -380,14 +387,14 @@ def forward(
     layers); ``embeds`` [B, S0, D] is a stub frontend's prefix
     (:func:`embed_tokens`; attention over it stays causal, as in the JAX
     package);
-    with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`.
-    ``remat_policy`` other than ``"none"`` recomputes each layer in the
-    backward (the JAX package's ``"dots"`` keeps the GEMM outputs; here
-    every layer is recomputed whole, with the same results)."""
+    with ``pc.fuse_seams`` the layers run through :func:`_seam_chain`, one
+    chain per segment (:func:`segments`).  ``remat_policy`` other than
+    ``"none"`` recomputes in the backward each layer, or with fused seams
+    each scan unit's chain (the JAX package checkpoints its ``unit_body``:
+    not the prefix or the suffix); the JAX package's ``"dots"`` keeps the
+    GEMM outputs, here the unit is recomputed whole, with the same results."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
-    if remat_policy != "none" and pc.fuse_seams:
-        raise NotImplementedError("remat with fused seams is not ported")
     x = embed_tokens(params, cfg, tokens, embeds)
     _check_seq(pc, x.shape[1])
     x = pc.world.shard(x, dim=1)  # [W, B, s_loc, D]
@@ -395,9 +402,17 @@ def forward(
     defs = layer_plan(cfg)
     shared = params.get("shared_attn")
     if pc.fuse_seams:
+        units = _scanned(cfg)
         for seg in segments(cfg):
-            layers = params["layers"][seg.start : seg.stop]
-            x, aux_total = _seam_chain(defs[seg.start : seg.stop], layers, x, pc, cfg, aux_total, shared)
+
+            def chain(x_, aux_, seg_=seg):
+                layers = params["layers"][seg_.start : seg_.stop]
+                return _seam_chain(defs[seg_.start : seg_.stop], layers, x_, pc, cfg, aux_, shared)
+
+            if remat_policy != "none" and seg.start in units:
+                x, aux_total = torch.utils.checkpoint.checkpoint(chain, x, aux_total, use_reentrant=False)
+            else:
+                x, aux_total = chain(x, aux_total)
     else:
         for d, p in zip(defs, params["layers"]):
             if remat_policy == "none":
@@ -472,10 +487,8 @@ def with_tied(tree: dict, cfg) -> dict:
 def check_trainable(cfg, pc: ParallelContext):
     """Raise unless the model's training path is ported: every layer kind
     (attention with a dense MLP or an MoE block, TP or EP; Mamba; the shared
-    attention block) trains, but not with fused seams."""
+    attention block) trains, with or without fused seams."""
     layer_plan(cfg)  # an unported layer kind raises here
-    if pc.fuse_seams:
-        raise NotImplementedError(f"repro_torch: training {cfg.name} with fuse_seams is not ported")
 
 
 def grad_masks(cfg, pc: ParallelContext) -> dict:

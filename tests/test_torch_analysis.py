@@ -400,7 +400,9 @@ def test_lint_port_tree_clean():
     [
         ("nn/ffn.py", "def f(world, x, pairs):\n    return world.permute(x, pairs)\n", "permute-site"),
         ("models/lm.py", "def f(ctx, x, p):\n    return ctx.world.permute(x, p)\n", "permute-site"),
-        ("kernels/csrc/matmul.cu", "__device__ void f(int* p) { tl_notify(p, 1); }\n", "flag-site"),
+        ("kernels/csrc/matmul.cu", "__device__ void f(int* p) { producer_tile_notify(p, 1); }\n", "flag-site"),
+        ("kernels/csrc/ag_gemm.cu", 'asm volatile("ld.acquire.gpu.global.s32 %0, [%1];");\n', "flag-site"),
+        ("kernels/csrc/gemm_rs.cu", "if (threadIdx.x == 0) tl_st_release(flag, 1);\n", "flag-site"),
         ("kernels/csrc/flash_attention.cu", 'asm volatile("ld.acquire.gpu.global.s32 %0, [%1];");\n', "flag-site"),
         ("core/compiler.py", "import ctypes\nlib = ctypes.CDLL('x.so')\n", "raw-library"),
         ("nn/attention.py", "from repro_torch.kernels import build\nlib = build.library()\n", "raw-library"),
@@ -415,5 +417,6 @@ def test_lint_allows_the_owners():
     assert lint.lint_source("def f(world, x, p):\n    return world.permute(x, p)\n", "core/overlap.py") == []
     assert lint.lint_source("def f(world, x, p):\n    return world.permute(x, p)\n", "benchmarks/paper_mlp.py") == []
     assert lint.lint_source("y = x.permute(0, 2, 1)\n", "nn/mamba.py") == []  # a tensor's permute
-    assert lint.lint_source("tl_wait_flag(f, 1);\n", "kernels/csrc/gemm_rs.cu") == []
+    assert lint.lint_source("peer_tile_wait_synced(f, sync);\n", "kernels/csrc/gemm_rs.cu") == []
+    assert lint.lint_source("while (tl_ld_acquire(f) == 0) {}\n", "kernels/csrc/tile_sync.cuh") == []
     assert lint.lint_source("lib = build.library()\n", "kernels/matmul.py") == []

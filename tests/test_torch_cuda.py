@@ -1638,3 +1638,96 @@ def test_tuned_engine_captured_matches_eager(dev, tune_cache, dtype):
         handles = [eng.submit(r) for r in reqs]
         outs[capture] = [eng.drain()[h].tolist() for h in handles]
     assert outs[True] == outs[False]
+
+
+# --- the kernels against kernels/ref, and training with fused seams ------------------------------------------
+
+REF_CASES = ("matmul", "ag_gemm", "gemm_rs", "flash_causal", "flash_window_gqa", "flash_cross", "grouped")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", REF_CASES)
+def test_kernel_against_ref(dev, case, dtype):
+    """Each kernel against its float32 oracle in ``kernels/ref`` (no schedule),
+    at ragged shapes; the same TOL as against the plain versions."""
+    from repro_torch.kernels import ref
+
+    r = lambda *shape, seed=0, scale=1.0: _rand(dev, dtype, *shape, seed=seed, scale=scale)  # noqa: E731
+    if case == "matmul":
+        x, w = r(200, 136), r(136, 264, seed=1, scale=0.1)
+        got, want = K.matmul(x, w), ref.matmul_ref(x, w)
+    elif case == "ag_gemm":
+        x, w = r(4, 2, 72, 136), r(4, 136, 200, seed=1, scale=0.1)
+        got, want = K.ag_gemm(x, w, channel=BlockChannel(axis="model", num_channels=2)), ref.ag_gemm_ref(x, w)
+    elif case == "gemm_rs":
+        x, w = r(4, 2, 144, 88), r(4, 88, 240, seed=1, scale=0.1)
+        got, want = K.gemm_rs(x, w, channel=BlockChannel(axis="model", num_channels=2)), ref.gemm_rs_ref(x, w)
+    elif case.startswith("flash"):
+        bh, bhkv, sq, sk, kw = {
+            "flash_causal": (8, 8, 200, 200, dict(causal=True)),
+            "flash_window_gqa": (8, 2, 256, 256, dict(causal=True, window=70)),
+            "flash_cross": (4, 4, 96, 160, dict(causal=False)),
+        }[case]  # fmt: skip
+        q, k, v = r(bh, sq, 64), r(bhkv, sk, 64, seed=1), r(bhkv, sk, 64, seed=2)
+        got, want = K.flash_attention(q, k, v, **kw), ref.flash_attention_ref(q, k, v, **kw)
+    else:
+        table = torch.tensor([3, 0, 2, 2, 1, 3], dtype=torch.int32, device=dev)  # non-monotone, repeats
+        x, w = r(6 * 64, 136), r(4, 136, 200, seed=1, scale=0.1)
+        got, want = K.grouped_matmul(x, w, table), ref.grouped_matmul_ref(x, w, table, 64)
+    _close(got, want, dtype)
+
+
+def test_ssd_chunked_against_ssd_ref(dev):
+    """``ssd_chunked`` with the intra-chunk kernel against the sequential
+    ``ssd_ref`` (groups 2, an initial state, a ragged last chunk), float32."""
+    from repro_torch.kernels import ref
+
+    f32 = torch.float32
+    x, b, c = _rand(dev, f32, 2, 150, 8, 64), _rand(dev, f32, 2, 150, 2, 32, seed=1), _rand(dev, f32, 2, 150, 2, 32, seed=2)
+    dt = torch.nn.functional.softplus(_rand(dev, f32, 2, 150, 8, seed=3))
+    a_log, h0 = _rand(dev, f32, 8, seed=4, scale=0.5), _rand(dev, f32, 2, 8, 32, 64, seed=5, scale=0.1)
+    K.reset_launch_counts()
+    got = mamba_ssd.ssd_chunked(x, dt, a_log, b, c, chunk=64, h_init=h0, intra="kernel")
+    assert K.launch_counts()["ssd_intra_chunk"] == 1
+    _close(got, ref.ssd_ref(x, dt, a_log, b, c, chunk=64, d_init=h0), f32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seamed_train_step_on_card(dev, dtype):
+    """smollm-360m's width at 2 layers (W = 4, 2 x 256 tokens): the seamed
+    loss and gradients on the fused backend against the eager backend's
+    seamed ones (float32 2e-3 of each leaf's max; bf16 against the float32
+    eager gradients, 5e-2), the launches paper_e2e.expected_launches gives,
+    and one seamed make_train_step step."""
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = dataclasses.replace(get_config("smollm-360m"), n_layers=2)
+    world = World(4, dev)
+    seam = ParallelContext(world=world, fuse_seams=True)
+    seam_eager = ParallelContext(world=world, backend="eager", fuse_seams=True)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), dtype)
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    K.reset_launch_counts()
+    loss, _, _, grads = loss_and_grads(lm, cfg, seam, params, batch)
+    assert K.launch_counts() == paper_e2e.expected_launches(cfg, "overlap", "none", fuse_seams=True)
+    p32 = params if dtype == torch.float32 else _f32_tree(params)
+    loss_e, _, _, grads_e = loss_and_grads(lm, cfg, seam_eager, p32, batch)
+    rtol = 2e-3 if dtype == torch.float32 else 5e-2
+    assert abs(loss.item() - loss_e.item()) <= rtol * abs(loss_e.item())
+    for a, b in zip(tree_leaves(grads), tree_leaves(grads_e)):
+        assert (a.float() - b).abs().max().item() <= rtol * b.abs().max().item()
+    step = make_train_step(lm, cfg, seam, AdamWConfig(), grad_masks=lm.grad_masks(cfg, seam))
+    _, _, metrics = step(params, init_opt_state(lm.trainable(params, cfg)), batch)
+    assert torch.isfinite(metrics["loss"])
+
+
+def _f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_f32_tree(v) for v in tree]
+    return tree.float()

@@ -38,6 +38,19 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# the modules of the slice that ported the backend / mapping / primitive / oracle surfaces and the examples
+SLICE_MODULES = (
+    "backend/features.py", "backend/lowering.py", "compat.py", "core/primitives.py", "core/mapping.py",
+    "kernels/ref.py", "kernels/ops.py", "examples/__init__.py", "examples/quickstart.py",
+    "examples/moe_overlap_demo.py", "examples/serve_lm.py", "examples/train_lm.py",
+)  # fmt: skip
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_scan_covers_the_module(rel):
+    assert ROOT / "src" / "repro_torch" / rel in FILES
+
+
 def test_scan_catches_a_forbidden_import(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import torch\nfrom repro.core import plan\nimport jax.numpy as jnp\n")

@@ -134,7 +134,7 @@ def test_kernel_modules_import_without_nvcc():
     assert sorted(build.CSRC.glob("*.cu")) and sorted(build.CSRC.glob("*.cuh"))
     if shutil.which("nvcc") is None and not (build.Path("/usr/local/cuda/bin/nvcc")).exists():
         with pytest.raises(RuntimeError, match="nvcc"):
-            build._nvcc()
+            build.features.nvcc()  # the probe moved to backend/features (build takes nvcc from it)
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -232,11 +232,21 @@ def test_grouped_matmul_grads_match_jax_vjp(form):
 
 
 def test_moe_training_rejects_only_mamba_and_fuse_seams():
+    """Both MoE models train on TP and EP, and with fuse_seams (no MoE layer
+    joins a seam chain; deepseek's dense first layer takes its intra-layer
+    seam): the seamed gradients equal the unfused ones bitwise in float32
+    (the seam runs the unfused pair's float ops)."""
     world = World(TP, "cpu")
     for arch in ARCHS:
         lm.check_trainable(reduce_config(get_config(arch)), ParallelContext(world=world, ep_axis="model"))
-    with pytest.raises(NotImplementedError, match="fuse_seams"):
-        lm.check_trainable(reduce_config(get_config(ARCHS[0])), ParallelContext(world=world, fuse_seams=True))
+        lm.check_trainable(reduce_config(get_config(arch)), ParallelContext(world=world, fuse_seams=True))
+    cfg = reduce_config(get_config("deepseek-moe-16b"))
+    params = lm.init(cfg, world, torch.Generator().manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2).host_batch()
+    out = [loss_and_grads(lm, cfg, ParallelContext(world=world, backend="eager", fuse_seams=s), params, batch)
+           for s in (True, False)]  # fmt: skip
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(topt.tree_leaves(out[0][3]), topt.tree_leaves(out[1][3])))
 
 
 @pytest.mark.parametrize("donate", [False, True])
