@@ -157,6 +157,36 @@ non-zero (no phase catches its own failure):
               double ring on the grouped kernel against the dense oracle,
               E 16, top-2, 512 tokens: 1e-4, 16 grouped launches) on the
               card.
+  11d. dp     data-parallel training over the data axes (run after
+              train_seam): DP_REPLICAS replica processes of the W = 4 model
+              group on the one card (``launch/train.train(data=)``: spawned,
+              joined by a gloo ``DistWorld``, the collectives' staging the
+              ``GLOO_CUDA_STAGING`` table, each printed with the bytes it
+              staged through host memory).  (a) smollm-360m at full depth
+              and width, bf16, a global batch of TRAIN_BATCH x TRAIN_SEQ
+              (TRAIN_BATCH / DP_REPLICAS rows a replica), DP_STEPS AdamW
+              steps after a DP_D1_STEPS-step run at D = 1 on the same
+              batches: every step's launches per replica held to
+              the train phase's (128 / 128 / 32 / 1), the ce's fall held as
+              the train phase holds it, step ms (CUDA events, median after
+              TRAIN_WARMUP) at D = 2 and D = 1, the data transport's ms
+              (``train(time_data=True)``: the device drained around each
+              collective, in this run only) and each process's peak memory
+              recorded; (b) float32 at
+              DP_F32_LAYERS layers, full width: the D = 2 step's loss (the
+              logits' bound), each gradient (the replicas' blocks joined,
+              GRAD_RTOL of the leaf's max) and each update (UPDATE_RTOL, as
+              the train phase holds them) against the D = 1 step on the
+              same global batch; (c) every bf16 step's payload on the data
+              transport against ``launch/roofline.data_axis_bytes`` of the
+              trainable leaves (one gather a step), reduce-scatter,
+              all-reduce and all-gather each exactly; (d) ``psum_compressed``
+              over the data group: |new_err| <= scale / 2 elementwise, its
+              mean against an exact float32 all-reduce within what int8
+              codes at the largest replica's scale allow,
+              sum_r (127 (s_max - s_r) + s_r / 2) / D; and a ring permute
+              over the group (the collective the table stages through host
+              memory) delivers the peer's tensor bitwise.
   12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
               published widths, W = 4, 8 x 256 tokens a step (the grouped
               expert GEMM in the forward and, on the transposed weights, for
@@ -217,7 +247,12 @@ non-zero (no phase catches its own failure):
               teacher-forced forward's (3e-3, the JAX package's test);
               (c) the bf16 fused forward within 2e-2 of max |f32 eager|;
               (d) one f32 step at 2 + 2 layers fused against eager (the
-              loss, each leaf's gradient GRAD_RTOL, launches held), 30 bf16
+              loss, each leaf's gradient GRAD_RTOL against an eager pass
+              whose ReLUs take the fused pass's signs, launches held; each
+              flipped sign within RELU_FLIP_REL of zero on both passes, at
+              most RELU_MAX_FLIP_SHARE of a call's elements flipped; the
+              unforced pass's error printed), at
+              ENCDEC_F32_SEEDS weight and data seeds, 30 bf16
               AdamW steps at full depth through ``make_train_step`` (8 x
               256 decoder tokens with 8 x 512 frames, the JAX package's
               input rule): the ce fall, 132 / 132 / 36 / 1 launches every
@@ -433,8 +468,15 @@ non-zero (no phase catches its own failure):
               against that float32 oracle, under the same TOL, and its
               error printed beside the plain version's (flash attention's
               oracle split over heads where its scores would pass
-              REF_FLASH_ELEMS); the ring step and the SSD intra-chunk term
-              have none (said on their lines), and ``ssd_chunked`` at
+              REF_FLASH_ELEMS); so are the cases whose function only the
+              port's own oracles compute: the ring step (both steps, the
+              first's state carried in) against attention over the union
+              of their KV tiles at the ring's rank offsets, the SSD
+              intra-chunk term against the float32 einsum of its formula,
+              and GEMM+RS on a bf16 wire against the oracle that rounds
+              each partial once per hop in the plan's hop order (a float32
+              x at the float32 TOL: the oracle rounds as the kernel does;
+              a bf16 x at the bf16 TOL); ``ssd_chunked`` at
               mamba2-2.7b's serve shape is held against ``ssd_ref`` (1e-4);
               the seconds the holds add are printed.  It runs
               after the serve phases: the profiler leaves
@@ -479,7 +521,8 @@ check 2; the train_ssm phase's float32 step runs 4 of mamba2-2.7b's 64
 layers, its resume check 2; the zamba2 phase's float32 step 12 of 54, its
 resume check 6; the encdec phase's f32 step and resume check 2 + 2 of
 12 + 12, the vlm phase's f32 step 4 of 18 layers at 4 rows (8 ran the
-card out of memory) and its resume check 2.  Every other path runs at full depth
+card out of memory) and its resume check 2; the dp phase's f32 check
+DP_F32_LAYERS of smollm-360m's 32.  Every other path runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -489,6 +532,7 @@ Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -535,6 +579,10 @@ RING_TOKENS = ((BATCH, PROMPT), (1, 8192))  # (batch, tokens) of the ring phase'
 # the train phase: smollm-360m, W = 4, the JAX package's default train batch x sequence
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
 TRAIN_WARMUP = 3  # steps left out of the median step time
+# the dp phase: replica processes on the one card, their bf16 steps (at 10 the ce fell 0.17, short of the train
+# phase's criterion's 0.2; each step's gloo transport takes ~2 s), the steps of the D = 1 run before them, and the
+# depth of the float32 check
+DP_REPLICAS, DP_STEPS, DP_D1_STEPS, DP_F32_LAYERS = 2, 20, 10, 2
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_AT = 2, 3  # (c): depth of the resume check, the step it saves at
 # the train_seam phase: (a) bf16 AdamW steps of each form, in turns (the first of each left out of the median);
 # (b), (c) the depth of the float32 steps at smollm-360m's width
@@ -572,6 +620,11 @@ SSM_CKPT_LAYERS = {ARCH_SSM: 2, ARCH_Z: 6}
 ARCH_ED = "seamless-m4t-medium"
 ARCH_V = "paligemma-3b"
 MM_LR = 3e-4  # the multimodal phases' bf16 steps (the train CLI's default)
+ENCDEC_F32_SEEDS = 3  # seeds of the encdec phase's f32 fused-vs-eager step: the margin to GRAD_RTOL over seeds
+# a ReLU sign the fused and eager passes disagree on (:func:`hold_relu_flips`): the element's |pre-activation| on
+# each backend within RELU_FLIP_REL of that call's max|pre-activation| (rounding of zero, not a wrong value), and
+# at most RELU_MAX_FLIP_SHARE of the call's elements flipped (on the H100 1-9 of 8-16 M, PR 31)
+RELU_FLIP_REL, RELU_MAX_FLIP_SHARE = 1e-5, 1e-5
 MM_CUT_LAYERS = 2  # their f32 step (the enc-dec's, 2 + 2) and their resume check cut to this depth
 # the VLM's f32 step: 4 layers of 4 x 512 tokens (at 8 rows the eager reference's float32 activations and the
 # [4096, 257216] float32 logits and their gradient took the card's 80 GB)
@@ -607,7 +660,6 @@ SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKC
 FMA_KERNELS = ("ag_gemm_kernel", "gemm_rs_kernel")  # the fused kernels' float32 route (SASS symbols)
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # the SSD intra-chunk cases' note: kernels/ref has the whole SSD only (the ssd_chunked case holds it)
-SSD_NO_REF = "no counterpart: the intra-chunk term alone (ssd_ref holds ssd_chunked, its own case)"
 # the fused kernels as built before their flag sites went through the tile primitives (tile_sync.cuh):
 # registers, spill stores / loads (bytes), and for the bf16 kernels HGMMA / UTMALDG (the build phase of
 # this script on an H100, CUDA 12.8), keyed by symbol or, as the phase prints them, its first 72
@@ -820,8 +872,7 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
     """Run one kernel case: max error vs the plain version and vs
     ``kernels/ref``, then times.  ``ref`` returns the case's function from
     ``kernels/ref`` (float32, no schedule of any kernel), held under the same
-    TOL as the plain version (its seconds add to ``REF_S``); a string says
-    why the case has none.
+    TOL as the plain version (its seconds add to ``REF_S``).
     ``launch`` returns the wrapper's record of its last launch (route, grid
     G, work items), printed beside the times; ``bitwise`` also launches the
     kernel REPEATS - 1 more times and fails unless every output is bitwise
@@ -856,9 +907,6 @@ def _case(name, dtype, kernel, plain, library, flops, nbytes, iters, check_only=
         ok_ref = rec["ref_max_abs_err"] <= TOL[dn] * max(rec["max_abs_oracle"], 1e-30)
         ref_txt = f"; vs kernels/ref max|err| {rec['ref_max_abs_err']:.3e} (max|oracle| {rec['max_abs_oracle']:.3e})"
         del oracle
-    elif ref is not None:
-        rec["ref"] = ref
-        ref_txt = f"; kernels/ref: {ref}"
     if info is not None:
         rec["launch"] = dict(info)
     if bitwise:
@@ -1031,7 +1079,7 @@ def _ssm_kernels(rnd, iters: int) -> dict:
             # flops: the [q, q] @ [q, p] product, exp and mask-multiply; bytes:
             # cum, cb, xdt read once and y written once
             t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p), iters, False,
-            lambda: K.ssd_intra_chunk.last_launch, ref=SSD_NO_REF,
+            lambda: K.ssd_intra_chunk.last_launch, ref=lambda: R.ssd_intra_chunk_ref(cum, cb, xdt),
         )  # fmt: skip
         del cum, cb, xdt, gmat
     return recs
@@ -1091,6 +1139,7 @@ def _ssd_train_kernels(rnd, iters: int) -> dict:
     from repro_torch import kernels as K
     from repro_torch.benchmarks.common import bound_ms
     from repro_torch.kernels import mamba_ssd
+    from repro_torch.kernels.ref import ssd_intra_chunk_ref
 
     shp = ssm_shapes()
     q, p = shp["q"], shp["p"]
@@ -1109,7 +1158,7 @@ def _ssd_train_kernels(rnd, iters: int) -> dict:
             "(library: torch.bmm(G, xdt) on a precomputed G)", dtype,
             lambda: K.ssd_intra_chunk(cum, cb, xdt), lambda: K.ssd_intra_chunk_plain(cum, cb, xdt),
             lambda: torch.bmm(gmat, xdt), t * (2 * q * q * p + 2 * q * q), isz * t * (q + q * q + 2 * q * p),
-            iters, not f32, lambda: K.ssd_intra_chunk.last_launch, ref=SSD_NO_REF,
+            iters, not f32, lambda: K.ssd_intra_chunk.last_launch, ref=lambda: ssd_intra_chunk_ref(cum, cb, xdt),
         )  # fmt: skip
         del gmat
 
@@ -1198,6 +1247,7 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
     from repro_torch.core.channels import BlockChannel
     from repro_torch.core.plan import build_plan
     from repro_torch.kernels.flash_attention import flash_attention_ranked, flash_attention_ranked_plain
+    from repro_torch.kernels.ref import flash_attention_union_ref
 
     heads, hd, seqs = PAPER_ATTN["Attn-1"]
     w, s = PAPER_WORLD, seqs[0]
@@ -1225,7 +1275,7 @@ def _ring_tile_kernels(rnd, iters: int) -> dict:
         lambda: flash_attention_ranked_plain(f32[0], f32[3], f32[4], k_off=k_off[1], state=pst, **kw),
         lambda: F.scaled_dot_product_attention(qs, ks, vs),
         4 * heads * hd * pairs, nbytes, iters, False, lambda: K.flash_attention.last_launch, bitwise=True,
-        ref="no counterpart: one ring step with an online-softmax state carried in (ref computes whole attention)",
+        ref=lambda: flash_attention_union_ref(q, kt, vt, q_off=q_off, k_offs=k_off, causal=True),
     )  # fmt: skip
     return {("flash_attention", "paper", "ring_step", torch.bfloat16): rec}
 
@@ -2820,6 +2870,273 @@ def _seam_step_f32(cfg, world, batch) -> dict:
     return out
 
 
+def _dp_worker(data, cfg, layers_f32: int, batch_rows: int, seq: int) -> dict:
+    """One replica process of the dp phase's (b) and (d) (imported by name
+    from this module by ``launch/train.run_replicas``'s processes): the
+    float32 data-parallel step at ``layers_f32`` layers on this replica's
+    rows of a ``batch_rows`` x ``seq`` global batch, its gradient blocks and
+    (rank 0) the parameters after it; then ``psum_compressed`` of a seeded
+    gradient over the group and an exact float32 all-reduce of the same,
+    with the transport's staging and staged bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.compression import psum_compressed
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.steps import data_blocks, data_parallel_grads
+
+    cut = dataclasses.replace(cfg, n_layers=layers_f32)
+    world = World(WORLD, data.device)
+    pc = ParallelContext(world=world, mesh_axes=make_dev_mesh(WORLD, data.size).axes, data=data)
+    p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    pipe = SyntheticLM(vocab_size=cut.vocab_size, seq_len=seq, global_batch=batch_rows, n_hosts=data.size,
+                       host_id=data.rank)  # fmt: skip
+    local = pipe.host_batch()
+    masks = lm.grad_masks(cut, pc)
+    loss, _, _, grads, gnorm = data_parallel_grads(lm, cut, pc, p32, local, grad_masks=masks)
+    step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), grad_masks=masks)
+    new, _, m = step(p32, init_opt_state(data_blocks(lm, cut, pc, lm.trainable(p32, cut))), local)
+    host = lambda t: t.detach().cpu() if torch.is_tensor(t) else t  # noqa: E731
+    out = {"loss": loss.item(), "step_loss": m["loss"].item(), "grad_norm": gnorm.item(), "lr": m["lr"].item(),
+           "grads": tree_map(host, grads), "new": tree_map(host, lm.trainable(new, cut)) if data.rank == 0 else None,
+           "staging": dict(data.staging)}  # fmt: skip
+    del p32, grads, new
+    # (d) int8 error-feedback all-reduce of a [4096, 960] gradient (a smollm leaf's size) over the group
+    gen = torch.Generator(device=data.device).manual_seed(100 + data.rank)
+    g = torch.randn((4096, 960), generator=gen, device=data.device)
+    err = torch.randn((4096, 960), generator=gen, device=data.device) * 1e-3
+    with data.counting() as c:
+        mean, new_err = psum_compressed(g, err, data)
+    exact = data.psum(g + err) / data.size
+    # the one collective the gloo table stages through host memory: a ring permute of g, against the peer's g
+    with data.counting() as cp:
+        got = data.permute(g, [(r, (r + 1) % data.size) for r in range(data.size)])
+    src = (data.rank - 1) % data.size
+    peer = torch.randn((4096, 960), generator=torch.Generator(device=data.device).manual_seed(100 + src),
+                       device=data.device)  # fmt: skip
+    out["permute"] = {"bitwise": bool(torch.equal(got, peer)), "staged": dict(cp.staged),
+                      "payload": {k: float(sum(v.values())) for k, v in cp.payload.items() if v}}  # fmt: skip
+    scale = (g + err).abs().max() / 127.0  # this replica's int8 scale (quantize_int8's)
+    out.update(compressed={"max_new_err": new_err.abs().max().item(),
+                           "err_vs_exact": (mean - exact).abs().max().item(), "scale": scale.item(),
+                           "scale_max": data.pmax(scale.reshape(1))[0].item(), "max_exact": exact.abs().max().item(),
+                           "staged": dict(c.staged),
+                           "payload": {k: float(sum(v.values())) for k, v in c.payload.items() if v}})  # fmt: skip
+    return out
+
+
+def _dp_expected_bytes(cfg, replicas: int, dtype_name: str = "bfloat16") -> dict:
+    """``launch/roofline.data_axis_bytes`` of a step of ``cfg`` in that dtype: every
+    trainable leaf gathered once, on the (pod 1, data ``replicas``, model 1)
+    mesh (one replica process holds its whole model group)."""
+    import torch
+
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.sharding import map_specs
+
+    pc = make_dev_mesh(WORLD, replicas).context("meta")
+    params, pspecs = S.abstract_params(cfg, pc, getattr(torch, dtype_name))
+    leaves = []
+    map_specs(lambda s, t: leaves.append((tuple(t.shape), t.dtype, s, 1, True)), lm.trainable(pspecs, cfg),
+              lm.trainable(params, cfg))  # fmt: skip
+    mesh = {"pod": 1, "data": replicas, "model": 1}
+    return R.data_axis_bytes(leaves, mesh, pc.dp_axes, train=True, recompute=False)[1]
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
+
+
+def phase_dp() -> dict:
+    """Data-parallel training on the one card (module docstring, phase 11d)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    import chip_smoke as this  # the replica processes import the worker by this module's name, not __main__
+    from repro_torch.backend.mesh import CommCounter, World
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import apply_masks, tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = get_config(ARCH)
+    out = {}
+    torch.cuda.empty_cache()
+    # (a) D = 1, then D = 2 (each run from the same seed over the same global batches); the D = 2 run times its
+    # data transport
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD, device="cuda", log_every=10)
+    runs, peaks = [], []
+    for d, steps in ((1, DP_D1_STEPS), (DP_REPLICAS, DP_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = train_cli.train(ARCH, steps=steps, data=d, time_data=d > 1, **kw)
+        wall = time.perf_counter() - t0
+        peak = [r["peak_bytes"] for r in run["replicas"]] if d > 1 else [torch.cuda.max_memory_allocated()]
+        runs.append((d, {k: run[k] for k in ("history", "replicas") if k in run}, wall))  # not the state
+        peaks.append(peak)
+        del run
+        torch.cuda.empty_cache()
+    (_, d1, w1), (_, d2, w2) = runs
+    hist = d2["history"]
+    expect = paper_e2e.expected_launches(cfg, "overlap", "none")
+    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    totals = [r["launches"] for r in d2["replicas"]]
+    print(f"[dp] {DP_REPLICAS} replica processes x W={WORLD} of {ARCH} on one card, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens a step ({TRAIN_BATCH // DP_REPLICAS} rows a replica): launches per replica per step "
+          f"{hist[0]['launches']} (held exactly, every step of rank 0; each replica's totals {totals})")  # fmt: skip
+    if bad or any(t != {k: v * DP_STEPS for k, v in expect.items()} for t in totals):
+        raise SystemExit(f"chip_smoke: the data-parallel steps launched {bad[:3]} / {totals} (expected {expect})")
+    ce = [r["ce"] for r in hist]
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    ms2 = _median([r["ms"] for r in hist[TRAIN_WARMUP:]])
+    data_ms = _median([r["data_ms"] for r in hist[TRAIN_WARMUP:]])
+    ms1 = _median([r["ms"] for r in d1["history"][TRAIN_WARMUP:]])
+    print(f"[dp] bf16 ce over {DP_STEPS} steps at D={DP_REPLICAS}: first 5 {first:.4f}, last 5 {last:.4f} (held: "
+          f"more than 0.2 lower); step ms median D={DP_REPLICAS} {ms2:.2f} (of which the data transport "
+          f"{data_ms:.2f}, host clock, device drained), D=1 {ms1:.2f} (CUDA events, steps {TRAIN_WARMUP}+); "
+          f"tokens/s D={DP_REPLICAS} {TRAIN_BATCH * TRAIN_SEQ / ms2 * 1e3:.0f}, D=1 "
+          f"{TRAIN_BATCH * TRAIN_SEQ / ms1 * 1e3:.0f}; peak memory per process D={DP_REPLICAS} "
+          f"{[round(b / 2**20) for b in peaks[1]]} MiB, D=1 {round(peaks[0][0] / 2**20)} MiB; walls D=1 {w1:.1f} / "
+          f"D={DP_REPLICAS} {w2:.1f} s (spawn, build and init included)")  # fmt: skip
+    if not (all(map(math.isfinite, ce)) and last < first - 0.2):
+        raise SystemExit(f"chip_smoke: the data-parallel bf16 loss did not fall: {first} -> {last}")
+    out["bf16"] = {"ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": ms2, "median_data_ms": data_ms,
+                   "d1_median_step_ms": ms1, "peak_bytes": peaks[1], "d1_peak_bytes": peaks[0][0],
+                   "walls_s": [w1, w2], "counts": {k: sum(t[k] for t in totals) for k in totals[0]},
+                   "per_step": expect, "launches_by_replica": totals}  # fmt: skip
+    # (c) the data transport's payload of every step against the model of the specs
+    want = _dp_expected_bytes(cfg, DP_REPLICAS)
+    got = []
+    for r in hist:
+        counter = CommCounter()
+        for kind, nbytes in r["data_bytes"].items():
+            counter.add(kind, nbytes, DP_REPLICAS)
+        got.append(R.collective_bytes(counter)[1])
+    print(f"[dp] data-axis link bytes a step, counted {got[0]} against launch/roofline.data_axis_bytes {want} (held "
+          f"exactly, every step; payload {hist[0]['data_bytes']})")  # fmt: skip
+    if any(g != want for g in got):
+        raise SystemExit(f"chip_smoke: the data transport moved {got[:2]}, the specs' model says {want}")
+    out["bytes"] = {"counted": got[0], "modelled": want, "payload": hist[0]["data_bytes"]}
+    del d1, d2, hist
+    torch.cuda.empty_cache()
+
+    # (b) float32 at DP_F32_LAYERS layers: D = 2 against D = 1 on the same global batch
+    res = train_cli.run_replicas(this._dp_worker, DP_REPLICAS, device="cuda",
+                                 staging=train_cli.staging_for("gloo", "cuda"),
+                                 args=(cfg, DP_F32_LAYERS, TRAIN_BATCH, TRAIN_SEQ))  # fmt: skip
+    cut = dataclasses.replace(cfg, n_layers=DP_F32_LAYERS)
+    world = World(WORLD, "cuda")
+    pc = ParallelContext(world=world)
+    p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    masks = lm.grad_masks(cut, pc)
+    loss1, _, _, g1 = loss_and_grads(lm, cut, pc, p32, batch)
+    g1 = apply_masks(lm.sync_grads(g1, cut, pc), masks)
+    step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), grad_masks=masks)
+    new1, _, m1 = step(p32, init_opt_state(lm.trainable(p32, cut)), batch)
+    _hold_logits(f"[dp] f32 loss, one step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers)",
+                 torch.tensor([res[0]["loss"], res[0]["step_loss"]]), torch.stack([loss1, m1["loss"]]).cpu(),
+                 pair=(f"D={DP_REPLICAS}", "D=1"))  # fmt: skip
+    g2 = this._dp_join(cut, [r["grads"] for r in res])
+    worst, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(tree_leaves(g2), tree_leaves(g1))):
+        b = b.cpu()
+        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+        worst = max(worst, rel)
+        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+            bad.append((i, tuple(a.shape), rel))
+    lr = m1["lr"].item()
+    worst_u, small = 0.0, []
+    for i, (a, b, p, g) in enumerate(zip(tree_leaves(res[0]["new"]), tree_leaves(lm.trainable(new1, cut)),
+                                         tree_leaves(lm.trainable(p32, cut)), tree_leaves(g1))):  # fmt: skip
+        p, g = p.cpu(), g.cpu()
+        u2, u1 = a - p, b.cpu() - p
+        top = u1.abs().max().item()
+        sure = g.abs() > GRAD_RTOL * g.abs().max()
+        rel = ((u2 - u1).abs() * sure).max().item() / max(top, 1e-30)
+        worst_u = max(worst_u, rel)
+        if not (torch.isfinite(u2).all() and rel <= UPDATE_RTOL and top >= lr / 2):
+            small.append((i, tuple(a.shape), rel, top))
+    print(f"[dp] f32 step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens): worst gradient max|diff| / max|D=1 leaf| {worst:.3e} (bound {GRAD_RTOL:g}), worst update "
+          f"{worst_u:.3e} (bound {UPDATE_RTOL:g}, where the gradient's sign is held); grad_norm "
+          f"{res[0]['grad_norm']:.6f} against {m1['grad_norm'].item():.6f}")  # fmt: skip
+    if bad or small:
+        raise SystemExit(f"chip_smoke: the f32 D={DP_REPLICAS} step disagrees with D=1: {bad[:4]} {small[:4]}")
+    out["f32"] = {"grad_rel_err": worst, "update_rel_err": worst_u, "loss": [res[0]["loss"], loss1.item()]}
+    del p32, g1, g2, new1
+    torch.cuda.empty_cache()
+    # (d) psum_compressed over the data group
+    comp = [r["compressed"] for r in res]
+    half = max(c["max_new_err"] / (c["scale"] / 2) for c in comp)
+    held = all(c["max_new_err"] <= c["scale"] / 2 + 1e-6 for c in comp)  # the quant phase's float32 slack
+    # the mean is sum_r q_r x s_max / D and the exact one sum_r (q_r s_r + new_err_r) / D: they differ by at most
+    # sum_r (127 (s_max - s_r) + s_r / 2) / D (|q_r| <= 127, |new_err_r| <= s_r / 2)
+    err = max(c["err_vs_exact"] for c in comp)
+    bound = sum(127 * (c["scale_max"] - c["scale"]) + c["scale"] / 2 for c in comp) / len(comp)
+    bound += 1e-6 * comp[0]["max_exact"]  # the float32 rounding of the two means
+    print(f"[dp] psum_compressed over the data group: max|new_err| / (scale / 2) {half:.7f} (held <= 1, + 1e-6 "
+          f"absolute); mean vs exact "
+          f"f32 all-reduce max|diff| {err:.3e} (bound sum_r (127 (s_max - s_r) + s_r / 2) / D + 1e-6 max|exact| = "
+          f"{bound:.3e}; scales "
+          f"{[c['scale'] for c in comp]}; max|exact| {comp[0]['max_exact']:.3e}); payload {comp[0]['payload']}; "
+          f"staged through host {comp[0]['staged']}")  # fmt: skip
+    print(f"[dp] collective paths: {res[0]['staging']} (gloo; 'host' copies through pinned host memory); a ring "
+          f"permute of a [4096, 960] f32 tensor: the peer's tensor bitwise {[r['permute']['bitwise'] for r in res]} "
+          f"(held), staged {res[0]['permute']['staged']}, payload {res[0]['permute']['payload']}")  # fmt: skip
+    if not all(r["permute"]["bitwise"] for r in res):
+        raise SystemExit("chip_smoke: the data group's permute did not deliver the peer's tensor")
+    if not (held and err <= bound):
+        raise SystemExit(f"chip_smoke: psum_compressed over the data group: {half} / {err} > {bound}")
+    out["compressed"] = {"new_err_over_half_scale": half, "err_vs_exact": err, "bound": bound}
+    out["staging"] = res[0]["staging"]
+    out["counts"] = out["bf16"]["counts"]
+    return out
+
+
+def _dp_join(cfg, blocks: list):
+    """The replicas' gradient blocks of ``cfg``'s trainable tree joined along
+    each leaf's data dim (a replicated leaf: the replicas' equal copies)."""
+    import torch
+
+    from repro_torch.backend.mesh import World
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.parallel.sharding import data_dim, gather_data, map_specs
+
+    pc = ParallelContext(world=World(WORLD, "meta"), mesh_axes=make_dev_mesh(WORLD, len(blocks)).axes)
+
+    def join(spec, *bs):
+        if data_dim(spec, pc.dp_axes) is None:
+            if not all(torch.equal(b, bs[0]) for b in bs):
+                raise SystemExit("chip_smoke: a replicated leaf's reduced gradient differs between the replicas")
+            return bs[0]
+        return gather_data(torch.stack(bs), spec, World(len(blocks), "cpu"), pc.dp_axes)
+
+    return map_specs(join, lm.trainable(lm.specs(cfg, pc), cfg), *blocks)
+
+
 def phase_train_seam() -> dict:
     """smollm-360m trained with fused RS -> AG seams (module docstring, phase 11b)."""
     import dataclasses
@@ -3402,13 +3719,91 @@ def _mm_seq(cfg) -> int:
     return TRAIN_SEQ if cfg.encoder_layers else 2 * TRAIN_SEQ
 
 
-def _mm_f32_step(tag: str, cfg, rows: int = TRAIN_BATCH) -> dict:
+@contextlib.contextmanager
+def relu_masks(record: list, force=None):
+    """Inside, the port's ReLU (``nn.layers.ACTS["relu"]``) appends each
+    call's pre-activation to ``record``; given ``force`` (pre-activations of
+    another run, in call order) it keeps the elements where ``force`` is
+    positive instead of where its own input is: the same values where the
+    two runs' signs agree, and the derivative taken on the other run's side
+    of zero where they do not (a sign that summation order flipped)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.nn import layers
+
+    class _Masked(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, g, keep):
+            ctx.save_for_backward(keep)
+            return g * keep
+
+        @staticmethod
+        def backward(ctx, go):
+            (keep,) = ctx.saved_tensors
+            return go * keep, None
+
+    forced = None if force is None else iter(force)
+
+    def relu(g):
+        record.append(g.detach())
+        if forced is None:
+            return F.relu(g)
+        return _Masked.apply(g, (next(forced) > 0).to(g.dtype))
+
+    before = layers.ACTS["relu"]
+    layers.ACTS["relu"] = relu
+    try:
+        yield record
+    finally:
+        layers.ACTS["relu"] = before
+
+
+def relu_flips(fused: list, eager: list) -> list:
+    """For each ReLU call, the two passes' pre-activations (:func:`relu_masks`
+    records): (elements whose sign differs, the largest |pre-activation| of
+    such an element over its own pass's max|pre-activation| on either pass,
+    the call's elements)."""
+    import torch
+
+    if len(fused) != len(eager):
+        raise SystemExit(f"chip_smoke: the two passes called ReLU {len(fused)} and {len(eager)} times")
+    out = []
+    for a, b in zip(fused, eager):
+        flip = (a > 0) != (b > 0)
+        n = int(flip.sum().item())
+        worst = 0.0
+        if n:
+            worst = max((t[flip].abs().max() / t.abs().max().clamp_min(1e-30)).item() for t in (a, b))
+        out.append((n, worst, a.numel()))
+    return out
+
+
+def hold_relu_flips(what: str, flips: list):
+    """Fail unless every flipped sign of :func:`relu_flips` lies within
+    RELU_FLIP_REL of zero on both passes and no call flipped more than
+    RELU_MAX_FLIP_SHARE of its elements: forcing one pass's signs on the
+    other may then absorb summation order only, never a wrong value."""
+    bad = [(i, n, w) for i, (n, w, size) in enumerate(flips) if w > RELU_FLIP_REL or n > RELU_MAX_FLIP_SHARE * size]
+    if bad:
+        raise SystemExit(f"chip_smoke: {what}: ReLU signs flipped beyond rounding of zero (call, flips, worst "
+                         f"|pre| / max|pre|): {bad[:8]} (bounds {RELU_FLIP_REL:g}, {RELU_MAX_FLIP_SHARE:g} of a call)")
+
+
+def _mm_f32_step(tag: str, cfg, rows: int = TRAIN_BATCH, seed: int = 0) -> dict:
     """One float32 step's loss and every leaf's gradient of ``cfg`` (a cut
-    depth, published widths; ``rows`` rows of :func:`_mm_batch`), fused
+    depth, published widths; weights and ``rows`` rows of :func:`_mm_batch`
+    from ``seed``), fused
     against eager: the loss the logits' bound, each leaf GRAD_RTOL of its
     max|eager| (every leaf non-zero), the fused launches :func:`_mm_launches`;
     with kv copies (rep > 1: the VLM's MQA) the synced gradient's copies
-    bitwise equal."""
+    bitwise equal.  A ReLU model's gradients are held against an eager pass
+    whose ReLUs take the fused pass's signs (:func:`relu_masks`): the two
+    backends' pre-activations differ by summation order, so an element within
+    rounding of zero may sit on either side, and the ReLU's derivative jumps
+    there by that token's whole term (``tests/test_torch_encdec.py``); the
+    flipped signs are held to rounding of zero (:func:`hold_relu_flips`) and
+    printed with the unforced eager pass's error."""
     import torch
 
     from repro_torch import kernels as K
@@ -3422,34 +3817,54 @@ def _mm_f32_step(tag: str, cfg, rows: int = TRAIN_BATCH) -> dict:
 
     mod = model_module(cfg)
     world = World(WORLD, "cuda")
-    p32 = mod.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
-    batch = _mm_batch(cfg, SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=rows), 0,
-                      torch.float32)  # fmt: skip
-    res = {}
+    p32 = mod.init(cfg, world, torch.Generator(device=world.device).manual_seed(seed), torch.float32)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=_mm_seq(cfg), global_batch=rows, seed=seed)
+    batch = _mm_batch(cfg, pipe, seed, torch.float32)  # the frames drawn from the seed too
+    res, pre = {}, {"fused": [], "eager": []}
+    relu = cfg.act == "relu"
     torch.cuda.reset_peak_memory_stats()
     for backend in ("fused", "eager"):
         K.reset_launch_counts()
         pc = ParallelContext(world=world, backend=backend)
-        loss, _, _, grads = loss_and_grads(mod, cfg, pc, p32, batch)
+        with relu_masks(pre[backend]):
+            loss, _, _, grads = loss_and_grads(mod, cfg, pc, p32, batch)
         res[backend] = (loss, grads, K.launch_counts())
     peak = torch.cuda.max_memory_allocated()
     (loss_f, g_f, counts), (loss_e, g_e, _) = res["fused"], res["eager"]
+    names = _leaf_names(mod.trainable(p32, cfg))
+    if relu:  # hold the flips to rounding of zero, then the eager pass at the fused pass's ReLU signs
+        found = relu_flips(pre["fused"], pre["eager"])
+        flips = [n for n, _, _ in found]
+        near = max(w for _, w, _ in found)
+        free = max(_grad_errs(names, tree_leaves(g_f), tree_leaves(g_e)), key=lambda t: t[1])
+        print(f"[{tag}] {cfg.name} ReLU signs, fused vs eager pre-activations: {flips} of "
+              f"{[size for _, _, size in found]} flipped (held <= {RELU_MAX_FLIP_SHARE:g} of a call), the largest "
+              f"|pre| / max|pre| of a flipped element on either backend {near:.3e} (held <= {RELU_FLIP_REL:g}: "
+              f"rounding of zero); unforced eager gradients' worst max|diff| / max|eager leaf| {free[1]:.3e} "
+              f"({free[0]}; printed, not held: a flipped sign moves its token's whole term); held below with the "
+              f"eager ReLUs at the fused signs")  # fmt: skip
+        hold_relu_flips(f"{cfg.name}'s f32 step, seed {seed}", found)
+        with relu_masks([], force=pre["fused"]):
+            _, _, _, g_e = loss_and_grads(mod, cfg, ParallelContext(world=world, backend="eager"), p32, batch)
+    del pre
     expect = _mm_launches(cfg)
     if counts != expect:
         raise SystemExit(f"chip_smoke: {cfg.name}'s f32 fused step launched {counts}, expected {expect}")
     depth = f"{cfg.encoder_layers} + {cfg.n_layers}" if cfg.encoder_layers else f"{cfg.n_layers}"
     _hold_logits(f"[{tag}] {cfg.name} f32 loss, one step ({depth} layers, {rows} x {_mm_seq(cfg)} tokens)",
                  loss_f[None], loss_e[None])  # fmt: skip
-    errs = _grad_errs(_leaf_names(mod.trainable(p32, cfg)), tree_leaves(g_f), tree_leaves(g_e))
+    errs = _grad_errs(names, tree_leaves(g_f), tree_leaves(g_e))
     worst = max(errs, key=lambda t: t[1])
-    print(f"[{tag}] {cfg.name} f32 gradients, fused vs eager ({depth} layers, {len(errs)} leaves): worst max|diff| / "
+    print(f"[{tag}] {cfg.name} f32 gradients, fused vs eager ({depth} layers, {len(errs)} leaves, seed {seed}): "
+          f"worst max|diff| / "
           f"max|eager leaf| {worst[1]:.3e} ({worst[0]}; bound {GRAD_RTOL:g} per leaf, every leaf non-zero); fused "
           f"launches {counts}; peak memory of both passes {peak / 2**20:.0f} MiB")  # fmt: skip
     bad = [e for e in errs if not (e[2] and e[1] <= GRAD_RTOL)]
     if bad:
         raise SystemExit(f"chip_smoke: {cfg.name}'s f32 fused gradients disagree with eager: {bad[:8]}")
     out = {"layers": depth, "loss": [loss_f.item(), loss_e.item()], "grad_rel_err": worst[1], "worst_leaf": worst[0],
-           "leaves": len(errs), "counts": counts, "peak_bytes": peak}  # fmt: skip
+           "leaves": len(errs), "counts": counts, "peak_bytes": peak, "relu_flips": flips if relu else None,
+           "relu_flip_rel": near if relu else None, "unforced_grad_rel_err": free[1] if relu else None}  # fmt: skip
     lay = attention.layout(cfg, WORLD)
     if lay.rep > 1:  # the kv-copy sync: every stored copy of a kv column gets the same gradient
         synced = mod.sync_grads(g_f, cfg, ParallelContext(world=world))
@@ -3693,7 +4108,13 @@ def phase_encdec(profile: bool = False) -> dict:
 
     # (d) training: the f32 step at 2 + 2 layers, TRAIN_STEPS bf16 steps at full depth, the resume at 2 + 2
     cut = dataclasses.replace(cfg, encoder_layers=MM_CUT_LAYERS, n_layers=MM_CUT_LAYERS)
-    result["f32_step"] = _mm_f32_step("encdec", cut)
+    steps = [_mm_f32_step("encdec", cut, seed=seed) for seed in range(ENCDEC_F32_SEEDS)]
+    result["f32_step"], result["f32_step_seeds"] = steps[0], [r["grad_rel_err"] for r in steps]
+    result["f32_step_unforced"] = [r["unforced_grad_rel_err"] for r in steps]
+    print(f"[encdec] f32 fused-vs-eager worst gradient error by seed, at equal ReLU signs {result['f32_step_seeds']} "
+          f"(bound {GRAD_RTOL:g}; every seed held), unforced {result['f32_step_unforced']} (printed), sign flips "
+          f"{[r['relu_flips'] for r in steps]}, their largest |pre| / max|pre| {[r['relu_flip_rel'] for r in steps]} "
+          f"(held <= {RELU_FLIP_REL:g})")  # fmt: skip
     result["train"] = _mm_train("encdec", cfg, TRAIN_STEPS)
     result["resume"] = _mm_resume("encdec", cut)
     return result
@@ -3934,6 +4355,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
     from repro_torch.kernels import ref as R
     from repro_torch.core.channels import BlockChannel
     from repro_torch.core.quant import QuantSpec, dequantize_weight, pack_weight
+    from repro_torch.kernels.gemm_rs import launch_plan
 
     recs = {}
     shp = path_shapes(ARCH)
@@ -3991,7 +4413,7 @@ def _quant_kernel_cases(rnd, iters: int) -> dict:
                 lambda: torch.matmul(x, w[:, None]).sum(0),
                 2 * W * B * M * k_rs * dm, isz * (x.numel() + w.numel()) + out_bytes,
                 iters if timed else 2, not timed, lambda: K.gemm_rs.last_launch, bitwise=timed, plain_once=once,
-                ref="no counterpart: each hop's partial rounded to the bf16 wire (ref sums exactly)",
+                ref=lambda: R.gemm_rs_wire_ref(x, w, launch_plan(x, w, wire)[0].rs_seg_tables(), torch.bfloat16),
             )  # fmt: skip
             if K.gemm_rs.last_launch["wire"] != "bfloat16":
                 raise SystemExit(f"chip_smoke: gemm_rs kept its partials in {K.gemm_rs.last_launch['wire']}, not bf16")
@@ -4738,7 +5160,7 @@ def main(argv=None) -> int:
     phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
-              "train_seam": phase_train_seam, "examples": phase_examples,
+              "train_seam": phase_train_seam, "dp": phase_dp, "examples": phase_examples,
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
@@ -4764,6 +5186,7 @@ def main(argv=None) -> int:
     by_path[f"ep {ARCH_DS}"] = out["ep"]["counts"]
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
     by_path[f"train_seam {ARCH}"] = out["train_seam"]["counts"]
+    by_path[f"dp {ARCH}"] = out["dp"]["counts"]  # both replica processes' launches
     by_path["examples"] = out["examples"]["counts"]
     by_path[f"train_moe {ARCH_MOE}"] = out["train_moe"]["bf16"]["counts"]
     by_path[f"train_moe {ARCH_DS}"] = out["train_moe"]["bf16_ds"]["counts"]

@@ -12,9 +12,11 @@ emulated on one device:
   * the fused kernels take rank-stacked operands and run all ranks in one
     launch, a "peer store" being a store into another rank's slice.
 
-The methods below are the transport interface the executors use; a
-``torch.distributed`` or real-peer transport would implement the same
-methods over per-process tensors.
+The methods below are the transport interface the executors use.
+:class:`DistWorld` implements the same methods over ``torch.distributed``
+for the data axes: one process per data replica, each holding its own
+tensors (no rank dimension); a real-peer transport for the model axis
+(symmetric buffers across GPUs) is not written.
 
 ``World.counting()`` turns on a :class:`CommCounter` for the transport:
 every ``permute`` / ``psum`` / ``all_gather`` / ``reduce_scatter`` then
@@ -25,12 +27,31 @@ collective-permute).  ``launch/roofline.collective_bytes`` weights them
 into per-device link bytes.  The counter reads shapes only (no host sync,
 so it may stay on inside a CUDA-graph capture), and with none enabled a
 call pays one attribute test.
+
+:class:`DistWorld` joins ``size`` processes in a ``torch.distributed``
+group through a file store (``init_method="file://..."``: no fixed port, so
+test processes that run at once do not collide).  Its backend is named by
+the caller, never switched: ``"gloo"`` (CPU tensors; on the card, the data
+replicas of one H100, where NCCL refuses two ranks on one device) or
+``"nccl"`` (one process per GPU).  Which tensors each collective hands the
+backend is its *staging*, also the caller's: ``"direct"`` (the tensor as it
+lies) or ``"host"`` (copied through pinned host memory and back, the bytes
+counted in ``CommCounter.staged``).  gloo in torch 2.11 takes CUDA tensors
+for its all-reduce, reduce-scatter and all-gather but not for send / recv
+(on an H100 the peer sees its connection closed, or the process aborts),
+so :data:`GLOO_CUDA_STAGING` stages the permute alone.  Scalars that
+steer a step (a loss, a mask count, a squared norm) are reduced with
+``control=True``: they are not payload, which ``launch/roofline`` models,
+and no counter records them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import datetime
 import functools
+import os
+import time
 from collections import defaultdict
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -38,9 +59,13 @@ import torch
 
 from repro_torch.backend.target import resolve_device
 
-__all__ = ["World", "CommCounter", "KINDS", "permute_direction"]
+__all__ = ["World", "DistWorld", "CommCounter", "KINDS", "STAGINGS", "GLOO_CUDA_STAGING", "permute_direction"]
 
 KINDS = ("permute", "psum", "all_gather", "reduce_scatter")  # the transport's collectives
+STAGINGS = ("direct", "host")  # how a DistWorld collective hands its tensors to the backend
+# gloo on CUDA tensors (torch 2.11, probed on an H100): send / recv do not take them, the rest do
+GLOO_CUDA_STAGING = {"permute": "host", "psum": "direct", "all_gather": "direct", "reduce_scatter": "direct"}
+DIST_TIMEOUT_S = 600  # a DistWorld collective that waits longer on a peer raises
 VOTES = 8  # pairs a permute's direction is voted over (the JAX package's parser reads the first 8)
 
 
@@ -59,14 +84,21 @@ class CommCounter:
     calls of ``kind`` over a group of ``g`` ranks (a permute's and a psum's
     input, an all-gather's gathered output, a reduce-scatter's scattered
     output: the payloads the JAX package's HLO parser reads);
-    ``permute_dirs[+1 | -1]``: the permutes' payload by link direction."""
+    ``permute_dirs[+1 | -1]``: the permutes' payload by link direction;
+    ``staged[kind]``: the payload a :class:`DistWorld` copied through host
+    memory; ``seconds``: with ``timed``, a DistWorld's host time inside its
+    collectives (the device drained before and after each, so the time is
+    the transport's; without ``timed`` nothing is drained and it stays 0)."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = False):
+        self.timed = timed
         self.reset()
 
     def reset(self):
         self.payload: Dict[str, Dict[int, float]] = {k: defaultdict(float) for k in KINDS}
         self.permute_dirs: Dict[int, float] = defaultdict(float)
+        self.staged: Dict[str, float] = defaultdict(float)
+        self.seconds = 0.0
 
     def add(self, kind: str, nbytes: float, group: int, direction: Optional[int] = None):
         self.payload[kind][group] += nbytes
@@ -162,3 +194,188 @@ class World:
 def _perm_index(order: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """The gather index of a permute, on ``device`` (read-only, shared)."""
     return torch.tensor(order, device=device)
+
+
+class DistWorld:
+    """``size`` data-parallel replicas over ``torch.distributed``, this
+    process being replica ``rank`` (module docstring).  The surface of
+    :class:`World` on this process's own tensors: ``psum`` / ``pmax`` all-reduce,
+    ``all_gather`` / ``reduce_scatter`` along a dim, ``permute`` over (src,
+    dst) pairs (a rank no pair sends to gets zeros, as ``lax.ppermute``),
+    ``shard`` this rank's block of a global tensor (no traffic) and
+    ``unshard`` its inverse (an all-gather).  Payload bytes are counted as
+    :class:`World` counts them per rank, so the two counters agree on the same
+    data.  ``staging``: one of :data:`STAGINGS` for every kind, or a mapping
+    kind -> staging; CPU tensors and NCCL take ``"direct"`` only (the
+    default there), gloo on CUDA tensors must be told (e.g.
+    :data:`GLOO_CUDA_STAGING`).  Use as a context manager, or call
+    :meth:`close`, to leave the group."""
+
+    def __init__(self, size: int, rank: int, *, init_file: str, backend: str, device=None, staging=None):
+        import torch.distributed as dist
+
+        if backend not in ("gloo", "nccl"):
+            raise ValueError(f"DistWorld backend must be 'gloo' or 'nccl', got {backend!r}")
+        if not 0 <= int(rank) < int(size):
+            raise ValueError(f"rank {rank} outside a world of {size}")
+        self.size, self.rank, self.backend = int(size), int(rank), backend
+        self.device = resolve_device(device)
+        self.staging = self._stagings(staging)
+        self.counter: Optional[CommCounter] = None
+        if dist.is_initialized():
+            raise RuntimeError("DistWorld: this process already belongs to a torch.distributed group")
+        if backend == "nccl":
+            torch.cuda.set_device(self.device)
+        dist.init_process_group(backend, init_method=f"file://{os.path.abspath(init_file)}", world_size=self.size,
+                                rank=self.rank, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))  # fmt: skip
+
+    def _stagings(self, staging) -> Dict[str, str]:
+        gloo_cuda = self.backend == "gloo" and self.device.type == "cuda"
+        if staging is None:
+            if gloo_cuda:
+                raise ValueError("DistWorld: gloo on CUDA tensors needs an explicit staging (e.g. GLOO_CUDA_STAGING)")
+            staging = "direct"
+        table = {k: staging for k in KINDS} if isinstance(staging, str) else dict(staging)
+        if set(table) != set(KINDS) or not set(table.values()) <= set(STAGINGS):
+            raise ValueError(f"DistWorld staging must give each of {KINDS} one of {STAGINGS}, got {staging!r}")
+        if not gloo_cuda and "host" in table.values():
+            raise ValueError(f"DistWorld: host staging is for gloo on CUDA tensors, not {self.backend} on "
+                             f"{self.device.type}")  # fmt: skip
+        return table
+
+    def __repr__(self) -> str:
+        return f"DistWorld(size={self.size}, rank={self.rank}, backend={self.backend}, device={self.device})"
+
+    def close(self):
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    counting = World.counting
+
+    # ---- staging ----------------------------------------------------------
+    def _in(self, kind: str, x: torch.Tensor, copy: bool) -> torch.Tensor:
+        """``x`` as the backend takes it: contiguous, in pinned host memory
+        under host staging, else a copy when ``copy`` (an in-place collective)."""
+        if self.staging[kind] == "host":
+            h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            h.copy_(x)
+            if self.counter is not None:
+                self.counter.staged[kind] += x.numel() * x.element_size()
+            return h
+        x = x.contiguous()
+        return x.clone() if copy else x
+
+    def _empty(self, kind: str, shape, like: torch.Tensor) -> torch.Tensor:
+        if self.staging[kind] == "host":
+            return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+    def _out(self, kind: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        return t.to(device) if self.staging[kind] == "host" else t
+
+    def _count(self, kind: str, nbytes: float, control: bool, direction: Optional[int] = None):
+        if self.counter is not None and not control:
+            self.counter.add(kind, nbytes, self.size, direction)
+
+    @contextlib.contextmanager
+    def _timed(self):
+        """Host seconds inside a collective into a ``timed`` counter: the
+        device is drained before and after, so they are the transport's."""
+        if self.counter is None or not self.counter.timed:
+            yield
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.counter.seconds += time.perf_counter() - t0
+
+    # ---- layout -------------------------------------------------------------
+    def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of a global tensor along ``dim`` (contiguous; no traffic)."""
+        if x.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {self.size} replicas")
+        return torch.chunk(x, self.size, dim=dim)[self.rank].contiguous()
+
+    def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Inverse of :meth:`shard`: every rank's block concatenated along ``dim``."""
+        return self.all_gather(x, dim)
+
+    # ---- collectives --------------------------------------------------------
+    def psum(self, x: torch.Tensor, control: bool = False) -> torch.Tensor:
+        """Sum over the replicas (a new tensor)."""
+        return self._all_reduce(x, "sum", control)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        """Elementwise max over the replicas (an all-reduce, counted as one)."""
+        return self._all_reduce(x, "max", False)
+
+    def _all_reduce(self, x, op: str, control: bool) -> torch.Tensor:
+        import torch.distributed as dist
+
+        self._count("psum", x.numel() * x.element_size(), control)
+        with self._timed():
+            buf = self._in("psum", x, copy=True)
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX)
+            return self._out("psum", buf, x.device)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The replicas' tensors concatenated along ``dim``, rank order."""
+        from repro_torch import compat
+
+        self._count("all_gather", self.size * x.numel() * x.element_size(), False)
+        with self._timed():
+            xin = self._in("all_gather", x, copy=False).reshape(-1)
+            out = self._empty("all_gather", (self.size * xin.numel(),), xin)  # flat: the ranks' tensors in order
+            compat.all_gather_single(out, xin)
+            out = self._out("all_gather", out, x.device)
+        return torch.cat(out.reshape((self.size,) + tuple(x.shape)).unbind(0), dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Sum over the replicas, then this rank keeps its block of ``dim``."""
+        from repro_torch import compat
+
+        if x.shape[dim] % self.size:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {self.size} replicas")
+        self._count("reduce_scatter", x.numel() // self.size * x.element_size(), False)
+        with self._timed():
+            xin = self._in("reduce_scatter", x.movedim(dim, 0), copy=False)
+            out = self._empty("reduce_scatter", (xin.shape[0] // self.size,) + tuple(xin.shape[1:]), xin)
+            compat.reduce_scatter_single(out, xin)
+            out = self._out("reduce_scatter", out, x.device)
+        return out.movedim(0, dim).contiguous()
+
+    def permute(self, x: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """This rank receives the tensor of the pair's source that names it
+        as destination (zeros if none does); it sends ``x`` to every
+        destination it is the source of (a ppermute)."""
+        import torch.distributed as dist
+
+        pairs = [(int(a), int(b)) for a, b in pairs]
+        if len({b for _, b in pairs}) != len(pairs):
+            raise ValueError(f"permute: a destination appears twice in {pairs}")
+        self._count("permute", x.numel() * x.element_size(), False, permute_direction(pairs))
+        with self._timed():
+            xin = self._in("permute", x, copy=False)
+            buf = torch.zeros_like(xin)
+            ops = []
+            for src, dst in pairs:
+                if src == dst == self.rank:
+                    buf.copy_(xin)
+                elif src == self.rank:
+                    ops.append(dist.P2POp(dist.isend, xin, dst))
+                elif dst == self.rank:
+                    ops.append(dist.P2POp(dist.irecv, buf, src))
+            for req in dist.batch_isend_irecv(ops) if ops else ():
+                req.wait()
+            return self._out("permute", buf, x.device)

@@ -14,19 +14,32 @@ and names ``jax.tree_util``'s tree functions.  Here:
     ``World``, the emulated model axis it builds;
   * ``shard_map`` has no counterpart: a ``World`` runs every rank of its
     axis at once on rank-stacked tensors, so there is no per-rank program
-    to map.
+    to map;
+  * ``all_gather_single`` / ``reduce_scatter_single``: the flat-tensor
+    collectives of ``torch.distributed`` under the names each torch has.
+    torch 2.13 names them ``all_gather_single`` / ``reduce_scatter_single``
+    and warns that the older ``all_gather_into_tensor`` /
+    ``reduce_scatter_tensor`` are deprecated; older torch has only those.
+    The choice is made once, by probing ``torch.distributed`` for the new
+    names (``backend/mesh.DistWorld`` calls these).
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, List, NamedTuple, Tuple
 
+import torch.distributed as _dist
 import torch.utils._pytree as _pt
 
 from repro_torch.backend.mesh import World
 from repro_torch.launch.mesh import make_dev_mesh
 
-__all__ = ["make_dev_mesh", "World", "tree_map", "tree_leaves", "tree_flatten", "tree_unflatten", "TreeDef"]
+__all__ = ["make_dev_mesh", "World", "tree_map", "tree_leaves", "tree_flatten", "tree_unflatten", "TreeDef",
+           "all_gather_single", "reduce_scatter_single"]  # fmt: skip
+
+# (output, input, group=None, async_op=False) in both namings; (output, input, op, group, async_op) for the RS
+all_gather_single = getattr(_dist, "all_gather_single", None) or getattr(_dist, "all_gather_into_tensor", None)
+reduce_scatter_single = getattr(_dist, "reduce_scatter_single", None) or getattr(_dist, "reduce_scatter_tensor", None)
 
 
 class TreeDef(NamedTuple):

@@ -36,6 +36,7 @@ __all__ = [
     "WRAPPERS",
     "launch_counts",
     "reset_launch_counts",
+    "prebuild",
 ]
 
 WRAPPERS = {
@@ -57,3 +58,12 @@ def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
     ag_gemm.packed_launches = gemm_rs.packed_launches = 0
+
+
+def prebuild():
+    """Build (or find) and load the kernel library now, launching nothing: a
+    launcher of several processes calls it first, so that they load one
+    library instead of each building it (``launch/train.run_replicas``)."""
+    from repro_torch.kernels import build
+
+    build.library()

@@ -21,6 +21,16 @@ layout of ``kernels/ag_gemm`` and ``kernels/gemm_rs``); at ``[R, rows, K]``
 they are the reference's.
 Where the reference rounds ``q * scale`` in q's dtype before its float32
 scores, the port scales in float32 (the same numbers in float32).
+
+Three oracles have no function in the reference's module (so they stay out
+of ``__all__``, which names the reference's), because the reference's
+kernels compute them only inside a larger function; they hold
+the kernel cases the functions above do not cover:
+``flash_attention_union_ref`` (one ring step with the state of the steps
+before it: attention over the union of the KV tiles every step visited, at
+the ring's rank offsets), ``ssd_intra_chunk_ref`` (the SSD intra-chunk term
+alone) and ``gemm_rs_wire_ref`` (GEMM+RS with the partial rounded to the
+wire dtype after every hop, in the hop order of the plan's tables).
 """
 
 from __future__ import annotations
@@ -132,3 +142,76 @@ def ssd_ref(x, dt, a_log, b, c, *, chunk: int = 64, d_init=None) -> torch.Tensor
         state = state * decay[..., None, None] + torch.einsum("bhn,bhp->bhnp", bx[:, t] * dtf[:, t, :, None], xf[:, t])
         ys.append(torch.einsum("bhn,bhnp->bhp", cx[:, t], state))
     return torch.stack(ys, dim=1).to(x.dtype)
+
+
+def flash_attention_union_ref(q, ks, vs, *, q_off, k_offs, causal: bool = False, scale: Optional[float] = None):
+    """The attention a ring computes over several steps: q [W, B, H, Sq, D]
+    at positions ``q_off[r] + i``; ``ks`` / ``vs`` one [W, B, Hk, Sk, D] KV
+    tile per step, tile t of rank r at positions ``k_offs[t][r] + j``.  Per
+    rank, :func:`flash_attention_ref` over the tiles some query sees.
+    Without ``causal`` that is every tile.  Under ``causal`` a tile that ends
+    before the query block is wholly visible and goes first; the tiles that
+    overlap the block must be contiguous and end with it, and go last, so
+    that the right-aligned causal mask is the causal mask of absolute
+    positions; a tile after the block is wholly masked and left out.
+    -> [W, B, H, Sq, D] in q's dtype."""
+    world, b, h, sq, d = q.shape
+    sk = ks[0].shape[3]
+    outs = []
+    for r in range(world):
+        offs = sorted((k_offs[t][r], t) for t in range(len(ks)))
+        if causal:
+            end = q_off[r] + sq
+            before = [(o, t) for o, t in offs if o + sk <= q_off[r]]
+            overlap = [(o, t) for o, t in offs if o + sk > q_off[r] and o < end]
+            if [o for o, _ in overlap] != list(range(end - sk * len(overlap), end, sk)):
+                raise ValueError(f"rank {r}: the tiles at {[o for o, _ in overlap]} that overlap the query block are "
+                                 f"not contiguous up to its end {end}")  # fmt: skip
+            offs = before + overlap
+        k = torch.cat([ks[t][r] for _, t in offs], dim=2)  # [B, Hk, Sk x tiles, D]
+        v = torch.cat([vs[t][r] for _, t in offs], dim=2)
+        o = flash_attention_ref(q[r].reshape(b * h, sq, d), k.reshape(-1, k.shape[2], d), v.reshape(-1, v.shape[2], d),
+                                causal=causal, scale=scale)  # fmt: skip
+        outs.append(o.reshape(b, h, sq, d))
+    return torch.stack(outs)
+
+
+def ssd_intra_chunk_ref(cum: torch.Tensor, cb: torch.Tensor, xdt: torch.Tensor) -> torch.Tensor:
+    """The SSD intra-chunk term of each tile t: y = (CB ∘ exp(cum_i − cum_j)
+    ∘ [i ≥ j]) @ xdt as one float32 einsum.  cum [T, Q], cb [T, Q, Q], xdt
+    [T, Q, P] -> [T, Q, P] in xdt's dtype."""
+    c = cum.float()
+    q = c.shape[1]
+    causal = torch.ones((q, q), dtype=torch.bool, device=c.device).tril()
+    decay = torch.exp((c[:, :, None] - c[:, None, :]).masked_fill(~causal, float("-inf")))
+    return torch.einsum("tij,tij,tjp->tip", cb.float(), decay, xdt.float()).to(xdt.dtype)
+
+
+def gemm_rs_wire_ref(x_shards: torch.Tensor, w_shards: torch.Tensor, seg_tables, wire: torch.dtype) -> torch.Tensor:
+    """GEMM+RS whose partial crosses a ``wire``-dtype link after every hop:
+    x_shards [R, *lead, M, k_loc], w_shards [R, k_loc, N] -> [R, *lead,
+    M // R, N].  ``seg_tables[c][s][r]`` is the row segment rank r reduces
+    at step s on channel c (``TilePlan.rs_seg_tables``; channel c owns
+    columns c N/C .. (c+1) N/C).  Each segment's chain adds its ranks'
+    float32 products in step order and rounds the sum to ``wire`` after
+    every step but the last; the rank that reduces segment g at the last
+    step must be g."""
+    world, m, n = x_shards.shape[0], x_shards.shape[-2], w_shards.shape[-1]
+    nch, m_loc = len(seg_tables), m // world
+    n_sub = n // nch
+    lead = x_shards.shape[1:-2]
+    out = torch.zeros((world,) + tuple(lead) + (m_loc, n), dtype=torch.float32, device=x_shards.device)
+    for c, table in enumerate(seg_tables):
+        cols = slice(c * n_sub, (c + 1) * n_sub)
+        for g in range(world):
+            acc = None
+            for s, row in enumerate(table):
+                r = row.index(g)
+                part = x_shards[r, ..., g * m_loc : (g + 1) * m_loc, :].float() @ w_shards[r, :, cols].float()
+                acc = part if acc is None else part + acc
+                if s < world - 1:
+                    acc = acc.to(wire).float()
+            if r != g:
+                raise ValueError(f"channel {c}: segment {g} ends at rank {r}, not its owner")
+            out[g, ..., cols] = acc
+    return out.to(x_shards.dtype)

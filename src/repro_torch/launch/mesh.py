@@ -16,9 +16,10 @@ joined by NVSwitch), because a tensor-parallel ring of 16 would cross
 InfiniBand between nodes on every step.  The data and pod axes run over
 one 400 Gb/s NDR port per GPU.
 
-``make_dev_mesh`` is the card itself: one data replica and ``n_model``
-ranks emulated on it, the model axis at the emulated world's peer-store
-rate (``HW["link_bw"]``).
+``make_dev_mesh`` is the card itself: ``n_model`` ranks emulated on it,
+the model axis at the emulated world's peer-store rate (``HW["link_bw"]``),
+and ``n_data`` data replicas, one process each (``Mesh.context(data=)``
+takes their :class:`~repro_torch.backend.mesh.DistWorld`).
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ class Mesh:
 
     def context(self, device=None, **kw):
         """A ParallelContext over this mesh (its world on ``device``); the
-        data axes are the mesh's own unless ``dp_axes`` is given."""
+        data axes are the mesh's own unless ``dp_axes`` is given.  ``data=``
+        a DistWorld runs them (its size must be their product)."""
         from repro_torch.parallel.context import ParallelContext
 
         kw.setdefault("dp_axes", tuple(a for a in ("pod", "data") if a in self.shape))
@@ -84,10 +86,11 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
 
 
 def make_dev_mesh(n_model: int = 4, n_data: Optional[int] = None) -> Mesh:
-    """The card: (pod=1, data=1, model=n_model), the model axis at the
-    emulated peer-store rate.  ``n_data`` other than 1 is refused: the
-    world emulates one data replica."""
-    if n_data not in (None, 1):
-        raise ValueError(f"make_dev_mesh: one card holds one data replica, got n_data={n_data}")
-    axes = (("pod", 1), ("data", 1), ("model", int(n_model)))
+    """The card: (pod=1, data=n_data, model=n_model), the model axis at the
+    emulated peer-store rate; ``n_data`` (default 1) is the number of
+    replica processes."""
+    n_data = 1 if n_data is None else int(n_data)
+    if n_data < 1:
+        raise ValueError(f"make_dev_mesh: n_data must be >= 1, got {n_data}")
+    axes = (("pod", 1), ("data", n_data), ("model", int(n_model)))
     return Mesh(axes, (("pod", HW["axis_bw"]["pod"]), ("data", HW["axis_bw"]["data"]), ("model", HW["link_bw"])))

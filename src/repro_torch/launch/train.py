@@ -31,34 +31,134 @@ A stub-frontend model (paligemma-3b) trains text-only here, as in the JAX
 package; an encoder-decoder (seamless-m4t-medium) is refused: its batches
 need encoder frames, which ``SyntheticLM`` does not give
 (``training.make_train_step`` takes them as ``batch["embeds"]``).
+
+``--data D`` trains D data-parallel replicas of the W-rank model group
+(the JAX package's (pod, data, model) mesh with pod x data = D), one
+spawned process each (:func:`run_replicas`: the ``spawn`` start method,
+since the parent may hold a CUDA context), joined by a ``torch.distributed``
+:class:`~repro_torch.backend.mesh.DistWorld` over a file store:
+``--dist-backend`` gloo (the default: on one card every replica shares the
+device, which NCCL refuses) or nccl (replica r on GPU r); gloo takes the
+CUDA tensors of the card's replicas as
+:data:`~repro_torch.backend.mesh.GLOO_CUDA_STAGING` says (the permute
+through pinned host memory, the rest as they lie); both are printed.
+Replica r reads rows r B/D .. (r+1) B/D of each global batch of B
+(``SyntheticLM(n_hosts=D, host_id=r)``), and the step is
+``training.make_train_step``'s data-parallel form (moments sharded over
+the replicas).  The parent builds the kernel
+library before it spawns, so the replicas load it; rank 0 logs, returns the
+history (each step's record gains ``data_bytes``, the data transport's
+payload by kind, and ``data_ms``, its host time, which ``--time-data``
+measures by draining the device around each collective; None without
+it) and writes the
+checkpoints, whose moments it gathers first; a checkpoint restores at any
+D.  On the CPU:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduce \
+      --device cpu --data 2 --batch 4 --seq 32 --steps 3
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import tempfile
 import time
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch import kernels as K
-from repro_torch.backend.mesh import World
+from repro_torch.backend.mesh import GLOO_CUDA_STAGING, CommCounter, DistWorld, World
+from repro_torch.backend.target import resolve_device
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data import SyntheticLM
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.launch.serve import DTYPES
 from repro_torch.models import encdec, lm
 from repro_torch.parallel.context import ParallelContext
+from repro_torch.parallel.sharding import gather_data, map_specs
 from repro_torch.runtime import StepWatchdog
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.training.optimizer import tree_map
+from repro_torch.training.steps import data_blocks
 
-__all__ = ["train", "model_module", "main"]
+__all__ = ["train", "model_module", "main", "run_replicas", "staging_for"]
+
+REPLICA_TIMEOUT_S = 3600.0  # run_replicas stops its processes after this long
 
 
 def model_module(cfg):
     """The model module of a config (``repro/launch/specs.model_module``)."""
     return encdec if cfg.encoder_layers else lm
+
+
+def staging_for(backend: str, device):
+    """The DistWorld staging of a backend on a device: None (every
+    collective direct) unless gloo moves CUDA tensors, then
+    :data:`GLOO_CUDA_STAGING`."""
+    if backend != "gloo" or torch.device(device).type != "cuda":
+        return None
+    return dict(GLOO_CUDA_STAGING)
+
+
+def run_replicas(target: Callable, size: int, *, device=None, backend: str = "gloo", staging=None,
+                 args: Sequence = ()) -> list:  # fmt: skip
+    """``target(data, *args)`` in ``size`` spawned processes, ``data`` each
+    one's :class:`DistWorld` (rank r of ``size``) over a file store in a
+    temporary directory, on ``device`` (the card unless said; under NCCL,
+    process r on CUDA device r); returns their
+    results by rank (each saved with ``torch.save`` by its process: keep
+    them on the CPU).  ``target`` must be importable by name.  Each process
+    runs torch at this process's intra-op thread count over ``size``.  On a
+    CUDA device the kernel library is built
+    here first, so the processes load it rather than each building it.  A
+    process that fails stops the others, and this raises."""
+    import multiprocessing
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        K.prebuild()
+    threads = max(1, torch.get_num_threads() // size)
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="repro-replicas-") as tmp:
+        devs = [str(torch.device("cuda", r)) if backend == "nccl" and dev.type == "cuda" else str(dev)
+                for r in range(size)]  # fmt: skip
+        procs = [ctx.Process(target=_replica, args=(target, r, size, tmp, devs[r], backend, staging, threads, args),
+                             name=f"replica-{r}") for r in range(size)]  # fmt: skip
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + REPLICA_TIMEOUT_S
+        try:
+            while any(proc.is_alive() for proc in procs):
+                failed = [proc for proc in procs if proc.exitcode not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    raise RuntimeError(f"run_replicas: {[(p.name, p.exitcode) for p in failed] or 'timed out'}")
+                for proc in procs:
+                    proc.join(timeout=0.2)
+            codes = [proc.exitcode for proc in procs]
+            if any(codes):
+                raise RuntimeError(f"run_replicas: replica exit codes {codes}")
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join(timeout=30)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(size)]
+
+
+def _replica(target, rank, size, tmp, device, backend, staging, threads, args):
+    """One replica process of :func:`run_replicas`."""
+    torch.set_num_threads(threads)
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(torch.device(device))
+    with DistWorld(size, rank, init_file=os.path.join(tmp, "store"), backend=backend, device=device,
+                   staging=staging) as data:  # fmt: skip
+        out = target(data, *args)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
 def train(
@@ -79,13 +179,59 @@ def train(
     device=None,
     log_every: int = 10,
     resume: bool = True,
+    data: int = 1,
+    dist_backend: str = "gloo",
+    time_data: bool = False,
 ) -> dict:
     """Train ``arch`` for ``steps`` steps (resuming from the latest checkpoint
     in ``ckpt_dir`` when ``resume``) with seeded weights (seed 0);
     ``layers`` cuts the depth; ``remat`` is the step's ``remat_policy``.  Returns {"history": one record per
     step run (loss, ce, grad_norm, lr, ms, launches), "params", "opt_state",
     "cfg"}.  A step's ``ms`` is CUDA-event time on the card, host time on
-    the CPU; ``launches`` counts each kernel's launches in that step."""
+    the CPU; ``launches`` counts each kernel's launches in that step.
+    ``data`` > 1 trains that many replicas in spawned processes (module
+    docstring); then "params" and "opt_state" are rank 0's, on the CPU (its
+    moments: its blocks), and "replicas" holds each process's peak device
+    memory and launch counts; ``time_data`` fills each record's
+    ``data_ms`` (the device drained around every data collective, which
+    slows the step; None without it)."""
+    kw = dict(steps=steps, batch=batch, seq=seq, reduce=reduce, layers=layers, mode=mode, remat=remat,
+              ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, lr=lr, dtype=dtype, world=world, log_every=log_every,
+              resume=resume, time_data=time_data)  # fmt: skip
+    if data == 1:
+        return _train(arch, device=device, dist=None, **kw)
+    if data < 1 or batch % data:
+        raise ValueError(f"--data {data}: the global batch {batch} must divide over the replicas")
+    dev = resolve_device(device)
+    stage = staging_for(dist_backend, dev)
+    print(f"data axis: {data} replica processes over torch.distributed {dist_backend}, staging "
+          f"{stage or 'direct'}")  # fmt: skip
+    outs = run_replicas(_train_replica, data, device=dev, backend=dist_backend, staging=stage, args=(arch, kw))
+    return {**outs[0], "replicas": [{k: o[k] for k in ("peak_bytes", "launches")} for o in outs]}
+
+
+def _train_replica(dist: DistWorld, arch: str, kw: dict) -> dict:
+    """One replica of a data-parallel run (rank 0 logs and keeps the history)."""
+    if dist.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = _train(arch, device=dist.device, dist=dist, **kw)
+    res = {"history": out["history"] if dist.rank == 0 else None, "cfg": out["cfg"],
+           "peak_bytes": torch.cuda.max_memory_allocated() if dist.device.type == "cuda" else None,
+           "launches": K.launch_counts()}  # fmt: skip
+    if dist.rank == 0:
+        res.update(params=tree_map(_host, out["params"]), opt_state=tree_map(_host, out["opt_state"]))
+    return res
+
+
+def _host(t):
+    return t.detach().cpu() if torch.is_tensor(t) else t
+
+
+def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ckpt_every, lr, dtype, world, device,
+           log_every, resume, time_data, dist: Optional[DistWorld]) -> dict:  # fmt: skip
+    """:func:`train`'s loop in this process: one replica of ``dist`` (its
+    DistWorld), or the whole run without one."""
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
@@ -99,25 +245,42 @@ def train(
         )
     w = World(world, device)
     dtype = dtype or ("bf16" if w.device.type == "cuda" else "f32")
-    pc = ParallelContext(world=w, mode=mode)
+    n_data, rank = (1, 0) if dist is None else (dist.size, dist.rank)
+    lead = rank == 0
+    if dist is None:
+        pc = ParallelContext(world=w, mode=mode)
+    else:
+        pc = ParallelContext(world=w, mode=mode, mesh_axes=make_dev_mesh(world, n_data).axes, data=dist)
     params = mod.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
-    opt_state = init_opt_state(mod.trainable(params, cfg))
+    opt_state = init_opt_state(_blocks(mod, cfg, pc, mod.trainable(params, cfg)))
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
     # donated: each step updates the state it is given in place (one copy of the weights and moments)
     step_fn = make_train_step(
         mod, cfg, pc, opt_cfg, remat_policy=remat, grad_masks=mod.grad_masks(cfg, pc), donate=True
     )
 
-    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch)
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, n_hosts=n_data, host_id=rank)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
     if mgr and resume and mgr.latest_step() is not None:
         s0 = mgr.latest_step()
-        restored, meta = mgr.restore(s0, {"params": params, "opt": opt_state}, cfg=cfg, world=w)
-        params, opt_state = restored["params"], restored["opt"]
+        full = init_opt_state(mod.trainable(params, cfg)) if dist is not None else opt_state
+        restored, meta = mgr.restore(s0, {"params": params, "opt": full}, cfg=cfg, world=w)
+        params, opt = restored["params"], restored["opt"]
+        opt_state = {**{k: _blocks(mod, cfg, pc, opt[k]) for k in ("mu", "nu")}, "step": opt["step"]}
         pipe.restore(meta["extra"]["data"])
         start = s0
-        print(f"resumed from step {s0}")
+        if lead:
+            print(f"resumed from step {s0}")
+
+    def save(step):
+        opt = opt_state
+        if dist is not None:  # the moments' blocks gathered: rank 0 writes the logical arrays
+            specs = mod.trainable(mod.specs(cfg, pc), cfg)
+            opt = {**opt, **{k: map_specs(lambda s, t: gather_data(t, s, dist, pc.dp_axes), specs, opt[k])
+                             for k in ("mu", "nu")}}  # fmt: skip
+        if lead:
+            mgr.save(step, params, opt, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
 
     cuda = w.device.type == "cuda"
     wd = StepWatchdog()
@@ -130,7 +293,9 @@ def train(
             e0.record()
         t0 = time.perf_counter()
         wd.start()
-        params, opt_state, metrics = step_fn(params, opt_state, batch_np)
+        counter = CommCounter(timed=time_data)
+        with dist.counting(counter) if dist is not None else contextlib.nullcontext():
+            params, opt_state, metrics = step_fn(params, opt_state, batch_np)
         if cuda:
             e1.record()
         loss = float(metrics["loss"])  # a host sync
@@ -139,16 +304,26 @@ def train(
         after = K.launch_counts()
         rec = {"step": step, "loss": loss, "ce": float(metrics["ce"]), "grad_norm": float(metrics["grad_norm"]),
                "lr": float(metrics["lr"]), "ms": ms, "launches": {k: after[k] - before[k] for k in after}}  # fmt: skip
+        if dist is not None:
+            rec["data_bytes"] = {k: float(sum(v.values())) for k, v in counter.payload.items() if v}
+            rec["data_ms"] = counter.seconds * 1e3 if time_data else None
         history.append(rec)
-        if step % log_every == 0 or step == steps - 1:
+        if lead and (step % log_every == 0 or step == steps - 1):
+            data_txt = f" data={rec['data_ms']:.1f}ms" if dist is not None and time_data else ""
             print(f"step {step}: loss={loss:.4f} lr={rec['lr']:.2e} gnorm={rec['grad_norm']:.3f} "
-                  f"step={ms:.1f}ms med_step={wd.median() * 1e3:.0f}ms" + (" [STRAGGLER]" if straggler else ""))  # fmt: skip
+                  f"step={ms:.1f}ms{data_txt} med_step={wd.median() * 1e3:.0f}ms"
+                  + (" [STRAGGLER]" if straggler else ""))  # fmt: skip
         if mgr and ckpt_every and (step + 1) % ckpt_every == 0:
-            mgr.save(step + 1, params, opt_state, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
+            save(step + 1)
     if mgr:
-        mgr.save(steps, params, opt_state, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
+        save(steps)
         mgr.wait()
     return {"history": history, "params": params, "opt_state": opt_state, "cfg": cfg}
+
+
+def _blocks(mod, cfg, pc, tree):
+    """This replica's blocks of a trainable tree (the tree itself without a data transport)."""
+    return tree if pc.data is None else data_blocks(mod, cfg, pc, tree)
 
 
 def main(argv=None):
@@ -170,12 +345,18 @@ def main(argv=None):
     ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (emulated on one device)")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' runs the plain versions")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--data", type=int, default=1, help="data-parallel replicas, one spawned process each")
+    ap.add_argument("--dist-backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the replicas' torch.distributed backend (gloo: replicas sharing one card, or the CPU)")
+    ap.add_argument("--time-data", action="store_true",
+                    help="time the data transport (data_ms): drains the device around each collective")
     args = ap.parse_args(argv)
     out = train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, reduce=args.reduce, layers=args.layers,
         mode=args.mode, remat=args.remat,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr, dtype=args.dtype, world=args.world,
-        device=args.device, log_every=args.log_every, resume=args.resume,
+        device=args.device, log_every=args.log_every, resume=args.resume, data=args.data,
+        dist_backend=args.dist_backend, time_data=args.time_data,
     )  # fmt: skip
     losses = [r["loss"] for r in out["history"]]
     if losses:

@@ -56,14 +56,24 @@ non-tuned fields (comm resource and mode) carry into every winner.
 
 The mesh: ``mesh_axes`` names the deployment's axes and their sizes,
 ``(("data", 32), ("model", 8))`` (``launch/mesh``), with the model axis the
-world's own; by default it is the world alone, ``{"model": world.size}``.
-The world emulates the ranks of one model group: the data axes
-(``dp_axes``, by default ``("pod", "data")``, those the mesh has) are
-replicas the planner counts (``dp``, ``dp_spec()``, the parameter specs of
-``models/*.specs``; ``launch/dryrun``), not ranks the world runs, so on the
-one card ``dp == 1``.  ZeRO-3's use-time gather (the JAX package's
-``use_gather``) has no work to do on the emulated world; ``launch/roofline``
-counts its traffic from the specs.
+world's own; by default it is the world alone, ``{"model": world.size}``
+(with ``data``, ``(("data", data.size), ("model", world.size))``).  The
+world emulates the ranks of one model group.  The data axes (``dp_axes``,
+by default ``("pod", "data")``, those the mesh has) are the replicas of
+that group: ``dp`` is their product, ``dp_spec()`` their spec entry in the
+parameter specs of ``models/*.specs``.  Without ``data`` they are replicas
+the planner counts (``launch/dryrun``), not ranks anything runs.  With
+``data`` (a :class:`~repro_torch.backend.mesh.DistWorld`: one replica a
+process, the JAX package's reduction over the tuple spec ``("pod",
+"data")`` as one group over their product) they run:
+``training.make_train_step`` reduces the gradients over ``data``, keeps the
+optimizer moments as each replica's block of the leaves the data axes
+split (``parallel/sharding.place_data``, ZeRO) and all-gathers the updated
+blocks once a step; ``dp`` is then ``data.size``, and a mesh whose data
+axes multiply to anything else raises.  The JAX package gathers each
+layer's parameters at its use instead (ZeRO-3, ``use_gather``): the same
+numbers, more memory here; ``launch/roofline`` counts either's traffic
+from the specs.
 
 ``attn_p_bf16`` casts softmax P to bf16 before P V in the eager route's
 attention (``chunked_attention``), as the JAX package does; the fused
@@ -82,7 +92,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.backend.mesh import World
+from repro_torch.backend.mesh import DistWorld, World
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.compiler import BACKENDS, compile_overlap
 from repro_torch.core.quant import QuantSpec
@@ -105,6 +115,7 @@ class ParallelContext:
     dp_axes: Tuple[str, ...] = ("pod", "data")  # the data-parallel (ZeRO) axes, those the mesh has
     mesh_axes: Any = None  # (name, size) pairs of the mesh (a mapping is taken); None: the world's axis alone
     attn_p_bf16: bool = False  # cast softmax P to bf16 before P V (eager route; the wgmma route always does)
+    data: Optional[DistWorld] = None  # the data axes' transport (one replica a process); None: planned only
 
     def __post_init__(self):
         if self.mode not in ("overlap", "baseline"):
@@ -123,12 +134,16 @@ class ParallelContext:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; one of {BACKENDS}")
         axis = self.channel.axis
-        mesh = ((axis, self.world.size),) if self.mesh_axes is None else self.mesh_axes
+        mesh = ((axis, self.world.size),) if self.data is None else (("data", self.data.size), (axis, self.world.size))
+        mesh = mesh if self.mesh_axes is None else self.mesh_axes
         mesh = tuple((str(a), int(n)) for a, n in (mesh.items() if isinstance(mesh, dict) else mesh))
         if dict(mesh).get(axis) != self.world.size:
             raise ValueError(f"mesh {dict(mesh)} must give the {axis!r} axis the world's {self.world.size} ranks")
         object.__setattr__(self, "mesh_axes", mesh)
         object.__setattr__(self, "dp_axes", tuple(self.dp_axes))
+        if self.data is not None and self.dp != self.data.size:
+            raise ValueError(f"mesh {dict(mesh)} gives the data axes {self.dp_axes} {self.dp} replicas, "
+                             f"the data transport has {self.data.size}")  # fmt: skip
         if self.ep_axis is not None and self.ep_axis != self.channel.axis:
             raise ValueError(f"ep_axis {self.ep_axis!r} is not the world's axis {self.channel.axis!r}")
 
@@ -144,7 +159,8 @@ class ParallelContext:
 
     @property
     def dp(self) -> int:
-        """Data replicas: the product of the data axes the mesh has."""
+        """Data replicas: the product of the data axes the mesh has (with
+        ``data``, its size: ``__post_init__`` holds them equal)."""
         n = 1
         for a in self.dp_axes:
             n *= self.mesh_shape.get(a, 1)

@@ -15,8 +15,17 @@ port's :class:`Spec` is the same thing for the port's own leaves:
 
 :func:`stacked` turns a global spec into the rank-stacked leaf's, and
 :func:`place` moves a global tensor into that layout (the ``"model"`` dim
-split over the world's ranks; the data axes are not materialised: the
-emulated world is one data replica).  :func:`per_device_bytes` is what one
+split over the world's ranks).  The data axes are a second transport,
+``ParallelContext.data``: :func:`place_data` keeps this replica's block of
+a leaf along the one dim its spec names for them (ZeRO storage of the
+optimizer moments, and the update's share of the parameters) and
+:func:`gather_data` is its inverse, an all-gather over them; a leaf whose
+spec names no data axis is replicated.  Over a
+:class:`~repro_torch.backend.mesh.DistWorld` (one replica a process) a
+block is this process's own; over an emulated
+:class:`~repro_torch.backend.mesh.World` of the data axes it is every
+replica's, stacked on a new dim 0 (the in-process form the tests hold the
+same code with).  :func:`per_device_bytes` is what one
 device of a mesh stores of a leaf (each dim divided by the product of its
 axes' sizes, rounded up: the JAX package requires each to divide evenly, so
 the two agree wherever the reference accepts the spec).  A mesh is
@@ -27,12 +36,15 @@ the ``(name, size)`` pairs of ``launch/mesh.Mesh.axes``).
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
 __all__ = ["Spec", "is_spec", "axes_of", "stacked", "only_axes", "shard_shape", "per_device_bytes",
-           "Sharding", "shardings_of", "place", "map_specs", "tree_bytes"]  # fmt: skip
+           "Sharding", "shardings_of", "place", "map_specs", "tree_bytes", "DATA_AXES", "data_dim", "place_data",
+           "gather_data"]  # fmt: skip
+
+DATA_AXES = ("pod", "data")  # the data-parallel axes by default (``ParallelContext.dp_axes``)
 
 
 class Spec(tuple):
@@ -153,7 +165,7 @@ def place(x: torch.Tensor, spec: Spec, world, axis: str = "model") -> torch.Tens
     """A global tensor in its rank-stacked layout by ``spec``: the dim that
     ``axis`` splits becomes ``[W, ...]`` (``world.shard``), the layout of
     ``stacked(spec)``; a leaf ``axis`` does not split is stored once, as it
-    is.  Data axes are not materialised on the emulated world."""
+    is.  The data axes are :func:`place_data`'s."""
     dims = [i for i, e in enumerate(spec) if axis in _entry_axes(e)]
     if not dims:
         return x.to(world.device)
@@ -161,3 +173,27 @@ def place(x: torch.Tensor, spec: Spec, world, axis: str = "model") -> torch.Tens
         raise ValueError(f"place: {axis!r} splits more than one dim of {spec!r}")
     return world.shard(x.to(world.device), dims[0])
 
+
+
+def data_dim(spec: Spec, dp_axes: Sequence[str] = DATA_AXES) -> Optional[int]:
+    """The dim of a stored leaf that its spec splits over the data axes
+    ``dp_axes``, or None (the leaf is replicated over them)."""
+    dims = [i for i, e in enumerate(spec) if any(a in dp_axes for a in _entry_axes(e))]
+    if len(dims) > 1:
+        raise ValueError(f"the data axes {tuple(dp_axes)} split more than one dim of {spec!r}")
+    return dims[0] if dims else None
+
+
+def place_data(x: torch.Tensor, spec: Spec, data, dp_axes: Sequence[str] = DATA_AXES) -> torch.Tensor:
+    """This replica's block of a stored leaf along :func:`data_dim` over the
+    data transport ``data`` (``data.shard``: a dim the replicas do not divide
+    raises, as the JAX package's placement does); the leaf itself where the
+    spec names no data axis."""
+    d = data_dim(spec, dp_axes)
+    return x if d is None else data.shard(x, d)
+
+
+def gather_data(x: torch.Tensor, spec: Spec, data, dp_axes: Sequence[str] = DATA_AXES) -> torch.Tensor:
+    """Inverse of :func:`place_data`: the replicas' blocks gathered over ``data``."""
+    d = data_dim(spec, dp_axes)
+    return x if d is None else data.unshard(x, d)

@@ -6,8 +6,9 @@
   * ``ElasticMesh`` factorizes the devices present into (pod, data, model)
     as the reference does (shrinking data first, then model by powers of
     two); ``world`` builds the tensor-parallel :class:`World` of the plan's
-    model factor.  The port has no data-parallel axis yet, so the pod and
-    data factors are the replicas such an axis would run.
+    model factor, and ``build`` the plan's mesh, that world and, given the
+    data replicas' :class:`~repro_torch.backend.mesh.DistWorld` (one
+    process per pod x data replica), the ParallelContext that runs them.
   * ``run_resilient`` is the restart loop: run the train loop, on failure
     rebuild the state (restoring the latest checkpoint, which is
     world-size-agnostic) and continue.
@@ -20,13 +21,25 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
 from repro_torch.backend.mesh import World
 
-__all__ = ["StepWatchdog", "ElasticMesh", "run_resilient"]
+__all__ = ["StepWatchdog", "ElasticMesh", "ElasticBuild", "run_resilient"]
+
+
+class ElasticBuild(NamedTuple):
+    """What :meth:`ElasticMesh.build` returns: the plan's ``mesh``
+    (``launch/mesh.Mesh``, axes (pod, data, model)), the ``usable`` device
+    count, the tensor-parallel ``world`` and, with a data transport, the
+    ``context`` over the data factors (else None)."""
+
+    mesh: object
+    usable: int
+    world: World
+    context: object
 
 
 @dataclasses.dataclass
@@ -78,6 +91,25 @@ class ElasticMesh:
     def world(self, n_devices: int, device=None) -> World:
         """The tensor-parallel world of the plan's model factor on ``device``."""
         return World(self.plan(n_devices)["model"], device)
+
+    def build(self, n_devices: int, device=None, data=None) -> ElasticBuild:
+        """The (pod, data, model) mesh of :meth:`plan`, its usable device
+        count (the reference's ``build``), the model factor's world on
+        ``device`` and, with ``data`` (a DistWorld of pod x data replicas),
+        a ParallelContext over the mesh that runs the data factors."""
+        from repro_torch.launch.mesh import Mesh, make_dev_mesh
+
+        p = self.plan(n_devices)
+        dev = make_dev_mesh(p["model"], p["pod"] * p["data"])
+        rates = dict(dev.link_bw)
+        mesh = Mesh(tuple((a, p[a]) for a in self.axis_names), tuple((a, rates[a]) for a in self.axis_names))
+        world = mesh.world(device)
+        ctx = None
+        if data is not None:
+            from repro_torch.parallel.context import ParallelContext
+
+            ctx = ParallelContext(world=world, mesh_axes=mesh.axes, data=data)
+        return ElasticBuild(mesh, p["pod"] * p["data"] * p["model"], world, ctx)
 
 
 def run_resilient(make_state: Callable, run: Callable, *, max_failures: int = 3, on_failure: Optional[Callable] = None):

@@ -23,8 +23,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-__all__ = ["AdamWConfig", "schedule", "init_opt_state", "global_norm", "apply_update", "tree_map", "tree_leaves",
-           "tree_unflatten"]
+__all__ = ["AdamWConfig", "schedule", "init_opt_state", "global_norm", "apply_masks", "apply_update", "tree_map",
+           "tree_leaves", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,16 +98,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(leaf.float())) for leaf in tree_leaves(tree)))
 
 
-def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optional[Any], decay, donate: bool = False):
+def apply_masks(grads, grad_masks):
+    """The gradients times a prefix tree of 0/1 masks (None: no mask)."""
+    return _prefix_map(lambda g, m: g if m is None else g * m.to(g.dtype), grads, grad_masks)
+
+
+def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optional[Any], decay, donate: bool = False,
+                 gnorm: Optional[torch.Tensor] = None):  # fmt: skip
     """One AdamW step.  Returns (params, state, metrics {grad_norm, lr}).
 
     ``grad_masks``: a prefix tree of 0/1 masks (None: no mask) multiplied
     into the gradients before the norm.  ``decay``: a prefix tree of bools,
     which leaves take weight decay.  ``donate``: update ``params`` and the
-    moments of ``state`` in place (the returned trees hold them)."""
+    moments of ``state`` in place (the returned trees hold them).
+    ``gnorm``: the gradients' global norm, where the caller holds only a
+    share of them (a data-parallel replica's blocks); by default
+    :func:`global_norm` of ``grads``."""
     if grad_masks is not None:
-        grads = _prefix_map(lambda g, m: g if m is None else g * m.to(g.dtype), grads, grad_masks)
-    gnorm = global_norm(grads)
+        grads = apply_masks(grads, grad_masks)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     lr = schedule(cfg, step)

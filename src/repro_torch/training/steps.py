@@ -8,6 +8,26 @@ in both passes: the backward of an AG+GEMM is a GEMM+RS and the other way round,
 model's weight-decay mask.  The optimizer sees the model's trainable tree
 (``model.trainable``: no copy of a tied head), and the returned parameters
 carry a refreshed copy (``model.with_tied``).
+
+With ``pc.data`` (the data axes' :class:`~repro_torch.backend.mesh.
+DistWorld`, one replica a process) the step is data-parallel, ZeRO-style:
+each replica runs the forward and backward on its share of the global
+batch, its loss scaled so that the gradients are those of the global mean
+(a masked mean divides by the global mask count, all-reduced); the TP
+kv-copy sync; the 0/1 masks; then each gradient is reduce-scattered over
+``data`` onto this replica's block where the parameter specs
+(``model.specs``) split the leaf over the data axes, all-reduced otherwise,
+and divided by the replica count; the clip takes the global norm (the
+blocks' squared norms all-reduced); AdamW updates each replica's blocks
+against moments that hold only those blocks (``init_opt_state`` of
+:func:`data_blocks`, the JAX package's placement of ``opt`` by the
+parameter specs); and the updated blocks are all-gathered, so every
+replica holds the whole parameters for the next forward.  Each of the
+three collectives runs once a step per dtype over the concatenated leaves
+(the same payload as one a leaf, in one call).  It differs from
+the JAX package in one way: that gathers each layer's parameters at their
+use (ZeRO-3), this once a step (the same numbers, the parameters' memory
+not cut).
 """
 
 from __future__ import annotations
@@ -17,9 +37,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.training.optimizer import AdamWConfig, apply_update, tree_leaves, tree_unflatten
+from repro_torch.parallel.sharding import data_dim, map_specs, place_data
+from repro_torch.training.optimizer import AdamWConfig, apply_masks, apply_update, tree_leaves, tree_unflatten
 
-__all__ = ["softmax_xent", "loss_and_grads", "make_train_step", "make_eval_step"]
+__all__ = ["softmax_xent", "loss_and_grads", "make_train_step", "make_eval_step", "data_blocks",
+           "data_parallel_grads"]
 
 
 XENT_ROWS = 1024  # rows of one float32 block of the cross-entropy (its only float32 copy of the logits)
@@ -51,13 +73,15 @@ class _Nll(torch.autograd.Function):
         return grad, None
 
 
-def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torch.Tensor:
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, mask=None, count=None) -> torch.Tensor:
     """Mean cross-entropy. logits [B, S, V] (any dtype), labels [B, S] integer;
-    float32 math over row blocks (:class:`_Nll`)."""
+    float32 math over row blocks (:class:`_Nll`).  With ``mask`` the mean
+    over its ones, divided by ``count`` where given (a data-parallel step's
+    share of the global count) instead of the mask's own sum."""
     nll = _Nll.apply(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long()).reshape(labels.shape)
     if mask is not None:
         m = mask.float()
-        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+        return (nll * m).sum() / (torch.clamp(m.sum(), min=1.0) if count is None else count)
     return nll.mean()
 
 
@@ -66,17 +90,19 @@ def _on(device: torch.device, batch: dict) -> dict:
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v).to(device) for k, v in batch.items()}
 
 
-def loss_and_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none", aux_weight: float = 0.01):
+def loss_and_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none", aux_weight: float = 0.01,
+                   mask_count=None):  # fmt: skip
     """One forward and backward: (loss, ce, aux, gradients over
     ``model.trainable(params, cfg)``), before the kv-copy sync.  Raises if a
-    parameter gets no gradient."""
+    parameter gets no gradient.  ``mask_count``: what a masked ce divides
+    by (:func:`softmax_xent`'s ``count``)."""
     batch = _on(pc.device, batch)
     tree = model.trainable(params, cfg)
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
     logits, aux = model.forward(
         tree_unflatten(tree, leaves), cfg, pc, batch["inputs"], embeds=batch.get("embeds"), remat_policy=remat_policy
     )
-    ce = softmax_xent(logits, batch["labels"], batch.get("mask"))
+    ce = softmax_xent(logits, batch["labels"], batch.get("mask"), count=mask_count)
     loss = ce + aux_weight * aux
     grads = tree_unflatten(tree, list(torch.autograd.grad(loss, leaves)))
     return loss.detach(), ce.detach(), aux.detach(), grads
@@ -105,8 +131,14 @@ def make_train_step(
     must not use them after it (one copy of the parameters and moments in
     memory instead of two).  Raises for a model whose training path is not
     ported (``model.check_trainable``), and if a parameter gets no
-    gradient."""
+    gradient.  With ``pc.data`` the step is data-parallel (module
+    docstring): ``batch`` is this replica's share of the global batch (equal
+    rows on every replica), ``opt_state`` is over :func:`data_blocks`, and
+    the metrics are the global ones."""
     model.check_trainable(cfg, pc)
+    if pc.data is not None:
+        return _data_parallel_step(model, cfg, pc, opt_cfg, remat_policy=remat_policy, grad_masks=grad_masks,
+                                   aux_weight=aux_weight, sync_kv=sync_kv, donate=donate)  # fmt: skip
 
     def train_step(params, opt_state, batch):
         tree = model.trainable(params, cfg)
@@ -122,6 +154,123 @@ def make_train_step(
         return model.with_tied(new, cfg), new_opt, metrics
 
     return train_step
+
+
+def data_blocks(model, cfg, pc, tree):
+    """This replica's blocks of a trainable tree (``model.trainable`` of the
+    parameters, or of gradients) over ``pc.data``, by the parameter specs:
+    what a data-parallel step's moments are shaped like."""
+    return map_specs(lambda s, t: place_data(t, s, pc.data, pc.dp_axes), model.trainable(model.specs(cfg, pc), cfg),
+                     tree)  # fmt: skip
+
+
+def data_parallel_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none", grad_masks=None,
+                        aux_weight: float = 0.01, sync_kv: bool = True):  # fmt: skip
+    """The data-parallel step's gradients (module docstring): this replica's
+    forward and backward on its ``batch`` rows, the kv-copy sync, the 0/1
+    ``grad_masks``, then the replicas' mean over ``pc.data``, this replica's
+    block of each leaf the data axes split, all of any other.  Returns
+    (loss, ce, aux, gradients, global gradient norm), the metrics the global
+    batch's."""
+    data, dp, axes = pc.data, pc.data.size, pc.dp_axes
+    specs = model.trainable(model.specs(cfg, pc), cfg)
+    count = None
+    if batch.get("mask") is not None:  # a masked mean divides by the global count: dp x this share of it
+        mask = batch["mask"] if torch.is_tensor(batch["mask"]) else torch.as_tensor(np.asarray(batch["mask"]))
+        total = data.psum(mask.to(pc.device, torch.float32).sum().reshape(1), control=True)[0]
+        count = torch.clamp(total, min=1.0) / dp
+    loss, ce, aux, grads = loss_and_grads(model, cfg, pc, params, batch, remat_policy=remat_policy,
+                                          aux_weight=aux_weight, mask_count=count)  # fmt: skip
+    loss, ce, aux = (data.psum(torch.stack([loss, ce, aux]).float(), control=True) / dp).unbind(0)
+    if sync_kv:
+        grads = model.sync_grads(grads, cfg, pc)
+    if grad_masks is not None:
+        grads = apply_masks(grads, grad_masks)
+    grads = _replica_mean(specs, grads, data, axes)
+    split, whole = [], []  # squared norms: of blocks (summed over the replicas), of whole leaves (once)
+    map_specs(lambda s, g: (whole if data_dim(s, axes) is None else split).append(g.float().square().sum()),
+              specs, grads)  # fmt: skip
+    sq = data.psum(torch.stack(split).sum().reshape(1), control=True)[0] if split else 0.0
+    return loss, ce, aux, grads, torch.sqrt(sq + (torch.stack(whole).sum() if whole else 0.0))
+
+
+def _data_parallel_step(model, cfg, pc, opt_cfg, *, remat_policy, grad_masks, aux_weight, sync_kv, donate) -> Callable:
+    """The data-parallel train step (module docstring)."""
+    data, axes = pc.data, pc.dp_axes
+    specs = model.trainable(model.specs(cfg, pc), cfg)
+
+    def train_step(params, opt_state, batch):
+        tree = model.trainable(params, cfg)
+        loss, ce, aux, grads, gnorm = data_parallel_grads(
+            model, cfg, pc, params, batch, remat_policy=remat_policy, grad_masks=grad_masks, aux_weight=aux_weight,
+            sync_kv=sync_kv,
+        )  # fmt: skip
+        blocks = map_specs(lambda s, t: place_data(t, s, data, axes), specs, tree)
+        new, new_opt, om = apply_update(blocks, grads, opt_state, opt_cfg, grad_masks=None,
+                                        decay=model.decay_mask(tree, cfg), donate=donate, gnorm=gnorm)  # fmt: skip
+
+        full = iter(_gather_blocks(specs, new, data, axes))  # every replica's updated blocks: whole again
+
+        def whole(spec, p, b):
+            if data_dim(spec, axes) is None:
+                return b
+            return p.copy_(next(full)) if donate else next(full)
+
+        new = map_specs(whole, specs, tree, new)
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
+        return model.with_tied(new, cfg), new_opt, metrics
+
+    return train_step
+
+
+def _leaves(specs, tree, axes) -> list:
+    """(data dim or None, leaf) of a trainable tree, in ``map_specs`` order."""
+    out = []
+    map_specs(lambda s, t: out.append((data_dim(s, axes), t)), specs, tree)
+    return out
+
+
+def _replica_mean(specs, grads, data, axes):
+    """The replicas' mean of every gradient: this replica's block of a leaf
+    the data axes split (one reduce-scatter of all of them, per dtype), the
+    whole of any other (one all-reduce, per dtype).  A leaf's block along its
+    data dim d is the rows ``rank`` of the leaf moved to ``[D, -1]`` with d
+    first, so the leaves concatenate into one ``[D, total]`` buffer; the
+    payload is the per-leaf collectives' sum."""
+    n = data.size
+    leaves = _leaves(specs, grads, axes)
+    out = [None] * len(leaves)
+    for dtype in {g.dtype for _, g in leaves}:
+        split = [(i, d, g) for i, (d, g) in enumerate(leaves) if d is not None and g.dtype == dtype]
+        if split:
+            rows = [g.movedim(d, 0).reshape(n, -1) for _, d, g in split]
+            mean = data.reduce_scatter(torch.cat(rows, dim=1), 0)[0] / n
+            for (i, d, g), part in zip(split, mean.split([r.shape[1] for r in rows])):
+                moved = (g.shape[d] // n,) + tuple(g.shape[:d]) + tuple(g.shape[d + 1 :])
+                out[i] = part.reshape(moved).movedim(0, d)
+        whole = [(i, g) for i, (d, g) in enumerate(leaves) if d is None and g.dtype == dtype]
+        if whole:
+            mean = data.psum(torch.cat([g.reshape(-1) for _, g in whole])) / n
+            for (i, g), part in zip(whole, mean.split([g.numel() for _, g in whole])):
+                out[i] = part.reshape(g.shape)
+    it = iter(out)
+    return map_specs(lambda s, g: next(it), specs, grads)
+
+
+def _gather_blocks(specs, blocks, data, axes) -> list:
+    """Every replica's block of each leaf the data axes split, gathered into
+    the whole leaf (one all-gather per dtype, the inverse of
+    :func:`_replica_mean`'s layout); the whole leaves in ``map_specs`` order."""
+    n = data.size
+    leaves = [(i, d, b) for i, (d, b) in enumerate(_leaves(specs, blocks, axes)) if d is not None]
+    out = {}
+    for dtype in {b.dtype for _, _, b in leaves}:
+        group = [(i, d, b) for i, d, b in leaves if b.dtype == dtype]
+        flat = data.all_gather(torch.cat([b.movedim(d, 0).reshape(-1) for _, d, b in group]), 0).reshape(n, -1)
+        for (i, d, b), part in zip(group, flat.split([b.numel() for _, _, b in group], dim=1)):
+            moved = (n * b.shape[d],) + tuple(b.shape[:d]) + tuple(b.shape[d + 1 :])
+            out[i] = part.reshape(moved).movedim(0, d).contiguous()
+    return [out[i] for i, _, _ in leaves]
 
 
 def make_eval_step(model, cfg, pc) -> Callable:

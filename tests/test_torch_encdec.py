@@ -17,6 +17,12 @@ the loss the logits' bound and each gradient leaf 2e-3 of its max |ref|;
 one AdamW step's updates 1e-2 of each leaf's max update where the gradient
 is held; conversion, masks and the kv-copy sync exactly / 1e-6; a W = 4 ->
 W = 2 restore 1e-4 of max |logits|.
+
+The card's f32 fused-vs-eager step holds a ReLU model's gradients at the
+fused pass's ReLU signs (``chip_smoke.relu_masks``); the last test here
+shows why: flipping the sign of the one pre-activation nearest zero, which
+summation order can flip, leaves the loss within 1e-6 but moves a weight
+gradient by far more than 2e-3 of its max.
 """
 
 import dataclasses
@@ -342,6 +348,88 @@ def test_frontend_shapes_follow_the_reference_rule(pc8):
         assert tree["embeds"].shape == (8, frontends.encoder_frames(cfg, s), cfg.d_model)
     e = frontends.stub_frame_embeddings(torch.Generator().manual_seed(0), 2, 64, 16, torch.float32)
     assert e.shape == (2, 64, 16) and e.dtype == torch.float32 and 0 < e.std().item() < 0.05
+
+
+def test_a_relu_sign_flip_moves_the_gradient_not_the_loss(model):
+    """The mechanism behind the card's seamless f32 step reading up to
+    1.3e-2 against 2e-3 at one seed: the fused and eager passes'
+    pre-activations differ by summation order, and a handful of the 8-16 M
+    elements of each ReLU lie within that rounding of zero, on opposite
+    sides.  ReLU's derivative jumps there: the gate column of that unit
+    loses (or gains) its token's whole term, x_t (dy up)_tj, while the
+    output, relu(g) ~ 0 either way, does not move.  Here, on the eager pass:
+    ``relu_masks`` forcing a pass's own signs reproduces it bitwise; forcing
+    them with the last decoder layer's element nearest zero flipped moves
+    the loss by under 1e-6 of it and that layer's ``w_gu`` gradient by more
+    than GRAD_REL of its max in that unit's gate column, every other
+    column by under 1e-5 of it."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg, params, batch = model["cfg"], model["params"], model["batch"]
+    pc = ParallelContext(world=model["world"], backend="eager")
+
+    def run(force=None):
+        pre = []
+        with cs.relu_masks(pre, force=force):
+            loss, _, _, grads = loss_and_grads(encdec, cfg, pc, params, batch)
+        return loss, grads, pre
+
+    loss, grads, pre = run()
+    assert len(pre) == cfg.encoder_layers + cfg.n_layers  # one ReLU a layer's MLP
+    loss_same, grads_same, _ = run(force=pre)
+    assert torch.equal(loss_same, loss)
+    assert all(torch.equal(a, b) for a, b in zip(topt.tree_leaves(grads_same), topt.tree_leaves(grads)))
+    flipped = [t.clone() for t in pre]
+    i = flipped[-1].abs().argmin()
+    flipped[-1].view(-1)[i] = -flipped[-1].view(-1)[i] if flipped[-1].view(-1)[i] else 1.0
+    loss_flip, grads_flip, _ = run(force=flipped)
+    assert abs(loss_flip.item() - loss.item()) <= 1e-6 * abs(loss.item())
+    g, gf = grads["dec_layers"][-1]["ffn"]["w_gu"], grads_flip["dec_layers"][-1]["ffn"]["w_gu"]  # [W, D, 2 f_loc]
+    top = g.abs().max().item()
+    cols = (gf - g).abs().amax(dim=1) / top  # [W, 2 f_loc]: each column's move, relative to the leaf's max
+    jump = cols.flatten().argmax().item()
+    assert cols.flatten()[jump].item() > GRAD_REL  # the flipped unit's gate column: its token's whole term
+    assert jump % g.shape[-1] < g.shape[-1] // 2  # a gate column, not an up column
+    rest = torch.cat([cols.flatten()[:jump], cols.flatten()[jump + 1 :]])
+    assert rest.max().item() <= 1e-5  # the others move only by the flipped output's ~0 change downstream
+
+
+def test_relu_flips_are_held_to_rounding_of_zero():
+    """``chip_smoke.hold_relu_flips``, which lets the card's f32 step force
+    the fused pass's ReLU signs on the eager pass: a sign flipped within
+    rounding of zero passes; one flipped far from zero on either pass, or
+    more flips than RELU_MAX_FLIP_SHARE of a call, fails."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    a = torch.from_numpy(np.random.default_rng(61).standard_normal(400_000).astype(np.float32))
+    top = a.abs().max().item()
+    near = a.abs().argsort()[:8]  # the elements nearest zero
+    assert a[near[-1]].abs().item() <= cs.RELU_FLIP_REL * top
+    b = a.clone()
+    b[near[:2]] = -b[near[:2]]  # two rounding flips: 5e-6 of the call at most
+    found = cs.relu_flips([a], [b])
+    assert found[0][0] == 2 and found[0][1] <= cs.RELU_FLIP_REL and found[0][2] == a.numel()
+    cs.hold_relu_flips("two near-zero flips", found)
+    assert cs.relu_flips([a], [a]) == [(0, 0.0, a.numel())]
+    far = a.clone()
+    far[a.abs().argmax()] = -far[a.abs().argmax()]  # a wrong value, not rounding
+    with pytest.raises(SystemExit, match="beyond rounding of zero"):
+        cs.hold_relu_flips("a flip far from zero", cs.relu_flips([a], [far]))
+    many = a.clone()
+    many[near] = -many[near]  # eight near-zero flips: more than 1e-5 of 400 000 elements
+    assert cs.relu_flips([a], [many])[0][1] <= cs.RELU_FLIP_REL
+    with pytest.raises(SystemExit, match="beyond rounding of zero"):
+        cs.hold_relu_flips("too many flips", cs.relu_flips([a], [many]))
+    with pytest.raises(SystemExit, match="called ReLU"):
+        cs.relu_flips([a, a], [a])
 
 
 def test_cli_refuses_the_encoder_decoder():

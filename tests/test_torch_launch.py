@@ -63,7 +63,8 @@ from repro_torch.launch.mesh import Mesh, make_dev_mesh, make_production_mesh
 from repro_torch.models import lm
 from repro_torch.nn import attention
 from repro_torch.parallel.context import ParallelContext
-from repro_torch.parallel.sharding import Spec, per_device_bytes, place, shardings_of, stacked
+from repro_torch.parallel.sharding import (Spec, data_dim, gather_data, map_specs, per_device_bytes, place, place_data,
+                                           shardings_of, stacked)  # fmt: skip
 from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 from test_torch_training import J_COMPILE
 
@@ -182,8 +183,74 @@ def test_meshes_and_the_data_axis_of_the_context():
     assert (plain.mesh_shape, plain.dp, plain.dp_spec(), plain.attn_p_bf16) == ({"model": 4}, 1, None, False)
     with pytest.raises(ValueError, match="model"):
         ParallelContext(world=World(4, "cpu"), mesh_axes={"data": 2, "model": 8})
-    with pytest.raises(ValueError, match="one data replica"):
-        make_dev_mesh(4, n_data=2)
+    # the data axis: as many replicas as processes (the contexts that run them: test_torch_dist.py)
+    assert make_dev_mesh(4, n_data=2).shape == {"pod": 1, "data": 2, "model": 4}
+    with pytest.raises(ValueError, match="n_data"):
+        make_dev_mesh(4, n_data=0)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-2.7b", "granite-moe-3b-a800m"])
+def test_data_placement_round_trips_every_leaf(arch):
+    """``place_data`` / ``gather_data`` over the data axes of a (1, 2, 4)
+    mesh, the data transport an in-process World of the 2 replicas (its
+    blocks stacked on dim 0): every leaf of the reduced tree goes to its
+    replicas' blocks along the dim its spec names for the data axes, and
+    back, bitwise; a leaf whose spec names no data axis stays whole."""
+    cfg = reduce_config(get_config(arch))
+    data = World(2, "cpu")
+    pc = ParallelContext(world=World(4, "cpu"), mesh_axes=make_dev_mesh(4, 2).axes)
+    assert pc.dp == 2 and pc.dp_spec() == ("pod", "data")
+    params = lm.init(cfg, pc.world, torch.Generator().manual_seed(0), torch.float32)
+    split = []
+
+    def trip(spec, x):
+        d = data_dim(spec, pc.dp_axes)
+        blocks = place_data(x, spec, data, pc.dp_axes)
+        if d is None:
+            assert blocks is x
+        else:
+            split.append(spec)
+            assert blocks.shape == (2,) + x.shape[:d] + (x.shape[d] // 2,) + x.shape[d + 1 :]
+            assert torch.equal(blocks[1], x.narrow(d, x.shape[d] // 2, x.shape[d] // 2))
+        assert torch.equal(gather_data(blocks, spec, data, pc.dp_axes), x)
+
+    map_specs(trip, lm.specs(cfg, pc), params)
+    whole = []
+    map_specs(lambda s: whole.append(s) if data_dim(s, pc.dp_axes) is None else None, lm.specs(cfg, pc))
+    assert split and whole  # the norms (and the router) stay whole
+
+
+def test_data_placement_refuses_what_does_not_divide():
+    data = World(2, "cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        place_data(torch.zeros(4, 5), Spec(None, ("pod", "data")), data)
+    with pytest.raises(ValueError, match="more than one dim"):
+        data_dim(Spec("data", "pod"))
+    assert place_data(torch.zeros(4, 5), Spec("model", None), data).shape == (4, 5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 6, 8, 16, 32])
+def test_dev_mesh_and_elastic_build_give_the_reference_plan(n, tmp_path):
+    """``ElasticMesh.build`` lays the reference's ``plan`` out as a (pod, data,
+    model) mesh, the model factor's world; ``make_dev_mesh(model, data)`` is
+    the card's; a context with a data transport of another size than the
+    mesh's data factors raises."""
+    from repro.runtime import ElasticMesh as JElasticMesh
+    from repro_torch.runtime import ElasticMesh
+
+    for target in (2, 4, 16):
+        ref = JElasticMesh(target_model=target).plan(n)
+        b = ElasticMesh(target_model=target).build(n, "cpu")
+        assert b.mesh.shape == ref and b.usable == ref["pod"] * ref["data"] * ref["model"]
+        assert b.world.size == ref["model"] and b.context is None
+        assert make_dev_mesh(ref["model"], ref["pod"] * ref["data"]).shape == {
+            "pod": 1, "data": ref["pod"] * ref["data"], "model": ref["model"]}  # fmt: skip
+    with pytest.raises(ValueError, match="data transport has 2"):
+        ParallelContext(world=World(4, "cpu"), mesh_axes=make_dev_mesh(4, 4).axes, data=World(2, "cpu"))
+    ctx = ParallelContext(world=World(4, "cpu"), data=World(2, "cpu"))
+    assert (ctx.dp, ctx.mesh_shape) == (2, {"data": 2, "model": 4})
+    b = ElasticMesh(target_model=4).build(8, "cpu", data=World(2, "cpu"))  # plan (2, 1, 4): pod x data = 2 replicas
+    assert (b.context.dp, b.context.mesh_shape, b.context.tp) == (2, {"pod": 2, "data": 1, "model": 4}, 4)
 
 
 def test_place_and_per_device_bytes():

@@ -8,7 +8,13 @@ GQA, Sq != Sk (queries right-aligned, the causal rows before the first key
 fully masked), non-causal and an explicit scale; the grouped GEMM on
 tile-aligned expert tables; AG+GEMM and GEMM+RS per rank (and with the
 port's leading batch dims); the SSD recurrence with groups > 1 and an
-initial state.
+initial state.  The kernel cases the reference's oracles do not cover are
+held against the port's own: one ring step with the state of the step
+before it against ``flash_attention_union_ref`` (both steps' KV tiles at
+the ring's rank offsets), the SSD intra-chunk term against the float32
+einsum of its formula, and GEMM+RS on a bf16 wire against
+``gemm_rs_wire_ref`` (one bf16 rounding of the partial per hop, in the
+plan's hop order).
 
 Tolerances: the port's oracle against the reference's 1e-5 of max |ref|
 (float32, summation order only); a plain version against the port's
@@ -16,7 +22,12 @@ oracle 1e-5 of max |oracle| (+1e-6 where outputs can be zero), as the
 plain versions replay the kernels' tiles, slots and flags in float32;
 ``ssd_chunked`` (both intra-chunk forms) against ``ssd_ref`` 1e-4 of max,
 the chunked form's exponentials of cumulative sums against the sequential
-products.
+products.  The bf16 wire: bitwise on integer data (every float32 product
+and sum exact, so only the wire rounds, at the same places on both
+sides); on random data 2e-2 of max, one bf16 rounding (the float32
+products of the two sides differ by summation order, which may move a
+partial across a bf16 rounding boundary).  A bf16 SSD tile: 1e-2 of max
+(both round y to bf16 once).
 """
 
 import numpy as np
@@ -25,7 +36,10 @@ import torch
 
 from repro.kernels import ref as jref
 from repro_torch import kernels as K
-from repro_torch.core import BlockChannel, CommSpec
+from repro_torch.core import BlockChannel, CommSpec, QuantSpec
+from repro_torch.core.plan import build_plan
+from repro_torch.kernels.flash_attention import flash_attention_ranked, flash_attention_ranked_plain
+from repro_torch.kernels.gemm_rs import launch_plan
 from repro_torch.kernels import ref
 from repro_torch.kernels.grouped_matmul import group_tile_table
 from repro_torch.kernels.mamba_ssd import ssd_chunked
@@ -196,6 +210,78 @@ def test_ssd_chunked_vs_ref(intra, groups):
     h0 = _t(_rand(37, bsz, h, n, p))
     got = ssd_chunked(x, dt, a_log, b, c, chunk=16, h_init=h0, intra=intra)
     _close(got, ref.ssd_ref(x, dt, a_log, b, c, chunk=16, d_init=h0), rtol=1e-4)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("tiled", [False, True])
+def test_ring_step_plain_vs_union_ref(order, tiled):
+    """Both ring steps of the ``ag_attention`` plan in turn, the state of
+    step 0 carried into step 1 (``flash_attention_ranked``, the plain
+    version on the CPU, both state units), against attention over the union
+    of the two steps' KV tiles at the ring's rank offsets."""
+    world, b, h, s_loc, d = 4, 2, 3, 16, 8
+    q, k, v = (_t(_rand(40 + i, world, b, h, s_loc, d)) for i in range(3))
+    plan = build_plan("ag_attention", BlockChannel(axis="model", comm=CommSpec(order=order)), world, 1)
+    src = [plan.channels[0].source_table(t) for t in (0, 1)]
+    kt, vt = [k[torch.tensor(t)] for t in src], [v[torch.tensor(t)] for t in src]
+    q_off = tuple(r * s_loc for r in range(world))
+    k_off = [tuple(x * s_loc for x in t) for t in src]
+    kw = dict(q_off=q_off, causal=True, tiled=tiled)
+    st = flash_attention_ranked_plain(q, kt[0], vt[0], k_off=k_off[0], final=False, **kw)
+    got = flash_attention_ranked_plain(q, kt[1], vt[1], k_off=k_off[1], state=st, **kw)
+    want = ref.flash_attention_union_ref(q, kt, vt, q_off=q_off, k_offs=k_off, causal=True)
+    # the tiled replay rounds P to bf16 before P V, as the wgmma route does
+    _close(got, want, rtol=1e-2 if tiled else RTOL, atol=1e-6)
+    if not tiled:  # the wrapper on CPU tensors is the plain version
+        st = flash_attention_ranked(q, kt[0], vt[0], k_off=k_off[0], q_off=q_off, causal=True, final=False)
+        out = flash_attention_ranked(q, kt[1], vt[1], k_off=k_off[1], q_off=q_off, causal=True, state=st)
+        _close(out, want, atol=1e-6)
+
+
+def test_union_ref_refuses_a_gap():
+    q = torch.zeros(1, 1, 1, 4, 2)
+    kv = [torch.zeros(1, 1, 1, 4, 2)] * 2
+    with pytest.raises(ValueError, match="not contiguous"):
+        ref.flash_attention_union_ref(q, kv, kv, q_off=(8,), k_offs=[(8,), (6,)], causal=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t,q,p", [(6, 16, 8), (3, 64, 64)])
+def test_ssd_intra_chunk_plain_vs_ref(dtype, t, q, p):
+    """The intra-chunk term (the wrapper on CPU tensors: its plain version)
+    against the einsum of ``(CB ∘ exp(cum_i − cum_j) ∘ [i ≥ j]) @ xdt``."""
+    dt = getattr(torch, dtype)
+    cum = _t(-np.cumsum(np.abs(_rand(50, t, q)) * 0.7, axis=1)).to(dt)
+    cb, xdt = _t(_rand(51, t, q, q, scale=0.3)).to(dt), _t(_rand(52, t, q, p, scale=0.5)).to(dt)
+    want = ref.ssd_intra_chunk_ref(cum, cb, xdt)
+    rtol = RTOL if dtype == "float32" else 1e-2
+    for got in (K.ssd_intra_chunk_plain(cum, cb, xdt), K.ssd_intra_chunk(cum, cb, xdt)):
+        assert got.dtype == dt
+        _close(got.float(), want.float(), rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("nch", [1, 2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gemm_rs_bf16_wire_plain_vs_ref(order, nch, dtype):
+    """GEMM+RS with bf16 partials under float32 accumulation: the plain
+    version against the oracle that rounds each segment's partial once per
+    hop, in the hop order of the plan's tables."""
+    dt = getattr(torch, dtype)
+    wire = QuantSpec(wire_dtype="bfloat16")
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order), quant=wire)
+    plan, _ = launch_plan(torch.empty(4, 1, 16, 20), torch.empty(4, 20, 48), ch)
+    assert plan.flow_dtype == "bfloat16"
+    rng = np.random.default_rng(53)
+    # integers: every float32 product and sum is exact, so the two sides round at the same places
+    x, w = (_t(rng.integers(-8, 9, size=sh).astype(np.float32)).to(dt) for sh in ((4, 3, 16, 20), (4, 20, 48)))
+    want = ref.gemm_rs_wire_ref(x, w, plan.rs_seg_tables(), torch.bfloat16)
+    got = K.gemm_rs_plain(x, w, channel=ch)
+    assert torch.equal(got, want)
+    assert not torch.equal(want, ref.gemm_rs_ref(x, w))  # the wire rounds: the exact sum differs
+    x, w = _t(_rand(54, 4, 3, 16, 20)).to(dt), _t(_rand(55, 4, 20, 48)).to(dt)
+    want = ref.gemm_rs_wire_ref(x, w, plan.rs_seg_tables(), torch.bfloat16)
+    _close(K.gemm_rs_plain(x, w, channel=ch).float(), want.float(), rtol=2e-2)
 
 
 def test_ops_names():
