@@ -157,36 +157,50 @@ non-zero (no phase catches its own failure):
               double ring on the grouped kernel against the dense oracle,
               E 16, top-2, 512 tokens: 1e-4, 16 grouped launches) on the
               card.
-  11d. dp     data-parallel training over the data axes (run after
-              train_seam): DP_REPLICAS replica processes of the W = 4 model
-              group on the one card (``launch/train.train(data=)``: spawned,
-              joined by a gloo ``DistWorld``, the collectives' staging the
-              ``GLOO_CUDA_STAGING`` table, each printed with the bytes it
-              staged through host memory).  (a) smollm-360m at full depth
-              and width, bf16, a global batch of TRAIN_BATCH x TRAIN_SEQ
-              (TRAIN_BATCH / DP_REPLICAS rows a replica), DP_STEPS AdamW
-              steps after a DP_D1_STEPS-step run at D = 1 on the same
-              batches: every step's launches per replica held to
-              the train phase's (128 / 128 / 32 / 1), the ce's fall held as
-              the train phase holds it, step ms (CUDA events, median after
-              TRAIN_WARMUP) at D = 2 and D = 1, the data transport's ms
+  11d. dp     ZeRO-3 data-parallel training over the data axes (run
+              after train_seam): DP_REPLICAS replica processes of the W = 4
+              model group on the one card (``launch/train.train(data=)``:
+              spawned, joined by a gloo ``DistWorld``, the collectives'
+              staging the ``GLOO_CUDA_STAGING`` table, each printed with the
+              bytes it staged through host memory), each storing only its
+              block of every parameter and moment the data axes split and
+              gathering each layer at its use (``use_gather``).
+              smollm-360m at full depth and width, bf16, a global batch of
+              TRAIN_BATCH x TRAIN_SEQ (TRAIN_BATCH / DP_REPLICAS rows a
+              replica): a DP_D1_STEPS-step run at D = 1, then DP_STEPS
+              AdamW steps at D = 2 at remat "none" and DP_REMAT_STEPS at
+              remat DP_REMAT, on the same batches.  (a) every step's
+              launches per replica held to the train phase's (128 / 128 /
+              32 / 1 at "none"; under DP_REMAT each layer's forward twice,
+              ``paper_e2e.expected_launches``: 192 / 192 / 64 / 1); (b) the
+              ce's fall over the DP_STEPS steps held as the train phase
+              holds it; (c) every bf16 step's payload on the data transport
+              against ``launch/roofline.data_axis_bytes`` of the leaves the
+              step gathers at the uses it makes (``launch/dryrun.data_leaves``:
+              once a pass, a remat'd layer's again in the backward),
+              all-gather, reduce-scatter and all-reduce each exactly; (d)
+              each process's device memory after placing its parameter and
+              moment blocks (the bytes its tensors requested, held;
+              ``memory_allocated``, which rounds each allocator block up,
+              printed) against ``launch/dryrun``'s
+              arguments of one replica's model group on the (data
+              DP_REPLICAS, model 4) mesh, within CAL_ARG_RTOL; (e) step ms
+              (CUDA events, median after TRAIN_WARMUP) at D = 2 at both
+              remats and at D = 1, the data transport's ms
               (``train(time_data=True)``: the device drained around each
-              collective, in this run only) and each process's peak memory
-              recorded; (b) float32 at
-              DP_F32_LAYERS layers, full width: the D = 2 step's loss (the
+              collective, in the D = 2 runs only) and each process's peak
+              memory at both remats recorded; (f) float32 at DP_F32_LAYERS
+              layers, full width, at both remats: the D = 2 step's loss (the
               logits' bound), each gradient (the replicas' blocks joined,
               GRAD_RTOL of the leaf's max) and each update (UPDATE_RTOL, as
-              the train phase holds them) against the D = 1 step on the
-              same global batch; (c) every bf16 step's payload on the data
-              transport against ``launch/roofline.data_axis_bytes`` of the
-              trainable leaves (one gather a step), reduce-scatter,
-              all-reduce and all-gather each exactly; (d) ``psum_compressed``
-              over the data group: |new_err| <= scale / 2 elementwise, its
-              mean against an exact float32 all-reduce within what int8
-              codes at the largest replica's scale allow,
-              sum_r (127 (s_max - s_r) + s_r / 2) / D; and a ring permute
-              over the group (the collective the table stages through host
-              memory) delivers the peer's tensor bitwise.
+              the train phase holds them) against the D = 1 step on the same
+              global batch; (g) ``psum_compressed`` over the data group:
+              |new_err| <= scale / 2 elementwise, its mean against an exact
+              float32 all-reduce within what int8 codes at the largest
+              replica's scale allow, sum_r (127 (s_max - s_r) + s_r / 2) /
+              D; and a ring permute over the group (the collective the
+              table stages through host memory) delivers the peer's tensor
+              bitwise.
   12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
               published widths, W = 4, 8 x 256 tokens a step (the grouped
               expert GEMM in the forward and, on the transposed weights, for
@@ -581,8 +595,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 30
 TRAIN_WARMUP = 3  # steps left out of the median step time
 # the dp phase: replica processes on the one card, their bf16 steps (at 10 the ce fell 0.17, short of the train
 # phase's criterion's 0.2; each step's gloo transport takes ~2 s), the steps of the D = 1 run before them, and the
-# depth of the float32 check
+# depth of the float32 check; the remat policy of its second D = 2 run and that run's steps
 DP_REPLICAS, DP_STEPS, DP_D1_STEPS, DP_F32_LAYERS = 2, 20, 10, 2
+DP_REMAT, DP_REMAT_STEPS = "dots", 5
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_AT = 2, 3  # (c): depth of the resume check, the step it saves at
 # the train_seam phase: (a) bf16 AdamW steps of each form, in turns (the first of each left out of the median);
 # (b), (c) the depth of the float32 steps at smollm-360m's width
@@ -2870,19 +2885,25 @@ def _seam_step_f32(cfg, world, batch) -> dict:
     return out
 
 
-def _dp_worker(data, cfg, layers_f32: int, batch_rows: int, seq: int) -> dict:
-    """One replica process of the dp phase's (b) and (d) (imported by name
-    from this module by ``launch/train.run_replicas``'s processes): the
-    float32 data-parallel step at ``layers_f32`` layers on this replica's
-    rows of a ``batch_rows`` x ``seq`` global batch, its gradient blocks and
-    (rank 0) the parameters after it; then ``psum_compressed`` of a seeded
-    gradient over the group and an exact float32 all-reduce of the same,
-    with the transport's staging and staged bytes."""
+def _dp_worker(data, cfg, runs, kw: dict, layers_f32: int, batch_rows: int, seq: int, remats) -> dict:
+    """One replica process of the dp phase (imported by name from this
+    module by ``launch/train.run_replicas``'s processes): the bf16 ZeRO-3
+    runs ``runs`` ((remat, steps) pairs), each the train CLI's replica loop
+    (``launch/train.train_replica``, what ``train(data=D)`` runs in each of
+    its processes; ``kw`` its keywords but ``remat`` / ``steps``) with the
+    data transport timed; then at each remat policy of ``remats`` the
+    float32 ZeRO-3 step at ``layers_f32`` layers from this replica's blocks
+    on its rows of a ``batch_rows`` x ``seq`` global batch, its gradient
+    blocks and (rank 0) the parameters after it, gathered whole; then
+    ``psum_compressed`` of a seeded gradient over the group and an exact
+    float32 all-reduce of the same, with the transport's staging and staged
+    bytes."""
     import dataclasses
 
     import torch
 
     from repro_torch.backend.mesh import World
+    from repro_torch.launch import train as train_cli
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.mesh import make_dev_mesh
     from repro_torch.models import lm
@@ -2890,25 +2911,39 @@ def _dp_worker(data, cfg, layers_f32: int, batch_rows: int, seq: int) -> dict:
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
     from repro_torch.training.compression import psum_compressed
     from repro_torch.training.optimizer import tree_map
-    from repro_torch.training.steps import data_blocks, data_parallel_grads
+    from repro_torch.training.steps import data_blocks, data_parallel_grads, gather_blocks
 
     cut = dataclasses.replace(cfg, n_layers=layers_f32)
     world = World(WORLD, data.device)
     pc = ParallelContext(world=world, mesh_axes=make_dev_mesh(WORLD, data.size).axes, data=data)
-    p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
     pipe = SyntheticLM(vocab_size=cut.vocab_size, seq_len=seq, global_batch=batch_rows, n_hosts=data.size,
                        host_id=data.rank)  # fmt: skip
     local = pipe.host_batch()
     masks = lm.grad_masks(cut, pc)
-    loss, _, _, grads, gnorm = data_parallel_grads(lm, cut, pc, p32, local, grad_masks=masks)
-    step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), grad_masks=masks)
-    new, _, m = step(p32, init_opt_state(data_blocks(lm, cut, pc, lm.trainable(p32, cut))), local)
     host = lambda t: t.detach().cpu() if torch.is_tensor(t) else t  # noqa: E731
-    out = {"loss": loss.item(), "step_loss": m["loss"].item(), "grad_norm": gnorm.item(), "lr": m["lr"].item(),
-           "grads": tree_map(host, grads), "new": tree_map(host, lm.trainable(new, cut)) if data.rank == 0 else None,
-           "staging": dict(data.staging)}  # fmt: skip
-    del p32, grads, new
-    # (d) int8 error-feedback all-reduce of a [4096, 960] gradient (a smollm leaf's size) over the group
+    out = {"staging": dict(data.staging), "f32": {}, "bf16": {}}
+    for remat, steps in runs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["bf16"][remat] = train_cli.train_replica(data, ARCH, {**kw, "remat": remat, "steps": steps},
+                                                     keep_state=False)  # fmt: skip
+        out["bf16"][remat]["wall"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for remat in remats:
+        p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+        blocks = data_blocks(lm, cut, pc, lm.trainable(p32, cut))
+        del p32
+        loss, _, _, grads, gnorm = data_parallel_grads(lm, cut, pc, blocks, local, remat_policy=remat,
+                                                       grad_masks=masks)  # fmt: skip
+        step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), remat_policy=remat,
+                               grad_masks=masks)  # fmt: skip
+        new, _, m = step(lm.with_tied(blocks, cut), init_opt_state(blocks), local)
+        whole = gather_blocks(lm, cut, pc, lm.trainable(new, cut))
+        out["f32"][remat] = {"loss": loss.item(), "step_loss": m["loss"].item(), "grad_norm": gnorm.item(),
+                             "lr": m["lr"].item(), "grads": tree_map(host, grads),
+                             "new": tree_map(host, whole) if data.rank == 0 else None}  # fmt: skip
+        del blocks, grads, new, whole
+    # (g) int8 error-feedback all-reduce of a [4096, 960] gradient (a smollm leaf's size) over the group
     gen = torch.Generator(device=data.device).manual_seed(100 + data.rank)
     g = torch.randn((4096, 960), generator=gen, device=data.device)
     err = torch.randn((4096, 960), generator=gen, device=data.device) * 1e-3
@@ -2932,25 +2967,24 @@ def _dp_worker(data, cfg, layers_f32: int, batch_rows: int, seq: int) -> dict:
     return out
 
 
-def _dp_expected_bytes(cfg, replicas: int, dtype_name: str = "bfloat16") -> dict:
-    """``launch/roofline.data_axis_bytes`` of a step of ``cfg`` in that dtype: every
-    trainable leaf gathered once, on the (pod 1, data ``replicas``, model 1)
-    mesh (one replica process holds its whole model group)."""
+def _dp_expected_bytes(cfg, replicas: int, remat: str, dtype_name: str = "bfloat16") -> dict:
+    """``launch/roofline.data_axis_bytes`` of a ZeRO-3 step of ``cfg`` in
+    that dtype under ``remat``: the leaves the step gathers at the uses it
+    makes (``launch/dryrun.data_leaves``: each once a pass, a remat'd
+    layer's again in the backward), on the (pod 1, data ``replicas``, model
+    1) mesh (one replica process holds its whole model group)."""
     import torch
 
+    from repro_torch.launch import dryrun
     from repro_torch.launch import roofline as R
     from repro_torch.launch import specs as S
     from repro_torch.launch.mesh import make_dev_mesh
-    from repro_torch.models import lm
-    from repro_torch.parallel.sharding import map_specs
 
     pc = make_dev_mesh(WORLD, replicas).context("meta")
     params, pspecs = S.abstract_params(cfg, pc, getattr(torch, dtype_name))
-    leaves = []
-    map_specs(lambda s, t: leaves.append((tuple(t.shape), t.dtype, s, 1, True)), lm.trainable(pspecs, cfg),
-              lm.trainable(params, cfg))  # fmt: skip
+    leaves = dryrun.data_leaves(cfg, params, pspecs, train=True, remat=remat)
     mesh = {"pod": 1, "data": replicas, "model": 1}
-    return R.data_axis_bytes(leaves, mesh, pc.dp_axes, train=True, recompute=False)[1]
+    return R.data_axis_bytes(leaves, mesh, pc.dp_axes, train=True, recompute=remat != "none")[1]
 
 
 def _median(xs) -> float:
@@ -2959,20 +2993,70 @@ def _median(xs) -> float:
     return xs[n // 2] if n % 2 else (xs[n // 2 - 1] + xs[n // 2]) / 2
 
 
+def _dp_run(cfg, d2: dict, remat: str, steps: int, placed_pred: int) -> dict:
+    """(a)-(e) of one bf16 ZeRO-3 run at D = DP_REPLICAS under ``remat``:
+    launches per replica per step, bytes a step against the model, each
+    replica's placed parameters and moments against the plan; the record."""
+    from repro_torch.backend.mesh import CommCounter
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.launch import roofline as R
+
+    hist = d2["history"]
+    expect = paper_e2e.expected_launches(cfg, "overlap", remat)
+    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    totals = [r["launches"] for r in d2["replicas"]]
+    print(f"[dp] remat {remat!r}: {DP_REPLICAS} replica processes x W={WORLD} of {ARCH} on one card, bf16, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step ({TRAIN_BATCH // DP_REPLICAS} rows a replica), ZeRO-3: launches "
+          f"per replica per step {hist[0]['launches']} (held exactly: {expect}, every step of rank 0; each replica's "
+          f"totals over {steps} steps {totals})")  # fmt: skip
+    if bad or any(t != {k: v * steps for k, v in expect.items()} for t in totals):
+        raise SystemExit(f"chip_smoke: the data-parallel steps (remat {remat}) launched {bad[:3]} / {totals} "
+                         f"(expected {expect})")  # fmt: skip
+    want = _dp_expected_bytes(cfg, DP_REPLICAS, remat)
+    got = []
+    for r in hist:
+        counter = CommCounter()
+        for kind, nbytes in r["data_bytes"].items():
+            counter.add(kind, nbytes, DP_REPLICAS)
+        got.append(R.collective_bytes(counter)[1])
+    print(f"[dp] remat {remat!r}: data-axis link bytes a step, counted {got[0]} against "
+          f"launch/roofline.data_axis_bytes {want} at the step's uses, recompute={remat != 'none'} (held exactly, "
+          f"every step; payload {hist[0]['data_bytes']})")  # fmt: skip
+    if any(g != want for g in got):
+        raise SystemExit(f"chip_smoke: the data transport moved {got[:2]} (remat {remat}), the specs' model says {want}")
+    placed = [r["placed_bytes"]["requested"] for r in d2["replicas"]]
+    alloc = [r["placed_bytes"]["allocated"] for r in d2["replicas"]]
+    errs = [abs(placed_pred - p) / p for p in placed]
+    print(f"[dp] remat {remat!r}: device memory each replica's parameter and moment blocks took (from before the "
+          f"init to after the placement), the bytes its tensors requested {placed} B (memory_allocated {alloc} B: the caching allocator's blocks, each "
+          f"rounded up) against launch/dryrun's arguments of one replica's model group on the (data {DP_REPLICAS}, "
+          f"model {WORLD}) mesh {placed_pred} B (rel err {max(errs):.3e}, bound {CAL_ARG_RTOL:g}; memory_allocated "
+          f"{max(abs(placed_pred - a) / a for a in alloc):.3e})")  # fmt: skip
+    if max(errs) > CAL_ARG_RTOL:
+        raise SystemExit(f"chip_smoke: a replica's placed state {placed} misses the plan's {placed_pred}")
+    ce = [r["ce"] for r in hist]
+    if not all(map(math.isfinite, ce)):
+        raise SystemExit(f"chip_smoke: the data-parallel bf16 ce (remat {remat}) is not finite: {ce}")
+    return {"ce": ce, "step_ms": [r["ms"] for r in hist], "data_ms": [r["data_ms"] for r in hist],
+            "peak_bytes": [r["peak_bytes"] for r in d2["replicas"]], "placed_bytes": placed, "placed_allocated": alloc,
+            "placed_predicted": placed_pred, "placed_rel_err": max(errs), "bytes": {"counted": got[0],
+            "modelled": want, "payload": hist[0]["data_bytes"]}, "per_step": expect, "launches_by_replica": totals,
+            "counts": {k: sum(t[k] for t in totals) for k in totals[0]}}  # fmt: skip
+
+
 def phase_dp() -> dict:
     """Data-parallel training on the one card (module docstring, phase 11d)."""
     import dataclasses
-    import math
 
     import torch
 
     import chip_smoke as this  # the replica processes import the worker by this module's name, not __main__
-    from repro_torch.backend.mesh import CommCounter, World
-    from repro_torch.benchmarks import paper_e2e
-    from repro_torch.configs import get_config
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import Shape, get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch import roofline as R
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_dev_mesh
     from repro_torch.models import lm
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
@@ -2982,111 +3066,108 @@ def phase_dp() -> dict:
     cfg = get_config(ARCH)
     out = {}
     torch.cuda.empty_cache()
-    # (a) D = 1, then D = 2 (each run from the same seed over the same global batches); the D = 2 run times its
-    # data transport
-    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD, device="cuda", log_every=10)
-    runs, peaks = [], []
-    for d, steps in ((1, DP_D1_STEPS), (DP_REPLICAS, DP_STEPS)):
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run = train_cli.train(ARCH, steps=steps, data=d, time_data=d > 1, **kw)
-        wall = time.perf_counter() - t0
-        peak = [r["peak_bytes"] for r in run["replicas"]] if d > 1 else [torch.cuda.max_memory_allocated()]
-        runs.append((d, {k: run[k] for k in ("history", "replicas") if k in run}, wall))  # not the state
-        peaks.append(peak)
-        del run
-        torch.cuda.empty_cache()
-    (_, d1, w1), (_, d2, w2) = runs
-    hist = d2["history"]
-    expect = paper_e2e.expected_launches(cfg, "overlap", "none")
-    bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
-    totals = [r["launches"] for r in d2["replicas"]]
-    print(f"[dp] {DP_REPLICAS} replica processes x W={WORLD} of {ARCH} on one card, bf16, {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens a step ({TRAIN_BATCH // DP_REPLICAS} rows a replica): launches per replica per step "
-          f"{hist[0]['launches']} (held exactly, every step of rank 0; each replica's totals {totals})")  # fmt: skip
-    if bad or any(t != {k: v * DP_STEPS for k, v in expect.items()} for t in totals):
-        raise SystemExit(f"chip_smoke: the data-parallel steps launched {bad[:3]} / {totals} (expected {expect})")
-    ce = [r["ce"] for r in hist]
-    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
-    ms2 = _median([r["ms"] for r in hist[TRAIN_WARMUP:]])
-    data_ms = _median([r["data_ms"] for r in hist[TRAIN_WARMUP:]])
-    ms1 = _median([r["ms"] for r in d1["history"][TRAIN_WARMUP:]])
-    print(f"[dp] bf16 ce over {DP_STEPS} steps at D={DP_REPLICAS}: first 5 {first:.4f}, last 5 {last:.4f} (held: "
-          f"more than 0.2 lower); step ms median D={DP_REPLICAS} {ms2:.2f} (of which the data transport "
-          f"{data_ms:.2f}, host clock, device drained), D=1 {ms1:.2f} (CUDA events, steps {TRAIN_WARMUP}+); "
-          f"tokens/s D={DP_REPLICAS} {TRAIN_BATCH * TRAIN_SEQ / ms2 * 1e3:.0f}, D=1 "
-          f"{TRAIN_BATCH * TRAIN_SEQ / ms1 * 1e3:.0f}; peak memory per process D={DP_REPLICAS} "
-          f"{[round(b / 2**20) for b in peaks[1]]} MiB, D=1 {round(peaks[0][0] / 2**20)} MiB; walls D=1 {w1:.1f} / "
-          f"D={DP_REPLICAS} {w2:.1f} s (spawn, build and init included)")  # fmt: skip
-    if not (all(map(math.isfinite, ce)) and last < first - 0.2):
-        raise SystemExit(f"chip_smoke: the data-parallel bf16 loss did not fall: {first} -> {last}")
-    out["bf16"] = {"ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": ms2, "median_data_ms": data_ms,
-                   "d1_median_step_ms": ms1, "peak_bytes": peaks[1], "d1_peak_bytes": peaks[0][0],
-                   "walls_s": [w1, w2], "counts": {k: sum(t[k] for t in totals) for k in totals[0]},
-                   "per_step": expect, "launches_by_replica": totals}  # fmt: skip
-    # (c) the data transport's payload of every step against the model of the specs
-    want = _dp_expected_bytes(cfg, DP_REPLICAS)
-    got = []
-    for r in hist:
-        counter = CommCounter()
-        for kind, nbytes in r["data_bytes"].items():
-            counter.add(kind, nbytes, DP_REPLICAS)
-        got.append(R.collective_bytes(counter)[1])
-    print(f"[dp] data-axis link bytes a step, counted {got[0]} against launch/roofline.data_axis_bytes {want} (held "
-          f"exactly, every step; payload {hist[0]['data_bytes']})")  # fmt: skip
-    if any(g != want for g in got):
-        raise SystemExit(f"chip_smoke: the data transport moved {got[:2]}, the specs' model says {want}")
-    out["bytes"] = {"counted": got[0], "modelled": want, "payload": hist[0]["data_bytes"]}
-    del d1, d2, hist
+    plan = dryrun.run_cell(ARCH, Shape("train_8x256", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                           mesh=make_dev_mesh(WORLD, DP_REPLICAS), remat="none", verbose=False, extrapolate=False)
+    args_world = plan["memory"]["world"]["arguments"]
+    placed_pred = args_world["params"] + args_world["opt_state"]
+    # (a) D = 1 (in this process), then in one spawn of DP_REPLICAS processes: D = 2 at remat "none" and at
+    # DP_REMAT (each run from the same seed over the same global batches, its data transport timed), (f) and (g)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD, log_every=10)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_cli.train(ARCH, steps=DP_D1_STEPS, device="cuda", **kw)
+    d1 = {"history": run["history"], "wall": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated()}
+    del run
     torch.cuda.empty_cache()
-
-    # (b) float32 at DP_F32_LAYERS layers: D = 2 against D = 1 on the same global batch
+    remats = ("none", DP_REMAT)
+    replica_kw = dict(kw, reduce=False, layers=None, mode="overlap", ckpt_dir=None, ckpt_every=0, lr=3e-4,
+                      resume=False, time_data=True)  # the train CLI's defaults but the timed transport
+    t0 = time.perf_counter()
     res = train_cli.run_replicas(this._dp_worker, DP_REPLICAS, device="cuda",
                                  staging=train_cli.staging_for("gloo", "cuda"),
-                                 args=(cfg, DP_F32_LAYERS, TRAIN_BATCH, TRAIN_SEQ))  # fmt: skip
+                                 args=(cfg, (("none", DP_STEPS), (DP_REMAT, DP_REMAT_STEPS)), replica_kw,
+                                       DP_F32_LAYERS, TRAIN_BATCH, TRAIN_SEQ, remats))  # fmt: skip
+    spawn_wall = time.perf_counter() - t0
+    runs = {remat: {"history": res[0]["bf16"][remat]["history"], "wall": res[0]["bf16"][remat]["wall"],
+                    "replicas": [r["bf16"][remat] for r in res]} for remat in remats}  # fmt: skip
+    out["bf16"] = _dp_run(cfg, runs["none"], "none", DP_STEPS, placed_pred)
+    out["bf16_remat"] = _dp_run(cfg, runs[DP_REMAT], DP_REMAT, DP_REMAT_STEPS, placed_pred)
+    ce = out["bf16"]["ce"]
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    hist = runs["none"]["history"]
+    ms2, data_ms = (_median([r[k] for r in hist[TRAIN_WARMUP:]]) for k in ("ms", "data_ms"))
+    ms1 = _median([r["ms"] for r in d1["history"][TRAIN_WARMUP:]])
+    hr = runs[DP_REMAT]["history"]
+    ms_r, data_r = (_median([r[k] for r in hr[TRAIN_WARMUP:]]) for k in ("ms", "data_ms"))
+    mib = lambda b: round(b / 2**20)  # noqa: E731
+    print(f"[dp] bf16 ce over {DP_STEPS} steps at D={DP_REPLICAS}: first 5 {first:.4f}, last 5 {last:.4f} (held: "
+          f"more than 0.2 lower); step ms median D={DP_REPLICAS} {ms2:.2f} (of which the data transport "
+          f"{data_ms:.2f}, host clock, device drained), remat {DP_REMAT!r} {ms_r:.2f} ({data_r:.2f}; steps "
+          f"{TRAIN_WARMUP}+ of {DP_REMAT_STEPS}), D=1 {ms1:.2f} (CUDA events, steps {TRAIN_WARMUP}+); tokens/s "
+          f"D={DP_REPLICAS} {TRAIN_BATCH * TRAIN_SEQ / ms2 * 1e3:.0f}, D=1 {TRAIN_BATCH * TRAIN_SEQ / ms1 * 1e3:.0f}; "
+          f"peak memory per process D={DP_REPLICAS} remat 'none' {[mib(b) for b in out['bf16']['peak_bytes']]} MiB, "
+          f"remat {DP_REMAT!r} {[mib(b) for b in out['bf16_remat']['peak_bytes']]} MiB, D=1 {mib(d1['peak'])} MiB; "
+          f"walls D=1 {d1['wall']:.1f} s (build and init included) / D={DP_REPLICAS} {runs['none']['wall']:.1f} / "
+          f"remat {runs[DP_REMAT]['wall']:.1f} s (init included); the {DP_REPLICAS} processes, from their spawn to "
+          f"the end of (g), {spawn_wall:.1f} s")  # fmt: skip
+    if not last < first - 0.2:
+        raise SystemExit(f"chip_smoke: the data-parallel bf16 loss did not fall: {first} -> {last}")
+    out["bf16"].update(median_step_ms=ms2, median_data_ms=data_ms, d1_median_step_ms=ms1, d1_peak_bytes=d1["peak"],
+                       walls_s=[d1["wall"], runs["none"]["wall"], runs[DP_REMAT]["wall"], spawn_wall])  # fmt: skip
+    out["bf16_remat"].update(median_step_ms=ms_r, median_data_ms=data_r)
+    del runs, d1, hist, hr
+    torch.cuda.empty_cache()
+
+    # (f) float32 at DP_F32_LAYERS layers, at both remat settings: D = 2 against D = 1 on the same global batch
     cut = dataclasses.replace(cfg, n_layers=DP_F32_LAYERS)
     world = World(WORLD, "cuda")
     pc = ParallelContext(world=world)
-    p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
     batch = SyntheticLM(vocab_size=cut.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
     masks = lm.grad_masks(cut, pc)
-    loss1, _, _, g1 = loss_and_grads(lm, cut, pc, p32, batch)
-    g1 = apply_masks(lm.sync_grads(g1, cut, pc), masks)
-    step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), grad_masks=masks)
-    new1, _, m1 = step(p32, init_opt_state(lm.trainable(p32, cut)), batch)
-    _hold_logits(f"[dp] f32 loss, one step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers)",
-                 torch.tensor([res[0]["loss"], res[0]["step_loss"]]), torch.stack([loss1, m1["loss"]]).cpu(),
-                 pair=(f"D={DP_REPLICAS}", "D=1"))  # fmt: skip
-    g2 = this._dp_join(cut, [r["grads"] for r in res])
-    worst, bad = 0.0, []
-    for i, (a, b) in enumerate(zip(tree_leaves(g2), tree_leaves(g1))):
-        b = b.cpu()
-        rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
-        worst = max(worst, rel)
-        if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
-            bad.append((i, tuple(a.shape), rel))
-    lr = m1["lr"].item()
-    worst_u, small = 0.0, []
-    for i, (a, b, p, g) in enumerate(zip(tree_leaves(res[0]["new"]), tree_leaves(lm.trainable(new1, cut)),
-                                         tree_leaves(lm.trainable(p32, cut)), tree_leaves(g1))):  # fmt: skip
-        p, g = p.cpu(), g.cpu()
-        u2, u1 = a - p, b.cpu() - p
-        top = u1.abs().max().item()
-        sure = g.abs() > GRAD_RTOL * g.abs().max()
-        rel = ((u2 - u1).abs() * sure).max().item() / max(top, 1e-30)
-        worst_u = max(worst_u, rel)
-        if not (torch.isfinite(u2).all() and rel <= UPDATE_RTOL and top >= lr / 2):
-            small.append((i, tuple(a.shape), rel, top))
-    print(f"[dp] f32 step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} "
-          f"tokens): worst gradient max|diff| / max|D=1 leaf| {worst:.3e} (bound {GRAD_RTOL:g}), worst update "
-          f"{worst_u:.3e} (bound {UPDATE_RTOL:g}, where the gradient's sign is held); grad_norm "
-          f"{res[0]['grad_norm']:.6f} against {m1['grad_norm'].item():.6f}")  # fmt: skip
-    if bad or small:
-        raise SystemExit(f"chip_smoke: the f32 D={DP_REPLICAS} step disagrees with D=1: {bad[:4]} {small[:4]}")
-    out["f32"] = {"grad_rel_err": worst, "update_rel_err": worst_u, "loss": [res[0]["loss"], loss1.item()]}
-    del p32, g1, g2, new1
-    torch.cuda.empty_cache()
-    # (d) psum_compressed over the data group
+    out["f32"] = {}
+    for remat in remats:
+        got = [r["f32"][remat] for r in res]
+        p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+        loss1, _, _, g1 = loss_and_grads(lm, cut, pc, p32, batch, remat_policy=remat)
+        g1 = apply_masks(lm.sync_grads(g1, cut, pc), masks)
+        step = make_train_step(lm, cut, pc, AdamWConfig(total_steps=TRAIN_STEPS, warmup_steps=5), remat_policy=remat,
+                               grad_masks=masks)  # fmt: skip
+        new1, _, m1 = step(p32, init_opt_state(lm.trainable(p32, cut)), batch)
+        _hold_logits(f"[dp] f32 loss, one step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers, remat {remat!r})",
+                     torch.tensor([got[0]["loss"], got[0]["step_loss"]]), torch.stack([loss1, m1["loss"]]).cpu(),
+                     pair=(f"D={DP_REPLICAS}", "D=1"))  # fmt: skip
+        g2 = this._dp_join(cut, [r["grads"] for r in got])
+        worst, bad = 0.0, []
+        for i, (a, b) in enumerate(zip(tree_leaves(g2), tree_leaves(g1))):
+            b = b.cpu()
+            rel = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+            worst = max(worst, rel)
+            if not (torch.isfinite(a).all() and rel <= GRAD_RTOL):
+                bad.append((i, tuple(a.shape), rel))
+        lr = m1["lr"].item()
+        p0 = lm.trainable(lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32), cut)
+        worst_u, small = 0.0, []
+        for i, (a, b, p, g) in enumerate(zip(tree_leaves(got[0]["new"]), tree_leaves(lm.trainable(new1, cut)),
+                                             tree_leaves(p0), tree_leaves(g1))):  # fmt: skip
+            p, g = p.cpu(), g.cpu()
+            u2, u1 = a - p, b.cpu() - p
+            top = u1.abs().max().item()
+            sure = g.abs() > GRAD_RTOL * g.abs().max()
+            rel = ((u2 - u1).abs() * sure).max().item() / max(top, 1e-30)
+            worst_u = max(worst_u, rel)
+            if not (torch.isfinite(u2).all() and rel <= UPDATE_RTOL and top >= lr / 2):
+                small.append((i, tuple(a.shape), rel, top))
+        print(f"[dp] f32 ZeRO-3 step at D={DP_REPLICAS} against D=1 ({DP_F32_LAYERS} layers, {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens, remat {remat!r}): worst gradient max|diff| / max|D=1 leaf| {worst:.3e} (bound "
+              f"{GRAD_RTOL:g}), worst update {worst_u:.3e} (bound {UPDATE_RTOL:g}, where the gradient's sign is held); "
+              f"grad_norm {got[0]['grad_norm']:.6f} against {m1['grad_norm'].item():.6f}")  # fmt: skip
+        if bad or small:
+            raise SystemExit(f"chip_smoke: the f32 D={DP_REPLICAS} step (remat {remat}) disagrees with D=1: "
+                             f"{bad[:4]} {small[:4]}")  # fmt: skip
+        out["f32"][remat] = {"grad_rel_err": worst, "update_rel_err": worst_u, "loss": [got[0]["loss"], loss1.item()]}
+        del p32, p0, g1, g2, new1
+        torch.cuda.empty_cache()
+    # (g) psum_compressed over the data group
     comp = [r["compressed"] for r in res]
     half = max(c["max_new_err"] / (c["scale"] / 2) for c in comp)
     held = all(c["max_new_err"] <= c["scale"] / 2 + 1e-6 for c in comp)  # the quant phase's float32 slack
@@ -3110,7 +3191,7 @@ def phase_dp() -> dict:
         raise SystemExit(f"chip_smoke: psum_compressed over the data group: {half} / {err} > {bound}")
     out["compressed"] = {"new_err_over_half_scale": half, "err_vs_exact": err, "bound": bound}
     out["staging"] = res[0]["staging"]
-    out["counts"] = out["bf16"]["counts"]
+    out["counts"] = {k: out["bf16"]["counts"][k] + out["bf16_remat"]["counts"][k] for k in out["bf16"]["counts"]}
     return out
 
 

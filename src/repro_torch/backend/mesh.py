@@ -302,10 +302,11 @@ class DistWorld:
 
     # ---- layout -------------------------------------------------------------
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """This rank's block of a global tensor along ``dim`` (contiguous; no traffic)."""
+        """This rank's block of a global tensor along ``dim`` (a contiguous copy,
+        so the block keeps nothing of ``x`` alive; no traffic)."""
         if x.shape[dim] % self.size:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {self.size} replicas")
-        return torch.chunk(x, self.size, dim=dim)[self.rank].contiguous()
+        return torch.chunk(x, self.size, dim=dim)[self.rank].clone(memory_format=torch.contiguous_format)
 
     def unshard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """Inverse of :meth:`shard`: every rank's block concatenated along ``dim``."""

@@ -60,7 +60,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves as _pytree_leaves
 from torch.utils.flop_counter import flop_registry
 
-__all__ = ["run_cell", "run_grid", "StepMeter", "main", "DEFAULT_OUT"]
+__all__ = ["run_cell", "run_grid", "StepMeter", "main", "DEFAULT_OUT", "data_leaves"]
 
 DEFAULT_OUT = "results/dryrun_torch"
 META = torch.device("meta")
@@ -243,17 +243,35 @@ def _arguments(cfg, shape, pc) -> dict:
     return {"per_device": dev, "world": world, "params": params, "pspecs": pspecs}
 
 
-def _data_leaves(cfg, params, pspecs, mod) -> list:
-    """(shape, dtype, spec, uses, trainable) of every parameter leaf."""
+def data_leaves(cfg, params, pspecs, *, train: bool, remat: str = "none", fuse_seams: bool = False) -> list:
+    """(shape, dtype, spec, uses, trainable, regathered) of every parameter
+    leaf as the port's step gathers it over the data axes
+    (``ParallelContext.use_gather``): each once a forward, at its layer's use
+    (the embedding and a shared mixer once a pass, for all their reads; a
+    train step's forward reads only the trainable tree, a tied head from the
+    gathered embedding), and again in the backward where ``remat`` other
+    than "none" recomputes its layer (every layer; with ``fuse_seams`` the
+    scanned units' only, as ``models/lm.forward`` checkpoints them); the
+    leaves outside the layers are not recomputed."""
+    from repro_torch.launch import specs as S
     from repro_torch.models import lm
     from repro_torch.parallel.sharding import map_specs
 
+    mod = S.model_module(cfg)
     trainable = mod.trainable(params, cfg)
+    tree = trainable if train else params
+    redo = set()  # the (stack, index) of every layer the backward recomputes
+    if remat != "none" and cfg.encoder_layers:
+        redo = {("enc_layers", i) for i in range(cfg.encoder_layers)} | {("dec_layers", i) for i in range(cfg.n_layers)}
+    elif remat != "none":
+        k0, period, n_units, _ = lm.scan_units(cfg)
+        redo = {("layers", i) for i in (range(k0, k0 + n_units * period) if fuse_seams else range(cfg.n_layers))}
     out = []
-    uses = {"shared_attn": sum(1 for d in lm.layer_plan(cfg) if d.shared)} if "shared_attn" in params else {}
-    for key in params:
-        map_specs(lambda s, t, k=key: out.append((tuple(t.shape), t.dtype, s, uses.get(k, 1), k in trainable)),
-                  pspecs[key], params[key])  # fmt: skip
+    for key in tree:
+        stack = isinstance(tree[key], list)
+        for i, (s, t) in enumerate(zip(pspecs[key], tree[key])) if stack else [(None, (pspecs[key], tree[key]))]:
+            map_specs(lambda sp, x, a=(key, i) in redo, k=key: out.append(
+                (tuple(x.shape), x.dtype, sp, 1, k in trainable, a)), s, t)  # fmt: skip
     return out
 
 
@@ -296,7 +314,6 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False, mode: str = "ove
 
     t0 = time.time()
     args = _arguments(cfg, shape, pc)
-    mod = S.model_module(cfg)
     t_lower = time.time() - t0
     t0 = time.time()
     n_units = _n_units(cfg)
@@ -331,9 +348,10 @@ def run_cell(arch: str, shape_name, *, multi_pod: bool = False, mode: str = "ove
     byts = extrap(c1["bytes"], c2["bytes"]) / w
     model_coll = extrap(c1["coll"], c2["coll"])
     kinds = {k: extrap(c1["kinds"].get(k, 0.0), c2["kinds"].get(k, 0.0)) for k in set(c1["kinds"]) | set(c2["kinds"])}
+    train = shape.kind == "train"
     data_coll, data_kinds = R.data_axis_bytes(
-        _data_leaves(cfg, args["params"], args["pspecs"], mod), pc.mesh_shape, pc.dp_axes,
-        train=shape.kind == "train", recompute=remat != "none",
+        data_leaves(cfg, args["params"], args["pspecs"], train=train, remat=remat, fuse_seams=pc.fuse_seams),
+        pc.mesh_shape, pc.dp_axes, train=train, recompute=remat != "none",
     )  # fmt: skip
     for k, v in data_kinds.items():
         kinds[k] = kinds.get(k, 0.0) + v

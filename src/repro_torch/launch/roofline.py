@@ -86,8 +86,10 @@ def data_axis_bytes(leaves: Iterable[tuple], mesh_axes: Mapping[str, int], dp_ax
                     recompute: bool) -> Tuple[float, Dict[str, float]]:  # fmt: skip
     """Per-device link bytes of the data axes for one step, from the specs.
 
-    ``leaves``: (shape, dtype, spec, uses, trainable) of every parameter
-    leaf; ``uses`` is how many times the forward reads it.  A leaf that the
+    ``leaves``: (shape, dtype, spec, uses, trainable[, regathered]) of
+    every parameter leaf; ``uses`` is how many times the forward gathers it,
+    ``regathered`` (default True) whether a recomputing backward runs those
+    gathers again (False for a leaf outside every remat'd body).  A leaf that the
     data axes split is all-gathered over them before each use (its payload
     the gathered block, weight (g-1)/g), again before each use the backward
     recomputes (``recompute``), and its gradient reduce-scattered back
@@ -98,11 +100,12 @@ def data_axis_bytes(leaves: Iterable[tuple], mesh_axes: Mapping[str, int], dp_ax
 
     g_all = math.prod(mesh_axes.get(a, 1) for a in dp_axes)
     kinds = {"all-gather": 0.0, "reduce-scatter": 0.0, "all-reduce": 0.0}
-    for shape, dtype, spec, uses, trainable in leaves:
+    for shape, dtype, spec, uses, trainable, *rest in leaves:
+        regathered = rest[0] if rest else True
         stored = per_device_bytes(shape, dtype, spec, mesh_axes)
         g = math.prod(mesh_axes.get(a, 1) for a in axes_of(spec) if a in dp_axes)
         if g > 1:
-            gathers = uses * (2 if (train and recompute) else 1)
+            gathers = uses * (2 if (train and recompute and regathered) else 1)
             kinds["all-gather"] += gathers * stored * g * _weight("all_gather", g)
             if train and trainable:
                 kinds["reduce-scatter"] += stored * _weight("reduce_scatter", g)

@@ -44,15 +44,18 @@ CUDA tensors of the card's replicas as
 through pinned host memory, the rest as they lie); both are printed.
 Replica r reads rows r B/D .. (r+1) B/D of each global batch of B
 (``SyntheticLM(n_hosts=D, host_id=r)``), and the step is
-``training.make_train_step``'s data-parallel form (moments sharded over
-the replicas).  The parent builds the kernel
+``training.make_train_step``'s data-parallel form, ZeRO-3: after init or
+restore each replica keeps only its block of every parameter and moment
+the data axes split, and the forward gathers each layer at its use.  The
+parent builds the kernel
 library before it spawns, so the replicas load it; rank 0 logs, returns the
 history (each step's record gains ``data_bytes``, the data transport's
 payload by kind, and ``data_ms``, its host time, which ``--time-data``
 measures by draining the device around each collective; None without
 it) and writes the
-checkpoints, whose moments it gathers first; a checkpoint restores at any
-D.  On the CPU:
+checkpoints, whose parameters and moments the replicas gather first
+(``training.steps.gather_blocks``); a checkpoint restores at any D.  On the
+CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduce \
       --device cpu --data 2 --batch 4 --seq 32 --steps 3
@@ -80,13 +83,12 @@ from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.launch.serve import DTYPES
 from repro_torch.models import encdec, lm
 from repro_torch.parallel.context import ParallelContext
-from repro_torch.parallel.sharding import gather_data, map_specs
 from repro_torch.runtime import StepWatchdog
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_map
-from repro_torch.training.steps import data_blocks
+from repro_torch.training.steps import data_blocks, gather_blocks
 
-__all__ = ["train", "model_module", "main", "run_replicas", "staging_for"]
+__all__ = ["train", "train_replica", "model_module", "main", "run_replicas", "staging_for"]
 
 REPLICA_TIMEOUT_S = 3600.0  # run_replicas stops its processes after this long
 
@@ -190,9 +192,13 @@ def train(
     "cfg"}.  A step's ``ms`` is CUDA-event time on the card, host time on
     the CPU; ``launches`` counts each kernel's launches in that step.
     ``data`` > 1 trains that many replicas in spawned processes (module
-    docstring); then "params" and "opt_state" are rank 0's, on the CPU (its
-    moments: its blocks), and "replicas" holds each process's peak device
-    memory and launch counts; ``time_data`` fills each record's
+    docstring); then "params" and "opt_state" are rank 0's blocks, on the
+    CPU, and "replicas" holds each process's peak device memory, the device
+    memory its placed parameters and moments took ("placed_bytes": what its
+    live tensors requested and ``memory_allocated``, which adds the caching
+    allocator's rounding of each block, both from before the init to after
+    the placement) and its launch counts;
+    ``time_data`` fills each record's
     ``data_ms`` (the device drained around every data collective, which
     slows the step; None without it)."""
     kw = dict(steps=steps, batch=batch, seq=seq, reduce=reduce, layers=layers, mode=mode, remat=remat,
@@ -206,20 +212,24 @@ def train(
     stage = staging_for(dist_backend, dev)
     print(f"data axis: {data} replica processes over torch.distributed {dist_backend}, staging "
           f"{stage or 'direct'}")  # fmt: skip
-    outs = run_replicas(_train_replica, data, device=dev, backend=dist_backend, staging=stage, args=(arch, kw))
-    return {**outs[0], "replicas": [{k: o[k] for k in ("peak_bytes", "launches")} for o in outs]}
+    outs = run_replicas(train_replica, data, device=dev, backend=dist_backend, staging=stage, args=(arch, kw))
+    return {**outs[0], "replicas": [{k: o[k] for k in ("peak_bytes", "placed_bytes", "launches")} for o in outs]}
 
 
-def _train_replica(dist: DistWorld, arch: str, kw: dict) -> dict:
-    """One replica of a data-parallel run (rank 0 logs and keeps the history)."""
+def train_replica(dist: DistWorld, arch: str, kw: dict, keep_state: bool = True) -> dict:
+    """One replica of ``train(data=D)``, in a process of ``dist``: ``kw``
+    holds every keyword of :func:`train` from ``steps`` to ``time_data``.
+    Returns {"history" (rank 0's; None elsewhere), "cfg", "peak_bytes",
+    "placed_bytes", "launches"} and, on rank 0 with ``keep_state``, its
+    "params" and "opt_state" blocks on the CPU (rank 0 logs)."""
     if dist.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     out = _train(arch, device=dist.device, dist=dist, **kw)
     res = {"history": out["history"] if dist.rank == 0 else None, "cfg": out["cfg"],
            "peak_bytes": torch.cuda.max_memory_allocated() if dist.device.type == "cuda" else None,
-           "launches": K.launch_counts()}  # fmt: skip
-    if dist.rank == 0:
+           "placed_bytes": out["placed_bytes"], "launches": K.launch_counts()}  # fmt: skip
+    if dist.rank == 0 and keep_state:
         res.update(params=tree_map(_host, out["params"]), opt_state=tree_map(_host, out["opt_state"]))
     return res
 
@@ -251,8 +261,9 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
         pc = ParallelContext(world=w, mode=mode)
     else:
         pc = ParallelContext(world=w, mode=mode, mesh_axes=make_dev_mesh(world, n_data).axes, data=dist)
+    before = _device_bytes(w.device)
     params = mod.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
-    opt_state = init_opt_state(_blocks(mod, cfg, pc, mod.trainable(params, cfg)))
+    opt_state = init_opt_state(mod.trainable(params, cfg)) if dist is None else None
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
     # donated: each step updates the state it is given in place (one copy of the weights and moments)
     step_fn = make_train_step(
@@ -266,21 +277,30 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
         s0 = mgr.latest_step()
         full = init_opt_state(mod.trainable(params, cfg)) if dist is not None else opt_state
         restored, meta = mgr.restore(s0, {"params": params, "opt": full}, cfg=cfg, world=w)
-        params, opt = restored["params"], restored["opt"]
-        opt_state = {**{k: _blocks(mod, cfg, pc, opt[k]) for k in ("mu", "nu")}, "step": opt["step"]}
+        params, opt_state = restored["params"], restored["opt"]
+        del restored, full
         pipe.restore(meta["extra"]["data"])
         start = s0
         if lead:
             print(f"resumed from step {s0}")
+    placed = None
+    if dist is not None:  # ZeRO-3: this replica's blocks of the parameters and moments, the whole trees dropped
+        if opt_state is None:
+            opt_state = init_opt_state(data_blocks(mod, cfg, pc, mod.trainable(params, cfg)))
+        else:
+            opt_state = {**{k: data_blocks(mod, cfg, pc, opt_state[k]) for k in ("mu", "nu")},
+                         "step": opt_state["step"]}  # fmt: skip
+        params = mod.with_tied(data_blocks(mod, cfg, pc, mod.trainable(params, cfg)), cfg)
+        if before is not None:
+            placed = {k: v - before[k] for k, v in _device_bytes(w.device).items()}
 
     def save(step):
-        opt = opt_state
-        if dist is not None:  # the moments' blocks gathered: rank 0 writes the logical arrays
-            specs = mod.trainable(mod.specs(cfg, pc), cfg)
-            opt = {**opt, **{k: map_specs(lambda s, t: gather_data(t, s, dist, pc.dp_axes), specs, opt[k])
-                             for k in ("mu", "nu")}}  # fmt: skip
+        p, opt = params, opt_state
+        if dist is not None:  # the blocks gathered on every replica: rank 0 writes the logical arrays
+            p = mod.with_tied(gather_blocks(mod, cfg, pc, mod.trainable(params, cfg)), cfg)
+            opt = {**opt, **{k: gather_blocks(mod, cfg, pc, opt[k]) for k in ("mu", "nu")}}
         if lead:
-            mgr.save(step, params, opt, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
+            mgr.save(step, p, opt, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
 
     cuda = w.device.type == "cuda"
     wd = StepWatchdog()
@@ -318,12 +338,17 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
     if mgr:
         save(steps)
         mgr.wait()
-    return {"history": history, "params": params, "opt_state": opt_state, "cfg": cfg}
+    return {"history": history, "params": params, "opt_state": opt_state, "cfg": cfg, "placed_bytes": placed}
 
 
-def _blocks(mod, cfg, pc, tree):
-    """This replica's blocks of a trainable tree (the tree itself without a data transport)."""
-    return tree if pc.data is None else data_blocks(mod, cfg, pc, tree)
+def _device_bytes(device) -> Optional[dict]:
+    """The device memory this process's live tensors requested and what the
+    caching allocator's blocks for them hold (each rounded up); None off the
+    card."""
+    if torch.device(device).type != "cuda":
+        return None
+    return {"requested": torch.cuda.memory_stats(device)["requested_bytes.all.current"],
+            "allocated": torch.cuda.memory_allocated(device)}  # fmt: skip
 
 
 def main(argv=None):

@@ -29,6 +29,10 @@ reference's (none), :func:`decay_mask` its rule (every leaf of the scanned
 stacks and the matrices; not ``enc_ln`` / ``final_ln``), :func:`sync_grads`
 its kv-copy averaging.  :func:`specs` / :func:`cache_specs` are the JAX
 package's partition specs on the port's leaves (``parallel/sharding``).
+With ``pc.data`` (ZeRO-3) each layer of both stacks, a decoder layer's
+cross mixer in :func:`build_cross_caches`, the embedding and the head are
+gathered at their use (``ParallelContext.use_gather``), as in
+``models/lm``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.models.lm import REMAT_POLICIES, logits, padded_vocab
+from repro_torch.models.lm import REMAT_POLICIES, logits, padded_vocab, top_specs
 from repro_torch.nn import attention, ffn
 from repro_torch.nn.layers import emb_init, rms_norm
 from repro_torch.parallel.context import ParallelContext
@@ -80,14 +84,27 @@ def specs(cfg, pc: ParallelContext) -> dict:
     """The specs of :func:`init`'s tree (``repro/models/encdec.specs``):
     ``embed`` ``P("model", dp)``, ``head`` ``P(dp, "model")``, every layer's
     blocks (a decoder layer's cross mixer as two column shards)."""
+    enc, dec = _layer_specs(cfg, pc)
+    top = top_specs(pc)
+    return {
+        "embed": top["embed"], "head": top["head"], "enc_ln": Spec(None), "final_ln": top["final_ln"],
+        "enc_layers": [dict(enc) for _ in range(cfg.encoder_layers)], "dec_layers": [dict(dec) for _ in range(cfg.n_layers)],
+    }  # fmt: skip
+
+
+def _layer_specs(cfg, pc: ParallelContext) -> tuple:
+    """(an encoder layer's specs, a decoder layer's)."""
     dp = pc.dp_spec()
     enc = {"attn": attention.specs(cfg, pc.tp, dp), "ffn": ffn.specs(cfg, pc.tp, dp)}
     dec = {"attn": attention.specs(cfg, pc.tp, dp), "cross": attention.cross_specs(cfg, pc.tp, dp),
            "ffn": ffn.specs(cfg, pc.tp, dp)}  # fmt: skip
-    return {
-        "embed": Spec("model", None, dp), "head": Spec(dp, "model"), "enc_ln": Spec(None), "final_ln": Spec(None),
-        "enc_layers": [dict(enc) for _ in range(cfg.encoder_layers)], "dec_layers": [dict(dec) for _ in range(cfg.n_layers)],
-    }  # fmt: skip
+    return enc, dec
+
+
+def _gathered(pc: ParallelContext, tree, spec_fn):
+    """``tree`` gathered for one use over ``pc.data`` (``pc.use_gather``
+    with the specs ``spec_fn()``); ``tree`` itself without it."""
+    return tree if pc.data is None else pc.use_gather(tree, spec_fn())
 
 
 def cache_specs(cfg, pc: ParallelContext) -> dict:
@@ -118,6 +135,7 @@ def _encode(params: dict, cfg, pc: ParallelContext, embeds: torch.Tensor, remat_
     for p in params["enc_layers"]:
 
         def body(h, p=p):
+            p = _gathered(pc, p, lambda: _layer_specs(cfg, pc)[0])  # inside the remat: gathered again there
             h = attention.apply_seq(p["attn"], h, pc, cfg, causal=False)
             return ffn.apply_seq(p["ffn"], h, pc, cfg)
 
@@ -130,9 +148,11 @@ def encode(params: dict, cfg, pc: ParallelContext, embeds: torch.Tensor, remat_p
     return pc.world.unshard(_encode(params, cfg, pc, embeds, remat_policy), dim=1)
 
 
-def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings [B, S, D] (no scale, as the reference's)."""
-    return torch.nn.functional.embedding(tokens, params["embed"].reshape(-1, params["embed"].shape[-1]))
+def _embed(params: dict, tokens: torch.Tensor, pc: ParallelContext) -> torch.Tensor:
+    """Token embeddings [B, S, D] (no scale, as the reference's); ``embed``
+    gathered at its use under ``pc.data``."""
+    embed = _gathered(pc, params["embed"], lambda: top_specs(pc)["embed"])
+    return torch.nn.functional.embedding(tokens, embed.reshape(-1, embed.shape[-1]))
 
 
 def forward(
@@ -145,10 +165,11 @@ def forward(
         raise ValueError("encdec.forward needs the encoder frames (embeds=)")
     enc = _encode(params, cfg, pc, embeds, remat_policy)
     _check_seq(pc, tokens.shape[1], "decoder")
-    x = pc.world.shard(_embed(params, tokens), dim=1)  # [W, B, s_loc, D]
+    x = pc.world.shard(_embed(params, tokens, pc), dim=1)  # [W, B, s_loc, D]
     for p in params["dec_layers"]:
 
         def body(h, p=p):
+            p = _gathered(pc, p, lambda: _layer_specs(cfg, pc)[1])
             h = attention.apply_seq(p["attn"], h, pc, cfg, causal=True)
             h = attention.apply_cross_seq(p["cross"], h, enc, pc, cfg)
             return ffn.apply_seq(p["ffn"], h, pc, cfg)
@@ -178,7 +199,8 @@ def build_cross_caches(params: dict, cfg, pc: ParallelContext, enc: torch.Tensor
     """Each decoder layer's cross K / V from the encoder output enc [B,
     S_enc, D] (:func:`encode`), through the AG+GEMM of its ``wkv``."""
     enc = pc.world.shard(enc, dim=1)
-    return [attention.build_cross_cache(p["cross"], enc, pc, cfg) for p in params["dec_layers"]]
+    cross = lambda: _layer_specs(cfg, pc)[1]["cross"]  # noqa: E731
+    return [attention.build_cross_cache(_gathered(pc, p["cross"], cross), enc, pc, cfg) for p in params["dec_layers"]]
 
 
 def decode_step(params: dict, caches: dict, cfg, pc: ParallelContext, tokens: torch.Tensor, cache_len):
@@ -186,8 +208,9 @@ def decode_step(params: dict, caches: dict, cfg, pc: ParallelContext, tokens: to
     ``cache_len`` the tokens already in each self cache (int or [B]).
     Returns (logits [B, C, vocab], caches), the self caches updated in
     place."""
-    x = _embed(params, tokens)
+    x = _embed(params, tokens, pc)
     for p, sc, cc in zip(params["dec_layers"], caches["self"], caches["cross"]):
+        p = _gathered(pc, p, lambda: _layer_specs(cfg, pc)[1])
         x, _ = attention.apply_decode(p["attn"], x, sc, cache_len, pc, cfg)
         x = attention.apply_cross_decode(p["cross"], x, cc, pc, cfg)
         x = ffn.apply_decode(p["ffn"], x, pc, cfg)

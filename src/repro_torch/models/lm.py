@@ -59,6 +59,15 @@ parameter gets the lookup's and the head's gradient, and
 :func:`with_tied` refreshes the copy after an update.  :func:`grad_masks`,
 :func:`decay_mask` and :func:`sync_grads` are the reference's padded-head
 masks, its weight-decay rule and its kv-copy averaging, on this layout.
+
+With ``pc.data`` (ZeRO-3) the parameters are this replica's blocks of
+every leaf the specs split over the data axes, and each use gathers them
+whole (``ParallelContext.use_gather``), as the JAX package's ``use_gather``
+calls do: each layer in ``apply_seq`` / ``apply_prefill`` /
+``apply_decode`` (inside the remat'd body, so a recomputing backward
+gathers again) or in :func:`_seam_chain`, the head in :func:`logits`; the
+embedding (the lookup and a tied head) and the shared mixer (every
+``shared_attn`` layer) once a pass.  Without it every path is unchanged.
 """
 
 from __future__ import annotations
@@ -81,6 +90,7 @@ __all__ = [
     "layer_plan",
     "scan_units",
     "specs",
+    "top_specs",
     "cache_specs",
     "segments",
     "init",
@@ -119,6 +129,16 @@ class LayerDef:
         """This layer's mixer parameters: its own, or the shared set."""
         return shared if self.shared else params["mixer"]
 
+    def gathered(self, params, pc, cfg):
+        """This layer's stored parameters for one use: with ``pc.data`` every
+        leaf the data axes split gathered whole (``pc.use_gather``, one
+        all-gather per dtype, reduce-scattered back in the backward); without
+        it ``params`` itself.  A shared layer's mixer is the model's, which
+        :func:`forward` gathers once a pass."""
+        if pc.data is None:
+            return params
+        return pc.use_gather(params, self.specs(cfg, pc, pc.dp_spec()))
+
     def _ffn_seq(self, params, x, pc, cfg):
         """The FFN half of a layer: (x, aux loss)."""
         if self.ffn_kind == "mlp":
@@ -128,7 +148,8 @@ class LayerDef:
         return x, _zero(x)
 
     def apply_seq(self, params, x, pc, cfg, shared=None):
-        """x: [W, B, s_loc, D] -> (x, aux loss)."""
+        """x: [W, B, s_loc, D] -> (x, aux loss); ``params`` stored (gathered here)."""
+        params = self.gathered(params, pc, cfg)
         if self.kind == "mamba":
             return mamba.apply_seq(params["mixer"], x, pc, cfg), _zero(x)
         mixer = self.mixer(params, shared)
@@ -145,8 +166,10 @@ class LayerDef:
         the MLP's gate/up AG (the intra-layer seam); with ``next_mixer`` (the
         next layer's attention params) the down projection's RS produces
         that layer's qkv too (the inter-layer seam).  ``qkv`` is this
-        layer's projection from the previous layer's seam.  Returns (x, aux
-        loss, next layer's qkv or None)."""
+        layer's projection from the previous layer's seam.  ``params``,
+        ``next_mixer`` and ``shared`` are gathered for their use already
+        (:func:`_seam_chain` gathers a chain's leaves).  Returns (x, aux loss,
+        next layer's qkv or None)."""
         y, gu = attention.apply_seq(
             self.mixer(params, shared), x, pc, cfg, causal=True, window=self.window, rope_theta=self.theta, qkv=qkv,
             next_proj=ffn.seam_proj(params["ffn"], cfg),
@@ -161,6 +184,7 @@ class LayerDef:
         cache's sequence dimension padded to ``max_len`` (a ring for window
         layers; a Mamba layer's cache is its SSM state and conv tail); the
         aux loss is dropped, as in the JAX package."""
+        params = self.gathered(params, pc, cfg)
         if self.kind == "mamba":
             return mamba.apply_seq(params["mixer"], x, pc, cfg, return_state=True)
         x, kv = attention.apply_seq(
@@ -201,6 +225,7 @@ class LayerDef:
         return attention.init_cache(cfg, pc.tp, batch, max_len, dtype, pc.device, window=self.window)
 
     def apply_decode(self, params, x, cache, cache_len, pc, cfg, q_valid=None, shared=None):
+        params = self.gathered(params, pc, cfg)
         if self.kind == "mamba":
             return mamba.apply_decode_chunk(params["mixer"], x, cache, pc, cfg, q_valid=q_valid)
         x, cache = attention.apply_decode(
@@ -269,16 +294,29 @@ def segments(cfg) -> List[range]:
 def _seam_chain(defs, plist, x, pc, cfg, aux_total, shared=None):
     """Run one segment's layers, fusing the RS -> AG seams between
     consecutive eligible layers; an ineligible layer (Mamba, MoE) breaks the
-    chain and runs unfused.  Returns (x, aux_total plus the layers' aux)."""
-    qkv = None
+    chain and runs unfused.  With ``pc.data`` an eligible layer's FFN and
+    the next eligible layer's mixer (which its seam reads first) are
+    gathered in one use, and the next layer takes that mixer as gathered:
+    each leaf is gathered once a pass (``shared`` is, by :func:`forward`).
+    Returns (x, aux_total plus the layers' aux)."""
+    qkv = mixer = None
+    asp, fsp = attention.specs(cfg, pc.tp, pc.dp_spec()), ffn.specs(cfg, pc.tp, pc.dp_spec())
     for i, (d, p) in enumerate(zip(defs, plist)):
         if not d.seam_eligible():
             x, aux = d.apply_seq(p, x, pc, cfg, shared)
+            mixer = None
         else:
-            nxt = None
-            if i + 1 < len(defs) and defs[i + 1].seam_eligible():
-                nxt = defs[i + 1].mixer(plist[i + 1], shared)
-            x, aux, qkv = d.apply_seq_fused(p, x, pc, cfg, qkv=qkv, next_mixer=nxt, shared=shared)
+            nd = defs[i + 1] if i + 1 < len(defs) and defs[i + 1].seam_eligible() else None
+            tree, spec = {"ffn": p["ffn"]}, {"ffn": fsp}
+            if mixer is None and not d.shared:
+                tree["mixer"], spec["mixer"] = p["mixer"], asp
+            if nd is not None and not nd.shared:
+                tree["next"], spec["next"] = plist[i + 1]["mixer"], asp
+            g = pc.use_gather(tree, spec)
+            own = {"mixer": g.get("mixer", mixer), "ffn": g["ffn"]}
+            nxt = None if nd is None else (shared if nd.shared else g["next"])
+            x, aux, qkv = d.apply_seq_fused(own, x, pc, cfg, qkv=qkv, next_mixer=nxt, shared=shared)
+            mixer = None if nd is None or nd.shared else nxt
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -330,11 +368,32 @@ def specs(cfg, pc: ParallelContext) -> dict:
     embedding when tied), each layer's and the shared mixer's blocks; the
     data axes are ``pc.dp_spec()``."""
     dp = pc.dp_spec()
-    s = {"embed": Spec("model", None, dp), "head": Spec(dp, "model"), "final_ln": Spec(None)}
+    s = top_specs(pc)
     if _uses_shared(cfg):
         s["shared_attn"] = attention.specs(cfg, pc.tp, dp)
     s["layers"] = [d.specs(cfg, pc, dp) for d in layer_plan(cfg)]
     return s
+
+
+def top_specs(pc: ParallelContext) -> dict:
+    """The specs of the leaves outside the layers: ``embed`` [W, V/W, D]
+    (``P("model", dp)``), ``head`` [D, V] (``P(dp, "model")``), ``final_ln``."""
+    dp = pc.dp_spec()
+    return {"embed": Spec("model", None, dp), "head": Spec(dp, "model"), "final_ln": Spec(None)}
+
+
+def _gathered_top(params: dict, cfg, pc: ParallelContext) -> dict:
+    """``params`` with ``embed`` and the shared mixer gathered for one pass
+    (``pc.use_gather``, one use): the lookup and a tied head read the one
+    gathered ``embed``, every shared layer the one gathered mixer, so each
+    is gathered once a pass and its gradient reduce-scattered once.
+    ``params`` itself without ``pc.data``."""
+    if pc.data is None:
+        return params
+    spec = {"embed": top_specs(pc)["embed"]}
+    if "shared_attn" in params:
+        spec["shared_attn"] = attention.specs(cfg, pc.tp, pc.dp_spec())
+    return {**params, **pc.use_gather({k: params[k] for k in spec}, spec)}
 
 
 def cache_specs(cfg, pc: ParallelContext) -> list:
@@ -366,10 +425,11 @@ def embed_tokens(params: dict, cfg, tokens: Optional[torch.Tensor], embeds: Opti
 def logits(params: dict, cfg, pc: ParallelContext, x: torch.Tensor) -> torch.Tensor:
     """Final norm + LM head: x [B, S, D] (global) -> [B, S, vocab].  A tree
     without ``head`` (the trainable tree of a tied model) takes it from
-    ``embed``."""
+    ``embed`` (gathered by the caller under ``pc.data``); a stored ``head``
+    is gathered here, at its use (``pc.use_gather``)."""
     x = rms_norm(x, params["final_ln"], cfg.norm_eps)
     gemm = matmul if pc.fused else matmul_plain
-    head = params["head"] if "head" in params else tied_head(params["embed"])
+    head = pc.use_gather(params["head"], top_specs(pc)["head"]) if "head" in params else tied_head(params["embed"])
     out = gemm(x.reshape(-1, x.shape[-1]).contiguous(), head)
     return out.reshape(x.shape[:-1] + (out.shape[-1],))[..., : cfg.vocab_size]
 
@@ -395,6 +455,7 @@ def forward(
     GEMM outputs, here the unit is recomputed whole, with the same results."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
+    params = _gathered_top(params, cfg, pc)
     x = embed_tokens(params, cfg, tokens, embeds)
     _check_seq(pc, x.shape[1])
     x = pc.world.shard(x, dim=1)  # [W, B, s_loc, D]
@@ -435,6 +496,7 @@ def prefill(
     Returns (logits [B, S0 + S, vocab], caches) — decode continues at
     position S0 + S.
     """
+    params = _gathered_top(params, cfg, pc)
     x = embed_tokens(params, cfg, tokens, embeds)
     _check_seq(pc, x.shape[1])
     x = pc.world.shard(x, dim=1)
@@ -457,6 +519,7 @@ def decode_step(params: dict, caches: list, cfg, pc: ParallelContext, tokens: to
     real rows per slot.  Returns (logits [B, C, vocab], caches), the caches
     updated in place.
     """
+    params = _gathered_top(params, cfg, pc)
     x = embed_tokens(params, cfg, tokens)
     shared = params.get("shared_attn")
     for d, p, c in zip(layer_plan(cfg), params["layers"], caches):

@@ -66,14 +66,16 @@ the planner counts (``launch/dryrun``), not ranks anything runs.  With
 ``data`` (a :class:`~repro_torch.backend.mesh.DistWorld`: one replica a
 process, the JAX package's reduction over the tuple spec ``("pod",
 "data")`` as one group over their product) they run:
-``training.make_train_step`` reduces the gradients over ``data``, keeps the
-optimizer moments as each replica's block of the leaves the data axes
-split (``parallel/sharding.place_data``, ZeRO) and all-gathers the updated
-blocks once a step; ``dp`` is then ``data.size``, and a mesh whose data
-axes multiply to anything else raises.  The JAX package gathers each
-layer's parameters at its use instead (ZeRO-3, ``use_gather``): the same
-numbers, more memory here; ``launch/roofline`` counts either's traffic
-from the specs.
+the parameters are stored as each replica's block of every leaf the data
+axes split (ZeRO-3: ``parallel/sharding.place_data``), and
+:meth:`use_gather` gathers a layer's leaves whole over ``data`` at each use
+(one all-gather per dtype; its backward reduce-scatters the gradients back
+onto the blocks), as the JAX package's ``use_gather`` does;
+``training.make_train_step`` all-reduces the gradients of the replicated
+leaves and updates the blocks against moments that hold only those blocks;
+``dp`` is then ``data.size``, and a mesh whose data axes multiply to
+anything else raises.  ``launch/roofline.data_axis_bytes`` counts that
+traffic from the specs.
 
 ``attn_p_bf16`` casts softmax P to bf16 before P V in the eager route's
 attention (``chunked_attention``), as the JAX package does; the fused
@@ -96,6 +98,7 @@ from repro_torch.backend.mesh import DistWorld, World
 from repro_torch.core.channels import BlockChannel
 from repro_torch.core.compiler import BACKENDS, compile_overlap
 from repro_torch.core.quant import QuantSpec
+from repro_torch.parallel.sharding import use_gather
 
 __all__ = ["ParallelContext"]
 
@@ -178,6 +181,15 @@ class ParallelContext:
     @property
     def fused(self) -> bool:
         return self.backend == "fused"
+
+    # ---- ZeRO-3 use-time gather -----------------------------------------
+    def use_gather(self, tree, spec_tree):
+        """``tree`` (stored blocks of the parameter specs ``spec_tree``) for
+        one use: every leaf the data axes split gathered whole over
+        ``data``, one all-gather per dtype, whose backward reduce-scatters
+        the gradients onto the blocks (``parallel/sharding.use_gather``);
+        every other leaf as it is.  The identity without ``data``."""
+        return use_gather(tree, spec_tree, self.data, self.dp_axes)
 
     # ---- per-rank collective ops ----------------------------------------
     def _tune_space(self):

@@ -17,10 +17,12 @@ port's :class:`Spec` is the same thing for the port's own leaves:
 :func:`place` moves a global tensor into that layout (the ``"model"`` dim
 split over the world's ranks).  The data axes are a second transport,
 ``ParallelContext.data``: :func:`place_data` keeps this replica's block of
-a leaf along the one dim its spec names for them (ZeRO storage of the
-optimizer moments, and the update's share of the parameters) and
-:func:`gather_data` is its inverse, an all-gather over them; a leaf whose
-spec names no data axis is replicated.  Over a
+a leaf along the one dim its spec names for them (ZeRO-3 storage of the
+parameters and the optimizer moments) and :func:`gather_data` is its
+inverse, an all-gather over them; a leaf whose spec names no data axis is
+replicated.  :func:`use_gather` gathers the blocks of one use's leaves,
+one all-gather per dtype, and its backward reduce-scatters the gradients
+onto the blocks (the JAX package's ``ParallelContext.use_gather``).  Over a
 :class:`~repro_torch.backend.mesh.DistWorld` (one replica a process) a
 block is this process's own; over an emulated
 :class:`~repro_torch.backend.mesh.World` of the data axes it is every
@@ -42,7 +44,7 @@ import torch
 
 __all__ = ["Spec", "is_spec", "axes_of", "stacked", "only_axes", "shard_shape", "per_device_bytes",
            "Sharding", "shardings_of", "place", "map_specs", "tree_bytes", "DATA_AXES", "data_dim", "place_data",
-           "gather_data"]  # fmt: skip
+           "gather_data", "use_gather"]  # fmt: skip
 
 DATA_AXES = ("pod", "data")  # the data-parallel axes by default (``ParallelContext.dp_axes``)
 
@@ -197,3 +199,152 @@ def gather_data(x: torch.Tensor, spec: Spec, data, dp_axes: Sequence[str] = DATA
     """Inverse of :func:`place_data`: the replicas' blocks gathered over ``data``."""
     d = data_dim(spec, dp_axes)
     return x if d is None else data.unshard(x, d)
+
+
+# ---- ZeRO-3 use-time gathering ----------------------------------------------------------------
+#
+# A bucket is the leaves of one use that share a dtype.  Replica r's part of the bucket is its blocks, each moved to
+# [b_d, ...] (data dim first) and flattened, concatenated: [total].  The all-gather of the parts is [n, total] in rank
+# order, so a leaf's slice [n, k] holds its n blocks, which reshape into the whole leaf; the backward takes the whole
+# gradients apart into the same [n, total] rows and reduce-scatters them.  Over an in-process World of the data axes
+# every tensor carries the replicas on a leading dim ("lead").
+
+
+def _lead(data) -> int:
+    """1 where ``data`` is an in-process World (its values stacked on dim 0), 0 over a DistWorld."""
+    return 0 if hasattr(data, "rank") else 1
+
+
+def _block_part(b: torch.Tensor, d: int, lead: int) -> torch.Tensor:
+    """A block [*lead, pre, b_d, post] as its flat part [*lead, b_d * ...] (data dim first)."""
+    return b.movedim(lead + d, lead).reshape(b.shape[:lead] + (-1,))
+
+
+def _part_block(p: torch.Tensor, d: int, shape, lead: int) -> torch.Tensor:
+    """Inverse of :func:`_block_part` for a block of per-replica ``shape``."""
+    moved = (shape[d],) + tuple(shape[:d]) + tuple(shape[d + 1 :])
+    return p.reshape(p.shape[:lead] + moved).movedim(lead, lead + d).contiguous()
+
+
+def _whole_rows(g: torch.Tensor, d: int, n: int, lead: int) -> torch.Tensor:
+    """A whole leaf [*lead, pre, N, post] as the rows [*lead, n, N / n * ...] of its n blocks."""
+    shape = g.shape[lead:]
+    split = g.reshape(g.shape[:lead] + tuple(shape[:d]) + (n, shape[d] // n) + tuple(shape[d + 1 :]))
+    return split.movedim(lead + d, lead).movedim(lead + d + 1, lead + 1).reshape(g.shape[:lead] + (n, -1))
+
+
+def _rows_whole(rows: torch.Tensor, d: int, shape, n: int, lead: int) -> torch.Tensor:
+    """Inverse of :func:`_whole_rows`: rows [*lead, n, k] as the whole leaf of per-replica ``shape``
+    (contiguous)."""
+    b_d = shape[d] // n
+    x = rows.reshape(rows.shape[:lead] + (n, b_d) + tuple(shape[:d]) + tuple(shape[d + 1 :]))
+    x = x.movedim(lead + 1, lead + 1 + d).movedim(lead, lead + d)
+    return x.reshape(rows.shape[:lead] + tuple(shape)).contiguous()
+
+
+def _buckets(dtypes) -> Dict[torch.dtype, list]:
+    """Indices by dtype, in order of first appearance (the same collective order on every replica)."""
+    out: Dict[torch.dtype, list] = {}
+    for i, dt in enumerate(dtypes):
+        out.setdefault(dt, []).append(i)
+    return out
+
+
+def _gather_whole(blocks: Sequence[torch.Tensor], dims: Sequence[int], data) -> list:
+    """The whole leaves of the replicas' ``blocks`` (each split along its
+    ``dims`` entry), one ``data.all_gather`` per dtype."""
+    n, lead = data.size, _lead(data)
+    out = [None] * len(blocks)
+    for idx in _buckets([b.dtype for b in blocks]).values():
+        flat = data.all_gather(torch.cat([_block_part(blocks[i], dims[i], lead) for i in idx], dim=-1), 0)
+        rows = flat.reshape(flat.shape[:lead] + (n, -1)).split([math.prod(blocks[i].shape[lead:]) for i in idx], dim=-1)
+        for i, r in zip(idx, rows):
+            shape = list(blocks[i].shape[lead:])
+            shape[dims[i]] *= n
+            out[i] = _rows_whole(r, dims[i], shape, n, lead)
+    return out
+
+
+def _scatter_blocks(wholes: Sequence[torch.Tensor], dims: Sequence[int], data) -> list:
+    """Each replica's block of the replicas' sum of ``wholes`` along its
+    ``dims`` entry, one ``data.reduce_scatter`` per dtype (the transpose of
+    :func:`_gather_whole`)."""
+    n, lead = data.size, _lead(data)
+    out = [None] * len(wholes)
+    for idx in _buckets([g.dtype for g in wholes]).values():
+        rows = [_whole_rows(wholes[i], dims[i], n, lead) for i in idx]
+        cat = torch.cat(rows, dim=-1)
+        part = data.reduce_scatter(cat.reshape(cat.shape[:lead] + (-1,)), 0)
+        for i, p in zip(idx, part.split([r.shape[-1] for r in rows], dim=-1)):
+            shape = list(wholes[i].shape[lead:])
+            shape[dims[i]] //= n
+            out[i] = _part_block(p, dims[i], shape, lead)
+    return out
+
+
+class _UseGather(torch.autograd.Function):
+    """One use's gather: the blocks of the leaves the data axes split ->
+    their whole leaves (:func:`_gather_whole`); the backward reduce-scatters
+    the whole gradients onto the blocks (:func:`_scatter_blocks`).  A
+    recomputing backward (``torch.utils.checkpoint``) runs the forward, and
+    so the gather, again."""
+
+    @staticmethod
+    def forward(ctx, data, dims, *blocks):
+        ctx.data, ctx.dims = data, dims
+        return tuple(_gather_whole(blocks, dims, data))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_scatter_blocks(grads, ctx.dims, ctx.data))
+
+
+def _spec_pairs(spec_tree, tree, out: list):
+    """(spec, leaf) of a tree and its spec tree, in the tree's order; a node
+    whose keys or length differ from its spec's raises."""
+    if is_spec(spec_tree):
+        out.append((spec_tree, tree))
+    elif isinstance(spec_tree, dict):
+        if set(spec_tree) != set(tree):
+            raise ValueError(f"use_gather: keys {sorted(tree)} against the specs' {sorted(spec_tree)}")
+        for k in tree:
+            _spec_pairs(spec_tree[k], tree[k], out)
+    elif isinstance(spec_tree, (list, tuple)):
+        if len(spec_tree) != len(tree):
+            raise ValueError(f"use_gather: {len(tree)} subtrees against {len(spec_tree)} specs")
+        for s, t in zip(spec_tree, tree):
+            _spec_pairs(s, t, out)
+    elif spec_tree is not None:
+        raise TypeError(f"use_gather: not a spec tree node: {spec_tree!r}")
+    return out
+
+
+def _rebuilt(spec_tree, tree, leaves):
+    """``tree``'s structure (its key order) holding the next of ``leaves`` at each spec."""
+    if is_spec(spec_tree):
+        return next(leaves)
+    if isinstance(spec_tree, dict):
+        return {k: _rebuilt(spec_tree[k], tree[k], leaves) for k in tree}
+    if isinstance(spec_tree, (list, tuple)):
+        return [_rebuilt(s, t, leaves) for s, t in zip(spec_tree, tree)]
+    return None
+
+
+def use_gather(tree, spec_tree, data, dp_axes: Sequence[str] = DATA_AXES):
+    """``tree`` (stored blocks) for one use: every leaf whose spec splits a
+    dim over the data axes gathered whole over ``data`` in one
+    :class:`_UseGather` (one all-gather per dtype, whose backward is one
+    reduce-scatter per dtype), every other leaf as it is.  ``data``: a
+    :class:`~repro_torch.backend.mesh.DistWorld`, or an in-process World of
+    the data axes (blocks and whole leaves stacked on dim 0, each replica's
+    view); the tree itself when ``data`` is None."""
+    if data is None:
+        return tree
+    pairs = _spec_pairs(spec_tree, tree, [])
+    split = [(i, data_dim(s, dp_axes)) for i, (s, _) in enumerate(pairs) if data_dim(s, dp_axes) is not None]
+    leaves = [t for _, t in pairs]
+    if split:
+        whole = _UseGather.apply(data, tuple(d for _, d in split), *(leaves[i] for i, _ in split))
+        for (i, _), w in zip(split, whole):
+            leaves[i] = w
+    return _rebuilt(spec_tree, tree, iter(leaves))

@@ -10,24 +10,25 @@ model's weight-decay mask.  The optimizer sees the model's trainable tree
 carry a refreshed copy (``model.with_tied``).
 
 With ``pc.data`` (the data axes' :class:`~repro_torch.backend.mesh.
-DistWorld`, one replica a process) the step is data-parallel, ZeRO-style:
-each replica runs the forward and backward on its share of the global
-batch, its loss scaled so that the gradients are those of the global mean
-(a masked mean divides by the global mask count, all-reduced); the TP
-kv-copy sync; the 0/1 masks; then each gradient is reduce-scattered over
-``data`` onto this replica's block where the parameter specs
-(``model.specs``) split the leaf over the data axes, all-reduced otherwise,
-and divided by the replica count; the clip takes the global norm (the
-blocks' squared norms all-reduced); AdamW updates each replica's blocks
-against moments that hold only those blocks (``init_opt_state`` of
-:func:`data_blocks`, the JAX package's placement of ``opt`` by the
-parameter specs); and the updated blocks are all-gathered, so every
-replica holds the whole parameters for the next forward.  Each of the
-three collectives runs once a step per dtype over the concatenated leaves
-(the same payload as one a leaf, in one call).  It differs from
-the JAX package in one way: that gathers each layer's parameters at their
-use (ZeRO-3), this once a step (the same numbers, the parameters' memory
-not cut).
+DistWorld`, one replica a process) the step is data-parallel, ZeRO-3: the
+parameters in and out are this replica's blocks (:func:`data_blocks`, by
+the parameter specs ``model.specs``) and the forward gathers each layer's
+leaves whole at their use (``ParallelContext.use_gather``, inside the
+remat'd body, so a recomputing backward gathers them again), whose
+backward reduce-scatters the gradients onto the blocks.  Each replica
+runs the forward and backward on its share of the global batch, its loss
+scaled so that the gradients are those of the global mean (a masked mean
+divides by the global mask count, all-reduced); the TP kv-copy sync and
+the 0/1 masks act on the blocks (neither mixes the data dim); the
+gradients of the leaves the data axes do not split are all-reduced over
+``data``, once a step per dtype, and every gradient is divided by the
+replica count; the clip takes the global norm (the blocks' squared norms
+all-reduced); and AdamW updates the blocks against moments that hold only
+those blocks (``init_opt_state`` of :func:`data_blocks`, the JAX package's
+placement of ``opt`` by the parameter specs).  No replica holds a whole
+copy of a split leaf between steps; :func:`gather_blocks` joins the
+replicas' blocks for a checkpoint.  The embedding and a shared mixer are
+read more than once a pass and gathered once a pass (``models/lm``).
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from repro_torch.parallel.sharding import data_dim, map_specs, place_data
 from repro_torch.training.optimizer import AdamWConfig, apply_masks, apply_update, tree_leaves, tree_unflatten
 
 __all__ = ["softmax_xent", "loss_and_grads", "make_train_step", "make_eval_step", "data_blocks",
-           "data_parallel_grads"]
+           "data_parallel_grads", "gather_blocks"]
 
 
 XENT_ROWS = 1024  # rows of one float32 block of the cross-entropy (its only float32 copy of the logits)
@@ -133,8 +134,8 @@ def make_train_step(
     ported (``model.check_trainable``), and if a parameter gets no
     gradient.  With ``pc.data`` the step is data-parallel (module
     docstring): ``batch`` is this replica's share of the global batch (equal
-    rows on every replica), ``opt_state`` is over :func:`data_blocks`, and
-    the metrics are the global ones."""
+    rows on every replica), ``params`` (in and out) and ``opt_state`` are
+    over :func:`data_blocks`, and the metrics are the global ones."""
     model.check_trainable(cfg, pc)
     if pc.data is not None:
         return _data_parallel_step(model, cfg, pc, opt_cfg, remat_policy=remat_policy, grad_masks=grad_masks,
@@ -159,17 +160,27 @@ def make_train_step(
 def data_blocks(model, cfg, pc, tree):
     """This replica's blocks of a trainable tree (``model.trainable`` of the
     parameters, or of gradients) over ``pc.data``, by the parameter specs:
-    what a data-parallel step's moments are shaped like."""
+    what a data-parallel step's parameters and moments are shaped like
+    (``model.with_tied`` of the parameters' blocks gives a tied head's
+    block)."""
     return map_specs(lambda s, t: place_data(t, s, pc.data, pc.dp_axes), model.trainable(model.specs(cfg, pc), cfg),
                      tree)  # fmt: skip
+
+
+def gather_blocks(model, cfg, pc, tree):
+    """Inverse of :func:`data_blocks`: the whole trainable tree from every
+    replica's blocks (one all-gather per dtype; a checkpoint's)."""
+    with torch.no_grad():
+        return pc.use_gather(tree, model.trainable(model.specs(cfg, pc), cfg))
 
 
 def data_parallel_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none", grad_masks=None,
                         aux_weight: float = 0.01, sync_kv: bool = True):  # fmt: skip
     """The data-parallel step's gradients (module docstring): this replica's
-    forward and backward on its ``batch`` rows, the kv-copy sync, the 0/1
-    ``grad_masks``, then the replicas' mean over ``pc.data``, this replica's
-    block of each leaf the data axes split, all of any other.  Returns
+    forward and backward on its ``batch`` rows from the parameters' blocks
+    ``params``, the kv-copy sync, the 0/1 ``grad_masks``, then the replicas'
+    mean over ``pc.data``, this replica's block of each leaf the data axes
+    split (reduce-scattered by the backward), all of any other.  Returns
     (loss, ce, aux, gradients, global gradient norm), the metrics the global
     batch's."""
     data, dp, axes = pc.data, pc.data.size, pc.dp_axes
@@ -196,8 +207,6 @@ def data_parallel_grads(model, cfg, pc, params, batch, *, remat_policy: str = "n
 
 def _data_parallel_step(model, cfg, pc, opt_cfg, *, remat_policy, grad_masks, aux_weight, sync_kv, donate) -> Callable:
     """The data-parallel train step (module docstring)."""
-    data, axes = pc.data, pc.dp_axes
-    specs = model.trainable(model.specs(cfg, pc), cfg)
 
     def train_step(params, opt_state, batch):
         tree = model.trainable(params, cfg)
@@ -205,76 +214,40 @@ def _data_parallel_step(model, cfg, pc, opt_cfg, *, remat_policy, grad_masks, au
             model, cfg, pc, params, batch, remat_policy=remat_policy, grad_masks=grad_masks, aux_weight=aux_weight,
             sync_kv=sync_kv,
         )  # fmt: skip
-        blocks = map_specs(lambda s, t: place_data(t, s, data, axes), specs, tree)
-        new, new_opt, om = apply_update(blocks, grads, opt_state, opt_cfg, grad_masks=None,
+        new, new_opt, om = apply_update(tree, grads, opt_state, opt_cfg, grad_masks=None,
                                         decay=model.decay_mask(tree, cfg), donate=donate, gnorm=gnorm)  # fmt: skip
-
-        full = iter(_gather_blocks(specs, new, data, axes))  # every replica's updated blocks: whole again
-
-        def whole(spec, p, b):
-            if data_dim(spec, axes) is None:
-                return b
-            return p.copy_(next(full)) if donate else next(full)
-
-        new = map_specs(whole, specs, tree, new)
         metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
         return model.with_tied(new, cfg), new_opt, metrics
 
     return train_step
 
 
-def _leaves(specs, tree, axes) -> list:
-    """(data dim or None, leaf) of a trainable tree, in ``map_specs`` order."""
-    out = []
-    map_specs(lambda s, t: out.append((data_dim(s, axes), t)), specs, tree)
-    return out
-
-
 def _replica_mean(specs, grads, data, axes):
-    """The replicas' mean of every gradient: this replica's block of a leaf
-    the data axes split (one reduce-scatter of all of them, per dtype), the
-    whole of any other (one all-reduce, per dtype).  A leaf's block along its
-    data dim d is the rows ``rank`` of the leaf moved to ``[D, -1]`` with d
-    first, so the leaves concatenate into one ``[D, total]`` buffer; the
-    payload is the per-leaf collectives' sum."""
+    """The replicas' mean of every gradient: a leaf the data axes split
+    arrives as this replica's block of the replicas' sum (the backward's
+    reduce-scatter), any other leaf whole and this replica's own, all-reduced
+    here (one all-reduce per dtype over the concatenated leaves); each is
+    divided by the replica count."""
     n = data.size
-    leaves = _leaves(specs, grads, axes)
-    out = [None] * len(leaves)
-    for dtype in {g.dtype for _, g in leaves}:
-        split = [(i, d, g) for i, (d, g) in enumerate(leaves) if d is not None and g.dtype == dtype]
-        if split:
-            rows = [g.movedim(d, 0).reshape(n, -1) for _, d, g in split]
-            mean = data.reduce_scatter(torch.cat(rows, dim=1), 0)[0] / n
-            for (i, d, g), part in zip(split, mean.split([r.shape[1] for r in rows])):
-                moved = (g.shape[d] // n,) + tuple(g.shape[:d]) + tuple(g.shape[d + 1 :])
-                out[i] = part.reshape(moved).movedim(0, d)
-        whole = [(i, g) for i, (d, g) in enumerate(leaves) if d is None and g.dtype == dtype]
-        if whole:
-            mean = data.psum(torch.cat([g.reshape(-1) for _, g in whole])) / n
-            for (i, g), part in zip(whole, mean.split([g.numel() for _, g in whole])):
-                out[i] = part.reshape(g.shape)
+    leaves = []
+    map_specs(lambda s, g: leaves.append((data_dim(s, axes), g)), specs, grads)
+    whole = {}
+    for i, (d, g) in enumerate(leaves):
+        if d is None:
+            whole.setdefault(g.dtype, []).append(i)
+    out = [None if d is None else g / n for d, g in leaves]
+    for idx in whole.values():  # dtypes in order of first appearance: the same on every replica
+        mean = data.psum(torch.cat([leaves[i][1].reshape(-1) for i in idx])) / n
+        for i, part in zip(idx, mean.split([leaves[i][1].numel() for i in idx])):
+            out[i] = part.reshape(leaves[i][1].shape)
     it = iter(out)
     return map_specs(lambda s, g: next(it), specs, grads)
 
 
-def _gather_blocks(specs, blocks, data, axes) -> list:
-    """Every replica's block of each leaf the data axes split, gathered into
-    the whole leaf (one all-gather per dtype, the inverse of
-    :func:`_replica_mean`'s layout); the whole leaves in ``map_specs`` order."""
-    n = data.size
-    leaves = [(i, d, b) for i, (d, b) in enumerate(_leaves(specs, blocks, axes)) if d is not None]
-    out = {}
-    for dtype in {b.dtype for _, _, b in leaves}:
-        group = [(i, d, b) for i, d, b in leaves if b.dtype == dtype]
-        flat = data.all_gather(torch.cat([b.movedim(d, 0).reshape(-1) for _, d, b in group]), 0).reshape(n, -1)
-        for (i, d, b), part in zip(group, flat.split([b.numel() for _, _, b in group], dim=1)):
-            moved = (n * b.shape[d],) + tuple(b.shape[:d]) + tuple(b.shape[d + 1 :])
-            out[i] = part.reshape(moved).movedim(0, d).contiguous()
-    return [out[i] for i, _, _ in leaves]
-
-
 def make_eval_step(model, cfg, pc) -> Callable:
-    """Returns ``eval_step(params, batch) -> mean cross-entropy`` (no grad)."""
+    """Returns ``eval_step(params, batch) -> mean cross-entropy`` (no grad);
+    under ``pc.data`` on this replica's blocks, each layer gathered at its
+    use, the mean over this replica's ``batch``."""
 
     def eval_step(params, batch):
         batch = _on(pc.device, batch)

@@ -1731,3 +1731,36 @@ def _f32_tree(tree):
     if isinstance(tree, (list, tuple)):
         return [_f32_tree(v) for v in tree]
     return tree.float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_use_gather_on_card(dev, dtype):
+    """ZeRO-3's use-time gather (``parallel/sharding.use_gather``) over the
+    in-process World of 2 data replicas, on CUDA tensors: each replica's
+    gathered leaves and the blocks' gradients bitwise equal to autograd
+    through a plain gather (``torch.cat`` of the blocks) of the same blocks
+    (a float32 and a ``dtype`` bucket; a leaf with no data dim untouched)."""
+    from repro_torch.parallel.sharding import Spec, data_dim, place_data, use_gather
+
+    axes, n = ("pod", "data"), 2
+    data = World(n, dev)
+    specs = {"wqkv": Spec("model", axes, None), "wo": Spec("model", None, axes), "bc": Spec(axes, None),
+             "ln": Spec(None), "f32": Spec("model", axes)}  # fmt: skip
+    shapes = {"wqkv": (4, 96, 40), "wo": (4, 24, 96), "bc": (96, 16), "ln": (96,), "f32": (4, 32)}
+    whole = {k: _rand(dev, torch.float32 if k == "f32" else dtype, *shapes[k], seed=i) for i, k in enumerate(specs)}
+    blocks = {k: place_data(v, specs[k], data, axes).requires_grad_(True) for k, v in whole.items()}
+    plain = {k: b.detach().clone().requires_grad_(True) for k, b in blocks.items()}
+    out = use_gather(blocks, specs, data, axes)
+    ref = {}
+    for k, b in plain.items():
+        d = data_dim(specs[k], axes)
+        ref[k] = b if d is None else torch.cat(list(b.unbind(0)), dim=d).unsqueeze(0).expand((n,) + whole[k].shape)
+    cot = {k: _rand(dev, out[k].dtype, *out[k].shape, seed=10 + i) for i, k in enumerate(specs)}
+    got = torch.autograd.grad(sum((out[k].float() * cot[k].float()).sum() for k in specs), list(blocks.values()))
+    want = torch.autograd.grad(sum((ref[k].float() * cot[k].float()).sum() for k in specs), list(plain.values()))
+    torch.cuda.synchronize()
+    assert out["ln"] is blocks["ln"]
+    for k in specs:
+        assert out[k].device.type == "cuda" and torch.equal(out[k], ref[k]), k
+    for k, g, w in zip(specs, got, want):
+        assert g.dtype == blocks[k].dtype and torch.equal(g, w), k

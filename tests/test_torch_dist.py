@@ -16,21 +16,27 @@ Held:
   * ``psum_compressed`` over the data group against the reference's under
     ``shard_map`` over ``"data"`` of the (1, 2, 4) mesh, compiled with
     ``J_COMPILE`` (1e-6 of max: the same float32 operations);
-  * reduced smollm-360m at D = 2 x W = 4, float32, three AdamW steps, against
-    the reference's ``make_train_step`` on that mesh (``pc8``) and against
-    the port's D = 1 step, under ``test_torch_training``'s bounds
-    (parameters and moments 1e-5 + 1e-4 |ref|, loss / ce / grad_norm 1e-5
-    relative, lr 1e-7), on an unmasked and a masked batch (the masked mean
-    divides by the global count);
+  * the ZeRO-3 step (each replica stores its blocks, ``use_gather`` at
+    every layer's use): reduced smollm-360m at D = 2 x W = 4, float32, three
+    AdamW steps, against the reference's ``make_train_step`` on that mesh
+    (``pc8``) and against the port's D = 1 step, under
+    ``test_torch_training``'s bounds (parameters and moments 1e-5 + 1e-4
+    |ref|, loss / ce / grad_norm 1e-5 relative, lr 1e-7), on an unmasked
+    and a masked batch (the masked mean divides by the global count);
   * reduced mamba2-2.7b and reduced granite-moe-3b-a800m (capacity and
     routing per row, as ``jax.vmap(route)`` in the reference: a replica's
-    rows route as they do in the whole batch) at D = 2 against D = 1, one
-    step, the same bounds;
+    rows route as they do in the whole batch), smollm with fused seams,
+    smollm under remat "dots" and a reduced seamless-m4t-medium (encoder
+    frames in the batch) at D = 2 against D = 1, one step, the same bounds;
+  * the parameters and moments each replica holds after its steps: every
+    leaf ``place_data``'s block; the prefill logits and the eval ce from the
+    blocks bitwise equal to D = 1's;
   * the data transport's payload of a step against
-    ``launch/roofline.data_axis_bytes`` of the trainable leaves' specs
-    (reduce-scatter and all-reduce exactly, all-gather at one gather a
-    step), on the (pod 1, data 2, model 1) mesh: one replica process holds
-    its whole model group, so it moves what one device of that mesh does;
+    ``launch/roofline.data_axis_bytes`` of the leaves the step gathers
+    (``launch/dryrun.data_leaves``: each once a pass, again under remat),
+    every kind exactly, on the (pod 1, data 2, model 1) mesh: one replica
+    process holds its whole model group, so it moves what one device of
+    that mesh does;
   * the train CLI at ``--data 2``: checkpoints resumed at D = 2 and at D = 1,
     each resumed loss bitwise equal to the uninterrupted run's at the same
     D, and across D within the steps' bound (summation order).
@@ -45,16 +51,17 @@ import torch
 from repro_torch.backend.mesh import CommCounter, DistWorld, World
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data import SyntheticLM
+from repro_torch.launch import dryrun
 from repro_torch.launch import roofline as R
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import make_dev_mesh
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.parallel.context import ParallelContext
-from repro_torch.parallel.sharding import data_dim, gather_data, map_specs
-from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.parallel.sharding import data_dim, gather_data, map_specs, place_data
+from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training.compression import psum_compressed
 from repro_torch.training import optimizer as topt
-from repro_torch.training.steps import data_blocks
+from repro_torch.training.steps import data_blocks, gather_blocks
 from test_torch_threads import torch_threads  # noqa: F401 (the fixture that pytestmark names)
 
 pytestmark = pytest.mark.usefixtures("torch_threads")
@@ -167,38 +174,63 @@ def test_dist_world_refuses_what_it_cannot_run(tmp_path):
 # ---- the data-parallel train step ---------------------------------------------------------
 
 
-def _context(cfg, data):
-    return ParallelContext(world=World(TP, "cpu"), backend="eager", mesh_axes=make_dev_mesh(TP, D).axes, data=data)
+def _context(cfg, data, fuse_seams=False):
+    return ParallelContext(world=World(TP, "cpu"), backend="eager", mesh_axes=make_dev_mesh(TP, D).axes, data=data,
+                           fuse_seams=fuse_seams)  # fmt: skip
+
+
+def _mod(job):
+    """A job's model module (named, so the job pickles into the replica processes)."""
+    return {"lm": lm, "encdec": encdec}[job.get("mod", "lm")]
+
+
+def _local(batch, rank):
+    """This replica's rows of a global batch."""
+    rows = batch["inputs"].shape[0] // D
+    return {k: v[rank * rows : (rank + 1) * rows] for k, v in batch.items()}
 
 
 def _step_worker(data: DistWorld, jobs: dict):
-    """Each job's steps at D = 2 on this replica's rows of each global batch:
-    metrics, rank 0's parameters after them, this replica's moment blocks,
-    and the data transport's payload of the first step."""
+    """Each job's steps at D = 2 (ZeRO-3: this replica's blocks of the
+    parameters and moments) on this replica's rows of each global batch:
+    metrics, the parameters after them gathered whole (rank 0's), this
+    replica's moment blocks, the shapes of every leaf it holds after the
+    steps, the data transport's payload of the first step, and for a job
+    with ``prefill`` the prefill logits and eval ce from the blocks before
+    the steps."""
     out = {}
     for name, job in jobs.items():
-        cfg, params = job["cfg"], job["params"]
-        pc = _context(cfg, data)
-        step = make_train_step(lm, cfg, pc, AdamWConfig(**STEP_OPT), grad_masks=lm.grad_masks(cfg, pc))
-        opt = init_opt_state(data_blocks(lm, cfg, pc, lm.trainable(params, cfg)))
+        cfg, mod, remat = job["cfg"], _mod(job), job.get("remat", "none")
+        pc = _context(cfg, data, job.get("fuse_seams", False))
+        step = make_train_step(mod, cfg, pc, AdamWConfig(**STEP_OPT), remat_policy=remat,
+                               grad_masks=mod.grad_masks(cfg, pc))  # fmt: skip
+        opt = init_opt_state(data_blocks(mod, cfg, pc, mod.trainable(job["params"], cfg)))
+        params = mod.with_tied(data_blocks(mod, cfg, pc, mod.trainable(job["params"], cfg)), cfg)
+        res = {}
+        if job.get("prefill"):
+            local = _local(job["batches"][0], data.rank)
+            with torch.no_grad():
+                res["prefill"] = lm.prefill(params, cfg, pc, torch.as_tensor(local["inputs"]).long(), max_len=S)[0]
+            res["eval"] = float(make_eval_step(lm, cfg, pc)(params, local))
         metrics, payload = [], None
-        for i, batch in enumerate(job["batches"]):
-            rows = batch["inputs"].shape[0] // D
-            local = {k: v[data.rank * rows : (data.rank + 1) * rows] for k, v in batch.items()}
+        for batch in job["batches"]:
             counter = CommCounter()
             with data.counting(counter):
-                params, opt, m = step(params, opt, local)
+                params, opt, m = step(params, opt, _local(batch, data.rank))
             payload = payload or {k: float(sum(v.values())) for k, v in counter.payload.items() if v}
             metrics.append({k: float(v) for k, v in m.items()})
-        out[name] = {"metrics": metrics, "params": params if data.rank == 0 else None, "opt": opt,
+        res["shapes"] = {"params": [tuple(t.shape) for t in topt.tree_leaves(params)],
+                         **{k: [tuple(t.shape) for t in topt.tree_leaves(opt[k])] for k in ("mu", "nu")}}  # fmt: skip
+        whole = mod.with_tied(gather_blocks(mod, cfg, pc, mod.trainable(params, cfg)), cfg)
+        out[name] = {**res, "metrics": metrics, "params": whole if data.rank == 0 else None, "opt": opt,
                      "payload": payload}  # fmt: skip
     return out
 
 
 def _jobs(jpc):
-    """The three models' inputs: reduced configs, seeded weights (smollm's
-    from the JAX package's init on ``jpc``, with drawn norm gains), global
-    batches."""
+    """The models' inputs: reduced configs, seeded weights (smollm's from
+    the JAX package's init on ``jpc``, with drawn norm gains), global
+    batches; smollm's also with fused seams and under remat "dots"."""
     import jax
     import jax.numpy as jnp
 
@@ -216,13 +248,22 @@ def _jobs(jpc):
     batches = [pipe.host_batch() for _ in range(3)]
     mask = (np.random.default_rng(7).random((B, S)) < 0.6).astype(np.float32)
     mask[0] = 0.0  # one row all masked: the replicas' counts differ
-    jobs = {"smollm": {"cfg": cfg, "params": from_jax_params(np_params, cfg, World(TP, "cpu")), "batches": batches},
+    jobs = {"smollm": {"cfg": cfg, "params": from_jax_params(np_params, cfg, World(TP, "cpu")), "batches": batches,
+                       "prefill": True},
             "smollm_mask": {"cfg": cfg, "params": from_jax_params(np_params, cfg, World(TP, "cpu")),
-                            "batches": [{**batches[0], "mask": mask}]}}  # fmt: skip
+                            "batches": [{**batches[0], "mask": mask}]},
+            "smollm_seams": {"cfg": cfg, "params": from_jax_params(np_params, cfg, World(TP, "cpu")),
+                             "batches": batches[:1], "fuse_seams": True},
+            "smollm_dots": {"cfg": cfg, "params": from_jax_params(np_params, cfg, World(TP, "cpu")),
+                            "batches": batches[:1], "remat": "dots"}}  # fmt: skip
     for name, arch in (("mamba", "mamba2-2.7b"), ("moe", "granite-moe-3b-a800m")):
         c = dataclasses.replace(reduce_config(get_config(arch)), vocab_size=VOCAB)
         p = lm.init(c, World(TP, "cpu"), torch.Generator().manual_seed(0), torch.float32)
         jobs[name] = {"cfg": c, "params": p, "batches": batches[:1]}
+    c = dataclasses.replace(reduce_config(get_config("seamless-m4t-medium")), vocab_size=VOCAB)
+    frames = (np.random.default_rng(3).standard_normal((B, 2 * S, c.d_model)) * 0.5).astype(np.float32)
+    jobs["seamless"] = {"cfg": c, "mod": "encdec", "batches": [{**batches[0], "embeds": frames}],
+                        "params": encdec.init(c, World(TP, "cpu"), torch.Generator().manual_seed(0), torch.float32)}
     return {"jobs": jobs, "jcfg": jcfg, "np_params": np_params}
 
 
@@ -236,10 +277,11 @@ def d2(pc8):
 
 def _d1(job):
     """The port's D = 1 steps of a job: (metrics, parameters, moments)."""
-    cfg = job["cfg"]
-    pc = ParallelContext(world=World(TP, "cpu"), backend="eager")
-    step = make_train_step(lm, cfg, pc, AdamWConfig(**STEP_OPT), grad_masks=lm.grad_masks(cfg, pc))
-    p, o = topt.tree_map(torch.clone, job["params"]), init_opt_state(lm.trainable(job["params"], cfg))
+    cfg, mod = job["cfg"], _mod(job)
+    pc = ParallelContext(world=World(TP, "cpu"), backend="eager", fuse_seams=job.get("fuse_seams", False))
+    step = make_train_step(mod, cfg, pc, AdamWConfig(**STEP_OPT), remat_policy=job.get("remat", "none"),
+                           grad_masks=mod.grad_masks(cfg, pc))  # fmt: skip
+    p, o = topt.tree_map(torch.clone, job["params"]), init_opt_state(mod.trainable(job["params"], cfg))
     ms = []
     for batch in job["batches"]:
         p, o, m = step(p, o, batch)
@@ -247,7 +289,7 @@ def _d1(job):
     return ms, p, o
 
 
-def _gathered(cfg, blocks):
+def _gathered(cfg, blocks, mod=lm):
     """The replicas' moment blocks joined along each leaf's data dim (the in-process World's unshard)."""
     pc = _context(cfg, World(D, "cpu"))
 
@@ -257,7 +299,7 @@ def _gathered(cfg, blocks):
             return bs[0]
         return gather_data(torch.stack(bs), spec, pc.data, pc.dp_axes)
 
-    return map_specs(join, lm.trainable(lm.specs(cfg, pc), cfg), *blocks)
+    return map_specs(join, mod.trainable(mod.specs(cfg, pc), cfg), *blocks)
 
 
 def _close_trees(a, b, what):
@@ -276,17 +318,52 @@ def _close_metrics(got, want, what):
         assert abs(g["lr"] - w["lr"]) <= 1e-7 * w["lr"], what
 
 
-@pytest.mark.parametrize("name", ["smollm", "smollm_mask", "mamba", "moe"])
+JOBS = ["smollm", "smollm_mask", "mamba", "moe", "smollm_seams", "smollm_dots", "seamless"]
+
+
+@pytest.mark.parametrize("name", JOBS)
 def test_d2_step_matches_d1(d2, name):
     """The D = 2 step against the port's D = 1 step on the same global batch."""
     job = d2["jobs"][name]
-    got = d2["got"]
+    got, mod = d2["got"], _mod(job)
     ms, p, o = _d1(job)
     _close_metrics(got[0][name]["metrics"], ms, name)
     assert got[0][name]["metrics"] == got[1][name]["metrics"]  # every replica reports the global metrics
-    _close_trees(lm.trainable(got[0][name]["params"], job["cfg"]), lm.trainable(p, job["cfg"]), name + " params")
+    _close_trees(mod.trainable(got[0][name]["params"], job["cfg"]), mod.trainable(p, job["cfg"]), name + " params")
     for k in ("mu", "nu"):
-        _close_trees(_gathered(job["cfg"], [r[name]["opt"][k] for r in got]), o[k], f"{name} {k}")
+        _close_trees(_gathered(job["cfg"], [r[name]["opt"][k] for r in got], mod), o[k], f"{name} {k}")
+
+
+@pytest.mark.parametrize("name", JOBS)
+def test_d2_step_leaves_each_replica_its_blocks(d2, name):
+    """After its steps every replica holds only its blocks: each parameter
+    (the tied head's copy included) and moment leaf has ``place_data``'s
+    shape of the whole leaf."""
+    job = d2["jobs"][name]
+    cfg, mod = job["cfg"], _mod(job)
+    pc = _context(cfg, World(D, "cpu"))
+    specs = mod.trainable(mod.specs(cfg, pc), cfg)
+    blocks = map_specs(lambda s, t: place_data(t, s, pc.data, pc.dp_axes)[0] if data_dim(s, pc.dp_axes) is not None
+                       else t, specs, mod.trainable(job["params"], cfg))  # fmt: skip
+    want = [tuple(t.shape) for t in topt.tree_leaves(blocks)]
+    for r in d2["got"]:
+        assert r[name]["shapes"]["mu"] == r[name]["shapes"]["nu"] == want
+        assert r[name]["shapes"]["params"] == [tuple(t.shape) for t in topt.tree_leaves(mod.with_tied(blocks, cfg))]
+    assert any(a != tuple(t.shape) for a, t in zip(want, topt.tree_leaves(mod.trainable(job["params"], cfg))))
+
+
+def test_d2_prefill_and_eval_match_d1(d2):
+    """Prefill logits and the eval ce from each replica's blocks (each layer
+    gathered at its use) bitwise equal to D = 1's on the same rows."""
+    job = d2["jobs"]["smollm"]
+    cfg = job["cfg"]
+    pc = ParallelContext(world=World(TP, "cpu"), backend="eager")
+    for r, out in enumerate(d2["got"]):
+        local = _local(job["batches"][0], r)
+        with torch.no_grad():
+            want = lm.prefill(job["params"], cfg, pc, torch.as_tensor(local["inputs"]).long(), max_len=S)[0]
+        assert torch.equal(out["smollm"]["prefill"], want)
+        assert out["smollm"]["eval"] == float(make_eval_step(lm, cfg, pc)(job["params"], local))
 
 
 def test_d2_step_matches_reference(d2, pc8, mesh8):
@@ -318,18 +395,19 @@ def test_d2_step_matches_reference(d2, pc8, mesh8):
     assert int(got[0]["smollm"]["opt"]["step"]) == int(jo["step"]) == 3
 
 
-@pytest.mark.parametrize("name", ["smollm", "mamba", "moe"])
+@pytest.mark.parametrize("name", ["smollm", "mamba", "moe", "smollm_seams", "smollm_dots", "seamless"])
 def test_d2_step_moves_the_modelled_data_bytes(d2, name):
-    """A step's payload on the data transport against ``data_axis_bytes``
-    (mesh (pod 1, data 2, model 1): the process's own stored leaves)."""
-    cfg = d2["jobs"][name]["cfg"]
+    """A step's payload on the data transport against ``data_axis_bytes`` of
+    the leaves the step gathers, at the uses it makes (once a pass; again
+    under remat) (mesh (pod 1, data 2, model 1): the process's own stored
+    leaves)."""
+    job = d2["jobs"][name]
+    cfg, mod, remat = job["cfg"], _mod(job), job.get("remat", "none")
     mesh = {"pod": 1, "data": D, "model": 1}
     pc = _context(cfg, World(D, "cpu"))
-    leaves = []
-    params = lm.trainable(d2["jobs"][name]["params"], cfg)
-    map_specs(lambda s, t: leaves.append((tuple(t.shape), t.dtype, s, 1, True)), lm.trainable(lm.specs(cfg, pc), cfg),
-              params)  # fmt: skip
-    _, want = R.data_axis_bytes(leaves, mesh, pc.dp_axes, train=True, recompute=False)
+    leaves = dryrun.data_leaves(cfg, job["params"], mod.specs(cfg, pc), train=True, remat=remat,
+                                fuse_seams=job.get("fuse_seams", False))  # fmt: skip
+    _, want = R.data_axis_bytes(leaves, mesh, pc.dp_axes, train=True, recompute=remat != "none")
     for r in d2["got"]:
         counter = CommCounter()
         for kind, nbytes in r[name]["payload"].items():
