@@ -201,6 +201,32 @@ non-zero (no phase catches its own failure):
               D; and a ring permute over the group (the collective the
               table stages through host memory) delivers the peer's tensor
               bitwise.
+  11e. serve_dp  data-parallel serving, in the dp phase's spawn: each
+              replica builds the serve CLI's context and parameters
+              (``launch/serve.serve_context`` / ``serve_params``:
+              ``make_dev_mesh(4, DP_REPLICAS)``, this replica's blocks,
+              each layer gathered at its use) for smollm-360m at full depth
+              and width.  (a) bf16: ``ServeEngine`` on SERVE_DP's seeded
+              requests (8, prompts 64, 16 new tokens, 2 sampled at
+              temperature 0.8 / top-k 40) on 8 slots (4 a replica), decode
+              block 16, eager (no capture under data): tokens/s and ms per
+              step, host syncs per step (1) and graph captures (0) held,
+              launches per replica per ``lm.decode_step`` call held to the
+              D = 1 eager engine's on 4 slots, the data transport's bytes
+              over the drain held to ``launch/roofline.data_axis_bytes`` of
+              one ``decode_step``'s gathers times the calls plus the
+              token-buffer all-gathers, each replica's placed blocks
+              (requested bytes) within CAL_ARG_RTOL of ``launch/dryrun``'s
+              parameter arguments of one replica, and peak memory per
+              process; (b) float32 at SERVE_DP_F32_LAYERS layers, full
+              width: the same requests at D = 2 against the D = 1 engine,
+              every sampled request equal token for token and a greedy one
+              only where the per-token reference shows a near tie
+              (NEAR_TIE); (c) ``serve.greedy`` at D = 2 on the serve
+              phase's 4 x 256 prompts (2 rows a replica): launches per
+              replica held (64 / 64 / 32 / 1 + 15 decode heads), and the
+              float32 prefill logits at SERVE_DP_F32_LAYERS layers within
+              the serve phase's bound of D = 1's on the same rows.
   12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
               published widths, W = 4, 8 x 256 tokens a step (the grouped
               expert GEMM in the forward and, on the transposed weights, for
@@ -536,7 +562,8 @@ layers, its resume check 2; the zamba2 phase's float32 step 12 of 54, its
 resume check 6; the encdec phase's f32 step and resume check 2 + 2 of
 12 + 12, the vlm phase's f32 step 4 of 18 layers at 4 rows (8 ran the
 card out of memory) and its resume check 2; the dp phase's f32 check
-DP_F32_LAYERS of smollm-360m's 32.  Every other path runs at full depth
+DP_F32_LAYERS of smollm-360m's 32, the serve_dp phase's f32 checks
+SERVE_DP_F32_LAYERS.  Every other path runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -598,6 +625,10 @@ TRAIN_WARMUP = 3  # steps left out of the median step time
 # depth of the float32 check; the remat policy of its second D = 2 run and that run's steps
 DP_REPLICAS, DP_STEPS, DP_D1_STEPS, DP_F32_LAYERS = 2, 20, 10, 2
 DP_REMAT, DP_REMAT_STEPS = "dots", 5
+# the serve_dp phase (in the dp phase's spawn): smollm-360m's engine at D = DP_REPLICAS on seeded requests (all
+# prompts 64, 16 new tokens), its global slots and decode block; the depth of its float32 checks
+SERVE_DP = dict(requests=8, prompt=(64, 64), new=(16, 16), sampled=2, slots=8, max_len=80, decode_block=16)
+SERVE_DP_F32_LAYERS = 2
 TRAIN_CKPT_LAYERS, TRAIN_CKPT_AT = 2, 3  # (c): depth of the resume check, the step it saves at
 # the train_seam phase: (a) bf16 AdamW steps of each form, in turns (the first of each left out of the median);
 # (b), (c) the depth of the float32 steps at smollm-360m's width
@@ -2555,7 +2586,7 @@ def _drain(cfg, pc, params, reqs, spec: dict, capture: bool):
     from repro_torch.serving import ServeEngine
 
     eng = ServeEngine(cfg, pc, params, max_len=spec["max_len"], n_slots=spec["slots"], prefill_chunk=ENGINE_CHUNK,
-                      capture=capture)
+                      decode_block=spec.get("decode_block", 32), capture=capture)
     handles = [eng.submit(r) for r in reqs]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2885,7 +2916,8 @@ def _seam_step_f32(cfg, world, batch) -> dict:
     return out
 
 
-def _dp_worker(data, cfg, runs, kw: dict, layers_f32: int, batch_rows: int, seq: int, remats) -> dict:
+def _dp_worker(data, cfg, runs, kw: dict, layers_f32: int, batch_rows: int, seq: int, remats,
+               serve_spec: dict) -> dict:
     """One replica process of the dp phase (imported by name from this
     module by ``launch/train.run_replicas``'s processes): the bf16 ZeRO-3
     runs ``runs`` ((remat, steps) pairs), each the train CLI's replica loop
@@ -2897,7 +2929,8 @@ def _dp_worker(data, cfg, runs, kw: dict, layers_f32: int, batch_rows: int, seq:
     blocks and (rank 0) the parameters after it, gathered whole; then
     ``psum_compressed`` of a seeded gradient over the group and an exact
     float32 all-reduce of the same, with the transport's staging and staged
-    bytes."""
+    bytes; then the serve_dp phase's replica (:func:`_serve_dp_replica` of
+    ``serve_spec``)."""
     import dataclasses
 
     import torch
@@ -2964,6 +2997,8 @@ def _dp_worker(data, cfg, runs, kw: dict, layers_f32: int, batch_rows: int, seq:
                            "scale_max": data.pmax(scale.reshape(1))[0].item(), "max_exact": exact.abs().max().item(),
                            "staged": dict(c.staged),
                            "payload": {k: float(sum(v.values())) for k, v in c.payload.items() if v}})  # fmt: skip
+    del g, err, mean, new_err, exact, got, peer
+    out["serve"] = _serve_dp_replica(data, serve_spec)
     return out
 
 
@@ -3086,7 +3121,7 @@ def phase_dp() -> dict:
     res = train_cli.run_replicas(this._dp_worker, DP_REPLICAS, device="cuda",
                                  staging=train_cli.staging_for("gloo", "cuda"),
                                  args=(cfg, (("none", DP_STEPS), (DP_REMAT, DP_REMAT_STEPS)), replica_kw,
-                                       DP_F32_LAYERS, TRAIN_BATCH, TRAIN_SEQ, remats))  # fmt: skip
+                                       DP_F32_LAYERS, TRAIN_BATCH, TRAIN_SEQ, remats, SERVE_DP))  # fmt: skip
     spawn_wall = time.perf_counter() - t0
     runs = {remat: {"history": res[0]["bf16"][remat]["history"], "wall": res[0]["bf16"][remat]["wall"],
                     "replicas": [r["bf16"][remat] for r in res]} for remat in remats}  # fmt: skip
@@ -3192,6 +3227,7 @@ def phase_dp() -> dict:
     out["compressed"] = {"new_err_over_half_scale": half, "err_vs_exact": err, "bound": bound}
     out["staging"] = res[0]["staging"]
     out["counts"] = {k: out["bf16"]["counts"][k] + out["bf16_remat"]["counts"][k] for k in out["bf16"]["counts"]}
+    out["serve"] = [r["serve"] for r in res]  # the serve_dp phase's replicas, read by phase_serve_dp
     return out
 
 
@@ -3216,6 +3252,217 @@ def _dp_join(cfg, blocks: list):
         return gather_data(torch.stack(bs), spec, World(len(blocks), "cpu"), pc.dp_axes)
 
     return map_specs(join, lm.trainable(lm.specs(cfg, pc), cfg), *blocks)
+
+
+def _serve_dp_replica(data, spec: dict) -> dict:
+    """One replica of the serve_dp phase (module docstring, phase 11e), in a
+    process of the dp phase's spawn: the serve CLI's context and parameters
+    (``launch/serve.serve_context`` / ``serve_params``: this replica's blocks)
+    for (a) the bf16 engine on ``spec``'s requests, its launch counts and
+    the data transport's payload counted over the drain, the placed blocks'
+    bytes and the peak; (b) the float32 engine at SERVE_DP_F32_LAYERS
+    layers on the same requests; (c) ``serve.greedy`` on this replica's rows
+    of the serve phase's prompts, bf16 at full depth (counted), and the
+    float32 prefill logits at SERVE_DP_F32_LAYERS layers against D = 1's on
+    the same rows in this process."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import CommCounter
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import device_bytes
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.serving import ServeEngine
+
+    dev = data.device
+    cfg = get_config(ARCH)
+    cut = dataclasses.replace(cfg, n_layers=SERVE_DP_F32_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pc = serve.serve_context(WORLD, dev, data)
+    reqs = _engine_requests(cfg, spec)
+    kw = dict(max_len=spec["max_len"], n_slots=spec["slots"], prefill_chunk=ENGINE_CHUNK,
+              decode_block=spec["decode_block"])  # fmt: skip
+    out = {}
+    # (a) the bf16 engine at full depth and width
+    before = device_bytes(dev)
+    params = serve.serve_params(cfg, pc, "bf16", seed=0, log=False)
+    placed = {k: v - before[k] for k, v in device_bytes(dev).items()}
+    eng = ServeEngine(cfg, pc, params, **kw)
+    handles = [eng.submit(r) for r in reqs]
+    counter = CommCounter()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with data.counting(counter):
+        outs = eng.drain(handles)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    out["engine"] = {"tokens": [outs[h].tolist() for h in handles], "wall": wall, "counts": counts,
+                     "stats": {k: v for k, v in eng.stats.items() if k != "launches"}, "placed": placed,
+                     "payload": {k: float(sum(v.values())) for k, v in counter.payload.items() if v},
+                     "n_loc": eng.pool.n_loc, "capture": eng.capture}  # fmt: skip
+    del eng
+    # (c) serve.greedy on this replica's rows, bf16, counted
+    prompts = torch.from_numpy(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, seed=0)).to(dev)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        toks, timings = serve.greedy(params, cfg, pc, prompts, NEW_TOKENS)
+    out["greedy"] = {"counts": K.launch_counts(), "rows": toks.shape[0], "timings": timings,
+                     "tokens_ok": bool(((toks >= 0) & (toks < cfg.vocab_size)).all())}  # fmt: skip
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, toks
+    torch.cuda.empty_cache()
+    # (b) float32 at SERVE_DP_F32_LAYERS layers: the engine's tokens (held against D = 1 by the parent)
+    p32 = serve.serve_params(cut, pc, "f32", seed=0, log=False)
+    eng = ServeEngine(cut, pc, p32, **kw)
+    handles = [eng.submit(r) for r in reqs]
+    outs = eng.drain(handles)
+    out["f32_tokens"] = [outs[h].tolist() for h in handles]
+    del eng
+    # (c) the float32 prefill logits of this replica's rows against D = 1's in this process
+    rows = data.shard(prompts, 0)
+    with torch.no_grad():
+        got = lm.prefill(p32, cut, pc, rows, max_len=PROMPT)[0]
+        whole = lm.init(cut, pc.world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+        want = lm.prefill(whole, cut, ParallelContext(world=pc.world), rows, max_len=PROMPT)[0]
+    diff = (got - want).abs()
+    out["greedy"]["f32"] = {"max_abs": diff.max().item(), "worst": (diff - LOGIT_RTOL * want.abs()).max().item(),
+                            "max_ref": want.abs().max().item(), "finite": bool(torch.isfinite(got).all()),
+                            "n": got.numel()}  # fmt: skip
+    del p32, whole, got, want, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_dp(reps: list, smi: str) -> dict:
+    """Data-parallel serving on the one card (module docstring, phase 11e):
+    the replicas' records from the dp phase's spawn, held against the D = 1
+    engine and the model of the data transport."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import CommCounter, World
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    spec, n = SERVE_DP, DP_REPLICAS
+    cfg = get_config(ARCH)
+    cut = dataclasses.replace(cfg, n_layers=SERVE_DP_F32_LAYERS)
+    reqs = _engine_requests(cfg, spec)
+    engines = [r["engine"] for r in reps]
+    e0 = engines[0]
+    st = e0["stats"]
+    n_tok = sum(map(len, e0["tokens"]))
+    if any(e["tokens"] != e0["tokens"] or e["stats"] != st for e in engines):
+        raise SystemExit("chip_smoke: serve_dp: the replicas' engines returned different tokens or counters")
+    if [len(t) for t in e0["tokens"]] != [r.max_new_tokens for r in reqs] or not all(
+        0 <= x < cfg.vocab_size for t in e0["tokens"] for x in t
+    ):
+        raise SystemExit("chip_smoke: serve_dp: the engine's token counts or ids are wrong")
+    if not (st["host_syncs"] == st["steps"] > 0 and st["graph_captures"] == 0 and not e0["capture"]
+            and e0["n_loc"] == spec["slots"] // n):  # fmt: skip
+        raise SystemExit(f"chip_smoke: serve_dp: engine counters {st} break the contract")
+    # (a) launches per replica against the D = 1 eager engine on n_slots / D slots (per lm.decode_step call)
+    world = World(WORLD, "cuda")
+    pc1 = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
+    K.reset_launch_counts()
+    eng1, toks1, wall1 = _drain(cfg, pc1, params, reqs, {**spec, "slots": spec["slots"] // n}, capture=False)
+    c1, calls1 = K.launch_counts(), eng1.stats["decode_calls"]
+    del eng1, params
+    torch.cuda.empty_cache()
+    calls = st["decode_calls"]
+    bad = [(k, e["counts"][k], c1[k]) for e in engines for k in c1 if e["counts"][k] * calls1 != c1[k] * calls]
+    per_step = {k: v / st["steps"] for k, v in e0["counts"].items() if v}
+    print(f"[serve_dp] (a) bf16 {ARCH} at D={n} replica processes x W={WORLD} on one card ({smi}): {len(reqs)} requests "
+          f"({spec['sampled']} sampled), {n_tok} tokens on {spec['slots']} slots ({spec['slots'] // n} a replica), "
+          f"decode block {spec['decode_block']}: {n_tok / e0['wall']:.1f} tokens/s, {st['steps']} steps, "
+          f"{e0['wall'] * 1e3 / st['steps']:.2f} ms per step ({e0['wall']:.2f} s, rank 0's host clock); host syncs "
+          f"{st['host_syncs']}, graph captures {st['graph_captures']}, lm.decode_step calls {calls}; launches per "
+          f"replica per step {per_step} ({[e['counts'] for e in engines]} over the run), the D=1 eager engine on "
+          f"{spec['slots'] // n} slots {c1} over {calls1} calls (held: equal per call); D=1 {n_tok / wall1:.1f} "
+          f"tokens/s")  # fmt: skip
+    if bad or not e0["counts"]["matmul"]:
+        raise SystemExit(f"chip_smoke: serve_dp: launches per call differ from the D=1 engine's: {bad}")
+    # the data transport: data_axis_bytes of one decode_step's gathers x the calls, plus the token-buffer gathers
+    pcm = make_dev_mesh(WORLD, n).context("meta")
+    aparams, pspecs = S.abstract_params(cfg, pcm, torch.bfloat16)
+    mesh = {"pod": 1, "data": n, "model": 1}
+    per_call = R.data_axis_bytes(dryrun.data_leaves(cfg, aparams, pspecs, train=False), mesh, pcm.dp_axes,
+                                 train=False, recompute=False)[1]  # fmt: skip
+    sync = CommCounter()
+    sync.add("all_gather", n * (spec["slots"] // n + 1) * (spec["decode_block"] + 1) * 8 * st["steps"], n)
+    want = {"all-gather": per_call["all-gather"] * calls + R.collective_bytes(sync)[1]["all-gather"]}
+    got = []
+    for e in engines:
+        counter = CommCounter()
+        for kind, nbytes in e["payload"].items():
+            counter.add(kind, nbytes, n)
+        got.append(R.collective_bytes(counter)[1])
+    print(f"[serve_dp] (a) data-axis link bytes of the drain, counted {got} against launch/roofline.data_axis_bytes "
+          f"of one decode_step's gathers {per_call} x {calls} calls + {st['steps']} token-buffer all-gathers = {want} "
+          f"(held exactly); {want['all-gather'] / st['steps']:.0f} B a step")  # fmt: skip
+    if any(g != want for g in got):
+        raise SystemExit(f"chip_smoke: serve_dp: the data transport moved {got}, the model says {want}")
+    plan = dryrun.run_cell(ARCH, Shape("decode_serve_dp", spec["max_len"], spec["slots"], "decode"),
+                           mesh=make_dev_mesh(WORLD, n), remat="none", verbose=False, extrapolate=False)  # fmt: skip
+    pred = plan["memory"]["world"]["arguments"]["params"]
+    placed = [r["engine"]["placed"]["requested"] for r in reps]
+    alloc = [r["engine"]["placed"]["allocated"] for r in reps]
+    errs = [abs(pred - b) / b for b in placed]
+    peaks = [r["peak_bytes"] for r in reps]
+    print(f"[serve_dp] (a) each replica's placed parameter blocks: requested {placed} B (memory_allocated {alloc} B) "
+          f"against launch/dryrun's parameter arguments of one replica's model group {pred} B (rel err "
+          f"{max(errs):.3e}, bound {CAL_ARG_RTOL:g}); peak memory per process {[round(b / 2**20) for b in peaks]} "
+          f"MiB")  # fmt: skip
+    if max(errs) > CAL_ARG_RTOL:
+        raise SystemExit(f"chip_smoke: serve_dp: a replica's placed blocks {placed} miss the plan's {pred}")
+    # (b) float32 at SERVE_DP_F32_LAYERS layers: D = 2 against the D = 1 engine on the same requests
+    toks2 = reps[0]["f32_tokens"]
+    p32 = lm.init(cut, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
+    eng1, toks1, _ = _drain(cut, pc1, p32, reqs, spec, capture=False)
+    del eng1
+    differ = [i for i, (a, b) in enumerate(zip(toks2, toks1)) if a != b]
+    if any(r["f32_tokens"] != toks2 for r in reps) or any(reqs[i].temperature > 0 for i in differ):
+        raise SystemExit(f"chip_smoke: serve_dp: f32 requests {differ} differ from D=1 (sampled, or between replicas)")
+    ties = _near_tie_check(f"serve_dp f32 {cut.name}", cut, pc1, p32, [reqs[i] for i in differ],
+                           [toks2[i] for i in differ], spec["max_len"]) if differ else 0  # fmt: skip
+    print(f"[serve_dp] (b) f32 {ARCH} at {SERVE_DP_F32_LAYERS} layers, D={n} against D=1 on the same {len(reqs)} "
+          f"requests: {len(reqs) - len(differ)} equal token for token (the sampled ones all), {len(differ)} differ "
+          f"within the {NEAR_TIE:g} logit gap ({ties} near ties)")  # fmt: skip
+    del p32
+    torch.cuda.empty_cache()
+    # (c) serve.greedy at D = 2: launches per replica, f32 logits against D = 1 on the same rows
+    expect = {"ag_gemm": 2 * cfg.n_layers, "gemm_rs": 2 * cfg.n_layers, "flash_attention": cfg.n_layers,
+              "matmul": NEW_TOKENS}  # fmt: skip
+    gr = [r["greedy"] for r in reps]
+    f32 = [g["f32"] for g in gr]
+    print(f"[serve_dp] (c) serve.greedy at D={n}: {BATCH} x {PROMPT} prompt tokens, {gr[0]['rows']} rows a replica, "
+          f"{NEW_TOKENS} new; launches per replica {[g['counts'] for g in gr]} (held: {expect}, the prefill's and "
+          f"{NEW_TOKENS - 1} decode heads); prefill {[round(g['timings']['prefill_s'] * 1e3, 2) for g in gr]} ms, "
+          f"decode {[round(g['timings']['decode_s'] * 1e3, 2) for g in gr]} ms; f32 prefill logits at "
+          f"{SERVE_DP_F32_LAYERS} layers against D=1 on the same rows: max|diff| {[f['max_abs'] for f in f32]} (bound "
+          f"{LOGIT_ATOL:g} + {LOGIT_RTOL:g} |D=1|; max|D=1| {[round(f['max_ref'], 3) for f in f32]})")  # fmt: skip
+    nonzero = [{k: v for k, v in g["counts"].items() if v} for g in gr]
+    if any(c != expect for c in nonzero) or not all(g["tokens_ok"] for g in gr):
+        raise SystemExit(f"chip_smoke: serve_dp: serve.greedy launched {nonzero} (expected {expect})")
+    if not all(f["finite"] and f["worst"] <= LOGIT_ATOL for f in f32):
+        raise SystemExit(f"chip_smoke: serve_dp: the D={n} f32 prefill logits disagree with D=1's: {f32}")
+    counts = {k: sum(e["counts"][k] + g["counts"][k] for e, g in zip(engines, gr)) for k in c1}
+    return {"tokens_per_s": n_tok / e0["wall"], "ms_per_step": e0["wall"] * 1e3 / st["steps"], "steps": st["steps"],
+            "decode_calls": calls, "per_step": per_step, "d1_counts": c1, "d1_calls": calls1,
+            "bytes": {"counted": got[0], "modelled": want, "per_call": per_call}, "placed": placed,
+            "placed_predicted": pred, "placed_rel_err": max(errs), "peak_bytes": peaks, "f32_differ": differ,
+            "near_ties": ties, "greedy": gr, "counts": counts, "d1_tokens_per_s": n_tok / wall1}  # fmt: skip
 
 
 def phase_train_seam() -> dict:
@@ -5241,7 +5488,8 @@ def main(argv=None) -> int:
     phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
-              "train_seam": phase_train_seam, "dp": phase_dp, "examples": phase_examples,
+              "train_seam": phase_train_seam, "dp": phase_dp, "serve_dp": lambda: phase_serve_dp(out["dp"].pop("serve"), smi),
+              "examples": phase_examples,
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
@@ -5268,6 +5516,7 @@ def main(argv=None) -> int:
     by_path[f"train {ARCH}"] = out["train"]["bf16"]["counts"]
     by_path[f"train_seam {ARCH}"] = out["train_seam"]["counts"]
     by_path[f"dp {ARCH}"] = out["dp"]["counts"]  # both replica processes' launches
+    by_path[f"serve_dp {ARCH}"] = out["serve_dp"]["counts"]  # both replicas' engine and serve.greedy
     by_path["examples"] = out["examples"]["counts"]
     by_path[f"train_moe {ARCH_MOE}"] = out["train_moe"]["bf16"]["counts"]
     by_path[f"train_moe {ARCH_DS}"] = out["train_moe"]["bf16_ds"]["counts"]

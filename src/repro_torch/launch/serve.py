@@ -25,24 +25,51 @@ expert for each of them):
       --batch 8 --prompt-len 256 --new-tokens 32 --slots 4
 
 Add ``--device cpu --reduce`` for a small run on the CPU.
+
+``--data D`` serves with D data-parallel replicas of the W-rank model group
+(the JAX package's ``make_dev_mesh()``: ``(pod, data, model)`` with pod x
+data = D), one spawned process each (``launch/train.run_replicas``, joined
+by a gloo :class:`~repro_torch.backend.mesh.DistWorld`, staged as
+``launch/train.staging_for`` says).  Every replica makes the same seeded
+prompts and submits the same requests to one logical engine: the slots are
+split over the replicas, each stores only its block of every parameter the
+data axes split (ZeRO-3, ``training.steps.data_blocks``), and each layer is
+gathered at its use (``serving/engine.py``: no CUDA-graph capture under
+data).  Rank 0 prints; ``serve`` returns its tokens and counters.
+``--mode baseline`` runs the non-overlapped collectives (``ParallelContext``).
+``--ckpt-dir`` restores the newest step that ``launch/train`` wrote (at any
+D: its checkpoints hold the logical arrays), then places the parameters,
+as the JAX package's serve CLI does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --data 2 \\
+      --batch 8 --prompt-len 64 --new-tokens 16 --slots 8 --decode-block 16 --ckpt-dir /path/to/ckpt
+
+On the CPU: ``--data 2 --device cpu --reduce``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.backend.mesh import World
+from repro_torch.backend.mesh import DistWorld, World
+from repro_torch.backend.target import resolve_device
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduce_config
+from repro_torch.launch.mesh import make_dev_mesh
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving import Request, ServeEngine
+from repro_torch.training import init_opt_state
+from repro_torch.training.optimizer import tree_map
+from repro_torch.training.steps import data_blocks
 
-__all__ = ["greedy", "serve", "make_prompts", "main"]
+__all__ = ["greedy", "serve", "serve_replica", "serve_context", "serve_params", "make_prompts", "main"]
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # the JAX package's serve CLI refuses an encoder-decoder the same way
@@ -73,7 +100,13 @@ def greedy(
 
     Returns (tokens [B, new_tokens], timings) with the prefill and decode
     seconds (host clock around work that ends in a device synchronise).
+    Under ``pc.data`` (``params`` this replica's blocks) replica r decodes
+    its rows r B/D .. (r+1) B/D of ``prompts`` (and ``embeds``), and the
+    tokens are those rows'.
     """
+    if pc.data is not None:
+        prompts = pc.data.shard(prompts, 0)
+        embeds = None if embeds is None else pc.data.shard(embeds, 0)
     s0 = prompts.shape[1] + (0 if embeds is None else embeds.shape[1])
     max_len = max_len or s0 + new_tokens
     dev = pc.device
@@ -111,22 +144,99 @@ def serve(
     top_k: int = 0,
     eos_id: Optional[int] = None,
     moe_stream: bool = False,
+    mode: str = "overlap",
+    ckpt_dir: Optional[str] = None,
+    data: int = 1,
 ) -> dict:
-    """Build a seeded model and serve ``batch`` requests through the
-    continuous-batching engine (``serving.ServeEngine``: a captured step on
-    the card, the same step eagerly on the CPU).  Request i samples with
-    seed ``seed + i``; ``moe_stream`` streams the MoE decode.  Returns the
-    tokens [batch, new_tokens] (-1 after an eos), the wall time of the drain
-    and the engine's counters."""
+    """Build a seeded model (restored from ``ckpt_dir``'s newest step when
+    it has one) and serve ``batch`` requests through the continuous-batching
+    engine (``serving.ServeEngine``: a captured step on the card, the same
+    step eagerly on the CPU).  Request i samples with seed ``seed + i``;
+    ``moe_stream`` streams the MoE decode; ``mode`` is the
+    ``ParallelContext``'s.  ``data`` > 1 serves with that many replica
+    processes (module docstring).  Returns the tokens [batch, new_tokens]
+    (-1 after an eos), the wall time of the drain and the engine's counters
+    (rank 0's under ``data``, with "replicas": each process's peak device
+    memory, placed parameter bytes, launch counts and data-transport
+    payload)."""
+    kw = dict(batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, world=world, dtype=dtype, seed=seed,
+              reduce=reduce, slots=slots, decode_block=decode_block, temperature=temperature, top_k=top_k,
+              eos_id=eos_id, moe_stream=moe_stream, mode=mode, ckpt_dir=ckpt_dir)  # fmt: skip
+    if data == 1:
+        return _serve(arch, device=device, dist=None, **kw)
+    if data < 1:
+        raise ValueError(f"--data {data}: the replica count must be >= 1")
+    from repro_torch.launch import train as train_cli  # it imports this module
+
+    dev = resolve_device(device)
+    stage = train_cli.staging_for("gloo", dev)
+    print(f"data axis: {data} replica processes over torch.distributed gloo, staging {stage or 'direct'}")
+    outs = train_cli.run_replicas(serve_replica, data, device=dev, staging=stage, args=(arch, kw))
+    keys = ("peak_bytes", "placed_bytes", "launches", "data_bytes")
+    return {**outs[0], "replicas": [{k: o[k] for k in keys} for o in outs]}
+
+
+def serve_replica(dist: DistWorld, arch: str, kw: dict) -> dict:
+    """One replica of ``serve(data=D)``, in a process of ``dist``: ``kw``
+    holds every keyword of :func:`serve` from ``batch`` to ``ckpt_dir``."""
+    return _serve(arch, device=dist.device, dist=dist, **kw)
+
+
+def serve_context(world: int, device, dist: Optional[DistWorld] = None, **kw) -> ParallelContext:
+    """The serve CLI's context: W = ``world`` ranks on ``device``; under
+    ``dist`` (one replica's DistWorld) over ``make_dev_mesh(world,
+    dist.size)`` with its data axes run by ``dist``.  ``kw``: further
+    ``ParallelContext`` fields (``mode``, ``moe_decode_stream``)."""
+    if dist is None:
+        return ParallelContext(world=World(world, device), **kw)
+    return make_dev_mesh(world, dist.size).context(device, data=dist, **kw)
+
+
+def serve_params(cfg, pc: ParallelContext, dtype: str, seed: int = 0, ckpt_dir: Optional[str] = None,
+                 log: bool = True):  # fmt: skip
+    """The serve CLI's parameters: seeded (``seed``) in ``dtype``, replaced
+    by the newest checkpoint in ``ckpt_dir`` where it has one (``launch/train``'s
+    logical arrays, restored onto this world; printed as "loaded checkpoint
+    step N" when ``log``), then under ``pc.data`` this replica's blocks
+    (``training.steps.data_blocks``; a tied head's block from ``lm.with_tied``)."""
+    w = pc.world
+    params = lm.init(cfg, w, torch.Generator(device=w.device).manual_seed(seed), DTYPES[dtype])
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    step = mgr.latest_step() if mgr else None
+    if step is not None:
+        # the moments come along in the checkpoint: restored onto meta, so nothing of them is kept
+        opt = init_opt_state(tree_map(lambda t: t.to("meta"), lm.trainable(params, cfg)))
+        restored, _ = mgr.restore(step, {"params": params, "opt": opt}, cfg=cfg, world=w)
+        params = restored["params"]
+        if log:
+            print(f"loaded checkpoint step {step}")
+    if pc.data is not None:
+        params = lm.with_tied(data_blocks(lm, cfg, pc, lm.trainable(params, cfg)), cfg)
+    return params
+
+
+def _serve(arch, *, batch, prompt_len, new_tokens, world, dtype, device, seed, reduce, slots, decode_block,
+           temperature, top_k, eos_id, moe_stream, mode, ckpt_dir, dist: Optional[DistWorld]) -> dict:  # fmt: skip
+    """:func:`serve` in this process: one replica of ``dist``, or the whole
+    engine without one."""
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import CommCounter
+    from repro_torch.launch.train import device_bytes
+
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
     if cfg.encoder_layers:
         raise SystemExit(ENCDEC_REFUSED)
-    w = World(world, device)
-    pc = ParallelContext(world=w, moe_decode_stream=moe_stream)
-    gen = torch.Generator(device=w.device).manual_seed(seed)
-    params = lm.init(cfg, w, gen, DTYPES[dtype])
+    pc = serve_context(world, device, dist, mode=mode, moe_decode_stream=moe_stream)
+    dev = pc.device
+    lead = dist is None or dist.rank == 0
+    if dist is not None and dev.type == "cuda":  # a replica process: its peak from here
+        torch.cuda.reset_peak_memory_stats(dev)
+    launched = K.launch_counts()
+    before = device_bytes(dev)
+    params = serve_params(cfg, pc, dtype, seed, ckpt_dir, log=lead)
+    placed = None if before is None else {k: v - before[k] for k, v in device_bytes(dev).items()}
     prompts = make_prompts(cfg.vocab_size, batch, prompt_len, seed)
     eng = ServeEngine(cfg, pc, params, max_len=prompt_len + new_tokens, temperature=temperature, n_slots=slots,
                       decode_block=decode_block)
@@ -135,15 +245,17 @@ def serve(
                            seed=seed + i))
         for i, p in enumerate(prompts)
     ]  # fmt: skip
-    _sync(w.device)
+    counter = CommCounter()
+    _sync(dev)
     t0 = time.perf_counter()
-    outs = eng.drain(handles)
+    with dist.counting(counter) if dist is not None else contextlib.nullcontext():
+        outs = eng.drain(handles)
     seconds = time.perf_counter() - t0
     tokens = np.full((batch, new_tokens), -1, np.int64)
     for i, h in enumerate(handles):
         tokens[i, : len(outs[h])] = outs[h]
     n_tok = sum(len(outs[h]) for h in handles)
-    name = torch.cuda.get_device_name(w.device) if w.device.type == "cuda" else "cpu"
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     return {
         "tokens": tokens,
         "device": name,
@@ -154,6 +266,10 @@ def serve(
         "steps": eng.stats["steps"],
         "host_syncs": eng.stats["host_syncs"],
         "graph_captures": eng.stats["graph_captures"],
+        "launches": {k: v - launched[k] for k, v in K.launch_counts().items()},
+        "data_bytes": {k: float(sum(v.values())) for k, v in counter.payload.items() if v},
+        "placed_bytes": placed,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
     }
 
 
@@ -174,12 +290,15 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0, help="0: no truncation")
     ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--moe-stream", action="store_true", help="MoE decode: stream each local expert once")
+    ap.add_argument("--mode", default="overlap", choices=["overlap", "baseline"])
+    ap.add_argument("--ckpt-dir", default=None, help="restore the newest checkpoint launch/train wrote there")
+    ap.add_argument("--data", type=int, default=1, help="data-parallel replicas, one spawned process each")
     args = ap.parse_args(argv)
     r = serve(
         args.arch, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, world=args.world,
         dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce, slots=args.slots,
         decode_block=args.decode_block, temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        moe_stream=args.moe_stream,
+        moe_stream=args.moe_stream, mode=args.mode, ckpt_dir=args.ckpt_dir, data=args.data,
     )  # fmt: skip
     print(
         f"device {r['device']} backend {r['backend']}: {r['generated']} tokens for {args.batch} requests of "

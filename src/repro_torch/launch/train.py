@@ -88,7 +88,7 @@ from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_map
 from repro_torch.training.steps import data_blocks, gather_blocks
 
-__all__ = ["train", "train_replica", "model_module", "main", "run_replicas", "staging_for"]
+__all__ = ["train", "train_replica", "model_module", "main", "run_replicas", "staging_for", "device_bytes"]
 
 REPLICA_TIMEOUT_S = 3600.0  # run_replicas stops its processes after this long
 
@@ -261,7 +261,7 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
         pc = ParallelContext(world=w, mode=mode)
     else:
         pc = ParallelContext(world=w, mode=mode, mesh_axes=make_dev_mesh(world, n_data).axes, data=dist)
-    before = _device_bytes(w.device)
+    before = device_bytes(w.device)
     params = mod.init(cfg, w, torch.Generator(device=w.device).manual_seed(0), DTYPES[dtype])
     opt_state = init_opt_state(mod.trainable(params, cfg)) if dist is None else None
     opt_cfg = AdamWConfig(lr=lr, total_steps=steps, warmup_steps=max(5, steps // 20))
@@ -292,7 +292,7 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
                          "step": opt_state["step"]}  # fmt: skip
         params = mod.with_tied(data_blocks(mod, cfg, pc, mod.trainable(params, cfg)), cfg)
         if before is not None:
-            placed = {k: v - before[k] for k, v in _device_bytes(w.device).items()}
+            placed = {k: v - before[k] for k, v in device_bytes(w.device).items()}
 
     def save(step):
         p, opt = params, opt_state
@@ -341,7 +341,7 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
     return {"history": history, "params": params, "opt_state": opt_state, "cfg": cfg, "placed_bytes": placed}
 
 
-def _device_bytes(device) -> Optional[dict]:
+def device_bytes(device) -> Optional[dict]:
     """The device memory this process's live tensors requested and what the
     caching allocator's blocks for them hold (each rounded up); None off the
     card."""

@@ -29,6 +29,31 @@ updated inside the graphs; ``stats["graph_captures"]`` stays 2 for the
 engine's lifetime whatever the traffic (the JAX package's ``step_traces ==
 1``).  A capture or replay failure raises; there is no quiet eager path.
 
+Data-parallel serving (``pc.data``: D replica processes, each the W-rank
+model group, as the JAX package serves on its ``(pod, data, model)`` mesh)
+is one logical engine.  Every replica runs the same :class:`Scheduler`
+over all ``n_slots`` on the same submitted requests, so admission is the
+reference's (lowest free slot first); the slot pool, the device tables and
+the token buffer hold only this replica's ``n_slots / D`` rows
+(:class:`~repro_torch.serving.cache.SlotPool`), and the parameters are its
+blocks, each layer gathered at its use inside ``lm.decode_step``.  The
+host builds the global tables, uploads this replica's rows, and runs the
+same number of ``lm.decode_step`` calls on every replica (``n_decode``
+from the global tables: each call's gathers are collectives, so a replica
+with no slot in use runs the step too).  The step's one host sync is the
+device -> host copy followed by one ``data.all_gather`` of every replica's
+rows of the token buffer and emitted counts, which also carries a digest
+of each replica's scheduler state (queue, slots, prompt cursors, cache
+lengths, generated counts): if the digests differ, the replicas' schedulers
+have diverged and the step raises.  Under ``pc.data`` the engine captures
+nothing, by design: a CUDA graph cannot hold the gloo collectives of the
+use-time gathers (``DistWorld`` over gloo, ``GLOO_CUDA_STAGING``), and NCCL
+cannot put two ranks on one card.  So ``capture=None`` runs the step
+eagerly and ``capture=True`` raises ValueError; capturing each layer
+between its gathers is later speed work.  ``pc.tune`` is refused with
+data (ValueError): each replica would time its own candidates and could
+resolve other decode channels than its peers.
+
 One difference from the JAX step: its ``while_loop`` also stops as soon as
 no slot is alive.  The port replays the decode graph ``n_decode - 1`` times
 whatever, with dead slots masked (``q_valid = 0``: their caches, states and
@@ -54,6 +79,7 @@ package's threefry bits are not reproduced; the distribution is.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -126,6 +152,15 @@ def decode_gemm_shapes(cfg, tp: int, n_slots: int) -> Dict[str, tuple]:
     return gemms
 
 
+def _digest(sch: Scheduler) -> int:
+    """A 63-bit digest of a scheduler's state: the requests submitted, the
+    queue, and each seated request's slot, prompt cursor, cache length and
+    generated count (what the next step's tables are built from)."""
+    state = (len(sch.states), list(sch.queue),
+             [(i, st.rid, st.pos, st.cache_len, len(st.generated)) for i, st in sch.active()])  # fmt: skip
+    return int.from_bytes(hashlib.blake2b(repr(state).encode(), digest_size=8).digest(), "little") >> 1
+
+
 # rows of the int64 slot table the host uploads every step
 _FIELDS = ("lens", "valid", "active", "budget", "eos", "topk", "seeds", "nsamp")
 
@@ -156,15 +191,24 @@ class ServeEngine:
         # wider than the ring would overwrite rows its own queries still need
         rings = [min(self.max_len, d.window) for d in lm.layer_plan(cfg) if d.window is not None]
         self.prefill_chunk = max(1, min([self.prefill_chunk, self.max_len] + rings))
+        if pc.data is not None:
+            if self.capture:
+                raise ValueError(
+                    "no CUDA-graph capture under pc.data: a graph cannot hold the gloo collectives of the use-time "
+                    "gathers, and NCCL cannot put two ranks on one card; the data-parallel engine steps eagerly"
+                )
+            if pc.tune:
+                raise ValueError("pc.tune with pc.data: each replica would time its own decode channels")
+            self.capture = False
         if self.capture is None:
             self.capture = dev.type == "cuda"
         if self.capture and dev.type != "cuda":
             raise ValueError("CUDA-graph capture needs a context on the card; pass capture=False on the CPU")
         self.scheduler = Scheduler(self.n_slots)
         self.pool = SlotPool(cfg, pc, self.n_slots, self.max_len, self.cache_dtype)
-        self.stats = {"steps": 0, "host_syncs": 0, "resets": 0, "graph_captures": 0,
+        self.stats = {"steps": 0, "host_syncs": 0, "resets": 0, "graph_captures": 0, "decode_calls": 0,
                       "launches": {name: 0 for name in K.WRAPPERS}}  # fmt: skip
-        n, c, dmax = self.n_slots, self.prefill_chunk, self.decode_block
+        n, c, dmax = self.pool.n_loc, self.prefill_chunk, self.decode_block  # this replica's rows
         i64 = dict(dtype=torch.int64, device=dev)
         # static inputs, written from the host each step (one int64 table + the temperatures)
         self._ints = torch.zeros((len(_FIELDS) * n + n * c,), **i64)
@@ -192,7 +236,7 @@ class ServeEngine:
     # ------------------------------------------------------ the device step
     def _forward(self):
         """The mixed forward, the first sample of every slot and the loop state."""
-        n, c, dmax = self.n_slots, self.prefill_chunk, self.decode_block
+        n, c, dmax = self.pool.n_loc, self.prefill_chunk, self.decode_block
         tab = self._tab
         logits, _ = lm.decode_step(self.params, self.pool.caches, self.cfg, self.pc, self._tokens, tab["lens"],
                                    q_valid=tab["valid"])  # fmt: skip
@@ -211,7 +255,7 @@ class ServeEngine:
 
     def _decode(self):
         """One decode iteration over every slot, dead slots masked."""
-        n, dmax = self.n_slots, self.decode_block
+        n, dmax = self.pool.n_loc, self.decode_block
         tab, alive = self._tab, self._alive
         lg, _ = lm.decode_step(self.params, self.pool.caches, self.cfg, self.pc, self._tok[:, None], self._lens,
                                q_valid=alive.long())  # fmt: skip
@@ -290,24 +334,40 @@ class ServeEngine:
             launched = {k: v - before[k] for k, v in K.launch_counts().items()}
         for k, v in launched.items():
             self.stats["launches"][k] += v
+        self.stats["decode_calls"] += 1
 
     def _upload(self, rows: Dict[str, np.ndarray], tokens: np.ndarray, temp: np.ndarray) -> None:
+        """This replica's rows of the step's global slot tables into the static inputs."""
         ints = self._ints_h.numpy()
-        n = self.n_slots
+        n, mine = self.pool.n_loc, slice(self.pool.first, self.pool.first + self.pool.n_loc)
         for i, f in enumerate(_FIELDS):
-            ints[i * n : (i + 1) * n] = rows[f]
-        ints[len(_FIELDS) * n :] = tokens.reshape(-1)
-        self._temp_h.numpy()[:] = temp
+            ints[i * n : (i + 1) * n] = rows[f][mine]
+        ints[len(_FIELDS) * n :] = tokens[mine].reshape(-1)
+        self._temp_h.numpy()[:] = temp[mine]
         self._ints.copy_(self._ints_h, non_blocking=True)
         self._temp.copy_(self._temp_h, non_blocking=True)
 
-    def _fetch(self) -> np.ndarray:
-        """The step's one host sync: the token buffer and the emitted counts."""
+    def _fetch(self, digest: int) -> np.ndarray:
+        """The step's one host sync: the token buffer and the emitted counts of
+        every slot, [n_slots, decode_block + 1].  Under ``pc.data`` each
+        replica's rows and its scheduler ``digest`` are joined by one
+        all-gather, and diverged digests raise."""
         self._out_h.copy_(self._out, non_blocking=True)
         if self.pc.device.type == "cuda":
             torch.cuda.current_stream(self.pc.device).synchronize()
         self.stats["host_syncs"] += 1
-        return self._out_h.numpy()
+        data = self.pc.data
+        if data is None:
+            return self._out_h.numpy()
+        n = self.pool.n_loc
+        buf = torch.zeros((n + 1, self._out_h.shape[1]), dtype=torch.int64)  # the rows, then the digest
+        buf[:n] = self._out_h
+        buf[n, 0] = digest
+        out = data.all_gather(buf, 0).view(data.size, n + 1, -1)  # a host tensor: gloo's, whatever the staging
+        digests = out[:, n, 0].tolist()
+        if len(set(digests)) != 1:
+            raise RuntimeError(f"the data replicas' schedulers diverged: state digests {digests} by rank")
+        return out[:, :n].reshape(self.n_slots, -1).numpy()
 
     # ------------------------------------------------------------------ host
     def submit(self, req: Request) -> int:
@@ -363,11 +423,12 @@ class ServeEngine:
                 rows["active"][i] = 1
         n_decode = int(min(dmax, max([0] + [int(rows["budget"][i]) for i, _ in sch.active() if rows["active"][i]])))
 
+        digest = _digest(sch) if self.pc.data is not None else 0
         self._upload(rows, tokens, temp)
         self.run("forward")
         for _ in range(n_decode - 1):
             self.run("decode")
-        out = self._fetch()
+        out = self._fetch(digest)
         buf, emitted = out[:, :dmax], out[:, dmax]
         self.stats["steps"] += 1
 
