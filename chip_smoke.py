@@ -60,10 +60,10 @@ non-zero (no phase catches its own failure):
               ~66 GB), fused against eager, held before each row's first
               routing flip as in (5b); (c) at those 4 layers, one float32
               decode step with ``moe_decode_stream`` against the gathered
-              decode; (d) the main path in bfloat16 at full depth through
-              ``serve.greedy`` with the streamed decode, launch counts held
-              exactly; (e) the engine at full depth, streamed decode in its
-              graphs (8 requests, prompts 32-256, 16-32 new tokens, 2
+              decode; (d) the main path in bfloat16 at CUT["deepseek"]'s 9
+              layers (the dense one + 8 MoE) through ``serve.greedy`` with
+              the streamed decode, launch counts held exactly; (e) the
+              engine at those 9, streamed decode in its graphs (8 requests, prompts 32-256, 16-32 new tokens, 2
               sampled, on 4 slots), held as in (9a, b).
   7. ep       deepseek-moe-16b's prefill with ``ep_axis="model"`` (the
               expert-parallel dispatch / combine all-to-all, each landed
@@ -73,7 +73,7 @@ non-zero (no phase catches its own failure):
               outputs within 1e-4 of max; (b) the float32 EP prefill at
               DS_F32_LAYERS layers against the TP-MoE prefill, held before
               each row's first routing flip as in (5b); (c) the main path in
-              bfloat16 at full depth through ``serve.greedy`` (EP prefill,
+              bfloat16 at CUT["deepseek"]'s 9 layers through ``serve.greedy`` (EP prefill,
               streamed decode), launch counts held exactly (2 x W grouped
               launches per MoE layer), the EP and TP-MoE prefill ms, and one
               layer's a2a pair against its baseline in bf16 (2e-2 of max)
@@ -85,8 +85,10 @@ non-zero (no phase catches its own failure):
               position's logits; (c) the main path in bfloat16 through
               ``serve.greedy``, with its launch counts held exactly.
   9. engine   the continuous-batching engine (``serving.ServeEngine``, its
-              step captured in two CUDA graphs) at published sizes, W = 4,
-              bf16: smollm-360m with 16 seeded requests (prompts 32-256,
+              step captured in two CUDA graphs) at published widths, W = 4,
+              bf16, each model cut to CUT["engine"]'s depth (smollm-360m 4
+              of its 32 layers, mamba2-2.7b 8 of 64): smollm-360m with 16
+              seeded requests (prompts 32-256,
               16-64 new tokens, 4 of them at temperature 0.8 / top-k 40) on
               8 slots, then mamba2-2.7b with 8 requests (prompts 16-64, 16
               new tokens, 2 sampled) on 4 slots, so slots are reused and
@@ -112,7 +114,7 @@ non-zero (no phase catches its own failure):
               launches held exactly (steps x channels flash launches per
               call), and the bf16 times of ``apply_seq_ring`` and
               ``apply_seq`` at 4 x 256 and 1 x 8192 tokens (recorded).
-  11. train   smollm-360m trained at its published size, W = 4, 8 x 256
+  11. train   smollm-360m trained at its published width, W = 4, 8 x 256
               tokens a step (``launch/train.py``: the fused kernels in both
               passes, each AG+GEMM's transpose a GEMM+RS and back):
               (a) float32, one step on the fused backend against the eager
@@ -120,11 +122,12 @@ non-zero (no phase catches its own failure):
               logits, every leaf's gradient to GRAD_RTOL of its max|eager|,
               every leaf's update (new - p) to UPDATE_RTOL of its
               max|eager update| where the gradient check fixes the
-              gradient's sign, each leaf moved by at least lr / 2; (b) bf16,
-              TRAIN_STEPS steps of ``train`` on ``SyntheticLM``: the mean ce
+              gradient's sign, each leaf moved by at least lr / 2 (at full
+              depth); (b) bf16, TRAIN_STEPS steps of ``train`` on
+              ``SyntheticLM`` at CUT["train"]'s 8 layers: the mean ce
               of the last 5 steps more than 0.2 below the first 5's (the
               JAX package's loss test), every step's launches held exactly
-              (128 AG+GEMM, 128 GEMM+RS, 32 flash, 1 LM head), the median
+              (32 AG+GEMM, 32 GEMM+RS, 8 flash, 1 LM head), the median
               step time (CUDA events), tokens/s and peak memory; with
               ``--profile`` one step's device time by kernel; (c) a
               checkpoint at step TRAIN_CKPT_AT at TRAIN_CKPT_LAYERS layers,
@@ -165,14 +168,14 @@ non-zero (no phase catches its own failure):
               bytes it staged through host memory), each storing only its
               block of every parameter and moment the data axes split and
               gathering each layer at its use (``use_gather``).
-              smollm-360m at full depth and width, bf16, a global batch of
-              TRAIN_BATCH x TRAIN_SEQ (TRAIN_BATCH / DP_REPLICAS rows a
+              smollm-360m at CUT["dp"]'s 8 of its 32 layers, full width, bf16,
+              a global batch of TRAIN_BATCH x TRAIN_SEQ (TRAIN_BATCH / DP_REPLICAS rows a
               replica): a DP_D1_STEPS-step run at D = 1, then DP_STEPS
               AdamW steps at D = 2 at remat "none" and DP_REMAT_STEPS at
               remat DP_REMAT, on the same batches.  (a) every step's
-              launches per replica held to the train phase's (128 / 128 /
-              32 / 1 at "none"; under DP_REMAT each layer's forward twice,
-              ``paper_e2e.expected_launches``: 192 / 192 / 64 / 1); (b) the
+              launches per replica held to ``paper_e2e.expected_launches``
+              at that depth (32 / 32 / 8 / 1 at "none"; under DP_REMAT each
+              layer's forward twice: 48 / 48 / 16 / 1); (b) the
               ce's fall over the DP_STEPS steps held as the train phase
               holds it; (c) every bf16 step's payload on the data transport
               against ``launch/roofline.data_axis_bytes`` of the leaves the
@@ -205,8 +208,8 @@ non-zero (no phase catches its own failure):
               replica builds the serve CLI's context and parameters
               (``launch/serve.serve_context`` / ``serve_params``:
               ``make_dev_mesh(4, DP_REPLICAS)``, this replica's blocks,
-              each layer gathered at its use) for smollm-360m at full depth
-              and width.  (a) bf16: ``ServeEngine`` on SERVE_DP's seeded
+              each layer gathered at its use) for smollm-360m at CUT["dp"]'s
+              8 layers, full width.  (a) bf16: ``ServeEngine`` on SERVE_DP's seeded
               requests (8, prompts 64, 16 new tokens, 2 sampled at
               temperature 0.8 / top-k 40) on 8 slots (4 a replica), decode
               block 16, eager (no capture under data): tokens/s and ms per
@@ -224,7 +227,7 @@ non-zero (no phase catches its own failure):
               only where the per-token reference shows a near tie
               (NEAR_TIE); (c) ``serve.greedy`` at D = 2 on the serve
               phase's 4 x 256 prompts (2 rows a replica): launches per
-              replica held (64 / 64 / 32 / 1 + 15 decode heads), and the
+              replica held (16 / 16 / 8 / 1 + 15 decode heads), and the
               float32 prefill logits at SERVE_DP_F32_LAYERS layers within
               the serve phase's bound of D = 1's on the same rows.
   12. train_moe  granite-moe-3b-a800m and deepseek-moe-16b trained at their
@@ -241,47 +244,49 @@ non-zero (no phase catches its own failure):
               at most TRAIN_MOE_MAX_FLIPS tokens a layer routed apart, the
               gradients held to GRAD_RTOL when no call differs (else the
               flips and the worst error printed); (c) TRAIN_STEPS bf16 steps
-              of granite at its 32 layers through ``train``: the ce fall,
-              every step's launches held exactly (512 grouped, 64 AG+GEMM, 64
-              GEMM+RS, 32 flash, 1 head), the median step ms, tokens/s, peak
+              of granite at CUT["train"]'s 4 of its 32 layers through
+              ``train``: the ce fall, every step's launches held exactly (64
+              grouped, 8 AG+GEMM, 8 GEMM+RS, 4 flash, 1 head), the median step ms, tokens/s, peak
               memory, and the resume bitwise at 2 layers as in (11c); deepseek
-              TRAIN_MOE_DS_STEPS bf16 steps at its Fig. 11 depth, launches
-              held.
-  13. train_ssm  mamba2-2.7b trained at its published size, W = 4, 8 x 256
+              TRAIN_MOE_DS_STEPS bf16 steps at CUT["train"]'s 4 layers (the
+              dense one + 3 MoE), launches held.
+  13. train_ssm  mamba2-2.7b trained at its published width, W = 4, 8 x 256
               tokens a step, remat policy SSM_REMAT ("dots": each layer's
               forward recomputed in the backward, as the JAX package's
               trainer): (a) one float32 step at SSM_F32_LAYERS layers, fused
               against eager: the loss the logits' bound, every leaf's
               gradient (the Mamba leaves: w_in, w_bc, conv, dt_bias, a_log,
               d_skip, w_out, ln) GRAD_RTOL of its max|eager|, the launches
-              held; (b) TRAIN_STEPS bf16 steps at 64 layers through
-              ``train`` at lr SSM_LR (3e-3, the JAX package's loss test's):
-              the ce fall, every step's launches held exactly
-              (192 AG+GEMM, 192 GEMM+RS, 128 SSD intra-chunk, 1 head: each
+              held; (b) TRAIN_STEPS bf16 steps at CUT["train"]'s 8 of its 64
+              layers through ``train`` at lr SSM_LR (3e-3, the JAX package's
+              loss test's): the ce fall, every step's launches held exactly
+              (24 AG+GEMM, 24 GEMM+RS, 16 SSD intra-chunk, 1 head: each
               layer's forward twice), the median step ms, tokens/s, peak
               memory (held below the card's); with ``--profile`` one step's
               device time by kernel; (c) the resume bitwise at
               SSM_CKPT_LAYERS layers as in (11c).
   14. zamba2  zamba2-2.7b (54 layers: Mamba-2 mixers and one shared
               attention block of head dim 80 every 6 layers, each with its
-              own GELU MLP) at its published size: (a) one shared block in
-              float32, fused against eager, 1e-4 of max; (b) the float32
-              prefill at full depth, fused against eager, the logits'
-              bound; (c) the bf16 main path through ``serve.greedy`` (4 x
-              256 + 16 greedy), launches held exactly (63 AG+GEMM, 63
-              GEMM+RS, 45 SSD, 9 flash, 16 head), one bf16 Mamba layer
-              against f32 eager; (d) the engine (8 requests on 4 slots, 2
-              sampled) held as in (9a, b); (e) the train_ssm phase's checks
-              (the f32 step at 12 layers, two uses of the shared mixer; 30
-              bf16 steps at 54 layers; the resume at 6).
+              own GELU MLP) at its published width, cut to CUT["zamba2"]'s
+              6 layers (one period, the shared block once): (a) one shared
+              block in float32, fused against eager, 1e-4 of max; (b) the
+              float32 prefill, fused against eager, the logits' bound;
+              (c) the bf16 main path through ``serve.greedy`` (4 x 256 + 16
+              greedy), launches held exactly (7 AG+GEMM, 7 GEMM+RS, 5 SSD,
+              1 flash, 16 head), one bf16 Mamba layer against f32 eager;
+              (d) the engine (8 requests on 4 slots, 2 sampled) held as in
+              (9a, b); (e) the train_ssm phase's checks (the f32 step at 12
+              layers, two uses of the shared mixer; 30 bf16 steps at
+              CUT["train"]'s 6; the resume at 6).
   15. encdec  seamless-m4t-medium (12 + 12 layers, d 1024, 16 / 16 heads of
               64, ReLU MLP of 4096, vocab 256206; stub frames) at its
-              published size, W = 4, seeded weights: (a) bf16 serve: encode
-              4 requests of 4096 frames, build the cross caches, 16 greedy
-              ``decode_step``s: the encoder, cross-cache and per-step ms,
-              tokens/s, launches held exactly (36 AG+GEMM: the encoder's qkv
-              and gate|up and each decoder layer's kv gather of the encoder
-              stream; 24 GEMM+RS, 12 flash, 16 head); (b) float32 on the
+              published width, cut to CUT["encdec"]'s 6 + 6 layers, W = 4,
+              seeded weights: (a) bf16 serve: encode 4 requests of 4096
+              frames, build the cross caches, 16 greedy ``decode_step``s:
+              the encoder, cross-cache and per-step ms, tokens/s, launches
+              held exactly (18 AG+GEMM: the encoder's qkv and gate|up and
+              each decoder layer's kv gather of the encoder stream; 12
+              GEMM+RS, 6 flash, 16 head); (b) float32 on the
               same weights: the forward fused against eager (the logits'
               bound) and the cross-cache decode's logits against the
               teacher-forced forward's (3e-3, the JAX package's test);
@@ -293,32 +298,33 @@ non-zero (no phase catches its own failure):
               most RELU_MAX_FLIP_SHARE of a call's elements flipped; the
               unforced pass's error printed), at
               ENCDEC_F32_SEEDS weight and data seeds, 30 bf16
-              AdamW steps at full depth through ``make_train_step`` (8 x
+              AdamW steps at 6 + 6 layers through ``make_train_step`` (8 x
               256 decoder tokens with 8 x 512 frames, the JAX package's
-              input rule): the ce fall, 132 / 132 / 36 / 1 launches every
+              input rule): the ce fall, 66 / 66 / 18 / 1 launches every
               step, the median step ms, tokens/s, peak memory; the resume
               bitwise at 2 + 2 layers.
   16. vlm     paligemma-3b (18 layers, d 2048, 8 heads of 256 with one KV
               head, GELU MLP of 16384, tied embeddings scaled by
               sqrt(d_model) over the image prefix too) at its published
-              size: (a) the float32 prefill of 256 stub patches + 256
-              tokens, fused against eager; (b) the bf16 main path through
-              ``serve.greedy(embeds=)``, launches held (36 / 36 / 18 flash
-              at head dim 256 / 16 head), one bf16 layer against f32 eager;
-              (c) one f32 step at 4 layers (4 x 512 tokens) fused against
-              eager, the kv-copy sync at rep 4 leaving the copies bitwise
-              equal; 30 bf16 steps at full depth of 8 x (256 patches + 256
-              tokens), labels over the whole sequence: the ce fall, 72 / 72
-              / 18 / 1 launches every step, step ms, peak memory; the resume
-              bitwise at 2 layers.
+              width, cut to CUT["vlm"]'s 6 layers: (a) the float32 prefill
+              of 256 stub patches + 256 tokens, fused against eager; (b) the
+              bf16 main path through ``serve.greedy(embeds=)``, launches held
+              (12 / 12 / 6 flash at head dim 256 / 16 head), one bf16 layer
+              against f32 eager; (c) one f32 step at 4 layers (4 x 512
+              tokens) fused against eager, the kv-copy sync at rep 4 leaving
+              the copies bitwise equal; 30 bf16 steps of 8 x (256 patches +
+              256 tokens), labels over the whole sequence: the ce fall, 24 /
+              24 / 6 / 1 launches every step, step ms, peak memory; the
+              resume bitwise at 2 layers.
   17. e2e     the paper's end-to-end figure (Fig. 11,
               ``benchmarks/paper_e2e.py``) and the three dense configs
               qwen2-72b (QKV bias), starcoder2-7b (GELU, 36 / 4 heads) and
               gemma3-27b (5:1 local / global attention, tied embeddings
               scaled by sqrt(d_model)) at their published widths, W = 4:
-              (a) per row (smollm-360m at 32 layers, qwen2-72b 2,
-              starcoder2-7b 8, gemma3-27b 6, granite-moe-3b-a800m 32,
-              deepseek-moe-16b 9), one bf16 AdamW train step of
+              (a) per row (smollm-360m at 8 of its 32 layers, qwen2-72b 2,
+              starcoder2-7b 4, gemma3-27b 6, granite-moe-3b-a800m 8 of 32,
+              deepseek-moe-16b 4: ``paper_e2e.DEPTH``, smollm's, starcoder2's,
+              granite's and deepseek's cut further by CUT["e2e"]), one bf16 AdamW train step of
               1 x 4096 tokens in ``mode="baseline"`` (gather then GEMM, GEMM
               then reduce-scatter, on tensor cores) and in ``mode="overlap"``
               (the fused kernels in both passes), 3 warm-up steps each then
@@ -413,7 +419,9 @@ non-zero (no phase catches its own failure):
               the production mesh (data 32, model 8: 256 H100s) with the
               costs extrapolated from 1 and 2 scan units, and on the
               multi-pod mesh (pod 2: 512) for memory only, on ``meta`` in
-              DRYRUN_JOBS processes; the report table printed; every cell
+              half the host's cores' processes (at most DRYRUN_JOBS), started
+              in the background before the first phase (it needs no card)
+              and collected here; the report table printed; every cell
               ``cell_is_applicable`` accepts must be ``ok``, every other
               ``skipped`` with its reason; the phase's host seconds.  (b)
               calibration on the card's own mesh (``make_dev_mesh``: dp 1,
@@ -563,7 +571,18 @@ resume check 6; the encdec phase's f32 step and resume check 2 + 2 of
 12 + 12, the vlm phase's f32 step 4 of 18 layers at 4 rows (8 ran the
 card out of memory) and its resume check 2; the dp phase's f32 check
 DP_F32_LAYERS of smollm-360m's 32, the serve_dp phase's f32 checks
-SERVE_DP_F32_LAYERS.  Every other path runs at full depth
+SERVE_DP_F32_LAYERS.  So that the whole script ends well inside its 1200 s
+limit on a slow host, these earlier paths run cut in depth too, at the
+published widths and loads and with the same holds (the table CUT): the
+engine phase serves smollm-360m at 4 of its 32 layers and mamba2-2.7b at
+8 of 64; the deepseek and ep phases' bf16 paths run deepseek-moe-16b at
+9 of 28; the dp and serve_dp phases smollm-360m at 8; the bf16 steps of
+the train (smollm-360m 8), train_moe (granite 4 of 32, deepseek 4) and
+train_ssm (mamba2-2.7b 8 of 64) phases; the zamba2 phase 6 of 54 but its
+f32 step; the encdec phase 6 + 6 of 12 + 12 but its f32 steps and
+resume; the vlm phase 6 of 18; the e2e phase's smollm-360m and granite
+rows 8 of 32, starcoder2-7b 4 and deepseek-moe-16b 4.  Every other path
+runs at full depth
 and width, the paper's MLPs and MoEs at their published shapes.
 
 Usage: ``python3 chip_smoke.py`` (one CUDA device).  Needs the repository
@@ -675,12 +694,28 @@ MM_CUT_LAYERS = 2  # their f32 step (the enc-dec's, 2 + 2) and their resume chec
 # the VLM's f32 step: 4 layers of 4 x 512 tokens (at 8 rows the eager reference's float32 activations and the
 # [4096, 257216] float32 logits and their gradient took the card's 80 GB)
 V_F32_LAYERS, V_F32_ROWS = 4, 4
+# The depth cuts.  The whole script must end within 1200 s, the kernels' build included: with every path at full
+# depth it took 951 s on one H100 host and more than 1200 s on slower ones.  So these earlier paths keep their
+# published widths, loads and holds at fewer layers (the serve phase's main path keeps every layer); CUT[phase][arch]
+# is the depth of that phase's model (of an enc-dec's encoder and of its decoder each).
+CUT = {
+    "engine": {ARCH: 4, ARCH_SSM: 8},
+    "deepseek": {ARCH_DS: 9},  # the deepseek and ep phases' bf16 paths: Fig. 11's depth, the dense layer + 8 MoE
+    "dp": {ARCH: 8},  # the dp phase's bf16 runs at D = 1 and D = 2, and the serve_dp phase
+    # the TRAIN_STEPS bf16 steps of the train, train_moe (deepseek: its TRAIN_MOE_DS_STEPS), train_ssm and zamba2
+    # phases
+    "train": {ARCH: 8, ARCH_MOE: 4, ARCH_DS: 4, ARCH_SSM: 8, ARCH_Z: 6},
+    "zamba2": {ARCH_Z: 6},  # the zamba2 phase but its f32 step and resume: one period, the shared block once
+    "encdec": {ARCH_ED: 6},
+    "vlm": {ARCH_V: 6},
+    "e2e": {ARCH: 8, ARCH_MOE: 8, "starcoder2-7b": 4, ARCH_DS: 4},  # Fig. 11's rows below ``paper_e2e.DEPTH``
+}
 DECODE_RTOL = 3e-3  # enc-dec decode vs the teacher-forced forward (the JAX package's tests/test_extended.py)
 E2E_ARCHS = ("qwen2-72b", "starcoder2-7b", ARCH_G)  # the new dense configs
 E2E_SERVE_BATCH, E2E_SERVE_PROMPT = 4, 2048  # prompts past the window: the local layers' ring caches wrap
 # the verify phase: processes proving the launches of (b) beside the card's launches
 VERIFY_WORKERS = 6
-# the dryrun phase: (a) processes planning the grid on meta; (b) the calibration's bounds: predicted
+# the dryrun phase: (a) at most this many processes planning the grid on meta; (b) the calibration's bounds: predicted
 # argument bytes against memory_allocated (both exact sizes: the allocator's rounding only), and the
 # predicted peak over the measured one (the plan runs the eager path, the card the fused kernels)
 DRYRUN_JOBS = 8
@@ -706,23 +741,27 @@ SSD_KERNEL = "ssd_intra_kernel"  # no spills; its bulk staging path issues UBLKC
 FMA_KERNELS = ("ag_gemm_kernel", "gemm_rs_kernel")  # the fused kernels' float32 route (SASS symbols)
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS")
 # the SSD intra-chunk cases' note: kernels/ref has the whole SSD only (the ssd_chunked case holds it)
-# the fused kernels as built before their flag sites went through the tile primitives (tile_sync.cuh):
-# registers, spill stores / loads (bytes), and for the bf16 kernels HGMMA / UTMALDG (the build phase of
-# this script on an H100, CUDA 12.8), keyed by symbol or, as the phase prints them, its first 72
-# characters; the build phase fails if a rebuilt kernel differs
+# the fused kernels as built with the peer route (their flag sites through the tile primitives of
+# tile_sync.cuh at either scope, the receive regions through PeerTbl, epochs and entry words on the peer
+# route only; the bf16 AG+GEMM in two forms, one TMA map or one a held rank): registers, spill stores /
+# loads (bytes), and for the bf16 kernels HGMMA / UTMALDG (the build phase of this script on an H100,
+# nvcc 12.9), keyed by symbol or, as the phase prints them, its first 72 characters; the build phase
+# fails if a rebuilt kernel differs
 FUSED_BUILD = {
-    "_Z14ag_gemm_kernelIf6PlainBIfEEvPKT_T0_PS2_S6_PiPKiS9_iiiiiiiii": (128, 4, 4, None, None),
-    "_Z14ag_gemm_kernelIf7PackedBEvPKT_T0_PS1_S5_PiPKiS8_iiiiiiiii": (128, 0, 0, None, None),
-    "_Z20ag_gemm_wgmma_kernelILb0EEv14CUtensorMap_stS0_6AgArgs": (166, 0, 0, 8, 3),
-    "_Z20ag_gemm_wgmma_kernelILb1EEv14CUtensorMap_stS0_6AgArgs": (168, 0, 0, 4, 2),
-    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb0EEv14CUtensorMap_stS1_6RsArgs": (126, 0, 0, 4, 3),
-    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb1EEv14CUtensorMap_stS1_6RsArgs": (160, 0, 0, 4, 2),
-    "_Z20gemm_rs_wgmma_kernelIfLb0EEv14CUtensorMap_stS0_6RsArgsIT_E": (126, 0, 0, 4, 3),
-    "_Z20gemm_rs_wgmma_kernelIfLb1EEv14CUtensorMap_stS0_6RsArgsIT_E": (160, 0, 0, 4, 2),
-    "_Z14gemm_rs_kernelIf13__nv_bfloat166PlainBIfEEvPKT_T1_PS3_PT0_PiPKiSC_ii": (126, 0, 0, None, None),
-    "_Z14gemm_rs_kernelIf13__nv_bfloat167PackedBEvPKT_T1_PS2_PT0_PiPKiSB_iiii": (128, 0, 0, None, None),
-    "_Z14gemm_rs_kernelIff6PlainBIfEEvPKT_T1_PS2_PT0_PiPKiSB_iiiiiiiii": (128, 0, 0, None, None),
-    "_Z14gemm_rs_kernelIff7PackedBEvPKT_T1_PS1_PT0_PiPKiSA_iiiiiiiii": (128, 4, 8, None, None),
+    "_Z14ag_gemm_kernelIf6PlainBIfEEvPKT_T0_PS2_7PeerTblPKiS9_iiiiiiiii": (128, 0, 0, None, None),
+    "_Z14ag_gemm_kernelIf7PackedBEvPKT_T0_PS1_7PeerTblPKiS8_iiiiiiiii": (128, 0, 0, None, None),
+    "_Z20ag_gemm_wgmma_kernelILb0ELi1EEv6AgMapsIXT0_EE14CUtensorMap_st6AgArgs": (161, 0, 0, 8, 3),
+    "_Z20ag_gemm_wgmma_kernelILb0ELi16EEv6AgMapsIXT0_EE14CUtensorMap_st6AgArg": (161, 0, 0, 8, 3),
+    "_Z20ag_gemm_wgmma_kernelILb1ELi1EEv6AgMapsIXT0_EE14CUtensorMap_st6AgArgs": (168, 0, 0, 4, 2),
+    "_Z20ag_gemm_wgmma_kernelILb1ELi16EEv6AgMapsIXT0_EE14CUtensorMap_st6AgArg": (168, 0, 0, 4, 2),
+    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb0EEv14CUtensorMap_stS1_6RsArgs": (146, 0, 0, 4, 3),
+    "_Z20gemm_rs_wgmma_kernelI13__nv_bfloat16Lb1EEv14CUtensorMap_stS1_6RsArgs": (162, 0, 0, 4, 2),
+    "_Z20gemm_rs_wgmma_kernelIfLb0EEv14CUtensorMap_stS0_6RsArgsIT_E": (146, 0, 0, 4, 3),
+    "_Z20gemm_rs_wgmma_kernelIfLb1EEv14CUtensorMap_stS0_6RsArgsIT_E": (162, 0, 0, 4, 2),
+    "_Z14gemm_rs_kernelIf13__nv_bfloat166PlainBIfEEvPKT_T1_PS3_7PeerTblPKiSA_": (128, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIf13__nv_bfloat167PackedBEvPKT_T1_PS2_7PeerTblPKiS9_ii": (128, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIff6PlainBIfEEvPKT_T1_PS2_7PeerTblPKiS9_iiiiiiiii": (126, 0, 0, None, None),
+    "_Z14gemm_rs_kernelIff7PackedBEvPKT_T1_PS1_7PeerTblPKiS8_iiiiiiiii": (128, 8, 16, None, None),
 }
 # the numbers of a kernel case the JSON line carries for each backward shape
 # (kernel #5's dx shapes also carry the w^T copy they launch on, ``wt_copy_ms``)
@@ -740,6 +779,8 @@ SOURCES = {
 
 # seconds the kernels phase spends computing ``kernels/ref``'s oracles (one list: _case adds to it)
 REF_S = [0.0]
+# host seconds ``device_ms``'s torch.profiler sessions take (their warm-up call included), over the whole run
+DEVICE_S = [0.0]
 # flash_attention_ref's float32 scores (and exponentials) per call are kept below this many elements by
 # splitting the heads: seamless-m4t's encoder case would take 64 x 4096^2 x 4 B = 4.3 GB in one call
 REF_FLASH_ELEMS = 1 << 28
@@ -807,6 +848,7 @@ def device_ms(fn, what: str, iters: int = 10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILER_SESSIONS):
@@ -816,7 +858,9 @@ def device_ms(fn, what: str, iters: int = 10):
             torch.cuda.synchronize()
         total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
         if total > 0:
+            DEVICE_S[0] += time.perf_counter() - t0
             return total / iters / 1e3
+    DEVICE_S[0] += time.perf_counter() - t0
     print(f"[kernels] {what}: torch.profiler recorded no device event in {PROFILER_SESSIONS} sessions: device n/a")
     return None
 
@@ -1791,7 +1835,7 @@ def phase_kernels(iters: int):
     W, B, S = WORLD, BATCH, PROMPT
     s_loc = S // W
     recs = {}
-    ref_s0 = REF_S[0]
+    ref_s0, dev_s0 = REF_S[0], DEVICE_S[0]
 
     def rnd(*shape, dtype):
         return torch.randn(shape, generator=g, device=dev, dtype=torch.float32).to(dtype)
@@ -1926,9 +1970,334 @@ def phase_kernels(iters: int):
                 _case(f"gemm_rs {order} C{nch}", dtype, lambda: K.gemm_rs(x, w, channel=ch),
                       lambda: K.gemm_rs_plain(x, w, channel=ch), None, 0, 0, 0, True,
                       lambda: K.gemm_rs.last_launch, bitwise=bf16, ref=lambda: R.gemm_rs_ref(x, w))  # fmt: skip
+    recs.update(_peer_route_cases())
     print(f"[kernels] the holds against kernels/ref added {REF_S[0] - ref_s0:.1f} s to this phase "
-          f"({REF_S[0]:.1f} s in the whole run, the quant phase's cases included)")  # fmt: skip
+          f"({REF_S[0]:.1f} s in the whole run, the quant phase's cases included); the device-time readouts "
+          f"(torch.profiler) {DEVICE_S[0] - dev_s0:.1f} s ({DEVICE_S[0]:.1f} s in the whole run)")  # fmt: skip
     return recs
+
+
+def peer_shapes() -> dict:
+    """The fused kernels' shapes the peer route is held at (W ranks): smollm's
+    qkv (AG+GEMM) and o-proj (GEMM+RS) at B x S tokens, and Tab. 2's MLP-1
+    pair (S = 8192, H = 4096, I = 11008), as (kind, x shape, w shape)."""
+    from repro_torch.configs.paper import PAPER_MLP
+
+    shp = path_shapes(ARCH)
+    d, W = shp["d"], WORLD
+    s, h, i, _ = PAPER_MLP["MLP-1"]
+    return {
+        "smollm qkv": ("ag_gemm", (W, BATCH, PROMPT // W, d), (W, d, shp["n_qkv"])),
+        "smollm o_proj": ("gemm_rs", (W, BATCH, PROMPT, shp["n_o"]), (W, shp["n_o"], d)),
+        "MLP-1 ag": ("ag_gemm", (W, s // W, h), (W, h, i // W)),
+        "MLP-1 rs": ("gemm_rs", (W, s, i // W), (W, i // W, h)),
+    }
+
+
+def _peer_operands(xs, ws, dtype, device, seed: int = 0):
+    """Seeded operands of every rank of a peer_shapes case (made on the CPU,
+    so every card and process draws the same), the weight scaled by 1 /
+    sqrt(its rows x ranks)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(xs, generator=g).to(dtype)
+    w = (torch.randn(ws, generator=g) * (ws[0] * ws[1]) ** -0.5).to(dtype)
+    return x.to(device), w.to(device)
+
+
+def _peer_route_cases() -> dict:
+    """The peer route on one card: every rank's receive region its own
+    cudaMalloc (``split=True``, system scope, the pool's epochs), two calls
+    on one pool without zeroing, each bitwise equal to the one-allocation
+    route, the second within TOL of ``kernels/ref``; bf16 and f32."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ref as R
+
+    recs = {}
+    for name, (kind, xs, ws) in peer_shapes().items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = _peer_operands(xs, ws, dtype, "cuda")
+            fn = getattr(K, kind)
+            one = fn(x, w)
+            calls = [fn(x, w, split=True) for _ in range(2)]
+            launch = dict(getattr(K, kind).last_launch)
+            same = [torch.equal(c, one) for c in calls]
+            dn = str(dtype).removeprefix("torch.")
+            oracle = getattr(R, f"{kind}_ref")(x, w)
+            err = (calls[1].float() - oracle.float()).abs().max().item()
+            scale = oracle.float().abs().max().item()
+            print(f"[kernels] peer route {kind}[{name}] {dn} x{list(xs)} w{list(ws)}: split pool "
+                  f"({launch['pool']}), 2 calls bitwise equal to the one-allocation route: {same}; vs kernels/ref "
+                  f"max|err| {err:.3e} (max|oracle| {scale:.3e}, bound {TOL[dn]:g} x)")  # fmt: skip
+            if launch["pool"] != "split" or not all(same) or not err <= TOL[dn] * scale:
+                raise SystemExit(f"chip_smoke: the peer route of {kind} [{name}] ({dn}) failed: pool "
+                                 f"{launch['pool']}, bitwise {same}, err {err} vs {TOL[dn]} x {scale}")  # fmt: skip
+            recs[(kind, "peer", name, dtype)] = {"case": f"peer {kind}[{name}]", "dtype": dn, "bitwise": same,
+                                                "ref_max_abs_err": err, "max_abs_oracle": scale, "launch": launch}
+            del x, w, one, calls, oracle
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# tp_gpus: the TP world over one process a card
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 4  # W of the tp_gpus phase: P = 4 processes over four cards (2 over two)
+TP_NEW = 16  # greedy decode steps
+TP_ENGINE = dict(batch=BATCH, prompt_len=PROMPT, new_tokens=TP_NEW, slots=BATCH, decode_block=TP_NEW, seed=0)
+
+
+def _greedy_logits(params, cfg, pc, prompts, new: int):
+    """``serve.greedy``'s decoding with its logits kept: tokens [B, new] and
+    the float32 logits each token was the argmax of, [B, new, vocab]."""
+    import torch
+
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        lg, caches = lm.prefill(params, cfg, pc, prompts, max_len=prompts.shape[1] + new)
+        rows = [lg[:, -1].float()]
+        toks = [rows[-1].argmax(-1)]
+        for i in range(new - 1):
+            lg, caches = lm.decode_step(params, caches, cfg, pc, toks[-1][:, None], prompts.shape[1] + i)
+            rows.append(lg[:, 0].float())
+            toks.append(rows[-1].argmax(-1))
+    return torch.stack(toks, 1), torch.stack(rows, 1)
+
+
+def _hold_greedy(tokens, rows, ref_tokens, ref_rows) -> dict:
+    """The greedy tokens over the cards against the one-card run's.  The
+    decode runs per-rank products whose cuBLAS kernels depend on how many
+    ranks a card holds (the GEMM's width), so a row's bf16 logits differ by
+    rounding and a near tie may flip: at a row's first differing token each
+    run's pick must lie within twice the measured logit difference of the
+    other's (a flip the rounding explains), and before it the logits must
+    differ by at most TOL of their max.  Returns the record."""
+    import torch
+
+    rec = {"rows": []}
+    for b in range(ref_tokens.shape[0]):
+        diff = (tokens[b] != ref_tokens[b]).nonzero()
+        t = int(diff[0]) if len(diff) else ref_tokens.shape[1]
+        before = (rows[b, :t] - ref_rows[b, :t]).abs().max().item() if t else 0.0
+        row = {"first_diff": None if t == ref_tokens.shape[1] else t, "max_abs_logit_diff_before": before}
+        if before > TOL["bfloat16"] * ref_rows[b].abs().max().item():
+            raise SystemExit(f"chip_smoke: tp_gpus greedy row {b}: logits differ by {before} before any token does")
+        if row["first_diff"] is not None:
+            a, z = int(ref_tokens[b, t]), int(tokens[b, t])
+            noise = (rows[b, t] - ref_rows[b, t]).abs().max().item()
+            gaps = (ref_rows[b, t, a] - ref_rows[b, t, z]).item(), (rows[b, t, z] - rows[b, t, a]).item()
+            row.update(one_card=a, cards=z, gap_one_card=gaps[0], gap_cards=gaps[1], logit_diff=noise)
+            print(f"[tp_gpus] greedy row {b} first differs at token {t}: one card {a}, the cards {z}; top-2 gaps "
+                  f"{gaps[0]:.3e} / {gaps[1]:.3e}, the step's max|logit diff| {noise:.3e} (a flip allowed within "
+                  f"twice it)")  # fmt: skip
+            if not (gaps[0] <= 2 * noise and gaps[1] <= 2 * noise):
+                raise SystemExit(f"chip_smoke: tp_gpus greedy row {b} token {t}: not a near tie, {row}")
+        rec["rows"].append(row)
+    rec["equal_rows"] = sum(r["first_diff"] is None for r in rec["rows"])
+    return rec
+
+
+def _tp_gpus_worker(tp, spec: dict) -> dict:
+    """One process of the tp_gpus phase (``launch/serve.run_tp``): its held
+    ranks' fused AG+GEMM / GEMM+RS outputs (two calls each), smollm-360m's
+    f32 prefill (logits on process 0, the launches and the world's payload
+    on each), the bf16 greedy tokens and the serve CLI's engine
+    (``serve.serve_tp``), then Fig. 8 / Tab. 2 rows; the world's payload
+    counted over the greedy decode (its psums: the fused kernels' pushes
+    are no World collective)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks import paper_mlp
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    dev, lo, hi = tp.device, tp.rank0, tp.rank0 + tp.held
+    out = {"card": torch.cuda.get_device_name(dev), "rank0": lo, "held": tp.held, "fused": {}}
+    for name, (kind, xs, ws) in spec["shapes"].items():
+        for dn in ("float32", "bfloat16"):
+            x, w = _peer_operands(xs, ws, getattr(torch, dn), dev)
+            x, w = x[lo:hi].contiguous(), w[lo:hi].contiguous()
+            fn = getattr(K, kind)
+            a, b = fn(x, w, world=tp), fn(x, w, world=tp)
+            out["fused"][(name, dn)] = {"out": a.cpu(), "twice": torch.equal(a, b),
+                                        "launch": dict(fn.last_launch)}  # fmt: skip
+            del x, w, a, b
+    cfg = get_config(ARCH)
+    pc = ParallelContext(world=tp)
+    prompts = torch.as_tensor(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, 0), device=dev)
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        logits, _ = lm.prefill(params, cfg, pc, prompts, max_len=PROMPT + TP_NEW)
+    torch.cuda.synchronize(dev)
+    out["prefill_launches"] = K.launch_counts()
+    out["logits"] = logits.cpu() if tp.procs.rank == 0 else None
+    out["logits_sum"] = float(logits.double().sum())
+    del params, logits
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    with torch.no_grad(), tp.counting() as counter:
+        tokens, timing = serve.greedy(params, cfg, pc, prompts, TP_NEW)
+    out["greedy_s"] = timing
+    out["greedy_payload"] = {k: dict(v) for k, v in counter.payload.items() if v}
+    toks, rows = _greedy_logits(params, cfg, pc, prompts, TP_NEW)
+    if not torch.equal(toks, tokens):
+        raise SystemExit(f"chip_smoke: tp_gpus process {tp.procs.rank}: serve.greedy and its replay disagree")
+    out["greedy"] = toks.cpu()
+    out["greedy_logits"] = rows.cpu() if tp.procs.rank == 0 else None
+    del params
+    torch.cuda.empty_cache()
+    out["engine"] = serve.serve_tp(tp, ARCH, dict(spec["engine"], world=TP_WORLD, dtype="bf16", reduce=False,
+                                                  temperature=0.0, top_k=0, eos_id=None, moe_stream=False,
+                                                  mode="overlap", ckpt_dir=None))  # fmt: skip
+    torch.cuda.empty_cache()
+    out["paper"] = paper_mlp.process_rows(tp, spec["paper"])
+    return out
+
+
+def phase_tp_gpus(smi: str) -> dict:
+    """The TP world over one process a card (``World(..., procs=)``), W = 4
+    over P = 4 cards (P = 2 on two): each rank's fused outputs bitwise equal
+    to the same W emulated on card 0, in bf16 and f32; smollm-360m's f32
+    prefill within the logits' bound of the emulated prefill; the bf16
+    greedy tokens against the one-card run's, and the engine's
+    (``launch/serve``'s per-process path, stepping eagerly) recorded against
+    the one-card engine's; the launches of each
+    process equal to the one-card run's; the world's payload per rank equal
+    to the one-process World's; Fig. 8 / Tab. 2 rows over the cards (overlap
+    against NCCL non-overlap) and ``nvidia-smi topo -m``.  The greedy tokens
+    are held to the one-card run's up to near ties (:func:`_hold_greedy`).
+    On one card it prints that it did not run and nothing else."""
+    import subprocess
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.benchmarks import paper_mlp
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper import PAPER_MLP
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"tp_gpus: not run: {cards} card visible")
+        return {"run": False, "cards": cards}
+    import chip_smoke as this  # the processes import the worker by this module's name, not __main__
+
+    procs = 4 if cards >= 4 else 2
+    # the topology as read: nvidia-smi may refuse topo in a sandbox (its output and code are recorded), and the
+    # peer access the kernels' IPC mappings need is read from the driver
+    res = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True)
+    topo = f"rc {res.returncode}: {(res.stdout + res.stderr).strip()}"
+    peers = [[q == r or torch.cuda.can_device_access_peer(q, r) for r in range(procs)] for q in range(procs)]
+    print(f"[tp_gpus] {cards} cards visible; W = {TP_WORLD} over P = {procs}; nvidia-smi topo -m: {topo}; "
+          f"peer access (torch.cuda.can_device_access_peer) {peers}")  # fmt: skip
+    if not all(all(row) for row in peers):
+        raise SystemExit(f"chip_smoke: tp_gpus: the cards lack peer access: {peers}")
+    every = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+                           capture_output=True, text=True, check=True).stdout.strip()  # fmt: skip
+    print(f"[tp_gpus] nvidia-smi, every card:\n{every}")
+    # the same W emulated on card 0
+    dev = torch.device("cuda", 0)
+    one = World(TP_WORLD, dev)
+    shapes = peer_shapes()
+    ref = {}
+    for name, (kind, xs, ws) in shapes.items():
+        for dn in ("float32", "bfloat16"):
+            x, w = _peer_operands(xs, ws, getattr(torch, dn), dev)
+            ref[(name, dn)] = getattr(K, kind)(x, w).cpu()
+            del x, w
+    cfg = get_config(ARCH)
+    pc = ParallelContext(world=one)
+    prompts = torch.as_tensor(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, 0), device=dev)
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        ref_logits, _ = lm.prefill(params, cfg, pc, prompts, max_len=PROMPT + TP_NEW)
+    torch.cuda.synchronize(dev)
+    ref_launches = K.launch_counts()
+    ref_logits = ref_logits.cpu()
+    del params
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    with torch.no_grad(), one.counting() as counter:
+        _, ref_timing = serve.greedy(params, cfg, pc, prompts, TP_NEW)
+    ref_payload = {k: dict(v) for k, v in counter.payload.items() if v}
+    ref_tokens, ref_rows = (t.cpu() for t in _greedy_logits(params, cfg, pc, prompts, TP_NEW))
+    del params
+    ref_engine = serve.serve("smollm-360m", world=TP_WORLD, dtype="bf16", device=dev, **TP_ENGINE)
+    torch.cuda.empty_cache()
+    # the processes, one a card
+    spec = {"shapes": shapes, "engine": TP_ENGINE, "paper": list(PAPER_MLP)}
+    t0 = time.perf_counter()
+    got = serve.run_tp(this._tp_gpus_worker, TP_WORLD, procs, dev, args=(spec,))
+    spawn_s = time.perf_counter() - t0
+    held = TP_WORLD // procs
+    out = {"run": True, "procs": procs, "world": TP_WORLD, "cards": [g["card"] for g in got], "topo": topo,
+           "peer_access": peers, "nvidia_smi": every, "spawn_s": spawn_s}  # fmt: skip
+    # (a) the fused kernels: each process's ranks bitwise the emulated run's, both calls
+    fused = {}
+    for key, want in ref.items():
+        for p, g in enumerate(got):
+            r = g["fused"][key]
+            same = torch.equal(r["out"], want[p * held : (p + 1) * held])
+            fused[f"{key[0]} {key[1]} process {p}"] = {"bitwise": same, "twice": r["twice"], "launch": r["launch"]}
+            if not (same and r["twice"] and r["launch"]["pool"] == "procs"):
+                raise SystemExit(f"chip_smoke: tp_gpus fused {key} process {p}: bitwise {same}, second call equal "
+                                 f"{r['twice']}, pool {r['launch']['pool']}")  # fmt: skip
+    print(f"[tp_gpus] fused AG+GEMM / GEMM+RS over {procs} cards: {len(fused)} (case, dtype, process) outputs "
+          f"bitwise equal to W = {TP_WORLD} emulated on card 0, each twice on one pool")  # fmt: skip
+    out["fused"] = fused
+    # (b) the f32 prefill, the launches and the payload
+    lg = got[0]["logits"]
+    err = (lg - ref_logits).abs()
+    bound = LOGIT_ATOL + LOGIT_RTOL * ref_logits.abs()
+    worst = float((err - bound).max())
+    sums = [g["logits_sum"] for g in got]
+    print(f"[tp_gpus] f32 prefill over {procs} cards vs card 0 emulated: max|err| {float(err.max()):.3e}, "
+          f"worst err - bound {worst:.3e} (bound {LOGIT_ATOL:g} + {LOGIT_RTOL:g} |ref|); logits' sums by process "
+          f"{sums}")  # fmt: skip
+    if not (bool(torch.isfinite(lg).all()) and worst <= 0 and len(set(sums)) == 1):
+        raise SystemExit(f"chip_smoke: tp_gpus f32 prefill: worst {worst}, sums {sums}")
+    for p, g in enumerate(got):
+        if g["prefill_launches"] != ref_launches or g["greedy_payload"] != ref_payload or not ref_payload:
+            raise SystemExit(f"chip_smoke: tp_gpus process {p}: launches {g['prefill_launches']} vs {ref_launches}, "
+                             f"greedy payload {g['greedy_payload']} vs {ref_payload}")  # fmt: skip
+    print(f"[tp_gpus] prefill launches per process {ref_launches} = the one-card run's; the greedy decode's "
+          f"payload per rank {ref_payload} = the one-process World's")  # fmt: skip
+    out.update(prefill_max_abs_err=float(err.max()), launches=ref_launches, payload=ref_payload)
+    # (c) bf16 greedy tokens and the engine's: every process the same (SPMD), against the one-card run's
+    for p, g in enumerate(got):
+        if not (torch.equal(g["greedy"], got[0]["greedy"]) and (g["engine"]["tokens"] == got[0]["engine"]["tokens"]).all()):
+            raise SystemExit(f"chip_smoke: tp_gpus process {p}: its tokens differ from process 0's")
+    greedy = _hold_greedy(got[0]["greedy"], got[0]["greedy_logits"], ref_tokens, ref_rows)
+    eng, eng_toks = got[0]["engine"], got[0]["engine"]["tokens"]
+    eng_equal = [int((eng_toks[i] == ref_engine["tokens"][i]).all()) for i in range(len(eng_toks))]
+    print(f"[tp_gpus] bf16 greedy ({BATCH} x {PROMPT} prompt, {TP_NEW} tokens): {greedy['equal_rows']} of {BATCH} rows "
+          f"equal to the one-card run's, every difference a near tie; prefill {got[0]['greedy_s']['prefill_s'] * 1e3:.1f} "
+          f"ms / one card {ref_timing['prefill_s'] * 1e3:.1f} ms, decode {got[0]['greedy_s']['decode_s'] * 1e3:.1f} ms "
+          f"/ {ref_timing['decode_s'] * 1e3:.1f} ms; the engine's requests equal to the one-card engine's: {eng_equal} "
+          f"(recorded: the same decode rounding), {eng['tokens_per_s']:.1f} tokens/s over {procs} cards (eager) vs "
+          f"{ref_engine['tokens_per_s']:.1f} on one card (captured), launches {eng['launches']}")  # fmt: skip
+    out.update(greedy=greedy, engine_equal=eng_equal, greedy_s=[g["greedy_s"] for g in got], greedy_s_one=ref_timing,
+               engine={k: eng[k] for k in ("tokens_per_s", "steps", "host_syncs", "graph_captures", "launches",
+                                           "data_bytes", "seconds")},
+               engine_one={k: ref_engine[k] for k in ("tokens_per_s", "steps", "graph_captures", "seconds")})  # fmt: skip
+    # (d) Fig. 8 / Tab. 2 over the cards
+    rows = paper_mlp.combine_rows([g["paper"] for g in got])
+    for r in rows:
+        print(f"[tp_gpus] {paper_mlp.describe(r)}")
+    out["paper"] = rows
+    out["counts"] = {k: sum(g["engine"]["launches"][k] for g in got) for k in ref_launches}
+    return out
 
 
 def _hold_logits(what: str, a, b, pair=("fused", "eager")):
@@ -2045,7 +2414,9 @@ def _main_path(tag: str, cfg, pc, prompts, expect: dict, profile: bool, pc_eager
     return result
 
 
-def _setup(arch: str):
+def _setup(arch: str, layers=None):
+    """``arch``'s config (its depth cut to ``layers``, if given), the W = 4
+    world, the fused and eager contexts and the 4 x 256 seeded prompts."""
     import torch
 
     from repro_torch.backend.mesh import World
@@ -2054,6 +2425,7 @@ def _setup(arch: str):
     from repro_torch.parallel.context import ParallelContext
 
     cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=layers) if layers else cfg
     world = World(WORLD, "cuda")
     pc = ParallelContext(world=world)
     assert pc.backend == "fused", pc.backend
@@ -2192,7 +2564,7 @@ def phase_deepseek(profile: bool = False) -> dict:
     from repro_torch.models import lm
     from repro_torch.nn import moe
 
-    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS)
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS, CUT["deepseek"][ARCH_DS])
     pc_stream = dataclasses.replace(pc, moe_decode_stream=True)
     max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
     cut = dataclasses.replace(cfg, n_layers=DS_F32_LAYERS)  # the dense layer + 3 MoE layers, full width
@@ -2245,7 +2617,7 @@ def phase_deepseek(profile: bool = False) -> dict:
     del params, caches, outs
     torch.cuda.empty_cache()
 
-    # (d) bfloat16 at full depth: the main path through serve.greedy, streamed decode
+    # (d) bfloat16 at the phase's depth: the main path through serve.greedy, streamed decode
     params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
     n_moe = cfg.n_layers - cfg.moe.first_k_dense
     expect = {"ag_gemm": cfg.n_layers + cfg.n_layers, "gemm_rs": cfg.n_layers + cfg.n_layers,
@@ -2253,7 +2625,7 @@ def phase_deepseek(profile: bool = False) -> dict:
               "ssd_intra_chunk": 0}  # fmt: skip (qkv / o-proj per layer, plus one dense or shared MLP per layer)
     result.update(_main_path("deepseek", cfg, pc_stream, prompts, expect, profile, params=params))
 
-    # (e) the engine at full depth, streamed decode in its captured graphs
+    # (e) the engine, streamed decode in its captured graphs
     result["engine"], _ = _engine_bf16(cfg, pc_stream, params, ENGINE_DS, profile)
     del params
     torch.cuda.empty_cache()
@@ -2421,8 +2793,8 @@ def phase_ep(profile: bool = False) -> dict:
     """deepseek-moe-16b's prefill with ``ep_axis`` (the expert-parallel a2a
     pair, its expert GEMMs on the grouped kernel): one layer's pair against
     its baseline in float32 (kept sets equal), the float32 EP prefill at
-    DS_F32_LAYERS layers against the TP-MoE prefill, then in bf16 at full
-    depth the main path (prefill + greedy decode) through ``serve.greedy``,
+    DS_F32_LAYERS layers against the TP-MoE prefill, then in bf16 at
+    CUT["deepseek"]'s depth the main path (prefill + greedy decode) through ``serve.greedy``,
     launches held exactly, and the EP / TP prefill and the layer's times."""
     import dataclasses
 
@@ -2435,7 +2807,7 @@ def phase_ep(profile: bool = False) -> dict:
     from repro_torch.models import lm
     from repro_torch.nn.layers import ACTS, rms_norm
 
-    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS)
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_DS, CUT["deepseek"][ARCH_DS])
     pc_ep = dataclasses.replace(pc, ep_axis="model", moe_decode_stream=True)
     pc_tp = dataclasses.replace(pc, moe_decode_stream=True)
     max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
@@ -2472,7 +2844,7 @@ def phase_ep(profile: bool = False) -> dict:
     del params
     torch.cuda.empty_cache()
 
-    # (c) bfloat16 at full depth: the main path with the EP prefill
+    # (c) bfloat16 at the phase's depth: the main path with the EP prefill
     params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
     n_moe = cfg.n_layers - cfg.moe.first_k_dense
     expect = {"ag_gemm": cfg.n_layers + cfg.n_layers, "gemm_rs": cfg.n_layers + cfg.n_layers,
@@ -2694,9 +3066,10 @@ def phase_engine(profile: bool = False) -> dict:
 
     out = {}
     for arch, spec in ENGINE.items():
-        cfg, world, pc, _, _ = _setup(arch)
+        cfg, world, pc, _, _ = _setup(arch, CUT["engine"][arch])
         params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
         rec, reqs = _engine_bf16(cfg, pc, params, spec, profile)
+        rec["layers"] = cfg.n_layers
         del params
         torch.cuda.empty_cache()
         # (c) float32: four greedy requests against per-token reference decoding
@@ -2787,7 +3160,7 @@ def phase_ring() -> dict:
 
 
 def phase_train(profile: bool = False) -> dict:
-    """smollm-360m trained at its published size, W = 4 (module docstring, phase 11)."""
+    """smollm-360m trained at its published width, W = 4 (module docstring, phase 11)."""
     import torch
 
     from repro_torch.backend.mesh import World
@@ -2853,12 +3226,12 @@ def phase_train(profile: bool = False) -> dict:
     torch.cuda.empty_cache()
 
     # (b) bf16: TRAIN_STEPS steps of the train entry point, the launches held each step
-    run = _bf16_train("train", ARCH, TRAIN_STEPS)
+    run = _bf16_train("train", ARCH, TRAIN_STEPS, layers=CUT["train"][ARCH])
     out["bf16"] = run["record"]
     if profile:
         from repro_torch.benchmarks.common import profile_windows
 
-        step = make_train_step(lm, cfg, pc, opt_cfg, grad_masks=lm.grad_masks(cfg, pc))
+        step = make_train_step(lm, run["cfg"], pc, opt_cfg, grad_masks=lm.grad_masks(run["cfg"], pc))
         p_, o_ = run["params"], run["opt_state"]
         out["profile"] = profile_windows(f"{cfg.name} train", {"step": lambda: step(p_, o_, batch)})
     del run
@@ -3040,7 +3413,8 @@ def _dp_run(cfg, d2: dict, remat: str, steps: int, placed_pred: int) -> dict:
     expect = paper_e2e.expected_launches(cfg, "overlap", remat)
     bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
     totals = [r["launches"] for r in d2["replicas"]]
-    print(f"[dp] remat {remat!r}: {DP_REPLICAS} replica processes x W={WORLD} of {ARCH} on one card, bf16, "
+    print(f"[dp] remat {remat!r}: {DP_REPLICAS} replica processes x W={WORLD} of {ARCH} ({cfg.n_layers} layers) on "
+          f"one card, bf16, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step ({TRAIN_BATCH // DP_REPLICAS} rows a replica), ZeRO-3: launches "
           f"per replica per step {hist[0]['launches']} (held exactly: {expect}, every step of rank 0; each replica's "
           f"totals over {steps} steps {totals})")  # fmt: skip
@@ -3098,16 +3472,16 @@ def phase_dp() -> dict:
     from repro_torch.training.optimizer import apply_masks, tree_leaves
     from repro_torch.training.steps import loss_and_grads
 
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CUT["dp"][ARCH])
     out = {}
     torch.cuda.empty_cache()
-    plan = dryrun.run_cell(ARCH, Shape("train_8x256", TRAIN_SEQ, TRAIN_BATCH, "train"),
+    plan = dryrun.run_cell(cfg, Shape("train_8x256", TRAIN_SEQ, TRAIN_BATCH, "train"),
                            mesh=make_dev_mesh(WORLD, DP_REPLICAS), remat="none", verbose=False, extrapolate=False)
     args_world = plan["memory"]["world"]["arguments"]
     placed_pred = args_world["params"] + args_world["opt_state"]
     # (a) D = 1 (in this process), then in one spawn of DP_REPLICAS processes: D = 2 at remat "none" and at
     # DP_REMAT (each run from the same seed over the same global batches, its data transport timed), (f) and (g)
-    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, dtype="bf16", world=WORLD, log_every=10)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, layers=cfg.n_layers, dtype="bf16", world=WORLD, log_every=10)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run = train_cli.train(ARCH, steps=DP_D1_STEPS, device="cuda", **kw)
@@ -3115,7 +3489,7 @@ def phase_dp() -> dict:
     del run
     torch.cuda.empty_cache()
     remats = ("none", DP_REMAT)
-    replica_kw = dict(kw, reduce=False, layers=None, mode="overlap", ckpt_dir=None, ckpt_every=0, lr=3e-4,
+    replica_kw = dict(kw, reduce=False, mode="overlap", ckpt_dir=None, ckpt_every=0, lr=3e-4,
                       resume=False, time_data=True)  # the train CLI's defaults but the timed transport
     t0 = time.perf_counter()
     res = train_cli.run_replicas(this._dp_worker, DP_REPLICAS, device="cuda",
@@ -3262,7 +3636,7 @@ def _serve_dp_replica(data, spec: dict) -> dict:
     the data transport's payload counted over the drain, the placed blocks'
     bytes and the peak; (b) the float32 engine at SERVE_DP_F32_LAYERS
     layers on the same requests; (c) ``serve.greedy`` on this replica's rows
-    of the serve phase's prompts, bf16 at full depth (counted), and the
+    of the serve phase's prompts, bf16 at CUT["dp"]'s depth (counted), and the
     float32 prefill logits at SERVE_DP_F32_LAYERS layers against D = 1's on
     the same rows in this process."""
     import torch
@@ -3277,7 +3651,7 @@ def _serve_dp_replica(data, spec: dict) -> dict:
     from repro_torch.serving import ServeEngine
 
     dev = data.device
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CUT["dp"][ARCH])
     cut = dataclasses.replace(cfg, n_layers=SERVE_DP_F32_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3286,7 +3660,7 @@ def _serve_dp_replica(data, spec: dict) -> dict:
     kw = dict(max_len=spec["max_len"], n_slots=spec["slots"], prefill_chunk=ENGINE_CHUNK,
               decode_block=spec["decode_block"])  # fmt: skip
     out = {}
-    # (a) the bf16 engine at full depth and width
+    # (a) the bf16 engine at CUT["dp"]'s depth, full width
     before = device_bytes(dev)
     params = serve.serve_params(cfg, pc, "bf16", seed=0, log=False)
     placed = {k: v - before[k] for k, v in device_bytes(dev).items()}
@@ -3355,7 +3729,7 @@ def phase_serve_dp(reps: list, smi: str) -> dict:
     from repro_torch.parallel.context import ParallelContext
 
     spec, n = SERVE_DP, DP_REPLICAS
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=CUT["dp"][ARCH])
     cut = dataclasses.replace(cfg, n_layers=SERVE_DP_F32_LAYERS)
     reqs = _engine_requests(cfg, spec)
     engines = [r["engine"] for r in reps]
@@ -3413,7 +3787,7 @@ def phase_serve_dp(reps: list, smi: str) -> dict:
           f"(held exactly); {want['all-gather'] / st['steps']:.0f} B a step")  # fmt: skip
     if any(g != want for g in got):
         raise SystemExit(f"chip_smoke: serve_dp: the data transport moved {got}, the model says {want}")
-    plan = dryrun.run_cell(ARCH, Shape("decode_serve_dp", spec["max_len"], spec["slots"], "decode"),
+    plan = dryrun.run_cell(cfg, Shape("decode_serve_dp", spec["max_len"], spec["slots"], "decode"),
                            mesh=make_dev_mesh(WORLD, n), remat="none", verbose=False, extrapolate=False)  # fmt: skip
     pred = plan["memory"]["world"]["arguments"]["params"]
     placed = [r["engine"]["placed"]["requested"] for r in reps]
@@ -3822,10 +4196,8 @@ def phase_train_moe(profile: bool = False) -> dict:
     """The MoE models trained at their published widths, W = 4 (module docstring, phase 12)."""
     import torch
 
-    from repro_torch.benchmarks import paper_e2e
-
     out = {"layer": {arch: _moe_layer_grads(arch) for arch in (ARCH_MOE, ARCH_DS)}, "f32_step": _moe_step_f32()}
-    run = _bf16_train("train_moe", ARCH_MOE, TRAIN_STEPS)
+    run = _bf16_train("train_moe", ARCH_MOE, TRAIN_STEPS, layers=CUT["train"][ARCH_MOE])
     out["bf16"] = run["record"]
     if profile:
         from repro_torch.backend.mesh import World
@@ -3848,7 +4220,7 @@ def phase_train_moe(profile: bool = False) -> dict:
     del run
     torch.cuda.empty_cache()
     out["resume"] = _resume_check("train_moe", ARCH_MOE)
-    run = _bf16_train("train_moe", ARCH_DS, TRAIN_MOE_DS_STEPS, layers=paper_e2e.DEPTH[ARCH_DS], loss_fall=False)
+    run = _bf16_train("train_moe", ARCH_DS, TRAIN_MOE_DS_STEPS, layers=CUT["train"][ARCH_DS], loss_fall=False)
     out["bf16_ds"] = run["record"]
     del run
     return out
@@ -3906,16 +4278,16 @@ def _ssm_f32_step(tag: str, arch: str) -> dict:
 
 
 def _ssm_training(tag: str, arch: str, profile: bool) -> dict:
-    """``arch`` trained at its published size, W = 4, remat SSM_REMAT: the
+    """``arch`` trained at its published width, W = 4, remat SSM_REMAT: the
     float32 step fused against eager (:func:`_ssm_f32_step`), TRAIN_STEPS
-    bf16 steps of the train entry point at full depth and lr SSM_LR
+    bf16 steps of the train entry point at CUT["train"][arch] layers and lr SSM_LR
     (:func:`_bf16_train`),
     with ``profile`` one step's device time by kernel, and the resume check
     at SSM_CKPT_LAYERS[arch] layers."""
     import torch
 
     out = {"f32_step": _ssm_f32_step(tag, arch)}
-    run = _bf16_train(tag, arch, TRAIN_STEPS, remat=SSM_REMAT, lr=SSM_LR)
+    run = _bf16_train(tag, arch, TRAIN_STEPS, layers=CUT["train"][arch], remat=SSM_REMAT, lr=SSM_LR)
     out["bf16"] = run["record"]
     if profile:
         from repro_torch.backend.mesh import World
@@ -3943,19 +4315,19 @@ def _ssm_training(tag: str, arch: str, profile: bool) -> dict:
 
 
 def phase_train_ssm(profile: bool = False) -> dict:
-    """mamba2-2.7b trained at its published size (module docstring, phase 13)."""
+    """mamba2-2.7b trained at its published width (module docstring, phase 13)."""
     return _ssm_training("train_ssm", ARCH_SSM, profile)
 
 
 def phase_zamba2(profile: bool = False) -> dict:
-    """zamba2-2.7b at its published size: serve, the engine, training
+    """zamba2-2.7b at its published width, CUT["zamba2"] deep: serve, the engine, training
     (module docstring, phase 14)."""
     import torch
 
     from repro_torch import kernels as K
     from repro_torch.models import lm
 
-    cfg, world, pc, pc_eager, prompts = _setup(ARCH_Z)
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_Z, CUT["zamba2"][ARCH_Z])
     max_len, s_loc = PROMPT + NEW_TOKENS, PROMPT // WORLD
     params = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
 
@@ -3978,7 +4350,7 @@ def phase_zamba2(profile: bool = False) -> dict:
         raise SystemExit("chip_smoke: the fused shared attention block disagrees with the eager one")
     del x, y_f, y_e, out_f, out_e
 
-    # (b) the float32 prefill at full depth, fused against eager, every position
+    # (b) the float32 prefill, fused against eager, every position
     lg_f, _ = lm.prefill(params, cfg, pc, prompts, max_len=max_len)
     lg_e, _ = lm.prefill(params, cfg, pc_eager, prompts, max_len=max_len)
     _hold_logits("[zamba2] f32 prefill logits (every position)", lg_f, lg_e)
@@ -4364,7 +4736,7 @@ def _encdec_serve(cfg, pc, params, frames, start) -> tuple:
 
 
 def phase_encdec(profile: bool = False) -> dict:
-    """seamless-m4t-medium at its published size: serve, the f32 checks,
+    """seamless-m4t-medium at its published width, CUT["encdec"] deep: serve, the f32 checks,
     training (module docstring, phase 15)."""
     import dataclasses
 
@@ -4375,6 +4747,7 @@ def phase_encdec(profile: bool = False) -> dict:
     from repro_torch.models import encdec, frontends
 
     cfg, world, pc, pc_eager, _ = _setup(ARCH_ED)
+    cfg = dataclasses.replace(cfg, encoder_layers=CUT["encdec"][ARCH_ED], n_layers=CUT["encdec"][ARCH_ED])
     gen = torch.Generator(device=world.device).manual_seed(1)
     params = encdec.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)
     frames = frontends.stub_frame_embeddings(gen, BATCH, cfg.enc_len, cfg.d_model, torch.bfloat16, world.device)
@@ -4434,7 +4807,7 @@ def phase_encdec(profile: bool = False) -> dict:
     del params, p32, lg_f, lg_e, lg_b, enc, caches
     torch.cuda.empty_cache()
 
-    # (d) training: the f32 step at 2 + 2 layers, TRAIN_STEPS bf16 steps at full depth, the resume at 2 + 2
+    # (d) training: the f32 step at 2 + 2 layers, TRAIN_STEPS bf16 steps, the resume at 2 + 2
     cut = dataclasses.replace(cfg, encoder_layers=MM_CUT_LAYERS, n_layers=MM_CUT_LAYERS)
     steps = [_mm_f32_step("encdec", cut, seed=seed) for seed in range(ENCDEC_F32_SEEDS)]
     result["f32_step"], result["f32_step_seeds"] = steps[0], [r["grad_rel_err"] for r in steps]
@@ -4449,7 +4822,7 @@ def phase_encdec(profile: bool = False) -> dict:
 
 
 def phase_vlm(profile: bool = False) -> dict:
-    """paligemma-3b at its published size: serve with an image prefix, the
+    """paligemma-3b at its published width, CUT["vlm"] deep: serve with an image prefix, the
     f32 checks, training (module docstring, phase 16)."""
     import dataclasses
 
@@ -4457,11 +4830,11 @@ def phase_vlm(profile: bool = False) -> dict:
 
     from repro_torch.models import frontends, lm
 
-    cfg, world, pc, pc_eager, prompts = _setup(ARCH_V)
+    cfg, world, pc, pc_eager, prompts = _setup(ARCH_V, CUT["vlm"][ARCH_V])
     gen = torch.Generator(device=world.device).manual_seed(1)
     patches = frontends.stub_patch_embeddings(gen, BATCH, 2 * PROMPT, cfg.d_model, torch.float32, world.device)
     max_len = patches.shape[1] + PROMPT + NEW_TOKENS
-    # (a) the float32 prefill (image prefix + prompts) at full depth, fused against eager
+    # (a) the float32 prefill (image prefix + prompts), fused against eager
     p32 = lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.float32)
     lg_f, _ = lm.prefill(p32, cfg, pc, prompts, patches, max_len=max_len)
     lg_e, _ = lm.prefill(p32, cfg, pc_eager, prompts, patches, max_len=max_len)
@@ -4478,8 +4851,7 @@ def phase_vlm(profile: bool = False) -> dict:
     print(f"[vlm] max_len {max_len}: prefill of {patches.shape[1]} + {PROMPT} tokens, then {NEW_TOKENS - 1} decode steps")
     torch.cuda.empty_cache()
     # (c) training: the f32 step at V_F32_LAYERS layers and V_F32_ROWS rows (with the kv-copy sync), TRAIN_STEPS
-    # bf16 steps at full
-    # depth, the resume at MM_CUT_LAYERS
+    # bf16 steps, the resume at MM_CUT_LAYERS
     result["f32_step"] = _mm_f32_step("vlm", dataclasses.replace(cfg, n_layers=V_F32_LAYERS), V_F32_ROWS)
     result["train"] = _mm_train("vlm", cfg, TRAIN_STEPS)
     result["resume"] = _mm_resume("vlm", dataclasses.replace(cfg, n_layers=MM_CUT_LAYERS))
@@ -4584,15 +4956,16 @@ def phase_e2e(profile: bool = False) -> dict:
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
     from repro_torch.benchmarks import paper_e2e
 
     out = {"f32": {arch: _e2e_f32_step(arch) for arch in E2E_F32_ARCHS}, "rows": [], "counts": {}}
     print(f"[e2e] {paper_e2e.CAVEAT}")
     for arch in paper_e2e.MODELS:
+        cfg = paper_e2e.e2e_config(arch, CUT["e2e"].get(arch))
         K.reset_launch_counts()
-        row = paper_e2e.fig11_row(arch)
+        row = paper_e2e.run_row(cfg, World(paper_e2e.WORLD, "cuda"))
         out["counts"][arch] = K.launch_counts()
-        cfg = paper_e2e.e2e_config(arch)
         print(f"[e2e] {paper_e2e.describe(row)}")
         for mode in paper_e2e.MODES:
             expect = paper_e2e.expected_launches(cfg, mode)
@@ -4616,7 +4989,7 @@ def phase_e2e(profile: bool = False) -> dict:
 
 def _e2e_profile(arch: str) -> dict:
     """Device time by kernel of one bf16 train step of ``arch`` at its e2e
-    depth, in each mode (torch.profiler)."""
+    phase's depth, in each mode (torch.profiler)."""
     import torch
 
     from repro_torch.backend.mesh import World
@@ -4627,7 +5000,7 @@ def _e2e_profile(arch: str) -> dict:
     from repro_torch.parallel.context import ParallelContext
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
-    cfg = paper_e2e.e2e_config(arch)
+    cfg = paper_e2e.e2e_config(arch, CUT["e2e"].get(arch))
     world = World(WORLD, "cuda")
     state = {"p": lm.init(cfg, world, torch.Generator(device=world.device).manual_seed(0), torch.bfloat16)}
     state["o"] = init_opt_state(lm.trainable(state["p"], cfg))
@@ -5375,15 +5748,46 @@ def _calibrate(tag: str, shape, smi: str) -> dict:
             "step_ms": ms, "plan": plan}  # fmt: skip
 
 
-def phase_dryrun(smi: str) -> dict:
-    """The dry-run planner held to the card (module docstring, phase 19c)."""
+def start_dryrun_grid() -> dict:
+    """(a)'s grid of the dryrun phase, which plans on meta and needs no
+    card, in a background thread of this process (its processes spawned
+    from there), started before the first phase so that it overlaps the
+    phases before the dryrun phase; half the host's cores plan it, the
+    other half stay with those phases.  Returns its record for :func:`phase_dryrun`."""
+    import os
+    import threading
+
+    from repro_torch.launch import dryrun
+
+    rec = {"jobs": max(2, min(DRYRUN_JOBS, (os.cpu_count() or 2) // 2))}  # 2 at least: no plan in this process
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            rec["results"] = dryrun.run_grid(jobs=rec["jobs"])
+        except BaseException as e:  # raised again in the dryrun phase
+            rec["error"] = e
+        rec["s"] = time.perf_counter() - t0
+
+    rec["thread"] = threading.Thread(target=run, name="dryrun grid", daemon=True)
+    rec["thread"].start()
+    return rec
+
+
+def phase_dryrun(smi: str, grid: dict) -> dict:
+    """The dry-run planner held to the card (module docstring, phase 19c);
+    ``grid``: :func:`start_dryrun_grid`'s record."""
     from repro_torch.configs import ARCH_NAMES, SHAPES, Shape, get_config
-    from repro_torch.launch import dryrun, report
+    from repro_torch.launch import report
     from repro_torch.launch.specs import cell_is_applicable
 
     t0 = time.perf_counter()
-    results = dryrun.run_grid(jobs=DRYRUN_JOBS)
-    grid_s = time.perf_counter() - t0
+    grid["thread"].join()
+    if "error" in grid:
+        raise grid["error"]
+    results, grid_s, jobs = grid["results"], grid["s"], grid["jobs"]
+    print(f"[dryrun] (a) the grid, started in the background before the first phase, ended {grid_s:.1f} s after its start; "
+          f"this phase waited {time.perf_counter() - t0:.1f} s for it")  # fmt: skip
     print(report.table(results))
     bad = []
     for r in results:
@@ -5393,7 +5797,7 @@ def phase_dryrun(smi: str) -> dict:
             bad.append((r["arch"], r["shape"], r["multi_pod"], r["status"], r.get("error")))
     n_ok = sum(r["status"] == "ok" for r in results)
     print(f"[dryrun] (a) {len(results)} cells ({len(ARCH_NAMES)} archs x {len(SHAPES)} shapes x single / multi-pod), "
-          f"{n_ok} ok, {len(results) - n_ok} skipped; {grid_s:.1f} host s in {DRYRUN_JOBS} processes; the terms are "
+          f"{n_ok} ok, {len(results) - n_ok} skipped; {grid_s:.1f} host s in {jobs} processes; the terms are "
           "predictions at H100 SXM data-sheet rates (700 W), not measurements")  # fmt: skip
     if bad:
         raise SystemExit(f"chip_smoke: dry-run cells off the reference's rule: {bad[:8]}")
@@ -5473,6 +5877,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="device time by kernel for one prefill / decode step, one engine decode iteration "
                     "and one train step")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run alone after device and build (e.g. tp_gpus on a "
+                    "four-card machine); the kernels line is printed by a whole run only")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -5485,6 +5892,7 @@ def main(argv=None) -> int:
     build_s, fma_spills = phase_build()
     out = {"device": kind, "nvidia_smi": smi, "build_s": build_s, "fma_spills": fma_spills, "phase_s": {}}
     prof = args.profile
+    background = {}  # work started with the script that needs no card (the dryrun phase's grid)
     phases = {"serve": lambda: phase_serve(prof), "seam": lambda: phase_seam(prof), "moe": lambda: phase_moe(prof),
               "deepseek": lambda: phase_deepseek(prof), "ep": lambda: phase_ep(prof), "ssm": lambda: phase_ssm(prof),
               "engine": lambda: phase_engine(prof), "ring": phase_ring, "train": lambda: phase_train(prof),
@@ -5493,17 +5901,33 @@ def main(argv=None) -> int:
               "train_moe": lambda: phase_train_moe(prof), "train_ssm": lambda: phase_train_ssm(prof),
               "zamba2": lambda: phase_zamba2(prof), "encdec": lambda: phase_encdec(prof), "vlm": lambda: phase_vlm(prof),
               "e2e": lambda: phase_e2e(prof), "paper": phase_paper, "quant": lambda: phase_quant(ITERS),
-              "tune": lambda: phase_tune(smi), "dryrun": lambda: phase_dryrun(smi),
+              "tune": lambda: phase_tune(smi), "dryrun": lambda: phase_dryrun(smi, background["dryrun"]),
+              "tp_gpus": lambda: phase_tp_gpus(smi),
               # last but one: its torch.profiler sessions (device_ms) leave host overhead behind
               # that would slow the host-bound prefill and decode of the phases above
               "kernels": lambda: phase_kernels(ITERS),
               # last: (d) counts the plans every phase built
               "verify": phase_verify}  # fmt: skip
-    for name, run in phases.items():
+    chosen = list(phases) if args.phases is None else [n.strip() for n in args.phases.split(",") if n.strip()]
+    unknown = [n for n in chosen if n not in phases]
+    if unknown:
+        raise SystemExit(f"chip_smoke: unknown phases {unknown}; one of {list(phases)}")
+    if "dryrun" in chosen:
+        background["dryrun"] = start_dryrun_grid()
+    for name in chosen:
         t0 = time.perf_counter()
-        out[name] = run()
+        out[name] = phases[name]()
         out["phase_s"][name] = time.perf_counter() - t0
         print(f"[summary] phase {name}: {out['phase_s'][name]:.1f} s")
+    if args.phases is not None:  # some phases alone: their records, no kernels line
+        out["wall_s"] = time.perf_counter() - t_start
+        print(f"[summary] wall time of the script: {out['wall_s']:.1f} s (the kernels' build included)")
+        if args.json:
+            Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.json).write_text(json.dumps(out, indent=1, default=str))
+        print(f"{smi}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
     recs = out.pop("kernels")
     recs.update(out["quant"].pop("recs"))  # the quant phase's packed / wire kernel cases
     by_path = {ARCH: out["serve"]["counts"], ARCH_MOE: out["moe"]["counts"], ARCH_DS: out["deepseek"]["counts"],

@@ -175,6 +175,7 @@ class Launch:
     items: Tuple[Item, ...]
     blocks: Tuple[Tuple[int, ...], ...]  # item indices of each block, in the order it runs them
     persistent: bool = True  # blocks take items round robin (wgmma); False: one block per grid tile (fma)
+    prologue: Tuple[tuple, ...] = ()  # flags the launch sets before any item (the held ranks' entry words)
 
     @property
     def grid(self) -> int:
@@ -213,6 +214,8 @@ def ag_item_ops(it, packed: bool = False) -> Tuple[Tuple[str, tuple], ...]:
     ops = [("write", t) for t in it.writes[:fill]] + [("set", f) for f in it.sets[:fill]]
     load = ([("wait", guard)] if guard is not None else []) + [("read", t) for t in it.reads]
     push = [("write", t) for t in it.writes[fill:]] + [("set", f) for f in it.sets[fill:]]
+    if push and getattr(it, "entry", None) is not None:  # the receiver's entry word, before the first store
+        push = [("wait", it.entry)] + push
     ops += load + push + (load if packed and push else [])
     return tuple(ops)
 
@@ -223,6 +226,8 @@ def rs_item_ops(it) -> Tuple[Tuple[str, tuple], ...]:
     recv slot, store the sum into the peer's recv slot, set the peer's flag."""
     ops = [("wait", it.wait)] if it.wait is not None else []
     ops += [("read", t) for t in it.reads]
+    if it.writes and getattr(it, "entry", None) is not None:  # the receiver's entry word, before the stores
+        ops.append(("wait", it.entry))
     ops += [("write", t) for t in it.writes]
     ops += [("set", f) for f in it.sets]
     return tuple(ops)
@@ -232,20 +237,41 @@ def _is_ag(items) -> bool:
     return bool(items) and hasattr(items[0], "copy")
 
 
-def wgmma_launch(items: Sequence, grid: int, packed: bool = False) -> Launch:
+def prologue_of(items: Sequence, world: Optional[int] = None) -> Tuple[tuple, ...]:
+    """The entry words a launch of ``items`` sets before any item: each of
+    its ranks' on every rank's region (``kernels/ag_gemm.entry_keys``),
+    with the items' epoch; ``world`` defaults to the ranks the items name.
+    The one-allocation route (``sys`` 0, every rank in one launch) sets and
+    waits on none: with every rank's entry word set before any item, no
+    wait on one can block, so a proof of one launch holds with or without
+    them; across launches (``check_peer_protocol``) they order the calls."""
+    from repro_torch.kernels.ag_gemm import entry_keys
+
+    if not items:
+        return ()
+    ranks = sorted({it.r for it in items})
+    world = world or 1 + max(max(it.r, it.dst) for it in items)
+    entry = next((it.entry for it in items if getattr(it, "entry", None) is not None), None)
+    epoch = entry[3] if entry is not None and len(entry) > 3 else None
+    return entry_keys(world, ranks, epoch)
+
+
+def wgmma_launch(items: Sequence, grid: int, packed: bool = False, world: Optional[int] = None) -> Launch:
     """The bf16 route's launch of the wrapper's ``items`` on ``grid`` (G)
-    persistent blocks: block b runs items b, b+G, ... in order."""
+    persistent blocks: block b runs items b, b+G, ... in order; the launch
+    prologue sets its ranks' entry words (:func:`prologue_of`)."""
     ag = _is_ag(items)
     conv = tuple(Item(it.index, it.s, it.r, it.c, ag_item_ops(it, packed) if ag else rs_item_ops(it)) for it in items)
-    return Launch("ag_gemm" if ag else "gemm_rs", "wgmma", conv, _round_robin(len(conv), grid))
+    return Launch("ag_gemm" if ag else "gemm_rs", "wgmma", conv, _round_robin(len(conv), grid),
+                  prologue=prologue_of(items, world))  # fmt: skip
 
 
 def fma_ag_launch(tables, n_tiles: int) -> Launch:
     """``ag_gemm_kernel``'s launch: grid (n-tile j, channel c, rank r), the
     block walking steps s = 0..W-1; for s > 0 it waits on ready(r, s-1, c)
     and reads gather slot (r, src, c) (at s = 0 the own rows of x in place);
-    block j == 0 pushes the held rows into slot (src, c) of rank dst and
-    sets ready(dst, s, c) for s < W-1.  Items are numbered (s, r, c, j)
+    block j == 0 waits on its copy of dst's entry word, pushes the held rows
+    into slot (src, c) of rank dst and sets ready(dst, s, c) for s < W-1.  Items are numbered (s, r, c, j)
     stage-major."""
     world, nch = tables.world, tables.num_channels
     src_t, dst_t = tables.src_tables(), tables.flow_dst_tables()
@@ -259,19 +285,21 @@ def fma_ag_launch(tables, n_tiles: int) -> Launch:
                     if s > 0:
                         ops += [("wait", ("ready", r, s - 1, c)), ("read", ("gather", r, o, c))]
                     if j == 0 and s < world - 1:
-                        ops += [("write", ("gather", d, o, c)), ("set", ("ready", d, s, c))]
+                        ops += [("wait", ("entry", r, d)), ("write", ("gather", d, o, c)), ("set", ("ready", d, s, c))]
                     if s > 0:
                         ops.append(("read", ("gather", r, o, c)))  # the GEMM's loads
                     blocks.setdefault((j, c, r), []).append(len(items))
                     items.append(Item(len(items), s, r, c, tuple(ops)))
-    return Launch("ag_gemm", "fma", tuple(items), tuple(tuple(b) for b in blocks.values()), persistent=False)
+    return Launch("ag_gemm", "fma", tuple(items), tuple(tuple(b) for b in blocks.values()), persistent=False,
+                  prologue=_all_entries(world))  # fmt: skip
 
 
 def fma_rs_launch(tables, n_tiles: int) -> Launch:
     """``gemm_rs_kernel``'s launch: grid (n-tile j, channel c, rank r), the
     block walking stages s = 0..W-1; for s > 0 it waits on part(r, s-1, c,
-    j) and adds recv slot (r, s-1, c, j); for s < W-1 it stores the sum into
-    recv slot (dst, s, c, j) and sets part(dst, s, c, j)."""
+    j) and adds recv slot (r, s-1, c, j); for s < W-1 it waits on its copy
+    of dst's entry word, stores the sum into recv slot (dst, s, c, j) and
+    sets part(dst, s, c, j)."""
     world, nch = tables.world, tables.num_channels
     dst_t = tables.rs_dst_tables()
     items, blocks = [], {}
@@ -284,10 +312,18 @@ def fma_rs_launch(tables, n_tiles: int) -> Launch:
                     if s > 0:
                         ops += [("wait", ("part", r, s - 1, c, j)), ("read", ("recv", r, s - 1, c, j))]
                     if s < world - 1:
-                        ops += [("write", ("recv", d, s, c, j)), ("set", ("part", d, s, c, j))]
+                        ops += [("wait", ("entry", r, d)), ("write", ("recv", d, s, c, j)),
+                                ("set", ("part", d, s, c, j))]
                     blocks.setdefault((j, c, r), []).append(len(items))
                     items.append(Item(len(items), s, r, c, tuple(ops)))
-    return Launch("gemm_rs", "fma", tuple(items), tuple(tuple(b) for b in blocks.values()), persistent=False)
+    return Launch("gemm_rs", "fma", tuple(items), tuple(tuple(b) for b in blocks.values()), persistent=False,
+                  prologue=_all_entries(world))  # fmt: skip
+
+
+def _all_entries(world: int) -> Tuple[tuple, ...]:
+    from repro_torch.kernels.ag_gemm import entry_keys
+
+    return entry_keys(world, range(world))
 
 
 def canonical_ag_shape(nch: int) -> Tuple[int, int, int, int]:

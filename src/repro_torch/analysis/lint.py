@@ -14,16 +14,21 @@ three counterparts of the JAX package's rules:
                         lint covers ``src/repro`` only, and its benchmarks
                         live outside it).  A tensor's ``.permute`` is not a
                         collective and is not matched;
-  * ``flag-site``     — the raw acquire / release (``ld.acquire``,
-                        ``st.release`` and their wrappers ``tl_ld_acquire``,
-                        ``tl_st_release``) only in
+  * ``flag-site``     — the raw acquire / release at either scope
+                        (``ld.acquire``, ``st.release``: ``.gpu`` and the
+                        peer route's ``.sys``), the system-scope fence
+                        (``__threadfence_system``) and their wrappers
+                        (``tl_ld_acquire``, ``tl_st_release``, ``tl_fence``,
+                        the bounded spin ``tl_spin``) only in
                         ``kernels/csrc/tile_sync.cuh``, the header of the
                         paper's tile primitives; the primitives themselves
                         (``producer_tile_notify``, ``consumer_tile_wait``,
                         ``peer_tile_notify``, ``peer_tile_wait``, each with
-                        its ``_thread`` / ``_synced`` forms) only there and
-                        in the two fused kernels that include it
-                        (``ag_gemm.cu``, ``gemm_rs.cu``), whose protocol
+                        its ``_thread`` / ``_synced`` forms, and the peer
+                        route's ``peer_entry_notify`` / ``peer_entry_wait``
+                        and epochs ``tl_enter_epoch`` / ``tl_exit_epoch``)
+                        only there and in the two fused kernels that include
+                        it (``ag_gemm.cu``, ``gemm_rs.cu``), whose protocol
                         ``analysis.protocol`` models; a text rule over the
                         CUDA sources;
   * ``raw-library``   — ``ctypes.CDLL`` only in ``kernels/build.py`` and
@@ -44,8 +49,10 @@ from typing import List, Optional, Sequence
 
 __all__ = ["Violation", "lint_source", "lint_file", "lint_tree", "main"]
 
-FLAG_RAW = ("tl_ld_acquire", "tl_st_release", "ld.acquire", "st.release")
-FLAG_PRIMITIVES = ("producer_tile_notify", "consumer_tile_wait", "peer_tile_notify", "peer_tile_wait")
+FLAG_RAW = ("tl_ld_acquire", "tl_st_release", "tl_fence", "tl_spin", "ld.acquire", "st.release",
+            "__threadfence_system")  # fmt: skip
+FLAG_PRIMITIVES = ("producer_tile_notify", "consumer_tile_wait", "peer_tile_notify", "peer_tile_wait",
+                   "peer_entry_notify", "peer_entry_wait", "tl_enter_epoch", "tl_exit_epoch")  # fmt: skip
 _FLAG_RAW_RE = re.compile(r"(?<![\w.])(" + "|".join(re.escape(p) for p in FLAG_RAW) + r")(?!\w)")
 _FLAG_PRIMITIVE_RE = re.compile(
     r"(?<![\w.])((?:" + "|".join(re.escape(p) for p in FLAG_PRIMITIVES) + r")(?:_thread|_synced)?)(?!\w)"

@@ -62,6 +62,7 @@ tiles by stream-ordered ``World.permute`` (``ag_attention``, ``ag_moe``,
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import random
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -81,6 +82,8 @@ from repro_torch.analysis.ir import (
 __all__ = [
     "PROTOCOL_KINDS",
     "PROTOCOL_GRIDS",
+    "check_peer_protocol",
+    "peer_launches",
     "check_launches",
     "check_launch",
     "check_protocol",
@@ -95,6 +98,8 @@ KIND_OF_KERNEL = {v: k for k, v in PROTOCOL_KINDS.items()}
 # the persistent grids the shape-free pass simulates: one block, a few, and the H100's 132 SMs
 PROTOCOL_GRIDS = (1, 3, 7, 132)
 SEED = 7  # the seeded random interleaving
+PEER_SCHEDULES = (None, SEED, "first", "last")  # how the peer pass interleaves the processes' grids
+PEER_TILES = (1, 2)  # the peer pass's m-tiles x n-tiles per (step, rank, channel)
 
 
 def _err(message, *, check, ctx, item=None, launch: Optional[Launch] = None):
@@ -121,9 +126,9 @@ def _static(launches: Sequence[Launch], ctx) -> Tuple[int, Dict, Dict]:
             done = []
             for pos, (op, key) in enumerate(it.ops):
                 if op == "set":
-                    if key in setter:
-                        raise _err(f"flag {key} set twice (items {setter[key][0]} and {n})", check="flag_count",
-                                   ctx=ctx, item=it, launch=ln)  # fmt: skip
+                    if key in setter or key in ln.prologue:
+                        raise _err(f"flag {key} set twice (items {setter.get(key, ('a prologue',))[0]} and {n})",
+                                   check="flag_count", ctx=ctx, item=it, launch=ln)  # fmt: skip
                     setter[key] = (n, pos)
                     published[key] = tuple(done)
                 elif op == "write":
@@ -142,6 +147,9 @@ def _static(launches: Sequence[Launch], ctx) -> Tuple[int, Dict, Dict]:
             guard = set()
             for pos, (op, key) in enumerate(it.ops):
                 if op == "wait":
+                    if key in ln.prologue:  # the launch's own entry words: set before any of its items
+                        checks += 1
+                        continue
                     hit = setter.get(key)
                     if hit is None:
                         raise _err(f"item {n} waits on flag {key}, which no item sets", check="flag_count",
@@ -173,7 +181,7 @@ def _codes(ln: Launch) -> Tuple[List[List[int]], List]:
     0, 1, ...).  Cached on the launch: a regridded launch shares them."""
     hit = ln.__dict__.get("_codes")
     if hit is None:
-        fid: Dict = {}
+        fid: Dict = {key: i for i, key in enumerate(ln.prologue)}  # the prologue's flags come first
         codes = [[2 * fid.setdefault(key, len(fid)) + (op == "set") for op, key in it.ops if op in ("wait", "set")]
                  for it in ln.items]  # fmt: skip
         hit = (codes, list(fid))
@@ -189,6 +197,7 @@ def _run(ln: Launch, seed: Optional[int], ctx) -> Tuple[int, List[int]]:
     blocks = ln.blocks
     nb = len(blocks)
     is_set = bytearray(max(1, len(keys)))
+    is_set[: len(ln.prologue)] = b"\x01" * len(ln.prologue)  # set when the launch starts
     nxt, at = [0] * nb, [0] * nb  # per block: its next item's place in the block, the op reached in it
     waiting: Dict[int, List[int]] = {}
     ready = deque(range(nb)) if seed is None else list(range(nb))
@@ -302,7 +311,9 @@ def _variants(t: PlanTables):
 def check_protocol(t: PlanTables, grids: Sequence[int] = PROTOCOL_GRIDS) -> Tuple[int, int]:
     """The shape-free protocol pass of one ``ag_matmul`` / ``matmul_rs``
     plan: both routes at the canonical shape, the packed AG items too, the
-    bf16 route on every grid of ``grids``.  Returns (checks, events)."""
+    bf16 route on every grid of ``grids``, and the bf16 route's peer form
+    with one rank a process (:func:`check_peer_protocol`, two calls).
+    Returns (checks, events)."""
     if t.kind not in PROTOCOL_KINDS:
         raise ValueError(f"{t.kind!r} has no fused-kernel flags to check; one of {tuple(PROTOCOL_KINDS)}")
     checks = events = 0
@@ -310,6 +321,224 @@ def check_protocol(t: PlanTables, grids: Sequence[int] = PROTOCOL_GRIDS) -> Tupl
         ln = plan_launches(t, grids[0], packed=packed, fma=fma)
         c, e = check_launches([ln], _ctx(t), grids=() if fma else grids[1:])
         checks, events = checks + c, events + e
+    c, e = check_peer_protocol(t, t.world, grids)
+    return checks + c, events + e
+
+
+# ---- the peer route: one grid per process, calls counted in epochs
+
+
+def peer_launches(t: PlanTables, procs: int, grid: int, epoch: int, *, packed: bool = False) -> List[Launch]:
+    """Call ``epoch`` of the bf16 route over ``procs`` processes: one launch
+    per process, of its held ranks' items (numbered over them), every key
+    ending with the epoch, its prologue the held ranks' entry words."""
+    from repro_torch.kernels.ag_gemm import work_items as ag_items
+    from repro_torch.kernels.gemm_rs import work_items as rs_items
+
+    if t.world % procs:
+        raise ValueError(f"{procs} processes do not divide a world of {t.world}")
+    held = t.world // procs
+    return [wgmma_launch(_peer_items(t, epoch, range(p * held, (p + 1) * held)), grid, packed, world=t.world)
+            for p in range(procs)]  # fmt: skip
+
+
+def _peer_items(t: PlanTables, epoch: int, ranks=None) -> list:
+    """The bf16 route's items of call ``epoch`` (of ``ranks``) at the peer
+    pass's canonical shape: PEER_TILES m-tiles x n-tiles per (step, rank,
+    channel), so an n-tile that pushes and one that does not."""
+    from repro_torch.kernels.ag_gemm import work_items as ag_items
+    from repro_torch.kernels.gemm_rs import work_items as rs_items
+
+    mt, nt = PEER_TILES
+    if PROTOCOL_KINDS[t.kind] == "ag_gemm":
+        return ag_items(t, (1, t.num_channels * 128 * mt, 128, 128 * nt), ranks=ranks, epoch=epoch)
+    return rs_items(t, (2, t.world * 64 * mt, 128, t.num_channels * 128 * nt), ranks=ranks, epoch=epoch)
+
+
+def _peer_static(t: PlanTables, calls: int, packed: bool, ctx) -> int:
+    """flag_count, item_order, double_write and read_before_flag of each call
+    over every rank at once (the global item order the processes' grids
+    walk; every rank's entry words set before any item)."""
+    from repro_torch.analysis.ir import prologue_of
+
+    checks = 0
+    for e in range(1, calls + 1):
+        items = _peer_items(t, e)
+        ln = wgmma_launch(items, 1, packed, world=t.world)
+        checks += _static([dataclasses.replace(ln, prologue=prologue_of(items, t.world))], ctx)[0]
+    return checks
+
+
+def _peer_codes(calls: Sequence[Sequence[Launch]]):
+    """The runs' ops as ints, ``4 * id + op`` (op 0 wait, 1 set, 2 read, 3
+    write; flags and slot tiles numbered over every launch), the
+    prologues' flag ids, the reads each (slot tile, epoch) id awaits, and
+    each written tile's id at the epoch before (-1 if none)."""
+    fid: Dict = {}
+    tid: Dict = {}
+    kinds = {"wait": 0, "set": 1, "read": 2, "write": 3}
+    codes, pro = [], []
+    for launches in calls:
+        codes.append([[[4 * (fid if op in ("wait", "set") else tid).setdefault(key, len(fid if op in ("wait", "set")
+                                                                                      else tid)) + kinds[op]
+                        for op, key in it.ops] for it in ln.items] for ln in launches])  # fmt: skip
+        pro.append([[fid.setdefault(key, len(fid)) for key in ln.prologue] for ln in launches])
+    reads = [0] * len(tid)
+    for launches in calls:
+        for ln in launches:
+            for it in ln.items:
+                for op, key in it.ops:
+                    if op == "read":
+                        reads[tid[key]] += 1
+    prev = [tid.get(key[:-1] + (key[-1] - 1,), -1) for key in tid]
+    return codes, pro, reads, prev, list(tid)
+
+
+class _Ready:
+    """The ready blocks ``(process, block)`` of the peer simulation, taken
+    round robin (``seed`` None), at random (an int seed), or the lowest /
+    highest process first ("first" / "last")."""
+
+    def __init__(self, seed):
+        self.seed, self._n = seed, 0
+        self._fifo: deque = deque()
+        self._heap: list = []
+        self._rand = random.Random(seed).random if isinstance(seed, int) else None
+
+    def __bool__(self) -> bool:
+        return bool(self._fifo or self._heap)
+
+    def append(self, pb):
+        if self.seed in ("first", "last"):
+            self._n += 1
+            heapq.heappush(self._heap, (pb[0] if self.seed == "first" else -pb[0], self._n, pb))
+        else:
+            self._fifo.append(pb)
+
+    def extend(self, pbs):
+        for pb in pbs:
+            self.append(pb)
+
+    def pop(self):
+        if self._heap:
+            return heapq.heappop(self._heap)[2]
+        if self._rand is None:
+            return self._fifo.popleft()
+        k = int(self._rand() * len(self._fifo))
+        self._fifo[k], self._fifo[-1] = self._fifo[-1], self._fifo[k]
+        return self._fifo.pop()
+
+
+def _run_peer(calls: Sequence[Sequence[Launch]], seed, ctx, codes=None) -> int:
+    """Run the processes' grids together: process p's launch of call k + 1
+    starts once its call k has finished (stream order) and sets its
+    prologue then; every process runs its blocks' items in order, one item
+    a turn (``seed`` None: round robin over every block of every process;
+    an int: a seeded random ready block; "first" / "last": the ready block
+    of the lowest / highest process, which runs ahead as far as its flags
+    let it).  Flags are values: a key names its call.  Besides
+    ``deadlock``, raises ``overwrite`` when a write of call e lands on a slot
+    tile that call e - 1 has still to read.  Returns the ops run."""
+    codes, pro, pending, prev, tiles = codes or _peer_codes(calls)  # the same items on any grid: the same codes
+    pending = list(pending)
+    procs = len(calls[0])
+    is_set = bytearray(max(1, 1 + max((c >> 2 for run in codes for ln in run for it in ln for c in it if c & 3 < 2),
+                                      default=0)))  # fmt: skip
+    for run in pro:
+        for ids in run:
+            for f in ids:
+                if f >= len(is_set):
+                    is_set.extend(bytes(f + 1 - len(is_set)))
+    call = [0] * procs
+    place: Dict[tuple, int] = {}
+    at: Dict[tuple, int] = {}
+    waiting: Dict[int, List[tuple]] = {}
+    ready = _Ready(seed)
+    left = [0] * procs
+
+    def start(p):
+        for f in pro[call[p]][p]:
+            is_set[f] = 1
+            ready.extend(waiting.pop(f, ()))
+        blocks = calls[call[p]][p].blocks
+        left[p] = len(blocks)
+        for b in range(len(blocks)):
+            place[(p, b)], at[(p, b)] = 0, 0
+            ready.append((p, b))
+
+    for p in range(procs):
+        start(p)
+    events = 0
+    while ready:
+        pb = ready.pop()
+        p, b = pb
+        ln = calls[call[p]][p]
+        i = ln.blocks[b][place[pb]]
+        ops = codes[call[p]][p][i]
+        a0 = a = at[pb]
+        while a < len(ops):
+            c = ops[a]
+            op, x = c & 3, c >> 2
+            if op == 0 and not is_set[x]:
+                waiting.setdefault(x, []).append(pb)
+                break
+            if op == 1:
+                is_set[x] = 1
+                ready.extend(waiting.pop(x, ()))
+            elif op == 2:
+                pending[x] -= 1
+            elif op == 3 and prev[x] >= 0 and pending[prev[x]]:
+                it, key = ln.items[i], tiles[x]
+                raise _err(f"process {p}'s item {it.index} of call {key[-1]} writes slot tile {key[:-1]} before "
+                           f"call {key[-1] - 1} has read it", check="overwrite", ctx=ctx, item=it, launch=ln)  # fmt: skip
+            a += 1
+        events += a - a0
+        if a < len(ops):
+            at[pb] = a
+            continue
+        place[pb] += 1
+        at[pb] = 0
+        if place[pb] < len(ln.blocks[b]):
+            ready.append(pb)
+            continue
+        left[p] -= 1
+        if left[p] == 0 and call[p] + 1 < len(calls):
+            call[p] += 1
+            start(p)
+    stuck = [pb for pb, n in place.items() if n < len(calls[call[pb[0]]][pb[0]].blocks[pb[1]])]
+    if stuck or any(c + 1 < len(calls) for c in call):
+        p, b = stuck[0] if stuck else (0, 0)
+        ln = calls[call[p]][p]
+        it = ln.items[ln.blocks[b][place[(p, b)]]] if stuck else None
+        how = {None: "round robin", "first": "process 0 ahead", "last": "the last process ahead"}.get(
+            seed, f"random interleaving (seed {seed})")  # fmt: skip
+        raise _err(f"deadlock over {procs} processes ({how}): process {p} block {b} is stuck in call {call[p] + 1}"
+                   f"{'' if it is None else f' at item {it.index}'} ({len(stuck)} block(s) stuck)", check="deadlock",
+                   ctx=ctx, item=it, launch=ln)  # fmt: skip
+    return events
+
+
+def check_peer_protocol(t: PlanTables, procs: int, grids: Sequence[int] = PROTOCOL_GRIDS,
+                        calls: int = 2) -> Tuple[int, int]:  # fmt: skip
+    """The bf16 route's peer form over ``procs`` processes (each holding
+    W / procs ranks, one grid each), ``calls`` calls on one pool in a row,
+    never zeroed: each call's static checks over every rank, then the
+    processes' grids simulated together on every G of ``grids`` (round
+    robin, a seeded interleaving, and the first and the last process each
+    running ahead): no deadlock across the grids and the calls,
+    and no push of a call before the receiver's call before has read the
+    slot (the entry words).  Returns (checks, events)."""
+    ctx = dict(_ctx(t), order=t.order)
+    checks = events = 0
+    for packed in (False, True) if PROTOCOL_KINDS[t.kind] == "ag_gemm" else (False,):
+        checks += _peer_static(t, calls, packed, ctx)
+        base = [peer_launches(t, procs, grids[0], e, packed=packed) for e in range(1, calls + 1)]
+        codes = _peer_codes(base)
+        for g in grids:
+            runs = [[ln.with_grid(g) for ln in run] for run in base]
+            for seed in PEER_SCHEDULES if procs > 1 else (None,):
+                events += _run_peer(runs, seed, ctx, codes)
+                checks += 1
     return checks, events
 
 

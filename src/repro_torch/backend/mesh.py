@@ -15,8 +15,31 @@ emulated on one device:
 The methods below are the transport interface the executors use.
 :class:`DistWorld` implements the same methods over ``torch.distributed``
 for the data axes: one process per data replica, each holding its own
-tensors (no rank dimension); a real-peer transport for the model axis
-(symmetric buffers across GPUs) is not written.
+tensors (no rank dimension).
+
+The TP world may also span ``P`` processes (``World(size, device,
+procs=dist)``, ``dist`` a :class:`DistWorld` of the P processes): process
+``p`` holds the contiguous block of ``held = size / P`` ranks ``[rank0,
+rank0 + held)``, ``rank0 = p * held``, and every rank-stacked value it
+sees is ``[held, ...]``.  ``size`` stays the TP degree (layouts, plans,
+the gathered extents); ``held`` / ``ranks`` name what this process stores.
+Each collective gives this process the held ranks' slices of what the
+one-process World gives for the same global data: ``shard`` keeps the held
+chunks (no traffic), ``unshard`` / ``all_gather`` gather the processes'
+blocks, ``permute`` turns the pairs that cross processes into send / recv
+(pairs inside the process stay index copies), ``psum`` and
+``reduce_scatter`` reduce over the processes.  ``psum`` (the decode
+path's, on a few rows) gathers every rank's partial and sums them in rank
+order, the one-process World's ``sum(0)`` bitwise (W times an
+all-reduce's payload).  ``reduce_scatter`` (the non-overlapped baseline's,
+on whole activations) sums the held ranks locally, then the library's
+reduce-scatter reduces the processes (NCCL on the card, gloo on the CPU:
+one path), in its own order: equal to the one-process World's within
+float rounding, not bitwise.  The counter records what the one-process World records, per rank.
+The fused kernels' peer route (``kernels/peer.py``) writes tiles straight
+into the peer cards' buffers; ``dist`` carries only their handles and the
+eager collectives.  With ``P = 1`` (``procs=None``) the world is the
+emulated one, unchanged.
 
 ``World.counting()`` turns on a :class:`CommCounter` for the transport:
 every ``permute`` / ``psum`` / ``all_gather`` / ``reduce_scatter`` then
@@ -112,17 +135,45 @@ def _rank_bytes(xs: torch.Tensor, ranks: int) -> int:
 
 
 class World:
-    """``size`` tensor-parallel ranks emulated on ``device``."""
+    """``size`` tensor-parallel ranks on ``device``: all of them emulated in
+    this process, or (``procs``, a :class:`DistWorld` of P processes) the
+    block ``ranks`` of ``held = size / P`` of them (module docstring)."""
 
-    def __init__(self, size: int, device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, size: int, device: Optional[Union[str, torch.device]] = None, *,
+                 procs: Optional["DistWorld"] = None):  # fmt: skip
         if int(size) < 1:
             raise ValueError(f"world size must be >= 1, got {size}")
         self.size = int(size)
         self.device = resolve_device(device)
         self.counter: Optional[CommCounter] = None
+        self.procs = procs
+        nproc = 1 if procs is None else procs.size
+        if self.size % nproc:
+            raise ValueError(f"{nproc} processes do not divide a world of {self.size} ranks")
+        self.held = self.size // nproc
+        self.rank0 = 0 if procs is None else procs.rank * self.held
+        if procs is not None and procs.device != self.device:
+            raise ValueError(f"World on {self.device} over processes on {procs.device}")
 
     def __repr__(self) -> str:
-        return f"World(size={self.size}, device={self.device})"
+        if self.procs is None:
+            return f"World(size={self.size}, device={self.device})"
+        return f"World(size={self.size}, device={self.device}, ranks={self.rank0}..{self.rank0 + self.held - 1} " \
+               f"of process {self.procs.rank}/{self.procs.size})"
+
+    @property
+    def nprocs(self) -> int:
+        """Processes the world spans (1: every rank emulated here)."""
+        return 1 if self.procs is None else self.procs.size
+
+    @property
+    def ranks(self) -> range:
+        """The global ids of the ranks this process holds."""
+        return range(self.rank0, self.rank0 + self.held)
+
+    def local(self, per_rank: Sequence):
+        """The held ranks' entries of a per-rank sequence over all ``size`` ranks."""
+        return tuple(per_rank[self.ranks.start : self.ranks.stop])
 
     @contextlib.contextmanager
     def counting(self, counter: Optional[CommCounter] = None):
@@ -137,38 +188,60 @@ class World:
 
     # ---- layout: global <-> rank-stacked --------------------------------
     def shard(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Split a global tensor along ``dim`` into ``[W, ...]`` (contiguous)."""
+        """Split a global tensor along ``dim`` into ``[held, ...]`` (contiguous;
+        every rank's chunk, ``[W, ...]``, in one process)."""
         if x.shape[dim] % self.size:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {self.size} ranks")
-        return torch.stack(torch.chunk(x, self.size, dim=dim)).contiguous()
+        chunks = torch.chunk(x, self.size, dim=dim)
+        return torch.stack(self.local(chunks)).contiguous()
 
     def unshard(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Inverse of :meth:`shard`: concatenate the ranks' values along the
-        per-rank dimension ``dim``."""
+        per-rank dimension ``dim`` (over processes: gathered first)."""
         self._check(xs)
-        return torch.cat(list(xs.unbind(0)), dim=dim)
+        return torch.cat(list(self._gathered(xs).unbind(0)), dim=dim)
+
+    def _gathered(self, xs: torch.Tensor) -> torch.Tensor:
+        """Every rank's value, ``[W, ...]`` (the processes' blocks gathered)."""
+        return xs if self.procs is None else self.procs.all_gather(xs.contiguous(), 0)
 
     # ---- collectives -----------------------------------------------------
     def permute(self, xs: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
-        """``out[dst] = xs[src]`` for every (src, dst) pair (a ppermute).
+        """``out[dst] = xs[src]`` for every (src, dst) pair (a ppermute; a
+        rank no pair names as destination takes rank 0's value).
 
         The index tensor is built once per (pairs, device) and cached, so a
         repeated permute issues no host-to-device copy (and a CUDA-graph
-        capture may replay one whose index was built before it)."""
+        capture may replay one whose index was built before it).  Over
+        processes the pairs inside this process stay index copies and the
+        others become one batch of send / recv."""
         self._check(xs)
         if self.counter is not None:
-            self.counter.add("permute", _rank_bytes(xs, self.size), self.size, permute_direction(pairs))
+            self.counter.add("permute", _rank_bytes(xs, self.held), self.size, permute_direction(pairs))
         order = [0] * self.size
         for src, dst in pairs:
             order[dst] = src
-        return xs[_perm_index(tuple(order), xs.device)]
+        if self.procs is None:
+            return xs[_perm_index(tuple(order), xs.device)]
+        lo, hi = self.rank0, self.rank0 + self.held
+        out = torch.empty_like(xs, memory_format=torch.contiguous_format)
+        sends, recvs = [], []
+        for dst, src in enumerate(order):  # every process walks the pairs in this one order
+            if lo <= dst < hi and lo <= src < hi:
+                out[dst - lo].copy_(xs[src - lo])
+            elif lo <= src < hi:
+                sends.append((xs[src - lo].contiguous(), dst // self.held))
+            elif lo <= dst < hi:
+                recvs.append((out[dst - lo], src // self.held))
+        self.procs.exchange(sends, recvs)
+        return out
 
     def psum(self, xs: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks; the replicated result is stored once."""
         self._check(xs)
         if self.counter is not None:
-            self.counter.add("psum", _rank_bytes(xs, self.size), self.size)
-        return xs.sum(0)
+            self.counter.add("psum", _rank_bytes(xs, self.held), self.size)
+        return self._gathered(xs).sum(0)
 
     def all_gather(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's view of the concatenation along per-rank ``dim``
@@ -176,18 +249,23 @@ class World:
         g = self.unshard(xs, dim)
         if self.counter is not None:
             self.counter.add("all_gather", g.numel() * g.element_size(), self.size)
-        return g.unsqueeze(0).expand((self.size,) + tuple(g.shape))
+        return g.unsqueeze(0).expand((self.held,) + tuple(g.shape))
 
     def reduce_scatter(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Sum over the ranks, then each rank keeps its chunk of per-rank ``dim``."""
         self._check(xs)
         if self.counter is not None:
-            self.counter.add("reduce_scatter", _rank_bytes(xs, self.size) // self.size, self.size)
-        return self.shard(xs.sum(0), dim)
+            self.counter.add("reduce_scatter", _rank_bytes(xs, self.held) // self.size, self.size)
+        if self.procs is None:
+            return self.shard(xs.sum(0), dim)
+        # the held ranks' partials summed here, then the library's reduce-scatter over the processes (NCCL on the
+        # card, gloo on the CPU): its own order of the processes' sums, not rank order as in one process
+        block = self.procs.reduce_scatter(xs.sum(0), dim)  # this process's held chunks, in rank order
+        return torch.stack(torch.chunk(block, self.held, dim=dim)).contiguous()
 
     def _check(self, xs: torch.Tensor):
-        if xs.shape[0] != self.size:
-            raise ValueError(f"expected a rank-stacked [W={self.size}, ...] value, got {tuple(xs.shape)}")
+        if xs.shape[0] != self.held:
+            raise ValueError(f"expected a rank-stacked [W={self.held}, ...] value, got {tuple(xs.shape)}")
 
 
 @functools.lru_cache(maxsize=1024)
@@ -355,6 +433,19 @@ class DistWorld:
             compat.reduce_scatter_single(out, xin)
             out = self._out("reduce_scatter", out, x.device)
         return out.movedim(0, dim).contiguous()
+
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]]):
+        """One batch of point-to-point transfers: each ``(tensor, peer)`` of
+        ``sends`` goes to process ``peer``, each ``(buffer, peer)`` of
+        ``recvs`` is filled from it (in place); the transfers between two
+        processes match in the order both list them.  Not counted (the
+        caller counts its payload); under gloo, CPU tensors only."""
+        import torch.distributed as dist
+
+        ops = [dist.P2POp(dist.isend, t, peer) for t, peer in sends]
+        ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs]
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
 
     def permute(self, x: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """This rank receives the tensor of the pair's source that names it

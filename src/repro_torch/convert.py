@@ -140,9 +140,21 @@ def tied_head(embed: torch.Tensor) -> torch.Tensor:
     return _pad_head(embed.reshape(-1, embed.shape[-1]).t())
 
 
+# the per-rank operands of a dense layer: what a world over processes keeps of its held ranks
+HELD_LEAVES = {"mixer": ("wqkv", "bqkv", "wo"), "ffn": ("w_gu", "w_down")}
+
+
 def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     """Global parameters {embed, final_ln, [lm_head], layers: [...]} (an
-    encoder-decoder's: module docstring) -> rank-stacked."""
+    encoder-decoder's: module docstring) -> rank-stacked.
+
+    On a world over processes (``world.nprocs > 1``) every process passes the
+    same global tensors and keeps its held ranks' slices of each layer's
+    per-rank operands (``HELD_LEAVES``); ``embed`` stays whole (the lookup
+    reads every vocab row) and the head is replicated.  Only the dense path
+    is ported there: another layer kind raises ``NotImplementedError``."""
+    if world.nprocs > 1:
+        return _held(shard_params(glob, cfg, World(world.size, world.device)), cfg, world)
     if cfg.encoder_layers:
         return _shard_encdec(glob, world)
     embed = glob["embed"]
@@ -177,6 +189,24 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
             new["ffn"] = shard_mlp(layer["ffn"], world)
         out["layers"].append(new)
     return out
+
+
+def _held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """The rank-stacked tree of every rank -> this process's: each layer's
+    ``HELD_LEAVES`` sliced to ``world.ranks``."""
+    from repro_torch.models.lm import layer_plan
+
+    dense = {(k, "mlp", False) for k in ("attn", "attn_local", "attn_dense")}
+    kinds = {(d.kind, d.ffn_kind, d.shared) for d in layer_plan(cfg)} if not cfg.encoder_layers else {"encdec"}
+    if kinds - dense:
+        raise NotImplementedError(
+            f"{cfg.name}: layers {sorted(map(str, kinds))} over a TP world of {world.nprocs} processes are not ported "
+            "(only attention with a dense MLP is); ROADMAP queue 1 item 1 (d)"
+        )
+    lo, hi = world.rank0, world.rank0 + world.held
+    layers = [{part: {k: (v[lo:hi].contiguous() if k in HELD_LEAVES[part] else v) for k, v in sub.items()}
+               for part, sub in layer.items()} for layer in params["layers"]]  # fmt: skip
+    return {**params, "layers": layers}
 
 
 def shard_attention(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:

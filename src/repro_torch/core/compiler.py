@@ -482,8 +482,10 @@ def _fused_call(fn, grad, world: World, channel: BlockChannel, kw: dict, x, w, o
     kind's :class:`torch.autograd.Function` ``grad``; a
     :class:`~repro_torch.core.quant.PackedWeight` (frozen codes) raises
     there rather than differentiate through codes."""
-    if x.shape[0] != world.size:
-        raise ValueError(f"expected a rank-stacked [W={world.size}, ...] operand, got {tuple(x.shape)}")
+    if x.shape[0] != world.held:
+        raise ValueError(f"expected a rank-stacked [W={world.held}, ...] operand, got {tuple(x.shape)}")
+    if world.nprocs > 1:  # the peer route: the kernels push into the other processes' cards
+        kw = {**kw, "world": world}
     packed = isinstance(w, PackedWeight)
     if torch.is_grad_enabled() and (x.requires_grad or (not packed and w.requires_grad)):
         if packed:

@@ -67,8 +67,9 @@ __all__ = [
 class TileContext:
     """What the executor tells a compute callback about the current tile.
 
-    ``src`` holds one int per rank: the origin rank of the held tile for
-    "ag" / "ag_rs" flows, the reduced segment for "rs" flows.
+    ``src`` holds one int per rank the world holds (``world.ranks``, all of
+    them in one process): the origin rank of the held tile for "ag" /
+    "ag_rs" flows, the reduced segment for "rs" flows.
     """
 
     step: int
@@ -125,7 +126,7 @@ def run_plan(
                 nxt = [_permute(world, state[c], plan.channels[c].flow_perm(s)) for c in range(nch)]
             for c in range(nch):
                 sched = plan.channels[c]
-                ctx = TileContext(s, c, sched.source_table(s))
+                ctx = TileContext(s, c, world.local(sched.source_table(s)))
                 held = decode_tree(state[c], spec, adt)
                 if plan.flow == "ag":
                     carry = tile_fn(ctx, held, carry)
@@ -142,7 +143,7 @@ def run_plan(
         for s in range(plan.steps):
             for c in range(nch):
                 sched = plan.channels[c]
-                part = tile_fn(TileContext(s, c, sched.rs_segment_table(s)), None, None)
+                part = tile_fn(TileContext(s, c, world.local(sched.rs_segment_table(s))), None, None)
                 accs[c] = part if s == 0 else hop(accs[c], sched.rs_perm(s - 1)) + part
         return accs
     raise ValueError(f"run_plan: flow {plan.flow!r} runs as a SeqPlan (run_seq_plan / run_a2a_seq)")
@@ -188,7 +189,8 @@ def run_a2a_seq(seq: SeqPlan, world: World, tile_fn: Callable, *, state: Sequenc
             nxt = [_permute(world, own[c], dispatch.channels[c].a2a_perm(s + 1)) for c in range(nch)]
         for c in range(nch):
             sched = combine.channels[c]
-            part = tile_fn(TileContext(s, c, sched.source_table(s)), decode_tree(landed[c], spec, adt), None)
+            ctx = TileContext(s, c, world.local(sched.source_table(s)))
+            part = tile_fn(ctx, decode_tree(landed[c], spec, adt), None)
             accs[c] = part if s == 0 else accs[c] + _hop(world, part, sched.combine_perm(s), spec, adt)
         if nxt is not None:
             landed = nxt
@@ -292,9 +294,9 @@ def _consume_dot(a, w, comp_tile, accum, out_dtype=None):
 
 
 def _check_ranked(x: torch.Tensor, w, world: World, what: str):
-    if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != world.size or w.shape[0] != world.size:
+    if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != world.held or w.shape[0] != world.held:
         raise ValueError(
-            f"{what}: expected x [W, ..., m, k] and w [W, k, n] with W={world.size}, "
+            f"{what}: expected x [W, ..., m, k] and w [W, k, n] with W={world.held} held ranks, "
             f"got {tuple(x.shape)} and {tuple(w.shape)}"
         )
     if x.shape[-1] != w.shape[1]:
@@ -454,8 +456,8 @@ def matmul_rs_ag(
     ``matmul_rs_ag.calls`` counts the seams fused.
     """
     _check_ranked(x, w1, world, "matmul_rs_ag")
-    if len(w2.shape) != 3 or w2.shape[0] != world.size or w2.shape[1] != w1.shape[-1]:
-        raise ValueError(f"matmul_rs_ag: expected w2 [W={world.size}, {w1.shape[-1]}, n2], got {tuple(w2.shape)}")
+    if len(w2.shape) != 3 or w2.shape[0] != world.held or w2.shape[1] != w1.shape[-1]:
+        raise ValueError(f"matmul_rs_ag: expected w2 [W={world.held}, {w1.shape[-1]}, n2], got {tuple(w2.shape)}")
     channel = channel or BlockChannel(axis="model")
     channel2 = channel2 or channel
     out_dtype = out_dtype or x.dtype

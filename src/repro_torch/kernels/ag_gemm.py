@@ -1,9 +1,12 @@
 """Fused AllGather + GEMM kernel (``csrc/ag_gemm.cu``), plan-driven.
 
 Replaces ``repro/kernels/ag_gemm.py::ag_gemm_shard`` (``_ag_gemm_kernel``).
-All W emulated ranks run in one cooperative launch; the plan's
-``src_tables()`` / ``flow_dst_tables()`` are device int32 tables.  Two
-routes, chosen by dtype before the launch (never by a fallback):
+The held ranks run in one cooperative launch (every rank when one process
+emulates the world; a world over processes launches one grid per card and
+the kernels push into the peer cards' receive regions: ``kernels/peer``,
+``csrc/tile_sync.cuh``); the plan's ``src_tables()`` /
+``flow_dst_tables()`` are device int32 tables.  Two routes, chosen by
+dtype before the launch (never by a fallback):
 
   * bfloat16 (the serve dtype): ``ag_gemm_wgmma_kernel``, a persistent grid
     of 128 x 128 output tiles (:func:`work_items`, stage-major) over all
@@ -41,10 +44,16 @@ ValueError).  The plain version replays each route's formula
 the reference's kernel does; any wire leaves ``x`` gathered in its own
 dtype, as the reference's gather scratch holds it.
 
-``return_gathered=True`` (both versions) also returns each rank's gathered
-operand, ``[W, *lead, W*m_loc, K]`` in rank-major row order, read from the
-gather slots the launch filled (the float32 route reads a rank's own rows
-in place, so those come from x): the backward of AG+GEMM takes its weight
+Each rank's gather slots, ready flags and entry words are its receive
+region of a pool (``kernels/peer``): made for the call on one card, kept
+for the process and counted in epochs instead of zeroed on the peer route
+(``csrc/tile_sync.cuh``); ``ag_gemm.last_launch`` names the pool's form.
+
+``return_gathered=True`` (both versions; the one-allocation route only)
+also returns each rank's gathered operand, ``[W, *lead, W*m_loc, K]`` in
+rank-major row order, read from the gather slots the launch filled (the
+float32 route reads a rank's own rows in place, so those come from x):
+the backward of AG+GEMM takes its weight
 gradient from it without a second all-gather.
 """
 
@@ -71,11 +80,11 @@ from repro_torch.core.primitives import (
     tile_push_data,
 )
 from repro_torch.core.quant import PackedWeight
-from repro_torch.kernels import build
+from repro_torch.kernels import build, peer
 
 __all__ = [
     "ag_gemm", "ag_gemm_plain", "work_items", "launch_items", "launch_plan", "AgItem", "TILE", "ROUTES", "device_table",
-    "plain_weight", "refuse_quantized_wire",
+    "plain_weight", "refuse_quantized_wire", "entry_keys",
 ]  # fmt: skip
 
 TILE = build.WGMMA_TILE  # the bf16 route's output tile (BM, BN)
@@ -93,7 +102,11 @@ def device_table(plan: TilePlan, which: str, device: torch.device) -> torch.Tens
 class AgItem(NamedTuple):
     """One work item of the bf16 route: output tile (m-tile ``mt``, n-tile
     ``nt``) of rank ``r`` at step ``s``, channel ``c``.  Flags are
-    ``("ready", rank, step, c, mt)``; slot tiles ``(rank, origin, c, mt)``."""
+    ``("ready", rank, step, c, mt)`` in ``rank``'s region; slot tiles
+    ``(rank, origin, c, mt)``; a pushing item first waits on ``entry``,
+    ``("entry", r, dst)``: its own region's copy of the receiver's entry
+    word (the launch prologue, :func:`entry_keys`, sets them).  With an
+    ``epoch`` every key ends with it."""
 
     index: int
     s: int
@@ -108,38 +121,56 @@ class AgItem(NamedTuple):
     sets: Tuple[tuple, ...]  # flags set after the copy
     reads: Tuple[tuple, ...]  # slot tiles read (copy source, GEMM operand)
     writes: Tuple[tuple, ...]  # slot tiles written by the copy
+    entry: Optional[tuple] = None  # the receiver's entry word waited on before the push (None: no push)
 
 
-def work_items(plan: TilePlan, shape, tile=TILE) -> list:
+def entry_keys(world: int, ranks, epoch: Optional[int] = None) -> Tuple[tuple, ...]:
+    """The flags a launch of ``ranks`` sets before any item (both fused
+    kernels): each held rank's entry word on every rank's region,
+    ``("entry", q, r)`` (``+ (epoch,)``)."""
+    tail = () if epoch is None else (epoch,)
+    return tuple(("entry", q, r) + tail for r in ranks for q in range(world))
+
+
+def work_items(plan: TilePlan, shape, tile=TILE, *, ranks=None, epoch: Optional[int] = None) -> list:
     """The bf16 route's work items, stage-major: numbered by (s, r, c, nt, mt)
     with mt fastest, as ``ag_gemm_wgmma_kernel`` decodes its item index
     (``wg_item``): the blocks that run together share a weight strip.
 
-    ``shape`` is ``(B, m_loc, K, n_loc)`` (B the flattened batch dims)."""
+    ``shape`` is ``(B, m_loc, K, n_loc)`` (B the flattened batch dims).
+    ``ranks``: the held ranks a launch runs (default every rank; numbered
+    over them, the restriction of the global order); ``epoch``: the call's
+    epoch, appended to every flag, entry and slot key (the peer route's
+    pools are never zeroed: a key names its call)."""
     b, m_loc, _, n_loc = shape
     world, nch = plan.world, plan.num_channels
     bm, bn = tile
     m_tiles = -(-b * (m_loc // nch) // bm)
     n_tiles = -(-n_loc // bn)
     src_t, dst_t = plan.src_tables(), plan.flow_dst_tables()
+    held = range(world) if ranks is None else sorted(ranks)
+    e = () if epoch is None else (epoch,)
     items = []
     for s in range(world):
-        for r in range(world):
+        for r in held:
             for c in range(nch):
                 o, d = src_t[c][s][r], dst_t[c][s][r]
                 push = s < world - 1
                 for nt in range(n_tiles):
                     for mt in range(m_tiles):
-                        ready = ("ready", r, s, c, mt)
-                        copy, wait, sets, writes = None, ready, (), ()
+                        ready = ("ready", r, s, c, mt) + e
+                        copy, wait, sets, writes, entry = None, ready, (), (), None
                         if nt == 0 and s == 0:  # seed: own sub-chunk -> own slot (+ the peer's)
                             copy, wait = "seed", None
-                            sets = (ready,) + ((("ready", d, 1, c, mt),) if push else ())
-                            writes = ((r, r, c, mt),) + (((d, r, c, mt),) if push else ())
+                            sets = (ready,) + ((("ready", d, 1, c, mt) + e,) if push else ())
+                            writes = ((r, r, c, mt) + e,) + (((d, r, c, mt) + e,) if push else ())
                         elif nt == 0 and push:  # push: held slot -> the peer's slot
-                            copy, sets, writes = "push", (("ready", d, s + 1, c, mt),), ((d, o, c, mt),)
-                        held = ((r, o, c, mt),)
-                        items.append(AgItem(len(items), s, r, c, mt, nt, o, d, copy, wait, sets, held, writes))
+                            copy, sets, writes = "push", (("ready", d, s + 1, c, mt) + e,), ((d, o, c, mt) + e,)
+                        if copy is not None and push:
+                            entry = ("entry", r, d) + e
+                        held_tile = ((r, o, c, mt) + e,)
+                        items.append(AgItem(len(items), s, r, c, mt, nt, o, d, copy, wait, sets, held_tile, writes,
+                                            entry))  # fmt: skip
     return items
 
 
@@ -176,9 +207,10 @@ def _check(x: torch.Tensor, w):
         )
 
 
-def launch_plan(x, w, channel=None):
-    """The plan the launch on these operands runs, and its channel."""
-    world, m_loc = x.shape[0], x.shape[-2]
+def launch_plan(x, w, channel=None, world: Optional[int] = None):
+    """The plan the launch on these operands runs, and its channel
+    (``world``: the TP degree, default ``x``'s rank dimension)."""
+    world, m_loc = world or x.shape[0], x.shape[-2]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(m_loc, channel.num_channels, kind="ag_matmul")
     return build_plan("ag_matmul", channel, world, nch), channel
@@ -201,11 +233,38 @@ def _gathered(gbuf: torch.Tensor, world: int, nch: int, lead, m_sub: int) -> tor
     return g.reshape((world,) + tuple(lead) + (world * nch * m_sub, k))
 
 
-def ag_gemm_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None, return_gathered: bool = False):
+@functools.lru_cache(maxsize=512)
+def layout(plan: TilePlan, route: str, b: int, m_sub: int, k: int, dtype: torch.dtype) -> peer.Layout:
+    """A rank's receive region (``kernels/peer.Layout``): gather slots [W*C,
+    B*m_sub, K] and one ready flag per (step, channel[, m-tile]); cached per shape."""
+    world, nch = plan.world, plan.num_channels
+    per = -(-b * m_sub // TILE[0]) if route == "wgmma" else 1
+    return peer.Layout((world * nch, b * m_sub, k), dtype, world * nch * per, world)
+
+
+def _refuse_peer_gathered(return_gathered: bool, procs: bool, split: bool):
+    if return_gathered and (procs or split):
+        raise ValueError(
+            "ag_gemm: return_gathered (the training backward) runs on the one-allocation route only; training "
+            "across cards is not ported (ROADMAP queue 1 item 1 (d))"
+        )
+
+
+def ag_gemm_plain(
+    x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None, return_gathered: bool = False, split: bool = False
+):
     """Plain version: the bf16 route's work items replayed in order in
-    PyTorch, with the weight formed as ``x``'s route forms it (:func:`plain_weight`)."""
+    PyTorch, with the weight formed as ``x``'s route forms it (:func:`plain_weight`).
+
+    ``split``: replay the peer route instead, on this process's CPU pool
+    (``kernels/peer``): each rank's gather slots a separate tensor, its flags
+    and entry words on its own board, the pool's epoch carried from call to
+    call (never zeroed): the launch prologue sets every entry word
+    (:func:`entry_keys`), a pusher waits on its copy of the receiver's, and
+    every flag holds the epoch, as the kernels do."""
     _check(x, w)
     refuse_quantized_wire("ag_gemm", channel)
+    _refuse_peer_gathered(return_gathered, False, split)
     plan, _ = launch_plan(x, w, channel)
     wf, col_scale = plain_weight(w, x.dtype)
     world, nch = plan.world, plan.num_channels
@@ -215,24 +274,33 @@ def ag_gemm_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None,
     rows = b * m_sub
     bm, bn = TILE
     xs = x.reshape(world, b, m_loc, k)
-    gbuf = torch.zeros((world, world * nch, rows, k), dtype=x.dtype, device=x.device)
     out = torch.zeros((world, b, world * m_loc, n_loc), dtype=x.dtype, device=x.device)
-    board = FlagBoard()
+    if split:
+        pl = peer.pool("ag_gemm", layout(plan, "wgmma", b, m_sub, k, x.dtype), x.device, split=True)
+        pl.epoch += 1
+        epoch, slots, boards = pl.epoch, pl.slots, pl.boards
+        for key in entry_keys(world, range(world)):  # the launch prologue
+            producer_tile_notify(boards[key[1]], key, epoch)
+    else:
+        gbuf = torch.zeros((world, world * nch, rows, k), dtype=x.dtype, device=x.device)
+        epoch, slots, boards = 1, gbuf, [FlagBoard()] * world
     for it in work_items(plan, (b, m_loc, k, n_loc)):
         r, o, c = it.r, it.origin, it.c
         if it.wait is not None:  # the order sets every flag before its wait, else this raises
-            (consumer_tile_wait if it.s == 0 else peer_tile_wait)(board, it.wait)
+            (consumer_tile_wait if it.s == 0 else peer_tile_wait)(boards[r], it.wait, epoch)
         sl = slice(it.mt * bm, min(rows, (it.mt + 1) * bm))
         if it.copy == "seed":
             tile = xs[r, :, c * m_sub : (c + 1) * m_sub].reshape(rows, k)[sl]
         elif it.copy == "push":
-            tile = gbuf[r, o * nch + c, sl]
-        for rank, origin, ch, _ in it.writes:  # into the peer's (and, seeding, the own) gather slot
-            tile_push_data(gbuf, (rank, origin * nch + ch, sl), tile)
+            tile = slots[r][o * nch + c, sl]
+        for n, (rank, origin, ch, _) in enumerate(it.writes):  # into the peer's (and, seeding, the own) gather slot
+            if split and rank != r:  # the receiver's call before has read its slots
+                peer_tile_wait(boards[r], it.entry, epoch)
+            tile_push_data(slots[rank], (origin * nch + ch, sl), tile)
         for key in it.sets:  # the own slot's flag (seeding), the peer's
-            (producer_tile_notify if key[1] == r else peer_tile_notify)(board, key)
+            (producer_tile_notify if key[1] == r else peer_tile_notify)(boards[key[1]], key, epoch)
         cols = slice(it.nt * bn, min(n_loc, (it.nt + 1) * bn))
-        part = gbuf[r, o * nch + c, sl].float() @ wf[r, :, cols]
+        part = slots[r][o * nch + c, sl].float() @ wf[r, :, cols]
         if col_scale is not None:
             part = part * col_scale[r, cols]
         part = part.to(plan.accum_dtype).to(x.dtype)
@@ -249,6 +317,8 @@ def ag_gemm(
     channel: Optional[BlockChannel] = None,
     bn: Optional[int] = None,
     return_gathered: bool = False,
+    world=None,
+    split: bool = False,
 ):
     """Fused AG+GEMM over the rank dimension.
 
@@ -264,59 +334,71 @@ def ag_gemm(
     :func:`~repro_torch.core.comp_tiles.fma_n_tile`).  ``return_gathered``: also return the gathered operand (module
     docstring).  ``w`` may be a :class:`~repro_torch.core.quant.PackedWeight`
     (module docstring); a quantized activation wire raises.
+
+    The receive region of each rank comes from ``kernels/peer``'s pools:
+    ``world`` a :class:`~repro_torch.backend.mesh.World` over processes
+    (``x`` / ``w`` then hold its ``held`` ranks, and the kernel pushes into
+    the peer cards' regions: the peer route), ``split`` every rank in its
+    own allocation on this card (the peer route on one card; on the CPU,
+    its plain replay), else one allocation.  ``return_gathered`` runs on the
+    one-allocation route only (ValueError).
     """
     _check(x, w)
     refuse_quantized_wire("ag_gemm", channel)
+    procs = world is not None and world.nprocs > 1
+    _refuse_peer_gathered(return_gathered, procs, split)
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return ag_gemm_plain(x, w, channel=channel, return_gathered=return_gathered)
-    plan, channel = launch_plan(x, w, channel)
+        if procs:
+            raise ValueError("ag_gemm: the peer route over processes runs on the card (on the CPU the eager "
+                             "executor stands in for it)")  # fmt: skip
+        return ag_gemm_plain(x, w, channel=channel, return_gathered=return_gathered, split=split)
+    if procs and x.shape[0] != world.held:
+        raise ValueError(f"ag_gemm: expected the {world.held} held ranks of {world}, got {tuple(x.shape)}")
+    plan, channel = launch_plan(x, w, channel, world.size if procs else None)
     w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("ag_gemm", x, w)
     if plan.accum_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ag_gemm kernel accumulates in float32 or bfloat16, not {plan.accum_dtype}")
-    world, nch = plan.world, plan.num_channels
+    world_size, nch = plan.world, plan.num_channels
+    held = x.shape[0]
     lead, (m_loc, k), n_loc = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
     m_sub = m_loc // nch
-    out = torch.empty((world, b, world * m_loc, n_loc), dtype=x.dtype, device=x.device)
-    gbuf = torch.empty((world, world * nch, b * m_sub, k), dtype=x.dtype, device=x.device)
+    route = ROUTES[x.dtype]
+    reg = peer.regions("ag_gemm", layout(plan, route, b, m_sub, k, x.dtype), x.device, world=world, split=split)
+    out = torch.empty((held, b, world_size * m_loc, n_loc), dtype=x.dtype, device=x.device)
     src = device_table(plan, "src", x.device)
     dst = device_table(plan, "flow_dst", x.device)
-    route = ROUTES[x.dtype]
+    lib = build.library()
     if route == "wgmma":
-        m_tiles = -(-b * m_sub // TILE[0])
-        ready = torch.zeros((world, world, nch, m_tiles), dtype=torch.int32, device=x.device)
         info = (ctypes.c_int * 2)()
-        lib = build.library()
         rc = lib.tl_ag_gemm_wgmma(
-            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), gbuf.data_ptr(), ready.data_ptr(),
-            src.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
-            world, nch, b, m_loc, m_sub, k, n_loc, build.stream(x),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), reg.address, src.data_ptr(), dst.data_ptr(),
+            ctypes.addressof(info), world_size, nch, b, m_loc, m_sub, k, n_loc, build.stream(x),
         )  # fmt: skip
         build.check(rc, "ag_gemm")
-        ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE, "packed": bool(s_ptr)}
+        ag_gemm.last_launch = {"route": route, "grid": info[0], "items": info[1], "tile": TILE, "packed": bool(s_ptr),
+                               "pool": reg.mode}  # fmt: skip
     else:
-        bn = fma_n_tile(n_loc, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
+        bn = fma_n_tile(n_loc, bn or channel.comp.tile[1], nch * held, probe(x.device).sm_count)
         n_tiles = n_loc // bn
-        flags = torch.zeros((world, world, nch), dtype=torch.int32, device=x.device)  # (rank, step, channel)
-        lib = build.library()
         rc = lib.tl_ag_gemm(
             int(plan.accum_dtype == torch.bfloat16),
-            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), gbuf.data_ptr(), flags.data_ptr(),
-            src.data_ptr(), dst.data_ptr(),
-            world, nch, n_tiles, b, m_loc, m_sub, k, n_loc, bn, build.stream(x),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), reg.address, src.data_ptr(), dst.data_ptr(),
+            world_size, nch, n_tiles, b, m_loc, m_sub, k, n_loc, bn, build.stream(x),
         )  # fmt: skip
         build.check(rc, "ag_gemm")
         ag_gemm.last_launch = {
-            "route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
+            "route": route, "grid": n_tiles * nch * held, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
+            "pool": reg.mode,
         }  # fmt: skip
     ag_gemm.launches += 1
     ag_gemm.packed_launches += bool(s_ptr)
-    out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
+    out = out.reshape((held,) + tuple(lead) + (world_size * m_loc, n_loc))
     if not return_gathered:
         return out
-    gathered = _gathered(gbuf, world, nch, lead, m_sub)
+    gathered = _gathered(reg.slots, world_size, nch, lead, m_sub)
     if route != "wgmma":  # the float32 route reads a rank's own rows in place from x, not from its slot
-        for r in range(world):
+        for r in range(world_size):
             gathered[r, ..., r * m_loc : (r + 1) * m_loc, :] = x[r]
     return out, gathered
 

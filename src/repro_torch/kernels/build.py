@@ -58,22 +58,27 @@ NVCC_FLAGS = [
 _LOCK = threading.Lock()
 _LIB = None
 
-# C entry points and their ctypes signatures (p = pointer, i = int, f = float);
+# C entry points and their ctypes signatures (p = pointer, i = int, l = long long, f = float);
 # every pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits
 _SIGNATURES = {
     # dtype, x, w, out, info, M, N, K, bm, bn, stream
     "tl_matmul": "i" + "pppp" + "iiiii" + "p",
-    # float32: accum_bf16, x, w, scale, zero (null unless packed), out, gbuf, flags, src_tbl, dst_tbl,
-    # W, nch, n_tiles, B, m_loc, m_sub, K, n_loc, bn, stream
-    "tl_ag_gemm": "i" + "ppppppppp" + "iiiiiiiii" + "p",
-    # float32: wire_dtype, x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl,
-    # W, nch, n_tiles, B, M, K, N, n_sub, bn, stream
-    "tl_gemm_rs": "i" + "ppppppppp" + "iiiiiiiii" + "p",
-    # bfloat16: x, w, scale, zero, out, gbuf, ready, src_tbl, dst_tbl, info, W, nch, B, m_loc, m_sub, K, n_loc, stream
-    "tl_ag_gemm_wgmma": "pppppppppp" + "iiiiiii" + "p",
-    # bfloat16: wire_dtype, x, w, scale, zero, out, rbuf, flags, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub,
-    # stream
-    "tl_gemm_rs_wgmma": "i" + "pppppppppp" + "iiiiiii" + "p",
+    # float32: accum_bf16, x, w, scale, zero (null unless packed), out, regions (kernels/peer.PeerArgs),
+    # src_tbl, dst_tbl, W, nch, n_tiles, B, m_loc, m_sub, K, n_loc, bn, stream
+    "tl_ag_gemm": "i" + "pppppp" + "pp" + "iiiiiiiii" + "p",
+    # float32: wire_dtype, x, w, scale, zero, out, regions, seg_tbl, dst_tbl, W, nch, n_tiles, B, M, K, N, n_sub,
+    # bn, stream
+    "tl_gemm_rs": "i" + "pppppp" + "pp" + "iiiiiiiii" + "p",
+    # bfloat16: x, w, scale, zero, out, regions, src_tbl, dst_tbl, info, W, nch, B, m_loc, m_sub, K, n_loc, stream
+    "tl_ag_gemm_wgmma": "pppppp" + "ppp" + "iiiiiii" + "p",
+    # bfloat16: wire_dtype, x, w, scale, zero, out, regions, seg_tbl, dst_tbl, info, W, nch, B, M, K, N, n_sub, stream
+    "tl_gemm_rs_wgmma": "i" + "pppppp" + "ppp" + "iiiiiii" + "p",
+    # the peer route's receive pools (csrc/peer.cu): bytes, out ptr; ptr, out handle; handle, out ptr; ptr; ptr
+    "tl_peer_alloc": "l" + "p",
+    "tl_peer_handle": "pp",
+    "tl_peer_open": "pp",
+    "tl_peer_close": "p",
+    "tl_peer_free": "p",
     # dtype, q, k, v, o, m, l, so, BH, BHkv, Sq, Sk, D, scale, causal, window, W, map, load, store, stream
     "tl_flash_attention": "i" + "ppppppp" + "iiiii" + "f" + "ii" + "i" + "p" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream
@@ -89,7 +94,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # float32 the FMA kernels (exact float32 products)
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "fma"}
 WGMMA_TILE = (128, 128)
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong, "f": ctypes.c_float}
 
 
 def _sources():

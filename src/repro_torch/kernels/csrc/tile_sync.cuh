@@ -5,18 +5,44 @@
 // over src/repro/backend/lowering.py (DMA semaphores, remote async copies);
 // core/primitives.py holds the same names over a host flag board, which the
 // fused kernels' plain versions call.  On the TPU a tile travels by a remote
-// DMA whose completion signals the receiver's semaphore.  Here the
-// tensor-parallel ranks are emulated on one card and every rank's buffers
-// live in one allocation, so:
+// DMA whose completion signals the receiver's semaphore.  Here a tile
+// travels by plain global stores into the receiving rank's slot, found
+// through a table of every rank's receive region (PeerTbl below): a region
+// of this card, or a peer card's region mapped into this process over
+// NVLink (CUDA IPC, kernels/csrc/peer.cu).  So:
 //
 //   * a peer push is plain global stores into the receiving rank's slot
 //     (tile_push_data, 16-byte vectors where the rows allow);
-//   * notify is a __threadfence() by every thread of the group, the group's
-//     barrier, then one st.release.gpu of the flag (release: the slot's
-//     stores are visible at GPU scope before the flag);
-//   * wait is one thread spinning on ld.acquire.gpu, a fence, then the
+//   * notify is a fence by every thread of the group, the group's barrier,
+//     then one release store of the flag (the slot's stores are visible
+//     before the flag);
+//   * wait is one thread spinning on an acquire load, a fence, then the
 //     group's barrier; consumers read the slot with ld.global.cg (L2), so a
 //     stale L1 line cannot shadow the peer's stores.
+//
+// Scope: every primitive takes `sys`.  0 (the ranks emulated on one card
+// in one allocation): ld.acquire.gpu / st.release.gpu / __threadfence().
+// 1 (the peer route: a rank's region may be another card's memory):
+// ld.acquire.sys / st.release.sys / __threadfence_system().
+//
+// Epochs instead of zeroing.  A peer-route pool's regions live for the
+// process and are never zeroed between calls (one card's one-allocation
+// regions are made for each call with zeroed control words: epoch 1 every
+// call, no entry words, as before): a peer card's pushes of its next call
+// could land before a rank's own memset.  Each launch reads its epoch e
+// from the process's control words (tl_enter_epoch: the last call's epoch
+// + 1; the launch's last block to finish records e, tl_exit_epoch), sets
+// every flag to e and waits for >= e.  On entering call e, each held rank
+// writes e into its entry word on every rank's region (peer_entry_notify,
+// block 0, before any item); a pusher waits on its own region's copy of
+// the receiver's entry word before its first store into the receiver's
+// slots (peer_entry_wait), so no push overwrites a slot the receiver's
+// call e - 1 may still read (stream order: a rank enters call e after its
+// call e - 1 has finished).
+//
+// Bounded spins: a spin that lasts TL_SPIN_NS (read from %globaltimer)
+// traps, so a rank that never launches, or a protocol fault, fails the
+// run instead of hanging it.
 //
 // Each primitive comes in the forms the two routes need.  The float32 routes
 // notify and wait with the whole block (__syncthreads()).  The bf16 wgmma
@@ -33,76 +59,213 @@
 //
 // A block spins on flags other blocks set, so the fused kernels launch with
 // cudaLaunchCooperativeKernel, which guarantees every block is resident or
-// refuses the launch.  Flags are zeroed on the stream before each launch.
-// ld.acquire / st.release appear nowhere but here (analysis/lint.py's
+// refuses the launch; across cards every process launches its own grid of
+// its held ranks' items (the items are numbered in one global order, so the
+// smallest unfinished one can always run).  ld.acquire / st.release and
+// the system-scope fence appear nowhere but here (analysis/lint.py's
 // flag-site rule).
 #pragma once
 
 #include "tile_gemm.cuh"
 
-__device__ __forceinline__ int tl_ld_acquire(const int* p) {
+// a spin on a flag traps after this long (ns): no fused launch waits this long on a live peer
+constexpr unsigned long long TL_SPIN_NS = 30ull * 1000000000ull;
+
+__device__ __forceinline__ int tl_ld_acquire(const int* p, int sys) {
   int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  if (sys)
+    asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void tl_st_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+__device__ __forceinline__ void tl_st_release(int* p, int v, int sys) {
+  if (sys)
+    asm volatile("st.release.sys.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+  else
+    asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void tl_fence(int sys) {
+  if (sys)
+    __threadfence_system();
+  else
+    __threadfence();
+}
+
+__device__ __forceinline__ unsigned long long tl_globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the calling thread spins until *flag >= target (acquire); traps after TL_SPIN_NS
+__device__ __forceinline__ void tl_spin(const int* flag, int target, int sys) {
+  if (tl_ld_acquire(flag, sys) >= target) return;
+  const unsigned long long t0 = tl_globaltimer();
+  while (tl_ld_acquire(flag, sys) < target) {
+    __nanosleep(64);
+    if (tl_globaltimer() - t0 > TL_SPIN_NS) __trap();
+  }
 }
 
 // consumer_tile_wait: the whole block waits until *flag >= target.
-__device__ __forceinline__ void consumer_tile_wait(const int* flag, int target) {
+__device__ __forceinline__ void consumer_tile_wait(const int* flag, int target, int sys) {
   if (threadIdx.x == 0) {
-    while (tl_ld_acquire(flag) < target) __nanosleep(32);
-    __threadfence();
+    tl_spin(flag, target, sys);
+    tl_fence(sys);
   }
   __syncthreads();
 }
 
 // consumer_tile_wait, thread scope: the calling thread alone spins until the
-// flag is set (acquire); no fence and no barrier.
-__device__ __forceinline__ void consumer_tile_wait_thread(const int* flag) {
-  while (tl_ld_acquire(flag) == 0) __nanosleep(32);
+// flag reaches target (acquire); no fence and no barrier.
+__device__ __forceinline__ void consumer_tile_wait_thread(const int* flag, int target, int sys) {
+  tl_spin(flag, target, sys);
 }
 
 // consumer_tile_wait for a group with its own barrier `sync` (a callable):
-// thread 0 waits until the flag is set and fences, then the group syncs.
+// thread 0 waits until the flag reaches target and fences, then the group syncs.
 template <typename Sync>
-__device__ __forceinline__ void consumer_tile_wait_synced(const int* flag, Sync sync) {
+__device__ __forceinline__ void consumer_tile_wait_synced(const int* flag, int target, int sys, Sync sync) {
   if (threadIdx.x == 0) {
-    consumer_tile_wait_thread(flag);
-    __threadfence();
+    tl_spin(flag, target, sys);
+    tl_fence(sys);
   }
   sync();
 }
 
 // producer_tile_notify: publish this block's prior stores, then set the flag.
-__device__ __forceinline__ void producer_tile_notify(int* flag, int value) {
-  __threadfence();
+__device__ __forceinline__ void producer_tile_notify(int* flag, int value, int sys) {
+  tl_fence(sys);
   __syncthreads();
-  if (threadIdx.x == 0) tl_st_release(flag, value);
+  if (threadIdx.x == 0) tl_st_release(flag, value, sys);
 }
 
 // producer_tile_notify for a group with its own barrier `sync` (a callable):
 // every thread fences its stores, the group syncs, thread 0 sets the flag.
 template <typename Sync>
-__device__ __forceinline__ void producer_tile_notify_synced(int* flag, int value, Sync sync) {
-  __threadfence();
+__device__ __forceinline__ void producer_tile_notify_synced(int* flag, int value, int sys, Sync sync) {
+  tl_fence(sys);
   sync();
-  if (threadIdx.x == 0) tl_st_release(flag, value);
+  if (threadIdx.x == 0) tl_st_release(flag, value, sys);
 }
 
 // peers: the same mechanism on a flag of the ring (another rank's slot)
-__device__ __forceinline__ void peer_tile_wait(const int* flag, int target) { consumer_tile_wait(flag, target); }
-__device__ __forceinline__ void peer_tile_wait_thread(const int* flag) { consumer_tile_wait_thread(flag); }
-template <typename Sync>
-__device__ __forceinline__ void peer_tile_wait_synced(const int* flag, Sync sync) {
-  consumer_tile_wait_synced(flag, sync);
+__device__ __forceinline__ void peer_tile_wait(const int* flag, int target, int sys) {
+  consumer_tile_wait(flag, target, sys);
 }
-__device__ __forceinline__ void peer_tile_notify(int* flag, int value) { producer_tile_notify(flag, value); }
+__device__ __forceinline__ void peer_tile_wait_thread(const int* flag, int target, int sys) {
+  consumer_tile_wait_thread(flag, target, sys);
+}
 template <typename Sync>
-__device__ __forceinline__ void peer_tile_notify_synced(int* flag, int value, Sync sync) {
-  producer_tile_notify_synced(flag, value, sync);
+__device__ __forceinline__ void peer_tile_wait_synced(const int* flag, int target, int sys, Sync sync) {
+  consumer_tile_wait_synced(flag, target, sys, sync);
+}
+__device__ __forceinline__ void peer_tile_notify(int* flag, int value, int sys) { producer_tile_notify(flag, value, sys); }
+template <typename Sync>
+__device__ __forceinline__ void peer_tile_notify_synced(int* flag, int value, int sys, Sync sync) {
+  producer_tile_notify_synced(flag, value, sys, sync);
+}
+
+// ---- the receive regions of a launch: one per rank, found through a table
+
+// Rank q's receive region: its slots at slot[q], and its control words at
+// ctl[q]: the ready flags first, the W entry words at entry_off, the 2
+// control words at ctl_off (bytes).  Addresses in this process: this card's
+// memory, or a peer card's mapped over NVLink.  The table rides in the
+// kernel's parameters (no device table to upload, so a CUDA graph may
+// capture a launch whose regions were made for it).  The launch's items are
+// the held ranks' [rank0, rank0 + held).
+constexpr int TL_MAX_W = 16;  // ranks a world of the fused kernels may have
+struct PeerTbl {
+  unsigned long long slot[TL_MAX_W], ctl[TL_MAX_W];
+  long long entry_off, ctl_off;
+  int rank0, held, sys;
+
+  template <typename T>
+  __device__ __forceinline__ T* slots(int q) const {
+    return reinterpret_cast<T*>(slot[q]);
+  }
+  __device__ __forceinline__ int* flags(int q) const { return reinterpret_cast<int*>(ctl[q]); }
+  __device__ __forceinline__ int* entry(int q) const { return reinterpret_cast<int*>(ctl[q] + entry_off); }
+  __device__ __forceinline__ int* control() const { return reinterpret_cast<int*>(ctl[rank0] + ctl_off); }
+};
+
+// Host: a launch's regions as kernels/peer.py's PeerArgs (a ctypes mirror)
+// gives them: a table of 2W addresses (every rank's slots, then every
+// rank's control words), or, with no table, rank q's slots at slot0 + q *
+// slot_stride and its control words at ctl0 + q * ctl_stride (the ranks
+// emulated in one process: one allocation of slots, one of control words).
+struct PeerArgs {
+  const unsigned long long* bases;
+  unsigned long long slot0, ctl0;
+  long long slot_stride, ctl_stride, entry_off, ctl_off;
+  int rank0, held, sys, pad;
+};
+
+// Host: the table of a launch; false when the world is wider than TL_MAX_W
+// or the held ranks fall outside it.
+inline bool tl_peer_tbl(PeerTbl* t, const void* args, int W) {
+  const PeerArgs* p = static_cast<const PeerArgs*>(args);
+  if (W < 1 || W > TL_MAX_W || p->held < 1 || p->rank0 < 0 || p->rank0 + p->held > W) return false;
+  for (int q = 0; q < TL_MAX_W; ++q) {
+    const bool in = q < W;
+    t->slot[q] = !in ? 0ull : p->bases ? p->bases[q] : p->slot0 + q * p->slot_stride;
+    t->ctl[q] = !in ? 0ull : p->bases ? p->bases[W + q] : p->ctl0 + q * p->ctl_stride;
+  }
+  t->entry_off = p->entry_off;
+  t->ctl_off = p->ctl_off;
+  t->rank0 = p->rank0;
+  t->held = p->held;
+  t->sys = p->sys;
+  return true;
+}
+
+// The one-allocation route (sys 0) makes its regions for the call, so it
+// is always epoch 1 and has no entry words to set or wait on: the
+// primitives below return at once there (t.sys is uniform over the grid),
+// and that route does what it did before regions and epochs.
+
+// The launch's epoch: the last finished call's + 1 (thread 0 of each block,
+// before its first item; the caller shares it with the block).
+__device__ __forceinline__ int tl_enter_epoch(const PeerTbl& t) {
+  return t.sys ? *reinterpret_cast<volatile const int*>(t.control()) + 1 : 1;
+}
+
+// Thread 0 of each block, after the block's last item: the launch's last
+// block to finish records the epoch for the next call on the pool.
+__device__ __forceinline__ void tl_exit_epoch(const PeerTbl& t, int epoch, int blocks) {
+  if (!t.sys) return;
+  int* ctl = t.control();
+  __threadfence();
+  if (atomicAdd(ctl + 1, 1) == blocks - 1) {
+    ctl[1] = 0;
+    *reinterpret_cast<volatile int*>(ctl) = epoch;
+    __threadfence();
+  }
+}
+
+// peer_entry_notify (block 0, thread 0, before any item): every held rank
+// has entered call `epoch`: its entry word on every rank's region.
+__device__ __forceinline__ void peer_entry_notify(const PeerTbl& t, int W, int epoch) {
+  if (!t.sys) return;
+  for (int h = 0; h < t.held; ++h)
+    for (int q = 0; q < W; ++q) tl_st_release(t.entry(q) + t.rank0 + h, epoch, t.sys);
+}
+
+// peer_entry_wait: before rank `src`'s first store into rank dst's slots in
+// call `epoch`, wait on src's own copy of dst's entry word (dst's call
+// epoch - 1 has finished reading them).  Block-wide, or over `sync`.
+__device__ __forceinline__ void peer_entry_wait(const PeerTbl& t, int src, int dst, int epoch) {
+  if (!t.sys) return;
+  consumer_tile_wait(t.entry(src) + dst, epoch, t.sys);
+}
+template <typename Sync>
+__device__ __forceinline__ void peer_entry_wait_synced(const PeerTbl& t, int src, int dst, int epoch, Sync sync) {
+  if (!t.sys) return;
+  consumer_tile_wait_synced(t.entry(src) + dst, epoch, t.sys, sync);
 }
 
 __device__ __forceinline__ void tl_copy_elem(float* d, const float* s) { *d = __ldcg(s); }

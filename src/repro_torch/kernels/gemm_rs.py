@@ -1,8 +1,11 @@
 """Fused GEMM + ReduceScatter kernel (``csrc/gemm_rs.cu``), plan-driven.
 
 Replaces ``repro/kernels/gemm_rs.py::gemm_rs_shard`` (``_gemm_rs_kernel``).
-All W emulated ranks run in one cooperative launch; the plan's
-``rs_seg_tables()`` / ``rs_dst_tables()`` are device int32 tables.  Two
+The held ranks run in one cooperative launch (every rank when one process
+emulates the world; a world over processes launches one grid per card and
+the kernels push partials into the peer cards' receive regions:
+``kernels/peer``, ``csrc/tile_sync.cuh``); the plan's ``rs_seg_tables()`` /
+``rs_dst_tables()`` are device int32 tables.  Two
 routes, chosen by dtype before the launch (never by a fallback):
 
   * bfloat16 (the serve dtype): ``gemm_rs_wgmma_kernel``, a persistent grid
@@ -44,6 +47,7 @@ the same flag keys, through the host form of the tile primitives
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -56,8 +60,8 @@ from repro_torch.core.mapping import effective_channels
 from repro_torch.core.plan import TilePlan, build_plan
 from repro_torch.core.primitives import FlagBoard, peer_tile_notify, peer_tile_wait, tile_push_data
 from repro_torch.core.quant import PackedWeight, as_dtype, dtype_name
-from repro_torch.kernels import build
-from repro_torch.kernels.ag_gemm import device_table, plain_weight, refuse_quantized_wire
+from repro_torch.kernels import build, peer
+from repro_torch.kernels.ag_gemm import device_table, entry_keys, plain_weight, refuse_quantized_wire
 
 __all__ = ["gemm_rs", "gemm_rs_plain", "work_items", "launch_items", "launch_plan", "tiles", "RsItem", "TILE"]
 
@@ -69,8 +73,11 @@ class RsItem(NamedTuple):
     """One work item of the bf16 route: output tile (m-tile ``mt`` = batch
     pair ``mt // IB``, row block ``mt % IB``; n-tile ``nt``) of the partial
     of segment ``seg`` of rank ``r`` at stage ``s``, channel ``c``.  Flags are
-    ``("part", rank, stage, c, mt, nt)``; recv slot tiles ``(rank, stage, c,
-    mt, nt)``."""
+    ``("part", rank, stage, c, mt, nt)`` in ``rank``'s region; recv slot
+    tiles ``(rank, stage, c, mt, nt)``; a pushing item first waits on
+    ``entry``, ``("entry", r, dst)``: its own region's copy of the
+    receiver's entry word (``ag_gemm.entry_keys``).  With an ``epoch`` every
+    key ends with it."""
 
     index: int
     s: int
@@ -84,6 +91,7 @@ class RsItem(NamedTuple):
     sets: Tuple[tuple, ...]
     reads: Tuple[tuple, ...]  # recv slot tiles read (s > 0)
     writes: Tuple[tuple, ...]  # recv slot tiles written (s < W-1)
+    entry: Optional[tuple] = None  # the receiver's entry word waited on before the push (None: no push)
 
 
 def channel_lead(c: int, n_sub: int, align: int = 8) -> int:
@@ -109,44 +117,51 @@ def tiles(shape, nch: int, world: int, tile=TILE, align: int = 8):
     return ib, -(-b // per_tile) * ib, -(-(n_sub + widest) // tile[1])
 
 
-def work_items(plan: TilePlan, shape, tile=TILE, align: int = 8) -> list:
+def work_items(plan: TilePlan, shape, tile=TILE, align: int = 8, *, ranks=None, epoch: Optional[int] = None) -> list:
     """The bf16 route's work items, stage-major: numbered by (s, r, c, nt, mt)
     with mt fastest, as ``gemm_rs_wgmma_kernel`` decodes its item index
     (``wg_item``): the blocks that run together share a weight strip.
 
     ``shape`` is ``(B, M, k_loc, N)`` (B the flattened batch dims); ``align``
-    the box-start alignment (:func:`box_align`)."""
+    the box-start alignment (:func:`box_align`); ``ranks`` and ``epoch`` as
+    in ``ag_gemm.work_items`` (the held ranks a launch runs; the call's
+    epoch on every key)."""
     world, nch = plan.world, plan.num_channels
     _, m_tiles, n_tiles = tiles(shape, nch, world, tile, align)
     seg_t, dst_t = plan.rs_seg_tables(), plan.rs_dst_tables()
+    held = range(world) if ranks is None else sorted(ranks)
+    e = () if epoch is None else (epoch,)
     items = []
     for s in range(world):
-        for r in range(world):
+        for r in held:
             for c in range(nch):
                 seg, d = seg_t[c][s][r], dst_t[c][s][r]
+                push = s < world - 1
+                entry = ("entry", r, d) + e if push else None
                 for nt in range(n_tiles):
                     for mt in range(m_tiles):
-                        wait = ("part", r, s - 1, c, mt, nt) if s > 0 else None
-                        reads = ((r, s - 1, c, mt, nt),) if s > 0 else ()
-                        push = s < world - 1
-                        sets = (("part", d, s, c, mt, nt),) if push else ()
-                        writes = ((d, s, c, mt, nt),) if push else ()
-                        items.append(RsItem(len(items), s, r, c, mt, nt, seg, d, wait, sets, reads, writes))
+                        wait = ("part", r, s - 1, c, mt, nt) + e if s > 0 else None
+                        reads = ((r, s - 1, c, mt, nt) + e,) if s > 0 else ()
+                        sets = (("part", d, s, c, mt, nt) + e,) if push else ()
+                        writes = ((d, s, c, mt, nt) + e,) if push else ()
+                        items.append(RsItem(len(items), s, r, c, mt, nt, seg, d, wait, sets, reads, writes, entry))
     return items
 
 
-def _check(x: torch.Tensor, w):
+def _check(x: torch.Tensor, w, world: Optional[int] = None):
     if x.dim() < 3 or len(w.shape) != 3 or x.shape[0] != w.shape[0] or x.shape[-1] != w.shape[1]:
         raise ValueError(
             f"gemm_rs: expected x [W, ..., M, k_loc] and w [W, k_loc, N], got {tuple(x.shape)}, {tuple(w.shape)}"
         )
-    if x.shape[-2] % x.shape[0]:
-        raise ValueError(f"gemm_rs: {x.shape[-2]} rows do not divide over {x.shape[0]} ranks")
+    world = world or x.shape[0]
+    if x.shape[-2] % world:
+        raise ValueError(f"gemm_rs: {x.shape[-2]} rows do not divide over {world} ranks")
 
 
-def launch_plan(x, w, channel=None):
-    """The plan the launch on these operands runs, and its channel."""
-    world, n = x.shape[0], w.shape[-1]
+def launch_plan(x, w, channel=None, world: Optional[int] = None):
+    """The plan the launch on these operands runs, and its channel
+    (``world``: the TP degree, default ``x``'s rank dimension)."""
+    world, n = world or x.shape[0], w.shape[-1]
     channel = channel or BlockChannel(axis="model")
     nch = effective_channels(n, channel.num_channels, kind="matmul_rs")
     return build_plan("matmul_rs", channel, world, nch), channel
@@ -160,10 +175,27 @@ def launch_items(x: torch.Tensor, w, channel: Optional[BlockChannel] = None) -> 
     return work_items(plan, shape, align=box_align(w))
 
 
-def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None) -> torch.Tensor:
+@functools.lru_cache(maxsize=512)
+def layout(plan: TilePlan, route: str, shape, wire: torch.dtype, align: int = 8, n_tiles: int = 1) -> peer.Layout:
+    """A rank's receive region (``kernels/peer.Layout``): recv slots [W*C,
+    B*m_loc*n_sub] in the wire dtype and one flag per (stage, channel,
+    m-tile, n-tile) on the bf16 route (``shape`` (B, M, k_loc, N)), per
+    (stage, channel, n-tile) of ``n_tiles`` on the float32 route."""
+    world, nch = plan.world, plan.num_channels
+    b, m_glob, _, n = shape
+    if route == "wgmma":
+        _, m_tiles, n_tiles = tiles(shape, nch, world, align=align)
+        per = m_tiles * n_tiles
+    else:
+        per = n_tiles
+    return peer.Layout((world * nch, b * (m_glob // world) * (n // nch)), wire, world * nch * per, world)
+
+
+def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None, split: bool = False) -> torch.Tensor:
     """Plain version: the bf16 route's work items replayed in order in
     PyTorch, the recv slots in the wire dtype, the weight formed as ``x``'s
-    route forms it (``ag_gemm.plain_weight``)."""
+    route forms it (``ag_gemm.plain_weight``).  ``split``: replay the peer
+    route on this process's CPU pool (``ag_gemm.ag_gemm_plain``)."""
     _check(x, w)
     refuse_quantized_wire("gemm_rs", channel)
     plan, _ = launch_plan(x, w, channel)
@@ -177,12 +209,20 @@ def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None)
     xs = x.reshape(world, b, m_glob, k)
     wf, col_scale = plain_weight(w, x.dtype)
     wire = as_dtype(plan.flow_dtype)
-    rbuf = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=wire, device=x.device)
+    if split:
+        pl = peer.pool("gemm_rs", layout(plan, "wgmma", (b, m_glob, k, n), wire, align), x.device, split=True)
+        pl.epoch += 1
+        epoch, boards = pl.epoch, pl.boards
+        slots = [t.view(world * nch, b, m_loc, n_sub) for t in pl.slots]
+        for key in entry_keys(world, range(world)):  # the launch prologue
+            peer_tile_notify(boards[key[1]], key, epoch)
+    else:
+        slots = torch.zeros((world, world * nch, b, m_loc, n_sub), dtype=wire, device=x.device)
+        epoch, boards = 1, [FlagBoard()] * world
     out = torch.zeros((world, b, m_loc, n), dtype=x.dtype, device=x.device)
-    board = FlagBoard()
     for it in work_items(plan, (b, m_glob, k, n), align=align):
         if it.wait is not None:  # the partial of the stage before; the order sets it first, else this raises
-            peer_tile_wait(board, it.wait)
+            peer_tile_wait(boards[it.r], it.wait, epoch)
         r, c = it.r, it.c
         bp, ib = divmod(it.mt, ib_count)
         bs = slice(bp * per_tile, min(b, (bp + 1) * per_tile))
@@ -195,11 +235,13 @@ def gemm_rs_plain(x: torch.Tensor, w, *, channel: Optional[BlockChannel] = None)
         if col_scale is not None:
             part = part * col_scale[r, gcs]
         if it.reads:
-            part = part + rbuf[r, (it.s - 1) * nch + c, bs, rs, cs].float()  # partial received last stage
+            part = part + slots[r][(it.s - 1) * nch + c, bs, rs, cs].float()  # partial received last stage
         if it.writes:  # push to the peer's recv slot, then its flag
-            tile_push_data(rbuf, (it.dst, it.s * nch + c, bs, rs, cs), part.to(wire))
+            if split:  # the receiver's call before has read its recv slots
+                peer_tile_wait(boards[r], it.entry, epoch)
+            tile_push_data(slots[it.dst], (it.s * nch + c, bs, rs, cs), part.to(wire))
             for key in it.sets:
-                peer_tile_notify(board, key)
+                peer_tile_notify(boards[key[1]], key, epoch)
         else:
             out[r, bs, rs, gcs] = part.to(x.dtype)
     return out.reshape((world,) + tuple(lead) + (m_loc, n))
@@ -211,6 +253,8 @@ def gemm_rs(
     *,
     channel: Optional[BlockChannel] = None,
     bn: Optional[int] = None,
+    world=None,
+    split: bool = False,
 ) -> torch.Tensor:
     """Fused GEMM+RS over the rank dimension.
 
@@ -225,61 +269,69 @@ def gemm_rs(
     :func:`~repro_torch.core.comp_tiles.fma_n_tile`).  The recv slots take
     the plan's wire dtype (float32 or bfloat16, else TypeError); ``w`` may
     be a :class:`~repro_torch.core.quant.PackedWeight` (module docstring);
-    a quantized wire raises.
+    a quantized wire raises.  ``world`` / ``split``: the receive regions'
+    pool, as ``ag_gemm.ag_gemm`` takes them (``x`` / ``w`` hold a world
+    over processes' ``held`` ranks).
     """
-    _check(x, w)
+    _check(x, w, world.size if world is not None and world.nprocs > 1 else None)
     refuse_quantized_wire("gemm_rs", channel)
+    procs = world is not None and world.nprocs > 1
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return gemm_rs_plain(x, w, channel=channel)
-    plan, channel = launch_plan(x, w, channel)
+        if procs:
+            raise ValueError("gemm_rs: the peer route over processes runs on the card (on the CPU the eager "
+                             "executor stands in for it)")  # fmt: skip
+        return gemm_rs_plain(x, w, channel=channel, split=split)
+    if procs and x.shape[0] != world.held:
+        raise ValueError(f"gemm_rs: expected the {world.held} held ranks of {world}, got {tuple(x.shape)}")
+    plan, channel = launch_plan(x, w, channel, world.size if procs else None)
     w_ptr, s_ptr, z_ptr, _keep = build.weight_operands("gemm_rs", x, w)
     wire = as_dtype(plan.flow_dtype)
-    world, nch = plan.world, plan.num_channels
+    world_size, nch = plan.world, plan.num_channels
+    held = x.shape[0]
     lead, (m_glob, k), n = x.shape[1:-2], x.shape[-2:], w.shape[-1]
     b = math.prod(lead)
-    m_loc, n_sub = m_glob // world, n // nch
-    out = torch.empty((world, b, m_loc, n), dtype=x.dtype, device=x.device)
-    rbuf = torch.empty((world, world * nch, b * m_loc, n_sub), dtype=wire, device=x.device)
+    m_loc, n_sub = m_glob // world_size, n // nch
+    out = torch.empty((held, b, m_loc, n), dtype=x.dtype, device=x.device)
     seg = device_table(plan, "rs_seg", x.device)
     dst = device_table(plan, "rs_dst", x.device)
     route = build.ROUTES[x.dtype]
     lib = build.library()
+    shape = (b, m_glob, k, n)
     if route == "wgmma":
         if n_sub % 2:
             raise ValueError(f"gemm_rs: the bf16 route stores column pairs; N / C = {n_sub} must be even")
-        _, m_tiles, n_tiles = tiles((b, m_glob, k, n), nch, world, align=box_align(w))
-        flags = torch.zeros((world, world, nch, m_tiles, n_tiles), dtype=torch.int32, device=x.device)
+        reg = peer.regions("gemm_rs", layout(plan, route, shape, wire, box_align(w)), x.device, world=world,
+                           split=split)  # fmt: skip
         info = (ctypes.c_int * 2)()
         rc = lib.tl_gemm_rs_wgmma(
             build.dtype_code(wire),
-            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
-            seg.data_ptr(), dst.data_ptr(), ctypes.addressof(info),
-            world, nch, b, m_glob, k, n, n_sub, build.stream(x),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), reg.address, seg.data_ptr(), dst.data_ptr(),
+            ctypes.addressof(info), world_size, nch, b, m_glob, k, n, n_sub, build.stream(x),
         )  # fmt: skip
         build.check(rc, "gemm_rs")
         gemm_rs.last_launch = {
             "route": route, "grid": info[0], "items": info[1], "tile": TILE, "packed": bool(s_ptr),
-            "wire": dtype_name(wire),
+            "wire": dtype_name(wire), "pool": reg.mode,
         }  # fmt: skip
     else:
-        bn = fma_n_tile(n_sub, bn or channel.comp.tile[1], nch * world, probe(x.device).sm_count)
+        bn = fma_n_tile(n_sub, bn or channel.comp.tile[1], nch * held, probe(x.device).sm_count)
         n_tiles = n_sub // bn
         # one flag per (rank, stage, channel, n-tile)
-        flags = torch.zeros((world, world, nch, n_tiles), dtype=torch.int32, device=x.device)
+        reg = peer.regions("gemm_rs", layout(plan, route, shape, wire, n_tiles=n_tiles), x.device, world=world,
+                           split=split)  # fmt: skip
         rc = lib.tl_gemm_rs(
             build.dtype_code(wire),
-            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), rbuf.data_ptr(), flags.data_ptr(),
-            seg.data_ptr(), dst.data_ptr(),
-            world, nch, n_tiles, b, m_glob, k, n, n_sub, bn, build.stream(x),
+            x.data_ptr(), w_ptr, s_ptr, z_ptr, out.data_ptr(), reg.address, seg.data_ptr(), dst.data_ptr(),
+            world_size, nch, n_tiles, b, m_glob, k, n, n_sub, bn, build.stream(x),
         )  # fmt: skip
         build.check(rc, "gemm_rs")
         gemm_rs.last_launch = {
-            "route": route, "grid": n_tiles * nch * world, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
-            "wire": dtype_name(wire),
+            "route": route, "grid": n_tiles * nch * held, "items": None, "tile": (64, bn), "packed": bool(s_ptr),
+            "wire": dtype_name(wire), "pool": reg.mode,
         }  # fmt: skip
     gemm_rs.launches += 1
     gemm_rs.packed_launches += bool(s_ptr)
-    return out.reshape((world,) + tuple(lead) + (m_loc, n))
+    return out.reshape((held,) + tuple(lead) + (m_loc, n))
 
 
 gemm_rs.launches = 0

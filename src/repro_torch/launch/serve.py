@@ -45,6 +45,21 @@ as the JAX package's serve CLI does:
       --batch 8 --prompt-len 64 --new-tokens 16 --slots 8 --decode-block 16 --ckpt-dir /path/to/ckpt
 
 On the CPU: ``--data 2 --device cpu --reduce``.
+
+``--procs P`` spreads the W tensor-parallel ranks over P processes (P
+divides W), spawned as ``--data`` spawns its replicas: process p holds the
+ranks ``[p W/P, (p + 1) W/P)`` on ``cuda:p`` (NCCL; gloo with ``--device
+cpu``), builds the same seeded global weights and keeps its ranks' slices
+(``convert.shard_params``), and the fused AG+GEMM / GEMM+RS push their
+tiles into the peer cards' receive regions (``kernels/peer``).  Every
+process serves the same requests (SPMD); rank 0 prints.  The engine steps
+eagerly there (no CUDA-graph capture across cards), and only the dense
+path is ported (attention with a dense MLP: smollm-360m, qwen2-72b,
+starcoder2-7b, gemma3-27b).  On the card ``P`` beyond the visible cards
+raises; nothing falls back to one card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m --world 4 --procs 4 \\
+      --batch 4 --prompt-len 256 --new-tokens 16 --slots 4
 """
 
 from __future__ import annotations
@@ -69,7 +84,8 @@ from repro_torch.training import init_opt_state
 from repro_torch.training.optimizer import tree_map
 from repro_torch.training.steps import data_blocks
 
-__all__ = ["greedy", "serve", "serve_replica", "serve_context", "serve_params", "make_prompts", "main"]
+__all__ = ["greedy", "serve", "serve_replica", "serve_tp", "run_tp", "serve_context", "serve_params", "make_prompts",
+           "main"]  # fmt: skip
 
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # the JAX package's serve CLI refuses an encoder-decoder the same way
@@ -147,6 +163,7 @@ def serve(
     mode: str = "overlap",
     ckpt_dir: Optional[str] = None,
     data: int = 1,
+    procs: int = 1,
 ) -> dict:
     """Build a seeded model (restored from ``ckpt_dir``'s newest step when
     it has one) and serve ``batch`` requests through the continuous-batching
@@ -154,7 +171,8 @@ def serve(
     step eagerly on the CPU).  Request i samples with seed ``seed + i``;
     ``moe_stream`` streams the MoE decode; ``mode`` is the
     ``ParallelContext``'s.  ``data`` > 1 serves with that many replica
-    processes (module docstring).  Returns the tokens [batch, new_tokens]
+    processes, ``procs`` > 1 spreads the W ranks over that many processes
+    (module docstring).  Returns the tokens [batch, new_tokens]
     (-1 after an eos), the wall time of the drain and the engine's counters
     (rank 0's under ``data``, with "replicas": each process's peak device
     memory, placed parameter bytes, launch counts and data-transport
@@ -162,6 +180,13 @@ def serve(
     kw = dict(batch=batch, prompt_len=prompt_len, new_tokens=new_tokens, world=world, dtype=dtype, seed=seed,
               reduce=reduce, slots=slots, decode_block=decode_block, temperature=temperature, top_k=top_k,
               eos_id=eos_id, moe_stream=moe_stream, mode=mode, ckpt_dir=ckpt_dir)  # fmt: skip
+    if procs != 1:
+        if data != 1:
+            raise ValueError(f"--procs {procs} with --data {data}: TP x data across processes is not ported "
+                             "(ROADMAP queue 1 item 1 (d))")  # fmt: skip
+        outs = run_tp(serve_tp, world, procs, device, args=(arch, kw))
+        keys = ("peak_bytes", "placed_bytes", "launches", "data_bytes", "device")
+        return {**outs[0], "processes": [{k: o[k] for k in keys} for o in outs]}
     if data == 1:
         return _serve(arch, device=device, dist=None, **kw)
     if data < 1:
@@ -176,17 +201,66 @@ def serve(
     return {**outs[0], "replicas": [{k: o[k] for k in keys} for o in outs]}
 
 
+def run_tp(target, world: int, procs: int, device=None, args=()) -> list:
+    """``target(tp_world, *args)`` in ``procs`` spawned processes, each
+    holding its block of the ``world`` TP ranks (``World(world, device,
+    procs=)``) over ``launch/train.run_replicas``' spawn: NCCL with process
+    p on ``cuda:p``, gloo on the CPU.  Raises unless ``procs`` divides
+    ``world``, and on the card unless ``procs`` cards are visible.  Each
+    process that returns releases its receive pools after a barrier (one
+    that raises leaves them to the process's exit); returns the results
+    by process."""
+    from repro_torch.launch import train as train_cli  # it imports this module
+
+    if procs < 1 or world % procs:
+        raise ValueError(f"--procs {procs} must divide --world {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and procs > torch.cuda.device_count():
+        raise ValueError(f"--procs {procs}: {torch.cuda.device_count()} CUDA device(s) visible; one process a card, "
+                         "and nothing falls back to one card")  # fmt: skip
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    print(f"TP world of {world} ranks over {procs} processes ({world // procs} a process), torch.distributed {backend}")
+    return train_cli.run_replicas(_tp_process, procs, device=dev, backend=backend, args=(target, world, args))
+
+
+def _tp_process(dist: DistWorld, target, world: int, args) -> dict:
+    """One process of :func:`run_tp`."""
+    from repro_torch.kernels import peer
+
+    tp = World(world, dist.device, procs=dist)
+
+    def barrier():
+        if dist.device.type == "cuda":
+            torch.cuda.synchronize(dist.device)
+        dist.psum(torch.zeros((1,), device=dist.device), control=True)
+        if dist.device.type == "cuda":
+            torch.cuda.synchronize(dist.device)
+
+    out = target(tp, *args)  # a failure raises here, with no collective after it: its peers fail, not hang
+    peer.release(barrier)  # every process's last push has landed, then no process maps a peer's region
+    return out
+
+
+def serve_tp(tp: World, arch: str, kw: dict) -> dict:
+    """One process of ``serve(procs=P)``: ``kw`` holds every keyword of
+    :func:`serve` from ``batch`` to ``ckpt_dir``."""
+    return _serve(arch, device=tp.device, dist=None, tp=tp, **kw)
+
+
 def serve_replica(dist: DistWorld, arch: str, kw: dict) -> dict:
     """One replica of ``serve(data=D)``, in a process of ``dist``: ``kw``
     holds every keyword of :func:`serve` from ``batch`` to ``ckpt_dir``."""
     return _serve(arch, device=dist.device, dist=dist, **kw)
 
 
-def serve_context(world: int, device, dist: Optional[DistWorld] = None, **kw) -> ParallelContext:
-    """The serve CLI's context: W = ``world`` ranks on ``device``; under
+def serve_context(world, device, dist: Optional[DistWorld] = None, **kw) -> ParallelContext:
+    """The serve CLI's context: W = ``world`` ranks on ``device`` (or
+    ``world`` a :class:`World` over processes, used as it is); under
     ``dist`` (one replica's DistWorld) over ``make_dev_mesh(world,
     dist.size)`` with its data axes run by ``dist``.  ``kw``: further
     ``ParallelContext`` fields (``mode``, ``moe_decode_stream``)."""
+    if isinstance(world, World):
+        return ParallelContext(world=world, **kw)
     if dist is None:
         return ParallelContext(world=World(world, device), **kw)
     return make_dev_mesh(world, dist.size).context(device, data=dist, **kw)
@@ -216,9 +290,10 @@ def serve_params(cfg, pc: ParallelContext, dtype: str, seed: int = 0, ckpt_dir: 
 
 
 def _serve(arch, *, batch, prompt_len, new_tokens, world, dtype, device, seed, reduce, slots, decode_block,
-           temperature, top_k, eos_id, moe_stream, mode, ckpt_dir, dist: Optional[DistWorld]) -> dict:  # fmt: skip
-    """:func:`serve` in this process: one replica of ``dist``, or the whole
-    engine without one."""
+           temperature, top_k, eos_id, moe_stream, mode, ckpt_dir, dist: Optional[DistWorld],
+           tp: Optional[World] = None) -> dict:  # fmt: skip
+    """:func:`serve` in this process: one replica of ``dist``, one process of
+    the TP world ``tp``, or the whole engine."""
     from repro_torch import kernels as K
     from repro_torch.backend.mesh import CommCounter
     from repro_torch.launch.train import device_bytes
@@ -228,10 +303,10 @@ def _serve(arch, *, batch, prompt_len, new_tokens, world, dtype, device, seed, r
         cfg = reduce_config(cfg)
     if cfg.encoder_layers:
         raise SystemExit(ENCDEC_REFUSED)
-    pc = serve_context(world, device, dist, mode=mode, moe_decode_stream=moe_stream)
+    pc = serve_context(tp or world, device, dist, mode=mode, moe_decode_stream=moe_stream)
     dev = pc.device
-    lead = dist is None or dist.rank == 0
-    if dist is not None and dev.type == "cuda":  # a replica process: its peak from here
+    lead = (dist is None or dist.rank == 0) and (tp is None or tp.procs.rank == 0)
+    if (dist is not None or tp is not None) and dev.type == "cuda":  # one process of several: its peak from here
         torch.cuda.reset_peak_memory_stats(dev)
     launched = K.launch_counts()
     before = device_bytes(dev)
@@ -248,7 +323,8 @@ def _serve(arch, *, batch, prompt_len, new_tokens, world, dtype, device, seed, r
     counter = CommCounter()
     _sync(dev)
     t0 = time.perf_counter()
-    with dist.counting(counter) if dist is not None else contextlib.nullcontext():
+    transport = dist if dist is not None else tp
+    with transport.counting(counter) if transport is not None else contextlib.nullcontext():
         outs = eng.drain(handles)
     seconds = time.perf_counter() - t0
     tokens = np.full((batch, new_tokens), -1, np.int64)
@@ -280,7 +356,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4, help="requests submitted")
     ap.add_argument("--prompt-len", type=int, default=256)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (emulated on one device)")
+    ap.add_argument("--world", type=int, default=4,
+                    help="tensor-parallel ranks (emulated on one device unless --procs)")
     ap.add_argument("--dtype", default="bf16", choices=sorted(DTYPES))
     ap.add_argument("--device", default=None, help="default: cuda (raises when absent)")
     ap.add_argument("--seed", type=int, default=0)
@@ -293,12 +370,13 @@ def main(argv=None):
     ap.add_argument("--mode", default="overlap", choices=["overlap", "baseline"])
     ap.add_argument("--ckpt-dir", default=None, help="restore the newest checkpoint launch/train wrote there")
     ap.add_argument("--data", type=int, default=1, help="data-parallel replicas, one spawned process each")
+    ap.add_argument("--procs", type=int, default=1, help="processes the --world ranks span, one card each (divides W)")
     args = ap.parse_args(argv)
     r = serve(
         args.arch, batch=args.batch, prompt_len=args.prompt_len, new_tokens=args.new_tokens, world=args.world,
         dtype=args.dtype, device=args.device, seed=args.seed, reduce=args.reduce, slots=args.slots,
         decode_block=args.decode_block, temperature=args.temperature, top_k=args.top_k, eos_id=args.eos_id,
-        moe_stream=args.moe_stream, mode=args.mode, ckpt_dir=args.ckpt_dir, data=args.data,
+        moe_stream=args.moe_stream, mode=args.mode, ckpt_dir=args.ckpt_dir, data=args.data, procs=args.procs,
     )  # fmt: skip
     print(
         f"device {r['device']} backend {r['backend']}: {r['generated']} tokens for {args.batch} requests of "

@@ -222,7 +222,7 @@ class LayerDef:
     def init_cache(self, cfg, pc, batch, max_len, dtype):
         if self.kind == "mamba":
             return mamba.init_cache(cfg, pc.tp, batch, dtype, pc.device)
-        return attention.init_cache(cfg, pc.tp, batch, max_len, dtype, pc.device, window=self.window)
+        return attention.init_cache(cfg, pc.tp, batch, max_len, dtype, pc.device, window=self.window, held=pc.held)
 
     def apply_decode(self, params, x, cache, cache_len, pc, cfg, q_valid=None, shared=None):
         params = self.gathered(params, pc, cfg)

@@ -364,7 +364,8 @@ def apply_seq_ring(
     q = q.reshape(world, b, s_glob, lay.h_loc, hd)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     q, _ = rope(q, q, torch.arange(s_glob, device=x.device), theta)
-    k_pos = torch.arange(world, device=x.device)[:, None, None] * s_loc + torch.arange(s_loc, device=x.device)
+    ranks = torch.arange(pc.rank0, pc.rank0 + world, device=x.device)  # the held ranks' global ids
+    k_pos = ranks[:, None, None] * s_loc + torch.arange(s_loc, device=x.device)
     _, k = rope(k, k, k_pos, theta)  # positions [W, 1, s_loc]: global per rank
     q, k, v = (t.permute(0, 1, 3, 2, 4).contiguous() for t in (q, k, v))  # [W, B, heads, S, hd]
     o = pc.ring_attention(q, k, v, causal=causal, window=window, kv_select=lay.kv_pad > 1)
@@ -439,23 +440,26 @@ def apply_cross_decode(params: dict, x: torch.Tensor, cross: dict, pc, cfg) -> t
     nq = lay.h_loc * hd
     h = rms_norm(x, params["ln"], cfg.norm_eps)
     q = torch.einsum("bsd,wdn->wbsn", h, params["wq"])[..., :nq]
-    qh = q.reshape(pc.tp, b, c, lay.h_loc, hd).permute(0, 1, 3, 2, 4)  # [W, B, h_loc, C, hd]
+    qh = q.reshape(pc.held, b, c, lay.h_loc, hd).permute(0, 1, 3, 2, 4)  # [W, B, h_loc, C, hd]
     rep = lay.h_loc // lay.kv_loc
     kk = cross["k"].repeat_interleave(rep, dim=2) if rep > 1 else cross["k"]
     vv = cross["v"].repeat_interleave(rep, dim=2) if rep > 1 else cross["v"]
     s = torch.einsum("wbhqd,wbhkd->wbhqk", (qh * hd**-0.5).float(), kk.float())
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("wbhqk,wbhkd->wbhqd", p, vv.float()).to(x.dtype)
-    o = o.permute(0, 1, 3, 2, 4).reshape(pc.tp, b, c, nq)
+    o = o.permute(0, 1, 3, 2, 4).reshape(pc.held, b, c, nq)
     return x + pc.psum(torch.einsum("wbsn,wnd->wbsd", o, params["wo"]))
 
 
-def init_cache(cfg, tp: int, batch: int, max_len: int, dtype, device, window: Optional[int] = None) -> dict:
-    """Per-rank KV cache ``[W, B, kv_loc, L, hd]``; sliding-window layers hold a
-    ring of ``window`` slots (slot ``p % window`` holds position ``p``)."""
+def init_cache(cfg, tp: int, batch: int, max_len: int, dtype, device, window: Optional[int] = None,
+               held: Optional[int] = None) -> dict:  # fmt: skip
+    """Per-rank KV cache ``[W, B, kv_loc, L, hd]`` (``held`` ranks of a TP
+    degree ``tp`` spanning processes: ``[held, ...]``); sliding-window
+    layers hold a ring of ``window`` slots (slot ``p % window`` holds
+    position ``p``)."""
     lay = layout(cfg, tp)
     length = min(max_len, window) if window is not None else max_len
-    shape = (tp, batch, lay.kv_loc, length, cfg.hd)
+    shape = (tp if held is None else held, batch, lay.kv_loc, length, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
@@ -533,7 +537,7 @@ def apply_decode(
     p = torch.softmax(torch.cat([s1, s2], dim=-1), dim=-1)
     o = torch.einsum("wbhqk,wbhkd->wbhqd", p[..., :cache_size], vv.float())
     o = o + torch.einsum("wbhqk,wbkhd->wbhqd", p[..., cache_size:], vc.float())
-    o = o.to(x.dtype).permute(0, 1, 3, 2, 4).reshape(pc.tp, b, c, lay.h_loc * hd)
+    o = o.to(x.dtype).permute(0, 1, 3, 2, 4).reshape(pc.held, b, c, lay.h_loc * hd)
     out = pc.psum(torch.einsum("wbsn,wnd->wbsd", o, params["wo"]))
 
     # write the chunk's k/v (after the reads above, so a ring slot the

@@ -85,6 +85,16 @@ has no bf16 P and raises (``nn/attention.apply_seq``).
 Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 ``pc.ring_attention`` / ``pc.ag_moe`` / ``pc.a2a_moe`` / ``pc.psum`` /
 ``pc.pmean`` / ``pc.all_gather_seq`` on rank-stacked values.
+
+A world over processes (``World(..., procs=)``, one process per card):
+``tp`` stays the TP degree, which sets the layouts (heads, columns, rows
+per rank); ``held`` and ``rank0`` are the ranks this process stores, the
+leading dimension of every rank-stacked value.  Only the dense path runs
+there (attention with a dense MLP: prefill, decode, the LM head, the
+fused AG+GEMM / GEMM+RS on their peer route, the eager executors and the
+baselines); :meth:`single_process` refuses the rest by name
+(``NotImplementedError``), and ``data`` with it raises ``ValueError``:
+``DistWorld`` owns the default process group.
 """
 
 from __future__ import annotations
@@ -149,11 +159,36 @@ class ParallelContext:
                              f"the data transport has {self.data.size}")  # fmt: skip
         if self.ep_axis is not None and self.ep_axis != self.channel.axis:
             raise ValueError(f"ep_axis {self.ep_axis!r} is not the world's axis {self.channel.axis!r}")
+        if self.world.nprocs > 1 and self.tune:
+            raise ValueError("tune=True over a TP world of processes: the tuner times one process's kernels alone")
+        if self.world.nprocs > 1 and self.data is not None:
+            raise ValueError("a TP world over processes takes no data axes: the data transport owns the default "
+                             "process group (TP x data across processes: ROADMAP queue 1 item 1 (d))")  # fmt: skip
 
     # ---- static topology ------------------------------------------------
     @property
     def tp(self) -> int:
         return self.world.size
+
+    @property
+    def held(self) -> int:
+        """The ranks this process stores (``tp`` unless the world spans processes)."""
+        return self.world.held
+
+    @property
+    def rank0(self) -> int:
+        """The global id of this process's first rank."""
+        return self.world.rank0
+
+    def single_process(self, what: str):
+        """Raise ``NotImplementedError`` for ``what`` on a world over processes
+        (only the dense path is ported there)."""
+        if self.world.nprocs > 1:
+            raise NotImplementedError(
+                f"{what} over a TP world of {self.world.nprocs} processes is not ported (only attention with a "
+                "dense MLP is); ROADMAP queue 1 item 1 (d): MoE / a2a, Mamba, ring attention, seams, the "
+                "encoder-decoder and training across cards"
+            )
 
     @property
     def mesh_shape(self) -> Dict[str, int]:
@@ -247,16 +282,19 @@ class ParallelContext:
         residual stream (before ``glue``).  Compiled on "eager" whatever
         ``backend`` is; an incompatible seam warns once and runs unfused;
         under ``tune=True`` the tuner prices fused against unfused per shape."""
+        self.single_process("the fused RS -> AG seam")
         fn = self._seq(["matmul_rs", "ag_matmul"], backend="eager")
         return fn(x, w1, w2, residual=residual, glue=glue, **kw)
 
     def ring_attention(self, q, k, v, **kw):
         """Sequence-parallel AG-KV + attention: q [W, B, H, s_loc or W*s_loc,
         D], k/v [W, B, Hkv, s_loc, D] -> [W, B, H, Sq, D]."""
+        self.single_process("ring attention")
         return self._op("ag_attention", (q, k, v))(q, k, v, **kw)
 
     def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""
+        self.single_process("the MoE block")
         return self._op("ag_moe", (x, ids, wts, w_gu, w_down))(x, ids, wts, w_gu, w_down, **kw)
 
     def a2a_moe(self, x, ids, wts, w_gu, w_down, **kw):
@@ -264,6 +302,7 @@ class ParallelContext:
         [W, *lead, m_loc, d] -> [W, *lead, m_loc, d].  Needs ``ep_axis``;
         ``mode="baseline"`` runs ``a2a_moe_baseline`` (the same capacity), as
         does an unfused verdict of the tuner under ``tune=True``."""
+        self.single_process("expert parallelism")
         if self.ep_axis is None:
             raise ValueError(
                 "a2a_moe requires ParallelContext(ep_axis=...); expert parallelism is opt-in "

@@ -60,6 +60,12 @@ whatever, with dead slots masked (``q_valid = 0``: their caches, states and
 lengths stay as they were, and their samples are dropped), which gives the
 same tokens.
 
+Over a TP world of processes (``World(..., procs=)``, one card each) every
+process runs the same engine on the same requests (SPMD: the logits after
+each collective are the same on every process, so are the schedulers), and
+the step runs eagerly: ``capture=None`` resolves to eager, ``capture=True``
+raises ValueError.
+
 On a CPU context (``device="cpu"``, asked for explicitly) the same step
 functions run eagerly; ``capture=False`` runs them eagerly on the card too,
 for the captured-vs-eager check only.
@@ -199,6 +205,14 @@ class ServeEngine:
                 )
             if pc.tune:
                 raise ValueError("pc.tune with pc.data: each replica would time its own decode channels")
+            self.capture = False
+        if pc.world.nprocs > 1:
+            if self.capture:
+                raise ValueError(
+                    "no CUDA-graph capture over a TP world of processes: a graph would hold one process's NCCL "
+                    "collectives and peer pushes; the engine steps eagerly there (capture across cards: ROADMAP "
+                    "queue 1 item 1 (d))"
+                )
             self.capture = False
         if self.capture is None:
             self.capture = dev.type == "cuda"

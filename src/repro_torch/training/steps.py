@@ -137,6 +137,7 @@ def make_train_step(
     rows on every replica), ``params`` (in and out) and ``opt_state`` are
     over :func:`data_blocks`, and the metrics are the global ones."""
     model.check_trainable(cfg, pc)
+    pc.single_process("training")
     if pc.data is not None:
         return _data_parallel_step(model, cfg, pc, opt_cfg, remat_policy=remat_policy, grad_masks=grad_masks,
                                    aux_weight=aux_weight, sync_kv=sync_kv, donate=donate)  # fmt: skip

@@ -1764,3 +1764,104 @@ def test_use_gather_on_card(dev, dtype):
         assert out[k].device.type == "cuda" and torch.equal(out[k], ref[k]), k
     for k, g, w in zip(specs, got, want):
         assert g.dtype == blocks[k].dtype and torch.equal(g, w), k
+
+
+# ---- the peer route: split receive pools on one card, and the TP world over cards
+
+PEER_SHAPES = {"ag_gemm": ((4, 2, 40, 64), (4, 64, 136)), "gemm_rs": ((4, 2, 160, 72), (4, 72, 96))}
+
+
+def _peer_operands(kind, dtype, device):
+    """Seeded operands of every rank (made on the CPU: every card draws the same)."""
+    xs, ws = PEER_SHAPES[kind]
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(xs, generator=g).to(dtype)
+    w = (torch.randn(ws, generator=g) * (ws[0] * ws[1]) ** -0.5).to(dtype)
+    return x.to(device), w.to(device)
+
+
+@pytest.mark.parametrize("kind", list(PEER_SHAPES))
+@pytest.mark.parametrize("order,nch", [(o, c) for o in ORDERS for c in (1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_peer_route_split_pool_equals_the_one_allocation_route(dev, kind, order, nch, dtype):
+    """Every rank's receive region its own cudaMalloc (system scope, epochs):
+    two calls on one pool, never zeroed, each bitwise the one-allocation
+    route; the second against the plain version."""
+    x, w = _peer_operands(kind, dtype, dev)
+    ch = BlockChannel(axis="model", num_channels=nch, comm=CommSpec(order=order))
+    fn = getattr(K, kind)
+    one = fn(x, w, channel=ch)
+    assert fn.last_launch["pool"] == "one"
+    outs = [fn(x, w, channel=ch, split=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert fn.last_launch["pool"] == "split"
+    assert all(torch.equal(o, one) for o in outs)
+    _close(outs[1], getattr(K, f"{kind}_plain")(x, w, channel=ch), dtype)
+
+
+def test_peer_route_refuses_return_gathered(dev):
+    x, w = _peer_operands("ag_gemm", torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="one-allocation route"):
+        K.ag_gemm(x, w, return_gathered=True, split=True)
+
+
+def _forced_logits(params, cfg, pc, job):
+    """A reduced smollm's f32 prefill logits and its logits over ``job["forced"]``
+    decode steps, each fed the given token (teacher-forced, so both worlds
+    decode the same context)."""
+    dev = pc.device
+    prompts = torch.as_tensor(job["prompts"], device=dev)
+    with torch.no_grad():
+        lg, caches = lm.prefill(params, cfg, pc, prompts, max_len=job["max_len"])
+        rows = [lg]
+        for i, tok in enumerate(job["forced"]):
+            step, caches = lm.decode_step(params, caches, cfg, pc, torch.full((prompts.shape[0], 1), tok, device=dev),
+                                          prompts.shape[1] + i)  # fmt: skip
+            rows.append(step)
+    return [r.cpu() for r in rows]
+
+
+def _tp_cards_worker(tp, job):
+    """One process of the TP world over cards: its ranks' fused outputs
+    (two calls each), a reduced smollm's f32 prefill and teacher-forced decode logits."""
+    dev, lo, hi = tp.device, tp.rank0, tp.rank0 + tp.held
+    out = {"fused": {}}
+    for kind in PEER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = _peer_operands(kind, dtype, dev)
+            x, w = x[lo:hi].contiguous(), w[lo:hi].contiguous()
+            a, b = getattr(K, kind)(x, w, world=tp), getattr(K, kind)(x, w, world=tp)
+            out["fused"][(kind, dtype)] = (a.cpu(), torch.equal(a, b), getattr(K, kind).last_launch["pool"])
+    cfg = job["cfg"]
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    out["logits"] = _forced_logits(params, cfg, ParallelContext(world=tp), job)
+    return out
+
+
+def test_tp_world_across_cards(dev):
+    """W = 4 over two processes, one card each (NCCL; the fused kernels push
+    into the peer card over NVLink): each process's fused outputs bitwise the
+    same W emulated on card 0, both calls; a reduced smollm's f32 prefill and
+    teacher-forced decode logits within 2e-3 + 2e-3 |ref| of the emulated
+    ones (the decode's per-rank cuBLAS products round by the width a card
+    holds).  Skips, from inside, with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the TP world over processes puts one on each card")
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")), vocab_size=512)
+    job = {"cfg": cfg, "prompts": np.random.default_rng(0).integers(0, 512, (2, 16)), "max_len": 24,
+           "forced": [5, 77, 300, 11]}  # fmt: skip
+    got = serve.run_tp(_tp_cards_worker, 4, 2, dev, args=(job,))
+    one = World(4, dev)
+    for kind in PEER_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            want = getattr(K, kind)(*_peer_operands(kind, dtype, dev)).cpu()
+            for p, g in enumerate(got):
+                out, twice, pool = g["fused"][(kind, dtype)]
+                assert pool == "procs" and twice and torch.equal(out, want[2 * p : 2 * p + 2]), (kind, dtype, p)
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    refs = _forced_logits(params, cfg, ParallelContext(world=one), job)
+    for g in got:
+        for lg, ref in zip(g["logits"], refs):
+            assert bool(((lg - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all())

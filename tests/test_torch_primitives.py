@@ -140,4 +140,4 @@ def test_the_fused_kernels_flag_sites_call_the_primitives(name):
     if name == "ag_gemm.cu":
         assert "consumer_tile_wait_thread" in used  # the bf16 route's TMA producer warp
         # the generic-to-async-proxy fence after the producer's acquired flag, before the TMA reads, stays
-        assert re.search(r"consumer_tile_wait_thread\(flag\);\s*\n\s*wg_fence_proxy_async\(\);", src)
+        assert re.search(r"consumer_tile_wait_thread\(flag, e, t\.sys\);\s*\n\s*wg_fence_proxy_async\(\);", src)
