@@ -435,6 +435,17 @@ non-zero (no phase catches its own failure):
               ``max_memory_allocated()``, within CAL_PEAK; the compute,
               memory and collective terms of the W ranks at the card's
               ``HW`` beside the step's measured ms (CUDA events), recorded.
+  19d. tp_gpus  (four cards; on one it prints "tp_gpus: not run" and
+              nothing else) the TP world over one process a card, W = 4 over
+              P = 4 (``phase_tp_gpus``): serving (the fused ops bitwise the
+              emulated world, smollm-360m's f32 prefill, bf16 greedy, the
+              engine, Fig. 8 / Tab. 2) and training (the fused ops' backward
+              on the peer route at smollm's train shapes, bitwise the
+              emulated world with the gathered operands; the f32 step at 2
+              layers against the emulated and the eager step; 30 bf16 AdamW
+              steps of smollm-360m at 32 layers, launches a process a step
+              128 / 128 / 32 / 1, the ce's fall, a resume bitwise; Fig. 11's
+              dense rows at ``paper_e2e.DEPTH_PROCS``).
   20. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
@@ -2010,7 +2021,11 @@ def _peer_route_cases() -> dict:
     """The peer route on one card: every rank's receive region its own
     cudaMalloc (``split=True``, system scope, the pool's epochs), two calls
     on one pool without zeroing, each bitwise equal to the one-allocation
-    route, the second within TOL of ``kernels/ref``; bf16 and f32."""
+    route, the second within TOL of ``kernels/ref``; bf16 and f32.  The
+    AG+GEMM cases also run ``return_gathered`` on the split pool twice, on
+    two operand sets: out and gathered bitwise the one-allocation route's,
+    and call 1's gathered operand (copied out of the pool) unchanged after
+    call 2 overwrote the slots."""
     import torch
 
     from repro_torch import kernels as K
@@ -2035,8 +2050,23 @@ def _peer_route_cases() -> dict:
             if launch["pool"] != "split" or not all(same) or not err <= TOL[dn] * scale:
                 raise SystemExit(f"chip_smoke: the peer route of {kind} [{name}] ({dn}) failed: pool "
                                  f"{launch['pool']}, bitwise {same}, err {err} vs {TOL[dn]} x {scale}")  # fmt: skip
-            recs[(kind, "peer", name, dtype)] = {"case": f"peer {kind}[{name}]", "dtype": dn, "bitwise": same,
-                                                "ref_max_abs_err": err, "max_abs_oracle": scale, "launch": launch}
+            rec = {"case": f"peer {kind}[{name}]", "dtype": dn, "bitwise": same, "ref_max_abs_err": err,
+                   "max_abs_oracle": scale, "launch": launch}  # fmt: skip
+            if kind == "ag_gemm":  # the training backward's gathered operand, copied out of the pool
+                xw = [(x, w), _peer_operands(xs, ws, dtype, "cuda", seed=1)]
+                split = _tp_train_calls(fn, xw, True, split=True)
+                one_g = _tp_train_calls(fn, xw, True)
+                same_g = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                          for a, b in zip(split["outs"], one_g["outs"])]  # fmt: skip
+                print(f"[kernels] peer route {kind}[{name}] {dn} return_gathered: split pool ({split['pool']}), "
+                      f"2 calls on other operands, out and gathered bitwise the one-allocation route: {same_g}; "
+                      f"call 1's gathered operand unchanged after call 2: {split['survived']}")  # fmt: skip
+                if split["pool"] != "split" or not all(same_g) or not split["survived"]:
+                    raise SystemExit(f"chip_smoke: the peer route's return_gathered of {kind} [{name}] ({dn}) "
+                                     f"failed: {same_g}, survived {split['survived']}")  # fmt: skip
+                rec["gathered_bitwise"], rec["gathered_survived"] = same_g, split["survived"]
+                del xw, split, one_g
+            recs[(kind, "peer", name, dtype)] = rec
             del x, w, one, calls, oracle
     return recs
 
@@ -2048,6 +2078,12 @@ def _peer_route_cases() -> dict:
 TP_WORLD = 4  # W of the tp_gpus phase: P = 4 processes over four cards (2 over two)
 TP_NEW = 16  # greedy decode steps
 TP_ENGINE = dict(batch=BATCH, prompt_len=PROMPT, new_tokens=TP_NEW, slots=BATCH, decode_block=TP_NEW, seed=0)
+# training across the cards: (b) the depth of the float32 step and its gradients' bound against the emulated step
+# (each leaf's max|diff| over its max|emulated|: f32 sums over the processes in another order); (c) the bf16
+# steps at full depth (the train phase's batch and criterion); (d) Fig. 11's dense rows at ``paper_e2e.DEPTH_PROCS``,
+# warm-up steps and timed pairs of each mode (``paper_e2e --procs`` times the full PAIRS)
+TP_TRAIN_F32_LAYERS, TP_GRAD_RTOL = 2, 1e-5
+TP_E2E_WARMUP, TP_E2E_PAIRS = 1, 2
 
 
 def _greedy_logits(params, cfg, pc, prompts, new: int):
@@ -2158,6 +2194,383 @@ def _tp_gpus_worker(tp, spec: dict) -> dict:
                                                   mode="overlap", ckpt_dir=None))  # fmt: skip
     torch.cuda.empty_cache()
     out["paper"] = paper_mlp.process_rows(tp, spec["paper"])
+    torch.cuda.empty_cache()
+    out["train"] = _tp_train_worker(tp, spec["train"])
+    return out
+
+
+def tp_train_cases() -> dict:
+    """The fused ops of smollm's train step at its train shapes (W ranks,
+    TRAIN_BATCH x TRAIN_SEQ tokens) as the peer route runs them: each
+    forward AG+GEMM with the gathered operand the backward keeps (qkv), and
+    the backward's transposes, dx of qkv and gate|up through GEMM+RS, of the
+    o and down projections through AG+GEMM with its gathered dy; as
+    (kind, x shape, w shape, return_gathered)."""
+    shp = path_shapes(ARCH)
+    W, B, S, d = WORLD, TRAIN_BATCH, TRAIN_SEQ, shp["d"]
+    return {
+        "fwd qkv": ("ag_gemm", (W, B, S // W, d), (W, d, shp["n_qkv"]), True),
+        "bwd qkv": ("gemm_rs", (W, B, S, shp["n_qkv"]), (W, shp["n_qkv"], d), False),
+        "bwd gate_up": ("gemm_rs", (W, B, S, shp["n_gu"]), (W, shp["n_gu"], d), False),
+        "bwd o_proj": ("ag_gemm", (W, B, S // W, d), (W, d, shp["n_o"]), True),
+        "bwd down": ("ag_gemm", (W, B, S // W, d), (W, d, shp["f_loc"]), True),
+    }
+
+
+# the backward's fused ops timed across the cards: smollm's train shapes and Fig. 11's three dense models at 1 x 4096
+TP_TIME_ARCHS = ((ARCH, TRAIN_BATCH, TRAIN_SEQ), ("qwen2-72b", 1, 4096), ("starcoder2-7b", 1, 4096), (ARCH_G, 1, 4096))
+
+
+def tp_time_cases() -> dict:
+    """The backward transposes of the train step per model of TP_TIME_ARCHS,
+    (arch, tag) -> (kind, x shape, w shape): dx of qkv and gate|up through
+    GEMM+RS (dy times each rank's w^T), dx of the o and down projections
+    through AG+GEMM with the gathered dy the weight gradient reads."""
+    out = {}
+    for arch, b, seq in TP_TIME_ARCHS:
+        shp = path_shapes(arch)
+        W, d = WORLD, shp["d"]
+        out[(arch, "bwd qkv")] = ("gemm_rs", (W, b, seq, shp["n_qkv"]), (W, shp["n_qkv"], d))
+        out[(arch, "bwd gate_up")] = ("gemm_rs", (W, b, seq, shp["n_gu"]), (W, shp["n_gu"], d))
+        out[(arch, "bwd o_proj")] = ("ag_gemm", (W, b, seq // W, d), (W, d, shp["n_o"]))
+        out[(arch, "bwd down")] = ("ag_gemm", (W, b, seq // W, d), (W, d, shp["f_loc"]))
+    return out
+
+
+def _tp_kernel_times(tp) -> dict:
+    """This card's times of :func:`tp_time_cases` in bf16 (CUDA events, median
+    of ITERS): the fused op on the peer route (an AG+GEMM also with
+    ``return_gathered``, as the backward calls it: the difference is the
+    gathered operand's copy out of the pool) and the same function as
+    cuBLAS + NCCL (``core/overlap``'s baselines over the World's
+    collectives), the fused output held within TOL of it; the bound of this
+    card's share."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks.common import bound_ms, event_ms, fp32_reductions
+    from repro_torch.core import overlap as ov
+
+    dev, lo, hi = tp.device, tp.rank0, tp.rank0 + tp.held
+    bf16, out = torch.bfloat16, {}
+    with torch.no_grad(), fp32_reductions():
+        for key, (kind, xs, ws) in tp_time_cases().items():
+            g = torch.Generator(device=dev).manual_seed(0)
+            x = torch.randn(xs, generator=g, device=dev).to(bf16)[lo:hi].contiguous()
+            w = (torch.randn(ws, generator=g, device=dev) * (ws[0] * ws[1]) ** -0.5).to(bf16)[lo:hi].contiguous()
+            fn = getattr(K, kind)
+            base = ov.ag_matmul_baseline if kind == "ag_gemm" else ov.matmul_rs_baseline
+            fused, ref = fn(x, w, world=tp), base(x, w, world=tp)
+            err = (fused.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            rec = {"ms": event_ms(lambda: fn(x, w, world=tp), ITERS)[0],
+                   "nccl_ms": event_ms(lambda: base(x, w, world=tp), ITERS)[0], "max_abs_err": err,
+                   "max_abs_ref": scale, "pool": fn.last_launch["pool"]}  # fmt: skip
+            if kind == "ag_gemm":
+                rec["gathered_ms"] = event_ms(lambda: fn(x, w, world=tp, return_gathered=True), ITERS)[0]
+                rows = xs[1] * xs[2] * WORLD  # every rank's rows, gathered on each held rank
+                flops, nbytes = 2 * tp.held * rows * xs[3] * ws[2], 2 * (rows * xs[3] + w.numel() + fused.numel())
+            else:
+                flops, nbytes = 2 * x.numel() * ws[2], 2 * (x.numel() + w.numel() + fused.numel())
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, bf16)
+            out[key] = rec
+            del x, w, fused, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def _hold_tp_kernel_times(got: list, procs: int, fail: list) -> dict:
+    """Each case's times from its slowest card, the fused output's error
+    against cuBLAS + NCCL held within TOL of max."""
+    out = {}
+    for key in got[0]["train"]["times"]:
+        recs = [g["train"]["times"][key] for g in got]
+        row = {k: max(r[k] for r in recs) for k in ("ms", "nccl_ms", "max_abs_err", "max_abs_ref")}
+        row.update(bound_ms=recs[0]["bound_ms"], bound_by=recs[0]["bound_by"], pools=[r["pool"] for r in recs])
+        if "gathered_ms" in recs[0]:
+            row["gathered_ms"] = max(r["gathered_ms"] for r in recs)
+        kind, xs, ws = tp_time_cases()[key]
+        gath = f", with return_gathered {row['gathered_ms']:.4f}" if "gathered_ms" in row else ""
+        print(f"[tp_gpus] peer route {kind}[{key[0]} {key[1]}] x{list(xs)} w{list(ws)} bf16 over {procs} cards "
+              f"(the slowest card): {row['ms']:.4f} ms{gath}, cuBLAS + NCCL {row['nccl_ms']:.4f} ms, a card's bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max|err| {row['max_abs_err']:.3e} (bound "
+              f"{TOL['bfloat16']:g} x {row['max_abs_ref']:.3e})")  # fmt: skip
+        if not row["max_abs_err"] <= TOL["bfloat16"] * row["max_abs_ref"] or set(row["pools"]) != {"procs"}:
+            fail.append(f"peer route {kind} {key}: err {row['max_abs_err']} vs {row['max_abs_ref']}, {row['pools']}")
+        out[f"{kind} {key[0]} {key[1]}"] = dict(row, x=list(xs), w=list(ws))
+    return out
+
+
+def _tp_train_calls(fn, xw: list, gathered: bool, world=None, lo: int = 0, hi=None, split: bool = False) -> dict:
+    """Two calls of a fused wrapper on one pool (``world``'s over processes,
+    the ``split`` pool on one card, else the one-allocation route), each on
+    its own operands (the ranks ``lo:hi`` of each pair): both outputs (and
+    gathered operands) on the CPU, and whether call 1's gathered operand was
+    still what it was after call 2 overwrote the pool's slots."""
+    import torch
+
+    kw = {"world": world} if world is not None else {}
+    if split:
+        kw["split"] = True
+    if gathered:
+        kw["return_gathered"] = True
+    res, kept = [], None
+    for i, (x, w) in enumerate(xw):
+        r = fn(x[lo:hi].contiguous(), w[lo:hi].contiguous(), **kw)
+        res.append(r if gathered else (r, None))
+        if i == 0 and gathered:
+            kept = r[1].clone()
+    outs = [(o.cpu(), None if g is None else g.cpu()) for o, g in res]
+    return {"outs": outs, "survived": None if kept is None else torch.equal(res[0][1], kept),
+            "pool": fn.last_launch["pool"]}  # fmt: skip
+
+
+def _tp_train_worker(tp, spec: dict) -> dict:
+    """The training part of a tp_gpus process: (a) the fused ops at
+    smollm's train shapes on the peer route (:func:`tp_train_cases`, two
+    calls a pool, both dtypes); (b) the float32 step's loss and gradients
+    at TP_TRAIN_F32_LAYERS (``training.steps.tp_procs_grads``: the kv sync,
+    the masks, the norms summed over the processes); (c) TRAIN_STEPS bf16
+    steps of smollm-360m at full depth through ``launch/train.train_tp``
+    and a checkpoint resumed.  (d), Fig. 11's dense rows, runs in a spawn
+    of its own (:func:`_hold_tp_e2e`)."""
+    import shutil
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import peer
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.steps import tp_procs_grads
+
+    dev, lo, hi = tp.device, tp.rank0, tp.rank0 + tp.held
+    out = {"fused": {}}
+
+    # (a)
+    for name, (kind, xs, ws, gathered) in tp_train_cases().items():
+        for dn in ("float32", "bfloat16"):
+            xw = [_peer_operands(xs, ws, getattr(torch, dn), dev, seed) for seed in (0, 1)]
+            out["fused"][(name, dn)] = _tp_train_calls(getattr(K, kind), xw, gathered, tp, lo, hi)
+            del xw
+    out["times"] = _tp_kernel_times(tp)
+    # (b)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_TRAIN_F32_LAYERS)
+    pc = ParallelContext(world=tp)
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    K.reset_launch_counts()
+    loss, _, _, grads, gnorm = tp_procs_grads(lm, cfg, pc, params, batch, grad_masks=lm.grad_masks(cfg, pc))
+    torch.cuda.synchronize(dev)
+    out["f32"] = {"loss": loss.cpu(), "gnorm": gnorm.cpu(), "grads": [g.cpu() for g in _leaves(grads)],
+                  "roles": _leaves(lm.proc_roles(grads, cfg)), "launches": K.launch_counts()}  # fmt: skip
+    del params, grads
+    torch.cuda.empty_cache()
+    # (c), its own receive pools alone on the card (the cases above made theirs at other shapes)
+    peer.release(tp.procs.barrier)
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduce=False, layers=None, mode="overlap",
+              remat="none", ckpt_dir=None, ckpt_every=0, lr=3e-4, dtype="bf16", world=TP_WORLD, log_every=10,
+              resume=False, time_data=False)  # fmt: skip
+    out["bf16"] = train_cli.train_tp(tp, ARCH, kw)
+    out["bf16"]["pool_bytes"] = peer.pool_bytes(dev)  # the train step's receive pools on this card
+    torch.cuda.empty_cache()
+    d = spec["ckpt_dir"]
+    ck = dict(kw, layers=TRAIN_CKPT_LAYERS, steps=TRAIN_CKPT_AT + 1, ckpt_dir=d, ckpt_every=TRAIN_CKPT_AT,
+              log_every=100, resume=True)  # fmt: skip
+    ref = train_cli.train_tp(tp, ARCH, ck)
+    tp.procs.barrier()
+    if tp.procs.rank == 0:  # the uninterrupted run's final checkpoint; the resume takes step TRAIN_CKPT_AT
+        shutil.rmtree(Path(d) / f"step_{TRAIN_CKPT_AT + 1:08d}")
+    tp.procs.barrier()
+    resumed = train_cli.train_tp(tp, ARCH, dict(ck, ckpt_every=0))
+    out["resume"] = {"ref": ref["history"], "resumed": resumed["history"]}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree) -> list:
+    from repro_torch.training.optimizer import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _tp_train_refs(dev) -> dict:
+    """The emulated W on card 0 for the tp_gpus training checks: (a) each
+    case's two calls on the one-allocation route; (b) the float32 step's loss
+    and gradients, fused (the kv sync and the masks applied) and eager."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.backend.mesh import World
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import apply_masks, global_norm
+    from repro_torch.training.steps import loss_and_grads
+
+    refs = {"fused": {}}
+    for name, (kind, xs, ws, gathered) in tp_train_cases().items():
+        for dn in ("float32", "bfloat16"):
+            xw = [_peer_operands(xs, ws, getattr(torch, dn), dev, seed) for seed in (0, 1)]
+            refs["fused"][(name, dn)] = _tp_train_calls(getattr(K, kind), xw, gathered)
+            del xw
+    one = World(TP_WORLD, dev)
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TP_TRAIN_F32_LAYERS)
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    for backend in ("fused", "eager"):
+        pc = ParallelContext(world=one, backend=backend)
+        loss, _, _, grads = loss_and_grads(lm, cfg, pc, params, batch)
+        grads = apply_masks(lm.sync_grads(grads, cfg, pc), lm.grad_masks(cfg, pc))
+        refs[f"f32 {backend}"] = {"loss": loss.cpu(), "gnorm": global_norm(grads).cpu(),
+                                  "grads": [g.cpu() for g in _leaves(grads)]}  # fmt: skip
+        del grads
+    del params
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _hold_tp_train(got: list, refs: dict, procs: int, fail: list) -> dict:
+    """The tp_gpus training holds (:func:`_tp_train_worker`), each failure
+    appended to ``fail`` (the phase raises after printing every one)."""
+    import torch
+
+    from repro_torch.benchmarks import paper_e2e
+    from repro_torch.configs import get_config
+
+    held = TP_WORLD // procs
+    out = {}
+    # (a) the fused ops' backward on the peer route
+    n, bad = 0, []
+    for key, want in refs["fused"].items():
+        for p, g in enumerate(got):
+            r = g["train"]["fused"][key]
+            for call, ((o, gg), (wo, wg)) in enumerate(zip(r["outs"], want["outs"])):
+                n += 1
+                same = torch.equal(o, wo[p * held : (p + 1) * held])
+                if gg is not None:
+                    same = same and torch.equal(gg, wg[p * held : (p + 1) * held])
+                if not same:
+                    bad.append((key, p, call))
+            if r["pool"] != "procs" or r["survived"] is False:
+                bad.append((key, p, r["pool"], r["survived"]))
+    print(f"[tp_gpus] train shapes (smollm {TRAIN_BATCH} x {TRAIN_SEQ}): {n} (case, dtype, process, call) outputs of "
+          f"the forward AG+GEMM and the backward's GEMM+RS / AG+GEMM, with the gathered operands, bitwise the "
+          f"emulated W = {TP_WORLD} on card 0: {n - len(bad)} of {n}; two calls a pool, call 1's gathered operand "
+          f"unchanged after call 2 on every AG+GEMM case")  # fmt: skip
+    if bad:
+        fail.append(f"train-shape fused ops differ from the emulated run: {bad[:6]}")
+    out["fused_bitwise"] = [n - len(bad), n]
+    out["times"] = _hold_tp_kernel_times(got, procs, fail)
+    # (b) the float32 step against the emulated step (fused) and the eager step
+    f32 = [g["train"]["f32"] for g in got]
+    emu, eag = refs["f32 fused"], refs["f32 eager"]
+    roles = f32[0]["roles"]
+    losses = [float(r["loss"]) for r in f32]
+    loss_bitwise = all(torch.equal(r["loss"], emu["loss"]) for r in f32)
+    worst_emu = worst_eag = 0.0
+    bitwise_leaves, grad_bad = {}, []
+    for p, r in enumerate(f32):
+        for i, (g, role) in enumerate(zip(r["grads"], roles)):
+            e, q = emu["grads"][i], eag["grads"][i]
+            if role == "held":
+                e, q = e[p * held : (p + 1) * held], q[p * held : (p + 1) * held]
+            rel_e = (g - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+            rel_q = (g - q).abs().max().item() / max(q.abs().max().item(), 1e-30)
+            worst_emu, worst_eag = max(worst_emu, rel_e), max(worst_eag, rel_q)
+            bitwise_leaves.setdefault(role, []).append(bool(torch.equal(g, e)))
+            if not (torch.isfinite(g).all() and rel_e <= TP_GRAD_RTOL and rel_q <= GRAD_RTOL):
+                grad_bad.append((p, i, role, rel_e, rel_q))
+    same_rep = all(torch.equal(a, b) for r in f32[1:] for a, b, role in zip(r["grads"], f32[0]["grads"], roles)
+                   if role != "held")  # fmt: skip
+    bit = {role: f"{sum(v)} of {len(v)}" for role, v in bitwise_leaves.items()}
+    print(f"[tp_gpus] f32 step over {procs} cards ({TP_TRAIN_F32_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ}): loss "
+          f"by process {losses}, emulated {float(emu['loss'])!r} (bitwise: {loss_bitwise}), eager "
+          f"{float(eag['loss'])!r}; gradients vs the emulated step worst max|diff| / max|leaf| {worst_emu:.3e} "
+          f"(bound {TP_GRAD_RTOL:g}), vs eager {worst_eag:.3e} (bound {GRAD_RTOL:g}); leaves bitwise the emulated "
+          f"step's by role (process x leaf) {bit}; the replicated leaves equal on every process: {same_rep}; grad "
+          f"norm {float(f32[0]['gnorm']):.6f} / emulated {float(emu['gnorm']):.6f}; launches of the step per process "
+          f"{f32[0]['launches']}")  # fmt: skip
+    if not loss_bitwise or grad_bad or not same_rep:
+        fail.append(f"f32 step: loss bitwise {loss_bitwise}, gradients {grad_bad[:6]}, replicated equal {same_rep}")
+    out["f32"] = {"losses": losses, "loss_bitwise": loss_bitwise, "grad_rel_err_emulated": worst_emu,
+                  "grad_rel_err_eager": worst_eag, "bitwise_leaves": bit, "replicated_equal": same_rep}  # fmt: skip
+    # (c) bf16 at full depth: launches, the ce's fall, ms, tokens/s, peak per card; the resume
+    cfg = get_config(ARCH)
+    expect = paper_e2e.expected_launches(cfg, "overlap")
+    runs = [g["train"]["bf16"] for g in got]
+    hist = runs[0]["history"]
+    steps_bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    totals_bad = [p for p, r in enumerate(runs) if r["launches"] != {k: v * TRAIN_STEPS for k, v in expect.items()}]
+    ce = [r["ce"] for r in hist]
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    ms = [r["ms"] for r in hist[TRAIN_WARMUP:]]
+    med = _median(ms)
+    peaks = [r["peak_bytes"] for r in runs]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[tp_gpus] bf16 {ARCH} ({cfg.n_layers} layers) W = {TP_WORLD} over {procs} cards, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: launches a process a step {hist[0]['launches']} (expected {expect}; every "
+          f"step of process 0, every process's total), mean ce of the first 5 steps {first:.4f}, of the last 5 "
+          f"{last:.4f} (held: more than 0.2 lower); step {med:.2f} ms (median of steps {TRAIN_WARMUP}-"
+          f"{TRAIN_STEPS - 1}, CUDA events on card 0), {TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.0f} tokens/s, peak "
+          f"memory by card {[round(b / 2**20) for b in peaks]} MiB, of it the receive pools "
+          f"{[round(r['pool_bytes'] / 2**20, 1) for r in runs]} MiB")  # fmt: skip
+    if steps_bad or totals_bad or not last < first - 0.2 or not all(map(math.isfinite, ce)) or max(peaks) >= total:
+        fail.append(f"bf16 train: launches {steps_bad[:3]} / processes {totals_bad}, ce {first} -> {last}, peak {peaks}")
+    out["bf16"] = {"ce": ce, "step_ms": [r["ms"] for r in hist], "median_step_ms": med,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3), "peak_bytes": peaks, "per_step": expect,
+                   "counts": runs[0]["launches"], "pool_bytes": [r["pool_bytes"] for r in runs]}  # fmt: skip
+    res = got[0]["train"]["resume"]
+    a, b = res["ref"][-1], res["resumed"]
+    ok = len(b) == 1 and b[0]["step"] == a["step"] and b[0]["loss"] == a["loss"]
+    print(f"[tp_gpus] checkpoint at step {TRAIN_CKPT_AT} over {procs} cards ({TRAIN_CKPT_LAYERS} layers, bf16; every "
+          f"process's slices gathered, process 0 writes), resumed: step {a['step']} loss {a['loss']!r} "
+          f"uninterrupted, {b[0]['loss']!r} resumed (held bitwise)")  # fmt: skip
+    if not ok:
+        fail.append(f"resume: {a} vs {b}")
+    out["resume"] = {"loss": a["loss"], "resumed_loss": b[0]["loss"]}
+    return out
+
+
+# Fig. 11's dense rows in the tp_gpus phase's (d), smallest first, so a row that fails leaves the smaller ones read
+TP_E2E_ARCHS = (ARCH, "starcoder2-7b", ARCH_G, "qwen2-72b")
+
+
+def _hold_tp_e2e(procs: int, fail: list) -> dict:
+    """(d): Fig. 11's dense rows at ``paper_e2e.DEPTH_PROCS`` over the cards
+    (``paper_e2e.procs_rows``, a spawn of its own, TP_E2E_WARMUP warm-up
+    steps and TP_E2E_PAIRS timed pairs a mode): launches a process a step
+    equal to ``expected_launches``, the first-step losses within the
+    logits' bound, the step losses equal on every process, peak under the
+    card's memory; failures appended to ``fail``."""
+    import torch
+
+    from repro_torch.benchmarks import paper_e2e
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    for row in paper_e2e.procs_rows(procs, TP_E2E_ARCHS, pairs=TP_E2E_PAIRS, warmup=TP_E2E_WARMUP):
+        arch = row["arch"]
+        cfg = paper_e2e.e2e_config(arch, paper_e2e.DEPTH_PROCS[arch])
+        print(f"[tp_gpus] {paper_e2e.describe(row)}; peak by card "
+              f"{[round(b / 2**30, 2) for b in row['peak_bytes_by_card']]} GiB, the receive pools by card "
+              f"{[round(b / 2**20, 1) for b in row['pool_bytes_by_card']]} MiB")  # fmt: skip
+        for mode in paper_e2e.MODES:
+            expect = paper_e2e.expected_launches(cfg, mode)
+            if any(c != expect for steps in row["launches_by_card"] for c in steps[mode]):
+                fail.append(f"Fig. 11 {arch} {mode}: launches {row['launches'][mode][:2]}, expected {expect}")
+        first = row["first_loss"]
+        diff = abs(first["overlap"] - first["baseline"])
+        if not (math.isfinite(first["overlap"]) and diff <= LOGIT_ATOL + LOGIT_RTOL * abs(first["baseline"])):
+            fail.append(f"Fig. 11 {arch}: first-step losses {first}")
+        if max(row["peak_bytes_by_card"]) >= total or not row["step_loss_equal"]:
+            fail.append(f"Fig. 11 {arch}: peak {row['peak_bytes_by_card']}, step losses equal across processes "
+                        f"{row['step_loss_equal']}")  # fmt: skip
+        out[arch] = row
     return out
 
 
@@ -2173,8 +2586,20 @@ def phase_tp_gpus(smi: str) -> dict:
     to the one-process World's; Fig. 8 / Tab. 2 rows over the cards (overlap
     against NCCL non-overlap) and ``nvidia-smi topo -m``.  The greedy tokens
     are held to the one-card run's up to near ties (:func:`_hold_greedy`).
-    On one card it prints that it did not run and nothing else."""
+    Then training across the cards (:func:`_tp_train_worker`, held by
+    :func:`_hold_tp_train`): the fused ops at smollm's train shapes on the
+    peer route, forward and backward with the gathered operands, bitwise the
+    emulated run (two calls a pool, call 1's gathered operand surviving
+    call 2); the float32 step at 2 layers against the emulated step (loss
+    bitwise, each gradient TP_GRAD_RTOL of its leaf's max) and the eager
+    step (GRAD_RTOL); 30 bf16 AdamW steps of smollm-360m at 32 layers
+    (launches a process a step 128 / 128 / 32 / 1, the ce's fall, step ms,
+    tokens/s, peak per card) and a checkpoint resumed bitwise; Fig. 11's
+    dense rows at ``paper_e2e.DEPTH_PROCS`` (launches a process a step,
+    first-step losses within the logits' bound, peak under the card's
+    memory).  On one card it prints that it did not run and nothing else."""
     import subprocess
+    import tempfile
 
     import torch
 
@@ -2235,10 +2660,12 @@ def phase_tp_gpus(smi: str) -> dict:
     del params
     ref_engine = serve.serve("smollm-360m", world=TP_WORLD, dtype="bf16", device=dev, **TP_ENGINE)
     torch.cuda.empty_cache()
+    train_refs = _tp_train_refs(dev)
     # the processes, one a card
-    spec = {"shapes": shapes, "engine": TP_ENGINE, "paper": list(PAPER_MLP)}
     t0 = time.perf_counter()
-    got = serve.run_tp(this._tp_gpus_worker, TP_WORLD, procs, dev, args=(spec,))
+    with tempfile.TemporaryDirectory(prefix="tp-ckpt-") as ckpt_dir:
+        spec = {"shapes": shapes, "engine": TP_ENGINE, "paper": list(PAPER_MLP), "train": {"ckpt_dir": ckpt_dir}}
+        got = serve.run_tp(this._tp_gpus_worker, TP_WORLD, procs, dev, args=(spec,))
     spawn_s = time.perf_counter() - t0
     held = TP_WORLD // procs
     out = {"run": True, "procs": procs, "world": TP_WORLD, "cards": [g["card"] for g in got], "topo": topo,
@@ -2297,6 +2724,13 @@ def phase_tp_gpus(smi: str) -> dict:
         print(f"[tp_gpus] {paper_mlp.describe(r)}")
     out["paper"] = rows
     out["counts"] = {k: sum(g["engine"]["launches"][k] for g in got) for k in ref_launches}
+    # (e)-(h) training across the cards; every hold printed before the phase fails on any
+    fail = []
+    out["train"] = _hold_tp_train(got, train_refs, procs, fail)
+    del got
+    out["train"]["e2e"] = _hold_tp_e2e(procs, fail)
+    if fail:
+        raise SystemExit("chip_smoke: tp_gpus training: " + "; ".join(fail))
     return out
 
 

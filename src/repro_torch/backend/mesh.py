@@ -36,6 +36,18 @@ on whole activations) sums the held ranks locally, then the library's
 reduce-scatter reduces the processes (NCCL on the card, gloo on the CPU:
 one path), in its own order: equal to the one-process World's within
 float rounding, not bitwise.  The counter records what the one-process World records, per rank.
+Over processes every collective is an autograd Function whose backward is
+its adjoint over the same transport, so that autograd gives what it gives
+at P = 1, where the collectives are indexing and sums: a value every
+process computes whole (a ``psum`` or ``unshard`` result, the input of
+``shard``) gets its whole gradient on every process, and a rank-stacked
+value its held ranks' slices.  ``permute``'s adjoint is the inverse
+permute (sums where two destinations read one source), ``all_gather``'s a
+reduce-scatter (each rank used its copy), ``reduce_scatter``'s an
+all-gather, ``psum``'s the replicated gradient on every held rank,
+``unshard``'s this process's slice and ``shard``'s the all-gather of the
+held chunks' gradients.  The adjoints are not counted (the one-process
+World's backward counts nothing either).
 The fused kernels' peer route (``kernels/peer.py``) writes tiles straight
 into the peer cards' buffers; ``dist`` carries only their handles and the
 eager collectives.  With ``P = 1`` (``procs=None``) the world is the
@@ -192,18 +204,20 @@ class World:
         every rank's chunk, ``[W, ...]``, in one process)."""
         if x.shape[dim] % self.size:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {self.size} ranks")
-        chunks = torch.chunk(x, self.size, dim=dim)
-        return torch.stack(self.local(chunks)).contiguous()
+        if self.procs is not None:
+            return _Shard.apply(x, self, dim)
+        return torch.stack(torch.chunk(x, self.size, dim=dim)).contiguous()
 
     def unshard(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Inverse of :meth:`shard`: concatenate the ranks' values along the
         per-rank dimension ``dim`` (over processes: gathered first)."""
         self._check(xs)
-        return torch.cat(list(self._gathered(xs).unbind(0)), dim=dim)
+        return torch.cat(list(self.gather_ranks(xs).unbind(0)), dim=dim)
 
-    def _gathered(self, xs: torch.Tensor) -> torch.Tensor:
-        """Every rank's value, ``[W, ...]`` (the processes' blocks gathered)."""
-        return xs if self.procs is None else self.procs.all_gather(xs.contiguous(), 0)
+    def gather_ranks(self, xs: torch.Tensor) -> torch.Tensor:
+        """Every rank's value, ``[W, ...]`` (the processes' blocks gathered;
+        its gradient, which every process holds whole, sliced back)."""
+        return xs if self.procs is None else _Gather.apply(xs, self)
 
     # ---- collectives -----------------------------------------------------
     def permute(self, xs: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
@@ -223,6 +237,11 @@ class World:
             order[dst] = src
         if self.procs is None:
             return xs[_perm_index(tuple(order), xs.device)]
+        return _Permute.apply(xs, self, tuple(order))
+
+    def _permute_procs(self, xs: torch.Tensor, order: Tuple[int, ...]) -> torch.Tensor:
+        """``out[dst] = xs[order[dst]]`` over the processes: the pairs inside
+        this process index copies, the others one batch of send / recv."""
         lo, hi = self.rank0, self.rank0 + self.held
         out = torch.empty_like(xs, memory_format=torch.contiguous_format)
         sends, recvs = [], []
@@ -236,17 +255,43 @@ class World:
         self.procs.exchange(sends, recvs)
         return out
 
+    def _permute_adjoint(self, g: torch.Tensor, order: Tuple[int, ...]) -> torch.Tensor:
+        """The gradient of :meth:`_permute_procs`: ``gx[src] = sum of g[dst]``
+        over the destinations that read ``src``, added in destination order
+        (the one-process World's index backward)."""
+        lo, hi = self.rank0, self.rank0 + self.held
+        g = g.contiguous()
+        sends, recvs, adds = [], [], []
+        for dst, src in enumerate(order):
+            if lo <= dst < hi and lo <= src < hi:
+                adds.append((src - lo, g[dst - lo]))
+            elif lo <= dst < hi:
+                sends.append((g[dst - lo], src // self.held))
+            elif lo <= src < hi:
+                buf = torch.empty_like(g[0])
+                recvs.append((buf, dst // self.held))
+                adds.append((src - lo, buf))
+        self.procs.exchange(sends, recvs)
+        out = torch.zeros_like(g)
+        for i, part in adds:
+            out[i] += part
+        return out
+
     def psum(self, xs: torch.Tensor) -> torch.Tensor:
         """Sum over the ranks; the replicated result is stored once."""
         self._check(xs)
         if self.counter is not None:
             self.counter.add("psum", _rank_bytes(xs, self.held), self.size)
-        return self._gathered(xs).sum(0)
+        return self.gather_ranks(xs).sum(0)
 
     def all_gather(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's view of the concatenation along per-rank ``dim``
         (a broadcast view of one gathered tensor)."""
-        g = self.unshard(xs, dim)
+        if self.procs is not None:
+            self._check(xs)
+            g = _AllGather.apply(xs, self, dim)
+        else:
+            g = self.unshard(xs, dim)
         if self.counter is not None:
             self.counter.add("all_gather", g.numel() * g.element_size(), self.size)
         return g.unsqueeze(0).expand((self.held,) + tuple(g.shape))
@@ -258,14 +303,101 @@ class World:
             self.counter.add("reduce_scatter", _rank_bytes(xs, self.held) // self.size, self.size)
         if self.procs is None:
             return self.shard(xs.sum(0), dim)
-        # the held ranks' partials summed here, then the library's reduce-scatter over the processes (NCCL on the
-        # card, gloo on the CPU): its own order of the processes' sums, not rank order as in one process
+        return _ReduceScatter.apply(xs, self, dim)
+
+    def _reduce_scatter_procs(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
+        """The held ranks' partials summed here, then the library's
+        reduce-scatter over the processes (NCCL on the card, gloo on the CPU:
+        its own order of the processes' sums, not rank order as in one
+        process): this process's held chunks, ``[held, ...]``."""
         block = self.procs.reduce_scatter(xs.sum(0), dim)  # this process's held chunks, in rank order
         return torch.stack(torch.chunk(block, self.held, dim=dim)).contiguous()
+
+    def _all_gather_procs(self, xs: torch.Tensor, dim: int) -> torch.Tensor:
+        """The held ranks' values ``[held, ...]`` joined along ``dim``, then
+        every process's block gathered along it: the whole value."""
+        block = torch.cat(list(xs.unbind(0)), dim=dim)
+        return self.procs.all_gather(block.contiguous(), dim)
 
     def _check(self, xs: torch.Tensor):
         if xs.shape[0] != self.held:
             raise ValueError(f"expected a rank-stacked [W={self.held}, ...] value, got {tuple(xs.shape)}")
+
+
+class _Gather(torch.autograd.Function):
+    """Every process's block of ranks gathered, ``[W, ...]``; the gradient,
+    whole on every process (what reads the gathered value is computed
+    whole), sliced back to the held ranks."""
+
+    @staticmethod
+    def forward(ctx, xs, world):
+        ctx.world = world
+        return world.procs.all_gather(xs.contiguous(), 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.world
+        return g[w.rank0 : w.rank0 + w.held], None
+
+
+class _AllGather(torch.autograd.Function):
+    """The whole value along per-rank ``dim`` (``World.all_gather`` before
+    its broadcast to the held ranks); each rank reads its own copy, so the
+    gradient is the ranks' sum: the held ranks summed here, then a
+    reduce-scatter over the processes."""
+
+    @staticmethod
+    def forward(ctx, xs, world, dim):
+        ctx.world, ctx.dim = world, dim
+        return world._all_gather_procs(xs, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world._reduce_scatter_procs(g.unsqueeze(0), ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """``World.reduce_scatter`` over processes; its adjoint gathers every
+    rank's chunk of the gradient and gives each held rank the whole."""
+
+    @staticmethod
+    def forward(ctx, xs, world, dim):
+        ctx.world, ctx.dim = world, dim
+        return world._reduce_scatter_procs(xs, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.world
+        whole = w._all_gather_procs(g, ctx.dim)
+        return whole.unsqueeze(0).expand((w.held,) + tuple(whole.shape)), None, None
+
+
+class _Shard(torch.autograd.Function):
+    """The held ranks' chunks of a value every process holds whole; its
+    gradient is every rank's chunk gradient gathered (whole on every
+    process)."""
+
+    @staticmethod
+    def forward(ctx, x, world, dim):
+        ctx.world, ctx.dim = world, dim
+        return torch.stack(world.local(torch.chunk(x, world.size, dim=dim))).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world._all_gather_procs(g, ctx.dim), None, None
+
+
+class _Permute(torch.autograd.Function):
+    """``World.permute`` over processes; its adjoint the inverse permute."""
+
+    @staticmethod
+    def forward(ctx, xs, world, order):
+        ctx.world, ctx.order = world, order
+        return world._permute_procs(xs, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world._permute_adjoint(g, ctx.order), None, None
 
 
 @functools.lru_cache(maxsize=1024)
@@ -433,6 +565,16 @@ class DistWorld:
             compat.reduce_scatter_single(out, xin)
             out = self._out("reduce_scatter", out, x.device)
         return out.movedim(0, dim).contiguous()
+
+    def barrier(self):
+        """Return once every process has reached it, this process's device
+        drained before and after (NCCL's all-reduce returns to the host
+        before it completes); not counted."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.psum(torch.zeros((1,), device=self.device), control=True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]]):
         """One batch of point-to-point transfers: each ``(tensor, peer)`` of

@@ -1,4 +1,4 @@
-"""Paper Fig. 11 on one card: one LM train step, overlapped against not.
+"""Paper Fig. 11 on one card or across cards: one LM train step, overlapped against not.
 
 The port's analog of ``benchmarks/fig11_e2e.py``: per model, one bf16
 AdamW train step (``training.make_train_step`` over ``models/lm.forward``)
@@ -44,9 +44,32 @@ collective is a copy (or a sum over the ranks) inside that card's memory,
 not NVLink traffic, so the overlap can hide at most that copy's time and
 the paper's multi-GPU end-to-end speedups do not carry over.
 
+``--procs P`` (P divides W = 4; P cards visible, else it raises) runs the
+dense rows with the W ranks spread over P processes, one card each
+(``launch/serve.run_tp``, :func:`procs_rows`): "baseline" is then one
+cuBLAS GEMM a rank with NCCL's all-gather / reduce-scatter between the
+cards (the World's collectives over processes, and their adjoints in the
+backward), "overlap" the fused kernels pushing tiles into the peer cards
+over NVLink in both passes (``kernels/peer``), in turns as the one-card
+rows run; every process runs the same steps on its ranks' slices and times
+them on its own card (the rows report process 0's medians, every
+process's peak memory).  Here a collective is real traffic between cards,
+so the overlap can hide it, as in the paper's figure; the cards' count and
+the step are the paper's shape, cut in depth (``DEPTH_PROCS``: each card's
+share within 80 GB by the same 12-byte rule, the embedding, the head and
+the norms counted whole on every card, and besides it the update's float32
+temporaries of the largest leaf, three copies of the whole embedding (15 GB
+at qwen2-72b's, 17 GB at gemma3-27b's), and the 4096-token activations and
+logits: smollm-360m and starcoder2-7b at their full 32 layers (34 GB a
+card), qwen2-72b 6 of 80 (2.49 B parameters of embedding and head, 29.9 GB
+a card, then 0.219 B a layer a card: 45.7 GB), gemma3-27b 12 of 62 (two
+5:1 periods, 31.8 GB)).  The MoE rows are not run across cards (MoE across
+cards is not ported) and print so.
+
 On the card:
 
   PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --json paper_e2e.json
+  PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --procs 4 --json paper_e2e_4gpu.json   # four cards
 """
 
 from __future__ import annotations
@@ -70,13 +93,15 @@ from repro_torch.parallel.context import ParallelContext
 from repro_torch.training import AdamWConfig, init_opt_state, make_eval_step, make_train_step
 from repro_torch.training.optimizer import tree_leaves
 
-__all__ = ["MODELS", "DEPTH", "MODES", "CAVEAT", "e2e_config", "expected_launches", "run_row", "fig11_row", "describe",
-           "main"]  # fmt: skip
+__all__ = ["MODELS", "DEPTH", "DEPTH_PROCS", "MODES", "CAVEAT", "CAVEAT_PROCS", "e2e_config", "expected_launches",
+           "run_row", "fig11_row", "procs_rows", "process_rows", "describe", "main"]  # fmt: skip
 
 MODELS = ["smollm-360m", "qwen2-72b", "starcoder2-7b", "gemma3-27b", "granite-moe-3b-a800m", "deepseek-moe-16b"]
 # layers run of each model at its published width (None: all); see the module docstring
 DEPTH = {"smollm-360m": None, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6, "granite-moe-3b-a800m": None,
          "deepseek-moe-16b": 9}  # fmt: skip
+# layers run of each dense model with the W ranks one a card (module docstring); the MoE rows do not run there
+DEPTH_PROCS = {"smollm-360m": 32, "qwen2-72b": 6, "starcoder2-7b": 32, "gemma3-27b": 12}
 SEQ, BATCH = 4096, 1  # train_4k's sequence; its batch of 256 cut to 1
 WORLD = 4
 WARMUP, PAIRS = 3, 5  # untimed steps of each mode, then timed (baseline, overlap) pairs
@@ -84,6 +109,10 @@ MODES = ("baseline", "overlap")
 CAVEAT = (
     "W ranks emulated on one card: a collective is a copy or a sum inside one card's memory, not NVLink, "
     "so the overlap can hide at most that copy's time; the paper's multi-GPU end-to-end speedups do not carry over"
+)
+CAVEAT_PROCS = (
+    "W ranks spread over P processes, one card each: baseline NCCL collectives and cuBLAS GEMMs, overlap the fused "
+    "kernels pushing tiles over NVLink; depth cut to fit 80 GB a card (DEPTH_PROCS)"
 )
 
 
@@ -186,10 +215,13 @@ def run_row(cfg, world: World, *, dtype=torch.bfloat16, batch: int = BATCH, seq:
                 step_loss[m].append(float(metrics["loss"]))
                 if i >= warmup and t is not None:
                     ms[m].append(t)
-    n_params = sum(t.numel() for t in tree_leaves(lm.trainable(params, cfg)))
+    tree = lm.trainable(params, cfg)
+    roles = tree_leaves(lm.proc_roles(tree, cfg))  # a held leaf is 1 / P of the model's
+    n_params = sum(t.numel() * (world.nprocs if r == "held" else 1) for t, r in zip(tree_leaves(tree), roles))
     row = {
         "arch": cfg.name, "layers": cfg.n_layers, "published_layers": get_config(cfg.name).n_layers,
-        "params": n_params, "tokens": batch * seq, "world": world.size, "dtype": str(dtype).removeprefix("torch."),
+        "params": n_params, "tokens": batch * seq, "world": world.size, "procs": world.nprocs,
+        "dtype": str(dtype).removeprefix("torch."),
         "first_loss": first, "step_loss": step_loss, "launches": launches, "step_ms": ms,
         "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }  # fmt: skip
@@ -208,9 +240,59 @@ def fig11_row(arch: str, **kw) -> dict:
     return run_row(e2e_config(arch), World(WORLD, "cuda"), **kw)
 
 
+def process_rows(tp: World, models, pairs: int = PAIRS, warmup: int = WARMUP) -> list:
+    """One process's rows of :func:`procs_rows` over the TP world ``tp``
+    (every process runs the same rows): each dense model at
+    ``DEPTH_PROCS``, its peer pools released after it (a barrier of the
+    processes first), so one model's pools do not hold the next one's
+    memory; a MoE model's row is None."""
+    from repro_torch.kernels import peer
+
+    rows = []
+    for arch in models:
+        if arch not in DEPTH_PROCS:
+            rows.append(None)
+            continue
+        rows.append(run_row(e2e_config(arch, DEPTH_PROCS[arch]), tp, warmup=warmup, pairs=pairs))
+        rows[-1]["pool_bytes"] = peer.pool_bytes(tp.device)  # the row's receive pools on this card
+        if tp.procs.rank == 0:
+            print(f"[fig11] process 0: {describe(rows[-1])}", flush=True)
+        peer.release(tp.procs.barrier)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def procs_rows(procs: int, models=MODELS, pairs: int = PAIRS, warmup: int = WARMUP) -> list:
+    """Fig. 11's rows with the ``WORLD`` ranks over ``procs`` processes, one
+    card each (module docstring): process 0's row of each dense model with
+    ``peak_bytes_by_card`` (every process's peak), ``median_ms_by_card``,
+    ``pool_bytes_by_card`` (the receive pools at the row's end) and
+    ``launches_by_card``;
+    a MoE model's row {"arch", "skipped"}."""
+    from repro_torch.launch.serve import run_tp
+
+    got = run_tp(process_rows, WORLD, procs, "cuda", args=(list(models), pairs, warmup))
+    rows = []
+    for i, arch in enumerate(models):
+        if got[0][i] is None:
+            rows.append({"arch": arch, "skipped": "MoE across cards is not ported (ROADMAP queue 1 item 1 (d))"})
+            continue
+        row = dict(got[0][i])
+        row["peak_bytes_by_card"] = [g[i]["peak_bytes"] for g in got]
+        row["median_ms_by_card"] = [g[i]["median_ms"] for g in got]
+        row["pool_bytes_by_card"] = [g[i]["pool_bytes"] for g in got]
+        row["launches_by_card"] = [g[i]["launches"] for g in got]
+        row["step_loss_equal"] = all(g[i]["step_loss"] == row["step_loss"] for g in got)
+        rows.append(row)
+    return rows
+
+
 def describe(row: dict) -> str:
+    if "skipped" in row:
+        return f"Fig. 11 {row['arch']}: not run across cards: {row['skipped']}"
+    where = f"W = {row['world']}" + (f" over {row['procs']} cards" if row.get("procs", 1) > 1 else " on one card")
     head = (f"Fig. 11 {row['arch']} ({row['layers']} of {row['published_layers']} layers, "
-            f"{row['params'] / 1e9:.3f} B parameters, W = {row['world']}, {row['dtype']}, {row['tokens']} tokens "
+            f"{row['params'] / 1e9:.3f} B parameters, {where}, {row['dtype']}, {row['tokens']} tokens "
             f"a step): first-step loss baseline {row['first_loss']['baseline']:.6f} overlap "
             f"{row['first_loss']['overlap']:.6f}")  # fmt: skip
     if row.get("median_ms") is None:
@@ -218,21 +300,28 @@ def describe(row: dict) -> str:
     med, tps = row["median_ms"], row["tokens_per_s"]
     return (f"{head}; step ms baseline {med['baseline']:.2f} overlap {med['overlap']:.2f} (medians of "
             f"{len(row['step_ms']['overlap'])} pairs), speedup {row['speedup']:.3f}x, tokens/s baseline "
-            f"{tps['baseline']:.0f} overlap {tps['overlap']:.0f}, peak memory {row['peak_bytes'] / 2**30:.2f} GiB")  # fmt: skip
+            f"{tps['baseline']:.0f} overlap {tps['overlap']:.0f}, peak memory {row['peak_bytes'] / 2**30:.2f} GiB"
+            + (f" (receive pools {row['pool_bytes'] / 2**20:.1f} MiB)" if "pool_bytes" in row else ""))  # fmt: skip
 
 
 def main(argv=None) -> list:
-    ap = argparse.ArgumentParser(description="paper Fig. 11: one train step, overlap vs baseline, on one card")
+    ap = argparse.ArgumentParser(description="paper Fig. 11: one train step, overlap vs baseline, on one card or "
+                                 "across --procs cards")  # fmt: skip
     ap.add_argument("--models", nargs="+", default=MODELS, help=f"of {MODELS}")
     ap.add_argument("--pairs", type=int, default=PAIRS)
+    ap.add_argument("--procs", type=int, default=1, help="processes the W = 4 ranks spread over, one card each")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("paper_e2e: no CUDA device; the figure is a measurement on the card")
     card = card_line()
-    print(f"[fig11] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; {CAVEAT}")
+    print(f"[fig11] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; {CAVEAT if args.procs == 1 else CAVEAT_PROCS}")
     rows = []
-    for arch in args.models:
+    if args.procs > 1:
+        rows = procs_rows(args.procs, args.models, args.pairs)
+        for row in rows:
+            print(f"[fig11] {describe(row)}")
+    for arch in args.models if args.procs == 1 else ():
         rows.append(fig11_row(arch, pairs=args.pairs))
         print(f"[fig11] {describe(rows[-1])}")
     if args.json:

@@ -17,6 +17,14 @@ its two halves (``PACKED``); a world whose padded shapes differ from the
 saved ones is refused (ValueError).  numpy
 has no bfloat16: a bf16 leaf is stored bitwise as its int16 view, with its
 dtype in the manifest.
+
+A TP world over processes (``world.nprocs > 1``): :meth:`CheckpointManager.save`
+is called by every process, which gathers each layer's held slices over
+them (``convert.gather_held``) into the one-process tree; process 0
+writes it, and the others return.  :meth:`CheckpointManager.restore`
+reads the global arrays on every process into a one-process tree
+(``convert.held_like``) and keeps this process's slices, so a checkpoint
+saved at any P restores at any P.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import shard_params, unshard_params
+from repro_torch.backend.mesh import World
+from repro_torch.convert import gather_held, held_like, shard_params, unshard_params
 from repro_torch.training.optimizer import tree_leaves, tree_unflatten
 
 __all__ = ["CheckpointManager"]
@@ -98,11 +107,14 @@ def _repack(glob: dict, world) -> dict:
     return _walk(glob, join)
 
 
-def _logical(tree: dict, cfg, world) -> dict:
-    """{"params", "opt": {"mu", "nu", "step"}} rank-stacked -> logical."""
+def _logical(tree: dict, cfg, world, held=gather_held) -> dict:
+    """{"params", "opt": {"mu", "nu", "step"}} rank-stacked -> logical.  A
+    world over processes first takes ``held`` of each tree (its slices
+    gathered, or a target shaped like them) onto the one-process world."""
+    one = world if world.nprocs == 1 else World(world.size, world.device)
 
     def glob(t):
-        return _unpack(unshard_params(t, cfg, world), world)
+        return _unpack(unshard_params(held(t, cfg, world), cfg, one), one)
 
     opt = tree["opt"]
     return {"params": glob(tree["params"]), "opt": {"mu": glob(opt["mu"]), "nu": glob(opt["nu"]), "step": opt["step"]}}
@@ -131,10 +143,13 @@ class CheckpointManager:
     # ---- save -----------------------------------------------------------------
     def save(self, step: int, params, opt_state, extra: Optional[Dict[str, Any]] = None, *, cfg=None, world=None):
         """Snapshot (device -> host copy now; the I/O async).  With ``cfg``
-        and ``world`` the arrays are saved logically (module docstring)."""
+        and ``world`` the arrays are saved logically (module docstring);
+        over processes every process calls it and process 0 writes."""
         tree = {"params": params, "opt": opt_state}
         if cfg is not None:
             tree = _logical(tree, cfg, world)
+            if world.nprocs > 1 and world.procs.rank != 0:
+                return
         leaves = tree_leaves(tree)
         host = [_to_host(t) for t in leaves]  # sync: consistent snapshot
         meta = {"step": int(step), "extra": extra or {}, "dtypes": [str(t.dtype) for t in leaves],
@@ -194,7 +209,7 @@ class CheckpointManager:
             meta = json.load(f)
         if meta.get("logical", False) != (cfg is not None):
             raise ValueError("restore: pass cfg and world exactly when the checkpoint was saved with them")
-        target = _logical(like, cfg, world) if cfg is not None else like
+        target = _logical(like, cfg, world, held=held_like) if cfg is not None else like
         flat_like = tree_leaves(target)
         with np.load(os.path.join(path, "arrays.npz")) as data:
             if len(data.files) != len(flat_like):

@@ -61,7 +61,10 @@ global (the layout ``shard_params`` takes, the JAX package's with the
 layers as a list).  It takes any tree of the parameters' structure
 (optimizer moments too; a tree without ``head`` gives no ``lm_head``, and
 a tied head is never stored: it is the embedding), so a checkpoint holds
-logical arrays and restores onto another world size.
+logical arrays and restores onto another world size.  Over processes
+:func:`gather_held` first joins every process's held slices into the
+one-process tree (and :func:`held_like` shapes the target a restore
+fills), so a checkpoint saved at any P restores at any P.
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ from repro_torch.core.quant import PackedWeight
 
 __all__ = [
     "from_jax_params", "shard_params", "unshard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp",
-    "shard_mamba", "shard_cross", "shard_packed", "tied_head", "F32_LEAVES", "IN_ALIGN",
+    "shard_mamba", "shard_cross", "shard_packed", "tied_head", "check_dense", "gather_held", "held_like",
+    "F32_LEAVES", "IN_ALIGN", "HELD_LEAVES",
 ]  # fmt: skip
 
 # leaves kept in float32 whatever dtype the model takes (as the JAX init makes them)
@@ -191,22 +195,56 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     return out
 
 
-def _held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
-    """The rank-stacked tree of every rank -> this process's: each layer's
-    ``HELD_LEAVES`` sliced to ``world.ranks``."""
+def check_dense(cfg, world: World, what: Optional[str] = None):
+    """Raise ``NotImplementedError`` for ``what`` (default the config's name)
+    unless every layer of ``cfg`` is attention with a dense MLP: the only
+    layers ported over a TP world of processes."""
     from repro_torch.models.lm import layer_plan
 
     dense = {(k, "mlp", False) for k in ("attn", "attn_local", "attn_dense")}
     kinds = {(d.kind, d.ffn_kind, d.shared) for d in layer_plan(cfg)} if not cfg.encoder_layers else {"encdec"}
     if kinds - dense:
         raise NotImplementedError(
-            f"{cfg.name}: layers {sorted(map(str, kinds))} over a TP world of {world.nprocs} processes are not ported "
-            "(only attention with a dense MLP is); ROADMAP queue 1 item 1 (d)"
+            f"{what or cfg.name}: layers {sorted(map(str, kinds))} over a TP world of {world.nprocs} processes are "
+            "not ported (only attention with a dense MLP is); ROADMAP queue 1 item 1 (d)"
         )
-    lo, hi = world.rank0, world.rank0 + world.held
-    layers = [{part: {k: (v[lo:hi].contiguous() if k in HELD_LEAVES[part] else v) for k, v in sub.items()}
+
+
+def _map_held(params: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``params`` with ``fn`` applied to each layer's ``HELD_LEAVES``."""
+    layers = [{part: {k: (fn(v) if k in HELD_LEAVES[part] else v) for k, v in sub.items()}
                for part, sub in layer.items()} for layer in params["layers"]]  # fmt: skip
     return {**params, "layers": layers}
+
+
+def _held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """The rank-stacked tree of every rank -> this process's: each layer's
+    ``HELD_LEAVES`` sliced to ``world.ranks``."""
+    check_dense(cfg, world)
+    lo, hi = world.rank0, world.rank0 + world.held
+    return _map_held(params, lambda v: v[lo:hi].contiguous())
+
+
+def gather_held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """Inverse of the held slicing (:func:`shard_params` over processes): a
+    tree of this process's shape (parameters, gradients or moments) -> the
+    rank-stacked tree of every rank, each layer's ``HELD_LEAVES`` gathered
+    over the world's processes (one all-gather a leaf; every process must
+    call it); the identity on a one-process world.  A checkpoint's: its
+    result unshards with a one-process ``World(world.size)``."""
+    if world.nprocs == 1:
+        return params
+    check_dense(cfg, world)
+    return _map_held(params, world.gather_ranks)
+
+
+def held_like(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
+    """What :func:`gather_held` returns, shaped but not filled (each held
+    leaf an empty ``[W, ...]`` tensor; no traffic): the target a checkpoint
+    restores the global arrays into before slicing them back."""
+    if world.nprocs == 1:
+        return params
+    return _map_held(params, lambda v: v.new_empty((world.size,) + tuple(v.shape[1:])))
 
 
 def shard_attention(mixer: Dict[str, Any], world: World) -> Dict[str, Any]:

@@ -568,7 +568,9 @@ def _weight_grad(a, b):
 class _AgMatmul(torch.autograd.Function):
     """AG+GEMM under autograd.  dx is the transpose's collective, a GEMM+RS
     (the fused kernel: rank r's rows of sum_q dy[q] w[q]^T); dw = AG(x)^T dy
-    from the rows the forward launch gathered (no second all-gather)."""
+    from the rows the forward launch gathered (no second all-gather).  A
+    world over processes (``kw["world"]``) runs both passes on the peer
+    route over the same world."""
 
     @staticmethod
     def forward(ctx, x, w, channel, kw):
@@ -576,7 +578,7 @@ class _AgMatmul(torch.autograd.Function):
 
         out, gathered = ag_gemm(x, w, channel=channel, return_gathered=True, **kw)
         ctx.save_for_backward(gathered, w)
-        ctx.channel = channel
+        ctx.channel, ctx.world = channel, kw.get("world")
         return out
 
     @staticmethod
@@ -585,7 +587,7 @@ class _AgMatmul(torch.autograd.Function):
 
         gathered, w = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = gemm_rs(dy, _transposed(w), channel=ctx.channel) if ctx.needs_input_grad[0] else None
+        dx = gemm_rs(dy, _transposed(w), channel=ctx.channel, world=ctx.world) if ctx.needs_input_grad[0] else None
         dw = _weight_grad(gathered, dy) if ctx.needs_input_grad[1] else None
         return dx, dw, None, None
 
@@ -593,14 +595,15 @@ class _AgMatmul(torch.autograd.Function):
 class _MatmulRs(torch.autograd.Function):
     """GEMM+RS under autograd.  dx is the transpose's collective, an AG+GEMM
     (the fused kernel: every rank's dy gathered, times w[r]^T); dw = x^T
-    AG(dy) from the rows that launch gathered."""
+    AG(dy) from the rows that launch gathered.  A world over processes
+    runs both passes on the peer route, as :class:`_AgMatmul`."""
 
     @staticmethod
     def forward(ctx, x, w, channel, kw):
         from repro_torch.kernels import gemm_rs
 
         ctx.save_for_backward(x, w)
-        ctx.channel = channel
+        ctx.channel, ctx.world = channel, kw.get("world")
         return gemm_rs(x, w, channel=channel, **kw)
 
     @staticmethod
@@ -608,7 +611,8 @@ class _MatmulRs(torch.autograd.Function):
         from repro_torch.kernels import ag_gemm
 
         x, w = ctx.saved_tensors
-        dx, gathered = ag_gemm(dy.contiguous(), _transposed(w), channel=ctx.channel, return_gathered=True)
+        dx, gathered = ag_gemm(dy.contiguous(), _transposed(w), channel=ctx.channel, return_gathered=True,
+                               world=ctx.world)  # fmt: skip
         dw = _weight_grad(x, gathered) if ctx.needs_input_grad[1] else None
         return (dx if ctx.needs_input_grad[0] else None), dw, None, None
 

@@ -49,12 +49,19 @@ region of a pool (``kernels/peer``): made for the call on one card, kept
 for the process and counted in epochs instead of zeroed on the peer route
 (``csrc/tile_sync.cuh``); ``ag_gemm.last_launch`` names the pool's form.
 
-``return_gathered=True`` (both versions; the one-allocation route only)
-also returns each rank's gathered operand, ``[W, *lead, W*m_loc, K]`` in
-rank-major row order, read from the gather slots the launch filled (the
-float32 route reads a rank's own rows in place, so those come from x):
-the backward of AG+GEMM takes its weight
-gradient from it without a second all-gather.
+``return_gathered=True`` (both versions, every route) also returns each
+held rank's gathered operand, ``[held, *lead, W*m_loc, K]`` in rank-major
+row order, read from the gather slots the launch filled (the float32 route
+reads a rank's own rows in place, so those come from x): the backward of
+AG+GEMM takes its weight gradient from it without a second all-gather.
+The one-allocation route's slots are made for the call, so it is a view of
+them.  A pool's slots are kept for the process, and the next launch of the
+shape overwrites them (from this card and from the peers), so on the peer
+route the held ranks' slots are copied out after the launch, on its stream
+(``kernels/peer.Pool.copy_slots``, one device copy of ``held x W x m_loc x
+K`` elements): a peer pushes into them again only after this card's next
+launch of the shape has set its entry word, which is stream-ordered after
+the copy.
 """
 
 from __future__ import annotations
@@ -224,13 +231,13 @@ def launch_items(x: torch.Tensor, w: torch.Tensor, channel: Optional[BlockChanne
 
 
 def _gathered(gbuf: torch.Tensor, world: int, nch: int, lead, m_sub: int) -> torch.Tensor:
-    """The gather slots [W, W*C, B*m_sub, K] (slot ``origin*C + c``, row
-    ``b*m_sub + j``) as each rank's gathered rows [W, *lead, W*m_loc, K]
-    (row ``origin*m_loc + c*m_sub + j``)."""
-    k = gbuf.shape[-1]
+    """The gather slots [held, W*C, B*m_sub, K] (slot ``origin*C + c``, row
+    ``b*m_sub + j``) as each held rank's gathered rows [held, *lead,
+    W*m_loc, K] (row ``origin*m_loc + c*m_sub + j``)."""
+    held, k = gbuf.shape[0], gbuf.shape[-1]
     b = math.prod(lead)
-    g = gbuf.view(world, world, nch, b, m_sub, k).permute(0, 3, 1, 2, 4, 5)
-    return g.reshape((world,) + tuple(lead) + (world * nch * m_sub, k))
+    g = gbuf.view(held, world, nch, b, m_sub, k).permute(0, 3, 1, 2, 4, 5)
+    return g.reshape((held,) + tuple(lead) + (world * nch * m_sub, k))
 
 
 @functools.lru_cache(maxsize=512)
@@ -240,14 +247,6 @@ def layout(plan: TilePlan, route: str, b: int, m_sub: int, k: int, dtype: torch.
     world, nch = plan.world, plan.num_channels
     per = -(-b * m_sub // TILE[0]) if route == "wgmma" else 1
     return peer.Layout((world * nch, b * m_sub, k), dtype, world * nch * per, world)
-
-
-def _refuse_peer_gathered(return_gathered: bool, procs: bool, split: bool):
-    if return_gathered and (procs or split):
-        raise ValueError(
-            "ag_gemm: return_gathered (the training backward) runs on the one-allocation route only; training "
-            "across cards is not ported (ROADMAP queue 1 item 1 (d))"
-        )
 
 
 def ag_gemm_plain(
@@ -261,10 +260,10 @@ def ag_gemm_plain(
     and entry words on its own board, the pool's epoch carried from call to
     call (never zeroed): the launch prologue sets every entry word
     (:func:`entry_keys`), a pusher waits on its copy of the receiver's, and
-    every flag holds the epoch, as the kernels do."""
+    every flag holds the epoch, as the kernels do; ``return_gathered`` then
+    copies the pool's slots out, as the kernel's wrapper does."""
     _check(x, w)
     refuse_quantized_wire("ag_gemm", channel)
-    _refuse_peer_gathered(return_gathered, False, split)
     plan, _ = launch_plan(x, w, channel)
     wf, col_scale = plain_weight(w, x.dtype)
     world, nch = plan.world, plan.num_channels
@@ -307,7 +306,9 @@ def ag_gemm_plain(
         i = torch.arange(sl.start, sl.stop, device=x.device)
         out[r, i // m_sub, o * m_loc + c * m_sub + i % m_sub, cols] = part
     out = out.reshape((world,) + tuple(lead) + (world * m_loc, n_loc))
-    return (out, _gathered(gbuf, world, nch, lead, m_sub)) if return_gathered else out
+    if not return_gathered:
+        return out
+    return out, _gathered(torch.stack(slots) if split else gbuf, world, nch, lead, m_sub)
 
 
 def ag_gemm(
@@ -340,13 +341,12 @@ def ag_gemm(
     (``x`` / ``w`` then hold its ``held`` ranks, and the kernel pushes into
     the peer cards' regions: the peer route), ``split`` every rank in its
     own allocation on this card (the peer route on one card; on the CPU,
-    its plain replay), else one allocation.  ``return_gathered`` runs on the
-    one-allocation route only (ValueError).
+    its plain replay), else one allocation.  ``return_gathered`` on a pool
+    copies the held ranks' slots out after the launch (module docstring).
     """
     _check(x, w)
     refuse_quantized_wire("ag_gemm", channel)
     procs = world is not None and world.nprocs > 1
-    _refuse_peer_gathered(return_gathered, procs, split)
     if x.device.type == "cpu" and w.device.type == "cpu":
         if procs:
             raise ValueError("ag_gemm: the peer route over processes runs on the card (on the CPU the eager "
@@ -396,10 +396,15 @@ def ag_gemm(
     out = out.reshape((held,) + tuple(lead) + (world_size * m_loc, n_loc))
     if not return_gathered:
         return out
-    gathered = _gathered(reg.slots, world_size, nch, lead, m_sub)
+    if reg.mode == "one":
+        gbuf = reg.slots  # made for this call: no later launch writes them, so a view may be kept
+    else:  # the pool's slots are overwritten by the next launch of this shape: copied out on the launch's stream
+        gbuf = torch.empty((held,) + reg.keep.layout.slot_shape, dtype=x.dtype, device=x.device)
+        reg.keep.copy_slots(gbuf, build.stream(x))
+    gathered = _gathered(gbuf, world_size, nch, lead, m_sub)
     if route != "wgmma":  # the float32 route reads a rank's own rows in place from x, not from its slot
-        for r in range(world_size):
-            gathered[r, ..., r * m_loc : (r + 1) * m_loc, :] = x[r]
+        for i, r in enumerate(range(held) if not procs else world.ranks):
+            gathered[i, ..., r * m_loc : (r + 1) * m_loc, :] = x[i]
     return out, gathered
 
 

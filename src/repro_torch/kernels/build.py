@@ -79,6 +79,8 @@ _SIGNATURES = {
     "tl_peer_open": "pp",
     "tl_peer_close": "p",
     "tl_peer_free": "p",
+    # dst, src, bytes, stream: a device copy on the stream (a pool's slots copied out)
+    "tl_peer_copy": "ppl" + "p",
     # dtype, q, k, v, o, m, l, so, BH, BHkv, Sq, Sk, D, scale, causal, window, W, map, load, store, stream
     "tl_flash_attention": "i" + "ppppppp" + "iiiii" + "f" + "ii" + "i" + "p" + "ii" + "p",
     # dtype, out_dtype, x, w, tile_expert, out, info, n_tiles, N, K, E, bm, stream

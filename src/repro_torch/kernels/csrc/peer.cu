@@ -14,7 +14,10 @@
 //                    exchange once per pool over their process group;
 //   tl_peer_open     a peer's handle mapped into this process
 //                    (cudaIpcMemLazyEnablePeerAccess);
-//   tl_peer_close / tl_peer_free   the mapping closed / the region freed.
+//   tl_peer_close / tl_peer_free   the mapping closed / the region freed;
+//   tl_peer_copy     a region's bytes copied on a stream, after the work
+//                    enqueued there (a pool's slots copied out for the
+//                    training backward before the next launch reuses them).
 //
 // Every call reports its CUDA error code; the wrapper raises on anything
 // but 0 (a failed open is never worked around).
@@ -52,3 +55,8 @@ extern "C" int tl_peer_open(const void* handle, void* out_ptr) {
 extern "C" int tl_peer_close(const void* ptr) { return static_cast<int>(cudaIpcCloseMemHandle(const_cast<void*>(ptr))); }
 
 extern "C" int tl_peer_free(const void* ptr) { return static_cast<int>(cudaFree(const_cast<void*>(ptr))); }
+
+extern "C" int tl_peer_copy(void* dst, const void* src, long long bytes, void* stream) {
+  return static_cast<int>(cudaMemcpyAsync(dst, src, static_cast<size_t>(bytes), cudaMemcpyDeviceToDevice,
+                                          static_cast<cudaStream_t>(stream)));
+}

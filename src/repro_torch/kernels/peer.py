@@ -51,8 +51,8 @@ import torch
 
 from repro_torch.core.primitives import FlagBoard
 
-__all__ = ["Layout", "PeerArgs", "Pool", "Regions", "regions", "pool", "release", "pools", "ALIGN", "MODES",
-           "MAX_WORLD"]  # fmt: skip
+__all__ = ["Layout", "PeerArgs", "Pool", "Regions", "regions", "pool", "release", "pools", "pool_bytes", "ALIGN",
+           "MODES", "MAX_WORLD"]  # fmt: skip
 
 ALIGN = 256  # bytes: a cudaMalloc'd region's control words start on this boundary (128-byte lines)
 CTL_WORDS = 32  # a rank's control words round up to this many int32 (one 128-byte line each)
@@ -224,6 +224,21 @@ class Pool:
                 self._opened.append(ptr.value)
         return regions
 
+    def copy_slots(self, out: torch.Tensor, stream: int):
+        """Copy the held ranks' slots into ``out`` [held, *slot_shape] (a
+        contiguous tensor of the layout's dtype on the pool's card), on
+        ``stream``, after the work enqueued there."""
+        from repro_torch.kernels import build
+
+        n = self.layout.slot_bytes
+        if tuple(out.shape) != (self.held,) + self.layout.slot_shape or not out.is_contiguous() or \
+                out.dtype != self.layout.dtype:  # fmt: skip
+            raise ValueError(f"copy_slots: expected a contiguous [{self.held}, *{self.layout.slot_shape}] "
+                             f"{self.layout.dtype} tensor, got {tuple(out.shape)} {out.dtype}")  # fmt: skip
+        lib = build.library()
+        for i, base in enumerate(self._owned):
+            build.check(lib.tl_peer_copy(out.data_ptr() + i * n, base, n, stream), "peer pool slot copy")
+
     def unmap(self):
         """Close the peer regions mapped into this process."""
         from repro_torch.kernels import build
@@ -265,6 +280,13 @@ def pool(kind: str, layout: Layout, device: torch.device, *, world=None, split: 
 def pools() -> Dict[tuple, Pool]:
     """The pools this process holds, by key."""
     return dict(_POOLS)
+
+
+def pool_bytes(device=None) -> int:
+    """Device bytes of the regions this process's pools allocated (its held
+    ranks' regions, on ``device`` when given): what the kept pools cost a card."""
+    return sum(p.held * p.layout.nbytes for p in _POOLS.values()
+               if p.device.type == "cuda" and (device is None or p.device == torch.device(device)))  # fmt: skip
 
 
 def release(barrier: Optional[Callable[[], None]] = None):

@@ -228,16 +228,8 @@ def _tp_process(dist: DistWorld, target, world: int, args) -> dict:
     from repro_torch.kernels import peer
 
     tp = World(world, dist.device, procs=dist)
-
-    def barrier():
-        if dist.device.type == "cuda":
-            torch.cuda.synchronize(dist.device)
-        dist.psum(torch.zeros((1,), device=dist.device), control=True)
-        if dist.device.type == "cuda":
-            torch.cuda.synchronize(dist.device)
-
     out = target(tp, *args)  # a failure raises here, with no collective after it: its peers fail, not hang
-    peer.release(barrier)  # every process's last push has landed, then no process maps a peer's region
+    peer.release(dist.barrier)  # every process's last push has landed, then no process maps a peer's region
     return out
 
 

@@ -59,6 +59,23 @@ CPU:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --reduce \
       --device cpu --data 2 --batch 4 --seq 32 --steps 3
+
+``--procs P`` spreads the W tensor-parallel ranks over P processes (P
+divides W), one card each (``launch/serve.run_tp``: NCCL with process p on
+``cuda:p``; gloo with ``--device cpu``).  Every process builds the same
+seeded global weights and keeps its ranks' slices (``convert.shard_params``),
+reads the same batches and runs ``training.make_train_step`` over the TP
+world of processes (the fused AG+GEMM / GEMM+RS on their peer route in both
+passes, the norms' gradients summed over the processes, AdamW on each
+process's leaves); process 0 logs and returns the history.  A checkpoint is
+written by process 0 with every process's slices gathered
+(``CheckpointManager.save`` over processes) and restores at any P.  Only
+the dense models train there (attention with a dense MLP: smollm-360m,
+qwen2-72b, starcoder2-7b, gemma3-27b); ``--procs`` with ``--data`` (TP x
+data across processes), beyond the visible cards or not dividing W raises,
+and nothing falls back to one card:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m --world 4 --procs 4 --steps 30
 """
 
 from __future__ import annotations
@@ -88,7 +105,8 @@ from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.optimizer import tree_map
 from repro_torch.training.steps import data_blocks, gather_blocks
 
-__all__ = ["train", "train_replica", "model_module", "main", "run_replicas", "staging_for", "device_bytes"]
+__all__ = ["train", "train_replica", "train_tp", "model_module", "main", "run_replicas", "staging_for",
+           "device_bytes"]
 
 REPLICA_TIMEOUT_S = 3600.0  # run_replicas stops its processes after this long
 
@@ -118,7 +136,8 @@ def run_replicas(target: Callable, size: int, *, device=None, backend: str = "gl
     runs torch at this process's intra-op thread count over ``size``.  On a
     CUDA device the kernel library is built
     here first, so the processes load it rather than each building it.  A
-    process that fails stops the others, and this raises."""
+    process that fails prints its traceback and exits at once; this then
+    stops the others and raises."""
     import multiprocessing
 
     dev = resolve_device(device)
@@ -153,13 +172,26 @@ def run_replicas(target: Callable, size: int, *, device=None, backend: str = "gl
 
 
 def _replica(target, rank, size, tmp, device, backend, staging, threads, args):
-    """One replica process of :func:`run_replicas`."""
+    """One replica process of :func:`run_replicas`.  A failure prints its
+    traceback and ends the process at once, without leaving the group: a
+    peer may be waiting in a collective, and NCCL's teardown would wait on
+    it (the parent then stops the others)."""
+    import sys
+    import traceback
+
     torch.set_num_threads(threads)
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(torch.device(device))
-    with DistWorld(size, rank, init_file=os.path.join(tmp, "store"), backend=backend, device=device,
-                   staging=staging) as data:  # fmt: skip
+    data = DistWorld(size, rank, init_file=os.path.join(tmp, "store"), backend=backend, device=device,
+                     staging=staging)  # fmt: skip
+    try:
         out = target(data, *args)
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    data.close()
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -184,6 +216,7 @@ def train(
     data: int = 1,
     dist_backend: str = "gloo",
     time_data: bool = False,
+    procs: int = 1,
 ) -> dict:
     """Train ``arch`` for ``steps`` steps (resuming from the latest checkpoint
     in ``ckpt_dir`` when ``resume``) with seeded weights (seed 0);
@@ -200,10 +233,22 @@ def train(
     the placement) and its launch counts;
     ``time_data`` fills each record's
     ``data_ms`` (the device drained around every data collective, which
-    slows the step; None without it)."""
+    slows the step; None without it).  ``procs`` > 1 spreads the ``world``
+    ranks over that many processes, one card each (module docstring); then
+    "params" and "opt_state" are not returned, and "processes" holds each
+    one's device, peak device memory and launch counts."""
     kw = dict(steps=steps, batch=batch, seq=seq, reduce=reduce, layers=layers, mode=mode, remat=remat,
               ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, lr=lr, dtype=dtype, world=world, log_every=log_every,
               resume=resume, time_data=time_data)  # fmt: skip
+    if procs > 1:
+        if data > 1:
+            raise ValueError("--procs with --data: TP x data across processes is not ported (ROADMAP queue 1 "
+                             "item 1 (d)); the data transport and the TP world would both own the process group")  # fmt: skip
+        from repro_torch.launch.serve import run_tp
+
+        outs = run_tp(train_tp, world, procs, device, args=(arch, kw))
+        return {"history": outs[0]["history"], "cfg": outs[0]["cfg"],
+                "processes": [{k: o[k] for k in ("device", "peak_bytes", "launches")} for o in outs]}  # fmt: skip
     if data == 1:
         return _train(arch, device=device, dist=None, **kw)
     if data < 1 or batch % data:
@@ -234,14 +279,28 @@ def train_replica(dist: DistWorld, arch: str, kw: dict, keep_state: bool = True)
     return res
 
 
+def train_tp(tp: World, arch: str, kw: dict) -> dict:
+    """One process of ``train(procs=P)`` over the TP world ``tp``: ``kw``
+    holds every keyword of :func:`train` from ``steps`` to ``time_data``.
+    Returns {"history" (process 0's; None elsewhere), "cfg", "device",
+    "peak_bytes", "launches"} (process 0 logs)."""
+    if tp.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    out = _train(arch, device=tp.device, dist=None, tp=tp, **kw)
+    return {"history": out["history"] if tp.procs.rank == 0 else None, "cfg": out["cfg"], "device": str(tp.device),
+            "peak_bytes": torch.cuda.max_memory_allocated() if tp.device.type == "cuda" else None,
+            "launches": K.launch_counts()}  # fmt: skip
+
+
 def _host(t):
     return t.detach().cpu() if torch.is_tensor(t) else t
 
 
 def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ckpt_every, lr, dtype, world, device,
-           log_every, resume, time_data, dist: Optional[DistWorld]) -> dict:  # fmt: skip
+           log_every, resume, time_data, dist: Optional[DistWorld], tp: Optional[World] = None) -> dict:  # fmt: skip
     """:func:`train`'s loop in this process: one replica of ``dist`` (its
-    DistWorld), or the whole run without one."""
+    DistWorld), one process of the TP world ``tp``, or the whole run."""
     cfg = get_config(arch)
     if reduce:
         cfg = reduce_config(cfg)
@@ -253,10 +312,10 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
             f"the train CLI feeds SyntheticLM tokens, which carry no encoder frames: {arch} is an encoder-decoder; "
             "train it through training.make_train_step with batch['embeds']"
         )
-    w = World(world, device)
+    w = World(world, device) if tp is None else tp
     dtype = dtype or ("bf16" if w.device.type == "cuda" else "f32")
     n_data, rank = (1, 0) if dist is None else (dist.size, dist.rank)
-    lead = rank == 0
+    lead = rank == 0 and (tp is None or tp.procs.rank == 0)
     if dist is None:
         pc = ParallelContext(world=w, mode=mode)
     else:
@@ -299,7 +358,7 @@ def _train(arch, *, steps, batch, seq, reduce, layers, mode, remat, ckpt_dir, ck
         if dist is not None:  # the blocks gathered on every replica: rank 0 writes the logical arrays
             p = mod.with_tied(gather_blocks(mod, cfg, pc, mod.trainable(params, cfg)), cfg)
             opt = {**opt, **{k: gather_blocks(mod, cfg, pc, opt[k]) for k in ("mu", "nu")}}
-        if lead:
+        if lead or tp is not None:  # over the TP processes every one gathers its slices, process 0 writes
             mgr.save(step, p, opt, extra={"data": pipe.state(), "arch": arch}, cfg=cfg, world=w)
 
     cuda = w.device.type == "cuda"
@@ -352,7 +411,7 @@ def device_bytes(device) -> Optional[dict]:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="train an LM of the port (W ranks emulated on one device)")
+    ap = argparse.ArgumentParser(description="train an LM of the port (W ranks on one device, or over --procs cards)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -367,7 +426,7 @@ def main(argv=None):
     ap.add_argument("--no-resume", dest="resume", action="store_false")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None, help="default: bf16 on the card, f32 on the CPU")
-    ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (emulated on one device)")
+    ap.add_argument("--world", type=int, default=4, help="tensor-parallel ranks (on one device unless --procs)")
     ap.add_argument("--device", default=None, help="default: the card; 'cpu' runs the plain versions")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--data", type=int, default=1, help="data-parallel replicas, one spawned process each")
@@ -375,13 +434,14 @@ def main(argv=None):
                     help="the replicas' torch.distributed backend (gloo: replicas sharing one card, or the CPU)")
     ap.add_argument("--time-data", action="store_true",
                     help="time the data transport (data_ms): drains the device around each collective")
+    ap.add_argument("--procs", type=int, default=1, help="processes the W ranks spread over, one card each")
     args = ap.parse_args(argv)
     out = train(
         args.arch, steps=args.steps, batch=args.batch, seq=args.seq, reduce=args.reduce, layers=args.layers,
         mode=args.mode, remat=args.remat,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, lr=args.lr, dtype=args.dtype, world=args.world,
         device=args.device, log_every=args.log_every, resume=args.resume, data=args.data,
-        dist_backend=args.dist_backend, time_data=args.time_data,
+        dist_backend=args.dist_backend, time_data=args.time_data, procs=args.procs,
     )  # fmt: skip
     losses = [r["loss"] for r in out["history"]]
     if losses:

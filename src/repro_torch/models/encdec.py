@@ -233,7 +233,8 @@ def with_tied(tree: dict, cfg) -> dict:
 
 def check_trainable(cfg, pc: ParallelContext):
     """Raise for what the training path does not take: fused seams (the
-    reference's encoder-decoder has none)."""
+    reference's encoder-decoder has none) and a TP world over processes."""
+    pc.single_process(f"training the encoder-decoder {cfg.name}")
     if pc.fuse_seams:
         raise NotImplementedError(f"repro_torch: training {cfg.name} with fuse_seams is not ported")
 

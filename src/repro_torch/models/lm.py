@@ -107,6 +107,7 @@ __all__ = [
     "grad_masks",
     "decay_mask",
     "sync_grads",
+    "proc_roles",
     "REMAT_POLICIES",
 ]
 
@@ -550,18 +551,48 @@ def with_tied(tree: dict, cfg) -> dict:
 def check_trainable(cfg, pc: ParallelContext):
     """Raise unless the model's training path is ported: every layer kind
     (attention with a dense MLP or an MoE block, TP or EP; Mamba; the shared
-    attention block) trains, with or without fused seams."""
+    attention block) trains, with or without fused seams, on one process;
+    over a TP world of processes only attention with a dense MLP does,
+    without seams (``NotImplementedError`` naming the rest)."""
     layer_plan(cfg)  # an unported layer kind raises here
+    if pc.world.nprocs > 1:
+        from repro_torch.convert import check_dense
+
+        check_dense(cfg, pc.world, f"training {cfg.name}")
+        if pc.fuse_seams:
+            pc.single_process(f"training {cfg.name} with the fused RS -> AG seam")
+
+
+def proc_roles(tree: dict, cfg) -> dict:
+    """What a TP world over processes holds of each leaf of a trainable tree
+    (``training/steps``): "held" (each layer's per-rank operands,
+    ``convert.HELD_LEAVES``: this process's ranks' slices), "summed" (a
+    layer's replicated leaves, the norms: each rank reads them inside the
+    rank-stacked region, so a process's gradient is its held ranks' part
+    and the step sums it over the processes) or "whole" (``embed``, the
+    head, ``final_ln``: read on values every process computes whole, so
+    every process's gradient is already the whole one)."""
+    from repro_torch.convert import HELD_LEAVES
+    from repro_torch.training.optimizer import tree_map
+
+    out = {k: tree_map(lambda _: "whole", v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [{part: {k: "held" if k in HELD_LEAVES.get(part, ()) else tree_map(lambda _: "summed", v)
+                             for k, v in sub.items()} for part, sub in layer.items()}
+                     for layer in tree["layers"]]  # fmt: skip
+    return out
 
 
 def grad_masks(cfg, pc: ParallelContext) -> dict:
     """0/1 masks (or None) over the trainable tree that keep padded heads at
     zero (``repro/models/lm.grad_masks``): each attention mixer's, the
     shared mixer's (a model with ``shared_attn`` layers); a None subtree
-    (a Mamba mixer, an MLP) masks nothing."""
+    (a Mamba mixer, an MLP) masks nothing.  Over processes each mask holds
+    this process's ranks."""
     layers = []
     for d in layer_plan(cfg):
         am = attention.grad_masks(cfg, pc.tp, pc.device) if d.kind != "mamba" and not d.shared else None
+        if am is not None and pc.world.nprocs > 1:
+            am = {k: None if m is None else m[pc.rank0 : pc.rank0 + pc.held] for k, m in am.items()}
         layers.append(None if am is None else {"mixer": am})
     out = {"layers": layers}
     if _uses_shared(cfg):
@@ -598,15 +629,17 @@ def decay_mask(tree: dict, cfg) -> dict:
 def sync_grads(grads: dict, cfg, pc: ParallelContext) -> dict:
     """Average the gradients of the kv copies (GQA with fewer kv heads than
     ranks) in every attention block, the shared mixer's included
-    (``repro/models/lm.sync_grads``); the tree unchanged when ``rep == 1``."""
+    (``repro/models/lm.sync_grads``); the tree unchanged when ``rep == 1``.
+    Over processes the copies of a head may sit on different processes:
+    the kv columns are gathered over them first (``attention.sync_grads``)."""
     if not cfg.n_heads or attention.layout(cfg, pc.tp).rep == 1:
         return grads
     layers = []
     for d, g in zip(layer_plan(cfg), grads["layers"]):
         if d.kind != "mamba" and not d.shared:
-            g = {**g, "mixer": attention.sync_grads(g["mixer"], cfg, pc.tp)}
+            g = {**g, "mixer": attention.sync_grads(g["mixer"], cfg, pc.tp, world=pc.world)}
         layers.append(g)
     out = {**grads, "layers": layers}
     if "shared_attn" in grads:
-        out["shared_attn"] = attention.sync_grads(grads["shared_attn"], cfg, pc.tp)
+        out["shared_attn"] = attention.sync_grads(grads["shared_attn"], cfg, pc.tp, world=pc.world)
     return out

@@ -151,22 +151,30 @@ def grad_masks(cfg, tp: int, device=None):
     return masks
 
 
-def sync_grads(grads: dict, cfg, tp: int) -> dict:
+def sync_grads(grads: dict, cfg, tp: int, world=None) -> dict:
     """Average the kv copies' gradients in one attention block's ``wqkv``
     (and ``bqkv``) gradient (:func:`~repro_torch.nn.layers.sync_kv_grad` on
     its kv columns), or in a cross mixer's ``wkv``; the block unchanged
-    when ``rep == 1``."""
+    when ``rep == 1``.  ``world`` over processes: the gradients hold its
+    ranks, and the kv columns of every rank are gathered over the processes
+    (one all-gather a leaf), averaged as on one process and sliced back."""
     lay = layout(cfg, tp)
     if lay.rep == 1:
         return grads
     nq = lay.h_loc * cfg.hd
+
+    def synced(kv):
+        if world is None or world.nprocs == 1:
+            return sync_kv_grad(kv, lay)
+        return sync_kv_grad(world.gather_ranks(kv), lay)[world.rank0 : world.rank0 + world.held]
+
     out = dict(grads)
     for name in ("wqkv", "bqkv"):
         if name in grads:
             g = grads[name]
-            out[name] = torch.cat([g[..., :nq], sync_kv_grad(g[..., nq:], lay)], dim=-1)
+            out[name] = torch.cat([g[..., :nq], synced(g[..., nq:])], dim=-1)
     if "wkv" in grads:
-        out["wkv"] = sync_kv_grad(grads["wkv"], lay)
+        out["wkv"] = synced(grads["wkv"])
     return out
 
 
@@ -266,8 +274,9 @@ def apply_seq(
     q, k, v = _split_qkv(qkv, lay, hd)
     positions = torch.arange(s_glob, device=x.device)
     q, k = rope(q, k, positions, rope_theta if rope_theta is not None else cfg.rope_theta)
-    # [W, B, S, n, hd] -> [W, B, n, S, hd]
-    q = q.permute(0, 1, 3, 2, 4)
+    # [W, B, S, n, hd] -> [W, B, n, S, hd]; contiguous, so the kernel's [W B n, S, hd] is too (at W B = 1 a
+    # reshape of the permuted view would be a strided view)
+    q = q.permute(0, 1, 3, 2, 4).contiguous()
     k = k.permute(0, 1, 3, 2, 4).contiguous()
     v = v.permute(0, 1, 3, 2, 4).contiguous()
     if pc.fused:

@@ -92,9 +92,14 @@ per rank); ``held`` and ``rank0`` are the ranks this process stores, the
 leading dimension of every rank-stacked value.  Only the dense path runs
 there (attention with a dense MLP: prefill, decode, the LM head, the
 fused AG+GEMM / GEMM+RS on their peer route, the eager executors and the
-baselines); :meth:`single_process` refuses the rest by name
-(``NotImplementedError``), and ``data`` with it raises ``ValueError``:
-``DistWorld`` owns the default process group.
+baselines), for serving and for training (``training.make_train_step``:
+the world's collectives carry their adjoints, the fused ops' backward
+runs on the peer route, and the step sums the replicated leaves'
+gradients over the processes); :meth:`single_process` refuses the rest by
+name (``NotImplementedError``: MoE / a2a, Mamba, ring attention, seams,
+the encoder-decoder), and ``data`` or ``tune`` with it raises
+``ValueError``: ``DistWorld`` owns the default process group, and the
+tuner times one process's kernels alone.
 """
 
 from __future__ import annotations
@@ -186,8 +191,8 @@ class ParallelContext:
         if self.world.nprocs > 1:
             raise NotImplementedError(
                 f"{what} over a TP world of {self.world.nprocs} processes is not ported (only attention with a "
-                "dense MLP is); ROADMAP queue 1 item 1 (d): MoE / a2a, Mamba, ring attention, seams, the "
-                "encoder-decoder and training across cards"
+                "dense MLP is); ROADMAP queue 1 item 1 (d): MoE / a2a, Mamba, ring attention, seams and the "
+                "encoder-decoder across cards"
             )
 
     @property

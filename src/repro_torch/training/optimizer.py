@@ -112,7 +112,8 @@ def apply_update(params, grads, state: dict, cfg: AdamWConfig, grad_masks: Optio
     which leaves take weight decay.  ``donate``: update ``params`` and the
     moments of ``state`` in place (the returned trees hold them).
     ``gnorm``: the gradients' global norm, where the caller holds only a
-    share of them (a data-parallel replica's blocks); by default
+    share of them (a data-parallel replica's blocks, a TP process's held
+    ranks: ``training/steps``); by default
     :func:`global_norm` of ``grads``."""
     if grad_masks is not None:
         grads = apply_masks(grads, grad_masks)

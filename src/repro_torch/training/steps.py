@@ -29,6 +29,23 @@ placement of ``opt`` by the parameter specs).  No replica holds a whole
 copy of a split leaf between steps; :func:`gather_blocks` joins the
 replicas' blocks for a checkpoint.  The embedding and a shared mixer are
 read more than once a pass and gathered once a pass (``models/lm``).
+
+Over a TP world of processes (``pc.world.nprocs > 1``, one card each; the
+dense layers only, ``model.check_trainable``) every process runs the
+forward and backward of its held ranks, the world's collectives carrying
+their adjoints (``backend/mesh``) and the fused ops' backward on the peer
+route (``core/compiler``), and computes the loss whole from the gathered
+logits.  Then (:func:`tp_procs_grads`) the kv-copy sync gathers the kv
+columns over the processes, the masks hold the held ranks, and the leaves
+``model.proc_roles`` calls "summed" (a layer's norms, read by each rank
+inside the rank-stacked region) are summed over the processes, one
+all-gather a dtype summed in process order, so every process holds the
+same sum; the "whole" leaves (``embed``, the head, ``final_ln``) are not,
+since their gradients are whole on every process already.  The global norm
+is the held leaves' squares summed over the processes plus the others'
+once, and AdamW updates each process's leaves: its held ranks' slices, and
+the replicated leaves alike on every process.  Metrics are equal on every
+process.
 """
 
 from __future__ import annotations
@@ -42,7 +59,7 @@ from repro_torch.parallel.sharding import data_dim, map_specs, place_data
 from repro_torch.training.optimizer import AdamWConfig, apply_masks, apply_update, tree_leaves, tree_unflatten
 
 __all__ = ["softmax_xent", "loss_and_grads", "make_train_step", "make_eval_step", "data_blocks",
-           "data_parallel_grads", "gather_blocks"]
+           "data_parallel_grads", "gather_blocks", "tp_procs_grads"]
 
 
 XENT_ROWS = 1024  # rows of one float32 block of the cross-entropy (its only float32 copy of the logits)
@@ -135,12 +152,17 @@ def make_train_step(
     gradient.  With ``pc.data`` the step is data-parallel (module
     docstring): ``batch`` is this replica's share of the global batch (equal
     rows on every replica), ``params`` (in and out) and ``opt_state`` are
-    over :func:`data_blocks`, and the metrics are the global ones."""
+    over :func:`data_blocks`, and the metrics are the global ones.  Over a
+    TP world of processes ``params`` and ``opt_state`` are this process's
+    (its held ranks' slices; module docstring), and every process passes
+    the same ``batch``."""
     model.check_trainable(cfg, pc)
-    pc.single_process("training")
     if pc.data is not None:
         return _data_parallel_step(model, cfg, pc, opt_cfg, remat_policy=remat_policy, grad_masks=grad_masks,
                                    aux_weight=aux_weight, sync_kv=sync_kv, donate=donate)  # fmt: skip
+    if pc.world.nprocs > 1:
+        return _tp_procs_step(model, cfg, pc, opt_cfg, remat_policy=remat_policy, grad_masks=grad_masks,
+                              aux_weight=aux_weight, sync_kv=sync_kv, donate=donate)  # fmt: skip
 
     def train_step(params, opt_state, batch):
         tree = model.trainable(params, cfg)
@@ -212,6 +234,55 @@ def _data_parallel_step(model, cfg, pc, opt_cfg, *, remat_policy, grad_masks, au
     def train_step(params, opt_state, batch):
         tree = model.trainable(params, cfg)
         loss, ce, aux, grads, gnorm = data_parallel_grads(
+            model, cfg, pc, params, batch, remat_policy=remat_policy, grad_masks=grad_masks, aux_weight=aux_weight,
+            sync_kv=sync_kv,
+        )  # fmt: skip
+        new, new_opt, om = apply_update(tree, grads, opt_state, opt_cfg, grad_masks=None,
+                                        decay=model.decay_mask(tree, cfg), donate=donate, gnorm=gnorm)  # fmt: skip
+        metrics = {"loss": loss, "ce": ce, "aux": aux, **om}
+        return model.with_tied(new, cfg), new_opt, metrics
+
+    return train_step
+
+
+def tp_procs_grads(model, cfg, pc, params, batch, *, remat_policy: str = "none", grad_masks=None,
+                   aux_weight: float = 0.01, sync_kv: bool = True):  # fmt: skip
+    """The step's gradients over a TP world of processes (module
+    docstring): this process's forward and backward, the kv-copy sync, the
+    0/1 ``grad_masks`` (of this process's ranks), then the "summed" leaves
+    summed over the processes.  Returns (loss, ce, aux, gradients, global
+    gradient norm), every one but the held gradients equal on every
+    process."""
+    procs = pc.world.procs
+    loss, ce, aux, grads = loss_and_grads(model, cfg, pc, params, batch, remat_policy=remat_policy,
+                                          aux_weight=aux_weight)  # fmt: skip
+    if sync_kv:
+        grads = model.sync_grads(grads, cfg, pc)
+    if grad_masks is not None:
+        grads = apply_masks(grads, grad_masks)
+    roles, leaves = tree_leaves(model.proc_roles(grads, cfg)), tree_leaves(grads)
+    summed = {}
+    for i, role in enumerate(roles):
+        if role == "summed":
+            summed.setdefault(leaves[i].dtype, []).append(i)
+    for idx in summed.values():  # dtypes in order of first appearance: the same on every process
+        flat = torch.cat([leaves[i].reshape(-1) for i in idx])
+        total = procs.all_gather(flat.reshape(1, -1), 0).float().sum(0).to(flat.dtype)  # process order
+        for i, part in zip(idx, total.split([leaves[i].numel() for i in idx])):
+            leaves[i] = part.reshape(leaves[i].shape)
+    zero = torch.zeros((), dtype=torch.float32, device=pc.device)
+    held = torch.stack([g.float().square().sum() for r, g in zip(roles, leaves) if r == "held"] or [zero]).sum()
+    rest = torch.stack([g.float().square().sum() for r, g in zip(roles, leaves) if r != "held"] or [zero]).sum()
+    gnorm = torch.sqrt(procs.all_gather(held.reshape(1), 0).sum() + rest)
+    return loss, ce, aux, tree_unflatten(grads, leaves), gnorm
+
+
+def _tp_procs_step(model, cfg, pc, opt_cfg, *, remat_policy, grad_masks, aux_weight, sync_kv, donate) -> Callable:
+    """The train step over a TP world of processes (module docstring)."""
+
+    def train_step(params, opt_state, batch):
+        tree = model.trainable(params, cfg)
+        loss, ce, aux, grads, gnorm = tp_procs_grads(
             model, cfg, pc, params, batch, remat_policy=remat_policy, grad_masks=grad_masks, aux_weight=aux_weight,
             sync_kv=sync_kv,
         )  # fmt: skip

@@ -1799,10 +1799,25 @@ def test_peer_route_split_pool_equals_the_one_allocation_route(dev, kind, order,
     _close(outs[1], getattr(K, f"{kind}_plain")(x, w, channel=ch), dtype)
 
 
-def test_peer_route_refuses_return_gathered(dev):
-    x, w = _peer_operands("ag_gemm", torch.bfloat16, dev)
-    with pytest.raises(ValueError, match="one-allocation route"):
-        K.ag_gemm(x, w, return_gathered=True, split=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_peer_route_return_gathered_outlives_the_next_call(dev, dtype):
+    """``return_gathered`` on the split pool (the training backward's
+    operand): out and gathered bitwise the one-allocation route's, and call
+    1's gathered operand (copied out of the pool on the launch's stream)
+    unchanged after call 2, on other operands, overwrote the slots."""
+    x1, w = _peer_operands("ag_gemm", dtype, dev)
+    x2 = x1.flip(-1).contiguous()
+    out1, g1 = K.ag_gemm(x1, w, return_gathered=True, split=True)
+    kept = g1.clone()
+    out2, g2 = K.ag_gemm(x2, w, return_gathered=True, split=True)
+    torch.cuda.synchronize()
+    assert K.ag_gemm.last_launch["pool"] == "split"
+    for x, out, g in ((x1, out1, g1), (x2, out2, g2)):
+        one_out, one_g = K.ag_gemm(x, w, return_gathered=True)
+        assert torch.equal(out, one_out) and torch.equal(g, one_g)
+        rows = x.transpose(0, 1).reshape(x.shape[1], -1, x.shape[-1])  # every rank's rows, rank-major
+        assert torch.equal(g, rows.expand(x.shape[0], -1, -1, -1))
+    assert torch.equal(g1, kept) and not torch.equal(g1, g2)
 
 
 def _forced_logits(params, cfg, pc, job):
@@ -1836,6 +1851,57 @@ def _tp_cards_worker(tp, job):
     params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
     out["logits"] = _forced_logits(params, cfg, ParallelContext(world=tp), job)
     return out
+
+
+def _tp_train_cards_worker(tp, job):
+    """One process of the TP world over cards training a reduced smollm in
+    f32 on the fused backend: one step's loss and gradients
+    (``tp_procs_grads``), then two ``make_train_step`` steps' metrics."""
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.steps import tp_procs_grads
+
+    cfg, dev = job["cfg"], tp.device
+    pc = ParallelContext(world=tp)
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    loss, _, _, grads, _ = tp_procs_grads(lm, cfg, pc, params, job["batch"], grad_masks=lm.grad_masks(cfg, pc))
+    step = make_train_step(lm, cfg, pc, AdamWConfig(lr=1e-3, warmup_steps=1), grad_masks=lm.grad_masks(cfg, pc))
+    opt, metrics = init_opt_state(lm.trainable(params, cfg)), []
+    for _ in range(2):
+        params, opt, m = step(params, opt, job["batch"])
+        metrics.append(float(m["loss"]))
+    return {"loss": loss.cpu(), "grads": [g.cpu() for g in tree_leaves(grads)],
+            "roles": tree_leaves(lm.proc_roles(grads, cfg)), "metrics": metrics}  # fmt: skip
+
+
+def test_tp_training_across_cards(dev):
+    """W = 4 over two processes, one card each: a reduced smollm's f32 step
+    on the fused backend (the AG+GEMM / GEMM+RS backward on the peer route,
+    the norms summed over the processes): the loss within 2e-3 + 2e-3 |ref|
+    of the same W emulated on card 0, each gradient within 1e-5 of its
+    leaf's max (the process's ranks), and the two steps' losses equal on
+    both processes.  Skips, from inside, with fewer than two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the TP world over processes puts one on each card")
+    from repro_torch.launch import serve
+    from repro_torch.training.optimizer import apply_masks, tree_leaves
+    from repro_torch.training.steps import loss_and_grads
+
+    cfg = dataclasses.replace(reduce_config(get_config("smollm-360m")), vocab_size=512)
+    toks = np.random.default_rng(1).integers(0, 512, (2, 64))
+    job = {"cfg": cfg, "batch": {"inputs": toks, "labels": toks}}
+    got = serve.run_tp(_tp_train_cards_worker, 4, 2, dev, args=(job,))
+    one = World(4, dev)
+    pc = ParallelContext(world=one)
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    loss, _, _, grads = loss_and_grads(lm, cfg, pc, params, job["batch"])
+    want = [g.cpu() for g in tree_leaves(apply_masks(lm.sync_grads(grads, cfg, pc), lm.grad_masks(cfg, pc)))]
+    for p, g in enumerate(got):
+        assert abs(g["loss"].item() - loss.item()) <= 2e-3 + 2e-3 * abs(loss.item())
+        for a, b, role in zip(g["grads"], want, g["roles"]):
+            b = b[2 * p : 2 * p + 2] if role == "held" else b
+            assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-12, role
+        assert g["metrics"] == got[0]["metrics"]
 
 
 def test_tp_world_across_cards(dev):

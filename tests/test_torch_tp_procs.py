@@ -21,9 +21,10 @@ Held:
     baseline mode, whose GEMM+RS is a reduce_scatter); greedy tokens equal to
     the reference's greedy decoding; the engine's tokens equal to P = 1's;
   * the refusals: data axes with processes, an unported layer kind, ring
-    attention, fused seams, training, capture and tuning over processes,
-    the fused wrappers on CPU tensors over processes, ``--procs`` beyond
-    the visible cards or not dividing W, ``--procs`` with ``--data``;
+    attention, fused seams, training an MoE model, capture and tuning over
+    processes, the fused wrappers on CPU tensors over processes,
+    ``--procs`` beyond the visible cards or not dividing W, ``--procs``
+    with ``--data`` (serve and train);
   * the serve CLI at ``--procs 2`` prints the tokens of ``--procs 1``;
   * the peer route's plain replay (every rank's slots a separate tensor,
     two calls on one pool, epochs, entry words) bitwise the one-allocation
@@ -56,6 +57,7 @@ from repro_torch.core.channels import BlockChannel, CommSpec
 from repro_torch.core.compiler import compile_overlap
 from repro_torch.kernels import peer
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_cli
 from repro_torch.models import lm
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving import Request, ServeEngine
@@ -150,7 +152,8 @@ def _refusals(world: World, job: dict) -> dict:
         "ring": lambda: pc.ring_attention(x, x, x),
         "seams": lambda: lm.forward(params, cfg, dataclasses.replace(pc, fuse_seams=True),
                                     torch.zeros((1, 8), dtype=torch.int64)),
-        "train": lambda: make_train_step(lm, cfg, pc, AdamWConfig()),
+        "train": lambda: make_train_step(lm, dataclasses.replace(reduce_config(get_config("granite-moe-3b-a800m")),
+                                                                 vocab_size=VOCAB), pc, AdamWConfig()),
         "capture": lambda: ServeEngine(cfg, pc, params, capture=True, **ENGINE_KW),
         "fused_cpu": lambda: K.ag_gemm(torch.zeros((world.held, 4, 8)), torch.zeros((world.held, 8, 8)), world=world),
     }  # fmt: skip
@@ -321,7 +324,7 @@ REFUSED = {
     "moe": "NotImplementedError: granite-moe-3b-a800m: layers",
     "ring": "NotImplementedError: ring attention over a TP world of 2 processes",
     "seams": "NotImplementedError: the fused RS -> AG seam over a TP world of 2 processes",
-    "train": "NotImplementedError: training over a TP world of 2 processes",
+    "train": "NotImplementedError: training granite-moe-3b-a800m: layers",
     "capture": "ValueError: no CUDA-graph capture over a TP world of processes",
     "fused_cpu": "ValueError: ag_gemm: the peer route over processes runs on the card",
 }
@@ -403,10 +406,9 @@ def test_peer_plain_replay_without_entry_words_raises(kind, monkeypatch):
         getattr(K, f"{kind}_plain")(x, w, channel=BlockChannel(axis="model", num_channels=2), split=True)
 
 
-def test_return_gathered_refused_on_the_peer_route():
-    x, w = _peer_operands("ag_gemm")
-    with pytest.raises(ValueError, match="one-allocation route"):
-        K.ag_gemm(x, w, return_gathered=True, split=True)
+def test_train_refuses_procs_with_data():
+    with pytest.raises(ValueError, match="TP x data across processes"):
+        train_cli.train("smollm-360m", procs=2, data=2, device="cpu", reduce=True)
 
 
 def test_one_allocation_regions_sit_at_fixed_strides():
