@@ -445,7 +445,19 @@ non-zero (no phase catches its own failure):
               layers against the emulated and the eager step; 30 bf16 AdamW
               steps of smollm-360m at 32 layers, launches a process a step
               128 / 128 / 32 / 1, the ce's fall, a resume bitwise; Fig. 11's
-              dense rows at ``paper_e2e.DEPTH_PROCS``).
+              dense rows at ``paper_e2e.DEPTH_PROCS``) and MoE (e: deepseek's
+              f32 MoE layer on the double ring and the a2a pair at capacity
+              factors 1.25 / 0.25, outputs and kept sets against the
+              emulated world, its f32 prefill at 4 layers in TP and EP and
+              its teacher-forced f32 decode in both MoE decode forms; f:
+              deepseek-moe-16b at its 28 layers in bf16, greedy with the
+              gathered and the streamed decode against the emulated one-card
+              run, held up to each row's first MoE routing flip, which must
+              be a near tie under rounding; the engine; g: granite's f32
+              step at 2 layers against the emulated step, 30 bf16 steps at
+              32 layers; h: Fig. 9 at W = 4, with the ring waited on at
+              once beside the lazy one; i: Fig. 11's MoE rows; kernel #5 at
+              the four-card shapes).
   20. kernels every kernel against its plain PyTorch version at the shapes
               the serve paths give it (W = 4 emulated ranks, 4 requests x
               256 tokens: smollm-360m for the dense kernels, granite-moe-
@@ -2086,22 +2098,124 @@ TP_TRAIN_F32_LAYERS, TP_GRAD_RTOL = 2, 1e-5
 TP_E2E_WARMUP, TP_E2E_PAIRS = 1, 2
 
 
-def _greedy_logits(params, cfg, pc, prompts, new: int):
+def _greedy_logits(params, cfg, pc, prompts, new: int, routes=None):
     """``serve.greedy``'s decoding with its logits kept: tokens [B, new] and
-    the float32 logits each token was the argmax of, [B, new, vocab]."""
+    the float32 logits each token was the argmax of, [B, new, vocab].
+    ``routes`` (a list) takes each step's MoE router calls
+    (:func:`_record_router_logits`), step 0 the prefill's."""
     import torch
 
     from repro_torch.models import lm
 
-    with torch.no_grad():
-        lg, caches = lm.prefill(params, cfg, pc, prompts, max_len=prompts.shape[1] + new)
-        rows = [lg[:, -1].float()]
-        toks = [rows[-1].argmax(-1)]
-        for i in range(new - 1):
-            lg, caches = lm.decode_step(params, caches, cfg, pc, toks[-1][:, None], prompts.shape[1] + i)
-            rows.append(lg[:, 0].float())
-            toks.append(rows[-1].argmax(-1))
+    calls, restore = _record_router_logits() if routes is not None else ([], lambda: None)
+
+    def step_done():
+        if routes is not None:
+            routes.append(list(calls))
+            calls.clear()
+
+    try:
+        with torch.no_grad():
+            lg, caches = lm.prefill(params, cfg, pc, prompts, max_len=prompts.shape[1] + new)
+            rows = [lg[:, -1].float()]
+            toks = [rows[-1].argmax(-1)]
+            step_done()
+            for i in range(new - 1):
+                lg, caches = lm.decode_step(params, caches, cfg, pc, toks[-1][:, None], prompts.shape[1] + i)
+                rows.append(lg[:, 0].float())
+                toks.append(rows[-1].argmax(-1))
+                step_done()
+    finally:
+        restore()
     return torch.stack(toks, 1), torch.stack(rows, 1)
+
+
+def _record_router_logits():
+    """Record every MoE router call of ``nn/moe`` (prefill and decode): its
+    float32 router logits and top-k ids, on the CPU; returns (the list, a
+    function that restores the router)."""
+    import torch
+
+    from repro_torch.nn import moe as moe_block
+
+    calls, router = [], moe_block.moe_router
+
+    def recording(x, w_router, **kw):
+        ids, wts, aux = router(x, w_router, **kw)
+        calls.append((torch.matmul(x.float(), w_router.float()).cpu(), ids.cpu()))  # moe_router's own logits
+        return ids, wts, aux
+
+    moe_block.moe_router = recording
+    return calls, lambda: setattr(moe_block, "moe_router", router)
+
+
+def _routing_flip(b: int, routes, ref_routes, horizon: int):
+    """Row ``b``'s first MoE routing difference in steps before ``horizon``
+    (each step's router calls from :func:`_record_router_logits`, the prefill's
+    laid out [W, B, s_loc, E] on both sides, a decode step's [B, E]): None,
+    or (step, layer, the record of its first differing token: the two
+    experts swapped, their router-logit gap on each side, the token's
+    max|router-logit diff| and the call's max|router logit|)."""
+    for t in range(horizon):
+        for layer, ((lg, ids), (ref_lg, ref_ids)) in enumerate(zip(routes[t], ref_routes[t])):
+            if t == 0:  # the prefill: row b's tokens of every rank, [W * s_loc, ...]
+                lg, ids, ref_lg, ref_ids = (v[:, b].reshape(-1, v.shape[-1]) for v in (lg, ids, ref_lg, ref_ids))
+            else:
+                lg, ids, ref_lg, ref_ids = lg[b : b + 1], ids[b : b + 1], ref_lg[b : b + 1], ref_ids[b : b + 1]
+            bad = (ids != ref_ids).any(-1).nonzero()
+            if not len(bad):
+                continue
+            i = int(bad[0])
+            j = int((ids[i] != ref_ids[i]).nonzero()[0])
+            a, z = int(ref_ids[i, j]), int(ids[i, j])  # the one-card run's expert, the cards'
+            return t, layer, {
+                "experts": (a, z), "gap_one_card": float(ref_lg[i, a] - ref_lg[i, z]),
+                "gap_cards": float(lg[i, z] - lg[i, a]), "router_diff": float((lg[i] - ref_lg[i]).abs().max()),
+                "router_max": float(ref_lg.abs().max()),
+            }  # fmt: skip
+    return None
+
+
+def _hold_greedy_routed(tokens, rows, routes, ref_tokens, ref_rows, ref_routes) -> dict:
+    """The MoE model's greedy tokens over the cards against the one-card
+    run's (:func:`_hold_greedy`), where a routing choice may flip too.  Per
+    row, while both decode the same context (up to its first differing
+    token): the first step whose MoE routing differs (:func:`_routing_flip`)
+    must be a near tie under rounding, its router logits differing by at
+    most TOL of their max and each run's expert within twice that
+    difference of the other's; the logits before that step within TOL of
+    their max, and a token that differs before it a near tie of the logits
+    (:func:`_hold_greedy`).  From the flip on, the logits and tokens are
+    recorded, not held (another expert is another sum).  Returns the
+    record."""
+    new = ref_tokens.shape[1]
+    rec = {"rows": []}
+    for b in range(ref_tokens.shape[0]):
+        diff = (tokens[b] != ref_tokens[b]).nonzero()
+        horizon = int(diff[0]) + 1 if len(diff) else new  # steps that decode the same context
+        flip = _routing_flip(b, routes, ref_routes, horizon)
+        if flip is not None:
+            t, layer, at = flip
+            print(f"[tp_gpus] greedy row {b}: the first MoE routing difference at step {t} (0: the prefill), MoE "
+                  f"layer {layer}: one card expert {at['experts'][0]}, the cards {at['experts'][1]}; router-logit "
+                  f"gaps {at['gap_one_card']:.3e} / {at['gap_cards']:.3e}, the token's max|router-logit diff| "
+                  f"{at['router_diff']:.3e} (max|router logit| {at['router_max']:.3e})")  # fmt: skip
+            tie = at["gap_one_card"] <= 2 * at["router_diff"] and at["gap_cards"] <= 2 * at["router_diff"]
+            if not (tie and at["router_diff"] <= TOL["bfloat16"] * at["router_max"]):
+                raise SystemExit(f"chip_smoke: tp_gpus greedy row {b}: the routing flip at step {t} layer {layer} is "
+                                 f"not a near tie under rounding: {at}")  # fmt: skip
+        held_to = new if flip is None else flip[0]
+        row = {"max_abs_logit_diff_before": 0.0, "max_abs_logit": ref_rows[b].abs().max().item()}
+        if held_to:
+            row = _hold_greedy(tokens[b : b + 1, :held_to], rows[b : b + 1, :held_to], ref_tokens[b : b + 1, :held_to],
+                               ref_rows[b : b + 1, :held_to])["rows"][0]  # fmt: skip
+        first = (tokens[b] != ref_tokens[b]).nonzero()
+        row.update(first_diff=int(first[0]) if len(first) else None, held_steps=held_to,
+                   routing_flip=None if flip is None else {"step": flip[0], "layer": flip[1], **flip[2]},
+                   max_abs_logit_diff=(rows[b] - ref_rows[b]).abs().max().item())  # fmt: skip
+        rec["rows"].append(row)
+    rec["equal_rows"] = sum(r["first_diff"] is None for r in rec["rows"])
+    return rec
 
 
 def _hold_greedy(tokens, rows, ref_tokens, ref_rows) -> dict:
@@ -2119,8 +2233,9 @@ def _hold_greedy(tokens, rows, ref_tokens, ref_rows) -> dict:
         diff = (tokens[b] != ref_tokens[b]).nonzero()
         t = int(diff[0]) if len(diff) else ref_tokens.shape[1]
         before = (rows[b, :t] - ref_rows[b, :t]).abs().max().item() if t else 0.0
-        row = {"first_diff": None if t == ref_tokens.shape[1] else t, "max_abs_logit_diff_before": before}
-        if before > TOL["bfloat16"] * ref_rows[b].abs().max().item():
+        row = {"first_diff": None if t == ref_tokens.shape[1] else t, "max_abs_logit_diff_before": before,
+               "max_abs_logit": ref_rows[b].abs().max().item()}  # fmt: skip
+        if before > TOL["bfloat16"] * row["max_abs_logit"]:
             raise SystemExit(f"chip_smoke: tp_gpus greedy row {b}: logits differ by {before} before any token does")
         if row["first_diff"] is not None:
             a, z = int(ref_tokens[b, t]), int(tokens[b, t])
@@ -2196,6 +2311,8 @@ def _tp_gpus_worker(tp, spec: dict) -> dict:
     out["paper"] = paper_mlp.process_rows(tp, spec["paper"])
     torch.cuda.empty_cache()
     out["train"] = _tp_train_worker(tp, spec["train"])
+    torch.cuda.empty_cache()
+    out["moe"] = _tp_moe_worker(tp, spec["moe"])
     return out
 
 
@@ -2536,12 +2653,13 @@ def _hold_tp_train(got: list, refs: dict, procs: int, fail: list) -> dict:
     return out
 
 
-# Fig. 11's dense rows in the tp_gpus phase's (d), smallest first, so a row that fails leaves the smaller ones read
-TP_E2E_ARCHS = (ARCH, "starcoder2-7b", ARCH_G, "qwen2-72b")
+# Fig. 11's rows in the tp_gpus phase's (d) (dense, smallest first, so a row that fails leaves the smaller ones read)
+# and (i) (the MoE rows, last)
+TP_E2E_ARCHS = (ARCH, "starcoder2-7b", ARCH_G, "qwen2-72b", ARCH_MOE, ARCH_DS)
 
 
 def _hold_tp_e2e(procs: int, fail: list) -> dict:
-    """(d): Fig. 11's dense rows at ``paper_e2e.DEPTH_PROCS`` over the cards
+    """(d) and (i): Fig. 11's rows at ``paper_e2e.DEPTH_PROCS`` over the cards
     (``paper_e2e.procs_rows``, a spawn of its own, TP_E2E_WARMUP warm-up
     steps and TP_E2E_PAIRS timed pairs a mode): launches a process a step
     equal to ``expected_launches``, the first-step losses within the
@@ -2555,7 +2673,7 @@ def _hold_tp_e2e(procs: int, fail: list) -> dict:
     out = {}
     for row in paper_e2e.procs_rows(procs, TP_E2E_ARCHS, pairs=TP_E2E_PAIRS, warmup=TP_E2E_WARMUP):
         arch = row["arch"]
-        cfg = paper_e2e.e2e_config(arch, paper_e2e.DEPTH_PROCS[arch])
+        cfg = paper_e2e.e2e_config(arch, row["layers"])
         print(f"[tp_gpus] {paper_e2e.describe(row)}; peak by card "
               f"{[round(b / 2**30, 2) for b in row['peak_bytes_by_card']]} GiB, the receive pools by card "
               f"{[round(b / 2**20, 1) for b in row['pool_bytes_by_card']]} MiB")  # fmt: skip
@@ -2661,10 +2779,12 @@ def phase_tp_gpus(smi: str) -> dict:
     ref_engine = serve.serve("smollm-360m", world=TP_WORLD, dtype="bf16", device=dev, **TP_ENGINE)
     torch.cuda.empty_cache()
     train_refs = _tp_train_refs(dev)
+    moe_refs = _tp_moe_refs(dev)
     # the processes, one a card
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="tp-ckpt-") as ckpt_dir:
-        spec = {"shapes": shapes, "engine": TP_ENGINE, "paper": list(PAPER_MLP), "train": {"ckpt_dir": ckpt_dir}}
+        spec = {"shapes": shapes, "engine": TP_ENGINE, "paper": list(PAPER_MLP), "train": {"ckpt_dir": ckpt_dir},
+                "moe": {"engine": TP_ENGINE}}  # fmt: skip
         got = serve.run_tp(this._tp_gpus_worker, TP_WORLD, procs, dev, args=(spec,))
     spawn_s = time.perf_counter() - t0
     held = TP_WORLD // procs
@@ -2727,10 +2847,467 @@ def phase_tp_gpus(smi: str) -> dict:
     # (e)-(h) training across the cards; every hold printed before the phase fails on any
     fail = []
     out["train"] = _hold_tp_train(got, train_refs, procs, fail)
+    out["moe"] = _hold_tp_moe(got, moe_refs, procs, fail)
     del got
-    out["train"]["e2e"] = _hold_tp_e2e(procs, fail)
+    try:
+        out["train"]["e2e"] = _hold_tp_e2e(procs, fail)
+    except Exception as e:  # a failed row's spawn: every other hold is still printed before the phase fails
+        fail.append(f"(d)/(i) Fig. 11 across the cards: {type(e).__name__}: {e}")
     if fail:
-        raise SystemExit("chip_smoke: tp_gpus training: " + "; ".join(fail))
+        raise SystemExit("chip_smoke: tp_gpus: " + "; ".join(fail))
+    return out
+
+
+# MoE across the cards (the tp_gpus phase's (e)-(h)): (e) deepseek's f32 checks at this depth, its layer checks at
+# these capacity factors; (g) granite's f32 step at this depth, its gradients held to TP_GRAD_RTOL
+TP_MOE_F32_LAYERS = 4
+TP_MOE_CF = (1.25, 0.25)
+TP_MOE_TOKENS = 512  # (e)'s layer input: tokens a rank and batch row (deepseek's capacity 64, then 16: 0.25 drops)
+TP_MOE_TRAIN_F32_LAYERS = 2
+TP_MOE_FORCED = 4  # (e)'s teacher-forced decode steps
+
+
+def _moe_layer_outputs(world, cfg, layer, x) -> dict:
+    """(e): one MoE block's routed path in float32 on the fused backend, the
+    double ring (``ag_moe``) and the a2a pair, at each of TP_MOE_CF, on the
+    block's normed input ``x``: the outputs and the kept (token, k) sets of
+    every dispatch table built, on the CPU."""
+    from repro_torch.core.channels import BlockChannel
+    from repro_torch.core.compiler import A2A_SEQ, compile_overlap
+    from repro_torch.core.moe_overlap import moe_router
+    from repro_torch.nn.layers import ACTS, rms_norm
+
+    h = rms_norm(x, layer["ln"], cfg.norm_eps)
+    ids, wts, _ = moe_router(h, layer["router"], num_experts=layer["w_gu"].shape[1] * world.size,
+                             top_k=cfg.moe.top_k, valid_experts=cfg.moe.num_experts)  # fmt: skip
+    out = {}
+    for cf in TP_MOE_CF:
+        for kind, ops in (("ag_moe", "ag_moe"), ("a2a", list(A2A_SEQ))):
+            calls, restore = _record_kept()
+            try:
+                y = compile_overlap(ops, BlockChannel(axis="model"), world=world, backend="fused")(
+                    h, ids, wts, layer["w_gu"], layer["w_down"], capacity_factor=cf, act=ACTS[cfg.act])  # fmt: skip
+            finally:
+                restore()
+            out[(kind, cf)] = {"out": y.cpu(), "kept": [c.cpu() for c in calls]}
+    return out
+
+
+def _moe_inputs(cfg, dev):
+    """(e)'s operands: every rank's [W, 2, TP_MOE_TOKENS, d] input of the MoE
+    block (seeded, float32) and the prompts."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((TP_WORLD, 2, TP_MOE_TOKENS, cfg.d_model), generator=g, device=dev)
+    return x, torch.as_tensor(serve.make_prompts(cfg.vocab_size, BATCH, PROMPT, 0), device=dev)
+
+
+def _ds_f32(world, dev, procs_rank: int = 0) -> dict:
+    """(e) on ``world``: deepseek at TP_MOE_F32_LAYERS in float32, its first
+    MoE layer's outputs and kept sets (:func:`_moe_layer_outputs`), the
+    prefill logits in TP and EP, and TP_MOE_FORCED teacher-forced decode
+    steps' logits in both MoE decode forms (``nn/moe.apply_decode`` over
+    the held ranks, gathered and streamed; process 0's on the CPU, every
+    process's sum)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    cfg = dataclasses.replace(get_config(ARCH_DS), n_layers=TP_MOE_F32_LAYERS)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    x, prompts = _moe_inputs(cfg, dev)
+    x = x[world.rank0 : world.rank0 + world.held].contiguous()
+    i = next(i for i, d in enumerate(lm.layer_plan(cfg)) if d.ffn_kind == "moe")
+    out = {"layer": _moe_layer_outputs(world, cfg, params["layers"][i]["ffn"], x), "logits": {}, "logits_sum": {},
+           "decode": {}, "decode_sum": {}}  # fmt: skip
+    with torch.no_grad():
+        for ep in (None, "model"):
+            lg, _ = lm.prefill(params, cfg, ParallelContext(world=world, ep_axis=ep), prompts, max_len=PROMPT + TP_NEW)
+            out["logits"][ep] = lg.cpu() if procs_rank == 0 else None
+            out["logits_sum"][ep] = float(lg.double().sum())
+            del lg
+        # the decode, teacher-forced (both worlds decode one context): its logits in both MoE decode forms
+        forced = torch.as_tensor(serve.make_prompts(cfg.vocab_size, BATCH, TP_MOE_FORCED, 1), device=dev)
+        for stream in (False, True):
+            pc = ParallelContext(world=world, moe_decode_stream=stream)
+            _, caches = lm.prefill(params, cfg, pc, prompts, max_len=PROMPT + TP_MOE_FORCED)
+            rows = []
+            for i in range(TP_MOE_FORCED):
+                lg, caches = lm.decode_step(params, caches, cfg, pc, forced[:, i : i + 1], PROMPT + i)
+                rows.append(lg[:, 0])
+            rows = torch.stack(rows, 1)
+            out["decode"][stream] = rows.cpu() if procs_rank == 0 else None
+            out["decode_sum"][stream] = float(rows.double().sum())
+            del caches, rows
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ds_greedy(world, dev) -> dict:
+    """(f) on ``world``: deepseek-moe-16b at its published depth in bf16, 4 x
+    256 prompts and TP_NEW greedy tokens with the gathered and the streamed
+    MoE decode (``serve.greedy``, then its replay with the logits kept):
+    tokens, logits, timings, launches and peak device memory."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.benchmarks.common import event_ms
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+
+    cfg = get_config(ARCH_DS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.bfloat16)
+    _, prompts = _moe_inputs(cfg, dev)
+    out = {"layers": cfg.n_layers}
+    for stream in (False, True):
+        pc = ParallelContext(world=world, moe_decode_stream=stream)
+        K.reset_launch_counts()
+        with torch.no_grad(), world.counting() as counter:
+            tokens, timing = serve.greedy(params, cfg, pc, prompts, TP_NEW)
+        torch.cuda.synchronize(dev)
+        launches = K.launch_counts()
+        out[f"payload_{stream}"] = {k: dict(v) for k, v in counter.payload.items() if v}
+        routes = []
+        toks, rows = _greedy_logits(params, cfg, pc, prompts, TP_NEW, routes)
+        if not torch.equal(toks, tokens):
+            raise SystemExit(f"chip_smoke: tp_gpus deepseek greedy (stream {stream}): serve.greedy and its replay "
+                             "disagree")  # fmt: skip
+        out["stream" if stream else "gather"] = {"tokens": toks.cpu(), "rows": rows.cpu(), "timing": timing,
+                                                 "launches": launches, "routes": routes}  # fmt: skip
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    # one decode psum at the decode's shape ([held, B, d], bf16): its time a call (CUDA events)
+    part = torch.zeros((world.held, BATCH, cfg.d_model), dtype=torch.bfloat16, device=dev)
+    out["psum_ms"] = event_ms(lambda: world.psum(part), ITERS)[0]
+    out["psum_call_bytes"] = BATCH * cfg.d_model * 2
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _granite_f32_step(world, dev) -> dict:
+    """(g)'s float32 step on ``world``: granite at TP_MOE_TRAIN_F32_LAYERS,
+    the train phase's batch, on the fused backend: loss, gradients (after
+    the kv sync and the masks; over processes ``tp_procs_grads``), their
+    roles and the step's launches."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.training.optimizer import apply_masks
+    from repro_torch.training.steps import loss_and_grads, tp_procs_grads
+
+    cfg = dataclasses.replace(get_config(ARCH_MOE), n_layers=TP_MOE_TRAIN_F32_LAYERS)
+    pc = ParallelContext(world=world)
+    params = lm.init(cfg, world, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH).host_batch()
+    K.reset_launch_counts()
+    if world.nprocs > 1:
+        loss, _, _, grads, _ = tp_procs_grads(lm, cfg, pc, params, batch, grad_masks=lm.grad_masks(cfg, pc))
+    else:
+        loss, _, _, grads = loss_and_grads(lm, cfg, pc, params, batch)
+        grads = apply_masks(lm.sync_grads(grads, cfg, pc), lm.grad_masks(cfg, pc))
+    torch.cuda.synchronize(dev)
+    out = {"loss": loss.cpu(), "grads": [g.cpu() for g in _leaves(grads)], "roles": _leaves(lm.proc_roles(grads, cfg)),
+           "names": _leaf_names(grads), "launches": K.launch_counts()}  # fmt: skip
+    del params, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_grouped_cases(tp) -> dict:
+    """Kernel #5 on a card of the four-card path: deepseek's expert GEMMs of
+    one ring step at 4 x 256 tokens, the held ranks' groups only (held x
+    E_loc groups of B x cap rows), against its plain version and
+    ``kernels/ref`` (TOL), bf16 relaunches bitwise; kernel, plain and
+    ``torch.bmm`` times (CUDA events), the bound of this card's work."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels.grouped_matmul import group_tile_table
+
+    shp, dev, bf16 = path_shapes(ARCH_DS), tp.device, torch.bfloat16
+    groups, rows = tp.held * shp["e_loc"], BATCH * shp["cap"]
+    table = group_tile_table(groups, rows, dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    quiet = contextlib.redirect_stdout(io.StringIO()) if tp.procs.rank else contextlib.nullcontext()
+    with quiet:
+        for tag, k, n, out_dt in (("gate_up", shp["d"], 2 * shp["fe"], torch.float32), ("down", shp["fe"], shp["d"], bf16)):
+            x = torch.randn((groups * rows, k), generator=g, device=dev).to(bf16)
+            w = (torch.randn((groups, k, n), generator=g, device=dev) * k**-0.5).to(bf16)
+            osz = torch.tensor([], dtype=out_dt).element_size()
+            out[tag] = _case(
+                f"grouped_matmul[{ARCH_DS} {tag}, card {tp.procs.rank} of {tp.nprocs}: {groups} groups x {rows} rows] "
+                f"x{list(x.shape)} w{list(w.shape)} -> {str(out_dt)[6:]}", bf16,
+                lambda: K.grouped_matmul(x, w, table, out_dtype=out_dt), lambda: K.grouped_matmul_plain(x, w, table, out_dt),
+                lambda: torch.bmm(x.view(groups, rows, k), w), 2 * x.shape[0] * k * n,
+                2 * (x.numel() + w.numel()) + osz * x.shape[0] * n, ITERS, launch=lambda: K.grouped_matmul.last_launch,
+                bitwise=True, ref=lambda: _grouped_ref(x, w, table, out_dt),
+            )  # fmt: skip
+            del x, w
+    return out
+
+
+def _tp_moe_worker(tp, spec: dict) -> dict:
+    """The MoE part of a tp_gpus process: (e) deepseek's f32 layer and prefill
+    (:func:`_ds_f32`); (f) deepseek-moe-16b at its 28 layers in bf16, greedy
+    with both decodes (:func:`_ds_greedy`) and the serve CLI's engine
+    (``serve.serve_tp``, the streamed decode); (g) granite's f32 step at 2
+    layers, then TRAIN_STEPS bf16 steps at 32 layers through
+    ``launch/train.train_tp``; (h) Fig. 9 at W = 4 over the cards
+    (``paper_moe.process_rows``); kernel #5 at the four-card shapes, last (its
+    profiler sessions slow what follows them)."""
+    import torch
+
+    from repro_torch.benchmarks import paper_moe
+    from repro_torch.configs.paper import PAPER_MOE
+    from repro_torch.kernels import peer
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as train_cli
+
+    dev = tp.device
+    out = {"f32": _ds_f32(tp, dev, tp.procs.rank)}
+    peer.release(tp.procs.barrier)
+    out["greedy"] = _ds_greedy(tp, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out["engine"] = serve.serve_tp(tp, ARCH_DS, dict(spec["engine"], world=TP_WORLD, dtype="bf16", reduce=False,
+                                                     temperature=0.0, top_k=0, eos_id=None, moe_stream=True,
+                                                     mode="overlap", ckpt_dir=None))  # fmt: skip
+    out["engine"]["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    peer.release(tp.procs.barrier)
+    torch.cuda.empty_cache()
+    out["train_f32"] = _granite_f32_step(tp, dev)
+    peer.release(tp.procs.barrier)
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, reduce=False, layers=None, mode="overlap",
+              remat="none", ckpt_dir=None, ckpt_every=0, lr=3e-4, dtype="bf16", world=TP_WORLD, log_every=10,
+              resume=False, time_data=False)  # fmt: skip
+    out["train"] = train_cli.train_tp(tp, ARCH_MOE, kw)
+    out["train"]["pool_bytes"] = peer.pool_bytes(dev)
+    peer.release(tp.procs.barrier)
+    torch.cuda.empty_cache()
+    out["paper"] = paper_moe.process_rows(tp, list(PAPER_MOE))
+    torch.cuda.empty_cache()
+    out["grouped"] = _tp_grouped_cases(tp)
+    return out
+
+
+def _tp_moe_refs(dev) -> dict:
+    """The emulated W on card 0 for the MoE holds: (e) deepseek's f32 layer
+    and prefill, (f) its bf16 greedy at 28 layers with both decodes, (g)
+    granite's f32 step, fused and eager."""
+    import torch
+
+    from repro_torch.backend.mesh import World
+
+    one = World(TP_WORLD, dev)
+    refs = {"f32": _ds_f32(one, dev), "greedy": _ds_greedy(one, dev), "train_f32": _granite_f32_step(one, dev)}
+    torch.cuda.empty_cache()
+    return refs
+
+
+def _hold_tp_moe(got: list, refs: dict, procs: int, fail: list) -> dict:
+    """The MoE holds of the tp_gpus phase ((e)-(h) and kernel #5 across the
+    cards), each failure appended to ``fail``; (i), Fig. 11's MoE rows, is in
+    :func:`_hold_tp_e2e`."""
+    import torch
+
+    from repro_torch.benchmarks import paper_e2e, paper_mlp, paper_moe
+    from repro_torch.configs import get_config
+
+    held = TP_WORLD // procs
+    total = torch.cuda.get_device_properties(0).total_memory
+    moe = [g["moe"] for g in got]
+    out = {}
+    # (e) the layer: outputs and kept sets against the emulated run; the prefill logits
+    layer, n_out, n_bit, kept_bad, out_bad, drops = {}, 0, 0, [], [], {}
+    for key, want in refs["f32"]["layer"].items():
+        errs = []
+        for p, m in enumerate(moe):
+            r = m["f32"]["layer"][key]
+            w_out = want["out"][p * held : (p + 1) * held]
+            n_out += 1
+            n_bit += int(torch.equal(r["out"], w_out))
+            errs.append((r["out"] - w_out).abs().max().item() / max(w_out.abs().max().item(), 1e-30))
+            if len(r["kept"]) != len(want["kept"]) or not all(
+                    torch.equal(a, b[p * held : (p + 1) * held]) for a, b in zip(r["kept"], want["kept"])):  # fmt: skip
+                kept_bad.append((key, p))
+        routed = sum(int(k.sum()) for k in want["kept"])
+        drops[key] = routed
+        layer[f"{key[0]} cf {key[1]}"] = {"rel_err": max(errs), "kept_pairs": routed}
+        if max(errs) > TP_GRAD_RTOL:
+            out_bad.append((key, max(errs)))
+    kept_all = {cf: drops[("ag_moe", cf)] for cf in TP_MOE_CF}
+    rel_by_case = {k: round(v["rel_err"], 12) for k, v in layer.items()}
+    print(f"[tp_gpus] (e) deepseek MoE layer f32 over {procs} cards, TP (ag_moe) and EP (a2a) at capacity factors "
+          f"{TP_MOE_CF}: {n_bit} of {n_out} (case, process) outputs bitwise the emulated W = {TP_WORLD} on card 0; worst "
+          f"max|diff| / max|emulated| by case {rel_by_case} (bound "
+          f"{TP_GRAD_RTOL:g}); kept (token, k) sets equal to the emulated run's in every dispatch table: "
+          f"{not kept_bad}; kept pairs (ag_moe) by capacity factor {kept_all}")  # fmt: skip
+    if kept_bad or out_bad or not kept_all[TP_MOE_CF[-1]] < kept_all[TP_MOE_CF[0]]:
+        fail.append(f"(e) MoE layer: kept sets differ {kept_bad[:4]}, outputs {out_bad[:4]}, kept {kept_all}")
+    logit_rec = {}
+    for ep in (None, "model"):
+        lg, ref = moe[0]["f32"]["logits"][ep], refs["f32"]["logits"][ep]
+        err = (lg - ref).abs()
+        worst = float((err - (LOGIT_ATOL + LOGIT_RTOL * ref.abs())).max())
+        sums = [m["f32"]["logits_sum"][ep] for m in moe]
+        logit_rec["EP" if ep else "TP"] = {"bitwise": bool(torch.equal(lg, ref)), "max_abs_err": float(err.max()),
+                                           "worst_minus_bound": worst, "sums_equal": len(set(sums)) == 1}  # fmt: skip
+        if not (bool(torch.isfinite(lg).all()) and worst <= 0 and len(set(sums)) == 1):
+            fail.append(f"(e) deepseek f32 prefill ({'EP' if ep else 'TP'}): worst {worst}, sums {sums}")
+    print(f"[tp_gpus] (e) deepseek f32 prefill ({TP_MOE_F32_LAYERS} layers, {BATCH} x {PROMPT}) over {procs} cards vs "
+          f"the emulated W = {TP_WORLD}: {logit_rec} (bound {LOGIT_ATOL:g} + {LOGIT_RTOL:g} |ref|)")  # fmt: skip
+    decode_rec = {}
+    for stream in (False, True):
+        lg, ref = moe[0]["f32"]["decode"][stream], refs["f32"]["decode"][stream]
+        err = (lg - ref).abs()
+        worst = float((err - (LOGIT_ATOL + LOGIT_RTOL * ref.abs())).max())
+        sums = [m["f32"]["decode_sum"][stream] for m in moe]
+        form = "stream" if stream else "gather"
+        decode_rec[form] = {"bitwise": bool(torch.equal(lg, ref)), "max_abs_err": float(err.max()),
+                            "worst_minus_bound": worst, "sums_equal": len(set(sums)) == 1}  # fmt: skip
+        if not (bool(torch.isfinite(lg).all()) and worst <= 0 and len(set(sums)) == 1):
+            fail.append(f"(e) deepseek f32 decode ({form}): worst {worst}, sums {sums}")
+    print(f"[tp_gpus] (e) deepseek f32 decode ({TP_MOE_F32_LAYERS} layers, {TP_MOE_FORCED} teacher-forced steps after "
+          f"the {BATCH} x {PROMPT} prefill) over {procs} cards vs the emulated W = {TP_WORLD}, gathered and streamed MoE "
+          f"decode: {decode_rec} (bound {LOGIT_ATOL:g} + {LOGIT_RTOL:g} |ref|)")  # fmt: skip
+    out["e"] = {"layer": layer, "outputs_bitwise": [n_bit, n_out], "kept_equal": not kept_bad, "kept_pairs": kept_all,
+                "prefill": logit_rec, "decode": decode_rec}  # fmt: skip
+    # (f) deepseek at 28 layers, bf16: greedy both decodes against the emulated run; the engine
+    g0, ref = moe[0]["greedy"], refs["greedy"]
+    rec = {"layers": g0["layers"], "peak_bytes": [m["greedy"]["peak_bytes"] for m in moe],
+           "peak_bytes_one_card": ref["peak_bytes"]}  # fmt: skip
+    for form in ("gather", "stream"):
+        if any(not torch.equal(m["greedy"][form]["tokens"], g0[form]["tokens"]) for m in moe):
+            fail.append(f"(f) deepseek greedy {form}: the processes' tokens differ")
+        routes = list(g0[form]["routes"])  # the prefill's routing: every process's held ranks, joined in rank order
+        routes[0] = [tuple(torch.cat([m["greedy"][form]["routes"][0][layer][i] for m in moe]) for i in (0, 1))
+                     for layer in range(len(routes[0]))]  # fmt: skip
+        try:
+            held_rec = _hold_greedy_routed(g0[form]["tokens"], g0[form]["rows"], routes, ref[form]["tokens"],
+                                           ref[form]["rows"], ref[form]["routes"])  # fmt: skip
+        except SystemExit as e:
+            fail.append(f"(f) deepseek greedy {form}: {e}")
+            held_rec = {"equal_rows": None, "rows": []}
+        rec[f"{form}_rows"] = held_rec["rows"]
+        t, t1 = g0[form]["timing"], ref[form]["timing"]
+        steps = t["decode_steps"]
+        rec[form] = {"equal_rows": held_rec["equal_rows"], "prefill_ms": t["prefill_s"] * 1e3,
+                     "decode_tokens_per_s": BATCH * steps / t["decode_s"], "prefill_ms_one_card": t1["prefill_s"] * 1e3,
+                     "decode_tokens_per_s_one_card": BATCH * steps / t1["decode_s"], "launches": g0[form]["launches"],
+                     "launches_one_card": ref[form]["launches"]}  # fmt: skip
+        if any(m["greedy"][form]["launches"] != ref[form]["launches"] for m in moe):
+            fail.append(f"(f) deepseek greedy {form}: launches {[m['greedy'][form]['launches'] for m in moe]} vs the "
+                        f"one-card run's {ref[form]['launches']}")  # fmt: skip
+    # the decode's psums over the cards: each gathers every rank's partial (W x an all-reduce's payload)
+    pay = g0["payload_False"].get("psum", {})
+    calls = sum(pay.values()) / g0["psum_call_bytes"] / (TP_NEW - 1)  # the decode steps' (the prefill's: aux scalars)
+    rec["psum"] = {"payload": g0["payload_False"], "calls_per_token_step": calls,
+                   "ms_per_call": [m["greedy"]["psum_ms"] for m in moe], "ms_per_call_one_card": ref["psum_ms"]}
+    print(f"[tp_gpus] (f) the decode's psums over {procs} cards: {calls:.1f} a greedy step at [{held}, {BATCH}, "
+          f"{get_config(ARCH_DS).d_model}] bf16 (a rank's psum payload {pay}), {max(rec['psum']['ms_per_call']):.4f} "
+          f"ms a call on the slowest card (one card emulated {ref['psum_ms']:.4f} ms): about "
+          f"{calls * max(rec['psum']['ms_per_call']):.1f} ms a decode step")  # fmt: skip
+    eng = moe[0]["engine"]
+    rec["engine"] = {k: eng[k] for k in ("tokens_per_s", "steps", "host_syncs", "graph_captures", "launches", "seconds")}
+    rec["engine"]["peak_bytes"] = [m["engine"]["peak_bytes"] for m in moe]
+    if any((m["engine"]["tokens"] != eng["tokens"]).any() for m in moe) or max(rec["peak_bytes"]) >= total:
+        fail.append(f"(f) deepseek engine tokens differ across processes, or peak {rec['peak_bytes']}")
+    for form in ("gather", "stream"):
+        r = rec[form]
+        print(f"[tp_gpus] (f) bf16 {ARCH_DS} ({rec['layers']} of {get_config(ARCH_DS).n_layers} layers) over {procs} "
+              f"cards, {form} MoE decode: greedy {BATCH} x {PROMPT} + {TP_NEW}: {r['equal_rows']} of {BATCH} rows equal "
+              f"to the emulated one-card run's (held up to each row's first routing flip, a near tie); prefill "
+              f"{r['prefill_ms']:.1f} ms (one card {r['prefill_ms_one_card']:.1f}), decode {r['decode_tokens_per_s']:.1f} "
+              f"tokens/s (one card {r['decode_tokens_per_s_one_card']:.1f}); launches a process {r['launches']}; by row "
+              f"(first differing token, steps held, max|logit diff| in them, over all steps, max|logit|, the routing "
+              f"flip's (step, layer)) {[(x['first_diff'], x['held_steps'], round(x['max_abs_logit_diff_before'], 4), round(x['max_abs_logit_diff'], 4), round(x['max_abs_logit'], 2), x['routing_flip'] and (x['routing_flip']['step'], x['routing_flip']['layer'])) for x in rec[f'{form}_rows']]}")  # fmt: skip
+    print(f"[tp_gpus] (f) the serve CLI's engine over {procs} cards (eager, streamed MoE decode): "
+          f"{rec['engine']['tokens_per_s']:.1f} tokens/s, {rec['engine']['steps']} steps, launches "
+          f"{rec['engine']['launches']}; peak by card {[round(b / 2**20) for b in rec['peak_bytes']]} MiB greedy, "
+          f"{[round(b / 2**20) for b in rec['engine']['peak_bytes']]} MiB engine, one card (W = {TP_WORLD} emulated) "
+          f"{round(rec['peak_bytes_one_card'] / 2**20)} MiB")  # fmt: skip
+    out["f"] = rec
+    # (g) granite: the f32 step against the emulated step, then 30 bf16 steps at 32 layers
+    f32 = [m["train_f32"] for m in moe]
+    emu, roles, names = refs["train_f32"], f32[0]["roles"], f32[0]["names"]
+    loss_bitwise = all(torch.equal(r["loss"], emu["loss"]) for r in f32)
+    worst, worst_leaf, bit, grad_bad, bitwise_names = 0.0, None, {}, [], set()
+    for p, r in enumerate(f32):
+        for i, (gr, role) in enumerate(zip(r["grads"], roles)):
+            e = emu["grads"][i][p * held : (p + 1) * held] if role == "held" else emu["grads"][i]
+            rel = (gr - e).abs().max().item() / max(e.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, worst_leaf = rel, (names[i], role)
+            same = bool(torch.equal(gr, e))
+            bit.setdefault(role, []).append(same)
+            if same:
+                bitwise_names.add(names[i])
+            if not (torch.isfinite(gr).all() and rel <= TP_GRAD_RTOL):
+                grad_bad.append((p, names[i], rel))
+    bitwise = {role: f"{sum(v)} of {len(v)}" for role, v in bit.items()}
+    bitwise_names = sorted(bitwise_names)
+    print(f"[tp_gpus] (g) f32 {ARCH_MOE} step over {procs} cards ({TP_MOE_TRAIN_F32_LAYERS} layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}): loss by process {[float(r['loss']) for r in f32]}, emulated {float(emu['loss'])!r} (bitwise: "
+          f"{loss_bitwise}); gradients' worst max|diff| / max|emulated| {worst:.3e} at {worst_leaf} (bound "
+          f"{TP_GRAD_RTOL:g}); bitwise by role (process x leaf) {bitwise}; the leaves bitwise on some process "
+          f"{bitwise_names}; launches of the step a process {f32[0]['launches']}")  # fmt: skip
+    if not loss_bitwise or grad_bad:
+        fail.append(f"(g) f32 step: loss bitwise {loss_bitwise}, gradients {grad_bad[:6]}")
+    cfg = get_config(ARCH_MOE)
+    expect = paper_e2e.expected_launches(cfg, "overlap")
+    runs = [m["train"] for m in moe]
+    hist = runs[0]["history"]
+    steps_bad = [(r["step"], r["launches"]) for r in hist if r["launches"] != expect]
+    totals_bad = [p for p, r in enumerate(runs) if r["launches"] != {k: v * TRAIN_STEPS for k, v in expect.items()}]
+    ce = [r["ce"] for r in hist]
+    first, last = sum(ce[:5]) / 5, sum(ce[-5:]) / 5
+    med = _median([r["ms"] for r in hist[TRAIN_WARMUP:]])
+    peaks = [r["peak_bytes"] for r in runs]
+    print(f"[tp_gpus] (g) bf16 {ARCH_MOE} ({cfg.n_layers} layers) W = {TP_WORLD} over {procs} cards, {TRAIN_STEPS} "
+          f"steps of {TRAIN_BATCH} x {TRAIN_SEQ}: launches a process a step {hist[0]['launches']} (expected {expect}), "
+          f"mean ce of the first 5 steps {first:.4f}, of the last 5 {last:.4f} (held: more than 0.2 lower); step "
+          f"{med:.2f} ms (median of steps {TRAIN_WARMUP}-{TRAIN_STEPS - 1}, CUDA events on card 0), "
+          f"{TRAIN_BATCH * TRAIN_SEQ / (med / 1e3):.0f} tokens/s, peak by card {[round(b / 2**20) for b in peaks]} MiB, "
+          f"receive pools {[round(r['pool_bytes'] / 2**20, 1) for r in runs]} MiB")  # fmt: skip
+    if steps_bad or totals_bad or not last < first - 0.2 or not all(map(math.isfinite, ce)) or max(peaks) >= total:
+        fail.append(f"(g) bf16 train: launches {steps_bad[:3]} / processes {totals_bad}, ce {first} -> {last}, "
+                    f"peak {peaks}")  # fmt: skip
+    out["g"] = {"f32": {"loss_bitwise": loss_bitwise, "grad_rel_err": worst, "worst_leaf": worst_leaf,
+                        "bitwise_by_role": bitwise, "bitwise_leaves": bitwise_names},
+                "bf16": {"ce": ce, "median_step_ms": med, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (med / 1e3),
+                         "peak_bytes": peaks, "per_step": expect, "counts": runs[0]["launches"]}}  # fmt: skip
+    # (h) Fig. 9 at W = 4 over the cards
+    rows = paper_mlp.combine_rows([m["paper"] for m in moe])
+    for r in rows:
+        print(f"[tp_gpus] (h) {paper_moe.describe(r)}")
+        if r["grouped_launches"] != 2 * TP_WORLD or r["peak_mib"] * 2**20 >= total:
+            fail.append(f"(h) Fig. 9 {r['case']}: grouped launches {r['grouped_launches']}, peak {r['peak_mib']} MiB")
+    out["h"] = rows
+    # kernel #5 across the cards: each case from its slowest card
+    grouped = {}
+    for tag in moe[0]["grouped"]:
+        recs = [m["grouped"][tag] for m in moe]
+        grouped[tag] = {k: max(r[k] for r in recs) for k in ("ms", "plain_ms", "library_ms", "max_abs_err")}
+        grouped[tag].update(bound_ms=recs[0]["bound_ms"], bound_by=recs[0]["bound_by"], case=recs[0]["case"])
+        print(f"[tp_gpus] kernel #5 across the cards, {tag} (the slowest card): {grouped[tag]}")
+    out["grouped"] = grouped
     return out
 
 
@@ -6419,6 +6996,10 @@ def main(argv=None) -> int:
             "train_checks": {(a if t == "autograd" else f"{a} {t}"): recs[(n, a, t, d)]["max_abs_err"].get(name, {})
                              for n, a, t, d in recs if n == "train"},
         })  # fmt: skip
+        if name == "grouped_matmul":  # across the cards: the tp_gpus phase's cases, each from its slowest card
+            tg = out["tp_gpus"]
+            line[-1]["across_cards"] = tg["moe"]["grouped"] if tg["run"] else (
+                f"not run: {tg['cards']} card visible (chip_smoke.py --phases tp_gpus on four cards)")
         if name == "flash_attention":  # head dim 80 (zamba2's shared attention), bf16 on the wgmma route
             r80 = recs[(name, ARCH_Z, "prefill", bf16)]
             line[-1]["d80"] = {k: r80[k] for k in TIMES if k in r80}

@@ -42,12 +42,21 @@ at P = 1, where the collectives are indexing and sums: a value every
 process computes whole (a ``psum`` or ``unshard`` result, the input of
 ``shard``) gets its whole gradient on every process, and a rank-stacked
 value its held ranks' slices.  ``permute``'s adjoint is the inverse
-permute (sums where two destinations read one source), ``all_gather``'s a
+permute (sums where two destinations read one source, synchronous), ``all_gather``'s a
 reduce-scatter (each rank used its copy), ``reduce_scatter``'s an
 all-gather, ``psum``'s the replicated gradient on every held rank,
 ``unshard``'s this process's slice and ``shard``'s the all-gather of the
 held chunks' gradients.  The adjoints are not counted (the one-process
 World's backward counts nothing either).
+A permute may complete lazily (:meth:`World.permute_start`, which the
+overlap executors use): over processes its send / recv batch is issued
+and not waited on, and the returned :class:`Landing` waits where the
+landed tile is first read.  Under NCCL a wait makes the current stream
+wait for the transfer, so a wait taken at once (:meth:`World.permute`)
+would queue the step's compute, issued after the next step's permute,
+behind that transfer; under gloo the wait blocks the host.  Every process
+issues its transfers in one program order, so the NCCL calls match.  On
+one process a permute is an index copy, already landed.
 The fused kernels' peer route (``kernels/peer.py``) writes tiles straight
 into the peer cards' buffers; ``dist`` carries only their handles and the
 eager collectives.  With ``P = 1`` (``procs=None``) the world is the
@@ -94,7 +103,7 @@ import torch
 
 from repro_torch.backend.target import resolve_device
 
-__all__ = ["World", "DistWorld", "CommCounter", "KINDS", "STAGINGS", "GLOO_CUDA_STAGING", "permute_direction"]
+__all__ = ["World", "DistWorld", "Landing", "CommCounter", "KINDS", "STAGINGS", "GLOO_CUDA_STAGING", "permute_direction"]
 
 KINDS = ("permute", "psum", "all_gather", "reduce_scatter")  # the transport's collectives
 STAGINGS = ("direct", "host")  # how a DistWorld collective hands its tensors to the backend
@@ -139,6 +148,24 @@ class CommCounter:
         self.payload[kind][group] += nbytes
         if direction is not None:
             self.permute_dirs[direction] += nbytes
+
+
+class Landing:
+    """A permute's result whose transfers may still be in flight:
+    :meth:`wait` returns the tensor once they have landed (under NCCL the
+    current stream waits for them; under gloo the host does).  ``keep``
+    holds the tensors the transfers read until then."""
+
+    __slots__ = ("tensor", "works", "keep")
+
+    def __init__(self, tensor: torch.Tensor, works: Sequence = (), keep: Sequence = ()):
+        self.tensor, self.works, self.keep = tensor, list(works), list(keep)
+
+    def wait(self) -> torch.Tensor:
+        for work in self.works:
+            work.wait()
+        self.works, self.keep = [], []
+        return self.tensor
 
 
 def _rank_bytes(xs: torch.Tensor, ranks: int) -> int:
@@ -222,13 +249,19 @@ class World:
     # ---- collectives -----------------------------------------------------
     def permute(self, xs: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """``out[dst] = xs[src]`` for every (src, dst) pair (a ppermute; a
-        rank no pair names as destination takes rank 0's value).
+        rank no pair names as destination takes rank 0's value), landed.
 
         The index tensor is built once per (pairs, device) and cached, so a
         repeated permute issues no host-to-device copy (and a CUDA-graph
         capture may replay one whose index was built before it).  Over
         processes the pairs inside this process stay index copies and the
         others become one batch of send / recv."""
+        return self.permute_start(xs, pairs).wait()
+
+    def permute_start(self, xs: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> Landing:
+        """:meth:`permute` issued and not waited on (module docstring): its
+        :class:`Landing` waits for the transfers where the result is first
+        read.  On one process the result is an index copy, already landed."""
         self._check(xs)
         if self.counter is not None:
             self.counter.add("permute", _rank_bytes(xs, self.held), self.size, permute_direction(pairs))
@@ -236,12 +269,16 @@ class World:
         for src, dst in pairs:
             order[dst] = src
         if self.procs is None:
-            return xs[_perm_index(tuple(order), xs.device)]
-        return _Permute.apply(xs, self, tuple(order))
+            return Landing(xs[_perm_index(tuple(order), xs.device)])
+        pending = []
+        out = _Permute.apply(xs, self, tuple(order), pending)
+        return Landing(out, *pending)
 
-    def _permute_procs(self, xs: torch.Tensor, order: Tuple[int, ...]) -> torch.Tensor:
+    def _permute_procs(self, xs: torch.Tensor, order: Tuple[int, ...], pending: list):
         """``out[dst] = xs[order[dst]]`` over the processes: the pairs inside
-        this process index copies, the others one batch of send / recv."""
+        this process index copies, the others one batch of send / recv,
+        issued and not waited on: ``pending`` takes the batch's works and
+        the tensors it reads."""
         lo, hi = self.rank0, self.rank0 + self.held
         out = torch.empty_like(xs, memory_format=torch.contiguous_format)
         sends, recvs = [], []
@@ -252,7 +289,9 @@ class World:
                 sends.append((xs[src - lo].contiguous(), dst // self.held))
             elif lo <= dst < hi:
                 recvs.append((out[dst - lo], src // self.held))
-        self.procs.exchange(sends, recvs)
+        works = self.procs.exchange(sends, recvs, wait=False)
+        if works:
+            pending.extend((works, [t for t, _ in sends]))
         return out
 
     def _permute_adjoint(self, g: torch.Tensor, order: Tuple[int, ...]) -> torch.Tensor:
@@ -388,16 +427,18 @@ class _Shard(torch.autograd.Function):
 
 
 class _Permute(torch.autograd.Function):
-    """``World.permute`` over processes; its adjoint the inverse permute."""
+    """``World.permute_start`` over processes (``pending`` takes the
+    transfers' works; the output is read only after they are waited on);
+    its adjoint the inverse permute, synchronous."""
 
     @staticmethod
-    def forward(ctx, xs, world, order):
+    def forward(ctx, xs, world, order, pending):
         ctx.world, ctx.order = world, order
-        return world._permute_procs(xs, order)
+        return world._permute_procs(xs, order, pending)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.world._permute_adjoint(g, ctx.order), None, None
+        return ctx.world._permute_adjoint(g, ctx.order), None, None, None
 
 
 @functools.lru_cache(maxsize=1024)
@@ -576,18 +617,26 @@ class DistWorld:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]]):
+    def exchange(self, sends: Sequence[Tuple[torch.Tensor, int]], recvs: Sequence[Tuple[torch.Tensor, int]],
+                 wait: bool = True) -> list:  # fmt: skip
         """One batch of point-to-point transfers: each ``(tensor, peer)`` of
         ``sends`` goes to process ``peer``, each ``(buffer, peer)`` of
         ``recvs`` is filled from it (in place); the transfers between two
-        processes match in the order both list them.  Not counted (the
-        caller counts its payload); under gloo, CPU tensors only."""
+        processes match in the order both list them.  Waited on here, or
+        with ``wait=False`` issued only: the returned works are waited on
+        before a ``recvs`` buffer is read or a ``sends`` tensor written.
+        Not counted (the caller counts its payload); under gloo, CPU tensors
+        only."""
         import torch.distributed as dist
 
         ops = [dist.P2POp(dist.isend, t, peer) for t, peer in sends]
         ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs]
-        for req in dist.batch_isend_irecv(ops) if ops else ():
-            req.wait()
+        works = list(dist.batch_isend_irecv(ops)) if ops else []
+        if wait:
+            for req in works:
+                req.wait()
+            return []
+        return works
 
     def permute(self, x: torch.Tensor, pairs: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """This rank receives the tensor of the pair's source that names it

@@ -15,7 +15,8 @@ from typing import Callable, List, Tuple
 
 import torch
 
-__all__ = ["event_ms", "bound_ms", "profile_windows", "card_line", "fp32_reductions", "PEAK_OPS", "MEM_BYTES_PER_S"]
+__all__ = ["event_ms", "bound_ms", "profile_windows", "nccl_concurrency", "card_line", "fp32_reductions", "PEAK_OPS",
+           "MEM_BYTES_PER_S"]  # fmt: skip
 
 # published dense peaks of one H100 SXM, by dtype, and its memory rate
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -59,10 +60,46 @@ def bound_ms(flops: float, nbytes: float, dtype: torch.dtype) -> Tuple[float, st
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
+def _spans(intervals) -> list:
+    """The union of ``(start, end)`` intervals, merged, in order."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _shared_us(xs: list, ys: list) -> float:
+    """The time two unions of intervals (:func:`_spans`) cover at once."""
+    i = j = 0
+    t = 0.0
+    while i < len(xs) and j < len(ys):
+        t += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return t
+
+
+def nccl_concurrency(kernels) -> dict:
+    """From the device kernels' ``(name, start_us, end_us)``: the time NCCL's
+    kernels cover, the time the GEMM kernels (names holding "gemm" or
+    "grouped") cover, and the time both run at once on the device."""
+    named = [(n.lower(), a, b) for n, a, b in kernels]
+    nccl = _spans([(a, b) for n, a, b in named if "nccl" in n])
+    gemm = _spans([(a, b) for n, a, b in named if "nccl" not in n and ("gemm" in n or "grouped" in n)])
+    return {"nccl_us": sum(b - a for a, b in nccl), "gemm_us": sum(b - a for a, b in gemm),
+            "nccl_with_gemm_us": _shared_us(nccl, gemm)}  # fmt: skip
+
+
 def profile_windows(label: str, windows: dict) -> dict:
     """Profile each window (a callable) once under torch.profiler: wall time,
-    device kernel time, the device's idle share, and the top kernels by
-    device time, printed and returned."""
+    device kernel time, the device's idle share, the top kernels by device
+    time, and where NCCL's kernels ran, the time they ran at once with the
+    GEMM kernels (:func:`nccl_concurrency`), printed and returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,6 +124,12 @@ def profile_windows(label: str, windows: dict) -> dict:
         for key, t, n in rows[:8]:
             print(f"[profile]   {t / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
         out[name] = {"wall_us": wall_us, "kernel_us": busy, "kernels": sum(r[2] for r in rows), "top": rows[:8]}
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        both = nccl_concurrency([(e.name, e.time_range.start, e.time_range.end) for e in device])
+        if both["nccl_us"]:
+            print(f"[profile]   NCCL kernels {both['nccl_us'] / 1e3:.3f} ms, GEMM kernels "
+                  f"{both['gemm_us'] / 1e3:.3f} ms, both at once {both['nccl_with_gemm_us'] / 1e3:.3f} ms")
+            out[name].update(both)
     return out
 
 

@@ -44,16 +44,19 @@ collective is a copy (or a sum over the ranks) inside that card's memory,
 not NVLink traffic, so the overlap can hide at most that copy's time and
 the paper's multi-GPU end-to-end speedups do not carry over.
 
-``--procs P`` (P divides W = 4; P cards visible, else it raises) runs the
-dense rows with the W ranks spread over P processes, one card each
+``--procs P`` (P divides W = 4; P cards visible, else it raises) runs
+every row with the W ranks spread over P processes, one card each
 (``launch/serve.run_tp``, :func:`procs_rows`): "baseline" is then one
 cuBLAS GEMM a rank with NCCL's all-gather / reduce-scatter between the
 cards (the World's collectives over processes, and their adjoints in the
-backward), "overlap" the fused kernels pushing tiles into the peer cards
-over NVLink in both passes (``kernels/peer``), in turns as the one-card
-rows run; every process runs the same steps on its ranks' slices and times
-them on its own card (the rows report process 0's medians, every
-process's peak memory).  Here a collective is real traffic between cards,
+backward), and the MoE blocks' ``ag_moe_baseline`` (NCCL's all-gather of
+the tokens, tensor-core expert GEMMs, NCCL's reduce-scatter); "overlap" the
+fused kernels pushing tiles into the peer cards over NVLink in both passes
+(``kernels/peer``) and the MoE double ring, its tiles crossing the cards by
+NCCL send / recv waited on where they are read and its expert GEMMs on each
+card's grouped kernel, in turns as the one-card rows run; every process
+runs the same steps on its ranks' slices and times them on its own card
+(the rows report process 0's medians, every process's peak memory).  Here a collective is real traffic between cards,
 so the overlap can hide it, as in the paper's figure; the cards' count and
 the step are the paper's shape, cut in depth (``DEPTH_PROCS``: each card's
 share within 80 GB by the same 12-byte rule, the embedding, the head and
@@ -63,13 +66,18 @@ at qwen2-72b's, 17 GB at gemma3-27b's), and the 4096-token activations and
 logits: smollm-360m and starcoder2-7b at their full 32 layers (34 GB a
 card), qwen2-72b 6 of 80 (2.49 B parameters of embedding and head, 29.9 GB
 a card, then 0.219 B a layer a card: 45.7 GB), gemma3-27b 12 of 62 (two
-5:1 periods, 31.8 GB)).  The MoE rows are not run across cards (MoE across
-cards is not ported) and print so.
+5:1 periods, 31.8 GB)), granite-moe-3b-a800m at its full 32 layers (~10
+GB a card), and deepseek-moe-16b at its full 28, the depth its measured peak
+allows (``DEPTH_PROCS``' comment: the peak of the row at a few layers,
+extrapolated per layer, the largest depth that leaves 8 GB of the card
+free, the dense first layer kept).
 
 On the card:
 
   PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --json paper_e2e.json
   PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --procs 4 --json paper_e2e_4gpu.json   # four cards
+  PYTHONPATH=src python -m repro_torch.benchmarks.paper_e2e --procs 4 --models deepseek-moe-16b --layers 2 4 \
+      --pairs 1                 # a row's peak memory at a few depths (how DEPTH_PROCS is set)
 """
 
 from __future__ import annotations
@@ -100,8 +108,11 @@ MODELS = ["smollm-360m", "qwen2-72b", "starcoder2-7b", "gemma3-27b", "granite-mo
 # layers run of each model at its published width (None: all); see the module docstring
 DEPTH = {"smollm-360m": None, "qwen2-72b": 2, "starcoder2-7b": 8, "gemma3-27b": 6, "granite-moe-3b-a800m": None,
          "deepseek-moe-16b": 9}  # fmt: skip
-# layers run of each dense model with the W ranks one a card (module docstring); the MoE rows do not run there
-DEPTH_PROCS = {"smollm-360m": 32, "qwen2-72b": 6, "starcoder2-7b": 32, "gemma3-27b": 12}
+# layers run of each model with the W ranks one a card (module docstring).  deepseek-moe-16b: its row peaked at 8.89
+# and 12.38 GiB a card at 2 and 4 layers (--layers 2 4 on four H100s), 1.745 GiB a MoE layer, so its full 28 layers
+# take ~54.3 GiB and leave ~25 GiB of the 79.18 free (measured at 28: 54.32 GiB).
+DEPTH_PROCS = {"smollm-360m": 32, "qwen2-72b": 6, "starcoder2-7b": 32, "gemma3-27b": 12, "granite-moe-3b-a800m": 32,
+               "deepseek-moe-16b": 28}  # fmt: skip
 SEQ, BATCH = 4096, 1  # train_4k's sequence; its batch of 256 cut to 1
 WORLD = 4
 WARMUP, PAIRS = 3, 5  # untimed steps of each mode, then timed (baseline, overlap) pairs
@@ -240,20 +251,18 @@ def fig11_row(arch: str, **kw) -> dict:
     return run_row(e2e_config(arch), World(WORLD, "cuda"), **kw)
 
 
-def process_rows(tp: World, models, pairs: int = PAIRS, warmup: int = WARMUP) -> list:
+def process_rows(tp: World, models, pairs: int = PAIRS, warmup: int = WARMUP, depths=None) -> list:
     """One process's rows of :func:`procs_rows` over the TP world ``tp``
-    (every process runs the same rows): each dense model at
-    ``DEPTH_PROCS``, its peer pools released after it (a barrier of the
+    (every process runs the same rows): each model at ``depths`` (default
+    ``DEPTH_PROCS``; a model may appear in ``models`` more than once, with
+    a list of depths), its peer pools released after it (a barrier of the
     processes first), so one model's pools do not hold the next one's
-    memory; a MoE model's row is None."""
+    memory."""
     from repro_torch.kernels import peer
 
     rows = []
-    for arch in models:
-        if arch not in DEPTH_PROCS:
-            rows.append(None)
-            continue
-        rows.append(run_row(e2e_config(arch, DEPTH_PROCS[arch]), tp, warmup=warmup, pairs=pairs))
+    for arch, layers in _row_depths(models, depths):
+        rows.append(run_row(e2e_config(arch, layers), tp, warmup=warmup, pairs=pairs))
         rows[-1]["pool_bytes"] = peer.pool_bytes(tp.device)  # the row's receive pools on this card
         if tp.procs.rank == 0:
             print(f"[fig11] process 0: {describe(rows[-1])}", flush=True)
@@ -262,21 +271,28 @@ def process_rows(tp: World, models, pairs: int = PAIRS, warmup: int = WARMUP) ->
     return rows
 
 
-def procs_rows(procs: int, models=MODELS, pairs: int = PAIRS, warmup: int = WARMUP) -> list:
+def _row_depths(models, depths=None) -> list:
+    """(arch, layers) of each row: ``depths[arch]`` (default ``DEPTH_PROCS``),
+    an int or a list of ints (one row each)."""
+    depths = DEPTH_PROCS if depths is None else {**DEPTH_PROCS, **depths}
+    out = []
+    for arch in models:
+        d = depths[arch]
+        out += [(arch, n) for n in (d if isinstance(d, (list, tuple)) else [d])]
+    return out
+
+
+def procs_rows(procs: int, models=MODELS, pairs: int = PAIRS, warmup: int = WARMUP, depths=None) -> list:
     """Fig. 11's rows with the ``WORLD`` ranks over ``procs`` processes, one
-    card each (module docstring): process 0's row of each dense model with
-    ``peak_bytes_by_card`` (every process's peak), ``median_ms_by_card``,
-    ``pool_bytes_by_card`` (the receive pools at the row's end) and
-    ``launches_by_card``;
-    a MoE model's row {"arch", "skipped"}."""
+    card each (module docstring; ``depths`` as :func:`process_rows` takes
+    them): process 0's row of each model with ``peak_bytes_by_card`` (every
+    process's peak), ``median_ms_by_card``, ``pool_bytes_by_card`` (the
+    receive pools at the row's end) and ``launches_by_card``."""
     from repro_torch.launch.serve import run_tp
 
-    got = run_tp(process_rows, WORLD, procs, "cuda", args=(list(models), pairs, warmup))
+    got = run_tp(process_rows, WORLD, procs, "cuda", args=(list(models), pairs, warmup, depths))
     rows = []
-    for i, arch in enumerate(models):
-        if got[0][i] is None:
-            rows.append({"arch": arch, "skipped": "MoE across cards is not ported (ROADMAP queue 1 item 1 (d))"})
-            continue
+    for i, (arch, _) in enumerate(_row_depths(models, depths)):
         row = dict(got[0][i])
         row["peak_bytes_by_card"] = [g[i]["peak_bytes"] for g in got]
         row["median_ms_by_card"] = [g[i]["median_ms"] for g in got]
@@ -288,8 +304,6 @@ def procs_rows(procs: int, models=MODELS, pairs: int = PAIRS, warmup: int = WARM
 
 
 def describe(row: dict) -> str:
-    if "skipped" in row:
-        return f"Fig. 11 {row['arch']}: not run across cards: {row['skipped']}"
     where = f"W = {row['world']}" + (f" over {row['procs']} cards" if row.get("procs", 1) > 1 else " on one card")
     head = (f"Fig. 11 {row['arch']} ({row['layers']} of {row['published_layers']} layers, "
             f"{row['params'] / 1e9:.3f} B parameters, {where}, {row['dtype']}, {row['tokens']} tokens "
@@ -301,7 +315,9 @@ def describe(row: dict) -> str:
     return (f"{head}; step ms baseline {med['baseline']:.2f} overlap {med['overlap']:.2f} (medians of "
             f"{len(row['step_ms']['overlap'])} pairs), speedup {row['speedup']:.3f}x, tokens/s baseline "
             f"{tps['baseline']:.0f} overlap {tps['overlap']:.0f}, peak memory {row['peak_bytes'] / 2**30:.2f} GiB"
-            + (f" (receive pools {row['pool_bytes'] / 2**20:.1f} MiB)" if "pool_bytes" in row else ""))  # fmt: skip
+            + (f" (receive pools {row['pool_bytes'] / 2**20:.1f} MiB)" if "pool_bytes" in row else "")
+            + (f"; peak by card {[round(b / 2**30, 2) for b in row['peak_bytes_by_card']]} GiB"
+               if "peak_bytes_by_card" in row else ""))  # fmt: skip
 
 
 def main(argv=None) -> list:
@@ -310,6 +326,8 @@ def main(argv=None) -> list:
     ap.add_argument("--models", nargs="+", default=MODELS, help=f"of {MODELS}")
     ap.add_argument("--pairs", type=int, default=PAIRS)
     ap.add_argument("--procs", type=int, default=1, help="processes the W = 4 ranks spread over, one card each")
+    ap.add_argument("--layers", type=int, nargs="+", default=None,
+                    help="with --procs: one row of each model at each of these depths (default DEPTH_PROCS)")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -318,7 +336,8 @@ def main(argv=None) -> list:
     print(f"[fig11] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; {CAVEAT if args.procs == 1 else CAVEAT_PROCS}")
     rows = []
     if args.procs > 1:
-        rows = procs_rows(args.procs, args.models, args.pairs)
+        depths = None if args.layers is None else {arch: list(args.layers) for arch in args.models}
+        rows = procs_rows(args.procs, args.models, args.pairs, depths=depths)
         for row in rows:
             print(f"[fig11] {describe(row)}")
     for arch in args.models if args.procs == 1 else ():

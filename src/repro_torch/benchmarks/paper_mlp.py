@@ -75,7 +75,9 @@ CAVEAT_PROCS = (
     "one process a card: the fused kernels push tiles into the peer cards over NVLink; non-overlap is a "
     "tensor-core GEMM plus NCCL's all-gather / reduce-scatter; a row's time is the slowest process's"
 )
-TIMES = ("nonoverlap_ms", "overlap_ms", "ms", "comm_ms")  # a multi-card row takes each from its slowest process
+# a multi-card row takes each from its slowest process (Fig. 9's rows also their ring's halves)
+TIMES = ("nonoverlap_ms", "overlap_ms", "ms", "comm_ms", "ring_comm_ms", "comp_ms", "overlap_lazy_ms",
+         "overlap_waits_at_once_ms")  # fmt: skip
 
 
 def _pair(world: World, overlapped: bool, channel: Optional[BlockChannel]):
@@ -158,7 +160,7 @@ def _held(world: World, t: torch.Tensor) -> torch.Tensor:
     """The held ranks' slice of a rank-stacked tensor of every rank."""
     if world.nprocs == 1:
         return t
-    return t[world.rank0 : world.rank0 + world.held].contiguous()
+    return t[world.rank0 : world.rank0 + world.held].clone()  # a slice would keep every rank's storage
 
 
 def _where(world: World) -> dict:
@@ -317,8 +319,9 @@ def procs_rows(world_size: int, procs: int, names=None) -> list:
 
 
 def combine_rows(per: list) -> list:
-    """Every process's :func:`process_rows` as one row per case: its times
-    from the slowest process, its error the largest, the cards listed."""
+    """Every process's rows (:func:`process_rows`, or Fig. 9's
+    ``paper_moe.process_rows``) as one row per case: its times from the
+    slowest process, its error the largest, the cards listed."""
     rows = []
     for group in zip(*per):
         row = dict(group[0])
@@ -331,9 +334,11 @@ def combine_rows(per: list) -> list:
         if "peak_mib" in row:
             row["peak_mib"] = max(r["peak_mib"] for r in group)
         rows.append(row)
-    for r in rows:  # speedups and link rates from the slowest processes' times
-        if r["figure"] == "fig8":
+    for r in rows:  # speedups, link rates and overlap ratios from the slowest processes' times
+        if r["figure"] in ("fig8", "fig9"):
             r["speedup"] = r["nonoverlap_ms"] / r["overlap_ms"]
+            if "overlap_ratio" in r:
+                r["overlap_ratio"] = (r["comp_ms"] + r["ring_comm_ms"] - r["overlap_ms"]) / r["ring_comm_ms"]
         else:
             base = r["case"].split("/")[0] + "/non-overlap"
             r["speedup"] = next(x["ms"] for x in rows if x["figure"] == "tab2" and x["case"] == base) / r["ms"]

@@ -78,8 +78,9 @@ from repro_torch.backend.mesh import World
 from repro_torch.core.quant import PackedWeight
 
 __all__ = [
-    "from_jax_params", "shard_params", "unshard_params", "shard_cols", "shard_rows", "shard_attention", "shard_mlp",
-    "shard_mamba", "shard_cross", "shard_packed", "tied_head", "check_dense", "gather_held", "held_like",
+    "from_jax_params", "shard_params", "shard_layer", "unshard_params", "shard_cols", "shard_rows", "shard_attention",
+    "shard_mlp",
+    "shard_mamba", "shard_cross", "shard_packed", "tied_head", "check_procs", "gather_held", "held_like",
     "F32_LEAVES", "IN_ALIGN", "HELD_LEAVES",
 ]  # fmt: skip
 
@@ -144,7 +145,8 @@ def tied_head(embed: torch.Tensor) -> torch.Tensor:
     return _pad_head(embed.reshape(-1, embed.shape[-1]).t())
 
 
-# the per-rank operands of a dense layer: what a world over processes keeps of its held ranks
+# the per-rank operands of a layer (an MoE block's expert stacks ``w_gu`` / ``w_down`` [W, E_loc, ...] and its
+# shared experts' MLP ``ffn.shared``, a nested dense MLP, alike): what a world over processes keeps of its held ranks
 HELD_LEAVES = {"mixer": ("wqkv", "bqkv", "wo"), "ffn": ("w_gu", "w_down")}
 
 
@@ -154,11 +156,22 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
 
     On a world over processes (``world.nprocs > 1``) every process passes the
     same global tensors and keeps its held ranks' slices of each layer's
-    per-rank operands (``HELD_LEAVES``); ``embed`` stays whole (the lookup
-    reads every vocab row) and the head is replicated.  Only the dense path
-    is ported there: another layer kind raises ``NotImplementedError``."""
+    per-rank operands (``HELD_LEAVES``: attention's, a dense MLP's, a MoE
+    block's expert stacks and its shared experts' MLP), layer by layer, so
+    a process never holds every rank's copy of the model; ``embed`` stays
+    whole (the lookup reads every vocab row) and the head, the norms and a
+    MoE router are replicated.  Attention with a dense MLP or a MoE block is
+    ported there: another layer kind raises ``NotImplementedError``
+    (:func:`check_procs`).  ``glob["layers"]`` is read once, in order, so it
+    may be an iterator that makes each layer as it is read."""
     if world.nprocs > 1:
-        return _held(shard_params(glob, cfg, World(world.size, world.device)), cfg, world)
+        check_procs(cfg, world)
+        one = World(world.size, world.device)
+        lo, hi = world.rank0, world.rank0 + world.held
+        out = shard_params({**glob, "layers": []}, cfg, one)
+        # a copy of the held rows: a slice would keep every rank's storage alive
+        out["layers"] = [_map_layer(shard_layer(layer, one), lambda v: v[lo:hi].clone()) for layer in glob["layers"]]
+        return out
     if cfg.encoder_layers:
         return _shard_encdec(glob, world)
     embed = glob["embed"]
@@ -170,59 +183,64 @@ def shard_params(glob: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     }
     if "shared_attn" in glob:
         out["shared_attn"] = shard_attention(glob["shared_attn"], world)
-    out["layers"] = []
-    for layer in glob["layers"]:
-        mixer = layer.get("mixer")
-        if mixer is None:  # a shared_attn layer: its mixer is the shared one
-            new = {}
-        elif "w_xz" in mixer:
-            new = {"mixer": shard_mamba(mixer, world)}
-        else:
-            new = {"mixer": shard_attention(mixer, world)}
-        if "ffn" in layer and "router" in layer["ffn"]:
-            f = layer["ffn"]
-            new["ffn"] = {
-                "ln": f["ln"],
-                "router": f["router"],
-                "w_gu": shard_rows(f["w_gu"], world),
-                "w_down": shard_rows(f["w_down"], world),
-            }
-            if "shared" in f:
-                new["ffn"]["shared"] = shard_mlp(f["shared"], world)
-        elif "ffn" in layer:
-            new["ffn"] = shard_mlp(layer["ffn"], world)
-        out["layers"].append(new)
+    out["layers"] = [shard_layer(layer, world) for layer in glob["layers"]]
     return out
 
 
-def check_dense(cfg, world: World, what: Optional[str] = None):
+def shard_layer(layer: Dict[str, Any], world: World) -> Dict[str, Any]:
+    """One global layer {mixer?, ffn?} -> rank-stacked (:func:`shard_params`)."""
+    mixer = layer.get("mixer")
+    if mixer is None:  # a shared_attn layer: its mixer is the shared one
+        new = {}
+    elif "w_xz" in mixer:
+        new = {"mixer": shard_mamba(mixer, world)}
+    else:
+        new = {"mixer": shard_attention(mixer, world)}
+    if "ffn" in layer and "router" in layer["ffn"]:
+        f = layer["ffn"]
+        new["ffn"] = {
+            "ln": f["ln"],
+            "router": f["router"],
+            "w_gu": shard_rows(f["w_gu"], world),
+            "w_down": shard_rows(f["w_down"], world),
+        }
+        if "shared" in f:
+            new["ffn"]["shared"] = shard_mlp(f["shared"], world)
+    elif "ffn" in layer:
+        new["ffn"] = shard_mlp(layer["ffn"], world)
+    return new
+
+
+def check_procs(cfg, world: World, what: Optional[str] = None):
     """Raise ``NotImplementedError`` for ``what`` (default the config's name)
-    unless every layer of ``cfg`` is attention with a dense MLP: the only
-    layers ported over a TP world of processes."""
+    unless every layer of ``cfg`` is attention with a dense MLP or a MoE
+    block (with or without shared experts): the layers ported over a TP
+    world of processes.  Mamba, the shared attention block and the
+    encoder-decoder are refused."""
     from repro_torch.models.lm import layer_plan
 
-    dense = {(k, "mlp", False) for k in ("attn", "attn_local", "attn_dense")}
+    ported = {(k, f, False) for k in ("attn", "attn_local", "attn_dense") for f in ("mlp", "moe")}
     kinds = {(d.kind, d.ffn_kind, d.shared) for d in layer_plan(cfg)} if not cfg.encoder_layers else {"encdec"}
-    if kinds - dense:
+    if kinds - ported:
         raise NotImplementedError(
             f"{what or cfg.name}: layers {sorted(map(str, kinds))} over a TP world of {world.nprocs} processes are "
-            "not ported (only attention with a dense MLP is); ROADMAP queue 1 item 1 (d)"
+            "not ported (attention with a dense MLP or a MoE block is); ROADMAP queue 1 item 1 (d)"
         )
+
+
+def _map_layer(layer: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``layer`` with ``fn`` applied to its ``HELD_LEAVES``, a nested MLP's
+    (a MoE block's ``shared``) included."""
+
+    def part(sub, names):
+        return {k: part(v, names) if isinstance(v, dict) else (fn(v) if k in names else v) for k, v in sub.items()}
+
+    return {name: part(sub, HELD_LEAVES.get(name, ())) for name, sub in layer.items()}
 
 
 def _map_held(params: Dict[str, Any], fn) -> Dict[str, Any]:
     """``params`` with ``fn`` applied to each layer's ``HELD_LEAVES``."""
-    layers = [{part: {k: (fn(v) if k in HELD_LEAVES[part] else v) for k, v in sub.items()}
-               for part, sub in layer.items()} for layer in params["layers"]]  # fmt: skip
-    return {**params, "layers": layers}
-
-
-def _held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
-    """The rank-stacked tree of every rank -> this process's: each layer's
-    ``HELD_LEAVES`` sliced to ``world.ranks``."""
-    check_dense(cfg, world)
-    lo, hi = world.rank0, world.rank0 + world.held
-    return _map_held(params, lambda v: v[lo:hi].contiguous())
+    return {**params, "layers": [_map_layer(layer, fn) for layer in params["layers"]]}
 
 
 def gather_held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
@@ -234,7 +252,7 @@ def gather_held(params: Dict[str, Any], cfg, world: World) -> Dict[str, Any]:
     result unshards with a one-process ``World(world.size)``."""
     if world.nprocs == 1:
         return params
-    check_dense(cfg, world)
+    check_procs(cfg, world)
     return _map_held(params, world.gather_ranks)
 
 

@@ -16,7 +16,18 @@ executor (``core/overlap.run_plan``), the double ring of the JAX package:
 Every function takes rank-stacked operands (``[W, ...]``): tokens
 ``x [W, *lead, m, d]`` with ``ids`` / ``wts [W, *lead, m, k]``, and rank r's
 experts ``w_gu [W, E_loc, d, 2f]`` (gate|up) and ``w_down [W, E_loc, f, d]``,
-rank r hosting experts ``r * E_loc .. (r + 1) * E_loc - 1``.  Capacity
+rank r hosting experts ``r * E_loc .. (r + 1) * E_loc - 1``.  Over a world
+of processes (``World(..., procs=)``) the leading dimension is this
+process's ``held`` ranks, the first of them global rank ``world.rank0``;
+capacity is sized by the whole world's experts (``world.size``) all the
+same, so every process keeps and drops what the one-process world does.
+The overlapped forms' permutes then cross the cards and complete lazily
+(``core/overlap._permute_start``), so a ring step's expert GEMMs are
+issued before the wait for the next step's tile.  The baselines gather
+every origin's tokens and tables (an all-gather over the processes) and
+return the partials home by a reduce-scatter over the origin axis (the
+library's sum over the processes, in its own order); on one process
+that return is the rank-order ``psum`` it always was.  Capacity
 dispatch is per (rank, leading index, channel chunk) over the token axis, as
 the JAX package's ``vmap`` over batch rows gives it; the batch rows are
 folded only into the rows of the expert GEMMs.  Those run on the
@@ -50,7 +61,8 @@ from repro_torch.core.overlap import plan_for, run_a2a_seq, run_plan
 from repro_torch.core.plan import build_seq_plan
 from repro_torch.kernels.grouped_matmul import SharedTranspose, dot_f32, group_tile_table, grouped_matmul
 
-__all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline", "a2a_moe", "a2a_moe_baseline"]
+__all__ = ["moe_router", "local_expert_ffn", "ag_moe", "ag_moe_baseline", "a2a_moe", "a2a_moe_baseline",
+           "gather_origins", "return_home"]  # fmt: skip
 
 
 def moe_router(x, w_router, *, num_experts: int, top_k: int, valid_experts: Optional[int] = None):
@@ -144,12 +156,15 @@ def local_expert_ffn(
     tile: Optional[Tuple[int, int, int]] = None,
     grouped: bool = False,
     shared_wt: Tuple[Optional[SharedTranspose], Optional[SharedTranspose]] = (None, None),
+    rank0: int = 0,
 ):
     """Each rank's FFN through its local experts; zeros for tokens routed elsewhere.
 
     ``x [W, *lead, m, d]``, ``topk_ids`` / ``topk_w [W, *lead, m, k]``,
-    ``w_gu [W, E_loc, d, 2f]``, ``w_down [W, E_loc, f, d]``.  Returns the
-    combined partial ``[W, *lead, m, d]``.  The rows of all leading indices
+    ``w_gu [W, E_loc, d, 2f]``, ``w_down [W, E_loc, f, d]``: the leading
+    dimension's ranks are global ranks ``rank0, rank0 + 1, ...`` (a world
+    over processes passes ``world.rank0``), rank r hosting experts
+    ``r * E_loc ..``.  Returns the combined partial ``[W, *lead, m, d]``.  The rows of all leading indices
     meet in one group of ``n_lead * cap`` rows per (rank, expert), so the
     grouped kernel covers every rank and expert in one launch per GEMM.
     ``shared_wt`` holds the w^T copies of ``w_gu`` and ``w_down`` that the
@@ -159,7 +174,8 @@ def local_expert_ffn(
     k, e_loc, f = topk_ids.shape[-1], w_gu.shape[1], w_down.shape[2]
     xb = x.reshape(world, -1, m, d)
     nb = xb.shape[1]
-    local = topk_ids.reshape(world, nb, m, k) - (torch.arange(world, device=x.device) * e_loc).view(world, 1, 1, 1)
+    ranks = rank0 + torch.arange(world, device=x.device)
+    local = topk_ids.reshape(world, nb, m, k) - (ranks * e_loc).view(world, 1, 1, 1)
     valid = (local >= 0) & (local < e_loc)
     local = torch.where(valid, local, torch.zeros_like(local))
 
@@ -204,7 +220,7 @@ def ag_moe(
     plan = plan_for("ag_moe", channel, world.size, m_loc)
     m_sub = m_loc // plan.num_channels
     cap = _capacity(m_sub, k, e_loc * world.size, capacity_factor)
-    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, plan.accum_dtype)
+    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, plan.accum_dtype, world.rank0)
     accs = run_plan(plan, world, tile_fn, state=_token_chunks(x, topk_ids, topk_w, plan.num_channels))
     return torch.cat(accs, dim=-2).to(x.dtype)
 
@@ -215,16 +231,16 @@ def _token_chunks(x, topk_ids, topk_w, nch: int) -> list:
     return [tuple(t[..., c * m_sub : (c + 1) * m_sub, :] for t in (x, topk_ids, topk_w)) for c in range(nch)]
 
 
-def _expert_tile(w_gu, w_down, cap: int, act, channel: BlockChannel, grouped: bool, accum):
-    """The MoE tile callback: each rank's local experts on the tile it holds,
-    the combined partial in the accum dtype.  Every step's grouped dx shares
-    one w^T copy of each weight."""
+def _expert_tile(w_gu, w_down, cap: int, act, channel: BlockChannel, grouped: bool, accum, rank0: int):
+    """The MoE tile callback: each held rank's local experts (global ranks
+    from ``rank0``) on the tile it holds, the combined partial in the accum
+    dtype.  Every step's grouped dx shares one w^T copy of each weight."""
     shared = (SharedTranspose(), SharedTranspose()) if grouped else (None, None)
 
     def moe_tile(ctx, tile, _carry):
         xs, ids, wts = tile
         part = local_expert_ffn(xs, ids, wts, w_gu, w_down, cap=cap, act=act, tile=channel.comp.tile, grouped=grouped,
-                                shared_wt=shared)  # fmt: skip
+                                shared_wt=shared, rank0=rank0)  # fmt: skip
         return part.to(accum)
 
     return moe_tile
@@ -247,9 +263,9 @@ def ag_moe_baseline(
     partials are reduce-scattered back to their origin ranks."""
     m_loc, k, e_loc = x.shape[-2], topk_ids.shape[-1], w_gu.shape[1]
     cap = _capacity(m_loc, k, e_loc * world.size, capacity_factor)
-    gathered = [t.unsqueeze(0).expand((world.size,) + tuple(t.shape)) for t in (x, topk_ids, topk_w)]
-    part = local_expert_ffn(*gathered, w_gu, w_down, cap=cap, act=act)  # [W, W_origin, *lead, m_loc, d]
-    return world.psum(part).to(x.dtype)  # origin o's sum lands on rank o
+    gathered = [gather_origins(world, t) for t in (x, topk_ids, topk_w)]
+    part = local_expert_ffn(*gathered, w_gu, w_down, cap=cap, act=act, rank0=world.rank0)  # [W, W_origin, ..]
+    return return_home(world, part).to(x.dtype)
 
 
 def a2a_moe(
@@ -281,7 +297,7 @@ def a2a_moe(
     nch = effective_channels(m_loc, channel.num_channels, kind="a2a_dispatch")
     seq = build_seq_plan(("a2a_dispatch", "combine_rs"), (channel, channel2), world.size, nch)
     cap = _capacity(m_loc // nch, k, e_loc * world.size, capacity_factor)
-    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, seq.ops[0].accum_dtype)
+    tile_fn = _expert_tile(w_gu, w_down, cap, act, channel, grouped, seq.ops[0].accum_dtype, world.rank0)
     accs = run_a2a_seq(seq, world, tile_fn, state=_token_chunks(x, topk_ids, topk_w, nch))
     return torch.cat(accs, dim=-2).to(x.dtype)
 
@@ -314,12 +330,35 @@ def a2a_moe_baseline(
     cap = _capacity(m_sub, k, e_loc * size, capacity_factor)  # per-sub-chunk capacity
 
     def gathered(t):  # [W, W_origin, *lead, nch, m_sub, .]: every rank sees every origin's sub-chunks
-        t = t.reshape(t.shape[:-2] + (nch, m_sub, t.shape[-1]))
-        return t.unsqueeze(0).expand((size,) + tuple(t.shape))
+        return gather_origins(world, t.reshape(t.shape[:-2] + (nch, m_sub, t.shape[-1])))
 
-    part = local_expert_ffn(*(gathered(t) for t in (x, topk_ids, topk_w)), w_gu, w_down, cap=cap, act=act)
-    part = part.reshape((size,) + tuple(x.shape)).float()
-    return world.psum(part).to(x.dtype)  # origin o's sum lands on rank o
+    part = local_expert_ffn(*(gathered(t) for t in (x, topk_ids, topk_w)), w_gu, w_down, cap=cap, act=act,
+                            rank0=world.rank0)  # fmt: skip
+    part = part.reshape((x.shape[0], size) + tuple(x.shape[1:])).float()
+    return return_home(world, part).to(x.dtype)
+
+
+def gather_origins(world: World, t):
+    """The baselines' all-gather: ``t [W, ...]`` (each origin rank's value)
+    -> ``[W, W_origin, ...]``, every origin's value on each rank.  On one
+    process a broadcast view; over processes the processes' blocks gathered
+    (``World.all_gather``: its adjoint sums each origin's gradient over the
+    ranks that read it)."""
+    if world.procs is None:
+        return t.unsqueeze(0).expand((world.size,) + tuple(t.shape))
+    return world.all_gather(t.unsqueeze(1), 0)
+
+
+def return_home(world: World, part):
+    """The baselines' reduce-scatter: ``part [W, W_origin, ...]`` -> origin
+    o's sum over the ranks, on rank o, ``[W, ...]``.  On one process the
+    rank-order ``psum`` (the replicated sum is the rank-stacked result);
+    over processes ``World.reduce_scatter`` over the origin axis (the held
+    ranks summed here, then the library's reduce-scatter: within float
+    rounding of the rank-order sum, not bitwise)."""
+    if world.procs is None:
+        return world.psum(part)
+    return world.reduce_scatter(part, 0).squeeze(1)
 
 
 def _capacity(m: int, k: int, e_total: int, factor: float) -> int:

@@ -25,7 +25,7 @@ flowing tiles ("ag" / "ag_rs" / "a2a" state) are encoded once at entry and
 stay encoded across every permute, each consumer decoding its held copy;
 flowing reductions ("rs", the "ag_rs" ride-along and its ``align_perm``
 hop, the "a2a_rs" returns) are re-encoded at every send edge; a quantized
-payload's scales ride the same permute (``_permute``).  With the default
+payload's scales ride the same permute (``_permute_start``).  With the default
 spec every edge is the identity, bitwise the pre-split executor.  A
 :class:`~repro_torch.core.quant.PackedWeight` ``w`` (weight-only int8 /
 int4) goes through ``blocked_dot``, which dequantizes per block.
@@ -105,6 +105,13 @@ def run_plan(
 
     The a2a flows run as one pipeline of both ops (:func:`run_a2a_seq`).
 
+    Every permute is issued before the compute that does not need it and
+    waited on where its result is first read (:func:`_permute_start`): a
+    step's tiles land after that step's callbacks, a flowing reduction's
+    hop after the next step's partial.  On one process this is the same
+    sequence of index copies; over processes it lets the NCCL transfers
+    run under the compute.
+
     Wire edges (``plan.quant``, module docstring): tiles are encoded once
     here and decoded by each consumer step; a flowing reduction is encoded
     before every permute and decoded after it, the add running in
@@ -119,11 +126,10 @@ def run_plan(
     if plan.flow in ("ag", "ag_rs"):
         # tiles are quantized exactly once here; each consumer decodes its held copy
         state = [encode_tree(st, spec, adt) for st in state]
-        accs: List[torch.Tensor] = [None] * nch
+        accs: List[Any] = [None] * nch  # ag_rs: each channel's reduction, in flight to the next step's rank
         for s in range(plan.steps):
-            nxt = None
-            if s < plan.steps - 1:
-                nxt = [_permute(world, state[c], plan.channels[c].flow_perm(s)) for c in range(nch)]
+            last = s == plan.steps - 1
+            nxt = None if last else [_permute_start(world, state[c], plan.channels[c].flow_perm(s)) for c in range(nch)]
             for c in range(nch):
                 sched = plan.channels[c]
                 ctx = TileContext(s, c, world.local(sched.source_table(s)))
@@ -132,19 +138,21 @@ def run_plan(
                     carry = tile_fn(ctx, held, carry)
                     continue
                 part = tile_fn(ctx, held, None)  # the reduction rides the tile flow
-                accs[c] = part if s == 0 else hop(accs[c], sched.flow_perm(s - 1)) + part
+                acc = part if s == 0 else accs[c]() + part
+                accs[c] = acc if last else _hop_start(world, acc, sched.flow_perm(s), spec, adt)
             if nxt is not None:
-                state = nxt
+                state = [land() for land in nxt]
         if plan.flow == "ag":
             return carry
         return [hop(accs[c], plan.channels[c].align_perm()) for c in range(nch)]
     if plan.flow == "rs":
-        accs: List[torch.Tensor] = [None] * nch
+        accs: List[Any] = [None] * nch  # each channel's accumulator, in flight to the next step's rank
         for s in range(plan.steps):
             for c in range(nch):
                 sched = plan.channels[c]
                 part = tile_fn(TileContext(s, c, world.local(sched.rs_segment_table(s))), None, None)
-                accs[c] = part if s == 0 else hop(accs[c], sched.rs_perm(s - 1)) + part
+                acc = part if s == 0 else accs[c]() + part
+                accs[c] = acc if s == plan.steps - 1 else _hop_start(world, acc, sched.rs_perm(s), spec, adt)
         return accs
     raise ValueError(f"run_plan: flow {plan.flow!r} runs as a SeqPlan (run_seq_plan / run_a2a_seq)")
 
@@ -183,36 +191,55 @@ def run_a2a_seq(seq: SeqPlan, world: World, tile_fn: Callable, *, state: Sequenc
     state = [encode_tree(st, spec, adt) for st in state]
     own, landed = list(state), list(state)
     accs: List[torch.Tensor] = [None] * nch
+    home: List[Any] = [None] * nch  # each channel's returning partial, in flight; added after the next step's tile
     for s in range(dispatch.steps):
         nxt = None
         if s < dispatch.steps - 1:
-            nxt = [_permute(world, own[c], dispatch.channels[c].a2a_perm(s + 1)) for c in range(nch)]
+            nxt = [_permute_start(world, own[c], dispatch.channels[c].a2a_perm(s + 1)) for c in range(nch)]
         for c in range(nch):
             sched = combine.channels[c]
             ctx = TileContext(s, c, world.local(sched.source_table(s)))
             part = tile_fn(ctx, decode_tree(landed[c], spec, adt), None)
-            accs[c] = part if s == 0 else accs[c] + _hop(world, part, sched.combine_perm(s), spec, adt)
+            if home[c] is not None:
+                accs[c] = accs[c] + home[c]()
+            if s == 0:
+                accs[c] = part
+            else:
+                home[c] = _hop_start(world, part, sched.combine_perm(s), spec, adt)
         if nxt is not None:
-            landed = nxt
-    return accs
+            landed = [land() for land in nxt]
+    return [acc if ret is None else acc + ret() for acc, ret in zip(accs, home)]
 
 
 def _hop(world: World, value, pairs, spec, accum):
     """One send edge of a flowing value: encoded for the wire, permuted,
     decoded back to ``accum`` (the identity spec leaves it as it is)."""
-    return decode_tree(_permute(world, encode_tree(value, spec, accum), pairs), spec, accum)
+    return _hop_start(world, value, pairs, spec, accum)()
 
 
-def _permute(world: World, tile, pairs):
+def _hop_start(world: World, value, pairs, spec, accum) -> Callable[[], Any]:
+    """:func:`_hop` issued: a function that waits for the landing and
+    returns the decoded value (see :func:`_permute_start`)."""
+    land = _permute_start(world, encode_tree(value, spec, accum), pairs)
+    return lambda: decode_tree(land(), spec, accum)
+
+
+def _permute_start(world: World, tile, pairs) -> Callable[[], Any]:
     """Permute a flowing tile: one tensor, a tuple of tensors (a token tile
     and its routing tables travel together) or a quantized
     :class:`~repro_torch.core.quant.WirePayload` (its scales ride the same
-    permute)."""
+    permute).  Issued and not waited on (``World.permute_start``): returns
+    a function that waits for the tile's transfers and returns it.  The
+    executors call it where the landed tile is first read, so over
+    processes a step's compute is issued before it waits for the next
+    step's transfers; on one process the tile has already landed."""
     if isinstance(tile, tuple):
-        return tuple(_permute(world, t, pairs) for t in tile)
+        parts = [_permute_start(world, t, pairs) for t in tile]
+        return lambda: tuple(part() for part in parts)
     if isinstance(tile, WirePayload):
-        return WirePayload(world.permute(tile.q, pairs), world.permute(tile.scale, pairs))
-    return world.permute(tile, pairs)
+        q, scale = world.permute_start(tile.q, pairs), world.permute_start(tile.scale, pairs)
+        return lambda: WirePayload(q.wait(), scale.wait())
+    return world.permute_start(tile, pairs).wait
 
 
 def plan_for(kind: str, channel: BlockChannel, world: int, extent: int) -> TilePlan:

@@ -334,7 +334,10 @@ def padded_vocab(cfg, tp: int) -> int:
 
 def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bfloat16, device=None) -> dict:
     """Seeded random parameters at the config's size, built on ``device``
-    (default: the world's) with the JAX package's init rules and layout."""
+    (default: the world's) with the JAX package's init rules and layout.
+    Each layer is made as ``convert.shard_params`` reads it, so the global
+    copy of one layer at a time is alive beside the sharded tree (over
+    processes, beside this process's held slices)."""
     from repro_torch.convert import shard_params
 
     device = torch.device(device) if device is not None else world.device
@@ -348,17 +351,19 @@ def init(cfg, world, generator: torch.Generator, dtype: torch.dtype = torch.bflo
         glob["lm_head"] = emb_init((cfg.d_model, padded_vocab(cfg, tp)), generator, dtype, device)
     if _uses_shared(cfg):
         glob["shared_attn"] = attention.init(cfg, tp, generator, dtype, device)
-    for d in layer_plan(cfg):
+
+    def make(d: LayerDef) -> dict:
         if d.kind == "mamba":
-            glob["layers"].append({"mixer": mamba.init(cfg, tp, generator, dtype, device)})
-            continue
+            return {"mixer": mamba.init(cfg, tp, generator, dtype, device)}
         layer = {} if d.shared else {"mixer": attention.init(cfg, tp, generator, dtype, device)}
         if d.ffn_kind == "mlp":
             d_ff = cfg.moe.dense_d_ff if d.kind == "attn_dense" else cfg.d_ff
             layer["ffn"] = ffn.init(cfg, generator, dtype, device, d_ff=d_ff)
         elif d.ffn_kind == "moe":
             layer["ffn"] = moe.init(cfg, tp, generator, dtype, device)
-        glob["layers"].append(layer)
+        return layer
+
+    glob["layers"] = (make(d) for d in layer_plan(cfg))  # drawn in layer order, as shard_params reads them
     return shard_params(glob, cfg, world)
 
 
@@ -552,13 +557,14 @@ def check_trainable(cfg, pc: ParallelContext):
     """Raise unless the model's training path is ported: every layer kind
     (attention with a dense MLP or an MoE block, TP or EP; Mamba; the shared
     attention block) trains, with or without fused seams, on one process;
-    over a TP world of processes only attention with a dense MLP does,
-    without seams (``NotImplementedError`` naming the rest)."""
+    over a TP world of processes attention with a dense MLP or a MoE block
+    (TP or EP) does, without seams (``NotImplementedError`` naming the
+    rest)."""
     layer_plan(cfg)  # an unported layer kind raises here
     if pc.world.nprocs > 1:
-        from repro_torch.convert import check_dense
+        from repro_torch.convert import check_procs
 
-        check_dense(cfg, pc.world, f"training {cfg.name}")
+        check_procs(cfg, pc.world, f"training {cfg.name}")
         if pc.fuse_seams:
             pc.single_process(f"training {cfg.name} with the fused RS -> AG seam")
 
@@ -566,18 +572,25 @@ def check_trainable(cfg, pc: ParallelContext):
 def proc_roles(tree: dict, cfg) -> dict:
     """What a TP world over processes holds of each leaf of a trainable tree
     (``training/steps``): "held" (each layer's per-rank operands,
-    ``convert.HELD_LEAVES``: this process's ranks' slices), "summed" (a
-    layer's replicated leaves, the norms: each rank reads them inside the
-    rank-stacked region, so a process's gradient is its held ranks' part
-    and the step sums it over the processes) or "whole" (``embed``, the
-    head, ``final_ln``: read on values every process computes whole, so
-    every process's gradient is already the whole one)."""
+    ``convert.HELD_LEAVES``: this process's ranks' slices; a MoE block's
+    expert stacks and its shared experts' MLP among them), "summed" (a
+    layer's replicated leaves, the norms, a MoE block's ``ln`` and float32
+    ``router``: each rank reads them inside the rank-stacked region (the
+    router on its own tokens, whose aux loss ``pc.pmean`` gathers with a
+    slicing adjoint), so a process's gradient is its held ranks' part and
+    the step sums it over the processes) or "whole" (``embed``, the head,
+    ``final_ln``: read on values every process computes whole, so every
+    process's gradient is already the whole one)."""
     from repro_torch.convert import HELD_LEAVES
     from repro_torch.training.optimizer import tree_map
 
+    def part(sub, names):
+        return {k: part(v, names) if isinstance(v, dict) else tree_map(lambda _, k=k: "held" if k in names
+                                                                       else "summed", v)
+                for k, v in sub.items()}  # fmt: skip
+
     out = {k: tree_map(lambda _: "whole", v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{part: {k: "held" if k in HELD_LEAVES.get(part, ()) else tree_map(lambda _: "summed", v)
-                             for k, v in sub.items()} for part, sub in layer.items()}
+    out["layers"] = [{name: part(sub, HELD_LEAVES.get(name, ())) for name, sub in layer.items()}
                      for layer in tree["layers"]]  # fmt: skip
     return out
 

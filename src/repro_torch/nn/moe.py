@@ -11,7 +11,9 @@ it, and the partial returns home along the reversed edge.  On the "fused"
 backend the expert GEMMs of either path run on the grouped kernel.
 
 Decode (``apply_decode``): tokens are replicated over the ranks and a
-``psum`` combines the ranks.  Two forms, as in the JAX package:
+``psum`` combines the ranks (over a world of processes the held ranks'
+partials, gathered and summed in rank order: bitwise one process's).  Two
+forms, as in the JAX package:
 
   * per-(token, k) gathers of each rank's local expert weights (the
     default), which read an expert's matrices once per (token, k) that
@@ -117,10 +119,12 @@ def apply_seq(params: dict, x: torch.Tensor, pc, cfg, *, quant=None, ep=None, ne
 
 def apply_decode(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:
     """x: [B, C, D] replicated over the ranks -> [B, C, D] (+ residual): each
-    rank's local experts (gathered per (token, k), or streamed once with
-    ``pc.moe_decode_stream``), a ``psum`` combine, then the shared MLP."""
+    held rank's local experts (gathered per (token, k), or streamed once with
+    ``pc.moe_decode_stream``), a ``psum`` combine, then the shared MLP.
+    Held rank i is global rank ``pc.rank0 + i``, hosting experts from
+    ``(pc.rank0 + i) * E_loc``."""
     m = cfg.moe
-    w_gu, w_down = params["w_gu"], params["w_down"]  # [W, E_loc, D, 2f], [W, E_loc, f, D]
+    w_gu, w_down = params["w_gu"], params["w_down"]  # [held, E_loc, D, 2f], [held, E_loc, f, D]
     world, e_loc, f = pc.tp, w_gu.shape[1], w_down.shape[2]
     b, s, d = x.shape
     act = ACTS[cfg.act]
@@ -128,8 +132,8 @@ def apply_decode(params: dict, x: torch.Tensor, pc, cfg) -> torch.Tensor:
     tokens = h.reshape(b * s, d)
     ids, wts, _ = moe_router(tokens, params["router"], num_experts=e_loc * world, top_k=m.top_k,
                              valid_experts=m.num_experts)  # fmt: skip
-    rank = torch.arange(world, device=x.device)[:, None, None]
-    local = ids[None] - rank * e_loc  # [W, m, k]
+    rank = torch.arange(pc.held, device=x.device)[:, None, None]  # the held ranks' index into w_gu / w_down
+    local = ids[None] - (pc.rank0 + rank) * e_loc  # [held, m, k]
     valid = (local >= 0) & (local < e_loc)
     local_g = torch.where(valid, local, torch.zeros_like(local))
     if pc.moe_decode_stream:

@@ -89,15 +89,17 @@ Layers call ``pc.ag_matmul`` / ``pc.matmul_rs`` / ``pc.matmul_rs_ag`` /
 A world over processes (``World(..., procs=)``, one process per card):
 ``tp`` stays the TP degree, which sets the layouts (heads, columns, rows
 per rank); ``held`` and ``rank0`` are the ranks this process stores, the
-leading dimension of every rank-stacked value.  Only the dense path runs
-there (attention with a dense MLP: prefill, decode, the LM head, the
-fused AG+GEMM / GEMM+RS on their peer route, the eager executors and the
-baselines), for serving and for training (``training.make_train_step``:
-the world's collectives carry their adjoints, the fused ops' backward
-runs on the peer route, and the step sums the replicated leaves'
-gradients over the processes); :meth:`single_process` refuses the rest by
-name (``NotImplementedError``: MoE / a2a, Mamba, ring attention, seams,
-the encoder-decoder), and ``data`` or ``tune`` with it raises
+leading dimension of every rank-stacked value.  Attention with a dense
+MLP or a MoE block runs there (prefill, decode, the LM head, the fused
+AG+GEMM / GEMM+RS on their peer route, the MoE double ring ``ag_moe`` and
+the expert-parallel pair ``a2a_moe`` with their expert GEMMs on each
+card's grouped kernel, the eager executors and the baselines), for
+serving and for training (``training.make_train_step``: the world's
+collectives carry their adjoints, the fused ops' backward runs on the
+peer route, and the step sums the replicated leaves' gradients over the
+processes); :meth:`single_process` refuses the rest by name
+(``NotImplementedError``: ring attention and seams here, Mamba and the
+encoder-decoder in ``convert.check_procs``), and ``data`` or ``tune`` with it raises
 ``ValueError``: ``DistWorld`` owns the default process group, and the
 tuner times one process's kernels alone.
 """
@@ -187,11 +189,11 @@ class ParallelContext:
 
     def single_process(self, what: str):
         """Raise ``NotImplementedError`` for ``what`` on a world over processes
-        (only the dense path is ported there)."""
+        (attention with a dense MLP or a MoE block is ported there)."""
         if self.world.nprocs > 1:
             raise NotImplementedError(
-                f"{what} over a TP world of {self.world.nprocs} processes is not ported (only attention with a "
-                "dense MLP is); ROADMAP queue 1 item 1 (d): MoE / a2a, Mamba, ring attention, seams and the "
+                f"{what} over a TP world of {self.world.nprocs} processes is not ported (attention with a dense "
+                "MLP or a MoE block is); ROADMAP queue 1 item 1 (d): Mamba, ring attention, seams and the "
                 "encoder-decoder across cards"
             )
 
@@ -299,7 +301,6 @@ class ParallelContext:
 
     def ag_moe(self, x, ids, wts, w_gu, w_down, **kw):
         """Tokens [W, *lead, m_loc, d] through the AG+MoE double ring -> [W, *lead, m_loc, d]."""
-        self.single_process("the MoE block")
         return self._op("ag_moe", (x, ids, wts, w_gu, w_down))(x, ids, wts, w_gu, w_down, **kw)
 
     def a2a_moe(self, x, ids, wts, w_gu, w_down, **kw):
@@ -307,7 +308,6 @@ class ParallelContext:
         [W, *lead, m_loc, d] -> [W, *lead, m_loc, d].  Needs ``ep_axis``;
         ``mode="baseline"`` runs ``a2a_moe_baseline`` (the same capacity), as
         does an unfused verdict of the tuner under ``tune=True``."""
-        self.single_process("expert parallelism")
         if self.ep_axis is None:
             raise ValueError(
                 "a2a_moe requires ParallelContext(ep_axis=...); expert parallelism is opt-in "

@@ -30,20 +30,23 @@ copy of a split leaf between steps; :func:`gather_blocks` joins the
 replicas' blocks for a checkpoint.  The embedding and a shared mixer are
 read more than once a pass and gathered once a pass (``models/lm``).
 
-Over a TP world of processes (``pc.world.nprocs > 1``, one card each; the
-dense layers only, ``model.check_trainable``) every process runs the
+Over a TP world of processes (``pc.world.nprocs > 1``, one card each;
+attention with a dense MLP or a MoE block, TP or EP,
+``model.check_trainable``) every process runs the
 forward and backward of its held ranks, the world's collectives carrying
 their adjoints (``backend/mesh``) and the fused ops' backward on the peer
 route (``core/compiler``), and computes the loss whole from the gathered
 logits.  Then (:func:`tp_procs_grads`) the kv-copy sync gathers the kv
 columns over the processes, the masks hold the held ranks, and the leaves
-``model.proc_roles`` calls "summed" (a layer's norms, read by each rank
-inside the rank-stacked region) are summed over the processes, one
+``model.proc_roles`` calls "summed" (a layer's norms and a MoE router,
+read by each rank inside the rank-stacked region) are summed over the
+processes, one
 all-gather a dtype summed in process order, so every process holds the
 same sum; the "whole" leaves (``embed``, the head, ``final_ln``) are not,
 since their gradients are whole on every process already.  The global norm
-is the held leaves' squares summed over the processes plus the others'
-once, and AdamW updates each process's leaves: its held ranks' slices, and
+is the held leaves' squares (a MoE block's experts and shared MLP among
+them) summed over the processes plus the others' once, and AdamW updates
+each process's leaves: its held ranks' slices, and
 the replicated leaves alike on every process.  Metrics are equal on every
 process.
 """

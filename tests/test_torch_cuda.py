@@ -1931,3 +1931,83 @@ def test_tp_world_across_cards(dev):
     for g in got:
         for lg, ref in zip(g["logits"], refs):
             assert bool(((lg - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all())
+
+
+def _tp_moe_cards_worker(tp, job):
+    """One process of the TP world over cards on MoE, float32: its held
+    ranks' ``ag_moe`` / ``a2a_moe`` outputs on the grouped kernel (two calls
+    each) and their grouped launches, a reduced deepseek's prefill logits
+    in TP and EP (both routes of its MoE layers on the fused backend), and
+    its teacher-forced decode logits in both MoE decode forms (gathered and
+    streamed)."""
+    dev, lo, hi = tp.device, tp.rank0, tp.rank0 + tp.held
+    args = [torch.as_tensor(a, device=dev)[lo:hi].contiguous() for a in job["ops"]]
+    out = {"ops": {}}
+    for kind in ("ag_moe", ("a2a_dispatch", "combine_rs")):
+        fn = compile_overlap(list(kind) if isinstance(kind, tuple) else kind, BlockChannel(axis="model"), world=tp,
+                             backend="fused")  # fmt: skip
+        before = K.grouped_matmul.launches
+        a, b = fn(*args), fn(*args)
+        out["ops"][str(kind)] = (a.cpu(), torch.equal(a, b), K.grouped_matmul.launches - before)
+    cfg = job["cfg"]
+    params = lm.init(cfg, tp, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    prompts = torch.as_tensor(job["prompts"], device=dev)
+    with torch.no_grad():
+        out["logits"] = {ep: lm.prefill(params, cfg, ParallelContext(world=tp, ep_axis=ep), prompts, max_len=16)[0]
+                         .cpu() for ep in (None, "model")}  # fmt: skip
+    out["decode"] = {stream: _forced_logits(params, cfg, ParallelContext(world=tp, moe_decode_stream=stream), job)
+                     for stream in (False, True)}  # fmt: skip
+    return out
+
+
+def test_moe_across_cards(dev):
+    """W = 4 over two processes (four with four cards), one card each, f32:
+    each process's ``ag_moe`` (the double ring) and ``a2a_moe`` (the
+    dispatch / combine pair) outputs on the grouped kernel within 1e-5 of
+    the max of the same W emulated on card 0 (the dispatch and combine are
+    batched products over the ranks a card holds, whose cuBLAS kernel may
+    differ with that count), each call twice bitwise, with 2 grouped
+    launches a ring step; a reduced deepseek's (4 layers) prefill logits in
+    TP and EP, and its teacher-forced decode logits in both MoE decode forms
+    (``nn/moe.apply_decode`` over the held ranks), within 2e-3 + 2e-3 |ref|
+    of the emulated world's.  Skips, from inside, with fewer than two
+    cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the TP world over processes puts one on each card")
+    from repro_torch.launch import serve
+
+    procs = 4 if torch.cuda.device_count() >= 4 else 2
+    rng = np.random.default_rng(2)
+    w_, m, d, e, k, f = 4, 64, 128, 16, 2, 96
+    x = rng.standard_normal((w_, m, d)).astype(np.float32)
+    ids, wts, _ = moe_overlap.moe_router(torch.from_numpy(x), torch.from_numpy(rng.standard_normal((d, e))
+                                                                               .astype(np.float32)),
+                                         num_experts=e, top_k=k)  # fmt: skip
+    ops = (x, ids.numpy(), wts.numpy(), (rng.standard_normal((w_, e // w_, d, 2 * f)) * d**-0.5).astype(np.float32),
+           (rng.standard_normal((w_, e // w_, f, d)) * f**-0.5).astype(np.float32))  # fmt: skip
+    cfg = dataclasses.replace(reduce_config(get_config("deepseek-moe-16b")), vocab_size=512, n_layers=4)
+    job = {"ops": ops, "cfg": cfg, "prompts": rng.integers(0, 512, (2, 16)), "max_len": 24, "forced": [5, 77, 300, 11]}
+    got = serve.run_tp(_tp_moe_cards_worker, w_, procs, dev, args=(job,))
+    one = World(w_, dev)
+    args = [torch.as_tensor(a, device=dev) for a in ops]
+    held = w_ // procs
+    for kind in ("ag_moe", ("a2a_dispatch", "combine_rs")):
+        fn = compile_overlap(list(kind) if isinstance(kind, tuple) else kind, BlockChannel(axis="model"), world=one,
+                             backend="fused")  # fmt: skip
+        want = fn(*args).cpu()
+        for p, g in enumerate(got):
+            out, twice, launches = g["ops"][str(kind)]
+            ref = want[p * held : (p + 1) * held]
+            assert twice and launches == 2 * 2 * w_, (kind, p, twice, launches)
+            assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item(), (kind, p)
+    params = lm.init(cfg, one, torch.Generator(device=dev).manual_seed(0), torch.float32)
+    prompts = torch.as_tensor(job["prompts"], device=dev)
+    with torch.no_grad():
+        for ep in (None, "model"):
+            want = lm.prefill(params, cfg, ParallelContext(world=one, ep_axis=ep), prompts, max_len=16)[0].cpu()
+            assert all(bool(((g["logits"][ep] - want).abs() <= 2e-3 + 2e-3 * want.abs()).all()) for g in got), ep
+    for stream in (False, True):
+        refs = _forced_logits(params, cfg, ParallelContext(world=one, moe_decode_stream=stream), job)
+        for g in got:
+            for lg, ref in zip(g["decode"][stream], refs):
+                assert bool(((lg - ref).abs() <= 2e-3 + 2e-3 * ref.abs()).all()), stream

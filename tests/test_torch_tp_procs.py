@@ -20,9 +20,10 @@ Held:
     reference's and bitwise P = 1's in overlap mode (within ``RS_TOL`` in
     baseline mode, whose GEMM+RS is a reduce_scatter); greedy tokens equal to
     the reference's greedy decoding; the engine's tokens equal to P = 1's;
-  * the refusals: data axes with processes, an unported layer kind, ring
-    attention, fused seams, training an MoE model, capture and tuning over
-    processes, the fused wrappers on CPU tensors over processes,
+  * the refusals: data axes with processes, an unported layer kind (Mamba,
+    at init and in training: MoE runs over processes and is
+    held in ``tests/test_torch_tp_moe.py``), ring attention, fused seams,
+    capture and tuning over processes, the fused wrappers on CPU tensors over processes,
     ``--procs`` beyond the visible cards or not dividing W, ``--procs``
     with ``--data`` (serve and train);
   * the serve CLI at ``--procs 2`` prints the tokens of ``--procs 1``;
@@ -147,12 +148,13 @@ def _refusals(world: World, job: dict) -> dict:
     cases = {
         "data": lambda: ParallelContext(world=world, data=world.procs),
         "tune": lambda: ParallelContext(world=world, tune=True),
-        "moe": lambda: lm.init(dataclasses.replace(reduce_config(get_config("granite-moe-3b-a800m")),
-                                                   vocab_size=VOCAB), world, torch.Generator().manual_seed(0)),
+        # "moe" / "train": the layer kind refused at init and in training over processes, now Mamba
+        "moe": lambda: lm.init(dataclasses.replace(reduce_config(get_config("mamba2-2.7b")), vocab_size=VOCAB),
+                               world, torch.Generator().manual_seed(0)),
         "ring": lambda: pc.ring_attention(x, x, x),
         "seams": lambda: lm.forward(params, cfg, dataclasses.replace(pc, fuse_seams=True),
                                     torch.zeros((1, 8), dtype=torch.int64)),
-        "train": lambda: make_train_step(lm, dataclasses.replace(reduce_config(get_config("granite-moe-3b-a800m")),
+        "train": lambda: make_train_step(lm, dataclasses.replace(reduce_config(get_config("mamba2-2.7b")),
                                                                  vocab_size=VOCAB), pc, AdamWConfig()),
         "capture": lambda: ServeEngine(cfg, pc, params, capture=True, **ENGINE_KW),
         "fused_cpu": lambda: K.ag_gemm(torch.zeros((world.held, 4, 8)), torch.zeros((world.held, 8, 8)), world=world),
@@ -321,10 +323,10 @@ def test_engine_tokens_equal_p1_and_it_steps_eagerly(tp, mode):
 REFUSED = {
     "data": "ValueError: a TP world over processes takes no data axes",
     "tune": "ValueError: tune=True over a TP world of processes",
-    "moe": "NotImplementedError: granite-moe-3b-a800m: layers",
+    "moe": "NotImplementedError: mamba2-2.7b: layers",
     "ring": "NotImplementedError: ring attention over a TP world of 2 processes",
     "seams": "NotImplementedError: the fused RS -> AG seam over a TP world of 2 processes",
-    "train": "NotImplementedError: training granite-moe-3b-a800m: layers",
+    "train": "NotImplementedError: training mamba2-2.7b: layers",
     "capture": "ValueError: no CUDA-graph capture over a TP world of processes",
     "fused_cpu": "ValueError: ag_gemm: the peer route over processes runs on the card",
 }
